@@ -1,0 +1,17 @@
+"""terminal_raytracer_tpu_torch — the terminal path tracer on PyTorch with
+hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+
+A port of ``terminal_raytracer_tpu`` (JAX/Pallas), which stays the
+reference it is tested against. Layout follows the JAX package:
+
+  ops/       vecmath, rng, sampling, geometry (scene tables + sweeps),
+             tracer (the reference transport in plain PyTorch), kernels
+             (the sorted two-kernel pipeline and its CUDA wrappers), build
+             (nvcc + ctypes), tonemap
+  runtime/   render step + frame state, engine, ANSI blitter, terminal,
+             timers
+  csrc/      the CUDA kernels (kernel_base.cu, kernel_extra.cu, trace.cuh)
+
+Scene models come from ``terminal_raytracer_tpu.models`` (numpy only);
+nothing here imports jax.
+"""

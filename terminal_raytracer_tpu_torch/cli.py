@@ -1,0 +1,112 @@
+"""Command-line entry point — ``terminal_raytracer_tpu/cli.py``.
+
+Reference flags: --full-color, --verbose, --threads N, --path FILE; plus
+--scene, --frames, --width, --height, --spp, --depth and --device. In the
+interactive viewer WASD moves, arrows steer, ESC exits.
+
+Run: python -m terminal_raytracer_tpu_torch [flags]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="terminal-raytracer-tpu-torch",
+        description="Terminal path tracer on PyTorch with hand-written CUDA "
+                    "kernels.",
+    )
+    p.add_argument("--full-color", action="store_true",
+                   help="render 24-bit truecolor block cells instead of ASCII")
+    p.add_argument("--verbose", action="store_true",
+                   help="print device/runtime info")
+    p.add_argument("--threads", type=int, default=0,
+                   help="host blitter threads (default: all cores)")
+    p.add_argument("--path", metavar="FILE", default=None,
+                   help="scene JSON path (default: packaged Cornell box)")
+    p.add_argument("--scene", default=None,
+                   help="packaged scene name (Cornell_Box, demo, scene2, ...)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda runs the CUDA kernels (default); cpu runs their "
+                        "plain PyTorch versions")
+    p.add_argument("--frames", type=int, default=None, metavar="N",
+                   help="headless: render N accumulated frames and exit")
+    p.add_argument("--width", type=int, default=None, help="override")
+    p.add_argument("--height", type=int, default=None, help="override")
+    p.add_argument("--spp", type=int, default=None,
+                   help="override samples_per_pixel")
+    p.add_argument("--depth", type=int, default=None, help="override max_depth")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from terminal_raytracer_tpu.models import load_scene
+
+    from .runtime.engine import Engine
+    from .runtime.terminal import terminal_size
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda needs a CUDA GPU, and torch sees none "
+              "(use --device cpu for the plain PyTorch versions)",
+              file=sys.stderr)
+        return 2
+    if args.path and args.scene:
+        print("error: --path and --scene are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    if args.frames is not None and args.frames < 1:
+        print(f"error: --frames must be >= 1 (got {args.frames})",
+              file=sys.stderr)
+        return 2
+    try:
+        scene = load_scene(args.path or args.scene).with_overrides(
+            width=args.width, height=args.height,
+            samples_per_pixel=args.spp, max_depth=args.depth,
+        )
+    except (FileNotFoundError, ValueError, KeyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    interactive = args.frames is None
+    if interactive:
+        tw, th = terminal_size()
+        scene = scene.clamp_to_terminal(tw, th)
+
+    print("outputting with █ characters" if args.full_color
+          else "outputting with ASCII characters")
+    try:
+        engine = Engine(scene, full_color=args.full_color, device=args.device,
+                        threads=args.threads, verbose=args.verbose)
+    except ValueError as e:  # a scene feature the port lacks
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    if interactive:
+        if not sys.stdin.isatty():
+            print("error: interactive mode needs a tty (use --frames N for "
+                  "headless rendering)", file=sys.stderr)
+            return 2
+        engine.run_interactive()
+        return 0
+
+    _rgb, glyphs, rays, mean_spp = engine.run_headless(args.frames)
+    if not args.full_color:
+        from .ops.tonemap import GLYPH_RAMP
+
+        for row in glyphs:
+            print("".join(GLYPH_RAMP[min(int(i), 67)] for i in row))
+    if args.verbose:
+        print(f"[headless] {engine.frame_count} frames, {rays:.3e} rays in "
+              f"last frame, mean spp {mean_spp:.1f}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,89 @@
+// Kernel A of the sorted render pipeline: the base phase.
+//
+// Replaces terminal_raytracer_tpu/ops/pallas_kernel.py make_base_kernel /
+// kernel_base (the packed-stream Pallas kernel with the fold_budget
+// epilogue). The TPU kernel packs `pair` pixels per lane and drives a
+// scalar-carry while loop over tracer.stream_step to keep (16, 128) vector
+// tiles full under Mosaic's limits; none of that carries over. Here one
+// thread owns one pixel p = y*w + x (global y = y0 + local row): it seeds
+// the pixel's PCG chain, renders `base` samples, each a plain bounce loop
+// until a miss, a roulette kill or max_depth, and writes the pixel's
+// csum[3], csumsq[3], owed rays, variance and adaptive extra budget, and
+// its end RNG state. Per-pixel chains do not depend on scheduling, so the
+// results match every JAX scheduler and the plain PyTorch version
+// (ops/kernels.py base_kernel_plain).
+//
+// What bounds it on an H100: divergent control flow (path lengths differ
+// per thread and a warp runs until its longest path ends), registers (the
+// whole path state lives in them), and FP32 ALU and SFU work (intersection
+// sweeps, sqrt, division, sin/cos). It reads a few hundred bytes of scene
+// table (L1-resident) and writes 44 bytes per pixel: almost no DRAM
+// traffic. A simple kernel that is right is the goal here; persistent
+// threads and warp-level path regeneration are later work. --fmad=false
+// keeps its rounding equal to the plain version's; what that costs is not
+// measured yet.
+
+#include "trace.cuh"
+
+// Launch arguments, passed by value (mirrored by ctypes in ops/kernels.py).
+struct BaseArgs {
+  trt::Frame f;
+  int h_out, y0, base, spp;
+  uint32_t seed, frame;
+  float inv_base;   // f32(1 / base)
+  float max_extra;  // f32(spp - base) when base < spp, else 0
+};
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+    kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                long long* __restrict__ state_out, unsigned long long* __restrict__ iters) {
+  const int n = a.h_out * a.f.width;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned my_iters = 0;
+  if (i < n) {
+    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+    const int x = i % a.f.width;
+    const int y = a.y0 + i / a.f.width;
+    uint32_t pix = (uint32_t)y * (uint32_t)a.f.width + (uint32_t)x;
+    uint32_t state = pix * 1973u + a.seed * 9277u + a.frame * 12345u;
+    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
+    float rays = 0.0f;
+    my_iters = trt::run_samples(a.f, sc, state, 0, (float)a.base, (float)x, (float)y, csum,
+                                &csumsq, rays);
+    // Variance of the base samples and the adaptive budget (the
+    // fold_budget epilogue: tracer.variance_of + tracer.extra_quota).
+    trt::V3 mean = csum * a.inv_base;
+    trt::V3 dv = csumsq * a.inv_base - mean * mean;
+    float var = dv.x + dv.y + dv.z;
+    float additional = 0.0f;
+    if (a.base < a.spp && var > 10.0f) additional = fminf(floorf(var * 50.0f), a.max_extra);
+    out[0 * n + i] = csum.x;
+    out[1 * n + i] = csum.y;
+    out[2 * n + i] = csum.z;
+    out[3 * n + i] = csumsq.x;
+    out[4 * n + i] = csumsq.y;
+    out[5 * n + i] = csumsq.z;
+    out[6 * n + i] = rays;
+    out[7 * n + i] = var;
+    out[8 * n + i] = additional;
+    state_out[i] = (long long)state;
+  }
+  trt::count_warp_iters(my_iters, iters);
+}
+
+}  // namespace
+
+// out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
+// state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
+extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float* out,
+                               long long* state_out, unsigned long long* iters, void* stream) {
+  const int n = a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_base<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,74 @@
+// Kernel B of the sorted render pipeline: the adaptive extra samples.
+//
+// Replaces terminal_raytracer_tpu/ops/pallas_kernel.py make_extra_kernel /
+// kernel_extra (with its _regen_driver). Its input is the stream that the
+// glue in ops/kernels.py sorts by descending budget: entry i names pixel
+// (xs, ys), the pixel's RNG state after the base phase, its extra budget
+// `add` and the sample index `samp0` its chain continues at. One thread
+// owns one entry and renders `add` samples, each a plain bounce loop, then
+// writes esum[3] and the owed rays. A thread with add == 0 writes zeros
+// and exits: the counterpart of the Pallas kernel's pl.when tile skip. The
+// sort puts such threads together in whole warps, so those warps finish at
+// once.
+//
+// What bounds it on an H100: divergent control flow (per-entry budgets and
+// path lengths differ; a warp runs until its longest entry ends),
+// registers, and FP32 ALU and SFU work; a few hundred bytes of L1-resident
+// scene table and 40 bytes per entry of DRAM traffic. A simple kernel that
+// is right is the goal here; persistent threads and warp-level path
+// regeneration are later work. Built with --fmad=false like kernel A.
+
+#include "trace.cuh"
+
+// Launch arguments, passed by value (mirrored by ctypes in ops/kernels.py).
+struct ExtraArgs {
+  trt::Frame f;
+  int n_entries;
+};
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+    kernel_extra(ExtraArgs a, const float* __restrict__ scene_buf, const int* __restrict__ xs,
+                 const int* __restrict__ ys, const long long* __restrict__ state_in,
+                 const float* __restrict__ add, const int* __restrict__ samp0,
+                 float* __restrict__ out, unsigned long long* __restrict__ iters) {
+  const int n = a.n_entries;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned my_iters = 0;
+  if (i < n) {
+    trt::V3 esum = {0.0f, 0.0f, 0.0f};
+    float rays = 0.0f;
+    const float budget = add[i];
+    if (budget > 0.0f) {
+      const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+      uint32_t state = (uint32_t)state_in[i];
+      const int s0 = samp0[i];
+      my_iters = trt::run_samples(a.f, sc, state, s0, budget + (float)s0, (float)xs[i],
+                                  (float)ys[i], esum, nullptr, rays);
+    }
+    out[0 * n + i] = esum.x;
+    out[1 * n + i] = esum.y;
+    out[2 * n + i] = esum.z;
+    out[3 * n + i] = rays;
+  }
+  trt::count_warp_iters(my_iters, iters);
+}
+
+}  // namespace
+
+// xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
+// out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64.
+// Returns cudaGetLastError().
+extern "C" int trt_kernel_extra(const ExtraArgs* a, const float* scene_buf, const int* xs,
+                                const int* ys, const long long* state_in, const float* add,
+                                const int* samp0, float* out, unsigned long long* iters,
+                                void* stream) {
+  const int n = a->n_entries;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_extra<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters);
+  }
+  return (int)cudaGetLastError();
+}

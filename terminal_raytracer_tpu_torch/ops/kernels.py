@@ -1,0 +1,288 @@
+"""The sorted two-kernel render pipeline —
+``terminal_raytracer_tpu/ops/pallas_kernel.py`` make_sorted_render_frame.
+
+  kernel A  base_kernel: `base` samples per pixel, with each pixel's
+            variance and adaptive extra budget (csrc/kernel_base.cu)
+  glue      torch.sort of the pixels by descending budget, carrying each
+            pixel's id and RNG state, padded to a (rows_b, 512) stream
+  kernel B  extra_kernel: the extra samples over the sorted stream
+            (csrc/kernel_extra.cu)
+  glue      unsort by index_copy_, then tracer.combine_phases
+
+Each kernel wrapper takes its plain PyTorch version (``*_plain``, built on
+ops/tracer.py) when the tensors it is given lie on the CPU; for CUDA
+tensors it launches the kernel or raises. Each wrapper counts its
+launches in ``<wrapper>.launches``. The sort and scatter are plain torch
+ops, as they are plain XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import tracer as tracer_mod
+from .build import load_kernels
+from .vecmath import V3
+
+TILE_H = 16  # sorted-stream rows are padded to a multiple of this
+STREAM_COLS = 512  # the JAX package's (rows_b, 4 * 128) stream width
+
+
+class _Frame(ctypes.Structure):
+    _fields_ = [("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("max_depth", ctypes.c_int), ("n_sph", ctypes.c_int),
+                ("n_pln", ctypes.c_int), ("n_tri", ctypes.c_int),
+                ("n_lights", ctypes.c_int), ("pose", ctypes.c_float * 12),
+                ("half_w", ctypes.c_float), ("half_h", ctypes.c_float),
+                ("inv_char_aspect", ctypes.c_float), ("w1", ctypes.c_float),
+                ("h1", ctypes.c_float)]
+
+
+class _BaseArgs(ctypes.Structure):
+    _fields_ = [("f", _Frame), ("h_out", ctypes.c_int), ("y0", ctypes.c_int),
+                ("base", ctypes.c_int), ("spp", ctypes.c_int),
+                ("seed", ctypes.c_uint32), ("frame", ctypes.c_uint32),
+                ("inv_base", ctypes.c_float), ("max_extra", ctypes.c_float)]
+
+
+class _ExtraArgs(ctypes.Structure):
+    _fields_ = [("f", _Frame), ("n_entries", ctypes.c_int)]
+
+
+class BaseOut(NamedTuple):
+    """Kernel A's per-pixel planes ([h_out, w]) and its executed
+    lane-iterations (0-dim f64 tensor, the occupancy denominator)."""
+
+    csum: V3
+    csumsq: V3
+    state: torch.Tensor  # int64 holding the u32 end state
+    rays: torch.Tensor
+    var: torch.Tensor
+    additional: torch.Tensor
+    iters: torch.Tensor
+
+
+def _frame(tracer: tracer_mod.PathTracer, pose) -> _Frame:
+    n_sph, n_pln, n_tri, n_lights = tracer.tables.counts
+    pose = np.asarray(pose, np.float32)
+    return _Frame(tracer.width, tracer.height, tracer.max_depth, n_sph,
+                  n_pln, n_tri, n_lights,
+                  (ctypes.c_float * 12)(*pose[:12].tolist()),
+                  tracer.half_width, tracer.half_height,
+                  tracer.inv_char_aspect, float(tracer.width - 1),
+                  float(tracer.height - 1))
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _iters_tensor(n, device) -> torch.Tensor:
+    return torch.tensor(float(n), dtype=torch.float64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A
+# ---------------------------------------------------------------------------
+
+
+def base_kernel_plain(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                      h_out: int = None) -> BaseOut:
+    """Kernel A in plain PyTorch (any device)."""
+    cam = tracer_mod.cam_from_pose(pose)
+    x, y = tracer.pixel_grid(y0, h_out)
+    state, csum, csumsq, rays, it = tracer.base_phase(
+        cam, x.to(torch.float32), y.to(torch.float32),
+        tracer.seed_lanes(x, y, seed, frame_number))
+    var = tracer.variance_of(csum, csumsq)
+    if tracer.base_samples < tracer.spp:
+        additional = tracer.extra_quota(var)[1]
+    else:
+        additional = torch.zeros_like(var)
+    return BaseOut(csum, csumsq, state, rays, var, additional,
+                   _iters_tensor(it, var.device))
+
+
+def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                h_out: int = None) -> BaseOut:
+    """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
+    device of `tracer`'s scene tables."""
+    device = tracer.tables.buf.device
+    if device.type == "cpu":
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    if device.type != "cuda":
+        raise ValueError(f"base_kernel: unsupported device {device}")
+    h_out = tracer.height if h_out is None else h_out
+    w, base, spp = tracer.width, tracer.base_samples, tracer.spp
+    n = h_out * w
+    out = torch.empty((9, n), dtype=torch.float32, device=device)
+    state = torch.empty((n,), dtype=torch.int64, device=device)
+    iters = torch.zeros((1,), dtype=torch.int64, device=device)
+    args = _BaseArgs(_frame(tracer, pose), h_out, y0, base, spp,
+                     seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF,
+                     float(np.float32(1.0 / base)),
+                     float(max(spp - base, 0)))
+    err = load_kernels().trt_kernel_base(
+        ctypes.byref(args), tracer.tables.buf.data_ptr(), out.data_ptr(),
+        state.data_ptr(), iters.data_ptr(), _stream(device))
+    _check(err, "kernel_base")
+    base_kernel.launches += 1
+    p = out.view(9, h_out, w)
+    return BaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
+                   state.view(h_out, w), p[6], p[7], p[8],
+                   iters[0].to(torch.float64))
+
+
+base_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B
+# ---------------------------------------------------------------------------
+
+
+def extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B in plain PyTorch (any device): returns (esum V3, rays,
+    executed lane-iterations) over the entries."""
+    cam = tracer_mod.cam_from_pose(pose)
+    esum, rays, it = tracer.extra_phase(
+        cam, xs.to(torch.float32), ys.to(torch.float32), state, add,
+        samp0.to(torch.int64))
+    return esum, rays, _iters_tensor(it, rays.device)
+
+
+def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B: entry i renders `add[i]` extra samples of pixel
+    (xs[i], ys[i]) continuing RNG `state[i]` at sample index `samp0[i]`.
+    xs, ys, samp0 int32; state int64; add f32; all of one shape."""
+    device = xs.device
+    if any(t.device != device for t in (ys, state, add, samp0,
+                                        tracer.tables.buf)):
+        raise ValueError("extra_kernel: inputs and scene tables must lie on "
+                         "one device")
+    if device.type == "cpu":
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if device.type != "cuda":
+        raise ValueError(f"extra_kernel: unsupported device {device}")
+    shape = xs.shape
+    for t, dtype in ((xs, torch.int32), (ys, torch.int32),
+                     (state, torch.int64), (add, torch.float32),
+                     (samp0, torch.int32)):
+        if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            raise ValueError("extra_kernel: inputs must be contiguous "
+                             "int32 xs/ys/samp0, int64 state and f32 add of "
+                             "one shape")
+    n = xs.numel()
+    out = torch.empty((4, n), dtype=torch.float32, device=device)
+    iters = torch.zeros((1,), dtype=torch.int64, device=device)
+    args = _ExtraArgs(_frame(tracer, pose), n)
+    err = load_kernels().trt_kernel_extra(
+        ctypes.byref(args), tracer.tables.buf.data_ptr(), xs.data_ptr(),
+        ys.data_ptr(), state.data_ptr(), add.data_ptr(), samp0.data_ptr(),
+        out.data_ptr(), iters.data_ptr(), _stream(device))
+    _check(err, "kernel_extra")
+    extra_kernel.launches += 1
+    p = out.view(4, *shape)
+    return V3(p[0], p[1], p[2]), p[3], iters[0].to(torch.float64)
+
+
+extra_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The glue and the pipeline
+# ---------------------------------------------------------------------------
+
+
+class SortedStream(NamedTuple):
+    """Kernel B's input: pixels sorted by descending budget, padded with
+    zero-budget entries to (rows, 512); `order` maps entry -> flat pixel."""
+
+    order: torch.Tensor
+    xs: torch.Tensor
+    ys: torch.Tensor
+    state: torch.Tensor
+    add: torch.Tensor
+    samp0: torch.Tensor
+
+
+def sorted_stream(tracer, state, additional) -> SortedStream:
+    """Sort the image's pixels by descending extra budget (zero-budget
+    entries end up in whole warps), carrying pixel id and RNG state."""
+    n = additional.numel()
+    rows = -(-n // STREAM_COLS)
+    rows = -(-rows // TILE_H) * TILE_H
+    n_pad = rows * STREAM_COLS - n
+
+    def pad(a, fill):
+        return torch.cat([a, a.new_full((n_pad,), fill)]).view(
+            rows, STREAM_COLS)
+
+    neg, order = torch.sort(-additional.reshape(-1))
+    pix = pad(order.to(torch.int32), 0)
+    xs = pix % tracer.width
+    return SortedStream(order, xs, pix // tracer.width,
+                        pad(state.reshape(-1)[order], 0), pad(-neg, 0.0),
+                        torch.full_like(xs, tracer.base_samples))
+
+
+def unsort(stream: SortedStream, plane: torch.Tensor, shape) -> torch.Tensor:
+    """Scatter a per-entry plane back to image order."""
+    n = stream.order.numel()
+    flat = torch.zeros((n,), dtype=plane.dtype, device=plane.device)
+    return flat.index_copy_(0, stream.order, plane.reshape(-1)[:n]).view(shape)
+
+
+def make_sorted_extra_phase(tracer):
+    """The sort glue + kernel B. Returns ``extra_phase(pose, state,
+    additional) -> (esum V3 [H, W], rays, lane_iters)``."""
+
+    def extra_phase(pose, state, additional):
+        s = sorted_stream(tracer, state, additional)
+        esum_s, rays_s, iters = extra_kernel(tracer, pose, s.xs, s.ys,
+                                             s.state, s.add, s.samp0)
+        esum = V3(*(unsort(s, c, state.shape) for c in esum_s))
+        return esum, rays_s.sum(dtype=torch.float64), iters
+
+    return extra_phase
+
+
+def make_sorted_render_frame(tracer):
+    """``render_frame(pose, seed, frame_number) -> (current V3, variance,
+    total samples, rays, occupancy)`` through kernel A, the sort, kernel B
+    and combine_phases; rays and occupancy are 0-dim f64 tensors on the
+    device (no host sync)."""
+    base, spp = tracer.base_samples, tracer.spp
+    extra_phase = make_sorted_extra_phase(tracer) if base < spp else None
+    sweeps_per_iter = 1.0 + tracer.n_lights
+
+    def render_frame(pose, seed: int, frame_number: int):
+        a = base_kernel(tracer, pose, seed, frame_number)
+        rays = a.rays.sum(dtype=torch.float64)
+        iters = a.iters
+        if extra_phase is None:
+            current = a.csum * (1.0 / spp)
+            total = torch.full_like(a.var, float(base))
+        else:
+            # Budgets are all-or-nothing under the reference's constants
+            # (var > 10 => floor(var * 50) >= spp - base), so a needy
+            # pixel never has a zero budget.
+            needs = a.additional > 0.0
+            esum, rays_b, it_b = extra_phase(pose, a.state, a.additional)
+            current, total = tracer.combine_phases(a.csum, esum, needs,
+                                                   a.additional)
+            rays = rays + rays_b
+            iters = iters + it_b
+        occ = rays / torch.clamp(iters * sweeps_per_iter, min=1.0)
+        return current, a.var, total, rays, occ
+
+    return render_frame

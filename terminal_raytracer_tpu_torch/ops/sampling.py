@@ -1,0 +1,78 @@
+"""Monte-Carlo direction and area sampling over lanes —
+``terminal_raytracer_tpu/ops/sampling.py`` (the samplers of the reference
+transport; the extension samplers and the polynomial ``atan2`` are not
+ported yet).
+
+Per-lane divergent branches (the ONB axis pick) become ``where`` selects;
+RNG draws happen in the JAX package's order with its gates.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import rng as prng
+from . import vecmath as vm
+from .vecmath import V3
+
+TWO_PI = 2.0 * 3.14159265359  # the shader's literal pi
+PI = 3.14159265359
+
+
+def orthonormal_basis(w: V3) -> Tuple[V3, V3]:
+    """(u, v) completing normalized w: u is built from the y-axis when
+    |w.x| > 0.1, else from the x-axis."""
+    use_y = torch.abs(w.x) > 0.1
+    zeros = torch.zeros_like(w.x)
+    # cross((0,1,0), w) = (w.z, 0, -w.x); cross((1,0,0), w) = (0, -w.z, w.y)
+    u_y = vm.normalize(V3(w.z, zeros, -w.x))
+    u_x = vm.normalize(V3(zeros, -w.z, w.y))
+    u = vm.where(use_y, u_y, u_x)
+    v = vm.cross(w, u)
+    return u, v
+
+
+def cosine_hemisphere(state: torch.Tensor, normal: V3,
+                      gate: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, V3]:
+    """Cosine-weighted direction about `normal`; 2 gated draws."""
+    state, r1, r2 = prng.next_f32_pair(state, gate)
+    cos_theta = torch.sqrt(r1)
+    sin_theta = torch.sqrt(1.0 - r1)
+    phi = TWO_PI * r2
+    x = sin_theta * torch.cos(phi)
+    y = sin_theta * torch.sin(phi)
+    z = cos_theta
+    w = vm.normalize(normal)
+    u, v = orthonormal_basis(w)
+    return state, vm.normalize(u * x + v * y + w * z)
+
+
+def sphere_light_point(state: torch.Tensor, center: V3, radius,
+                       gate: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, V3, V3]:
+    """Uniform point on a sphere light; 2 gated draws. Returns (state',
+    point, light normal). The caller supplies the light's area."""
+    state, r1, r2 = prng.next_f32_pair(state, gate)
+    cos_theta = 1.0 - 2.0 * r1
+    sin_theta = torch.sqrt(1.0 - cos_theta * cos_theta)
+    phi = TWO_PI * r2
+    local = V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+               cos_theta)
+    point = center + local * radius
+    return state, point, local
+
+
+def triangle_light_point(state: torch.Tensor, v0: V3, v1: V3, v2: V3,
+                         gate: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, V3]:
+    """Uniform point on a triangle light; 2 gated draws. The caller
+    supplies the (precomputed) normal and area."""
+    state, r1, r2 = prng.next_f32_pair(state, gate)
+    sqrt_r1 = torch.sqrt(r1)
+    u = 1.0 - sqrt_r1
+    v = r2 * sqrt_r1
+    point = v0 * (1.0 - u - v) + v1 * u + v2 * v
+    return state, point

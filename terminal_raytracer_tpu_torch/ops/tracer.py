@@ -1,0 +1,382 @@
+"""The reference transport as plain PyTorch over lanes —
+``terminal_raytracer_tpu/ops/tracer.py`` with every extension gate off.
+
+This is the port's oracle and the plain version of both CUDA kernels
+(ops/kernels.py): the same lane math the kernels run per thread, written as
+masked tensor ops over a batch of pixels. Every RNG draw keeps the JAX
+package's gate and order, so each pixel's chain is bit-identical to the
+reference's thread; floating-point expressions keep its operation order.
+
+Reference behaviours kept: emission added on every hit plus NEE over every
+light each bounce; the NEE clamp at 10; the sky gradient on a miss; 1e-3
+ray offsets; Russian roulette from bounce 4 (kill first, then compensate);
+adaptive sampling with base = max(4, spp // 4), budget min(spp - base,
+floor(var * 50)) iff var > 10, and the reference's normalisation quirks.
+
+The scheduler is path regeneration (``regen_step``): a lane whose path ends
+starts its next sample on the next iteration, so one loop covers a pixel's
+whole sample quota. Scheduling never changes a pixel's chain.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from terminal_raytracer_tpu.models import scene as scene_mod
+
+from . import geometry as geom
+from . import rng as prng
+from . import sampling
+from . import vecmath as vm
+from .vecmath import V3
+
+SKY_INTENSITY = 0.8
+SKY_TOP = (0.5, 0.7, 1.0)
+NEE_CLAMP = 10.0
+RR_START_BOUNCE = 3  # roulette runs on bounce indices > 3
+RR_MAX_SURVIVAL = 0.95
+ADAPTIVE_VAR_THRESHOLD = 10.0
+ADAPTIVE_VAR_SCALE = 50.0
+
+
+class Cam(NamedTuple):
+    """Per-frame camera basis (Python floats holding f32 values)."""
+
+    pos: V3
+    forward: V3
+    right: V3
+    up: V3
+
+
+def cam_from_pose(pose) -> Cam:
+    """Unpack a models.Camera.pose() (16,) f32 array."""
+    p = [float(v) for v in np.asarray(pose, np.float32)[:12]]
+    return Cam(V3(*p[0:3]), V3(*p[3:6]), V3(*p[6:9]), V3(*p[9:12]))
+
+
+def sky_color(d: V3) -> V3:
+    t = 0.5 * (d.y + 1.0)
+    one = 1.0 - t
+    return V3(
+        (one + t * SKY_TOP[0]) * SKY_INTENSITY,
+        (one + t * SKY_TOP[1]) * SKY_INTENSITY,
+        (one + t * SKY_TOP[2]) * SKY_INTENSITY,
+    )
+
+
+def base_sample_count(spp: int) -> int:
+    """base = max(4, spp // 4)."""
+    return max(4, spp // 4)
+
+
+def check_reference_scene(scene: scene_mod.Scene) -> None:
+    """Raise ValueError if `scene` needs a feature the port lacks so far."""
+    missing = [name for name, on in (
+        ("dielectrics", scene.has_dielectrics),
+        ("rough metals", scene.has_rough_metals),
+        ("checker textures", scene.has_checker),
+        ("image textures, normal maps or sky maps", scene.needs_atlas),
+        ("fog", scene.has_fog),
+        ("depth of field", scene.camera.aperture > 0.0),
+        ("the stratified sampler", scene.sampler != "reference"),
+        ("one-light NEE", scene.light_sample != "all"
+         and len(scene.lights) > 1),
+    ) if on]
+    if missing:
+        raise ValueError("the PyTorch port does not support "
+                         + ", ".join(missing) + " yet")
+
+
+class Paths(NamedTuple):
+    """Regeneration-scheduler carry, one entry per lane."""
+
+    state: torch.Tensor  # int64 holding u32 RNG state
+    samp: torch.Tensor  # int64 absolute sample index
+    quota: torch.Tensor  # f32 absolute sample quota
+    o: V3
+    d: V3
+    att: V3
+    acc: V3  # radiance of the in-flight sample
+    bounce: torch.Tensor  # int64
+    alive: torch.Tensor  # bool
+    csum: V3
+    csumsq: V3
+    rays: torch.Tensor  # f32 owed traversal sweeps
+
+
+class PathTracer:
+    """The reference transport for one static scene on one device."""
+
+    def __init__(self, scene: scene_mod.Scene, device):
+        check_reference_scene(scene)
+        self.scene = scene
+        self.device = torch.device(device)
+        self.tables = geom.scene_tables(scene, self.device)
+        self.prims = geom.ScenePrims(self.tables)
+        self.width, self.height = scene.width, scene.height
+        self.spp = scene.samples_per_pixel
+        self.max_depth = scene.max_depth
+        self.base_samples = base_sample_count(self.spp)
+        self.n_lights = len(scene.lights)
+        # f32 camera intrinsics, computed as the JAX package computes them.
+        self.half_height = float(
+            np.tan(np.float32(scene.fov_rad) / np.float32(2)))
+        self.half_width = float(np.float32(
+            float(np.float32(scene.width) / np.float32(scene.height))
+            * self.half_height))
+        self.inv_char_aspect = float(
+            np.float32(1.0) / np.float32(scene.camera.char_aspect_ratio))
+        # Divisors as device tensors: a Python-scalar divisor would become
+        # a reciprocal multiply on CUDA.
+        self._w1 = torch.tensor(float(self.width - 1), device=self.device)
+        self._h1 = torch.tensor(float(self.height - 1), device=self.device)
+        self.lights = []
+        for row in self.tables.lights:
+            kind = int(row[0])
+            emission = V3(row[1], row[2], row[3])
+            a, b, c, n = (V3(row[i], row[i + 1], row[i + 2])
+                          for i in (5, 8, 11, 14))
+            self.lights.append((kind, emission, row[4], a, b, c, n))
+
+    # ------------------------------------------------------------------
+
+    def gen_ray(self, state, cam: Cam, xf, yf, gate=None):
+        """One camera ray per lane: two jitter draws, NDC with the
+        char-aspect squash, then the camera basis."""
+        state, rx = prng.next_f32(state, gate)
+        state, ry = prng.next_f32(state, gate)
+        u = (xf + rx) / self._w1
+        v = ((self.height - 1) - yf + ry) / self._h1
+        ndc_x = 2.0 * u - 1.0
+        ndc_y = (2.0 * v - 1.0) * self.inv_char_aspect
+        vx = self.half_width * ndc_x
+        vy = self.half_height * ndc_y
+        d = vm.normalize(cam.right * vx + cam.up * vy + cam.forward)
+        zeros = torch.zeros_like(d.x)
+        o = V3(zeros + cam.pos.x, zeros + cam.pos.y, zeros + cam.pos.z)
+        return state, o, d
+
+    def direct_light(self, state, p: V3, normal: V3, color: V3, att: V3,
+                     gate):
+        """One NEE estimate per light, in light order; returns (state',
+        direct). RNG advances only on `gate` lanes."""
+        zeros = torch.zeros_like(p.x)
+        direct = vm.splat(zeros)
+        brdf = color * (1.0 / sampling.PI)
+        for kind, emission, area, a, b, c, n in self.lights:
+            if kind == scene_mod.SPHERE:
+                state, lp, ln = sampling.sphere_light_point(state, a, b.x,
+                                                            gate)
+            else:
+                state, lp = sampling.triangle_light_point(state, a, b, c,
+                                                          gate)
+                ln = n
+            lvec = lp - p
+            ldist = vm.length(lvec)
+            ldir = lvec / ldist
+            shadow_o = p + normal * geom.RAY_EPS
+            blocked = self.prims.occluded(shadow_o, ldir, geom.RAY_EPS,
+                                          ldist - geom.RAY_EPS)
+            cos_s = torch.clamp(vm.dot(normal, ldir), min=0.0)
+            cos_l = torch.clamp(vm.dot(ln, -ldir), min=0.0)
+            ok = ~blocked & (cos_s > 0.0) & (cos_l > 0.0)
+            geom_term = (cos_s * cos_l) / (ldist * ldist)
+            weight = geom_term * area
+            contrib = (brdf * emission) * (att * weight)
+            contrib = vm.min_components(contrib, NEE_CLAMP)
+            direct = direct + vm.where(ok, contrib, vm.splat(zeros))
+        return state, direct
+
+    def bounce_step(self, state, o: V3, d: V3, att: V3, acc: V3, alive,
+                    bounce_idx, rays):
+        """Advance every live lane by one bounce. Returns (state, o', d',
+        att', acc', alive', rays'); alive' drops lanes that missed (sky
+        added) or were killed by Russian roulette."""
+        zeros = torch.zeros_like(o.x)
+        hit = self.prims.closest_hit(o, d, geom.RAY_EPS, geom.T_FAR)
+        rays = rays + alive.to(torch.float32)
+        miss_now = alive & ~hit.found
+        live = alive & hit.found
+        acc = acc + vm.where(miss_now, sky_color(d) * att, vm.splat(zeros))
+        acc = acc + vm.where(live, hit.emission * att, vm.splat(zeros))
+        state, direct = self.direct_light(state, hit.p, hit.normal,
+                                          hit.color, att, live)
+        acc = acc + vm.where(live, direct, vm.splat(zeros))
+        rays = rays + torch.where(live, float(self.n_lights), 0.0)
+
+        # Scatter: stochastic mirror-vs-diffuse on one draw.
+        state, r_spec = prng.next_f32(state, live)
+        is_refl = hit.reflectivity > r_spec
+        refl_dir = vm.reflect(d, hit.normal)
+        state, cos_dir = sampling.cosine_hemisphere(state, hit.normal,
+                                                    live & ~is_refl)
+        new_d = vm.where(is_refl, refl_dir, cos_dir)
+        att = vm.where(live, att * hit.color, att)
+        new_o = hit.p + new_d * geom.RAY_EPS
+
+        # Russian roulette: kill first, compensate survivors.
+        rr_on = live & (bounce_idx > RR_START_BOUNCE)
+        state, r_rr = prng.next_f32(state, rr_on)
+        p_surv = torch.clamp(vm.max_component(att), max=RR_MAX_SURVIVAL)
+        killed = rr_on & ((p_surv < r_rr) | (p_surv <= 0.0))
+        att = vm.where(rr_on & ~killed, att / p_surv, att)
+        alive = live & ~killed
+
+        # Sanitize dead lanes so NaNs can't leak into the next sweep.
+        d = vm.where(alive, new_d, V3(zeros, zeros, zeros + 1.0))
+        o = vm.where(alive, new_o, vm.splat(zeros))
+        return state, o, d, att, acc, alive, rays
+
+    # ------------------------------------------------------------------
+    # Path regeneration
+    # ------------------------------------------------------------------
+
+    def regen_carry0(self, state, samp0, quota) -> Paths:
+        zeros = torch.zeros_like(quota)
+        return Paths(
+            state=state, samp=samp0, quota=quota,
+            o=vm.splat(zeros), d=V3(zeros, zeros, zeros + 1.0),
+            att=vm.splat(zeros), acc=vm.splat(zeros),
+            bounce=torch.zeros_like(samp0),
+            alive=torch.zeros(quota.shape, dtype=torch.bool,
+                              device=quota.device),
+            csum=vm.splat(zeros), csumsq=vm.splat(zeros), rays=zeros,
+        )
+
+    def regen_step(self, cam: Cam, xf, yf, c: Paths) -> Paths:
+        """One scheduler iteration: regenerate finished lanes, advance every
+        live lane one bounce, fold finished samples into the sums."""
+        zeros = torch.zeros_like(xf)
+        need = ~c.alive & (c.samp.to(torch.float32) < c.quota)
+        state = prng.advance_sample(c.state, c.samp, need)
+        state, o2, d2 = self.gen_ray(state, cam, xf, yf, need)
+        o = vm.where(need, o2, c.o)
+        d = vm.where(need, d2, c.d)
+        att = vm.where(need, vm.splat(zeros + 1.0), c.att)
+        acc = vm.where(need, vm.splat(zeros), c.acc)
+        bounce = torch.where(need, 0, c.bounce)
+        alive = c.alive | need
+
+        executed = alive
+        state, o, d, att, acc, alive, rays = self.bounce_step(
+            state, o, d, att, acc, alive, bounce, c.rays)
+
+        # A sample ends on a miss or roulette kill, or at max_depth.
+        bounce = torch.where(executed, bounce + 1, bounce)
+        at_depth = alive & (bounce >= self.max_depth)
+        finished = (executed & ~alive) | at_depth
+        csum = c.csum + vm.where(finished, acc, vm.splat(zeros))
+        csumsq = c.csumsq + vm.where(finished, acc * acc, vm.splat(zeros))
+        samp = c.samp + finished.to(torch.int64)
+        alive = alive & ~at_depth
+        return Paths(state, samp, c.quota, o, d, att, acc, bounce, alive,
+                     csum, csumsq, rays)
+
+    def run_regen(self, cam: Cam, xf, yf, c: Paths):
+        """Iterate regen_step until no lane owes work. Returns (carry,
+        iterations)."""
+        max_iters = (self.spp + 1) * self.max_depth + 4  # safety bound
+        it = 0
+        while it < max_iters:
+            pending = c.alive | (c.samp.to(torch.float32) < c.quota)
+            if not bool(pending.any()):
+                break
+            c = self.regen_step(cam, xf, yf, c)
+            it += 1
+        return c, it
+
+    # ------------------------------------------------------------------
+    # The two phases and their glue
+    # ------------------------------------------------------------------
+
+    def seed_lanes(self, x, y, seed: int, frame_number: int):
+        return prng.seed_pixel(y * self.width + x, seed, frame_number)
+
+    def base_phase(self, cam: Cam, xf, yf, state0):
+        """`base` samples per lane. Returns (state, csum, csumsq, rays,
+        executed lane-iterations)."""
+        quota = torch.full_like(xf, float(self.base_samples))
+        c0 = self.regen_carry0(state0, torch.zeros_like(state0), quota)
+        c, it = self.run_regen(cam, xf, yf, c0)
+        return c.state, c.csum, c.csumsq, c.rays, it * xf.numel()
+
+    def variance_of(self, csum: V3, csumsq: V3):
+        """Luminance-sum variance of the base samples (kept raw; can be
+        slightly negative in f32)."""
+        inv = 1.0 / self.base_samples
+        mean = csum * inv
+        return vm.sum_components(csumsq * inv - mean * mean)
+
+    def extra_quota(self, var):
+        """(needs mask, per-lane extra-sample budget)."""
+        needs = var > ADAPTIVE_VAR_THRESHOLD
+        budget = torch.clamp(torch.floor(var * ADAPTIVE_VAR_SCALE),
+                             max=float(self.spp - self.base_samples))
+        return needs, torch.where(needs, budget, 0.0)
+
+    def extra_phase(self, cam: Cam, xf, yf, state, additional, samp0):
+        """`additional` extra samples per lane continuing `state` at sample
+        index `samp0`. Returns (esum, rays, executed lane-iterations).
+        Only lanes with a budget are traced (zero-budget lanes owe nothing
+        and get zeros)."""
+        live = torch.nonzero(additional.reshape(-1) > 0.0).squeeze(1)
+
+        def sub(t):
+            return t.reshape(-1)[live]
+
+        def full(t):
+            out = torch.zeros(additional.numel(), dtype=t.dtype,
+                              device=t.device)
+            return out.index_copy_(0, live, t).view(additional.shape)
+
+        c0 = self.regen_carry0(sub(state), sub(samp0),
+                               sub(additional) + sub(samp0).to(torch.float32))
+        c, it = self.run_regen(cam, sub(xf), sub(yf), c0)
+        return V3(*(full(v) for v in c.csum)), full(c.rays), it * live.numel()
+
+    def combine_phases(self, csum: V3, esum: V3, needs, additional):
+        """The reference's normalisation: adaptive pixels average over the
+        samples taken; the rest divide the base sum by spp."""
+        total = float(self.base_samples) + additional
+        current = vm.where(needs, (csum + esum) * (1.0 / total),
+                           csum * (1.0 / self.spp))
+        return current, total
+
+    # ------------------------------------------------------------------
+
+    def pixel_grid(self, y0: int = 0, h_out: int = None):
+        """(x, y) int64 pixel coordinates of rows [y0, y0 + h_out)."""
+        h_out = self.height if h_out is None else h_out
+        y, x = torch.meshgrid(
+            torch.arange(y0, y0 + h_out, device=self.device),
+            torch.arange(self.width, device=self.device), indexing="ij")
+        return x, y
+
+    def render_frame(self, pose, seed: int, frame_number: int):
+        """The whole frame in plain PyTorch. Returns (current V3[H,W],
+        variance, total samples, owed rays, occupancy) — occupancy is owed
+        sweeps over executed lane-iteration sweeps."""
+        cam = cam_from_pose(pose)
+        x, y = self.pixel_grid()
+        xf, yf = x.to(torch.float32), y.to(torch.float32)
+        state, csum, csumsq, rays, it = self.base_phase(
+            cam, xf, yf, self.seed_lanes(x, y, seed, frame_number))
+        var = self.variance_of(csum, csumsq)
+        if self.base_samples >= self.spp:
+            current = csum * (1.0 / self.spp)
+            total = torch.full_like(var, float(self.base_samples))
+        else:
+            needs, additional = self.extra_quota(var)
+            esum, rays_b, it_b = self.extra_phase(
+                cam, xf, yf, state, additional,
+                torch.full_like(state, self.base_samples))
+            rays = rays + rays_b
+            it += it_b
+            current, total = self.combine_phases(csum, esum, needs,
+                                                 additional)
+        rays_sum = rays.to(torch.float64).sum()
+        occ = rays_sum / max(it * (1.0 + self.n_lights), 1.0)
+        return current, var, total, rays_sum, occ

@@ -1,0 +1,88 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips where torch sees no GPU. The
+file imports no jax, so it runs on a GPU machine without the JAX package's
+dependencies; tests/conftest.py imports jax, hence ``--noconftest``:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Both kernels build with --fmad=false and use the same CUDA math functions
+as PyTorch's own kernels, so they must agree with the plain versions bit
+for bit.
+"""
+
+import pytest
+import torch
+
+from terminal_raytracer_tpu.models import Camera, load_scene
+from terminal_raytracer_tpu_torch.ops import kernels
+from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+from terminal_raytracer_tpu_torch.runtime import init_state, make_render_step
+
+POSE = Camera().pose()
+SEED = 42
+
+
+def _cornell(w, h, spp, depth):
+    return load_scene("Cornell_Box").with_overrides(
+        width=w, height=h, samples_per_pixel=spp, max_depth=depth)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, 8])
+def test_kernels_match_plain_versions(cuda_device, depth):
+    tr = PathTracer(_cornell(128, 16, 16, depth), cuda_device)
+    n0 = kernels.base_kernel.launches
+    k = kernels.base_kernel(tr, POSE, SEED, 0)
+    p = kernels.base_kernel_plain(tr, POSE, SEED, 0)
+    assert kernels.base_kernel.launches == n0 + 1
+    for name in ("rays", "additional", "state", "var"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    for a, b in zip(list(k.csum) + list(k.csumsq),
+                    list(p.csum) + list(p.csumsq)):
+        assert torch.equal(a, b)
+    s = kernels.sorted_stream(tr, k.state, k.additional)
+    args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
+    n0 = kernels.extra_kernel.launches
+    ek, rk, _ = kernels.extra_kernel(*args)
+    ep, rp, _ = kernels.extra_kernel_plain(*args)
+    assert kernels.extra_kernel.launches == n0 + 1
+    assert torch.equal(rk, rp)
+    for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp, depth", [(16, 6), (2, 4)])
+def test_render_step_matches_plain_frame(cuda_device, spp, depth):
+    """The step on the card (both kernels, or kernel A alone when base >=
+    spp) against the plain whole-frame render."""
+    scene = _cornell(96, 24, spp, depth)
+    out = make_render_step(scene, device=cuda_device)(
+        init_state(scene, cuda_device), POSE, SEED, 0)
+    cur, var, total, rays, _occ = PathTracer(scene, cuda_device).render_frame(
+        POSE, SEED, 0)
+    assert float(out.rays) == float(rays)
+    assert torch.equal(out.state.samples, total)
+    assert torch.equal(out.state.variance, var)
+    assert torch.equal(out.state.acc, torch.stack(list(cur)))
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_bad_inputs(cuda_device):
+    tr = PathTracer(_cornell(32, 8, 16, 3), cuda_device)
+    a = kernels.base_kernel(tr, POSE, SEED, 0)
+    s = kernels.sorted_stream(tr, a.state, a.additional)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.extra_kernel(tr, POSE, s.xs.long(), s.ys, s.state, s.add,
+                             s.samp0)
+    with pytest.raises(ValueError, match="one device"):
+        kernels.extra_kernel(tr, POSE, s.xs.cpu(), s.ys, s.state, s.add,
+                             s.samp0)
