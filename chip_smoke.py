@@ -4,8 +4,10 @@ one NVIDIA GPU. Run from the repository root:  python3 chip_smoke.py
 
 Phases, each reported on lines starting with its tag:
 
-  [device]  torch must see a CUDA GPU; nvidia-smi's name and power limit
-  [build]   both CUDA kernels built from csrc/ with nvcc (seconds, ptxas)
+  [device]  torch must see a CUDA GPU; nvidia-smi's name, power limit and
+            maximum SM clock (the FP32 peak of the bounds below)
+  [build]   every CUDA source built from csrc/ with nvcc, one process per
+            source, all at once (seconds, ptxas registers and spills)
   [kernel_base]   kernel A against its plain PyTorch version on the card:
             Cornell_Box 128x16, 16 spp, seed 42, frame 0, depth 8 and 3.
             Owed rays, adaptive budgets and end RNG states must be equal;
@@ -16,20 +18,34 @@ Phases, each reported on lines starting with its tag:
             stream built from the depth-8 output: rays equal, esum within
             5e-3; then both kernels timed against their plain versions at
             the north-star shapes
+  [kernel_base_chunked]  the chunked kernel A against its plain version on
+            stress:120:7 at 64x16, 8 spp, depth 6, chunks of 2: rays, end
+            states and per-pixel totals equal, radiance within 5e-3; then
+            timed against its plain version at the stress1024 shapes, and
+            one stress1024 frame with and without the chunk split
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
-            cli.main run. Launch counters must show every kernel of the
-            path launched once per frame; the accumulation must be finite
-            and the image not flat; the north-star frame must agree with
-            the plain version (rays, samples, radiance within 5e-3).
-            Prints ms/frame and Mray/s (owed traversal sweeps per second)
-            for the kernel path and for the plain version on the card.
+            cli.main run; the north-star frame must agree with the plain
+            version (rays, samples, radiance within 5e-3)
+  [scale]   the many-primitive and animated path through Engine at the
+            JAX package's bench configurations stress1024, mesh1280,
+            stress256, dynamic1024 and dynamic; then one stress1024 frame
+            and one animated frame at t > 0 (dynamic1024, and Cornell at
+            128x32) against the plain pipeline on the card, on the same
+            per-frame scene buffer: rays, samples and variance equal,
+            radiance within 5e-3
+  Each Engine run resets the launch counters, renders a warm-up frame
+  and N frames, and must show every kernel of its path launched once per
+  frame; the accumulation must be finite and the image not flat. It prints
+  ms/frame, Mray/s (owed traversal sweeps per second) and occupancy.
 
-Then one JSON line with each kernel's result, the nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}. A failed phase raises or exits
-non-zero and prints no result; nothing falls back to the plain version or
-to the CPU.
+Then one JSON line with each kernel's result (its bound: the FP32
+operations of the intersection tests its plain version counts for the same
+inputs, over the card's FP32 peak, or its bytes over 3.35 TB/s, whichever
+is larger), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
+prints no result; nothing falls back to the plain version or to the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +57,8 @@ import time
 
 TOL = 5e-3
 SEED = 42
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+LANES_PER_SM = 128  # FP32 lanes of one Hopper SM
 
 
 def fail(msg: str) -> None:
@@ -57,52 +75,72 @@ def maxabs(k, p) -> float:
     return float((k.double() - p.double()).abs().max())
 
 
+def _smi(query: str) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"[device] nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
+    """Returns (nvidia-smi name/power line, FP32 peak in FLOP/s)."""
     import torch
 
     if not torch.cuda.is_available():
         fail("[device] torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"[device] nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = _smi("name,power.limit")
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = n_sm * LANES_PER_SM * 2 * clock_mhz * 1e6
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"{torch.cuda.get_device_name(0)} | {smi_line}", flush=True)
-    return smi_line
+          f"{torch.cuda.get_device_name(0)} | {smi_line} | max SM clock "
+          f"{clock_mhz:.0f} MHz, {n_sm} SMs: FP32 peak {peak / 1e12:.1f} "
+          "TFLOP/s", flush=True)
+    return smi_line, peak
 
 
 def phase_build():
     from terminal_raytracer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    so = build.library_path()
+    paths = build.library_paths()
     build.load_kernels()
     dt = time.perf_counter() - t0
-    print(f"[build] {so.name} in {dt:.1f} s", flush=True)
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    print(f"[build] {', '.join(p.name for p in paths.values())} in "
+          f"{dt:.1f} s", flush=True)
+    for so in paths.values():
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling entry")):
+                print(f"[build] {line.strip()}", flush=True)
+
+
+def _scene(name, w, h, spp, depth):
+    from terminal_raytracer_tpu_torch.models import load_scene
+
+    return load_scene(name).with_overrides(
+        width=w, height=h, samples_per_pixel=spp, max_depth=depth)
 
 
 def _cornell(w, h, spp, depth):
-    from terminal_raytracer_tpu.models import load_scene
+    return _scene("Cornell_Box", w, h, spp, depth)
 
-    return load_scene("Cornell_Box").with_overrides(
-        width=w, height=h, samples_per_pixel=spp, max_depth=depth)
+
+def _pose():
+    from terminal_raytracer_tpu_torch.models import Camera
+
+    return Camera().pose()
 
 
 def phase_kernel_base():
     """Returns (max abs error, the depth-8 tracer and kernel output)."""
     import torch
 
-    from terminal_raytracer_tpu.models import Camera
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
-    pose = Camera().pose()
+    pose = _pose()
     worst_abs, keep = 0.0, None
     for depth in (8, 3):
         tr = PathTracer(_cornell(128, 16, 16, depth), "cuda")
@@ -127,10 +165,11 @@ def phase_kernel_base():
     return worst_abs, keep
 
 
-def _time_cuda(fn, reps):
+def _time_cuda(fn, reps, warm=True):
     import torch
 
-    fn()  # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -142,16 +181,36 @@ def _time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel_extra(tr, a):
+def _time_plain(tr, fn):
+    """One counted run of a plain version (the FP32 operations of the
+    intersection tests it owes, ops/geometry.py ScenePrims.ops), which is
+    also the warm-up, then one timed run. Returns (ms, operations)."""
+    import torch
+
+    tr.prims.ops = torch.zeros((), dtype=torch.float64, device=tr.device)
+    fn()
+    ops = float(tr.prims.ops)
+    tr.prims.ops = None
+    return _time_cuda(fn, 1, warm=False), ops
+
+
+def _bound(ops, n_bytes, peak):
+    """(bound ms, what bounds it): the larger of FP32 operations over the
+    FP32 peak and bytes over the HBM rate."""
+    t_ops, t_bytes = ops / peak, n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_kernel_extra(tr, a, peak):
     """Kernel B vs plain on the stream of kernel A's output `a`; then
     both kernels timed against their plain versions at the north star."""
     import torch
 
-    from terminal_raytracer_tpu.models import Camera
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
-    pose = Camera().pose()
+    pose = _pose()
     s = kernels.sorted_stream(tr, a.state, a.additional)
     ek, rk, _ = kernels.extra_kernel(tr, pose, s.xs, s.ys, s.state, s.add,
                                      s.samp0)
@@ -172,33 +231,115 @@ def phase_kernel_extra(tr, a):
 
     # Timings at the north-star shapes (outside the counted main path).
     ns = PathTracer(_cornell(400, 200, 16, 32), "cuda")
+    scene_bytes = 4 * ns.tables.buf.numel()
     ms_a = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
-    plain_a = _time_cuda(lambda: kernels.base_kernel_plain(ns, pose, SEED, 0),
-                         1)
+    plain_a, ops_a = _time_plain(
+        ns, lambda: kernels.base_kernel_plain(ns, pose, SEED, 0))
     a_ns = kernels.base_kernel(ns, pose, SEED, 0)
     s_ns = kernels.sorted_stream(ns, a_ns.state, a_ns.additional)
     args = (ns, pose, s_ns.xs, s_ns.ys, s_ns.state, s_ns.add, s_ns.samp0)
     ms_b = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
-    plain_b = _time_cuda(lambda: kernels.extra_kernel_plain(*args), 1)
+    plain_b, ops_b = _time_plain(ns, lambda: kernels.extra_kernel_plain(*args))
+    n_pix, n_ent = a_ns.var.numel(), s_ns.add.numel()
+    bound_a = _bound(ops_a, scene_bytes + 44 * n_pix, peak)
+    bound_b = _bound(ops_b, scene_bytes + 40 * n_ent, peak)
     print(f"[kernel_extra] north-star shapes: kernel_base {ms_a:.3f} ms "
-          f"(plain {plain_a:.1f} ms), kernel_extra {ms_b:.3f} ms on "
-          f"{int((s_ns.add > 0).sum())} budgeted of {s_ns.add.numel()} "
-          f"entries (plain {plain_b:.1f} ms)", flush=True)
-    return err, (ms_a, plain_a, ms_b, plain_b)
+          f"(plain {plain_a:.1f} ms, bound {bound_a[0]:.3f} ms by "
+          f"{bound_a[1]}: {ops_a:.4g} FP32 test operations), kernel_extra "
+          f"{ms_b:.3f} ms on {int((s_ns.add > 0).sum())} budgeted of "
+          f"{n_ent} entries (plain {plain_b:.1f} ms, bound {bound_b[0]:.3f} "
+          f"ms by {bound_b[1]}: {ops_b:.4g} operations)", flush=True)
+    return err, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
 
 
-def _run_engine(label, scene, full_color, frames):
-    """Drive `frames` frames (after one warm-up) through Engine with the
-    launch counters reset first. Returns (launches A, launches B)."""
+def _chunk_totals(tr, out):
+    return [tr.chunk_total(v) for v in (*out.csum, *out.csumsq)]
+
+
+def phase_kernel_base_chunked(peak):
+    """The chunked kernel A against its plain version, then timed at the
+    stress1024 shapes; one stress1024 frame with and without the split."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    tr = PathTracer(_scene("stress:120:7", 64, 16, 8, 6), "cuda",
+                    chunk_base=2, chunk_extra=2)
+    k = kernels.base_kernel_chunked(tr, pose, SEED, 0)
+    p = kernels.base_kernel_chunked_plain(tr, pose, SEED, 0)
+    torch.cuda.synchronize()
+    tk, tp = _chunk_totals(tr, k), _chunk_totals(tr, p)
+    eq = {"rays": bool(torch.equal(k.rays, p.rays)),
+          "state": bool(torch.equal(k.state, p.state)),
+          "totals": all(bool(torch.equal(a, b)) for a, b in zip(tk, tp))}
+    rel = max(maxrel(a, b) for a, b in zip(tk, tp))
+    err = max(maxabs(a, b) for a, b in zip(tk, tp))
+    print(f"[kernel_base_chunked] stress:120:7 64x16 spp 8 depth 6, "
+          f"{tr.n_base_chunks} chunks of {tr.chunk_base}: rays "
+          f"{float(k.rays.sum()):.0f}, equal {eq}, maxrel {rel:.3e}",
+          flush=True)
+    if not all(eq.values()) or not rel < TOL:
+        fail("[kernel_base_chunked] disagrees with the plain version")
+
+    big = PathTracer(_scene("stress:1024", 200, 100, 8, 6), "cuda")
+    if big.chunk_base != 2 or big.chunk_extra != 2:
+        fail("[kernel_base_chunked] stress1024 does not resolve to cb = ce "
+             "= 2")
+    ms = _time_cuda(lambda: kernels.base_kernel_chunked(big, pose, SEED, 0), 5)
+    plain_ms, ops = _time_plain(
+        big, lambda: kernels.base_kernel_chunked_plain(big, pose, SEED, 0))
+    n_ent = big.n_base_chunks * big.width * big.height
+    bound = _bound(ops, 4 * big.tables.buf.numel() + 36 * n_ent, peak)
+    print(f"[kernel_base_chunked] stress1024 shapes ({n_ent} entries): "
+          f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound[0]:.3f} ms by "
+          f"{bound[1]}: {ops:.4g} FP32 test operations)", flush=True)
+
+    # Occupancy and frame time with and without the chunk split.
+    flat = PathTracer(big.scene, "cuda", chunk_base=None, chunk_extra=None)
+    for label, t in (("unchunked", flat), ("chunked", big)):
+        render = kernels.make_sorted_render_frame(t)
+        render(pose, SEED, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(3):
+            out = render(pose, SEED, f + 1)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 3
+        print(f"[kernel_base_chunked] stress1024 {label}: {1e3 * dt:.2f} "
+              f"ms/frame, {float(out[3]) / dt / 1e6:.1f} Mray/s, occupancy "
+              f"{float(out[4]):.3f}", flush=True)
+    return err, (ms, plain_ms, bound)
+
+
+LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel")
+
+
+def _reset_launches():
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    for name in LAUNCH_NAMES:
+        getattr(kernels, name).launches = 0
+
+
+def _launches():
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    return {name: getattr(kernels, name).launches for name in LAUNCH_NAMES}
+
+
+def _run_engine(tag, label, scene, full_color, frames, animate=None):
+    """Drive `frames` frames (after one warm-up) through Engine with the
+    launch counters reset first. Returns the launches by kernel."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import tracer as tracer_mod
     from terminal_raytracer_tpu_torch.runtime.engine import Engine
 
     eng = Engine(scene, full_color=full_color, device="cuda",
-                 deterministic=SEED)
-    kernels.base_kernel.launches = 0
-    kernels.extra_kernel.launches = 0
+                 deterministic=SEED, animate=animate)
+    _reset_launches()
     out = eng.render_one(eng.frame_count)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -208,56 +349,91 @@ def _run_engine(label, scene, full_color, frames):
         rays.append(out.rays)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    la, lb = kernels.base_kernel.launches, kernels.extra_kernel.launches
-    base = max(4, scene.samples_per_pixel // 4)
-    want_b = frames + 1 if base < scene.samples_per_pixel else 0
+    got = _launches()
+    accel = tracer_mod.resolve_accel(scene, "auto")
+    chunked = tracer_mod.resolve_chunks(scene, accel)[0] is not None
+    n = frames + 1
+    base = tracer_mod.base_sample_count(scene.samples_per_pixel)
+    want = {"base_kernel": 0 if chunked else n,
+            "base_kernel_chunked": n if chunked else 0,
+            "extra_kernel": n if base < scene.samples_per_pixel else 0}
     total_rays = sum(float(r) for r in rays)
     rgb = out.rgb
     finite = bool(torch.isfinite(eng.state.acc).all())
     flat = bool(rgb.max() == rgb.min())
-    print(f"[main] {label}: {scene.width}x{scene.height} spp "
-          f"{scene.samples_per_pixel} depth {scene.max_depth}, {frames} "
-          f"frames: {1e3 * dt / frames:.2f} ms/frame, "
+    print(f"[{tag}] {label}: {scene.width}x{scene.height} spp "
+          f"{scene.samples_per_pixel} depth {scene.max_depth}, "
+          f"{scene.primitive_count} primitives, accel {accel}"
+          f"{', chunked' if chunked else ''}"
+          f"{', animate ' + animate if animate else ''}, {frames} frames: "
+          f"{1e3 * dt / frames:.2f} ms/frame, "
           f"{total_rays / dt / 1e6:.1f} Mray/s, occupancy "
-          f"{float(out.occupancy):.3f}, launches A {la} B {lb}, finite "
-          f"{finite}, rgb range [{int(rgb.min())}, {int(rgb.max())}]",
-          flush=True)
-    if la != frames + 1 or lb != want_b:
-        fail(f"[main] {label}: launch counts A {la} B {lb}, expected "
-             f"{frames + 1} and {want_b}")
+          f"{float(out.occupancy):.3f}, launches {got}, finite {finite}, "
+          f"rgb range [{int(rgb.min())}, {int(rgb.max())}]", flush=True)
+    if got != want:
+        fail(f"[{tag}] {label}: launch counts {got}, expected {want}")
     if not finite or flat:
-        fail(f"[main] {label}: accumulation not finite or image flat")
-    return la, lb
+        fail(f"[{tag}] {label}: accumulation not finite or image flat")
+    return got
+
+
+def _add(total, got):
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _against_plain(tag, label, tr, render, pose, seed, arrays=None):
+    """One frame of the kernel pipeline `render` against the plain whole
+    frame of `tr` on the card (the same per-frame scene buffer)."""
+    import torch
+
+    cur_k, var_k, tot_k, rays_k, _ = render(pose, seed, 0, arrays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur_p, var_p, tot_p, rays_p, _ = tr.render_frame(pose, seed, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rel = max(maxrel(a, b) for a, b in zip(cur_k, cur_p))
+    same = {"rays": float(rays_k) == float(rays_p),
+            "samples": bool(torch.equal(tot_k, tot_p)),
+            "variance": bool(torch.equal(var_k, var_p))}
+    print(f"[{tag}] {label} against the plain pipeline: rays "
+          f"{float(rays_k):.0f} vs {float(rays_p):.0f}, equal {same}, maxrel "
+          f"{rel:.3e}, {int((tot_p > tr.base_samples).sum())} budgeted "
+          f"pixels; plain {1e3 * dt:.1f} ms", flush=True)
+    if not all(same.values()) or not rel < TOL:
+        fail(f"[{tag}] {label} disagrees with the plain pipeline")
 
 
 def phase_main():
     import torch
 
-    from terminal_raytracer_tpu.models import Camera
     from terminal_raytracer_tpu_torch import cli
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
+    launches = {}
     ns_scene = _cornell(400, 200, 16, 32)
-    la, lb = _run_engine("north star", ns_scene, True, 8)
-    a2, b2 = _run_engine("shipped", _cornell(400, 200, 128, 3), True, 4)
-    a3, b3 = _run_engine("ascii 80x40", _cornell(80, 40, 1, 4), False, 4)
-    la, lb = la + a2 + a3, lb + b2 + b3
+    for label, scene, fc, frames in (
+            ("north star", ns_scene, True, 8),
+            ("shipped", _cornell(400, 200, 128, 3), True, 4),
+            ("ascii 80x40", _cornell(80, 40, 1, 4), False, 4)):
+        _add(launches, _run_engine("main", label, scene, fc, frames))
 
-    kernels.base_kernel.launches = 0
-    kernels.extra_kernel.launches = 0
+    _reset_launches()
     rc = cli.main(["--device", "cuda", "--full-color", "--scene",
                    "Cornell_Box", "--width", "128", "--height", "32",
                    "--spp", "16", "--depth", "8", "--frames", "2"])
-    ca, cb = kernels.base_kernel.launches, kernels.extra_kernel.launches
-    print(f"[main] cli.main rc {rc}, launches A {ca} B {cb}", flush=True)
-    if rc != 0 or ca != 2 or cb != 2:
+    got = _launches()
+    print(f"[main] cli.main rc {rc}, launches {got}", flush=True)
+    if rc != 0 or got != {"base_kernel": 2, "base_kernel_chunked": 0,
+                          "extra_kernel": 2}:
         fail("[main] cli.main run failed")
-    la, lb = la + ca, lb + cb
+    _add(launches, got)
 
     # The north-star frame against the plain version on the card, and the
     # plain version's speed.
-    pose = Camera().pose()
+    pose = _pose()
     ns = PathTracer(ns_scene, "cuda")
     render = kernels.make_sorted_render_frame(ns)
     cur_k, _, tot_k, rays_k, _ = render(pose, 7, 0)
@@ -281,7 +457,46 @@ def phase_main():
           flush=True)
     if not same or not rel < TOL:
         fail("[main] north-star frame disagrees with the plain version")
-    return la, lb
+    return launches
+
+
+# The JAX package's bench configurations of this path (bench.py CONFIGS):
+# (label, scene, width, height, spp, depth, animate, frames).
+SCALE_CONFIGS = (
+    ("stress1024", "stress:1024", 200, 100, 8, 6, None, 8),
+    ("mesh1280", "icosphere:3", 200, 100, 8, 6, None, 8),
+    ("stress256", "stress:256", 200, 100, 8, 6, None, 8),
+    ("dynamic1024", "stress:1024", 200, 100, 8, 6, "orbit", 8),
+    ("dynamic", "Cornell_Box", 400, 200, 16, 32, "orbit", 8),
+)
+
+
+def phase_scale():
+    from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
+    from terminal_raytracer_tpu_torch.ops import dynamic as dyn
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    launches = {}
+    for label, name, w, h, spp, depth, animate, frames in SCALE_CONFIGS:
+        scene = _scene(name, w, h, spp, depth)
+        _add(launches, _run_engine("scale", label, scene, True, frames,
+                                   animate))
+
+    pose = _pose()
+    tr = PathTracer(_scene("stress:1024", 200, 100, 8, 6), "cuda")
+    _against_plain("scale", "stress1024 frame", tr,
+                   kernels.make_sorted_render_frame(tr), pose, 7)
+    for label, name, w, h, spp, depth in (
+            ("dynamic1024 frame t=5", "stress:1024", 200, 100, 8, 6),
+            ("dynamic Cornell 128x32 frame t=5", "Cornell_Box", 128, 32, 16,
+             8)):
+        scene = _scene(name, w, h, spp, depth)
+        tr = PathTracer(scene, "cuda", dynamic=True)
+        arrays = ANIMATORS["orbit"](dyn.pack_scene(scene), 5)
+        _against_plain("scale", label, tr,
+                       kernels.make_sorted_render_frame(tr), pose, 9, arrays)
+    return launches
 
 
 def main() -> int:
@@ -289,7 +504,7 @@ def main() -> int:
         import torch  # noqa: F401
     except ImportError:
         fail("torch is not installed")
-    smi_line = phase_device()
+    smi_line, peak = phase_device()
     try:
         import terminal_raytracer_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -298,18 +513,25 @@ def main() -> int:
 
     phase_build()
     err_a, (tr, a) = phase_kernel_base()
-    err_b, (ms_a, plain_a, ms_b, plain_b) = phase_kernel_extra(tr, a)
-    la, lb = phase_main()
+    err_b, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b) = (
+        phase_kernel_extra(tr, a, peak))
+    err_c, (ms_c, plain_c, bound_c) = phase_kernel_base_chunked(peak)
+    launches = phase_main()
+    _add(launches, phase_scale())
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
+    rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
+             ms_a, plain_a, bound_a),
+            ("kernel_extra", "extra_kernel", "kernel_extra.cu", "1028", err_b,
+             ms_b, plain_b, bound_b),
+            ("kernel_base_chunked", "base_kernel_chunked", "kernel_base.cu",
+             "796", err_c, ms_c, plain_c, bound_c))
     print(json.dumps({"kernels": [
-        {"name": "kernel_base", "route": "cuda", "source": src + "kernel_base.cu",
-         "replaces": ref + "796", "launches": la, "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": plain_a},
-        {"name": "kernel_extra", "route": "cuda",
-         "source": src + "kernel_extra.cu", "replaces": ref + "1028",
-         "launches": lb, "max_abs_err": err_b, "ms": ms_b,
-         "plain_ms": plain_b},
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": ref + line, "launches": launches[counter],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+        for name, counter, source, line, err, ms, plain, bound in rows
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

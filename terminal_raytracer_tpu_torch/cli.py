@@ -1,8 +1,9 @@
 """Command-line entry point — ``terminal_raytracer_tpu/cli.py``.
 
 Reference flags: --full-color, --verbose, --threads N, --path FILE; plus
---scene, --frames, --width, --height, --spp, --depth and --device. In the
-interactive viewer WASD moves, arrows steer, ESC exits.
+--scene (packaged names, stress:N[:seed], icosphere:S[:seed], ...),
+--accel, --animate, --frames, --width, --height, --spp, --depth and
+--device. In the interactive viewer WASD moves, arrows steer, ESC exits.
 
 Run: python -m terminal_raytracer_tpu_torch [flags]
 """
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+from .ops.tracer import ACCELS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,7 +31,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--path", metavar="FILE", default=None,
                    help="scene JSON path (default: packaged Cornell box)")
     p.add_argument("--scene", default=None,
-                   help="packaged scene name (Cornell_Box, demo, scene2, ...)")
+                   help="packaged scene name (Cornell_Box, demo, scene2, ...) "
+                        "or procedural stress:N[:seed] / icosphere:S[:seed]")
+    p.add_argument("--accel", default="auto", choices=ACCELS,
+                   help="traversal: baked, array (many primitives; from 512 "
+                        "primitives auto also splits heavy pixels into "
+                        "chunks), or auto by primitive count; grid and "
+                        "gathered are not ported yet")
+    p.add_argument("--animate", choices=("orbit", "pulse", "bob"),
+                   default=None,
+                   help="animate the scene (its values are rebuilt on the "
+                        "device every frame); each frame renders fresh")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels (default); cpu runs their "
                         "plain PyTorch versions")
@@ -47,8 +60,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from terminal_raytracer_tpu.models import load_scene
-
+    from .models import load_scene
     from .runtime.engine import Engine
     from .runtime.terminal import terminal_size
 
@@ -83,8 +95,9 @@ def main(argv=None) -> int:
           else "outputting with ASCII characters")
     try:
         engine = Engine(scene, full_color=args.full_color, device=args.device,
-                        threads=args.threads, verbose=args.verbose)
-    except ValueError as e:  # a scene feature the port lacks
+                        threads=args.threads, verbose=args.verbose,
+                        accel=args.accel, animate=args.animate)
+    except ValueError as e:  # a scene feature or traversal the port lacks
         print(f"error: {e}", file=sys.stderr)
         return 2
 
@@ -103,8 +116,10 @@ def main(argv=None) -> int:
         for row in glyphs:
             print("".join(GLYPH_RAMP[min(int(i), 67)] for i in row))
     if args.verbose:
-        print(f"[headless] {engine.frame_count} frames, {rays:.3e} rays in "
-              f"last frame, mean spp {mean_spp:.1f}", file=sys.stderr)
+        # An animated engine counts its frames on the animation clock.
+        n_done = engine._anim_t if args.animate else engine.frame_count
+        print(f"[headless] {n_done} frames, {rays:.3e} rays in last frame, "
+              f"mean spp {mean_spp:.1f}", file=sys.stderr)
     return 0
 
 

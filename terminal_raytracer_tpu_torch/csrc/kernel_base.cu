@@ -1,27 +1,38 @@
-// Kernel A of the sorted render pipeline: the base phase.
+// Kernel A of the sorted render pipeline: the base phase, in two forms.
 //
-// Replaces terminal_raytracer_tpu/ops/pallas_kernel.py make_base_kernel /
-// kernel_base (the packed-stream Pallas kernel with the fold_budget
-// epilogue). The TPU kernel packs `pair` pixels per lane and drives a
-// scalar-carry while loop over tracer.stream_step to keep (16, 128) vector
-// tiles full under Mosaic's limits; none of that carries over. Here one
-// thread owns one pixel p = y*w + x (global y = y0 + local row): it seeds
-// the pixel's PCG chain, renders `base` samples, each a plain bounce loop
-// until a miss, a roulette kill or max_depth, and writes the pixel's
-// csum[3], csumsq[3], owed rays, variance and adaptive extra budget, and
-// its end RNG state. Per-pixel chains do not depend on scheduling, so the
+// kernel_base replaces terminal_raytracer_tpu/ops/pallas_kernel.py
+// make_base_kernel / kernel_base (the packed-stream Pallas kernel with the
+// fold_budget epilogue). The TPU kernel packs `pair` pixels per lane and
+// drives a scalar-carry while loop over tracer.stream_step to keep (16, 128)
+// vector tiles full under Mosaic's limits; none of that carries over. Here
+// one thread owns one pixel p = y*w + x (global y = y0 + local row): it
+// seeds the pixel's PCG chain, renders `base` samples, each a plain bounce
+// loop until a miss, a roulette kill or max_depth, and writes the pixel's
+// csum[3], csumsq[3], owed rays, variance and adaptive extra budget, and its
+// end RNG state. Per-pixel chains do not depend on scheduling, so the
 // results match every JAX scheduler and the plain PyTorch version
 // (ops/kernels.py base_kernel_plain).
 //
-// What bounds it on an H100: divergent control flow (path lengths differ
-// per thread and a warp runs until its longest path ends), registers (the
-// whole path state lives in them), and FP32 ALU and SFU work (intersection
-// sweeps, sqrt, division, sin/cos). It reads a few hundred bytes of scene
-// table (L1-resident) and writes 44 bytes per pixel: almost no DRAM
-// traffic. A simple kernel that is right is the goal here; persistent
-// threads and warp-level path regeneration are later work. --fmad=false
-// keeps its rounding equal to the plain version's; what that costs is not
-// measured yet.
+// kernel_base_chunked replaces the same Pallas kernel built with a chunk
+// size `cb` (pallas_kernel.py:749-754, 798-800, 901-908): the heavy-pixel
+// chunk split of many-primitive scenes. One thread owns one entry of the
+// chunk-major stream, entry i = chunk c = i / n_pix of pixel i % n_pix. It
+// seeds the pixel's chain offset by c * CHUNK_GOLDEN and renders the
+// absolute samples [c*cb, min((c+1)*cb, base)), so chunk 0 is the head of
+// the sequential chain and a heavy pixel's samples spread over n_chunks
+// threads instead of one. It writes the entry's csum[3], csumsq[3], rays
+// and end state, and no budget: the variance needs the pixel's totals,
+// which the glue adds in chunk order (ops/kernels.py).
+//
+// What bounds them on an H100: FP32 ALU and SFU work (the intersection
+// sweeps, sqrt, division, sin/cos) behind divergent control flow (path
+// lengths differ per thread and a warp runs until its longest path ends),
+// and registers (the whole path state lives in them). They read the scene
+// table (L1/L2-resident, see trace.cuh) and write 44 (36 chunked) bytes per
+// entry: almost no DRAM traffic. A simple kernel that is right is the goal
+// here; persistent threads and warp-level path regeneration are later work.
+// --fmad=false keeps their rounding equal to the plain version's (about 3%
+// slower, PERF.md).
 
 #include "trace.cuh"
 
@@ -32,6 +43,12 @@ struct BaseArgs {
   uint32_t seed, frame;
   float inv_base;   // f32(1 / base)
   float max_extra;  // f32(spp - base) when base < spp, else 0
+};
+
+struct ChunkArgs {
+  trt::Frame f;
+  int h_out, y0, base, cb, n_chunks;
+  uint32_t seed, frame;
 };
 
 namespace {
@@ -46,8 +63,8 @@ __global__ void __launch_bounds__(128)
     const trt::Scene sc = trt::make_scene(scene_buf, a.f);
     const int x = i % a.f.width;
     const int y = a.y0 + i / a.f.width;
-    uint32_t pix = (uint32_t)y * (uint32_t)a.f.width + (uint32_t)x;
-    uint32_t state = pix * 1973u + a.seed * 9277u + a.frame * 12345u;
+    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
+                                     a.frame);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
     my_iters = trt::run_samples(a.f, sc, state, 0, (float)a.base, (float)x, (float)y, csum,
@@ -73,6 +90,41 @@ __global__ void __launch_bounds__(128)
   trt::count_warp_iters(my_iters, iters);
 }
 
+__global__ void __launch_bounds__(128)
+    kernel_base_chunked(ChunkArgs a, const float* __restrict__ scene_buf,
+                        float* __restrict__ out, long long* __restrict__ state_out,
+                        unsigned long long* __restrict__ iters) {
+  const int n_pix = a.h_out * a.f.width;
+  const int n = a.n_chunks * n_pix;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned my_iters = 0;
+  if (i < n) {
+    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+    const int c = i / n_pix;
+    const int p = i - c * n_pix;
+    const int x = p % a.f.width;
+    const int y = a.y0 + p / a.f.width;
+    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
+                                     a.frame) +
+                     (uint32_t)c * trt::CHUNK_GOLDEN;
+    const int s0 = c * a.cb;
+    const int quota = min(s0 + a.cb, a.base);
+    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
+    float rays = 0.0f;
+    my_iters = trt::run_samples(a.f, sc, state, s0, (float)quota, (float)x, (float)y, csum,
+                                &csumsq, rays);
+    out[0 * n + i] = csum.x;
+    out[1 * n + i] = csum.y;
+    out[2 * n + i] = csum.z;
+    out[3 * n + i] = csumsq.x;
+    out[4 * n + i] = csumsq.y;
+    out[5 * n + i] = csumsq.z;
+    out[6 * n + i] = rays;
+    state_out[i] = (long long)state;
+  }
+  trt::count_warp_iters(my_iters, iters);
+}
+
 }  // namespace
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
@@ -83,6 +135,21 @@ extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float*
   if (n > 0) {
     const int threads = 128;
     kernel_base<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out: f32 [7, n_chunks*h_out*w] (csum rgb, csumsq rgb, rays), chunk-major;
+// state_out: int64 [n_chunks*h_out*w]; iters: one zeroed u64.
+// Returns cudaGetLastError().
+extern "C" int trt_kernel_base_chunked(const ChunkArgs* a, const float* scene_buf, float* out,
+                                       long long* state_out, unsigned long long* iters,
+                                       void* stream) {
+  const int n = a->n_chunks * a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_base_chunked<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         *a, scene_buf, out, state_out, iters);
   }
   return (int)cudaGetLastError();

@@ -9,7 +9,16 @@
 // made here: the branch is real control flow.
 //
 // The scene arrives as the packed f32 buffer of ops/geometry.py
-// scene_tables (row widths SPH_W .. LIGHT_W below must match it).
+// scene_tables (row widths SPH_W .. LIGHT_W below must match it), or its
+// per-frame counterpart ops/dynamic.py tables_from_packed in animated mode.
+// Every sweep loops over that runtime table, so one build serves any
+// primitive count: the JAX package's baked and array traversals are the
+// same code here. At the largest configuration run (icosphere:3, 1280
+// triangles + a sphere + a plane) the buffer holds 1280 x (12 + 7) + 1 x
+// (5 + 7) + 1 x (9 + 7) + 17 + 1 floats, about 97 KB. Offsets into it are
+// int (fine far beyond that), and every thread of a warp reads the same
+// primitive at the same time through __ldg, so the table is served from
+// L1 and L2 as a broadcast; staging it in shared memory is later work.
 
 #pragma once
 
@@ -72,6 +81,13 @@ __device__ __forceinline__ V3 reflect(V3 v, V3 n) { return v - n * (2.0f * dot(v
 __device__ __forceinline__ V3 load3(const float* p) { return {__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
 
 // -------------------------------------------------------------------- RNG
+
+constexpr uint32_t CHUNK_GOLDEN = 0x9E3779B9u;
+
+// The pixel's seed (y*w + x)*1973 + seed*9277 + frame*12345, wrapping.
+__device__ __forceinline__ uint32_t seed_pixel(uint32_t pix, uint32_t seed, uint32_t frame) {
+  return pix * 1973u + seed * 9277u + frame * 12345u;
+}
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   uint32_t state = x * 747796405u + 2891336453u;

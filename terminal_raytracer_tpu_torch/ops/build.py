@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile at first use with nvcc into one shared library with a
-plain C interface, loaded with ctypes: no PyTorch headers, so a build
-takes seconds, not minutes. The library is content-hashed over the sources
-and flags and kept in ``terminal_raytracer_tpu_torch/_build/`` (listed in
-.gitignore); nvcc's output, including ``-Xptxas -v`` register and spill
-counts, is kept beside it as ``<name>.log``.
+Each source compiles at first use with its own nvcc, all started together,
+into a shared library with a plain C interface, loaded with ctypes: no
+PyTorch headers, so a build takes seconds, not minutes. A library is
+content-hashed over its source, the shared header and the flags, and kept
+in ``terminal_raytracer_tpu_torch/_build/`` (listed in .gitignore); nvcc's
+output, including ``-Xptxas -v`` register and spill counts, is kept beside
+it as ``<name>.log``.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into one fused
 multiply-add, so each kernel rounds like its plain PyTorch version; fast
@@ -20,11 +21,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("kernel_base.cu", "kernel_extra.cu")
 HEADERS = ("trace.cuh",)
+# Source -> (C entry point, number of pointer arguments).
+ENTRY_POINTS = {
+    "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6)),
+    "kernel_extra.cu": (("trt_kernel_extra", 10),),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,36 +52,52 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    """Build the library if needed; return its path."""
+def library_path(source: str) -> Path:
+    """Where the library of `source` lives once built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in HEADERS + SOURCES:
+    for name in HEADERS + (source,):
         h.update(name.encode() + (CSRC / name).read_bytes())
-    so = BUILD_DIR / f"trt_kernels-{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def library_paths() -> dict:
+    """Build every library that is missing, one nvcc per source, all at
+    once; return {source: library path}."""
+    paths = {src: library_path(src) for src in ENTRY_POINTS}
+    jobs = []
+    for src, so in paths.items():
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((so, tmp, cmd, proc))
+    failed = []
+    for so, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
+
+
+def load_kernels() -> SimpleNamespace:
+    """The kernels' C entry points, by name (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(library_path()))
-        p = ctypes.c_void_p
-        lib.trt_kernel_base.restype = ctypes.c_int
-        lib.trt_kernel_base.argtypes = [p, p, p, p, p, p]
-        lib.trt_kernel_extra.restype = ctypes.c_int
-        lib.trt_kernel_extra.argtypes = [p] * 10
-        _lib = lib
+        fns = {}
+        for src, so in library_paths().items():
+            lib = ctypes.CDLL(str(so))
+            for name, n_ptr in ENTRY_POINTS[src]:
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * n_ptr
+                fns[name] = fn
+        _lib = SimpleNamespace(**fns)
     return _lib

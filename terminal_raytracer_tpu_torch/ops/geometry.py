@@ -1,19 +1,30 @@
 """Ray-primitive intersections and the scene sweep over lanes —
-``terminal_raytracer_tpu/ops/geometry.py``.
+``terminal_raytracer_tpu/ops/geometry.py`` (the baked sweep) and
+``ops/arrayscene.py`` (the array sweep).
 
 The JAX package bakes every primitive into the traced program as Python
-float constants (``geometry.ScenePrims``). The port carries the same
-numbers as tensors instead: :func:`scene_tables` packs a ``models.Scene``
-into one f32 buffer whose derived values (sphere r^2 and 1/r, plane unit
-normals, triangle edges, normals and areas, light areas) are computed on
-the host exactly as the JAX package computes its constants. The plain sweep
-below and both CUDA kernels (csrc/trace.cuh) read that buffer, so all three
-compute from the same numbers.
+float constants (``geometry.ScenePrims``), or, above 96 primitives, sweeps
+SoA arrays with a loop (``arrayscene.ArrayPrims``) because Mosaic unrolls
+the baked sweep's code. The port carries the numbers as tensors in both
+cases: :func:`scene_tables` packs a ``models.Scene`` into one f32 buffer
+whose derived values (sphere r^2 and 1/r, plane unit normals, triangle
+edges, normals and areas, light areas) are computed on the host exactly as
+the JAX package computes its constants. The plain sweep below and the CUDA
+kernels (csrc/trace.cuh) read that buffer, so all of them compute from the
+same numbers, and the array traversal runs through the same code. The one
+value the two JAX traversals derive differently is a sphere's r^2: the
+baked sweep squares the scene's f64 radius on the host, the array sweep
+squares the f32 radius in f32 (``accel`` selects which).
 
 Semantics kept from the JAX package: sweep order spheres, planes,
-triangles; "strictly closer wins" with the running `closest` fed forward as
-each test's t_max; the winner's index selects the material; sphere normals
-are normalize((p - c) * inv_r); the normal is flipped to face the ray.
+triangles; "strictly closer wins" (the winner is the first primitive in
+sweep order at the smallest valid t); the winner's index selects the
+material; sphere normals are normalize((p - c) * inv_r); the normal is
+flipped to face the ray. The JAX sweeps and the kernels feed the running
+`closest` forward as each test's t_max; the plain sweep tests every
+primitive at once against T_FAR and takes the first minimum, which picks
+the same winner at the same t: a test whose t_max the chain lowered only
+refuses roots at or beyond the current closest, and those never win.
 """
 
 from __future__ import annotations
@@ -23,8 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from terminal_raytracer_tpu.models import scene as scene_mod
-
+from ..models import scene as scene_mod
 from . import vecmath as vm
 from .vecmath import V3
 
@@ -34,6 +44,11 @@ RAY_EPS = 1e-3  # t_min / shadow offset / scatter offset
 T_FAR = 1e10
 
 MISS = -1.0
+
+# FP32 adds, subtracts, multiplies, divides and square roots of one
+# intersection test in csrc/trace.cuh (sphere_t, plane_t, triangle_t):
+# the operation count behind chip_smoke.py's bound on the kernels' time.
+TEST_OPS = (19, 14, 46)  # sphere, plane, triangle
 
 # Row widths of the packed tables (csrc/trace.cuh reads the same layout).
 SPH_W = 5  # cx, cy, cz, r*r, 1/r
@@ -62,30 +77,61 @@ class SceneTables(NamedTuple):
                 self.lights.shape[0])
 
 
+def sq_len_f32(v) -> np.float32:
+    """|v|^2 of an f32 3-vector as (x*x + y*y) + z*z, each step rounded to
+    f32. The JAX package's host constants take np.dot here, whose BLAS
+    rounding differs from this by an ulp on some mesh triangles (and from
+    machine to machine); the port takes the stepwise sum that its own and
+    the JAX package's runtime-value paths take, so a static scene and its
+    animated copy at t = 0 share their tables bit for bit."""
+    return np.float32(np.float32(v[0] * v[0]) + np.float32(v[1] * v[1])) \
+        + np.float32(v[2] * v[2])
+
+
 def _tri_edges_f32(tri):
-    """Triangle edges, unit normal and area in f32, exactly as the JAX
-    package's geometry._tri_edges_f32 computes them."""
+    """Triangle edges, unit normal and area in f32 steps, as the JAX
+    package's geometry._tri_edges_f32 computes them (but for sq_len_f32)."""
     v0 = np.asarray(tri.v0, np.float32)
     e1 = np.asarray(tri.v1, np.float32) - v0
     e2 = np.asarray(tri.v2, np.float32) - v0
     cr = np.cross(e1, e2).astype(np.float32)
-    cr_len = np.float32(np.sqrt(np.float32(np.dot(cr, cr))))
+    cr_len = np.sqrt(sq_len_f32(cr))
     with np.errstate(invalid="ignore", divide="ignore"):
         normal = (cr / cr_len).astype(np.float32)
     area = np.float32(0.5) * cr_len
     return e1, e2, normal, area
 
 
-def scene_tables(scene: scene_mod.Scene, device) -> SceneTables:
-    """Pack `scene` into f32 tables on `device` (see the module docstring)."""
+def tables_from_parts(parts, device) -> SceneTables:
+    """One packed buffer on `device` from the (sph, pln, tri, mat, lights)
+    f32 arrays or tensors, with the named tables as views into it."""
+    flat = [torch.as_tensor(a).reshape(-1) for a in parts]
+    # One trailing pad element keeps the buffer non-empty for an empty scene.
+    pad = torch.zeros(1, dtype=torch.float32, device=flat[0].device)
+    buf = torch.cat(flat + [pad]).to(device)
+    views, off = [], 0
+    for a in parts:
+        n = int(np.prod(a.shape))
+        views.append(buf[off:off + n].view(tuple(a.shape)))
+        off += n
+    return SceneTables(buf, *views)
+
+
+def scene_tables(scene: scene_mod.Scene, device,
+                 accel: str = "baked") -> SceneTables:
+    """Pack `scene` into f32 tables on `device` (see the module docstring).
+    accel='array' squares the f32 radius in f32, as the JAX package's array
+    sweep does; 'baked' squares the f64 radius."""
     sph = np.zeros((len(scene.spheres), SPH_W), np.float32)
     for i, s in enumerate(scene.spheres):
         r = float(s.radius)
-        sph[i] = (*s.center, r * r, np.float32(1.0) / np.float32(r))
+        r32 = np.float32(r)
+        rr = r32 * r32 if accel == "array" else r * r
+        sph[i] = (*s.center, rr, np.float32(1.0) / r32)
     pln = np.zeros((len(scene.planes), PLN_W), np.float32)
     for i, p in enumerate(scene.planes):
         n = np.asarray(p.normal, np.float32)
-        pln[i] = (*p.point, *p.normal, *(n / np.sqrt(np.dot(n, n))))
+        pln[i] = (*p.point, *p.normal, *(n / np.sqrt(sq_len_f32(n))))
     tri = np.zeros((len(scene.triangles), TRI_W), np.float32)
     for i, t in enumerate(scene.triangles):
         e1, e2, n, _ = _tri_edges_f32(t)
@@ -104,16 +150,8 @@ def scene_tables(scene: scene_mod.Scene, device) -> SceneTables:
         else:
             _, _, n, area = _tri_edges_f32(p)
             lights[i] = (tag, *e, area, *p.v0, *p.v1, *p.v2, *n)
-    parts = [sph, pln, tri, mat, lights]
-    # One trailing pad element keeps the buffer non-empty for an empty scene.
-    buf = torch.from_numpy(
-        np.concatenate([a.reshape(-1) for a in parts] + [np.zeros(1, np.float32)])
-    ).to(device)
-    views, off = [], 0
-    for a in parts:
-        views.append(buf[off:off + a.size].view(a.shape))
-        off += a.size
-    return SceneTables(buf, *views)
+    return tables_from_parts(
+        [torch.from_numpy(a) for a in (sph, pln, tri, mat, lights)], device)
 
 
 # ---------------------------------------------------------------------------
@@ -211,54 +249,97 @@ def _row3(t, col):
     return V3(t[..., col], t[..., col + 1], t[..., col + 2])
 
 
+def _lanes(v: V3) -> V3:
+    """A lane field with a trailing primitive axis to broadcast against."""
+    return V3(v.x[..., None], v.y[..., None], v.z[..., None])
+
+
 class ScenePrims:
-    """Closest-hit and occlusion sweeps over one scene's tables."""
+    """Closest-hit and occlusion sweeps over one scene's tables, every
+    primitive of a kind at once along a trailing axis.
+
+    ``ops``: None, or a 0-dim f64 tensor to which each sweep adds the FP32
+    operations (``TEST_OPS``) of the intersection tests it owes: every
+    primitive for a closest hit, and for a shadow ray the primitives up to
+    and including its first blocker in sweep order, where the kernels'
+    occlusion loop stops. Only lanes of the sweep's `gate` count."""
 
     def __init__(self, tables: SceneTables):
         self.tables = tables
         n_sph, n_pln, n_tri, _ = tables.counts
-        # Per primitive, in sweep order: (intersect, blocked, args).
-        self._prims = []
-        for r in tables.sph:
-            self._prims.append((intersect_sphere, blocked_sphere,
-                                (_row3(r, 0), r[3])))
-        for r in tables.pln:
-            self._prims.append((intersect_plane, blocked_plane,
-                                (_row3(r, 0), _row3(r, 3))))
-        for r in tables.tri:
-            self._prims.append((intersect_triangle, blocked_triangle,
-                                (_row3(r, 0), _row3(r, 3), _row3(r, 6))))
-        n_prims = n_sph + n_pln + n_tri
+        self.n_prims = n_sph + n_pln + n_tri
+        self._sph = (_row3(tables.sph, 0), tables.sph[:, 3])
+        self._pln = (_row3(tables.pln, 0), _row3(tables.pln, 3))
+        self._tri = (_row3(tables.tri, 0), _row3(tables.tri, 3),
+                     _row3(tables.tri, 6))
         dev = tables.buf.device
         # Gather tables indexed by winner: unit normal (planes, triangles),
         # center and 1/r (spheres), sphere flag. Row n_prims is the miss.
-        const_n = torch.zeros((n_prims + 1, 3), dtype=torch.float32,
+        const_n = torch.zeros((self.n_prims + 1, 3), dtype=torch.float32,
                               device=dev)
         center = torch.zeros_like(const_n)
-        inv_r = torch.zeros((n_prims + 1,), dtype=torch.float32, device=dev)
-        is_sph = torch.zeros((n_prims + 1,), dtype=torch.bool, device=dev)
+        inv_r = torch.zeros((self.n_prims + 1,), dtype=torch.float32,
+                            device=dev)
+        is_sph = torch.zeros((self.n_prims + 1,), dtype=torch.bool, device=dev)
         const_n[n_sph:n_sph + n_pln] = tables.pln[:, 6:9]
-        const_n[n_sph + n_pln:n_prims] = tables.tri[:, 9:12]
+        const_n[n_sph + n_pln:self.n_prims] = tables.tri[:, 9:12]
         center[:n_sph] = tables.sph[:, 0:3]
         inv_r[:n_sph] = tables.sph[:, 4]
         is_sph[:n_sph] = True
-        mat = torch.zeros((n_prims + 1, tables.mat.shape[1]),
+        mat = torch.zeros((self.n_prims + 1, tables.mat.shape[1]),
                           dtype=torch.float32, device=dev)
-        mat[:n_prims] = tables.mat
+        mat[:self.n_prims] = tables.mat
         self._const_n, self._center, self._inv_r = const_n, center, inv_r
         self._is_sph, self._mat = is_sph, mat
-        self._miss_idx = n_prims
+        self._counts = (n_sph, n_pln, n_tri)
+        self._ops = None
 
-    def closest_hit(self, o: V3, d: V3, t_min=RAY_EPS, t_max=T_FAR) -> Hit:
-        closest = torch.full_like(o.x, t_max)
-        idx = torch.full(o.x.shape, self._miss_idx, dtype=torch.int64,
-                         device=o.x.device)
-        for k, (isect, _, args) in enumerate(self._prims):
-            t = isect(o, d, *args, t_min, closest)
-            better = (t > 0.0) & (t < closest)
-            closest = torch.where(better, t, closest)
-            idx = torch.where(better, k, idx)
+    @property
+    def ops(self):
+        return self._ops
+
+    @ops.setter
+    def ops(self, value):
+        """Start (a 0-dim f64 tensor) or stop (None) counting."""
+        if value is not None:
+            cost = np.repeat(np.asarray(TEST_OPS, np.float64), self._counts)
+            self._cum_ops = torch.from_numpy(np.cumsum(cost)).to(value.device)
+        self._ops = value
+
+    def _tests(self, o: V3, d: V3, t_min, t_max, blocked: bool):
+        """Per lane and primitive, in sweep order: the hit distance (MISS
+        where none) or, for shadow rays, whether it blocks."""
+        o, d = _lanes(o), _lanes(d)
+        if blocked:
+            t_max = t_max[..., None]
+        n_sph, n_pln, n_tri = self._counts
+        cols = []
+        if n_sph:
+            t, hit = _sphere_t(o, d, *self._sph, t_min, t_max)
+            cols.append(hit if blocked else torch.where(hit, t, MISS))
+        if n_pln:
+            cols.append(blocked_plane(o, d, *self._pln, t_min, t_max)
+                        if blocked else
+                        intersect_plane(o, d, *self._pln, t_min, t_max))
+        if n_tri:
+            t, hit = _triangle_t(o, d, *self._tri, t_min, t_max)
+            cols.append(hit if blocked else torch.where(hit, t, MISS))
+        return torch.cat(cols, -1)
+
+    def closest_hit(self, o: V3, d: V3, t_min=RAY_EPS, t_max=T_FAR,
+                    gate=None) -> Hit:
+        if self.n_prims:
+            t = self._tests(o, d, t_min, t_max, blocked=False)
+            t = torch.where((t > 0.0) & (t < t_max), t, float("inf"))
+            closest, idx = torch.min(t, -1)  # the first minimum on ties
+        else:
+            closest = torch.full_like(o.x, float("inf"))
+            idx = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
         found = closest < t_max
+        closest = torch.where(found, closest, t_max)
+        idx = torch.where(found, idx, self.n_prims)
+        if self._ops is not None and self.n_prims:
+            self._ops += gate.sum(dtype=torch.float64) * self._cum_ops[-1]
         p = o + d * closest
         m = self._mat[idx]
         n_sph = vm.normalize((p - _row3(self._center[idx], 0))
@@ -270,9 +351,15 @@ class ScenePrims:
         return Hit(found, closest, p, normal, _row3(m, 0), _row3(m, 3),
                    m[..., 6])
 
-    def occluded(self, o: V3, d: V3, t_min, t_max) -> torch.Tensor:
-        """Any-hit visibility test for shadow rays."""
-        blocked = torch.zeros(o.x.shape, dtype=torch.bool, device=o.x.device)
-        for _, blk, args in self._prims:
-            blocked = blocked | blk(o, d, *args, t_min, t_max)
+    def occluded(self, o: V3, d: V3, t_min, t_max, gate=None) -> torch.Tensor:
+        """Any-hit visibility test for shadow rays (`t_max` per lane)."""
+        if not self.n_prims:
+            return torch.zeros(o.x.shape, dtype=torch.bool, device=o.x.device)
+        hits = self._tests(o, d, t_min, t_max, blocked=True)
+        blocked = hits.any(-1)
+        if self._ops is not None:
+            first = torch.argmax(hits.to(torch.uint8), -1)  # first blocker
+            ops = torch.where(blocked, self._cum_ops[first],
+                              self._cum_ops[-1])
+            self._ops += torch.where(gate, ops, 0.0).sum()
         return blocked

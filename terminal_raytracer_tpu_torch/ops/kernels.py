@@ -2,12 +2,20 @@
 ``terminal_raytracer_tpu/ops/pallas_kernel.py`` make_sorted_render_frame.
 
   kernel A  base_kernel: `base` samples per pixel, with each pixel's
-            variance and adaptive extra budget (csrc/kernel_base.cu)
-  glue      torch.sort of the pixels by descending budget, carrying each
-            pixel's id and RNG state, padded to a (rows_b, 512) stream
+            variance and adaptive extra budget (csrc/kernel_base.cu); or,
+            for a chunk-split tracer, base_kernel_chunked: one chunk of a
+            pixel's base samples per entry of the chunk-major stream, then
+            in the glue each pixel's totals in chunk order, its variance
+            and its budget (the JAX package's kernel A with `cb`)
+  glue      the extra phase's entries (one per pixel, or its budget split
+            into chunks), sorted by descending budget with torch.sort,
+            carrying each entry's id and RNG state, padded to a
+            (rows_b, 512) stream
   kernel B  extra_kernel: the extra samples over the sorted stream
             (csrc/kernel_extra.cu)
-  glue      unsort by index_copy_, then tracer.combine_phases
+  glue      unsort by index_copy_ into chunk planes, added in chunk order
+            (index_add_ would add in an order that changes between runs
+            on CUDA), then tracer.combine_phases
 
 Each kernel wrapper takes its plain PyTorch version (``*_plain``, built on
 ops/tracer.py) when the tensors it is given lie on the CPU; for CUDA
@@ -53,6 +61,13 @@ class _ExtraArgs(ctypes.Structure):
     _fields_ = [("f", _Frame), ("n_entries", ctypes.c_int)]
 
 
+class _ChunkArgs(ctypes.Structure):
+    _fields_ = [("f", _Frame), ("h_out", ctypes.c_int), ("y0", ctypes.c_int),
+                ("base", ctypes.c_int), ("cb", ctypes.c_int),
+                ("n_chunks", ctypes.c_int), ("seed", ctypes.c_uint32),
+                ("frame", ctypes.c_uint32)]
+
+
 class BaseOut(NamedTuple):
     """Kernel A's per-pixel planes ([h_out, w]) and its executed
     lane-iterations (0-dim f64 tensor, the occupancy denominator)."""
@@ -63,6 +78,17 @@ class BaseOut(NamedTuple):
     rays: torch.Tensor
     var: torch.Tensor
     additional: torch.Tensor
+    iters: torch.Tensor
+
+
+class ChunkedBaseOut(NamedTuple):
+    """The chunked kernel A's per-entry planes ([n_chunks, h_out, w], entry
+    (c, y, x) = chunk c of pixel (x, y)) and its executed lane-iterations."""
+
+    csum: V3
+    csumsq: V3
+    state: torch.Tensor  # int64 holding the u32 end state
+    rays: torch.Tensor
     iters: torch.Tensor
 
 
@@ -116,6 +142,9 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
                 h_out: int = None) -> BaseOut:
     """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
     device of `tracer`'s scene tables."""
+    if tracer.chunk_base:
+        raise ValueError("base_kernel: the tracer splits pixels into chunks; "
+                         "use base_kernel_chunked")
     device = tracer.tables.buf.device
     if device.type == "cpu":
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
@@ -143,6 +172,55 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
 
 
 base_kernel.launches = 0
+
+
+def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
+                              y0: int = 0, h_out: int = None
+                              ) -> ChunkedBaseOut:
+    """The chunked kernel A in plain PyTorch (any device)."""
+    cam = tracer_mod.cam_from_pose(pose)
+    x, y, c = tracer.base_entries(y0, h_out)
+    state, csum, csumsq, rays, it = tracer.base_phase(
+        cam, x.to(torch.float32), y.to(torch.float32),
+        tracer.seed_lanes(x, y, seed, frame_number), c)
+    return ChunkedBaseOut(csum, csumsq, state, rays,
+                          _iters_tensor(it, rays.device))
+
+
+def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
+                        y0: int = 0, h_out: int = None) -> ChunkedBaseOut:
+    """Kernel A over the chunk-major stream of rows [y0, y0 + h_out): entry
+    (c, y, x) renders samples [c * cb, min((c + 1) * cb, base)) of pixel
+    (x, y) on the sub-chain seed + c * CHUNK_GOLDEN (an unchunked tracer
+    has one chunk of `base` samples). No budget epilogue: the variance
+    needs the per-pixel totals."""
+    device = tracer.tables.buf.device
+    if device.type == "cpu":
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    if device.type != "cuda":
+        raise ValueError(f"base_kernel_chunked: unsupported device {device}")
+    h_out = tracer.height if h_out is None else h_out
+    n_chunks, w = tracer.n_base_chunks, tracer.width
+    n = n_chunks * h_out * w
+    out = torch.empty((7, n), dtype=torch.float32, device=device)
+    state = torch.empty((n,), dtype=torch.int64, device=device)
+    iters = torch.zeros((1,), dtype=torch.int64, device=device)
+    args = _ChunkArgs(_frame(tracer, pose), h_out, y0, tracer.base_samples,
+                      tracer.chunk_base or tracer.base_samples, n_chunks,
+                      seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF)
+    err = load_kernels().trt_kernel_base_chunked(
+        ctypes.byref(args), tracer.tables.buf.data_ptr(), out.data_ptr(),
+        state.data_ptr(), iters.data_ptr(), _stream(device))
+    _check(err, "kernel_base_chunked")
+    base_kernel_chunked.launches += 1
+    p = out.view(7, n_chunks, h_out, w)
+    return ChunkedBaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
+                          state.view(n_chunks, h_out, w), p[6],
+                          iters[0].to(torch.float64))
+
+
+base_kernel_chunked.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -204,10 +282,13 @@ extra_kernel.launches = 0
 
 
 class SortedStream(NamedTuple):
-    """Kernel B's input: pixels sorted by descending budget, padded with
-    zero-budget entries to (rows, 512); `order` maps entry -> flat pixel."""
+    """Kernel B's input: the extra phase's entries (ops/tracer.py
+    extra_entries) sorted by descending budget, padded with zero-budget
+    entries to (rows, 512); `order` maps stream position -> entry id
+    (c * n_pix + flat pixel)."""
 
     order: torch.Tensor
+    n_chunks: int
     xs: torch.Tensor
     ys: torch.Tensor
     state: torch.Tensor
@@ -216,9 +297,12 @@ class SortedStream(NamedTuple):
 
 
 def sorted_stream(tracer, state, additional) -> SortedStream:
-    """Sort the image's pixels by descending extra budget (zero-budget
-    entries end up in whole warps), carrying pixel id and RNG state."""
-    n = additional.numel()
+    """Sort the extra phase's entries by descending budget (zero-budget
+    entries end up in whole warps), carrying entry id, RNG state and the
+    sample index each continues at."""
+    budget, st_e, samp0 = tracer.extra_entries(state, additional)
+    n_chunks, n_pix = budget.shape[0], additional.numel()
+    n = budget.numel()
     rows = -(-n // STREAM_COLS)
     rows = -(-rows // TILE_H) * TILE_H
     n_pad = rows * STREAM_COLS - n
@@ -227,19 +311,22 @@ def sorted_stream(tracer, state, additional) -> SortedStream:
         return torch.cat([a, a.new_full((n_pad,), fill)]).view(
             rows, STREAM_COLS)
 
-    neg, order = torch.sort(-additional.reshape(-1))
-    pix = pad(order.to(torch.int32), 0)
-    xs = pix % tracer.width
-    return SortedStream(order, xs, pix // tracer.width,
-                        pad(state.reshape(-1)[order], 0), pad(-neg, 0.0),
-                        torch.full_like(xs, tracer.base_samples))
+    neg, order = torch.sort(-budget.reshape(-1))
+    pix = pad((order % n_pix).to(torch.int32), 0)
+    return SortedStream(order, n_chunks, pix % tracer.width,
+                        pix // tracer.width, pad(st_e.reshape(-1)[order], 0),
+                        pad(-neg, 0.0),
+                        pad(samp0.reshape(-1)[order].to(torch.int32), 0))
 
 
 def unsort(stream: SortedStream, plane: torch.Tensor, shape) -> torch.Tensor:
-    """Scatter a per-entry plane back to image order."""
+    """A per-entry plane back in image order: each entry to its place in
+    the chunk planes, the planes added in chunk order."""
     n = stream.order.numel()
     flat = torch.zeros((n,), dtype=plane.dtype, device=plane.device)
-    return flat.index_copy_(0, stream.order, plane.reshape(-1)[:n]).view(shape)
+    flat.index_copy_(0, stream.order, plane.reshape(-1)[:n])
+    return tracer_mod.PathTracer.chunk_total(
+        flat.view(stream.n_chunks, *shape))
 
 
 def make_sorted_extra_phase(tracer):
@@ -257,32 +344,49 @@ def make_sorted_extra_phase(tracer):
 
 
 def make_sorted_render_frame(tracer):
-    """``render_frame(pose, seed, frame_number) -> (current V3, variance,
-    total samples, rays, occupancy)`` through kernel A, the sort, kernel B
-    and combine_phases; rays and occupancy are 0-dim f64 tensors on the
-    device (no host sync)."""
+    """``render_frame(pose, seed, frame_number[, arrays]) -> (current V3,
+    variance, total samples, rays, occupancy)`` through kernel A (chunked
+    or not), the sort, kernel B and combine_phases; rays and occupancy are
+    0-dim f64 tensors on the device (no host sync). A dynamic tracer takes
+    the frame's ops/dynamic.pack_scene `arrays` and renders from them."""
     base, spp = tracer.base_samples, tracer.spp
     extra_phase = make_sorted_extra_phase(tracer) if base < spp else None
     sweeps_per_iter = 1.0 + tracer.n_lights
 
-    def render_frame(pose, seed: int, frame_number: int):
-        a = base_kernel(tracer, pose, seed, frame_number)
-        rays = a.rays.sum(dtype=torch.float64)
-        iters = a.iters
-        if extra_phase is None:
-            current = a.csum * (1.0 / spp)
-            total = torch.full_like(a.var, float(base))
-        else:
+    def base_phase(pose, seed, frame_number):
+        """(csum, csumsq, state, rays, iters, var, needs, additional)."""
+        if not tracer.chunk_base:
+            a = base_kernel(tracer, pose, seed, frame_number)
             # Budgets are all-or-nothing under the reference's constants
             # (var > 10 => floor(var * 50) >= spp - base), so a needy
             # pixel never has a zero budget.
-            needs = a.additional > 0.0
-            esum, rays_b, it_b = extra_phase(pose, a.state, a.additional)
-            current, total = tracer.combine_phases(a.csum, esum, needs,
-                                                   a.additional)
+            return (a.csum, a.csumsq, a.state, a.rays, a.iters, a.var,
+                    a.additional > 0.0, a.additional)
+        a = base_kernel_chunked(tracer, pose, seed, frame_number)
+        csum = V3(*(tracer.chunk_total(v) for v in a.csum))
+        csumsq = V3(*(tracer.chunk_total(v) for v in a.csumsq))
+        var = tracer.variance_of(csum, csumsq)
+        needs, additional = tracer.extra_quota(var)
+        # The extra phase continues chunk 0's chain.
+        return (csum, csumsq, a.state[0], a.rays, a.iters, var, needs,
+                additional)
+
+    def render_frame(pose, seed: int, frame_number: int, arrays=None):
+        if tracer.dynamic:
+            tracer.bind_packed(arrays)
+        csum, csumsq, state, rays_a, iters, var, needs, additional = (
+            base_phase(pose, seed, frame_number))
+        rays = rays_a.sum(dtype=torch.float64)
+        if extra_phase is None:
+            current = csum * (1.0 / spp)
+            total = torch.full_like(var, float(base))
+        else:
+            esum, rays_b, it_b = extra_phase(pose, state, additional)
+            current, total = tracer.combine_phases(csum, esum, needs,
+                                                   additional)
             rays = rays + rays_b
             iters = iters + it_b
         occ = rays / torch.clamp(iters * sweeps_per_iter, min=1.0)
-        return current, a.var, total, rays, occ
+        return current, var, total, rays, occ
 
     return render_frame

@@ -1,9 +1,9 @@
 """The reference transport as plain PyTorch over lanes —
 ``terminal_raytracer_tpu/ops/tracer.py`` with every extension gate off.
 
-This is the port's oracle and the plain version of both CUDA kernels
+This is the port's oracle and the plain version of the CUDA kernels
 (ops/kernels.py): the same lane math the kernels run per thread, written as
-masked tensor ops over a batch of pixels. Every RNG draw keeps the JAX
+masked tensor ops over a batch of lanes. Every RNG draw keeps the JAX
 package's gate and order, so each pixel's chain is bit-identical to the
 reference's thread; floating-point expressions keep its operation order.
 
@@ -14,8 +14,19 @@ adaptive sampling with base = max(4, spp // 4), budget min(spp - base,
 floor(var * 50)) iff var > 10, and the reference's normalisation quirks.
 
 The scheduler is path regeneration (``regen_step``): a lane whose path ends
-starts its next sample on the next iteration, so one loop covers a pixel's
+starts its next sample on the next iteration, so one loop covers a lane's
 whole sample quota. Scheduling never changes a pixel's chain.
+
+Traversal and heavy-pixel chunk split, resolved as the JAX ``PathTracer``
+resolves them: ``accel='auto'`` takes the array traversal above
+ARRAY_AUTO_THRESHOLD primitives, and from CHUNK_AUTO_THRESHOLD primitives
+on the array traversal also splits each pixel's sample chain. Its base
+quota becomes ceil(base / chunk_base) entries of <= chunk_base samples and
+its extra budget entries of <= chunk_extra samples; entry c > 0 re-seeds a
+sub-chain at state + c * CHUNK_GOLDEN and keeps absolute sample indices,
+so chunk 0 is the head of the sequential chain. Lanes are then entries of
+a chunk-major stream (entry i = chunk i // n_pix of pixel i % n_pix), and
+a pixel's totals are its entries' sums added in chunk order.
 """
 
 from __future__ import annotations
@@ -25,8 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from terminal_raytracer_tpu.models import scene as scene_mod
-
+from ..models import scene as scene_mod
+from . import dynamic as dyn
 from . import geometry as geom
 from . import rng as prng
 from . import sampling
@@ -40,6 +51,13 @@ RR_START_BOUNCE = 3  # roulette runs on bounce indices > 3
 RR_MAX_SURVIVAL = 0.95
 ADAPTIVE_VAR_THRESHOLD = 10.0
 ADAPTIVE_VAR_SCALE = 50.0
+
+ACCELS = ("auto", "baked", "array", "grid", "gathered")
+ARRAY_AUTO_THRESHOLD = 96  # 'auto' sweeps arrays above this many primitives
+CHUNK_AUTO_THRESHOLD = 512  # ... and chunk-splits from this many on
+ARRAY_CHUNK_BASE = 2  # 'auto' chunk sizes at array scales
+ARRAY_CHUNK_EXTRA = 2
+CHUNK_GOLDEN = 0x9E3779B9
 
 
 class Cam(NamedTuple):
@@ -90,6 +108,39 @@ def check_reference_scene(scene: scene_mod.Scene) -> None:
                          + ", ".join(missing) + " yet")
 
 
+def resolve_accel(scene: scene_mod.Scene, accel: str) -> str:
+    """'baked' or 'array', as the JAX PathTracer resolves `accel`."""
+    if accel not in ACCELS:
+        raise ValueError(f"unknown accel {accel!r}; choose from {ACCELS}")
+    if accel in ("grid", "gathered"):
+        raise ValueError(f"accel {accel!r} is not ported yet to the PyTorch "
+                         "port (it has auto, baked and array)")
+    if accel == "auto":
+        return ("array" if scene.primitive_count > ARRAY_AUTO_THRESHOLD
+                else "baked")
+    return accel
+
+
+def resolve_chunks(scene: scene_mod.Scene, accel: str, chunk_base="auto",
+                   chunk_extra="auto"):
+    """(chunk_base, chunk_extra) as the JAX PathTracer resolves them for a
+    resolved `accel`; None is no split, and so is a chunk that covers the
+    whole quota."""
+    base = base_sample_count(scene.samples_per_pixel)
+    auto = accel == "array" and scene.primitive_count >= CHUNK_AUTO_THRESHOLD
+    if chunk_base == "auto":
+        chunk_base = ARRAY_CHUNK_BASE if auto else None
+    if chunk_extra == "auto":
+        chunk_extra = ARRAY_CHUNK_EXTRA if auto else None
+    if chunk_base is not None and int(chunk_base) >= base:
+        chunk_base = None
+    max_extra = max(scene.samples_per_pixel - base, 0)
+    if chunk_extra is not None and int(chunk_extra) >= max_extra:
+        chunk_extra = None
+    return (None if chunk_base is None else int(chunk_base),
+            None if chunk_extra is None else int(chunk_extra))
+
+
 class Paths(NamedTuple):
     """Regeneration-scheduler carry, one entry per lane."""
 
@@ -108,19 +159,39 @@ class Paths(NamedTuple):
 
 
 class PathTracer:
-    """The reference transport for one static scene on one device."""
+    """The reference transport for one scene on one device.
 
-    def __init__(self, scene: scene_mod.Scene, device):
+    `accel`, `chunk_base`, `chunk_extra`: as in the JAX PathTracer (module
+    docstring). `dynamic`: the scene's values arrive per frame through
+    :meth:`bind_packed` (ops/dynamic.py); the template fixes the counts and
+    the light topology."""
+
+    def __init__(self, scene: scene_mod.Scene, device, accel: str = "auto",
+                 chunk_base="auto", chunk_extra="auto", dynamic: bool = False):
         check_reference_scene(scene)
         self.scene = scene
         self.device = torch.device(device)
-        self.tables = geom.scene_tables(scene, self.device)
-        self.prims = geom.ScenePrims(self.tables)
+        self.accel = resolve_accel(scene, accel)
         self.width, self.height = scene.width, scene.height
         self.spp = scene.samples_per_pixel
         self.max_depth = scene.max_depth
         self.base_samples = base_sample_count(self.spp)
+        self.chunk_base, self.chunk_extra = resolve_chunks(
+            scene, self.accel, chunk_base, chunk_extra)
+        # Entries per pixel of the base and the extra phase.
+        self.n_base_chunks = (-(-self.base_samples // self.chunk_base)
+                              if self.chunk_base else 1)
+        max_extra = max(self.spp - self.base_samples, 0)
+        self.n_extra_chunks = (-(-max_extra // self.chunk_extra)
+                               if self.chunk_extra else 1)
         self.n_lights = len(scene.lights)
+        self._light_kinds = [tag for tag, _ in scene.lights]
+        self.dynamic = dynamic
+        if dynamic:
+            self.topology = dyn.topology(scene)
+            self.bind_packed(dyn.pack_scene(scene))
+        else:
+            self.bind_tables(geom.scene_tables(scene, self.device, self.accel))
         # f32 camera intrinsics, computed as the JAX package computes them.
         self.half_height = float(
             np.tan(np.float32(scene.fov_rad) / np.float32(2)))
@@ -133,13 +204,36 @@ class PathTracer:
         # a reciprocal multiply on CUDA.
         self._w1 = torch.tensor(float(self.width - 1), device=self.device)
         self._h1 = torch.tensor(float(self.height - 1), device=self.device)
-        self.lights = []
-        for row in self.tables.lights:
-            kind = int(row[0])
-            emission = V3(row[1], row[2], row[3])
-            a, b, c, n = (V3(row[i], row[i + 1], row[i + 2])
-                          for i in (5, 8, 11, 14))
-            self.lights.append((kind, emission, row[4], a, b, c, n))
+
+    def bind_tables(self, tables: geom.SceneTables) -> None:
+        """Render from `tables` from now on. The kernels read `tables.buf`
+        alone; the plain sweep and light list are built on first use."""
+        self.tables = tables
+        self._prims = self._lights = None
+
+    @property
+    def prims(self) -> geom.ScenePrims:
+        if self._prims is None:
+            self._prims = geom.ScenePrims(self.tables)
+        return self._prims
+
+    @property
+    def lights(self):
+        """Per NEE light: (kind, emission, area, a, b, c, normal)."""
+        if self._lights is None:
+            self._lights = []
+            for kind, row in zip(self._light_kinds, self.tables.lights):
+                emission = V3(row[1], row[2], row[3])
+                a, b, c, n = (V3(row[i], row[i + 1], row[i + 2])
+                              for i in (5, 8, 11, 14))
+                self._lights.append((kind, emission, row[4], a, b, c, n))
+        return self._lights
+
+    def bind_packed(self, arrays) -> None:
+        """Animated scenes: render from the ops/dynamic.pack_scene `arrays`
+        (one frame's values) from now on."""
+        self.bind_tables(dyn.tables_from_packed(arrays, self.topology,
+                                                self.device))
 
     # ------------------------------------------------------------------
 
@@ -179,7 +273,7 @@ class PathTracer:
             ldir = lvec / ldist
             shadow_o = p + normal * geom.RAY_EPS
             blocked = self.prims.occluded(shadow_o, ldir, geom.RAY_EPS,
-                                          ldist - geom.RAY_EPS)
+                                          ldist - geom.RAY_EPS, gate)
             cos_s = torch.clamp(vm.dot(normal, ldir), min=0.0)
             cos_l = torch.clamp(vm.dot(ln, -ldir), min=0.0)
             ok = ~blocked & (cos_s > 0.0) & (cos_l > 0.0)
@@ -196,7 +290,7 @@ class PathTracer:
         att', acc', alive', rays'); alive' drops lanes that missed (sky
         added) or were killed by Russian roulette."""
         zeros = torch.zeros_like(o.x)
-        hit = self.prims.closest_hit(o, d, geom.RAY_EPS, geom.T_FAR)
+        hit = self.prims.closest_hit(o, d, geom.RAY_EPS, geom.T_FAR, alive)
         rays = rays + alive.to(torch.float32)
         miss_now = alive & ~hit.found
         live = alive & hit.found
@@ -295,13 +389,40 @@ class PathTracer:
     def seed_lanes(self, x, y, seed: int, frame_number: int):
         return prng.seed_pixel(y * self.width + x, seed, frame_number)
 
-    def base_phase(self, cam: Cam, xf, yf, state0):
-        """`base` samples per lane. Returns (state, csum, csumsq, rays,
-        executed lane-iterations)."""
-        quota = torch.full_like(xf, float(self.base_samples))
-        c0 = self.regen_carry0(state0, torch.zeros_like(state0), quota)
+    def base_entries(self, y0: int = 0, h_out: int = None):
+        """The base phase's chunk-major entries over rows [y0, y0 + h_out):
+        (x, y, chunk), int64 [n_base_chunks, h_out, w]."""
+        x, y = self.pixel_grid(y0, h_out)
+        shape = (self.n_base_chunks, *x.shape)
+        c = torch.arange(self.n_base_chunks, device=self.device)
+        return x.expand(shape), y.expand(shape), c.view(-1, 1, 1).expand(shape)
+
+    def base_phase(self, cam: Cam, xf, yf, state0, chunk=None):
+        """The base samples of each lane, or with `chunk` (each lane's chunk
+        index) the chunk's share [c * cb, min((c + 1) * cb, base)) on the
+        chunk's sub-chain (state0 is the pixel seed either way). Returns
+        (state, csum, csumsq, rays, executed lane-iterations)."""
+        if chunk is None:
+            samp0 = torch.zeros_like(state0)
+            quota = torch.full_like(xf, float(self.base_samples))
+        else:
+            cb = self.chunk_base or self.base_samples
+            state0 = (state0 + chunk * CHUNK_GOLDEN) & prng.MASK32
+            samp0 = chunk * cb
+            quota = torch.clamp(samp0 + cb, max=self.base_samples).to(
+                torch.float32)
+        c0 = self.regen_carry0(state0, samp0, quota)
         c, it = self.run_regen(cam, xf, yf, c0)
         return c.state, c.csum, c.csumsq, c.rays, it * xf.numel()
+
+    @staticmethod
+    def chunk_total(planes: torch.Tensor) -> torch.Tensor:
+        """A pixel's total over its chunk planes [n_chunks, ...], added in
+        chunk order (the JAX package's order)."""
+        total = planes[0]
+        for c in range(1, planes.shape[0]):
+            total = total + planes[c]
+        return total
 
     def variance_of(self, csum: V3, csumsq: V3):
         """Luminance-sum variance of the base samples (kept raw; can be
@@ -337,6 +458,22 @@ class PathTracer:
         c, it = self.run_regen(cam, sub(xf), sub(yf), c0)
         return V3(*(full(v) for v in c.csum)), full(c.rays), it * live.numel()
 
+    def extra_entries(self, state, additional):
+        """The extra phase's chunk-major entries of pixels with end state
+        `state` and budget `additional`: (budget f32, state, samp0 int64),
+        each [n_extra_chunks, *additional.shape]. Entry c owes
+        clip(additional - c * ce, 0, ce) samples from sample index
+        base + c * ce on the sub-chain state + c * CHUNK_GOLDEN; unchunked,
+        the one entry is the pixel's whole budget on its own chain."""
+        ce = self.chunk_extra or max(self.spp - self.base_samples, 0)
+        budgets, states, samp0 = [], [], []
+        for c in range(self.n_extra_chunks):
+            budgets.append(torch.clamp(additional - float(c * ce), 0.0,
+                                       float(ce)))
+            states.append((state + c * CHUNK_GOLDEN) & prng.MASK32)
+            samp0.append(torch.full_like(state, self.base_samples + c * ce))
+        return torch.stack(budgets), torch.stack(states), torch.stack(samp0)
+
     def combine_phases(self, csum: V3, esum: V3, needs, additional):
         """The reference's normalisation: adaptive pixels average over the
         samples taken; the rest divide the base sum by spp."""
@@ -356,24 +493,31 @@ class PathTracer:
         return x, y
 
     def render_frame(self, pose, seed: int, frame_number: int):
-        """The whole frame in plain PyTorch. Returns (current V3[H,W],
+        """The whole frame in plain PyTorch, over the image-order entries
+        (the JAX oracle's render_lanes). Returns (current V3[H,W],
         variance, total samples, owed rays, occupancy) — occupancy is owed
         sweeps over executed lane-iteration sweeps."""
         cam = cam_from_pose(pose)
-        x, y = self.pixel_grid()
-        xf, yf = x.to(torch.float32), y.to(torch.float32)
+        x, y, c = self.base_entries()
         state, csum, csumsq, rays, it = self.base_phase(
-            cam, xf, yf, self.seed_lanes(x, y, seed, frame_number))
+            cam, x.to(torch.float32), y.to(torch.float32),
+            self.seed_lanes(x, y, seed, frame_number), c)
+        csum = V3(*(self.chunk_total(v) for v in csum))
+        csumsq = V3(*(self.chunk_total(v) for v in csumsq))
+        state = state[0]  # the extra phase continues chunk 0's chain
         var = self.variance_of(csum, csumsq)
         if self.base_samples >= self.spp:
             current = csum * (1.0 / self.spp)
             total = torch.full_like(var, float(self.base_samples))
         else:
             needs, additional = self.extra_quota(var)
+            budget, st_e, samp0 = self.extra_entries(state, additional)
+            shape = budget.shape
             esum, rays_b, it_b = self.extra_phase(
-                cam, xf, yf, state, additional,
-                torch.full_like(state, self.base_samples))
-            rays = rays + rays_b
+                cam, x[0].expand(shape).to(torch.float32),
+                y[0].expand(shape).to(torch.float32), st_e, budget, samp0)
+            esum = V3(*(self.chunk_total(v) for v in esum))
+            rays = torch.cat([rays.reshape(-1), rays_b.reshape(-1)])
             it += it_b
             current, total = self.combine_phases(csum, esum, needs,
                                                  additional)

@@ -1,9 +1,9 @@
 """ANSI frame encoder — ``terminal_raytracer_tpu/runtime/blit.py``.
 
-The native encoder is the JAX package's own source,
-``terminal_raytracer_tpu/native/blit.cpp``, read in place and compiled with
-g++ at first use into this package's build directory
-(``terminal_raytracer_tpu_torch/_build/``, content-hashed). The pure-Python
+The native encoder is the port's copy of the JAX package's
+``native/blit.cpp`` (``csrc/blit.cpp``), compiled with g++ at first use
+into this package's build directory (``terminal_raytracer_tpu_torch/_build/``,
+content-hashed). The pure-Python
 encoder produces byte-identical output for hosts without g++; it is a host
 encoder, not a stand-in for any device code.
 """
@@ -20,11 +20,9 @@ from typing import Optional
 
 import numpy as np
 
-import terminal_raytracer_tpu
-
 from ..ops.tonemap import GLYPH_RAMP
 
-_SRC = Path(terminal_raytracer_tpu.__file__).resolve().parent / "native" / "blit.cpp"
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "blit.cpp"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 _lib = None

@@ -10,6 +10,11 @@ frame N+1. WASD/arrows move the camera and reset accumulation
 
 The headless runner drives the step once per frame. (The JAX package folds
 8 frames into one dispatch; a CUDA graph is the counterpart, still to come.)
+
+With `animate`, an animator (models/animate.py) maps the scene's packed
+arrays to the values of the animation clock's current frame; the clock
+advances once per render, and every frame renders fresh (frame_number 0,
+no accumulation), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from terminal_raytracer_tpu.models import Camera, scene as scene_mod
-
+from ..models import Camera, scene as scene_mod
+from ..models.animate import ANIMATORS
+from ..ops.dynamic import pack_scene
 from .blit import Blitter
 from .state import init_state, make_render_step
 from .terminal import TerminalSession
@@ -69,15 +75,28 @@ class Engine:
         threads: int = 0,
         verbose: bool = False,
         deterministic: Optional[int] = None,
+        accel: str = "auto",
+        animate: Optional[str] = None,
     ):
         """`deterministic`: seed of the per-frame seed draws (None draws
-        from OS entropy, like the reference)."""
+        from OS entropy, like the reference). `accel`: the traversal
+        (ops/tracer.py). `animate`: an animator name of
+        models/animate.ANIMATORS, or None for a static scene."""
         self.scene = scene
         self.full_color = full_color
         self.device = torch.device(device)
         self.camera = Camera()
+        self.animate = animate
+        if animate is not None:
+            if animate not in ANIMATORS:
+                raise ValueError(f"unknown animator {animate!r}; have "
+                                 f"{sorted(ANIMATORS)}")
+            self._animator = ANIMATORS[animate]
+            self._arrays0 = pack_scene(scene)
+            self._anim_t = 0
         self.step = make_render_step(scene, full_color=full_color,
-                                     device=self.device)
+                                     device=self.device, accel=accel,
+                                     dynamic=animate is not None)
         self.state = init_state(scene, self.device)
         self.blitter = Blitter(scene.height, scene.width, full_color, threads)
         self.timers = FrameTimers()
@@ -109,7 +128,15 @@ class Engine:
 
     def render_one(self, frame_number: int):
         """Dispatch one step and advance the state; returns the step's
-        FrameOutput."""
+        FrameOutput. An animated engine renders the animation clock's next
+        frame fresh and leaves frame_count (and so the seed offset) at 0."""
+        if self.animate is not None:
+            arrays = self._animator(self._arrays0, self._anim_t)
+            self._anim_t += 1
+            out = self.step(self.state, self.camera.pose(), self._seed(), 0,
+                            arrays)
+            self.state = out.state
+            return out
         out = self.step(self.state, self.camera.pose(), self._seed(),
                         frame_number)
         self.state = out.state

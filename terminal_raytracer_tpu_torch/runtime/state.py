@@ -2,7 +2,8 @@
 
 Temporal accumulation is a running mean with alpha = 1/(frame_number+1),
 overwritten when frame_number == 0 (which the host sets on camera
-movement). Between frames only (camera pose, seed, frame_number) change.
+movement). Between frames only (camera pose, seed, frame_number) change,
+and in animated mode the scene's values (the step's trailing `arrays`).
 """
 
 from __future__ import annotations
@@ -12,8 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from terminal_raytracer_tpu.models import scene as scene_mod
-
+from ..models import scene as scene_mod
 from ..ops import kernels
 from ..ops import tonemap as tm
 from ..ops.tracer import PathTracer
@@ -61,19 +61,25 @@ def state_to_numpy(state: FrameState):
 
 
 def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
-                     device="cuda"):
-    """Build ``step(state, pose16, seed, frame_number) -> FrameOutput``.
+                     device="cuda", accel: str = "auto",
+                     dynamic: bool = False):
+    """Build ``step(state, pose16, seed, frame_number[, arrays]) ->
+    FrameOutput``.
 
     The step runs the sorted two-kernel pipeline (ops/kernels.py): the CUDA
     kernels on a CUDA device, their plain PyTorch versions on the CPU.
-    It updates ``state.acc`` IN PLACE and returns that same tensor in the
-    new state; pass the previous output's state back in."""
-    tracer = PathTracer(scene, device)
+    `accel` picks the traversal and with it the chunk split
+    (ops/tracer.py). With `dynamic`, the step takes the frame's scene
+    values as a trailing ops/dynamic.pack_scene `arrays` (the --animate
+    mode). It updates ``state.acc`` IN PLACE and returns that same tensor
+    in the new state; pass the previous output's state back in."""
+    tracer = PathTracer(scene, device, accel=accel, dynamic=dynamic)
     render_frame = kernels.make_sorted_render_frame(tracer)
 
-    def step(state: FrameState, pose, seed, frame_number) -> FrameOutput:
+    def step(state: FrameState, pose, seed, frame_number,
+             arrays=None) -> FrameOutput:
         current, variance, samples, rays, occ = render_frame(
-            pose, int(seed), int(frame_number))
+            pose, int(seed), int(frame_number), arrays)
         # alpha in f32, as the JAX step computes it.
         fn = np.float32(frame_number)
         alpha = (np.float32(1.0) if fn == 0.0

@@ -6,7 +6,7 @@ dependencies; tests/conftest.py imports jax, hence ``--noconftest``:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Both kernels build with --fmad=false and use the same CUDA math functions
+The kernels build with --fmad=false and use the same CUDA math functions
 as PyTorch's own kernels, so they must agree with the plain versions bit
 for bit.
 """
@@ -14,7 +14,9 @@ for bit.
 import pytest
 import torch
 
-from terminal_raytracer_tpu.models import Camera, load_scene
+from terminal_raytracer_tpu_torch.models import Camera, load_scene
+from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
+from terminal_raytracer_tpu_torch.ops import dynamic as dyn
 from terminal_raytracer_tpu_torch.ops import kernels
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.runtime import init_state, make_render_step
@@ -73,6 +75,42 @@ def test_render_step_matches_plain_frame(cuda_device, spp, depth):
     assert torch.equal(out.state.samples, total)
     assert torch.equal(out.state.variance, var)
     assert torch.equal(out.state.acc, torch.stack(list(cur)))
+
+
+@pytest.mark.cuda
+def test_chunked_kernel_matches_plain_version(cuda_device):
+    """kernel_base_chunked against its plain version on stress:120:7 with
+    chunks of 2: every per-entry plane equal."""
+    scene = load_scene("stress:120:7").with_overrides(
+        width=64, height=16, samples_per_pixel=8, max_depth=6)
+    tr = PathTracer(scene, cuda_device, chunk_base=2, chunk_extra=2)
+    n0 = kernels.base_kernel_chunked.launches
+    k = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
+    p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
+    assert kernels.base_kernel_chunked.launches == n0 + 1
+    assert k.rays.shape == (2, 16, 64)
+    assert torch.equal(k.rays, p.rays) and torch.equal(k.state, p.state)
+    for a, b in zip(list(k.csum) + list(k.csumsq),
+                    list(p.csum) + list(p.csumsq)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stress:120:7", "Cornell_Box"])
+def test_animated_chunked_frame_matches_plain_frame(cuda_device, name):
+    """The sorted pipeline on an animated frame's buffer (chunk split
+    forced) against the plain whole frame on the same buffer."""
+    scene = load_scene(name).with_overrides(
+        width=64, height=16, samples_per_pixel=8, max_depth=6)
+    tr = PathTracer(scene, cuda_device, dynamic=True, chunk_base=2,
+                    chunk_extra=2)
+    arrays = ANIMATORS["orbit"](dyn.pack_scene(scene), 5)
+    cur, var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
+        POSE, SEED, 0, arrays)
+    pcur, pvar, ptot, prays, _ = tr.render_frame(POSE, SEED, 0)
+    assert float(rays) == float(prays)
+    for a, b in zip((*cur, var, tot), (*pcur, pvar, ptot)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's whole main path against the JAX package's jnp oracle: the
 plain whole-frame ``render_frame``, the render step (the sorted two-kernel
 pipeline, here through the kernels' plain versions), state carry between
-the packages, the blitter, the CLI, and the import boundary (no jax).
+the packages, the blitter, the CLI, the port's own scene loader, and the
+import boundary (no jax, nothing of the JAX package).
 
 Decisions must agree exactly: owed rays and per-pixel sample counts.
 Radiance agrees within rtol 1e-4 / atol 1e-5 except on knife-edge pixels
@@ -17,6 +18,7 @@ none. uint8 outputs agree except where a value straddles a quantisation
 step, or on those same pixels.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -26,11 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from terminal_raytracer_tpu.models import Camera, load_scene
+from terminal_raytracer_tpu.models import Camera, list_scenes, load_scene
 from terminal_raytracer_tpu.runtime import blit as jblit
 from terminal_raytracer_tpu.runtime import init_state as j_init_state
 from terminal_raytracer_tpu.runtime import make_render_step as j_make_step
 from terminal_raytracer_tpu_torch.cli import main as torch_main
+from terminal_raytracer_tpu_torch.models import load_scene as tload_scene
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.runtime import (init_state,
                                                   make_render_step,
@@ -178,21 +181,53 @@ def test_headless_cli_runs_on_cpu():
 
 def test_port_never_imports_jax():
     """In a fresh interpreter (this test process has jax loaded already):
-    import every port module and render a frame through the CLI."""
+    import every port module and render frames through the CLI, static and
+    animated. No jax module, and no module of the JAX package, may load."""
     code = (
-        "import sys\n"
+        "import pkgutil, importlib, sys\n"
+        "import terminal_raytracer_tpu_torch as port\n"
+        "for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
         "import terminal_raytracer_tpu_torch.cli as cli\n"
-        "import terminal_raytracer_tpu_torch.ops.build\n"
-        "import terminal_raytracer_tpu_torch.ops.kernels\n"
-        "import terminal_raytracer_tpu_torch.runtime.engine\n"
         "assert cli.main(['--device', 'cpu', '--width', '16', '--height',"
         " '4', '--spp', '4', '--depth', '2', '--frames', '1',"
         " '--full-color']) == 0\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert cli.main(['--device', 'cpu', '--scene', 'stress:600:3',"
+        " '--animate', 'orbit', '--width', '16', '--height', '4', '--spp',"
+        " '8', '--depth', '2', '--frames', '2', '--full-color']) == 0\n"
+        "bad = [m for m in sys.modules if m.startswith('jax')\n"
+        "       or m == 'terminal_raytracer_tpu'\n"
+        "       or m.startswith('terminal_raytracer_tpu.')]\n"
         "assert not bad, bad\n"
     )
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
+
+
+def _fields(obj):
+    """A dataclass (nested) as plain Python values, field by field."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _fields(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return [_fields(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _fields(v) for k, v in obj.items()}
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj
+
+
+@pytest.mark.parametrize("name", list_scenes() + ["stress:120:7",
+                                                  "icosphere:1"])
+def test_port_loads_scenes_as_the_jax_package_does(name):
+    """The port's own copy of the models: primitives, materials, camera and
+    settings equal the JAX package's, field by field."""
+    got, want = _fields(tload_scene(name)), _fields(load_scene(name))
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key] == want[key], key
+    assert tload_scene(name).primitive_count == load_scene(name).primitive_count
 
 
 def test_cuda_device_without_gpu_exits_nonzero(capsys):
