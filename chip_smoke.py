@@ -16,13 +16,14 @@ Phases, each reported on lines starting with its tag:
             JAX package's bench.py)
   [kernel_extra]  kernel B against its plain version on the budget-sorted
             stream built from the depth-8 output: rays equal, esum within
-            5e-3; then both kernels timed against their plain versions at
-            the north-star shapes
+            5e-3; then both kernels held against and timed beside their
+            plain versions at the north-star shapes
   [kernel_base_chunked]  the chunked kernel A against its plain version on
             stress:120:7 at 64x16, 8 spp, depth 6, chunks of 2: rays, end
             states and per-pixel totals equal, radiance within 5e-3; then
-            timed against its plain version at the stress1024 shapes, and
-            one stress1024 frame with and without the chunk split
+            held against and timed beside its plain version at the
+            stress1024 shapes, and one stress1024 frame with and without
+            the chunk split
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -35,15 +36,33 @@ Phases, each reported on lines starting with its tag:
             128x32) against the plain pipeline on the card, on the same
             per-frame scene buffer: rays, samples and variance equal,
             radiance within 5e-3
+  [ext]     the material and texture extensions (EXT kernels): each EXT
+            kernel against its plain version on the five packaged
+            extension scenes at 128x64 (their own spp and depth; envmap
+            with a brighter sky so that kernel B has work), textured
+            bilinear, and the chunked EXT kernel A (rays, budgets, states
+            equal; radiance within 5e-3); the EXT kernels on Cornell_Box
+            against the reference kernels, bit for bit; Engine at each
+            extension scene's full size, at stress:1024 with a checker
+            floor (chunked) and at showcase --animate orbit, and the
+            device busy share of a profiled showcase and textured run;
+            an animated showcase frame against the plain pipeline;
+            cli.main on showcase; then each EXT kernel against its plain
+            version at the main path's shapes (the five scenes at
+            400x200, the checker stress:1024 at 200x100), timed at the
+            showcase, textured and checker stress:1024 shapes
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. It prints
   ms/frame, Mray/s (owed traversal sweeps per second) and occupancy.
 
-Then one JSON line with each kernel's result (its bound: the FP32
-operations of the intersection tests its plain version counts for the same
-inputs, over the card's FP32 peak, or its bytes over 3.35 TB/s, whichever
-is larger), the nvidia-smi line, and as the last line
+Then one JSON line with each kernel's result (its max abs error: the
+largest over its comparisons, which include the main path's shapes; its
+bound: the FP32 operations of the intersection tests its plain version
+counts for the same inputs, over the card's FP32 peak, or its bytes over
+3.35 TB/s, whichever is larger; the EXT rows at the showcase and
+stress:1024-checker shapes),
+the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
 prints no result; nothing falls back to the plain version or to the CPU.
 """
@@ -184,14 +203,16 @@ def _time_cuda(fn, reps, warm=True):
 def _time_plain(tr, fn):
     """One counted run of a plain version (the FP32 operations of the
     intersection tests it owes, ops/geometry.py ScenePrims.ops), which is
-    also the warm-up, then one timed run. Returns (ms, operations)."""
+    also the warm-up, then one timed run. Returns (ms, operations, the
+    timed run's output)."""
     import torch
 
     tr.prims.ops = torch.zeros((), dtype=torch.float64, device=tr.device)
     fn()
     ops = float(tr.prims.ops)
     tr.prims.ops = None
-    return _time_cuda(fn, 1, warm=False), ops
+    out = []
+    return _time_cuda(lambda: out.append(fn()), 1, warm=False), ops, out[0]
 
 
 def _bound(ops, n_bytes, peak):
@@ -229,17 +250,24 @@ def phase_kernel_extra(tr, a, peak):
     if not rays_eq or not rel < TOL:
         fail("[kernel_extra] disagrees with the plain version")
 
-    # Timings at the north-star shapes (outside the counted main path).
+    # Both kernels against their plain versions at the north-star shapes,
+    # and timed there (outside the counted main path).
     ns = PathTracer(_cornell(400, 200, 16, 32), "cuda")
     scene_bytes = 4 * ns.tables.buf.numel()
     ms_a = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
-    plain_a, ops_a = _time_plain(
+    plain_a, ops_a, p_ns = _time_plain(
         ns, lambda: kernels.base_kernel_plain(ns, pose, SEED, 0))
     a_ns = kernels.base_kernel(ns, pose, SEED, 0)
+    err_a = _compare_base("kernel_base", "north-star shapes", a_ns, p_ns,
+                          ("additional", "var"))
     s_ns = kernels.sorted_stream(ns, a_ns.state, a_ns.additional)
     args = (ns, pose, s_ns.xs, s_ns.ys, s_ns.state, s_ns.add, s_ns.samp0)
+    b_ns = kernels.extra_kernel(*args)
     ms_b = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
-    plain_b, ops_b = _time_plain(ns, lambda: kernels.extra_kernel_plain(*args))
+    plain_b, ops_b, pb_ns = _time_plain(
+        ns, lambda: kernels.extra_kernel_plain(*args))
+    err = max(err, _check_extra("kernel_extra", "north-star shapes", s_ns,
+                                b_ns, pb_ns))
     n_pix, n_ent = a_ns.var.numel(), s_ns.add.numel()
     bound_a = _bound(ops_a, scene_bytes + 44 * n_pix, peak)
     bound_b = _bound(ops_b, scene_bytes + 40 * n_ent, peak)
@@ -249,7 +277,7 @@ def phase_kernel_extra(tr, a, peak):
           f"{ms_b:.3f} ms on {int((s_ns.add > 0).sum())} budgeted of "
           f"{n_ent} entries (plain {plain_b:.1f} ms, bound {bound_b[0]:.3f} "
           f"ms by {bound_b[1]}: {ops_b:.4g} operations)", flush=True)
-    return err, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
+    return err_a, err, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
 
 
 def _chunk_totals(tr, out):
@@ -287,9 +315,12 @@ def phase_kernel_base_chunked(peak):
     if big.chunk_base != 2 or big.chunk_extra != 2:
         fail("[kernel_base_chunked] stress1024 does not resolve to cb = ce "
              "= 2")
+    kb = kernels.base_kernel_chunked(big, pose, SEED, 0)
     ms = _time_cuda(lambda: kernels.base_kernel_chunked(big, pose, SEED, 0), 5)
-    plain_ms, ops = _time_plain(
+    plain_ms, ops, pb = _time_plain(
         big, lambda: kernels.base_kernel_chunked_plain(big, pose, SEED, 0))
+    err = max(err, _compare_base("kernel_base_chunked", "stress1024 shapes",
+                                 kb, pb, (), big))
     n_ent = big.n_base_chunks * big.width * big.height
     bound = _bound(ops, 4 * big.tables.buf.numel() + 36 * n_ent, peak)
     print(f"[kernel_base_chunked] stress1024 shapes ({n_ent} entries): "
@@ -313,7 +344,9 @@ def phase_kernel_base_chunked(peak):
     return err, (ms, plain_ms, bound)
 
 
-LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel")
+LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
+                "base_kernel_ext", "base_kernel_chunked_ext",
+                "extra_kernel_ext")
 
 
 def _reset_launches():
@@ -334,6 +367,7 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None):
     launch counters reset first. Returns the launches by kernel."""
     import torch
 
+    from terminal_raytracer_tpu_torch.ops import geometry as geom
     from terminal_raytracer_tpu_torch.ops import tracer as tracer_mod
     from terminal_raytracer_tpu_torch.runtime.engine import Engine
 
@@ -354,9 +388,11 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None):
     chunked = tracer_mod.resolve_chunks(scene, accel)[0] is not None
     n = frames + 1
     base = tracer_mod.base_sample_count(scene.samples_per_pixel)
-    want = {"base_kernel": 0 if chunked else n,
-            "base_kernel_chunked": n if chunked else 0,
-            "extra_kernel": n if base < scene.samples_per_pixel else 0}
+    sfx = "_ext" if geom.uses_extensions(scene) else ""
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    want["base_kernel_chunked" + sfx if chunked else "base_kernel" + sfx] = n
+    if base < scene.samples_per_pixel:
+        want["extra_kernel" + sfx] = n
     total_rays = sum(float(r) for r in rays)
     rgb = out.rgb
     finite = bool(torch.isfinite(eng.state.acc).all())
@@ -426,8 +462,8 @@ def phase_main():
                    "--spp", "16", "--depth", "8", "--frames", "2"])
     got = _launches()
     print(f"[main] cli.main rc {rc}, launches {got}", flush=True)
-    if rc != 0 or got != {"base_kernel": 2, "base_kernel_chunked": 0,
-                          "extra_kernel": 2}:
+    if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
+                              base_kernel=2, extra_kernel=2):
         fail("[main] cli.main run failed")
     _add(launches, got)
 
@@ -499,6 +535,318 @@ def phase_scale():
     return launches
 
 
+# The packaged extension scenes, rendered at their own size, spp and depth.
+EXT_SCENES = ("cornell_glass", "showcase", "textured", "envmap", "bumpy")
+
+
+def _ext_scene(name, w=None, h=None, filt=None, spp=None, depth=None):
+    from terminal_raytracer_tpu_torch.models import load_scene
+
+    return load_scene(name).with_overrides(
+        width=w, height=h, texture_filter=filt, samples_per_pixel=spp,
+        max_depth=depth)
+
+
+def _bright_sky(scene, intensity=8.0):
+    """`scene` with its sky map brightened: at envmap's own 1.4 no pixel's
+    variance reaches the adaptive threshold (10), so kernel B traces
+    nothing there; at 8 it budgets pixels whose extra paths end in the
+    sky map."""
+    import dataclasses
+
+    return dataclasses.replace(
+        scene, sky=dataclasses.replace(scene.sky, intensity=intensity))
+
+
+def _checker_stress():
+    """stress:1024 with a checker floor: an extension scene at array scale,
+    where auto resolves the chunk split (the chunked EXT kernel)."""
+    import dataclasses
+
+    scene = _scene("stress:1024", 200, 100, 8, 6)
+    floor = scene.planes[0]
+    mat = floor.material._replace(checker_color=(0.2, 0.2, 0.25),
+                                  checker_scale=1.0)
+    return dataclasses.replace(scene, planes=(floor._replace(material=mat),))
+
+
+def _compare_base(tag, label, k, p, extra_eq=("additional",), tr=None):
+    """Kernel A (or its chunk planes) against the plain version: rays and
+    end states (and `extra_eq`; with the chunked tracer `tr`, the
+    per-pixel chunk totals) equal, radiance within TOL. Returns the max abs
+    error."""
+    import torch
+
+    torch.cuda.synchronize()
+    eq = {name: bool(torch.equal(getattr(k, name), getattr(p, name)))
+          for name in ("rays", "state") + tuple(extra_eq)}
+    if tr is not None:
+        eq["totals"] = all(bool(torch.equal(a, b)) for a, b in
+                           zip(_chunk_totals(tr, k), _chunk_totals(tr, p)))
+    pairs = list(zip(k.csum, p.csum)) + list(zip(k.csumsq, p.csumsq))
+    eq["radiance bits"] = all(bool(torch.equal(a, b)) for a, b in pairs)
+    rel = max(maxrel(a, b) for a, b in pairs)
+    print(f"[{tag}] {label}: rays {float(k.rays.sum()):.0f}, equal {eq}, "
+          f"maxrel {rel:.3e}", flush=True)
+    if not all(v for n, v in eq.items() if n != "radiance bits") or not rel < TOL:
+        fail(f"[{tag}] {label}: disagrees")
+    return max(maxabs(a, b) for a, b in pairs)
+
+
+def _check_extra(tag, label, s, k, p, allow_empty=False):
+    """Kernel B's outputs `k` against the plain version's `p` on the sorted
+    stream `s`: rays equal, esum within TOL, and (unless `allow_empty`) at
+    least one budgeted entry. Returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    (ek, rk, _), (ep, rp, _) = k, p
+    n_work = int((s.add > 0).sum())
+    rays_eq = bool(torch.equal(rk, rp))
+    bits = all(bool(torch.equal(x, y)) for x, y in zip(ek, ep))
+    rel = max(maxrel(x, y) for x, y in zip(ek, ep))
+    print(f"[{tag}] {label} kernel B: {n_work} budgeted entries, rays "
+          f"{float(rk.sum()):.0f} equal {rays_eq}, esum bits equal {bits}, "
+          f"maxrel {rel:.3e}", flush=True)
+    if n_work == 0 and not allow_empty:
+        fail(f"[{tag}] {label}: the stream has no budgeted entry")
+    if not rays_eq or not rel < TOL:
+        fail(f"[{tag}] {label}: kernel B disagrees")
+    return max(maxabs(x, y) for x, y in zip(ek, ep))
+
+
+def _compare_extra(tag, label, tr, k_fn, p_fn, a):
+    """Kernel B on the sorted stream of kernel A's output `a`, `k_fn`
+    against `p_fn` (_check_extra). Returns the max abs error."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    s = kernels.sorted_stream(tr, a.state, a.additional)
+    args = (tr, _pose(), s.xs, s.ys, s.state, s.add, s.samp0)
+    return _check_extra(tag, label, s, k_fn(*args), p_fn(*args))
+
+
+def _device_busy(tag, label, scene, frames):
+    """`frames` Engine frames (after a warm-up) under torch.profiler: the
+    share of their wall time in which the card ran work (the union of the
+    device activity intervals), and the device time per frame by kernel.
+    Prints "not measured" when the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from terminal_raytracer_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(scene, full_color=True, device="cuda", deterministic=SEED)
+    eng.render_one(eng.frame_count)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            eng.render_one(eng.frame_count)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    if not spans:
+        print(f"[{tag}] {label} profiled: device busy share not measured "
+              "(the profiler recorded no device activity)", flush=True)
+        return
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[{tag}] {label} profiled, {frames} frames: "
+          f"{1e3 * wall / frames:.3f} ms/frame under the profiler, device "
+          f"busy {busy / 1e3 / frames:.3f} ms/frame = "
+          f"{busy / 1e6 / wall:.3f} of the wall time, {len(spans)} device "
+          "activities; device ms/frame by name: " + ", ".join(
+              f"{name[:48]} {us / 1e3 / frames:.3f}" for name, us in top),
+          flush=True)
+
+
+def phase_ext(peak):
+    """The material and texture extensions: (a) each EXT kernel against its
+    plain version on the packaged extension scenes at 128x64 (their spp
+    and depth; envmap with a brighter sky, _bright_sky), textured
+    bilinear, and the chunked EXT kernel with chunks of 2; (b) the EXT
+    kernels on Cornell_Box (zero channels, no atlas) against the reference
+    kernels, bit for bit; (c) Engine at each extension scene's full size,
+    and at stress:1024 with a checker floor (the chunked EXT kernel on the
+    main path), with the device busy share of a profiled showcase and
+    textured run; (d) showcase --animate orbit through Engine, and an
+    animated frame against the plain pipeline; (e) cli.main on showcase;
+    (f) each EXT kernel against its plain version at the main path's
+    shapes (the five scenes at 400x200, the checker stress:1024 at
+    200x100), timed at the showcase, textured and checker stress:1024
+    shapes. Returns (launches, per-kernel results); each kernel's error is
+    the largest of (a) and (f)."""
+    import torch
+
+    from terminal_raytracer_tpu_torch import cli
+    from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
+    from terminal_raytracer_tpu_torch.ops import dynamic as dyn
+    from terminal_raytracer_tpu_torch.ops import geometry as geom
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    err = {"a": 0.0, "b": 0.0, "c": 0.0}
+    # (a)
+    for name, filt in [(n, None) for n in EXT_SCENES] + [("textured",
+                                                          "bilinear")]:
+        scene = _ext_scene(name, 128, 64, filt)
+        if scene.sky is not None:
+            scene = _bright_sky(scene)
+        label = f"{name}{' ' + filt if filt else ''}" \
+                f"{' sky x' + str(scene.sky.intensity) if scene.sky else ''}" \
+                f" 128x64 spp {scene.samples_per_pixel} depth {scene.max_depth}"
+        tr = PathTracer(scene, "cuda")
+        k = kernels.base_kernel_ext(tr, pose, SEED, 0)
+        p = kernels.base_kernel_plain(tr, pose, SEED, 0)
+        err["a"] = max(err["a"], _compare_base("ext", label, k, p))
+        err["b"] = max(err["b"], _compare_extra(
+            "ext", label, tr, kernels.extra_kernel_ext,
+            kernels.extra_kernel_plain, k))
+    tr = PathTracer(_ext_scene("showcase", 128, 64), "cuda", chunk_base=2,
+                    chunk_extra=2)
+    k = kernels.base_kernel_chunked_ext(tr, pose, SEED, 0)
+    p = kernels.base_kernel_chunked_plain(tr, pose, SEED, 0)
+    err["c"] = _compare_base("ext", f"showcase 128x64 chunked EXT kernel A, "
+                             f"{tr.n_base_chunks} chunks of 2", k, p, (), tr)
+
+    # (b) The reference scene through the EXT kernels: its tables with a
+    # (zero) extension table bound.
+    scene = _cornell(128, 16, 16, 8)
+
+    def with_ext(**kw):
+        t = PathTracer(scene, "cuda", **kw)
+        t.bind_tables(geom.scene_tables(scene, "cuda", t.accel, ext=True))
+        return t
+
+    ref, ext = PathTracer(scene, "cuda"), with_ext()
+    a_ref = kernels.base_kernel(ref, pose, SEED, 0)
+    a_ext = kernels.base_kernel_ext(ext, pose, SEED, 0)
+    _compare_base("ext", "Cornell_Box: EXT kernel A vs reference kernel A",
+                  a_ext, a_ref, ("additional", "var"))
+    s = kernels.sorted_stream(ref, a_ref.state, a_ref.additional)
+    b_ref = kernels.extra_kernel(ref, pose, s.xs, s.ys, s.state, s.add,
+                                 s.samp0)
+    b_ext = kernels.extra_kernel_ext(ext, pose, s.xs, s.ys, s.state, s.add,
+                                     s.samp0)
+    c_ref = kernels.base_kernel_chunked(
+        PathTracer(scene, "cuda", chunk_base=2), pose, SEED, 0)
+    c_ext = kernels.base_kernel_chunked_ext(with_ext(chunk_base=2), pose,
+                                            SEED, 0)
+    torch.cuda.synchronize()
+    same = (all(bool(torch.equal(x, y)) for x, y in zip(b_ext[0], b_ref[0]))
+            and bool(torch.equal(b_ext[1], b_ref[1])))
+    same_c = (all(bool(torch.equal(getattr(c_ext, f), getattr(c_ref, f)))
+                  for f in ("rays", "state"))
+              and all(bool(torch.equal(x, y)) for x, y in
+                      zip((*c_ext.csum, *c_ext.csumsq),
+                          (*c_ref.csum, *c_ref.csumsq))))
+    bits_a = all(bool(torch.equal(x, y)) for x, y in
+                 zip((*a_ext.csum, *a_ext.csumsq),
+                     (*a_ref.csum, *a_ref.csumsq)))
+    print(f"[ext] Cornell_Box: EXT kernels bit-equal to the reference "
+          f"kernels: A {bits_a}, B {same}, chunked A {same_c}", flush=True)
+    if not (bits_a and same and same_c):
+        fail("[ext] the EXT kernels change a reference scene")
+
+    # (c), (d)
+    launches = {}
+    for name in EXT_SCENES:
+        _add(launches, _run_engine("ext", name, _ext_scene(name), True, 8))
+    _add(launches, _run_engine("ext", "stress1024 checker floor",
+                               _checker_stress(), True, 8))
+    _add(launches, _run_engine("ext", "showcase", _ext_scene("showcase"),
+                               True, 8, "orbit"))
+    for name in ("showcase", "textured"):  # outside the counted runs
+        _device_busy("ext", name, _ext_scene(name), 8)
+    scene = _ext_scene("showcase", 128, 32)
+    tr = PathTracer(scene, "cuda", dynamic=True)
+    _against_plain("ext", "showcase --animate orbit 128x32 frame t=5", tr,
+                   kernels.make_sorted_render_frame(tr), pose, 9,
+                   ANIMATORS["orbit"](dyn.pack_scene(scene), 5))
+
+    # (e)
+    _reset_launches()
+    rc = cli.main(["--device", "cuda", "--full-color", "--scene", "showcase",
+                   "--frames", "2"])
+    got = _launches()
+    print(f"[ext] cli.main --scene showcase rc {rc}, launches {got}",
+          flush=True)
+    if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
+                              base_kernel_ext=2, extra_kernel_ext=2):
+        fail("[ext] cli.main run failed")
+    _add(launches, got)
+
+    # (f) At the main path's shapes. envmap's own sky budgets no pixel
+    # (see _bright_sky), so its kernel B stream is empty there.
+    results = {}
+    for name in EXT_SCENES:
+        tr = PathTracer(_ext_scene(name), "cuda")
+        label = f"{name} 400x200"
+        timed = name in ("textured", "showcase")
+        a = kernels.base_kernel_ext(tr, pose, SEED, 0)
+        s = kernels.sorted_stream(tr, a.state, a.additional)
+        args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        b = kernels.extra_kernel_ext(*args)
+        if timed:
+            ms_a = _time_cuda(
+                lambda: kernels.base_kernel_ext(tr, pose, SEED, 0), 5)
+            plain_a, ops_a, pa = _time_plain(
+                tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0))
+            ms_b = _time_cuda(lambda: kernels.extra_kernel_ext(*args), 5)
+            plain_b, ops_b, pb = _time_plain(
+                tr, lambda: kernels.extra_kernel_plain(*args))
+        else:
+            pa = kernels.base_kernel_plain(tr, pose, SEED, 0)
+            pb = kernels.extra_kernel_plain(*args)
+        err["a"] = max(err["a"], _compare_base("ext", label, a, pa))
+        err["b"] = max(err["b"], _check_extra(
+            "ext", label, s, b, pb, allow_empty=name == "envmap"))
+        if not timed:
+            continue
+        fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
+        bound_a = _bound(ops_a, fixed + 44 * a.var.numel(), peak)
+        bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
+        results[name] = (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
+        print(f"[ext] {name} 400x200 shapes: kernel_base_ext {ms_a:.3f} ms "
+              f"(plain {plain_a:.1f} ms, bound {bound_a[0]:.4f} ms by "
+              f"{bound_a[1]}: {ops_a:.4g} FP32 test operations), "
+              f"kernel_extra_ext {ms_b:.3f} ms on {int((s.add > 0).sum())} "
+              f"budgeted of {s.add.numel()} entries (plain {plain_b:.1f} ms, "
+              f"bound {bound_b[0]:.4f} ms by {bound_b[1]}: {ops_b:.4g} "
+              "operations)", flush=True)
+    big = PathTracer(_checker_stress(), "cuda")
+    kc = kernels.base_kernel_chunked_ext(big, pose, SEED, 0)
+    ms = _time_cuda(lambda: kernels.base_kernel_chunked_ext(big, pose, SEED,
+                                                            0), 5)
+    plain_ms, ops, pc = _time_plain(
+        big, lambda: kernels.base_kernel_chunked_plain(big, pose, SEED, 0))
+    err["c"] = max(err["c"], _compare_base(
+        "ext", "stress1024 checker floor 200x100 chunked EXT kernel A", kc,
+        pc, (), big))
+    n_ent = big.n_base_chunks * big.width * big.height
+    bound = _bound(ops, 4 * (big.tables.buf.numel() + big.atlas.numel())
+                   + 36 * n_ent, peak)
+    print(f"[ext] stress1024 checker floor shapes ({n_ent} entries): "
+          f"kernel_base_chunked_ext {ms:.3f} ms (plain {plain_ms:.1f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
+          flush=True)
+    # The kernels line keeps showcase's times.
+    ms_a, plain_a, bound_a, ms_b, plain_b, bound_b = results["showcase"]
+    return launches, {"a": (err["a"], ms_a, plain_a, bound_a),
+                      "b": (err["b"], ms_b, plain_b, bound_b),
+                      "c": (err["c"], ms, plain_ms, bound)}
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -513,11 +861,14 @@ def main() -> int:
 
     phase_build()
     err_a, (tr, a) = phase_kernel_base()
-    err_b, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b) = (
+    err_a_ns, err_b, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b) = (
         phase_kernel_extra(tr, a, peak))
+    err_a = max(err_a, err_a_ns)
     err_c, (ms_c, plain_c, bound_c) = phase_kernel_base_chunked(peak)
     launches = phase_main()
     _add(launches, phase_scale())
+    ext_launches, ext = phase_ext(peak)
+    _add(launches, ext_launches)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
@@ -525,7 +876,15 @@ def main() -> int:
             ("kernel_extra", "extra_kernel", "kernel_extra.cu", "1028", err_b,
              ms_b, plain_b, bound_b),
             ("kernel_base_chunked", "base_kernel_chunked", "kernel_base.cu",
-             "796", err_c, ms_c, plain_c, bound_c))
+             "796", err_c, ms_c, plain_c, bound_c),
+            # The texel-atlas variants: the atlas is bound at :807 (A) and
+            # :1031 (B), pallas_kernel._tex_bind_front.
+            ("kernel_base_ext", "base_kernel_ext", "kernel_base.cu", "807",
+             *ext["a"]),
+            ("kernel_extra_ext", "extra_kernel_ext", "kernel_extra.cu",
+             "1031", *ext["b"]),
+            ("kernel_base_chunked_ext", "base_kernel_chunked_ext",
+             "kernel_base.cu", "807", *ext["c"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": ref + line, "launches": launches[counter],

@@ -2,8 +2,8 @@
 
 Reference flags: --full-color, --verbose, --threads N, --path FILE; plus
 --scene (packaged names, stress:N[:seed], icosphere:S[:seed], ...),
---accel, --animate, --frames, --width, --height, --spp, --depth and
---device. In the interactive viewer WASD moves, arrows steer, ESC exits.
+--accel, --animate, --filter, --frames, --width, --height, --spp, --depth
+and --device. In the interactive viewer WASD moves, arrows steer, ESC exits.
 
 Run: python -m terminal_raytracer_tpu_torch [flags]
 """
@@ -42,6 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="animate the scene (its values are rebuilt on the "
                         "device every frame); each frame renders fresh")
+    p.add_argument("--filter", dest="texture_filter", default=None,
+                   choices=("nearest", "bilinear"),
+                   help="texture magnification filter override: 'bilinear' "
+                        "blends the 2x2 texel neighborhood at every image "
+                        "texture, normal map and sky fetch (default: the "
+                        "scene's texture_filter, or nearest)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels (default); cpu runs their "
                         "plain PyTorch versions")
@@ -81,6 +87,7 @@ def main(argv=None) -> int:
         scene = load_scene(args.path or args.scene).with_overrides(
             width=args.width, height=args.height,
             samples_per_pixel=args.spp, max_depth=args.depth,
+            texture_filter=args.texture_filter,
         )
     except (FileNotFoundError, ValueError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)

@@ -24,6 +24,15 @@
 // and end state, and no budget: the variance needs the pixel's totals,
 // which the glue adds in chunk order (ops/kernels.py).
 //
+// Both come in two instantiations of trace.cuh's device path: the
+// reference transport (trt_kernel_base, trt_kernel_base_chunked) and EXT
+// (trt_kernel_base_ext, trt_kernel_base_chunked_ext), which replaces the
+// same Pallas kernel built with the texel-atlas operand
+// (pallas_kernel.py _tex_ops/_tex_specs/_tex_bind_front, :190-220, bound
+// at :807, :920, :949) and with the material-channel branches of its body
+// (tracer.py bounce_step :1300-1344, :1457-1559). One EXT build serves
+// every extension scene; the texture constants arrive in trt::Tex.
+//
 // What bounds them on an H100: FP32 ALU and SFU work (the intersection
 // sweeps, sqrt, division, sin/cos) behind divergent control flow (path
 // lengths differ per thread and a warp runs until its longest path ends),
@@ -53,9 +62,11 @@ struct ChunkArgs {
 
 namespace {
 
+template <bool EXT>
 __global__ void __launch_bounds__(128)
     kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
-                long long* __restrict__ state_out, unsigned long long* __restrict__ iters) {
+                long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                trt::Tex tx) {
   const int n = a.h_out * a.f.width;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned my_iters = 0;
@@ -67,8 +78,8 @@ __global__ void __launch_bounds__(128)
                                      a.frame);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = trt::run_samples(a.f, sc, state, 0, (float)a.base, (float)x, (float)y, csum,
-                                &csumsq, rays);
+    my_iters = trt::run_samples<EXT>(a.f, sc, tx, state, 0, (float)a.base, (float)x, (float)y,
+                                     csum, &csumsq, rays);
     // Variance of the base samples and the adaptive budget (the
     // fold_budget epilogue: tracer.variance_of + tracer.extra_quota).
     trt::V3 mean = csum * a.inv_base;
@@ -90,10 +101,11 @@ __global__ void __launch_bounds__(128)
   trt::count_warp_iters(my_iters, iters);
 }
 
+template <bool EXT>
 __global__ void __launch_bounds__(128)
     kernel_base_chunked(ChunkArgs a, const float* __restrict__ scene_buf,
                         float* __restrict__ out, long long* __restrict__ state_out,
-                        unsigned long long* __restrict__ iters) {
+                        unsigned long long* __restrict__ iters, trt::Tex tx) {
   const int n_pix = a.h_out * a.f.width;
   const int n = a.n_chunks * n_pix;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -111,8 +123,8 @@ __global__ void __launch_bounds__(128)
     const int quota = min(s0 + a.cb, a.base);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = trt::run_samples(a.f, sc, state, s0, (float)quota, (float)x, (float)y, csum,
-                                &csumsq, rays);
+    my_iters = trt::run_samples<EXT>(a.f, sc, tx, state, s0, (float)quota, (float)x, (float)y,
+                                     csum, &csumsq, rays);
     out[0 * n + i] = csum.x;
     out[1 * n + i] = csum.y;
     out[2 * n + i] = csum.z;
@@ -125,19 +137,37 @@ __global__ void __launch_bounds__(128)
   trt::count_warp_iters(my_iters, iters);
 }
 
+template <bool EXT>
+int launch_base(const BaseArgs* a, const trt::Tex& tx, const float* scene_buf, float* out,
+                long long* state_out, unsigned long long* iters, void* stream) {
+  const int n = a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_base<EXT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters, tx);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool EXT>
+int launch_chunked(const ChunkArgs* a, const trt::Tex& tx, const float* scene_buf, float* out,
+                   long long* state_out, unsigned long long* iters, void* stream) {
+  const int n = a->n_chunks * a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_base_chunked<EXT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters, tx);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
 extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float* out,
                                long long* state_out, unsigned long long* iters, void* stream) {
-  const int n = a->h_out * a->f.width;
-  if (n > 0) {
-    const int threads = 128;
-    kernel_base<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters);
-  }
-  return (int)cudaGetLastError();
+  return launch_base<false>(a, trt::Tex{}, scene_buf, out, state_out, iters, stream);
 }
 
 // out: f32 [7, n_chunks*h_out*w] (csum rgb, csumsq rgb, rays), chunk-major;
@@ -146,11 +176,20 @@ extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float*
 extern "C" int trt_kernel_base_chunked(const ChunkArgs* a, const float* scene_buf, float* out,
                                        long long* state_out, unsigned long long* iters,
                                        void* stream) {
-  const int n = a->n_chunks * a->h_out * a->f.width;
-  if (n > 0) {
-    const int threads = 128;
-    kernel_base_chunked<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters);
-  }
-  return (int)cudaGetLastError();
+  return launch_chunked<false>(a, trt::Tex{}, scene_buf, out, state_out, iters, stream);
+}
+
+// The EXT instantiations (trace.cuh): the same outputs, for a scene buffer
+// that carries the extension table; tx holds the atlas and texture constants.
+extern "C" int trt_kernel_base_ext(const BaseArgs* a, const trt::Tex* tx, const float* scene_buf,
+                                   float* out, long long* state_out, unsigned long long* iters,
+                                   void* stream) {
+  return launch_base<true>(a, *tx, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_ext(const ChunkArgs* a, const trt::Tex* tx,
+                                           const float* scene_buf, float* out,
+                                           long long* state_out, unsigned long long* iters,
+                                           void* stream) {
+  return launch_chunked<true>(a, *tx, scene_buf, out, state_out, iters, stream);
 }

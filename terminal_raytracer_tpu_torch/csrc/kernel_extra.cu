@@ -11,6 +11,11 @@
 // sort puts such threads together in whole warps, so those warps finish at
 // once.
 //
+// trt_kernel_extra_ext is the EXT instantiation (trace.cuh): the same
+// kernel for extension scenes, replacing the Pallas kernel built with the
+// texel-atlas operand (pallas_kernel.py _tex_ops/_tex_bind_front, bound at
+// :1031, :1078, :1093).
+//
 // What bounds it on an H100: divergent control flow (per-entry budgets and
 // path lengths differ; a warp runs until its longest entry ends),
 // registers, and FP32 ALU and SFU work; a few hundred bytes of L1-resident
@@ -28,11 +33,12 @@ struct ExtraArgs {
 
 namespace {
 
+template <bool EXT>
 __global__ void __launch_bounds__(128)
     kernel_extra(ExtraArgs a, const float* __restrict__ scene_buf, const int* __restrict__ xs,
                  const int* __restrict__ ys, const long long* __restrict__ state_in,
                  const float* __restrict__ add, const int* __restrict__ samp0,
-                 float* __restrict__ out, unsigned long long* __restrict__ iters) {
+                 float* __restrict__ out, unsigned long long* __restrict__ iters, trt::Tex tx) {
   const int n = a.n_entries;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned my_iters = 0;
@@ -44,8 +50,8 @@ __global__ void __launch_bounds__(128)
       const trt::Scene sc = trt::make_scene(scene_buf, a.f);
       uint32_t state = (uint32_t)state_in[i];
       const int s0 = samp0[i];
-      my_iters = trt::run_samples(a.f, sc, state, s0, budget + (float)s0, (float)xs[i],
-                                  (float)ys[i], esum, nullptr, rays);
+      my_iters = trt::run_samples<EXT>(a.f, sc, tx, state, s0, budget + (float)s0, (float)xs[i],
+                                       (float)ys[i], esum, nullptr, rays);
     }
     out[0 * n + i] = esum.x;
     out[1 * n + i] = esum.y;
@@ -53,6 +59,19 @@ __global__ void __launch_bounds__(128)
     out[3 * n + i] = rays;
   }
   trt::count_warp_iters(my_iters, iters);
+}
+
+template <bool EXT>
+int launch_extra(const ExtraArgs* a, const trt::Tex& tx, const float* scene_buf, const int* xs,
+                 const int* ys, const long long* state_in, const float* add, const int* samp0,
+                 float* out, unsigned long long* iters, void* stream) {
+  const int n = a->n_entries;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_extra<EXT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -64,11 +83,15 @@ extern "C" int trt_kernel_extra(const ExtraArgs* a, const float* scene_buf, cons
                                 const int* ys, const long long* state_in, const float* add,
                                 const int* samp0, float* out, unsigned long long* iters,
                                 void* stream) {
-  const int n = a->n_entries;
-  if (n > 0) {
-    const int threads = 128;
-    kernel_extra<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters);
-  }
-  return (int)cudaGetLastError();
+  return launch_extra<false>(a, trt::Tex{}, scene_buf, xs, ys, state_in, add, samp0, out, iters,
+                             stream);
+}
+
+// The EXT instantiation (trace.cuh): the same outputs, for a scene buffer
+// that carries the extension table; tx holds the atlas and texture constants.
+extern "C" int trt_kernel_extra_ext(const ExtraArgs* a, const trt::Tex* tx, const float* scene_buf,
+                                    const int* xs, const int* ys, const long long* state_in,
+                                    const float* add, const int* samp0, float* out,
+                                    unsigned long long* iters, void* stream) {
+  return launch_extra<true>(a, *tx, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
 }

@@ -19,6 +19,22 @@
 // int (fine far beyond that), and every thread of a warp reads the same
 // primitive at the same time through __ldg, so the table is served from
 // L1 and L2 as a broadcast; staging it in shared memory is later work.
+//
+// The device path is templated on EXT. EXT = false is the reference
+// transport. EXT = true adds the material and texture extensions of
+// ops/tracer.py (dielectrics, rough metals, checker, image textures,
+// normal maps, sky map): it reads the winner's row of the extension table
+// (packed after the light rows, EXT_W floats per primitive) and texels
+// from the scene's atlas of packed 8-bit RGB (Tex.atlas, int32, through
+// __ldg). That atlas replaces the JAX package's texel-atlas kernel operand
+// (pallas_kernel.py _tex_ops / _tex_bind_front, tracer.py gather_texels):
+// Mosaic can gather only along the lane axis, so each TPU fetch sweeps the
+// atlas rows [lo, hi) one by one; here a fetch is one load, and an index
+// outside [lo, hi) reads 0 as the sweep does. Each extension draw and
+// recolor is gated per thread on its channel, so zero channels give the
+// reference path's values and draws exactly. Texture filtering is the
+// JAX integer index math and lerp, not the hardware's texture units
+// (whose bilinear weights are 9-bit fixed point).
 
 #pragma once
 
@@ -47,12 +63,40 @@ constexpr float RR_MAX_SURVIVAL = 0.95f;
 constexpr float SKY_INTENSITY = 0.8f;
 constexpr float SKY_TOP_X = 0.5f, SKY_TOP_Y = 0.7f, SKY_TOP_Z = 1.0f;
 
+// Extension table columns (ops/geometry.py EXT_KEYS).
+constexpr int EXT_W = 12;
+constexpr int X_TRANSP = 0, X_IOR = 1, X_ROUGH = 2, X_CK = 3, X_CKS = 6, X_TXI = 7, X_TXS = 8,
+              X_NMI = 9, X_NMX = 10, X_NMS = 11;
+constexpr int ATLAS_LANES = 128;  // texels per atlas row
+// The plain versions' Python constants, each rounded to f32 once as
+// PyTorch and JAX round a Python float against an f32 tensor.
+constexpr float PI_F = (float)3.14159265359;
+constexpr float HALF_PI = (float)(0.5 * 3.14159265359);
+constexpr float HALF_INV_PI = (float)(0.5 / 3.14159265359);
+constexpr float INV_PI_UV = (float)(2.0 * (0.5 / 3.14159265359));
+constexpr float INV_255 = (float)(1.0 / 255.0);
+constexpr float TINY_LEN2 = (float)1e-12;
+constexpr float MIN_NZ = (float)1e-3;
+
 // Frame constants shared by both kernels (mirrored by ops/kernels.py).
 struct Frame {
   int width, height, max_depth;
   int n_sph, n_pln, n_tri, n_lights;
   float pose[12];  // pos, forward, right, up
   float half_w, half_h, inv_char_aspect, w1, h1;  // w1, h1 = f32(w-1), f32(h-1)
+};
+
+// Scene-level texture constants of the EXT kernels (mirrored by
+// ops/kernels.py): the flat atlas, texels per side S (a power of two),
+// atlas rows per texture, the filter, the atlas rows [lo, hi) of the
+// primitives' textures and normal maps, and the sky map's first row (-1:
+// the gradient sky) with its intensity.
+struct Tex {
+  const int32_t* atlas;
+  int size, rows, bilinear;
+  int tex_lo, tex_hi, nm_lo, nm_hi;
+  int sky_lo;
+  float sky_intensity;
 };
 
 // ---------------------------------------------------------------- vectors
@@ -115,6 +159,7 @@ struct Scene {
   const float* tri;
   const float* mat;
   const float* lights;
+  const float* ext;  // EXT kernels only
   int n_sph, n_pln, n_tri, n_lights;
 };
 
@@ -125,6 +170,7 @@ __device__ __forceinline__ Scene make_scene(const float* buf, const Frame& f) {
   s.tri = s.pln + PLN_W * f.n_pln;
   s.mat = s.tri + TRI_W * f.n_tri;
   s.lights = s.mat + MAT_W * (f.n_sph + f.n_pln + f.n_tri);
+  s.ext = s.lights + LIGHT_W * f.n_lights;
   s.n_sph = f.n_sph;
   s.n_pln = f.n_pln;
   s.n_tri = f.n_tri;
@@ -177,11 +223,16 @@ struct Hit {
   bool found;
   V3 p, normal, color, emission;
   float refl;
+  // EXT: `front` (the normal was not flipped) and the winner's row of the
+  // extension table, whose channels are read where a branch needs them.
+  bool front;
+  const float* ext;
 };
 
 // Sweep spheres, planes, triangles; strictly closer wins, with the running
 // closest fed forward as each test's t_max; the winner's index picks the
 // material and normal; the normal is flipped to face the ray.
+template <bool EXT>
 __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
   float closest = T_FAR;
   int idx = -1, k = 0;
@@ -219,6 +270,10 @@ __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
     n = load3(sc.tri + TRI_W * (idx - sc.n_sph - sc.n_pln) + 9);
   }
   h.normal = dot(d, n) < 0.0f ? n : -n;
+  if (EXT) {
+    h.front = dot(d, n) < 0.0f;
+    h.ext = sc.ext + EXT_W * idx;
+  }
   return h;
 }
 
@@ -301,23 +356,222 @@ __device__ __forceinline__ V3 sky_color(V3 d) {
           (one + t * SKY_TOP_Z) * SKY_INTENSITY};
 }
 
+// ------------------------------------------------------- extensions (EXT)
+
+// The JAX package's polynomial atan2 (sampling.atan2), term for term.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  float ax = fabsf(x), ay = fabsf(y);
+  float hi = fmaxf(ax, ay);
+  float a = fminf(ax, ay) / (hi > 0.0f ? hi : 1.0f);
+  float s = a * a;
+  float r = a * ((float)0.99997726 +
+                 s * ((float)-0.33262347 +
+                      s * ((float)0.19354346 +
+                           s * ((float)-0.11643287 +
+                                s * ((float)0.05265332 - s * (float)0.01172120)))));
+  r = ay > ax ? HALF_PI - r : r;
+  r = x < 0.0f ? PI_F - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+// Longitude/latitude uv of a unit vector.
+__device__ __forceinline__ void spherical_uv(V3 n, float& u, float& v) {
+  u = 0.5f + atan2_poly(n.z, n.x) * HALF_INV_PI;
+  float ny = fminf(fmaxf(n.y, -1.0f), 1.0f);
+  v = 0.5f + atan2_poly(ny, sqrtf(fmaxf(1.0f - ny * ny, 0.0f))) * INV_PI_UV;
+}
+
+// models/texture.py packing r<<16 | g<<8 | b. Texels are below 2^24, so
+// the arithmetic >> of int32 equals the JAX package's logical shift.
+__device__ __forceinline__ V3 unpack_texel(int32_t p) {
+  return {(float)(p >> 16) * INV_255, (float)((p >> 8) & 255) * INV_255,
+          (float)(p & 255) * INV_255};
+}
+
+// The texel at flat atlas index idx, or 0 outside atlas rows [lo, hi).
+__device__ __forceinline__ V3 fetch_texel(const Tex& tx, int idx, int lo, int hi) {
+  bool ok = idx >= lo * ATLAS_LANES && idx < hi * ATLAS_LANES;
+  return unpack_texel(ok ? __ldg(tx.atlas + idx) : 0);
+}
+
+// The 2x2 blend around wrapped uv of the texture whose texel 0 is at flat
+// index `base`: texel centers at (i + 0.5) / S, neighbours wrapped with
+// & (S - 1) in two's complement, lerped along u, then v.
+__device__ __forceinline__ V3 fetch_bilinear(const Tex& tx, int base, float u, float v, int lo,
+                                             int hi) {
+  float s = (float)tx.size;
+  int m = tx.size - 1;
+  float x = u * s - 0.5f;
+  float y = v * s - 0.5f;
+  float x0 = floorf(x), y0 = floorf(y);
+  float fx = x - x0, fy = y - y0;
+  int iu0 = (int)x0 & m, iv0 = (int)y0 & m;
+  int iu1 = (iu0 + 1) & m, iv1 = (iv0 + 1) & m;
+  int r0 = base + iv0 * tx.size, r1 = base + iv1 * tx.size;
+  V3 t00 = fetch_texel(tx, max(r0 + iu0, 0), lo, hi);
+  V3 t01 = fetch_texel(tx, max(r0 + iu1, 0), lo, hi);
+  V3 t10 = fetch_texel(tx, max(r1 + iu0, 0), lo, hi);
+  V3 t11 = fetch_texel(tx, max(r1 + iu1, 0), lo, hi);
+  V3 top = t00 + (t01 - t00) * fx;
+  V3 bot = t10 + (t11 - t10) * fx;
+  return top + (bot - top) * fy;
+}
+
+// The nearest texel of uv in [0, 1] (clamped at 1) on the S x S grid.
+__device__ __forceinline__ int nearest_index(const Tex& tx, float u, float v) {
+  float s = (float)tx.size;
+  int smax = tx.size - 1;
+  int iu = min((int)floorf(u * s), smax);
+  int iv = min((int)floorf(v * s), smax);
+  return iv * tx.size + iu;
+}
+
+__device__ V3 sky_radiance(const Tex& tx, V3 d) {
+  float u, v;
+  spherical_uv(d, u, v);
+  int lo = tx.sky_lo, hi = tx.sky_lo + tx.rows;
+  V3 t = tx.bilinear ? fetch_bilinear(tx, lo * ATLAS_LANES, u, v, lo, hi)
+                     : fetch_texel(tx, lo * ATLAS_LANES + nearest_index(tx, u, v), lo, hi);
+  return t * tx.sky_intensity;
+}
+
+// (x-dominant, y-dominant) of |n|, ties to the earlier axis.
+__device__ __forceinline__ void dominant_axes(V3 n, bool& xdom, bool& ydom) {
+  float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
+  xdom = ax >= ay && ax >= az;
+  ydom = !xdom && ay >= az;
+}
+
+// Texel of texture |id| at hit point p with front normal n: +id planar
+// along n's dominant axis (x -> (z, y), y -> (x, z), z -> (x, y)), -id the
+// longitude/latitude of n; `scale` tiles the uv.
+__device__ V3 mapped_texel(const Tex& tx, V3 p, V3 n, float id, float scale, int lo, int hi) {
+  float u, v;
+  if (id < 0.0f) {
+    spherical_uv(n, u, v);
+  } else {
+    bool xdom, ydom;
+    dominant_axes(n, xdom, ydom);
+    u = xdom ? p.z : p.x;
+    v = xdom ? p.y : (ydom ? p.z : p.y);
+  }
+  u = u * scale;
+  v = v * scale;
+  u = u - floorf(u);
+  v = v - floorf(v);
+  int base = ((int)fabsf(id) - 1) * (tx.rows * ATLAS_LANES);
+  if (tx.bilinear) return fetch_bilinear(tx, base, u, v, lo, hi);
+  return fetch_texel(tx, max(base + nearest_index(tx, u, v), 0), lo, hi);
+}
+
+// The normal-mapped shading normal (ops/tracer.py apply_normal_map): the
+// tangent frame of the uv mapping, the texel's xy deflection times the
+// strength, z kept above 1e-3, renormalized.
+__device__ V3 normal_mapped(const Tex& tx, const Hit& h) {
+  float nmi = __ldg(h.ext + X_NMI), nms = __ldg(h.ext + X_NMS);
+  V3 texel = mapped_texel(tx, h.p, h.normal, nmi, __ldg(h.ext + X_NMX), tx.nm_lo, tx.nm_hi);
+  V3 tn = {texel.x * 2.0f - 1.0f, texel.y * 2.0f - 1.0f, texel.z * 2.0f - 1.0f};
+  V3 n = h.normal, t, b;
+  if (nmi < 0.0f) {
+    float len2 = n.x * n.x + n.z * n.z;
+    float inv = 1.0f / sqrtf(fmaxf(len2, TINY_LEN2));
+    bool pole = len2 < TINY_LEN2;
+    t = {pole ? 1.0f : -n.z * inv, 0.0f, pole ? 0.0f : n.x * inv};
+    b = cross(n, t);
+  } else {
+    bool xdom, ydom;
+    dominant_axes(n, xdom, ydom);
+    t = xdom ? V3{0.0f, 0.0f, 1.0f} : V3{1.0f, 0.0f, 0.0f};
+    b = (xdom || !ydom) ? V3{0.0f, 1.0f, 0.0f} : V3{0.0f, 0.0f, 1.0f};
+  }
+  V3 raw = t * (tn.x * nms) + b * (tn.y * nms) + n * fmaxf(tn.z, MIN_NZ);
+  return normalize(raw);
+}
+
+// Checker, then image texture, then normal map (ops/tracer.py shade_hit).
+__device__ __forceinline__ void shade_hit(const Tex& tx, Hit& h) {
+  float k = __ldg(h.ext + X_CKS);
+  if (k > 0.0f) {
+    float cells = floorf(h.p.x * k + 0.5f) + floorf(h.p.y * k + 0.5f) + floorf(h.p.z * k + 0.5f);
+    if (cells - 2.0f * floorf(cells * 0.5f) > 0.5f) h.color = load3(h.ext + X_CK);
+  }
+  float txi = __ldg(h.ext + X_TXI);
+  if (txi != 0.0f)
+    h.color = mapped_texel(tx, h.p, h.normal, txi, __ldg(h.ext + X_TXS), tx.tex_lo, tx.tex_hi);
+  if (__ldg(h.ext + X_NMI) != 0.0f) h.normal = normal_mapped(tx, h);
+}
+
+__device__ __forceinline__ V3 uniform_sphere_dir(uint32_t& state) {
+  float r1 = next_f32(state);
+  float r2 = next_f32(state);
+  float cos_theta = 1.0f - 2.0f * r1;
+  float sin_theta = sqrtf(fmaxf(1.0f - cos_theta * cos_theta, 0.0f));
+  float phi = TWO_PI * r2;
+  return {sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta};
+}
+
+__device__ __forceinline__ float fresnel_schlick(float cos_i, float eta) {
+  float r = (1.0f - eta) / (1.0f + eta);
+  float r0 = r * r;
+  float m = 1.0f - cos_i;
+  float m2 = m * m;
+  return r0 + (1.0f - r0) * (m2 * m2 * m);
+}
+
+// The glass branch: Fresnel-weighted perfect mirror or refraction (one
+// draw), with eta = 1/ior entering and ior leaving.
+__device__ __forceinline__ V3 glass_scatter(uint32_t& state, const Hit& h, V3 d) {
+  float ior = __ldg(h.ext + X_TRANSP) > 0.0f ? __ldg(h.ext + X_IOR) : 1.0f;
+  float eta = h.front ? 1.0f / ior : ior;
+  float cos_i = fminf(-dot(d, h.normal), 1.0f);
+  float sin2_t = eta * eta * fmaxf(1.0f - cos_i * cos_i, 0.0f);
+  bool tir = sin2_t > 1.0f;
+  float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+  float fres = fresnel_schlick(eta > 1.0f ? cos_t : cos_i, eta);
+  float r_fr = next_f32(state);
+  if (tir || fres > r_fr) return reflect(d, h.normal);
+  return d * eta + h.normal * (eta * cos_i - cos_t);
+}
+
 // One bounce of a live path. Returns false when the path ends here (a miss
-// adds the sky; Russian roulette kills). `rays` counts owed sweeps: one
+// adds the sky; Russian roulette kills; EXT: a fuzzed mirror direction at
+// or below the surface absorbs). `rays` counts owed sweeps: one
 // closest-hit plus n_lights shadow sweeps per hit.
-__device__ __forceinline__ bool bounce_step(const Scene& sc, uint32_t& state, V3& o, V3& d, V3& att,
-                                            V3& acc, int bounce_idx, float& rays) {
-  Hit hit = closest_hit(sc, o, d);
+template <bool EXT>
+__device__ __forceinline__ bool bounce_step(const Scene& sc, const Tex& tx, uint32_t& state,
+                                            V3& o, V3& d, V3& att, V3& acc, int bounce_idx,
+                                            float& rays) {
+  Hit hit = closest_hit<EXT>(sc, o, d);
   rays += 1.0f;
   if (!hit.found) {
-    acc = acc + sky_color(d) * att;
+    acc = acc + (EXT && tx.sky_lo >= 0 ? sky_radiance(tx, d) : sky_color(d)) * att;
     return false;
   }
+  if (EXT) shade_hit(tx, hit);
   acc = acc + hit.emission * att;
-  acc = acc + direct_light(sc, state, hit.p, hit.normal, hit.color, att);
+  V3 direct = direct_light(sc, state, hit.p, hit.normal, hit.color, att);
+  // EXT: no matte NEE ghost on glass (scaled by the non-glass share).
+  if (EXT) direct = direct * (1.0f - __ldg(hit.ext + X_TRANSP));
+  acc = acc + direct;
   rays += (float)sc.n_lights;
 
   float r_spec = next_f32(state);
-  V3 new_d = hit.refl > r_spec ? reflect(d, hit.normal) : cosine_hemisphere(state, hit.normal);
+  V3 new_d;
+  bool absorbed = false;
+  if (hit.refl > r_spec) {
+    new_d = reflect(d, hit.normal);
+    float rough = EXT ? __ldg(hit.ext + X_ROUGH) : 0.0f;
+    if (rough > 0.0f) {  // fuzzy mirror (EXT): two more draws
+      V3 raw = new_d + uniform_sphere_dir(state) * rough;
+      float len2 = dot(raw, raw);
+      new_d = raw * (1.0f / sqrtf(fmaxf(len2, TINY_LEN2)));
+      absorbed = dot(new_d, hit.normal) <= 0.0f || len2 < TINY_LEN2;
+    }
+  } else if (EXT && hit.refl + __ldg(hit.ext + X_TRANSP) > r_spec) {
+    new_d = glass_scatter(state, hit, d);
+  } else {
+    new_d = cosine_hemisphere(state, hit.normal);
+  }
   att = att * hit.color;
   V3 new_o = hit.p + new_d * RAY_EPS;
 
@@ -328,6 +582,7 @@ __device__ __forceinline__ bool bounce_step(const Scene& sc, uint32_t& state, V3
     if (p_surv < r_rr || p_surv <= 0.0f) return false;
     att = {att.x / p_surv, att.y / p_surv, att.z / p_surv};
   }
+  if (absorbed) return false;
   o = new_o;
   d = new_d;
   return true;
@@ -354,9 +609,10 @@ __device__ __forceinline__ void gen_ray(const Frame& f, uint32_t& state, float x
 // absolute sample quota, as in the plain regeneration scheduler). Adds each
 // finished sample's radiance to csum (and its square to csumsq when
 // non-null) and returns the executed bounce iterations.
-__device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc, uint32_t& state,
-                                                int s0, float quota, float xf, float yf, V3& csum,
-                                                V3* csumsq, float& rays) {
+template <bool EXT>
+__device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc, const Tex& tx,
+                                                uint32_t& state, int s0, float quota, float xf,
+                                                float yf, V3& csum, V3* csumsq, float& rays) {
   unsigned iters = 0;
   for (int s = s0; (float)s < quota; ++s) {
     state = pcg_hash(state + (uint32_t)s * 5096u);
@@ -365,7 +621,7 @@ __device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc,
     V3 att = {1.0f, 1.0f, 1.0f}, acc = {0.0f, 0.0f, 0.0f};
     for (int b = 0; b < f.max_depth; ++b) {
       ++iters;
-      if (!bounce_step(sc, state, o, d, att, acc, b, rays)) break;
+      if (!bounce_step<EXT>(sc, tx, state, o, d, att, acc, b, rays)) break;
     }
     csum = csum + acc;
     if (csumsq) *csumsq = *csumsq + acc * acc;

@@ -28,8 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 HEADERS = ("trace.cuh",)
 # Source -> (C entry point, number of pointer arguments).
 ENTRY_POINTS = {
-    "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6)),
-    "kernel_extra.cu": (("trt_kernel_extra", 10),),
+    "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
+                       ("trt_kernel_base_ext", 7),
+                       ("trt_kernel_base_chunked_ext", 7)),
+    "kernel_extra.cu": (("trt_kernel_extra", 10), ("trt_kernel_extra_ext", 11)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -20,13 +20,15 @@ half-length in f32, with n . n summed as (x*x + y*y) + z*z
 PyTorch's vectorised f32 sqrt on the CPU is not). A sphere light's area
 4 pi r^2 is taken in f64 from the f32 radius, as ``DynPrims`` takes it for
 a radius the animator leaves alone (no built-in animator moves a radius).
-At t = 0 the buffer equals ``scene_tables(scene, accel='array')`` bit for
-bit (tests/test_torch_dynamic.py).
+The extension table (material channels, ops/geometry.py EXT_KEYS) is
+taken from the frame's packed channels as they are. At t = 0 the buffer
+equals ``scene_tables(scene, accel='array', ext=...)`` bit for bit
+(tests/test_torch_dynamic.py, tests/test_torch_materials.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +42,7 @@ TRI_KEYS = ("t_ax", "t_ay", "t_az", "t_bx", "t_by", "t_bz",
             "t_cx", "t_cy", "t_cz")
 MAT_KEYS = ("colr", "colg", "colb", "emir", "emig", "emib", "refl")
 # Extension material channels: part of the layout only when the template
-# scene has the extension (the port renders none of them yet).
+# scene has the extension; a channel outside the layout reads 0.
 GLASS_KEYS = ("transp", "ior")
 ROUGH_KEYS = ("rough",)
 CHECKER_KEYS = ("ckr", "ckg", "ckb", "cks")
@@ -79,18 +81,11 @@ def pack_scene(scene: scene_mod.Scene) -> Dict[str, np.ndarray]:
     out = {}
     for prefix, kind in (("s", "sphere"), ("p", "plane"), ("t", "triangle")):
         col, emi = a[f"{kind}_color"], a[f"{kind}_emission"]
-        ckc = a[f"{kind}_checker_color"]
         chans = {
             "colr": col[:, 0], "colg": col[:, 1], "colb": col[:, 2],
             "emir": emi[:, 0], "emig": emi[:, 1], "emib": emi[:, 2],
             "refl": a[f"{kind}_reflectivity"],
-            "transp": a[f"{kind}_transparency"], "ior": a[f"{kind}_ior"],
-            "rough": a[f"{kind}_roughness"],
-            "ckr": ckc[:, 0], "ckg": ckc[:, 1], "ckb": ckc[:, 2],
-            "cks": a[f"{kind}_checker_scale"],
-            "txi": a[f"{kind}_tex_index"], "txs": a[f"{kind}_tex_scale"],
-            "nmi": a[f"{kind}_nm_index"], "nmx": a[f"{kind}_nm_scale"],
-            "nms": a[f"{kind}_nm_strength"],
+            **geom.ext_channels(a, kind),
         }
         out.update({f"{prefix}_{k}": v for k, v in chans.items()})
     geo = {"s_c": a["sphere_center"], "p_p": a["plane_point"],
@@ -107,14 +102,17 @@ class Topology(NamedTuple):
     """What an animated scene keeps from its template: the packed layout's
     core keys and the NEE lights (planes are never sampled) as indices into
     the spheres and the triangles; sphere lights come first, each kind in
-    primitive order, as in ``Scene.lights``."""
+    primitive order, as in ``Scene.lights``. `ext_keys` are the extension
+    channels of the layout, or None when the buffer has no extension
+    table."""
 
     keys: Tuple[Tuple[str, int], ...]
     sphere_lights: np.ndarray
     tri_lights: np.ndarray
+    ext_keys: Optional[Tuple[str, ...]] = None
 
 
-def topology(scene: scene_mod.Scene) -> Topology:
+def topology(scene: scene_mod.Scene, ext: bool = False) -> Topology:
     core = (SPHERE_KEYS + PLANE_KEYS + TRI_KEYS
             + tuple(f"{p}_{m}" for p in "spt" for m in MAT_KEYS))
     keys = tuple((k, n) for k, n in scene_keys(scene) if k in core)
@@ -123,7 +121,8 @@ def topology(scene: scene_mod.Scene) -> Topology:
         np.array([i for i, s in enumerate(scene.spheres)
                   if s.material.is_light], np.int64),
         np.array([i for i, t in enumerate(scene.triangles)
-                  if t.material.is_light], np.int64))
+                  if t.material.is_light], np.int64),
+        ext_mat_keys(scene) if ext else None)
 
 
 # Per-light values the host gathers for the light rows (topology order).
@@ -157,10 +156,22 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
     the host, go over in one asynchronous host-to-device copy; the rest is
     a few dozen elementwise ops over [k, n] blocks, whatever n is."""
     sl, tl = topo.sphere_lights, topo.tri_lights
+    ns, np_, nt = (len(a) for a in (arrays["s_r"], arrays["p_px"],
+                                    arrays["t_ax"]))
+    # The extension table is no derived value: it is built on the host and
+    # rides in the same copy.
+    ext = []
+    if topo.ext_keys is not None:
+        zeros = np.zeros(ns + np_ + nt, np.float32)
+        ext = [geom.ext_table({k: np.concatenate(
+            [np.asarray(arrays[f"{p}_{k}"], np.float32) for p in "spt"])
+            if k in topo.ext_keys else zeros
+            for k in geom.EXT_KEYS}).reshape(-1)]
     host = torch.from_numpy(np.concatenate(
         [np.asarray(arrays[k], np.float32) for k, _ in topo.keys]
         + [np.asarray(arrays[k], np.float32)[sl] for k in _SPHERE_LIGHT_KEYS]
-        + [np.asarray(arrays[k], np.float32)[tl] for k in _TRI_LIGHT_KEYS]))
+        + [np.asarray(arrays[k], np.float32)[tl] for k in _TRI_LIGHT_KEYS]
+        + ext))
     device = torch.device(device)
     if device.type == "cuda":
         # From pinned memory the copy is queued behind the previous frame's
@@ -168,13 +179,13 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
         host = host.pin_memory()
     flat = host.to(device, non_blocking=True)
     blocks, off = [], 0
-    ns, np_, nt = (len(a) for a in (arrays["s_r"], arrays["p_px"],
-                                    arrays["t_ax"]))
     for rows, n in ((4, ns), (7, ns), (6, np_), (7, np_), (9, nt), (7, nt),
                     (7, len(sl)), (12, len(tl))):
         blocks.append(flat[off:off + rows * n].view(rows, n))
         off += rows * n
     sph, sph_mat, pln, pln_mat, tri, tri_mat, ls, lt = blocks
+    if ext:
+        ext = [flat[off:].view(ns + np_ + nt, geom.EXT_W)]
 
     r = sph[3]
     sph = torch.cat([sph[0:3], (r * r)[None], (1.0 / r)[None]])
@@ -195,5 +206,5 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
         torch.full_like(lt[0:1], float(scene_mod.TRIANGLE)), lt[9:12],
         t_area[None], lt[0:9], t_unit])
     lights = torch.cat([s_rows, t_rows], 1)
-    return geom.tables_from_parts([sph.T, pln.T, tri.T, mat.T, lights.T],
-                                  device)
+    return geom.tables_from_parts([sph.T, pln.T, tri.T, mat.T, lights.T]
+                                  + ext, device)

@@ -58,11 +58,22 @@ MAT_W = 7  # color rgb, emission rgb, reflectivity (primitive order)
 LIGHT_W = 17  # kind, emission rgb, area, a xyz, b xyz, c xyz, normal xyz
 # Light rows: a sphere light keeps its center in `a` and radius in b.x; a
 # triangle light keeps v0, v1, v2 in a, b, c and its normal in `normal`.
+# The extension table (primitive order), packed after the light rows only
+# for scenes that use a material extension or the texel atlas:
+# transparency, ior (0 where transparency is 0), roughness, checker rgb,
+# checker scale (0 = unchecked), texture signed id and scale, normal-map
+# signed id, scale and strength (models/scene.py texture_channel and
+# normal_channel: +id planar, -id spherical, 0 = none).
+EXT_W = 12
+# ...the same channels as suffixes of the packed layout (ops/dynamic.py).
+EXT_KEYS = ("transp", "ior", "rough", "ckr", "ckg", "ckb", "cks", "txi",
+            "txs", "nmi", "nmx", "nms")
 
 
 class SceneTables(NamedTuple):
     """One scene as f32 tensors on a device. `buf` is the packed buffer the
-    kernels read; the named tables are views into it."""
+    kernels read; the named tables are views into it. `ext` is [0, 0] when
+    the buffer carries no extension table (`has_ext`)."""
 
     buf: torch.Tensor
     sph: torch.Tensor  # [n_sph, SPH_W]
@@ -70,11 +81,49 @@ class SceneTables(NamedTuple):
     tri: torch.Tensor  # [n_tri, TRI_W]
     mat: torch.Tensor  # [n_prims, MAT_W]
     lights: torch.Tensor  # [n_lights, LIGHT_W]
+    ext: torch.Tensor  # [n_prims, EXT_W]
 
     @property
     def counts(self):
         return (self.sph.shape[0], self.pln.shape[0], self.tri.shape[0],
                 self.lights.shape[0])
+
+    @property
+    def has_ext(self) -> bool:
+        return self.ext.shape[1] == EXT_W
+
+
+def uses_extensions(scene: scene_mod.Scene) -> bool:
+    """Whether `scene` needs the extension table and the extension kernels:
+    a dielectric, a rough metal, a checker, an image texture, a normal map
+    or a sky map."""
+    return (scene.has_dielectrics or scene.has_rough_metals
+            or scene.has_checker or scene.needs_atlas)
+
+
+def ext_channels(arrays, kind: str):
+    """The EXT_KEYS channels of one primitive kind ('sphere', 'plane' or
+    'triangle') from models/scene.py Scene.to_arrays()."""
+    ckc = arrays[f"{kind}_checker_color"]
+    return {"transp": arrays[f"{kind}_transparency"],
+            "ior": arrays[f"{kind}_ior"], "rough": arrays[f"{kind}_roughness"],
+            "ckr": ckc[:, 0], "ckg": ckc[:, 1], "ckb": ckc[:, 2],
+            "cks": arrays[f"{kind}_checker_scale"],
+            "txi": arrays[f"{kind}_tex_index"],
+            "txs": arrays[f"{kind}_tex_scale"],
+            "nmi": arrays[f"{kind}_nm_index"],
+            "nmx": arrays[f"{kind}_nm_scale"],
+            "nms": arrays[f"{kind}_nm_strength"]}
+
+
+def ext_table(chans) -> np.ndarray:
+    """The extension table [n_prims, EXT_W] from one f32 array per channel
+    of EXT_KEYS, in primitive order, with ior zeroed where transparency is
+    0 (as the JAX package's baked sweep zeroes it; the tracer reads ior
+    only where transparency > 0)."""
+    cols = [np.asarray(chans[k], np.float32) for k in EXT_KEYS]
+    cols[1] = np.where(cols[0] > 0.0, cols[1], np.float32(0.0))
+    return np.stack(cols, 1).astype(np.float32)
 
 
 def sq_len_f32(v) -> np.float32:
@@ -103,8 +152,8 @@ def _tri_edges_f32(tri):
 
 
 def tables_from_parts(parts, device) -> SceneTables:
-    """One packed buffer on `device` from the (sph, pln, tri, mat, lights)
-    f32 arrays or tensors, with the named tables as views into it."""
+    """One packed buffer on `device` from the (sph, pln, tri, mat, lights[,
+    ext]) f32 arrays or tensors, with the named tables as views into it."""
     flat = [torch.as_tensor(a).reshape(-1) for a in parts]
     # One trailing pad element keeps the buffer non-empty for an empty scene.
     pad = torch.zeros(1, dtype=torch.float32, device=flat[0].device)
@@ -114,14 +163,17 @@ def tables_from_parts(parts, device) -> SceneTables:
         n = int(np.prod(a.shape))
         views.append(buf[off:off + n].view(tuple(a.shape)))
         off += n
+    if len(views) == 5:  # no extension table
+        views.append(buf[off:off].view(0, 0))
     return SceneTables(buf, *views)
 
 
-def scene_tables(scene: scene_mod.Scene, device,
-                 accel: str = "baked") -> SceneTables:
+def scene_tables(scene: scene_mod.Scene, device, accel: str = "baked",
+                 ext: bool = False) -> SceneTables:
     """Pack `scene` into f32 tables on `device` (see the module docstring).
     accel='array' squares the f32 radius in f32, as the JAX package's array
-    sweep does; 'baked' squares the f64 radius."""
+    sweep does; 'baked' squares the f64 radius. `ext` packs the extension
+    table."""
     sph = np.zeros((len(scene.spheres), SPH_W), np.float32)
     for i, s in enumerate(scene.spheres):
         r = float(s.radius)
@@ -150,8 +202,14 @@ def scene_tables(scene: scene_mod.Scene, device,
         else:
             _, _, n, area = _tri_edges_f32(p)
             lights[i] = (tag, *e, area, *p.v0, *p.v1, *p.v2, *n)
-    return tables_from_parts(
-        [torch.from_numpy(a) for a in (sph, pln, tri, mat, lights)], device)
+    parts = [sph, pln, tri, mat, lights]
+    if ext:
+        a = scene.to_arrays()
+        chans = [ext_channels(a, kind)
+                 for kind in ("sphere", "plane", "triangle")]
+        parts.append(ext_table({k: np.concatenate([c[k] for c in chans])
+                                for k in EXT_KEYS}))
+    return tables_from_parts([torch.from_numpy(a) for a in parts], device)
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +291,9 @@ def blocked_triangle(o: V3, d: V3, v0: V3, edge1: V3, edge2: V3, t_min,
 
 
 class Hit(NamedTuple):
-    """Per-lane closest-hit record, reference channels only. `normal` is
-    already flipped to face the incoming ray."""
+    """Per-lane closest-hit record. `normal` is already flipped to face the
+    incoming ray; `front` says whether it had to be (False = flipped). The
+    extension channels (EXT_KEYS) are None unless the tables carry them."""
 
     found: torch.Tensor
     t: torch.Tensor
@@ -243,6 +302,17 @@ class Hit(NamedTuple):
     color: V3
     emission: V3
     reflectivity: torch.Tensor
+    front: torch.Tensor = None
+    transparency: torch.Tensor = None
+    ior: torch.Tensor = None
+    roughness: torch.Tensor = None
+    checker_color: V3 = None
+    checker_scale: torch.Tensor = None
+    tex_index: torch.Tensor = None
+    tex_scale: torch.Tensor = None
+    nm_index: torch.Tensor = None
+    nm_scale: torch.Tensor = None
+    nm_strength: torch.Tensor = None
 
 
 def _row3(t, col):
@@ -289,6 +359,11 @@ class ScenePrims:
         mat = torch.zeros((self.n_prims + 1, tables.mat.shape[1]),
                           dtype=torch.float32, device=dev)
         mat[:self.n_prims] = tables.mat
+        self._ext = None
+        if tables.has_ext:
+            self._ext = torch.zeros((self.n_prims + 1, EXT_W),
+                                    dtype=torch.float32, device=dev)
+            self._ext[:self.n_prims] = tables.ext
         self._const_n, self._center, self._inv_r = const_n, center, inv_r
         self._is_sph, self._mat = is_sph, mat
         self._counts = (n_sph, n_pln, n_tri)
@@ -348,8 +423,16 @@ class ScenePrims:
                           _row3(self._const_n[idx], 0))
         front = vm.dot(d, normal) < 0.0
         normal = vm.where(front, normal, -normal)
-        return Hit(found, closest, p, normal, _row3(m, 0), _row3(m, 3),
-                   m[..., 6])
+        hit = Hit(found, closest, p, normal, _row3(m, 0), _row3(m, 3),
+                  m[..., 6], front)
+        if self._ext is None:
+            return hit
+        e = self._ext[idx]
+        return hit._replace(
+            transparency=e[..., 0], ior=e[..., 1], roughness=e[..., 2],
+            checker_color=_row3(e, 3), checker_scale=e[..., 6],
+            tex_index=e[..., 7], tex_scale=e[..., 8], nm_index=e[..., 9],
+            nm_scale=e[..., 10], nm_strength=e[..., 11])
 
     def occluded(self, o: V3, d: V3, t_min, t_max, gate=None) -> torch.Tensor:
         """Any-hit visibility test for shadow rays (`t_max` per lane)."""

@@ -22,6 +22,13 @@ ops/tracer.py) when the tensors it is given lie on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its
 launches in ``<wrapper>.launches``. The sort and scatter are plain torch
 ops, as they are plain XLA in the JAX package.
+
+A tracer with the material and texture extensions (``tracer.ext``) takes
+the kernels' EXT instantiations (csrc/trace.cuh), which read the
+extension table in the scene buffer and the tracer's texel atlas: each
+wrapper passes such a tracer on to its ``*_ext`` twin, which launches the
+EXT entry point and counts its own launches. The plain versions are the
+same for both (ops/tracer.py renders either).
 """
 
 from __future__ import annotations
@@ -68,6 +75,16 @@ class _ChunkArgs(ctypes.Structure):
                 ("frame", ctypes.c_uint32)]
 
 
+class _Tex(ctypes.Structure):
+    """trt::Tex: the atlas and the scene-level texture constants."""
+
+    _fields_ = [("atlas", ctypes.c_void_p), ("size", ctypes.c_int),
+                ("rows", ctypes.c_int), ("bilinear", ctypes.c_int),
+                ("tex_lo", ctypes.c_int), ("tex_hi", ctypes.c_int),
+                ("nm_lo", ctypes.c_int), ("nm_hi", ctypes.c_int),
+                ("sky_lo", ctypes.c_int), ("sky_intensity", ctypes.c_float)]
+
+
 class BaseOut(NamedTuple):
     """Kernel A's per-pixel planes ([h_out, w]) and its executed
     lane-iterations (0-dim f64 tensor, the occupancy denominator)."""
@@ -103,6 +120,13 @@ def _frame(tracer: tracer_mod.PathTracer, pose) -> _Frame:
                   float(tracer.height - 1))
 
 
+def _tex(tracer: tracer_mod.PathTracer) -> _Tex:
+    return _Tex(tracer.atlas.data_ptr(), tracer.tex_size, tracer.tex_rows,
+                int(tracer.tex_bilinear), tracer.tex_lo, tracer.tex_hi,
+                tracer.nm_lo, tracer.nm_hi, tracer.sky_lo,
+                tracer.sky_intensity)
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -119,6 +143,18 @@ def _iters_tensor(n, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Kernel A
 # ---------------------------------------------------------------------------
+
+
+def _on_cuda(device: torch.device, name: str) -> bool:
+    """False for the CPU (the plain version runs), True for CUDA."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return device.type == "cuda"
+
+
+def _require_ext(tracer, name: str) -> None:
+    if not tracer.ext:
+        raise ValueError(f"{name}: the tracer has no extension table")
 
 
 def base_kernel_plain(tracer, pose, seed: int, frame_number: int, y0: int = 0,
@@ -138,18 +174,15 @@ def base_kernel_plain(tracer, pose, seed: int, frame_number: int, y0: int = 0,
                    _iters_tensor(it, var.device))
 
 
-def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
-                h_out: int = None) -> BaseOut:
-    """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
-    device of `tracer`'s scene tables."""
+def _no_chunks(tracer, name: str) -> None:
     if tracer.chunk_base:
-        raise ValueError("base_kernel: the tracer splits pixels into chunks; "
+        raise ValueError(f"{name}: the tracer splits pixels into chunks; "
                          "use base_kernel_chunked")
+
+
+def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
+                 ext: bool) -> BaseOut:
     device = tracer.tables.buf.device
-    if device.type == "cpu":
-        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
-    if device.type != "cuda":
-        raise ValueError(f"base_kernel: unsupported device {device}")
     h_out = tracer.height if h_out is None else h_out
     w, base, spp = tracer.width, tracer.base_samples, tracer.spp
     n = h_out * w
@@ -160,18 +193,51 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
                      seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF,
                      float(np.float32(1.0 / base)),
                      float(max(spp - base, 0)))
-    err = load_kernels().trt_kernel_base(
-        ctypes.byref(args), tracer.tables.buf.data_ptr(), out.data_ptr(),
-        state.data_ptr(), iters.data_ptr(), _stream(device))
-    _check(err, "kernel_base")
-    base_kernel.launches += 1
+    ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
+            iters.data_ptr(), _stream(device))
+    lib = load_kernels()
+    if ext:
+        err = lib.trt_kernel_base_ext(ctypes.byref(args),
+                                      ctypes.byref(_tex(tracer)), *ptrs)
+    else:
+        err = lib.trt_kernel_base(ctypes.byref(args), *ptrs)
+    _check(err, "kernel_base_ext" if ext else "kernel_base")
     p = out.view(9, h_out, w)
     return BaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
                    state.view(h_out, w), p[6], p[7], p[8],
                    iters[0].to(torch.float64))
 
 
+def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                h_out: int = None) -> BaseOut:
+    """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
+    device of `tracer`'s scene tables (base_kernel_ext for a tracer with
+    the extensions)."""
+    _no_chunks(tracer, "base_kernel")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    if tracer.ext:
+        return base_kernel_ext(tracer, pose, seed, frame_number, y0, h_out)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, False)
+    base_kernel.launches += 1
+    return out
+
+
+def base_kernel_ext(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                    h_out: int = None) -> BaseOut:
+    """Kernel A's EXT instantiation: base_kernel for a tracer with the
+    material and texture extensions."""
+    _require_ext(tracer, "base_kernel_ext")
+    _no_chunks(tracer, "base_kernel_ext")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_ext"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, True)
+    base_kernel_ext.launches += 1
+    return out
+
+
 base_kernel.launches = 0
+base_kernel_ext.launches = 0
 
 
 def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
@@ -187,19 +253,9 @@ def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
                           _iters_tensor(it, rays.device))
 
 
-def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
-                        y0: int = 0, h_out: int = None) -> ChunkedBaseOut:
-    """Kernel A over the chunk-major stream of rows [y0, y0 + h_out): entry
-    (c, y, x) renders samples [c * cb, min((c + 1) * cb, base)) of pixel
-    (x, y) on the sub-chain seed + c * CHUNK_GOLDEN (an unchunked tracer
-    has one chunk of `base` samples). No budget epilogue: the variance
-    needs the per-pixel totals."""
+def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                    ext: bool) -> ChunkedBaseOut:
     device = tracer.tables.buf.device
-    if device.type == "cpu":
-        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
-                                         y0, h_out)
-    if device.type != "cuda":
-        raise ValueError(f"base_kernel_chunked: unsupported device {device}")
     h_out = tracer.height if h_out is None else h_out
     n_chunks, w = tracer.n_base_chunks, tracer.width
     n = n_chunks * h_out * w
@@ -209,18 +265,55 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     args = _ChunkArgs(_frame(tracer, pose), h_out, y0, tracer.base_samples,
                       tracer.chunk_base or tracer.base_samples, n_chunks,
                       seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF)
-    err = load_kernels().trt_kernel_base_chunked(
-        ctypes.byref(args), tracer.tables.buf.data_ptr(), out.data_ptr(),
-        state.data_ptr(), iters.data_ptr(), _stream(device))
-    _check(err, "kernel_base_chunked")
-    base_kernel_chunked.launches += 1
+    ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
+            iters.data_ptr(), _stream(device))
+    lib = load_kernels()
+    if ext:
+        err = lib.trt_kernel_base_chunked_ext(
+            ctypes.byref(args), ctypes.byref(_tex(tracer)), *ptrs)
+    else:
+        err = lib.trt_kernel_base_chunked(ctypes.byref(args), *ptrs)
+    _check(err, "kernel_base_chunked_ext" if ext else "kernel_base_chunked")
     p = out.view(7, n_chunks, h_out, w)
     return ChunkedBaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
                           state.view(n_chunks, h_out, w), p[6],
                           iters[0].to(torch.float64))
 
 
+def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
+                        y0: int = 0, h_out: int = None) -> ChunkedBaseOut:
+    """Kernel A over the chunk-major stream of rows [y0, y0 + h_out): entry
+    (c, y, x) renders samples [c * cb, min((c + 1) * cb, base)) of pixel
+    (x, y) on the sub-chain seed + c * CHUNK_GOLDEN (an unchunked tracer
+    has one chunk of `base` samples). No budget epilogue: the variance
+    needs the per-pixel totals. base_kernel_chunked_ext for a tracer with
+    the extensions."""
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    if tracer.ext:
+        return base_kernel_chunked_ext(tracer, pose, seed, frame_number, y0,
+                                       h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, False)
+    base_kernel_chunked.launches += 1
+    return out
+
+
+def base_kernel_chunked_ext(tracer, pose, seed: int, frame_number: int,
+                            y0: int = 0, h_out: int = None
+                            ) -> ChunkedBaseOut:
+    """The chunked kernel A's EXT instantiation."""
+    _require_ext(tracer, "base_kernel_chunked_ext")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_ext"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, True)
+    base_kernel_chunked_ext.launches += 1
+    return out
+
+
 base_kernel_chunked.launches = 0
+base_kernel_chunked_ext.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -238,42 +331,71 @@ def extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0):
     return esum, rays, _iters_tensor(it, rays.device)
 
 
-def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
-    """Kernel B: entry i renders `add[i]` extra samples of pixel
-    (xs[i], ys[i]) continuing RNG `state[i]` at sample index `samp0[i]`.
-    xs, ys, samp0 int32; state int64; add f32; all of one shape."""
+def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
+    """Check kernel B's inputs; False where the plain version runs."""
     device = xs.device
     if any(t.device != device for t in (ys, state, add, samp0,
                                         tracer.tables.buf)):
-        raise ValueError("extra_kernel: inputs and scene tables must lie on "
-                         "one device")
-    if device.type == "cpu":
-        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
-    if device.type != "cuda":
-        raise ValueError(f"extra_kernel: unsupported device {device}")
-    shape = xs.shape
+        raise ValueError(f"{name}: inputs and scene tables must lie on one "
+                         "device")
+    if not _on_cuda(device, name):
+        return False
     for t, dtype in ((xs, torch.int32), (ys, torch.int32),
                      (state, torch.int64), (add, torch.float32),
                      (samp0, torch.int32)):
-        if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
-            raise ValueError("extra_kernel: inputs must be contiguous "
-                             "int32 xs/ys/samp0, int64 state and f32 add of "
-                             "one shape")
-    n = xs.numel()
+        if t.dtype != dtype or t.shape != xs.shape or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous int32 "
+                             "xs/ys/samp0, int64 state and f32 add of one "
+                             "shape")
+    return True
+
+
+def _launch_extra(tracer, pose, xs, ys, state, add, samp0, ext: bool):
+    device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
     args = _ExtraArgs(_frame(tracer, pose), n)
-    err = load_kernels().trt_kernel_extra(
-        ctypes.byref(args), tracer.tables.buf.data_ptr(), xs.data_ptr(),
-        ys.data_ptr(), state.data_ptr(), add.data_ptr(), samp0.data_ptr(),
-        out.data_ptr(), iters.data_ptr(), _stream(device))
-    _check(err, "kernel_extra")
-    extra_kernel.launches += 1
-    p = out.view(4, *shape)
+    ptrs = (tracer.tables.buf.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+            state.data_ptr(), add.data_ptr(), samp0.data_ptr(),
+            out.data_ptr(), iters.data_ptr(), _stream(device))
+    lib = load_kernels()
+    if ext:
+        err = lib.trt_kernel_extra_ext(ctypes.byref(args),
+                                       ctypes.byref(_tex(tracer)), *ptrs)
+    else:
+        err = lib.trt_kernel_extra(ctypes.byref(args), *ptrs)
+    _check(err, "kernel_extra_ext" if ext else "kernel_extra")
+    p = out.view(4, *xs.shape)
     return V3(p[0], p[1], p[2]), p[3], iters[0].to(torch.float64)
 
 
+def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B: entry i renders `add[i]` extra samples of pixel
+    (xs[i], ys[i]) continuing RNG `state[i]` at sample index `samp0[i]`.
+    xs, ys, samp0 int32; state int64; add f32; all of one shape.
+    extra_kernel_ext for a tracer with the extensions."""
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0, "extra_kernel"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if tracer.ext:
+        return extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, False)
+    extra_kernel.launches += 1
+    return out
+
+
+def extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's EXT instantiation."""
+    _require_ext(tracer, "extra_kernel_ext")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_ext"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, True)
+    extra_kernel_ext.launches += 1
+    return out
+
+
 extra_kernel.launches = 0
+extra_kernel_ext.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Monte-Carlo direction and area sampling over lanes —
-``terminal_raytracer_tpu/ops/sampling.py`` (the samplers of the reference
-transport; the extension samplers and the polynomial ``atan2`` are not
+``terminal_raytracer_tpu/ops/sampling.py``: the samplers of the reference
+transport, the metal fuzz vector (``uniform_sphere_dir``) and the
+polynomial ``atan2`` of the texture and sky uv (the fog samplers are not
 ported yet).
 
 Per-lane divergent branches (the ONB axis pick) become ``where`` selects;
@@ -48,6 +49,36 @@ def cosine_hemisphere(state: torch.Tensor, normal: V3,
     w = vm.normalize(normal)
     u, v = orthonormal_basis(w)
     return state, vm.normalize(u * x + v * y + w * z)
+
+
+def uniform_sphere_dir(state: torch.Tensor,
+                       gate: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, V3]:
+    """Uniform direction on the unit sphere (the metal fuzz vector); 2
+    gated draws."""
+    state, r1, r2 = prng.next_f32_pair(state, gate)
+    cos_theta = 1.0 - 2.0 * r1
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = TWO_PI * r2
+    return state, V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                     cos_theta)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's branchless polynomial atan2 (texture and sky uv),
+    reproduced term for term: a native atan2 would move uv, and with it
+    texels. Octant reduction to a = min/max of |x|, |y|, a degree-9 odd
+    polynomial for atan(a) (max abs error ~1e-5 rad), then the quadrant
+    unfolds; atan2(0, 0) = 0."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    a = torch.minimum(ax, ay) / torch.where(hi > 0.0, hi, 1.0)
+    s = a * a
+    r = a * (0.99997726 + s * (-0.33262347 + s * (0.19354346 + s * (
+        -0.11643287 + s * (0.05265332 - s * 0.01172120)))))
+    r = torch.where(ay > ax, 0.5 * PI - r, r)
+    r = torch.where(x < 0.0, PI - r, r)
+    return torch.where(y < 0.0, -r, r)
 
 
 def sphere_light_point(state: torch.Tensor, center: V3, radius,

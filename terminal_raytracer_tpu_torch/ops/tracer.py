@@ -1,5 +1,8 @@
 """The reference transport as plain PyTorch over lanes —
-``terminal_raytracer_tpu/ops/tracer.py`` with every extension gate off.
+``terminal_raytracer_tpu/ops/tracer.py`` with its material and texture
+extensions (dielectrics, rough metals, checker, image textures, normal
+maps, sky maps); the other extensions (the unbiased and MIS transports,
+fog, depth of field, the stratified sampler, one-light NEE) are refused.
 
 This is the port's oracle and the plain version of the CUDA kernels
 (ops/kernels.py): the same lane math the kernels run per thread, written as
@@ -12,6 +15,18 @@ light each bounce; the NEE clamp at 10; the sky gradient on a miss; 1e-3
 ray offsets; Russian roulette from bounce 4 (kill first, then compensate);
 adaptive sampling with base = max(4, spp // 4), budget min(spp - base,
 floor(var * 50)) iff var > 10, and the reference's normalisation quirks.
+
+The extensions (``ext``) read per-primitive channels from the scene's
+extension table (ops/geometry.py EXT_KEYS) and texels from the scene's
+packed atlas (models/texture.py). The JAX package compiles each one in or
+out by a static scene-level gate; here one path serves every extension
+scene, because each extra draw and each recolor is already gated per lane
+on its channel (fuzz on roughness > 0, the Fresnel draw on the glass
+branch, which transparency 0 never takes since refl + 0 == refl; recolors
+on a nonzero scale or id): a zero channel costs no draw and changes no
+value. The JAX order of draws per bounce is kept: branch select, fuzz
+pair, Fresnel, cosine pair, roulette. A texel fetch outside the atlas rows
+[lo, hi) that the JAX package's row sweep covers gives 0, as there.
 
 The scheduler is path regeneration (``regen_step``): a lane whose path ends
 starts its next sample on the next iteration, so one loop covers a lane's
@@ -90,13 +105,38 @@ def base_sample_count(spp: int) -> int:
     return max(4, spp // 4)
 
 
+def fresnel_schlick(cos_i, eta):
+    """Schlick's reflectance r0 + (1 - r0)(1 - cos_i)^5 with r0 =
+    ((1 - eta) / (1 + eta))^2."""
+    r = (1.0 - eta) / (1.0 + eta)
+    r0 = r * r
+    m = 1.0 - cos_i
+    m2 = m * m
+    return r0 + (1.0 - r0) * (m2 * m2 * m)
+
+
+def refract(d: V3, n: V3, eta):
+    """Refract unit `d` about the front-face normal `n` with relative index
+    eta. Returns (t_dir, cos_i, cos_t, tir); t_dir and cos_t mean nothing
+    where tir (total internal reflection)."""
+    cos_i = torch.clamp(-vm.dot(d, n), max=1.0)
+    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    t_dir = d * eta + n * (eta * cos_i - cos_t)
+    return t_dir, cos_i, cos_t, tir
+
+
+def dominant_axes(n: V3):
+    """(x-dominant, y-dominant) lanes of |n|, ties to the earlier axis."""
+    ax, ay, az = torch.abs(n.x), torch.abs(n.y), torch.abs(n.z)
+    xdom = (ax >= ay) & (ax >= az)
+    return xdom, ~xdom & (ay >= az)
+
+
 def check_reference_scene(scene: scene_mod.Scene) -> None:
     """Raise ValueError if `scene` needs a feature the port lacks so far."""
     missing = [name for name, on in (
-        ("dielectrics", scene.has_dielectrics),
-        ("rough metals", scene.has_rough_metals),
-        ("checker textures", scene.has_checker),
-        ("image textures, normal maps or sky maps", scene.needs_atlas),
         ("fog", scene.has_fog),
         ("depth of field", scene.camera.aperture > 0.0),
         ("the stratified sampler", scene.sampler != "reference"),
@@ -164,13 +204,16 @@ class PathTracer:
     `accel`, `chunk_base`, `chunk_extra`: as in the JAX PathTracer (module
     docstring). `dynamic`: the scene's values arrive per frame through
     :meth:`bind_packed` (ops/dynamic.py); the template fixes the counts and
-    the light topology."""
+    the light topology. A scene that uses an extension (ops/geometry.py
+    uses_extensions) gets scene tables with the extension table, and
+    tables with that table render through the extension path (`ext`)."""
 
     def __init__(self, scene: scene_mod.Scene, device, accel: str = "auto",
                  chunk_base="auto", chunk_extra="auto", dynamic: bool = False):
         check_reference_scene(scene)
         self.scene = scene
         self.device = torch.device(device)
+        self.atlas = None
         self.accel = resolve_accel(scene, accel)
         self.width, self.height = scene.width, scene.height
         self.spp = scene.samples_per_pixel
@@ -188,10 +231,11 @@ class PathTracer:
         self._light_kinds = [tag for tag, _ in scene.lights]
         self.dynamic = dynamic
         if dynamic:
-            self.topology = dyn.topology(scene)
+            self.topology = dyn.topology(scene, geom.uses_extensions(scene))
             self.bind_packed(dyn.pack_scene(scene))
         else:
-            self.bind_tables(geom.scene_tables(scene, self.device, self.accel))
+            self.bind_tables(geom.scene_tables(
+                scene, self.device, self.accel, geom.uses_extensions(scene)))
         # f32 camera intrinsics, computed as the JAX package computes them.
         self.half_height = float(
             np.tan(np.float32(scene.fov_rad) / np.float32(2)))
@@ -207,9 +251,14 @@ class PathTracer:
 
     def bind_tables(self, tables: geom.SceneTables) -> None:
         """Render from `tables` from now on. The kernels read `tables.buf`
-        alone; the plain sweep and light list are built on first use."""
+        alone; the plain sweep and light list are built on first use.
+        Tables with the extension table take the extension path (and the
+        scene's texel atlas) even for a scene that uses no extension."""
         self.tables = tables
         self._prims = self._lights = None
+        self.ext = tables.has_ext
+        if self.ext and self.atlas is None:
+            self._init_textures(self.scene)
 
     @property
     def prims(self) -> geom.ScenePrims:
@@ -234,6 +283,185 @@ class PathTracer:
         (one frame's values) from now on."""
         self.bind_tables(dyn.tables_from_packed(arrays, self.topology,
                                                 self.device))
+
+    # ------------------------------------------------------------------
+    # Textures: the atlas and the fetches (JAX PathTracer :695-901)
+    # ------------------------------------------------------------------
+
+    def _init_textures(self, scene: scene_mod.Scene) -> None:
+        """The flat int32 atlas on the device and the scene-level texture
+        constants, which the kernels take as launch arguments: texels per
+        side S, atlas rows per texture, the filter, the atlas rows [lo, hi)
+        of the textures the primitives' colors and normal maps use (the
+        JAX package's static sweep bounds), the sky texture's first row (-1:
+        the gradient sky) and the sky intensity."""
+        self.atlas = torch.from_numpy(
+            scene.texture_atlas().reshape(-1)).to(self.device)
+        self.tex_size = scene.texture_size
+        self.tex_rows = scene.texture_rows
+        self.tex_bilinear = scene.tex_bilinear
+
+        def rows_of(names):
+            tids = sorted(scene.texture_index(n) for n in names)
+            if not tids:
+                return 0, 0
+            return (tids[0] - 1) * self.tex_rows, tids[-1] * self.tex_rows
+
+        mats = [p.material for _, p in scene.primitives]
+        self.tex_lo, self.tex_hi = rows_of(
+            m.texture for m in mats if m.is_textured)
+        self.nm_lo, self.nm_hi = rows_of(
+            m.normal_map for m in mats if m.is_normal_mapped)
+        self.sky_lo, self.sky_intensity = -1, 0.0
+        if scene.has_sky_texture:
+            self.sky_lo = ((scene.texture_index(scene.sky.texture) - 1)
+                           * self.tex_rows)
+            self.sky_intensity = float(np.float32(scene.sky.intensity))
+
+    @staticmethod
+    def unpack_texel(packed: torch.Tensor) -> V3:
+        """models/texture.py packing r<<16 | g<<8 | b -> [0, 1] rgb. Texels
+        are below 2**24, so >> on the signed integers equals the JAX
+        package's logical shift."""
+        q = 1.0 / 255.0
+        return V3((packed >> 16).to(torch.float32) * q,
+                  ((packed >> 8) & 255).to(torch.float32) * q,
+                  (packed & 255).to(torch.float32) * q)
+
+    def fetch_texel(self, idx: torch.Tensor, lo: int, hi: int) -> V3:
+        """The texel at flat atlas index `idx` (int64 lanes), or 0 outside
+        atlas rows [lo, hi), as the JAX package's row sweep gives."""
+        ok = (idx >= lo * 128) & (idx < hi * 128)
+        packed = self.atlas[torch.where(ok, idx, 0)]
+        return self.unpack_texel(torch.where(ok, packed, 0))
+
+    def fetch_bilinear(self, base, u, v, lo: int, hi: int) -> V3:
+        """The 2x2 texel blend around wrapped uv (texel centers at
+        (i + 0.5) / S; neighbours wrap with & (S - 1) in two's complement)
+        of the texture whose texel 0 is at flat index `base`."""
+        s, m = float(self.tex_size), self.tex_size - 1
+        x = u * s - 0.5
+        y = v * s - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = x - x0
+        fy = y - y0
+        iu0 = x0.to(torch.int64) & m
+        iv0 = y0.to(torch.int64) & m
+        iu1 = (iu0 + 1) & m
+        iv1 = (iv0 + 1) & m
+        r0 = base + iv0 * self.tex_size
+        r1 = base + iv1 * self.tex_size
+        t00, t01, t10, t11 = (
+            self.fetch_texel(torch.clamp(i, min=0), lo, hi)
+            for i in (r0 + iu0, r0 + iu1, r1 + iu0, r1 + iu1))
+        top = t00 + (t01 - t00) * fx
+        bot = t10 + (t11 - t10) * fx
+        return top + (bot - top) * fy
+
+    def _nearest_index(self, u, v):
+        """The texel of uv in [0, 1] on an S x S grid, clamped at 1."""
+        s, smax = float(self.tex_size), self.tex_size - 1
+        iu = torch.clamp(torch.floor(u * s).to(torch.int64), max=smax)
+        iv = torch.clamp(torch.floor(v * s).to(torch.int64), max=smax)
+        return iv * self.tex_size + iu
+
+    @staticmethod
+    def spherical_uv(n: V3):
+        """Longitude/latitude uv of a unit vector (sampling.atan2)."""
+        half_inv_pi = 0.5 / sampling.PI
+        u = 0.5 + sampling.atan2(n.z, n.x) * half_inv_pi
+        ny = torch.clamp(n.y, -1.0, 1.0)
+        v = 0.5 + sampling.atan2(
+            ny, torch.sqrt(torch.clamp(1.0 - ny * ny, min=0.0))
+        ) * (2.0 * half_inv_pi)
+        return u, v
+
+    def sky_radiance(self, d: V3) -> V3:
+        """The sky map's texel in direction `d`, times the sky intensity."""
+        u, v = self.spherical_uv(d)
+        lo, hi = self.sky_lo, self.sky_lo + self.tex_rows
+        if self.tex_bilinear:
+            texel = self.fetch_bilinear(lo * 128, u, v, lo, hi)
+        else:
+            texel = self.fetch_texel(lo * 128 + self._nearest_index(u, v),
+                                     lo, hi)
+        return texel * self.sky_intensity
+
+    def mapped_texel(self, hit: geom.Hit, signed_id, scale, lo: int,
+                     hi: int) -> V3:
+        """The texel of texture |signed_id| at the hit: +id maps the hit
+        point planar along the normal's dominant axis (x -> (z, y), y ->
+        (x, z), z -> (x, y)), -id maps the normal's longitude/latitude;
+        `scale` tiles the uv. Lanes with id 0 fetch a texel the caller
+        drops."""
+        n, p = hit.normal, hit.p
+        xdom, ydom = dominant_axes(n)
+        u_pl = torch.where(xdom, p.z, p.x)
+        v_pl = torch.where(xdom, p.y, torch.where(ydom, p.z, p.y))
+        u_sp, v_sp = self.spherical_uv(n)
+        spherical = signed_id < 0.0
+        u = torch.where(spherical, u_sp, u_pl) * scale
+        v = torch.where(spherical, v_sp, v_pl) * scale
+        u = u - torch.floor(u)
+        v = v - torch.floor(v)
+        tid = torch.abs(signed_id).to(torch.int64)
+        base = (tid - 1) * (self.tex_rows * 128)
+        if self.tex_bilinear:
+            return self.fetch_bilinear(base, u, v, lo, hi)
+        return self.fetch_texel(
+            torch.clamp(base + self._nearest_index(u, v), min=0), lo, hi)
+
+    def apply_normal_map(self, hit: geom.Hit) -> geom.Hit:
+        """Bend the (front-facing) shading normal by the tangent-space
+        normal map: texel rgb -> [-1, 1] xyz, the tangential part scaled by
+        the strength, z kept above 1e-3, renormalized. Planar lanes take the
+        two world axes their uv projects on; spherical lanes the longitude
+        tangent (-n.z, 0, n.x) / len (+x at the poles) and its bitangent.
+        `front` stays geometric."""
+        ni = hit.nm_index
+        texel = self.mapped_texel(hit, ni, hit.nm_scale, self.nm_lo,
+                                  self.nm_hi)
+        tn = texel * 2.0 - V3(1.0, 1.0, 1.0)
+        n = hit.normal
+        xdom, ydom = dominant_axes(n)
+        zeros = torch.zeros_like(n.x)
+        t_pl = vm.where(xdom, V3(zeros, zeros, zeros + 1.0),
+                        V3(zeros + 1.0, zeros, zeros))
+        b_pl = vm.where(xdom | ~ydom, V3(zeros, zeros + 1.0, zeros),
+                        V3(zeros, zeros, zeros + 1.0))
+        len2 = n.x * n.x + n.z * n.z
+        inv = 1.0 / torch.sqrt(torch.clamp(len2, min=1e-12))
+        pole = len2 < 1e-12
+        t_sp = V3(torch.where(pole, 1.0, -n.z * inv), zeros,
+                  torch.where(pole, 0.0, n.x * inv))
+        b_sp = vm.cross(n, t_sp)
+        spherical = ni < 0.0
+        t_v = vm.where(spherical, t_sp, t_pl)
+        b_v = vm.where(spherical, b_sp, b_pl)
+        ns = hit.nm_strength
+        raw = (t_v * (tn.x * ns) + b_v * (tn.y * ns)
+               + n * torch.clamp(tn.z, min=1e-3))
+        return hit._replace(
+            normal=vm.where(ni != 0.0, vm.normalize(raw), n))
+
+    def shade_hit(self, hit: geom.Hit) -> geom.Hit:
+        """The extension recolors and the normal map, in the JAX order:
+        checker (odd cells of a world-space 3-D checkerboard with edge
+        1 / scale, lattice offset by 0.5), then the image texture (which
+        wins over the checker), then the normal map (whose uv still comes
+        from the geometric normal)."""
+        k = hit.checker_scale
+        p = hit.p
+        cells = (torch.floor(p.x * k + 0.5) + torch.floor(p.y * k + 0.5)
+                 + torch.floor(p.z * k + 0.5))
+        odd = (cells - 2.0 * torch.floor(cells * 0.5)) > 0.5
+        color = vm.where((k > 0.0) & odd, hit.checker_color, hit.color)
+        ti = hit.tex_index
+        texel = self.mapped_texel(hit, ti, hit.tex_scale, self.tex_lo,
+                                  self.tex_hi)
+        hit = hit._replace(color=vm.where(ti != 0.0, texel, color))
+        return self.apply_normal_map(hit)
 
     # ------------------------------------------------------------------
 
@@ -292,22 +520,57 @@ class PathTracer:
         zeros = torch.zeros_like(o.x)
         hit = self.prims.closest_hit(o, d, geom.RAY_EPS, geom.T_FAR, alive)
         rays = rays + alive.to(torch.float32)
+        if self.ext:
+            hit = self.shade_hit(hit)
         miss_now = alive & ~hit.found
         live = alive & hit.found
-        acc = acc + vm.where(miss_now, sky_color(d) * att, vm.splat(zeros))
+        sky = (self.sky_radiance(d) if self.ext and self.sky_lo >= 0
+               else sky_color(d))
+        acc = acc + vm.where(miss_now, sky * att, vm.splat(zeros))
         acc = acc + vm.where(live, hit.emission * att, vm.splat(zeros))
         state, direct = self.direct_light(state, hit.p, hit.normal,
                                           hit.color, att, live)
+        if self.ext:
+            # No matte NEE ghost on glass: scale by the non-glass share.
+            direct = direct * (1.0 - hit.transparency)
         acc = acc + vm.where(live, direct, vm.splat(zeros))
         rays = rays + torch.where(live, float(self.n_lights), 0.0)
 
-        # Scatter: stochastic mirror-vs-diffuse on one draw.
+        # Scatter: mirror, glass (ext) or diffuse on one draw.
         state, r_spec = prng.next_f32(state, live)
         is_refl = hit.reflectivity > r_spec
         refl_dir = vm.reflect(d, hit.normal)
+        diffuse = live & ~is_refl
+        if self.ext:
+            # Fuzzy mirror: reflect + roughness * a uniform direction,
+            # renormalized; a fuzzed direction at or below the surface
+            # absorbs the path.
+            fuzzy = hit.roughness > 0.0
+            state, fz = sampling.uniform_sphere_dir(state,
+                                                    live & is_refl & fuzzy)
+            raw = refl_dir + fz * hit.roughness
+            len2 = vm.dot(raw, raw)
+            fuzzed = raw * (1.0 / torch.sqrt(torch.clamp(len2, min=1e-12)))
+            below = vm.dot(fuzzed, hit.normal) <= 0.0
+            absorbed = live & is_refl & fuzzy & (below | (len2 < 1e-12))
+            refl_dir = vm.where(fuzzy & is_refl, fuzzed, refl_dir)
+            # Glass on refl <= r < refl + transparency: Fresnel-weighted
+            # reflect (a perfect mirror) or refract, on one more draw.
+            is_glass = ~is_refl & (hit.reflectivity + hit.transparency
+                                   > r_spec)
+            ior = torch.where(hit.transparency > 0.0, hit.ior, 1.0)
+            eta = torch.where(hit.front, 1.0 / ior, ior)
+            t_dir, cos_i, cos_t, tir = refract(d, hit.normal, eta)
+            fres = fresnel_schlick(torch.where(eta > 1.0, cos_t, cos_i), eta)
+            state, r_fr = prng.next_f32(state, live & is_glass)
+            # (refl_dir is unfuzzed on glass lanes, where is_refl is off.)
+            glass_dir = vm.where(tir | (fres > r_fr), refl_dir, t_dir)
+            diffuse = diffuse & ~is_glass
         state, cos_dir = sampling.cosine_hemisphere(state, hit.normal,
-                                                    live & ~is_refl)
+                                                    diffuse)
         new_d = vm.where(is_refl, refl_dir, cos_dir)
+        if self.ext:
+            new_d = vm.where(is_glass, glass_dir, new_d)
         att = vm.where(live, att * hit.color, att)
         new_o = hit.p + new_d * geom.RAY_EPS
 
@@ -318,6 +581,8 @@ class PathTracer:
         killed = rr_on & ((p_surv < r_rr) | (p_surv <= 0.0))
         att = vm.where(rr_on & ~killed, att / p_surv, att)
         alive = live & ~killed
+        if self.ext:
+            alive = alive & ~absorbed
 
         # Sanitize dead lanes so NaNs can't leak into the next sweep.
         d = vm.where(alive, new_d, V3(zeros, zeros, zeros + 1.0))

@@ -11,12 +11,15 @@ as PyTorch's own kernels, so they must agree with the plain versions bit
 for bit.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from terminal_raytracer_tpu_torch.models import Camera, load_scene
 from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
 from terminal_raytracer_tpu_torch.ops import dynamic as dyn
+from terminal_raytracer_tpu_torch.ops import geometry as geom
 from terminal_raytracer_tpu_torch.ops import kernels
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.runtime import init_state, make_render_step
@@ -104,6 +107,95 @@ def test_animated_chunked_frame_matches_plain_frame(cuda_device, name):
         width=64, height=16, samples_per_pixel=8, max_depth=6)
     tr = PathTracer(scene, cuda_device, dynamic=True, chunk_base=2,
                     chunk_extra=2)
+    arrays = ANIMATORS["orbit"](dyn.pack_scene(scene), 5)
+    cur, var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
+        POSE, SEED, 0, arrays)
+    pcur, pvar, ptot, prays, _ = tr.render_frame(POSE, SEED, 0)
+    assert float(rays) == float(prays)
+    for a, b in zip((*cur, var, tot), (*pcur, pvar, ptot)):
+        assert torch.equal(a, b)
+
+
+def _assert_base_equal(k, p):
+    for name in ("rays", "state"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    for a, b in zip(list(k.csum) + list(k.csumsq),
+                    list(p.csum) + list(p.csumsq)):
+        assert torch.equal(a, b)
+
+
+EXT_CASES = [("showcase", "nearest"), ("textured", "nearest"),
+             ("textured", "bilinear"), ("envmap", "bilinear"),
+             ("bumpy", "nearest"), ("cornell_glass", "nearest")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, filt", EXT_CASES,
+                         ids=[f"{n}-{f}" for n, f in EXT_CASES])
+def test_ext_kernels_match_plain_versions(cuda_device, name, filt):
+    """The EXT instantiations of kernels A and B against their plain
+    versions on an extension scene: every output equal. envmap's sky is
+    brightened 8 / 1.4 times: at its own intensity no pixel's variance
+    reaches the adaptive threshold, and kernel B would trace nothing."""
+    scene = load_scene(name).with_overrides(
+        width=96, height=24, samples_per_pixel=32, max_depth=8,
+        texture_filter=filt)
+    if scene.sky is not None:
+        scene = dataclasses.replace(
+            scene, sky=dataclasses.replace(scene.sky, intensity=8.0))
+    tr = PathTracer(scene, cuda_device)
+    assert tr.ext
+    n0, m0 = kernels.base_kernel_ext.launches, kernels.base_kernel.launches
+    k = kernels.base_kernel(tr, POSE, SEED, 0)
+    p = kernels.base_kernel_plain(tr, POSE, SEED, 0)
+    assert kernels.base_kernel_ext.launches == n0 + 1
+    assert kernels.base_kernel.launches == m0
+    _assert_base_equal(k, p)
+    assert torch.equal(k.additional, p.additional)
+    s = kernels.sorted_stream(tr, k.state, k.additional)
+    assert int((s.add > 0).sum()) > 0
+    args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
+    n0 = kernels.extra_kernel_ext.launches
+    ek, rk, _ = kernels.extra_kernel(*args)
+    ep, rp, _ = kernels.extra_kernel_plain(*args)
+    assert kernels.extra_kernel_ext.launches == n0 + 1
+    assert torch.equal(rk, rp)
+    for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ext_chunked_kernel_matches_plain_version(cuda_device):
+    scene = load_scene("showcase").with_overrides(
+        width=64, height=16, samples_per_pixel=32, max_depth=8)
+    tr = PathTracer(scene, cuda_device, chunk_base=2, chunk_extra=2)
+    n0 = kernels.base_kernel_chunked_ext.launches
+    k = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
+    p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
+    assert kernels.base_kernel_chunked_ext.launches == n0 + 1
+    assert k.rays.shape == (4, 16, 64)
+    _assert_base_equal(k, p)
+
+
+@pytest.mark.cuda
+def test_ext_kernels_on_a_reference_scene_equal_the_reference_kernels(
+        cuda_device):
+    """Zero channels and no atlas: the EXT instantiation gives the
+    reference instantiation's outputs bit for bit."""
+    scene = _cornell(128, 16, 16, 8)
+    ref = PathTracer(scene, cuda_device)
+    ext = PathTracer(scene, cuda_device)
+    ext.bind_tables(geom.scene_tables(scene, cuda_device, ext.accel,
+                                      ext=True))
+    _assert_base_equal(kernels.base_kernel_ext(ext, POSE, SEED, 0),
+                       kernels.base_kernel(ref, POSE, SEED, 0))
+
+
+@pytest.mark.cuda
+def test_animated_ext_frame_matches_plain_frame(cuda_device):
+    scene = load_scene("showcase").with_overrides(
+        width=64, height=16, samples_per_pixel=16, max_depth=6)
+    tr = PathTracer(scene, cuda_device, dynamic=True)
     arrays = ANIMATORS["orbit"](dyn.pack_scene(scene), 5)
     cur, var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
         POSE, SEED, 0, arrays)

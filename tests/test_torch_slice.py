@@ -19,9 +19,11 @@ step, or on those same pixels.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -29,6 +31,7 @@ import pytest
 import torch
 
 from terminal_raytracer_tpu.models import Camera, list_scenes, load_scene
+from terminal_raytracer_tpu.models.scene import Fog
 from terminal_raytracer_tpu.runtime import blit as jblit
 from terminal_raytracer_tpu.runtime import init_state as j_init_state
 from terminal_raytracer_tpu.runtime import make_render_step as j_make_step
@@ -195,6 +198,9 @@ def test_port_never_imports_jax():
         "assert cli.main(['--device', 'cpu', '--scene', 'stress:600:3',"
         " '--animate', 'orbit', '--width', '16', '--height', '4', '--spp',"
         " '8', '--depth', '2', '--frames', '2', '--full-color']) == 0\n"
+        "assert cli.main(['--device', 'cpu', '--scene', 'bumpy', '--width',"
+        " '16', '--height', '4', '--spp', '4', '--depth', '2', '--frames',"
+        " '1', '--filter', 'bilinear']) == 0\n"
         "bad = [m for m in sys.modules if m.startswith('jax')\n"
         "       or m == 'terminal_raytracer_tpu'\n"
         "       or m.startswith('terminal_raytracer_tpu.')]\n"
@@ -237,10 +243,19 @@ def test_cuda_device_without_gpu_exits_nonzero(capsys):
     assert "CUDA" in capsys.readouterr().err
 
 
-def test_unported_scene_features_are_refused(capsys):
-    with pytest.raises(ValueError, match="dielectrics"):
-        PathTracer(load_scene("showcase"), "cpu")
-    assert torch_main(["--device", "cpu", "--scene", "showcase", "--frames",
+def test_unported_scene_features_are_refused(capsys, tmp_path):
+    cornell = load_scene("Cornell_Box")
+    with pytest.raises(ValueError, match="does not support depth of field"):
+        PathTracer(cornell.with_overrides(aperture=0.1, focus_distance=3.0),
+                   "cpu")
+    with pytest.raises(ValueError, match="does not support fog"):
+        PathTracer(cornell.with_overrides(fog=Fog(density=0.2)), "cpu")
+    cfg = json.loads((Path(REPO) / "terminal_raytracer_tpu" / "models"
+                      / "scenes" / "Cornell_Box.json").read_text())
+    cfg["fog"] = {"density": 0.2}
+    path = tmp_path / "foggy.json"
+    path.write_text(json.dumps(cfg))
+    assert torch_main(["--device", "cpu", "--path", str(path), "--frames",
                        "1"]) == 2
     assert "does not support" in capsys.readouterr().err
 
