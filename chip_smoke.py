@@ -51,18 +51,33 @@ Phases, each reported on lines starting with its tag:
             version at the main path's shapes (the five scenes at
             400x200, the checker stress:1024 at 200x100), timed at the
             showcase, textured and checker stress:1024 shapes
+  [xt]      the transport and camera extensions (XT kernels): each XT
+            kernel against its plain version at the main path's shapes:
+            the JAX bench's fog (Cornell_Box 400x200, 16 spp, depth 32,
+            fog 0.15), stratified and manylights_one (lights:16, power)
+            configurations, a depth-of-field Cornell (aperture 0.1, focus
+            3), showcase --mis, and the chunked XT kernel A on stress:1024
+            in fog under --mis (rays, budgets, states equal; radiance
+            within 5e-3; kernel B on a stream with work); the XT kernels on
+            Cornell_Box with every gate off against the reference kernels,
+            bit for bit; Engine through each of those and through
+            manylights (every light, the reference kernels); cli.main with
+            --mis --fog; the XT kernels timed at the fog and stress:1024
+            shapes
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. It prints
-  ms/frame, Mray/s (owed traversal sweeps per second) and occupancy.
+  ms/frame, Mray/s (owed traversal sweeps per second) and occupancy (owed
+  sweeps over executed lane-iterations x (1 + the shadow sweeps a bounce
+  owes: n_lights, or 1 under one-light NEE)).
 
 Then one JSON line with each kernel's result (its max abs error: the
 largest over its comparisons, which include the main path's shapes; its
 bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
 3.35 TB/s, whichever is larger; the EXT rows at the showcase and
-stress:1024-checker shapes),
-the nvidia-smi line, and as the last line
+stress:1024-checker shapes; the XT rows at the fog and stress:1024 fog
+shapes), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
 prints no result; nothing falls back to the plain version or to the CPU.
 """
@@ -346,7 +361,8 @@ def phase_kernel_base_chunked(peak):
 
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_ext", "base_kernel_chunked_ext",
-                "extra_kernel_ext")
+                "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
+                "extra_kernel_xt")
 
 
 def _reset_launches():
@@ -362,17 +378,16 @@ def _launches():
     return {name: getattr(kernels, name).launches for name in LAUNCH_NAMES}
 
 
-def _run_engine(tag, label, scene, full_color, frames, animate=None):
+def _run_engine(tag, label, scene, full_color, frames, animate=None,
+                transport="reference"):
     """Drive `frames` frames (after one warm-up) through Engine with the
     launch counters reset first. Returns the launches by kernel."""
     import torch
 
-    from terminal_raytracer_tpu_torch.ops import geometry as geom
-    from terminal_raytracer_tpu_torch.ops import tracer as tracer_mod
     from terminal_raytracer_tpu_torch.runtime.engine import Engine
 
     eng = Engine(scene, full_color=full_color, device="cuda",
-                 deterministic=SEED, animate=animate)
+                 deterministic=SEED, animate=animate, transport=transport)
     _reset_launches()
     out = eng.render_one(eng.frame_count)  # warm-up
     torch.cuda.synchronize()
@@ -384,14 +399,13 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = _launches()
-    accel = tracer_mod.resolve_accel(scene, "auto")
-    chunked = tracer_mod.resolve_chunks(scene, accel)[0] is not None
+    tr = eng.step.tracer
+    accel, chunked = tr.accel, tr.chunk_base is not None
     n = frames + 1
-    base = tracer_mod.base_sample_count(scene.samples_per_pixel)
-    sfx = "_ext" if geom.uses_extensions(scene) else ""
+    sfx = "_xt" if tr.xt else "_ext" if tr.ext else ""
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     want["base_kernel_chunked" + sfx if chunked else "base_kernel" + sfx] = n
-    if base < scene.samples_per_pixel:
+    if tr.base_samples < tr.spp:
         want["extra_kernel" + sfx] = n
     total_rays = sum(float(r) for r in rays)
     rgb = out.rgb
@@ -401,10 +415,12 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None):
           f"{scene.samples_per_pixel} depth {scene.max_depth}, "
           f"{scene.primitive_count} primitives, accel {accel}"
           f"{', chunked' if chunked else ''}"
-          f"{', animate ' + animate if animate else ''}, {frames} frames: "
-          f"{1e3 * dt / frames:.2f} ms/frame, "
+          f"{', animate ' + animate if animate else ''}"
+          f"{', transport ' + transport if transport != 'reference' else ''}"
+          f", {frames} frames: {1e3 * dt / frames:.2f} ms/frame, "
           f"{total_rays / dt / 1e6:.1f} Mray/s, occupancy "
-          f"{float(out.occupancy):.3f}, launches {got}, finite {finite}, "
+          f"{float(out.occupancy):.3f} (1 + {tr.nee_sweeps} sweeps an "
+          f"iteration), launches {got}, finite {finite}, "
           f"rgb range [{int(rgb.min())}, {int(rgb.max())}]", flush=True)
     if got != want:
         fail(f"[{tag}] {label}: launch counts {got}, expected {want}")
@@ -847,6 +863,177 @@ def phase_ext(peak):
                       "c": (err["c"], ms, plain_ms, bound)}
 
 
+# The transport and camera extensions' configurations: the JAX package's
+# bench configurations fog, stratified and manylights_one (bench.py:93-94,
+# :117-118, :127-128), a depth-of-field Cornell at the same size, showcase
+# under MIS at its own size, and stress:1024 in fog under MIS (the chunked
+# XT kernel A): (label, scene, (width, height, spp, depth) or None for the
+# scene's own, overrides, transport).
+XT_CONFIGS = (
+    ("fog", "Cornell_Box", (400, 200, 16, 32), {"fog": 0.15}, "reference"),
+    ("stratified", "Cornell_Box", (400, 200, 16, 32),
+     {"sampler": "stratified"}, "reference"),
+    ("dof", "Cornell_Box", (400, 200, 16, 32),
+     {"aperture": 0.1, "focus_distance": 3.0}, "reference"),
+    ("manylights_one", "lights:16", None, {"light_sample": "power"},
+     "reference"),
+    ("showcase mis", "showcase", None, {}, "mis"),
+    ("stress1024 fog mis", "stress:1024", (200, 100, 8, 6), {"fog": 0.15},
+     "mis"),
+)
+
+
+def _xt_scene(name, size, over):
+    from terminal_raytracer_tpu_torch.models import load_scene
+    from terminal_raytracer_tpu_torch.models.scene import Fog
+
+    over = dict(over)
+    if "fog" in over:
+        over["fog"] = Fog(density=over["fog"])
+    if size is not None:
+        over.update(zip(("width", "height", "samples_per_pixel",
+                         "max_depth"), size))
+    return load_scene(name).with_overrides(**over)
+
+
+def phase_xt(peak):
+    """The transport and camera extensions: (a) each XT kernel against its
+    plain version at the XT_CONFIGS shapes (the chunked kernel A and its
+    chunked kernel B stream on stress:1024), timed at the fog and
+    stress:1024 shapes; (b) the XT kernels on Cornell_Box with every gate
+    off (xt tables bound to a reference tracer) against the reference
+    kernels, bit for bit; (c) Engine through every XT config and through
+    manylights (every light: the reference kernels); (d) cli.main with
+    --mis --fog. Returns (launches, per-kernel results)."""
+    import torch
+
+    from terminal_raytracer_tpu_torch import cli
+    from terminal_raytracer_tpu_torch.ops import geometry as geom
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+    from terminal_raytracer_tpu_torch.ops.vecmath import V3
+
+    pose = _pose()
+    err = {"a": 0.0, "b": 0.0, "c": 0.0}
+    timed = {}
+    # (a)
+    for label, name, size, over, transport in XT_CONFIGS:
+        tr = PathTracer(_xt_scene(name, size, over), "cuda",
+                        transport=transport)
+        if not tr.xt:
+            fail(f"[xt] {label}: the tracer takes no XT kernel")
+        shape = (f"{label} {tr.width}x{tr.height} spp {tr.spp} depth "
+                 f"{tr.max_depth}, 1 + {tr.nee_sweeps} sweeps an iteration")
+        fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
+        if tr.chunk_base:
+            k = kernels.base_kernel_chunked_xt(tr, pose, SEED, 0)
+            ms = _time_cuda(lambda: kernels.base_kernel_chunked_xt(
+                tr, pose, SEED, 0), 5)
+            plain, ops, p = _time_plain(
+                tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED,
+                                                              0))
+            err["c"] = max(err["c"], _compare_base(
+                "xt", f"{shape}, chunked XT kernel A", k, p, (), tr))
+            n_ent = tr.n_base_chunks * tr.width * tr.height
+            timed["c"] = (ms, plain, _bound(ops, fixed + 36 * n_ent, peak))
+            var = tr.variance_of(V3(*(tr.chunk_total(v) for v in k.csum)),
+                                 V3(*(tr.chunk_total(v) for v in k.csumsq)))
+            s = kernels.sorted_stream(tr, k.state[0], tr.extra_quota(var)[1])
+        else:
+            k = kernels.base_kernel_xt(tr, pose, SEED, 0)
+            if label == "fog":
+                ms_a = _time_cuda(
+                    lambda: kernels.base_kernel_xt(tr, pose, SEED, 0), 5)
+                plain_a, ops_a, p = _time_plain(
+                    tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0))
+                timed["a"] = (ms_a, plain_a, _bound(
+                    ops_a, fixed + 44 * k.var.numel(), peak))
+            else:
+                p = kernels.base_kernel_plain(tr, pose, SEED, 0)
+            err["a"] = max(err["a"], _compare_base(
+                "xt", f"{shape}, XT kernel A", k, p, ("additional", "var")))
+            s = kernels.sorted_stream(tr, k.state, k.additional)
+        args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        b = kernels.extra_kernel_xt(*args)
+        if label == "fog":
+            ms_b = _time_cuda(lambda: kernels.extra_kernel_xt(*args), 5)
+            plain_b, ops_b, pb = _time_plain(
+                tr, lambda: kernels.extra_kernel_plain(*args))
+            timed["b"] = (ms_b, plain_b, _bound(
+                ops_b, fixed + 40 * s.add.numel(), peak))
+        else:
+            pb = kernels.extra_kernel_plain(*args)
+        err["b"] = max(err["b"], _check_extra("xt", shape, s, b, pb))
+    for key, kernel, where in (("a", "base_kernel_xt", "fog"),
+                               ("b", "extra_kernel_xt", "fog"),
+                               ("c", "base_kernel_chunked_xt",
+                                "stress1024 fog mis")):
+        ms, plain, bound = timed[key]
+        print(f"[xt] {kernel} at the {where} shapes: {ms:.3f} ms (plain "
+              f"{plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]})",
+              flush=True)
+
+    # (b) The reference scene through the XT kernels, every gate off.
+    scene = _cornell(128, 16, 16, 8)
+
+    def with_xt(**kw):
+        t = PathTracer(scene, "cuda", **kw)
+        t.bind_tables(geom.scene_tables(scene, "cuda", t.accel, xt=True))
+        return t
+
+    ref, xt = PathTracer(scene, "cuda"), with_xt()
+    a_ref = kernels.base_kernel(ref, pose, SEED, 0)
+    a_xt = kernels.base_kernel_xt(xt, pose, SEED, 0)
+    _compare_base("xt", "Cornell_Box, every gate off: XT kernel A vs "
+                  "reference kernel A", a_xt, a_ref, ("additional", "var"))
+    s = kernels.sorted_stream(ref, a_ref.state, a_ref.additional)
+    b_ref = kernels.extra_kernel(ref, pose, s.xs, s.ys, s.state, s.add,
+                                 s.samp0)
+    b_xt = kernels.extra_kernel_xt(xt, pose, s.xs, s.ys, s.state, s.add,
+                                   s.samp0)
+    c_ref = kernels.base_kernel_chunked(
+        PathTracer(scene, "cuda", chunk_base=2), pose, SEED, 0)
+    c_xt = kernels.base_kernel_chunked_xt(with_xt(chunk_base=2), pose, SEED,
+                                          0)
+    torch.cuda.synchronize()
+    bits_a = all(bool(torch.equal(x, y)) for x, y in
+                 zip((*a_xt.csum, *a_xt.csumsq), (*a_ref.csum, *a_ref.csumsq)))
+    same_b = (all(bool(torch.equal(x, y)) for x, y in zip(b_xt[0], b_ref[0]))
+              and bool(torch.equal(b_xt[1], b_ref[1])))
+    same_c = (all(bool(torch.equal(getattr(c_xt, f), getattr(c_ref, f)))
+                  for f in ("rays", "state"))
+              and all(bool(torch.equal(x, y)) for x, y in
+                      zip((*c_xt.csum, *c_xt.csumsq),
+                          (*c_ref.csum, *c_ref.csumsq))))
+    print(f"[xt] Cornell_Box, every gate off: XT kernels bit-equal to the "
+          f"reference kernels: A {bits_a}, B {same_b}, chunked A {same_c}",
+          flush=True)
+    if not (bits_a and same_b and same_c):
+        fail("[xt] the XT kernels change a reference scene")
+
+    # (c) Engine, and manylights beside manylights_one.
+    launches = {}
+    manylights = ("manylights", "lights:16", None, {}, "reference")
+    for label, name, size, over, transport in (manylights,) + XT_CONFIGS:
+        _add(launches, _run_engine("xt", label, _xt_scene(name, size, over),
+                                   True, 8, transport=transport))
+
+    # (d)
+    _reset_launches()
+    rc = cli.main(["--device", "cuda", "--full-color", "--scene",
+                   "Cornell_Box", "--width", "128", "--height", "32",
+                   "--spp", "16", "--depth", "8", "--frames", "2", "--mis",
+                   "--fog", "0.15"])
+    got = _launches()
+    print(f"[xt] cli.main --mis --fog 0.15 rc {rc}, launches {got}",
+          flush=True)
+    if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
+                              base_kernel_xt=2, extra_kernel_xt=2):
+        fail("[xt] cli.main run failed")
+    _add(launches, got)
+    return launches, {k: (err[k], *timed[k]) for k in ("a", "b", "c")}
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -869,6 +1056,8 @@ def main() -> int:
     _add(launches, phase_scale())
     ext_launches, ext = phase_ext(peak)
     _add(launches, ext_launches)
+    xt_launches, xt = phase_xt(peak)
+    _add(launches, xt_launches)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
@@ -884,7 +1073,15 @@ def main() -> int:
             ("kernel_extra_ext", "extra_kernel_ext", "kernel_extra.cu",
              "1031", *ext["b"]),
             ("kernel_base_chunked_ext", "base_kernel_chunked_ext",
-             "kernel_base.cu", "807", *ext["c"]))
+             "kernel_base.cu", "807", *ext["c"]),
+            # The transport and camera gates: kernel A's body is the
+            # PathTracer built with them at :739, kernel B's at :1013.
+            ("kernel_base_xt", "base_kernel_xt", "kernel_base.cu", "739",
+             *xt["a"]),
+            ("kernel_extra_xt", "extra_kernel_xt", "kernel_extra.cu", "1013",
+             *xt["b"]),
+            ("kernel_base_chunked_xt", "base_kernel_chunked_xt",
+             "kernel_base.cu", "739", *xt["c"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": ref + line, "launches": launches[counter],

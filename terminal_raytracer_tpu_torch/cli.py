@@ -1,9 +1,12 @@
 """Command-line entry point — ``terminal_raytracer_tpu/cli.py``.
 
 Reference flags: --full-color, --verbose, --threads N, --path FILE; plus
---scene (packaged names, stress:N[:seed], icosphere:S[:seed], ...),
---accel, --animate, --filter, --frames, --width, --height, --spp, --depth
-and --device. In the interactive viewer WASD moves, arrows steer, ESC exits.
+--scene (packaged names, stress:N[:seed], icosphere:S[:seed],
+lights:L[:seed], ...), --accel, --animate, --filter, the transport and
+camera extensions --unbiased, --mis, --fog, --aperture, --focus,
+--sampler and --light-sample (with the JAX package's spellings, defaults
+and errors), --frames, --width, --height, --spp, --depth and --device. In
+the interactive viewer WASD moves, arrows steer, ESC exits.
 
 Run: python -m terminal_raytracer_tpu_torch [flags]
 """
@@ -32,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="scene JSON path (default: packaged Cornell box)")
     p.add_argument("--scene", default=None,
                    help="packaged scene name (Cornell_Box, demo, scene2, ...) "
-                        "or procedural stress:N[:seed] / icosphere:S[:seed]")
+                        "or procedural stress:N[:seed] / icosphere:S[:seed] "
+                        "/ lights:L[:seed]")
     p.add_argument("--accel", default="auto", choices=ACCELS,
                    help="traversal: baked, array (many primitives; from 512 "
                         "primitives auto also splits heavy pixels into "
@@ -48,6 +52,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "blends the 2x2 texel neighborhood at every image "
                         "texture, normal map and sky fetch (default: the "
                         "scene's texture_filter, or nearest)")
+    p.add_argument("--unbiased", action="store_true",
+                   help="physically-correct direct lighting: skip re-adding "
+                        "emission on NEE-sampled diffuse hits (the reference "
+                        "double-counts)")
+    p.add_argument("--mis", action="store_true",
+                   help="multiple importance sampling: weigh NEE and "
+                        "BSDF-hit emission by the balance heuristic (same "
+                        "mean as --unbiased, lower variance; the same paths "
+                        "and RNG chains)")
+    p.add_argument("--fog", metavar="D[:R,G,B[:G]]", default=None,
+                   help="homogeneous volumetric fog: extinction density D "
+                        "per world unit, optional scattering albedo (default "
+                        "1,1,1) and Henyey-Greenstein anisotropy G (default "
+                        "0 = isotropic); e.g. --fog 0.15, --fog "
+                        "0.2:0.8,0.85,0.9, --fog 0.2:1,1,1:0.7")
+    p.add_argument("--aperture", type=float, default=None,
+                   help="thin-lens radius for depth of field (0 = pinhole, "
+                        "the reference's camera)")
+    p.add_argument("--focus", type=float, default=None,
+                   help="focus distance along the view axis (with "
+                        "--aperture)")
+    p.add_argument("--sampler", default=None,
+                   choices=("reference", "stratified"),
+                   help="pixel-jitter sampler override: 'stratified' places "
+                        "base-phase samples on a jittered sub-pixel grid "
+                        "(same draws, remapped; adaptive extras keep "
+                        "independent jitter). Default: the scene's sampler")
+    p.add_argument("--light-sample", dest="light_sample", default=None,
+                   choices=("all", "uniform", "power"),
+                   help="NEE light sampling override: 'all' casts one shadow "
+                        "ray per light per bounce (the reference); "
+                        "'uniform'/'power' pick one light per bounce "
+                        "(uniformly, or by emitted power) and weight the "
+                        "estimate by 1/p(pick). Default: the scene's "
+                        "light_sample. Scenes with <= 1 light ignore it")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels (default); cpu runs their "
                         "plain PyTorch versions")
@@ -59,6 +98,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override samples_per_pixel")
     p.add_argument("--depth", type=int, default=None, help="override max_depth")
     return p
+
+
+def parse_fog(spec: str):
+    """--fog D[:R,G,B[:G]] -> models.scene.Fog (the JAX CLI's parsing)."""
+    from .models.scene import Fog
+
+    parts = spec.split(":")
+    density = float(parts[0])
+    albedo = (1.0, 1.0, 1.0)
+    if len(parts) > 1 and parts[1]:
+        rgb = [float(c) for c in parts[1].split(",")]
+        if len(rgb) != 3:
+            raise ValueError(f"--fog albedo needs 3 comma-separated values, "
+                             f"got {parts[1]!r}")
+        albedo = tuple(rgb)
+    g = float(parts[2]) if len(parts) > 2 else 0.0
+    return Fog(density=density, albedo=albedo, g=g)
 
 
 def main(argv=None) -> int:
@@ -83,15 +139,24 @@ def main(argv=None) -> int:
         print(f"error: --frames must be >= 1 (got {args.frames})",
               file=sys.stderr)
         return 2
+    if args.mis and args.unbiased:
+        print("error: --mis and --unbiased are mutually exclusive",
+              file=sys.stderr)
+        return 2
     try:
         scene = load_scene(args.path or args.scene).with_overrides(
             width=args.width, height=args.height,
             samples_per_pixel=args.spp, max_depth=args.depth,
-            texture_filter=args.texture_filter,
+            aperture=args.aperture, focus_distance=args.focus,
+            fog=None if args.fog is None else parse_fog(args.fog),
+            texture_filter=args.texture_filter, sampler=args.sampler,
+            light_sample=args.light_sample,
         )
     except (FileNotFoundError, ValueError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    transport = ("mis" if args.mis else
+                 "unbiased" if args.unbiased else "reference")
 
     interactive = args.frames is None
     if interactive:
@@ -103,8 +168,9 @@ def main(argv=None) -> int:
     try:
         engine = Engine(scene, full_color=args.full_color, device=args.device,
                         threads=args.threads, verbose=args.verbose,
-                        accel=args.accel, animate=args.animate)
-    except ValueError as e:  # a scene feature or traversal the port lacks
+                        accel=args.accel, animate=args.animate,
+                        transport=transport)
+    except ValueError as e:  # a traversal the port lacks
         print(f"error: {e}", file=sys.stderr)
         return 2
 

@@ -24,14 +24,19 @@
 // and end state, and no budget: the variance needs the pixel's totals,
 // which the glue adds in chunk order (ops/kernels.py).
 //
-// Both come in two instantiations of trace.cuh's device path: the
-// reference transport (trt_kernel_base, trt_kernel_base_chunked) and EXT
+// Both come in three instantiations of trace.cuh's device path: the
+// reference transport (trt_kernel_base, trt_kernel_base_chunked); EXT
 // (trt_kernel_base_ext, trt_kernel_base_chunked_ext), which replaces the
 // same Pallas kernel built with the texel-atlas operand
 // (pallas_kernel.py _tex_ops/_tex_specs/_tex_bind_front, :190-220, bound
 // at :807, :920, :949) and with the material-channel branches of its body
-// (tracer.py bounce_step :1300-1344, :1457-1559). One EXT build serves
-// every extension scene; the texture constants arrive in trt::Tex.
+// (tracer.py bounce_step :1300-1344, :1457-1559); and XT
+// (trt_kernel_base_xt, trt_kernel_base_chunked_xt), which replaces the
+// Pallas kernel whose body is the PathTracer built with a transport, fog,
+// an aperture, a stratified grid or one-light NEE (pallas_kernel.py
+// :739-742; tracer.py :907-1268, :1346-1638, :1703-1758). One EXT build
+// serves every extension scene, one XT build every gate setting: the
+// texture constants arrive in trt::Tex, the gates in trt::Xt.
 //
 // What bounds them on an H100: FP32 ALU and SFU work (the intersection
 // sweeps, sqrt, division, sin/cos) behind divergent control flow (path
@@ -62,11 +67,11 @@ struct ChunkArgs {
 
 namespace {
 
-template <bool EXT>
+template <bool EXT, bool XT>
 __global__ void __launch_bounds__(128)
     kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
                 long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
-                trt::Tex tx) {
+                trt::Tex tx, trt::Xt xt) {
   const int n = a.h_out * a.f.width;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned my_iters = 0;
@@ -78,8 +83,10 @@ __global__ void __launch_bounds__(128)
                                      a.frame);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = trt::run_samples<EXT>(a.f, sc, tx, state, 0, (float)a.base, (float)x, (float)y,
-                                     csum, &csumsq, rays);
+    my_iters = XT ? trt::run_samples_xt(a.f, sc, tx, xt, state, 0, (float)a.base, (float)x,
+                                        (float)y, csum, &csumsq, rays)
+                  : trt::run_samples<EXT>(a.f, sc, tx, state, 0, (float)a.base, (float)x,
+                                          (float)y, csum, &csumsq, rays);
     // Variance of the base samples and the adaptive budget (the
     // fold_budget epilogue: tracer.variance_of + tracer.extra_quota).
     trt::V3 mean = csum * a.inv_base;
@@ -101,11 +108,11 @@ __global__ void __launch_bounds__(128)
   trt::count_warp_iters(my_iters, iters);
 }
 
-template <bool EXT>
+template <bool EXT, bool XT>
 __global__ void __launch_bounds__(128)
     kernel_base_chunked(ChunkArgs a, const float* __restrict__ scene_buf,
                         float* __restrict__ out, long long* __restrict__ state_out,
-                        unsigned long long* __restrict__ iters, trt::Tex tx) {
+                        unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt) {
   const int n_pix = a.h_out * a.f.width;
   const int n = a.n_chunks * n_pix;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -123,8 +130,10 @@ __global__ void __launch_bounds__(128)
     const int quota = min(s0 + a.cb, a.base);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = trt::run_samples<EXT>(a.f, sc, tx, state, s0, (float)quota, (float)x, (float)y,
-                                     csum, &csumsq, rays);
+    my_iters = XT ? trt::run_samples_xt(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
+                                        (float)y, csum, &csumsq, rays)
+                  : trt::run_samples<EXT>(a.f, sc, tx, state, s0, (float)quota, (float)x,
+                                          (float)y, csum, &csumsq, rays);
     out[0 * n + i] = csum.x;
     out[1 * n + i] = csum.y;
     out[2 * n + i] = csum.z;
@@ -137,26 +146,28 @@ __global__ void __launch_bounds__(128)
   trt::count_warp_iters(my_iters, iters);
 }
 
-template <bool EXT>
-int launch_base(const BaseArgs* a, const trt::Tex& tx, const float* scene_buf, float* out,
-                long long* state_out, unsigned long long* iters, void* stream) {
+template <bool EXT, bool XT>
+int launch_base(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
+                float* out, long long* state_out, unsigned long long* iters, void* stream) {
   const int n = a->h_out * a->f.width;
   if (n > 0) {
     const int threads = 128;
-    kernel_base<EXT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters, tx);
+    kernel_base<EXT, XT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters, tx, xt);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool EXT>
-int launch_chunked(const ChunkArgs* a, const trt::Tex& tx, const float* scene_buf, float* out,
-                   long long* state_out, unsigned long long* iters, void* stream) {
+template <bool EXT, bool XT>
+int launch_chunked(const ChunkArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                   const float* scene_buf, float* out, long long* state_out,
+                   unsigned long long* iters, void* stream) {
   const int n = a->n_chunks * a->h_out * a->f.width;
   if (n > 0) {
     const int threads = 128;
-    kernel_base_chunked<EXT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters, tx);
+    kernel_base_chunked<EXT, XT>
+        <<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+            *a, scene_buf, out, state_out, iters, tx, xt);
   }
   return (int)cudaGetLastError();
 }
@@ -167,7 +178,8 @@ int launch_chunked(const ChunkArgs* a, const trt::Tex& tx, const float* scene_bu
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
 extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float* out,
                                long long* state_out, unsigned long long* iters, void* stream) {
-  return launch_base<false>(a, trt::Tex{}, scene_buf, out, state_out, iters, stream);
+  return launch_base<false, false>(a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters,
+                                   stream);
 }
 
 // out: f32 [7, n_chunks*h_out*w] (csum rgb, csumsq rgb, rays), chunk-major;
@@ -176,7 +188,8 @@ extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float*
 extern "C" int trt_kernel_base_chunked(const ChunkArgs* a, const float* scene_buf, float* out,
                                        long long* state_out, unsigned long long* iters,
                                        void* stream) {
-  return launch_chunked<false>(a, trt::Tex{}, scene_buf, out, state_out, iters, stream);
+  return launch_chunked<false, false>(a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters,
+                                      stream);
 }
 
 // The EXT instantiations (trace.cuh): the same outputs, for a scene buffer
@@ -184,12 +197,28 @@ extern "C" int trt_kernel_base_chunked(const ChunkArgs* a, const float* scene_bu
 extern "C" int trt_kernel_base_ext(const BaseArgs* a, const trt::Tex* tx, const float* scene_buf,
                                    float* out, long long* state_out, unsigned long long* iters,
                                    void* stream) {
-  return launch_base<true>(a, *tx, scene_buf, out, state_out, iters, stream);
+  return launch_base<true, false>(a, *tx, trt::Xt{}, scene_buf, out, state_out, iters, stream);
 }
 
 extern "C" int trt_kernel_base_chunked_ext(const ChunkArgs* a, const trt::Tex* tx,
                                            const float* scene_buf, float* out,
                                            long long* state_out, unsigned long long* iters,
                                            void* stream) {
-  return launch_chunked<true>(a, *tx, scene_buf, out, state_out, iters, stream);
+  return launch_chunked<true, false>(a, *tx, trt::Xt{}, scene_buf, out, state_out, iters,
+                                     stream);
+}
+
+// The XT instantiations (trace.cuh): the same outputs, for a scene buffer
+// with xt tables; tx holds the atlas and texture constants, xt the gates.
+extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                  const float* scene_buf, float* out, long long* state_out,
+                                  unsigned long long* iters, void* stream) {
+  return launch_base<true, true>(a, *tx, *xt, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_xt(const ChunkArgs* a, const trt::Tex* tx,
+                                          const trt::Xt* xt, const float* scene_buf, float* out,
+                                          long long* state_out, unsigned long long* iters,
+                                          void* stream) {
+  return launch_chunked<true, true>(a, *tx, *xt, scene_buf, out, state_out, iters, stream);
 }

@@ -14,7 +14,10 @@
 // trt_kernel_extra_ext is the EXT instantiation (trace.cuh): the same
 // kernel for extension scenes, replacing the Pallas kernel built with the
 // texel-atlas operand (pallas_kernel.py _tex_ops/_tex_bind_front, bound at
-// :1031, :1078, :1093).
+// :1031, :1078, :1093). trt_kernel_extra_xt is the XT instantiation, for
+// the transport and camera extensions: it replaces the Pallas kernel whose
+// body is the PathTracer built with their gates (pallas_kernel.py
+// :1013-1015).
 //
 // What bounds it on an H100: divergent control flow (per-entry budgets and
 // path lengths differ; a warp runs until its longest entry ends),
@@ -33,12 +36,13 @@ struct ExtraArgs {
 
 namespace {
 
-template <bool EXT>
+template <bool EXT, bool XT>
 __global__ void __launch_bounds__(128)
     kernel_extra(ExtraArgs a, const float* __restrict__ scene_buf, const int* __restrict__ xs,
                  const int* __restrict__ ys, const long long* __restrict__ state_in,
                  const float* __restrict__ add, const int* __restrict__ samp0,
-                 float* __restrict__ out, unsigned long long* __restrict__ iters, trt::Tex tx) {
+                 float* __restrict__ out, unsigned long long* __restrict__ iters, trt::Tex tx,
+                 trt::Xt xt) {
   const int n = a.n_entries;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned my_iters = 0;
@@ -50,8 +54,10 @@ __global__ void __launch_bounds__(128)
       const trt::Scene sc = trt::make_scene(scene_buf, a.f);
       uint32_t state = (uint32_t)state_in[i];
       const int s0 = samp0[i];
-      my_iters = trt::run_samples<EXT>(a.f, sc, tx, state, s0, budget + (float)s0, (float)xs[i],
-                                       (float)ys[i], esum, nullptr, rays);
+      my_iters = XT ? trt::run_samples_xt(a.f, sc, tx, xt, state, s0, budget + (float)s0,
+                                          (float)xs[i], (float)ys[i], esum, nullptr, rays)
+                    : trt::run_samples<EXT>(a.f, sc, tx, state, s0, budget + (float)s0,
+                                            (float)xs[i], (float)ys[i], esum, nullptr, rays);
     }
     out[0 * n + i] = esum.x;
     out[1 * n + i] = esum.y;
@@ -61,15 +67,15 @@ __global__ void __launch_bounds__(128)
   trt::count_warp_iters(my_iters, iters);
 }
 
-template <bool EXT>
-int launch_extra(const ExtraArgs* a, const trt::Tex& tx, const float* scene_buf, const int* xs,
-                 const int* ys, const long long* state_in, const float* add, const int* samp0,
-                 float* out, unsigned long long* iters, void* stream) {
+template <bool EXT, bool XT>
+int launch_extra(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
+                 const int* xs, const int* ys, const long long* state_in, const float* add,
+                 const int* samp0, float* out, unsigned long long* iters, void* stream) {
   const int n = a->n_entries;
   if (n > 0) {
     const int threads = 128;
-    kernel_extra<EXT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx);
+    kernel_extra<EXT, XT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx, xt);
   }
   return (int)cudaGetLastError();
 }
@@ -83,8 +89,8 @@ extern "C" int trt_kernel_extra(const ExtraArgs* a, const float* scene_buf, cons
                                 const int* ys, const long long* state_in, const float* add,
                                 const int* samp0, float* out, unsigned long long* iters,
                                 void* stream) {
-  return launch_extra<false>(a, trt::Tex{}, scene_buf, xs, ys, state_in, add, samp0, out, iters,
-                             stream);
+  return launch_extra<false, false>(a, trt::Tex{}, trt::Xt{}, scene_buf, xs, ys, state_in, add,
+                                    samp0, out, iters, stream);
 }
 
 // The EXT instantiation (trace.cuh): the same outputs, for a scene buffer
@@ -93,5 +99,16 @@ extern "C" int trt_kernel_extra_ext(const ExtraArgs* a, const trt::Tex* tx, cons
                                     const int* xs, const int* ys, const long long* state_in,
                                     const float* add, const int* samp0, float* out,
                                     unsigned long long* iters, void* stream) {
-  return launch_extra<true>(a, *tx, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
+  return launch_extra<true, false>(a, *tx, trt::Xt{}, scene_buf, xs, ys, state_in, add, samp0,
+                                   out, iters, stream);
+}
+
+// The XT instantiation (trace.cuh): the same outputs, for a scene buffer
+// with xt tables; tx holds the atlas and texture constants, xt the gates.
+extern "C" int trt_kernel_extra_xt(const ExtraArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                   const float* scene_buf, const int* xs, const int* ys,
+                                   const long long* state_in, const float* add, const int* samp0,
+                                   float* out, unsigned long long* iters, void* stream) {
+  return launch_extra<true, true>(a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0, out,
+                                  iters, stream);
 }

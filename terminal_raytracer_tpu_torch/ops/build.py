@@ -30,8 +30,11 @@ HEADERS = ("trace.cuh",)
 ENTRY_POINTS = {
     "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
                        ("trt_kernel_base_ext", 7),
-                       ("trt_kernel_base_chunked_ext", 7)),
-    "kernel_extra.cu": (("trt_kernel_extra", 10), ("trt_kernel_extra_ext", 11)),
+                       ("trt_kernel_base_chunked_ext", 7),
+                       ("trt_kernel_base_xt", 8),
+                       ("trt_kernel_base_chunked_xt", 8)),
+    "kernel_extra.cu": (("trt_kernel_extra", 10), ("trt_kernel_extra_ext", 11),
+                        ("trt_kernel_extra_xt", 12)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -24,6 +24,16 @@ The extension table (material channels, ops/geometry.py EXT_KEYS) is
 taken from the frame's packed channels as they are. At t = 0 the buffer
 equals ``scene_tables(scene, accel='array', ext=...)`` bit for bit
 (tests/test_torch_dynamic.py, tests/test_torch_materials.py).
+
+xt tables (the transport and camera extensions) rebuild two more things
+per frame, each as ``DynPrims`` derives it from runtime values: the
+light-inverse-area channel (1 / (4 pi r^2) in f64 from the f32 radius of
+a sphere light, the f32 reciprocal of a triangle light's f32 area), and
+with one-light NEE the pick table, in the f32 steps of
+``PathTracer._light_pick`` over traced scalars (on the host, from the
+frame's values, in the same copy). A baked scene folds the pick in f64
+instead (ops/geometry.py scene_tables), so an animated one-light scene at
+t = 0 may differ from the static one by an ulp of a pick probability.
 """
 
 from __future__ import annotations
@@ -48,8 +58,6 @@ ROUGH_KEYS = ("rough",)
 CHECKER_KEYS = ("ckr", "ckg", "ckb", "cks")
 TEXTURE_KEYS = ("txi", "txs")
 NORMALMAP_KEYS = ("nmi", "nmx", "nms")
-
-FOUR_PI = 4.0 * 3.14159265359
 
 
 def ext_mat_keys(scene) -> tuple:
@@ -104,15 +112,20 @@ class Topology(NamedTuple):
     the spheres and the triangles; sphere lights come first, each kind in
     primitive order, as in ``Scene.lights``. `ext_keys` are the extension
     channels of the layout, or None when the buffer has no extension
+    table. `xt` widens the extension table by the light-inverse-area
+    channel; `pick` ('uniform' or 'power') adds one-light NEE's pick
     table."""
 
     keys: Tuple[Tuple[str, int], ...]
     sphere_lights: np.ndarray
     tri_lights: np.ndarray
     ext_keys: Optional[Tuple[str, ...]] = None
+    xt: bool = False
+    pick: Optional[str] = None
 
 
-def topology(scene: scene_mod.Scene, ext: bool = False) -> Topology:
+def topology(scene: scene_mod.Scene, ext: bool = False, xt: bool = False,
+             pick: Optional[str] = None) -> Topology:
     core = (SPHERE_KEYS + PLANE_KEYS + TRI_KEYS
             + tuple(f"{p}_{m}" for p in "spt" for m in MAT_KEYS))
     keys = tuple((k, n) for k, n in scene_keys(scene) if k in core)
@@ -122,7 +135,7 @@ def topology(scene: scene_mod.Scene, ext: bool = False) -> Topology:
                   if s.material.is_light], np.int64),
         np.array([i for i, t in enumerate(scene.triangles)
                   if t.material.is_light], np.int64),
-        ext_mat_keys(scene) if ext else None)
+        ext_mat_keys(scene) if ext or xt else None, xt, pick)
 
 
 # Per-light values the host gathers for the light rows (topology order).
@@ -159,7 +172,7 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
     ns, np_, nt = (len(a) for a in (arrays["s_r"], arrays["p_px"],
                                     arrays["t_ax"]))
     # The extension table is no derived value: it is built on the host and
-    # rides in the same copy.
+    # rides in the same copy, and so does the pick table.
     ext = []
     if topo.ext_keys is not None:
         zeros = np.zeros(ns + np_ + nt, np.float32)
@@ -167,11 +180,12 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
             [np.asarray(arrays[f"{p}_{k}"], np.float32) for p in "spt"])
             if k in topo.ext_keys else zeros
             for k in geom.EXT_KEYS}).reshape(-1)]
+    pick = [] if topo.pick is None else [pick_table(arrays, topo)]
     host = torch.from_numpy(np.concatenate(
         [np.asarray(arrays[k], np.float32) for k, _ in topo.keys]
         + [np.asarray(arrays[k], np.float32)[sl] for k in _SPHERE_LIGHT_KEYS]
         + [np.asarray(arrays[k], np.float32)[tl] for k in _TRI_LIGHT_KEYS]
-        + ext))
+        + ext + pick))
     device = torch.device(device)
     if device.type == "cuda":
         # From pinned memory the copy is queued behind the previous frame's
@@ -185,21 +199,36 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
         off += rows * n
     sph, sph_mat, pln, pln_mat, tri, tri_mat, ls, lt = blocks
     if ext:
-        ext = [flat[off:].view(ns + np_ + nt, geom.EXT_W)]
+        n = (ns + np_ + nt) * geom.EXT_W
+        ext = [flat[off:off + n].view(ns + np_ + nt, geom.EXT_W)]
+        off += n
+    if pick:
+        pick = [flat[off:]]
 
     r = sph[3]
     sph = torch.cat([sph[0:3], (r * r)[None], (1.0 / r)[None]])
     n_raw = pln[3:6]
     pln = torch.cat([pln, n_raw / _length(n_raw)])
-    e1, e2, unit, _ = _tri_frame(tri[0:3], tri[3:6], tri[6:9])
+    e1, e2, unit, area = _tri_frame(tri[0:3], tri[3:6], tri[6:9])
     tri = torch.cat([tri[0:3], e1, e2, unit])
     mat = torch.cat([sph_mat, pln_mat, tri_mat], 1)
+    if topo.xt:
+        # The light-inverse-area channel: 1 / (4 pi r^2) in f64 from the
+        # f32 radius, 1 / area of the f32 area, 0 off the NEE lights.
+        r64 = r.double()
+        s_idx, t_idx = (torch.from_numpy(i).to(device) for i in (sl, tl))
+        s_lia = torch.zeros_like(r)
+        s_lia[s_idx] = (1.0 / ((geom.FOUR_PI * r64) * r64)).float()[s_idx]
+        t_lia = torch.zeros_like(area)
+        t_lia[t_idx] = (1.0 / area)[t_idx]
+        lia = torch.cat([s_lia, torch.zeros_like(pln[0]), t_lia])
+        ext = [torch.cat([ext[0], lia[:, None]], 1)]
 
     # Light rows (geometry.LIGHT_W): a sphere light's area 4 pi r^2 in f64.
     r64 = ls[3].double()
     s_rows = torch.cat([
         torch.full_like(ls[0:1], float(scene_mod.SPHERE)), ls[4:7],
-        ((FOUR_PI * r64) * r64).float()[None], ls[0:4],
+        ((geom.FOUR_PI * r64) * r64).float()[None], ls[0:4],
         torch.zeros_like(ls[0:1]).expand(8, -1)])
     _, _, t_unit, t_area = _tri_frame(lt[0:3], lt[3:6], lt[6:9])
     t_rows = torch.cat([
@@ -207,4 +236,26 @@ def tables_from_packed(arrays, topo: Topology, device) -> geom.SceneTables:
         t_area[None], lt[0:9], t_unit])
     lights = torch.cat([s_rows, t_rows], 1)
     return geom.tables_from_parts([sph.T, pln.T, tri.T, mat.T, lights.T]
-                                  + ext, device)
+                                  + ext + pick, device)
+
+
+def pick_table(arrays, topo: Topology) -> np.ndarray:
+    """One-light NEE's pick table of the frame's values, in the f32 steps
+    of the JAX package's _light_pick over traced scalars: a sphere light's
+    area (f32(4 pi) r) r, a triangle light's half cross-product length
+    (stepwise f32, as _tri_frame computes it on the device)."""
+    a = {k: np.asarray(v, np.float32) for k, v in arrays.items()}
+    lights = [(scene_mod.SPHERE,
+               tuple(a[f"s_emi{c}"][i] for c in "rgb"), a["s_r"][i])
+              for i in topo.sphere_lights]
+    for i in topo.tri_lights:
+        v0, v1, v2 = (np.array([a[f"t_{v}{c}"][i] for c in "xyz"], np.float32)
+                      for v in "abc")
+        e1, e2 = v1 - v0, v2 - v0
+        cr = np.array([e1[1] * e2[2] - e1[2] * e2[1],
+                       e1[2] * e2[0] - e1[0] * e2[2],
+                       e1[0] * e2[1] - e1[1] * e2[0]], np.float32)
+        area = np.float32(0.5) * np.sqrt(geom.sq_len_f32(cr))
+        lights.append((scene_mod.TRIANGLE,
+                       tuple(a[f"t_emi{c}"][i] for c in "rgb"), area))
+    return geom.pick_table(lights, topo.pick, runtime=True)

@@ -68,12 +68,26 @@ EXT_W = 12
 # ...the same channels as suffixes of the packed layout (ops/dynamic.py).
 EXT_KEYS = ("transp", "ior", "rough", "ckr", "ckg", "ckb", "cks", "txi",
             "txs", "nmi", "nmx", "nms")
+# The transport and camera extensions (the unbiased and MIS transports,
+# fog, depth of field, the stratified sampler, one-light NEE: `xt` tables)
+# widen each extension row by the light-inverse-area channel: 1 / area of
+# an NEE light (an emissive sphere or triangle), else 0 — the JAX
+# package's Hit.light_inv_area, the NEE pdf that the MIS weights compete
+# against. With one-light NEE a pick table follows the extension table:
+# each light's pick probability, their running sums (the selection
+# thresholds) and the reciprocal of the total power (0 for 'uniform').
+XT_W = EXT_W + 1
+X_LIA = EXT_W
+LUM = (0.2126, 0.7152, 0.0722)  # Rec.709 luma, the 'power' pick's weights
+FOUR_PI = 4.0 * 3.14159265359
 
 
 class SceneTables(NamedTuple):
     """One scene as f32 tensors on a device. `buf` is the packed buffer the
     kernels read; the named tables are views into it. `ext` is [0, 0] when
-    the buffer carries no extension table (`has_ext`)."""
+    the buffer carries no extension table (`has_ext`), [n_prims, XT_W]
+    for xt tables (`has_xt`); `pick` is [0] without a pick table, else
+    [2 * n_lights + 1]."""
 
     buf: torch.Tensor
     sph: torch.Tensor  # [n_sph, SPH_W]
@@ -81,7 +95,8 @@ class SceneTables(NamedTuple):
     tri: torch.Tensor  # [n_tri, TRI_W]
     mat: torch.Tensor  # [n_prims, MAT_W]
     lights: torch.Tensor  # [n_lights, LIGHT_W]
-    ext: torch.Tensor  # [n_prims, EXT_W]
+    ext: torch.Tensor  # [n_prims, EXT_W or XT_W]
+    pick: torch.Tensor  # probs [n_lights], cums [n_lights], inv_total
 
     @property
     def counts(self):
@@ -90,7 +105,11 @@ class SceneTables(NamedTuple):
 
     @property
     def has_ext(self) -> bool:
-        return self.ext.shape[1] == EXT_W
+        return self.ext.shape[1] in (EXT_W, XT_W)
+
+    @property
+    def has_xt(self) -> bool:
+        return self.ext.shape[1] == XT_W
 
 
 def uses_extensions(scene: scene_mod.Scene) -> bool:
@@ -153,7 +172,8 @@ def _tri_edges_f32(tri):
 
 def tables_from_parts(parts, device) -> SceneTables:
     """One packed buffer on `device` from the (sph, pln, tri, mat, lights[,
-    ext]) f32 arrays or tensors, with the named tables as views into it."""
+    ext[, pick]]) f32 arrays or tensors, with the named tables as views
+    into it."""
     flat = [torch.as_tensor(a).reshape(-1) for a in parts]
     # One trailing pad element keeps the buffer non-empty for an empty scene.
     pad = torch.zeros(1, dtype=torch.float32, device=flat[0].device)
@@ -165,15 +185,53 @@ def tables_from_parts(parts, device) -> SceneTables:
         off += n
     if len(views) == 5:  # no extension table
         views.append(buf[off:off].view(0, 0))
+    if len(views) == 6:  # no pick table
+        views.append(buf[off:off])
     return SceneTables(buf, *views)
 
 
+def pick_table(lights, mode: str, runtime: bool = False) -> np.ndarray:
+    """One-light NEE's packed f32 pick table [probs, cums, inv_total] over
+    `lights`, a list of (kind, (er, eg, eb), sphere radius or triangle
+    area), as the JAX package's PathTracer._light_pick computes it,
+    expression for expression: 'uniform' picks 1/L each (inv_total 0);
+    'power' picks by Rec.709 luminance x area. A baked scene's values
+    (Python floats) fold in f64 as the JAX package folds them, rounded to
+    f32 where they are stored; `runtime` values (np.float32, an animated
+    scene's) take the f32 steps of its traced scalars."""
+    n = len(lights)
+    if mode == "uniform":
+        probs, inv_total = [1.0 / n] * n, 0.0
+    else:
+        lw = [np.float32(c) for c in LUM] if runtime else LUM
+        four_pi = np.float32(FOUR_PI) if runtime else FOUR_PI
+        powers = []
+        for kind, (ex, ey, ez), size in lights:
+            lum = lw[0] * ex + lw[1] * ey + lw[2] * ez
+            area = four_pi * size * size if kind == scene_mod.SPHERE else size
+            powers.append(lum * area)
+        total = powers[0]
+        for pw in powers[1:]:
+            total = total + pw
+        total = (max(total, 1e-20) if isinstance(total, float)
+                 else np.maximum(total, np.float32(1e-20)))
+        inv_total = 1.0 / total
+        probs = [pw * inv_total for pw in powers]
+    cums, acc = [], 0.0
+    for pr in probs:
+        acc = acc + pr
+        cums.append(acc)
+    return np.array([*probs, *cums, inv_total], np.float32)
+
+
 def scene_tables(scene: scene_mod.Scene, device, accel: str = "baked",
-                 ext: bool = False) -> SceneTables:
+                 ext: bool = False, xt: bool = False,
+                 pick: str = None) -> SceneTables:
     """Pack `scene` into f32 tables on `device` (see the module docstring).
     accel='array' squares the f32 radius in f32, as the JAX package's array
     sweep does; 'baked' squares the f64 radius. `ext` packs the extension
-    table."""
+    table; `xt` widens it by the light-inverse-area channel; `pick`
+    ('uniform' or 'power') adds the pick table of one-light NEE."""
     sph = np.zeros((len(scene.spheres), SPH_W), np.float32)
     for i, s in enumerate(scene.spheres):
         r = float(s.radius)
@@ -203,13 +261,36 @@ def scene_tables(scene: scene_mod.Scene, device, accel: str = "baked",
             _, _, n, area = _tri_edges_f32(p)
             lights[i] = (tag, *e, area, *p.v0, *p.v1, *p.v2, *n)
     parts = [sph, pln, tri, mat, lights]
-    if ext:
+    if ext or xt:
         a = scene.to_arrays()
         chans = [ext_channels(a, kind)
                  for kind in ("sphere", "plane", "triangle")]
         parts.append(ext_table({k: np.concatenate([c[k] for c in chans])
                                 for k in EXT_KEYS}))
+    if xt:
+        parts[-1] = np.concatenate([parts[-1], light_inv_area(scene)[:, None]],
+                                   1)
+    if pick is not None:
+        parts.append(pick_table(
+            [(tag, p.material.emission,
+              float(p.radius if tag == scene_mod.SPHERE
+                    else _tri_edges_f32(p)[3])) for tag, p in scene.lights],
+            pick))
     return tables_from_parts([torch.from_numpy(a) for a in parts], device)
+
+
+def light_inv_area(scene: scene_mod.Scene) -> np.ndarray:
+    """The light-inverse-area channel in primitive order, as the JAX
+    package's baked and array sweeps fold it: 1 / (4 pi r^2) in f64 for a
+    sphere light, 1 / area (the f32 area) for a triangle light, 0 for
+    every other primitive; rounded to f32 once."""
+    lia = np.zeros(scene.primitive_count, np.float32)
+    for i, (tag, p) in enumerate(scene.primitives):
+        if p.material.is_light and tag == scene_mod.SPHERE:
+            lia[i] = 1.0 / (FOUR_PI * float(p.radius) ** 2)
+        elif p.material.is_light and tag == scene_mod.TRIANGLE:
+            lia[i] = 1.0 / _tri_edges_f32(p)[3]
+    return lia
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +374,9 @@ def blocked_triangle(o: V3, d: V3, v0: V3, edge1: V3, edge2: V3, t_min,
 class Hit(NamedTuple):
     """Per-lane closest-hit record. `normal` is already flipped to face the
     incoming ray; `front` says whether it had to be (False = flipped). The
-    extension channels (EXT_KEYS) are None unless the tables carry them."""
+    extension channels (EXT_KEYS) are None unless the tables carry them,
+    and `lia` (the light-inverse-area channel, 0 on a back face: NEE never
+    reaches one) unless they are xt tables."""
 
     found: torch.Tensor
     t: torch.Tensor
@@ -313,6 +396,7 @@ class Hit(NamedTuple):
     nm_index: torch.Tensor = None
     nm_scale: torch.Tensor = None
     nm_strength: torch.Tensor = None
+    lia: torch.Tensor = None
 
 
 def _row3(t, col):
@@ -361,7 +445,7 @@ class ScenePrims:
         mat[:self.n_prims] = tables.mat
         self._ext = None
         if tables.has_ext:
-            self._ext = torch.zeros((self.n_prims + 1, EXT_W),
+            self._ext = torch.zeros((self.n_prims + 1, tables.ext.shape[1]),
                                     dtype=torch.float32, device=dev)
             self._ext[:self.n_prims] = tables.ext
         self._const_n, self._center, self._inv_r = const_n, center, inv_r
@@ -428,11 +512,14 @@ class ScenePrims:
         if self._ext is None:
             return hit
         e = self._ext[idx]
-        return hit._replace(
+        hit = hit._replace(
             transparency=e[..., 0], ior=e[..., 1], roughness=e[..., 2],
             checker_color=_row3(e, 3), checker_scale=e[..., 6],
             tex_index=e[..., 7], tex_scale=e[..., 8], nm_index=e[..., 9],
             nm_scale=e[..., 10], nm_strength=e[..., 11])
+        if e.shape[-1] == XT_W:
+            hit = hit._replace(lia=torch.where(front, e[..., X_LIA], 0.0))
+        return hit
 
     def occluded(self, o: V3, d: V3, t_min, t_max, gate=None) -> torch.Tensor:
         """Any-hit visibility test for shadow rays (`t_max` per lane)."""

@@ -27,8 +27,12 @@ A tracer with the material and texture extensions (``tracer.ext``) takes
 the kernels' EXT instantiations (csrc/trace.cuh), which read the
 extension table in the scene buffer and the tracer's texel atlas: each
 wrapper passes such a tracer on to its ``*_ext`` twin, which launches the
-EXT entry point and counts its own launches. The plain versions are the
-same for both (ops/tracer.py renders either).
+EXT entry point and counts its own launches. A tracer with the transport
+and camera extensions (``tracer.xt``, xt tables) goes on to the ``*_xt``
+twin instead: the XT instantiations, which imply EXT and take the gates
+and their f32 constants as one launch argument (trt::Xt, :func:`xt_args`).
+The plain versions are the same for all three (ops/tracer.py renders
+each).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import sampling
 from . import tracer as tracer_mod
 from .build import load_kernels
 from .vecmath import V3
@@ -83,6 +88,53 @@ class _Tex(ctypes.Structure):
                 ("tex_lo", ctypes.c_int), ("tex_hi", ctypes.c_int),
                 ("nm_lo", ctypes.c_int), ("nm_hi", ctypes.c_int),
                 ("sky_lo", ctypes.c_int), ("sky_intensity", ctypes.c_float)]
+
+
+class _Xt(ctypes.Structure):
+    """trt::Xt: the transport and camera gates and their f32 constants."""
+
+    _fields_ = [("transport", ctypes.c_int), ("fog", ctypes.c_int),
+                ("hg", ctypes.c_int), ("dof", ctypes.c_int),
+                ("light_mode", ctypes.c_int),
+                ("strat_g", ctypes.c_int), ("strat_shift", ctypes.c_int),
+                ("base", ctypes.c_int), ("emit_fresh", ctypes.c_float),
+                ("neg_sigma", ctypes.c_float),
+                ("neg_inv_sigma", ctypes.c_float),
+                ("albedo", ctypes.c_float * 3),
+                ("iso_phase", ctypes.c_float * 3),
+                ("hg_1mg2", ctypes.c_float), ("hg_1pg2", ctypes.c_float),
+                ("hg_1mg", ctypes.c_float), ("hg_2g", ctypes.c_float),
+                ("aperture", ctypes.c_float), ("focus", ctypes.c_float),
+                ("inv_n_lights", ctypes.c_float)]
+
+
+def xt_args(tracer) -> _Xt:
+    """The tracer's gates and the f32 roundings of the Python-float
+    constants the plain version folds (ops/tracer.py _init_gates,
+    ops/sampling.py henyey_greenstein_dir / hg_phase)."""
+
+    def f(v):
+        return float(np.float32(v))
+
+    x = _Xt(transport=tracer_mod.TRANSPORTS.index(tracer.transport),
+            light_mode=("all", "uniform", "power").index(tracer.light_mode),
+            strat_g=tracer.strat_g,
+            strat_shift=tracer.strat_g.bit_length() - 1,
+            base=tracer.base_samples, emit_fresh=tracer._emit_fresh,
+            dof=int(tracer.aperture > 0.0), aperture=f(tracer.aperture),
+            focus=f(tracer.focus_distance),
+            inv_n_lights=f(1.0 / max(tracer.n_lights, 1)))
+    if tracer.has_fog:
+        g = tracer.fog_g
+        x.fog, x.hg = 1, int(g != 0.0)
+        x.neg_sigma, x.neg_inv_sigma = (f(tracer._neg_sigma),
+                                        f(tracer._neg_inv_sigma))
+        x.albedo = (ctypes.c_float * 3)(*map(f, tracer.fog_albedo))
+        x.iso_phase = (ctypes.c_float * 3)(*(
+            f(c * (1.0 / (4.0 * sampling.PI))) for c in tracer.fog_albedo))
+        x.hg_1mg2, x.hg_1pg2 = f(1.0 - g * g), f(1.0 + g * g)
+        x.hg_1mg, x.hg_2g = f(1.0 - g), f(2.0 * g)
+    return x
 
 
 class BaseOut(NamedTuple):
@@ -153,8 +205,27 @@ def _on_cuda(device: torch.device, name: str) -> bool:
 
 
 def _require_ext(tracer, name: str) -> None:
-    if not tracer.ext:
-        raise ValueError(f"{name}: the tracer has no extension table")
+    if not tracer.ext or tracer.xt:
+        raise ValueError(f"{name}: the tracer has no extension table, or has "
+                         "xt tables")
+
+
+def _require_xt(tracer, name: str) -> None:
+    if not tracer.xt:
+        raise ValueError(f"{name}: the tracer has no xt tables")
+
+
+def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
+    """Call the C entry point `entry` (+ '_ext' or '_xt' by `kind`) with its
+    launch arguments and raise on a launch error."""
+    name = entry if kind == "ref" else f"{entry}_{kind}"
+    extra = ()
+    if kind != "ref":
+        extra = (ctypes.byref(_tex(tracer)),)
+    if kind == "xt":
+        extra += (ctypes.byref(xt_args(tracer)),)
+    _check(getattr(lib, name)(ctypes.byref(args), *extra, *ptrs),
+           name.replace("trt_", ""))
 
 
 def base_kernel_plain(tracer, pose, seed: int, frame_number: int, y0: int = 0,
@@ -181,7 +252,7 @@ def _no_chunks(tracer, name: str) -> None:
 
 
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
-                 ext: bool) -> BaseOut:
+                 kind: str) -> BaseOut:
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
     w, base, spp = tracer.width, tracer.base_samples, tracer.spp
@@ -195,13 +266,7 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
                      float(max(spp - base, 0)))
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
             iters.data_ptr(), _stream(device))
-    lib = load_kernels()
-    if ext:
-        err = lib.trt_kernel_base_ext(ctypes.byref(args),
-                                      ctypes.byref(_tex(tracer)), *ptrs)
-    else:
-        err = lib.trt_kernel_base(ctypes.byref(args), *ptrs)
-    _check(err, "kernel_base_ext" if ext else "kernel_base")
+    _launch(load_kernels(), "trt_kernel_base", args, tracer, kind, ptrs)
     p = out.view(9, h_out, w)
     return BaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
                    state.view(h_out, w), p[6], p[7], p[8],
@@ -212,13 +277,16 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
                 h_out: int = None) -> BaseOut:
     """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
     device of `tracer`'s scene tables (base_kernel_ext for a tracer with
-    the extensions)."""
+    the material and texture extensions, base_kernel_xt for one with xt
+    tables)."""
     _no_chunks(tracer, "base_kernel")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    if tracer.xt:
+        return base_kernel_xt(tracer, pose, seed, frame_number, y0, h_out)
     if tracer.ext:
         return base_kernel_ext(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, False)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "ref")
     base_kernel.launches += 1
     return out
 
@@ -231,13 +299,27 @@ def base_kernel_ext(tracer, pose, seed: int, frame_number: int, y0: int = 0,
     _no_chunks(tracer, "base_kernel_ext")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_ext"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, True)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "ext")
     base_kernel_ext.launches += 1
+    return out
+
+
+def base_kernel_xt(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                   h_out: int = None) -> BaseOut:
+    """Kernel A's XT instantiation: base_kernel for a tracer with xt
+    tables (the transport and camera extensions, and EXT's)."""
+    _require_xt(tracer, "base_kernel_xt")
+    _no_chunks(tracer, "base_kernel_xt")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_xt"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "xt")
+    base_kernel_xt.launches += 1
     return out
 
 
 base_kernel.launches = 0
 base_kernel_ext.launches = 0
+base_kernel_xt.launches = 0
 
 
 def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
@@ -254,7 +336,7 @@ def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
 
 
 def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
-                    ext: bool) -> ChunkedBaseOut:
+                    kind: str) -> ChunkedBaseOut:
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
     n_chunks, w = tracer.n_base_chunks, tracer.width
@@ -267,13 +349,8 @@ def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                       seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF)
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
             iters.data_ptr(), _stream(device))
-    lib = load_kernels()
-    if ext:
-        err = lib.trt_kernel_base_chunked_ext(
-            ctypes.byref(args), ctypes.byref(_tex(tracer)), *ptrs)
-    else:
-        err = lib.trt_kernel_base_chunked(ctypes.byref(args), *ptrs)
-    _check(err, "kernel_base_chunked_ext" if ext else "kernel_base_chunked")
+    _launch(load_kernels(), "trt_kernel_base_chunked", args, tracer, kind,
+            ptrs)
     p = out.view(7, n_chunks, h_out, w)
     return ChunkedBaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
                           state.view(n_chunks, h_out, w), p[6],
@@ -286,15 +363,18 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     (c, y, x) renders samples [c * cb, min((c + 1) * cb, base)) of pixel
     (x, y) on the sub-chain seed + c * CHUNK_GOLDEN (an unchunked tracer
     has one chunk of `base` samples). No budget epilogue: the variance
-    needs the per-pixel totals. base_kernel_chunked_ext for a tracer with
-    the extensions."""
+    needs the per-pixel totals. base_kernel_chunked_ext / _xt for a tracer
+    with the extensions."""
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if tracer.xt:
+        return base_kernel_chunked_xt(tracer, pose, seed, frame_number, y0,
+                                      h_out)
     if tracer.ext:
         return base_kernel_chunked_ext(tracer, pose, seed, frame_number, y0,
                                        h_out)
-    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, False)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "ref")
     base_kernel_chunked.launches += 1
     return out
 
@@ -307,13 +387,26 @@ def base_kernel_chunked_ext(tracer, pose, seed: int, frame_number: int,
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_ext"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
-    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, True)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "ext")
     base_kernel_chunked_ext.launches += 1
+    return out
+
+
+def base_kernel_chunked_xt(tracer, pose, seed: int, frame_number: int,
+                           y0: int = 0, h_out: int = None) -> ChunkedBaseOut:
+    """The chunked kernel A's XT instantiation."""
+    _require_xt(tracer, "base_kernel_chunked_xt")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_xt"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "xt")
+    base_kernel_chunked_xt.launches += 1
     return out
 
 
 base_kernel_chunked.launches = 0
 base_kernel_chunked_ext.launches = 0
+base_kernel_chunked_xt.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +443,7 @@ def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
     return True
 
 
-def _launch_extra(tracer, pose, xs, ys, state, add, samp0, ext: bool):
+def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str):
     device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -358,13 +451,7 @@ def _launch_extra(tracer, pose, xs, ys, state, add, samp0, ext: bool):
     ptrs = (tracer.tables.buf.data_ptr(), xs.data_ptr(), ys.data_ptr(),
             state.data_ptr(), add.data_ptr(), samp0.data_ptr(),
             out.data_ptr(), iters.data_ptr(), _stream(device))
-    lib = load_kernels()
-    if ext:
-        err = lib.trt_kernel_extra_ext(ctypes.byref(args),
-                                       ctypes.byref(_tex(tracer)), *ptrs)
-    else:
-        err = lib.trt_kernel_extra(ctypes.byref(args), *ptrs)
-    _check(err, "kernel_extra_ext" if ext else "kernel_extra")
+    _launch(load_kernels(), "trt_kernel_extra", args, tracer, kind, ptrs)
     p = out.view(4, *xs.shape)
     return V3(p[0], p[1], p[2]), p[3], iters[0].to(torch.float64)
 
@@ -373,12 +460,14 @@ def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
     """Kernel B: entry i renders `add[i]` extra samples of pixel
     (xs[i], ys[i]) continuing RNG `state[i]` at sample index `samp0[i]`.
     xs, ys, samp0 int32; state int64; add f32; all of one shape.
-    extra_kernel_ext for a tracer with the extensions."""
+    extra_kernel_ext / _xt for a tracer with the extensions."""
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0, "extra_kernel"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if tracer.xt:
+        return extra_kernel_xt(tracer, pose, xs, ys, state, add, samp0)
     if tracer.ext:
         return extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0)
-    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, False)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "ref")
     extra_kernel.launches += 1
     return out
 
@@ -389,13 +478,25 @@ def extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0):
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
                           "extra_kernel_ext"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
-    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, True)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "ext")
     extra_kernel_ext.launches += 1
+    return out
+
+
+def extra_kernel_xt(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's XT instantiation."""
+    _require_xt(tracer, "extra_kernel_xt")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_xt"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "xt")
+    extra_kernel_xt.launches += 1
     return out
 
 
 extra_kernel.launches = 0
 extra_kernel_ext.launches = 0
+extra_kernel_xt.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +574,7 @@ def make_sorted_render_frame(tracer):
     the frame's ops/dynamic.pack_scene `arrays` and renders from them."""
     base, spp = tracer.base_samples, tracer.spp
     extra_phase = make_sorted_extra_phase(tracer) if base < spp else None
-    sweeps_per_iter = 1.0 + tracer.n_lights
+    sweeps_per_iter = 1.0 + tracer.nee_sweeps
 
     def base_phase(pose, seed, frame_number):
         """(csum, csumsq, state, rays, iters, var, needs, additional)."""

@@ -1,11 +1,14 @@
 """Monte-Carlo direction and area sampling over lanes —
 ``terminal_raytracer_tpu/ops/sampling.py``: the samplers of the reference
-transport, the metal fuzz vector (``uniform_sphere_dir``) and the
-polynomial ``atan2`` of the texture and sky uv (the fog samplers are not
-ported yet).
+transport, the metal fuzz vector (``uniform_sphere_dir``), the polynomial
+``atan2`` of the texture and sky uv, the fog's Henyey-Greenstein direction
+and phase value, and the fuzz lobe's pdf of the MIS transport.
 
 Per-lane divergent branches (the ONB axis pick) become ``where`` selects;
-RNG draws happen in the JAX package's order with its gates.
+RNG draws happen in the JAX package's order with its gates. Python-float
+constants fold in f64 and round to f32 once, where the JAX package folds
+them; every division is by a tensor (a Python-scalar divisor is a
+reciprocal multiply on CUDA).
 """
 
 from __future__ import annotations
@@ -62,6 +65,50 @@ def uniform_sphere_dir(state: torch.Tensor,
     phi = TWO_PI * r2
     return state, V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
                      cos_theta)
+
+
+def henyey_greenstein_dir(state: torch.Tensor, d: V3, g: float,
+                          gate: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, V3]:
+    """Henyey-Greenstein direction about the incoming unit direction `d`
+    for the anisotropy g != 0 (a Python float); 2 gated draws. Inverse CDF
+    cos_t = (1 + g^2 - ((1 - g^2) / (1 - g + 2 g u))^2) / (2 g), clipped to
+    [-1, 1]; the result is not renormalized."""
+    state, r1, r2 = prng.next_f32_pair(state, gate)
+    sq = torch.full_like(r1, 1.0 - g * g) / ((1.0 - g) + (2.0 * g) * r1)
+    cos_t = torch.clamp(((1.0 + g * g) - sq * sq)
+                        / torch.full_like(sq, 2.0 * g), -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = TWO_PI * r2
+    w = vm.normalize(d)
+    u, v = orthonormal_basis(w)
+    return state, (u * (sin_t * torch.cos(phi)) + v * (sin_t * torch.sin(phi))
+                   + w * cos_t)
+
+
+def fuzz_pdf(cos_r: torch.Tensor, roughness: torch.Tensor) -> torch.Tensor:
+    """Solid-angle pdf of the metal fuzz lobe normalize(R + f S) about the
+    mirror axis R at cos_r = dot(direction, R), roughness f per lane:
+    (2 cos_r^2 - c) / (2 pi f sqrt(cos_r^2 - c)), c = 1 - f^2, inside the
+    cone cos_r^2 - c > 1e-9 (cos_r > 0, f > 0), else 0; the edge
+    singularity floored at 1e-9 and the denominator at 1e-20, as both MIS
+    weight sites of the JAX package evaluate it."""
+    c = 1.0 - roughness * roughness
+    disc = cos_r * cos_r - c
+    inside = (cos_r > 0.0) & (disc > 1e-9) & (roughness > 0.0)
+    denom = (2.0 * PI) * roughness * torch.sqrt(torch.clamp(disc, min=1e-9))
+    return torch.where(
+        inside, (2.0 * cos_r * cos_r - c) / torch.clamp(denom, min=1e-20), 0.0)
+
+
+def hg_phase(cos_t: torch.Tensor, g: float) -> torch.Tensor:
+    """The Henyey-Greenstein phase value p(cos_t) for the Python-float g
+    (g = 0 gives 1 / 4 pi): (1 - g^2) / (4 pi d sqrt(max(d, 1e-12))),
+    d = 1 + g^2 - 2 g cos_t."""
+    g2 = g * g
+    denom = (1.0 + g2) - (2.0 * g) * cos_t
+    return torch.full_like(cos_t, 1.0 - g2) / (
+        (4.0 * PI) * denom * torch.sqrt(torch.clamp(denom, min=1e-12)))
 
 
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""The reference transport as plain PyTorch over lanes —
-``terminal_raytracer_tpu/ops/tracer.py`` with its material and texture
-extensions (dielectrics, rough metals, checker, image textures, normal
-maps, sky maps); the other extensions (the unbiased and MIS transports,
-fog, depth of field, the stratified sampler, one-light NEE) are refused.
+"""The path tracer as plain PyTorch over lanes —
+``terminal_raytracer_tpu/ops/tracer.py`` with every scene extension of the
+JAX package: the material and texture extensions (dielectrics, rough
+metals, checker, image textures, normal maps, sky maps) and the transport
+and camera extensions (the unbiased and MIS transports, fog, thin-lens
+depth of field, the stratified sampler, one-light NEE).
 
 This is the port's oracle and the plain version of the CUDA kernels
 (ops/kernels.py): the same lane math the kernels run per thread, written as
@@ -28,6 +29,19 @@ value. The JAX order of draws per bounce is kept: branch select, fuzz
 pair, Fresnel, cosine pair, roulette. A texel fetch outside the atlas rows
 [lo, hi) that the JAX package's row sweep covers gives 0, as there.
 
+The transport and camera extensions (``xt``: any of transport 'unbiased'
+or 'mis', fog, aperture > 0, a stratified grid of g > 1, one-light NEE)
+are static gates here as in the JAX package: a gate that is off runs the
+reference program's ops and draws. A tracer with a gate on renders from
+xt tables (ops/geometry.py: the extension table widened by the
+light-inverse-area channel, and one-light NEE's pick table) and carries
+the transport's emit channel per lane (1 = may emit, fresh under
+'reference'/'unbiased'; under 'mis' the previous scatter's continuous pdf,
+-1 marking a delta history). Draw order per bounce: the fog distance
+(gated on alive), the NEE draws (one-light: the selection, then one pair),
+branch select, fuzz pair, Fresnel, cosine pair, the fog direction pair,
+roulette; a camera ray takes the jitter pair, then the lens pair.
+
 The scheduler is path regeneration (``regen_step``): a lane whose path ends
 starts its next sample on the next iteration, so one loop covers a lane's
 whole sample quota. Scheduling never changes a pixel's chain.
@@ -46,6 +60,7 @@ a pixel's totals are its entries' sums added in chunk order.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -73,6 +88,9 @@ CHUNK_AUTO_THRESHOLD = 512  # ... and chunk-splits from this many on
 ARRAY_CHUNK_BASE = 2  # 'auto' chunk sizes at array scales
 ARRAY_CHUNK_EXTRA = 2
 CHUNK_GOLDEN = 0x9E3779B9
+
+TRANSPORTS = ("reference", "unbiased", "mis")
+_STRAT_NOTED: set = set()
 
 
 class Cam(NamedTuple):
@@ -134,18 +152,25 @@ def dominant_axes(n: V3):
     return xdom, ~xdom & (ay >= az)
 
 
-def check_reference_scene(scene: scene_mod.Scene) -> None:
-    """Raise ValueError if `scene` needs a feature the port lacks so far."""
-    missing = [name for name, on in (
-        ("fog", scene.has_fog),
-        ("depth of field", scene.camera.aperture > 0.0),
-        ("the stratified sampler", scene.sampler != "reference"),
-        ("one-light NEE", scene.light_sample != "all"
-         and len(scene.lights) > 1),
-    ) if on]
-    if missing:
-        raise ValueError("the PyTorch port does not support "
-                         + ", ".join(missing) + " yet")
+def resolve_strat_g(scene: scene_mod.Scene) -> int:
+    """The stratified sampler's grid side g, as the JAX PathTracer resolves
+    it: the largest power of two whose square divides the base count (1:
+    the reference jitter; a stratified scene whose base count is not
+    divisible by 4 notes on stderr that it falls back)."""
+    if scene.sampler != "stratified":
+        return 1
+    base = base_sample_count(scene.samples_per_pixel)
+    g = 1
+    while 4 * g * g <= base and base % (4 * g * g) == 0:
+        g *= 2
+    if g == 1:
+        reason = (f"base sample count {base} is not divisible by 4 — no "
+                  "sub-pixel grid covers it evenly; using reference jitter")
+        if reason not in _STRAT_NOTED:
+            _STRAT_NOTED.add(reason)
+            print("note: sampler=stratified inactive: " + reason,
+                  file=sys.stderr)
+    return g
 
 
 def resolve_accel(scene: scene_mod.Scene, accel: str) -> str:
@@ -196,21 +221,29 @@ class Paths(NamedTuple):
     csum: V3
     csumsq: V3
     rays: torch.Tensor  # f32 owed traversal sweeps
+    emit: torch.Tensor  # f32 emit channel of the in-flight sample
 
 
 class PathTracer:
-    """The reference transport for one scene on one device.
+    """The path tracer for one scene on one device.
 
     `accel`, `chunk_base`, `chunk_extra`: as in the JAX PathTracer (module
-    docstring). `dynamic`: the scene's values arrive per frame through
-    :meth:`bind_packed` (ops/dynamic.py); the template fixes the counts and
-    the light topology. A scene that uses an extension (ops/geometry.py
-    uses_extensions) gets scene tables with the extension table, and
-    tables with that table render through the extension path (`ext`)."""
+    docstring). `transport`: 'reference', 'unbiased' or 'mis'. `dynamic`:
+    the scene's values arrive per frame through :meth:`bind_packed`
+    (ops/dynamic.py); the template fixes the counts and the light
+    topology. A scene that uses a material or texture extension
+    (ops/geometry.py uses_extensions) gets scene tables with the extension
+    table, and tables with that table render through the extension path
+    (`ext`); a tracer with a transport or camera gate on gets xt tables,
+    and xt tables render through the xt path (`xt`, which implies
+    `ext`)."""
 
     def __init__(self, scene: scene_mod.Scene, device, accel: str = "auto",
-                 chunk_base="auto", chunk_extra="auto", dynamic: bool = False):
-        check_reference_scene(scene)
+                 chunk_base="auto", chunk_extra="auto", dynamic: bool = False,
+                 transport: str = "reference"):
+        if transport not in TRANSPORTS:
+            raise ValueError(f"unknown transport {transport!r}; choose from "
+                             f"{TRANSPORTS}")
         self.scene = scene
         self.device = torch.device(device)
         self.atlas = None
@@ -229,13 +262,16 @@ class PathTracer:
                                if self.chunk_extra else 1)
         self.n_lights = len(scene.lights)
         self._light_kinds = [tag for tag, _ in scene.lights]
+        self._init_gates(scene, transport)
         self.dynamic = dynamic
+        ext = geom.uses_extensions(scene)
+        pick = self.light_mode if self.one_light else None
         if dynamic:
-            self.topology = dyn.topology(scene, geom.uses_extensions(scene))
+            self.topology = dyn.topology(scene, ext, self.gated, pick)
             self.bind_packed(dyn.pack_scene(scene))
         else:
             self.bind_tables(geom.scene_tables(
-                scene, self.device, self.accel, geom.uses_extensions(scene)))
+                scene, self.device, self.accel, ext, self.gated, pick))
         # f32 camera intrinsics, computed as the JAX package computes them.
         self.half_height = float(
             np.tan(np.float32(scene.fov_rad) / np.float32(2)))
@@ -248,15 +284,51 @@ class PathTracer:
         # a reciprocal multiply on CUDA.
         self._w1 = torch.tensor(float(self.width - 1), device=self.device)
         self._h1 = torch.tensor(float(self.height - 1), device=self.device)
+        self._focus = torch.tensor(float(np.float32(self.focus_distance)),
+                                   device=self.device)
+
+    def _init_gates(self, scene: scene_mod.Scene, transport: str) -> None:
+        """The transport and camera gates, resolved as the JAX PathTracer
+        resolves them, and the Python-float constants they fold (each
+        rounded to f32 where it meets a tensor): the emit channel of a
+        fresh camera ray, fog's -sigma and -1 / sigma (f64, rounded once),
+        its albedo and HG anisotropy g, the lens, the stratified grid, and
+        one-light NEE with its owed shadow sweeps per bounce."""
+        self.transport = transport
+        self._emit_fresh = -1.0 if transport == "mis" else 1.0
+        self.has_fog = scene.has_fog
+        if self.has_fog:
+            self.fog_sigma = float(scene.fog.density)
+            self.fog_albedo = tuple(float(c) for c in scene.fog.albedo)
+            self.fog_g = float(scene.fog.g)
+            self._neg_sigma = -self.fog_sigma
+            self._neg_inv_sigma = -1.0 / self.fog_sigma
+        self.aperture = float(scene.camera.aperture)
+        self.focus_distance = float(scene.camera.focus_distance)
+        self.strat_g = resolve_strat_g(scene)
+        mode = scene.light_sample
+        self.one_light = mode != "all" and self.n_lights > 1
+        self.light_mode = mode if self.one_light else "all"
+        self.nee_sweeps = 1 if self.one_light else self.n_lights
+        self.gated = (transport != "reference" or self.has_fog
+                      or self.aperture > 0.0 or self.strat_g > 1
+                      or self.one_light)
 
     def bind_tables(self, tables: geom.SceneTables) -> None:
         """Render from `tables` from now on. The kernels read `tables.buf`
         alone; the plain sweep and light list are built on first use.
         Tables with the extension table take the extension path (and the
-        scene's texel atlas) even for a scene that uses no extension."""
+        scene's texel atlas) even for a scene that uses no extension, and
+        xt tables the xt path even with every gate off."""
+        if self.gated and not tables.has_xt:
+            raise ValueError("a tracer with a transport or camera gate on "
+                             "renders from xt tables")
+        if self.one_light and tables.pick.numel() != 2 * self.n_lights + 1:
+            raise ValueError("one-light NEE needs the tables' pick table")
         self.tables = tables
         self._prims = self._lights = None
         self.ext = tables.has_ext
+        self.xt = tables.has_xt
         if self.ext and self.atlas is None:
             self._init_textures(self.scene)
 
@@ -465,11 +537,29 @@ class PathTracer:
 
     # ------------------------------------------------------------------
 
-    def gen_ray(self, state, cam: Cam, xf, yf, gate=None):
-        """One camera ray per lane: two jitter draws, NDC with the
-        char-aspect squash, then the camera basis."""
+    def stratify_jitter(self, samp, rx, ry):
+        """The stratified sampler: a base-phase sample's jitter (rx, ry)
+        remapped into cell samp mod g^2 of the g x g sub-pixel grid (`samp`
+        the pixel's absolute sample index, int64 lanes); extra samples
+        (samp >= base) keep the raw jitter."""
+        g = self.strat_g
+        in_base = samp < self.base_samples
+        cx = (samp & (g - 1)).to(torch.float32)
+        cy = ((samp >> (g.bit_length() - 1)) & (g - 1)).to(torch.float32)
+        inv_g = 1.0 / float(g)
+        return (torch.where(in_base, (cx + rx) * inv_g, rx),
+                torch.where(in_base, (cy + ry) * inv_g, ry))
+
+    def gen_ray(self, state, cam: Cam, xf, yf, gate=None, samp=None):
+        """One camera ray per lane: two jitter draws (stratified by the
+        absolute sample index `samp` when strat_g > 1), NDC with the
+        char-aspect squash, then the camera basis; with an aperture, the
+        thin lens: two more draws pick a point on the lens disk, and the
+        ray aims from it at the pinhole ray's point on the focus plane."""
         state, rx = prng.next_f32(state, gate)
         state, ry = prng.next_f32(state, gate)
+        if self.strat_g > 1:
+            rx, ry = self.stratify_jitter(samp, rx, ry)
         u = (xf + rx) / self._w1
         v = ((self.height - 1) - yf + ry) / self._h1
         ndc_x = 2.0 * u - 1.0
@@ -479,15 +569,41 @@ class PathTracer:
         d = vm.normalize(cam.right * vx + cam.up * vy + cam.forward)
         zeros = torch.zeros_like(d.x)
         o = V3(zeros + cam.pos.x, zeros + cam.pos.y, zeros + cam.pos.z)
+        if self.aperture > 0.0:
+            state, r1, r2 = prng.next_f32_pair(state, gate)
+            lr = self.aperture * torch.sqrt(r1)
+            phi = sampling.TWO_PI * r2
+            t_focus = self._focus / vm.dot(d, cam.forward)
+            p_focus = o + d * t_focus
+            o = (o + cam.right * (lr * torch.cos(phi))
+                 + cam.up * (lr * torch.sin(phi)))
+            d = vm.normalize(p_focus - o)
         return state, o, d
 
     def direct_light(self, state, p: V3, normal: V3, color: V3, att: V3,
-                     gate):
-        """One NEE estimate per light, in light order; returns (state',
-        direct). RNG advances only on `gate` lanes."""
+                     gate, refl=None, fog=None, rough=None):
+        """One NEE estimate per light, in light order (or of one picked
+        light, _one_light_nee); returns (state', direct). RNG advances only
+        on `gate` lanes. `refl` (mis): the hit's delta-branch probability
+        (reflectivity + transparency). `fog`: (scatter mask, scatter point,
+        incoming direction); scatter lanes sample from the scatter point
+        with the phase function, and every lane's estimate carries the
+        shadow segment's transmittance. `rough` (mis): (roughness,
+        reflectivity, mirror direction) of the fuzz lobe, whose pdf joins
+        the balance weights."""
         zeros = torch.zeros_like(p.x)
         direct = vm.splat(zeros)
         brdf = color * (1.0 / sampling.PI)
+        if fog is not None:
+            scatter, sp, _ = fog
+            p = vm.where(scatter, sp, p)
+            if self.fog_g == 0.0:
+                phase = V3(*(c * (1.0 / (4.0 * sampling.PI))
+                             for c in self.fog_albedo))
+                brdf = vm.where(scatter, vm.splat(zeros) + phase, brdf)
+        if self.one_light:
+            return self._one_light_nee(state, p, normal, brdf, att, gate,
+                                       refl, fog, rough)
         for kind, emission, area, a, b, c, n in self.lights:
             if kind == scene_mod.SPHERE:
                 state, lp, ln = sampling.sphere_light_point(state, a, b.x,
@@ -496,45 +612,155 @@ class PathTracer:
                 state, lp = sampling.triangle_light_point(state, a, b, c,
                                                           gate)
                 ln = n
-            lvec = lp - p
-            ldist = vm.length(lvec)
-            ldir = lvec / ldist
-            shadow_o = p + normal * geom.RAY_EPS
-            blocked = self.prims.occluded(shadow_o, ldir, geom.RAY_EPS,
-                                          ldist - geom.RAY_EPS, gate)
-            cos_s = torch.clamp(vm.dot(normal, ldir), min=0.0)
-            cos_l = torch.clamp(vm.dot(ln, -ldir), min=0.0)
-            ok = ~blocked & (cos_s > 0.0) & (cos_l > 0.0)
-            geom_term = (cos_s * cos_l) / (ldist * ldist)
-            weight = geom_term * area
-            contrib = (brdf * emission) * (att * weight)
-            contrib = vm.min_components(contrib, NEE_CLAMP)
+            ok, contrib = self._nee_sample(p, normal, brdf, att, gate, lp,
+                                           ln, area, emission, None, refl,
+                                           fog, rough)
             direct = direct + vm.where(ok, contrib, vm.splat(zeros))
         return state, direct
 
+    def _nee_sample(self, p, normal, brdf, att, gate, lp, ln, area, emission,
+                    psel, refl, fog, rough):
+        """The NEE estimate toward the light point `lp` (normal `ln`, light
+        `area` and `emission`): (ok, clamped contribution). `psel`: the
+        pick probability of one-light NEE (None: every light is sampled).
+        Under 'mis' the shadow segment runs from the offset origin and the
+        estimate is balance-weighted against the BSDF (or phase) density,
+        which in fog carries exp(-sigma t)."""
+        lvec = lp - p
+        ldist = vm.length(lvec)
+        ldir = lvec / ldist
+        shadow_o = p + normal * geom.RAY_EPS
+        if fog is not None:
+            scatter, _, d_in = fog
+            shadow_o = vm.where(scatter, p, shadow_o)
+        if self.transport == "mis":
+            lvec_s = lp - shadow_o
+            ldist_s = vm.length(lvec_s)
+            sh_dir, sh_tmax = lvec_s / ldist_s, ldist_s - geom.RAY_EPS
+        else:
+            sh_dir, sh_tmax = ldir, ldist - geom.RAY_EPS
+        blocked = self.prims.occluded(shadow_o, sh_dir, geom.RAY_EPS,
+                                      sh_tmax, gate)
+        cos_s = torch.clamp(vm.dot(normal, ldir), min=0.0)
+        if fog is not None:
+            cos_s = torch.where(scatter, 1.0, cos_s)
+        cos_l = torch.clamp(vm.dot(ln, -ldir), min=0.0)
+        ok = ~blocked & (cos_s > 0.0) & (cos_l > 0.0)
+        geom_term = (cos_s * cos_l) / (ldist * ldist)
+        weight = geom_term * area
+        if psel is not None:
+            weight = weight * (1.0 / psel)
+        if fog is not None:
+            trans = torch.exp(self._neg_sigma * ldist)
+            weight = weight * trans
+        if self.transport == "mis":
+            l2 = ldist * ldist
+            if psel is not None:
+                l2 = psel * l2
+            p_l = l2 / (torch.clamp(cos_l, min=1e-8) * area)
+            p_b = (1.0 - refl) * cos_s * (1.0 / sampling.PI)
+            mix = 1.0 - refl
+            if rough is not None:
+                f_r, m_refl, m_dir = rough
+                metal = m_refl * sampling.fuzz_pdf(vm.dot(m_dir, ldir), f_r)
+                p_b = p_b + metal
+                mix = mix + metal * sampling.PI / torch.clamp(cos_s, min=1e-8)
+            if fog is not None:
+                ph_pdf = sampling.hg_phase(vm.dot(d_in, ldir), self.fog_g)
+                p_b = torch.where(scatter, ph_pdf, p_b)
+                mix = torch.where(scatter, 1.0, mix)
+                p_b = p_b * trans
+            weight = weight * (mix * p_l / torch.clamp(p_l + p_b, min=1e-20))
+        if fog is not None and self.fog_g != 0.0:
+            ph = sampling.hg_phase(vm.dot(d_in, ldir), self.fog_g)
+            brdf = vm.where(scatter, V3(*self.fog_albedo) * ph, brdf)
+        contrib = (brdf * emission) * (att * weight)
+        return ok, vm.min_components(contrib, NEE_CLAMP)
+
+    def _one_light_nee(self, state, p, normal, brdf, att, gate, refl, fog,
+                       rough):
+        """One-light NEE: a selection draw picks light i with probability
+        p_i (the pick table of ops/geometry.py), one pair of draws samples
+        a point on it (either kind takes two), and the estimate carries
+        1 / p_i (under 'mis' the NEE density carries p_i). The picked index
+        is the count of selection thresholds cums[:-1] at or below the
+        draw, the JAX package's ladder of comparisons; the light's row is
+        then indexed."""
+        n = self.n_lights
+        pick = self.tables.pick
+        state, u_sel = prng.next_f32(state, gate)
+        state, r1, r2 = prng.next_f32_pair(state, gate)
+        idx = (u_sel[..., None] >= pick[n:2 * n - 1]).sum(-1)
+        rows = self.tables.lights[idx]
+        a, b, c, ln_t = (geom._row3(rows, i) for i in (5, 8, 11, 14))
+        cos_theta = 1.0 - 2.0 * r1
+        sin_theta = torch.sqrt(1.0 - cos_theta * cos_theta)
+        phi = sampling.TWO_PI * r2
+        local = V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                   cos_theta)
+        sqrt_r1 = torch.sqrt(r1)
+        bu = 1.0 - sqrt_r1
+        bv = r2 * sqrt_r1
+        sphere = rows[..., 0] == float(scene_mod.SPHERE)
+        lp = vm.where(sphere, a + local * b.x, a * (1.0 - bu - bv) + b * bu
+                      + c * bv)
+        ln = vm.where(sphere, local, ln_t)
+        psel = torch.clamp(pick[idx], min=1e-12)
+        ok, contrib = self._nee_sample(p, normal, brdf, att, gate, lp, ln,
+                                       rows[..., 4], geom._row3(rows, 1),
+                                       psel, refl, fog, rough)
+        return state, vm.where(ok, contrib, vm.splat(torch.zeros_like(p.x)))
+
     def bounce_step(self, state, o: V3, d: V3, att: V3, acc: V3, alive,
-                    bounce_idx, rays):
+                    bounce_idx, rays, emit):
         """Advance every live lane by one bounce. Returns (state, o', d',
-        att', acc', alive', rays'); alive' drops lanes that missed (sky
-        added) or were killed by Russian roulette."""
+        att', acc', alive', rays', emit'); alive' drops lanes that missed
+        (sky added), were killed by Russian roulette or (ext) absorbed.
+        `emit` is the transport's emit channel (module docstring)."""
         zeros = torch.zeros_like(o.x)
         hit = self.prims.closest_hit(o, d, geom.RAY_EPS, geom.T_FAR, alive)
         rays = rays + alive.to(torch.float32)
         if self.ext:
             hit = self.shade_hit(hit)
+        scatter = None
+        if self.has_fog:
+            # The scatter distance t = -ln(1 - u) / sigma; a draw short of
+            # the surface makes this bounce a volume scattering event.
+            state, u_d = prng.next_f32(state, alive)
+            t_scat = (torch.log(torch.clamp(1.0 - u_d, min=1e-12))
+                      * self._neg_inv_sigma)
+            t_limit = torch.where(hit.found, hit.t, geom.T_FAR)
+            scatter = alive & (t_scat < t_limit)
+            sp = o + d * t_scat
         miss_now = alive & ~hit.found
         live = alive & hit.found
+        if scatter is not None:
+            miss_now = miss_now & ~scatter
+            live = live & ~scatter
         sky = (self.sky_radiance(d) if self.ext and self.sky_lo >= 0
                else sky_color(d))
         acc = acc + vm.where(miss_now, sky * att, vm.splat(zeros))
-        acc = acc + vm.where(live, hit.emission * att, vm.splat(zeros))
-        state, direct = self.direct_light(state, hit.p, hit.normal,
-                                          hit.color, att, live)
-        if self.ext:
-            # No matte NEE ghost on glass: scale by the non-glass share.
-            direct = direct * (1.0 - hit.transparency)
-        acc = acc + vm.where(live, direct, vm.splat(zeros))
-        rays = rays + torch.where(live, float(self.n_lights), 0.0)
+        acc = acc + self._emission(hit, d, att, live, emit)
+        nee_refl = hit.reflectivity
+        rough_mis = None
+        if self.xt:
+            nee_refl = nee_refl + hit.transparency
+            if self.transport == "mis":
+                rough_mis = (hit.roughness, hit.reflectivity,
+                             vm.reflect(d, hit.normal))
+        nee_gate = live if scatter is None else live | scatter
+        state, direct = self.direct_light(
+            state, hit.p, hit.normal, hit.color, att, nee_gate, nee_refl,
+            None if scatter is None else (scatter, sp, d), rough_mis)
+        if self.ext and self.transport != "mis":
+            # No matte NEE ghost on glass: scale by the non-glass share
+            # (not at volume scatter points; 'mis' weighs it in).
+            ghost = 1.0 - hit.transparency
+            if scatter is not None:
+                ghost = torch.where(scatter, 1.0, ghost)
+            direct = direct * ghost
+        acc = acc + vm.where(nee_gate, direct, vm.splat(zeros))
+        rays = rays + torch.where(nee_gate, float(self.nee_sweeps), 0.0)
 
         # Scatter: mirror, glass (ext) or diffuse on one draw.
         state, r_spec = prng.next_f32(state, live)
@@ -573,6 +799,18 @@ class PathTracer:
             new_d = vm.where(is_glass, glass_dir, new_d)
         att = vm.where(live, att * hit.color, att)
         new_o = hit.p + new_d * geom.RAY_EPS
+        if scatter is not None:
+            # Volume scatter: a phase-sampled direction from the scatter
+            # point (uniform at g = 0); the throughput takes the albedo.
+            if self.fog_g != 0.0:
+                state, fog_dir = sampling.henyey_greenstein_dir(
+                    state, d, self.fog_g, scatter)
+            else:
+                state, fog_dir = sampling.uniform_sphere_dir(state, scatter)
+            new_d = vm.where(scatter, fog_dir, new_d)
+            new_o = vm.where(scatter, sp + fog_dir * geom.RAY_EPS, new_o)
+            att = vm.where(scatter, att * V3(*self.fog_albedo), att)
+            live = live | scatter  # scatter events continue like hits
 
         # Russian roulette: kill first, compensate survivors.
         rr_on = live & (bounce_idx > RR_START_BOUNCE)
@@ -585,9 +823,67 @@ class PathTracer:
             alive = alive & ~absorbed
 
         # Sanitize dead lanes so NaNs can't leak into the next sweep.
-        d = vm.where(alive, new_d, V3(zeros, zeros, zeros + 1.0))
+        d_out = vm.where(alive, new_d, V3(zeros, zeros, zeros + 1.0))
         o = vm.where(alive, new_o, vm.splat(zeros))
-        return state, o, d, att, acc, alive, rays
+        if self.xt:
+            emit = self._next_emit(hit, d, new_d, is_refl | is_glass, is_refl
+                                   & fuzzy, nee_refl, scatter, fog_dir
+                                   if scatter is not None else None)
+        return state, o, d_out, att, acc, alive, rays, emit
+
+    def _emission(self, hit: geom.Hit, d: V3, att: V3, live, emit) -> V3:
+        """The hit's emission term on `live` lanes: at full weight under
+        'reference'; under 'unbiased' only where NEE could not have sampled
+        the emitter (a delta history, emit != 0, or lia == 0); under 'mis'
+        balance-weighted against the NEE density t^2 lia / cos_l (times
+        the pick probability under one-light NEE; the previous scatter's
+        density carries exp(-sigma t) in fog)."""
+        zeros = vm.splat(torch.zeros_like(att.x))
+        if self.transport == "reference":
+            return vm.where(live, hit.emission * att, zeros)
+        if self.transport == "unbiased":
+            gate = live & ((emit != 0.0) | (hit.lia == 0.0))
+            return vm.where(gate, hit.emission * att, zeros)
+        cos_l = torch.clamp(vm.dot(hit.normal, -d), min=0.0)
+        t2 = hit.t * hit.t
+        p_nee = t2 * hit.lia / torch.clamp(cos_l, min=1e-8)
+        if self.light_mode == "uniform":
+            p_nee = p_nee * (1.0 / self.n_lights)
+        elif self.light_mode == "power":
+            e = hit.emission
+            lum = (geom.LUM[0] * e.x + geom.LUM[1] * e.y + geom.LUM[2] * e.z)
+            p_nee = torch.where(
+                hit.lia > 0.0, t2 * lum * self.tables.pick[-1]
+                / torch.clamp(cos_l, min=1e-8), 0.0)
+        p_prev = torch.clamp(emit, min=0.0)
+        if self.has_fog:
+            p_prev = p_prev * torch.exp(self._neg_sigma * hit.t)
+        denom = p_prev + p_nee
+        w_emit = torch.where(emit < 0.0, 1.0,
+                             p_prev / torch.where(denom > 0.0, denom, 1.0))
+        return vm.where(live, hit.emission * (att * w_emit), zeros)
+
+    def _next_emit(self, hit: geom.Hit, d: V3, new_d: V3, is_delta, fuzzed,
+                   nee_refl, scatter, fog_dir):
+        """The emit channel after this bounce: 'mis' carries the continuous
+        part's pdf of the scatter just taken ((1 - refl - transparency)
+        cos / pi, plus the fuzz lobe's; a fuzzed mirror is continuous), -1
+        after a delta scatter, the phase pdf after a volume scatter; the
+        other transports carry 1 after a delta scatter, else 0."""
+        if self.transport != "mis":
+            emit = torch.where(is_delta, 1.0, 0.0)
+            if scatter is not None:
+                emit = torch.where(scatter, 0.0, emit)
+            return emit
+        cos_new = torch.clamp(vm.dot(hit.normal, new_d), min=0.0)
+        p_cont = (1.0 - nee_refl) * cos_new * (1.0 / sampling.PI)
+        p_cont = p_cont + hit.reflectivity * sampling.fuzz_pdf(
+            vm.dot(vm.reflect(d, hit.normal), new_d), hit.roughness)
+        emit = torch.where(is_delta & ~fuzzed, -1.0, p_cont)
+        if scatter is not None:
+            emit = torch.where(scatter, sampling.hg_phase(
+                vm.dot(d, fog_dir), self.fog_g), emit)
+        return emit
 
     # ------------------------------------------------------------------
     # Path regeneration
@@ -603,6 +899,7 @@ class PathTracer:
             alive=torch.zeros(quota.shape, dtype=torch.bool,
                               device=quota.device),
             csum=vm.splat(zeros), csumsq=vm.splat(zeros), rays=zeros,
+            emit=zeros,
         )
 
     def regen_step(self, cam: Cam, xf, yf, c: Paths) -> Paths:
@@ -611,17 +908,18 @@ class PathTracer:
         zeros = torch.zeros_like(xf)
         need = ~c.alive & (c.samp.to(torch.float32) < c.quota)
         state = prng.advance_sample(c.state, c.samp, need)
-        state, o2, d2 = self.gen_ray(state, cam, xf, yf, need)
+        state, o2, d2 = self.gen_ray(state, cam, xf, yf, need, c.samp)
         o = vm.where(need, o2, c.o)
         d = vm.where(need, d2, c.d)
         att = vm.where(need, vm.splat(zeros + 1.0), c.att)
         acc = vm.where(need, vm.splat(zeros), c.acc)
         bounce = torch.where(need, 0, c.bounce)
         alive = c.alive | need
+        emit = torch.where(need, self._emit_fresh, c.emit)
 
         executed = alive
-        state, o, d, att, acc, alive, rays = self.bounce_step(
-            state, o, d, att, acc, alive, bounce, c.rays)
+        state, o, d, att, acc, alive, rays, emit = self.bounce_step(
+            state, o, d, att, acc, alive, bounce, c.rays, emit)
 
         # A sample ends on a miss or roulette kill, or at max_depth.
         bounce = torch.where(executed, bounce + 1, bounce)
@@ -632,7 +930,7 @@ class PathTracer:
         samp = c.samp + finished.to(torch.int64)
         alive = alive & ~at_depth
         return Paths(state, samp, c.quota, o, d, att, acc, bounce, alive,
-                     csum, csumsq, rays)
+                     csum, csumsq, rays, emit)
 
     def run_regen(self, cam: Cam, xf, yf, c: Paths):
         """Iterate regen_step until no lane owes work. Returns (carry,
@@ -761,7 +1059,7 @@ class PathTracer:
         """The whole frame in plain PyTorch, over the image-order entries
         (the JAX oracle's render_lanes). Returns (current V3[H,W],
         variance, total samples, owed rays, occupancy) — occupancy is owed
-        sweeps over executed lane-iteration sweeps."""
+        sweeps over executed lane-iteration sweeps, 1 + nee_sweeps each."""
         cam = cam_from_pose(pose)
         x, y, c = self.base_entries()
         state, csum, csumsq, rays, it = self.base_phase(
@@ -787,5 +1085,5 @@ class PathTracer:
             current, total = self.combine_phases(csum, esum, needs,
                                                  additional)
         rays_sum = rays.to(torch.float64).sum()
-        occ = rays_sum / max(it * (1.0 + self.n_lights), 1.0)
+        occ = rays_sum / max(it * (1.0 + self.nee_sweeps), 1.0)
         return current, var, total, rays_sum, occ

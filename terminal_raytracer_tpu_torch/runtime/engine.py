@@ -77,11 +77,13 @@ class Engine:
         deterministic: Optional[int] = None,
         accel: str = "auto",
         animate: Optional[str] = None,
+        transport: str = "reference",
     ):
         """`deterministic`: seed of the per-frame seed draws (None draws
         from OS entropy, like the reference). `accel`: the traversal
         (ops/tracer.py). `animate`: an animator name of
-        models/animate.ANIMATORS, or None for a static scene."""
+        models/animate.ANIMATORS, or None for a static scene. `transport`:
+        'reference', 'unbiased' or 'mis' (ops/tracer.py)."""
         self.scene = scene
         self.full_color = full_color
         self.device = torch.device(device)
@@ -96,7 +98,8 @@ class Engine:
             self._anim_t = 0
         self.step = make_render_step(scene, full_color=full_color,
                                      device=self.device, accel=accel,
-                                     dynamic=animate is not None)
+                                     dynamic=animate is not None,
+                                     transport=transport)
         self.state = init_state(scene, self.device)
         self.blitter = Blitter(scene.height, scene.width, full_color, threads)
         self.timers = FrameTimers()

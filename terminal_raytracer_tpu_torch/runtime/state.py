@@ -62,18 +62,22 @@ def state_to_numpy(state: FrameState):
 
 def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
                      device="cuda", accel: str = "auto",
-                     dynamic: bool = False):
+                     dynamic: bool = False, transport: str = "reference"):
     """Build ``step(state, pose16, seed, frame_number[, arrays]) ->
     FrameOutput``.
 
     The step runs the sorted two-kernel pipeline (ops/kernels.py): the CUDA
     kernels on a CUDA device, their plain PyTorch versions on the CPU.
     `accel` picks the traversal and with it the chunk split
-    (ops/tracer.py). With `dynamic`, the step takes the frame's scene
-    values as a trailing ops/dynamic.pack_scene `arrays` (the --animate
-    mode). It updates ``state.acc`` IN PLACE and returns that same tensor
-    in the new state; pass the previous output's state back in."""
-    tracer = PathTracer(scene, device, accel=accel, dynamic=dynamic)
+    (ops/tracer.py); `transport` the light-transport estimator
+    ('reference', 'unbiased' or 'mis'). With `dynamic`, the step takes the
+    frame's scene values as a trailing ops/dynamic.pack_scene `arrays` (the
+    --animate mode). It updates ``state.acc`` IN PLACE and returns that
+    same tensor in the new state; pass the previous output's state back in.
+    The step carries its tracer as ``step.tracer`` (its gates, kernels and
+    counts)."""
+    tracer = PathTracer(scene, device, accel=accel, dynamic=dynamic,
+                        transport=transport)
     render_frame = kernels.make_sorted_render_frame(tracer)
 
     def step(state: FrameState, pose, seed, frame_number,
@@ -97,4 +101,5 @@ def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
         return FrameOutput(FrameState(acc, variance, samples), rgb, glyphs,
                            rays, occ)
 
+    step.tracer = tracer
     return step

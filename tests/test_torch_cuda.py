@@ -18,6 +18,7 @@ import torch
 
 from terminal_raytracer_tpu_torch.models import Camera, load_scene
 from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
+from terminal_raytracer_tpu_torch.models.scene import Fog
 from terminal_raytracer_tpu_torch.ops import dynamic as dyn
 from terminal_raytracer_tpu_torch.ops import geometry as geom
 from terminal_raytracer_tpu_torch.ops import kernels
@@ -197,6 +198,105 @@ def test_animated_ext_frame_matches_plain_frame(cuda_device):
         width=64, height=16, samples_per_pixel=16, max_depth=6)
     tr = PathTracer(scene, cuda_device, dynamic=True)
     arrays = ANIMATORS["orbit"](dyn.pack_scene(scene), 5)
+    cur, var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
+        POSE, SEED, 0, arrays)
+    pcur, pvar, ptot, prays, _ = tr.render_frame(POSE, SEED, 0)
+    assert float(rays) == float(prays)
+    for a, b in zip((*cur, var, tot), (*pcur, pvar, ptot)):
+        assert torch.equal(a, b)
+
+
+XT_CASES = {
+    "mis": ("Cornell_Box", {}, "mis"),
+    "unbiased": ("Cornell_Box", {}, "unbiased"),
+    "fog": ("Cornell_Box", {"fog": Fog(density=0.15)}, "reference"),
+    "fog-hg-mis": ("Cornell_Box",
+                   {"fog": Fog(density=0.2, albedo=(1.0, 1.0, 1.0), g=0.7)},
+                   "mis"),
+    "dof": ("Cornell_Box", {"aperture": 0.1, "focus_distance": 3.0},
+            "reference"),
+    "stratified": ("Cornell_Box", {"sampler": "stratified"}, "reference"),
+    "lights4-power-mis": ("lights:4", {"light_sample": "power"}, "mis"),
+    "lights4-uniform": ("lights:4", {"light_sample": "uniform"}, "reference"),
+    "showcase-mis": ("showcase", {}, "mis"),
+}
+
+
+def _xt_tracer(device, name, w=96, h=24, spp=32, depth=8, **kw):
+    scene, over, transport = XT_CASES[name]
+    scene = load_scene(scene).with_overrides(
+        width=w, height=h, samples_per_pixel=spp, max_depth=depth, **over)
+    return PathTracer(scene, device, transport=transport, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(XT_CASES))
+def test_xt_kernels_match_plain_versions(cuda_device, name):
+    """The XT instantiations of kernels A and B against their plain
+    versions under each transport and camera gate: every output equal,
+    and kernel B on a stream with work."""
+    tr = _xt_tracer(cuda_device, name)
+    assert tr.xt
+    n0, m0 = kernels.base_kernel_xt.launches, kernels.base_kernel_ext.launches
+    k = kernels.base_kernel(tr, POSE, SEED, 0)
+    p = kernels.base_kernel_plain(tr, POSE, SEED, 0)
+    assert kernels.base_kernel_xt.launches == n0 + 1
+    assert kernels.base_kernel_ext.launches == m0
+    _assert_base_equal(k, p)
+    assert torch.equal(k.additional, p.additional)
+    s = kernels.sorted_stream(tr, k.state, k.additional)
+    assert int((s.add > 0).sum()) > 0
+    args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
+    n0 = kernels.extra_kernel_xt.launches
+    ek, rk, _ = kernels.extra_kernel(*args)
+    ep, rp, _ = kernels.extra_kernel_plain(*args)
+    assert kernels.extra_kernel_xt.launches == n0 + 1
+    assert torch.equal(rk, rp)
+    for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fog-hg-mis", "lights4-power-mis"])
+def test_xt_chunked_kernel_matches_plain_version(cuda_device, name):
+    tr = _xt_tracer(cuda_device, name, 64, 16, chunk_base=2, chunk_extra=2)
+    n0 = kernels.base_kernel_chunked_xt.launches
+    k = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
+    p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
+    assert kernels.base_kernel_chunked_xt.launches == n0 + 1
+    _assert_base_equal(k, p)
+
+
+@pytest.mark.cuda
+def test_xt_kernels_with_every_gate_off_equal_the_reference_kernels(
+        cuda_device):
+    """xt tables on Cornell_Box with every gate off: the XT instantiations
+    give the reference instantiations' outputs bit for bit."""
+    scene = _cornell(128, 16, 16, 8)
+    ref = PathTracer(scene, cuda_device)
+    xt = PathTracer(scene, cuda_device)
+    xt.bind_tables(geom.scene_tables(scene, cuda_device, xt.accel, xt=True))
+    a_ref = kernels.base_kernel(ref, POSE, SEED, 0)
+    a_xt = kernels.base_kernel_xt(xt, POSE, SEED, 0)
+    _assert_base_equal(a_xt, a_ref)
+    s = kernels.sorted_stream(ref, a_ref.state, a_ref.additional)
+    args = (POSE, s.xs, s.ys, s.state, s.add, s.samp0)
+    (e_ref, r_ref, _), (e_xt, r_xt, _) = (kernels.extra_kernel(ref, *args),
+                                          kernels.extra_kernel_xt(xt, *args))
+    assert torch.equal(r_ref, r_xt)
+    for a, b in zip(e_ref, e_xt):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_animated_xt_frame_matches_plain_frame(cuda_device):
+    """One-light NEE on an animated scene: the per-frame lia channel and
+    pick table, through the pipeline, against the plain whole frame."""
+    scene = load_scene("lights:4").with_overrides(
+        width=64, height=16, samples_per_pixel=16, max_depth=6,
+        light_sample="power")
+    tr = PathTracer(scene, cuda_device, dynamic=True, transport="mis")
+    arrays = ANIMATORS["pulse"](dyn.pack_scene(scene), 5)
     cur, var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
         POSE, SEED, 0, arrays)
     pcur, pvar, ptot, prays, _ = tr.render_frame(POSE, SEED, 0)

@@ -244,20 +244,26 @@ def test_cuda_device_without_gpu_exits_nonzero(capsys):
 
 
 def test_unported_scene_features_are_refused(capsys, tmp_path):
+    """Every scene feature of the JAX package is ported (fog and depth of
+    field take the xt path, a fog JSON renders); the traversals still to
+    port are refused with exit 2 and no traceback."""
     cornell = load_scene("Cornell_Box")
-    with pytest.raises(ValueError, match="does not support depth of field"):
-        PathTracer(cornell.with_overrides(aperture=0.1, focus_distance=3.0),
-                   "cpu")
-    with pytest.raises(ValueError, match="does not support fog"):
-        PathTracer(cornell.with_overrides(fog=Fog(density=0.2)), "cpu")
+    assert PathTracer(cornell.with_overrides(aperture=0.1, focus_distance=3.0),
+                      "cpu").xt
+    assert PathTracer(cornell.with_overrides(fog=Fog(density=0.2)), "cpu").xt
     cfg = json.loads((Path(REPO) / "terminal_raytracer_tpu" / "models"
                       / "scenes" / "Cornell_Box.json").read_text())
     cfg["fog"] = {"density": 0.2}
     path = tmp_path / "foggy.json"
     path.write_text(json.dumps(cfg))
-    assert torch_main(["--device", "cpu", "--path", str(path), "--frames",
-                       "1"]) == 2
-    assert "does not support" in capsys.readouterr().err
+    assert torch_main(["--device", "cpu", "--path", str(path), "--width",
+                       "16", "--height", "4", "--spp", "4", "--depth", "2",
+                       "--frames", "1"]) == 0
+    assert "does not support" not in capsys.readouterr().err
+    for accel in ("grid", "gathered"):
+        assert torch_main(["--device", "cpu", "--accel", accel, "--frames",
+                           "1"]) == 2
+        assert "not ported yet" in capsys.readouterr().err
 
 
 def test_interactive_viewer_through_a_pty():
