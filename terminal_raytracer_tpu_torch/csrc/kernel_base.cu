@@ -83,10 +83,8 @@ __global__ void __launch_bounds__(128)
                                      a.frame);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = XT ? trt::run_samples_xt(a.f, sc, tx, xt, state, 0, (float)a.base, (float)x,
-                                        (float)y, csum, &csumsq, rays)
-                  : trt::run_samples<EXT>(a.f, sc, tx, state, 0, (float)a.base, (float)x,
-                                          (float)y, csum, &csumsq, rays);
+    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, 0, (float)a.base, (float)x,
+                                         (float)y, csum, &csumsq, rays);
     // Variance of the base samples and the adaptive budget (the
     // fold_budget epilogue: tracer.variance_of + tracer.extra_quota).
     trt::V3 mean = csum * a.inv_base;
@@ -130,10 +128,8 @@ __global__ void __launch_bounds__(128)
     const int quota = min(s0 + a.cb, a.base);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = XT ? trt::run_samples_xt(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
-                                        (float)y, csum, &csumsq, rays)
-                  : trt::run_samples<EXT>(a.f, sc, tx, state, s0, (float)quota, (float)x,
-                                          (float)y, csum, &csumsq, rays);
+    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
+                                         (float)y, csum, &csumsq, rays);
     out[0 * n + i] = csum.x;
     out[1 * n + i] = csum.y;
     out[2 * n + i] = csum.z;

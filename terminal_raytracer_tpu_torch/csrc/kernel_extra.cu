@@ -54,10 +54,8 @@ __global__ void __launch_bounds__(128)
       const trt::Scene sc = trt::make_scene(scene_buf, a.f);
       uint32_t state = (uint32_t)state_in[i];
       const int s0 = samp0[i];
-      my_iters = XT ? trt::run_samples_xt(a.f, sc, tx, xt, state, s0, budget + (float)s0,
-                                          (float)xs[i], (float)ys[i], esum, nullptr, rays)
-                    : trt::run_samples<EXT>(a.f, sc, tx, state, s0, budget + (float)s0,
-                                            (float)xs[i], (float)ys[i], esum, nullptr, rays);
+      my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, budget + (float)s0,
+                                           (float)xs[i], (float)ys[i], esum, nullptr, rays);
     }
     out[0 * n + i] = esum.x;
     out[1 * n + i] = esum.y;

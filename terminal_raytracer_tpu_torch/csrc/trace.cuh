@@ -36,18 +36,17 @@
 // JAX integer index math and lerp, not the hardware's texture units
 // (whose bilinear weights are 9-bit fixed point).
 //
-// XT (the XT section at the end; implies EXT) adds the transport and
-// camera extensions of ops/tracer.py: the unbiased and MIS transports (a
-// per-path emit channel, balance weights against the light-inverse-area
+// XT, the path's second template flag (it implies EXT), adds the transport
+// and camera extensions of ops/tracer.py: the unbiased and MIS transports
+// (a per-path emit channel, balance weights against the light-inverse-area
 // channel that widens each extension row to XT_W), fog (distance draw,
 // phase-sampled scatter, transmittance), thin-lens depth of field, the
 // stratified sampler and one-light NEE (the picked light's row is indexed;
 // the pick table follows the extension table). The JAX package compiles
 // each of these in or out by a static gate; here the gates and their f32
 // constants are uniform launch arguments (Xt), read by every thread alike,
-// so a branch on them never diverges, and the reference and EXT device
-// code above is left as it was (bounce_step_xt and its helpers are their
-// own functions).
+// so a branch on them never diverges. Each sits behind `if (XT && ...)`,
+// so the reference and EXT instantiations compile as if it were absent.
 
 #pragma once
 
@@ -316,44 +315,11 @@ __device__ __forceinline__ V3 min_components(V3 a, float cap) {
   return {fminf(a.x, cap), fminf(a.y, cap), fminf(a.z, cap)};
 }
 
-// One NEE estimate per light, in light order (two draws per light).
-__device__ __forceinline__ V3 direct_light(const Scene& sc, uint32_t& state, V3 p, V3 normal,
-                                           V3 color, V3 att) {
-  V3 direct = {0.0f, 0.0f, 0.0f};
-  V3 brdf = color * INV_PI;
-  for (int l = 0; l < sc.n_lights; ++l) {
-    const float* L = sc.lights + LIGHT_W * l;
-    float r1 = next_f32(state);
-    float r2 = next_f32(state);
-    V3 lp, ln;
-    if ((int)__ldg(L) == SPHERE) {
-      float cos_theta = 1.0f - 2.0f * r1;
-      float sin_theta = sqrtf(1.0f - cos_theta * cos_theta);
-      float phi = TWO_PI * r2;
-      ln = {sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta};
-      lp = load3(L + 5) + ln * __ldg(L + 8);
-    } else {
-      float sqrt_r1 = sqrtf(r1);
-      float u = 1.0f - sqrt_r1;
-      float v = r2 * sqrt_r1;
-      lp = load3(L + 5) * (1.0f - u - v) + load3(L + 8) * u + load3(L + 11) * v;
-      ln = load3(L + 14);
-    }
-    V3 lvec = lp - p;
-    float ldist = sqrtf(dot(lvec, lvec));
-    V3 ldir = {lvec.x / ldist, lvec.y / ldist, lvec.z / ldist};
-    V3 shadow_o = p + normal * RAY_EPS;
-    bool blocked = occluded(sc, shadow_o, ldir, RAY_EPS, ldist - RAY_EPS);
-    float cos_s = fmaxf(dot(normal, ldir), 0.0f);
-    float cos_l = fmaxf(dot(ln, -ldir), 0.0f);
-    if (!blocked && cos_s > 0.0f && cos_l > 0.0f) {
-      float geom_term = (cos_s * cos_l) / (ldist * ldist);
-      float weight = geom_term * __ldg(L + 4);
-      V3 contrib = (brdf * load3(L + 1)) * (att * weight);
-      direct = direct + min_components(contrib, NEE_CLAMP);
-    }
-  }
-  return direct;
+// (u, v) completing the unit w: u from the y axis when |w.x| > 0.1, else
+// from the x axis (sampling.orthonormal_basis).
+__device__ __forceinline__ void orthonormal_basis(V3 w, V3& u, V3& v) {
+  u = fabsf(w.x) > 0.1f ? normalize(V3{w.z, 0.0f, -w.x}) : normalize(V3{0.0f, -w.z, w.y});
+  v = cross(w, u);
 }
 
 __device__ __forceinline__ V3 cosine_hemisphere(uint32_t& state, V3 normal) {
@@ -365,9 +331,8 @@ __device__ __forceinline__ V3 cosine_hemisphere(uint32_t& state, V3 normal) {
   float x = sin_theta * cosf(phi);
   float y = sin_theta * sinf(phi);
   float z = cos_theta;
-  V3 w = normalize(normal);
-  V3 u = fabsf(w.x) > 0.1f ? normalize(V3{w.z, 0.0f, -w.x}) : normalize(V3{0.0f, -w.z, w.y});
-  V3 v = cross(w, u);
+  V3 w = normalize(normal), u, v;
+  orthonormal_basis(w, u, v);
   return normalize(u * x + v * y + w * z);
 }
 
@@ -555,111 +520,6 @@ __device__ __forceinline__ V3 glass_scatter(uint32_t& state, const Hit& h, V3 d)
   return d * eta + h.normal * (eta * cos_i - cos_t);
 }
 
-// One bounce of a live path. Returns false when the path ends here (a miss
-// adds the sky; Russian roulette kills; EXT: a fuzzed mirror direction at
-// or below the surface absorbs). `rays` counts owed sweeps: one
-// closest-hit plus n_lights shadow sweeps per hit.
-template <bool EXT>
-__device__ __forceinline__ bool bounce_step(const Scene& sc, const Tex& tx, uint32_t& state,
-                                            V3& o, V3& d, V3& att, V3& acc, int bounce_idx,
-                                            float& rays) {
-  Hit hit = closest_hit<EXT>(sc, o, d);
-  rays += 1.0f;
-  if (!hit.found) {
-    acc = acc + (EXT && tx.sky_lo >= 0 ? sky_radiance(tx, d) : sky_color(d)) * att;
-    return false;
-  }
-  if (EXT) shade_hit(tx, hit);
-  acc = acc + hit.emission * att;
-  V3 direct = direct_light(sc, state, hit.p, hit.normal, hit.color, att);
-  // EXT: no matte NEE ghost on glass (scaled by the non-glass share).
-  if (EXT) direct = direct * (1.0f - __ldg(hit.ext + X_TRANSP));
-  acc = acc + direct;
-  rays += (float)sc.n_lights;
-
-  float r_spec = next_f32(state);
-  V3 new_d;
-  bool absorbed = false;
-  if (hit.refl > r_spec) {
-    new_d = reflect(d, hit.normal);
-    float rough = EXT ? __ldg(hit.ext + X_ROUGH) : 0.0f;
-    if (rough > 0.0f) {  // fuzzy mirror (EXT): two more draws
-      V3 raw = new_d + uniform_sphere_dir(state) * rough;
-      float len2 = dot(raw, raw);
-      new_d = raw * (1.0f / sqrtf(fmaxf(len2, TINY_LEN2)));
-      absorbed = dot(new_d, hit.normal) <= 0.0f || len2 < TINY_LEN2;
-    }
-  } else if (EXT && hit.refl + __ldg(hit.ext + X_TRANSP) > r_spec) {
-    new_d = glass_scatter(state, hit, d);
-  } else {
-    new_d = cosine_hemisphere(state, hit.normal);
-  }
-  att = att * hit.color;
-  V3 new_o = hit.p + new_d * RAY_EPS;
-
-  if (bounce_idx > RR_START_BOUNCE) {
-    float r_rr = next_f32(state);
-    float m = fmaxf(att.x, fmaxf(att.y, att.z));
-    float p_surv = fminf(m, RR_MAX_SURVIVAL);
-    if (p_surv < r_rr || p_surv <= 0.0f) return false;
-    att = {att.x / p_surv, att.y / p_surv, att.z / p_surv};
-  }
-  if (absorbed) return false;
-  o = new_o;
-  d = new_d;
-  return true;
-}
-
-__device__ __forceinline__ void gen_ray(const Frame& f, uint32_t& state, float xf, float yf, V3& o,
-                                        V3& d) {
-  float rx = next_f32(state);
-  float ry = next_f32(state);
-  float u = (xf + rx) / f.w1;
-  float v = (f.h1 - yf + ry) / f.h1;
-  float ndc_x = 2.0f * u - 1.0f;
-  float ndc_y = (2.0f * v - 1.0f) * f.inv_char_aspect;
-  float vx = f.half_w * ndc_x;
-  float vy = f.half_h * ndc_y;
-  V3 fwd = {f.pose[3], f.pose[4], f.pose[5]};
-  V3 right = {f.pose[6], f.pose[7], f.pose[8]};
-  V3 up = {f.pose[9], f.pose[10], f.pose[11]};
-  d = normalize(right * vx + up * vy + fwd);
-  o = {f.pose[0], f.pose[1], f.pose[2]};
-}
-
-// Samples [s0, quota) of one pixel continuing `state` (quota is the f32
-// absolute sample quota, as in the plain regeneration scheduler). Adds each
-// finished sample's radiance to csum (and its square to csumsq when
-// non-null) and returns the executed bounce iterations.
-template <bool EXT>
-__device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc, const Tex& tx,
-                                                uint32_t& state, int s0, float quota, float xf,
-                                                float yf, V3& csum, V3* csumsq, float& rays) {
-  unsigned iters = 0;
-  for (int s = s0; (float)s < quota; ++s) {
-    state = pcg_hash(state + (uint32_t)s * 5096u);
-    V3 o, d;
-    gen_ray(f, state, xf, yf, o, d);
-    V3 att = {1.0f, 1.0f, 1.0f}, acc = {0.0f, 0.0f, 0.0f};
-    for (int b = 0; b < f.max_depth; ++b) {
-      ++iters;
-      if (!bounce_step<EXT>(sc, tx, state, o, d, att, acc, b, rays)) break;
-    }
-    csum = csum + acc;
-    if (csumsq) *csumsq = *csumsq + acc * acc;
-  }
-  return iters;
-}
-
-// Executed lane-iterations: 32 x the warp's largest iteration count, summed
-// over warps — the SIMT counterpart of the TPU kernels' per-tile iteration
-// plane (every lane of a warp waits for its slowest lane). Every thread of
-// the warp must call this.
-__device__ __forceinline__ void count_warp_iters(unsigned iters, unsigned long long* total) {
-  unsigned m = __reduce_max_sync(0xffffffffu, iters);
-  if ((threadIdx.x & 31u) == 0u) atomicAdd(total, 32ull * m);
-}
-
 // ------------------------------------------- transport and camera (XT)
 
 enum { T_REFERENCE = 0, T_UNBIASED = 1, T_MIS = 2 };
@@ -684,13 +544,6 @@ struct Xt {
   float hg_1mg2, hg_1pg2, hg_1mg, hg_2g;
   float aperture, focus, inv_n_lights;
 };
-
-// (u, v) completing the unit w: u from the y axis when |w.x| > 0.1, else
-// from the x axis (sampling.orthonormal_basis).
-__device__ __forceinline__ void orthonormal_basis(V3 w, V3& u, V3& v) {
-  u = fabsf(w.x) > 0.1f ? normalize(V3{w.z, 0.0f, -w.x}) : normalize(V3{0.0f, -w.z, w.y});
-  v = cross(w, u);
-}
 
 // Henyey-Greenstein direction about the incoming d (two draws), g != 0.
 __device__ __forceinline__ V3 henyey_greenstein_dir(const Xt& xt, uint32_t& state, V3 d) {
@@ -720,124 +573,10 @@ __device__ __forceinline__ float fuzz_pdf(float cos_r, float rough) {
   return inside ? (2.0f * cos_r * cos_r - c) / fmaxf(denom, DENOM_FLOOR) : 0.0f;
 }
 
-// What NEE at one vertex needs besides the light: the point, its normal
-// and albedo / pi (or the phase at a volume scatter point), and the MIS
-// inputs (delta-branch probability, the fuzz lobe, the incoming direction
-// for the phase).
-struct NeeAt {
-  V3 p, normal, brdf;
-  bool scatter;
-  V3 d_in;
-  float refl, rough, m_refl;
-  V3 m_dir;
-};
-
-// The estimate toward light point lp (normal ln, area, emission); `psel`
-// the pick probability of one-light NEE, 0 when every light is sampled.
-// Returns false when the light is blocked or faces away (ops/tracer.py
-// _nee_sample).
-__device__ __forceinline__ bool nee_sample(const Scene& sc, const Xt& xt, const NeeAt& at,
-                                           V3 att, V3 lp, V3 ln, float area, V3 emission,
-                                           float psel, V3& contrib) {
-  V3 lvec = lp - at.p;
-  float ldist = sqrtf(dot(lvec, lvec));
-  V3 ldir = {lvec.x / ldist, lvec.y / ldist, lvec.z / ldist};
-  V3 shadow_o = at.scatter ? at.p : at.p + at.normal * RAY_EPS;
-  V3 sh_dir = ldir;
-  float sh_tmax = ldist - RAY_EPS;
-  const bool mis = xt.transport == T_MIS;
-  if (mis) {  // the segment from the offset origin itself
-    V3 lvec_s = lp - shadow_o;
-    float ldist_s = sqrtf(dot(lvec_s, lvec_s));
-    sh_dir = {lvec_s.x / ldist_s, lvec_s.y / ldist_s, lvec_s.z / ldist_s};
-    sh_tmax = ldist_s - RAY_EPS;
-  }
-  bool blocked = occluded(sc, shadow_o, sh_dir, RAY_EPS, sh_tmax);
-  float cos_s = at.scatter ? 1.0f : fmaxf(dot(at.normal, ldir), 0.0f);
-  float cos_l = fmaxf(dot(ln, -ldir), 0.0f);
-  if (blocked || !(cos_s > 0.0f) || !(cos_l > 0.0f)) return false;
-  float geom_term = (cos_s * cos_l) / (ldist * ldist);
-  float weight = geom_term * area;
-  if (psel > 0.0f) weight = weight * (1.0f / psel);
-  float trans = 1.0f;
-  if (xt.fog) {
-    trans = expf(xt.neg_sigma * ldist);
-    weight = weight * trans;
-  }
-  if (mis) {
-    float l2 = ldist * ldist;
-    if (psel > 0.0f) l2 = psel * l2;
-    float p_l = l2 / (fmaxf(cos_l, PDF_FLOOR) * area);
-    float p_b, mix;
-    if (at.scatter) {
-      p_b = hg_phase(xt, dot(at.d_in, ldir));
-      mix = 1.0f;
-    } else {
-      p_b = (1.0f - at.refl) * cos_s * INV_PI;
-      mix = 1.0f - at.refl;
-      float metal = at.m_refl * fuzz_pdf(dot(at.m_dir, ldir), at.rough);
-      p_b = p_b + metal;
-      mix = mix + metal * PI_F / fmaxf(cos_s, PDF_FLOOR);
-    }
-    if (xt.fog) p_b = p_b * trans;
-    weight = weight * (mix * p_l / fmaxf(p_l + p_b, DENOM_FLOOR));
-  }
-  V3 brdf = at.brdf;
-  if (at.scatter && xt.hg) {
-    float ph = hg_phase(xt, dot(at.d_in, ldir));
-    brdf = V3{xt.albedo[0], xt.albedo[1], xt.albedo[2]} * ph;
-  }
-  contrib = min_components((brdf * emission) * (att * weight), NEE_CLAMP);
-  return true;
-}
-
-// A point lp with normal ln on light row L from two uniforms (the sphere
-// light's local direction, or the triangle light's barycentrics).
-__device__ __forceinline__ void light_point(const float* L, float r1, float r2, V3& lp, V3& ln) {
-  if ((int)__ldg(L) == SPHERE) {
-    float cos_theta = 1.0f - 2.0f * r1;
-    float sin_theta = sqrtf(1.0f - cos_theta * cos_theta);
-    float phi = TWO_PI * r2;
-    ln = {sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta};
-    lp = load3(L + 5) + ln * __ldg(L + 8);
-  } else {
-    float sqrt_r1 = sqrtf(r1);
-    float u = 1.0f - sqrt_r1;
-    float v = r2 * sqrt_r1;
-    lp = load3(L + 5) * (1.0f - u - v) + load3(L + 8) * u + load3(L + 11) * v;
-    ln = load3(L + 14);
-  }
-}
-
-// NEE at one vertex: every light in order (two draws each), or one-light
-// NEE: a selection draw, one pair, and the picked light's row, indexed by
-// the count of selection thresholds at or below the draw.
-__device__ __forceinline__ V3 direct_light_xt(const Scene& sc, const Xt& xt, uint32_t& state,
-                                              const NeeAt& at, V3 att) {
-  V3 direct = {0.0f, 0.0f, 0.0f}, c, lp, ln;
-  if (xt.light_mode == L_ALL) {
-    for (int l = 0; l < sc.n_lights; ++l) {
-      const float* L = sc.lights + LIGHT_W * l;
-      float r1 = next_f32(state);
-      float r2 = next_f32(state);
-      light_point(L, r1, r2, lp, ln);
-      if (nee_sample(sc, xt, at, att, lp, ln, __ldg(L + 4), load3(L + 1), 0.0f, c))
-        direct = direct + c;
-    }
-    return direct;
-  }
-  const int n = sc.n_lights;
-  const float* pick = sc.ext + XT_W * (sc.n_sph + sc.n_pln + sc.n_tri);
-  float u_sel = next_f32(state);
-  float r1 = next_f32(state);
-  float r2 = next_f32(state);
-  int idx = 0;
-  for (int i = 0; i < n - 1; ++i) idx += u_sel >= __ldg(pick + n + i) ? 1 : 0;
-  const float* L = sc.lights + LIGHT_W * idx;
-  light_point(L, r1, r2, lp, ln);
-  float psel = fmaxf(__ldg(pick + idx), PSEL_FLOOR);
-  if (nee_sample(sc, xt, at, att, lp, ln, __ldg(L + 4), load3(L + 1), psel, c)) direct = c;
-  return direct;
+// One-light NEE's pick table (probabilities, thresholds, 1 / total power),
+// after the xt rows.
+__device__ __forceinline__ const float* pick_table(const Scene& sc) {
+  return sc.ext + XT_W * (sc.n_sph + sc.n_pln + sc.n_tri);
 }
 
 // The hit's emission weight (ops/tracer.py _emission): 1 under
@@ -855,11 +594,10 @@ __device__ __forceinline__ bool emission_weight(const Scene& sc, const Xt& xt, c
   if (xt.light_mode == L_UNIFORM) {
     p_nee = p_nee * xt.inv_n_lights;
   } else if (xt.light_mode == L_POWER) {
-    const float* pick = sc.ext + XT_W * (sc.n_sph + sc.n_pln + sc.n_tri);
     V3 e = hit.emission;
     float lum = LUM_R * e.x + LUM_G * e.y + LUM_B * e.z;
     p_nee = hit.lia > 0.0f
-                ? t2 * lum * __ldg(pick + 2 * sc.n_lights) / fmaxf(cos_l, PDF_FLOOR)
+                ? t2 * lum * __ldg(pick_table(sc) + 2 * sc.n_lights) / fmaxf(cos_l, PDF_FLOOR)
                 : 0.0f;
   }
   float p_prev = fmaxf(emit, 0.0f);
@@ -869,60 +607,172 @@ __device__ __forceinline__ bool emission_weight(const Scene& sc, const Xt& xt, c
   return true;
 }
 
-// One bounce of a live path with the transport and camera extensions (and
-// EXT's): the fog distance draw, then the sky (a miss), or a volume scatter
-// event (NEE from the scatter point with the phase, a phase-sampled
-// direction, the albedo), or the surface hit (weighted emission, NEE, the
-// EXT scatter); Russian roulette; the next emit channel. Returns false
-// when the path ends here.
-__device__ __forceinline__ bool bounce_step_xt(const Scene& sc, const Tex& tx, const Xt& xt,
-                                               uint32_t& state, V3& o, V3& d, V3& att, V3& acc,
-                                               float& emit, int bounce_idx, float& rays) {
-  Hit hit = closest_hit<true, true>(sc, o, d);
+// ------------------------------------------------------------------- path
+
+// What NEE at one vertex needs besides the light: the point, its normal
+// and albedo / pi; XT: whether it is a volume scatter point (NEE then
+// takes the phase), and the MIS inputs (delta-branch probability, the fuzz
+// lobe, the incoming direction for the phase).
+struct NeeAt {
+  V3 p, normal, brdf;
+  bool scatter;
+  V3 d_in;
+  float refl, rough, m_refl;
+  V3 m_dir;
+};
+
+// NEE at one vertex: one estimate per light, in light order (two draws
+// per light), or XT's one-light NEE: a selection draw, one pair, and the
+// picked light's row, indexed by the count of selection thresholds at or
+// below the draw, its estimate weighed by 1 / the pick probability. XT adds
+// the fog's transmittance, the MIS weight (the shadow ray then runs from
+// the offset origin itself) and the phase at a scatter point
+// (ops/tracer.py _nee_sample).
+template <bool XT>
+__device__ __forceinline__ V3 direct_light(const Scene& sc, const Xt& xt, uint32_t& state,
+                                           const NeeAt& at, V3 att) {
+  const bool one = XT && xt.light_mode != L_ALL;
+  const bool scatter = XT && at.scatter;
+  const bool mis = XT && xt.transport == T_MIS;
+  V3 direct = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < (one ? 1 : sc.n_lights); ++l) {
+    const float* L = sc.lights + LIGHT_W * l;
+    float u_sel = 0.0f, psel = 0.0f;
+    if (one) u_sel = next_f32(state);
+    float r1 = next_f32(state);
+    float r2 = next_f32(state);
+    if (one) {  // the picked light's row
+      const float* pick = pick_table(sc);
+      int idx = 0;
+      for (int i = 0; i < sc.n_lights - 1; ++i) idx += u_sel >= __ldg(pick + sc.n_lights + i) ? 1 : 0;
+      psel = fmaxf(__ldg(pick + idx), PSEL_FLOOR);
+      L = sc.lights + LIGHT_W * idx;
+    }
+    V3 lp, ln;
+    if ((int)__ldg(L) == SPHERE) {
+      float cos_theta = 1.0f - 2.0f * r1;
+      float sin_theta = sqrtf(1.0f - cos_theta * cos_theta);
+      float phi = TWO_PI * r2;
+      ln = {sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta};
+      lp = load3(L + 5) + ln * __ldg(L + 8);
+    } else {
+      float sqrt_r1 = sqrtf(r1);
+      float u = 1.0f - sqrt_r1;
+      float v = r2 * sqrt_r1;
+      lp = load3(L + 5) * (1.0f - u - v) + load3(L + 8) * u + load3(L + 11) * v;
+      ln = load3(L + 14);
+    }
+    V3 lvec = lp - at.p;
+    float ldist = sqrtf(dot(lvec, lvec));
+    V3 ldir = {lvec.x / ldist, lvec.y / ldist, lvec.z / ldist};
+    V3 shadow_o = scatter ? at.p : at.p + at.normal * RAY_EPS;
+    V3 sh_dir = ldir;
+    float sh_tmax = ldist - RAY_EPS;
+    if (mis) {
+      V3 lvec_s = lp - shadow_o;
+      float ldist_s = sqrtf(dot(lvec_s, lvec_s));
+      sh_dir = {lvec_s.x / ldist_s, lvec_s.y / ldist_s, lvec_s.z / ldist_s};
+      sh_tmax = ldist_s - RAY_EPS;
+    }
+    bool blocked = occluded(sc, shadow_o, sh_dir, RAY_EPS, sh_tmax);
+    float cos_s = scatter ? 1.0f : fmaxf(dot(at.normal, ldir), 0.0f);
+    float cos_l = fmaxf(dot(ln, -ldir), 0.0f);
+    if (!blocked && cos_s > 0.0f && cos_l > 0.0f) {
+      float geom_term = (cos_s * cos_l) / (ldist * ldist);
+      float weight = geom_term * __ldg(L + 4);
+      V3 brdf = at.brdf;
+      if (XT) {
+        if (one) weight = weight * (1.0f / psel);
+        float trans = 1.0f;
+        if (xt.fog) {
+          trans = expf(xt.neg_sigma * ldist);
+          weight = weight * trans;
+        }
+        if (mis) {
+          float l2 = ldist * ldist;
+          if (one) l2 = psel * l2;
+          float p_l = l2 / (fmaxf(cos_l, PDF_FLOOR) * __ldg(L + 4));
+          float p_b, mix;
+          if (scatter) {
+            p_b = hg_phase(xt, dot(at.d_in, ldir));
+            mix = 1.0f;
+          } else {
+            p_b = (1.0f - at.refl) * cos_s * INV_PI;
+            mix = 1.0f - at.refl;
+            float metal = at.m_refl * fuzz_pdf(dot(at.m_dir, ldir), at.rough);
+            p_b = p_b + metal;
+            mix = mix + metal * PI_F / fmaxf(cos_s, PDF_FLOOR);
+          }
+          if (xt.fog) p_b = p_b * trans;
+          weight = weight * (mix * p_l / fmaxf(p_l + p_b, DENOM_FLOOR));
+        }
+        if (scatter && xt.hg)
+          brdf = V3{xt.albedo[0], xt.albedo[1], xt.albedo[2]} * hg_phase(xt, dot(at.d_in, ldir));
+      }
+      V3 contrib = (brdf * load3(L + 1)) * (att * weight);
+      direct = direct + min_components(contrib, NEE_CLAMP);
+    }
+  }
+  return direct;
+}
+
+// One bounce of a live path. Returns false when the path ends here (a miss
+// adds the sky; Russian roulette kills; EXT: a fuzzed mirror direction at
+// or below the surface absorbs). `rays` counts owed sweeps: one
+// closest-hit plus one shadow sweep per light (XT: one under one-light
+// NEE). XT opens with the fog's distance draw, which may put a volume
+// scatter event before the surface (NEE from the scatter point with the
+// phase, a phase-sampled direction, the albedo), weighs the hit's emission
+// by the transport, and ends with the next emit channel.
+template <bool EXT, bool XT>
+__device__ __forceinline__ bool bounce_step(const Scene& sc, const Tex& tx, const Xt& xt,
+                                            uint32_t& state, V3& o, V3& d, V3& att, V3& acc,
+                                            float& emit, int bounce_idx, float& rays) {
+  static_assert(EXT || !XT, "XT implies EXT");
+  Hit hit = closest_hit<EXT, XT>(sc, o, d);
   rays += 1.0f;
   bool scatter = false;
   V3 sp;
-  if (xt.fog) {
+  if (XT && xt.fog) {
     float u_d = next_f32(state);
     float t_scat = logf(fmaxf(1.0f - u_d, TINY_LEN2)) * xt.neg_inv_sigma;
     scatter = t_scat < (hit.found ? hit.t : T_FAR);
     sp = o + d * t_scat;
   }
   if (!hit.found && !scatter) {
-    acc = acc + (tx.sky_lo >= 0 ? sky_radiance(tx, d) : sky_color(d)) * att;
+    acc = acc + (EXT && tx.sky_lo >= 0 ? sky_radiance(tx, d) : sky_color(d)) * att;
     return false;
   }
-  const bool mis = xt.transport == T_MIS;
+  const bool mis = XT && xt.transport == T_MIS;
   NeeAt at;
   at.scatter = scatter;
   at.d_in = d;
-  float transp = 0.0f, rough = 0.0f;
   if (scatter) {  // (the surface inputs are not read at a scatter point)
     at.p = sp;
     at.normal = at.m_dir = d;
     at.brdf = V3{xt.iso_phase[0], xt.iso_phase[1], xt.iso_phase[2]};
     at.refl = at.rough = at.m_refl = 0.0f;
   } else {
-    shade_hit(tx, hit);
-    float w;
-    if (emission_weight(sc, xt, hit, d, emit, w))
+    if (EXT) shade_hit(tx, hit);
+    float w = 1.0f;
+    if (!XT || emission_weight(sc, xt, hit, d, emit, w))
       acc = acc + (mis ? hit.emission * (att * w) : hit.emission * att);
-    transp = __ldg(hit.ext + X_TRANSP);
-    rough = __ldg(hit.ext + X_ROUGH);
     at.p = hit.p;
     at.normal = hit.normal;
     at.brdf = hit.color * INV_PI;
-    at.refl = hit.refl + transp;
-    at.rough = rough;
-    at.m_refl = hit.refl;
-    at.m_dir = reflect(d, hit.normal);
+    if (XT) {
+      at.refl = hit.refl + __ldg(hit.ext + X_TRANSP);
+      at.rough = __ldg(hit.ext + X_ROUGH);
+      at.m_refl = hit.refl;
+      at.m_dir = reflect(d, hit.normal);
+    }
   }
-  V3 direct = direct_light_xt(sc, xt, state, at, att);
-  // No matte NEE ghost on glass (scaled by the non-glass share) but under
-  // 'mis', which weighs it in.
-  if (!mis && !scatter) direct = direct * (1.0f - transp);
+  V3 direct = direct_light<XT>(sc, xt, state, at, att);
+  // EXT: no matte NEE ghost on glass (scaled by the non-glass share), but
+  // under 'mis', which weighs it in.
+  if (EXT && !mis && !scatter) direct = direct * (1.0f - __ldg(hit.ext + X_TRANSP));
   acc = acc + direct;
-  rays += xt.light_mode == L_ALL ? (float)sc.n_lights : 1.0f;
+  rays += XT && xt.light_mode != L_ALL ? 1.0f : (float)sc.n_lights;
 
   V3 new_d, new_o;
   bool absorbed = false, delta = false, fuzzed = false;
@@ -933,16 +783,17 @@ __device__ __forceinline__ bool bounce_step_xt(const Scene& sc, const Tex& tx, c
   } else {
     float r_spec = next_f32(state);
     if (hit.refl > r_spec) {
-      new_d = at.m_dir;
+      new_d = reflect(d, hit.normal);
       delta = true;
-      if (rough > 0.0f) {  // fuzzy mirror: two more draws
+      float rough = EXT ? __ldg(hit.ext + X_ROUGH) : 0.0f;
+      if (rough > 0.0f) {  // fuzzy mirror (EXT): two more draws
         V3 raw = new_d + uniform_sphere_dir(state) * rough;
         float len2 = dot(raw, raw);
         new_d = raw * (1.0f / sqrtf(fmaxf(len2, TINY_LEN2)));
         absorbed = dot(new_d, hit.normal) <= 0.0f || len2 < TINY_LEN2;
         fuzzed = true;
       }
-    } else if (hit.refl + transp > r_spec) {
+    } else if (EXT && hit.refl + __ldg(hit.ext + X_TRANSP) > r_spec) {
       new_d = glass_scatter(state, hit, d);
       delta = true;
     } else {
@@ -960,30 +811,33 @@ __device__ __forceinline__ bool bounce_step_xt(const Scene& sc, const Tex& tx, c
     att = {att.x / p_surv, att.y / p_surv, att.z / p_surv};
   }
   if (absorbed) return false;
-  // The next emit channel (ops/tracer.py _next_emit).
-  if (!mis) {
-    emit = !scatter && delta ? 1.0f : 0.0f;
-  } else if (scatter) {
-    emit = hg_phase(xt, dot(d, new_d));
-  } else {
-    float cos_new = fmaxf(dot(hit.normal, new_d), 0.0f);
-    float p_cont = (1.0f - at.refl) * cos_new * INV_PI;
-    p_cont = p_cont + hit.refl * fuzz_pdf(dot(at.m_dir, new_d), rough);
-    emit = delta && !fuzzed ? -1.0f : p_cont;
+  if (XT) {  // the next emit channel (ops/tracer.py _next_emit)
+    if (!mis) {
+      emit = !scatter && delta ? 1.0f : 0.0f;
+    } else if (scatter) {
+      emit = hg_phase(xt, dot(d, new_d));
+    } else {
+      float cos_new = fmaxf(dot(hit.normal, new_d), 0.0f);
+      float p_cont = (1.0f - at.refl) * cos_new * INV_PI;
+      p_cont = p_cont + at.m_refl * fuzz_pdf(dot(at.m_dir, new_d), at.rough);
+      emit = delta && !fuzzed ? -1.0f : p_cont;
+    }
   }
   o = new_o;
   d = new_d;
   return true;
 }
 
-// gen_ray with the stratified jitter (base samples s < base land in cell
-// s mod g^2 of the g x g sub-pixel grid) and the thin lens (two more draws:
-// a point on the lens disk aiming at the pinhole ray's focus-plane point).
-__device__ __forceinline__ void gen_ray_xt(const Frame& f, const Xt& xt, uint32_t& state, int s,
-                                           float xf, float yf, V3& o, V3& d) {
+// The camera ray through pixel (xf, yf), jittered by two draws. XT adds
+// the stratified jitter (base samples s < base land in cell s mod g^2 of
+// the g x g sub-pixel grid) and the thin lens (two more draws: a point on
+// the lens disk aiming at the pinhole ray's focus-plane point).
+template <bool XT>
+__device__ __forceinline__ void gen_ray(const Frame& f, const Xt& xt, uint32_t& state, int s,
+                                        float xf, float yf, V3& o, V3& d) {
   float rx = next_f32(state);
   float ry = next_f32(state);
-  if (xt.strat_g > 1 && s < xt.base) {
+  if (XT && xt.strat_g > 1 && s < xt.base) {
     const int m = xt.strat_g - 1;
     const float inv_g = 1.0f / (float)xt.strat_g;  // a power of two: exact
     rx = ((float)(s & m) + rx) * inv_g;
@@ -1000,7 +854,7 @@ __device__ __forceinline__ void gen_ray_xt(const Frame& f, const Xt& xt, uint32_
   V3 up = {f.pose[9], f.pose[10], f.pose[11]};
   d = normalize(right * vx + up * vy + fwd);
   o = {f.pose[0], f.pose[1], f.pose[2]};
-  if (xt.dof) {
+  if (XT && xt.dof) {
     float r1 = next_f32(state);
     float r2 = next_f32(state);
     float lr = xt.aperture * sqrtf(r1);
@@ -1012,26 +866,40 @@ __device__ __forceinline__ void gen_ray_xt(const Frame& f, const Xt& xt, uint32_
   }
 }
 
-// run_samples with the XT device path.
-__device__ __forceinline__ unsigned run_samples_xt(const Frame& f, const Scene& sc, const Tex& tx,
-                                                   const Xt& xt, uint32_t& state, int s0,
-                                                   float quota, float xf, float yf, V3& csum,
-                                                   V3* csumsq, float& rays) {
+// Samples [s0, quota) of one pixel continuing `state` (quota is the f32
+// absolute sample quota, as in the plain regeneration scheduler). Adds each
+// finished sample's radiance to csum (and its square to csumsq when
+// non-null) and returns the executed bounce iterations. XT starts each
+// path's emit channel at the transport's fresh value.
+template <bool EXT, bool XT>
+__device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc, const Tex& tx,
+                                                const Xt& xt, uint32_t& state, int s0,
+                                                float quota, float xf, float yf, V3& csum,
+                                                V3* csumsq, float& rays) {
   unsigned iters = 0;
   for (int s = s0; (float)s < quota; ++s) {
     state = pcg_hash(state + (uint32_t)s * 5096u);
     V3 o, d;
-    gen_ray_xt(f, xt, state, s, xf, yf, o, d);
+    gen_ray<XT>(f, xt, state, s, xf, yf, o, d);
     V3 att = {1.0f, 1.0f, 1.0f}, acc = {0.0f, 0.0f, 0.0f};
-    float emit = xt.emit_fresh;
+    float emit = XT ? xt.emit_fresh : 0.0f;
     for (int b = 0; b < f.max_depth; ++b) {
       ++iters;
-      if (!bounce_step_xt(sc, tx, xt, state, o, d, att, acc, emit, b, rays)) break;
+      if (!bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays)) break;
     }
     csum = csum + acc;
     if (csumsq) *csumsq = *csumsq + acc * acc;
   }
   return iters;
+}
+
+// Executed lane-iterations: 32 x the warp's largest iteration count, summed
+// over warps — the SIMT counterpart of the TPU kernels' per-tile iteration
+// plane (every lane of a warp waits for its slowest lane). Every thread of
+// the warp must call this.
+__device__ __forceinline__ void count_warp_iters(unsigned iters, unsigned long long* total) {
+  unsigned m = __reduce_max_sync(0xffffffffu, iters);
+  if ((threadIdx.x & 31u) == 0u) atomicAdd(total, 32ull * m);
 }
 
 }  // namespace trt

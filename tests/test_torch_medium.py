@@ -9,10 +9,10 @@ must agree bit for bit; values to rtol 1e-5 / atol 1e-6 (XLA-CPU rounds
 sqrt, sin, cos, log and exp by an ulp otherwise than PyTorch on the CPU,
 and contracts multiply-adds). Frames (64x16, 8 spp, depth 3, below the
 roulette start) must agree in owed rays and per-pixel samples; radiance
-within rtol 1e-4 / atol 1e-5 except on knife-edge pixels, at most 1% of
-them: an ulp of log moves a fog scatter distance, or of sin and cos a
-scattered or lens direction, across an edge, which changes one sample's
-radiance but no decision.
+within rtol 1e-4 / atol 1e-5 except on knife-edge pixels, at most 2 in a
+frame or a run of steps, each at most 1e-4 off: an ulp of log moves a fog
+scatter distance, or of sin and cos a scattered or lens direction, which
+moves one sample's radiance by an ulp-sized step but changes no decision.
 """
 
 import jax
@@ -49,7 +49,8 @@ POSE = Camera().pose()
 N = 4096
 RTOL, ATOL = 1e-5, 1e-6  # lane-wise values
 F_RTOL, F_ATOL = 1e-4, 1e-5  # frame radiance
-KNIFE = 0.01  # the share of knife-edge pixels a frame may have (docstring)
+KNIFE_PIXELS = 2  # knife-edge pixels a frame may have (docstring)
+KNIFE_ATOL = 1e-4  # how far a knife edge may move a pixel
 KW = dict(width=64, height=16, samples_per_pixel=8, max_depth=3)
 SEEDS = (1001, 1002)
 FOGS = {"iso": (0.15, (1.0, 1.0, 1.0), 0.0),
@@ -181,8 +182,12 @@ FRAME_CASES = [("fog-iso", "reference", dict(fog="iso")),
                ("stratified", "reference", dict(sampler="stratified"))]
 
 
-def _outliers(acc, want):
-    return (np.abs(acc - want) > F_ATOL + F_RTOL * np.abs(want)).any(0)
+def _knife_edges(acc, want):
+    """The pixels off by more than the frame tolerance, once no pixel is
+    off by more than KNIFE_ATOL."""
+    err = np.abs(acc - want)
+    assert err.max() <= KNIFE_ATOL, f"a pixel is {err.max()} off"
+    return (err > F_ATOL + F_RTOL * np.abs(want)).any(0)
 
 
 @pytest.mark.parametrize("name, transport, over", FRAME_CASES,
@@ -199,8 +204,8 @@ def test_render_frame_matches_jax_oracle(name, transport, over):
         cur, _var, total, rays, occ = tracer.render_frame(POSE, seed, 0)
         assert float(rays) == float(j.rays)
         np.testing.assert_array_equal(total.numpy(), j.state.samples)
-        bad = _outliers(np.stack([c.numpy() for c in cur]), j.state.acc)
-        assert bad.mean() <= KNIFE, f"{bad.sum()} pixels off"
+        bad = _knife_edges(np.stack([c.numpy() for c in cur]), j.state.acc)
+        assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
         assert 0.0 < float(occ) <= 1.0
 
 
@@ -224,8 +229,8 @@ def test_render_step_matches_jax_step_in_fog_with_dof_and_strata():
         assert float(out.rays) == float(j.rays)
         np.testing.assert_array_equal(out.state.samples.numpy(),
                                       j.state.samples)
-        bad |= _outliers(out.state.acc.numpy(), j.state.acc)
-    assert bad.mean() <= KNIFE, f"{bad.sum()} pixels off"
+        bad |= _knife_edges(out.state.acc.numpy(), j.state.acc)
+    assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
 
 
 def test_animated_fog_matches_jax_dynamic_step():
@@ -243,7 +248,8 @@ def test_animated_fog_matches_jax_dynamic_step():
         assert float(out.rays) == float(j.rays), t
         np.testing.assert_array_equal(out.state.samples.numpy(),
                                       j.state.samples)
-        assert _outliers(out.state.acc.numpy(), j.state.acc).mean() <= KNIFE
+        bad = _knife_edges(out.state.acc.numpy(), j.state.acc)
+        assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
 
 
 def test_chunked_pipeline_in_fog_equals_plain_frame():

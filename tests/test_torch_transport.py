@@ -11,11 +11,13 @@ must agree bit for bit; values to rtol 1e-5 / atol 1e-6 (XLA-CPU rounds
 sqrt, sin, cos and exp by an ulp otherwise than PyTorch on the CPU, and
 contracts multiply-adds). Frames (64x16, 8 spp, depth 3, below the
 roulette start) must agree in owed rays and per-pixel samples; radiance
-within rtol 1e-4 / atol 1e-5 except on knife-edge pixels, at most 1% of
-them: an ulp of those transcendentals moves a refracted or fuzzed
-direction, or a sphere light's sampled point, across an edge (showcase's
-glass and rough metal, the lights:4 spheres), which changes one sample's
-radiance but no decision.
+within rtol 1e-4 / atol 1e-5 except on knife-edge pixels, at most 2 in a
+frame or a run of steps. An ulp of those transcendentals moves a sphere
+light's sampled point (the lights:4 spheres), which moves one sample's
+radiance by an ulp-sized step: such a pixel is at most 1e-4 off. On
+showcase under 'mis' it moves a refracted or fuzzed direction across the
+edge of a glass or rough-metal sphere, so one of the frame's 8 samples
+sees the other side: such a pixel is at most 1/8 off.
 """
 
 import jax
@@ -53,7 +55,8 @@ POSE = Camera().pose()
 N = 4096
 RTOL, ATOL = 1e-5, 1e-6  # lane-wise values
 F_RTOL, F_ATOL = 1e-4, 1e-5  # frame radiance
-KNIFE = 0.01  # the share of knife-edge pixels a frame may have (docstring)
+KNIFE_PIXELS = 2  # knife-edge pixels a frame may have (docstring)
+KNIFE_ATOL = 1e-4  # how far an ulp-sized knife edge may move a pixel
 KW = dict(width=64, height=16, samples_per_pixel=8, max_depth=3)
 SEEDS = (1001, 1002)
 
@@ -262,10 +265,16 @@ FRAME_CASES = [("Cornell_Box", "unbiased", {}), ("Cornell_Box", "mis", {}),
                ("lights:4", "reference", {"light_sample": "uniform"}),
                ("lights:4", "reference", {"light_sample": "power"}),
                ("mixed-power", "mis", {})]
+# One sample of the frame's 8 across a glass or rough-metal edge (docstring).
+EDGE_ATOL = {"showcase": 1.0 / KW["samples_per_pixel"]}
 
 
-def _outliers(acc, want):
-    return (np.abs(acc - want) > F_ATOL + F_RTOL * np.abs(want)).any(0)
+def _knife_edges(acc, want, atol=KNIFE_ATOL):
+    """The pixels off by more than the frame tolerance, once no pixel is
+    off by more than `atol`."""
+    err = np.abs(acc - want)
+    assert err.max() <= atol, f"a pixel is {err.max()} off"
+    return (err > F_ATOL + F_RTOL * np.abs(want)).any(0)
 
 
 @pytest.mark.parametrize("name, transport, over", FRAME_CASES,
@@ -283,8 +292,9 @@ def test_render_frame_matches_jax_oracle(name, transport, over):
         cur, _var, total, rays, occ = tracer.render_frame(POSE, seed, 0)
         assert float(rays) == float(j.rays)
         np.testing.assert_array_equal(total.numpy(), j.state.samples)
-        bad = _outliers(np.stack([c.numpy() for c in cur]), j.state.acc)
-        assert bad.mean() <= KNIFE, f"{bad.sum()} pixels off"
+        bad = _knife_edges(np.stack([c.numpy() for c in cur]), j.state.acc,
+                           EDGE_ATOL.get(name, KNIFE_ATOL))
+        assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
         assert 0.0 < float(occ) <= 1.0
 
 
@@ -305,8 +315,8 @@ def test_render_step_matches_jax_step_with_one_light_mis():
         assert float(out.rays) == float(j.rays)
         np.testing.assert_array_equal(out.state.samples.numpy(),
                                       j.state.samples)
-        bad |= _outliers(out.state.acc.numpy(), j.state.acc)
-    assert bad.mean() <= KNIFE, f"{bad.sum()} pixels off"
+        bad |= _knife_edges(out.state.acc.numpy(), j.state.acc)
+    assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
 
 
 def test_animated_one_light_mis_matches_jax_dynamic_step():
@@ -327,7 +337,8 @@ def test_animated_one_light_mis_matches_jax_dynamic_step():
         assert float(out.rays) == float(j.rays), t
         np.testing.assert_array_equal(out.state.samples.numpy(),
                                       j.state.samples)
-        assert _outliers(out.state.acc.numpy(), j.state.acc).mean() <= KNIFE
+        bad = _knife_edges(out.state.acc.numpy(), j.state.acc)
+        assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
 
 
 def test_pipeline_matches_jax_pallas_sorted_mis():
@@ -342,8 +353,8 @@ def test_pipeline_matches_jax_pallas_sorted_mis():
     cur, _v, tot, rays, _o = kernels.make_sorted_render_frame(tr)(POSE, 11, 0)
     assert float(rays) == float(rays_p)
     np.testing.assert_array_equal(tot.numpy(), np.asarray(tot_p))
-    bad = _outliers(np.stack([c.numpy() for c in cur]), _np3(cur_p))
-    assert bad.mean() <= KNIFE, f"{bad.sum()} pixels off"
+    bad = _knife_edges(np.stack([c.numpy() for c in cur]), _np3(cur_p))
+    assert bad.sum() <= KNIFE_PIXELS, f"{bad.sum()} pixels off"
 
 
 def test_one_light_occupancy_charges_one_shadow_sweep():
