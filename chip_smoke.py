@@ -64,6 +64,18 @@ Phases, each reported on lines starting with its tag:
             manylights (every light, the reference kernels); cli.main with
             --mis --fog; the XT kernels timed at the fog and stress:1024
             shapes
+  [accel]   the opt-in traversals (csrc/kernel_accel.cu): each grid and
+            gathered kernel against its plain version at the JAX bench's
+            stress1024 shapes (200x100, 8 spp, depth 6; gathered also at
+            mesh1280, icosphere:3), bit for bit (rays, budgets, states,
+            radiance; kernel B on a stream with budgeted entries), with the
+            kernels' traversal counters (blocks swept and culled; walks,
+            tests, advances, walks at the trip cap, which must be 0) equal
+            to the plain version's count, timed there; Engine at stress256,
+            stress1024 and mesh1280 under baked, auto (array), grid and
+            gathered, and at the north star under grid, with each
+            traversal's counters over the warm-up frame; cli.main with
+            --accel grid and --accel gathered
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. It prints
@@ -77,7 +89,9 @@ bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
 3.35 TB/s, whichever is larger; the EXT rows at the showcase and
 stress:1024-checker shapes; the XT rows at the fog and stress:1024 fog
-shapes), the nvidia-smi line, and as the last line
+shapes; the grid and gathered rows at the stress1024 shapes, their
+operations the slab tests, walk steps and primitive tests that the plain
+traversal counts), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
 prints no result; nothing falls back to the plain version or to the CPU.
 """
@@ -215,19 +229,33 @@ def _time_cuda(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def _time_plain(tr, fn):
-    """One counted run of a plain version (the FP32 operations of the
-    intersection tests it owes, ops/geometry.py ScenePrims.ops), which is
-    also the warm-up, then one timed run. Returns (ms, operations, the
-    timed run's output)."""
+def _plain_counted(tr, fn, stats=None):
+    """One counted run of a plain version: the FP32 operations of the
+    intersection tests it owes (ops/geometry.py ScenePrims.ops). Returns
+    (None for the time, operations, its output); appends an opt-in
+    traversal's counters to the list `stats`."""
     import torch
 
     tr.prims.ops = torch.zeros((), dtype=torch.float64, device=tr.device)
-    fn()
+    out = fn()
     ops = float(tr.prims.ops)
+    if stats is not None:
+        stats.append(tr.prims.stats.cpu())
     tr.prims.ops = None
+    return None, ops, out
+
+
+def _time_plain(tr, fn, stats=None):
+    """One counted run of a plain version (_plain_counted), which is also
+    the warm-up, then one timed run. Returns (ms, operations, the timed
+    run's output)."""
+    _, ops, _ = _plain_counted(tr, fn, stats)
     out = []
     return _time_cuda(lambda: out.append(fn()), 1, warm=False), ops, out[0]
+
+
+def _fmt_ms(ms) -> str:
+    return "not timed" if ms is None else f"{ms:.1f} ms"
 
 
 def _bound(ops, n_bytes, peak):
@@ -362,7 +390,8 @@ def phase_kernel_base_chunked(peak):
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
-                "extra_kernel_xt")
+                "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
+                "base_kernel_gathered", "extra_kernel_gathered")
 
 
 def _reset_launches():
@@ -378,18 +407,53 @@ def _launches():
     return {name: getattr(kernels, name).launches for name in LAUNCH_NAMES}
 
 
+def _traversal_counts(accel, counts) -> str:
+    """The kernels' traversal counters (CulledPrims.STATS,
+    GatheredPrims.STATS) in words."""
+    a, b, c, d = (float(v) for v in counts)
+    if accel == "grid":
+        return (f"{a:.0f} sweeps, {c / max(b + c, 1.0):.3f} of {b + c:.0f} "
+                f"block tests culled, {d / max(a, 1.0):.2f} primitive tests "
+                "a sweep")
+    return (f"{a:.0f} walks, {b / max(a, 1.0):.2f} tests and "
+            f"{c / max(a, 1.0):.2f} advances a walk, {d:.0f} at the trip cap")
+
+
+def _counted_launch(tr, fn):
+    """fn() with the kernels' traversal counters of tracer `tr` on:
+    (output, counters)."""
+    import torch
+
+    tr.accel_stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tr.accel_stats.double().cpu()
+    finally:
+        tr.accel_stats = None
+
+
 def _run_engine(tag, label, scene, full_color, frames, animate=None,
-                transport="reference"):
+                transport="reference", accel="auto"):
     """Drive `frames` frames (after one warm-up) through Engine with the
-    launch counters reset first. Returns the launches by kernel."""
+    launch counters reset first. Returns the launches by kernel. With an
+    opt-in traversal the warm-up frame also reads its counters."""
     import torch
 
     from terminal_raytracer_tpu_torch.runtime.engine import Engine
 
     eng = Engine(scene, full_color=full_color, device="cuda",
-                 deterministic=SEED, animate=animate, transport=transport)
+                 deterministic=SEED, animate=animate, transport=transport,
+                 accel=accel)
     _reset_launches()
-    out = eng.render_one(eng.frame_count)  # warm-up
+    traversal = eng.step.tracer.traversal
+    if traversal:
+        _, counts = _counted_launch(eng.step.tracer,
+                                    lambda: eng.render_one(eng.frame_count))
+        if traversal == "gathered" and float(counts[3]) != 0.0:
+            fail(f"[{tag}] {label}: a walk reached the trip cap")
+    else:
+        eng.render_one(eng.frame_count)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rays = []
@@ -402,7 +466,8 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None,
     tr = eng.step.tracer
     accel, chunked = tr.accel, tr.chunk_base is not None
     n = frames + 1
-    sfx = "_xt" if tr.xt else "_ext" if tr.ext else ""
+    sfx = (f"_{tr.traversal}" if tr.traversal else "_xt" if tr.xt
+           else "_ext" if tr.ext else "")
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     want["base_kernel_chunked" + sfx if chunked else "base_kernel" + sfx] = n
     if tr.base_samples < tr.spp:
@@ -421,7 +486,9 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None,
           f"{total_rays / dt / 1e6:.1f} Mray/s, occupancy "
           f"{float(out.occupancy):.3f} (1 + {tr.nee_sweeps} sweeps an "
           f"iteration), launches {got}, finite {finite}, "
-          f"rgb range [{int(rgb.min())}, {int(rgb.max())}]", flush=True)
+          f"rgb range [{int(rgb.min())}, {int(rgb.max())}]"
+          + (f"; warm-up frame: {_traversal_counts(traversal, counts)}"
+             if traversal else ""), flush=True)
     if got != want:
         fail(f"[{tag}] {label}: launch counts {got}, expected {want}")
     if not finite or flat:
@@ -1034,6 +1101,106 @@ def phase_xt(peak):
     return launches, {k: (err[k], *timed[k]) for k in ("a", "b", "c")}
 
 
+# The opt-in traversals' kernels against their plain versions, at the JAX
+# bench's stress1024 and mesh1280 shapes: (label, scene, accel).
+ACCEL_KERNELS = (("stress1024", "stress:1024", "grid"),
+                 ("stress1024", "stress:1024", "gathered"),
+                 ("mesh1280", "icosphere:3", "gathered"))
+ACCEL_ENGINE = (("stress256", "stress:256"), ("stress1024", "stress:1024"),
+                ("mesh1280", "icosphere:3"))
+
+
+def _check_counts(label, k, p):
+    """The kernels' traversal counters `k` equal the plain traversal's `p`,
+    and (gathered) no walk reached the trip cap."""
+    print(f"[accel] {label}: kernel counters {[int(v) for v in k]}, plain "
+          f"{[int(v) for v in p]}", flush=True)
+    if not bool((k == p).all()):
+        fail(f"[accel] {label}: the kernel's traversal counters differ from "
+             "the plain version's")
+    if "gathered" in label and float(k[3]) != 0.0:
+        fail(f"[accel] {label}: a walk reached the trip cap")
+
+
+def phase_accel(peak):
+    """The opt-in traversals (module docstring). Returns (launches, results
+    by kernel: max abs error, ms, plain ms, bound at the stress1024
+    shapes)."""
+    from terminal_raytracer_tpu_torch import cli
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    res = {}
+    for label, name, accel in ACCEL_KERNELS:
+        tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda", accel=accel)
+        wrap_a = getattr(kernels, f"base_kernel_{accel}")
+        wrap_b = getattr(kernels, f"extra_kernel_{accel}")
+        tag = f"{label} {accel}"
+        # The plain versions are timed at the stress1024 shapes only (the
+        # walk's plain version steps every lane at once: seconds a call).
+        timed = label == "stress1024"
+        plain_run = _time_plain if timed else _plain_counted
+        k, kc = _counted_launch(tr, lambda: wrap_a(tr, pose, SEED, 0))
+        pc = []
+        plain_a, ops_a, p = plain_run(
+            tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0), pc)
+        err_a = _compare_base("accel", f"{tag} kernel A", k, p,
+                              ("additional", "var"))
+        _check_counts(f"{tag} kernel A", kc, pc[0])
+        print(f"[accel] {tag} kernel A: {_traversal_counts(accel, kc)}",
+              flush=True)
+        ms_a = _time_cuda(lambda: wrap_a(tr, pose, SEED, 0), 5)
+        s = kernels.sorted_stream(tr, k.state, k.additional)
+        args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        b, kc = _counted_launch(tr, lambda: wrap_b(*args))
+        pc = []
+        plain_b, ops_b, pb = plain_run(
+            tr, lambda: kernels.extra_kernel_plain(*args), pc)
+        err_b = _check_extra("accel", tag, s, b, pb)
+        _check_counts(f"{tag} kernel B", kc, pc[0])
+        ms_b = _time_cuda(lambda: wrap_b(*args), 5)
+        if err_a != 0.0 or err_b != 0.0:
+            fail(f"[accel] {tag}: a kernel is not bit-exact against its "
+                 "plain version")
+        fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
+        bound_a = _bound(ops_a, fixed + 44 * k.var.numel(), peak)
+        bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
+        print(f"[accel] {tag} shapes: base_kernel_{accel} {ms_a:.3f} ms "
+              f"(plain {_fmt_ms(plain_a)}, bound {bound_a[0]:.4f} ms by "
+              f"{bound_a[1]}: {ops_a:.4g} FP32 operations), "
+              f"extra_kernel_{accel} {ms_b:.3f} ms on "
+              f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries "
+              f"(plain {_fmt_ms(plain_b)}, bound {bound_b[0]:.4f} ms by "
+              f"{bound_b[1]}: {ops_b:.4g} operations)", flush=True)
+        if timed:
+            res[accel, "a"] = (err_a, ms_a, plain_a, bound_a)
+            res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
+
+    launches = {}
+    for label, name in ACCEL_ENGINE:
+        for accel in ("baked", "auto", "grid", "gathered"):
+            _add(launches, _run_engine(
+                "accel", f"{label} {accel}", _scene(name, 200, 100, 8, 6),
+                True, 8, accel=accel))
+    _add(launches, _run_engine("accel", "north star grid",
+                               _cornell(400, 200, 16, 32), True, 8,
+                               accel="grid"))
+    for accel in ("grid", "gathered"):
+        _reset_launches()
+        rc = cli.main(["--device", "cuda", "--full-color", "--scene",
+                       "stress:256", "--accel", accel, "--frames", "1"])
+        got = _launches()
+        print(f"[accel] cli.main --scene stress:256 --accel {accel} rc {rc}, "
+              f"launches {got}", flush=True)
+        want = dict(dict.fromkeys(LAUNCH_NAMES, 0),
+                    **{f"base_kernel_{accel}": 1, f"extra_kernel_{accel}": 1})
+        if rc != 0 or got != want:
+            fail(f"[accel] cli.main --accel {accel} failed")
+        _add(launches, got)
+    return launches, res
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -1058,6 +1225,8 @@ def main() -> int:
     _add(launches, ext_launches)
     xt_launches, xt = phase_xt(peak)
     _add(launches, xt_launches)
+    accel_launches, acc = phase_accel(peak)
+    _add(launches, accel_launches)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
@@ -1081,7 +1250,18 @@ def main() -> int:
             ("kernel_extra_xt", "extra_kernel_xt", "kernel_extra.cu", "1013",
              *xt["b"]),
             ("kernel_base_chunked_xt", "base_kernel_chunked_xt",
-             "kernel_base.cu", "739", *xt["c"]))
+             "kernel_base.cu", "739", *xt["c"]),
+            # The opt-in traversals, bound into kernel A at :808-809 and
+            # into kernel B at :1032-1033 (the culled sweep's scratch,
+            # _maybe_bind_sweep; the walk's tables, _gather_bind_front).
+            ("kernel_base_grid", "base_kernel_grid", "kernel_accel.cu",
+             "809", *acc["grid", "a"]),
+            ("kernel_extra_grid", "extra_kernel_grid", "kernel_accel.cu",
+             "1033", *acc["grid", "b"]),
+            ("kernel_base_gathered", "base_kernel_gathered",
+             "kernel_accel.cu", "808", *acc["gathered", "a"]),
+            ("kernel_extra_gathered", "extra_kernel_gathered",
+             "kernel_accel.cu", "1032", *acc["gathered", "b"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": ref + line, "launches": launches[counter],

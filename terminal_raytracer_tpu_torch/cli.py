@@ -40,8 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--accel", default="auto", choices=ACCELS,
                    help="traversal: baked, array (many primitives; from 512 "
                         "primitives auto also splits heavy pixels into "
-                        "chunks), or auto by primitive count; grid and "
-                        "gathered are not ported yet")
+                        "chunks), or auto by primitive count; opt-in: grid "
+                        "(block-culled sweep of Morton-ordered blocks) and "
+                        "gathered (per-ray uniform-grid walk; static scenes "
+                        "only)")
     p.add_argument("--animate", choices=("orbit", "pulse", "bob"),
                    default=None,
                    help="animate the scene (its values are rebuilt on the "
@@ -170,7 +172,7 @@ def main(argv=None) -> int:
                         threads=args.threads, verbose=args.verbose,
                         accel=args.accel, animate=args.animate,
                         transport=transport)
-    except ValueError as e:  # a traversal the port lacks
+    except ValueError as e:  # e.g. --accel gathered with --animate
         print(f"error: {e}", file=sys.stderr)
         return 2
 

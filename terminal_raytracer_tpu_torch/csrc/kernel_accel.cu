@@ -1,0 +1,67 @@
+// Kernels A and B of the sorted render pipeline over the opt-in traversals
+// (traverse.cuh): `--accel grid`, the block-culled sweep, and `--accel
+// gathered`, the grid walk.
+//
+// Replaces terminal_raytracer_tpu/ops/pallas_kernel.py kernel A
+// (make_base_kernel / kernel_base, :796) and kernel B (make_extra_kernel /
+// kernel_extra, :1028) built over accel.CulledPrims (the pl.when-guarded
+// block sweeps and their VMEM scratch, :71-88, :129-141) and over
+// gathered.GatheredPrims (the scratch-resident walk loop and its table
+// operands, :91-126, :144-180). Neither traversal splits a pixel's chain,
+// so there is no chunked kernel A here.
+//
+// One instantiation each, at the XT gate set of pipeline.cuh's kernels:
+// XT with every gate off is the reference path bit for bit, so these four
+// entry points serve reference, EXT and XT scenes alike (the port builds
+// xt tables for both traversals). The culled sweep reads the blocked
+// scene and its group table, the walk its grid; trt::Accel carries their
+// offsets, the grid's constants and the optional counter buffer.
+//
+// What bounds them on an H100: as kernel_base.cu / kernel_extra.cu (FP32
+// work behind divergent control flow, registers), with fewer primitive
+// tests per ray; the walk's loads are dependent (CSR entry, then the
+// primitive's row). A simple kernel that is right is the goal here.
+
+#include "pipeline.cuh"
+#include "traverse.cuh"
+
+// out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
+// state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
+// launch argument. Returns cudaGetLastError().
+extern "C" int trt_kernel_base_grid(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                    const trt::Accel* acc, const float* scene_buf, float* out,
+                                    long long* state_out, unsigned long long* iters,
+                                    void* stream) {
+  return launch_base<true, true, trt::Culled>(a, *tx, *xt, scene_buf, out, state_out, iters,
+                                              stream, *acc);
+}
+
+extern "C" int trt_kernel_base_gathered(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                        const trt::Accel* acc, const float* scene_buf, float* out,
+                                        long long* state_out, unsigned long long* iters,
+                                        void* stream) {
+  return launch_base<true, true, trt::Walk>(a, *tx, *xt, scene_buf, out, state_out, iters, stream,
+                                            *acc);
+}
+
+// xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
+// out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64; acc: the
+// traversal's launch argument. Returns cudaGetLastError().
+extern "C" int trt_kernel_extra_grid(const ExtraArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                     const trt::Accel* acc, const float* scene_buf, const int* xs,
+                                     const int* ys, const long long* state_in, const float* add,
+                                     const int* samp0, float* out, unsigned long long* iters,
+                                     void* stream) {
+  return launch_extra<true, true, trt::Culled>(a, *tx, *xt, scene_buf, xs, ys, state_in, add,
+                                               samp0, out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_gathered(const ExtraArgs* a, const trt::Tex* tx,
+                                         const trt::Xt* xt, const trt::Accel* acc,
+                                         const float* scene_buf, const int* xs, const int* ys,
+                                         const long long* state_in, const float* add,
+                                         const int* samp0, float* out,
+                                         unsigned long long* iters, void* stream) {
+  return launch_extra<true, true, trt::Walk>(a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0,
+                                             out, iters, stream, *acc);
+}

@@ -24,7 +24,10 @@
 // and end state, and no budget: the variance needs the pixel's totals,
 // which the glue adds in chunk order (ops/kernels.py).
 //
-// Both come in three instantiations of trace.cuh's device path: the
+// kernel_base is defined in pipeline.cuh (with kernel B, for the opt-in
+// traversals' instantiations in kernel_accel.cu); this file instantiates it
+// with the table sweep. Both come in three instantiations of trace.cuh's
+// device path: the
 // reference transport (trt_kernel_base, trt_kernel_base_chunked); EXT
 // (trt_kernel_base_ext, trt_kernel_base_chunked_ext), which replaces the
 // same Pallas kernel built with the texel-atlas operand
@@ -48,17 +51,10 @@
 // --fmad=false keeps their rounding equal to the plain version's (about 3%
 // slower, PERF.md).
 
-#include "trace.cuh"
+#include "pipeline.cuh"
 
-// Launch arguments, passed by value (mirrored by ctypes in ops/kernels.py).
-struct BaseArgs {
-  trt::Frame f;
-  int h_out, y0, base, spp;
-  uint32_t seed, frame;
-  float inv_base;   // f32(1 / base)
-  float max_extra;  // f32(spp - base) when base < spp, else 0
-};
-
+// Launch arguments of the chunked kernel, passed by value (mirrored by
+// ctypes in ops/kernels.py); BaseArgs is in pipeline.cuh.
 struct ChunkArgs {
   trt::Frame f;
   int h_out, y0, base, cb, n_chunks;
@@ -66,45 +62,6 @@ struct ChunkArgs {
 };
 
 namespace {
-
-template <bool EXT, bool XT>
-__global__ void __launch_bounds__(128)
-    kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
-                long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
-                trt::Tex tx, trt::Xt xt) {
-  const int n = a.h_out * a.f.width;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned my_iters = 0;
-  if (i < n) {
-    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-    const int x = i % a.f.width;
-    const int y = a.y0 + i / a.f.width;
-    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
-                                     a.frame);
-    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
-    float rays = 0.0f;
-    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, 0, (float)a.base, (float)x,
-                                         (float)y, csum, &csumsq, rays);
-    // Variance of the base samples and the adaptive budget (the
-    // fold_budget epilogue: tracer.variance_of + tracer.extra_quota).
-    trt::V3 mean = csum * a.inv_base;
-    trt::V3 dv = csumsq * a.inv_base - mean * mean;
-    float var = dv.x + dv.y + dv.z;
-    float additional = 0.0f;
-    if (a.base < a.spp && var > 10.0f) additional = fminf(floorf(var * 50.0f), a.max_extra);
-    out[0 * n + i] = csum.x;
-    out[1 * n + i] = csum.y;
-    out[2 * n + i] = csum.z;
-    out[3 * n + i] = csumsq.x;
-    out[4 * n + i] = csumsq.y;
-    out[5 * n + i] = csumsq.z;
-    out[6 * n + i] = rays;
-    out[7 * n + i] = var;
-    out[8 * n + i] = additional;
-    state_out[i] = (long long)state;
-  }
-  trt::count_warp_iters(my_iters, iters);
-}
 
 template <bool EXT, bool XT>
 __global__ void __launch_bounds__(128)
@@ -128,8 +85,9 @@ __global__ void __launch_bounds__(128)
     const int quota = min(s0 + a.cb, a.base);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
+    trt::Sweep tr(trt::Sweep::Launch{}, scene_buf);
     my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
-                                         (float)y, csum, &csumsq, rays);
+                                         (float)y, csum, &csumsq, rays, tr);
     out[0 * n + i] = csum.x;
     out[1 * n + i] = csum.y;
     out[2 * n + i] = csum.z;
@@ -140,18 +98,6 @@ __global__ void __launch_bounds__(128)
     state_out[i] = (long long)state;
   }
   trt::count_warp_iters(my_iters, iters);
-}
-
-template <bool EXT, bool XT>
-int launch_base(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
-                float* out, long long* state_out, unsigned long long* iters, void* stream) {
-  const int n = a->h_out * a->f.width;
-  if (n > 0) {
-    const int threads = 128;
-    kernel_base<EXT, XT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters, tx, xt);
-  }
-  return (int)cudaGetLastError();
 }
 
 template <bool EXT, bool XT>

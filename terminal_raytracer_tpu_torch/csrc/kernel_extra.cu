@@ -11,7 +11,9 @@
 // sort puts such threads together in whole warps, so those warps finish at
 // once.
 //
-// trt_kernel_extra_ext is the EXT instantiation (trace.cuh): the same
+// kernel_extra is defined in pipeline.cuh (with kernel A, for the opt-in
+// traversals' instantiations in kernel_accel.cu); this file instantiates it
+// with the table sweep. trt_kernel_extra_ext is the EXT instantiation (trace.cuh): the same
 // kernel for extension scenes, replacing the Pallas kernel built with the
 // texel-atlas operand (pallas_kernel.py _tex_ops/_tex_bind_front, bound at
 // :1031, :1078, :1093). trt_kernel_extra_xt is the XT instantiation, for
@@ -26,59 +28,7 @@
 // is right is the goal here; persistent threads and warp-level path
 // regeneration are later work. Built with --fmad=false like kernel A.
 
-#include "trace.cuh"
-
-// Launch arguments, passed by value (mirrored by ctypes in ops/kernels.py).
-struct ExtraArgs {
-  trt::Frame f;
-  int n_entries;
-};
-
-namespace {
-
-template <bool EXT, bool XT>
-__global__ void __launch_bounds__(128)
-    kernel_extra(ExtraArgs a, const float* __restrict__ scene_buf, const int* __restrict__ xs,
-                 const int* __restrict__ ys, const long long* __restrict__ state_in,
-                 const float* __restrict__ add, const int* __restrict__ samp0,
-                 float* __restrict__ out, unsigned long long* __restrict__ iters, trt::Tex tx,
-                 trt::Xt xt) {
-  const int n = a.n_entries;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned my_iters = 0;
-  if (i < n) {
-    trt::V3 esum = {0.0f, 0.0f, 0.0f};
-    float rays = 0.0f;
-    const float budget = add[i];
-    if (budget > 0.0f) {
-      const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-      uint32_t state = (uint32_t)state_in[i];
-      const int s0 = samp0[i];
-      my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, budget + (float)s0,
-                                           (float)xs[i], (float)ys[i], esum, nullptr, rays);
-    }
-    out[0 * n + i] = esum.x;
-    out[1 * n + i] = esum.y;
-    out[2 * n + i] = esum.z;
-    out[3 * n + i] = rays;
-  }
-  trt::count_warp_iters(my_iters, iters);
-}
-
-template <bool EXT, bool XT>
-int launch_extra(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
-                 const int* xs, const int* ys, const long long* state_in, const float* add,
-                 const int* samp0, float* out, unsigned long long* iters, void* stream) {
-  const int n = a->n_entries;
-  if (n > 0) {
-    const int threads = 128;
-    kernel_extra<EXT, XT><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx, xt);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "pipeline.cuh"
 
 // xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
 // out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64.

@@ -47,6 +47,11 @@
 // constants are uniform launch arguments (Xt), read by every thread alike,
 // so a branch on them never diverges. Each sits behind `if (XT && ...)`,
 // so the reference and EXT instantiations compile as if it were absent.
+//
+// The path functions take the traversal as a third template parameter TR:
+// Sweep, the table sweep above, for every kernel but the opt-in traversals
+// of traverse.cuh (the culled sweep and the grid walk). Sweep is an empty
+// object, so the kernels that take it compile as if it were absent.
 
 #pragma once
 
@@ -248,29 +253,11 @@ struct Hit {
 constexpr int XT_W = EXT_W + 1;
 constexpr int X_LIA = EXT_W;
 
-// Sweep spheres, planes, triangles; strictly closer wins, with the running
-// closest fed forward as each test's t_max; the winner's index picks the
-// material and normal; the normal is flipped to face the ray.
+// The hit record of primitive idx (-1: none) at distance `closest` (T_FAR:
+// a miss) along the ray: the winner's index picks the material and normal;
+// the normal is flipped to face the ray.
 template <bool EXT, bool XT = false>
-__device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
-  float closest = T_FAR;
-  int idx = -1, k = 0;
-  float t;
-  for (int i = 0; i < sc.n_sph; ++i, ++k) {
-    bool hit = sphere_t(o, d, sc.sph + SPH_W * i, RAY_EPS, closest, t);
-    t = hit ? t : -1.0f;
-    if (t > 0.0f && t < closest) { closest = t; idx = k; }
-  }
-  for (int i = 0; i < sc.n_pln; ++i, ++k) {
-    bool hit = plane_t(o, d, sc.pln + PLN_W * i, RAY_EPS, closest, false, t);
-    t = hit ? t : -1.0f;
-    if (t > 0.0f && t < closest) { closest = t; idx = k; }
-  }
-  for (int i = 0; i < sc.n_tri; ++i, ++k) {
-    bool hit = triangle_t(o, d, sc.tri + TRI_W * i, RAY_EPS, closest, t);
-    t = hit ? t : -1.0f;
-    if (t > 0.0f && t < closest) { closest = t; idx = k; }
-  }
+__device__ __forceinline__ Hit hit_at(const Scene& sc, V3 o, V3 d, float closest, int idx) {
   Hit h;
   h.found = closest < T_FAR;
   if (XT) h.t = closest;
@@ -298,6 +285,31 @@ __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
   return h;
 }
 
+// Sweep spheres, planes, triangles; strictly closer wins, with the running
+// closest fed forward as each test's t_max.
+template <bool EXT, bool XT = false>
+__device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+  float closest = T_FAR;
+  int idx = -1, k = 0;
+  float t;
+  for (int i = 0; i < sc.n_sph; ++i, ++k) {
+    bool hit = sphere_t(o, d, sc.sph + SPH_W * i, RAY_EPS, closest, t);
+    t = hit ? t : -1.0f;
+    if (t > 0.0f && t < closest) { closest = t; idx = k; }
+  }
+  for (int i = 0; i < sc.n_pln; ++i, ++k) {
+    bool hit = plane_t(o, d, sc.pln + PLN_W * i, RAY_EPS, closest, false, t);
+    t = hit ? t : -1.0f;
+    if (t > 0.0f && t < closest) { closest = t; idx = k; }
+  }
+  for (int i = 0; i < sc.n_tri; ++i, ++k) {
+    bool hit = triangle_t(o, d, sc.tri + TRI_W * i, RAY_EPS, closest, t);
+    t = hit ? t : -1.0f;
+    if (t > 0.0f && t < closest) { closest = t; idx = k; }
+  }
+  return hit_at<EXT, XT>(sc, o, d, closest, idx);
+}
+
 __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min, float t_max) {
   float t;
   for (int i = 0; i < sc.n_sph; ++i)
@@ -308,6 +320,24 @@ __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_mi
     if (triangle_t(o, d, sc.tri + TRI_W * i, t_min, t_max, t)) return true;
   return false;
 }
+
+// The traversal of the path functions below (their TR parameter): the
+// table sweep above. A traversal offers closest_hit<EXT, XT>, occluded and
+// flush (adds its per-thread counters to a launch's counter buffer; every
+// thread of the warp calls it). traverse.cuh holds the opt-in ones.
+struct Sweep {
+  struct Launch {};  // its launch argument: none
+  __device__ __forceinline__ Sweep(const Launch&, const float*) {}
+  template <bool EXT, bool XT>
+  __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+    return trt::closest_hit<EXT, XT>(sc, o, d);
+  }
+  __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min,
+                                           float t_max) {
+    return trt::occluded(sc, o, d, t_min, t_max);
+  }
+  __device__ __forceinline__ void flush() {}
+};
 
 // -------------------------------------------------------------- transport
 
@@ -628,9 +658,9 @@ struct NeeAt {
 // the fog's transmittance, the MIS weight (the shadow ray then runs from
 // the offset origin itself) and the phase at a scatter point
 // (ops/tracer.py _nee_sample).
-template <bool XT>
+template <bool XT, class TR>
 __device__ __forceinline__ V3 direct_light(const Scene& sc, const Xt& xt, uint32_t& state,
-                                           const NeeAt& at, V3 att) {
+                                           const NeeAt& at, V3 att, TR& tr) {
   const bool one = XT && xt.light_mode != L_ALL;
   const bool scatter = XT && at.scatter;
   const bool mis = XT && xt.transport == T_MIS;
@@ -674,7 +704,7 @@ __device__ __forceinline__ V3 direct_light(const Scene& sc, const Xt& xt, uint32
       sh_dir = {lvec_s.x / ldist_s, lvec_s.y / ldist_s, lvec_s.z / ldist_s};
       sh_tmax = ldist_s - RAY_EPS;
     }
-    bool blocked = occluded(sc, shadow_o, sh_dir, RAY_EPS, sh_tmax);
+    bool blocked = tr.occluded(sc, shadow_o, sh_dir, RAY_EPS, sh_tmax);
     float cos_s = scatter ? 1.0f : fmaxf(dot(at.normal, ldir), 0.0f);
     float cos_l = fmaxf(dot(ln, -ldir), 0.0f);
     if (!blocked && cos_s > 0.0f && cos_l > 0.0f) {
@@ -724,12 +754,12 @@ __device__ __forceinline__ V3 direct_light(const Scene& sc, const Xt& xt, uint32
 // scatter event before the surface (NEE from the scatter point with the
 // phase, a phase-sampled direction, the albedo), weighs the hit's emission
 // by the transport, and ends with the next emit channel.
-template <bool EXT, bool XT>
+template <bool EXT, bool XT, class TR>
 __device__ __forceinline__ bool bounce_step(const Scene& sc, const Tex& tx, const Xt& xt,
                                             uint32_t& state, V3& o, V3& d, V3& att, V3& acc,
-                                            float& emit, int bounce_idx, float& rays) {
+                                            float& emit, int bounce_idx, float& rays, TR& tr) {
   static_assert(EXT || !XT, "XT implies EXT");
-  Hit hit = closest_hit<EXT, XT>(sc, o, d);
+  Hit hit = tr.template closest_hit<EXT, XT>(sc, o, d);
   rays += 1.0f;
   bool scatter = false;
   V3 sp;
@@ -767,7 +797,7 @@ __device__ __forceinline__ bool bounce_step(const Scene& sc, const Tex& tx, cons
       at.m_dir = reflect(d, hit.normal);
     }
   }
-  V3 direct = direct_light<XT>(sc, xt, state, at, att);
+  V3 direct = direct_light<XT>(sc, xt, state, at, att, tr);
   // EXT: no matte NEE ghost on glass (scaled by the non-glass share), but
   // under 'mis', which weighs it in.
   if (EXT && !mis && !scatter) direct = direct * (1.0f - __ldg(hit.ext + X_TRANSP));
@@ -867,15 +897,16 @@ __device__ __forceinline__ void gen_ray(const Frame& f, const Xt& xt, uint32_t& 
 }
 
 // Samples [s0, quota) of one pixel continuing `state` (quota is the f32
-// absolute sample quota, as in the plain regeneration scheduler). Adds each
-// finished sample's radiance to csum (and its square to csumsq when
-// non-null) and returns the executed bounce iterations. XT starts each
-// path's emit channel at the transport's fresh value.
-template <bool EXT, bool XT>
+// absolute sample quota, as in the plain regeneration scheduler), each
+// path's sweeps through the traversal `tr`. Adds each finished sample's
+// radiance to csum (and its square to csumsq when non-null) and returns the
+// executed bounce iterations. XT starts each path's emit channel at the
+// transport's fresh value.
+template <bool EXT, bool XT, class TR>
 __device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc, const Tex& tx,
                                                 const Xt& xt, uint32_t& state, int s0,
                                                 float quota, float xf, float yf, V3& csum,
-                                                V3* csumsq, float& rays) {
+                                                V3* csumsq, float& rays, TR& tr) {
   unsigned iters = 0;
   for (int s = s0; (float)s < quota; ++s) {
     state = pcg_hash(state + (uint32_t)s * 5096u);
@@ -885,7 +916,7 @@ __device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc,
     float emit = XT ? xt.emit_fresh : 0.0f;
     for (int b = 0; b < f.max_depth; ++b) {
       ++iters;
-      if (!bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays)) break;
+      if (!bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays, tr)) break;
     }
     csum = csum + acc;
     if (csumsq) *csumsq = *csumsq + acc * acc;

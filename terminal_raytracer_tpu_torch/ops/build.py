@@ -25,7 +25,7 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-HEADERS = ("trace.cuh",)
+HEADERS = ("trace.cuh", "pipeline.cuh", "traverse.cuh")
 # Source -> (C entry point, number of pointer arguments).
 ENTRY_POINTS = {
     "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
@@ -35,6 +35,10 @@ ENTRY_POINTS = {
                        ("trt_kernel_base_chunked_xt", 8)),
     "kernel_extra.cu": (("trt_kernel_extra", 10), ("trt_kernel_extra_ext", 11),
                         ("trt_kernel_extra_xt", 12)),
+    "kernel_accel.cu": (("trt_kernel_base_grid", 9),
+                        ("trt_kernel_base_gathered", 9),
+                        ("trt_kernel_extra_grid", 13),
+                        ("trt_kernel_extra_gathered", 13)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

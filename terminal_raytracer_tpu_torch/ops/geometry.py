@@ -87,7 +87,10 @@ class SceneTables(NamedTuple):
     kernels read; the named tables are views into it. `ext` is [0, 0] when
     the buffer carries no extension table (`has_ext`), [n_prims, XT_W]
     for xt tables (`has_xt`); `pick` is [0] without a pick table, else
-    [2 * n_lights + 1]."""
+    [2 * n_lights + 1]; `acc` is the traversal's section, last in the
+    buffer (the grid's group table, ops/accel.py, or the gathered walk's
+    grid, ops/gathered.py), else [0]. Its offset in `buf` is
+    ``acc.storage_offset()``."""
 
     buf: torch.Tensor
     sph: torch.Tensor  # [n_sph, SPH_W]
@@ -97,6 +100,7 @@ class SceneTables(NamedTuple):
     lights: torch.Tensor  # [n_lights, LIGHT_W]
     ext: torch.Tensor  # [n_prims, EXT_W or XT_W]
     pick: torch.Tensor  # probs [n_lights], cums [n_lights], inv_total
+    acc: torch.Tensor  # flat f32 (int32 bits where the section says)
 
     @property
     def counts(self):
@@ -170,11 +174,13 @@ def _tri_edges_f32(tri):
     return e1, e2, normal, area
 
 
-def tables_from_parts(parts, device) -> SceneTables:
+def tables_from_parts(parts, device, acc=None) -> SceneTables:
     """One packed buffer on `device` from the (sph, pln, tri, mat, lights[,
-    ext[, pick]]) f32 arrays or tensors, with the named tables as views
-    into it."""
+    ext[, pick]]) f32 arrays or tensors and the traversal's section `acc`
+    (flat f32, or None), with the named tables as views into it."""
     flat = [torch.as_tensor(a).reshape(-1) for a in parts]
+    if acc is not None:
+        flat.append(torch.as_tensor(acc).reshape(-1))
     # One trailing pad element keeps the buffer non-empty for an empty scene.
     pad = torch.zeros(1, dtype=torch.float32, device=flat[0].device)
     buf = torch.cat(flat + [pad]).to(device)
@@ -187,7 +193,8 @@ def tables_from_parts(parts, device) -> SceneTables:
         views.append(buf[off:off].view(0, 0))
     if len(views) == 6:  # no pick table
         views.append(buf[off:off])
-    return SceneTables(buf, *views)
+    n_acc = 0 if acc is None else flat[-1].numel()
+    return SceneTables(buf, *views, buf[off:off + n_acc])
 
 
 def pick_table(lights, mode: str, runtime: bool = False) -> np.ndarray:
@@ -229,14 +236,27 @@ def scene_tables(scene: scene_mod.Scene, device, accel: str = "baked",
                  pick: str = None) -> SceneTables:
     """Pack `scene` into f32 tables on `device` (see the module docstring).
     accel='array' squares the f32 radius in f32, as the JAX package's array
-    sweep does; 'baked' squares the f64 radius. `ext` packs the extension
-    table; `xt` widens it by the light-inverse-area channel; `pick`
-    ('uniform' or 'power') adds the pick table of one-light NEE."""
+    sweep does; 'baked' squares the f64 radius. 'grid' packs the blocked
+    scene (ops/accel.py blocked_scene) as 'baked' does, with its group
+    table; 'gathered' packs the scene as 'array' does (the walk squares
+    the f32 radius), with its grid (ops/gathered.py). `ext` packs the
+    extension table; `xt` widens it by the light-inverse-area channel;
+    `pick` ('uniform' or 'power') adds the pick table of one-light NEE."""
+    acc = None
+    if accel == "grid":
+        from . import accel as accel_mod
+
+        scene, groups = accel_mod.blocked_scene(scene)
+        acc = accel_mod.group_table(groups)
+    elif accel == "gathered":
+        from . import gathered as gathered_mod
+
+        acc = gathered_mod.grid_section(scene)
     sph = np.zeros((len(scene.spheres), SPH_W), np.float32)
     for i, s in enumerate(scene.spheres):
         r = float(s.radius)
         r32 = np.float32(r)
-        rr = r32 * r32 if accel == "array" else r * r
+        rr = r32 * r32 if accel in ("array", "gathered") else r * r
         sph[i] = (*s.center, rr, np.float32(1.0) / r32)
     pln = np.zeros((len(scene.planes), PLN_W), np.float32)
     for i, p in enumerate(scene.planes):
@@ -276,7 +296,8 @@ def scene_tables(scene: scene_mod.Scene, device, accel: str = "baked",
               float(p.radius if tag == scene_mod.SPHERE
                     else _tri_edges_f32(p)[3])) for tag, p in scene.lights],
             pick))
-    return tables_from_parts([torch.from_numpy(a) for a in parts], device)
+    return tables_from_parts([torch.from_numpy(a) for a in parts], device,
+                             None if acc is None else torch.from_numpy(acc))
 
 
 def light_inv_area(scene: scene_mod.Scene) -> np.ndarray:
@@ -416,7 +437,11 @@ class ScenePrims:
     operations (``TEST_OPS``) of the intersection tests it owes: every
     primitive for a closest hit, and for a shadow ray the primitives up to
     and including its first blocker in sweep order, where the kernels'
-    occlusion loop stops. Only lanes of the sweep's `gate` count."""
+    occlusion loop stops. Only lanes of the sweep's `gate` count. While
+    counting, a traversal with counters (STATS, ops/accel.py and
+    ops/gathered.py) adds them to ``stats``."""
+
+    STATS: tuple = ()
 
     def __init__(self, tables: SceneTables):
         self.tables = tables
@@ -451,7 +476,7 @@ class ScenePrims:
         self._const_n, self._center, self._inv_r = const_n, center, inv_r
         self._is_sph, self._mat = is_sph, mat
         self._counts = (n_sph, n_pln, n_tri)
-        self._ops = None
+        self._ops = self.stats = None
 
     @property
     def ops(self):
@@ -460,9 +485,13 @@ class ScenePrims:
     @ops.setter
     def ops(self, value):
         """Start (a 0-dim f64 tensor) or stop (None) counting."""
+        self.stats = None
         if value is not None:
             cost = np.repeat(np.asarray(TEST_OPS, np.float64), self._counts)
             self._cum_ops = torch.from_numpy(np.cumsum(cost)).to(value.device)
+            if self.STATS:
+                self.stats = torch.zeros(len(self.STATS), dtype=torch.float64,
+                                         device=value.device)
         self._ops = value
 
     def _tests(self, o: V3, d: V3, t_min, t_max, blocked: bool):
@@ -499,6 +528,11 @@ class ScenePrims:
         idx = torch.where(found, idx, self.n_prims)
         if self._ops is not None and self.n_prims:
             self._ops += gate.sum(dtype=torch.float64) * self._cum_ops[-1]
+        return self.hit_at(o, d, found, closest, idx)
+
+    def hit_at(self, o: V3, d: V3, found, closest, idx) -> Hit:
+        """The hit record of primitive `idx` (n_prims where not `found`) at
+        distance `closest` along each ray."""
         p = o + d * closest
         m = self._mat[idx]
         n_sph = vm.normalize((p - _row3(self._center[idx], 0))

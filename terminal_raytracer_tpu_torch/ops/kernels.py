@@ -33,6 +33,17 @@ twin instead: the XT instantiations, which imply EXT and take the gates
 and their f32 constants as one launch argument (trt::Xt, :func:`xt_args`).
 The plain versions are the same for all three (ops/tracer.py renders
 each).
+
+A tracer with an opt-in traversal (``tracer.traversal``: 'grid', the
+block-culled sweep, or 'gathered', the grid walk) renders from xt tables
+that carry the traversal's section, and each wrapper passes it on to its
+``*_grid`` or ``*_gathered`` twin: the XT instantiation of kernel A or B
+over that traversal (csrc/kernel_accel.cu), with the traversal's launch
+argument (trt::Accel, :func:`accel_args`). Its plain version is the
+tracer's, over the traversal's plain version (ops/accel.py,
+ops/gathered.py). While ``tracer.accel_stats`` holds a zeroed int64
+tensor [4] on the card, those launches add their traversal counters to it
+(CulledPrims.STATS, GatheredPrims.STATS).
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import accel as accel_mod
+from . import gathered as gathered_mod
 from . import sampling
 from . import tracer as tracer_mod
 from .build import load_kernels
@@ -106,6 +119,41 @@ class _Xt(ctypes.Structure):
                 ("hg_1mg", ctypes.c_float), ("hg_2g", ctypes.c_float),
                 ("aperture", ctypes.c_float), ("focus", ctypes.c_float),
                 ("inv_n_lights", ctypes.c_float)]
+
+
+class _Accel(ctypes.Structure):
+    """trt::Accel: the opt-in traversal's section and constants."""
+
+    _fields_ = [("section", ctypes.c_int), ("n_groups", ctypes.c_int),
+                ("off", ctypes.c_int), ("idx", ctypes.c_int),
+                ("dims", ctypes.c_int * 3), ("max_trips", ctypes.c_int),
+                ("lo", ctypes.c_float * 3), ("hi", ctypes.c_float * 3),
+                ("cell", ctypes.c_float * 3), ("inv_cell", ctypes.c_float * 3),
+                ("stats", ctypes.c_void_p)]
+
+
+def accel_args(tracer) -> _Accel:
+    """The launch argument of `tracer`'s traversal: the offset of its
+    section in the scene buffer, the group count (grid) or the CSR offsets
+    and the grid's constants (gathered; the f32 values of the section's
+    header, read once per bound tables), and tracer.accel_stats."""
+    if tracer.accel_launch is None:
+        acc = tracer.tables.acc
+        x = _Accel(section=acc.storage_offset())
+        if tracer.traversal == "grid":
+            x.n_groups = acc.numel() // accel_mod.GROUP_W
+        else:
+            h = gathered_mod.grid_header(acc)
+            x.off = x.section + gathered_mod.HDR_W
+            x.idx = x.off + h["n_cells"] + 1
+            x.dims = (ctypes.c_int * 3)(*h["dims"])
+            x.max_trips = h["max_trips"]
+            for name in ("lo", "hi", "cell", "inv_cell"):
+                setattr(x, name, (ctypes.c_float * 3)(*h[name]))
+        tracer.accel_launch = x
+    stats = tracer.accel_stats
+    tracer.accel_launch.stats = None if stats is None else stats.data_ptr()
+    return tracer.accel_launch
 
 
 def xt_args(tracer) -> _Xt:
@@ -211,19 +259,29 @@ def _require_ext(tracer, name: str) -> None:
 
 
 def _require_xt(tracer, name: str) -> None:
-    if not tracer.xt:
-        raise ValueError(f"{name}: the tracer has no xt tables")
+    if not tracer.xt or tracer.traversal:
+        raise ValueError(f"{name}: the tracer has no xt tables, or an opt-in "
+                         "traversal")
+
+
+def _require_traversal(tracer, traversal: str, name: str) -> None:
+    if tracer.traversal != traversal:
+        raise ValueError(f"{name}: the tracer's traversal is "
+                         f"{tracer.traversal}, not {traversal!r}")
 
 
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
-    """Call the C entry point `entry` (+ '_ext' or '_xt' by `kind`) with its
-    launch arguments and raise on a launch error."""
+    """Call the C entry point `entry` (+ '_ext', '_xt', '_grid' or
+    '_gathered' by `kind`) with its launch arguments and raise on a launch
+    error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
     extra = ()
     if kind != "ref":
         extra = (ctypes.byref(_tex(tracer)),)
-    if kind == "xt":
+    if kind != "ref" and kind != "ext":
         extra += (ctypes.byref(xt_args(tracer)),)
+    if kind in ("grid", "gathered"):
+        extra += (ctypes.byref(accel_args(tracer)),)
     _check(getattr(lib, name)(ctypes.byref(args), *extra, *ptrs),
            name.replace("trt_", ""))
 
@@ -249,6 +307,12 @@ def _no_chunks(tracer, name: str) -> None:
     if tracer.chunk_base:
         raise ValueError(f"{name}: the tracer splits pixels into chunks; "
                          "use base_kernel_chunked")
+
+
+def _no_traversal(tracer, name: str) -> None:
+    if tracer.traversal:
+        raise ValueError(f"{name}: no instantiation over accel "
+                         f"{tracer.traversal!r}")
 
 
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
@@ -278,10 +342,15 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
     """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
     device of `tracer`'s scene tables (base_kernel_ext for a tracer with
     the material and texture extensions, base_kernel_xt for one with xt
-    tables)."""
+    tables, base_kernel_grid / _gathered for one with that traversal)."""
     _no_chunks(tracer, "base_kernel")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    if tracer.traversal == "grid":
+        return base_kernel_grid(tracer, pose, seed, frame_number, y0, h_out)
+    if tracer.traversal == "gathered":
+        return base_kernel_gathered(tracer, pose, seed, frame_number, y0,
+                                    h_out)
     if tracer.xt:
         return base_kernel_xt(tracer, pose, seed, frame_number, y0, h_out)
     if tracer.ext:
@@ -317,9 +386,36 @@ def base_kernel_xt(tracer, pose, seed: int, frame_number: int, y0: int = 0,
     return out
 
 
+def base_kernel_grid(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                     h_out: int = None) -> BaseOut:
+    """Kernel A over the block-culled sweep: base_kernel for a tracer with
+    accel 'grid' (XT instantiation)."""
+    _require_traversal(tracer, "grid", "base_kernel_grid")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "grid")
+    base_kernel_grid.launches += 1
+    return out
+
+
+def base_kernel_gathered(tracer, pose, seed: int, frame_number: int,
+                         y0: int = 0, h_out: int = None) -> BaseOut:
+    """Kernel A over the grid walk: base_kernel for a tracer with accel
+    'gathered' (XT instantiation)."""
+    _require_traversal(tracer, "gathered", "base_kernel_gathered")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_gathered"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out,
+                       "gathered")
+    base_kernel_gathered.launches += 1
+    return out
+
+
 base_kernel.launches = 0
 base_kernel_ext.launches = 0
 base_kernel_xt.launches = 0
+base_kernel_grid.launches = 0
+base_kernel_gathered.launches = 0
 
 
 def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
@@ -364,7 +460,8 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     (x, y) on the sub-chain seed + c * CHUNK_GOLDEN (an unchunked tracer
     has one chunk of `base` samples). No budget epilogue: the variance
     needs the per-pixel totals. base_kernel_chunked_ext / _xt for a tracer
-    with the extensions."""
+    with the extensions. There is none over an opt-in traversal."""
+    _no_traversal(tracer, "base_kernel_chunked")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -384,6 +481,7 @@ def base_kernel_chunked_ext(tracer, pose, seed: int, frame_number: int,
                             ) -> ChunkedBaseOut:
     """The chunked kernel A's EXT instantiation."""
     _require_ext(tracer, "base_kernel_chunked_ext")
+    _no_traversal(tracer, "base_kernel_chunked_ext")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_ext"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -460,9 +558,14 @@ def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
     """Kernel B: entry i renders `add[i]` extra samples of pixel
     (xs[i], ys[i]) continuing RNG `state[i]` at sample index `samp0[i]`.
     xs, ys, samp0 int32; state int64; add f32; all of one shape.
-    extra_kernel_ext / _xt for a tracer with the extensions."""
+    extra_kernel_ext / _xt for a tracer with the extensions, extra_kernel_grid
+    / _gathered for one with that traversal."""
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0, "extra_kernel"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if tracer.traversal == "grid":
+        return extra_kernel_grid(tracer, pose, xs, ys, state, add, samp0)
+    if tracer.traversal == "gathered":
+        return extra_kernel_gathered(tracer, pose, xs, ys, state, add, samp0)
     if tracer.xt:
         return extra_kernel_xt(tracer, pose, xs, ys, state, add, samp0)
     if tracer.ext:
@@ -494,9 +597,33 @@ def extra_kernel_xt(tracer, pose, xs, ys, state, add, samp0):
     return out
 
 
+def extra_kernel_grid(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B over the block-culled sweep (XT instantiation)."""
+    _require_traversal(tracer, "grid", "extra_kernel_grid")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_grid"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "grid")
+    extra_kernel_grid.launches += 1
+    return out
+
+
+def extra_kernel_gathered(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B over the grid walk (XT instantiation)."""
+    _require_traversal(tracer, "gathered", "extra_kernel_gathered")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_gathered"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "gathered")
+    extra_kernel_gathered.launches += 1
+    return out
+
+
 extra_kernel.launches = 0
 extra_kernel_ext.launches = 0
 extra_kernel_xt.launches = 0
+extra_kernel_grid.launches = 0
+extra_kernel_gathered.launches = 0
 
 
 # ---------------------------------------------------------------------------

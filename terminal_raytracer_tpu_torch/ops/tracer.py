@@ -56,6 +56,12 @@ sub-chain at state + c * CHUNK_GOLDEN and keeps absolute sample indices,
 so chunk 0 is the head of the sequential chain. Lanes are then entries of
 a chunk-major stream (entry i = chunk i // n_pix of pixel i % n_pix), and
 a pixel's totals are its entries' sums added in chunk order.
+
+The opt-in traversals 'grid' (the block-culled sweep, ops/accel.py) and
+'gathered' (the grid walk, ops/gathered.py) never split a chain by
+themselves; an animated scene under 'grid' takes the runtime-value path
+(the grid is ignored, as in the JAX package), and 'gathered' needs a
+static scene.
 """
 
 from __future__ import annotations
@@ -174,12 +180,10 @@ def resolve_strat_g(scene: scene_mod.Scene) -> int:
 
 
 def resolve_accel(scene: scene_mod.Scene, accel: str) -> str:
-    """'baked' or 'array', as the JAX PathTracer resolves `accel`."""
+    """'baked', 'array', 'grid' or 'gathered', as the JAX PathTracer
+    resolves `accel`."""
     if accel not in ACCELS:
         raise ValueError(f"unknown accel {accel!r}; choose from {ACCELS}")
-    if accel in ("grid", "gathered"):
-        raise ValueError(f"accel {accel!r} is not ported yet to the PyTorch "
-                         "port (it has auto, baked and array)")
     if accel == "auto":
         return ("array" if scene.primitive_count > ARRAY_AUTO_THRESHOLD
                 else "baked")
@@ -247,13 +251,28 @@ class PathTracer:
         self.scene = scene
         self.device = torch.device(device)
         self.atlas = None
+        # The kernels' traversal counters: None, or a zeroed int64 tensor
+        # [4] on the card that the grid and gathered launches add to.
+        self.accel_stats = None
         self.accel = resolve_accel(scene, accel)
+        if dynamic and self.accel == "gathered":
+            raise ValueError(
+                "accel='gathered' needs static geometry (the grid and "
+                "primitive tables are host-built); use accel='array' for "
+                "animated scenes at scale")
+        # The opt-in traversal the kernels take (None: the table sweep).
+        self.traversal = (self.accel if self.accel in ("grid", "gathered")
+                          and not dynamic else None)
         self.width, self.height = scene.width, scene.height
         self.spp = scene.samples_per_pixel
         self.max_depth = scene.max_depth
         self.base_samples = base_sample_count(self.spp)
         self.chunk_base, self.chunk_extra = resolve_chunks(
             scene, self.accel, chunk_base, chunk_extra)
+        if self.traversal and self.chunk_base:
+            raise ValueError(f"accel={self.accel!r} with a base chunk split "
+                             "is not ported yet (no chunked kernel A over "
+                             "that traversal)")
         # Entries per pixel of the base and the extra phase.
         self.n_base_chunks = (-(-self.base_samples // self.chunk_base)
                               if self.chunk_base else 1)
@@ -270,8 +289,12 @@ class PathTracer:
             self.topology = dyn.topology(scene, ext, self.gated, pick)
             self.bind_packed(dyn.pack_scene(scene))
         else:
+            # The opt-in traversals always render from xt tables (their
+            # kernels are XT instantiations; every gate off is the
+            # reference path).
             self.bind_tables(geom.scene_tables(
-                scene, self.device, self.accel, ext, self.gated, pick))
+                scene, self.device, self.accel, ext,
+                self.gated or self.traversal is not None, pick))
         # f32 camera intrinsics, computed as the JAX package computes them.
         self.half_height = float(
             np.tan(np.float32(scene.fov_rad) / np.float32(2)))
@@ -327,6 +350,7 @@ class PathTracer:
             raise ValueError("one-light NEE needs the tables' pick table")
         self.tables = tables
         self._prims = self._lights = None
+        self.accel_launch = None  # the kernels' trt::Accel of these tables
         self.ext = tables.has_ext
         self.xt = tables.has_xt
         if self.ext and self.atlas is None:
@@ -335,7 +359,13 @@ class PathTracer:
     @property
     def prims(self) -> geom.ScenePrims:
         if self._prims is None:
-            self._prims = geom.ScenePrims(self.tables)
+            if self.traversal == "grid":
+                from .accel import CulledPrims as prims
+            elif self.traversal == "gathered":
+                from .gathered import GatheredPrims as prims
+            else:
+                prims = geom.ScenePrims
+            self._prims = prims(self.tables)
         return self._prims
 
     @property

@@ -316,3 +316,88 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="one device"):
         kernels.extra_kernel(tr, POSE, s.xs.cpu(), s.ys, s.state, s.add,
                              s.samp0)
+
+
+ACCEL_CASES = {
+    "stress-grid": ("stress:96:3", "grid", {}, "reference"),
+    "stress-gathered": ("stress:96:3", "gathered", {}, "reference"),
+    "mesh-grid": ("icosphere:1", "grid", {}, "reference"),
+    "mesh-gathered": ("icosphere:1", "gathered", {}, "reference"),
+    "cornell-fog-mis-grid": ("Cornell_Box", "grid",
+                             {"fog": Fog(density=0.15)}, "mis"),
+    "cornell-fog-mis-gathered": ("Cornell_Box", "gathered",
+                                 {"fog": Fog(density=0.15)}, "mis"),
+    "showcase-gathered": ("showcase", "gathered", {}, "reference"),
+}
+
+
+def _kernel_counts(tr, fn):
+    """fn() with the kernels' traversal counters on: (out, counters)."""
+    tr.accel_stats = torch.zeros(4, dtype=torch.int64, device=tr.device)
+    try:
+        return fn(), tr.accel_stats.double()
+    finally:
+        tr.accel_stats = None
+
+
+def _plain_counts(tr, fn):
+    """fn() with the plain traversal counting: (out, counters)."""
+    tr.prims.ops = torch.zeros((), dtype=torch.float64, device=tr.device)
+    try:
+        return fn(), tr.prims.stats.clone()
+    finally:
+        tr.prims.ops = None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ACCEL_CASES))
+def test_accel_kernels_match_plain_versions(cuda_device, name):
+    """The grid and gathered instantiations of kernels A and B against
+    their plain versions: every output equal, and the traversal counters
+    (blocks swept and skipped; walks, tests, advances) equal to the plain
+    version's count; no walk reaches max_trips."""
+    scene, accel, over, transport = ACCEL_CASES[name]
+    scene = load_scene(scene).with_overrides(
+        width=64, height=16, samples_per_pixel=16, max_depth=6, **over)
+    tr = PathTracer(scene, cuda_device, accel=accel, transport=transport)
+    wrap_a = getattr(kernels, f"base_kernel_{accel}")
+    wrap_b = getattr(kernels, f"extra_kernel_{accel}")
+    n0 = wrap_a.launches
+    k, ks = _kernel_counts(tr,
+                           lambda: kernels.base_kernel(tr, POSE, SEED, 0))
+    p, ps = _plain_counts(
+        tr, lambda: kernels.base_kernel_plain(tr, POSE, SEED, 0))
+    assert wrap_a.launches == n0 + 1
+    _assert_base_equal(k, p)
+    assert torch.equal(k.additional, p.additional)
+    assert torch.equal(ks, ps), (ks, ps)
+    if accel == "gathered":
+        assert float(ks[3]) == 0.0
+    s = kernels.sorted_stream(tr, k.state, k.additional)
+    assert int((s.add > 0).sum()) > 0
+    args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
+    n0 = wrap_b.launches
+    (ek, rk, _), ks = _kernel_counts(tr, lambda: kernels.extra_kernel(*args))
+    (ep, rp, _), ps = _plain_counts(
+        tr, lambda: kernels.extra_kernel_plain(*args))
+    assert wrap_b.launches == n0 + 1
+    assert torch.equal(rk, rp)
+    for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+    assert torch.equal(ks, ps), (ks, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", ["grid", "gathered"])
+def test_accel_render_step_matches_plain_frame(cuda_device, accel):
+    """The step through the grid or gathered kernels against the plain
+    whole-frame render of the same tracer."""
+    scene = load_scene("stress:96:3").with_overrides(
+        width=96, height=24, samples_per_pixel=16, max_depth=6)
+    step = make_render_step(scene, device=cuda_device, accel=accel)
+    out = step(init_state(scene, cuda_device), POSE, SEED, 0)
+    cur, var, total, rays, _occ = step.tracer.render_frame(POSE, SEED, 0)
+    assert float(out.rays) == float(rays)
+    assert torch.equal(out.state.samples, total)
+    assert torch.equal(out.state.variance, var)
+    assert torch.equal(out.state.acc, torch.stack(list(cur)))

@@ -26,7 +26,6 @@ import torch
 from terminal_raytracer_tpu.models import Camera, load_scene as jload_scene
 from terminal_raytracer_tpu.ops import pallas_kernel as pk
 from terminal_raytracer_tpu.ops import tracer as jtracer
-from terminal_raytracer_tpu_torch.cli import main as torch_main
 from terminal_raytracer_tpu_torch.models import load_scene
 from terminal_raytracer_tpu_torch.ops import kernels, tracer
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer, cam_from_pose
@@ -244,13 +243,3 @@ def test_cli_renders_a_chunked_stress_scene():
     assert len(rows) == 8 and all(len(row) == 32 for row in rows)
     assert len(set("".join(rows))) > 4
     assert "601 primitives" in r.stderr
-
-
-@pytest.mark.parametrize("accel", ["grid", "gathered"])
-def test_unported_traversals_are_refused(accel, capsys):
-    with pytest.raises(ValueError, match="not ported"):
-        PathTracer(load_scene("Cornell_Box"), "cpu", accel=accel)
-    assert torch_main(["--device", "cpu", "--accel", accel, "--frames",
-                       "1"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "Traceback" not in err

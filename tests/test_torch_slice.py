@@ -185,7 +185,8 @@ def test_headless_cli_runs_on_cpu():
 def test_port_never_imports_jax():
     """In a fresh interpreter (this test process has jax loaded already):
     import every port module and render frames through the CLI, static and
-    animated. No jax module, and no module of the JAX package, may load."""
+    animated, and under --accel grid and gathered. No jax module, and no
+    module of the JAX package, may load."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import terminal_raytracer_tpu_torch as port\n"
@@ -201,6 +202,10 @@ def test_port_never_imports_jax():
         "assert cli.main(['--device', 'cpu', '--scene', 'bumpy', '--width',"
         " '16', '--height', '4', '--spp', '4', '--depth', '2', '--frames',"
         " '1', '--filter', 'bilinear']) == 0\n"
+        "for accel in ('grid', 'gathered'):\n"
+        "    assert cli.main(['--device', 'cpu', '--scene', 'stress:48:3',"
+        " '--accel', accel, '--width', '16', '--height', '4', '--spp', '4',"
+        " '--depth', '2', '--frames', '1']) == 0\n"
         "bad = [m for m in sys.modules if m.startswith('jax')\n"
         "       or m == 'terminal_raytracer_tpu'\n"
         "       or m.startswith('terminal_raytracer_tpu.')]\n"
@@ -245,8 +250,8 @@ def test_cuda_device_without_gpu_exits_nonzero(capsys):
 
 def test_unported_scene_features_are_refused(capsys, tmp_path):
     """Every scene feature of the JAX package is ported (fog and depth of
-    field take the xt path, a fog JSON renders); the traversals still to
-    port are refused with exit 2 and no traceback."""
+    field take the xt path, a fog JSON renders), and so is every traversal:
+    --accel grid and gathered render, refusing nothing."""
     cornell = load_scene("Cornell_Box")
     assert PathTracer(cornell.with_overrides(aperture=0.1, focus_distance=3.0),
                       "cpu").xt
@@ -261,9 +266,10 @@ def test_unported_scene_features_are_refused(capsys, tmp_path):
                        "--frames", "1"]) == 0
     assert "does not support" not in capsys.readouterr().err
     for accel in ("grid", "gathered"):
-        assert torch_main(["--device", "cpu", "--accel", accel, "--frames",
-                           "1"]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+        assert torch_main(["--device", "cpu", "--accel", accel, "--width",
+                           "16", "--height", "4", "--spp", "4", "--depth",
+                           "2", "--frames", "1"]) == 0
+        assert "error" not in capsys.readouterr().err
 
 
 def test_interactive_viewer_through_a_pty():
