@@ -75,7 +75,24 @@ Phases, each reported on lines starting with its tag:
             stress1024 and mesh1280 under baked, auto (array), grid and
             gathered, and at the north star under grid, with each
             traversal's counters over the warm-up frame; cli.main with
-            --accel grid and --accel gathered
+            --accel grid and --accel gathered; and at the stress1024 shapes
+            a frame through the grid kernels beside one through the XT
+            kernels over the blocked scene's dense table sweep (the JAX
+            oracle's traversal under accel 'grid'), three seeds: the
+            pixels and owed rays that differ
+  [sched]   the single-kernel schedulers (csrc/kernel_frame.cu) and the
+            chunked kernel A over the traversals: each regen (C) and
+            lockstep (D) instantiation against the plain whole frame at
+            the north star, stress1024 (chunked: the in-thread chunk
+            loops), showcase (EXT), fog (XT) and stress1024 under grid and
+            gathered with chunks of 2, bit for bit (planes; executed
+            lane-iterations: regen's warp count, lockstep's static
+            formula; traversal counters), timed there; the chunked grid
+            and gathered kernel A against its plain version there, with
+            counters; then this slice's main path: make_render_frame with
+            'sorted', 'regen' and 'lockstep' on every one of those
+            configs (launch counters reset before, read after; ms/frame
+            side by side), where C, D and sorted must render one frame
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. It prints
@@ -91,7 +108,9 @@ counts for the same inputs, over the card's FP32 peak, or its bytes over
 stress:1024-checker shapes; the XT rows at the fog and stress:1024 fog
 shapes; the grid and gathered rows at the stress1024 shapes, their
 operations the slab tests, walk steps and primitive tests that the plain
-traversal counts), the nvidia-smi line, and as the last line
+traversal counts; the regen and lockstep rows at their first [sched]
+config, the plain version's operations over the whole frame, 24 bytes
+written a pixel), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
 prints no result; nothing falls back to the plain version or to the CPU.
 """
@@ -387,11 +406,26 @@ def phase_kernel_base_chunked(peak):
     return err, (ms, plain_ms, bound)
 
 
+FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
+                    for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
-                "base_kernel_gathered", "extra_kernel_gathered")
+                "base_kernel_gathered", "extra_kernel_gathered",
+                "base_kernel_chunked_grid", "base_kernel_chunked_gathered"
+                ) + FRAME_NAMES
+
+
+def _sfx(tr) -> str:
+    """The suffix of the kernel wrappers that tracer `tr` takes."""
+    return (f"_{tr.traversal}" if tr.traversal else "_xt" if tr.xt
+            else "_ext" if tr.ext else "")
+
+
+def _nonzero(got) -> dict:
+    """The launch counts of the kernels that were launched."""
+    return {name: n for name, n in got.items() if n}
 
 
 def _reset_launches():
@@ -466,8 +500,7 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None,
     tr = eng.step.tracer
     accel, chunked = tr.accel, tr.chunk_base is not None
     n = frames + 1
-    sfx = (f"_{tr.traversal}" if tr.traversal else "_xt" if tr.xt
-           else "_ext" if tr.ext else "")
+    sfx = _sfx(tr)
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     want["base_kernel_chunked" + sfx if chunked else "base_kernel" + sfx] = n
     if tr.base_samples < tr.spp:
@@ -485,7 +518,7 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None,
           f", {frames} frames: {1e3 * dt / frames:.2f} ms/frame, "
           f"{total_rays / dt / 1e6:.1f} Mray/s, occupancy "
           f"{float(out.occupancy):.3f} (1 + {tr.nee_sweeps} sweeps an "
-          f"iteration), launches {got}, finite {finite}, "
+          f"iteration), launches {_nonzero(got)}, finite {finite}, "
           f"rgb range [{int(rgb.min())}, {int(rgb.max())}]"
           + (f"; warm-up frame: {_traversal_counts(traversal, counts)}"
              if traversal else ""), flush=True)
@@ -544,7 +577,7 @@ def phase_main():
                    "Cornell_Box", "--width", "128", "--height", "32",
                    "--spp", "16", "--depth", "8", "--frames", "2"])
     got = _launches()
-    print(f"[main] cli.main rc {rc}, launches {got}", flush=True)
+    print(f"[main] cli.main rc {rc}, launches {_nonzero(got)}", flush=True)
     if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
                               base_kernel=2, extra_kernel=2):
         fail("[main] cli.main run failed")
@@ -862,7 +895,8 @@ def phase_ext(peak):
     rc = cli.main(["--device", "cuda", "--full-color", "--scene", "showcase",
                    "--frames", "2"])
     got = _launches()
-    print(f"[ext] cli.main --scene showcase rc {rc}, launches {got}",
+    print(f"[ext] cli.main --scene showcase rc {rc}, launches "
+          f"{_nonzero(got)}",
           flush=True)
     if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
                               base_kernel_ext=2, extra_kernel_ext=2):
@@ -1092,7 +1126,8 @@ def phase_xt(peak):
                    "--spp", "16", "--depth", "8", "--frames", "2", "--mis",
                    "--fog", "0.15"])
     got = _launches()
-    print(f"[xt] cli.main --mis --fog 0.15 rc {rc}, launches {got}",
+    print(f"[xt] cli.main --mis --fog 0.15 rc {rc}, launches "
+          f"{_nonzero(got)}",
           flush=True)
     if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
                               base_kernel_xt=2, extra_kernel_xt=2):
@@ -1120,6 +1155,46 @@ def _check_counts(label, k, p):
              "the plain version's")
     if "gathered" in label and float(k[3]) != 0.0:
         fail(f"[accel] {label}: a walk reached the trip cap")
+
+
+def _grid_vs_dense(pose):
+    """How far the grid moves off the dense sweep over the same blocked
+    scene (the JAX oracle's traversal under accel 'grid') at the stress1024
+    shapes: one frame through the grid kernels and one through the XT
+    kernels over the blocked scene's dense table sweep (bit-exact against
+    their plain versions above and in [xt]), the same seed; the pixels and
+    owed rays that differ."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import accel as accel_mod
+    from terminal_raytracer_tpu_torch.ops import geometry as geom
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    scene = _scene("stress:1024", 200, 100, 8, 6)
+    grid = PathTracer(scene, "cuda", accel="grid")
+    blocked, _ = accel_mod.blocked_scene(scene)
+    dense = PathTracer(blocked, "cuda", accel="baked")
+    dense.bind_tables(geom.scene_tables(blocked, "cuda", "baked", xt=True))
+    if dense.chunk_base is not None or not dense.xt:
+        fail("[accel] the dense tracer splits chains or takes no XT kernel")
+    diffs = []
+    for seed in (SEED, 7, 9):
+        g = kernels.make_sorted_render_frame(grid)(pose, seed, 0)
+        d = kernels.make_sorted_render_frame(dense)(pose, seed, 0)
+        torch.cuda.synchronize()
+        px = torch.zeros_like(g[1], dtype=torch.bool)
+        for a, b in zip(g[0], d[0]):
+            px |= a != b
+        err = max(maxabs(a, b) for a, b in zip(g[0], d[0]))
+        diffs.append((seed, int(px.sum()), int((g[2] != d[2]).sum()),
+                      float(g[3]) - float(d[3]), float(d[3]), err))
+    print("[accel] stress1024 200x100 spp 8 depth 6, grid kernels vs the "
+          "dense sweep over the blocked scene (the JAX oracle's traversal): "
+          + "; ".join(f"seed {s}: {n} of {scene.width * scene.height} pixels "
+                      f"differ ({t} in samples, max abs {e:.3g}), owed rays "
+                      f"{r:+.0f} of {rd:.0f}" for s, n, t, r, rd, e in diffs),
+          flush=True)
 
 
 def phase_accel(peak):
@@ -1177,6 +1252,8 @@ def phase_accel(peak):
             res[accel, "a"] = (err_a, ms_a, plain_a, bound_a)
             res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
 
+    _grid_vs_dense(pose)
+
     launches = {}
     for label, name in ACCEL_ENGINE:
         for accel in ("baked", "auto", "grid", "gathered"):
@@ -1192,13 +1269,194 @@ def phase_accel(peak):
                        "stress:256", "--accel", accel, "--frames", "1"])
         got = _launches()
         print(f"[accel] cli.main --scene stress:256 --accel {accel} rc {rc}, "
-              f"launches {got}", flush=True)
+              f"launches {_nonzero(got)}", flush=True)
         want = dict(dict.fromkeys(LAUNCH_NAMES, 0),
                     **{f"base_kernel_{accel}": 1, f"extra_kernel_{accel}": 1})
         if rc != 0 or got != want:
             fail(f"[accel] cli.main --accel {accel} failed")
         _add(launches, got)
     return launches, res
+
+
+# Kernels C and D at the main path's shapes, one config per instantiation
+# (and the chunk-split stress1024 for the reference one): (label, scene,
+# (width, height, spp, depth) or None for the scene's own, overrides,
+# PathTracer keywords). The traversal configs split chains explicitly, so
+# the sorted pipeline there runs the chunked kernel A over the traversal.
+SCHED_CONFIGS = (
+    ("north star", "Cornell_Box", (400, 200, 16, 32), {}, {}),
+    ("stress1024", "stress:1024", (200, 100, 8, 6), {}, {}),
+    ("showcase", "showcase", None, {}, {}),
+    ("fog", "Cornell_Box", (400, 200, 16, 32), {"fog": 0.15}, {}),
+    ("stress1024 grid cb 2", "stress:1024", (200, 100, 8, 6), {},
+     dict(accel="grid", chunk_base=2, chunk_extra=2)),
+    ("stress1024 gathered cb 2", "stress:1024", (200, 100, 8, 6), {},
+     dict(accel="gathered", chunk_base=2, chunk_extra=2)),
+)
+SCHED_FRAMES = 5
+
+
+def _frames_equal(a, b) -> bool:
+    """current, variance, samples and rays of two FrameOuts, bit for bit."""
+    import torch
+
+    return all(bool(torch.equal(x, y)) for x, y in
+               zip((*a.current, a.var, a.total, a.rays),
+                   (*b.current, b.var, b.total, b.rays)))
+
+
+def phase_sched(peak):
+    """Kernels C and D (csrc/kernel_frame.cu) and the chunked kernel A over
+    the opt-in traversals: (a) each instantiation against its plain version
+    at the SCHED_CONFIGS shapes, bit for bit (planes, executed
+    lane-iterations: regen's warp count, lockstep's static formula;
+    traversal counters), timed there; (b) the chunked grid and gathered
+    kernel A against its plain version at stress1024, with counters; (c)
+    the main path of this slice: make_render_frame with 'sorted', 'regen'
+    and 'lockstep' on every config, the launch counters reset just before
+    and read just after, ms/frame side by side; C, D and sorted must give
+    one frame. Returns (launches, results by row)."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    res, tracers = {}, []
+    for label, name, size, over, kw in SCHED_CONFIGS:
+        tr = PathTracer(_xt_scene(name, size, over), "cuda", **kw)
+        tracers.append((label, tr))
+        sfx = _sfx(tr)
+        fixed = 4 * tr.tables.buf.numel() + (
+            4 * tr.atlas.numel() if tr.atlas is not None else 0)
+        shape = (f"{label} {tr.width}x{tr.height} spp {tr.spp} depth "
+                 f"{tr.max_depth}{', chunks ' if tr.chunk_base else ''}"
+                 f"{tr.chunk_base or ''}")
+        # One plain frame serves both kernels: C's count is the warp count
+        # of its per-pixel iterations, D's the static formula.
+        pc = [] if tr.traversal else None
+        plain_ms, ops, p = _time_plain(
+            tr, lambda: tr.render_pixels(pose, SEED, 0), pc)
+        cur, var, total, rays, lane_iters, _ = p
+        want = {"regen": kernels.FrameOut(cur, var, total, rays,
+                                          kernels.warp_iters(lane_iters)),
+                "lockstep": kernels.FrameOut(
+                    cur, var, total, rays,
+                    torch.tensor(kernels.lockstep_iters(tr),
+                                 dtype=torch.float64, device="cuda"))}
+        n_budget = int((total > tr.base_samples).sum())
+        if n_budget == 0:
+            fail(f"[sched] {shape}: no pixel takes extra samples")
+        for mode in ("regen", "lockstep"):
+            wrap = getattr(kernels, f"{mode}_kernel{sfx}")
+            if tr.traversal:
+                k, kc = _counted_launch(tr, lambda: wrap(tr, pose, SEED, 0))
+                if not bool((kc == pc[0]).all()):
+                    fail(f"[sched] {shape} {mode}: traversal counters "
+                         f"{kc.tolist()} differ from the plain version's "
+                         f"{pc[0].tolist()}")
+            else:
+                k = wrap(tr, pose, SEED, 0)
+            torch.cuda.synchronize()
+            occ = float(k.rays.sum(dtype=torch.float64)) / max(
+                float(k.iters) * (1 + tr.nee_sweeps), 1.0)
+            counts = ("; " + _traversal_counts(tr.traversal, kc)
+                      if tr.traversal else "")
+            same = _frames_equal(k, want[mode])
+            same_it = float(k.iters) == float(want[mode].iters)
+            err = max(maxabs(a, b) for a, b in zip(k.current,
+                                                   want[mode].current))
+            ms = _time_cuda(lambda: wrap(tr, pose, SEED, 0), 5)
+            n_pix = tr.width * tr.height
+            bound = _bound(ops, fixed + 24 * n_pix, peak)
+            print(f"[sched] {shape}: {mode}_kernel{sfx} {ms:.3f} ms, rays "
+                  f"{float(k.rays.sum()):.0f}, {n_budget} budgeted pixels, "
+                  f"bit-equal to the plain frame {same}, lane-iterations "
+                  f"{float(k.iters):.0f} (plain count "
+                  f"{float(want[mode].iters):.0f}, equal {same_it}), "
+                  f"occupancy {occ:.3f}{counts} "
+                  f"(plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by "
+                  f"{bound[1]}: {ops:.4g} FP32 operations)", flush=True)
+            if not same or not same_it:
+                fail(f"[sched] {shape}: {mode}_kernel{sfx} disagrees with "
+                     "the plain version")
+            if (mode == "lockstep"
+                    and float(k.iters) != kernels.lockstep_iters(tr)):
+                fail(f"[sched] {shape}: lockstep's count is not the static "
+                     "formula")
+            # Times from the first config of each instantiation, the error
+            # over all of them.
+            key = f"{mode}{sfx}"
+            res[key] = ((max(res[key][0], err),) + res[key][1:]
+                        if key in res else (err, ms, plain_ms, bound))
+        if tr.traversal:  # (b)
+            wrap = getattr(kernels, f"base_kernel_chunked{sfx}")
+            k, kc = _counted_launch(tr, lambda: wrap(tr, pose, SEED, 0))
+            pc = []
+            plain_c, ops_c, pk = _time_plain(
+                tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED,
+                                                              0), pc)
+            err = _compare_base("sched", f"{shape} chunked kernel A", k, pk,
+                                (), tr)
+            _check_counts(f"{shape} chunked kernel A{sfx}", kc, pc[0])
+            ms = _time_cuda(lambda: wrap(tr, pose, SEED, 0), 5)
+            n_ent = tr.n_base_chunks * tr.width * tr.height
+            bound = _bound(ops_c, fixed + 36 * n_ent, peak)
+            if err != 0.0:
+                fail(f"[sched] {shape}: the chunked kernel A is not bit-exact")
+            print(f"[sched] {shape}: base_kernel_chunked{sfx} {ms:.3f} ms on "
+                  f"{n_ent} entries (plain {plain_c:.1f} ms, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}: {ops_c:.4g} FP32 "
+                  "operations)", flush=True)
+            res[f"chunked{sfx}"] = (err, ms, plain_c, bound)
+
+    # (c) This slice's main path: every config through every scheduler.
+    _reset_launches()
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    n = SCHED_FRAMES + 1
+    for label, tr in tracers:
+        sfx, first, times = _sfx(tr), {}, {}
+        for mode in kernels.MODES:
+            render = kernels.make_render_frame(tr, mode)
+            first[mode] = render(pose, SEED, 0)  # warm-up, compared below
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(SCHED_FRAMES):
+                out = render(pose, SEED, f + 1)
+            torch.cuda.synchronize()
+            times[mode] = (time.perf_counter() - t0) / SCHED_FRAMES
+            times[mode, "occ"] = float(out[4])
+            if mode == "sorted":
+                want[("base_kernel_chunked" if tr.chunk_base else
+                      "base_kernel") + sfx] += n
+                want["extra_kernel" + sfx] += n
+            else:
+                want[f"{mode}_kernel{sfx}"] += n
+        ref = first["sorted"]
+        same = {mode: float(first[mode][3]) == float(ref[3])
+                and bool(torch.equal(first[mode][2], ref[2]))
+                and all(bool(torch.equal(a, b)) for a, b in
+                        zip((*first[mode][0], first[mode][1]),
+                            (*ref[0], ref[1])))
+                for mode in ("regen", "lockstep")}
+        print(f"[sched] {label} {tr.width}x{tr.height} spp {tr.spp} depth "
+              f"{tr.max_depth}, {SCHED_FRAMES} frames each: " + ", ".join(
+                  f"{mode} {1e3 * times[mode]:.2f} ms/frame (occupancy "
+                  f"{times[mode, 'occ']:.3f})" for mode in kernels.MODES)
+              + f"; rays {float(ref[3]):.0f}; regen and lockstep frames equal "
+              f"the sorted frame {same}", flush=True)
+        if not all(same.values()):
+            fail(f"[sched] {label}: C, D and sorted render different frames")
+    got = _launches()
+    print(f"[sched] main path launches {_nonzero(got)}", flush=True)
+    if got != want:
+        fail(f"[sched] launch counts {got}, expected {want}")
+    missing = [k for k in FRAME_NAMES + ("base_kernel_chunked_grid",
+                                         "base_kernel_chunked_gathered")
+               if got[k] == 0]
+    if missing:
+        fail(f"[sched] not launched on the main path: {missing}")
+    return got, res
 
 
 def main() -> int:
@@ -1227,6 +1485,8 @@ def main() -> int:
     _add(launches, xt_launches)
     accel_launches, acc = phase_accel(peak)
     _add(launches, accel_launches)
+    sched_launches, sch = phase_sched(peak)
+    _add(launches, sched_launches)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
@@ -1261,7 +1521,19 @@ def main() -> int:
             ("kernel_base_gathered", "base_kernel_gathered",
              "kernel_accel.cu", "808", *acc["gathered", "a"]),
             ("kernel_extra_gathered", "extra_kernel_gathered",
-             "kernel_accel.cu", "1032", *acc["gathered", "b"]))
+             "kernel_accel.cu", "1032", *acc["gathered", "b"]),
+            # The chunk-major stream (:951-970) over the traversals bound
+            # at :808-809.
+            ("kernel_base_chunked_grid", "base_kernel_chunked_grid",
+             "kernel_accel.cu", "809", *sch["chunked_grid"]),
+            ("kernel_base_chunked_gathered", "base_kernel_chunked_gathered",
+             "kernel_accel.cu", "808", *sch["chunked_gathered"])) + tuple(
+        # Kernel C, kernel_regen (:420), and D, kernel_lockstep (:391),
+        # both launched by the pallas_call at :499.
+        (f"kernel_{mode}{sfx}", f"{mode}_kernel{sfx}", "kernel_frame.cu",
+         "420" if mode == "regen" else "391", *sch[mode + sfx])
+        for mode in ("regen", "lockstep")
+        for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": ref + line, "launches": launches[counter],

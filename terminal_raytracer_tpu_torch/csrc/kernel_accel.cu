@@ -7,11 +7,12 @@
 // kernel_extra, :1028) built over accel.CulledPrims (the pl.when-guarded
 // block sweeps and their VMEM scratch, :71-88, :129-141) and over
 // gathered.GatheredPrims (the scratch-resident walk loop and its table
-// operands, :91-126, :144-180). Neither traversal splits a pixel's chain,
-// so there is no chunked kernel A here.
+// operands, :91-126, :144-180), and kernel A's chunk-major stream (`cb`,
+// :749-754, 798-800, 951-970) built over either traversal: neither splits
+// a pixel's chain by itself, but an explicit chunk_base does.
 //
 // One instantiation each, at the XT gate set of pipeline.cuh's kernels:
-// XT with every gate off is the reference path bit for bit, so these four
+// XT with every gate off is the reference path bit for bit, so these six
 // entry points serve reference, EXT and XT scenes alike (the port builds
 // xt tables for both traversals). The culled sweep reads the blocked
 // scene and its group table, the walk its grid; trt::Accel carries their
@@ -42,6 +43,27 @@ extern "C" int trt_kernel_base_gathered(const BaseArgs* a, const trt::Tex* tx, c
                                         void* stream) {
   return launch_base<true, true, trt::Walk>(a, *tx, *xt, scene_buf, out, state_out, iters, stream,
                                             *acc);
+}
+
+// out: f32 [7, n_chunks*h_out*w] (csum rgb, csumsq rgb, rays), chunk-major;
+// state_out: int64 [n_chunks*h_out*w]; iters: one zeroed u64; acc: the
+// traversal's launch argument. Returns cudaGetLastError().
+extern "C" int trt_kernel_base_chunked_grid(const ChunkArgs* a, const trt::Tex* tx,
+                                            const trt::Xt* xt, const trt::Accel* acc,
+                                            const float* scene_buf, float* out,
+                                            long long* state_out, unsigned long long* iters,
+                                            void* stream) {
+  return launch_chunked<true, true, trt::Culled>(a, *tx, *xt, scene_buf, out, state_out, iters,
+                                                 stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_gathered(const ChunkArgs* a, const trt::Tex* tx,
+                                                const trt::Xt* xt, const trt::Accel* acc,
+                                                const float* scene_buf, float* out,
+                                                long long* state_out,
+                                                unsigned long long* iters, void* stream) {
+  return launch_chunked<true, true, trt::Walk>(a, *tx, *xt, scene_buf, out, state_out, iters,
+                                               stream, *acc);
 }
 
 // xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];

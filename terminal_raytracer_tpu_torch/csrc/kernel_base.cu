@@ -24,13 +24,13 @@
 // and end state, and no budget: the variance needs the pixel's totals,
 // which the glue adds in chunk order (ops/kernels.py).
 //
-// kernel_base is defined in pipeline.cuh (with kernel B, for the opt-in
-// traversals' instantiations in kernel_accel.cu); this file instantiates it
-// with the table sweep. Both come in three instantiations of trace.cuh's
-// device path: the
-// reference transport (trt_kernel_base, trt_kernel_base_chunked); EXT
-// (trt_kernel_base_ext, trt_kernel_base_chunked_ext), which replaces the
-// same Pallas kernel built with the texel-atlas operand
+// Both kernels are defined in pipeline.cuh (with kernel B, for the opt-in
+// traversals' instantiations in kernel_accel.cu); this file instantiates
+// them with the table sweep. Both come in three instantiations of
+// trace.cuh's device path: the reference transport (trt_kernel_base,
+// trt_kernel_base_chunked); EXT (trt_kernel_base_ext,
+// trt_kernel_base_chunked_ext), which replaces the same Pallas kernel
+// built with the texel-atlas operand
 // (pallas_kernel.py _tex_ops/_tex_specs/_tex_bind_front, :190-220, bound
 // at :807, :920, :949) and with the material-channel branches of its body
 // (tracer.py bounce_step :1300-1344, :1457-1559); and XT
@@ -52,69 +52,6 @@
 // slower, PERF.md).
 
 #include "pipeline.cuh"
-
-// Launch arguments of the chunked kernel, passed by value (mirrored by
-// ctypes in ops/kernels.py); BaseArgs is in pipeline.cuh.
-struct ChunkArgs {
-  trt::Frame f;
-  int h_out, y0, base, cb, n_chunks;
-  uint32_t seed, frame;
-};
-
-namespace {
-
-template <bool EXT, bool XT>
-__global__ void __launch_bounds__(128)
-    kernel_base_chunked(ChunkArgs a, const float* __restrict__ scene_buf,
-                        float* __restrict__ out, long long* __restrict__ state_out,
-                        unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt) {
-  const int n_pix = a.h_out * a.f.width;
-  const int n = a.n_chunks * n_pix;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned my_iters = 0;
-  if (i < n) {
-    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-    const int c = i / n_pix;
-    const int p = i - c * n_pix;
-    const int x = p % a.f.width;
-    const int y = a.y0 + p / a.f.width;
-    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
-                                     a.frame) +
-                     (uint32_t)c * trt::CHUNK_GOLDEN;
-    const int s0 = c * a.cb;
-    const int quota = min(s0 + a.cb, a.base);
-    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
-    float rays = 0.0f;
-    trt::Sweep tr(trt::Sweep::Launch{}, scene_buf);
-    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
-                                         (float)y, csum, &csumsq, rays, tr);
-    out[0 * n + i] = csum.x;
-    out[1 * n + i] = csum.y;
-    out[2 * n + i] = csum.z;
-    out[3 * n + i] = csumsq.x;
-    out[4 * n + i] = csumsq.y;
-    out[5 * n + i] = csumsq.z;
-    out[6 * n + i] = rays;
-    state_out[i] = (long long)state;
-  }
-  trt::count_warp_iters(my_iters, iters);
-}
-
-template <bool EXT, bool XT>
-int launch_chunked(const ChunkArgs* a, const trt::Tex& tx, const trt::Xt& xt,
-                   const float* scene_buf, float* out, long long* state_out,
-                   unsigned long long* iters, void* stream) {
-  const int n = a->n_chunks * a->h_out * a->f.width;
-  if (n > 0) {
-    const int threads = 128;
-    kernel_base_chunked<EXT, XT>
-        <<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-            *a, scene_buf, out, state_out, iters, tx, xt);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().

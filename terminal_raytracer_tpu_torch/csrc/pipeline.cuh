@@ -1,20 +1,28 @@
-// Kernels A and B of the sorted render pipeline, templated on the device
-// path's gates (EXT, XT) and its traversal (TR, trace.cuh Sweep or a
-// traverse.cuh one), with their launch arguments and launchers: one
-// definition for kernel_base.cu, kernel_extra.cu and kernel_accel.cu, which
-// instantiate them. The traversal's launch argument (TR::Launch, empty for
-// Sweep) is the kernels' last parameter; each thread builds its traversal
-// from it and the scene buffer, and flushes the traversal's counters at
-// the end, where every thread of the warp arrives.
+// The kernels of the render pipelines, templated on the device path's
+// gates (EXT, XT) and its traversal (TR, trace.cuh Sweep or a traverse.cuh
+// one), with their launch arguments and launchers: one definition for
+// kernel_base.cu, kernel_extra.cu, kernel_accel.cu and kernel_frame.cu,
+// which instantiate them. The traversal's launch argument (TR::Launch,
+// empty for Sweep) is the kernels' last parameter; each thread builds its
+// traversal from it and the scene buffer, and flushes the traversal's
+// counters at the end, where every thread of the warp arrives.
 //
-// kernel_base: one thread owns one pixel p = y*w + x (global y = y0 +
-// local row): it seeds the pixel's PCG chain, renders `base` samples, and
-// writes the pixel's csum[3], csumsq[3], owed rays, variance and adaptive
-// extra budget, and its end RNG state (kernel_base.cu says what it
-// replaces). kernel_extra: one thread owns one entry of the budget-sorted
-// stream and renders its `add` extra samples, then writes esum[3] and the
-// owed rays; a thread with add == 0 writes zeros and exits
-// (kernel_extra.cu).
+// The sorted pipeline's kernels A and B. kernel_base: one thread owns one
+// pixel p = y*w + x (global y = y0 + local row): it seeds the pixel's PCG
+// chain, renders `base` samples, and writes the pixel's csum[3],
+// csumsq[3], owed rays, variance and adaptive extra budget, and its end
+// RNG state (kernel_base.cu says what it replaces). kernel_base_chunked:
+// one thread owns one entry of the chunk-major stream, chunk c = i / n_pix
+// of pixel i % n_pix, and renders the chunk's share of the base samples
+// on the chunk's sub-chain (kernel_base.cu). kernel_extra: one thread owns
+// one entry of the budget-sorted stream and renders its `add` extra
+// samples, then writes esum[3] and the owed rays; a thread with add == 0
+// writes zeros and exits (kernel_extra.cu).
+//
+// The single-kernel schedulers, kernels C and D (kernel_frame.cu):
+// kernel_frame renders one pixel's whole frame in one thread, kernel A's
+// body, then kernel B's loop in place, then combine_phases; LOCKSTEP runs
+// it on the fixed-trip schedule (trace.cuh run_samples FIXED).
 
 #pragma once
 
@@ -32,6 +40,23 @@ struct BaseArgs {
 struct ExtraArgs {
   trt::Frame f;
   int n_entries;
+};
+
+struct ChunkArgs {
+  trt::Frame f;
+  int h_out, y0, base, cb, n_chunks;
+  uint32_t seed, frame;
+};
+
+struct FrameArgs {
+  trt::Frame f;
+  int h_out, y0, base, spp;
+  int cb, n_base_chunks;   // base chunk size and count (unsplit: base, 1)
+  int ce, n_extra_chunks;  // extra chunk size and count (unsplit: spp - base, 1)
+  uint32_t seed, frame;
+  float inv_base;   // f32(1 / base)
+  float max_extra;  // f32(spp - base) when base < spp, else 0
+  float inv_spp;    // f32(1 / spp)
 };
 
 namespace {
@@ -71,6 +96,45 @@ __global__ void __launch_bounds__(128)
     out[6 * n + i] = rays;
     out[7 * n + i] = var;
     out[8 * n + i] = additional;
+    state_out[i] = (long long)state;
+  }
+  trt::count_warp_iters(my_iters, iters);
+  tr.flush();
+}
+
+template <bool EXT, bool XT, class TR>
+__global__ void __launch_bounds__(128)
+    kernel_base_chunked(ChunkArgs a, const float* __restrict__ scene_buf,
+                        float* __restrict__ out, long long* __restrict__ state_out,
+                        unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
+                        typename TR::Launch tl) {
+  const int n_pix = a.h_out * a.f.width;
+  const int n = a.n_chunks * n_pix;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned my_iters = 0;
+  TR tr(tl, scene_buf);
+  if (i < n) {
+    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+    const int c = i / n_pix;
+    const int p = i - c * n_pix;
+    const int x = p % a.f.width;
+    const int y = a.y0 + p / a.f.width;
+    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
+                                     a.frame) +
+                     (uint32_t)c * trt::CHUNK_GOLDEN;
+    const int s0 = c * a.cb;
+    const int quota = min(s0 + a.cb, a.base);
+    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
+    float rays = 0.0f;
+    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
+                                         (float)y, csum, &csumsq, rays, tr);
+    out[0 * n + i] = csum.x;
+    out[1 * n + i] = csum.y;
+    out[2 * n + i] = csum.z;
+    out[3 * n + i] = csumsq.x;
+    out[4 * n + i] = csumsq.y;
+    out[5 * n + i] = csumsq.z;
+    out[6 * n + i] = rays;
     state_out[i] = (long long)state;
   }
   trt::count_warp_iters(my_iters, iters);
@@ -122,6 +186,20 @@ int launch_base(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt, const 
 }
 
 template <bool EXT, bool XT, class TR = trt::Sweep>
+int launch_chunked(const ChunkArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                   const float* scene_buf, float* out, long long* state_out,
+                   unsigned long long* iters, void* stream, const typename TR::Launch& tl = {}) {
+  const int n = a->n_chunks * a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_base_chunked<EXT, XT, TR>
+        <<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+            *a, scene_buf, out, state_out, iters, tx, xt, tl);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool EXT, bool XT, class TR = trt::Sweep>
 int launch_extra(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
                  const int* xs, const int* ys, const long long* state_in, const float* add,
                  const int* samp0, float* out, unsigned long long* iters, void* stream,
@@ -131,6 +209,105 @@ int launch_extra(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& xt, cons
     const int threads = 128;
     kernel_extra<EXT, XT, TR><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx, xt, tl);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernels C (regen) and D (LOCKSTEP): one thread owns one pixel p = y*w + x
+// (global y = y0 + local row) and renders its whole frame.
+//  1. seed the pixel's chain;
+//  2. the base samples, chunk by chunk: chunk c re-seeds state0 + c *
+//     CHUNK_GOLDEN (chunk 0 is state0), renders the absolute samples
+//     [c * cb, min((c + 1) * cb, base)) from zero sums, and its sums are
+//     added in chunk order; the extra phase continues chunk 0's end state;
+//  3. the variance and the budget, as kernel A's epilogue;
+//  4. the extra samples, chunk by chunk: chunk c owes clip(additional -
+//     c * ce, 0, ce) samples from sample index base + c * ce on the
+//     sub-chain state + c * CHUNK_GOLDEN, its sums added in chunk order;
+//  5. combine_phases: an adaptive pixel averages (csum + esum) over base +
+//     additional samples, by the f32 reciprocal of that total; the others
+//     divide csum by spp.
+// LOCKSTEP spends max_depth iterations on every slot: base samples, then
+// ce slots a chunk of the extra phase, taken or not.
+// out: f32 [6, n] (r, g, b, variance, total samples, owed rays).
+template <bool EXT, bool XT, class TR, bool LOCKSTEP>
+__global__ void __launch_bounds__(128)
+    kernel_frame(FrameArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                 unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
+                 typename TR::Launch tl) {
+  const int n = a.h_out * a.f.width;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned my_iters = 0;
+  TR tr(tl, scene_buf);
+  if (i < n) {
+    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+    const int x = i % a.f.width;
+    const int y = a.y0 + i / a.f.width;
+    const float xf = (float)x, yf = (float)y;
+    const uint32_t state0 =
+        trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed, a.frame);
+    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
+    float rays = 0.0f;
+    uint32_t state = state0;
+    for (int c = 0; c < a.n_base_chunks; ++c) {
+      uint32_t st = state0 + (uint32_t)c * trt::CHUNK_GOLDEN;
+      const int s0 = c * a.cb;
+      const int s1 = min(s0 + a.cb, a.base);
+      trt::V3 cs = {0.0f, 0.0f, 0.0f}, cq = {0.0f, 0.0f, 0.0f};
+      my_iters += trt::run_samples<EXT, XT, TR, LOCKSTEP>(a.f, sc, tx, xt, st, s0, (float)s1, xf,
+                                                          yf, cs, &cq, rays, tr, s1);
+      csum = csum + cs;
+      csumsq = csumsq + cq;
+      if (c == 0) state = st;
+    }
+    const trt::V3 mean = csum * a.inv_base;
+    const trt::V3 dv = csumsq * a.inv_base - mean * mean;
+    const float var = dv.x + dv.y + dv.z;
+    const bool needs = a.base < a.spp && var > 10.0f;
+    const float additional = needs ? fminf(floorf(var * 50.0f), a.max_extra) : 0.0f;
+    trt::V3 esum = {0.0f, 0.0f, 0.0f};
+    if (a.base < a.spp) {
+      for (int c = 0; c < a.n_extra_chunks; ++c) {
+        const float budget = fminf(fmaxf(additional - (float)(c * a.ce), 0.0f), (float)a.ce);
+        if (!LOCKSTEP && !(budget > 0.0f)) continue;
+        uint32_t st = state + (uint32_t)c * trt::CHUNK_GOLDEN;
+        const int s0 = a.base + c * a.ce;
+        trt::V3 es = {0.0f, 0.0f, 0.0f};
+        my_iters += trt::run_samples<EXT, XT, TR, LOCKSTEP>(a.f, sc, tx, xt, st, s0,
+                                                            budget + (float)s0, xf, yf, es,
+                                                            nullptr, rays, tr, s0 + a.ce);
+        esum = esum + es;
+      }
+    }
+    trt::V3 cur;
+    float total = (float)a.base;
+    if (needs) {
+      total = total + additional;
+      cur = (csum + esum) * (1.0f / total);
+    } else {
+      cur = csum * a.inv_spp;
+    }
+    out[0 * n + i] = cur.x;
+    out[1 * n + i] = cur.y;
+    out[2 * n + i] = cur.z;
+    out[3 * n + i] = var;
+    out[4 * n + i] = total;
+    out[5 * n + i] = rays;
+  }
+  trt::count_warp_iters(my_iters, iters);
+  tr.flush();
+}
+
+template <bool EXT, bool XT, class TR, bool LOCKSTEP>
+int launch_frame(const FrameArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
+                 float* out, unsigned long long* iters, void* stream,
+                 const typename TR::Launch& tl = {}) {
+  const int n = a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    kernel_frame<EXT, XT, TR, LOCKSTEP>
+        <<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(*a, scene_buf, out,
+                                                                           iters, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }

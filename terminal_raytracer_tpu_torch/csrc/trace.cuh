@@ -1,4 +1,4 @@
-// Shared device math of kernel_base.cu and kernel_extra.cu: the reference
+// Shared device math of the kernels (csrc/*.cu): the reference
 // transport of terminal_raytracer_tpu/ops/tracer.py for ONE path per
 // thread, with the RNG state, ray and throughput in registers.
 //
@@ -902,21 +902,37 @@ __device__ __forceinline__ void gen_ray(const Frame& f, const Xt& xt, uint32_t& 
 // radiance to csum (and its square to csumsq when non-null) and returns the
 // executed bounce iterations. XT starts each path's emit channel at the
 // transport's fresh value.
-template <bool EXT, bool XT, class TR>
+//
+// FIXED is the fixed-trip schedule of the lockstep kernel (the JAX
+// package's render_lanes with loop_mode='fori'): the slots [s0, s_end)
+// each spend max_depth iterations, a path's bounce guarded by its alive
+// flag instead of ending the loop, and a slot at or past the quota makes
+// no draw and traces nothing. The samples taken and their chains are the
+// same; only the count of iterations differs.
+template <bool EXT, bool XT, class TR, bool FIXED = false>
 __device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc, const Tex& tx,
                                                 const Xt& xt, uint32_t& state, int s0,
                                                 float quota, float xf, float yf, V3& csum,
-                                                V3* csumsq, float& rays, TR& tr) {
+                                                V3* csumsq, float& rays, TR& tr, int s_end = 0) {
   unsigned iters = 0;
-  for (int s = s0; (float)s < quota; ++s) {
+  for (int s = s0; FIXED ? s < s_end : (float)s < quota; ++s) {
+    if (FIXED && !((float)s < quota)) {  // an idle slot
+      iters += (unsigned)f.max_depth;
+      continue;
+    }
     state = pcg_hash(state + (uint32_t)s * 5096u);
     V3 o, d;
     gen_ray<XT>(f, xt, state, s, xf, yf, o, d);
     V3 att = {1.0f, 1.0f, 1.0f}, acc = {0.0f, 0.0f, 0.0f};
     float emit = XT ? xt.emit_fresh : 0.0f;
+    bool alive = true;
     for (int b = 0; b < f.max_depth; ++b) {
       ++iters;
-      if (!bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays, tr)) break;
+      if (!FIXED) {
+        if (!bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays, tr)) break;
+      } else if (alive) {
+        alive = bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays, tr);
+      }
     }
     csum = csum + acc;
     if (csumsq) *csumsq = *csumsq + acc * acc;

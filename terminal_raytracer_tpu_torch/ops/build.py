@@ -37,8 +37,15 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_xt", 12)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_gathered", 9),
+                        ("trt_kernel_base_chunked_grid", 9),
+                        ("trt_kernel_base_chunked_gathered", 9),
                         ("trt_kernel_extra_grid", 13),
                         ("trt_kernel_extra_gathered", 13)),
+    "kernel_frame.cu": tuple(
+        (f"trt_kernel_{mode}{sfx}", n)
+        for mode in ("regen", "lockstep")
+        for sfx, n in (("", 5), ("_ext", 6), ("_xt", 7), ("_grid", 8),
+                       ("_gathered", 8))),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

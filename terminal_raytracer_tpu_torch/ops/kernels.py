@@ -1,5 +1,7 @@
-"""The sorted two-kernel render pipeline —
-``terminal_raytracer_tpu/ops/pallas_kernel.py`` make_sorted_render_frame.
+"""The render pipelines — ``terminal_raytracer_tpu/ops/pallas_kernel.py``
+make_render_frame with its three schedulers (:func:`make_render_frame`).
+The default, 'sorted', is the two-kernel pipeline of
+make_sorted_render_frame:
 
   kernel A  base_kernel: `base` samples per pixel, with each pixel's
             variance and adaptive extra budget (csrc/kernel_base.cu); or,
@@ -16,6 +18,13 @@
   glue      unsort by index_copy_ into chunk planes, added in chunk order
             (index_add_ would add in an order that changes between runs
             on CUDA), then tracer.combine_phases
+
+The single-kernel schedulers render the whole frame in one launch, one
+thread a pixel (csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel),
+and kernel D, 'lockstep' (lockstep_kernel), the same frame on a fixed-trip
+schedule with a static occupancy denominator. Their plain version is the
+plain whole frame (render_frame_plain). Both come in the five
+instantiations below, each wrapper with its own launch count.
 
 Each kernel wrapper takes its plain PyTorch version (``*_plain``, built on
 ops/tracer.py) when the tensors it is given lie on the CPU; for CUDA
@@ -37,8 +46,9 @@ each).
 A tracer with an opt-in traversal (``tracer.traversal``: 'grid', the
 block-culled sweep, or 'gathered', the grid walk) renders from xt tables
 that carry the traversal's section, and each wrapper passes it on to its
-``*_grid`` or ``*_gathered`` twin: the XT instantiation of kernel A or B
-over that traversal (csrc/kernel_accel.cu), with the traversal's launch
+``*_grid`` or ``*_gathered`` twin: the XT instantiation of kernel A,
+chunked A or B over that traversal (csrc/kernel_accel.cu; C and D in
+csrc/kernel_frame.cu), with the traversal's launch
 argument (trt::Accel, :func:`accel_args`). Its plain version is the
 tracer's, over the traversal's plain version (ops/accel.py,
 ops/gathered.py). While ``tracer.accel_stats`` holds a zeroed int64
@@ -91,6 +101,16 @@ class _ChunkArgs(ctypes.Structure):
                 ("base", ctypes.c_int), ("cb", ctypes.c_int),
                 ("n_chunks", ctypes.c_int), ("seed", ctypes.c_uint32),
                 ("frame", ctypes.c_uint32)]
+
+
+class _FrameArgs(ctypes.Structure):
+    _fields_ = [("f", _Frame), ("h_out", ctypes.c_int), ("y0", ctypes.c_int),
+                ("base", ctypes.c_int), ("spp", ctypes.c_int),
+                ("cb", ctypes.c_int), ("n_base_chunks", ctypes.c_int),
+                ("ce", ctypes.c_int), ("n_extra_chunks", ctypes.c_int),
+                ("seed", ctypes.c_uint32), ("frame", ctypes.c_uint32),
+                ("inv_base", ctypes.c_float), ("max_extra", ctypes.c_float),
+                ("inv_spp", ctypes.c_float)]
 
 
 class _Tex(ctypes.Structure):
@@ -209,6 +229,17 @@ class ChunkedBaseOut(NamedTuple):
     iters: torch.Tensor
 
 
+class FrameOut(NamedTuple):
+    """Kernel C's or D's per-pixel planes ([h_out, w]) and its executed
+    lane-iterations (0-dim f64 tensor, the occupancy denominator)."""
+
+    current: V3
+    var: torch.Tensor
+    total: torch.Tensor
+    rays: torch.Tensor
+    iters: torch.Tensor
+
+
 def _frame(tracer: tracer_mod.PathTracer, pose) -> _Frame:
     n_sph, n_pln, n_tri, n_lights = tracer.tables.counts
     pose = np.asarray(pose, np.float32)
@@ -307,12 +338,6 @@ def _no_chunks(tracer, name: str) -> None:
     if tracer.chunk_base:
         raise ValueError(f"{name}: the tracer splits pixels into chunks; "
                          "use base_kernel_chunked")
-
-
-def _no_traversal(tracer, name: str) -> None:
-    if tracer.traversal:
-        raise ValueError(f"{name}: no instantiation over accel "
-                         f"{tracer.traversal!r}")
 
 
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
@@ -460,11 +485,17 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     (x, y) on the sub-chain seed + c * CHUNK_GOLDEN (an unchunked tracer
     has one chunk of `base` samples). No budget epilogue: the variance
     needs the per-pixel totals. base_kernel_chunked_ext / _xt for a tracer
-    with the extensions. There is none over an opt-in traversal."""
-    _no_traversal(tracer, "base_kernel_chunked")
+    with the extensions, base_kernel_chunked_grid / _gathered for one with
+    that traversal."""
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if tracer.traversal == "grid":
+        return base_kernel_chunked_grid(tracer, pose, seed, frame_number, y0,
+                                        h_out)
+    if tracer.traversal == "gathered":
+        return base_kernel_chunked_gathered(tracer, pose, seed, frame_number,
+                                            y0, h_out)
     if tracer.xt:
         return base_kernel_chunked_xt(tracer, pose, seed, frame_number, y0,
                                       h_out)
@@ -481,7 +512,6 @@ def base_kernel_chunked_ext(tracer, pose, seed: int, frame_number: int,
                             ) -> ChunkedBaseOut:
     """The chunked kernel A's EXT instantiation."""
     _require_ext(tracer, "base_kernel_chunked_ext")
-    _no_traversal(tracer, "base_kernel_chunked_ext")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_ext"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -502,9 +532,40 @@ def base_kernel_chunked_xt(tracer, pose, seed: int, frame_number: int,
     return out
 
 
+def base_kernel_chunked_grid(tracer, pose, seed: int, frame_number: int,
+                             y0: int = 0, h_out: int = None
+                             ) -> ChunkedBaseOut:
+    """The chunked kernel A over the block-culled sweep (XT
+    instantiation)."""
+    _require_traversal(tracer, "grid", "base_kernel_chunked_grid")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_grid"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "grid")
+    base_kernel_chunked_grid.launches += 1
+    return out
+
+
+def base_kernel_chunked_gathered(tracer, pose, seed: int, frame_number: int,
+                                 y0: int = 0, h_out: int = None
+                                 ) -> ChunkedBaseOut:
+    """The chunked kernel A over the grid walk (XT instantiation)."""
+    _require_traversal(tracer, "gathered", "base_kernel_chunked_gathered")
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_gathered"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "gathered")
+    base_kernel_chunked_gathered.launches += 1
+    return out
+
+
 base_kernel_chunked.launches = 0
 base_kernel_chunked_ext.launches = 0
 base_kernel_chunked_xt.launches = 0
+base_kernel_chunked_grid.launches = 0
+base_kernel_chunked_gathered.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -738,5 +799,161 @@ def make_sorted_render_frame(tracer):
             iters = iters + it_b
         occ = rays / torch.clamp(iters * sweeps_per_iter, min=1.0)
         return current, var, total, rays, occ
+
+    return render_frame
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and D: the single-kernel schedulers
+# ---------------------------------------------------------------------------
+
+MODES = ("sorted", "regen", "lockstep")
+WARP = 32
+
+
+def lockstep_samples(tracer) -> int:
+    """The sample slots every lockstep thread runs (pallas_kernel.py
+    :528-536): max(base, spp), or base plus whole extra chunks of ce
+    slots."""
+    base, spp = tracer.base_samples, tracer.spp
+    if base >= spp:
+        return base
+    return base + tracer.n_extra_chunks * (tracer.chunk_extra or spp - base)
+
+
+def lockstep_iters(tracer, h_out: int = None) -> float:
+    """Kernel D's executed lane-iterations, a static count: every lane of
+    ceil(h_out * w / 32) warps runs lockstep_samples x max_depth."""
+    h_out = tracer.height if h_out is None else h_out
+    lanes = -(-h_out * tracer.width // WARP) * WARP
+    return float(lanes * lockstep_samples(tracer) * tracer.max_depth)
+
+
+def warp_iters(lane_iters: torch.Tensor) -> torch.Tensor:
+    """Executed lane-iterations of per-pixel iteration counts run one
+    thread a pixel: 32 x the largest count of each warp of 32 consecutive
+    pixels (trace.cuh count_warp_iters). 0-dim f64."""
+    flat = lane_iters.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % WARP)])
+    return (flat.view(-1, WARP).amax(1).sum() * WARP).to(torch.float64)
+
+
+def render_frame_plain(tracer, mode: str, pose, seed: int, frame_number: int,
+                       y0: int = 0, h_out: int = None) -> FrameOut:
+    """Kernel C ('regen') or D ('lockstep') in plain PyTorch (any device):
+    the plain whole frame (ops/tracer.py render_pixels) with the kernel's
+    count of executed lane-iterations."""
+    cur, var, total, rays, lane_iters, _ = tracer.render_pixels(
+        pose, seed, frame_number, y0, h_out)
+    if mode == "regen":
+        iters = warp_iters(lane_iters)
+    elif mode == "lockstep":
+        iters = _iters_tensor(lockstep_iters(tracer, h_out), var.device)
+    else:
+        raise ValueError(f"unknown kernel mode {mode!r}")
+    return FrameOut(cur, var, total, rays, iters)
+
+
+def _kind(tracer) -> str:
+    """The instantiation a tracer takes: its traversal, or 'xt', 'ext' or
+    'ref'."""
+    return tracer.traversal or ("xt" if tracer.xt else "ext" if tracer.ext
+                                else "ref")
+
+
+def _launch_frame(tracer, pose, seed, frame_number, y0, h_out, entry,
+                  kind) -> FrameOut:
+    device = tracer.tables.buf.device
+    h_out = tracer.height if h_out is None else h_out
+    w, base, spp = tracer.width, tracer.base_samples, tracer.spp
+    n = h_out * w
+    out = torch.empty((6, n), dtype=torch.float32, device=device)
+    iters = torch.zeros((1,), dtype=torch.int64, device=device)
+    args = _FrameArgs(_frame(tracer, pose), h_out, y0, base, spp,
+                      tracer.chunk_base or base, tracer.n_base_chunks,
+                      tracer.chunk_extra or max(spp - base, 0),
+                      tracer.n_extra_chunks, seed & 0xFFFFFFFF,
+                      frame_number & 0xFFFFFFFF,
+                      float(np.float32(1.0 / base)),
+                      float(max(spp - base, 0)),
+                      float(np.float32(1.0 / spp)))
+    ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), iters.data_ptr(),
+            _stream(device))
+    _launch(load_kernels(), entry, args, tracer, kind, ptrs)
+    p = out.view(6, h_out, w)
+    return FrameOut(V3(p[0], p[1], p[2]), p[3], p[4], p[5],
+                    iters[0].to(torch.float64))
+
+
+def _frame_kernel(mode: str, kind: str):
+    """The wrapper of kernel C or D's `kind` instantiation; the 'ref'
+    wrapper passes a tracer of another kind on to its twin."""
+    name = f"{mode}_kernel" + ("" if kind == "ref" else f"_{kind}")
+
+    def wrapper(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                h_out: int = None) -> FrameOut:
+        if kind == "ref" and _kind(tracer) != "ref":
+            return FRAME_KERNELS[mode, _kind(tracer)](
+                tracer, pose, seed, frame_number, y0, h_out)
+        if _kind(tracer) != kind:
+            raise ValueError(f"{name}: the tracer takes the "
+                             f"{_kind(tracer)!r} instantiation")
+        if not _on_cuda(tracer.tables.buf.device, name):
+            return render_frame_plain(tracer, mode, pose, seed, frame_number,
+                                      y0, h_out)
+        out = _launch_frame(tracer, pose, seed, frame_number, y0, h_out,
+                            f"trt_kernel_{mode}", kind)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    which = "any tracer" if kind == "ref" else f"the {kind} instantiation"
+    wrapper.__doc__ = (
+        f"Kernel {'C' if mode == 'regen' else 'D'} ({mode}), {which}: rows "
+        "[y0, y0 + h_out) of the frame, one thread a pixel "
+        "(csrc/kernel_frame.cu). Returns FrameOut.")
+    wrapper.launches = 0
+    return wrapper
+
+
+FRAME_KERNELS = {(mode, kind): _frame_kernel(mode, kind)
+                 for mode in ("regen", "lockstep")
+                 for kind in ("ref", "ext", "xt", "grid", "gathered")}
+regen_kernel = FRAME_KERNELS["regen", "ref"]
+regen_kernel_ext = FRAME_KERNELS["regen", "ext"]
+regen_kernel_xt = FRAME_KERNELS["regen", "xt"]
+regen_kernel_grid = FRAME_KERNELS["regen", "grid"]
+regen_kernel_gathered = FRAME_KERNELS["regen", "gathered"]
+lockstep_kernel = FRAME_KERNELS["lockstep", "ref"]
+lockstep_kernel_ext = FRAME_KERNELS["lockstep", "ext"]
+lockstep_kernel_xt = FRAME_KERNELS["lockstep", "xt"]
+lockstep_kernel_grid = FRAME_KERNELS["lockstep", "grid"]
+lockstep_kernel_gathered = FRAME_KERNELS["lockstep", "gathered"]
+
+
+def make_render_frame(tracer, mode: str = "sorted"):
+    """``render_frame(pose, seed, frame_number[, arrays]) -> (current V3,
+    variance, total samples, rays, occupancy)`` through the scheduler
+    `mode`: 'sorted' (make_sorted_render_frame), 'regen' (kernel C) or
+    'lockstep' (kernel D), one launch a frame. Rays and occupancy are 0-dim
+    f64 tensors on the device (no host sync); regen's occupancy denominator
+    is its executed lane-iterations, lockstep's the static lockstep_iters.
+    A dynamic tracer takes the frame's ops/dynamic.pack_scene `arrays`."""
+    if mode == "sorted":
+        return make_sorted_render_frame(tracer)
+    if mode not in MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}")
+    kernel = FRAME_KERNELS[mode, "ref"]
+    sweeps_per_iter = 1.0 + tracer.nee_sweeps
+    static = _iters_tensor(lockstep_iters(tracer), tracer.device)
+
+    def render_frame(pose, seed: int, frame_number: int, arrays=None):
+        if tracer.dynamic:
+            tracer.bind_packed(arrays)
+        out = kernel(tracer, pose, seed, frame_number)
+        rays = out.rays.sum(dtype=torch.float64)
+        iters = out.iters if mode == "regen" else static
+        occ = rays / torch.clamp(iters * sweeps_per_iter, min=1.0)
+        return out.current, out.var, out.total, rays, occ
 
     return render_frame

@@ -59,9 +59,9 @@ a pixel's totals are its entries' sums added in chunk order.
 
 The opt-in traversals 'grid' (the block-culled sweep, ops/accel.py) and
 'gathered' (the grid walk, ops/gathered.py) never split a chain by
-themselves; an animated scene under 'grid' takes the runtime-value path
-(the grid is ignored, as in the JAX package), and 'gathered' needs a
-static scene.
+themselves (an explicit chunk_base or chunk_extra does); an animated
+scene under 'grid' takes the runtime-value path (the grid is ignored, as
+in the JAX package), and 'gathered' needs a static scene.
 """
 
 from __future__ import annotations
@@ -226,6 +226,7 @@ class Paths(NamedTuple):
     csumsq: V3
     rays: torch.Tensor  # f32 owed traversal sweeps
     emit: torch.Tensor  # f32 emit channel of the in-flight sample
+    iters: torch.Tensor  # int64 executed bounce iterations
 
 
 class PathTracer:
@@ -269,10 +270,6 @@ class PathTracer:
         self.base_samples = base_sample_count(self.spp)
         self.chunk_base, self.chunk_extra = resolve_chunks(
             scene, self.accel, chunk_base, chunk_extra)
-        if self.traversal and self.chunk_base:
-            raise ValueError(f"accel={self.accel!r} with a base chunk split "
-                             "is not ported yet (no chunked kernel A over "
-                             "that traversal)")
         # Entries per pixel of the base and the extra phase.
         self.n_base_chunks = (-(-self.base_samples // self.chunk_base)
                               if self.chunk_base else 1)
@@ -929,7 +926,7 @@ class PathTracer:
             alive=torch.zeros(quota.shape, dtype=torch.bool,
                               device=quota.device),
             csum=vm.splat(zeros), csumsq=vm.splat(zeros), rays=zeros,
-            emit=zeros,
+            emit=zeros, iters=torch.zeros_like(samp0),
         )
 
     def regen_step(self, cam: Cam, xf, yf, c: Paths) -> Paths:
@@ -960,7 +957,8 @@ class PathTracer:
         samp = c.samp + finished.to(torch.int64)
         alive = alive & ~at_depth
         return Paths(state, samp, c.quota, o, d, att, acc, bounce, alive,
-                     csum, csumsq, rays, emit)
+                     csum, csumsq, rays, emit,
+                     c.iters + executed.to(torch.int64))
 
     def run_regen(self, cam: Cam, xf, yf, c: Paths):
         """Iterate regen_step until no lane owes work. Returns (carry,
@@ -995,6 +993,11 @@ class PathTracer:
         index) the chunk's share [c * cb, min((c + 1) * cb, base)) on the
         chunk's sub-chain (state0 is the pixel seed either way). Returns
         (state, csum, csumsq, rays, executed lane-iterations)."""
+        c, it = self._base_run(cam, xf, yf, state0, chunk)
+        return c.state, c.csum, c.csumsq, c.rays, it * xf.numel()
+
+    def _base_run(self, cam: Cam, xf, yf, state0, chunk=None):
+        """base_phase's scheduler run: (final carry, iterations)."""
         if chunk is None:
             samp0 = torch.zeros_like(state0)
             quota = torch.full_like(xf, float(self.base_samples))
@@ -1004,9 +1007,8 @@ class PathTracer:
             samp0 = chunk * cb
             quota = torch.clamp(samp0 + cb, max=self.base_samples).to(
                 torch.float32)
-        c0 = self.regen_carry0(state0, samp0, quota)
-        c, it = self.run_regen(cam, xf, yf, c0)
-        return c.state, c.csum, c.csumsq, c.rays, it * xf.numel()
+        return self.run_regen(cam, xf, yf,
+                              self.regen_carry0(state0, samp0, quota))
 
     @staticmethod
     def chunk_total(planes: torch.Tensor) -> torch.Tensor:
@@ -1036,6 +1038,13 @@ class PathTracer:
         index `samp0`. Returns (esum, rays, executed lane-iterations).
         Only lanes with a budget are traced (zero-budget lanes owe nothing
         and get zeros)."""
+        c, full, it = self._extra_run(cam, xf, yf, state, additional, samp0)
+        return V3(*(full(v) for v in c.csum)), full(c.rays), it
+
+    def _extra_run(self, cam: Cam, xf, yf, state, additional, samp0):
+        """extra_phase's scheduler run over the lanes with a budget: (final
+        carry, a function that puts such a carry plane back in the lanes'
+        shape with zeros elsewhere, executed lane-iterations)."""
         live = torch.nonzero(additional.reshape(-1) > 0.0).squeeze(1)
 
         def sub(t):
@@ -1049,7 +1058,7 @@ class PathTracer:
         c0 = self.regen_carry0(sub(state), sub(samp0),
                                sub(additional) + sub(samp0).to(torch.float32))
         c, it = self.run_regen(cam, sub(xf), sub(yf), c0)
-        return V3(*(full(v) for v in c.csum)), full(c.rays), it * live.numel()
+        return c, full, it * live.numel()
 
     def extra_entries(self, state, additional):
         """The extra phase's chunk-major entries of pixels with end state
@@ -1085,19 +1094,23 @@ class PathTracer:
             torch.arange(self.width, device=self.device), indexing="ij")
         return x, y
 
-    def render_frame(self, pose, seed: int, frame_number: int):
-        """The whole frame in plain PyTorch, over the image-order entries
-        (the JAX oracle's render_lanes). Returns (current V3[H,W],
-        variance, total samples, owed rays, occupancy) — occupancy is owed
-        sweeps over executed lane-iteration sweeps, 1 + nee_sweeps each."""
+    def render_pixels(self, pose, seed: int, frame_number: int, y0: int = 0,
+                      h_out: int = None):
+        """The whole frame of rows [y0, y0 + h_out) in plain PyTorch, over
+        the image-order entries (the JAX oracle's render_lanes). Returns
+        (current V3, variance, total samples, owed rays (f32), executed
+        bounce iterations (int64), each [h_out, w], and the executed
+        lane-iterations of the regeneration scheduler's runs)."""
         cam = cam_from_pose(pose)
-        x, y, c = self.base_entries()
-        state, csum, csumsq, rays, it = self.base_phase(
+        x, y, c = self.base_entries(y0, h_out)
+        b, it = self._base_run(
             cam, x.to(torch.float32), y.to(torch.float32),
             self.seed_lanes(x, y, seed, frame_number), c)
-        csum = V3(*(self.chunk_total(v) for v in csum))
-        csumsq = V3(*(self.chunk_total(v) for v in csumsq))
-        state = state[0]  # the extra phase continues chunk 0's chain
+        it *= x.numel()
+        csum = V3(*(self.chunk_total(v) for v in b.csum))
+        csumsq = V3(*(self.chunk_total(v) for v in b.csumsq))
+        rays, iters = self.chunk_total(b.rays), self.chunk_total(b.iters)
+        state = b.state[0]  # the extra phase continues chunk 0's chain
         var = self.variance_of(csum, csumsq)
         if self.base_samples >= self.spp:
             current = csum * (1.0 / self.spp)
@@ -1106,14 +1119,24 @@ class PathTracer:
             needs, additional = self.extra_quota(var)
             budget, st_e, samp0 = self.extra_entries(state, additional)
             shape = budget.shape
-            esum, rays_b, it_b = self.extra_phase(
+            e, full, it_b = self._extra_run(
                 cam, x[0].expand(shape).to(torch.float32),
                 y[0].expand(shape).to(torch.float32), st_e, budget, samp0)
-            esum = V3(*(self.chunk_total(v) for v in esum))
-            rays = torch.cat([rays.reshape(-1), rays_b.reshape(-1)])
+            esum = V3(*(self.chunk_total(full(v)) for v in e.csum))
+            rays = rays + self.chunk_total(full(e.rays))
+            iters = iters + self.chunk_total(full(e.iters))
             it += it_b
             current, total = self.combine_phases(csum, esum, needs,
                                                  additional)
+        return current, var, total, rays, iters, it
+
+    def render_frame(self, pose, seed: int, frame_number: int):
+        """The whole frame in plain PyTorch (render_pixels). Returns
+        (current V3[H,W], variance, total samples, owed rays, occupancy) —
+        occupancy is owed sweeps over executed lane-iteration sweeps, 1 +
+        nee_sweeps each."""
+        current, var, total, rays, _, it = self.render_pixels(
+            pose, seed, frame_number)
         rays_sum = rays.to(torch.float64).sum()
         occ = rays_sum / max(it * (1.0 + self.nee_sweeps), 1.0)
         return current, var, total, rays_sum, occ

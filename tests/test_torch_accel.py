@@ -17,7 +17,8 @@ log or exp moves a direction).
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp
@@ -199,10 +200,10 @@ def _off(got, want):
     ("stress:48:3", {}, "reference", 7),
     ("Cornell_Box", {"fog": 0.15}, "mis", 11)])
 def test_render_frame_matches_jax_oracle(name, over, transport, seed):
-    """The plain whole frame and the sorted pipeline through the grid
-    kernels' plain versions against the JAX PathTracer with accel 'grid':
-    rays and samples exact, radiance within the tolerance (module
-    docstring)."""
+    """The plain whole frame and the sorted, regen and lockstep schedulers
+    through the grid kernels' plain versions against the JAX PathTracer
+    with accel 'grid': rays and samples exact, radiance within the
+    tolerance (module docstring)."""
     kw = dict(width=64, height=16, samples_per_pixel=8, max_depth=3)
     scene = load_scene(name).with_overrides(**kw, **(
         {"fog": Fog(density=over["fog"])} if over else {}))
@@ -216,7 +217,9 @@ def test_render_frame_matches_jax_oracle(name, over, transport, seed):
     assert (jtot > tr.base_samples).any()
     plain = tr.render_frame(POSE, seed, 0)
     piped = kernels.make_sorted_render_frame(tr)(POSE, seed, 0)
-    for cur, var, tot, rays, occ in (plain, piped):
+    single = [kernels.make_render_frame(tr, mode)(POSE, seed, 0)
+              for mode in ("regen", "lockstep")]
+    for cur, var, tot, rays, occ in [plain, piped] + single:
         assert float(rays) == float(np.asarray(jrays).sum())
         np.testing.assert_array_equal(tot.numpy(), jtot)
         off = _off(np.stack([c.numpy() for c in cur]), np.stack(jcur))
@@ -226,10 +229,14 @@ def test_render_frame_matches_jax_oracle(name, over, transport, seed):
             assert err.max() <= 1e-4
         else:
             assert off.mean() <= KNIFE_EDGE
-    for a, b in zip(plain[:3], piped[:3]):
-        for x, y in zip(a if isinstance(a, tuple) else (a,),
-                        b if isinstance(b, tuple) else (b,)):
-            assert torch.equal(x, y)
+    for out in [piped] + single:
+        _assert_same_frame(plain, out)
+
+
+def _assert_same_frame(a, b):
+    """Two frames' current, variance and samples equal, bit for bit."""
+    for x, y in zip((*a[0], *a[1:3]), (*b[0], *b[1:3])):
+        assert torch.equal(x, y)
 
 
 def test_far_shadow_ray_skips_a_phantom_hit():
@@ -301,11 +308,31 @@ def test_accel_grid_animated_takes_the_dynamic_path():
         assert float(a.rays) == float(b.rays)
 
 
-def test_explicit_base_chunks_are_refused():
-    scene = load_scene("stress:48:3")
-    with pytest.raises(ValueError, match="not ported"):
-        PathTracer(scene, "cpu", accel="grid", chunk_base=2)
-    tr = PathTracer(scene, "cpu", accel="grid", chunk_extra=2)
-    assert tr.chunk_extra == 2 and tr.chunk_base is None
-    with pytest.raises(ValueError, match="no instantiation"):
-        kernels.base_kernel_chunked(tr, POSE, 1, 0)
+@pytest.mark.parametrize("accel", ["grid", "gathered"])
+def test_explicit_base_chunks_match_jax_oracle(accel):
+    """An explicit base chunk split under either opt-in traversal (the
+    chunked kernel A over it): resolved as the JAX PathTracer resolves it,
+    and the plain whole frame and every scheduler's frame against the JAX
+    oracle: rays and samples exact, radiance within the tolerance (module
+    docstring), one frame bit for bit."""
+    kw = dict(width=64, height=16, samples_per_pixel=8, max_depth=3)
+    scene = load_scene("stress:48:3").with_overrides(**kw)
+    jt = jtracer.PathTracer(jload_scene("stress:48:3").with_overrides(**kw),
+                            accel=accel, chunk_base=2)
+    jcur, jvar, jtot, jrays = jax.device_get(jax.jit(jt.render_frame)(
+        POSE, np.uint32(5), np.int32(0)))
+    tr = PathTracer(scene, "cpu", accel=accel, chunk_base=2)
+    assert (tr.traversal, tr.chunk_base, tr.chunk_extra) == (
+        accel, jt.chunk_base, jt.chunk_extra)
+    assert tr.n_base_chunks == 2 and (jtot > tr.base_samples).any()
+    plain = tr.render_frame(POSE, 5, 0)
+    outs = [kernels.make_render_frame(tr, mode)(POSE, 5, 0)
+            for mode in kernels.MODES]
+    for cur, var, tot, rays, occ in [plain] + outs:
+        assert float(rays) == float(np.asarray(jrays).sum())
+        np.testing.assert_array_equal(tot.numpy(), jtot)
+        assert _off(np.stack([c.numpy() for c in cur]),
+                    np.stack(jcur)).mean() <= KNIFE_EDGE
+        assert 0.0 < float(occ) <= 1.0
+    for out in outs:
+        _assert_same_frame(plain, out)

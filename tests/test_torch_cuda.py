@@ -14,7 +14,8 @@ for bit.
 import dataclasses
 
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu_torch.models import Camera, load_scene
 from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
@@ -401,3 +402,117 @@ def test_accel_render_step_matches_plain_frame(cuda_device, accel):
     assert torch.equal(out.state.samples, total)
     assert torch.equal(out.state.variance, var)
     assert torch.equal(out.state.acc, torch.stack(list(cur)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", ["grid", "gathered"])
+def test_chunked_accel_kernels_match_plain_versions(cuda_device, accel):
+    """The chunked kernel A over the grid and gathered traversals against
+    its plain version: every per-entry plane equal, and the traversal
+    counters equal to the plain version's count."""
+    scene = load_scene("stress:96:3").with_overrides(
+        width=64, height=16, samples_per_pixel=16, max_depth=6)
+    tr = PathTracer(scene, cuda_device, accel=accel, chunk_base=2)
+    wrap = getattr(kernels, f"base_kernel_chunked_{accel}")
+    n0 = wrap.launches
+    k, ks = _kernel_counts(
+        tr, lambda: kernels.base_kernel_chunked(tr, POSE, SEED, 0))
+    p, ps = _plain_counts(
+        tr, lambda: kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0))
+    assert wrap.launches == n0 + 1
+    assert k.rays.shape == (2, 16, 64)
+    _assert_base_equal(k, p)
+    assert torch.equal(ks, ps), (ks, ps)
+
+
+# Kernels C and D: (scene, overrides, PathTracer keywords, transport).
+FRAME_CASES = {
+    "cornell": ("Cornell_Box", {}, {}, "reference"),
+    "stress-chunked": ("stress:120:7", {},
+                       dict(chunk_base=2, chunk_extra=2), "reference"),
+    "showcase": ("showcase", {}, {}, "reference"),
+    "fog-mis": ("Cornell_Box", {"fog": Fog(density=0.15)}, {}, "mis"),
+    "grid": ("stress:96:3", {}, dict(accel="grid"), "reference"),
+    "grid-chunked": ("stress:96:3", {}, dict(accel="grid", chunk_base=2,
+                                             chunk_extra=3), "reference"),
+    "gathered": ("stress:96:3", {}, dict(accel="gathered"), "reference"),
+    "gathered-chunked": ("stress:96:3", {},
+                         dict(accel="gathered", chunk_base=2), "reference"),
+}
+FRAME_KIND = {"cornell": "", "stress-chunked": "", "showcase": "_ext",
+              "fog-mis": "_xt", "grid": "_grid", "grid-chunked": "_grid",
+              "gathered": "_gathered", "gathered-chunked": "_gathered"}
+
+
+def _frame_tracer(device, name, w=64, h=16, spp=16, depth=6):
+    scene, over, kw, transport = FRAME_CASES[name]
+    scene = load_scene(scene).with_overrides(
+        width=w, height=h, samples_per_pixel=spp, max_depth=depth, **over)
+    return PathTracer(scene, device, transport=transport, **kw)
+
+
+def _assert_frames_equal(k, p):
+    for a, b in zip((*k.current, k.var, k.total, k.rays),
+                    (*p.current, p.var, p.total, p.rays)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["regen", "lockstep"])
+@pytest.mark.parametrize("name", list(FRAME_CASES))
+def test_frame_kernels_match_plain_versions(cuda_device, name, mode):
+    """Each instantiation of kernels C and D against its plain version:
+    every plane equal, the executed lane-iterations equal to the plain
+    version's count (regen: 32 x each warp's longest thread; lockstep: the
+    static formula) and the traversal counters equal."""
+    tr = _frame_tracer(cuda_device, name)
+    wrap = getattr(kernels, f"{mode}_kernel{FRAME_KIND[name]}")
+    n0 = wrap.launches
+    if tr.traversal:
+        k, ks = _kernel_counts(tr, lambda: wrap(tr, POSE, SEED, 0))
+        p, ps = _plain_counts(tr, lambda: kernels.render_frame_plain(
+            tr, mode, POSE, SEED, 0))
+        assert torch.equal(ks, ps), (ks, ps)
+        if tr.traversal == "gathered":
+            assert float(ks[3]) == 0.0
+    else:
+        k = wrap(tr, POSE, SEED, 0)
+        p = kernels.render_frame_plain(tr, mode, POSE, SEED, 0)
+    assert wrap.launches == n0 + 1
+    assert (p.total > tr.base_samples).any()
+    _assert_frames_equal(k, p)
+    assert float(k.iters) == float(p.iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w, h, spp", [(50, 7, 16), (64, 16, 3)])
+def test_lockstep_counter_equals_static_formula(cuda_device, w, h, spp):
+    """Kernel D's own count of executed lane-iterations is the static
+    formula over ceil(h * w / 32) * 32 lanes, a partial warp included and
+    with base >= spp; a row block counts its own lanes."""
+    tr = _frame_tracer(cuda_device, "stress-chunked", w, h, spp, 5)
+    k = kernels.lockstep_kernel(tr, POSE, SEED, 0)
+    assert float(k.iters) == kernels.lockstep_iters(tr)
+    k = kernels.lockstep_kernel(tr, POSE, SEED, 0, y0=2, h_out=3)
+    assert float(k.iters) == kernels.lockstep_iters(tr, 3)
+    p = kernels.render_frame_plain(tr, "lockstep", POSE, SEED, 0, 2, 3)
+    _assert_frames_equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "showcase", "fog-mis",
+                                  "grid-chunked", "gathered"])
+def test_schedulers_render_equal_frames(cuda_device, name):
+    """C, D and the sorted pipeline on one scene of each instantiation:
+    the same frame, bit for bit, and lockstep's occupancy no higher than
+    the others'."""
+    tr = _frame_tracer(cuda_device, name)
+    outs = {mode: kernels.make_render_frame(tr, mode)(POSE, SEED, 3)
+            for mode in kernels.MODES}
+    want = outs["sorted"]
+    for mode in ("regen", "lockstep"):
+        got = outs[mode]
+        assert float(got[3]) == float(want[3]), mode
+        for a, b in zip((*got[0], *got[1:3]), (*want[0], *want[1:3])):
+            assert torch.equal(a, b), mode
+    assert float(outs["lockstep"][4]) <= float(outs["regen"][4])

@@ -17,7 +17,8 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu.models import Camera, list_scenes
 from terminal_raytracer_tpu.models import load_scene as jload_scene

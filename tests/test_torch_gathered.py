@@ -20,7 +20,8 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp

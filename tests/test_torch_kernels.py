@@ -17,7 +17,8 @@ card by tests/test_torch_cuda.py and chip_smoke.py.
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu.models import Camera, load_scene
 from terminal_raytracer_tpu.ops import pallas_kernel as pk

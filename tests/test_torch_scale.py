@@ -21,7 +21,8 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu.models import Camera, load_scene as jload_scene
 from terminal_raytracer_tpu.ops import pallas_kernel as pk

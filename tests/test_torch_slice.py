@@ -28,7 +28,8 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu.models import Camera, list_scenes, load_scene
 from terminal_raytracer_tpu.models.scene import Fog

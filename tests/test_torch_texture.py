@@ -29,7 +29,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu.models import Camera
 from terminal_raytracer_tpu.models import load_scene as jload_scene
