@@ -93,6 +93,26 @@ Phases, each reported on lines starting with its tag:
             'sorted', 'regen' and 'lockstep' on every one of those
             configs (launch counters reset before, read after; ms/frame
             side by side), where C, D and sorted must render one frame
+  [denoise] the à-trous filter (ops/denoise.py): one north-star Engine
+            run with --denoise 1.0 (finite, not flat, the filter changing
+            the image, kernels A and B launched once a frame), the filter
+            on the card within max relative error 1e-5 of the same filter
+            on a CPU copy of its inputs, timed
+  [mesh]    the multi-GPU path (parallel/mesh.py) on one card: kernel A
+            with each sample-split shard's runtime quota and seed at the
+            north star (sp = 3: shares 2, 1, 1) on the whole image and on
+            the px = 2 row block y0 = 100, against base_kernel_plain with
+            the same arguments (rays, end states, budgets and variance
+            equal, sums within 5e-3), timed per share; the sample-split
+            composition (every shard's phases in one process, the sums
+            over sp in rank order) for sp = 2 and 3 against the same
+            phases on the plain versions (rays, totals, variance equal,
+            radiance within 5e-3), ms/frame beside the unsharded sorted
+            frame; then a process group of one rank over NCCL: Engine on
+            a (1, 1) mesh against Engine without one, bit for bit, kernels
+            A and B launched once a frame. Its launch counters run from
+            the composition to the end, and kernel A must have taken a
+            runtime quota on every sample-split launch
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. It prints
@@ -110,7 +130,9 @@ shapes; the grid and gathered rows at the stress1024 shapes, their
 operations the slab tests, walk steps and primitive tests that the plain
 traversal counts; the regen and lockstep rows at their first [sched]
 config, the plain version's operations over the whole frame, 24 bytes
-written a pixel), the nvidia-smi line, and as the last line
+written a pixel; kernel_base_quota, kernel A with a runtime quota, at the
+largest sp = 3 share of the north star, its launches those that took a
+quota), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
 prints no result; nothing falls back to the plain version or to the CPU.
 """
@@ -1459,6 +1481,235 @@ def phase_sched(peak):
     return got, res
 
 
+MESH_FRAMES = 5
+
+
+def _plain_kernels():
+    """A context in which ops/kernels.base_kernel and extra_kernel are their
+    plain versions (on the card), so that the mesh module's phases run as
+    their plain yardstick; launches made there count nowhere."""
+    import contextlib
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    @contextlib.contextmanager
+    def swap():
+        saved = kernels.base_kernel, kernels.extra_kernel
+        kernels.base_kernel = kernels.base_kernel_plain
+        kernels.extra_kernel = kernels.extra_kernel_plain
+        try:
+            yield
+        finally:
+            kernels.base_kernel, kernels.extra_kernel = saved
+
+    return swap()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(peak):
+    """The multi-GPU path (parallel/mesh.py) on one card: (a) kernel A with
+    each shard's runtime quota and seed at the north star, sp = 3 (shares
+    2, 1, 1) on the whole image and on the px = 2 row block y0 = 100,
+    against base_kernel_plain with the same arguments, timed per share;
+    (b) the sample-split composition (sample_split_frame: every shard's
+    phases in one process, the sums over sp in rank order) for sp = 2 and
+    3 against the same phases on the plain versions, and its ms/frame
+    beside the unsharded sorted frame; (c) a real process group of one
+    rank over NCCL: Engine with a (1, 1) mesh against Engine without one,
+    bit for bit, every kernel of the path launched once a frame. The
+    counters are reset before (b) and read after (c). Returns (launches,
+    the kernel_base_quota row)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+    from terminal_raytracer_tpu_torch.parallel import mesh as pm
+    from terminal_raytracer_tpu_torch.runtime.engine import Engine
+
+    pose = _pose()
+    ns_scene = _cornell(400, 200, 16, 32)
+    # (a) kernel A with a runtime quota, each share against its plain version.
+    split3 = pm.SampleSplit(ns_scene, "cuda", 3)
+    tr = split3.tracer
+    scene_bytes = 4 * tr.tables.buf.numel()
+    err, row = 0.0, None
+    for y0, h_out, where in ((0, None, "400x200"),
+                             (100, 100, "rows [100, 200)")):
+        for sp_i in range(3):
+            q, seed = split3.share(sp_i), split3.seed(SEED, sp_i)
+
+            def launch():
+                return kernels.base_kernel(tr, pose, seed, 0, y0, h_out,
+                                           base_q=q)
+
+            k = launch()
+            plain_ms, ops, p = _time_plain(
+                tr, lambda: kernels.base_kernel_plain(tr, pose, seed, 0, y0,
+                                                      h_out, base_q=q))
+            e = _compare_base("mesh", f"kernel A {where}, sp {sp_i} of 3, "
+                              f"quota {q}", k, p, ("additional", "var"))
+            err = max(err, e)
+            ms = _time_cuda(launch, 5)
+            n_pix = p.var.numel()
+            bound = _bound(ops, scene_bytes + 44 * n_pix, peak)
+            print(f"[mesh] kernel A {where} quota {q} (seed {seed}): "
+                  f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} FP32 "
+                  "operations)", flush=True)
+            if row is None:  # the largest share at full width
+                row = [ms, plain_ms, bound]
+
+    # (b) the sample-split composition against its plain phases.
+    _reset_launches()
+    kernels.base_kernel.quota_launches = 0
+    render = kernels.make_sorted_render_frame(PathTracer(ns_scene, "cuda"))
+    render(pose, SEED, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(MESH_FRAMES):
+        render(pose, SEED + f, f)
+    torch.cuda.synchronize()
+    flat_ms = 1e3 * (time.perf_counter() - t0) / MESH_FRAMES
+    for n_sp in (2, 3):
+        split = pm.SampleSplit(ns_scene, "cuda", n_sp)
+        got = pm.sample_split_frame(split, pose, SEED, 0)
+        with _plain_kernels():
+            want = pm.sample_split_frame(split, pose, SEED, 0)
+        torch.cuda.synchronize()
+        cur, var, total, rays, _ = got
+        pcur, pvar, ptotal, prays, _ = want
+        # (The executed lane-iterations differ by design: a warp's count
+        # against the plain scheduler's count over all lanes.)
+        same = {"rays": float(rays) == float(prays),
+                "totals": bool(torch.equal(total, ptotal)),
+                "variance": bool(torch.equal(var, pvar))}
+        rel = max(maxrel(a, b) for a, b in zip(cur, pcur))
+        err_c = max(maxabs(a, b) for a, b in zip(cur, pcur))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(MESH_FRAMES):
+            out = pm.sample_split_frame(split, pose, SEED + f, f)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / MESH_FRAMES
+        budgeted = int((total > split.base_full).sum())
+        print(f"[mesh] sample split sp {n_sp} (base shares "
+              f"{[split.share(i) for i in range(n_sp)]}), north star: "
+              f"{ms:.2f} ms/frame (unsharded sorted frame {flat_ms:.2f}), "
+              f"rays {float(rays):.0f}, {budgeted} budgeted pixels, "
+              f"occupancy {float(out[3]) / max(float(out[4]), 1.0):.3f}; "
+              f"against the plain phases: equal {same}, maxrel {rel:.3e}, "
+              f"max abs {err_c:.3e}", flush=True)
+        if not all(same.values()) or not rel < TOL or budgeted == 0:
+            fail(f"[mesh] sp {n_sp} composition disagrees with its plain "
+                 "phases")
+
+    # (c) one rank over NCCL: the sharded Engine against the plain Engine.
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", 0))
+    try:
+        engines = {}
+        for label, kw in (("engine", {}), ("mesh (1, 1)",
+                                           {"shard": (1, 1)})):
+            eng = Engine(ns_scene, full_color=True, device="cuda",
+                         deterministic=SEED, **kw)
+            before = _launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fetched = eng.run_headless(MESH_FRAMES)
+            dt = (time.perf_counter() - t0) / MESH_FRAMES
+            runs = {k: v - before[k] for k, v in _launches().items()}
+            engines[label] = (eng, fetched, runs)
+            print(f"[mesh] {label}: {MESH_FRAMES} frames, "
+                  f"{1e3 * dt:.2f} ms/frame, launches {_nonzero(runs)}",
+                  flush=True)
+        (e1, f1, r1), (e2, f2, r2) = engines.values()
+        same = {"rgb": bool((f1[0] == f2[0]).all()),
+                "rays": f1[2] == f2[2], "mean samples": f1[3] == f2[3],
+                "acc": bool(torch.equal(e1.state.acc, e2.state.acc)),
+                "variance": bool(torch.equal(e1.state.variance,
+                                             e2.state.variance)),
+                "samples": bool(torch.equal(e1.state.samples,
+                                            e2.state.samples))}
+        want = dict(dict.fromkeys(LAUNCH_NAMES, 0), base_kernel=MESH_FRAMES,
+                    extra_kernel=MESH_FRAMES)
+        print(f"[mesh] the (1, 1) mesh over NCCL against Engine: equal "
+              f"{same}", flush=True)
+        if not all(same.values()) or r1 != want or r2 != want:
+            fail("[mesh] the one-rank mesh disagrees with Engine, or a "
+                 "kernel was not launched once a frame")
+    finally:
+        dist.destroy_process_group()
+    got = _launches()
+    quota = kernels.base_kernel.quota_launches
+    print(f"[mesh] main path launches {_nonzero(got)}, kernel A with a "
+          f"runtime quota {quota}", flush=True)
+    if quota != (2 + 3) * (MESH_FRAMES + 1):
+        fail(f"[mesh] kernel A with a runtime quota launched {quota} times")
+    return got, (err, *row, quota)
+
+
+def phase_denoise():
+    """The à-trous filter (ops/denoise.py) on the card: one north-star
+    Engine run with denoise 1.0 (finite, not flat, the filter changing the
+    image), the filter held against the same filter on a CPU copy of its
+    inputs (rtol 1e-5), and timed. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import denoise as dn
+    from terminal_raytracer_tpu_torch.ops.vecmath import V3
+    from terminal_raytracer_tpu_torch.runtime.engine import Engine
+
+    scene = _cornell(400, 200, 16, 32)
+    _reset_launches()
+    eng = Engine(scene, full_color=True, device="cuda", deterministic=SEED,
+                 denoise=1.0)
+    eng.render_one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_FRAMES):
+        out = eng.render_one(eng.frame_count)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / MESH_FRAMES
+    got = _launches()
+    st, fn = eng.state, eng.frame_count - 1
+    args = (V3(*st.acc), st.variance, st.samples, fn, 1.0, 3)
+    k = torch.stack(list(dn.denoise_acc(*args)))
+    ms = _time_cuda(lambda: dn.denoise_acc(*args), 5)
+    cpu = torch.stack(list(dn.denoise_acc(
+        V3(*st.acc.cpu()), st.variance.cpu(), st.samples.cpu(), fn, 1.0, 3)))
+    rel = maxrel(k.cpu(), cpu)
+    finite = bool(torch.isfinite(k).all())
+    rgb = out.rgb
+    flat = bool(rgb.max() == rgb.min())
+    changed = not bool(torch.equal(k, st.acc))
+    print(f"[denoise] north star, denoise 1.0, 3 passes, {MESH_FRAMES} "
+          f"frames: {1e3 * dt:.2f} ms/frame; the filter {ms:.3f} ms on the "
+          f"card, maxrel to the CPU filter {rel:.3e}, finite {finite}, "
+          f"changes the image {changed}, rgb range [{int(rgb.min())}, "
+          f"{int(rgb.max())}], launches {_nonzero(got)}", flush=True)
+    if not finite or flat or not changed or not rel <= 1e-5:
+        fail("[denoise] the filter on the card is wrong")
+    want = dict(dict.fromkeys(LAUNCH_NAMES, 0), base_kernel=MESH_FRAMES + 1,
+                extra_kernel=MESH_FRAMES + 1)
+    if got != want:
+        fail(f"[denoise] launch counts {got}, expected {want}")
+    return got
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -1487,12 +1738,19 @@ def main() -> int:
     _add(launches, accel_launches)
     sched_launches, sch = phase_sched(peak)
     _add(launches, sched_launches)
+    _add(launches, phase_denoise())
+    mesh_launches, quota_row = phase_mesh(peak)
+    _add(launches, mesh_launches)
+    launches["base_kernel_quota"] = quota_row[-1]
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
              ms_a, plain_a, bound_a),
             ("kernel_extra", "extra_kernel", "kernel_extra.cu", "1028", err_b,
              ms_b, plain_b, bound_b),
+            # Kernel A with base_dynamic: the runtime quota read at :801.
+            ("kernel_base_quota", "base_kernel_quota", "kernel_base.cu",
+             "801", *quota_row[:4]),
             ("kernel_base_chunked", "base_kernel_chunked", "kernel_base.cu",
              "796", err_c, ms_c, plain_c, bound_c),
             # The texel-atlas variants: the atlas is bound at :807 (A) and

@@ -4,16 +4,25 @@ Reference flags: --full-color, --verbose, --threads N, --path FILE; plus
 --scene (packaged names, stress:N[:seed], icosphere:S[:seed],
 lights:L[:seed], ...), --accel, --animate, --filter, the transport and
 camera extensions --unbiased, --mis, --fog, --aperture, --focus,
---sampler and --light-sample (with the JAX package's spellings, defaults
+--sampler and --light-sample, the display filter --denoise and
+--denoise-passes, and --shard (with the JAX package's spellings, defaults
 and errors), --frames, --width, --height, --spp, --depth and --device. In
 the interactive viewer WASD moves, arrows steer, ESC exits.
 
 Run: python -m terminal_raytracer_tpu_torch [flags]
+
+--shard renders on a mesh of ranks (parallel/mesh.py), one process a rank
+under torchrun, which sets RANK, WORLD_SIZE and LOCAL_RANK: rank r takes
+cuda:LOCAL_RANK over NCCL, or the CPU over gloo with --device cpu, and
+rank 0 prints the frame. E.g. torchrun --nproc-per-node 4 -m
+terminal_raytracer_tpu_torch --device cpu --shard px:2,sp:2 --frames 2
+(a caller that has initialised a process group of its own keeps it).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .ops.tracer import ACCELS
@@ -89,6 +98,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(uniformly, or by emitted power) and weight the "
                         "estimate by 1/p(pick). Default: the scene's "
                         "light_sample. Scenes with <= 1 light ignore it")
+    p.add_argument("--denoise", type=float, default=0.0, metavar="K",
+                   help="edge-aware à-trous filter over the accumulated "
+                        "radiance before tonemapping, guided by the adaptive "
+                        "sampler's variance: K is the edge-stop strength "
+                        "(try 0.5-2; larger = smoother). Display only: the "
+                        "estimator and its chains stay raw. 0 = off")
+    p.add_argument("--denoise-passes", type=int, default=3, metavar="N",
+                   help="à-trous rounds (the tap stride doubles each round; "
+                        "default 3 = 13x13 footprint)")
+    p.add_argument("--shard", metavar="SPEC", default=None,
+                   help="multi-GPU rendering over a mesh of torchrun ranks: "
+                        "N = N-way pixel-row data parallelism, or px:N / "
+                        "sp:N / px:N,sp:M to also split samples with the "
+                        "reference's adaptive statistics")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels (default); cpu runs their "
                         "plain PyTorch versions")
@@ -119,20 +142,71 @@ def parse_fog(spec: str):
     return Fog(density=density, albedo=albedo, g=g)
 
 
+def _process_group(device: str):
+    """The process group for --shard: the caller's, or one initialised
+    from torchrun's RANK / WORLD_SIZE / LOCAL_RANK (nccl on cuda:LOCAL_RANK,
+    gloo on the CPU). Returns (device, whether this call initialised it);
+    raises ValueError where there is none to be had."""
+    import torch
+    import torch.distributed as dist
+
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if device == "cuda":
+        if local >= torch.cuda.device_count():
+            raise ValueError(
+                f"rank with LOCAL_RANK {local} and "
+                f"{torch.cuda.device_count()} CUDA devices: NCCL needs a "
+                "device of its own for each rank")
+        device = f"cuda:{local}"
+    if dist.is_initialized():
+        return device, False
+    if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+        raise ValueError("--shard needs a process group of px * sp ranks: "
+                         "run under torchrun --nproc-per-node N")
+    if device != "cpu":
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("gloo" if device == "cpu" else "nccl",
+                            init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return device, True
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     import torch
-
-    from .models import load_scene
-    from .runtime.engine import Engine
-    from .runtime.terminal import terminal_size
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda needs a CUDA GPU, and torch sees none "
               "(use --device cpu for the plain PyTorch versions)",
               file=sys.stderr)
         return 2
+    if not args.shard:
+        return _run(args, args.device)
+    from .runtime.engine import _parse_shard
+
+    try:
+        _parse_shard(args.shard)
+        device, own = _process_group(args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _run(args, device)
+    finally:
+        if own:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, device: str) -> int:
+    """main's body on `device`, once any process group is up."""
+    from .models import load_scene
+    from .runtime.engine import Engine
+    from .runtime.terminal import terminal_size
+
     if args.path and args.scene:
         print("error: --path and --scene are mutually exclusive",
               file=sys.stderr)
@@ -164,27 +238,43 @@ def main(argv=None) -> int:
     if interactive:
         tw, th = terminal_size()
         scene = scene.clamp_to_terminal(tw, th)
+        if args.shard:
+            # The row blocks need height % n_px == 0: round the clamped
+            # height down to a multiple of n_px (at least n_px rows).
+            from .runtime.engine import _parse_shard
 
-    print("outputting with █ characters" if args.full_color
-          else "outputting with ASCII characters")
+            n_px = _parse_shard(args.shard)[0]
+            h = max(scene.height - scene.height % n_px, n_px)
+            if h != scene.height:
+                scene = scene.with_overrides(height=h)
+
     try:
-        engine = Engine(scene, full_color=args.full_color, device=args.device,
+        engine = Engine(scene, full_color=args.full_color, device=device,
                         threads=args.threads, verbose=args.verbose,
                         accel=args.accel, animate=args.animate,
-                        transport=transport)
+                        transport=transport, shard=args.shard,
+                        denoise=args.denoise,
+                        denoise_passes=args.denoise_passes)
     except ValueError as e:  # e.g. --accel gathered with --animate
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if engine.is_root:
+        print("outputting with █ characters" if args.full_color
+              else "outputting with ASCII characters")
 
     if interactive:
-        if not sys.stdin.isatty():
+        if engine.is_root and not sys.stdin.isatty():
             print("error: interactive mode needs a tty (use --frames N for "
                   "headless rendering)", file=sys.stderr)
+            engine.cancel_viewer()
             return 2
         engine.run_interactive()
         return 0
 
-    _rgb, glyphs, rays, mean_spp = engine.run_headless(args.frames)
+    fetched = engine.run_headless(args.frames)
+    if fetched is None:  # a rank of a mesh other than 0
+        return 0
+    _rgb, glyphs, rays, mean_spp = fetched
     if not args.full_color:
         from .ops.tonemap import GLYPH_RAMP
 

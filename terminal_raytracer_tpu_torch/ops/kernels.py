@@ -317,17 +317,29 @@ def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
            name.replace("trt_", ""))
 
 
+def _base_quota(tracer, base_q, name: str) -> int:
+    """Kernel A's quota: `base_q`, a runtime share in [0, base_samples],
+    or the tracer's base_samples."""
+    if base_q is None:
+        return tracer.base_samples
+    if not 0 <= int(base_q) <= tracer.base_samples:
+        raise ValueError(f"{name}: base_q={base_q} outside [0, "
+                         f"{tracer.base_samples}]")
+    return int(base_q)
+
+
 def base_kernel_plain(tracer, pose, seed: int, frame_number: int, y0: int = 0,
-                      h_out: int = None) -> BaseOut:
+                      h_out: int = None, base_q: int = None) -> BaseOut:
     """Kernel A in plain PyTorch (any device)."""
+    q = _base_quota(tracer, base_q, "base_kernel_plain")
     cam = tracer_mod.cam_from_pose(pose)
     x, y = tracer.pixel_grid(y0, h_out)
     state, csum, csumsq, rays, it = tracer.base_phase(
         cam, x.to(torch.float32), y.to(torch.float32),
-        tracer.seed_lanes(x, y, seed, frame_number))
-    var = tracer.variance_of(csum, csumsq)
-    if tracer.base_samples < tracer.spp:
-        additional = tracer.extra_quota(var)[1]
+        tracer.seed_lanes(x, y, seed, frame_number), quota=q)
+    var = tracer.variance_of(csum, csumsq, q)
+    if q < tracer.spp:
+        additional = tracer.extra_quota(var, q)[1]
     else:
         additional = torch.zeros_like(var)
     return BaseOut(csum, csumsq, state, rays, var, additional,
@@ -340,22 +352,29 @@ def _no_chunks(tracer, name: str) -> None:
                          "use base_kernel_chunked")
 
 
-def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
+def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                  kind: str) -> BaseOut:
+    """Launch kernel A's `kind` instantiation. Its quota (BaseArgs.base),
+    and with it the epilogue's 1 / base and budget cap, is the runtime
+    share `base_q` where one is given (counted in
+    base_kernel.quota_launches), else the tracer's base_samples."""
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
-    w, base, spp = tracer.width, tracer.base_samples, tracer.spp
+    w, spp = tracer.width, tracer.spp
+    base = _base_quota(tracer, base_q, "base_kernel")
     n = h_out * w
     out = torch.empty((9, n), dtype=torch.float32, device=device)
     state = torch.empty((n,), dtype=torch.int64, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
     args = _BaseArgs(_frame(tracer, pose), h_out, y0, base, spp,
                      seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF,
-                     float(np.float32(1.0 / base)),
+                     float(np.float32(1.0 / base)) if base else 0.0,
                      float(max(spp - base, 0)))
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
             iters.data_ptr(), _stream(device))
     _launch(load_kernels(), "trt_kernel_base", args, tracer, kind, ptrs)
+    if base_q is not None:
+        base_kernel.quota_launches += 1
     p = out.view(9, h_out, w)
     return BaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
                    state.view(h_out, w), p[6], p[7], p[8],
@@ -363,80 +382,94 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out,
 
 
 def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
-                h_out: int = None) -> BaseOut:
+                h_out: int = None, base_q: int = None) -> BaseOut:
     """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
     device of `tracer`'s scene tables (base_kernel_ext for a tracer with
     the material and texture extensions, base_kernel_xt for one with xt
-    tables, base_kernel_grid / _gathered for one with that traversal)."""
+    tables, base_kernel_grid / _gathered for one with that traversal).
+    `base_q`: a runtime base quota of at most tracer.base_samples (a
+    sample-split shard's share, parallel/mesh.py), else base_samples."""
     _no_chunks(tracer, "base_kernel")
+    args = (tracer, pose, seed, frame_number, y0, h_out, base_q)
     if not _on_cuda(tracer.tables.buf.device, "base_kernel"):
-        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
+        return base_kernel_plain(*args)
     if tracer.traversal == "grid":
-        return base_kernel_grid(tracer, pose, seed, frame_number, y0, h_out)
+        return base_kernel_grid(*args)
     if tracer.traversal == "gathered":
-        return base_kernel_gathered(tracer, pose, seed, frame_number, y0,
-                                    h_out)
+        return base_kernel_gathered(*args)
     if tracer.xt:
-        return base_kernel_xt(tracer, pose, seed, frame_number, y0, h_out)
+        return base_kernel_xt(*args)
     if tracer.ext:
-        return base_kernel_ext(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "ref")
+        return base_kernel_ext(*args)
+    out = _launch_base(*args, "ref")
     base_kernel.launches += 1
     return out
 
 
-def base_kernel_ext(tracer, pose, seed: int, frame_number: int, y0: int = 0,
-                    h_out: int = None) -> BaseOut:
+def base_kernel_ext(tracer, pose, seed: int, frame_number: int,
+                    y0: int = 0, h_out: int = None,
+                    base_q: int = None) -> BaseOut:
     """Kernel A's EXT instantiation: base_kernel for a tracer with the
     material and texture extensions."""
     _require_ext(tracer, "base_kernel_ext")
     _no_chunks(tracer, "base_kernel_ext")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_ext"):
-        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "ext")
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "ext")
     base_kernel_ext.launches += 1
     return out
 
 
-def base_kernel_xt(tracer, pose, seed: int, frame_number: int, y0: int = 0,
-                   h_out: int = None) -> BaseOut:
+def base_kernel_xt(tracer, pose, seed: int, frame_number: int,
+                   y0: int = 0, h_out: int = None,
+                   base_q: int = None) -> BaseOut:
     """Kernel A's XT instantiation: base_kernel for a tracer with xt
     tables (the transport and camera extensions, and EXT's)."""
     _require_xt(tracer, "base_kernel_xt")
     _no_chunks(tracer, "base_kernel_xt")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_xt"):
-        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "xt")
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "xt")
     base_kernel_xt.launches += 1
     return out
 
 
-def base_kernel_grid(tracer, pose, seed: int, frame_number: int, y0: int = 0,
-                     h_out: int = None) -> BaseOut:
+def base_kernel_grid(tracer, pose, seed: int, frame_number: int,
+                     y0: int = 0, h_out: int = None,
+                     base_q: int = None) -> BaseOut:
     """Kernel A over the block-culled sweep: base_kernel for a tracer with
     accel 'grid' (XT instantiation)."""
     _require_traversal(tracer, "grid", "base_kernel_grid")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid"):
-        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, "grid")
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "grid")
     base_kernel_grid.launches += 1
     return out
 
 
 def base_kernel_gathered(tracer, pose, seed: int, frame_number: int,
-                         y0: int = 0, h_out: int = None) -> BaseOut:
+                         y0: int = 0, h_out: int = None,
+                         base_q: int = None) -> BaseOut:
     """Kernel A over the grid walk: base_kernel for a tracer with accel
     'gathered' (XT instantiation)."""
     _require_traversal(tracer, "gathered", "base_kernel_gathered")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_gathered"):
-        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out)
-    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out,
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                        "gathered")
     base_kernel_gathered.launches += 1
     return out
 
 
 base_kernel.launches = 0
+base_kernel.quota_launches = 0  # launches of any instantiation with a base_q
 base_kernel_ext.launches = 0
 base_kernel_xt.launches = 0
 base_kernel_grid.launches = 0
@@ -707,11 +740,14 @@ class SortedStream(NamedTuple):
     samp0: torch.Tensor
 
 
-def sorted_stream(tracer, state, additional) -> SortedStream:
-    """Sort the extra phase's entries by descending budget (zero-budget
-    entries end up in whole warps), carrying entry id, RNG state and the
-    sample index each continues at."""
-    budget, st_e, samp0 = tracer.extra_entries(state, additional)
+def sorted_stream(tracer, state, additional, y0: int = 0,
+                  samp0: int = None) -> SortedStream:
+    """Sort the extra phase's entries of the row block [y0, y0 + h_out)
+    whose planes `state` and `additional` are ([h_out, w]) by descending
+    budget (zero-budget entries end up in whole warps), carrying entry id,
+    RNG state, the global row and the sample index each continues at
+    (`samp0`, default the tracer's base_samples: tracer.extra_entries)."""
+    budget, st_e, samp0 = tracer.extra_entries(state, additional, samp0)
     n_chunks, n_pix = budget.shape[0], additional.numel()
     n = budget.numel()
     rows = -(-n // STREAM_COLS)
@@ -725,8 +761,8 @@ def sorted_stream(tracer, state, additional) -> SortedStream:
     neg, order = torch.sort(-budget.reshape(-1))
     pix = pad((order % n_pix).to(torch.int32), 0)
     return SortedStream(order, n_chunks, pix % tracer.width,
-                        pix // tracer.width, pad(st_e.reshape(-1)[order], 0),
-                        pad(-neg, 0.0),
+                        y0 + pix // tracer.width,
+                        pad(st_e.reshape(-1)[order], 0), pad(-neg, 0.0),
                         pad(samp0.reshape(-1)[order].to(torch.int32), 0))
 
 
@@ -740,12 +776,14 @@ def unsort(stream: SortedStream, plane: torch.Tensor, shape) -> torch.Tensor:
         flat.view(stream.n_chunks, *shape))
 
 
-def make_sorted_extra_phase(tracer):
-    """The sort glue + kernel B. Returns ``extra_phase(pose, state,
-    additional) -> (esum V3 [H, W], rays, lane_iters)``."""
+def make_sorted_extra_phase(tracer, y0: int = 0):
+    """The sort glue + kernel B over the row block starting at global row
+    `y0`. Returns ``extra_phase(pose, state, additional, samp0=None) ->
+    (esum V3 [h_out, w], rays, lane_iters)``: `samp0` (an int, default
+    base_samples) is the sample index where the chains continue."""
 
-    def extra_phase(pose, state, additional):
-        s = sorted_stream(tracer, state, additional)
+    def extra_phase(pose, state, additional, samp0=None):
+        s = sorted_stream(tracer, state, additional, y0, samp0)
         esum_s, rays_s, iters = extra_kernel(tracer, pose, s.xs, s.ys,
                                              s.state, s.add, s.samp0)
         esum = V3(*(unsort(s, c, state.shape) for c in esum_s))
@@ -754,26 +792,30 @@ def make_sorted_extra_phase(tracer):
     return extra_phase
 
 
-def make_sorted_render_frame(tracer):
+def make_sorted_render_frame(tracer, y0: int = 0, h_out: int = None):
     """``render_frame(pose, seed, frame_number[, arrays]) -> (current V3,
-    variance, total samples, rays, occupancy)`` through kernel A (chunked
-    or not), the sort, kernel B and combine_phases; rays and occupancy are
-    0-dim f64 tensors on the device (no host sync). A dynamic tracer takes
-    the frame's ops/dynamic.pack_scene `arrays` and renders from them."""
+    variance, total samples, rays, occupancy)`` of rows [y0, y0 + h_out)
+    (default the whole image) through kernel A (chunked or not), the sort,
+    kernel B and combine_phases; rays and occupancy are 0-dim f64 tensors
+    on the device (no host sync). Chains are seeded by global pixel, so
+    row blocks tile the whole frame bit for bit. A dynamic tracer takes
+    the frame's ops/dynamic.pack_scene `arrays` and renders from them.
+    ``render_frame.sweeps`` returns the occupancy's denominator in place of
+    the occupancy (parallel/mesh.py adds it up over row blocks)."""
     base, spp = tracer.base_samples, tracer.spp
-    extra_phase = make_sorted_extra_phase(tracer) if base < spp else None
+    extra_phase = make_sorted_extra_phase(tracer, y0) if base < spp else None
     sweeps_per_iter = 1.0 + tracer.nee_sweeps
 
     def base_phase(pose, seed, frame_number):
         """(csum, csumsq, state, rays, iters, var, needs, additional)."""
         if not tracer.chunk_base:
-            a = base_kernel(tracer, pose, seed, frame_number)
+            a = base_kernel(tracer, pose, seed, frame_number, y0, h_out)
             # Budgets are all-or-nothing under the reference's constants
             # (var > 10 => floor(var * 50) >= spp - base), so a needy
             # pixel never has a zero budget.
             return (a.csum, a.csumsq, a.state, a.rays, a.iters, a.var,
                     a.additional > 0.0, a.additional)
-        a = base_kernel_chunked(tracer, pose, seed, frame_number)
+        a = base_kernel_chunked(tracer, pose, seed, frame_number, y0, h_out)
         csum = V3(*(tracer.chunk_total(v) for v in a.csum))
         csumsq = V3(*(tracer.chunk_total(v) for v in a.csumsq))
         var = tracer.variance_of(csum, csumsq)
@@ -782,7 +824,9 @@ def make_sorted_render_frame(tracer):
         return (csum, csumsq, a.state[0], a.rays, a.iters, var, needs,
                 additional)
 
-    def render_frame(pose, seed: int, frame_number: int, arrays=None):
+    def render_sweeps(pose, seed: int, frame_number: int, arrays=None):
+        """(current, variance, total, rays, executed lane-iteration sweeps:
+        the occupancy's denominator, which adds up over row blocks)."""
         if tracer.dynamic:
             tracer.bind_packed(arrays)
         csum, csumsq, state, rays_a, iters, var, needs, additional = (
@@ -797,9 +841,14 @@ def make_sorted_render_frame(tracer):
                                                    additional)
             rays = rays + rays_b
             iters = iters + it_b
-        occ = rays / torch.clamp(iters * sweeps_per_iter, min=1.0)
-        return current, var, total, rays, occ
+        return current, var, total, rays, iters * sweeps_per_iter
 
+    def render_frame(pose, seed: int, frame_number: int, arrays=None):
+        current, var, total, rays, sweeps = render_sweeps(
+            pose, seed, frame_number, arrays)
+        return current, var, total, rays, rays / torch.clamp(sweeps, min=1.0)
+
+    render_frame.sweeps = render_sweeps
     return render_frame
 
 

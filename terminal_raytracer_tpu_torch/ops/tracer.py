@@ -158,24 +158,38 @@ def dominant_axes(n: V3):
     return xdom, ~xdom & (ay >= az)
 
 
-def resolve_strat_g(scene: scene_mod.Scene) -> int:
+def _note_strat_fallback(reason: str) -> None:
+    """One stderr note a reason that a stratified scene falls back."""
+    if reason not in _STRAT_NOTED:
+        _STRAT_NOTED.add(reason)
+        print("note: sampler=stratified inactive: " + reason,
+              file=sys.stderr)
+
+
+def resolve_strat_g(scene: scene_mod.Scene, base_quota=None) -> int:
     """The stratified sampler's grid side g, as the JAX PathTracer resolves
     it: the largest power of two whose square divides the base count (1:
     the reference jitter; a stratified scene whose base count is not
-    divisible by 4 notes on stderr that it falls back)."""
+    divisible by 4 notes on stderr that it falls back). A tracer with a
+    `base_quota` (a sample-split shard, parallel/mesh.py) renders a share
+    of the base phase on its own seed, where no grid covers every share:
+    it falls back too."""
     if scene.sampler != "stratified":
+        return 1
+    if base_quota is not None:
+        _note_strat_fallback(
+            "sample-split shards render shard-local sample indices under "
+            "decorrelated seeds — absolute strata don't survive the split; "
+            "using reference jitter")
         return 1
     base = base_sample_count(scene.samples_per_pixel)
     g = 1
     while 4 * g * g <= base and base % (4 * g * g) == 0:
         g *= 2
     if g == 1:
-        reason = (f"base sample count {base} is not divisible by 4 — no "
-                  "sub-pixel grid covers it evenly; using reference jitter")
-        if reason not in _STRAT_NOTED:
-            _STRAT_NOTED.add(reason)
-            print("note: sampler=stratified inactive: " + reason,
-                  file=sys.stderr)
+        _note_strat_fallback(
+            f"base sample count {base} is not divisible by 4 — no sub-pixel "
+            "grid covers it evenly; using reference jitter")
     return g
 
 
@@ -191,12 +205,15 @@ def resolve_accel(scene: scene_mod.Scene, accel: str) -> str:
 
 
 def resolve_chunks(scene: scene_mod.Scene, accel: str, chunk_base="auto",
-                   chunk_extra="auto"):
+                   chunk_extra="auto", base_quota=None):
     """(chunk_base, chunk_extra) as the JAX PathTracer resolves them for a
     resolved `accel`; None is no split, and so is a chunk that covers the
-    whole quota."""
-    base = base_sample_count(scene.samples_per_pixel)
-    auto = accel == "array" and scene.primitive_count >= CHUNK_AUTO_THRESHOLD
+    whole quota. 'auto' never splits under a `base_quota` (a sample-split
+    shard manages its own runtime shares)."""
+    base = (base_quota if base_quota is not None
+            else base_sample_count(scene.samples_per_pixel))
+    auto = (accel == "array" and scene.primitive_count >= CHUNK_AUTO_THRESHOLD
+            and base_quota is None)
     if chunk_base == "auto":
         chunk_base = ARRAY_CHUNK_BASE if auto else None
     if chunk_extra == "auto":
@@ -233,7 +250,11 @@ class PathTracer:
     """The path tracer for one scene on one device.
 
     `accel`, `chunk_base`, `chunk_extra`: as in the JAX PathTracer (module
-    docstring). `transport`: 'reference', 'unbiased' or 'mis'. `dynamic`:
+    docstring). `base_quota`: the base samples a pixel renders, in place of
+    max(4, spp // 4): a sample-split shard's share (parallel/mesh.py); such
+    a tracer never stratifies and never splits chains by itself, and its
+    kernel A may take a smaller runtime quota (ops/kernels.py base_q).
+    `transport`: 'reference', 'unbiased' or 'mis'. `dynamic`:
     the scene's values arrive per frame through :meth:`bind_packed`
     (ops/dynamic.py); the template fixes the counts and the light
     topology. A scene that uses a material or texture extension
@@ -245,7 +266,7 @@ class PathTracer:
 
     def __init__(self, scene: scene_mod.Scene, device, accel: str = "auto",
                  chunk_base="auto", chunk_extra="auto", dynamic: bool = False,
-                 transport: str = "reference"):
+                 transport: str = "reference", base_quota=None):
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown transport {transport!r}; choose from "
                              f"{TRANSPORTS}")
@@ -267,9 +288,11 @@ class PathTracer:
         self.width, self.height = scene.width, scene.height
         self.spp = scene.samples_per_pixel
         self.max_depth = scene.max_depth
-        self.base_samples = base_sample_count(self.spp)
+        self.base_quota = base_quota
+        self.base_samples = (base_quota if base_quota is not None
+                             else base_sample_count(self.spp))
         self.chunk_base, self.chunk_extra = resolve_chunks(
-            scene, self.accel, chunk_base, chunk_extra)
+            scene, self.accel, chunk_base, chunk_extra, base_quota)
         # Entries per pixel of the base and the extra phase.
         self.n_base_chunks = (-(-self.base_samples // self.chunk_base)
                               if self.chunk_base else 1)
@@ -325,7 +348,7 @@ class PathTracer:
             self._neg_inv_sigma = -1.0 / self.fog_sigma
         self.aperture = float(scene.camera.aperture)
         self.focus_distance = float(scene.camera.focus_distance)
-        self.strat_g = resolve_strat_g(scene)
+        self.strat_g = resolve_strat_g(scene, self.base_quota)
         mode = scene.light_sample
         self.one_light = mode != "all" and self.n_lights > 1
         self.light_mode = mode if self.one_light else "all"
@@ -988,19 +1011,22 @@ class PathTracer:
         c = torch.arange(self.n_base_chunks, device=self.device)
         return x.expand(shape), y.expand(shape), c.view(-1, 1, 1).expand(shape)
 
-    def base_phase(self, cam: Cam, xf, yf, state0, chunk=None):
+    def base_phase(self, cam: Cam, xf, yf, state0, chunk=None, quota=None):
         """The base samples of each lane, or with `chunk` (each lane's chunk
         index) the chunk's share [c * cb, min((c + 1) * cb, base)) on the
-        chunk's sub-chain (state0 is the pixel seed either way). Returns
-        (state, csum, csumsq, rays, executed lane-iterations)."""
-        c, it = self._base_run(cam, xf, yf, state0, chunk)
+        chunk's sub-chain (state0 is the pixel seed either way). `quota`
+        (an int at most base_samples) renders that many base samples
+        instead: a sample-split shard's runtime share. Returns (state,
+        csum, csumsq, rays, executed lane-iterations)."""
+        c, it = self._base_run(cam, xf, yf, state0, chunk, quota)
         return c.state, c.csum, c.csumsq, c.rays, it * xf.numel()
 
-    def _base_run(self, cam: Cam, xf, yf, state0, chunk=None):
+    def _base_run(self, cam: Cam, xf, yf, state0, chunk=None, quota=None):
         """base_phase's scheduler run: (final carry, iterations)."""
         if chunk is None:
             samp0 = torch.zeros_like(state0)
-            quota = torch.full_like(xf, float(self.base_samples))
+            quota = torch.full_like(
+                xf, float(self.base_samples if quota is None else quota))
         else:
             cb = self.chunk_base or self.base_samples
             state0 = (state0 + chunk * CHUNK_GOLDEN) & prng.MASK32
@@ -1019,18 +1045,22 @@ class PathTracer:
             total = total + planes[c]
         return total
 
-    def variance_of(self, csum: V3, csumsq: V3):
-        """Luminance-sum variance of the base samples (kept raw; can be
-        slightly negative in f32)."""
-        inv = 1.0 / self.base_samples
+    def variance_of(self, csum: V3, csumsq: V3, base: int = None):
+        """Luminance-sum variance of `base` (default base_samples) samples
+        (kept raw; can be slightly negative in f32). A quota of 0 (a shard
+        with no base share) has variance 0."""
+        base = self.base_samples if base is None else base
+        inv = 1.0 / base if base else 0.0
         mean = csum * inv
         return vm.sum_components(csumsq * inv - mean * mean)
 
-    def extra_quota(self, var):
-        """(needs mask, per-lane extra-sample budget)."""
+    def extra_quota(self, var, base: int = None):
+        """(needs mask, per-lane extra-sample budget) after `base` (default
+        base_samples) base samples."""
+        base = self.base_samples if base is None else base
         needs = var > ADAPTIVE_VAR_THRESHOLD
         budget = torch.clamp(torch.floor(var * ADAPTIVE_VAR_SCALE),
-                             max=float(self.spp - self.base_samples))
+                             max=float(self.spp - base))
         return needs, torch.where(needs, budget, 0.0)
 
     def extra_phase(self, cam: Cam, xf, yf, state, additional, samp0):
@@ -1060,26 +1090,32 @@ class PathTracer:
         c, it = self.run_regen(cam, sub(xf), sub(yf), c0)
         return c, full, it * live.numel()
 
-    def extra_entries(self, state, additional):
+    def extra_entries(self, state, additional, samp0: int = None):
         """The extra phase's chunk-major entries of pixels with end state
         `state` and budget `additional`: (budget f32, state, samp0 int64),
         each [n_extra_chunks, *additional.shape]. Entry c owes
         clip(additional - c * ce, 0, ce) samples from sample index
-        base + c * ce on the sub-chain state + c * CHUNK_GOLDEN; unchunked,
-        the one entry is the pixel's whole budget on its own chain."""
+        samp0 + c * ce on the sub-chain state + c * CHUNK_GOLDEN; unchunked,
+        the one entry is the pixel's whole budget on its own chain. `samp0`
+        (default base_samples) is where the chains stand after the base
+        phase: a sample-split shard continues at its own base share."""
+        s0 = self.base_samples if samp0 is None else samp0
         ce = self.chunk_extra or max(self.spp - self.base_samples, 0)
-        budgets, states, samp0 = [], [], []
+        budgets, states, samp0s = [], [], []
         for c in range(self.n_extra_chunks):
             budgets.append(torch.clamp(additional - float(c * ce), 0.0,
                                        float(ce)))
             states.append((state + c * CHUNK_GOLDEN) & prng.MASK32)
-            samp0.append(torch.full_like(state, self.base_samples + c * ce))
-        return torch.stack(budgets), torch.stack(states), torch.stack(samp0)
+            samp0s.append(torch.full_like(state, s0 + c * ce))
+        return torch.stack(budgets), torch.stack(states), torch.stack(samp0s)
 
-    def combine_phases(self, csum: V3, esum: V3, needs, additional):
+    def combine_phases(self, csum: V3, esum: V3, needs, additional,
+                       base: int = None):
         """The reference's normalisation: adaptive pixels average over the
-        samples taken; the rest divide the base sum by spp."""
-        total = float(self.base_samples) + additional
+        samples taken (`base`, default base_samples, plus their budget);
+        the rest divide the base sum by spp."""
+        base = self.base_samples if base is None else base
+        total = float(base) + additional
         current = vm.where(needs, (csum + esum) * (1.0 / total),
                            csum * (1.0 / self.spp))
         return current, total

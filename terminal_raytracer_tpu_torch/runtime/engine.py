@@ -15,6 +15,12 @@ With `animate`, an animator (models/animate.py) maps the scene's packed
 arrays to the values of the animation clock's current frame; the clock
 advances once per render, and every frame renders fresh (frame_number 0,
 no accumulation), as in the JAX package.
+
+With `shard`, every rank of the caller's process group runs an Engine on
+its row block of a ('px', 'sp') mesh (parallel/mesh.py). Rank 0 owns the
+camera, the seeds and the terminal: each frame's control (pose, seed,
+frame number, and render, idle or stop) is broadcast from it, and it
+gathers the row blocks of sample share 0 to display the frame.
 """
 
 from __future__ import annotations
@@ -35,6 +41,39 @@ from .terminal import TerminalSession
 from .timing import FrameTimers
 
 IDLE_SLEEP = 0.010  # accumulation finished
+RENDER, IDLE, STOP = 0, 1, 2  # the sharded engine's per-frame commands
+
+
+def _parse_shard(spec: str):
+    """--shard spec -> (n_px, n_sp). Accepted forms: "N" (N-way pixel-row
+    data parallelism), "px:N", "sp:N", "px:N,sp:M" (axes in either order,
+    each at most once); px * sp must be at least 2."""
+    seen = {}
+    try:
+        parts = [p.strip() for p in str(spec).split(",")]
+        for part in parts:
+            if ":" in part:
+                axis, _, n = part.partition(":")
+                if axis not in ("px", "sp"):
+                    raise ValueError(axis)
+                if axis in seen:
+                    raise ValueError(f"duplicate {axis}")
+                seen[axis] = int(n)
+            else:
+                # A bare N stands alone (mixed with axis forms it would
+                # silently override one).
+                if len(parts) > 1:
+                    raise ValueError("bare N must stand alone")
+                seen["px"] = int(part)
+    except (ValueError, TypeError):
+        raise ValueError(
+            f"bad --shard spec {spec!r}; expected N, px:N, sp:N, or "
+            f"px:N,sp:M (each axis at most once)") from None
+    n_px, n_sp = seen.get("px", 1), seen.get("sp", 1)
+    if n_px < 1 or n_sp < 1 or n_px * n_sp < 2:
+        raise ValueError(
+            f"--shard {spec!r} must name at least 2 devices (px * sp >= 2)")
+    return n_px, n_sp
 
 
 class _Fetch:
@@ -78,12 +117,20 @@ class Engine:
         accel: str = "auto",
         animate: Optional[str] = None,
         transport: str = "reference",
+        shard=None,
+        denoise: float = 0.0,
+        denoise_passes: int = 3,
     ):
         """`deterministic`: seed of the per-frame seed draws (None draws
         from OS entropy, like the reference). `accel`: the traversal
         (ops/tracer.py). `animate`: an animator name of
         models/animate.ANIMATORS, or None for a static scene. `transport`:
-        'reference', 'unbiased' or 'mis' (ops/tracer.py)."""
+        'reference', 'unbiased' or 'mis' (ops/tracer.py). `shard`: a
+        --shard spec (_parse_shard), or (n_px, n_sp) (which may be (1, 1)),
+        to render on a mesh over the caller's process group (module
+        docstring); it refuses the 'unbiased' transport and an explicit
+        `accel`. `denoise` > 0: the à-trous filter (ops/denoise.py) over
+        the displayed accumulation, `denoise_passes` rounds."""
         self.scene = scene
         self.full_color = full_color
         self.device = torch.device(device)
@@ -96,18 +143,39 @@ class Engine:
             self._animator = ANIMATORS[animate]
             self._arrays0 = pack_scene(scene)
             self._anim_t = 0
-        self.step = make_render_step(scene, full_color=full_color,
-                                     device=self.device, accel=accel,
-                                     dynamic=animate is not None,
-                                     transport=transport)
-        self.state = init_state(scene, self.device)
+        self.mesh = None
+        if shard is not None:
+            n_px, n_sp = (shard if isinstance(shard, tuple)
+                          else _parse_shard(shard))
+            if transport == "unbiased":
+                raise ValueError("--shard does not support --unbiased")
+            if accel != "auto":
+                raise ValueError("--shard picks the traversal itself; "
+                                 "drop --accel")
+            from ..parallel import make_mesh, make_sharded_render_step
+
+            self.mesh = make_mesh(n_px, n_sp, self.device)
+            self.device = self.mesh.device
+            self.step, sharded_init = make_sharded_render_step(
+                scene, self.mesh, full_color=full_color, transport=transport,
+                dynamic=animate is not None, denoise=denoise,
+                denoise_passes=denoise_passes)
+            self.state = sharded_init()
+        else:
+            self.step = make_render_step(scene, full_color=full_color,
+                                         device=self.device, accel=accel,
+                                         dynamic=animate is not None,
+                                         transport=transport,
+                                         denoise=denoise,
+                                         denoise_passes=denoise_passes)
+            self.state = init_state(scene, self.device)
         self.blitter = Blitter(scene.height, scene.width, full_color, threads)
         self.timers = FrameTimers()
         self.frame_count = 0
         self._rng = np.random.RandomState(deterministic)
         self._fetched_at = None
         self._last_occ = -1.0
-        if verbose:
+        if verbose and self.is_root:
             name = (torch.cuda.get_device_name(self.device)
                     if self.device.type == "cuda" else "cpu")
             print(
@@ -122,6 +190,28 @@ class Engine:
 
     # ------------------------------------------------------------------
 
+    @property
+    def is_root(self) -> bool:
+        """True where this engine displays: unsharded, or on rank 0."""
+        return self.mesh is None or self.mesh.rank_of(
+            self.mesh.px_i, self.mesh.sp_i) == 0
+
+    def _control(self, pose, seed: int, frame_number: int, cmd: int):
+        """Sharded: rank 0's (pose, seed, frame_number, cmd) on every rank
+        (a broadcast over the world group; the others' arguments are
+        ignored). Unsharded: the arguments."""
+        if self.mesh is None:
+            return pose, seed, frame_number, cmd
+        import torch.distributed as dist
+
+        msg = torch.tensor([*np.asarray(pose, np.float64)[:16], seed,
+                            frame_number, cmd], dtype=torch.float64,
+                           device=self.device)
+        dist.broadcast(msg, src=0)
+        got = msg.cpu().numpy()
+        return (got[:16].astype(np.float32), int(got[16]), int(got[17]),
+                int(got[18]))
+
     def _seed(self) -> int:
         # rand::random::<u32>() + frame_count, wrapping (the JAX recipe).
         return int(
@@ -132,16 +222,20 @@ class Engine:
     def render_one(self, frame_number: int):
         """Dispatch one step and advance the state; returns the step's
         FrameOutput. An animated engine renders the animation clock's next
-        frame fresh and leaves frame_count (and so the seed offset) at 0."""
+        frame fresh and leaves frame_count (and so the seed offset) at 0.
+        Sharded, every rank calls it together and renders rank 0's pose,
+        seed and frame number."""
+        if self.animate is not None:
+            frame_number = 0
+        pose, seed, frame_number, _ = self._control(
+            self.camera.pose(), self._seed(), frame_number, RENDER)
         if self.animate is not None:
             arrays = self._animator(self._arrays0, self._anim_t)
             self._anim_t += 1
-            out = self.step(self.state, self.camera.pose(), self._seed(), 0,
-                            arrays)
+            out = self.step(self.state, pose, seed, 0, arrays)
             self.state = out.state
             return out
-        out = self.step(self.state, self.camera.pose(), self._seed(),
-                        frame_number)
+        out = self.step(self.state, pose, seed, frame_number)
         self.state = out.state
         self.frame_count += 1
         return out
@@ -152,9 +246,26 @@ class Engine:
         self._last_occ = occ
         return rgb, glyphs, rays, mean_samples
 
+    def _fetch_sharded(self, out):
+        """Rank 0 gathers the frame (parallel/mesh.gather_frame): (rgb,
+        glyphs or None, rays, mean samples) on rank 0, None elsewhere."""
+        from ..parallel.mesh import gather_frame
+
+        got = gather_frame(self.mesh, out)
+        self._last_occ = float(out.occupancy)
+        if got is None:
+            return None
+        rgb, glyphs, mean_samples = got
+        self._fetched_at = time.perf_counter()
+        return (rgb.cpu().numpy(),
+                None if self.full_color else glyphs.cpu().numpy(),
+                float(out.rays), float(mean_samples))
+
     # ------------------------------------------------------------------
 
     def run_interactive(self):
+        if self.mesh is not None:
+            return self._run_interactive_sharded()
         scene = self.scene
         cam_moved = self.frame_count == 0
         pending = None  # dispatched-but-not-displayed frame
@@ -187,6 +298,47 @@ class Engine:
                     time.sleep(IDLE_SLEEP)
         print("Exiting.")
 
+    def cancel_viewer(self):
+        """Sharded, on rank 0: stop the other ranks' viewer loops (their
+        run_interactive) when rank 0 cannot run its own."""
+        if self.mesh is not None:
+            self._control(self.camera.pose(), 0, 0, STOP)
+
+    def _run_interactive_sharded(self):
+        """The viewer on a mesh, one frame at a time: rank 0 reads the keys
+        and broadcasts each frame's command; every rank renders, and rank 0
+        gathers and displays the frame."""
+        if not self.is_root:
+            while True:
+                _, _, _, cmd = self._control(self.camera.pose(), 0, 0, IDLE)
+                if cmd == STOP:
+                    return
+                if cmd == RENDER:  # rank 0's pose, seed and frame follow
+                    self._fetch_sharded(self.render_one(0))
+        cam_moved = self.frame_count == 0
+        with TerminalSession() as term:
+            while True:
+                self.timers.start_frame()
+                key = term.poll_key(0.001)
+                if key == "esc":
+                    self._control(self.camera.pose(), 0, 0, STOP)
+                    break
+                if key and self.camera.apply_key(key):
+                    cam_moved = True
+                    self.frame_count = 0
+                if self.frame_count < self.scene.frames_to_accumulate:
+                    self._control(self.camera.pose(), 0, 0, RENDER)
+                    out = self.render_one(0 if cam_moved
+                                          else self.frame_count)
+                    cam_moved = False
+                    with self.timers.phase("gpu"):
+                        fetched = self._fetch_sharded(out)
+                    self._display(term, fetched)
+                else:
+                    self._control(self.camera.pose(), 0, 0, IDLE)
+                    time.sleep(IDLE_SLEEP)
+        print("Exiting.")
+
     def _display(self, term, fetched):
         rgb, glyphs, rays, mean_samples = fetched
         with self.timers.phase("cpu"):
@@ -203,11 +355,14 @@ class Engine:
 
     def run_headless(self, n_frames: int):
         """Render n accumulated frames without a terminal; returns the last
-        frame's (rgb, glyphs, rays, mean_samples). Frame numbering
-        continues from self.frame_count."""
+        frame's (rgb, glyphs, rays, mean_samples) (sharded: on rank 0, and
+        None on every other rank). Frame numbering continues from
+        self.frame_count."""
         if n_frames < 1:
             raise ValueError(f"n_frames must be >= 1, got {n_frames}")
         out = None
         for _ in range(n_frames):
             out = self.render_one(self.frame_count)
+        if self.mesh is not None:
+            return self._fetch_sharded(out)  # None on all but rank 0
         return self._fetch(_Fetch(out, self.full_color))

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models import scene as scene_mod
+from ..ops import denoise as dn
 from ..ops import kernels
 from ..ops import tonemap as tm
 from ..ops.tracer import PathTracer
@@ -60,9 +61,30 @@ def state_to_numpy(state: FrameState):
     return tuple(t.detach().cpu().numpy() for t in state)
 
 
+def accumulate(acc: torch.Tensor, current: V3, frame_number: int) -> V3:
+    """Fold this frame's `current` into the running mean `acc` IN PLACE
+    (alpha in f32, as the JAX step computes it); returns acc as a V3."""
+    fn = np.float32(frame_number)
+    alpha = (np.float32(1.0) if fn == 0.0
+             else np.float32(1.0) / (fn + np.float32(1.0)))
+    acc.mul_(float(np.float32(1.0) - alpha))
+    acc.add_(torch.stack(list(current)) * float(alpha))
+    return V3(acc[0], acc[1], acc[2])
+
+
+def display(acc_v: V3, full_color: bool):
+    """(rgb u8 [H, W, 3], glyphs u8 [H, W]; zeros in full colour)."""
+    if full_color:
+        rgb = tm.tonemap_fullcolor(acc_v)
+        return rgb, torch.zeros(rgb.shape[:2], dtype=torch.uint8,
+                                device=rgb.device)
+    return tm.tonemap_ascii(acc_v)
+
+
 def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
                      device="cuda", accel: str = "auto",
-                     dynamic: bool = False, transport: str = "reference"):
+                     dynamic: bool = False, transport: str = "reference",
+                     denoise: float = 0.0, denoise_passes: int = 3):
     """Build ``step(state, pose16, seed, frame_number[, arrays]) ->
     FrameOutput``.
 
@@ -72,10 +94,12 @@ def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
     (ops/tracer.py); `transport` the light-transport estimator
     ('reference', 'unbiased' or 'mis'). With `dynamic`, the step takes the
     frame's scene values as a trailing ops/dynamic.pack_scene `arrays` (the
-    --animate mode). It updates ``state.acc`` IN PLACE and returns that
-    same tensor in the new state; pass the previous output's state back in.
-    The step carries its tracer as ``step.tracer`` (its gates, kernels and
-    counts)."""
+    --animate mode). `denoise` > 0 runs the à-trous filter of
+    ops/denoise.py (`denoise_passes` rounds) over the accumulation before
+    tonemapping, for display only. It updates ``state.acc`` IN PLACE and
+    returns that same tensor in the new state; pass the previous output's
+    state back in. The step carries its tracer as ``step.tracer`` (its
+    gates, kernels and counts)."""
     tracer = PathTracer(scene, device, accel=accel, dynamic=dynamic,
                         transport=transport)
     render_frame = kernels.make_sorted_render_frame(tracer)
@@ -84,22 +108,12 @@ def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
              arrays=None) -> FrameOutput:
         current, variance, samples, rays, occ = render_frame(
             pose, int(seed), int(frame_number), arrays)
-        # alpha in f32, as the JAX step computes it.
-        fn = np.float32(frame_number)
-        alpha = (np.float32(1.0) if fn == 0.0
-                 else np.float32(1.0) / (fn + np.float32(1.0)))
-        acc = state.acc
-        acc.mul_(float(np.float32(1.0) - alpha))
-        acc.add_(torch.stack(list(current)) * float(alpha))
-        acc_v = V3(acc[0], acc[1], acc[2])
-        if full_color:
-            rgb = tm.tonemap_fullcolor(acc_v)
-            glyphs = torch.zeros(rgb.shape[:2], dtype=torch.uint8,
-                                 device=rgb.device)
-        else:
-            rgb, glyphs = tm.tonemap_ascii(acc_v)
-        return FrameOutput(FrameState(acc, variance, samples), rgb, glyphs,
-                           rays, occ)
+        acc_v = accumulate(state.acc, current, int(frame_number))
+        acc_v = dn.denoise_acc(acc_v, variance, samples, int(frame_number),
+                               denoise, denoise_passes)
+        rgb, glyphs = display(acc_v, full_color)
+        return FrameOutput(FrameState(state.acc, variance, samples), rgb,
+                           glyphs, rays, occ)
 
     step.tracer = tracer
     return step

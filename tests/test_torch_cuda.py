@@ -516,3 +516,57 @@ def test_schedulers_render_equal_frames(cuda_device, name):
         for a, b in zip((*got[0], *got[1:3]), (*want[0], *want[1:3])):
             assert torch.equal(a, b), mode
     assert float(outs["lockstep"][4]) <= float(outs["regen"][4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, fog", [("Cornell_Box", None),
+                                       ("showcase", None),
+                                       ("Cornell_Box", 0.15)],
+                         ids=["ref", "ext", "xt"])
+def test_quota_kernels_match_plain_versions(cuda_device, name, fog):
+    """Kernel A of a sample-split shard (a tracer with base_quota) with each
+    runtime share on a row block, and the shard's extra phase continuing at
+    its share, against the plain versions, bit for bit."""
+    from terminal_raytracer_tpu_torch.parallel import mesh as pm
+
+    scene = load_scene(name).with_overrides(
+        width=96, height=24, samples_per_pixel=20, max_depth=6,
+        fog=None if fog is None else Fog(density=fog))
+    split = pm.SampleSplit(scene, cuda_device, 3, y0=8, rows=8)
+    tr = split.tracer
+    for sp_i in range(3):
+        q, seed = split.share(sp_i), split.seed(SEED, sp_i)
+        n0 = kernels.base_kernel.quota_launches
+        k = kernels.base_kernel(tr, POSE, seed, 0, 8, 8, base_q=q)
+        p = kernels.base_kernel_plain(tr, POSE, seed, 0, 8, 8, base_q=q)
+        assert kernels.base_kernel.quota_launches == n0 + 1
+        for field in ("rays", "state", "var", "additional"):
+            assert torch.equal(getattr(k, field), getattr(p, field)), field
+        for a, b in zip((*k.csum, *k.csumsq), (*p.csum, *p.csumsq)):
+            assert torch.equal(a, b)
+        add = torch.full_like(p.var, 3.0)  # 3 extra samples a pixel
+        s = kernels.sorted_stream(tr, k.state, add, 8, q)
+        args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
+        (ek, rk, _), (ep, rp, _) = (kernels.extra_kernel(*args),
+                                    kernels.extra_kernel_plain(*args))
+        assert torch.equal(rk, rp) and float(rk.sum()) > 0
+        for a, b in zip(ek, ep):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sample_split_composition_matches_plain_phases(cuda_device,
+                                                       monkeypatch):
+    """The sample-split frame of the mesh module (sp = 3 in one process) on
+    the card against the same phases with the plain versions of kernels A
+    and B on the card, bit for bit (but for the executed lane-iterations,
+    a warp's count against the plain scheduler's)."""
+    from terminal_raytracer_tpu_torch.parallel import mesh as pm
+
+    split = pm.SampleSplit(_cornell(96, 24, 16, 6), cuda_device, 3)
+    got = pm.sample_split_frame(split, POSE, SEED, 0)
+    monkeypatch.setattr(kernels, "base_kernel", kernels.base_kernel_plain)
+    monkeypatch.setattr(kernels, "extra_kernel", kernels.extra_kernel_plain)
+    want = pm.sample_split_frame(split, POSE, SEED, 0)
+    for a, b in zip((*got[0], *got[1:4]), (*want[0], *want[1:4])):
+        assert torch.equal(a, b)
