@@ -113,6 +113,14 @@ Phases, each reported on lines starting with its tag:
             A and B launched once a frame. Its launch counters run from
             the composition to the end, and kernel A must have taken a
             runtime quota on every sample-split launch
+  [probes]  the Hopper probes (terminal_raytracer_tpu_torch/tools/,
+            csrc/probes.cu): each probe's main() on the card at the JAX
+            scripts' default sizes and loop counts (--reps 3), the launch
+            counters reset before and read after (every form must have
+            launched); then every form's output of that run against its
+            plain version on the card: bit for bit, atan2f within rtol 1e-6
+            of torch.atan2 (ulps printed), every copy of a branch probe's
+            tile equal
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. It prints
@@ -132,7 +140,11 @@ traversal counts; the regen and lockstep rows at their first [sched]
 config, the plain version's operations over the whole frame, 24 bytes
 written a pixel; kernel_base_quota, kernel A with a runtime quota, at the
 largest sp = 3 share of the north star, its launches those that took a
-quota), the nvidia-smi line, and as the last line
+quota; the five probe rows at their default form, probe21 ldg at n =
+1024, probe21b rowsel_ldg, probe21c packed, probe_when guarded at frac
+0.5, probe_cond cond at frac 0.25, their bound the FP32 operations of the
+loop over the FP32 peak or their bytes, their launches those of the
+main() runs), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. A failed phase raises or exits non-zero and
 prints no result; nothing falls back to the plain version or to the CPU.
 """
@@ -148,6 +160,7 @@ TOL = 5e-3
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES_PER_SM = 128  # FP32 lanes of one Hopper SM
+TILE = 16 * 128  # the probes' tile
 
 
 def fail(msg: str) -> None:
@@ -1710,6 +1723,133 @@ def phase_denoise():
     return got
 
 
+PROBE_REPS = 3
+# The probes' rows: (name, module, the TPU kernel it replaces, the form
+# and config its `ms` is taken at).
+PROBE_ROWS = (
+    ("probe21", "perf_probe21", "tools/perf_probe21.py:73", ("ldg", 1024)),
+    ("probe21b", "perf_probe21b", "tools/perf_probe21b.py:88",
+     ("rowsel_ldg", None)),
+    ("probe21c", "perf_probe21c", "tools/perf_probe21c.py:65",
+     ("packed", None)),
+    ("probe_when", "probe_when", "tools/probe_when.py:54", ("guarded", 0.5)),
+    ("probe_cond", "probe_cond", "tools/probe_cond.py:58", ("cond", 0.25)))
+# FP32 operations a lane-iteration of the probes' loops: the gathers' add;
+# 21c packed: x = x0 + 0.001 i (2), the texel index (4 floors, 2
+# subtracts, 3 multiplies), the unpack's 3 multiplies and the 3 adds; the
+# heavy bodies 5 a step (multiply, add, multiply, floor, subtract).
+PROBE_OPS_GATHER = 1
+PROBE_OPS_PACKED = 17
+PROBE_OPS_STEP = 5
+
+
+def _probe_taken(mod, frac, iters):
+    """Iterations whose scalar predicate holds (the guarded form's work)."""
+    return sum((i * 40503 + mod.SEED) % 1000 < int(frac * 1000)
+               for i in range(iters))
+
+
+def phase_probes(peak):
+    """The Hopper probes (terminal_raytracer_tpu_torch/tools/,
+    csrc/probes.cu): every probe's main() on the card at its default sizes
+    and loop counts (--reps 3), with the launch counters reset before and
+    read after; then every form's kernel output from that run against its
+    plain version on the card on the same inputs: bit for bit, atan2f
+    within rtol 1e-6 of torch.atan2 (ulps printed); each branch probe's
+    copies equal. Returns (launches by row, {row: (max abs error, ms,
+    plain ms, bound)})."""
+    import importlib
+
+    import torch
+
+    mods = {name: importlib.import_module(
+        f"terminal_raytracer_tpu_torch.tools.{mod}")
+        for name, mod, _, _ in PROBE_ROWS}
+    wrappers = {"probe21": mods["probe21"].gather,
+                "probe21b": mods["probe21b"].gather,
+                "probe21c": mods["probe21c"].block,
+                "probe_when": mods["probe_when"].branch,
+                "probe_cond": mods["probe_cond"].branch}
+    for w in wrappers.values():
+        w.launches = dict.fromkeys(w.launches, 0)
+    t0 = time.perf_counter()
+    results = {name: mods[name].main(["--device", "cuda", "--reps",
+                                      str(PROBE_REPS)])
+               for name in wrappers}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: dict(w.launches) for name, w in wrappers.items()}
+    print(f"[probes] the five probes' main() on the card in {dt:.1f} s, "
+          f"launches {counts}", flush=True)
+    for name, got in counts.items():
+        idle = [form for form, n in got.items() if not n]
+        if idle:
+            fail(f"[probes] {name}: forms never launched: {idle}")
+
+    p21, p21b, p21c = mods["probe21"], mods["probe21b"], mods["probe21c"]
+    when, cond = mods["probe_when"], mods["probe_cond"]
+    ins21 = {n: (tab, idx) for n, tab, idx in p21.inputs(p21.SIZES, "cuda")}
+    tab_b, idx_b = p21b.inputs("cuda")
+    tab_c, x0_c = p21c.inputs("cuda")
+    x_w = when.inputs("cuda")
+    plains = {
+        "probe21": lambda r: p21.plain(r["form"], *ins21[r["n"]], p21.ITERS),
+        "probe21b": lambda r: p21b.plain(r["form"], tab_b, idx_b,
+                                         p21b.ITERS),
+        "probe21c": lambda r: p21c.plain(r["form"], tab_c, x0_c, p21c.ITERS),
+        "probe_when": lambda r: when.plain(r["form"], x_w, when.SEED,
+                                           r["frac"], when.ITERS),
+        "probe_cond": lambda r: cond.plain(r["form"], cond.SEED, r["frac"],
+                                           cond.ITERS, "cuda")}
+    out = {}
+    for name, _, _, (form0, cfg0) in PROBE_ROWS:
+        worst, ms, plain_ms = 0.0, None, None
+        for r in results[name]:
+            want = plains[name](r)
+            got = r["out"]
+            err = maxabs(got, want.expand_as(got))
+            worst = max(worst, err)
+            if r["form"] == "atan2f":
+                ulps = int((got.view(torch.int32).long()
+                            - want.view(torch.int32).long()).abs().max())
+                rel = maxrel(got, want)
+                print(f"[probes] {name} atan2f against torch.atan2 on the "
+                      f"card: max abs {err:.3e}, maxrel {rel:.3e}, "
+                      f"{ulps} ulps", flush=True)
+                if not float(((got - want).abs() / want.abs()).max()) <= 1e-6:
+                    fail(f"[probes] {name} atan2f beyond rtol 1e-6")
+            elif err != 0.0:
+                fail(f"[probes] {name} {r['form']} {r.get('n', '')}"
+                     f"{r.get('frac', '')}: the kernel is off its plain "
+                     f"version by {err:.3e}")
+            cfg = r.get("n", r.get("frac"))
+            if r["form"] == form0 and cfg == cfg0:
+                ms = r["ms"]
+                plain_ms = _time_cuda(lambda: plains[name](r), 1)
+        if name in ("probe21", "probe21b", "probe21c"):
+            per = PROBE_OPS_PACKED if name == "probe21c" else PROBE_OPS_GATHER
+            ops = mods[name].ITERS * TILE * per
+            n_tab = {"probe21": cfg0, "probe21b": TILE, "probe21c": 1024}[name]
+            n_bytes = 4 * (n_tab + 2 * TILE)
+        elif name == "probe_when":
+            taken = _probe_taken(when, cfg0, when.ITERS)
+            ops = when.STEPS * TILE * taken * when.HEAVY * PROBE_OPS_STEP
+            n_bytes = 4 * TILE * (1 + when.STEPS)
+        else:
+            taken = _probe_taken(cond, cfg0, cond.ITERS)
+            ops = cond.STEPS * TILE * (1 + taken * cond.HEAVY * PROBE_OPS_STEP
+                                       + (cond.ITERS - taken))
+            n_bytes = 4 * TILE * cond.STEPS
+        bound = _bound(ops, n_bytes, peak)
+        out[name] = (worst, ms, plain_ms, bound)
+        print(f"[probes] {name}: every form against its plain version on "
+              f"the card, max abs {worst:.3e}; {form0} {cfg0 or ''}: "
+              f"{ms:.4f} ms (plain {plain_ms:.1f} ms), bound "
+              f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    launches = {name: sum(c.values()) for name, c in counts.items()}
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -1742,6 +1882,7 @@ def main() -> int:
     mesh_launches, quota_row = phase_mesh(peak)
     _add(launches, mesh_launches)
     launches["base_kernel_quota"] = quota_row[-1]
+    probe_launches, probes = phase_probes(peak)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
@@ -1798,6 +1939,13 @@ def main() -> int:
          "max_abs_err": err, "ms": ms, "plain_ms": plain,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
         for name, counter, source, line, err, ms, plain, bound in rows
+    ] + [
+        {"name": name, "route": "cuda", "source": src + "probes.cu",
+         "replaces": line, "launches": probe_launches[name],
+         "max_abs_err": probes[name][0], "ms": probes[name][1],
+         "plain_ms": probes[name][2], "bound_ms": probes[name][3][0],
+         "bound_by": probes[name][3][1], "library_ms": None}
+        for name, _, line, _ in PROBE_ROWS
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,448 @@
+// The Hopper probes: counterparts of the Mosaic micro-benchmarks in tools/
+// (perf_probe21.py, perf_probe21b.py, perf_probe21c.py, probe_when.py,
+// probe_cond.py). Each TPU probe asked a design question of the texture
+// path or of the branch layout; each kernel here asks it of the H100 and
+// computes, value for value, what the TPU probe's kernel computes. Their
+// launchers, plain PyTorch versions and printouts are the modules of
+// terminal_raytracer_tpu_torch/tools/.
+//
+// The probes' (16, 128) tile becomes 2048 threads, one per tile element e
+// = row * 128 + col, in blocks of 128 (one tile row a block) for the gather
+// probes and of 256 for the branch probes. A TPU probe's sequential grid
+// steps become blockIdx.y: each step's blocks write their own copy of the
+// output tile, and the launcher checks that every copy is equal.
+//
+// Gather probes (tools/perf_probe21.py:73, perf_probe21b.py:88): out = sum
+// over i < iters of g(tab, (idx0 + i) & (n - 1)), added in loop order, with
+// the table in one of three homes or on the tensor cores:
+//   global      a plain global load (ld.global)
+//   ldg         __ldg, the read-only path of the port's texel fetch
+//               (trace.cuh fetch_texel)
+//   shared      the table staged in shared memory by each block
+//   shfl        the table held in the warp's registers and fetched with
+//               __shfl_sync plus a select on the register index: 4 shuffles
+//               for a 128-wide row, 64 for the full 2048-texel table; a
+//               column (perf_probe21b tala0) sits in the thread's own 16
+//               registers and takes a select only
+//   onehotmm    the one-hot product of the TPU's matrix unit as warp-level
+//               mma.sync m16n8k8 TF32: the warp's 32 lanes are two 16-row
+//               tiles of A (A[r][k] = idx_r == k), B[k][*] = tf32(tab[k]),
+//               n / 8 k-steps; exact for a one-hot A, so g = tf32(tab[idx])
+//   onehot_hi   the same over the 2048-texel table in 3xTF32: tab = big +
+//               small (both cvt.rna.tf32), mma's of small A x big B (A is
+//               exact in TF32, so its small part is 0), big A x small B,
+//               then big A x big B, so g = big + small
+//   selectacc   the O(n) compare-select loop g += idx == k ? tab[k] : 0
+// What bounds them: latency, not bytes or FP32 rate. 2048 threads fill 16
+// of the 132 SMs, under 1% of the card's resident threads; each iteration
+// is one fetch and one add per thread, so µs per fetch over the loop
+// baseline is the fetch's latency less what the warp schedulers overlap.
+//
+// Texture building blocks (tools/perf_probe21c.py:65): x = x0 + 0.001 i,
+// then the texel index from uv (floor, cast, iv * 32 + iu), atan2 (CUDA's
+// atan2f, the counterpart of jnp.arctan2, and the port's polynomial
+// trace.cuh atan2_poly), or the packed rgb texel through __ldg and
+// trace.cuh unpack_texel's arithmetic. Bound by the same latency.
+//
+// Branch probes (tools/probe_when.py:54 with 64 grid steps, probe_cond.py:58
+// with 256): K iterations whose heavy body runs when pred = ((i * 40503 +
+// seed) mod 1000) < thresh: guarded (pred is the same for every thread, so
+// a warp skips the body as a whole), unguarded (the body every time), and
+// divergent (each thread's own pred at seed + e, so a warp runs the body
+// whenever any of its lanes takes it). They are bound by the dependent
+// chain of FP32 operations of the body, over 131,072 (when) and 524,288
+// (cond) threads.
+//
+// The file builds with --fmad=false like the kernels: each multiply and add
+// rounds alone, as in the plain versions.
+
+#include "trace.cuh"
+
+namespace {
+
+constexpr int TILE = 2048;     // the probes' (16, 128) tile
+constexpr int TILE_W = 128;
+constexpr int BLOCK = 128;     // gather probes: one tile row a block
+constexpr int BR_BLOCK = 256;  // branch probes
+constexpr unsigned FULL = 0xffffffffu;
+
+}  // namespace
+
+// Launch arguments (tools/_probe.py GatherArgs, BranchArgs).
+struct ProbeGather {
+  int n;      // table size (a power of two) of perf_probe21; 2048 for 21b
+  int iters;  // loop trips
+};
+
+struct ProbeBranch {
+  int iters;   // K
+  int seed;    // the probe's runtime seed
+  int thresh;  // int(frac_true * 1000): pred is (... mod 1000) < thresh
+  int copies;  // grid steps of the TPU probe: one output tile each
+};
+
+namespace {
+
+// cvt.rna.tf32.f32, with the 13 bits below the TF32 mantissa cleared.
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+__device__ __forceinline__ float ld_global(const float* p) {
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// D += A (16x8, row) * B (8x8, col), TF32 in, FP32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// tab[idx] of every lane as a one-hot product on the tensor cores (a warp
+// collective: all 32 lanes call it). big: the TF32 table in shared memory;
+// SPLIT adds small, tab - big in TF32, as the 3xTF32 split. Lane l's row
+// is row l & 15 of tile l >> 4. Fragments (PTX ISA, mma.m16n8k8 .tf32),
+// with g = lane >> 2, t = lane & 3: A a0/a1 rows g/g+8 at column t, a2/a3
+// the same rows at t+4; B b0/b1 rows t/t+4 (every column alike); D c0 row
+// g, c2 row g+8.
+template <bool SPLIT>
+__device__ __forceinline__ float onehot_gather(const float* big, const float* small, int n,
+                                               int idx) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r00 = __shfl_sync(FULL, idx, g), r01 = __shfl_sync(FULL, idx, g + 8);
+  const int r10 = __shfl_sync(FULL, idx, g + 16), r11 = __shfl_sync(FULL, idx, g + 24);
+  const uint32_t ONE = 0x3f800000u;  // 1.0f, exact in TF32
+  float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k0 = 0; k0 < n; k0 += 8) {
+    const int ka = k0 + t, kb = k0 + t + 4;
+    const uint32_t b0 = __float_as_uint(big[ka]), b1 = __float_as_uint(big[kb]);
+    const uint32_t a00 = r00 == ka ? ONE : 0u, a01 = r01 == ka ? ONE : 0u;
+    const uint32_t a02 = r00 == kb ? ONE : 0u, a03 = r01 == kb ? ONE : 0u;
+    const uint32_t a10 = r10 == ka ? ONE : 0u, a11 = r11 == ka ? ONE : 0u;
+    const uint32_t a12 = r10 == kb ? ONE : 0u, a13 = r11 == kb ? ONE : 0u;
+    if constexpr (SPLIT) {
+      const uint32_t s0 = __float_as_uint(small[ka]), s1 = __float_as_uint(small[kb]);
+      mma_tf32(d0, 0u, 0u, 0u, 0u, b0, b1);  // small A x big B
+      mma_tf32(d1, 0u, 0u, 0u, 0u, b0, b1);
+      mma_tf32(d0, a00, a01, a02, a03, s0, s1);  // big A x small B
+      mma_tf32(d1, a10, a11, a12, a13, s0, s1);
+    }
+    mma_tf32(d0, a00, a01, a02, a03, b0, b1);  // big A x big B
+    mma_tf32(d1, a10, a11, a12, a13, b0, b1);
+  }
+  // Row r of a tile: lane 4 (r & 7) holds it, in c0 for r < 8, else c2.
+  const int src = (lane & 7) << 2;
+  const float v00 = __shfl_sync(FULL, d0[0], src), v01 = __shfl_sync(FULL, d0[2], src);
+  const float v10 = __shfl_sync(FULL, d1[0], src), v11 = __shfl_sync(FULL, d1[2], src);
+  const int q = lane >> 3;
+  return q == 0 ? v00 : q == 1 ? v01 : q == 2 ? v10 : v11;
+}
+
+// reg[sel], by a select over the registers (no local-memory indexing).
+template <int R>
+__device__ __forceinline__ float reg_select(const float (&reg)[R], int sel) {
+  float g = reg[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r) g = sel == r ? reg[r] : g;
+  return g;
+}
+
+// Register sel of lane src: one shuffle per register, then the select.
+template <int R>
+__device__ __forceinline__ float shfl_select(const float (&reg)[R], int src, int sel) {
+  float g = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float v = __shfl_sync(FULL, reg[r], src);
+    g = sel == r ? v : g;
+  }
+  return g;
+}
+
+// ----------------------------------------------------- perf_probe21.py:73
+
+enum { P21_NONE, P21_GLOBAL, P21_LDG, P21_SHARED, P21_ONEHOT, P21_SELECT };
+
+template <int F>
+constexpr bool STAGED21 = F == P21_SHARED || F == P21_ONEHOT || F == P21_SELECT;
+
+template <int F>
+__global__ void __launch_bounds__(BLOCK)
+    probe21(ProbeGather a, const float* tab, const int* idx0, float* out) {
+  extern __shared__ float s_tab[];
+  if constexpr (STAGED21<F>) {
+    for (int k = threadIdx.x; k < a.n; k += BLOCK)
+      s_tab[k] = F == P21_ONEHOT ? tf32(tab[k]) : tab[k];
+    __syncthreads();
+  }
+  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  const int mask = a.n - 1, i0 = idx0[e];
+  float acc = 0.0f;
+  for (int i = 0; i < a.iters; ++i) {
+    const int idx = (i0 + i) & mask;
+    float g;
+    if constexpr (F == P21_NONE) {
+      g = (float)idx;
+    } else if constexpr (F == P21_GLOBAL) {
+      g = ld_global(tab + idx);
+    } else if constexpr (F == P21_LDG) {
+      g = __ldg(tab + idx);
+    } else if constexpr (F == P21_SHARED) {
+      g = s_tab[idx];
+    } else if constexpr (F == P21_ONEHOT) {
+      g = onehot_gather<false>(s_tab, nullptr, a.n, idx);
+    } else {
+      g = 0.0f;
+      for (int k = 0; k < a.n; ++k) g = g + (idx == k ? s_tab[k] : 0.0f);
+    }
+    acc = acc + g;
+  }
+  out[e] = acc;
+}
+
+template <int F>
+int launch21(const ProbeGather* a, const float* tab, const int* idx0, float* out, void* stream) {
+  const size_t smem = STAGED21<F> ? a->n * sizeof(float) : 0;
+  probe21<F><<<TILE / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(*a, tab, idx0, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------- perf_probe21b.py:88
+
+enum { B_NONE, B_TALA1, B_TALA0, B_ROWSEL, B_ONEHOT_HI };
+enum { H_LDG, H_SHARED, H_SHFL };
+
+template <int OP, int HOME>
+__global__ void __launch_bounds__(BLOCK)
+    probe21b(ProbeGather a, const float* tab, const int* idx0, float* out) {
+  // The table (shared), or its TF32 big and small parts (onehot_hi).
+  __shared__ float s_tab[2 * TILE];
+  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  const int row = e / TILE_W, col = e % TILE_W, lane = threadIdx.x & 31;
+  if constexpr (OP == B_ONEHOT_HI) {
+    for (int k = threadIdx.x; k < TILE; k += BLOCK) {
+      const float v = tab[k], big = tf32(v);
+      s_tab[k] = big;
+      s_tab[TILE + k] = tf32(v - big);
+    }
+    __syncthreads();
+  } else if constexpr (HOME == H_SHARED) {
+    for (int k = threadIdx.x; k < TILE; k += BLOCK) s_tab[k] = tab[k];
+    __syncthreads();
+  }
+  // shfl: tala1 holds the block's row (element c in lane c & 31, register
+  // c >> 5), tala0 the thread's own column, rowsel the whole table (flat f
+  // in lane f & 31, register f >> 5).
+  constexpr int R = HOME != H_SHFL ? 1 : OP == B_TALA1 ? 4 : OP == B_TALA0 ? 16 : 64;
+  float reg[R];
+  if constexpr (HOME == H_SHFL) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      reg[r] = __ldg(tab + (OP == B_TALA1   ? row * TILE_W + lane + 32 * r
+                            : OP == B_TALA0 ? r * TILE_W + col
+                                            : lane + 32 * r));
+  }
+  const int i0 = idx0[e];
+  float acc = 0.0f;
+  for (int i = 0; i < a.iters; ++i) {
+    const int idx = (i0 + i) & (TILE - 1);
+    float g;
+    if constexpr (OP == B_NONE) {
+      g = (float)idx;
+    } else if constexpr (OP == B_ONEHOT_HI) {
+      g = onehot_gather<true>(s_tab, s_tab + TILE, TILE, idx);
+    } else if constexpr (HOME == H_SHFL && OP == B_TALA0) {
+      g = reg_select(reg, idx & 15);
+    } else if constexpr (HOME == H_SHFL) {
+      const int f = OP == B_TALA1 ? idx & 127 : idx;
+      g = shfl_select(reg, f & 31, f >> 5);
+    } else {
+      const int f = OP == B_TALA1   ? row * TILE_W + (idx & 127)
+                    : OP == B_TALA0 ? (idx & 15) * TILE_W + col
+                                    : (idx >> 7) * TILE_W + (idx & 127);
+      g = HOME == H_LDG ? __ldg(tab + f) : s_tab[f];
+    }
+    acc = acc + g;
+  }
+  out[e] = acc;
+}
+
+template <int OP, int HOME>
+int launch21b(const ProbeGather* a, const float* tab, const int* idx0, float* out,
+              void* stream) {
+  probe21b<OP, HOME><<<TILE / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(*a, tab, idx0, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------- perf_probe21c.py:65
+
+enum { C_NONE, C_F2I, C_ATAN2F, C_ATAN2_POLY, C_PACKED };
+
+template <int F>
+__global__ void __launch_bounds__(BLOCK)
+    probe21c(ProbeGather a, const int32_t* tab, const float* x0, float* out) {
+  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  const float xe = x0[e];
+  float acc = 0.0f;
+  for (int i = 0; i < a.iters; ++i) {
+    const float x = xe + 0.001f * (float)i;
+    if constexpr (F == C_NONE) {
+      acc = acc + x;
+    } else if constexpr (F == C_ATAN2F) {
+      acc = acc + atan2f(x, 1.0f - x);
+    } else if constexpr (F == C_ATAN2_POLY) {
+      acc = acc + trt::atan2_poly(x, 1.0f - x);
+    } else {
+      // The texel index of uv on a 32x32 texture; x >= 0, so u, v < 1.
+      const float x17 = x * 1.7f;
+      const float u = x - floorf(x), v = x17 - floorf(x17);
+      const int idx = (int)floorf(v * 32.0f) * 32 + (int)floorf(u * 32.0f);
+      if constexpr (F == C_F2I) {
+        acc = acc + (float)idx;
+      } else {
+        const trt::V3 c = trt::unpack_texel(__ldg(tab + idx));
+        acc = acc + c.x;
+        acc = acc + c.y;
+        acc = acc + c.z;
+      }
+    }
+  }
+  out[e] = acc;
+}
+
+template <int F>
+int launch21c(const ProbeGather* a, const int32_t* tab, const float* x0, float* out,
+              void* stream) {
+  probe21c<F><<<TILE / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(*a, tab, x0, out);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------- probe_when.py:54, probe_cond.py:58
+
+enum { BR_GUARDED, BR_UNGUARDED, BR_DIVERGENT };
+
+// v mod 1000 with the sign of the divisor, as jnp's % on int32.
+__device__ __forceinline__ int mod1000(int v) {
+  const int m = v % 1000;
+  return m < 0 ? m + 1000 : m;
+}
+
+template <int F>
+__global__ void __launch_bounds__(BR_BLOCK)
+    probe_when(ProbeBranch a, const float* x, float* out) {
+  const int e = blockIdx.x * BR_BLOCK + threadIdx.x;
+  const int seed = F == BR_DIVERGENT ? a.seed + e : a.seed;
+  float acc = x[e];
+  for (int i = 0; i < a.iters; ++i) {
+    if (F == BR_UNGUARDED || mod1000(i * 40503 + seed) < a.thresh) {
+      float y = acc;
+      for (int h = 0; h < 48; ++h) {
+        y = y * 1.0000001f + 0.3f;
+        y = y - floorf(y * 0.25f);
+      }
+      acc = y;
+    }
+  }
+  out[blockIdx.y * TILE + e] = acc;
+}
+
+__device__ __forceinline__ float heavy_cond(float y) {
+  for (int h = 0; h < 40; ++h) {
+    y = y * 1.000001f + 0.5f;
+    y = y - floorf(y * 0.5f);
+  }
+  return y;
+}
+
+template <int F>
+__global__ void __launch_bounds__(BR_BLOCK) probe_cond(ProbeBranch a, float* out) {
+  const int e = blockIdx.x * BR_BLOCK + threadIdx.x;
+  const int seed = F == BR_DIVERGENT ? a.seed + e : a.seed;
+  float x = (float)(e % TILE_W) * 0.01f;
+  for (int i = 0; i < a.iters; ++i) {
+    const bool pred = mod1000(i * 40503 + seed) < a.thresh;
+    if constexpr (F == BR_UNGUARDED) {
+      const float w = pred ? 1.0f : 0.0f;
+      x = w * 0.0f + heavy_cond(x);
+    } else if (pred) {
+      x = heavy_cond(x);
+    } else {
+      x = x + 0.0f;
+    }
+  }
+  out[blockIdx.y * TILE + e] = x;
+}
+
+}  // namespace
+
+// Every entry: out f32 [16, 128] (branch probes [copies, 16, 128]) on the
+// given stream; returns cudaGetLastError().
+
+#define PROBE21(form, F)                                                                  \
+  extern "C" int trt_probe21_##form(const ProbeGather* a, const float* tab, const int* idx0, \
+                                    float* out, void* stream) {                          \
+    return launch21<F>(a, tab, idx0, out, stream);                                       \
+  }
+PROBE21(none, P21_NONE)
+PROBE21(global, P21_GLOBAL)
+PROBE21(ldg, P21_LDG)
+PROBE21(shared, P21_SHARED)
+PROBE21(onehotmm, P21_ONEHOT)
+PROBE21(selectacc, P21_SELECT)
+
+#define PROBE21B(form, OP, HOME)                                                           \
+  extern "C" int trt_probe21b_##form(const ProbeGather* a, const float* tab, const int* idx0, \
+                                     float* out, void* stream) {                          \
+    return launch21b<OP, HOME>(a, tab, idx0, out, stream);                                \
+  }
+PROBE21B(none, B_NONE, H_LDG)
+PROBE21B(tala1_ldg, B_TALA1, H_LDG)
+PROBE21B(tala1_shared, B_TALA1, H_SHARED)
+PROBE21B(tala1_shfl, B_TALA1, H_SHFL)
+PROBE21B(tala0_ldg, B_TALA0, H_LDG)
+PROBE21B(tala0_shared, B_TALA0, H_SHARED)
+PROBE21B(tala0_shfl, B_TALA0, H_SHFL)
+PROBE21B(rowsel_ldg, B_ROWSEL, H_LDG)
+PROBE21B(rowsel_shared, B_ROWSEL, H_SHARED)
+PROBE21B(rowsel_shfl, B_ROWSEL, H_SHFL)
+PROBE21B(onehot_hi, B_ONEHOT_HI, H_SHARED)
+
+#define PROBE21C(form, F)                                                                  \
+  extern "C" int trt_probe21c_##form(const ProbeGather* a, const int32_t* tab, const float* x0, \
+                                     float* out, void* stream) {                          \
+    return launch21c<F>(a, tab, x0, out, stream);                                         \
+  }
+PROBE21C(none, C_NONE)
+PROBE21C(f2i, C_F2I)
+PROBE21C(atan2f, C_ATAN2F)
+PROBE21C(atan2_poly, C_ATAN2_POLY)
+PROBE21C(packed, C_PACKED)
+
+#define PROBE_WHEN(form, F)                                                                 \
+  extern "C" int trt_probe_when_##form(const ProbeBranch* a, const float* x, float* out,     \
+                                       void* stream) {                                     \
+    probe_when<F><<<dim3(TILE / BR_BLOCK, a->copies), BR_BLOCK, 0, (cudaStream_t)stream>>>( \
+        *a, x, out);                                                                       \
+    return (int)cudaGetLastError();                                                        \
+  }
+PROBE_WHEN(guarded, BR_GUARDED)
+PROBE_WHEN(unguarded, BR_UNGUARDED)
+PROBE_WHEN(divergent, BR_DIVERGENT)
+
+#define PROBE_COND(form, F)                                                                 \
+  extern "C" int trt_probe_cond_##form(const ProbeBranch* a, float* out, void* stream) {     \
+    probe_cond<F><<<dim3(TILE / BR_BLOCK, a->copies), BR_BLOCK, 0, (cudaStream_t)stream>>>( \
+        *a, out);                                                                          \
+    return (int)cudaGetLastError();                                                        \
+  }
+PROBE_COND(cond, BR_GUARDED)
+PROBE_COND(unguarded, BR_UNGUARDED)
+PROBE_COND(divergent, BR_DIVERGENT)

@@ -46,11 +46,27 @@ ENTRY_POINTS = {
         for mode in ("regen", "lockstep")
         for sfx, n in (("", 5), ("_ext", 6), ("_xt", 7), ("_grid", 8),
                        ("_gathered", 8))),
+    # The Hopper probes of tools/ (terminal_raytracer_tpu_torch/tools/).
+    "probes.cu": tuple(
+        (f"trt_probe21_{f}", 5) for f in (
+            "none", "ldg", "global", "shared", "onehotmm", "selectacc")
+    ) + tuple((f"trt_probe21b_{f}", 5) for f in (
+        "none", "tala1_ldg", "tala1_shared", "tala1_shfl", "tala0_ldg",
+        "tala0_shared", "tala0_shfl", "rowsel_ldg", "rowsel_shared",
+        "rowsel_shfl", "onehot_hi")
+    ) + tuple((f"trt_probe21c_{f}", 5) for f in (
+        "none", "f2i", "atan2f", "atan2_poly", "packed")
+    ) + tuple((f"trt_probe_when_{f}", 4) for f in (
+        "guarded", "unguarded", "divergent")
+    ) + tuple((f"trt_probe_cond_{f}", 3) for f in (
+        "cond", "unguarded", "divergent")),
 }
+# What a render loads; the probes' library loads only when a probe asks.
+RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+_loaded = {}  # sources -> their entry points
 
 
 def nvcc_path() -> str:
@@ -76,10 +92,10 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def library_paths() -> dict:
-    """Build every library that is missing, one nvcc per source, all at
-    once; return {source: library path}."""
-    paths = {src: library_path(src) for src in ENTRY_POINTS}
+def library_paths(sources: tuple = tuple(ENTRY_POINTS)) -> dict:
+    """Build every library of `sources` that is missing, one nvcc per
+    source, all at once; return {source: library path}."""
+    paths = {src: library_path(src) for src in sources}
     jobs = []
     for src, so in paths.items():
         if so.exists():
@@ -103,17 +119,16 @@ def library_paths() -> dict:
     return paths
 
 
-def load_kernels() -> SimpleNamespace:
-    """The kernels' C entry points, by name (built on first call)."""
-    global _lib
-    if _lib is None:
+def load_kernels(sources: tuple = RENDER_SOURCES) -> SimpleNamespace:
+    """The C entry points of `sources`, by name (built on first call)."""
+    if sources not in _loaded:
         fns = {}
-        for src, so in library_paths().items():
+        for src, so in library_paths(sources).items():
             lib = ctypes.CDLL(str(so))
             for name, n_ptr in ENTRY_POINTS[src]:
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = [ctypes.c_void_p] * n_ptr
                 fns[name] = fn
-        _lib = SimpleNamespace(**fns)
-    return _lib
+        _loaded[sources] = SimpleNamespace(**fns)
+    return _loaded[sources]

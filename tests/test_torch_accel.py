@@ -34,8 +34,10 @@ from terminal_raytracer_tpu_torch.models.scene import Fog
 from terminal_raytracer_tpu_torch.ops import accel, geometry as geom, kernels
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.ops.vecmath import V3
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 POSE = Camera().pose()
 RTOL, ATOL = 1e-4, 1e-5

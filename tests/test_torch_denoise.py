@@ -30,8 +30,10 @@ from terminal_raytracer_tpu_torch.models import load_scene
 from terminal_raytracer_tpu_torch.ops import denoise as dn
 from terminal_raytracer_tpu_torch.ops.vecmath import V3
 from terminal_raytracer_tpu_torch.runtime import init_state, make_render_step
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 RTOL, ATOL = 1e-5, 1e-7
 F_RTOL, F_ATOL = 1e-4, 1e-5

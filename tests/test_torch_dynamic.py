@@ -36,8 +36,10 @@ from terminal_raytracer_tpu_torch.ops import kernels
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.runtime import init_state, make_render_step
 from terminal_raytracer_tpu_torch.runtime.engine import Engine
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSE = Camera().pose()

@@ -40,8 +40,10 @@ from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
 from test_torch_accel import (_j, _off, _t, assert_hits_equal,
                               random_rays)
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 POSE = Camera().pose()
 KNIFE_EDGE = 0.03

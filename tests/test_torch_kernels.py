@@ -24,8 +24,10 @@ from terminal_raytracer_tpu.models import Camera, load_scene
 from terminal_raytracer_tpu.ops import pallas_kernel as pk
 from terminal_raytracer_tpu_torch.ops import kernels
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer, cam_from_pose
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 POSE = Camera().pose()
 SEED = 42

@@ -27,8 +27,10 @@ from terminal_raytracer_tpu_torch.ops import sampling as tsamp
 from terminal_raytracer_tpu_torch.ops import tonemap as ttm
 from terminal_raytracer_tpu_torch.ops import vecmath as tvm
 from terminal_raytracer_tpu_torch.ops.vecmath import V3 as TV3
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 N = 4096
 SCENES = ["Cornell_Box", "demo", "scene2"]

@@ -58,6 +58,9 @@ from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.ops.vecmath import V3
 from terminal_raytracer_tpu_torch.runtime import init_state, make_render_step
 from terminal_raytracer_tpu_torch.runtime.engine import Engine, _parse_shard
+from test_torch_vml import warm_vml  # noqa: E402
+
+warm_vml()  # the ranks run on one thread each
 
 POSE = Camera().pose()
 SEED = 7

@@ -1,0 +1,358 @@
+"""The port's probes (terminal_raytracer_tpu_torch/tools/) against the JAX
+package's Mosaic probes (tools/*.py), at the probes' shapes and a small
+loop count (ITERS = 16; K = 16 for the branch probes).
+
+The gather probes' JAX kernels run as the JAX scripts run them on the CPU:
+loaded by path and built with interpret=True (perf_probe21.py build,
+perf_probe21b.py build, perf_probe21c.py build). The branch probes' kernels
+are nested in the scripts' main() and use TPU memory spaces, so their
+reference is a numpy float32 transcription of the kernel body, cited by
+line, the divergent form's per-lane predicate at seed + lane included.
+
+Tolerances:
+- perf_probe21 none, ldg, global, shared, selectacc and perf_probe21b
+  none and every home of tala1, tala0 and rowsel: bit for bit (exact terms
+  added in loop order on both sides).
+- onehotmm (TF32) and onehot_hi (3xTF32) against the JAX products, which
+  are exact in f32 on the CPU: within tools._probe.gap_bound, half an ulp
+  of each term at 10 (21) mantissa bits plus an f32 rounding of each
+  running sum; and at least one lane off, so the rounding is real.
+- perf_probe21c none and f2i: bit for bit. atan2f (torch.atan2) against
+  jnp.arctan2: rtol 1e-6 (libm and XLA-CPU differ by an ulp or two a term;
+  2.2e-7 measured). atan2_poly against jnp.arctan2: ITERS x 2e-5 absolute,
+  the polynomial's error a term (tests/test_torch_materials.py
+  test_atan2_matches_jax). packed: rtol 4e-6 (XLA-CPU contracts acc + r * s
+  into one multiply-add; 5.7e-7 measured).
+- probe_when, probe_cond: the numpy transcription bit for bit.
+
+The `cuda` cases hold every C entry of csrc/probes.cu against its plain
+version on the card, bit for bit (atan2f within rtol 1e-6 of torch.atan2),
+and skip here. The file imports no jax itself (the JAX probes import it
+inside build), so on a GPU machine without jax the `cuda` cases run with
+    python -m pytest --noconftest tests/test_torch_probes.py -m cuda
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from terminal_raytracer_tpu_torch.tools import (  # noqa: E402
+    _probe, probe_cond, probe_when)
+from terminal_raytracer_tpu_torch.tools import perf_probe21 as p21  # noqa
+from terminal_raytracer_tpu_torch.tools import perf_probe21b as p21b  # noqa
+from terminal_raytracer_tpu_torch.tools import perf_probe21c as p21c  # noqa
+from test_torch_vml import warm_vml  # noqa: E402
+
+torch.set_num_threads(2)
+warm_vml()
+
+TOOLS = Path(__file__).resolve().parent.parent / "tools"
+ITERS = 16
+K = 16
+
+
+def _jax_probe(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}",
+                                                  TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+J21, J21B, J21C = (_jax_probe(n) for n in
+                   ("perf_probe21", "perf_probe21b", "perf_probe21c"))
+
+
+def _inputs21(n):
+    """perf_probe21's inputs at size n: drawn over the default sizes in
+    order, as its main() draws them."""
+    sizes = p21.SIZES[:p21.SIZES.index(n) + 1]
+    return list(p21.inputs(sizes, "cpu"))[-1][1:]
+
+
+def _gap_ok(got, want, tab, bits):
+    gap = np.abs(got.astype(np.float64) - want).max()
+    bound = _probe.gap_bound(ITERS, float(np.abs(tab).max()),
+                             float(np.abs(want).max()), bits)
+    assert 0 < gap <= bound, (gap, bound)
+
+
+# ------------------------------------------------------ perf_probe21.py
+
+P21_CASES = [(n, form) for n in p21.SIZES for form in p21.FORMS
+             if form != "selectacc" or n <= p21.SELECT_MAX]
+P21_JAX = {"none": ("none",), "ldg": ("take", "getitem"),
+           "global": ("take", "getitem"), "shared": ("take", "getitem"),
+           "onehotmm": ("onehotmm",), "selectacc": ("selectacc",)}
+
+
+@pytest.mark.parametrize("n, form", P21_CASES)
+def test_probe21_plain_matches_jax(n, form):
+    tab, idx = _inputs21(n)
+    got = p21.gather(form, tab, idx, ITERS).numpy()
+    for variant in P21_JAX[form]:
+        want = np.asarray(J21.build(variant, n, ITERS, interpret=True)(
+            tab.numpy(), idx.numpy()))
+        if form == "onehotmm":
+            _gap_ok(got, want, tab.numpy(), 10)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------- perf_probe21b.py
+
+
+@pytest.mark.parametrize("form", p21b.FORMS)
+def test_probe21b_plain_matches_jax(form):
+    tab, idx = p21b.inputs("cpu")
+    got = p21b.gather(form, tab, idx, ITERS).numpy()
+    variant = form if form in ("none", "onehot_hi") else form.split("_")[0]
+    want = np.asarray(J21B.build(variant, ITERS, interpret=True)(
+        tab.numpy(), idx.numpy()))
+    if form == "onehot_hi":
+        _gap_ok(got, want, tab.numpy(), 21)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------- perf_probe21c.py
+
+
+@pytest.mark.parametrize("form", p21c.FORMS)
+def test_probe21c_plain_matches_jax(form):
+    tab, x0 = p21c.inputs("cpu")
+    got = p21c.block(form, tab, x0, ITERS).numpy()
+    variant = "atan2" if form.startswith("atan2") else form
+    want = np.asarray(J21C.build(variant, ITERS, interpret=True)(
+        tab.numpy(), x0.numpy()))
+    if form in ("none", "f2i"):
+        np.testing.assert_array_equal(got, want)
+    elif form == "atan2f":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    elif form == "atan2_poly":
+        np.testing.assert_allclose(got, want, rtol=0, atol=ITERS * 2e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=4e-6, atol=0)
+
+
+# ------------------------------------------- probe_when.py, probe_cond.py
+
+
+def _np_pred(i, seed, thresh, form):
+    lane = np.arange(_probe.TILE).reshape(_probe.SHAPE)
+    if form == "divergent":
+        return (i * 40503 + seed + lane) % 1000 < thresh
+    return np.full(_probe.SHAPE, form == "unguarded"
+                   or (i * 40503 + seed) % 1000 < thresh)
+
+
+def _np_when(form, seed, frac, iters):
+    """probe_when.py:30-52, one grid step, in numpy float32: acc = x, then
+    per iteration the 48-step heavy body where pred holds (pl.when), or
+    always (unguarded); divergent takes pred at seed + lane."""
+    acc = np.random.RandomState(0).rand(*_probe.SHAPE).astype(np.float32)
+    mul, add, quarter = (np.float32(1.0000001), np.float32(0.3),
+                         np.float32(0.25))
+    for i in range(iters):
+        y = acc
+        for _ in range(48):
+            y = y * mul + add
+            y = y - np.floor(y * quarter)
+        acc = np.where(_np_pred(i, seed, int(frac * 1000), form), y, acc)
+    return acc
+
+
+def _np_cond(form, seed, frac, iters):
+    """probe_cond.py:32-56, one grid step, in numpy float32: x = iota(axis
+    1) * 0.01, then per iteration heavy(x) where pred holds, else x + 0.0
+    (lax.cond); unguarded is where(pred, 1, 0) * 0 + heavy(x); divergent
+    takes pred at seed + lane."""
+    x = (np.arange(_probe.TILE).reshape(_probe.SHAPE) % 128).astype(
+        np.float32) * np.float32(0.01)
+    mul, add, half = (np.float32(1.000001), np.float32(0.5),
+                      np.float32(0.5))
+    for i in range(iters):
+        y = x
+        for _ in range(40):
+            y = y * mul + add
+            y = y - np.floor(y * half)
+        if form == "unguarded":
+            x = np.float32(0.0) + y
+        else:
+            x = np.where(_np_pred(i, seed, int(frac * 1000), form), y,
+                         x + np.float32(0.0))
+    return x
+
+
+@pytest.mark.parametrize("form, frac", [(f, fr) for f in probe_when.FORMS
+                                        for fr in probe_when.FRACS])
+def test_probe_when_plain_matches_numpy(form, frac):
+    x = probe_when.inputs("cpu")
+    out = probe_when.branch(form, x, probe_when.SEED, frac, K)
+    assert out.shape == (probe_when.STEPS, *_probe.SHAPE)
+    want = _np_when(form, probe_when.SEED, frac, K)
+    for copy in (0, probe_when.STEPS - 1):
+        np.testing.assert_array_equal(out[copy].numpy(), want)
+
+
+@pytest.mark.parametrize("form, frac", [(f, fr) for f in probe_cond.FORMS
+                                        for fr in probe_cond.FRACS])
+def test_probe_cond_plain_matches_numpy(form, frac):
+    out = probe_cond.branch(form, probe_cond.SEED, frac, K, "cpu")
+    assert out.shape == (probe_cond.STEPS, *_probe.SHAPE)
+    want = _np_cond(form, probe_cond.SEED, frac, K)
+    for copy in (0, probe_cond.STEPS - 1):
+        np.testing.assert_array_equal(out[copy].numpy(), want)
+
+
+def test_branch_forms_differ_where_the_predicate_does():
+    """At frac 0.5 the guarded, unguarded and divergent bodies run on
+    different iterations, so the three tiles differ; at frac 1 they agree."""
+    x = probe_when.inputs("cpu")
+    outs = {f: probe_when.branch(f, x, 7, 0.5, K)[0] for f in
+            probe_when.FORMS}
+    assert not torch.equal(outs["guarded"], outs["unguarded"])
+    assert not torch.equal(outs["guarded"], outs["divergent"])
+    full = [probe_when.branch(f, x, 7, 1.0, K)[0] for f in probe_when.FORMS]
+    assert all(torch.equal(full[0], t) for t in full[1:])
+
+
+# ------------------------------------------------------------- helpers
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    base = np.float32(1.0).view(np.int32)
+    bits = np.array([base, base + 0x0fff, base + 0x1000, base + 0x1fff,
+                     base + 0x2000, base + 0x3000], np.int32)
+    for sign in (0, np.int32(-2**31)):
+        x = torch.from_numpy((bits | sign).view(np.float32))
+        got = _probe.tf32_round(x).numpy().view(np.int32) & 0x7fffffff
+        assert list(got - base) == [0, 0, 0x2000, 0x2000, 0x2000, 0x4000]
+    x = torch.from_numpy(np.random.RandomState(0).rand(4096).astype(
+        np.float32))
+    t = _probe.tf32_round(x)
+    assert not (t.numpy().view(np.int32) & 0x1fff).any()
+    assert float((t - x).abs().max()) <= 2.0 ** -11 * float(x.abs().max())
+
+
+@pytest.mark.parametrize("mod, argv", [
+    (p21, ["--sizes", "128,1024"]), (p21b, []), (p21c, []),
+    (probe_when, []), (probe_cond, [])])
+def test_main_on_the_cpu_prints_values(mod, argv, capsys):
+    rows = mod.main(argv + ["--device", "cpu", "--iters", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(rows) > 0
+    assert all(r["ms"] is None for r in rows)
+    assert not any("ms" in line.split() or "MISMATCH" in line
+                   or "DIFFER" in line or "False" in line for line in lines)
+
+
+def test_main_on_cuda_without_a_gpu_exits_2(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    with pytest.raises(SystemExit) as e:
+        p21.main(["--iters", "4"])
+    assert e.value.code == 2
+    assert "needs a CUDA GPU" in capsys.readouterr().err
+
+
+def test_wrappers_refuse_bad_inputs():
+    tab, idx = _inputs21(128)
+    with pytest.raises(ValueError, match="unknown form"):
+        p21.gather("take", tab, idx, 4)
+    with pytest.raises(ValueError, match="power of two"):
+        p21.gather("ldg", tab[:100], idx, 4)
+    with pytest.raises(ValueError, match="int32"):
+        p21.gather("ldg", tab, idx.long(), 4)
+    with pytest.raises(ValueError, match="iters"):
+        p21b.gather("rowsel_ldg", *p21b.inputs("cpu"), -1)
+    with pytest.raises(ValueError, match="frac"):
+        probe_cond.branch("cond", 7, 1.5, 4, "cpu")
+    with pytest.raises(ValueError, match="seed"):
+        probe_when.branch("guarded", probe_when.inputs("cpu"), 2**31, 0.5, 4)
+
+
+def test_render_sources_leave_out_the_probe_library():
+    """load_kernels() by default (every render) loads no probe entry; a
+    probe launch asks for probes.cu alone."""
+    from terminal_raytracer_tpu_torch.ops import build
+
+    assert set(build.ENTRY_POINTS) - set(build.RENDER_SOURCES) == {
+        "probes.cu"}
+    assert all(name.startswith("trt_probe")
+               for name, _ in build.ENTRY_POINTS["probes.cu"])
+    assert not any(name.startswith("trt_probe")
+                   for src in build.RENDER_SOURCES
+                   for name, _ in build.ENTRY_POINTS[src])
+
+
+# ----------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _same(got, want, form):
+    if form == "atan2f":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, form", P21_CASES)
+def test_probe21_kernel_matches_plain(cuda_device, n, form):
+    tab, idx = (t.to(cuda_device) for t in _inputs21(n))
+    n0 = p21.gather.launches[form]
+    got = p21.gather(form, tab, idx, 64)
+    assert p21.gather.launches[form] == n0 + 1
+    _same(got, p21.plain(form, tab, idx, 64), form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", p21b.FORMS)
+def test_probe21b_kernel_matches_plain(cuda_device, form):
+    tab, idx = p21b.inputs(cuda_device)
+    n0 = p21b.gather.launches[form]
+    got = p21b.gather(form, tab, idx, 64)
+    assert p21b.gather.launches[form] == n0 + 1
+    _same(got, p21b.plain(form, tab, idx, 64), form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", p21c.FORMS)
+def test_probe21c_kernel_matches_plain(cuda_device, form):
+    tab, x0 = p21c.inputs(cuda_device)
+    n0 = p21c.block.launches[form]
+    got = p21c.block(form, tab, x0, 64)
+    assert p21c.block.launches[form] == n0 + 1
+    _same(got, p21c.plain(form, tab, x0, 64), form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", probe_when.FORMS)
+def test_probe_when_kernel_matches_plain(cuda_device, form):
+    x = probe_when.inputs(cuda_device)
+    n0 = probe_when.branch.launches[form]
+    got = probe_when.branch(form, x, 7, 0.5, K)
+    assert probe_when.branch.launches[form] == n0 + 1
+    want = probe_when.plain(form, x, 7, 0.5, K)
+    assert torch.equal(got, want.expand_as(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", probe_cond.FORMS)
+def test_probe_cond_kernel_matches_plain(cuda_device, form):
+    n0 = probe_cond.branch.launches[form]
+    got = probe_cond.branch(form, 7, 0.25, K, cuda_device)
+    assert probe_cond.branch.launches[form] == n0 + 1
+    want = probe_cond.plain(form, 7, 0.25, K, cuda_device)
+    assert torch.equal(got, want.expand_as(got))

@@ -30,8 +30,10 @@ from terminal_raytracer_tpu.ops import tracer as jtracer
 from terminal_raytracer_tpu_torch.models import load_scene
 from terminal_raytracer_tpu_torch.ops import kernels, tracer
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer, cam_from_pose
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSE = Camera().pose()

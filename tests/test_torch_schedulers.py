@@ -41,8 +41,10 @@ from terminal_raytracer_tpu_torch.models.scene import Fog
 from terminal_raytracer_tpu_torch.ops import dynamic as dyn
 from terminal_raytracer_tpu_torch.ops import kernels
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 POSE = Camera().pose()
 SEED = 11

@@ -44,8 +44,10 @@ from terminal_raytracer_tpu_torch.runtime import (init_state,
                                                   state_from_numpy,
                                                   state_to_numpy)
 from terminal_raytracer_tpu_torch.runtime.blit import Blitter
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSE = Camera().pose()

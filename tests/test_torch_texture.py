@@ -43,8 +43,10 @@ from terminal_raytracer_tpu_torch.models import load_scene
 from terminal_raytracer_tpu_torch.ops import geometry as geom
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 from terminal_raytracer_tpu_torch.ops.vecmath import V3
+from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
+warm_vml()
 
 POSE = Camera().pose()
 N = 4096
