@@ -15,15 +15,24 @@ Phases, each reported on lines starting with its tag:
             (|k - p| / max(|p|, 1e-3), the kernel-vs-oracle gate of the
             JAX package's bench.py)
   [kernel_extra]  kernel B against its plain version on the budget-sorted
-            stream built from the depth-8 output: rays equal, esum within
-            5e-3; then both kernels held against and timed beside their
-            plain versions at the north-star shapes
-  [kernel_base_chunked]  the chunked kernel A against its plain version on
-            stress:120:7 at 64x16, 8 spp, depth 6, chunks of 2: rays, end
-            states and per-pixel totals equal, radiance within 5e-3; then
-            held against and timed beside its plain version at the
+            stream built from the depth-8 output, in both forms: the
+            grouped entry (csrc/group.cuh), which the wrapper takes, and
+            the thread-per-entry entry, each bit for bit (rays, esum bits,
+            maxrel 0) with its executed lane-iterations equal to the plain
+            model at its group width; then kernel A and both forms of B
+            held against and timed beside their plain versions at the
+            north-star shapes, with K, the working warps, the longest
+            entry's iterations and µs an iteration, the staged rows' bytes
+            and the entry the wrapper takes
+  [kernel_base_chunked]  the same for the chunked kernel A on
+            stress:120:7 at 64x16, 8 spp, depth 6, chunks of 2 (rays, end
+            states, per-pixel totals and radiance bits equal) and at the
             stress1024 shapes, and one stress1024 frame with and without
             the chunk split
+  [thread]  the thread-per-entry kernel B and chunked kernel A where the
+            wrapper takes them, at mesh5120 (icosphere:4, 5120 triangles
+            whose rows exceed the grouped kernels' shared-memory budget):
+            bit for bit against their plain versions, timed
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -31,7 +40,12 @@ Phases, each reported on lines starting with its tag:
             version (rays, samples, radiance within 5e-3)
   [scale]   the many-primitive and animated path through Engine at the
             JAX package's bench configurations stress1024, mesh1280,
-            stress256, dynamic1024 and dynamic; then one stress1024 frame
+            stress256, dynamic1024 and dynamic, and at mesh5120
+            (icosphere:4, whose rows exceed the grouped kernels' shared-
+            memory budget); the device busy share and device time by
+            kernel of profiled north-star, stress1024 and mesh1280
+            frames, and their sorted frames through the grouped and the
+            thread-per-entry kernels in turns; then one stress1024 frame
             and one animated frame at t > 0 (dynamic1024, and Cornell at
             128x32) against the plain pipeline on the card, on the same
             per-frame scene buffer: rays, samples and variance equal,
@@ -126,15 +140,18 @@ Phases, each reported on lines starting with its tag:
   frame; the accumulation must be finite and the image not flat. It prints
   ms/frame, Mray/s (owed traversal sweeps per second) and occupancy (owed
   sweeps over executed lane-iterations x (1 + the shadow sweeps a bounce
-  owes: n_lights, or 1 under one-light NEE)).
+  owes: n_lights, or 1 under one-light NEE); a grouped kernel's
+  lane-iterations are the path slots its warps spend, 32 / K a warp).
 
 Then one JSON line with each kernel's result (its max abs error: the
 largest over its comparisons, which include the main path's shapes; its
 bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
-3.35 TB/s, whichever is larger; the EXT rows at the showcase and
-stress:1024-checker shapes; the XT rows at the fog and stress:1024 fog
-shapes; the grid and gathered rows at the stress1024 shapes, their
+3.35 TB/s, whichever is larger; kernel_extra_grouped at the north
+star, kernel_base_chunked_grouped at stress1024, the thread-per-entry
+kernel_extra and kernel_base_chunked at mesh5120; the EXT rows at the
+showcase and stress:1024-checker shapes; the XT rows at the fog and
+stress:1024 fog shapes; the grid and gathered rows at the stress1024 shapes, their
 operations the slab tests, walk steps and primitive tests that the plain
 traversal counts; the regen and lockstep rows at their first [sched]
 config, the plain version's operations over the whole frame, 24 bytes
@@ -320,35 +337,75 @@ def _bound(ops, n_bytes, peak):
                                        else "bytes")
 
 
+def _iters_model(tag, label, got, entry_iters, k):
+    """A kernel's executed lane-iterations against the plain model at group
+    width k (ops/kernels.py warp_iters)."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    want = float(kernels.warp_iters(entry_iters, k))
+    if float(got) != want:
+        fail(f"[{tag}] {label}: executed lane-iterations {float(got):.0f}, "
+             f"the plain model at K = {k} {want:.0f}")
+
+
+def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters):
+    """Print the grouped entry's time beside the thread-per-entry entry's,
+    with K, the working warps, the longest entry's iterations and the µs an
+    iteration on that chain, the staged rows' bytes and the entry that the
+    wrapper takes for `tr`."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    k = kernels.group_k(kind)
+    w_g, w_t = (kernels.working_warps(entry_iters, k),
+                kernels.working_warps(entry_iters, 1))
+    longest = int(entry_iters.max())
+    took = "grouped" if kernels.takes_grouped(tr) else "thread-per-entry"
+    print(f"[{tag}] {label}: grouped K {k} {ms_g:.4f} ms on {w_g} working "
+          f"warps, thread-per-entry {ms_t:.4f} ms on {w_t} (x{ms_t / ms_g:.2f});"
+          f" longest entry {longest} iterations: {1e3 * ms_g / longest:.3f} / "
+          f"{1e3 * ms_t / longest:.3f} µs an iteration; staged rows "
+          f"{kernels.group_rows_bytes(tr)} B of {kernels.GROUP_SMEM_BYTES}; "
+          f"the wrapper takes {took}", flush=True)
+
+
 def phase_kernel_extra(tr, a, peak):
-    """Kernel B vs plain on the stream of kernel A's output `a`; then
-    both kernels timed against their plain versions at the north star."""
+    """Kernel B vs plain on the stream of kernel A's output `a`: the grouped
+    entry (which the wrapper takes) and the thread-per-entry entry, each
+    bit for bit with its executed lane-iterations equal to the plain model;
+    then kernel A and both forms of kernel B held against and timed beside
+    their plain versions at the north star."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    s = kernels.sorted_stream(tr, a.state, a.additional)
-    ek, rk, _ = kernels.extra_kernel(tr, pose, s.xs, s.ys, s.state, s.add,
-                                     s.samp0)
-    ep, rp, _ = kernels.extra_kernel_plain(tr, pose, s.xs, s.ys, s.state,
-                                           s.add, s.samp0)
-    torch.cuda.synchronize()
-    rays_eq = bool(torch.equal(rk, rp))
-    rel = max(maxrel(x, y) for x, y in zip(ek, ep))
-    err = max(maxabs(x, y) for x, y in zip(ek, ep))
-    n_work = int((s.add > 0).sum())
-    print(f"[kernel_extra] stream {tuple(s.xs.shape)}, {n_work} budgeted "
-          f"entries, rays {float(rk.sum()):.0f} equal {rays_eq}, maxrel "
-          f"{rel:.3e}", flush=True)
-    if n_work == 0:
-        fail("[kernel_extra] the test stream has no budgeted entry")
-    if not rays_eq or not rel < TOL:
-        fail("[kernel_extra] disagrees with the plain version")
 
-    # Both kernels against their plain versions at the north-star shapes,
-    # and timed there (outside the counted main path).
+    def both(t, s, label):
+        """Kernel B through its wrapper (the grouped entry) and the
+        thread-per-entry entry on stream `s`, against the plain version."""
+        args = (t, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        n0 = kernels.extra_kernel_grouped.launches
+        g = kernels.extra_kernel(*args)
+        if kernels.extra_kernel_grouped.launches != n0 + 1:
+            fail(f"[kernel_extra] {label}: the wrapper took no grouped entry")
+        th = kernels._launch_extra(*args, "ref")
+        p = kernels.extra_kernel_plain(*args)
+        it = kernels.extra_entry_iters(*args)
+        err = _check_extra("kernel_extra", f"{label} grouped", s, g, p,
+                           exact=True)
+        err = max(err, _check_extra("kernel_extra",
+                                    f"{label} thread-per-entry", s, th, p,
+                                    exact=True))
+        _iters_model("kernel_extra", label, g[2], it, kernels.group_k("extra"))
+        _iters_model("kernel_extra", label, th[2], it, 1)
+        return args, it, err
+
+    s = kernels.sorted_stream(tr, a.state, a.additional)
+    _, _, err = both(tr, s, "Cornell_Box 128x16 depth 8")
+
+    # Kernel A and both forms of B against their plain versions at the
+    # north-star shapes, and timed there (outside the counted main path).
     ns = PathTracer(_cornell(400, 200, 16, 32), "cuda")
     scene_bytes = 4 * ns.tables.buf.numel()
     ms_a = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
@@ -358,22 +415,23 @@ def phase_kernel_extra(tr, a, peak):
     err_a = _compare_base("kernel_base", "north-star shapes", a_ns, p_ns,
                           ("additional", "var"))
     s_ns = kernels.sorted_stream(ns, a_ns.state, a_ns.additional)
-    args = (ns, pose, s_ns.xs, s_ns.ys, s_ns.state, s_ns.add, s_ns.samp0)
-    b_ns = kernels.extra_kernel(*args)
+    args, it, err_ns = both(ns, s_ns, "north-star shapes")
+    err = max(err, err_ns)
     ms_b = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
-    plain_b, ops_b, pb_ns = _time_plain(
+    ms_bt = _time_cuda(lambda: kernels._launch_extra(*args, "ref"), 5)
+    plain_b, ops_b, _ = _time_plain(
         ns, lambda: kernels.extra_kernel_plain(*args))
-    err = max(err, _check_extra("kernel_extra", "north-star shapes", s_ns,
-                                b_ns, pb_ns))
     n_pix, n_ent = a_ns.var.numel(), s_ns.add.numel()
     bound_a = _bound(ops_a, scene_bytes + 44 * n_pix, peak)
     bound_b = _bound(ops_b, scene_bytes + 40 * n_ent, peak)
     print(f"[kernel_extra] north-star shapes: kernel_base {ms_a:.3f} ms "
           f"(plain {plain_a:.1f} ms, bound {bound_a[0]:.3f} ms by "
           f"{bound_a[1]}: {ops_a:.4g} FP32 test operations), kernel_extra "
-          f"{ms_b:.3f} ms on {int((s_ns.add > 0).sum())} budgeted of "
-          f"{n_ent} entries (plain {plain_b:.1f} ms, bound {bound_b[0]:.3f} "
+          f"grouped {ms_b:.3f} ms on {int((s_ns.add > 0).sum())} budgeted of "
+          f"{n_ent} entries (plain {plain_b:.1f} ms, bound {bound_b[0]:.4f} "
           f"ms by {bound_b[1]}: {ops_b:.4g} operations)", flush=True)
+    _grouped_vs_thread("kernel_extra", "north-star shapes", "extra", ns, ms_b,
+                       ms_bt, it)
     return err_a, err, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
 
 
@@ -382,47 +440,59 @@ def _chunk_totals(tr, out):
 
 
 def phase_kernel_base_chunked(peak):
-    """The chunked kernel A against its plain version, then timed at the
-    stress1024 shapes; one stress1024 frame with and without the split."""
+    """The chunked kernel A against its plain version, its grouped entry
+    (which the wrapper takes) and its thread-per-entry entry, bit for bit
+    with the executed lane-iterations equal to the plain model; then both
+    timed at the stress1024 shapes; one stress1024 frame with and without
+    the split."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
+
+    def both(t, label):
+        n0 = kernels.base_kernel_chunked_grouped.launches
+        g = kernels.base_kernel_chunked(t, pose, SEED, 0)
+        if kernels.base_kernel_chunked_grouped.launches != n0 + 1:
+            fail(f"[kernel_base_chunked] {label}: the wrapper took no "
+                 "grouped entry")
+        th = kernels._launch_chunked(t, pose, SEED, 0, 0, None, "ref")
+        p = kernels.base_kernel_chunked_plain(t, pose, SEED, 0)
+        it = kernels.chunked_entry_iters(t, pose, SEED, 0)
+        err = max(_compare_base("kernel_base_chunked", f"{label} {form}", k,
+                                p, (), t, exact=True)
+                  for form, k in (("grouped", g), ("thread-per-entry", th)))
+        _iters_model("kernel_base_chunked", label, g.iters, it,
+                     kernels.group_k("chunked"))
+        _iters_model("kernel_base_chunked", label, th.iters, it, 1)
+        return it, err
+
     tr = PathTracer(_scene("stress:120:7", 64, 16, 8, 6), "cuda",
                     chunk_base=2, chunk_extra=2)
-    k = kernels.base_kernel_chunked(tr, pose, SEED, 0)
-    p = kernels.base_kernel_chunked_plain(tr, pose, SEED, 0)
-    torch.cuda.synchronize()
-    tk, tp = _chunk_totals(tr, k), _chunk_totals(tr, p)
-    eq = {"rays": bool(torch.equal(k.rays, p.rays)),
-          "state": bool(torch.equal(k.state, p.state)),
-          "totals": all(bool(torch.equal(a, b)) for a, b in zip(tk, tp))}
-    rel = max(maxrel(a, b) for a, b in zip(tk, tp))
-    err = max(maxabs(a, b) for a, b in zip(tk, tp))
-    print(f"[kernel_base_chunked] stress:120:7 64x16 spp 8 depth 6, "
-          f"{tr.n_base_chunks} chunks of {tr.chunk_base}: rays "
-          f"{float(k.rays.sum()):.0f}, equal {eq}, maxrel {rel:.3e}",
-          flush=True)
-    if not all(eq.values()) or not rel < TOL:
-        fail("[kernel_base_chunked] disagrees with the plain version")
+    _, err = both(tr, f"stress:120:7 64x16 spp 8 depth 6, "
+                      f"{tr.n_base_chunks} chunks of {tr.chunk_base}")
 
     big = PathTracer(_scene("stress:1024", 200, 100, 8, 6), "cuda")
     if big.chunk_base != 2 or big.chunk_extra != 2:
         fail("[kernel_base_chunked] stress1024 does not resolve to cb = ce "
              "= 2")
-    kb = kernels.base_kernel_chunked(big, pose, SEED, 0)
+    it, err_big = both(big, "stress1024 shapes")
+    err = max(err, err_big)
     ms = _time_cuda(lambda: kernels.base_kernel_chunked(big, pose, SEED, 0), 5)
-    plain_ms, ops, pb = _time_plain(
+    ms_t = _time_cuda(lambda: kernels._launch_chunked(
+        big, pose, SEED, 0, 0, None, "ref"), 5)
+    plain_ms, ops, _ = _time_plain(
         big, lambda: kernels.base_kernel_chunked_plain(big, pose, SEED, 0))
-    err = max(err, _compare_base("kernel_base_chunked", "stress1024 shapes",
-                                 kb, pb, (), big))
     n_ent = big.n_base_chunks * big.width * big.height
     bound = _bound(ops, 4 * big.tables.buf.numel() + 36 * n_ent, peak)
     print(f"[kernel_base_chunked] stress1024 shapes ({n_ent} entries): "
-          f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound[0]:.3f} ms by "
-          f"{bound[1]}: {ops:.4g} FP32 test operations)", flush=True)
+          f"grouped {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} FP32 test "
+          "operations)", flush=True)
+    _grouped_vs_thread("kernel_base_chunked", "stress1024 shapes", "chunked",
+                       big, ms, ms_t, it)
 
     # Occupancy and frame time with and without the chunk split.
     flat = PathTracer(big.scene, "cuda", chunk_base=None, chunk_extra=None)
@@ -441,9 +511,59 @@ def phase_kernel_base_chunked(peak):
     return err, (ms, plain_ms, bound)
 
 
+def phase_thread_per_entry(peak):
+    """The thread-per-entry kernel B and chunked kernel A where the main
+    path takes them, on a table above the grouped kernels' shared-memory
+    budget (mesh5120, icosphere:4 at the bench's 200x100, 8 spp, depth 6):
+    each against its plain version bit for bit and timed. Returns {row:
+    (max abs error, ms, plain ms, bound)}."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    tr = PathTracer(_scene("icosphere:4", 200, 100, 8, 6), "cuda")
+    if kernels.takes_grouped(tr) or not tr.chunk_base:
+        fail("[thread] mesh5120 takes the grouped kernels or no chunks")
+    scene_bytes = 4 * tr.tables.buf.numel()
+    n0 = kernels.base_kernel_chunked.launches
+    k = kernels.base_kernel_chunked(tr, pose, SEED, 0)
+    if kernels.base_kernel_chunked.launches != n0 + 1:
+        fail("[thread] mesh5120: the wrapper took no thread-per-entry entry")
+    ms_c = _time_cuda(lambda: kernels.base_kernel_chunked(tr, pose, SEED, 0),
+                      3)
+    plain_c, ops_c, p = _time_plain(
+        tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0))
+    err_c = _compare_base("thread", "mesh5120 chunked kernel A", k, p, (), tr,
+                          exact=True)
+    n_ent = tr.n_base_chunks * tr.width * tr.height
+    bound_c = _bound(ops_c, scene_bytes + 36 * n_ent, peak)
+    a = kernels.base_phase(tr, pose, SEED, 0)
+    s = kernels.sorted_stream(tr, a[2], a[7])
+    args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+    n0 = kernels.extra_kernel.launches
+    b = kernels.extra_kernel(*args)
+    if kernels.extra_kernel.launches != n0 + 1:
+        fail("[thread] mesh5120: kernel B took no thread-per-entry entry")
+    ms_b = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
+    plain_b, ops_b, pb = _time_plain(
+        tr, lambda: kernels.extra_kernel_plain(*args))
+    err_b = _check_extra("thread", "mesh5120", s, b, pb, exact=True)
+    bound_b = _bound(ops_b, scene_bytes + 40 * s.add.numel(), peak)
+    print(f"[thread] mesh5120 shapes ({kernels.group_rows_bytes(tr)} B of "
+          f"rows, over the {kernels.GROUP_SMEM_BYTES} B budget): "
+          f"base_kernel_chunked {ms_c:.3f} ms (plain {plain_c:.1f} ms, bound "
+          f"{bound_c[0]:.4f} ms by {bound_c[1]}), extra_kernel {ms_b:.3f} ms "
+          f"on {int((s.add > 0).sum())} budgeted entries (plain "
+          f"{plain_b:.1f} ms, bound {bound_b[0]:.4f} ms by {bound_b[1]})",
+          flush=True)
+    return {"c": (err_c, ms_c, plain_c, bound_c),
+            "b": (err_b, ms_b, plain_b, bound_b)}
+
+
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
+                "base_kernel_chunked_grouped", "extra_kernel_grouped",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
@@ -456,6 +576,25 @@ def _sfx(tr) -> str:
     """The suffix of the kernel wrappers that tracer `tr` takes."""
     return (f"_{tr.traversal}" if tr.traversal else "_xt" if tr.xt
             else "_ext" if tr.ext else "")
+
+
+def _a_name(tr) -> str:
+    """The kernel A wrapper that counts the launches of tracer `tr`'s base
+    phase: the grouped chunked entry where ops/kernels.takes_grouped."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    if not tr.chunk_base:
+        return "base_kernel" + _sfx(tr)
+    return ("base_kernel_chunked_grouped" if kernels.takes_grouped(tr)
+            else "base_kernel_chunked" + _sfx(tr))
+
+
+def _b_name(tr) -> str:
+    """The kernel B wrapper that counts tracer `tr`'s launches."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    return ("extra_kernel_grouped" if kernels.takes_grouped(tr)
+            else "extra_kernel" + _sfx(tr))
 
 
 def _nonzero(got) -> dict:
@@ -535,11 +674,10 @@ def _run_engine(tag, label, scene, full_color, frames, animate=None,
     tr = eng.step.tracer
     accel, chunked = tr.accel, tr.chunk_base is not None
     n = frames + 1
-    sfx = _sfx(tr)
     want = dict.fromkeys(LAUNCH_NAMES, 0)
-    want["base_kernel_chunked" + sfx if chunked else "base_kernel" + sfx] = n
+    want[_a_name(tr)] = n
     if tr.base_samples < tr.spp:
-        want["extra_kernel" + sfx] = n
+        want[_b_name(tr)] = n
     total_rays = sum(float(r) for r in rays)
     rgb = out.rgb
     finite = bool(torch.isfinite(eng.state.acc).all())
@@ -614,7 +752,7 @@ def phase_main():
     got = _launches()
     print(f"[main] cli.main rc {rc}, launches {_nonzero(got)}", flush=True)
     if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
-                              base_kernel=2, extra_kernel=2):
+                              base_kernel=2, extra_kernel_grouped=2):
         fail("[main] cli.main run failed")
     _add(launches, got)
 
@@ -652,10 +790,47 @@ def phase_main():
 SCALE_CONFIGS = (
     ("stress1024", "stress:1024", 200, 100, 8, 6, None, 8),
     ("mesh1280", "icosphere:3", 200, 100, 8, 6, None, 8),
+    # The next icosphere: 5120 triangles, rows over the grouped kernels'
+    # shared-memory budget (the thread-per-entry kernels B and chunked A).
+    ("mesh5120", "icosphere:4", 200, 100, 8, 6, None, 4),
     ("stress256", "stress:256", 200, 100, 8, 6, None, 8),
     ("dynamic1024", "stress:1024", 200, 100, 8, 6, "orbit", 8),
     ("dynamic", "Cornell_Box", 400, 200, 16, 32, "orbit", 8),
 )
+
+
+def _frames_grouped_vs_thread(tag, label, scene, frames=8):
+    """ms/frame of the sorted pipeline on one tracer with the grouped
+    kernels and with the thread-per-entry kernels (the dispatch by table
+    size turned off), in turns: thread, grouped, grouped, thread."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    tr = PathTracer(scene, "cuda")
+    render = kernels.make_sorted_render_frame(tr)
+    pose = _pose()
+    grouped = kernels.takes_grouped
+    times = {"thread": [], "grouped": []}
+    try:
+        for form in ("thread", "grouped", "grouped", "thread"):
+            kernels.takes_grouped = (grouped if form == "grouped"
+                                     else lambda t: False)
+            render(pose, SEED, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(frames):
+                render(pose, SEED, f + 1)
+            torch.cuda.synchronize()
+            times[form].append(1e3 * (time.perf_counter() - t0) / frames)
+    finally:
+        kernels.takes_grouped = grouped
+    print(f"[{tag}] {label} sorted frame in turns, {frames} frames each: "
+          f"thread per entry {times['thread'][0]:.3f} / "
+          f"{times['thread'][1]:.3f} ms/frame, grouped "
+          f"{times['grouped'][0]:.3f} / {times['grouped'][1]:.3f}",
+          flush=True)
 
 
 def phase_scale():
@@ -669,6 +844,13 @@ def phase_scale():
         scene = _scene(name, w, h, spp, depth)
         _add(launches, _run_engine("scale", label, scene, True, frames,
                                    animate))
+    # Where the time of a frame goes now that the grouped kernels carry it,
+    # and the frame through them beside the thread-per-entry kernels.
+    for label, scene in (("north star", _cornell(400, 200, 16, 32)),
+                         ("stress1024", _scene("stress:1024", 200, 100, 8, 6)),
+                         ("mesh1280", _scene("icosphere:3", 200, 100, 8, 6))):
+        _device_busy("scale", label, scene, 8)
+        _frames_grouped_vs_thread("scale", label, scene)
 
     pose = _pose()
     tr = PathTracer(_scene("stress:1024", 200, 100, 8, 6), "cuda")
@@ -721,11 +903,12 @@ def _checker_stress():
     return dataclasses.replace(scene, planes=(floor._replace(material=mat),))
 
 
-def _compare_base(tag, label, k, p, extra_eq=("additional",), tr=None):
+def _compare_base(tag, label, k, p, extra_eq=("additional",), tr=None,
+                  exact=False):
     """Kernel A (or its chunk planes) against the plain version: rays and
     end states (and `extra_eq`; with the chunked tracer `tr`, the
-    per-pixel chunk totals) equal, radiance within TOL. Returns the max abs
-    error."""
+    per-pixel chunk totals) equal, radiance within TOL (`exact`: bit for
+    bit). Returns the max abs error."""
     import torch
 
     torch.cuda.synchronize()
@@ -739,15 +922,17 @@ def _compare_base(tag, label, k, p, extra_eq=("additional",), tr=None):
     rel = max(maxrel(a, b) for a, b in pairs)
     print(f"[{tag}] {label}: rays {float(k.rays.sum()):.0f}, equal {eq}, "
           f"maxrel {rel:.3e}", flush=True)
-    if not all(v for n, v in eq.items() if n != "radiance bits") or not rel < TOL:
+    if (not all(v for n, v in eq.items() if exact or n != "radiance bits")
+            or not rel < TOL):
         fail(f"[{tag}] {label}: disagrees")
     return max(maxabs(a, b) for a, b in pairs)
 
 
-def _check_extra(tag, label, s, k, p, allow_empty=False):
+def _check_extra(tag, label, s, k, p, allow_empty=False, exact=False):
     """Kernel B's outputs `k` against the plain version's `p` on the sorted
-    stream `s`: rays equal, esum within TOL, and (unless `allow_empty`) at
-    least one budgeted entry. Returns the max abs error."""
+    stream `s`: rays equal, esum within TOL (`exact`: bit for bit), and
+    (unless `allow_empty`) at least one budgeted entry. Returns the max abs
+    error."""
     import torch
 
     torch.cuda.synchronize()
@@ -761,7 +946,7 @@ def _check_extra(tag, label, s, k, p, allow_empty=False):
           f"maxrel {rel:.3e}", flush=True)
     if n_work == 0 and not allow_empty:
         fail(f"[{tag}] {label}: the stream has no budgeted entry")
-    if not rays_eq or not rel < TOL:
+    if not rays_eq or not rel < TOL or (exact and not bits):
         fail(f"[{tag}] {label}: kernel B disagrees")
     return max(maxabs(x, y) for x, y in zip(ek, ep))
 
@@ -1462,9 +1647,8 @@ def phase_sched(peak):
             times[mode] = (time.perf_counter() - t0) / SCHED_FRAMES
             times[mode, "occ"] = float(out[4])
             if mode == "sorted":
-                want[("base_kernel_chunked" if tr.chunk_base else
-                      "base_kernel") + sfx] += n
-                want["extra_kernel" + sfx] += n
+                want[_a_name(tr)] += n
+                want[_b_name(tr)] += n
             else:
                 want[f"{mode}_kernel{sfx}"] += n
         ref = first["sorted"]
@@ -1657,7 +1841,7 @@ def phase_mesh(peak):
                 "samples": bool(torch.equal(e1.state.samples,
                                             e2.state.samples))}
         want = dict(dict.fromkeys(LAUNCH_NAMES, 0), base_kernel=MESH_FRAMES,
-                    extra_kernel=MESH_FRAMES)
+                    extra_kernel_grouped=MESH_FRAMES)
         print(f"[mesh] the (1, 1) mesh over NCCL against Engine: equal "
               f"{same}", flush=True)
         if not all(same.values()) or r1 != want or r2 != want:
@@ -1717,7 +1901,7 @@ def phase_denoise():
     if not finite or flat or not changed or not rel <= 1e-5:
         fail("[denoise] the filter on the card is wrong")
     want = dict(dict.fromkeys(LAUNCH_NAMES, 0), base_kernel=MESH_FRAMES + 1,
-                extra_kernel=MESH_FRAMES + 1)
+                extra_kernel_grouped=MESH_FRAMES + 1)
     if got != want:
         fail(f"[denoise] launch counts {got}, expected {want}")
     return got
@@ -1868,6 +2052,7 @@ def main() -> int:
         phase_kernel_extra(tr, a, peak))
     err_a = max(err_a, err_a_ns)
     err_c, (ms_c, plain_c, bound_c) = phase_kernel_base_chunked(peak)
+    thread = phase_thread_per_entry(peak)
     launches = phase_main()
     _add(launches, phase_scale())
     ext_launches, ext = phase_ext(peak)
@@ -1887,13 +2072,20 @@ def main() -> int:
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
              ms_a, plain_a, bound_a),
-            ("kernel_extra", "extra_kernel", "kernel_extra.cu", "1028", err_b,
-             ms_b, plain_b, bound_b),
+            # Kernel B and the chunked kernel A, thread per entry (at the
+            # mesh5120 shapes, above the grouped kernels' budget) and
+            # grouped (csrc/group.cuh; at the north star and stress1024).
+            ("kernel_extra", "extra_kernel", "kernel_extra.cu", "1028",
+             *thread["b"]),
+            ("kernel_extra_grouped", "extra_kernel_grouped", "group.cuh",
+             "1028", err_b, ms_b, plain_b, bound_b),
             # Kernel A with base_dynamic: the runtime quota read at :801.
             ("kernel_base_quota", "base_kernel_quota", "kernel_base.cu",
              "801", *quota_row[:4]),
             ("kernel_base_chunked", "base_kernel_chunked", "kernel_base.cu",
-             "796", err_c, ms_c, plain_c, bound_c),
+             "796", *thread["c"]),
+            ("kernel_base_chunked_grouped", "base_kernel_chunked_grouped",
+             "group.cuh", "796", err_c, ms_c, plain_c, bound_c),
             # The texel-atlas variants: the atlas is bound at :807 (A) and
             # :1031 (B), pallas_kernel._tex_bind_front.
             ("kernel_base_ext", "base_kernel_ext", "kernel_base.cu", "807",

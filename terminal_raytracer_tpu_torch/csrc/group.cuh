@@ -1,0 +1,385 @@
+// The grouped kernels: kernel B (kernel_extra_grouped) and the chunked
+// kernel A (kernel_base_chunked_grouped) at the reference gate set over
+// the table sweep, redesigned for the H100 (kernel_extra.cu and
+// kernel_base.cu instantiate them and say what they replace).
+//
+// What bound the thread-per-entry kernels (pipeline.cuh kernel_extra and
+// kernel_base_chunked, the case K = 1 below): the critical chain of one
+// path. A pixel's samples are one chain (each sample reseeds from the end
+// state of the one before, trace.cuh run_samples), so a thread runs every
+// bounce of every sample one after another: each bounce a closest-hit
+// sweep over the whole table, one shadow sweep per light and the shading,
+// each instruction waiting on the one before. At the north star the
+// budgeted entries of kernel B fill 62 blocks, about one warp per
+// scheduler on under half of the card, and each warp waits out the
+// latency of every dependent instruction of its longest lane; at
+// stress1024 each sweep tests 1025 primitives in one thread, with too few
+// warps to hide the latency and lanes idle behind divergent paths.
+//
+// The design here:
+//  - A path group: K lanes of one warp (K a power of two dividing 32, a
+//    compile-time constant of each instantiation) carry one stream entry.
+//    Every lane of the group makes the same RNG draws, ray generation,
+//    shading and roulette on the same values (trace.cuh's path functions
+//    run unchanged with the traversal GroupSweep<K>), so the group never
+//    diverges internally and the pixel's chain is untouched. The group's
+//    lead lane (j = 0) alone writes the entry's outputs.
+//  - The sweeps split across the group (GroupSweep below): lane j tests
+//    primitives j, j + K, j + 2K, ... of each kind; a closest hit is
+//    reduced by (t, then primitive index) with __shfl_xor_sync over the
+//    group's lanes, a shadow sweep joined with __any_sync. A bounce's
+//    critical chain shrinks by about the sweeps' share times (1 - 1/K),
+//    and the card holds K times as many working warps.
+//  - The scene's geometry rows live in shared memory, staged once per
+//    block with cp.async before its first path: triangles first (three
+//    float4 a row, 16-byte aligned), then spheres, then planes. The lanes
+//    of a group read consecutive rows: the odd strides 5 (spheres) and 9
+//    (planes) put 32 consecutive rows' words in 32 different banks, and a
+//    triangle row of 12 words read as three 16-byte loads puts the 8
+//    consecutive rows of each quarter-warp phase in 8 disjoint groups of 4
+//    banks (word offsets 12 r mod 32 = 0, 12, 24, 4, 16, 28, 8, 20). The
+//    materials, the light rows and the winner's normal stay __ldg reads
+//    from the global buffer: one a bounce.
+//  - Kernel B takes the budget-sorted stream in plain blocks of
+//    GROUP_THREADS lanes; a block none of whose entries owes a sample
+//    writes its zeros and leaves before it stages anything, so the
+//    zero-budget tail holds no SM, and the budgeted prefix spreads over
+//    every SM. The chunked kernel A keeps its chunk-major stream.
+//
+// Neither tensor cores nor TMA tiles have a place here: each ray test is
+// a handful of dependent f32 operations that must round exactly as the
+// plain version's do (--fmad=false); a TF32 or bf16 product would change
+// the hits, and the table is small and read whole by every block, so a
+// tiled matrix copy has nothing to tile.
+
+#pragma once
+
+#include <climits>
+
+#include "pipeline.cuh"
+
+namespace trt {
+
+// Kernel launch width of the grouped kernels, and the shared-memory budget
+// of the staged rows (bytes; mirrored by ops/kernels.py GROUP_SMEM_BYTES):
+// a table above it takes the thread-per-entry kernels.
+constexpr int GROUP_THREADS = 128;
+constexpr int GROUP_SMEM_BYTES = 96 * 1024;
+
+__host__ __device__ __forceinline__ int group_rows_floats(const Frame& f) {
+  return TRI_W * f.n_tri + SPH_W * f.n_sph + PLN_W * f.n_pln;
+}
+
+// Copy the geometry rows of the packed buffer (spheres, planes, triangles)
+// into shared memory as triangles, spheres, planes, one 4-byte cp.async a
+// word, every thread of the block taking every blockDim.x-th word; then
+// wait for them and for the block.
+__device__ __forceinline__ void stage_rows(float* smem, const float* buf, const Frame& f) {
+  const int n_front = SPH_W * f.n_sph + PLN_W * f.n_pln;
+  const int n_tri = TRI_W * f.n_tri;
+  for (int w = threadIdx.x; w < n_front + n_tri; w += blockDim.x) {
+    const int dst = w < n_front ? n_tri + w : w - n_front;
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem + dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(buf + w) : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The intersection tests of trace.cuh (sphere_t, plane_t, triangle_t) on
+// values loaded from shared memory, operation for operation.
+__device__ __forceinline__ bool sphere_tv(V3 o, V3 d, V3 center, float rr, float t_min,
+                                          float t_max, float& root) {
+  V3 oc = center - o;
+  float h = dot(d, oc);
+  float c = dot(oc, oc) - rr;
+  float disc = h * h - c;
+  float sqrtd = sqrtf(disc > 0.0f ? disc : 0.0f);
+  float near = h - sqrtd;
+  float far = h + sqrtd;
+  bool near_ok = (near > t_min) && (near < t_max);
+  bool far_ok = (far > t_min) && (far < t_max);
+  root = near_ok ? near : far;
+  return (disc >= 0.0f) && (near_ok || far_ok);
+}
+
+__device__ __forceinline__ bool plane_tv(V3 o, V3 d, V3 point, V3 n, float t_min, float t_max,
+                                         bool strict, float& t) {
+  float denom = dot(n, d);
+  bool parallel = fabsf(denom) < PLANE_PARALLEL_EPS;
+  t = dot(point - o, n) / (parallel ? 1.0f : denom);
+  return !parallel && (t >= t_min) && (strict ? t < t_max : t <= t_max);
+}
+
+__device__ __forceinline__ bool triangle_tv(V3 o, V3 d, V3 v0, V3 e1, V3 e2, float t_min,
+                                            float t_max, float& t) {
+  V3 h = cross(d, e2);
+  float a = dot(e1, h);
+  bool parallel = (a > -TRI_PARALLEL_EPS) && (a < TRI_PARALLEL_EPS);
+  float f = 1.0f / (parallel ? 1.0f : a);
+  V3 s = o - v0;
+  float u = f * dot(s, h);
+  V3 qq = cross(s, e1);
+  float v = f * dot(d, qq);
+  t = f * dot(e2, qq);
+  return !parallel && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+         (t > t_min) && (t < t_max);
+}
+
+// The table sweep split across a path group of K lanes, over the rows
+// staged in shared memory (a traversal of trace.cuh's path functions, like
+// Sweep). Every lane of the group calls each sweep with the same ray.
+//
+// Why the split closest hit is the serial one. The serial sweep
+// (trace.cuh closest_hit) feeds its running `closest` forward as each
+// test's t_max and takes a primitive when t > 0 && t < closest. For each
+// primitive i let f_i be the t it yields at t_max = T_FAR when that t is
+// taken (t > 0 and t < T_FAR), else none. Then at any running closest
+// T <= T_FAR the test takes i exactly when f_i exists and f_i < T, with t
+// = f_i:
+//  - triangle: t does not depend on t_max; the test is t > t_min && t <
+//    t_max, then t < closest;
+//  - plane: t does not depend on t_max; t >= t_min && t <= t_max, then t <
+//    closest, which is stricter;
+//  - sphere: near and far do not depend on t_max, only the root choice
+//    root = near_ok ? near : far does. If t_min < near < T the test takes
+//    near = f_i. If near >= T (and near > t_min) the near root fails and so
+//    does the far one: far = fl(h + sqrtd) >= fl(h - sqrtd) = near >= T,
+//    rounding being monotonic, so nothing is taken, and f_i (near, or none
+//    when near >= T_FAR) is not below T.
+//    If near <= t_min (the ray starts inside, or the sphere lies behind)
+//    only far can be taken, at any T, exactly when t_min < far < T.
+//  - NaN (the pads at 1e30 overflow the sphere test): every comparison
+//    with NaN is false at every T, so a NaN root is never taken, and the
+//    `disc > 0 ? disc : 0` of sqrtd maps a NaN disc to 0 as before.
+// So the serial sweep ends at the smallest f_i, at its lowest index (a
+// tie keeps the earlier primitive: strictly closer wins): the
+// lexicographic minimum of (f_i, i). Lane j's serial run over its own
+// share ends at the minimum over that share by the same argument, and the
+// minimum of the lanes' minima, reduced here by (t, then index), is the
+// minimum over the table. A lane that took nothing holds (T_FAR, INT_MAX),
+// which loses to every taken primitive (f_i < T_FAR). Every lane ends
+// with the winner, so hit_at runs identically on each.
+//
+// The shadow sweep is an OR of tests with fixed bounds: order-free, and a
+// lane may stop at its own first blocker.
+template <int K>
+struct GroupSweep {
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  const float* tri;  // shared memory: [n_tri][TRI_W], then spheres, planes
+  const float* sph;
+  const float* pln;
+  int j;          // the lane's place in its group
+  unsigned mask;  // the group's lanes
+
+  __device__ __forceinline__ GroupSweep(const float* smem, const Frame& f) {
+    const unsigned lane = threadIdx.x & 31u;
+    j = (int)(lane & (unsigned)(K - 1));
+    mask = K == 32 ? 0xffffffffu : (((1u << K) - 1u) << (lane & ~(unsigned)(K - 1)));
+    tri = smem;
+    sph = tri + TRI_W * f.n_tri;
+    pln = sph + SPH_W * f.n_sph;
+  }
+
+  __device__ __forceinline__ void tri_row(int i, V3& v0, V3& e1, V3& e2) const {
+    const float4* q = reinterpret_cast<const float4*>(tri) + 3 * i;
+    const float4 a = q[0], b = q[1], c = q[2];
+    v0 = {a.x, a.y, a.z};
+    e1 = {a.w, b.x, b.y};
+    e2 = {b.z, b.w, c.x};
+  }
+
+  template <bool EXT, bool XT>
+  __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+    float closest = T_FAR;
+    int idx = INT_MAX;
+    float t;
+    for (int i = j; i < sc.n_sph; i += K) {
+      const float* s = sph + SPH_W * i;
+      bool hit = sphere_tv(o, d, V3{s[0], s[1], s[2]}, s[3], RAY_EPS, closest, t);
+      t = hit ? t : -1.0f;
+      if (t > 0.0f && t < closest) { closest = t; idx = i; }
+    }
+    for (int i = j; i < sc.n_pln; i += K) {
+      const float* q = pln + PLN_W * i;
+      bool hit = plane_tv(o, d, V3{q[0], q[1], q[2]}, V3{q[3], q[4], q[5]}, RAY_EPS, closest,
+                          false, t);
+      t = hit ? t : -1.0f;
+      if (t > 0.0f && t < closest) { closest = t; idx = sc.n_sph + i; }
+    }
+    for (int i = j; i < sc.n_tri; i += K) {
+      V3 v0, e1, e2;
+      tri_row(i, v0, e1, e2);
+      bool hit = triangle_tv(o, d, v0, e1, e2, RAY_EPS, closest, t);
+      t = hit ? t : -1.0f;
+      if (t > 0.0f && t < closest) { closest = t; idx = sc.n_sph + sc.n_pln + i; }
+    }
+#pragma unroll
+    for (int off = K / 2; off > 0; off >>= 1) {
+      const float t_o = __shfl_xor_sync(mask, closest, off);
+      const int i_o = __shfl_xor_sync(mask, idx, off);
+      if (t_o < closest || (t_o == closest && i_o < idx)) {
+        closest = t_o;
+        idx = i_o;
+      }
+    }
+    return hit_at<EXT, XT>(sc, o, d, closest, idx);
+  }
+
+  __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min,
+                                           float t_max) {
+    bool blocked = false;
+    float t;
+    for (int i = j; !blocked && i < sc.n_sph; i += K) {
+      const float* s = sph + SPH_W * i;
+      blocked = sphere_tv(o, d, V3{s[0], s[1], s[2]}, s[3], t_min, t_max, t);
+    }
+    for (int i = j; !blocked && i < sc.n_pln; i += K) {
+      const float* q = pln + PLN_W * i;
+      blocked = plane_tv(o, d, V3{q[0], q[1], q[2]}, V3{q[3], q[4], q[5]}, t_min, t_max, true, t);
+    }
+    for (int i = j; !blocked && i < sc.n_tri; i += K) {
+      V3 v0, e1, e2;
+      tri_row(i, v0, e1, e2);
+      blocked = triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
+    }
+    return __any_sync(mask, blocked);
+  }
+
+  __device__ __forceinline__ void flush() {}
+};
+
+}  // namespace trt
+
+namespace {
+
+// Kernel B, grouped: the entry of group g = global thread / K, its K lanes
+// rendering the entry's `add` extra samples together (see the top).
+template <int K>
+__global__ void __launch_bounds__(trt::GROUP_THREADS)
+    kernel_extra_grouped(ExtraArgs a, const float* __restrict__ scene_buf,
+                         const int* __restrict__ xs, const int* __restrict__ ys,
+                         const long long* __restrict__ state_in, const float* __restrict__ add,
+                         const int* __restrict__ samp0, float* __restrict__ out,
+                         unsigned long long* __restrict__ iters) {
+  extern __shared__ float4 group_smem[];
+  float* rows = reinterpret_cast<float*>(group_smem);
+  const int n = a.n_entries;
+  const int i = (int)(((long long)blockIdx.x * trt::GROUP_THREADS + threadIdx.x) / K);
+  const bool lead = (threadIdx.x & (unsigned)(K - 1)) == 0u;
+  const float budget = i < n ? add[i] : 0.0f;
+  trt::V3 esum = {0.0f, 0.0f, 0.0f};
+  float rays = 0.0f;
+  unsigned my_iters = 0;
+  if (__syncthreads_or(budget > 0.0f)) {
+    trt::stage_rows(rows, scene_buf, a.f);
+    if (budget > 0.0f) {
+      const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+      const trt::Tex tx{};
+      const trt::Xt xt{};
+      trt::GroupSweep<K> tr(rows, a.f);
+      uint32_t state = (uint32_t)state_in[i];
+      const int s0 = samp0[i];
+      my_iters = trt::run_samples<false, false>(a.f, sc, tx, xt, state, s0, budget + (float)s0,
+                                                (float)xs[i], (float)ys[i], esum, nullptr, rays,
+                                                tr);
+    }
+    trt::count_slot_iters<K>(my_iters, iters);
+  }
+  if (lead && i < n) {
+    out[0 * n + i] = esum.x;
+    out[1 * n + i] = esum.y;
+    out[2 * n + i] = esum.z;
+    out[3 * n + i] = rays;
+  }
+}
+
+// The chunked kernel A, grouped: the chunk-major entry of group g = global
+// thread / K (kernel_base_chunked's body, its sweeps split over the group).
+template <int K>
+__global__ void __launch_bounds__(trt::GROUP_THREADS)
+    kernel_base_chunked_grouped(ChunkArgs a, const float* __restrict__ scene_buf,
+                                float* __restrict__ out, long long* __restrict__ state_out,
+                                unsigned long long* __restrict__ iters) {
+  extern __shared__ float4 group_smem[];
+  float* rows = reinterpret_cast<float*>(group_smem);
+  const int n_pix = a.h_out * a.f.width;
+  const int n = a.n_chunks * n_pix;
+  const int i = (int)(((long long)blockIdx.x * trt::GROUP_THREADS + threadIdx.x) / K);
+  const bool lead = (threadIdx.x & (unsigned)(K - 1)) == 0u;
+  trt::stage_rows(rows, scene_buf, a.f);
+  unsigned my_iters = 0;
+  if (i < n) {
+    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+    const trt::Tex tx{};
+    const trt::Xt xt{};
+    trt::GroupSweep<K> tr(rows, a.f);
+    const int c = i / n_pix;
+    const int p = i - c * n_pix;
+    const int x = p % a.f.width;
+    const int y = a.y0 + p / a.f.width;
+    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
+                                     a.frame) +
+                     (uint32_t)c * trt::CHUNK_GOLDEN;
+    const int s0 = c * a.cb;
+    const int quota = min(s0 + a.cb, a.base);
+    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
+    float rays = 0.0f;
+    my_iters = trt::run_samples<false, false>(a.f, sc, tx, xt, state, s0, (float)quota,
+                                              (float)x, (float)y, csum, &csumsq, rays, tr);
+    if (lead) {
+      out[0 * n + i] = csum.x;
+      out[1 * n + i] = csum.y;
+      out[2 * n + i] = csum.z;
+      out[3 * n + i] = csumsq.x;
+      out[4 * n + i] = csumsq.y;
+      out[5 * n + i] = csumsq.z;
+      out[6 * n + i] = rays;
+      state_out[i] = (long long)state;
+    }
+  }
+  trt::count_slot_iters<K>(my_iters, iters);
+}
+
+// Launch a grouped kernel over n entries: K lanes an entry, the rows'
+// bytes of dynamic shared memory; a table above the budget is refused.
+inline int grouped_grid(long long n, int k, const trt::Frame& f, const void* kernel, int& blocks,
+                        int& bytes) {
+  bytes = 4 * trt::group_rows_floats(f);
+  if (bytes > trt::GROUP_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  blocks = (int)((n * k + trt::GROUP_THREADS - 1) / trt::GROUP_THREADS);
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   trt::GROUP_SMEM_BYTES);
+}
+
+template <int K>
+int launch_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs, const int* ys,
+                         const long long* state_in, const float* add, const int* samp0, float* out,
+                         unsigned long long* iters, void* stream) {
+  const int n = a->n_entries;
+  if (n > 0) {
+    int blocks, bytes;
+    const int err = grouped_grid(n, K, a->f, (const void*)kernel_extra_grouped<K>, blocks, bytes);
+    if (err != 0) return err;
+    kernel_extra_grouped<K><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
+        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_chunked_grouped(const ChunkArgs* a, const float* scene_buf, float* out,
+                           long long* state_out, unsigned long long* iters, void* stream) {
+  const long long n = (long long)a->n_chunks * a->h_out * a->f.width;
+  if (n > 0) {
+    int blocks, bytes;
+    const int err =
+        grouped_grid(n, K, a->f, (const void*)kernel_base_chunked_grouped<K>, blocks, bytes);
+    if (err != 0) return err;
+    kernel_base_chunked_grouped<K><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -41,17 +41,32 @@
 // serves every extension scene, one XT build every gate setting: the
 // texture constants arrive in trt::Tex, the gates in trt::Xt.
 //
-// What bounds them on an H100: FP32 ALU and SFU work (the intersection
-// sweeps, sqrt, division, sin/cos) behind divergent control flow (path
-// lengths differ per thread and a warp runs until its longest path ends),
-// and registers (the whole path state lives in them). They read the scene
-// table (L1/L2-resident, see trace.cuh) and write 44 (36 chunked) bytes per
-// entry: almost no DRAM traffic. A simple kernel that is right is the goal
-// here; persistent threads and warp-level path regeneration are later work.
-// --fmad=false keeps their rounding equal to the plain version's (about 3%
-// slower, PERF.md).
+// trt_kernel_base_chunked_grouped is the chunked kernel A at the reference
+// gates redesigned for the H100 (group.cuh): a path group of
+// GROUP_K_CHUNKED lanes carries one chunk-major entry, each sweep split
+// across the group over the scene's rows staged in shared memory.
+// ops/kernels.py takes it where the rows fit group.cuh's shared-memory
+// budget, and the thread-per-entry trt_kernel_base_chunked above it.
+//
+// What bounds them on an H100. Not bytes: they read the scene table (L1 /
+// L2 or shared memory) and write 44 (36 chunked) bytes an entry. Not FP32
+// operations either: the thread-per-entry kernels run 50-100x above that
+// bound. Their time is the critical chain of their longest paths: one
+// thread runs each bounce's sweeps one test after another (1025 tests a
+// closest hit at stress1024), with too few warps on the card to hide the
+// latency of each dependent instruction, and a warp runs until its
+// longest lane's path ends, its lanes diverging on path ends and scatter
+// branches. The grouped form splits each sweep over K lanes, multiplies
+// the working warps by K, and keeps a group's lanes in step; it serves
+// the array-scale default, where the chunk split already spreads a heavy
+// pixel over n_chunks entries. --fmad=false keeps their rounding equal to
+// the plain version's (about 3% slower, PERF.md).
 
-#include "pipeline.cuh"
+#include "group.cuh"
+
+// The group width of the grouped chunked kernel A: chosen by the sweep over
+// K of tools/group_k.py (PERF.md, the grouped kernels).
+constexpr int GROUP_K_CHUNKED = 32;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
@@ -101,3 +116,15 @@ extern "C" int trt_kernel_base_chunked_xt(const ChunkArgs* a, const trt::Tex* tx
                                           void* stream) {
   return launch_chunked<true, true>(a, *tx, *xt, scene_buf, out, state_out, iters, stream);
 }
+
+// The grouped chunked kernel A (group.cuh): the same arguments and outputs
+// as trt_kernel_base_chunked; refused (cudaErrorInvalidValue) when the
+// scene's rows exceed the shared-memory budget.
+extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* scene_buf,
+                                               float* out, long long* state_out,
+                                               unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<GROUP_K_CHUNKED>(a, scene_buf, out, state_out, iters, stream);
+}
+
+// Its group width K (lanes an entry).
+extern "C" int trt_kernel_base_chunked_grouped_k() { return GROUP_K_CHUNKED; }

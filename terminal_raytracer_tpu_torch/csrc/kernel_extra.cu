@@ -21,14 +21,30 @@
 // body is the PathTracer built with their gates (pallas_kernel.py
 // :1013-1015).
 //
-// What bounds it on an H100: divergent control flow (per-entry budgets and
-// path lengths differ; a warp runs until its longest entry ends),
-// registers, and FP32 ALU and SFU work; a few hundred bytes of L1-resident
-// scene table and 40 bytes per entry of DRAM traffic. A simple kernel that
-// is right is the goal here; persistent threads and warp-level path
-// regeneration are later work. Built with --fmad=false like kernel A.
+// trt_kernel_extra_grouped is kernel B at the reference gates redesigned
+// for the H100 (group.cuh): a path group of GROUP_K_EXTRA lanes carries
+// one entry, the closest-hit and shadow sweeps split across the group over
+// the scene's rows staged in shared memory. ops/kernels.py takes it where
+// the rows fit group.cuh's shared-memory budget, and the thread-per-entry
+// trt_kernel_extra above it.
+//
+// What bounds it on an H100. Not its bytes (40 a entry and a table that
+// fits in L1) nor its FP32 operations (hundreds of times below the card's
+// rate): the critical chain of the longest entry's path. An entry's extra
+// samples are one serial chain of bounces, and the thread-per-entry kernel
+// ran each bounce's sweeps in one thread, a lone warp per scheduler on the
+// few SMs that the sorted stream's budgeted prefix filled, waiting out the
+// latency of each dependent instruction, its lanes diverging on sample
+// ends, roulette and the scatter branch. The grouped kernel shortens each
+// bounce by splitting its sweeps over K lanes, multiplies the working warps
+// by K, and keeps the lanes of a group in step; zero-budget blocks leave
+// before staging. Built with --fmad=false like kernel A.
 
-#include "pipeline.cuh"
+#include "group.cuh"
+
+// The group width of the grouped kernel B: chosen by the sweep over K of
+// tools/group_k.py (PERF.md, the grouped kernels).
+constexpr int GROUP_K_EXTRA = 16;
 
 // xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
 // out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64.
@@ -60,3 +76,17 @@ extern "C" int trt_kernel_extra_xt(const ExtraArgs* a, const trt::Tex* tx, const
   return launch_extra<true, true>(a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0, out,
                                   iters, stream);
 }
+
+// The grouped kernel B (group.cuh): the same arguments and outputs as
+// trt_kernel_extra; refused (cudaErrorInvalidValue) when the scene's rows
+// exceed the shared-memory budget.
+extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
+                                        const int* ys, const long long* state_in,
+                                        const float* add, const int* samp0, float* out,
+                                        unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<GROUP_K_EXTRA>(a, scene_buf, xs, ys, state_in, add, samp0, out,
+                                             iters, stream);
+}
+
+// Its group width K (lanes an entry).
+extern "C" int trt_kernel_extra_grouped_k() { return GROUP_K_EXTRA; }

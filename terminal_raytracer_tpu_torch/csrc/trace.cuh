@@ -16,9 +16,14 @@
 // same code here. At the largest configuration run (icosphere:3, 1280
 // triangles + a sphere + a plane) the buffer holds 1280 x (12 + 7) + 1 x
 // (5 + 7) + 1 x (9 + 7) + 17 + 1 floats, about 97 KB. Offsets into it are
-// int (fine far beyond that), and every thread of a warp reads the same
-// primitive at the same time through __ldg, so the table is served from
-// L1 and L2 as a broadcast; staging it in shared memory is later work.
+// int (fine far beyond that). In the kernels that run one path a thread,
+// every thread of a warp reads the same primitive at the same time through
+// __ldg, so the table is served from L1 and L2 as a broadcast. The grouped
+// kernels (group.cuh: kernel B and the chunked kernel A at the reference
+// gates) split each sweep across the lanes of a path group, whose lanes
+// read different primitives at once: they stage the geometry rows in
+// shared memory, once a block, where those reads hit different banks, and
+// keep __ldg for the materials, lights and the winner's normal.
 //
 // The device path is templated on EXT. EXT = false is the reference
 // transport. EXT = true adds the material and texture extensions of
@@ -947,6 +952,18 @@ __device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc,
 __device__ __forceinline__ void count_warp_iters(unsigned iters, unsigned long long* total) {
   unsigned m = __reduce_max_sync(0xffffffffu, iters);
   if ((threadIdx.x & 31u) == 0u) atomicAdd(total, 32ull * m);
+}
+
+// The same count for kernels whose path groups of K lanes carry one path
+// each (group.cuh): executed lane-iterations are the path slots a warp
+// spends, so a warp adds (32 / K) x its longest path's iterations (every
+// lane of a group holds its path's count). K = 1 is count_warp_iters.
+// ops/kernels.py warp_iters(lane_iters, k) is the plain model of both.
+// Every thread of the warp must call this.
+template <int K>
+__device__ __forceinline__ void count_slot_iters(unsigned iters, unsigned long long* total) {
+  unsigned m = __reduce_max_sync(0xffffffffu, iters);
+  if ((threadIdx.x & 31u) == 0u) atomicAdd(total, (unsigned long long)(32 / K) * m);
 }
 
 }  // namespace trt

@@ -25,15 +25,20 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-HEADERS = ("trace.cuh", "pipeline.cuh", "traverse.cuh")
+HEADERS = ("trace.cuh", "pipeline.cuh", "traverse.cuh", "group.cuh")
 # Source -> (C entry point, number of pointer arguments).
 ENTRY_POINTS = {
     "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
+                       ("trt_kernel_base_chunked_grouped", 6),
+                       ("trt_kernel_base_chunked_grouped_k", 0),
                        ("trt_kernel_base_ext", 7),
                        ("trt_kernel_base_chunked_ext", 7),
                        ("trt_kernel_base_xt", 8),
                        ("trt_kernel_base_chunked_xt", 8)),
-    "kernel_extra.cu": (("trt_kernel_extra", 10), ("trt_kernel_extra_ext", 11),
+    "kernel_extra.cu": (("trt_kernel_extra", 10),
+                        ("trt_kernel_extra_grouped", 10),
+                        ("trt_kernel_extra_grouped_k", 0),
+                        ("trt_kernel_extra_ext", 11),
                         ("trt_kernel_extra_xt", 12)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_gathered", 9),
@@ -63,6 +68,12 @@ ENTRY_POINTS = {
 }
 # What a render loads; the probes' library loads only when a probe asks.
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
+# The group-width sweep of tools/group_k.py: one library a width K (built
+# with -DTRT_TUNE_K=K), with the grouped entries of the render libraries.
+TUNE_SOURCE = "group_tune.cu"
+TUNE_ENTRY_POINTS = tuple(
+    (name, n) for src in ("kernel_extra.cu", "kernel_base.cu")
+    for name, n in ENTRY_POINTS[src] if "_grouped" in name)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,9 +95,10 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(source: str) -> Path:
-    """Where the library of `source` lives once built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(source: str, defines: tuple = ()) -> Path:
+    """Where the library of `source` built with `defines` (nvcc -D NAME=VALUE
+    strings) lives once built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for name in HEADERS + (source,):
         h.update(name.encode() + (CSRC / name).read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
@@ -94,15 +106,18 @@ def library_path(source: str) -> Path:
 
 def library_paths(sources: tuple = tuple(ENTRY_POINTS)) -> dict:
     """Build every library of `sources` that is missing, one nvcc per
-    source, all at once; return {source: library path}."""
-    paths = {src: library_path(src) for src in sources}
+    source, all at once; return {source: library path}. A source may be a
+    (source, defines) pair."""
+    paths = {src: library_path(*_split(src)) for src in sources}
     jobs = []
     for src, so in paths.items():
         if so.exists():
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        name, defines = _split(src)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((so, tmp, cmd, proc))
@@ -119,16 +134,25 @@ def library_paths(sources: tuple = tuple(ENTRY_POINTS)) -> dict:
     return paths
 
 
+def _split(src):
+    """(source, defines) of a source name or (source, defines) pair."""
+    return (src, ()) if isinstance(src, str) else (src[0], tuple(src[1]))
+
+
 def load_kernels(sources: tuple = RENDER_SOURCES) -> SimpleNamespace:
-    """The C entry points of `sources`, by name (built on first call)."""
+    """The C entry points of `sources` (names, or (TUNE_SOURCE, defines)
+    pairs), by name (built on first call)."""
     if sources not in _loaded:
         fns = {}
         for src, so in library_paths(sources).items():
             lib = ctypes.CDLL(str(so))
-            for name, n_ptr in ENTRY_POINTS[src]:
-                fn = getattr(lib, name)
+            name = _split(src)[0]
+            entries = (TUNE_ENTRY_POINTS if name == TUNE_SOURCE
+                       else ENTRY_POINTS[name])
+            for entry, n_ptr in entries:
+                fn = getattr(lib, entry)
                 fn.restype = ctypes.c_int
                 fn.argtypes = [ctypes.c_void_p] * n_ptr
-                fns[name] = fn
+                fns[entry] = fn
         _loaded[sources] = SimpleNamespace(**fns)
     return _loaded[sources]

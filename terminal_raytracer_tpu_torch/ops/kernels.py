@@ -19,6 +19,17 @@ make_sorted_render_frame:
             (index_add_ would add in an order that changes between runs
             on CUDA), then tracer.combine_phases
 
+At the reference gates over the table sweep, kernel B and the chunked
+kernel A take their grouped entries (csrc/group.cuh: a path group of K
+lanes carries one entry, the closest-hit and shadow sweeps split across
+the group, the scene's geometry rows staged in shared memory) wherever the
+rows fit GROUP_SMEM_BYTES (takes_grouped, a decision by the table's size
+alone): extra_kernel and base_kernel_chunked pass such a tracer on to
+extra_kernel_grouped and base_kernel_chunked_grouped, which count their own
+launches, and launch the thread-per-entry entries above the budget. Their
+counters of executed lane-iterations count path slots: warp_iters(.., k)
+is their plain model.
+
 The single-kernel schedulers render the whole frame in one launch, one
 thread a pixel (csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel),
 and kernel D, 'lockstep' (lockstep_kernel), the same frame on a fixed-trip
@@ -66,6 +77,7 @@ import torch
 
 from . import accel as accel_mod
 from . import gathered as gathered_mod
+from . import geometry as geom
 from . import sampling
 from . import tracer as tracer_mod
 from .build import load_kernels
@@ -301,15 +313,56 @@ def _require_traversal(tracer, traversal: str, name: str) -> None:
                          f"{tracer.traversal}, not {traversal!r}")
 
 
+# The shared-memory budget of the grouped kernels' staged rows (bytes;
+# csrc/group.cuh GROUP_SMEM_BYTES): a scene whose spheres, planes and
+# triangles take more takes the thread-per-entry kernels.
+GROUP_SMEM_BYTES = 96 * 1024
+
+
+def group_rows_bytes(tracer) -> int:
+    """The bytes of `tracer`'s geometry rows that the grouped kernels stage
+    in shared memory."""
+    n_sph, n_pln, n_tri, _ = tracer.tables.counts
+    return 4 * (geom.SPH_W * n_sph + geom.PLN_W * n_pln
+                + geom.TRI_W * n_tri)
+
+
+def takes_grouped(tracer) -> bool:
+    """Whether kernel B and the chunked kernel A take their grouped entries
+    for `tracer`: the reference gates over the table sweep, with rows that
+    fit GROUP_SMEM_BYTES. A dispatch by the table's size alone."""
+    return (_kind(tracer) == "ref"
+            and group_rows_bytes(tracer) <= GROUP_SMEM_BYTES)
+
+
+def _require_grouped(tracer, name: str) -> None:
+    if _kind(tracer) != "ref":
+        raise ValueError(f"{name}: the tracer takes the {_kind(tracer)!r} "
+                         "instantiation")
+    if group_rows_bytes(tracer) > GROUP_SMEM_BYTES:
+        raise ValueError(f"{name}: the scene's rows take "
+                         f"{group_rows_bytes(tracer)} bytes, over the "
+                         f"{GROUP_SMEM_BYTES} of shared memory the grouped "
+                         "kernels stage")
+
+
+def group_k(kernel: str) -> int:
+    """The group width K (lanes an entry) that the render library's grouped
+    `kernel` ('extra' or 'chunked') was built with (on the card)."""
+    entry = {"extra": "trt_kernel_extra_grouped_k",
+             "chunked": "trt_kernel_base_chunked_grouped_k"}[kernel]
+    return int(getattr(load_kernels(), entry)())
+
+
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
-    """Call the C entry point `entry` (+ '_ext', '_xt', '_grid' or
-    '_gathered' by `kind`) with its launch arguments and raise on a launch
-    error."""
+    """Call the C entry point `entry` (+ '_ext', '_xt', '_grid',
+    '_gathered' or '_grouped' by `kind`) with its launch arguments and
+    raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
     extra = ()
-    if kind != "ref":
+    if kind not in ("ref", "grouped"):
         extra = (ctypes.byref(_tex(tracer)),)
-    if kind != "ref" and kind != "ext":
+    if kind not in ("ref", "grouped", "ext"):
         extra += (ctypes.byref(xt_args(tracer)),)
     if kind in ("grid", "gathered"):
         extra += (ctypes.byref(accel_args(tracer)),)
@@ -489,8 +542,22 @@ def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
                           _iters_tensor(it, rays.device))
 
 
+def chunked_entry_iters(tracer, pose, seed: int, frame_number: int,
+                        y0: int = 0, h_out: int = None) -> torch.Tensor:
+    """The chunked kernel A's bounce iterations per entry (int64 [n_chunks,
+    h_out, w]), from its plain version's scheduler (extra_entry_iters)."""
+    cam = tracer_mod.cam_from_pose(pose)
+    x, y, c = tracer.base_entries(y0, h_out)
+    carry, _ = tracer._base_run(cam, x.to(torch.float32),
+                                y.to(torch.float32),
+                                tracer.seed_lanes(x, y, seed, frame_number), c)
+    return carry.iters
+
+
 def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
-                    kind: str) -> ChunkedBaseOut:
+                    kind: str, lib=None) -> ChunkedBaseOut:
+    """Launch the chunked kernel A's `kind` instantiation (the grouped
+    entry for 'grouped'), from `lib` (default the render libraries)."""
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
     n_chunks, w = tracer.n_base_chunks, tracer.width
@@ -503,8 +570,8 @@ def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                       seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF)
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
             iters.data_ptr(), _stream(device))
-    _launch(load_kernels(), "trt_kernel_base_chunked", args, tracer, kind,
-            ptrs)
+    _launch(lib or load_kernels(), "trt_kernel_base_chunked", args, tracer,
+            kind, ptrs)
     p = out.view(7, n_chunks, h_out, w)
     return ChunkedBaseOut(V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5]),
                           state.view(n_chunks, h_out, w), p[6],
@@ -535,8 +602,29 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     if tracer.ext:
         return base_kernel_chunked_ext(tracer, pose, seed, frame_number, y0,
                                        h_out)
+    if takes_grouped(tracer):
+        return base_kernel_chunked_grouped(tracer, pose, seed, frame_number,
+                                           y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "ref")
     base_kernel_chunked.launches += 1
+    return out
+
+
+def base_kernel_chunked_grouped(tracer, pose, seed: int, frame_number: int,
+                                y0: int = 0, h_out: int = None
+                                ) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped entry (csrc/group.cuh): a path group
+    of group_k('chunked') lanes an entry, each sweep split across the
+    group over the scene's rows in shared memory. For a tracer of the
+    reference gates and the table sweep whose rows fit GROUP_SMEM_BYTES
+    (takes_grouped); base_kernel_chunked takes it for such a tracer."""
+    _require_grouped(tracer, "base_kernel_chunked_grouped")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_grouped"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "grouped")
+    base_kernel_chunked_grouped.launches += 1
     return out
 
 
@@ -595,6 +683,7 @@ def base_kernel_chunked_gathered(tracer, pose, seed: int, frame_number: int,
 
 
 base_kernel_chunked.launches = 0
+base_kernel_chunked_grouped.launches = 0
 base_kernel_chunked_ext.launches = 0
 base_kernel_chunked_xt.launches = 0
 base_kernel_chunked_grid.launches = 0
@@ -616,6 +705,18 @@ def extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0):
     return esum, rays, _iters_tensor(it, rays.device)
 
 
+def extra_entry_iters(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's bounce iterations per entry (int64, xs's shape; 0 without
+    a budget), from its plain version's scheduler: the iterations each
+    entry's thread or path group runs. warp_iters of them is the kernels'
+    counter."""
+    cam = tracer_mod.cam_from_pose(pose)
+    c, full, _ = tracer._extra_run(
+        cam, xs.to(torch.float32), ys.to(torch.float32), state, add,
+        samp0.to(torch.int64))
+    return full(c.iters)
+
+
 def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
     """Check kernel B's inputs; False where the plain version runs."""
     device = xs.device
@@ -635,7 +736,10 @@ def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
     return True
 
 
-def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str):
+def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str,
+                  lib=None):
+    """Launch kernel B's `kind` instantiation (the grouped entry for
+    'grouped'), from `lib` (default the render libraries)."""
     device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -643,7 +747,8 @@ def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str):
     ptrs = (tracer.tables.buf.data_ptr(), xs.data_ptr(), ys.data_ptr(),
             state.data_ptr(), add.data_ptr(), samp0.data_ptr(),
             out.data_ptr(), iters.data_ptr(), _stream(device))
-    _launch(load_kernels(), "trt_kernel_extra", args, tracer, kind, ptrs)
+    _launch(lib or load_kernels(), "trt_kernel_extra", args, tracer, kind,
+            ptrs)
     p = out.view(4, *xs.shape)
     return V3(p[0], p[1], p[2]), p[3], iters[0].to(torch.float64)
 
@@ -664,8 +769,26 @@ def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
         return extra_kernel_xt(tracer, pose, xs, ys, state, add, samp0)
     if tracer.ext:
         return extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0)
+    if takes_grouped(tracer):
+        return extra_kernel_grouped(tracer, pose, xs, ys, state, add, samp0)
     out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "ref")
     extra_kernel.launches += 1
+    return out
+
+
+def extra_kernel_grouped(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped entry (csrc/group.cuh): a path group of
+    group_k('extra') lanes an entry, its sweeps split across the group
+    over the scene's rows in shared memory; blocks without a budgeted entry
+    leave at once. For a tracer of the reference gates and the table sweep
+    whose rows fit GROUP_SMEM_BYTES (takes_grouped); extra_kernel takes it
+    for such a tracer."""
+    _require_grouped(tracer, "extra_kernel_grouped")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_grouped"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "grouped")
+    extra_kernel_grouped.launches += 1
     return out
 
 
@@ -714,6 +837,7 @@ def extra_kernel_gathered(tracer, pose, xs, ys, state, add, samp0):
 
 
 extra_kernel.launches = 0
+extra_kernel_grouped.launches = 0
 extra_kernel_ext.launches = 0
 extra_kernel_xt.launches = 0
 extra_kernel_grid.launches = 0
@@ -792,6 +916,29 @@ def make_sorted_extra_phase(tracer, y0: int = 0):
     return extra_phase
 
 
+def base_phase(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+               h_out: int = None):
+    """The sorted pipeline's base phase of rows [y0, y0 + h_out): kernel A
+    (chunked or not) and, chunked, each pixel's totals in chunk order, its
+    variance and its budget. Returns (csum, csumsq, end state, rays,
+    lane-iterations, variance, needs, additional); the extra phase
+    continues the end state (chunk 0's chain)."""
+    if not tracer.chunk_base:
+        a = base_kernel(tracer, pose, seed, frame_number, y0, h_out)
+        # Budgets are all-or-nothing under the reference's constants (var >
+        # 10 => floor(var * 50) >= spp - base), so a needy pixel never has
+        # a zero budget.
+        return (a.csum, a.csumsq, a.state, a.rays, a.iters, a.var,
+                a.additional > 0.0, a.additional)
+    a = base_kernel_chunked(tracer, pose, seed, frame_number, y0, h_out)
+    csum = V3(*(tracer.chunk_total(v) for v in a.csum))
+    csumsq = V3(*(tracer.chunk_total(v) for v in a.csumsq))
+    var = tracer.variance_of(csum, csumsq)
+    needs, additional = tracer.extra_quota(var)
+    return (csum, csumsq, a.state[0], a.rays, a.iters, var, needs,
+            additional)
+
+
 def make_sorted_render_frame(tracer, y0: int = 0, h_out: int = None):
     """``render_frame(pose, seed, frame_number[, arrays]) -> (current V3,
     variance, total samples, rays, occupancy)`` of rows [y0, y0 + h_out)
@@ -806,31 +953,13 @@ def make_sorted_render_frame(tracer, y0: int = 0, h_out: int = None):
     extra_phase = make_sorted_extra_phase(tracer, y0) if base < spp else None
     sweeps_per_iter = 1.0 + tracer.nee_sweeps
 
-    def base_phase(pose, seed, frame_number):
-        """(csum, csumsq, state, rays, iters, var, needs, additional)."""
-        if not tracer.chunk_base:
-            a = base_kernel(tracer, pose, seed, frame_number, y0, h_out)
-            # Budgets are all-or-nothing under the reference's constants
-            # (var > 10 => floor(var * 50) >= spp - base), so a needy
-            # pixel never has a zero budget.
-            return (a.csum, a.csumsq, a.state, a.rays, a.iters, a.var,
-                    a.additional > 0.0, a.additional)
-        a = base_kernel_chunked(tracer, pose, seed, frame_number, y0, h_out)
-        csum = V3(*(tracer.chunk_total(v) for v in a.csum))
-        csumsq = V3(*(tracer.chunk_total(v) for v in a.csumsq))
-        var = tracer.variance_of(csum, csumsq)
-        needs, additional = tracer.extra_quota(var)
-        # The extra phase continues chunk 0's chain.
-        return (csum, csumsq, a.state[0], a.rays, a.iters, var, needs,
-                additional)
-
     def render_sweeps(pose, seed: int, frame_number: int, arrays=None):
         """(current, variance, total, rays, executed lane-iteration sweeps:
         the occupancy's denominator, which adds up over row blocks)."""
         if tracer.dynamic:
             tracer.bind_packed(arrays)
         csum, csumsq, state, rays_a, iters, var, needs, additional = (
-            base_phase(pose, seed, frame_number))
+            base_phase(tracer, pose, seed, frame_number, y0, h_out))
         rays = rays_a.sum(dtype=torch.float64)
         if extra_phase is None:
             current = csum * (1.0 / spp)
@@ -878,13 +1007,30 @@ def lockstep_iters(tracer, h_out: int = None) -> float:
     return float(lanes * lockstep_samples(tracer) * tracer.max_depth)
 
 
-def warp_iters(lane_iters: torch.Tensor) -> torch.Tensor:
-    """Executed lane-iterations of per-pixel iteration counts run one
-    thread a pixel: 32 x the largest count of each warp of 32 consecutive
-    pixels (trace.cuh count_warp_iters). 0-dim f64."""
+def _warps(lane_iters: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-entry iteration counts as the warps that run them k lanes an
+    entry: [warps, 32 / k], zero-padded."""
+    if k < 1 or WARP % k:
+        raise ValueError(f"group width {k} does not divide {WARP}")
+    slots = WARP // k
     flat = lane_iters.reshape(-1)
-    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % WARP)])
-    return (flat.view(-1, WARP).amax(1).sum() * WARP).to(torch.float64)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % slots)])
+    return flat.view(-1, slots)
+
+
+def warp_iters(lane_iters: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """Executed lane-iterations of per-entry iteration counts run k lanes
+    an entry (path groups of k lanes; k = 1, one thread an entry): a warp
+    carries 32 / k consecutive entries and spends 32 / k path slots for as
+    many iterations as its longest entry runs (trace.cuh count_warp_iters,
+    count_slot_iters). 0-dim f64."""
+    w = _warps(lane_iters, k)
+    return (w.amax(1).sum() * w.shape[1]).to(torch.float64)
+
+
+def working_warps(lane_iters: torch.Tensor, k: int = 1) -> int:
+    """The warps of warp_iters that run at least one iteration."""
+    return int((_warps(lane_iters, k).amax(1) > 0).sum())
 
 
 def render_frame_plain(tracer, mode: str, pose, seed: int, frame_number: int,

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from ..models import scene as scene_mod
+from ..utils import vml
 from . import dynamic as dyn
 from . import geometry as geom
 from . import rng as prng
@@ -272,6 +273,8 @@ class PathTracer:
                              f"{TRANSPORTS}")
         self.scene = scene
         self.device = torch.device(device)
+        if self.device.type == "cpu":
+            vml.warm_vml()  # before any vector math of the process
         self.atlas = None
         # The kernels' traversal counters: None, or a zeroed int64 tensor
         # [4] on the card that the grid and gathered launches add to.

@@ -1,0 +1,151 @@
+"""The sweep over the group width K of the grouped kernels (csrc/group.cuh)
+on the card: kernel B and the chunked kernel A with K lanes an entry, for
+each K, beside the thread-per-entry kernels on the same inputs.
+
+    python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
+        [--reps 5]
+
+Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
+all built at once with the render libraries. The shapes are the main
+path's: kernel B on the budget-sorted stream of the north star (Cornell_Box
+400x200, 16 spp, depth 32) and of stress1024 (stress:1024 200x100, 8 spp,
+depth 6, chunks of 2) and mesh1280 (icosphere:3, the same), the chunked
+kernel A at stress1024 and mesh1280. Each line: the kernel's device ms
+(CUDA events, the least of --reps runs of 3 launches after a warm-up),
+whether its outputs equal the plain version's bit for bit, whether its
+executed lane-iterations equal the plain model (ops/kernels.py
+warp_iters of the per-entry iterations at K), the working warps (warps
+with an entry that renders) and the longest entry's iterations with the
+µs an iteration on that chain. The widths the render libraries ship are
+constants of kernel_extra.cu and kernel_base.cu, chosen from this sweep.
+Needs a CUDA GPU (exit 2 without one).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from ..models import Camera, load_scene
+from ..ops import build, kernels
+from ..ops.tracer import PathTracer
+
+KS = (1, 2, 4, 8, 16, 32)
+SEED = 42
+
+
+def _time(fn, reps: int) -> float:
+    """Least ms a call over `reps` runs of 3 calls, after a warm-up."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / 3)
+    return best
+
+
+def _equal(got, want) -> bool:
+    return all(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32) if b.is_floating_point()
+                           else b) for a, b in zip(got, want))
+
+
+def _line(label, k, ms, same, model, entry_iters):
+    longest = int(entry_iters.max())
+    print(f"[group_k] {label} {k}: {ms:.4f} ms, equal {same}, iterations "
+          f"equal the model {model}, working warps "
+          f"{kernels.working_warps(entry_iters, 1 if k == 'thread' else k)}, "
+          f"longest entry {longest} iterations, "
+          f"{1e3 * ms / max(longest, 1):.3f} µs an iteration", flush=True)
+
+
+def _sweep_extra(label, tr, pose, seed, libs, reps):
+    a = kernels.base_phase(tr, pose, seed, 0)
+    s = kernels.sorted_stream(tr, a[2], a[7])
+    args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+    esum, rays, _ = kernels.extra_kernel_plain(*args)
+    want = (*esum, rays)
+    it = kernels.extra_entry_iters(*args)
+    print(f"[group_k] {label} kernel B stream {tuple(s.xs.shape)}, "
+          f"{int((s.add > 0).sum())} budgeted entries", flush=True)
+    out = kernels._launch_extra(*args, "ref")
+    ms = _time(lambda: kernels._launch_extra(*args, "ref"), reps)
+    _line(f"{label} kernel B", "thread", ms, _equal((*out[0], out[1]), want),
+          float(out[2]) == float(kernels.warp_iters(it, 1)), it)
+    for k, lib in libs.items():
+        out = kernels._launch_extra(*args, "grouped", lib)
+        ms = _time(lambda: kernels._launch_extra(*args, "grouped", lib), reps)
+        _line(f"{label} kernel B K", k, ms, _equal((*out[0], out[1]), want),
+              float(out[2]) == float(kernels.warp_iters(it, k)), it)
+
+
+def _sweep_chunked(label, tr, pose, seed, libs, reps):
+    p = kernels.base_kernel_chunked_plain(tr, pose, seed, 0)
+    want = (*p.csum, *p.csumsq, p.rays, p.state)
+    it = kernels.chunked_entry_iters(tr, pose, seed, 0)
+
+    def launch(kind, lib=None):
+        return kernels._launch_chunked(tr, pose, seed, 0, 0, None, kind, lib)
+
+    def flat(o):
+        return (*o.csum, *o.csumsq, o.rays, o.state)
+
+    out = launch("ref")
+    ms = _time(lambda: launch("ref"), reps)
+    _line(f"{label} chunked A", "thread", ms, _equal(flat(out), want),
+          float(out.iters) == float(kernels.warp_iters(it, 1)), it)
+    for k, lib in libs.items():
+        out = launch("grouped", lib)
+        ms = _time(lambda: launch("grouped", lib), reps)
+        _line(f"{label} chunked A K", k, ms, _equal(flat(out), want),
+              float(out.iters) == float(kernels.warp_iters(it, k)), it)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ks", default=",".join(map(str, KS)))
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("group_k: needs a CUDA GPU", file=sys.stderr)
+        sys.exit(2)
+    ks = [int(k) for k in args.ks.split(",")]
+    tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(tune.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    for k, src in tune.items():
+        for line in paths[src].with_suffix(".log").read_text().splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling")):
+                print(f"[group_k] K {k}: {line.strip()}", flush=True)
+    libs = {k: build.load_kernels((src,)) for k, src in tune.items()}
+    pose = Camera().pose()
+
+    def scene(name, w, h, spp, depth):
+        return load_scene(name).with_overrides(
+            width=w, height=h, samples_per_pixel=spp, max_depth=depth)
+
+    ns = PathTracer(scene("Cornell_Box", 400, 200, 16, 32), "cuda")
+    _sweep_extra("north star", ns, pose, SEED, libs, args.reps)
+    for label, name in (("stress1024", "stress:1024"),
+                        ("mesh1280", "icosphere:3")):
+        tr = PathTracer(scene(name, 200, 100, 8, 6), "cuda")
+        _sweep_chunked(label, tr, pose, SEED, libs, args.reps)
+        _sweep_extra(label, tr, pose, SEED, libs, args.reps)
+    return 0
+
+
+if __name__ == "__main__":
+    main()

@@ -57,10 +57,10 @@ def test_kernels_match_plain_versions(cuda_device, depth):
         assert torch.equal(a, b)
     s = kernels.sorted_stream(tr, k.state, k.additional)
     args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
-    n0 = kernels.extra_kernel.launches
+    n0 = kernels.extra_kernel_grouped.launches
     ek, rk, _ = kernels.extra_kernel(*args)
     ep, rp, _ = kernels.extra_kernel_plain(*args)
-    assert kernels.extra_kernel.launches == n0 + 1
+    assert kernels.extra_kernel_grouped.launches == n0 + 1
     assert torch.equal(rk, rp)
     for a, b in zip(ek, ep):
         assert torch.equal(a, b)
@@ -89,10 +89,10 @@ def test_chunked_kernel_matches_plain_version(cuda_device):
     scene = load_scene("stress:120:7").with_overrides(
         width=64, height=16, samples_per_pixel=8, max_depth=6)
     tr = PathTracer(scene, cuda_device, chunk_base=2, chunk_extra=2)
-    n0 = kernels.base_kernel_chunked.launches
+    n0 = kernels.base_kernel_chunked_grouped.launches
     k = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
     p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
-    assert kernels.base_kernel_chunked.launches == n0 + 1
+    assert kernels.base_kernel_chunked_grouped.launches == n0 + 1
     assert k.rays.shape == (2, 16, 64)
     assert torch.equal(k.rays, p.rays) and torch.equal(k.state, p.state)
     for a, b in zip(list(k.csum) + list(k.csumsq),
