@@ -31,8 +31,10 @@ Phases, each reported on lines starting with its tag:
             the chunk split
   [thread]  the thread-per-entry kernel B and chunked kernel A where the
             wrapper takes them, at mesh5120 (icosphere:4, 5120 triangles
-            whose rows exceed the grouped kernels' shared-memory budget):
-            bit for bit against their plain versions, timed
+            whose rows exceed the grouped kernels' shared-memory budget),
+            and kernel B's thread-per-entry XT entry at mesh5120 in fog and
+            grid entry at mesh5120 under grid: bit for bit against their
+            plain versions (grid: traversal counters equal), timed
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -72,12 +74,18 @@ Phases, each reported on lines starting with its tag:
             configurations, a depth-of-field Cornell (aperture 0.1, focus
             3), showcase --mis, and the chunked XT kernel A on stress:1024
             in fog under --mis (rays, budgets, states equal; radiance
-            within 5e-3; kernel B on a stream with work); the XT kernels on
-            Cornell_Box with every gate off against the reference kernels,
-            bit for bit; Engine through each of those and through
-            manylights (every light, the reference kernels); cli.main with
-            --mis --fog; the XT kernels timed at the fog and stress:1024
-            shapes
+            within 5e-3; kernel B on a stream with work, in both forms:
+            the grouped entry, which the wrapper takes, and the thread-per-
+            entry entry, each bit for bit, and at fog, manylights_one and
+            stress:1024 fog --mis their lane-iterations equal to the plain
+            model at their group widths); the XT kernels on Cornell_Box
+            with every gate off against the reference kernels, bit for
+            bit; Engine through each of those, through manylights (every
+            light, the reference kernels) and through mesh5120 in fog
+            (rows over the grouped kernels' budget: the thread-per-entry
+            XT kernel B); the fog frame through both forms of kernel B in
+            turns; cli.main with --mis --fog; the XT kernels, both forms of
+            B, timed at the fog and stress:1024 shapes
   [accel]   the opt-in traversals (csrc/kernel_accel.cu): each grid and
             gathered kernel against its plain version at the JAX bench's
             stress1024 shapes (200x100, 8 spp, depth 6; gathered also at
@@ -85,11 +93,18 @@ Phases, each reported on lines starting with its tag:
             radiance; kernel B on a stream with budgeted entries), with the
             kernels' traversal counters (blocks swept and culled; walks,
             tests, advances, walks at the trip cap, which must be 0) equal
-            to the plain version's count, timed there; Engine at stress256,
+            to the plain version's count, timed there; the grid kernel B
+            in both forms (the grouped entry, which the wrapper takes, and
+            the thread-per-entry entry) bit for bit, both counters equal
+            to the plain version's, both lane-iterations equal to the
+            plain model, timed side by side; Engine at stress256,
             stress1024 and mesh1280 under baked, auto (array), grid and
-            gathered, and at the north star under grid, with each
-            traversal's counters over the warm-up frame; cli.main with
-            --accel grid and --accel gathered; and at the stress1024 shapes
+            gathered, at mesh5120 under grid (rows over the grouped
+            kernels' budget: the thread-per-entry grid kernel B), and at
+            the north star under grid, with each traversal's counters over
+            the warm-up frame; the stress1024 grid frame through both forms
+            of kernel B in turns; cli.main with --accel grid and --accel
+            gathered; and at the stress1024 shapes
             a frame through the grid kernels beside one through the XT
             kernels over the blocked scene's dense table sweep (the JAX
             oracle's traversal under accel 'grid'), three seeds: the
@@ -149,9 +164,10 @@ bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
 3.35 TB/s, whichever is larger; kernel_extra_grouped at the north
 star, kernel_base_chunked_grouped at stress1024, the thread-per-entry
-kernel_extra and kernel_base_chunked at mesh5120; the EXT rows at the
-showcase and stress:1024-checker shapes; the XT rows at the fog and
-stress:1024 fog shapes; the grid and gathered rows at the stress1024 shapes, their
+kernel_extra, kernel_extra_xt, kernel_extra_grid and kernel_base_chunked
+at mesh5120 (in fog, under grid); the EXT rows at the showcase and
+stress:1024-checker shapes; the other XT rows at the fog and stress:1024
+fog shapes; the other grid and gathered rows at the stress1024 shapes, their
 operations the slab tests, walk steps and primitive tests that the plain
 traversal counts; the regen and lockstep rows at their first [sched]
 config, the plain version's operations over the whole frame, 24 bytes
@@ -178,6 +194,7 @@ SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES_PER_SM = 128  # FP32 lanes of one Hopper SM
 TILE = 16 * 128  # the probes' tile
+SPIN_CYCLES = 2_000_000  # ~1 ms at 1980 MHz: the host's enqueue of a call
 
 
 def fail(msg: str) -> None:
@@ -284,7 +301,11 @@ def phase_kernel_base():
     return worst_abs, keep
 
 
-def _time_cuda(fn, reps, warm=True):
+def _time_cuda(fn, reps, warm=True, queued=True):
+    """ms a call of `fn` over `reps` calls between two CUDA events. Queued:
+    behind a spin of SPIN_CYCLES a call, during which the host enqueues
+    the calls, so that a kernel shorter than its wrapper's host time is
+    timed on the device, not at the host's pace."""
     import torch
 
     if warm:
@@ -292,6 +313,8 @@ def _time_cuda(fn, reps, warm=True):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -322,7 +345,8 @@ def _time_plain(tr, fn, stats=None):
     run's output)."""
     _, ops, _ = _plain_counted(tr, fn, stats)
     out = []
-    return _time_cuda(lambda: out.append(fn()), 1, warm=False), ops, out[0]
+    return (_time_cuda(lambda: out.append(fn()), 1, warm=False, queued=False),
+            ops, out[0])
 
 
 def _fmt_ms(ms) -> str:
@@ -350,21 +374,22 @@ def _iters_model(tag, label, got, entry_iters, k):
 
 def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters):
     """Print the grouped entry's time beside the thread-per-entry entry's,
-    with K, the working warps, the longest entry's iterations and the µs an
-    iteration on that chain, the staged rows' bytes and the entry that the
-    wrapper takes for `tr`."""
+    with K (ops/kernels.group_k(kind)), the working warps, the longest
+    entry's iterations and the µs an iteration on that chain, the staged
+    bytes and the entry that the wrapper takes for `tr`."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     k = kernels.group_k(kind)
     w_g, w_t = (kernels.working_warps(entry_iters, k),
                 kernels.working_warps(entry_iters, 1))
     longest = int(entry_iters.max())
-    took = "grouped" if kernels.takes_grouped(tr) else "thread-per-entry"
+    took = ("grouped" if kernels.takes_grouped(tr, kind.split("_")[0])
+            else "thread-per-entry")
     print(f"[{tag}] {label}: grouped K {k} {ms_g:.4f} ms on {w_g} working "
           f"warps, thread-per-entry {ms_t:.4f} ms on {w_t} (x{ms_t / ms_g:.2f});"
           f" longest entry {longest} iterations: {1e3 * ms_g / longest:.3f} / "
-          f"{1e3 * ms_t / longest:.3f} µs an iteration; staged rows "
-          f"{kernels.group_rows_bytes(tr)} B of {kernels.GROUP_SMEM_BYTES}; "
+          f"{1e3 * ms_t / longest:.3f} µs an iteration; staged "
+          f"{kernels.group_smem_bytes(tr)} B of {kernels.GROUP_SMEM_BYTES}; "
           f"the wrapper takes {took}", flush=True)
 
 
@@ -515,8 +540,11 @@ def phase_thread_per_entry(peak):
     """The thread-per-entry kernel B and chunked kernel A where the main
     path takes them, on a table above the grouped kernels' shared-memory
     budget (mesh5120, icosphere:4 at the bench's 200x100, 8 spp, depth 6):
-    each against its plain version bit for bit and timed. Returns {row:
-    (max abs error, ms, plain ms, bound)}."""
+    the reference entries, then kernel B's XT entry in fog (XT_OVER_BUDGET)
+    and its grid entry under `--accel grid` (ACCEL_OVER_BUDGET), each taken
+    by its wrapper, against its plain version bit for bit (grid: and the
+    traversal counters) and timed there. Returns {row: (max abs error, ms,
+    plain ms, bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
@@ -537,33 +565,56 @@ def phase_thread_per_entry(peak):
                           exact=True)
     n_ent = tr.n_base_chunks * tr.width * tr.height
     bound_c = _bound(ops_c, scene_bytes + 36 * n_ent, peak)
-    a = kernels.base_phase(tr, pose, SEED, 0)
-    s = kernels.sorted_stream(tr, a[2], a[7])
-    args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
-    n0 = kernels.extra_kernel.launches
-    b = kernels.extra_kernel(*args)
-    if kernels.extra_kernel.launches != n0 + 1:
-        fail("[thread] mesh5120: kernel B took no thread-per-entry entry")
-    ms_b = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
-    plain_b, ops_b, pb = _time_plain(
-        tr, lambda: kernels.extra_kernel_plain(*args))
-    err_b = _check_extra("thread", "mesh5120", s, b, pb, exact=True)
-    bound_b = _bound(ops_b, scene_bytes + 40 * s.add.numel(), peak)
     print(f"[thread] mesh5120 shapes ({kernels.group_rows_bytes(tr)} B of "
           f"rows, over the {kernels.GROUP_SMEM_BYTES} B budget): "
           f"base_kernel_chunked {ms_c:.3f} ms (plain {plain_c:.1f} ms, bound "
-          f"{bound_c[0]:.4f} ms by {bound_c[1]}), extra_kernel {ms_b:.3f} ms "
-          f"on {int((s.add > 0).sum())} budgeted entries (plain "
-          f"{plain_b:.1f} ms, bound {bound_b[0]:.4f} ms by {bound_b[1]})",
-          flush=True)
-    return {"c": (err_c, ms_c, plain_c, bound_c),
-            "b": (err_b, ms_b, plain_b, bound_b)}
+          f"{bound_c[0]:.4f} ms by {bound_c[1]})", flush=True)
+    out = {"c": (err_c, ms_c, plain_c, bound_c)}
+
+    _, name, size, over, transport = XT_OVER_BUDGET
+    for key, label, t, wrapper in (
+            ("b", "mesh5120", tr, kernels.extra_kernel),
+            ("xt", "mesh5120 fog", PathTracer(_xt_scene(name, size, over),
+                                              "cuda", transport=transport),
+             kernels.extra_kernel_xt),
+            ("grid", "mesh5120 grid",
+             PathTracer(_scene(ACCEL_OVER_BUDGET[1], 200, 100, 8, 6), "cuda",
+                        accel="grid"), kernels.extra_kernel_grid)):
+        if kernels.takes_grouped(t):
+            fail(f"[thread] {label} takes the grouped kernel B")
+        grid = t.traversal == "grid"
+        a = kernels.base_phase(t, pose, SEED, 0)
+        s = kernels.sorted_stream(t, a[2], a[7])
+        args = (t, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        n0 = wrapper.launches
+        b, kc = _counted_launch(t, lambda: kernels.extra_kernel(*args))
+        if wrapper.launches != n0 + 1:
+            fail(f"[thread] {label}: kernel B took no thread-per-entry entry")
+        ms = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
+        pc = []
+        plain, ops, pb = _time_plain(
+            t, lambda: kernels.extra_kernel_plain(*args), pc if grid else None)
+        err = _check_extra("thread", label, s, b, pb, exact=True)
+        if grid:
+            _check_counts(f"{label} kernel B", kc, pc[0])
+        atlas = 0 if t.atlas is None else t.atlas.numel()
+        bound = _bound(ops, 4 * (t.tables.buf.numel() + atlas)
+                       + 40 * s.add.numel(), peak)
+        print(f"[thread] {label} shapes ({kernels.group_smem_bytes(t)} B "
+              f"staged, over the {kernels.GROUP_SMEM_BYTES} B budget): "
+              f"{wrapper.__name__} {ms:.3f} ms on {int((s.add > 0).sum())} "
+              f"budgeted of {s.add.numel()} entries (plain {plain:.1f} ms, "
+              f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} "
+              "operations)", flush=True)
+        out[key] = (err, ms, plain, bound)
+    return out
 
 
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
+                "extra_kernel_xt_grouped", "extra_kernel_grid_grouped",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
@@ -585,16 +636,19 @@ def _a_name(tr) -> str:
 
     if not tr.chunk_base:
         return "base_kernel" + _sfx(tr)
-    return ("base_kernel_chunked_grouped" if kernels.takes_grouped(tr)
+    return ("base_kernel_chunked_grouped"
+            if kernels.takes_grouped(tr, "chunked")
             else "base_kernel_chunked" + _sfx(tr))
 
 
 def _b_name(tr) -> str:
-    """The kernel B wrapper that counts tracer `tr`'s launches."""
+    """The kernel B wrapper that counts tracer `tr`'s launches: the grouped
+    entry of its instantiation where ops/kernels.takes_grouped."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
-    return ("extra_kernel_grouped" if kernels.takes_grouped(tr)
-            else "extra_kernel" + _sfx(tr))
+    if kernels.takes_grouped(tr):
+        return kernels.GROUPED_EXTRA[kernels._kind(tr)].__name__
+    return "extra_kernel" + _sfx(tr)
 
 
 def _nonzero(got) -> dict:
@@ -799,16 +853,17 @@ SCALE_CONFIGS = (
 )
 
 
-def _frames_grouped_vs_thread(tag, label, scene, frames=8):
-    """ms/frame of the sorted pipeline on one tracer with the grouped
-    kernels and with the thread-per-entry kernels (the dispatch by table
-    size turned off), in turns: thread, grouped, grouped, thread."""
+def _frames_grouped_vs_thread(tag, label, scene, frames=8, **kw):
+    """ms/frame of the sorted pipeline on one tracer (PathTracer keywords
+    `kw`) with the grouped kernels and with the thread-per-entry kernels
+    (the dispatch by table size turned off), in turns: thread, grouped,
+    grouped, thread."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
-    tr = PathTracer(scene, "cuda")
+    tr = PathTracer(scene, "cuda", **kw)
     render = kernels.make_sorted_render_frame(tr)
     pose = _pose()
     grouped = kernels.takes_grouped
@@ -816,7 +871,7 @@ def _frames_grouped_vs_thread(tag, label, scene, frames=8):
     try:
         for form in ("thread", "grouped", "grouped", "thread"):
             kernels.takes_grouped = (grouped if form == "grouped"
-                                     else lambda t: False)
+                                     else lambda *a: False)
             render(pose, SEED, 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1204,6 +1259,16 @@ XT_CONFIGS = (
 )
 
 
+# Where [xt] also holds both forms' executed lane-iterations to the plain
+# model (the plain scheduler's per-entry iterations cost a plain run), and
+# where it times them; and the XT config whose rows exceed the grouped
+# kernels' budget (Engine through the thread-per-entry XT kernel B).
+XT_ITERS = ("fog", "manylights_one", "stress1024 fog mis")
+XT_TIMED = ("fog", "stress1024 fog mis")
+XT_OVER_BUDGET = ("mesh5120 fog", "icosphere:4", (200, 100, 8, 6),
+                  {"fog": 0.15}, "reference")
+
+
 def _xt_scene(name, size, over):
     from terminal_raytracer_tpu_torch.models import load_scene
     from terminal_raytracer_tpu_torch.models.scene import Fog
@@ -1221,11 +1286,15 @@ def phase_xt(peak):
     """The transport and camera extensions: (a) each XT kernel against its
     plain version at the XT_CONFIGS shapes (the chunked kernel A and its
     chunked kernel B stream on stress:1024), timed at the fog and
-    stress:1024 shapes; (b) the XT kernels on Cornell_Box with every gate
-    off (xt tables bound to a reference tracer) against the reference
-    kernels, bit for bit; (c) Engine through every XT config and through
-    manylights (every light: the reference kernels); (d) cli.main with
-    --mis --fog. Returns (launches, per-kernel results)."""
+    stress:1024 shapes, kernel B in both forms (the grouped entry, which
+    the wrapper takes, and the thread-per-entry entry) bit for bit, their
+    lane-iterations held to the plain model at XT_ITERS; (b) the XT kernels
+    on Cornell_Box with every gate off (xt tables bound to a reference
+    tracer) against the reference kernels, bit for bit; (c) Engine through
+    every XT config, through manylights (every light: the reference
+    kernels) and through XT_OVER_BUDGET, and the fog frame with the grouped
+    and the thread-per-entry kernel B in turns; (d) cli.main with --mis
+    --fog. Returns (launches, per-kernel results)."""
     import torch
 
     from terminal_raytracer_tpu_torch import cli
@@ -1235,7 +1304,7 @@ def phase_xt(peak):
     from terminal_raytracer_tpu_torch.ops.vecmath import V3
 
     pose = _pose()
-    err = {"a": 0.0, "b": 0.0, "c": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0}
     timed = {}
     # (a)
     for label, name, size, over, transport in XT_CONFIGS:
@@ -1276,17 +1345,40 @@ def phase_xt(peak):
             s = kernels.sorted_stream(tr, k.state, k.additional)
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         b = kernels.extra_kernel_xt(*args)
-        if label == "fog":
+        n0 = kernels.extra_kernel_xt_grouped.launches
+        g = kernels.extra_kernel(*args)
+        if kernels.extra_kernel_xt_grouped.launches != n0 + 1:
+            fail(f"[xt] {label}: the wrapper took no grouped XT kernel B")
+        if label in XT_TIMED:
             ms_b = _time_cuda(lambda: kernels.extra_kernel_xt(*args), 5)
+            ms_g = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
             plain_b, ops_b, pb = _time_plain(
                 tr, lambda: kernels.extra_kernel_plain(*args))
-            timed["b"] = (ms_b, plain_b, _bound(
-                ops_b, fixed + 40 * s.add.numel(), peak))
+            bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
+            if label == "fog":
+                timed["b"] = (ms_b, plain_b, bound_b)
+                timed["g"] = (ms_g, plain_b, bound_b)
+            print(f"[xt] {label} shapes: extra_kernel_xt_grouped {ms_g:.3f} "
+                  f"ms, extra_kernel_xt {ms_b:.3f} ms on "
+                  f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} "
+                  f"entries (plain {plain_b:.1f} ms, bound {bound_b[0]:.4f} "
+                  f"ms by {bound_b[1]}: {ops_b:.4g} operations)", flush=True)
         else:
             pb = kernels.extra_kernel_plain(*args)
-        err["b"] = max(err["b"], _check_extra("xt", shape, s, b, pb))
+        err["b"] = max(err["b"], _check_extra(
+            "xt", f"{shape} thread-per-entry", s, b, pb, exact=True))
+        err["g"] = max(err["g"], _check_extra("xt", f"{shape} grouped", s, g,
+                                              pb, exact=True))
+        if label in XT_ITERS:
+            it = kernels.extra_entry_iters(*args)
+            _iters_model("xt", label, g[2], it, kernels.group_k("extra_xt"))
+            _iters_model("xt", label, b[2], it, 1)
+            if label in XT_TIMED:
+                _grouped_vs_thread("xt", f"{label} shapes", "extra_xt", tr,
+                                   ms_g, ms_b, it)
     for key, kernel, where in (("a", "base_kernel_xt", "fog"),
                                ("b", "extra_kernel_xt", "fog"),
+                               ("g", "extra_kernel_xt_grouped", "fog"),
                                ("c", "base_kernel_chunked_xt",
                                 "stress1024 fog mis")):
         ms, plain, bound = timed[key]
@@ -1332,12 +1424,16 @@ def phase_xt(peak):
     if not (bits_a and same_b and same_c):
         fail("[xt] the XT kernels change a reference scene")
 
-    # (c) Engine, and manylights beside manylights_one.
+    # (c) Engine, and manylights beside manylights_one; then the fog frame
+    # through both forms of kernel B in turns.
     launches = {}
     manylights = ("manylights", "lights:16", None, {}, "reference")
-    for label, name, size, over, transport in (manylights,) + XT_CONFIGS:
+    for label, name, size, over, transport in ((manylights,) + XT_CONFIGS
+                                               + (XT_OVER_BUDGET,)):
         _add(launches, _run_engine("xt", label, _xt_scene(name, size, over),
-                                   True, 8, transport=transport))
+                                   True, 4 if name == "icosphere:4" else 8,
+                                   transport=transport))
+    _frames_grouped_vs_thread("xt", "fog", _xt_scene(*XT_CONFIGS[0][1:4]))
 
     # (d)
     _reset_launches()
@@ -1350,10 +1446,10 @@ def phase_xt(peak):
           f"{_nonzero(got)}",
           flush=True)
     if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
-                              base_kernel_xt=2, extra_kernel_xt=2):
+                              base_kernel_xt=2, extra_kernel_xt_grouped=2):
         fail("[xt] cli.main run failed")
     _add(launches, got)
-    return launches, {k: (err[k], *timed[k]) for k in ("a", "b", "c")}
+    return launches, {k: (err[k], *timed[k]) for k in ("a", "b", "c", "g")}
 
 
 # The opt-in traversals' kernels against their plain versions, at the JAX
@@ -1363,6 +1459,9 @@ ACCEL_KERNELS = (("stress1024", "stress:1024", "grid"),
                  ("mesh1280", "icosphere:3", "gathered"))
 ACCEL_ENGINE = (("stress256", "stress:256"), ("stress1024", "stress:1024"),
                 ("mesh1280", "icosphere:3"))
+# Rows and group table over the grouped kernels' budget: Engine through the
+# thread-per-entry grid kernel B.
+ACCEL_OVER_BUDGET = ("mesh5120", "icosphere:4")
 
 
 def _check_counts(label, k, p):
@@ -1458,6 +1557,25 @@ def phase_accel(peak):
         if err_a != 0.0 or err_b != 0.0:
             fail(f"[accel] {tag}: a kernel is not bit-exact against its "
                  "plain version")
+        if accel == "grid":
+            # Kernel B's grouped entry, which the wrapper takes: bit for
+            # bit, its counters the plain version's and the thread-per-
+            # entry entry's, its lane-iterations the plain model's.
+            n0 = kernels.extra_kernel_grid_grouped.launches
+            g, gc = _counted_launch(tr, lambda: kernels.extra_kernel(*args))
+            if kernels.extra_kernel_grid_grouped.launches != n0 + 1:
+                fail(f"[accel] {tag}: the wrapper took no grouped kernel B")
+            err_g = _check_extra("accel", f"{tag} grouped", s, g, pb,
+                                 exact=True)
+            _check_counts(f"{tag} grouped kernel B", gc, pc[0])
+            _check_counts(f"{tag} grouped against thread-per-entry kernel B",
+                          gc, kc)
+            it = kernels.extra_entry_iters(*args)
+            _iters_model("accel", tag, g[2], it, kernels.group_k("extra_grid"))
+            _iters_model("accel", tag, b[2], it, 1)
+            ms_g = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
+            _grouped_vs_thread("accel", f"{tag} shapes", "extra_grid", tr,
+                               ms_g, ms_b, it)
         fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
         bound_a = _bound(ops_a, fixed + 44 * k.var.numel(), peak)
         bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
@@ -1471,6 +1589,8 @@ def phase_accel(peak):
         if timed:
             res[accel, "a"] = (err_a, ms_a, plain_a, bound_a)
             res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
+            if accel == "grid":
+                res[accel, "g"] = (err_g, ms_g, plain_b, bound_b)
 
     _grid_vs_dense(pose)
 
@@ -1480,6 +1600,13 @@ def phase_accel(peak):
             _add(launches, _run_engine(
                 "accel", f"{label} {accel}", _scene(name, 200, 100, 8, 6),
                 True, 8, accel=accel))
+    label, name = ACCEL_OVER_BUDGET
+    _add(launches, _run_engine("accel", f"{label} grid",
+                               _scene(name, 200, 100, 8, 6), True, 4,
+                               accel="grid"))
+    _frames_grouped_vs_thread("accel", "stress1024 grid",
+                              _scene("stress:1024", 200, 100, 8, 6),
+                              accel="grid")
     _add(launches, _run_engine("accel", "north star grid",
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
@@ -1490,8 +1617,10 @@ def phase_accel(peak):
         got = _launches()
         print(f"[accel] cli.main --scene stress:256 --accel {accel} rc {rc}, "
               f"launches {_nonzero(got)}", flush=True)
+        b = ("extra_kernel_grid_grouped" if accel == "grid"
+             else f"extra_kernel_{accel}")
         want = dict(dict.fromkeys(LAUNCH_NAMES, 0),
-                    **{f"base_kernel_{accel}": 1, f"extra_kernel_{accel}": 1})
+                    **{f"base_kernel_{accel}": 1, b: 1})
         if rc != 0 or got != want:
             fail(f"[accel] cli.main --accel {accel} failed")
         _add(launches, got)
@@ -1885,7 +2014,7 @@ def phase_denoise():
     st, fn = eng.state, eng.frame_count - 1
     args = (V3(*st.acc), st.variance, st.samples, fn, 1.0, 3)
     k = torch.stack(list(dn.denoise_acc(*args)))
-    ms = _time_cuda(lambda: dn.denoise_acc(*args), 5)
+    ms = _time_cuda(lambda: dn.denoise_acc(*args), 5, queued=False)
     cpu = torch.stack(list(dn.denoise_acc(
         V3(*st.acc.cpu()), st.variance.cpu(), st.samples.cpu(), fn, 1.0, 3)))
     rel = maxrel(k.cpu(), cpu)
@@ -2009,7 +2138,7 @@ def phase_probes(peak):
             cfg = r.get("n", r.get("frac"))
             if r["form"] == form0 and cfg == cfg0:
                 ms = r["ms"]
-                plain_ms = _time_cuda(lambda: plains[name](r), 1)
+                plain_ms = _time_cuda(lambda: plains[name](r), 1, queued=False)
         if name in ("probe21", "probe21b", "probe21c"):
             per = PROBE_OPS_PACKED if name == "probe21c" else PROBE_OPS_GATHER
             ops = mods[name].ITERS * TILE * per
@@ -2098,8 +2227,15 @@ def main() -> int:
             # PathTracer built with them at :739, kernel B's at :1013.
             ("kernel_base_xt", "base_kernel_xt", "kernel_base.cu", "739",
              *xt["a"]),
+            # Thread per entry at mesh5120 in fog ([thread]), where the main
+            # path takes it; its fog-shape time beside the grouped entry's
+            # is printed in [xt].
             ("kernel_extra_xt", "extra_kernel_xt", "kernel_extra.cu", "1013",
-             *xt["b"]),
+             max(xt["b"][0], thread["xt"][0]), *thread["xt"][1:]),
+            # Grouped (csrc/group.cuh over GroupSweep; entry in
+            # kernel_extra.cu), at the fog shapes.
+            ("kernel_extra_xt_grouped", "extra_kernel_xt_grouped",
+             "group.cuh", "1013", *xt["g"]),
             ("kernel_base_chunked_xt", "base_kernel_chunked_xt",
              "kernel_base.cu", "739", *xt["c"]),
             # The opt-in traversals, bound into kernel A at :808-809 and
@@ -2107,8 +2243,15 @@ def main() -> int:
             # _maybe_bind_sweep; the walk's tables, _gather_bind_front).
             ("kernel_base_grid", "base_kernel_grid", "kernel_accel.cu",
              "809", *acc["grid", "a"]),
+            # Thread per entry at mesh5120 under grid ([thread]), where the
+            # main path takes it; its stress1024 time is printed in [accel].
             ("kernel_extra_grid", "extra_kernel_grid", "kernel_accel.cu",
-             "1033", *acc["grid", "b"]),
+             "1033", max(acc["grid", "b"][0], thread["grid"][0]),
+             *thread["grid"][1:]),
+            # Grouped (csrc/group.cuh GroupCulled; entry in
+            # kernel_accel.cu), at the stress1024 shapes.
+            ("kernel_extra_grid_grouped", "extra_kernel_grid_grouped",
+             "group.cuh", "1033", *acc["grid", "g"]),
             ("kernel_base_gathered", "base_kernel_gathered",
              "kernel_accel.cu", "808", *acc["gathered", "a"]),
             ("kernel_extra_gathered", "extra_kernel_gathered",
@@ -2125,6 +2268,11 @@ def main() -> int:
          "420" if mode == "regen" else "391", *sch[mode + sfx])
         for mode in ("regen", "lockstep")
         for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
+    unlaunched = [name for name, counter, *_ in rows if not launches[counter]]
+    unlaunched += [name for name, *_ in PROBE_ROWS
+                   if not probe_launches[name]]
+    if unlaunched:
+        fail(f"not launched on the main path: {unlaunched}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": ref + line, "launches": launches[counter],

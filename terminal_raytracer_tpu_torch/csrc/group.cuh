@@ -1,7 +1,11 @@
-// The grouped kernels: kernel B (kernel_extra_grouped) and the chunked
-// kernel A (kernel_base_chunked_grouped) at the reference gate set over
-// the table sweep, redesigned for the H100 (kernel_extra.cu and
-// kernel_base.cu instantiate them and say what they replace).
+// The grouped kernels: kernel B (kernel_extra_grouped, templated on the
+// gates and the traversal like pipeline.cuh's kernel_extra) and the chunked
+// kernel A (kernel_base_chunked_grouped) at the reference gate set over the
+// table sweep, redesigned for the H100 (kernel_extra.cu, kernel_accel.cu
+// and kernel_base.cu instantiate them and say what they replace). Kernel B
+// comes at the reference gates and at the XT gates over the table sweep
+// (GroupSweep) and over the block-culled sweep of `--accel grid`
+// (GroupCulled).
 //
 // What bound the thread-per-entry kernels (pipeline.cuh kernel_extra and
 // kernel_base_chunked, the case K = 1 below): the critical chain of one
@@ -13,33 +17,40 @@
 // budgeted entries of kernel B fill 62 blocks, about one warp per
 // scheduler on under half of the card, and each warp waits out the
 // latency of every dependent instruction of its longest lane; at
-// stress1024 each sweep tests 1025 primitives in one thread, with too few
-// warps to hide the latency and lanes idle behind divergent paths.
+// stress1024 each sweep tests 1025 primitives in one thread (the culled
+// sweep: 129 box tests and the entered blocks), with too few warps to hide
+// the latency and lanes idle behind divergent paths.
 //
 // The design here:
 //  - A path group: K lanes of one warp (K a power of two dividing 32, a
 //    compile-time constant of each instantiation) carry one stream entry.
 //    Every lane of the group makes the same RNG draws, ray generation,
 //    shading and roulette on the same values (trace.cuh's path functions
-//    run unchanged with the traversal GroupSweep<K>), so the group never
-//    diverges internally and the pixel's chain is untouched. The group's
-//    lead lane (j = 0) alone writes the entry's outputs.
+//    run unchanged with the traversal GroupSweep<K> or GroupCulled<K>), so
+//    the group never diverges internally and the pixel's chain is
+//    untouched. The XT gates (fog distance and scatter, the phase, one-light
+//    NEE's pick, MIS, the lens and the stratified sampler) are uniform
+//    launch arguments and every value they branch on is the group's, so
+//    they keep the group in step too. The group's lead lane (j = 0) alone
+//    writes the entry's outputs.
 //  - The sweeps split across the group (GroupSweep below): lane j tests
 //    primitives j, j + K, j + 2K, ... of each kind; a closest hit is
 //    reduced by (t, then primitive index) with __shfl_xor_sync over the
 //    group's lanes, a shadow sweep joined with __any_sync. A bounce's
 //    critical chain shrinks by about the sweeps' share times (1 - 1/K),
-//    and the card holds K times as many working warps.
+//    and the card holds K times as many working warps. GroupCulled splits
+//    the block-culled sweep so that it makes the serial cull decisions.
 //  - The scene's geometry rows live in shared memory, staged once per
 //    block with cp.async before its first path: triangles first (three
-//    float4 a row, 16-byte aligned), then spheres, then planes. The lanes
+//    float4 a row, 16-byte aligned), then spheres, then planes (then, for
+//    GroupCulled, the group table). The lanes
 //    of a group read consecutive rows: the odd strides 5 (spheres) and 9
 //    (planes) put 32 consecutive rows' words in 32 different banks, and a
 //    triangle row of 12 words read as three 16-byte loads puts the 8
 //    consecutive rows of each quarter-warp phase in 8 disjoint groups of 4
 //    banks (word offsets 12 r mod 32 = 0, 12, 24, 4, 16, 28, 8, 20). The
-//    materials, the light rows and the winner's normal stay __ldg reads
-//    from the global buffer: one a bounce.
+//    materials, the extension and light rows and the winner's normal stay
+//    __ldg reads from the global buffer, one address for the whole group.
 //  - Kernel B takes the budget-sorted stream in plain blocks of
 //    GROUP_THREADS lanes; a block none of whose entries owes a sample
 //    writes its zeros and leaves before it stages anything, so the
@@ -57,6 +68,7 @@
 #include <climits>
 
 #include "pipeline.cuh"
+#include "traverse.cuh"
 
 namespace trt {
 
@@ -84,6 +96,15 @@ __device__ __forceinline__ void stage_rows(float* smem, const float* buf, const 
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
+}
+
+// Triangle row i of the staged rows: three 16-byte loads.
+__device__ __forceinline__ void tri_row(const float* tri, int i, V3& v0, V3& e1, V3& e2) {
+  const float4* q = reinterpret_cast<const float4*>(tri) + 3 * i;
+  const float4 a = q[0], b = q[1], c = q[2];
+  v0 = {a.x, a.y, a.z};
+  e1 = {a.w, b.x, b.y};
+  e2 = {b.z, b.w, c.x};
 }
 
 // The intersection tests of trace.cuh (sphere_t, plane_t, triangle_t) on
@@ -163,30 +184,38 @@ __device__ __forceinline__ bool triangle_tv(V3 o, V3 d, V3 v0, V3 e1, V3 e2, flo
 //
 // The shadow sweep is an OR of tests with fixed bounds: order-free, and a
 // lane may stop at its own first blocker.
-template <int K>
+//
+// The interface of a grouped kernel's traversal (kernel_extra_grouped's TR):
+// K, its launch argument Launch, the floats it stages (smem_floats) and
+// their staging (stage), a constructor from the staged rows, the frame and
+// the launch argument, the sweeps and flush.
+template <int K_>
 struct GroupSweep {
+  static constexpr int K = K_;
   static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  struct Launch {};  // its launch argument: none
   const float* tri;  // shared memory: [n_tri][TRI_W], then spheres, planes
   const float* sph;
   const float* pln;
   int j;          // the lane's place in its group
   unsigned mask;  // the group's lanes
 
-  __device__ __forceinline__ GroupSweep(const float* smem, const Frame& f) {
+  static __host__ __device__ __forceinline__ int smem_floats(const Frame& f, const Launch&) {
+    return group_rows_floats(f);
+  }
+
+  static __device__ __forceinline__ void stage(float* smem, const float* buf, const Frame& f,
+                                               const Launch&) {
+    stage_rows(smem, buf, f);
+  }
+
+  __device__ __forceinline__ GroupSweep(const float* smem, const Frame& f, const Launch& = {}) {
     const unsigned lane = threadIdx.x & 31u;
     j = (int)(lane & (unsigned)(K - 1));
     mask = K == 32 ? 0xffffffffu : (((1u << K) - 1u) << (lane & ~(unsigned)(K - 1)));
     tri = smem;
     sph = tri + TRI_W * f.n_tri;
     pln = sph + SPH_W * f.n_sph;
-  }
-
-  __device__ __forceinline__ void tri_row(int i, V3& v0, V3& e1, V3& e2) const {
-    const float4* q = reinterpret_cast<const float4*>(tri) + 3 * i;
-    const float4 a = q[0], b = q[1], c = q[2];
-    v0 = {a.x, a.y, a.z};
-    e1 = {a.w, b.x, b.y};
-    e2 = {b.z, b.w, c.x};
   }
 
   template <bool EXT, bool XT>
@@ -209,7 +238,7 @@ struct GroupSweep {
     }
     for (int i = j; i < sc.n_tri; i += K) {
       V3 v0, e1, e2;
-      tri_row(i, v0, e1, e2);
+      tri_row(tri, i, v0, e1, e2);
       bool hit = triangle_tv(o, d, v0, e1, e2, RAY_EPS, closest, t);
       t = hit ? t : -1.0f;
       if (t > 0.0f && t < closest) { closest = t; idx = sc.n_sph + sc.n_pln + i; }
@@ -240,7 +269,7 @@ struct GroupSweep {
     }
     for (int i = j; !blocked && i < sc.n_tri; i += K) {
       V3 v0, e1, e2;
-      tri_row(i, v0, e1, e2);
+      tri_row(tri, i, v0, e1, e2);
       blocked = triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
     }
     return __any_sync(mask, blocked);
@@ -249,19 +278,317 @@ struct GroupSweep {
   __device__ __forceinline__ void flush() {}
 };
 
+// The lanes of a guarded block in the wide design of GroupCulled: the
+// blocked scene's block of 8 (ops/accel.py BLOCK).
+constexpr int CULL_BLOCK = 8;
+
+// The block-culled sweep (traverse.cuh Culled, `--accel grid`) split across
+// a path group of K lanes, over the blocked scene's rows and its group
+// table staged in shared memory. It makes exactly the serial sweep's cull
+// decisions, which depend on the running closest hit, so its hits and its
+// four counters are Culled's (and the plain version's, ops/accel.py
+// CulledPrims); ops/group.py split_culled_closest / split_culled_occluded
+// are its plain model.
+//
+// A window of K consecutive groups at a time: lane j tests group g0 + j's
+// box once, for the part of the slab predicate that does not depend on the
+// closest hit C (tn <= tf && tf > RAY_EPS; an unguarded group: always,
+// tn = -BIG), and keeps tn. A group is a candidate under C when its
+// predicate holds and tn < C; __ballot_sync hands every lane the window's
+// candidates. Then, step by step, the group sweeps the next P candidate
+// groups at once (P = K / L): L lanes a group, lane l testing members l,
+// l + L, ... with its own running closest from C0, the group's closest at
+// the step's start, reduced over the L lanes by (t, then index) to the
+// group's (t_b, i_b). Then every lane replays the serial decisions in
+// group order from the broadcast (tn_b, t_b, i_b): group b is entered iff
+// it is unguarded or tn_b < C (its predicate holds), and C, idx take
+// (t_b, i_b) iff b is entered and t_b < C. The next step starts after the
+// step's last group, with the candidates under the new C.
+//
+// Why this is the serial sweep. C only falls, so a group that is no
+// candidate under C0 is none under any later C: the groups between
+// candidates, skipped here, are skipped serially. At a group b that the
+// serial sweep enters with closest C_b <= C0, it ends at the lexicographic
+// minimum of (f_i, i) over the members with f_i < C_b, else at C_b (the
+// lemma of GroupSweep: a member's taken t does not depend on t_max whenever
+// it can win); (t_b, i_b), the minimum over f_i < C0, is that minimum when
+// t_b < C_b, and no member has f_i < C_b otherwise. So the replay ends
+// each group at the serial closest, and the slab decisions, made with that
+// closest, are the serial ones. A tie across groups keeps the earlier
+// (strictly closer wins), as the serial sweep does. The 1e30 pads stay
+// pads: their NaN compares false on both sides.
+//
+// Two designs, by L. WIDE = false: L = K, P = 1, one candidate group a
+// step with the whole group on it (a block of 8 idles K - 8 lanes when K >
+// 8). WIDE = true (K >= 16): L = CULL_BLOCK, P = K / 8 candidate blocks a
+// step, one member a lane, at the cost of the replay's broadcasts; the
+// groups of a warp no longer split on different decisions at K = 32. Both
+// are exact; kernel_accel.cu ships WIDE = true. WIDE = false is built only by
+// group_tune.cu (-DTRT_TUNE_WIDE=0), for tools/group_k.py: it is the
+// yardstick of what the replay gains, and whether it gains depends on how
+// many blocks a ray enters, which differs by scene; the sweep re-measures
+// the choice where that changes.
+//
+// The shadow sweep: its decisions use the fixed bounds [t_min, t_max), so
+// the window's candidates are its entered groups, and the sweep visits
+// them P at a time; a lane stops at its own first blocker, the group's
+// first blocker is the least over its L lanes, and the first group of the
+// step in order with a blocker (__ballot_sync over the groups' first
+// lanes) ends the sweep.
+//
+// The counters (sweeps, guarded blocks swept, guarded blocks skipped,
+// primitive tests: CulledPrims.STATS) count the serial sweep's owed work
+// from the replayed decisions, once a group: a guarded group of the window
+// up to the sweep's end is swept if entered, else skipped; an entered group
+// adds its members, the blocking group those up to its first blocker. The
+// lead lanes flush them.
+template <int K_, bool WIDE = (K_ > CULL_BLOCK)>
+struct GroupCulled {
+  static constexpr int K = K_;
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  static constexpr int L = WIDE && K > CULL_BLOCK ? CULL_BLOCK : K;  // lanes a group
+  static constexpr int P = K / L;                                    // groups a step
+  using Launch = Accel;
+  const float* tri;  // shared memory: the rows as GroupSweep, then the group table
+  const float* sph;
+  const float* pln;
+  const float* groups;
+  int n_groups, n_sph, n_pln;
+  int j;                // the lane's place in its group
+  unsigned mask, base;  // the group's lanes, its first lane
+  unsigned long long* stats;
+  unsigned sweeps = 0, swept = 0, skipped = 0, tests = 0;
+
+  static __host__ __device__ __forceinline__ int smem_floats(const Frame& f, const Accel& a) {
+    return group_rows_floats(f) + GROUP_W * a.n_groups;
+  }
+
+  // The group table after the rows, then the rows (stage_rows waits for
+  // every copy of the thread and for the block).
+  static __device__ __forceinline__ void stage(float* smem, const float* buf, const Frame& f,
+                                               const Accel& a) {
+    float* table = smem + group_rows_floats(f);
+    for (int w = threadIdx.x; w < GROUP_W * a.n_groups; w += blockDim.x) {
+      const unsigned s = (unsigned)__cvta_generic_to_shared(table + w);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(buf + a.section + w)
+                   : "memory");
+    }
+    stage_rows(smem, buf, f);
+  }
+
+  __device__ __forceinline__ GroupCulled(const float* smem, const Frame& f, const Accel& a)
+      : n_groups(a.n_groups), n_sph(f.n_sph), n_pln(f.n_pln), stats(a.stats) {
+    const unsigned lane = threadIdx.x & 31u;
+    j = (int)(lane & (unsigned)(K - 1));
+    base = lane & ~(unsigned)(K - 1);
+    mask = K == 32 ? 0xffffffffu : (((1u << K) - 1u) << base);
+    tri = smem;
+    sph = tri + TRI_W * f.n_tri;
+    pln = sph + SPH_W * f.n_sph;
+    groups = pln + PLN_W * f.n_pln;
+  }
+
+  // The window's bits of a ballot over the group.
+  __device__ __forceinline__ unsigned ballot(bool v) const {
+    const unsigned b = __ballot_sync(mask, v) >> base;
+    return K == 32 ? b : b & ((1u << K) - 1u);
+  }
+
+  // Group g's kind, first row within its kind, first index in the flatten
+  // order, and count.
+  __device__ __forceinline__ void group_at(int g, int& kind, int& r0, int& k0, int& cnt) const {
+    const float* G = groups + GROUP_W * g;
+    kind = (int)G[0];
+    r0 = (int)G[1];
+    k0 = r0 + (kind == SPHERE ? 0 : kind == PLANE ? n_sph : n_sph + n_pln);
+    cnt = (int)G[2];
+  }
+
+  // The test of row r of `kind` in (t_min, t_max), its t in t; a plane
+  // takes t >= t_min, and t <= t_max unless `strict`, as plane_t does.
+  __device__ __forceinline__ bool test(int kind, int r, V3 o, V3 d, float t_min, float t_max,
+                                       bool strict, float& t) const {
+    if (kind == SPHERE) {
+      const float* s = sph + SPH_W * r;
+      return sphere_tv(o, d, V3{s[0], s[1], s[2]}, s[3], t_min, t_max, t);
+    }
+    if (kind == PLANE) {
+      const float* q = pln + PLN_W * r;
+      return plane_tv(o, d, V3{q[0], q[1], q[2]}, V3{q[3], q[4], q[5]}, t_min, t_max, strict, t);
+    }
+    V3 v0, e1, e2;
+    tri_row(tri, r, v0, e1, e2);
+    return triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
+  }
+
+  // The window position of this lane's group in the step taking the first
+  // P candidates of `cand`, or -1; the step's group count and last
+  // position.
+  __device__ __forceinline__ int slot_of(unsigned cand, int& nb, int& last) const {
+    const int s = j / L;
+    int mine = -1;
+    nb = 0;
+    for (unsigned rest = cand; rest != 0u && nb < P; rest &= rest - 1u, ++nb) {
+      last = __ffs(rest) - 1;
+      if (nb == s) mine = last;
+    }
+    return mine;
+  }
+
+  template <bool EXT, bool XT>
+  __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+    ++sweeps;
+    const V3 inv = Culled::inverse(d);
+    const int l = j % L;
+    float closest = T_FAR;
+    int idx = INT_MAX;
+    for (int g0 = 0; g0 < n_groups; g0 += K) {
+      bool guarded = false, pred = false;
+      float tn = -BIG;
+      if (g0 + j < n_groups) {
+        const float* G = groups + GROUP_W * (g0 + j);
+        guarded = G[3] != 0.0f;
+        pred = true;
+        if (guarded) {
+          float tf;
+          slab_interval(o, d, inv, G + 4, G + 7, tn, tf);
+          pred = tn <= tf && tf > RAY_EPS;
+        }
+      }
+      const unsigned gbits = ballot(guarded);
+      unsigned entered = 0u;
+      for (int from = 0; from < K;) {
+        const unsigned cand = ballot(pred && tn < closest) & (~0u << from);
+        if (cand == 0u) break;
+        int nb, last = 0;
+        const int pos = slot_of(cand, nb, last);
+        float c = closest;  // C0
+        int ci = INT_MAX;
+        if (pos >= 0) {
+          int kind, r0, k0, cnt;
+          group_at(g0 + pos, kind, r0, k0, cnt);
+          float t;
+          for (int m = l; m < cnt; m += L) {
+            bool hit = test(kind, r0 + m, o, d, RAY_EPS, c, false, t);
+            t = hit ? t : -1.0f;
+            if (t > 0.0f && t < c) { c = t; ci = k0 + m; }
+          }
+        }
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+          const float t_o = __shfl_xor_sync(mask, c, off);
+          const int i_o = __shfl_xor_sync(mask, ci, off);
+          if (t_o < c || (t_o == c && i_o < ci)) {
+            c = t_o;
+            ci = i_o;
+          }
+        }
+        unsigned rest = cand;
+        for (int b = 0; b < nb; ++b, rest &= rest - 1u) {
+          const int p = __ffs(rest) - 1;
+          const float tn_b = __shfl_sync(mask, tn, p, K);
+          const float t_b = __shfl_sync(mask, c, b * L, K);
+          const int i_b = __shfl_sync(mask, ci, b * L, K);
+          if (((gbits >> p) & 1u) == 0u || tn_b < closest) {
+            entered |= 1u << p;
+            tests += (unsigned)groups[GROUP_W * (g0 + p) + 2];
+            if (t_b < closest) {
+              closest = t_b;
+              idx = i_b;
+            }
+          }
+        }
+        from = last + 1;
+      }
+      swept += __popc(gbits & entered);
+      skipped += __popc(gbits & ~entered);
+    }
+    return hit_at<EXT, XT>(sc, o, d, closest, idx);
+  }
+
+  __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min,
+                                           float t_max) {
+    ++sweeps;
+    const V3 inv = Culled::inverse(d);
+    const int l = j % L;
+    for (int g0 = 0; g0 < n_groups; g0 += K) {
+      bool guarded = false, entered = false;
+      if (g0 + j < n_groups) {
+        const float* G = groups + GROUP_W * (g0 + j);
+        guarded = G[3] != 0.0f;
+        entered = true;
+        if (guarded) {
+          float tn, tf;
+          slab_interval(o, d, inv, G + 4, G + 7, tn, tf);
+          entered = tn <= tf && tn < t_max && tf > t_min;
+        }
+      }
+      const unsigned gbits = ballot(guarded);
+      const unsigned cand = ballot(entered);
+      for (int from = 0; from < K;) {
+        const unsigned step = cand & (~0u << from);
+        if (step == 0u) break;
+        int nb, last = 0;
+        const int pos = slot_of(step, nb, last);
+        int first = INT_MAX;
+        if (pos >= 0) {
+          int kind, r0, k0, cnt;
+          group_at(g0 + pos, kind, r0, k0, cnt);
+          float t;
+          for (int m = l; m < cnt; m += L) {
+            if (test(kind, r0 + m, o, d, t_min, t_max, true, t)) {
+              first = m;
+              break;
+            }
+          }
+        }
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) first = min(first, __shfl_xor_sync(mask, first, off));
+        const unsigned blocked = ballot(l == 0 && first != INT_MAX);
+        unsigned rest = step;
+        for (int b = 0; b < nb; ++b, rest &= rest - 1u) {
+          const int p = __ffs(rest) - 1;
+          swept += (gbits >> p) & 1u;
+          if ((blocked >> (b * L)) & 1u) {
+            tests += (unsigned)__shfl_sync(mask, first, b * L, K) + 1u;
+            skipped += __popc(gbits & ~cand & ((1u << p) - 1u));
+            return true;
+          }
+          tests += (unsigned)groups[GROUP_W * (g0 + p) + 2];
+        }
+        from = last + 1;
+      }
+      skipped += __popc(gbits & ~cand);
+    }
+    return false;
+  }
+
+  // Every thread of the warp calls this; the lead lanes hold their group's
+  // counts.
+  __device__ __forceinline__ void flush() {
+    const bool lead = j == 0;
+    flush_counts(stats, lead ? sweeps : 0u, lead ? swept : 0u, lead ? skipped : 0u,
+                 lead ? tests : 0u);
+  }
+};
+
 }  // namespace trt
 
 namespace {
 
 // Kernel B, grouped: the entry of group g = global thread / K, its K lanes
-// rendering the entry's `add` extra samples together (see the top).
-template <int K>
+// rendering the entry's `add` extra samples together (see the top), with
+// the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupCulled<K>)
+// built from the staged rows and its launch argument.
+template <bool EXT, bool XT, class TR>
 __global__ void __launch_bounds__(trt::GROUP_THREADS)
     kernel_extra_grouped(ExtraArgs a, const float* __restrict__ scene_buf,
                          const int* __restrict__ xs, const int* __restrict__ ys,
                          const long long* __restrict__ state_in, const float* __restrict__ add,
                          const int* __restrict__ samp0, float* __restrict__ out,
-                         unsigned long long* __restrict__ iters) {
+                         unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
+                         typename TR::Launch tl) {
+  constexpr int K = TR::K;
   extern __shared__ float4 group_smem[];
   float* rows = reinterpret_cast<float*>(group_smem);
   const int n = a.n_entries;
@@ -272,19 +599,17 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
   float rays = 0.0f;
   unsigned my_iters = 0;
   if (__syncthreads_or(budget > 0.0f)) {
-    trt::stage_rows(rows, scene_buf, a.f);
+    TR::stage(rows, scene_buf, a.f, tl);
+    TR tr(rows, a.f, tl);
     if (budget > 0.0f) {
       const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-      const trt::Tex tx{};
-      const trt::Xt xt{};
-      trt::GroupSweep<K> tr(rows, a.f);
       uint32_t state = (uint32_t)state_in[i];
       const int s0 = samp0[i];
-      my_iters = trt::run_samples<false, false>(a.f, sc, tx, xt, state, s0, budget + (float)s0,
-                                                (float)xs[i], (float)ys[i], esum, nullptr, rays,
-                                                tr);
+      my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, budget + (float)s0,
+                                           (float)xs[i], (float)ys[i], esum, nullptr, rays, tr);
     }
     trt::count_slot_iters<K>(my_iters, iters);
+    tr.flush();
   }
   if (lead && i < n) {
     out[0 * n + i] = esum.x;
@@ -341,28 +666,30 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
   trt::count_slot_iters<K>(my_iters, iters);
 }
 
-// Launch a grouped kernel over n entries: K lanes an entry, the rows'
-// bytes of dynamic shared memory; a table above the budget is refused.
-inline int grouped_grid(long long n, int k, const trt::Frame& f, const void* kernel, int& blocks,
-                        int& bytes) {
-  bytes = 4 * trt::group_rows_floats(f);
+// Launch a grouped kernel over n entries: K lanes an entry, `bytes` of
+// dynamic shared memory (the staged rows); over the budget it is refused.
+inline int grouped_grid(long long n, int k, int bytes, const void* kernel, int& blocks) {
   if (bytes > trt::GROUP_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   blocks = (int)((n * k + trt::GROUP_THREADS - 1) / trt::GROUP_THREADS);
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    trt::GROUP_SMEM_BYTES);
 }
 
-template <int K>
-int launch_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs, const int* ys,
-                         const long long* state_in, const float* add, const int* samp0, float* out,
-                         unsigned long long* iters, void* stream) {
+template <bool EXT, bool XT, class TR>
+int launch_extra_grouped(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                         const float* scene_buf, const int* xs, const int* ys,
+                         const long long* state_in, const float* add, const int* samp0,
+                         float* out, unsigned long long* iters, void* stream,
+                         const typename TR::Launch& tl = {}) {
   const int n = a->n_entries;
   if (n > 0) {
-    int blocks, bytes;
-    const int err = grouped_grid(n, K, a->f, (const void*)kernel_extra_grouped<K>, blocks, bytes);
+    const int bytes = 4 * TR::smem_floats(a->f, tl);
+    int blocks;
+    const int err = grouped_grid(n, TR::K, bytes, (const void*)kernel_extra_grouped<EXT, XT, TR>,
+                                 blocks);
     if (err != 0) return err;
-    kernel_extra_grouped<K><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
-        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters);
+    kernel_extra_grouped<EXT, XT, TR><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
+        *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }
@@ -372,9 +699,10 @@ int launch_chunked_grouped(const ChunkArgs* a, const float* scene_buf, float* ou
                            long long* state_out, unsigned long long* iters, void* stream) {
   const long long n = (long long)a->n_chunks * a->h_out * a->f.width;
   if (n > 0) {
-    int blocks, bytes;
+    const int bytes = 4 * trt::group_rows_floats(a->f);
+    int blocks;
     const int err =
-        grouped_grid(n, K, a->f, (const void*)kernel_base_chunked_grouped<K>, blocks, bytes);
+        grouped_grid(n, K, bytes, (const void*)kernel_base_chunked_grouped<K>, blocks);
     if (err != 0) return err;
     kernel_base_chunked_grouped<K><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
         *a, scene_buf, out, state_out, iters);

@@ -1,26 +1,54 @@
 // The sweep over the group width K of the grouped kernels (group.cuh),
-// for terminal_raytracer_tpu_torch/tools/group_k.py: kernel B and the
-// chunked kernel A at K = TRT_TUNE_K, which the tool gives nvcc (-D) for
-// one library a width, under the same entry names as the render
-// libraries' grouped entries. No render loads this library; the widths
-// the render libraries ship are constants of kernel_extra.cu and
-// kernel_base.cu.
+// for terminal_raytracer_tpu_torch/tools/group_k.py: kernel B at the
+// reference and XT gates, kernel B over the culled sweep (in the design
+// TRT_TUNE_WIDE, GroupCulled's WIDE) and the chunked kernel A at K =
+// TRT_TUNE_K, which the tool gives nvcc (-D) for one library a width and
+// design, under the same entry names as the render libraries' grouped
+// entries. No render loads this library; the widths the render libraries
+// ship are constants of kernel_extra.cu, kernel_accel.cu and kernel_base.cu.
 
 #include "group.cuh"
 
 #ifndef TRT_TUNE_K
 #define TRT_TUNE_K 1
 #endif
+#ifndef TRT_TUNE_WIDE
+#define TRT_TUNE_WIDE (TRT_TUNE_K > 8)
+#endif
 
 extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
                                         const int* ys, const long long* state_in,
                                         const float* add, const int* samp0, float* out,
                                         unsigned long long* iters, void* stream) {
-  return launch_extra_grouped<TRT_TUNE_K>(a, scene_buf, xs, ys, state_in, add, samp0, out, iters,
-                                          stream);
+  return launch_extra_grouped<false, false, trt::GroupSweep<TRT_TUNE_K>>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
 }
 
 extern "C" int trt_kernel_extra_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_extra_xt_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                           const trt::Xt* xt, const float* scene_buf,
+                                           const int* xs, const int* ys,
+                                           const long long* state_in, const float* add,
+                                           const int* samp0, float* out,
+                                           unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, true, trt::GroupSweep<TRT_TUNE_K>>(
+      a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_xt_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_extra_grid_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                             const trt::Xt* xt, const trt::Accel* acc,
+                                             const float* scene_buf, const int* xs,
+                                             const int* ys, const long long* state_in,
+                                             const float* add, const int* samp0, float* out,
+                                             unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, true, trt::GroupCulled<TRT_TUNE_K, (TRT_TUNE_WIDE != 0)>>(
+      a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_grid_grouped_k() { return TRT_TUNE_K; }
 
 extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* scene_buf,
                                                float* out, long long* state_out,

@@ -21,10 +21,26 @@
 // What bounds them on an H100: as kernel_base.cu / kernel_extra.cu (FP32
 // work behind divergent control flow, registers), with fewer primitive
 // tests per ray; the walk's loads are dependent (CSR entry, then the
-// primitive's row). A simple kernel that is right is the goal here.
+// primitive's row).
+//
+// trt_kernel_extra_grid_grouped is kernel B over the culled sweep
+// redesigned for the H100 (group.cuh GroupCulled): a path group of
+// GROUP_K_EXTRA_GRID lanes carries one entry; each window of K groups' box
+// tests splits across the lanes, the entered blocks' members split across
+// them, and the group replays the serial cull decisions, so its hits and
+// traversal counters are Culled's. The blocked scene's rows and its group
+// table are staged in shared memory; ops/kernels.py takes it where both
+// fit group.cuh's budget, and trt_kernel_extra_grid above it. It replaces
+// the same Pallas kernel as trt_kernel_extra_grid (:1028 over CulledPrims,
+// bound at :1033).
 
-#include "pipeline.cuh"
-#include "traverse.cuh"
+#include "group.cuh"
+
+// The group width of the grouped grid kernel B and its design (group.cuh
+// GroupCulled: WIDE sweeps K / 8 candidate blocks a step): chosen by the
+// sweep over K of tools/group_k.py (PERF.md, the grouped kernels).
+constexpr int GROUP_K_EXTRA_GRID = 32;
+constexpr bool GROUP_WIDE_EXTRA_GRID = true;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
@@ -87,3 +103,19 @@ extern "C" int trt_kernel_extra_gathered(const ExtraArgs* a, const trt::Tex* tx,
   return launch_extra<true, true, trt::Walk>(a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0,
                                              out, iters, stream, *acc);
 }
+
+// The grouped kernel B over the culled sweep: the same arguments and
+// outputs as trt_kernel_extra_grid; refused (cudaErrorInvalidValue) when
+// the rows and the group table exceed the shared-memory budget.
+extern "C" int trt_kernel_extra_grid_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                             const trt::Xt* xt, const trt::Accel* acc,
+                                             const float* scene_buf, const int* xs,
+                                             const int* ys, const long long* state_in,
+                                             const float* add, const int* samp0, float* out,
+                                             unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, true,
+                              trt::GroupCulled<GROUP_K_EXTRA_GRID, GROUP_WIDE_EXTRA_GRID>>(
+      a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_grid_grouped_k() { return GROUP_K_EXTRA_GRID; }

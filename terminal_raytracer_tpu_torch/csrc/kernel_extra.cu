@@ -26,7 +26,11 @@
 // one entry, the closest-hit and shadow sweeps split across the group over
 // the scene's rows staged in shared memory. ops/kernels.py takes it where
 // the rows fit group.cuh's shared-memory budget, and the thread-per-entry
-// trt_kernel_extra above it.
+// trt_kernel_extra above it. trt_kernel_extra_xt_grouped is the same
+// design at the XT gates (GROUP_K_EXTRA_XT lanes an entry), which
+// ops/kernels.py takes for an XT tracer whose rows fit, and
+// trt_kernel_extra_xt above the budget; it replaces the same Pallas kernel
+// as trt_kernel_extra_xt (pallas_kernel.py:1013-1015, :1028).
 //
 // What bounds it on an H100. Not its bytes (40 a entry and a table that
 // fits in L1) nor its FP32 operations (hundreds of times below the card's
@@ -42,9 +46,11 @@
 
 #include "group.cuh"
 
-// The group width of the grouped kernel B: chosen by the sweep over K of
-// tools/group_k.py (PERF.md, the grouped kernels).
+// The group widths of the grouped kernel B at the reference and the XT
+// gates: chosen by the sweep over K of tools/group_k.py (PERF.md, the
+// grouped kernels).
 constexpr int GROUP_K_EXTRA = 16;
+constexpr int GROUP_K_EXTRA_XT = 4;
 
 // xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
 // out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64.
@@ -84,9 +90,24 @@ extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_b
                                         const int* ys, const long long* state_in,
                                         const float* add, const int* samp0, float* out,
                                         unsigned long long* iters, void* stream) {
-  return launch_extra_grouped<GROUP_K_EXTRA>(a, scene_buf, xs, ys, state_in, add, samp0, out,
-                                             iters, stream);
+  return launch_extra_grouped<false, false, trt::GroupSweep<GROUP_K_EXTRA>>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
 }
 
 // Its group width K (lanes an entry).
 extern "C" int trt_kernel_extra_grouped_k() { return GROUP_K_EXTRA; }
+
+// The grouped kernel B at the XT gates: the same arguments and outputs as
+// trt_kernel_extra_xt; refused (cudaErrorInvalidValue) when the scene's
+// rows exceed the shared-memory budget.
+extern "C" int trt_kernel_extra_xt_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                           const trt::Xt* xt, const float* scene_buf,
+                                           const int* xs, const int* ys,
+                                           const long long* state_in, const float* add,
+                                           const int* samp0, float* out,
+                                           unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, true, trt::GroupSweep<GROUP_K_EXTRA_XT>>(
+      a, *tx, *xt, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_xt_grouped_k() { return GROUP_K_EXTRA_XT; }

@@ -74,29 +74,41 @@ __device__ __forceinline__ void flush_counts(unsigned long long* stats, unsigned
   }
 }
 
-// Whether the segment [t_min, t_max) meets the box lo = b[0..2], hi =
-// b[3..5]; inv is 1 / d where d != 0 (a zero component is parallel: inside
-// the slab always, outside never).
-__device__ __forceinline__ bool slab_hit(V3 o, V3 d, V3 inv, const float* b, float t_min,
-                                         float t_max) {
-  float tn = -BIG, tf = BIG;
+// Where the ray's line enters (tn) and leaves (tf) the box lo, hi; inv is
+// 1 / d where d != 0 (a zero component is parallel: inside the slab always,
+// outside never). The segment [t_min, t_max) meets the box iff tn <= tf &&
+// tn < t_max && tf > t_min.
+__device__ __forceinline__ void slab_interval(V3 o, V3 d, V3 inv, const float lo[3],
+                                              const float hi[3], float& tn, float& tf) {
+  tn = -BIG;
+  tf = BIG;
   const float oc[3] = {o.x, o.y, o.z}, dc[3] = {d.x, d.y, d.z}, ic[3] = {inv.x, inv.y, inv.z};
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    float lo = __ldg(b + ax), hi = __ldg(b + 3 + ax), a_min, a_max;
+    float a_min, a_max;
     if (dc[ax] == 0.0f) {
-      bool inside = oc[ax] >= lo && oc[ax] <= hi;
+      bool inside = oc[ax] >= lo[ax] && oc[ax] <= hi[ax];
       a_min = inside ? -BIG : BIG;
       a_max = inside ? BIG : -BIG;
     } else {
-      float t0 = (lo - oc[ax]) * ic[ax];
-      float t1 = (hi - oc[ax]) * ic[ax];
+      float t0 = (lo[ax] - oc[ax]) * ic[ax];
+      float t1 = (hi[ax] - oc[ax]) * ic[ax];
       a_min = fminf(t0, t1);
       a_max = fmaxf(t0, t1);
     }
     tn = fmaxf(tn, a_min);
     tf = fminf(tf, a_max);
   }
+}
+
+// Whether the segment [t_min, t_max) meets the box lo = b[0..2], hi =
+// b[3..5] of the global buffer.
+__device__ __forceinline__ bool slab_hit(V3 o, V3 d, V3 inv, const float* b, float t_min,
+                                         float t_max) {
+  const float lo[3] = {__ldg(b), __ldg(b + 1), __ldg(b + 2)};
+  const float hi[3] = {__ldg(b + 3), __ldg(b + 4), __ldg(b + 5)};
+  float tn, tf;
+  slab_interval(o, d, inv, lo, hi, tn, tf);
   return tn <= tf && tn < t_max && tf > t_min;
 }
 

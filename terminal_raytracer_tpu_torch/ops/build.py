@@ -39,13 +39,17 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_grouped", 10),
                         ("trt_kernel_extra_grouped_k", 0),
                         ("trt_kernel_extra_ext", 11),
-                        ("trt_kernel_extra_xt", 12)),
+                        ("trt_kernel_extra_xt", 12),
+                        ("trt_kernel_extra_xt_grouped", 12),
+                        ("trt_kernel_extra_xt_grouped_k", 0)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_gathered", 9),
                         ("trt_kernel_base_chunked_grid", 9),
                         ("trt_kernel_base_chunked_gathered", 9),
                         ("trt_kernel_extra_grid", 13),
-                        ("trt_kernel_extra_gathered", 13)),
+                        ("trt_kernel_extra_gathered", 13),
+                        ("trt_kernel_extra_grid_grouped", 13),
+                        ("trt_kernel_extra_grid_grouped_k", 0)),
     "kernel_frame.cu": tuple(
         (f"trt_kernel_{mode}{sfx}", n)
         for mode in ("regen", "lockstep")
@@ -69,10 +73,12 @@ ENTRY_POINTS = {
 # What a render loads; the probes' library loads only when a probe asks.
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # The group-width sweep of tools/group_k.py: one library a width K (built
-# with -DTRT_TUNE_K=K), with the grouped entries of the render libraries.
+# with -DTRT_TUNE_K=K, and for the grid kernel B's design -DTRT_TUNE_WIDE),
+# with the grouped entries of the render libraries.
 TUNE_SOURCE = "group_tune.cu"
 TUNE_ENTRY_POINTS = tuple(
-    (name, n) for src in ("kernel_extra.cu", "kernel_base.cu")
+    (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",
+                          "kernel_base.cu")
     for name, n in ENTRY_POINTS[src] if "_grouped" in name)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

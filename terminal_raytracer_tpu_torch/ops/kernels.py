@@ -19,16 +19,19 @@ make_sorted_render_frame:
             (index_add_ would add in an order that changes between runs
             on CUDA), then tracer.combine_phases
 
-At the reference gates over the table sweep, kernel B and the chunked
-kernel A take their grouped entries (csrc/group.cuh: a path group of K
-lanes carries one entry, the closest-hit and shadow sweeps split across
-the group, the scene's geometry rows staged in shared memory) wherever the
-rows fit GROUP_SMEM_BYTES (takes_grouped, a decision by the table's size
-alone): extra_kernel and base_kernel_chunked pass such a tracer on to
-extra_kernel_grouped and base_kernel_chunked_grouped, which count their own
-launches, and launch the thread-per-entry entries above the budget. Their
-counters of executed lane-iterations count path slots: warp_iters(.., k)
-is their plain model.
+Kernel B at the reference gates, at the XT gates and over the culled
+sweep of `--accel grid`, and the chunked kernel A at the reference gates,
+take their grouped entries (csrc/group.cuh: a path group of K lanes
+carries one entry, the closest-hit and shadow sweeps split across the
+group, the scene's geometry rows, and the grid's group table, staged in
+shared memory) wherever those fit GROUP_SMEM_BYTES (takes_grouped, a
+decision by the table's size alone): extra_kernel passes such a tracer on
+to extra_kernel_grouped, extra_kernel_xt_grouped or
+extra_kernel_grid_grouped, base_kernel_chunked to
+base_kernel_chunked_grouped, each counting its own launches; above the
+budget they launch the thread-per-entry entries. Their counters of
+executed lane-iterations count path slots: warp_iters(.., k) is their
+plain model. No build or launch failure falls back to another entry.
 
 The single-kernel schedulers render the whole frame in one launch, one
 thread a pixel (csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel),
@@ -327,44 +330,58 @@ def group_rows_bytes(tracer) -> int:
                 + geom.TRI_W * n_tri)
 
 
-def takes_grouped(tracer) -> bool:
-    """Whether kernel B and the chunked kernel A take their grouped entries
-    for `tracer`: the reference gates over the table sweep, with rows that
-    fit GROUP_SMEM_BYTES. A dispatch by the table's size alone."""
-    return (_kind(tracer) == "ref"
-            and group_rows_bytes(tracer) <= GROUP_SMEM_BYTES)
+def group_smem_bytes(tracer) -> int:
+    """The bytes a grouped kernel stages for `tracer` (csrc/group.cuh
+    smem_floats): the geometry rows, and under `--accel grid` the group
+    table after them."""
+    extra = tracer.tables.acc.numel() if tracer.traversal == "grid" else 0
+    return group_rows_bytes(tracer) + 4 * extra
 
 
-def _require_grouped(tracer, name: str) -> None:
-    if _kind(tracer) != "ref":
+def takes_grouped(tracer, kernel: str = "extra") -> bool:
+    """Whether kernel B ('extra') or the chunked kernel A ('chunked') takes
+    its grouped entry for `tracer`: an instantiation with one (B:
+    GROUPED_EXTRA; chunked A: the reference gates), with what it stages
+    within GROUP_SMEM_BYTES. A dispatch by the table's size alone."""
+    kinds = GROUPED_EXTRA if kernel == "extra" else ("ref",)
+    return (_kind(tracer) in kinds
+            and group_smem_bytes(tracer) <= GROUP_SMEM_BYTES)
+
+
+def _require_grouped(tracer, name: str, kind: str = "ref") -> None:
+    if _kind(tracer) != kind:
         raise ValueError(f"{name}: the tracer takes the {_kind(tracer)!r} "
                          "instantiation")
-    if group_rows_bytes(tracer) > GROUP_SMEM_BYTES:
+    if group_smem_bytes(tracer) > GROUP_SMEM_BYTES:
         raise ValueError(f"{name}: the scene's rows take "
-                         f"{group_rows_bytes(tracer)} bytes, over the "
+                         f"{group_smem_bytes(tracer)} bytes, over the "
                          f"{GROUP_SMEM_BYTES} of shared memory the grouped "
                          "kernels stage")
 
 
 def group_k(kernel: str) -> int:
     """The group width K (lanes an entry) that the render library's grouped
-    `kernel` ('extra' or 'chunked') was built with (on the card)."""
+    `kernel` ('extra', 'extra_xt', 'extra_grid' or 'chunked') was built
+    with (on the card)."""
     entry = {"extra": "trt_kernel_extra_grouped_k",
+             "extra_xt": "trt_kernel_extra_xt_grouped_k",
+             "extra_grid": "trt_kernel_extra_grid_grouped_k",
              "chunked": "trt_kernel_base_chunked_grouped_k"}[kernel]
     return int(getattr(load_kernels(), entry)())
 
 
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     """Call the C entry point `entry` (+ '_ext', '_xt', '_grid',
-    '_gathered' or '_grouped' by `kind`) with its launch arguments and
-    raise on a launch error."""
+    '_gathered', '_grouped', '_xt_grouped' or '_grid_grouped' by `kind`)
+    with its launch arguments and raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
+    inst = kind.removesuffix("grouped").removesuffix("_") or "ref"
     extra = ()
-    if kind not in ("ref", "grouped"):
+    if inst != "ref":
         extra = (ctypes.byref(_tex(tracer)),)
-    if kind not in ("ref", "grouped", "ext"):
+    if inst not in ("ref", "ext"):
         extra += (ctypes.byref(xt_args(tracer)),)
-    if kind in ("grid", "gathered"):
+    if inst in ("grid", "gathered"):
         extra += (ctypes.byref(accel_args(tracer)),)
     _check(getattr(lib, name)(ctypes.byref(args), *extra, *ptrs),
            name.replace("trt_", ""))
@@ -602,7 +619,7 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     if tracer.ext:
         return base_kernel_chunked_ext(tracer, pose, seed, frame_number, y0,
                                        h_out)
-    if takes_grouped(tracer):
+    if takes_grouped(tracer, "chunked"):
         return base_kernel_chunked_grouped(tracer, pose, seed, frame_number,
                                            y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "ref")
@@ -738,8 +755,9 @@ def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
 
 def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str,
                   lib=None):
-    """Launch kernel B's `kind` instantiation (the grouped entry for
-    'grouped'), from `lib` (default the render libraries)."""
+    """Launch kernel B's `kind` instantiation (the grouped entries for
+    'grouped', 'xt_grouped', 'grid_grouped'), from `lib` (default the
+    render libraries)."""
     device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -758,9 +776,13 @@ def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
     (xs[i], ys[i]) continuing RNG `state[i]` at sample index `samp0[i]`.
     xs, ys, samp0 int32; state int64; add f32; all of one shape.
     extra_kernel_ext / _xt for a tracer with the extensions, extra_kernel_grid
-    / _gathered for one with that traversal."""
+    / _gathered for one with that traversal; the grouped entries
+    (extra_kernel_grouped, _xt_grouped, _grid_grouped) where takes_grouped."""
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0, "extra_kernel"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if takes_grouped(tracer):
+        return GROUPED_EXTRA[_kind(tracer)](tracer, pose, xs, ys, state, add,
+                                            samp0)
     if tracer.traversal == "grid":
         return extra_kernel_grid(tracer, pose, xs, ys, state, add, samp0)
     if tracer.traversal == "gathered":
@@ -769,8 +791,6 @@ def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
         return extra_kernel_xt(tracer, pose, xs, ys, state, add, samp0)
     if tracer.ext:
         return extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0)
-    if takes_grouped(tracer):
-        return extra_kernel_grouped(tracer, pose, xs, ys, state, add, samp0)
     out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "ref")
     extra_kernel.launches += 1
     return out
@@ -789,6 +809,38 @@ def extra_kernel_grouped(tracer, pose, xs, ys, state, add, samp0):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
     out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "grouped")
     extra_kernel_grouped.launches += 1
+    return out
+
+
+def extra_kernel_xt_grouped(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped entry at the XT gates (csrc/group.cuh over
+    GroupSweep): group_k('extra_xt') lanes an entry, as
+    extra_kernel_grouped. For an XT tracer over the table sweep whose rows
+    fit GROUP_SMEM_BYTES; extra_kernel takes it for such a tracer."""
+    _require_grouped(tracer, "extra_kernel_xt_grouped", "xt")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_xt_grouped"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "xt_grouped")
+    extra_kernel_xt_grouped.launches += 1
+    return out
+
+
+def extra_kernel_grid_grouped(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped entry over the culled sweep (csrc/group.cuh
+    GroupCulled, XT instantiation): group_k('extra_grid') lanes an entry,
+    the serial cull decisions replayed across the group, the traversal
+    counters the plain version's. For a `--accel grid` tracer whose rows
+    and group table fit GROUP_SMEM_BYTES; extra_kernel takes it for such a
+    tracer."""
+    _require_grouped(tracer, "extra_kernel_grid_grouped", "grid")
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_grid_grouped"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "grid_grouped")
+    extra_kernel_grid_grouped.launches += 1
     return out
 
 
@@ -838,10 +890,16 @@ def extra_kernel_gathered(tracer, pose, xs, ys, state, add, samp0):
 
 extra_kernel.launches = 0
 extra_kernel_grouped.launches = 0
+extra_kernel_xt_grouped.launches = 0
+extra_kernel_grid_grouped.launches = 0
 extra_kernel_ext.launches = 0
 extra_kernel_xt.launches = 0
 extra_kernel_grid.launches = 0
 extra_kernel_gathered.launches = 0
+
+# The grouped kernel B of each instantiation that has one.
+GROUPED_EXTRA = {"ref": extra_kernel_grouped, "xt": extra_kernel_xt_grouped,
+                 "grid": extra_kernel_grid_grouped}
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,30 @@
 """The sweep over the group width K of the grouped kernels (csrc/group.cuh)
-on the card: kernel B and the chunked kernel A with K lanes an entry, for
-each K, beside the thread-per-entry kernels on the same inputs.
+on the card: kernel B at the reference gates, at the XT gates and over the
+culled sweep of `--accel grid`, and the chunked kernel A, with K lanes an
+entry, for each K, beside the thread-per-entry kernels on the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
         [--reps 5]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
-all built at once with the render libraries. The shapes are the main
-path's: kernel B on the budget-sorted stream of the north star (Cornell_Box
-400x200, 16 spp, depth 32) and of stress1024 (stress:1024 200x100, 8 spp,
-depth 6, chunks of 2) and mesh1280 (icosphere:3, the same), the chunked
-kernel A at stress1024 and mesh1280. Each line: the kernel's device ms
-(CUDA events, the least of --reps runs of 3 launches after a warm-up),
-whether its outputs equal the plain version's bit for bit, whether its
-executed lane-iterations equal the plain model (ops/kernels.py
-warp_iters of the per-entry iterations at K), the working warps (warps
-with an entry that renders) and the longest entry's iterations with the
-µs an iteration on that chain. The widths the render libraries ship are
-constants of kernel_extra.cu and kernel_base.cu, chosen from this sweep.
-Needs a CUDA GPU (exit 2 without one).
+and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernel B's
+other design: one candidate block a step on all K lanes, not K / 8 blocks
+of 8 lanes), all built at once with the render libraries. The shapes are
+the main path's: kernel B on the budget-sorted stream of the north star
+(Cornell_Box 400x200, 16 spp, depth 32) and of stress1024 (stress:1024
+200x100, 8 spp, depth 6, chunks of 2) and mesh1280 (icosphere:3, the
+same), the chunked kernel A at stress1024 and mesh1280; the XT kernel B
+at the fog shapes (the north star in fog 0.15) and on the stress1024 fog
+--mis stream; the grid kernel B at stress1024 under --accel grid. Each line: the kernel's device ms (CUDA
+events, the least of --reps runs of 3 launches after a warm-up), whether
+its outputs equal the plain version's bit for bit, whether its executed
+lane-iterations equal the plain model (ops/kernels.py warp_iters of the
+per-entry iterations at K), the working warps (warps with an entry that
+renders) and the longest entry's iterations with the µs an iteration on
+that chain; the grid lines also whether the traversal counters equal the
+plain version's. The widths the render libraries ship are constants of
+kernel_extra.cu, kernel_accel.cu and kernel_base.cu, chosen from this
+sweep. Needs a CUDA GPU (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import time
 import torch
 
 from ..models import Camera, load_scene
+from ..models.scene import Fog
 from ..ops import build, kernels
 from ..ops.tracer import PathTracer
 
@@ -60,33 +67,67 @@ def _equal(got, want) -> bool:
                            else b) for a, b in zip(got, want))
 
 
-def _line(label, k, ms, same, model, entry_iters):
+def _line(label, k, ms, same, model, entry_iters, counters=None):
     longest = int(entry_iters.max())
+    width = 1 if k == "thread" else int(str(k).split()[0])
     print(f"[group_k] {label} {k}: {ms:.4f} ms, equal {same}, iterations "
           f"equal the model {model}, working warps "
-          f"{kernels.working_warps(entry_iters, 1 if k == 'thread' else k)}, "
+          f"{kernels.working_warps(entry_iters, width)}, "
           f"longest entry {longest} iterations, "
-          f"{1e3 * ms / max(longest, 1):.3f} µs an iteration", flush=True)
+          f"{1e3 * ms / max(longest, 1):.3f} µs an iteration"
+          + ("" if counters is None else f", counters equal {counters}"),
+          flush=True)
+
+
+def _counted(tr, fn):
+    """fn() and the traversal counters of its launch (grid), else None."""
+    if tr.traversal != "grid":
+        return fn(), None
+    tr.accel_stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    out = fn()
+    torch.cuda.synchronize()
+    stats = tr.accel_stats.cpu()
+    tr.accel_stats = None
+    return out, stats
 
 
 def _sweep_extra(label, tr, pose, seed, libs, reps):
+    """Kernel B of `tr`'s instantiation: thread per entry, then the grouped
+    entry of every library of `libs` ({label: library})."""
+    kind = kernels._kind(tr)
+    grouped = "grouped" if kind == "ref" else f"{kind}_grouped"
     a = kernels.base_phase(tr, pose, seed, 0)
     s = kernels.sorted_stream(tr, a[2], a[7])
     args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+    if tr.traversal == "grid":
+        tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
     esum, rays, _ = kernels.extra_kernel_plain(*args)
+    plain_stats = None
+    if tr.traversal == "grid":
+        plain_stats = tr.prims.stats.long().cpu()
+        tr.prims.ops = None
     want = (*esum, rays)
     it = kernels.extra_entry_iters(*args)
-    print(f"[group_k] {label} kernel B stream {tuple(s.xs.shape)}, "
+    print(f"[group_k] {label} kernel B ({kind}) stream {tuple(s.xs.shape)}, "
           f"{int((s.add > 0).sum())} budgeted entries", flush=True)
-    out = kernels._launch_extra(*args, "ref")
-    ms = _time(lambda: kernels._launch_extra(*args, "ref"), reps)
+
+    def same_counts(stats):
+        return None if stats is None else bool(torch.equal(stats,
+                                                           plain_stats))
+
+    out, stats = _counted(tr, lambda: kernels._launch_extra(*args, kind))
+    ms = _time(lambda: kernels._launch_extra(*args, kind), reps)
     _line(f"{label} kernel B", "thread", ms, _equal((*out[0], out[1]), want),
-          float(out[2]) == float(kernels.warp_iters(it, 1)), it)
+          float(out[2]) == float(kernels.warp_iters(it, 1)), it,
+          same_counts(stats))
     for k, lib in libs.items():
-        out = kernels._launch_extra(*args, "grouped", lib)
-        ms = _time(lambda: kernels._launch_extra(*args, "grouped", lib), reps)
+        width = int(str(k).split()[0])
+        out, stats = _counted(
+            tr, lambda: kernels._launch_extra(*args, grouped, lib))
+        ms = _time(lambda: kernels._launch_extra(*args, grouped, lib), reps)
         _line(f"{label} kernel B K", k, ms, _equal((*out[0], out[1]), want),
-              float(out[2]) == float(kernels.warp_iters(it, k)), it)
+              float(out[2]) == float(kernels.warp_iters(it, width)), it,
+              same_counts(stats))
 
 
 def _sweep_chunked(label, tr, pose, seed, libs, reps):
@@ -121,21 +162,27 @@ def main(argv=None):
         sys.exit(2)
     ks = [int(k) for k in args.ks.split(",")]
     tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}
+    # The grid kernel B's other design where the two differ (K > 8).
+    narrow = {f"{k} one block a step": (build.TUNE_SOURCE,
+                                         (f"TRT_TUNE_K={k}", "TRT_TUNE_WIDE=0"))
+              for k in ks if k > 8}
     t0 = time.perf_counter()
-    paths = build.library_paths(build.RENDER_SOURCES + tuple(tune.values()))
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(tune.values())
+                                + tuple(narrow.values()))
     print(f"[group_k] {len(paths)} libraries built in "
           f"{time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    for k, src in tune.items():
+    for k, src in {**tune, **narrow}.items():
         for line in paths[src].with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print(f"[group_k] K {k}: {line.strip()}", flush=True)
     libs = {k: build.load_kernels((src,)) for k, src in tune.items()}
+    narrow_libs = {k: build.load_kernels((src,)) for k, src in narrow.items()}
     pose = Camera().pose()
 
-    def scene(name, w, h, spp, depth):
+    def scene(name, w, h, spp, depth, **over):
         return load_scene(name).with_overrides(
-            width=w, height=h, samples_per_pixel=spp, max_depth=depth)
+            width=w, height=h, samples_per_pixel=spp, max_depth=depth, **over)
 
     ns = PathTracer(scene("Cornell_Box", 400, 200, 16, 32), "cuda")
     _sweep_extra("north star", ns, pose, SEED, libs, args.reps)
@@ -144,6 +191,18 @@ def main(argv=None):
         tr = PathTracer(scene(name, 200, 100, 8, 6), "cuda")
         _sweep_chunked(label, tr, pose, SEED, libs, args.reps)
         _sweep_extra(label, tr, pose, SEED, libs, args.reps)
+    fog = Fog(density=0.15)
+    for label, tr in (
+            ("fog", PathTracer(scene("Cornell_Box", 400, 200, 16, 32,
+                                     fog=fog), "cuda")),
+            ("stress1024 fog mis", PathTracer(
+                scene("stress:1024", 200, 100, 8, 6, fog=fog), "cuda",
+                transport="mis"))):
+        _sweep_extra(label, tr, pose, SEED, libs, args.reps)
+    tr = PathTracer(scene("stress:1024", 200, 100, 8, 6), "cuda",
+                    accel="grid")
+    _sweep_extra("stress1024 grid", tr, pose, SEED, {**libs, **narrow_libs},
+                 args.reps)
     return 0
 
 

@@ -223,6 +223,16 @@ XT_CASES = {
 }
 
 
+def _extra_wrapper(tr):
+    """The kernel B wrapper that extra_kernel passes `tr` on to: the grouped
+    entry of its instantiation where the table fits the budget."""
+    kind = kernels._kind(tr)
+    if kernels.takes_grouped(tr):
+        return kernels.GROUPED_EXTRA[kind]
+    return getattr(kernels, "extra_kernel" + ("" if kind == "ref"
+                                              else f"_{kind}"))
+
+
 def _xt_tracer(device, name, w=96, h=24, spp=32, depth=8, **kw):
     scene, over, transport = XT_CASES[name]
     scene = load_scene(scene).with_overrides(
@@ -248,12 +258,18 @@ def test_xt_kernels_match_plain_versions(cuda_device, name):
     s = kernels.sorted_stream(tr, k.state, k.additional)
     assert int((s.add > 0).sum()) > 0
     args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
-    n0 = kernels.extra_kernel_xt.launches
+    wrap_b = _extra_wrapper(tr)
+    n0 = wrap_b.launches
     ek, rk, _ = kernels.extra_kernel(*args)
     ep, rp, _ = kernels.extra_kernel_plain(*args)
-    assert kernels.extra_kernel_xt.launches == n0 + 1
+    assert wrap_b.launches == n0 + 1
     assert torch.equal(rk, rp)
     for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+    # The thread-per-entry XT entry, which tables over the budget take.
+    et, rt, _ = kernels._launch_extra(*args, kernels._kind(tr))
+    assert torch.equal(rt, rp)
+    for a, b in zip(et, ep):
         assert torch.equal(a, b)
 
 
@@ -362,7 +378,7 @@ def test_accel_kernels_match_plain_versions(cuda_device, name):
         width=64, height=16, samples_per_pixel=16, max_depth=6, **over)
     tr = PathTracer(scene, cuda_device, accel=accel, transport=transport)
     wrap_a = getattr(kernels, f"base_kernel_{accel}")
-    wrap_b = getattr(kernels, f"extra_kernel_{accel}")
+    wrap_b = _extra_wrapper(tr)
     n0 = wrap_a.launches
     k, ks = _kernel_counts(tr,
                            lambda: kernels.base_kernel(tr, POSE, SEED, 0))
@@ -386,6 +402,13 @@ def test_accel_kernels_match_plain_versions(cuda_device, name):
     for a, b in zip(ek, ep):
         assert torch.equal(a, b)
     assert torch.equal(ks, ps), (ks, ps)
+    # The thread-per-entry entry, which tables over the budget take.
+    (et, rt, _), ts = _kernel_counts(
+        tr, lambda: kernels._launch_extra(*args, kernels._kind(tr)))
+    assert torch.equal(rt, rp)
+    for a, b in zip(et, ep):
+        assert torch.equal(a, b)
+    assert torch.equal(ts, ps), (ts, ps)
 
 
 @pytest.mark.cuda

@@ -227,19 +227,21 @@ def _scene(name, **over):
                                            **over)
 
 
-@pytest.mark.parametrize("name, accel, grouped", [
-    ("Cornell_Box", "auto", True), ("stress:1024", "auto", True),
-    ("icosphere:3", "auto", True), ("icosphere:4", "auto", False),
-    ("showcase", "auto", False), ("stress:96", "grid", False)])
-def test_grouped_dispatch_by_the_table_size(name, accel, grouped):
+@pytest.mark.parametrize("name, accel, grouped, chunked", [
+    ("Cornell_Box", "auto", True, True), ("stress:1024", "auto", True, True),
+    ("icosphere:3", "auto", True, True), ("icosphere:4", "auto", False, False),
+    ("showcase", "auto", False, False), ("stress:96", "grid", True, False)])
+def test_grouped_dispatch_by_the_table_size(name, accel, grouped, chunked):
     """The grouped entries serve the reference gates over the table sweep
-    where the geometry rows fit the shared-memory budget: 1024 spheres take
-    20 KB, 1280 triangles 60 KB, 5120 triangles 240 KB."""
+    (kernel B also the XT gates and the culled sweep, whose group table is
+    staged too) where the geometry rows fit the shared-memory budget: 1024
+    spheres take 20 KB, 1280 triangles 60 KB, 5120 triangles 240 KB."""
     tr = PathTracer(_scene(name), "cpu", accel=accel)
     n_sph, n_pln, n_tri, _ = tr.tables.counts
     assert kernels.group_rows_bytes(tr) == 4 * (5 * n_sph + 9 * n_pln
                                                 + 12 * n_tri)
     assert kernels.takes_grouped(tr) is grouped
+    assert kernels.takes_grouped(tr, "chunked") is chunked
 
 
 def test_grouped_wrappers_refuse_what_they_do_not_serve():
