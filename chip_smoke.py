@@ -8,22 +8,28 @@ Phases, each reported on lines starting with its tag:
             maximum SM clock (the FP32 peak of the bounds below)
   [build]   every CUDA source built from csrc/ with nvcc, one process per
             source, all at once (seconds, ptxas registers and spills)
-  [kernel_base]   kernel A against its plain PyTorch version on the card:
-            Cornell_Box 128x16, 16 spp, seed 42, frame 0, depth 8 and 3.
-            Owed rays, adaptive budgets and end RNG states must be equal;
-            csum, csumsq and variance within max relative error 5e-3
-            (|k - p| / max(|p|, 1e-3), the kernel-vs-oracle gate of the
-            JAX package's bench.py)
+  [kernel_base]   kernel A against its plain PyTorch version on the card
+            in both forms, the thread-per-pixel entry, which the wrapper
+            takes for Cornell_Box's 11 primitives, and the grouped entry
+            (csrc/group.cuh kernel_base_grouped): Cornell_Box 128x16, 16
+            spp, seed 42, frame 0, depth 8 and 3. Owed rays, adaptive
+            budgets, variance, end RNG states and the bits of csum and
+            csumsq must be equal; both timed
   [kernel_extra]  kernel B against its plain version on the budget-sorted
             stream built from the depth-8 output, in both forms: the
             grouped entry (csrc/group.cuh), which the wrapper takes, and
             the thread-per-entry entry, each bit for bit (rays, esum bits,
             maxrel 0) with its executed lane-iterations equal to the plain
-            model at its group width; then kernel A and both forms of B
+            model at its group width; then both forms of kernel A and of B
             held against and timed beside their plain versions at the
-            north-star shapes, with K, the working warps, the longest
+            north-star shapes, and both forms of A at stress256 (where the
+            wrapper takes the grouped one), with K, the working warps, the
+            longest
             entry's iterations and µs an iteration, the staged rows' bytes
-            and the entry the wrapper takes
+            and the entry the wrapper takes; kernel A also with its
+            schedule (static or refill), both forms' lane-iterations (the
+            static one's equal to the plain model at K, the refill one's at
+            least the pixels' summed iterations) and both forms' occupancy
   [kernel_base_chunked]  the same for the chunked kernel A on
             stress:120:7 at 64x16, 8 spp, depth 6, chunks of 2 (rays, end
             states, per-pixel totals and radiance bits equal) and at the
@@ -32,9 +38,11 @@ Phases, each reported on lines starting with its tag:
   [thread]  the thread-per-entry kernel B and chunked kernel A where the
             wrapper takes them, at mesh5120 (icosphere:4, 5120 triangles
             whose rows exceed the grouped kernels' shared-memory budget),
-            and kernel B's thread-per-entry XT entry at mesh5120 in fog and
-            grid entry at mesh5120 under grid: bit for bit against their
-            plain versions (grid: traversal counters equal), timed
+            the thread-per-pixel grid kernel A at mesh5120 under grid, and
+            kernel B's thread-per-entry XT
+            entry at mesh5120 in fog and grid entry at mesh5120 under grid:
+            bit for bit against their plain versions (grid: traversal
+            counters equal), timed
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -47,7 +55,9 @@ Phases, each reported on lines starting with its tag:
             memory budget); the device busy share and device time by
             kernel of profiled north-star, stress1024 and mesh1280
             frames, and their sorted frames through the grouped and the
-            thread-per-entry kernels in turns; then one stress1024 frame
+            thread-per-entry kernels in turns (the north star and stress256
+            also with kernel A alone in either form); then one stress1024
+            frame
             and one animated frame at t > 0 (dynamic1024, and Cornell at
             128x32) against the plain pipeline on the card, on the same
             per-frame scene buffer: rays, samples and variance equal,
@@ -97,14 +107,18 @@ Phases, each reported on lines starting with its tag:
             in both forms (the grouped entry, which the wrapper takes, and
             the thread-per-entry entry) bit for bit, both counters equal
             to the plain version's, both lane-iterations equal to the
-            plain model, timed side by side; Engine at stress256,
+            plain model, timed side by side; the grid kernel A likewise in
+            both forms (grouped, which the wrapper takes, and thread per
+            pixel), with its schedule and occupancy; Engine at stress256,
             stress1024 and mesh1280 under baked, auto (array), grid and
             gathered, at mesh5120 under grid (rows over the grouped
-            kernels' budget: the thread-per-entry grid kernel B), and at
-            the north star under grid, with each traversal's counters over
-            the warm-up frame; the stress1024 grid frame through both forms
-            of kernel B in turns; cli.main with --accel grid and --accel
-            gathered; and at the stress1024 shapes
+            kernels' budget: the thread-per-pixel kernel A and the
+            thread-per-entry kernel B), and at the north star under grid
+            (too few primitives for the grouped kernel A),
+            with each traversal's counters over the warm-up frame; the
+            stress1024 grid frame through both forms of every kernel, and
+            of kernel A alone, in turns; cli.main with --accel grid and
+            --accel gathered; and at the stress1024 shapes
             a frame through the grid kernels beside one through the XT
             kernels over the blocked scene's dense table sweep (the JAX
             oracle's traversal under accel 'grid'), three seeds: the
@@ -128,9 +142,11 @@ Phases, each reported on lines starting with its tag:
             on the card within max relative error 1e-5 of the same filter
             on a CPU copy of its inputs, timed
   [mesh]    the multi-GPU path (parallel/mesh.py) on one card: kernel A
-            with each sample-split shard's runtime quota and seed at the
-            north star (sp = 3: shares 2, 1, 1) on the whole image and on
-            the px = 2 row block y0 = 100, against base_kernel_plain with
+            (through the entry the wrapper takes, thread per pixel at the
+            north star) with each sample-split shard's runtime quota and
+            seed at the north star (sp = 3: shares 2, 1, 1) on the whole
+            image and on the px = 2 row block y0 = 100, against
+            base_kernel_plain with
             the same arguments (rays, end states, budgets and variance
             equal, sums within 5e-3), timed per share; the sample-split
             composition (every shard's phases in one process, the sums
@@ -162,8 +178,10 @@ Then one JSON line with each kernel's result (its max abs error: the
 largest over its comparisons, which include the main path's shapes; its
 bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
-3.35 TB/s, whichever is larger; kernel_extra_grouped at the north
-star, kernel_base_chunked_grouped at stress1024, the thread-per-entry
+3.35 TB/s, whichever is larger; the thread-per-pixel kernel_base and
+kernel_extra_grouped at the north star, kernel_base_grouped at stress256,
+kernel_base_chunked_grouped and kernel_base_grid_grouped at stress1024,
+the thread-per-pixel kernel_base_grid and the thread-per-entry
 kernel_extra, kernel_extra_xt, kernel_extra_grid and kernel_base_chunked
 at mesh5120 (in fog, under grid); the EXT rows at the showcase and
 stress:1024-checker shapes; the other XT rows at the fog and stress:1024
@@ -269,36 +287,82 @@ def _pose():
     return Camera().pose()
 
 
-def phase_kernel_base():
-    """Returns (max abs error, the depth-8 tracer and kernel output)."""
-    import torch
-
-    from terminal_raytracer_tpu_torch.ops import kernels
+def phase_kernel_base(peak):
+    """Kernel A in both forms at Cornell_Box 128x16, 16 spp, depth 8 and 3
+    (_base_both). Returns (max abs error of each form, the depth-8 tracer
+    and the wrapper's output)."""
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
-    pose = _pose()
-    worst_abs, keep = 0.0, None
+    worst, keep = {"grouped": 0.0, "thread": 0.0}, None
     for depth in (8, 3):
         tr = PathTracer(_cornell(128, 16, 16, depth), "cuda")
-        k = kernels.base_kernel(tr, pose, SEED, 0)
-        p = kernels.base_kernel_plain(tr, pose, SEED, 0)
-        torch.cuda.synchronize()
-        eq = {name: bool(torch.equal(getattr(k, name), getattr(p, name)))
-              for name in ("rays", "additional", "state")}
-        pairs = list(zip(k.csum, p.csum)) + list(zip(k.csumsq, p.csumsq))
-        pairs.append((k.var, p.var))
-        rel = max(maxrel(a, b) for a, b in pairs)
-        worst_abs = max(worst_abs, max(maxabs(a, b) for a, b in pairs))
-        n_needy = int((p.additional > 0).sum())
-        print(f"[kernel_base] depth {depth}: rays {float(k.rays.sum()):.0f}, "
-              f"equal {eq}, maxrel {rel:.3e}, budgeted pixels {n_needy}",
-              flush=True)
-        if not all(eq.values()) or not rel < TOL:
-            fail(f"[kernel_base] depth {depth} disagrees with the plain "
-                 "version")
+        res, out = _base_both("kernel_base", f"depth {depth}", tr, peak)
+        for form in worst:
+            worst[form] = max(worst[form], res[form][0])
         if depth == 8:
-            keep = (tr, k)
-    return worst_abs, keep
+            keep = (tr, out)
+    return worst, keep
+
+
+def _base_both(tag, label, tr, peak):
+    """Kernel A of tracer `tr` (reference gates or `--accel grid`) in both
+    forms, the grouped entry and the thread-per-pixel entry, the one that
+    ops/kernels.takes_grouped picks through the wrapper: each against the
+    plain version bit for bit (rays, budgets, variance, end states, csum
+    and csumsq bits; grid: the traversal counters), the thread-per-pixel
+    lane-iterations equal to the plain model, the grouped ones as
+    _base_iters_model says; both timed beside each other. Returns ({form:
+    (max abs error, ms, plain ms, bound)}, the wrapper's output)."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    pose = _pose()
+    kind = kernels._kind(tr)
+    grid = kind == "grid"
+    name = "base_grid" if grid else "base"
+    taken = "grouped" if kernels.takes_grouped(tr, "base") else "thread"
+    wrapper = (kernels.GROUPED_BASE[kind] if taken == "grouped"
+               else kernels.base_kernel_grid if grid else kernels.base_kernel)
+
+    def launch(form):
+        k = (kind + "_grouped" if grid else "grouped") if form == "grouped" \
+            else kind
+        return lambda: kernels._launch_base(tr, pose, SEED, 0, 0, None, None,
+                                            k)
+
+    n0 = wrapper.launches
+    outs = {taken: _counted_launch(
+        tr, lambda: kernels.base_kernel(tr, pose, SEED, 0))}
+    if wrapper.launches != n0 + 1:
+        fail(f"[{tag}] {label}: kernel A took no {wrapper.__name__}")
+    other = "thread" if taken == "grouped" else "grouped"
+    outs[other] = _counted_launch(tr, launch(other))
+    pc = []
+    plain, ops, p = _time_plain(
+        tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0),
+        pc if grid else None)
+    it = kernels.base_entry_iters(tr, pose, SEED, 0)
+    atlas = 0 if tr.atlas is None else tr.atlas.numel()
+    bound = _bound(ops, 4 * (tr.tables.buf.numel() + atlas)
+                   + 44 * p.var.numel(), peak)
+    res = {}
+    for form in ("grouped", "thread"):
+        out, counts = outs[form]
+        err = _compare_base(tag, f"{label} kernel A {form}", out, p,
+                            ("additional", "var"), exact=True)
+        if grid:
+            _check_counts(f"{label} kernel A {form}", counts, pc[0])
+        if form == "thread":
+            _iters_model(tag, f"{label} kernel A thread", out.iters, it, 1)
+        else:
+            _base_iters_model(tag, f"{label} kernel A", out.iters, it, name)
+        res[form] = (err, _time_cuda(launch(form), 5), plain, bound)
+    _grouped_vs_thread(tag, f"{label} kernel A", name, tr,
+                       res["grouped"][1], res["thread"][1], it,
+                       (outs["grouped"][0], outs["thread"][0]))
+    print(f"[{tag}] {label} kernel A: the wrapper takes {wrapper.__name__}; "
+          f"plain {_fmt_ms(plain)}, bound {bound[0]:.4f} ms by {bound[1]}: "
+          f"{ops:.4g} FP32 operations", flush=True)
+    return res, outs[taken][0]
 
 
 def _time_cuda(fn, reps, warm=True, queued=True):
@@ -372,11 +436,32 @@ def _iters_model(tag, label, got, entry_iters, k):
              f"the plain model at K = {k} {want:.0f}")
 
 
-def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters):
+def _base_iters_model(tag, label, got, entry_iters, kind):
+    """A grouped kernel A's executed lane-iterations (kind 'base' or
+    'base_grid'): on the static schedule the plain model at its group
+    width, on the refill schedule at least the pixels' summed iterations
+    (every slot busy)."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    if not kernels.group_refill(kind):
+        _iters_model(tag, label, got, entry_iters, kernels.group_k(kind))
+    elif float(got) < float(entry_iters.sum()):
+        fail(f"[{tag}] {label}: refill lane-iterations {float(got):.0f} "
+             f"below the pixels' sum {int(entry_iters.sum())}")
+
+
+def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters,
+                       base_outs=None):
     """Print the grouped entry's time beside the thread-per-entry entry's,
     with K (ops/kernels.group_k(kind)), the working warps, the longest
     entry's iterations and the µs an iteration on that chain, the staged
-    bytes and the entry that the wrapper takes for `tr`."""
+    bytes and the entry that the wrapper takes for `tr`. Kernel A ('base',
+    'base_grid'; `base_outs` its grouped and thread-per-pixel outputs) adds
+    its schedule, each form's lane-iterations beside the static model and
+    the pixels' sum, and each form's occupancy: owed sweeps over
+    lane-iterations x (1 + nee_sweeps)."""
+    import torch
+
     from terminal_raytracer_tpu_torch.ops import kernels
 
     k = kernels.group_k(kind)
@@ -385,20 +470,34 @@ def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters):
     longest = int(entry_iters.max())
     took = ("grouped" if kernels.takes_grouped(tr, kind.split("_")[0])
             else "thread-per-entry")
+    extra = ""
+    if base_outs is not None:
+        g, t = base_outs
+        owed = float(t.rays.sum(dtype=torch.float64))
+        per = 1.0 + tr.nee_sweeps
+        sched = "refill" if kernels.group_refill(kind) else "static"
+        extra = (f"; schedule {sched}, lane-iterations {float(g.iters):.0f} / "
+                 f"{float(t.iters):.0f} (static model at K "
+                 f"{float(kernels.warp_iters(entry_iters, k)):.0f}, pixels' "
+                 f"sum {int(entry_iters.sum())}), occupancy "
+                 f"{owed / (float(g.iters) * per):.3f} / "
+                 f"{owed / (float(t.iters) * per):.3f}")
     print(f"[{tag}] {label}: grouped K {k} {ms_g:.4f} ms on {w_g} working "
           f"warps, thread-per-entry {ms_t:.4f} ms on {w_t} (x{ms_t / ms_g:.2f});"
           f" longest entry {longest} iterations: {1e3 * ms_g / longest:.3f} / "
           f"{1e3 * ms_t / longest:.3f} µs an iteration; staged "
           f"{kernels.group_smem_bytes(tr)} B of {kernels.GROUP_SMEM_BYTES}; "
-          f"the wrapper takes {took}", flush=True)
+          f"the wrapper takes {took}{extra}", flush=True)
 
 
 def phase_kernel_extra(tr, a, peak):
     """Kernel B vs plain on the stream of kernel A's output `a`: the grouped
     entry (which the wrapper takes) and the thread-per-entry entry, each
     bit for bit with its executed lane-iterations equal to the plain model;
-    then kernel A and both forms of kernel B held against and timed beside
-    their plain versions at the north star."""
+    then both forms of kernel A (_base_both) and of kernel B held against
+    and timed beside their plain versions at the north star, and both forms
+    of A at stress256. Returns (kernel A's forms at the north star and at
+    stress256, B's max abs error, B's ms, plain ms and bound)."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
@@ -429,16 +528,16 @@ def phase_kernel_extra(tr, a, peak):
     s = kernels.sorted_stream(tr, a.state, a.additional)
     _, _, err = both(tr, s, "Cornell_Box 128x16 depth 8")
 
-    # Kernel A and both forms of B against their plain versions at the
-    # north-star shapes, and timed there (outside the counted main path).
+    # Both forms of A and both forms of B against their plain versions at
+    # the north-star shapes, and timed there (outside the counted main
+    # path); both forms of A also at stress256, where the wrapper takes the
+    # grouped one.
     ns = PathTracer(_cornell(400, 200, 16, 32), "cuda")
     scene_bytes = 4 * ns.tables.buf.numel()
-    ms_a = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
-    plain_a, ops_a, p_ns = _time_plain(
-        ns, lambda: kernels.base_kernel_plain(ns, pose, SEED, 0))
-    a_ns = kernels.base_kernel(ns, pose, SEED, 0)
-    err_a = _compare_base("kernel_base", "north-star shapes", a_ns, p_ns,
-                          ("additional", "var"))
+    res_a, a_ns = _base_both("kernel_extra", "north-star shapes", ns, peak)
+    res_a256, _ = _base_both(
+        "kernel_extra", "stress256 shapes",
+        PathTracer(_scene("stress:256", 200, 100, 8, 6), "cuda"), peak)
     s_ns = kernels.sorted_stream(ns, a_ns.state, a_ns.additional)
     args, it, err_ns = both(ns, s_ns, "north-star shapes")
     err = max(err, err_ns)
@@ -446,18 +545,15 @@ def phase_kernel_extra(tr, a, peak):
     ms_bt = _time_cuda(lambda: kernels._launch_extra(*args, "ref"), 5)
     plain_b, ops_b, _ = _time_plain(
         ns, lambda: kernels.extra_kernel_plain(*args))
-    n_pix, n_ent = a_ns.var.numel(), s_ns.add.numel()
-    bound_a = _bound(ops_a, scene_bytes + 44 * n_pix, peak)
+    n_ent = s_ns.add.numel()
     bound_b = _bound(ops_b, scene_bytes + 40 * n_ent, peak)
-    print(f"[kernel_extra] north-star shapes: kernel_base {ms_a:.3f} ms "
-          f"(plain {plain_a:.1f} ms, bound {bound_a[0]:.3f} ms by "
-          f"{bound_a[1]}: {ops_a:.4g} FP32 test operations), kernel_extra "
+    print(f"[kernel_extra] north-star shapes: kernel_extra "
           f"grouped {ms_b:.3f} ms on {int((s_ns.add > 0).sum())} budgeted of "
           f"{n_ent} entries (plain {plain_b:.1f} ms, bound {bound_b[0]:.4f} "
           f"ms by {bound_b[1]}: {ops_b:.4g} operations)", flush=True)
     _grouped_vs_thread("kernel_extra", "north-star shapes", "extra", ns, ms_b,
                        ms_bt, it)
-    return err_a, err, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
+    return res_a, res_a256, err, (ms_b, plain_b, bound_b)
 
 
 def _chunk_totals(tr, out):
@@ -537,14 +633,15 @@ def phase_kernel_base_chunked(peak):
 
 
 def phase_thread_per_entry(peak):
-    """The thread-per-entry kernel B and chunked kernel A where the main
-    path takes them, on a table above the grouped kernels' shared-memory
-    budget (mesh5120, icosphere:4 at the bench's 200x100, 8 spp, depth 6):
-    the reference entries, then kernel B's XT entry in fog (XT_OVER_BUDGET)
-    and its grid entry under `--accel grid` (ACCEL_OVER_BUDGET), each taken
-    by its wrapper, against its plain version bit for bit (grid: and the
-    traversal counters) and timed there. Returns {row: (max abs error, ms,
-    plain ms, bound)}."""
+    """The thread-per-entry kernel B and chunked kernel A, and the
+    thread-per-pixel grid kernel A, where the main path takes them, on a
+    table above the grouped kernels' shared-memory budget (mesh5120,
+    icosphere:4 at the bench's 200x100, 8 spp, depth 6): the reference
+    entries, then kernel B's XT entry in fog (XT_OVER_BUDGET) and kernels
+    A and B over the culled sweep under `--accel grid` (ACCEL_OVER_BUDGET),
+    each taken by its wrapper, against its plain version bit for bit (grid:
+    and the traversal counters) and timed there. Returns {row: (max abs
+    error, ms, plain ms, bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
@@ -571,18 +668,43 @@ def phase_thread_per_entry(peak):
           f"{bound_c[0]:.4f} ms by {bound_c[1]})", flush=True)
     out = {"c": (err_c, ms_c, plain_c, bound_c)}
 
+    # The grid kernel A, thread per pixel.
+    grid = PathTracer(_scene(ACCEL_OVER_BUDGET[1], 200, 100, 8, 6), "cuda",
+                      accel="grid")
+    if kernels.takes_grouped(grid, "base"):
+        fail("[thread] mesh5120 grid takes the grouped kernel A")
+    n0 = kernels.base_kernel_grid.launches
+    k, kc = _counted_launch(grid, lambda: kernels.base_kernel(grid, pose,
+                                                              SEED, 0))
+    if kernels.base_kernel_grid.launches != n0 + 1:
+        fail("[thread] mesh5120 grid: kernel A took no thread-per-pixel "
+             "entry")
+    ms = _time_cuda(lambda: kernels.base_kernel(grid, pose, SEED, 0), 3)
+    pc = []
+    plain, ops, p = _time_plain(
+        grid, lambda: kernels.base_kernel_plain(grid, pose, SEED, 0), pc)
+    err = _compare_base("thread", "mesh5120 grid kernel A", k, p,
+                        ("additional", "var"), exact=True)
+    _check_counts("mesh5120 grid kernel A", kc, pc[0])
+    bound = _bound(ops, 4 * (grid.tables.buf.numel() + grid.atlas.numel())
+                   + 44 * k.var.numel(), peak)
+    print(f"[thread] mesh5120 grid shapes ({kernels.group_smem_bytes(grid)} "
+          f"B staged, over the {kernels.GROUP_SMEM_BYTES} B budget): "
+          f"base_kernel_grid {ms:.3f} ms (plain {plain:.1f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
+          flush=True)
+    out["ga"] = (err, ms, plain, bound)
+
     _, name, size, over, transport = XT_OVER_BUDGET
     for key, label, t, wrapper in (
             ("b", "mesh5120", tr, kernels.extra_kernel),
             ("xt", "mesh5120 fog", PathTracer(_xt_scene(name, size, over),
                                               "cuda", transport=transport),
              kernels.extra_kernel_xt),
-            ("grid", "mesh5120 grid",
-             PathTracer(_scene(ACCEL_OVER_BUDGET[1], 200, 100, 8, 6), "cuda",
-                        accel="grid"), kernels.extra_kernel_grid)):
+            ("grid", "mesh5120 grid", grid, kernels.extra_kernel_grid)):
         if kernels.takes_grouped(t):
             fail(f"[thread] {label} takes the grouped kernel B")
-        grid = t.traversal == "grid"
+        culled = t.traversal == "grid"
         a = kernels.base_phase(t, pose, SEED, 0)
         s = kernels.sorted_stream(t, a[2], a[7])
         args = (t, pose, s.xs, s.ys, s.state, s.add, s.samp0)
@@ -593,9 +715,10 @@ def phase_thread_per_entry(peak):
         ms = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
         pc = []
         plain, ops, pb = _time_plain(
-            t, lambda: kernels.extra_kernel_plain(*args), pc if grid else None)
+            t, lambda: kernels.extra_kernel_plain(*args),
+            pc if culled else None)
         err = _check_extra("thread", label, s, b, pb, exact=True)
-        if grid:
+        if culled:
             _check_counts(f"{label} kernel B", kc, pc[0])
         atlas = 0 if t.atlas is None else t.atlas.numel()
         bound = _bound(ops, 4 * (t.tables.buf.numel() + atlas)
@@ -613,6 +736,7 @@ def phase_thread_per_entry(peak):
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
+                "base_kernel_grouped", "base_kernel_grid_grouped",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
                 "extra_kernel_xt_grouped", "extra_kernel_grid_grouped",
                 "base_kernel_ext", "base_kernel_chunked_ext",
@@ -631,10 +755,13 @@ def _sfx(tr) -> str:
 
 def _a_name(tr) -> str:
     """The kernel A wrapper that counts the launches of tracer `tr`'s base
-    phase: the grouped chunked entry where ops/kernels.takes_grouped."""
+    phase: the grouped entry (chunked or not) where
+    ops/kernels.takes_grouped."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     if not tr.chunk_base:
+        if kernels.takes_grouped(tr, "base"):
+            return kernels.GROUPED_BASE[kernels._kind(tr)].__name__
         return "base_kernel" + _sfx(tr)
     return ("base_kernel_chunked_grouped"
             if kernels.takes_grouped(tr, "chunked")
@@ -853,11 +980,14 @@ SCALE_CONFIGS = (
 )
 
 
-def _frames_grouped_vs_thread(tag, label, scene, frames=8, **kw):
+def _frames_grouped_vs_thread(tag, label, scene, frames=8, base_only=False,
+                              **kw):
     """ms/frame of the sorted pipeline on one tracer (PathTracer keywords
     `kw`) with the grouped kernels and with the thread-per-entry kernels
     (the dispatch by table size turned off), in turns: thread, grouped,
-    grouped, thread."""
+    grouped, thread. `base_only`: kernel A alone in either form (its
+    grouped entry wherever it serves the tracer, also below
+    GROUP_BASE_MIN_PRIMS), the other kernels as the dispatch takes them."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
@@ -870,8 +1000,18 @@ def _frames_grouped_vs_thread(tag, label, scene, frames=8, **kw):
     times = {"thread": [], "grouped": []}
     try:
         for form in ("thread", "grouped", "grouped", "thread"):
-            kernels.takes_grouped = (grouped if form == "grouped"
-                                     else lambda *a: False)
+            def forced(tracer, kernel="extra", form=form):
+                if base_only and kernel != "base":
+                    return grouped(tracer, kernel)
+                if form == "thread":
+                    return False
+                if not base_only:
+                    return grouped(tracer, kernel)
+                return (kernels._kind(tracer) in kernels.GROUPED_BASE
+                        and kernels.group_smem_bytes(tracer)
+                        <= kernels.GROUP_SMEM_BYTES)
+
+            kernels.takes_grouped = forced
             render(pose, SEED, 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -881,7 +1021,9 @@ def _frames_grouped_vs_thread(tag, label, scene, frames=8, **kw):
             times[form].append(1e3 * (time.perf_counter() - t0) / frames)
     finally:
         kernels.takes_grouped = grouped
-    print(f"[{tag}] {label} sorted frame in turns, {frames} frames each: "
+    which = "kernel A" if base_only else "every kernel"
+    print(f"[{tag}] {label} sorted frame in turns, {frames} frames each, "
+          f"{which} thread per entry or grouped: "
           f"thread per entry {times['thread'][0]:.3f} / "
           f"{times['thread'][1]:.3f} ms/frame, grouped "
           f"{times['grouped'][0]:.3f} / {times['grouped'][1]:.3f}",
@@ -906,6 +1048,12 @@ def phase_scale():
                          ("mesh1280", _scene("icosphere:3", 200, 100, 8, 6))):
         _device_busy("scale", label, scene, 8)
         _frames_grouped_vs_thread("scale", label, scene)
+        if label == "north star":
+            _frames_grouped_vs_thread("scale", label, scene, base_only=True)
+    # Kernel A in either form where the dispatch takes the grouped one.
+    _frames_grouped_vs_thread("scale", "stress256",
+                              _scene("stress:256", 200, 100, 8, 6),
+                              base_only=True)
 
     pose = _pose()
     tr = PathTracer(_scene("stress:1024", 200, 100, 8, 6), "cuda")
@@ -1535,16 +1683,27 @@ def phase_accel(peak):
         # walk's plain version steps every lane at once: seconds a call).
         timed = label == "stress1024"
         plain_run = _time_plain if timed else _plain_counted
-        k, kc = _counted_launch(tr, lambda: wrap_a(tr, pose, SEED, 0))
-        pc = []
-        plain_a, ops_a, p = plain_run(
-            tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0), pc)
-        err_a = _compare_base("accel", f"{tag} kernel A", k, p,
-                              ("additional", "var"))
-        _check_counts(f"{tag} kernel A", kc, pc[0])
-        print(f"[accel] {tag} kernel A: {_traversal_counts(accel, kc)}",
-              flush=True)
-        ms_a = _time_cuda(lambda: wrap_a(tr, pose, SEED, 0), 5)
+        if accel == "grid":
+            # Kernel A's grouped entry, which the wrapper takes, and its
+            # thread-per-pixel entry: bit for bit, both counters the plain
+            # version's, the lane-iterations the plain model's.
+            res_a, k = _base_both("accel", tag, tr, peak)
+            err_a, ms_a, plain_a, bound_a = res_a["grouped"]
+            err_at = res_a["thread"][0]
+        else:
+            k, kc = _counted_launch(tr, lambda: wrap_a(tr, pose, SEED, 0))
+            pc = []
+            plain_a, ops_a, p = plain_run(
+                tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0), pc)
+            err_a = _compare_base("accel", f"{tag} kernel A", k, p,
+                                  ("additional", "var"))
+            _check_counts(f"{tag} kernel A", kc, pc[0])
+            print(f"[accel] {tag} kernel A: {_traversal_counts(accel, kc)}",
+                  flush=True)
+            ms_a = _time_cuda(lambda: wrap_a(tr, pose, SEED, 0), 5)
+            bound_a = _bound(ops_a, 4 * (tr.tables.buf.numel()
+                                         + tr.atlas.numel())
+                             + 44 * k.var.numel(), peak)
         s = kernels.sorted_stream(tr, k.state, k.additional)
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         b, kc = _counted_launch(tr, lambda: wrap_b(*args))
@@ -1577,17 +1736,18 @@ def phase_accel(peak):
             _grouped_vs_thread("accel", f"{tag} shapes", "extra_grid", tr,
                                ms_g, ms_b, it)
         fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
-        bound_a = _bound(ops_a, fixed + 44 * k.var.numel(), peak)
         bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
-        print(f"[accel] {tag} shapes: base_kernel_{accel} {ms_a:.3f} ms "
+        print(f"[accel] {tag} shapes: {_a_name(tr)} {ms_a:.3f} ms "
               f"(plain {_fmt_ms(plain_a)}, bound {bound_a[0]:.4f} ms by "
-              f"{bound_a[1]}: {ops_a:.4g} FP32 operations), "
+              f"{bound_a[1]}), "
               f"extra_kernel_{accel} {ms_b:.3f} ms on "
               f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries "
               f"(plain {_fmt_ms(plain_b)}, bound {bound_b[0]:.4f} ms by "
               f"{bound_b[1]}: {ops_b:.4g} operations)", flush=True)
         if timed:
             res[accel, "a"] = (err_a, ms_a, plain_a, bound_a)
+            if accel == "grid":
+                res[accel, "at"] = (err_at,)
             res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
             if accel == "grid":
                 res[accel, "g"] = (err_g, ms_g, plain_b, bound_b)
@@ -1604,9 +1764,10 @@ def phase_accel(peak):
     _add(launches, _run_engine("accel", f"{label} grid",
                                _scene(name, 200, 100, 8, 6), True, 4,
                                accel="grid"))
-    _frames_grouped_vs_thread("accel", "stress1024 grid",
-                              _scene("stress:1024", 200, 100, 8, 6),
-                              accel="grid")
+    for base_only in (False, True):
+        _frames_grouped_vs_thread("accel", "stress1024 grid",
+                                  _scene("stress:1024", 200, 100, 8, 6),
+                                  base_only=base_only, accel="grid")
     _add(launches, _run_engine("accel", "north star grid",
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
@@ -1617,10 +1778,10 @@ def phase_accel(peak):
         got = _launches()
         print(f"[accel] cli.main --scene stress:256 --accel {accel} rc {rc}, "
               f"launches {_nonzero(got)}", flush=True)
-        b = ("extra_kernel_grid_grouped" if accel == "grid"
-             else f"extra_kernel_{accel}")
-        want = dict(dict.fromkeys(LAUNCH_NAMES, 0),
-                    **{f"base_kernel_{accel}": 1, b: 1})
+        a, b = (f"base_kernel_{accel}", f"extra_kernel_{accel}")
+        if accel == "grid":
+            a, b = f"{a}_grouped", f"{b}_grouped"
+        want = dict(dict.fromkeys(LAUNCH_NAMES, 0), **{a: 1, b: 1})
         if rc != 0 or got != want:
             fail(f"[accel] cli.main --accel {accel} failed")
         _add(launches, got)
@@ -1878,7 +2039,12 @@ def phase_mesh(peak):
                 return kernels.base_kernel(tr, pose, seed, 0, y0, h_out,
                                            base_q=q)
 
+            took = getattr(kernels, _a_name(tr))
+            n0 = took.launches
             k = launch()
+            if took.launches != n0 + 1:
+                fail(f"[mesh] kernel A {where} quota {q}: not launched "
+                     f"through {took.__name__}")
             plain_ms, ops, p = _time_plain(
                 tr, lambda: kernels.base_kernel_plain(tr, pose, seed, 0, y0,
                                                       h_out, base_q=q))
@@ -1888,7 +2054,8 @@ def phase_mesh(peak):
             ms = _time_cuda(launch, 5)
             n_pix = p.var.numel()
             bound = _bound(ops, scene_bytes + 44 * n_pix, peak)
-            print(f"[mesh] kernel A {where} quota {q} (seed {seed}): "
+            print(f"[mesh] kernel A {where} quota {q} (seed {seed}) through "
+                  f"{took.__name__}: "
                   f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
                   f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} FP32 "
                   "operations)", flush=True)
@@ -2176,10 +2343,9 @@ def main() -> int:
     import torch
 
     phase_build()
-    err_a, (tr, a) = phase_kernel_base()
-    err_a_ns, err_b, (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b) = (
-        phase_kernel_extra(tr, a, peak))
-    err_a = max(err_a, err_a_ns)
+    err_a, (tr, a) = phase_kernel_base(peak)
+    res_a, res_a256, err_b, (ms_b, plain_b, bound_b) = phase_kernel_extra(
+        tr, a, peak)
     err_c, (ms_c, plain_c, bound_c) = phase_kernel_base_chunked(peak)
     thread = phase_thread_per_entry(peak)
     launches = phase_main()
@@ -2199,8 +2365,15 @@ def main() -> int:
     probe_launches, probes = phase_probes(peak)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
-    rows = (("kernel_base", "base_kernel", "kernel_base.cu", "796", err_a,
-             ms_a, plain_a, bound_a),
+    rows = (# Kernel A, thread per pixel at the north star (too few
+            # primitives for the grouped entry), and grouped (csrc/group.cuh)
+            # at stress256; each form's error includes the other's checks.
+            ("kernel_base", "base_kernel", "kernel_base.cu", "796",
+             max(err_a["thread"], res_a["thread"][0], res_a256["thread"][0]),
+             *res_a["thread"][1:]),
+            ("kernel_base_grouped", "base_kernel_grouped", "group.cuh", "796",
+             max(err_a["grouped"], res_a["grouped"][0],
+                 res_a256["grouped"][0]), *res_a256["grouped"][1:]),
             # Kernel B and the chunked kernel A, thread per entry (at the
             # mesh5120 shapes, above the grouped kernels' budget) and
             # grouped (csrc/group.cuh; at the north star and stress1024).
@@ -2241,8 +2414,15 @@ def main() -> int:
             # The opt-in traversals, bound into kernel A at :808-809 and
             # into kernel B at :1032-1033 (the culled sweep's scratch,
             # _maybe_bind_sweep; the walk's tables, _gather_bind_front).
+            # Thread per pixel at mesh5120 under grid ([thread]), where the
+            # main path takes it; grouped (csrc/group.cuh GroupCulled; entry
+            # in kernel_accel.cu) at the stress1024 shapes, where its
+            # comparisons include the thread-per-pixel entry's.
             ("kernel_base_grid", "base_kernel_grid", "kernel_accel.cu",
-             "809", *acc["grid", "a"]),
+             "809", max(acc["grid", "at"][0], thread["ga"][0]),
+             *thread["ga"][1:]),
+            ("kernel_base_grid_grouped", "base_kernel_grid_grouped",
+             "group.cuh", "809", *acc["grid", "a"]),
             # Thread per entry at mesh5120 under grid ([thread]), where the
             # main path takes it; its stress1024 time is printed in [accel].
             ("kernel_extra_grid", "extra_kernel_grid", "kernel_accel.cu",

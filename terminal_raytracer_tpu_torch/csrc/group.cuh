@@ -1,11 +1,13 @@
-// The grouped kernels: kernel B (kernel_extra_grouped, templated on the
-// gates and the traversal like pipeline.cuh's kernel_extra) and the chunked
-// kernel A (kernel_base_chunked_grouped) at the reference gate set over the
-// table sweep, redesigned for the H100 (kernel_extra.cu, kernel_accel.cu
-// and kernel_base.cu instantiate them and say what they replace). Kernel B
-// comes at the reference gates and at the XT gates over the table sweep
-// (GroupSweep) and over the block-culled sweep of `--accel grid`
-// (GroupCulled).
+// The grouped kernels: kernel B (kernel_extra_grouped) and kernel A
+// (kernel_base_grouped, with the variance and budget epilogue), templated
+// on the gates and the traversal like pipeline.cuh's kernel_extra and
+// kernel_base, and the chunked kernel A (kernel_base_chunked_grouped) at
+// the reference gate set over the table sweep, redesigned for the H100
+// (kernel_extra.cu, kernel_accel.cu and kernel_base.cu instantiate them
+// and say what they replace). Kernel B comes at the reference gates and at
+// the XT gates over the table sweep (GroupSweep) and over the block-culled
+// sweep of `--accel grid` (GroupCulled); kernel A at the reference gates
+// over GroupSweep and over GroupCulled.
 //
 // What bound the thread-per-entry kernels (pipeline.cuh kernel_extra and
 // kernel_base_chunked, the case K = 1 below): the critical chain of one
@@ -323,11 +325,12 @@ constexpr int CULL_BLOCK = 8;
 // 8). WIDE = true (K >= 16): L = CULL_BLOCK, P = K / 8 candidate blocks a
 // step, one member a lane, at the cost of the replay's broadcasts; the
 // groups of a warp no longer split on different decisions at K = 32. Both
-// are exact; kernel_accel.cu ships WIDE = true. WIDE = false is built only by
-// group_tune.cu (-DTRT_TUNE_WIDE=0), for tools/group_k.py: it is the
-// yardstick of what the replay gains, and whether it gains depends on how
-// many blocks a ray enters, which differs by scene; the sweep re-measures
-// the choice where that changes.
+// are exact. kernel_accel.cu ships WIDE = true for kernel B and WIDE =
+// false for kernel A (on the refill schedule, where a group's pixels follow
+// one another and the replay's broadcasts cost more than the idle lanes;
+// tools/group_k.py measures both designs at every K > 8): whether the
+// replay gains depends on how many blocks a ray enters, which differs by
+// scene, so the sweep re-measures the choice where that changes.
 //
 // The shadow sweep: its decisions use the fixed bounds [t_min, t_max), so
 // the window's candidates are its entered groups, and the sweep visits
@@ -666,6 +669,60 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
   trt::count_slot_iters<K>(my_iters, iters);
 }
 
+// Kernel A, grouped: a path group of K = TR::K lanes carries one pixel p =
+// y * w + x (y = y0 + row) through pipeline.cuh's base_pixel, every lane
+// making the same draws over [0, base) with the traversal TR built from the
+// staged rows; the lead lane writes the nine planes and the end state, the
+// epilogue operation for operation kernel_base's. Two schedules:
+//  - REFILL = false: group g = global thread / K takes pixel g.
+//  - REFILL = true: a grid of the resident blocks (launch_base_grouped);
+//    each group takes its next pixel from the zeroed counter `next` until
+//    the pixels run out: the lead lane alone adds to it and broadcasts the
+//    pixel over the group, so the group's lanes always hold one pixel, and
+//    the groups of a warp stay busy until the frame's pixels are gone. The
+//    rows are staged once a resident block; nothing in the pixel loop waits
+//    for the block (its groups finish at different times).
+// A pixel's chain does not depend on which group renders it, so both
+// schedules give the thread-per-pixel kernel's outputs bit for bit. The
+// slot count (count_slot_iters) and the traversal's counters (flush) are
+// taken once a group after its last pixel: static, 32 / K x the warp's
+// longest pixel; refill, 32 / K x the warp's busiest group's summed
+// iterations, at least the sum over its pixels.
+template <bool EXT, bool XT, class TR, bool REFILL>
+__global__ void __launch_bounds__(trt::GROUP_THREADS)
+    kernel_base_grouped(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                        long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                        unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
+                        typename TR::Launch tl) {
+  constexpr int K = TR::K;
+  extern __shared__ float4 group_smem[];
+  float* rows = reinterpret_cast<float*>(group_smem);
+  const int n = a.h_out * a.f.width;
+  const unsigned lane = threadIdx.x & 31u;
+  const bool lead = (lane & (unsigned)(K - 1)) == 0u;
+  const unsigned mask =
+      K == 32 ? 0xffffffffu : (((1u << K) - 1u) << (lane & ~(unsigned)(K - 1)));
+  TR::stage(rows, scene_buf, a.f, tl);
+  TR tr(rows, a.f, tl);
+  const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+  // The group's next pixel on the refill schedule.
+  const auto take = [&]() {
+    unsigned p = 0u;
+    if (lead) p = atomicAdd(next, 1u);
+    return (int)__shfl_sync(mask, p, 0, K);
+  };
+  unsigned my_iters = 0;
+  int i = REFILL ? take()
+                 : (int)(((long long)blockIdx.x * trt::GROUP_THREADS + threadIdx.x) / K);
+  while (i < n) {
+    my_iters += base_pixel<EXT, XT>(a, sc, tx, xt, tr, i, n, lead, out, state_out);
+    if (!REFILL) break;
+    i = take();
+  }
+  trt::count_slot_iters<K>(my_iters, iters);
+  tr.flush();
+}
+
 // Launch a grouped kernel over n entries: K lanes an entry, `bytes` of
 // dynamic shared memory (the staged rows); over the budget it is refused.
 inline int grouped_grid(long long n, int k, int bytes, const void* kernel, int& blocks) {
@@ -690,6 +747,38 @@ int launch_extra_grouped(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& 
     if (err != 0) return err;
     kernel_extra_grouped<EXT, XT, TR><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
         *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx, xt, tl);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel A grouped over the h_out * w pixels of `a`. Static: K lanes a
+// pixel, every pixel its group. Refill: as many blocks as stay resident at
+// once (the occupancy at `bytes` of staged rows, times the SMs), at most
+// one group a pixel; `next` is a zeroed counter.
+template <bool EXT, bool XT, class TR, bool REFILL>
+int launch_base_grouped(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                        const float* scene_buf, float* out, long long* state_out,
+                        unsigned long long* iters, unsigned* next, void* stream,
+                        const typename TR::Launch& tl = {}) {
+  const int n = a->h_out * a->f.width;
+  if (n > 0) {
+    const int bytes = 4 * TR::smem_floats(a->f, tl);
+    const void* kernel = (const void*)kernel_base_grouped<EXT, XT, TR, REFILL>;
+    int blocks;
+    int err = grouped_grid(n, TR::K, bytes, kernel, blocks);
+    if (err != 0) return err;
+    if (REFILL) {
+      int dev, n_sm, per_sm;
+      if ((err = (int)cudaGetDevice(&dev)) != 0 ||
+          (err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != 0 ||
+          (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, trt::GROUP_THREADS, bytes)) != 0)
+        return err;
+      blocks = min(blocks, max(per_sm, 1) * n_sm);
+    }
+    kernel_base_grouped<EXT, XT, TR, REFILL>
+        <<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
+            *a, scene_buf, out, state_out, iters, next, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }

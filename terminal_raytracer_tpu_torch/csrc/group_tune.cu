@@ -2,8 +2,10 @@
 // for terminal_raytracer_tpu_torch/tools/group_k.py: kernel B at the
 // reference and XT gates, kernel B over the culled sweep (in the design
 // TRT_TUNE_WIDE, GroupCulled's WIDE) and the chunked kernel A at K =
-// TRT_TUNE_K, which the tool gives nvcc (-D) for one library a width and
-// design, under the same entry names as the render libraries' grouped
+// TRT_TUNE_K, and kernel A and the grid kernel A (the latter in the design
+// TRT_TUNE_WIDE) on the schedule TRT_TUNE_REFILL (1: refill, 0: static),
+// which the tool gives nvcc (-D) for one library a width, design and
+// schedule, under the same entry names as the render libraries' grouped
 // entries. No render loads this library; the widths the render libraries
 // ship are constants of kernel_extra.cu, kernel_accel.cu and kernel_base.cu.
 
@@ -14,6 +16,9 @@
 #endif
 #ifndef TRT_TUNE_WIDE
 #define TRT_TUNE_WIDE (TRT_TUNE_K > 8)
+#endif
+#ifndef TRT_TUNE_REFILL
+#define TRT_TUNE_REFILL 0
 #endif
 
 extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
@@ -57,3 +62,26 @@ extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* 
 }
 
 extern "C" int trt_kernel_base_chunked_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_base_grouped(const BaseArgs* a, const float* scene_buf, float* out,
+                                       long long* state_out, unsigned long long* iters,
+                                       unsigned* next, void* stream) {
+  return launch_base_grouped<false, false, trt::GroupSweep<TRT_TUNE_K>, (TRT_TUNE_REFILL != 0)>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters, next, stream);
+}
+
+extern "C" int trt_kernel_base_grouped_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_grouped_refill() { return TRT_TUNE_REFILL; }
+
+extern "C" int trt_kernel_base_grid_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                            const trt::Xt* xt, const trt::Accel* acc,
+                                            const float* scene_buf, float* out,
+                                            long long* state_out, unsigned long long* iters,
+                                            unsigned* next, void* stream) {
+  return launch_base_grouped<true, true, trt::GroupCulled<TRT_TUNE_K, (TRT_TUNE_WIDE != 0)>,
+                             (TRT_TUNE_REFILL != 0)>(a, *tx, *xt, scene_buf, out, state_out,
+                                                     iters, next, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_grid_grouped_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_grid_grouped_refill() { return TRT_TUNE_REFILL; }

@@ -33,6 +33,13 @@
 // fit group.cuh's budget, and trt_kernel_extra_grid above it. It replaces
 // the same Pallas kernel as trt_kernel_extra_grid (:1028 over CulledPrims,
 // bound at :1033).
+//
+// trt_kernel_base_grid_grouped is kernel A over the culled sweep redesigned
+// the same way (group.cuh kernel_base_grouped over GroupCulled<GROUP_K_BASE_GRID,
+// GROUP_WIDE_BASE_GRID>, the schedule GROUP_REFILL_BASE_GRID): a path group
+// carries one pixel, the serial cull decisions replayed, the counters
+// Culled's. It replaces the same Pallas kernel as trt_kernel_base_grid
+// (:796 over CulledPrims, bound at :809).
 
 #include "group.cuh"
 
@@ -41,6 +48,12 @@
 // sweep over K of tools/group_k.py (PERF.md, the grouped kernels).
 constexpr int GROUP_K_EXTRA_GRID = 32;
 constexpr bool GROUP_WIDE_EXTRA_GRID = true;
+// The same for the grouped grid kernel A, with its schedule (true: refill):
+// chosen by the sweep over K, the design and the schedule at stress1024 and
+// mesh1280 under --accel grid (the least summed time; PERF.md).
+constexpr int GROUP_K_BASE_GRID = 32;
+constexpr bool GROUP_WIDE_BASE_GRID = false;
+constexpr bool GROUP_REFILL_BASE_GRID = true;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
@@ -119,3 +132,21 @@ extern "C" int trt_kernel_extra_grid_grouped(const ExtraArgs* a, const trt::Tex*
 }
 
 extern "C" int trt_kernel_extra_grid_grouped_k() { return GROUP_K_EXTRA_GRID; }
+
+// The grouped kernel A over the culled sweep: the same arguments and
+// outputs as trt_kernel_base_grid, and `next`, one zeroed u32 (the refill
+// schedule's pixel counter); refused (cudaErrorInvalidValue) when the rows
+// and the group table exceed the shared-memory budget.
+extern "C" int trt_kernel_base_grid_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                            const trt::Xt* xt, const trt::Accel* acc,
+                                            const float* scene_buf, float* out,
+                                            long long* state_out, unsigned long long* iters,
+                                            unsigned* next, void* stream) {
+  return launch_base_grouped<true, true,
+                             trt::GroupCulled<GROUP_K_BASE_GRID, GROUP_WIDE_BASE_GRID>,
+                             GROUP_REFILL_BASE_GRID>(a, *tx, *xt, scene_buf, out, state_out,
+                                                     iters, next, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_grid_grouped_k() { return GROUP_K_BASE_GRID; }
+extern "C" int trt_kernel_base_grid_grouped_refill() { return GROUP_REFILL_BASE_GRID; }

@@ -47,6 +47,12 @@
 // across the group over the scene's rows staged in shared memory.
 // ops/kernels.py takes it where the rows fit group.cuh's shared-memory
 // budget, and the thread-per-entry trt_kernel_base_chunked above it.
+// trt_kernel_base_grouped is kernel A at the reference gates redesigned
+// the same way (group.cuh kernel_base_grouped over GroupSweep<GROUP_K_BASE>,
+// the schedule GROUP_REFILL_BASE: static, group g takes pixel g, or refill,
+// the resident groups taking pixels from a counter until they run out),
+// with the same epilogue; it replaces the same Pallas kernel as
+// trt_kernel_base.
 //
 // What bounds them on an H100. Not bytes: they read the scene table (L1 /
 // L2 or shared memory) and write 44 (36 chunked) bytes an entry. Not FP32
@@ -67,6 +73,13 @@
 // The group width of the grouped chunked kernel A: chosen by the sweep over
 // K of tools/group_k.py (PERF.md, the grouped kernels).
 constexpr int GROUP_K_CHUNKED = 32;
+// The group width of the grouped kernel A and its schedule (true: refill):
+// chosen by the sweep over K and the schedule of tools/group_k.py at
+// stress256, the bench configuration where the main path takes it (PERF.md,
+// the grouped kernels; at the north star the thread per pixel is faster,
+// and ops/kernels.py GROUP_BASE_MIN_PRIMS keeps it there).
+constexpr int GROUP_K_BASE = 32;
+constexpr bool GROUP_REFILL_BASE = false;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
@@ -128,3 +141,18 @@ extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* 
 
 // Its group width K (lanes an entry).
 extern "C" int trt_kernel_base_chunked_grouped_k() { return GROUP_K_CHUNKED; }
+
+// The grouped kernel A (group.cuh): the same arguments and outputs as
+// trt_kernel_base, and `next`, one zeroed u32 (the refill schedule's pixel
+// counter); refused (cudaErrorInvalidValue) when the scene's rows exceed
+// the shared-memory budget.
+extern "C" int trt_kernel_base_grouped(const BaseArgs* a, const float* scene_buf, float* out,
+                                       long long* state_out, unsigned long long* iters,
+                                       unsigned* next, void* stream) {
+  return launch_base_grouped<false, false, trt::GroupSweep<GROUP_K_BASE>, GROUP_REFILL_BASE>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters, next, stream);
+}
+
+// Its group width K (lanes a pixel) and schedule (1: refill, 0: static).
+extern "C" int trt_kernel_base_grouped_k() { return GROUP_K_BASE; }
+extern "C" int trt_kernel_base_grouped_refill() { return GROUP_REFILL_BASE; }

@@ -61,27 +61,26 @@ struct FrameArgs {
 
 namespace {
 
+// Kernel A's body for pixel i of the launch (of n): seed the pixel's chain,
+// render its `base` samples with the traversal tr, and, where `write`, store
+// its nine planes and end state, the variance of the base samples and the
+// adaptive budget being the fold_budget epilogue (tracer.variance_of +
+// tracer.extra_quota). Returns the bounce iterations it ran. kernel_base
+// and group.cuh's kernel_base_grouped (whose lead lane writes) share it.
 template <bool EXT, bool XT, class TR>
-__global__ void __launch_bounds__(128)
-    kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
-                long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
-                trt::Tex tx, trt::Xt xt, typename TR::Launch tl) {
-  const int n = a.h_out * a.f.width;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned my_iters = 0;
-  TR tr(tl, scene_buf);
-  if (i < n) {
-    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-    const int x = i % a.f.width;
-    const int y = a.y0 + i / a.f.width;
-    uint32_t state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
-                                     a.frame);
-    trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
-    float rays = 0.0f;
-    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, 0, (float)a.base, (float)x,
-                                         (float)y, csum, &csumsq, rays, tr);
-    // Variance of the base samples and the adaptive budget (the
-    // fold_budget epilogue: tracer.variance_of + tracer.extra_quota).
+__device__ __forceinline__ unsigned base_pixel(const BaseArgs& a, const trt::Scene& sc,
+                                               const trt::Tex& tx, const trt::Xt& xt, TR& tr,
+                                               int i, int n, bool write, float* out,
+                                               long long* state_out) {
+  const int x = i % a.f.width;
+  const int y = a.y0 + i / a.f.width;
+  uint32_t state =
+      trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed, a.frame);
+  trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
+  float rays = 0.0f;
+  const unsigned iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, 0, (float)a.base,
+                                                   (float)x, (float)y, csum, &csumsq, rays, tr);
+  if (write) {
     trt::V3 mean = csum * a.inv_base;
     trt::V3 dv = csumsq * a.inv_base - mean * mean;
     float var = dv.x + dv.y + dv.z;
@@ -97,6 +96,22 @@ __global__ void __launch_bounds__(128)
     out[7 * n + i] = var;
     out[8 * n + i] = additional;
     state_out[i] = (long long)state;
+  }
+  return iters;
+}
+
+template <bool EXT, bool XT, class TR>
+__global__ void __launch_bounds__(128)
+    kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                trt::Tex tx, trt::Xt xt, typename TR::Launch tl) {
+  const int n = a.h_out * a.f.width;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned my_iters = 0;
+  TR tr(tl, scene_buf);
+  if (i < n) {
+    const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+    my_iters = base_pixel<EXT, XT>(a, sc, tx, xt, tr, i, n, true, out, state_out);
   }
   trt::count_warp_iters(my_iters, iters);
   tr.flush();

@@ -31,6 +31,9 @@ ENTRY_POINTS = {
     "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
                        ("trt_kernel_base_chunked_grouped", 6),
                        ("trt_kernel_base_chunked_grouped_k", 0),
+                       ("trt_kernel_base_grouped", 7),
+                       ("trt_kernel_base_grouped_k", 0),
+                       ("trt_kernel_base_grouped_refill", 0),
                        ("trt_kernel_base_ext", 7),
                        ("trt_kernel_base_chunked_ext", 7),
                        ("trt_kernel_base_xt", 8),
@@ -49,7 +52,10 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_grid", 13),
                         ("trt_kernel_extra_gathered", 13),
                         ("trt_kernel_extra_grid_grouped", 13),
-                        ("trt_kernel_extra_grid_grouped_k", 0)),
+                        ("trt_kernel_extra_grid_grouped_k", 0),
+                        ("trt_kernel_base_grid_grouped", 10),
+                        ("trt_kernel_base_grid_grouped_k", 0),
+                        ("trt_kernel_base_grid_grouped_refill", 0)),
     "kernel_frame.cu": tuple(
         (f"trt_kernel_{mode}{sfx}", n)
         for mode in ("regen", "lockstep")
@@ -73,8 +79,9 @@ ENTRY_POINTS = {
 # What a render loads; the probes' library loads only when a probe asks.
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # The group-width sweep of tools/group_k.py: one library a width K (built
-# with -DTRT_TUNE_K=K, and for the grid kernel B's design -DTRT_TUNE_WIDE),
-# with the grouped entries of the render libraries.
+# with -DTRT_TUNE_K=K, for the grid kernels' design -DTRT_TUNE_WIDE and for
+# kernel A's schedule -DTRT_TUNE_REFILL), with the grouped entries of the
+# render libraries.
 TUNE_SOURCE = "group_tune.cu"
 TUNE_ENTRY_POINTS = tuple(
     (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",

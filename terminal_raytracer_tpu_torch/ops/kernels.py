@@ -20,18 +20,23 @@ make_sorted_render_frame:
             on CUDA), then tracer.combine_phases
 
 Kernel B at the reference gates, at the XT gates and over the culled
-sweep of `--accel grid`, and the chunked kernel A at the reference gates,
-take their grouped entries (csrc/group.cuh: a path group of K lanes
-carries one entry, the closest-hit and shadow sweeps split across the
-group, the scene's geometry rows, and the grid's group table, staged in
-shared memory) wherever those fit GROUP_SMEM_BYTES (takes_grouped, a
-decision by the table's size alone): extra_kernel passes such a tracer on
-to extra_kernel_grouped, extra_kernel_xt_grouped or
-extra_kernel_grid_grouped, base_kernel_chunked to
+sweep of `--accel grid`, kernel A at the reference gates and over the
+culled sweep, and the chunked kernel A at the reference gates, take their
+grouped entries (csrc/group.cuh: a path group of K lanes carries one
+entry, the closest-hit and shadow sweeps split across the group, the
+scene's geometry rows, and the grid's group table, staged in shared
+memory) wherever those fit GROUP_SMEM_BYTES (kernel A also from
+GROUP_BASE_MIN_PRIMS primitives on; takes_grouped, a decision by the
+table's size alone): extra_kernel passes such a tracer on to
+extra_kernel_grouped, extra_kernel_xt_grouped or
+extra_kernel_grid_grouped, base_kernel to base_kernel_grouped,
+base_kernel_grid to base_kernel_grid_grouped, base_kernel_chunked to
 base_kernel_chunked_grouped, each counting its own launches; above the
 budget they launch the thread-per-entry entries. Their counters of
 executed lane-iterations count path slots: warp_iters(.., k) is their
-plain model. No build or launch failure falls back to another entry.
+plain model (kernel A on the refill schedule, whose groups take pixels
+from a counter: at least the pixels' summed iterations). No build or
+launch failure falls back to another entry.
 
 The single-kernel schedulers render the whole frame in one launch, one
 thread a pixel (csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel),
@@ -338,12 +343,28 @@ def group_smem_bytes(tracer) -> int:
     return group_rows_bytes(tracer) + 4 * extra
 
 
+# The least primitives at which kernel A takes its grouped entry: below it
+# a bounce's sweeps are too short to split over the group and the thread
+# per pixel is faster. tools/group_k.py on the H100 (PERF.md): Cornell_Box
+# (11 primitives) 0.96 ms thread per pixel against 3.6 at K = 32 at the
+# north star, 0.19 against 0.74 at 200x100 (2.5 against 10.1 under grid);
+# demo (21 primitives) 0.19 against 0.15 at 200x100. The scene's count,
+# not the rows staged: the grid's blocked scene pads each block to 8.
+GROUP_BASE_MIN_PRIMS = 16
+
+
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
-    """Whether kernel B ('extra') or the chunked kernel A ('chunked') takes
-    its grouped entry for `tracer`: an instantiation with one (B:
-    GROUPED_EXTRA; chunked A: the reference gates), with what it stages
-    within GROUP_SMEM_BYTES. A dispatch by the table's size alone."""
-    kinds = GROUPED_EXTRA if kernel == "extra" else ("ref",)
+    """Whether kernel B ('extra'), kernel A ('base') or the chunked kernel
+    A ('chunked') takes its grouped entry for `tracer`: an instantiation
+    with one (B: GROUPED_EXTRA; A: GROUPED_BASE; chunked A: the reference
+    gates), with what it stages within GROUP_SMEM_BYTES (and kernel A's
+    scene at least GROUP_BASE_MIN_PRIMS primitives). A dispatch by the
+    table's size alone."""
+    kinds = {"extra": GROUPED_EXTRA, "base": GROUPED_BASE,
+             "chunked": ("ref",)}[kernel]
+    if (kernel == "base"
+            and tracer.scene.primitive_count < GROUP_BASE_MIN_PRIMS):
+        return False
     return (_kind(tracer) in kinds
             and group_smem_bytes(tracer) <= GROUP_SMEM_BYTES)
 
@@ -359,15 +380,30 @@ def _require_grouped(tracer, name: str, kind: str = "ref") -> None:
                          "kernels stage")
 
 
-def group_k(kernel: str) -> int:
-    """The group width K (lanes an entry) that the render library's grouped
-    `kernel` ('extra', 'extra_xt', 'extra_grid' or 'chunked') was built
-    with (on the card)."""
-    entry = {"extra": "trt_kernel_extra_grouped_k",
-             "extra_xt": "trt_kernel_extra_xt_grouped_k",
-             "extra_grid": "trt_kernel_extra_grid_grouped_k",
-             "chunked": "trt_kernel_base_chunked_grouped_k"}[kernel]
-    return int(getattr(load_kernels(), entry)())
+_GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
+                    "extra_xt": "trt_kernel_extra_xt_grouped",
+                    "extra_grid": "trt_kernel_extra_grid_grouped",
+                    "chunked": "trt_kernel_base_chunked_grouped",
+                    "base": "trt_kernel_base_grouped",
+                    "base_grid": "trt_kernel_base_grid_grouped"}
+
+
+def group_k(kernel: str, lib=None) -> int:
+    """The group width K (lanes an entry) that the grouped `kernel`
+    ('extra', 'extra_xt', 'extra_grid', 'chunked', 'base' or 'base_grid')
+    of `lib` (default the render libraries) was built with (on the
+    card)."""
+    lib = lib or load_kernels()
+    return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
+
+
+def group_refill(kernel: str, lib=None) -> bool:
+    """Whether the grouped kernel A `kernel` ('base' or 'base_grid') of
+    `lib` (default the render libraries) runs the refill schedule (the
+    resident groups take pixels from a counter), not the static one (on the
+    card)."""
+    lib = lib or load_kernels()
+    return bool(getattr(lib, _GROUPED_ENTRIES[kernel] + "_refill")())
 
 
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
@@ -423,8 +459,10 @@ def _no_chunks(tracer, name: str) -> None:
 
 
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
-                 kind: str) -> BaseOut:
-    """Launch kernel A's `kind` instantiation. Its quota (BaseArgs.base),
+                 kind: str, lib=None) -> BaseOut:
+    """Launch kernel A's `kind` instantiation (the grouped entries for
+    'grouped', 'grid_grouped', which also take a zeroed pixel counter),
+    from `lib` (default the render libraries). Its quota (BaseArgs.base),
     and with it the epilogue's 1 / base and budget cap, is the runtime
     share `base_q` where one is given (counted in
     base_kernel.quota_launches), else the tracer's base_samples."""
@@ -435,14 +473,19 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
     n = h_out * w
     out = torch.empty((9, n), dtype=torch.float32, device=device)
     state = torch.empty((n,), dtype=torch.int64, device=device)
-    iters = torch.zeros((1,), dtype=torch.int64, device=device)
+    # [0]: the executed lane-iterations; [1]: the grouped entries' pixel
+    # counter (its low 4 bytes, a u32), zeroed with it.
+    iters = torch.zeros((2,), dtype=torch.int64, device=device)
     args = _BaseArgs(_frame(tracer, pose), h_out, y0, base, spp,
                      seed & 0xFFFFFFFF, frame_number & 0xFFFFFFFF,
                      float(np.float32(1.0 / base)) if base else 0.0,
                      float(max(spp - base, 0)))
+    counter = ((iters.data_ptr() + iters.element_size(),)
+               if kind.endswith("grouped") else ())
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
-            iters.data_ptr(), _stream(device))
-    _launch(load_kernels(), "trt_kernel_base", args, tracer, kind, ptrs)
+            iters.data_ptr(), *counter, _stream(device))
+    _launch(lib or load_kernels(), "trt_kernel_base", args, tracer, kind,
+            ptrs)
     if base_q is not None:
         base_kernel.quota_launches += 1
     p = out.view(9, h_out, w)
@@ -456,7 +499,8 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
     """Kernel A for rows [y0, y0 + h_out) of `tracer`'s image, on the
     device of `tracer`'s scene tables (base_kernel_ext for a tracer with
     the material and texture extensions, base_kernel_xt for one with xt
-    tables, base_kernel_grid / _gathered for one with that traversal).
+    tables, base_kernel_grid / _gathered for one with that traversal; the
+    grouped entry base_kernel_grouped where takes_grouped(tracer, 'base')).
     `base_q`: a runtime base quota of at most tracer.base_samples (a
     sample-split shard's share, parallel/mesh.py), else base_samples."""
     _no_chunks(tracer, "base_kernel")
@@ -471,8 +515,30 @@ def base_kernel(tracer, pose, seed: int, frame_number: int, y0: int = 0,
         return base_kernel_xt(*args)
     if tracer.ext:
         return base_kernel_ext(*args)
+    if takes_grouped(tracer, "base"):
+        return base_kernel_grouped(*args)
     out = _launch_base(*args, "ref")
     base_kernel.launches += 1
+    return out
+
+
+def base_kernel_grouped(tracer, pose, seed: int, frame_number: int,
+                        y0: int = 0, h_out: int = None,
+                        base_q: int = None) -> BaseOut:
+    """Kernel A's grouped entry (csrc/group.cuh kernel_base_grouped): a
+    path group of group_k('base') lanes a pixel, its sweeps split across
+    the group over the scene's rows in shared memory, on the schedule
+    group_refill('base'). For a tracer of the reference gates and the table
+    sweep whose rows fit GROUP_SMEM_BYTES; base_kernel takes it for such a
+    tracer of at least GROUP_BASE_MIN_PRIMS primitives (takes_grouped)."""
+    _require_grouped(tracer, "base_kernel_grouped")
+    _no_chunks(tracer, "base_kernel_grouped")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_grouped"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "grouped")
+    base_kernel_grouped.launches += 1
     return out
 
 
@@ -512,14 +578,40 @@ def base_kernel_grid(tracer, pose, seed: int, frame_number: int,
                      y0: int = 0, h_out: int = None,
                      base_q: int = None) -> BaseOut:
     """Kernel A over the block-culled sweep: base_kernel for a tracer with
-    accel 'grid' (XT instantiation)."""
+    accel 'grid' (XT instantiation); the grouped entry
+    base_kernel_grid_grouped where takes_grouped(tracer, 'base')."""
     _require_traversal(tracer, "grid", "base_kernel_grid")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
                                  base_q)
+    if takes_grouped(tracer, "base"):
+        return base_kernel_grid_grouped(tracer, pose, seed, frame_number, y0,
+                                        h_out, base_q)
     out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                        "grid")
     base_kernel_grid.launches += 1
+    return out
+
+
+def base_kernel_grid_grouped(tracer, pose, seed: int, frame_number: int,
+                             y0: int = 0, h_out: int = None,
+                             base_q: int = None) -> BaseOut:
+    """Kernel A's grouped entry over the culled sweep (csrc/group.cuh
+    kernel_base_grouped over GroupCulled, XT instantiation):
+    group_k('base_grid') lanes a pixel on the schedule
+    group_refill('base_grid'), the serial cull decisions replayed across
+    the group, the traversal counters the plain version's. For a `--accel
+    grid` tracer whose rows and group table fit GROUP_SMEM_BYTES;
+    base_kernel_grid takes it for such a tracer of at least
+    GROUP_BASE_MIN_PRIMS primitives (takes_grouped)."""
+    _require_grouped(tracer, "base_kernel_grid_grouped", "grid")
+    _no_chunks(tracer, "base_kernel_grid_grouped")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid_grouped"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "grid_grouped")
+    base_kernel_grid_grouped.launches += 1
     return out
 
 
@@ -540,10 +632,32 @@ def base_kernel_gathered(tracer, pose, seed: int, frame_number: int,
 
 base_kernel.launches = 0
 base_kernel.quota_launches = 0  # launches of any instantiation with a base_q
+base_kernel_grouped.launches = 0
 base_kernel_ext.launches = 0
 base_kernel_xt.launches = 0
 base_kernel_grid.launches = 0
+base_kernel_grid_grouped.launches = 0
 base_kernel_gathered.launches = 0
+
+# The grouped kernel A of each instantiation that has one.
+GROUPED_BASE = {"ref": base_kernel_grouped, "grid": base_kernel_grid_grouped}
+
+
+def base_entry_iters(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                     h_out: int = None, base_q: int = None) -> torch.Tensor:
+    """Kernel A's bounce iterations per pixel (int64 [h_out, w]), from its
+    plain version's scheduler: the iterations each pixel's thread or path
+    group runs. warp_iters of them is the thread-per-pixel and the static
+    grouped kernels' counter; the refill schedule's is at least their
+    sum."""
+    q = _base_quota(tracer, base_q, "base_entry_iters")
+    cam = tracer_mod.cam_from_pose(pose)
+    x, y = tracer.pixel_grid(y0, h_out)
+    carry, _ = tracer._base_run(cam, x.to(torch.float32),
+                                y.to(torch.float32),
+                                tracer.seed_lanes(x, y, seed, frame_number),
+                                quota=q)
+    return carry.iters
 
 
 def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,

@@ -1,30 +1,44 @@
 """The sweep over the group width K of the grouped kernels (csrc/group.cuh)
 on the card: kernel B at the reference gates, at the XT gates and over the
-culled sweep of `--accel grid`, and the chunked kernel A, with K lanes an
-entry, for each K, beside the thread-per-entry kernels on the same inputs.
+culled sweep of `--accel grid`, the chunked kernel A, and kernel A at the
+reference gates and over the culled sweep on both schedules (static: group
+g takes pixel g; refill: the resident groups take pixels from a counter),
+with K lanes an entry, for each K, beside the thread-per-entry kernels on
+the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5]
+        [--reps 5] [--only base]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
-and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernel B's
+and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
 other design: one candidate block a step on all K lanes, not K / 8 blocks
-of 8 lanes), all built at once with the render libraries. The shapes are
-the main path's: kernel B on the budget-sorted stream of the north star
-(Cornell_Box 400x200, 16 spp, depth 32) and of stress1024 (stress:1024
-200x100, 8 spp, depth 6, chunks of 2) and mesh1280 (icosphere:3, the
-same), the chunked kernel A at stress1024 and mesh1280; the XT kernel B
-at the fog shapes (the north star in fog 0.15) and on the stress1024 fog
---mis stream; the grid kernel B at stress1024 under --accel grid. Each line: the kernel's device ms (CUDA
-events, the least of --reps runs of 3 launches after a warm-up), whether
-its outputs equal the plain version's bit for bit, whether its executed
-lane-iterations equal the plain model (ops/kernels.py warp_iters of the
-per-entry iterations at K), the working warps (warps with an entry that
-renders) and the longest entry's iterations with the µs an iteration on
-that chain; the grid lines also whether the traversal counters equal the
-plain version's. The widths the render libraries ship are constants of
-kernel_extra.cu, kernel_accel.cu and kernel_base.cu, chosen from this
-sweep. Needs a CUDA GPU (exit 2 without one).
+of 8 lanes); each of those again with -DTRT_TUNE_REFILL=1 (kernel A's
+refill schedule), all built at once with the render libraries. The shapes
+are the main path's: kernel B on the budget-sorted stream of the north
+star (Cornell_Box 400x200, 16 spp, depth 32) and of stress1024
+(stress:1024 200x100, 8 spp, depth 6, chunks of 2) and mesh1280
+(icosphere:3, the same), the chunked kernel A at stress1024 and mesh1280;
+the XT kernel B at the fog shapes (the north star in fog 0.15) and on the
+stress1024 fog --mis stream; the grid kernel B at stress1024 under --accel
+grid; kernel A at the north star and at its sp = 3 share-2 quota
+(parallel/mesh.py) and unchunked at the bench's array shapes (200x100, 8
+spp, depth 6) on Cornell_Box, demo, stress:32, lights:16, stress:64,
+stress:128, stress:256 and, under --accel baked, stress:1024 and
+icosphere:3 (the table sizes the dispatch decides between); the grid
+kernel A at stress1024, mesh1280 and the north star under --accel grid.
+Each line: the kernel's device ms (CUDA events, the least of --reps runs
+of 3 launches after a warm-up), whether its outputs equal the plain
+version's bit for bit, whether its executed lane-iterations equal the
+plain model (ops/kernels.py warp_iters of the per-entry iterations at K;
+on the refill schedule: whether they are at least the entries' sum), the
+working warps (warps with an entry that renders, laid out statically) and
+the longest entry's iterations with the µs an iteration on that chain;
+the grid lines also whether the traversal counters equal the plain
+version's; kernel A's lines its occupancy, owed sweeps over
+lane-iterations x (1 + nee_sweeps). The widths and schedules the render
+libraries ship are constants of kernel_extra.cu, kernel_accel.cu and
+kernel_base.cu, chosen from this sweep. `--only base` sweeps kernel A
+alone. Needs a CUDA GPU (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from ..models import Camera, load_scene
 from ..models.scene import Fog
 from ..ops import build, kernels
 from ..ops.tracer import PathTracer
+from ..parallel.mesh import SampleSplit
 
 KS = (1, 2, 4, 8, 16, 32)
 SEED = 42
@@ -67,7 +82,8 @@ def _equal(got, want) -> bool:
                            else b) for a, b in zip(got, want))
 
 
-def _line(label, k, ms, same, model, entry_iters, counters=None):
+def _line(label, k, ms, same, model, entry_iters, counters=None,
+          extra=""):
     longest = int(entry_iters.max())
     width = 1 if k == "thread" else int(str(k).split()[0])
     print(f"[group_k] {label} {k}: {ms:.4f} ms, equal {same}, iterations "
@@ -75,8 +91,8 @@ def _line(label, k, ms, same, model, entry_iters, counters=None):
           f"{kernels.working_warps(entry_iters, width)}, "
           f"longest entry {longest} iterations, "
           f"{1e3 * ms / max(longest, 1):.3f} µs an iteration"
-          + ("" if counters is None else f", counters equal {counters}"),
-          flush=True)
+          + ("" if counters is None else f", counters equal {counters}")
+          + extra, flush=True)
 
 
 def _counted(tr, fn):
@@ -152,39 +168,122 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps):
               float(out.iters) == float(kernels.warp_iters(it, k)), it)
 
 
+def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None):
+    """Kernel A of `tr`'s instantiation ('ref' or 'grid'): thread per
+    pixel, then the grouped entry of every library of `libs` ({label:
+    library}, each of its K and schedule), bit for bit against the plain
+    version, with the occupancy."""
+    kind = kernels._kind(tr)
+    grouped = "grouped" if kind == "ref" else f"{kind}_grouped"
+    entry = "base" if kind == "ref" else f"base_{kind}"
+    if tr.traversal == "grid":
+        tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
+    p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
+    plain_stats = None
+    if tr.traversal == "grid":
+        plain_stats = tr.prims.stats.long().cpu()
+        tr.prims.ops = None
+    want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
+    it = kernels.base_entry_iters(tr, pose, seed, 0, base_q=base_q)
+    owed = float(p.rays.sum(dtype=torch.float64))
+    per_iter = 1.0 + tr.nee_sweeps
+    print(f"[group_k] {label} kernel A ({kind}) {tr.width}x{tr.height}, "
+          f"quota {base_q or tr.base_samples}: {int(it.sum())} pixel "
+          f"iterations, {owed:.0f} owed sweeps", flush=True)
+
+    def launch(k, lib=None):
+        return kernels._launch_base(tr, pose, seed, 0, 0, None, base_q, k,
+                                    lib)
+
+    def report(name, k, out, ms, refill):
+        _, stats = out
+        o = out[0]
+        width = 1 if k == "thread" else int(str(k).split()[0])
+        model = (float(o.iters) >= float(it.sum()) if refill
+                 else float(o.iters) == float(kernels.warp_iters(it, width)))
+        _line(name, k, ms, _equal((*o.csum, *o.csumsq, o.rays, o.var,
+                                   o.additional, o.state), want), model, it,
+              None if stats is None else bool(torch.equal(stats,
+                                                          plain_stats)),
+              f", occupancy {owed / (float(o.iters) * per_iter):.3f}")
+
+    out = _counted(tr, lambda: launch(kind))
+    report(f"{label} kernel A", "thread", out, _time(lambda: launch(kind),
+                                                     reps), False)
+    for k, lib in libs.items():
+        refill = kernels.group_refill(entry, lib)
+        out = _counted(tr, lambda: launch(grouped, lib))
+        report(f"{label} kernel A K", k, out,
+               _time(lambda: launch(grouped, lib), reps), refill)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default=",".join(map(str, KS)))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", choices=("base",), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
         sys.exit(2)
     ks = [int(k) for k in args.ks.split(",")]
     tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}
-    # The grid kernel B's other design where the two differ (K > 8).
+    # The grid kernels' other design where the two differ (K > 8).
     narrow = {f"{k} one block a step": (build.TUNE_SOURCE,
                                          (f"TRT_TUNE_K={k}", "TRT_TUNE_WIDE=0"))
               for k in ks if k > 8}
+    # Kernel A's refill schedule, in each of those.
+    refill = {f"{k} refill": (src, (*defines, "TRT_TUNE_REFILL=1"))
+              for k, (src, defines) in {**tune, **narrow}.items()}
     t0 = time.perf_counter()
     paths = build.library_paths(build.RENDER_SOURCES + tuple(tune.values())
-                                + tuple(narrow.values()))
+                                + tuple(narrow.values())
+                                + tuple(refill.values()))
     print(f"[group_k] {len(paths)} libraries built in "
           f"{time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    for k, src in {**tune, **narrow}.items():
+    for k, src in {**tune, **narrow, **refill}.items():
         for line in paths[src].with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print(f"[group_k] K {k}: {line.strip()}", flush=True)
     libs = {k: build.load_kernels((src,)) for k, src in tune.items()}
     narrow_libs = {k: build.load_kernels((src,)) for k, src in narrow.items()}
+    refill_libs = {k: build.load_kernels((src,)) for k, src in refill.items()}
     pose = Camera().pose()
 
     def scene(name, w, h, spp, depth, **over):
         return load_scene(name).with_overrides(
             width=w, height=h, samples_per_pixel=spp, max_depth=depth, **over)
 
-    ns = PathTracer(scene("Cornell_Box", 400, 200, 16, 32), "cuda")
+    # Kernel A: every K on both schedules (the grid's also in both designs).
+    base_libs = {**libs, **{k: v for k, v in refill_libs.items()
+                            if "one block" not in k}}
+    ns_scene = scene("Cornell_Box", 400, 200, 16, 32)
+    ns = PathTracer(ns_scene, "cuda")
+    _sweep_base("north star", ns, pose, SEED, base_libs, args.reps)
+    split = SampleSplit(ns_scene, "cuda", 3)
+    _sweep_base("north star sp 3 share 2", split.tracer, pose,
+                split.seed(SEED, 0), base_libs, args.reps,
+                base_q=split.share(0))
+    # The table sizes where the dispatch decides, at the bench's array
+    # shapes, unchunked (stress:256 is the bench's stress256, lights:16
+    # its manylights; stress:1024 and icosphere:3 under --accel baked).
+    for name, accel in (("Cornell_Box", "auto"), ("demo", "auto"),
+                        ("stress:32", "auto"), ("lights:16", "auto"),
+                        ("stress:64", "auto"), ("stress:128", "auto"),
+                        ("stress:256", "auto"), ("stress:1024", "baked"),
+                        ("icosphere:3", "baked")):
+        tr = PathTracer(scene(name, 200, 100, 8, 6), "cuda", accel=accel)
+        _sweep_base(f"{name} {accel}", tr, pose, SEED, base_libs, args.reps)
+    grid_libs = {**libs, **narrow_libs, **refill_libs}
+    for label, name, size in (
+            ("stress1024 grid", "stress:1024", (200, 100, 8, 6)),
+            ("mesh1280 grid", "icosphere:3", (200, 100, 8, 6)),
+            ("north star grid", "Cornell_Box", (400, 200, 16, 32))):
+        tr = PathTracer(scene(name, *size), "cuda", accel="grid")
+        _sweep_base(label, tr, pose, SEED, grid_libs, args.reps)
+    if args.only == "base":
+        return 0
     _sweep_extra("north star", ns, pose, SEED, libs, args.reps)
     for label, name in (("stress1024", "stress:1024"),
                         ("mesh1280", "icosphere:3")):

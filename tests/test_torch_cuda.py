@@ -46,10 +46,11 @@ def cuda_device():
 @pytest.mark.parametrize("depth", [3, 8])
 def test_kernels_match_plain_versions(cuda_device, depth):
     tr = PathTracer(_cornell(128, 16, 16, depth), cuda_device)
-    n0 = kernels.base_kernel.launches
+    wrap_a = _base_wrapper(tr)
+    n0 = wrap_a.launches
     k = kernels.base_kernel(tr, POSE, SEED, 0)
     p = kernels.base_kernel_plain(tr, POSE, SEED, 0)
-    assert kernels.base_kernel.launches == n0 + 1
+    assert wrap_a.launches == n0 + 1
     for name in ("rays", "additional", "state", "var"):
         assert torch.equal(getattr(k, name), getattr(p, name)), name
     for a, b in zip(list(k.csum) + list(k.csumsq),
@@ -223,6 +224,17 @@ XT_CASES = {
 }
 
 
+def _base_wrapper(tr):
+    """The kernel A wrapper that base_kernel passes `tr` on to: the grouped
+    entry of its instantiation where takes_grouped (the table fits the
+    budget and has GROUP_BASE_MIN_PRIMS primitives)."""
+    kind = kernels._kind(tr)
+    if kernels.takes_grouped(tr, "base"):
+        return kernels.GROUPED_BASE[kind]
+    return getattr(kernels, "base_kernel" + ("" if kind == "ref"
+                                             else f"_{kind}"))
+
+
 def _extra_wrapper(tr):
     """The kernel B wrapper that extra_kernel passes `tr` on to: the grouped
     entry of its instantiation where the table fits the budget."""
@@ -377,7 +389,7 @@ def test_accel_kernels_match_plain_versions(cuda_device, name):
     scene = load_scene(scene).with_overrides(
         width=64, height=16, samples_per_pixel=16, max_depth=6, **over)
     tr = PathTracer(scene, cuda_device, accel=accel, transport=transport)
-    wrap_a = getattr(kernels, f"base_kernel_{accel}")
+    wrap_a = _base_wrapper(tr)
     wrap_b = _extra_wrapper(tr)
     n0 = wrap_a.launches
     k, ks = _kernel_counts(tr,
@@ -390,6 +402,12 @@ def test_accel_kernels_match_plain_versions(cuda_device, name):
     assert torch.equal(ks, ps), (ks, ps)
     if accel == "gathered":
         assert float(ks[3]) == 0.0
+    # The thread-per-pixel entry, which tables over the budget take.
+    kt, kts = _kernel_counts(tr, lambda: kernels._launch_base(
+        tr, POSE, SEED, 0, 0, None, None, kernels._kind(tr)))
+    _assert_base_equal(kt, p)
+    assert torch.equal(kt.additional, p.additional)
+    assert torch.equal(kts, ps), (kts, ps)
     s = kernels.sorted_stream(tr, k.state, k.additional)
     assert int((s.add > 0).sum()) > 0
     args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
