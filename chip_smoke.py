@@ -35,14 +35,18 @@ Phases, each reported on lines starting with its tag:
             states, per-pixel totals and radiance bits equal) and at the
             stress1024 shapes, and one stress1024 frame with and without
             the chunk split
-  [thread]  the thread-per-entry kernel B and chunked kernel A where the
-            wrapper takes them, at mesh5120 (icosphere:4, 5120 triangles
-            whose rows exceed the grouped kernels' shared-memory budget),
-            the thread-per-pixel grid kernel A at mesh5120 under grid, and
-            kernel B's thread-per-entry XT
-            entry at mesh5120 in fog and grid entry at mesh5120 under grid:
-            bit for bit against their plain versions (grid: traversal
-            counters equal), timed
+  [thread]  tables over the grouped kernels' shared-memory budget:
+            at mesh5120 (icosphere:4, 5120 triangles, 240 KB of rows) the
+            GroupSpill forms of kernel B and the chunked kernel A, which
+            the wrappers take, and in fog that of the XT kernel B, each
+            beside the thread-per-entry entry, launched directly; the
+            thread-per-pixel grid kernel A and thread-per-entry grid
+            kernel B at mesh5120 under grid, which the wrappers take:
+            bit for bit against their plain versions (lane-iterations the
+            plain model's; grid: traversal counters equal), timed; then
+            the GroupSpill forms of the split-point libraries
+            (csrc/group_tune.cu at stage caps of 0 and 168 bytes) on
+            Cornell_Box, icosphere:1 and stress:64, bit for bit
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -52,12 +56,12 @@ Phases, each reported on lines starting with its tag:
             JAX package's bench configurations stress1024, mesh1280,
             stress256, dynamic1024 and dynamic, and at mesh5120
             (icosphere:4, whose rows exceed the grouped kernels' shared-
-            memory budget); the device busy share and device time by
-            kernel of profiled north-star, stress1024 and mesh1280
-            frames, and their sorted frames through the grouped and the
-            thread-per-entry kernels in turns (the north star and stress256
-            also with kernel A alone in either form); then one stress1024
-            frame
+            memory budget: the GroupSpill forms); the device busy share
+            and device time by kernel of profiled north-star, stress1024,
+            mesh1280 and mesh5120 frames, and their sorted frames through
+            the grouped and the thread-per-entry kernels in turns
+            (the north star and stress256 also with kernel A alone in
+            either form); then one stress1024 frame
             and one animated frame at t > 0 (dynamic1024, and Cornell at
             128x32) against the plain pipeline on the card, on the same
             per-frame scene buffer: rays, samples and variance equal,
@@ -92,10 +96,12 @@ Phases, each reported on lines starting with its tag:
             with every gate off against the reference kernels, bit for
             bit; Engine through each of those, through manylights (every
             light, the reference kernels) and through mesh5120 in fog
-            (rows over the grouped kernels' budget: the thread-per-entry
-            XT kernel B); the fog frame through both forms of kernel B in
-            turns; cli.main with --mis --fog; the XT kernels, both forms of
-            B, timed at the fog and stress:1024 shapes
+            (rows over the grouped kernels' budget: the GroupSpill form
+            of the XT kernel B); the fog and mesh5120 fog frames through
+            both forms of kernel B in turns, the latter profiled first;
+            cli.main with --mis --fog; the
+            XT kernels, both forms of B, timed at the fog and stress:1024
+            shapes
   [accel]   the opt-in traversals (csrc/kernel_accel.cu): each grid and
             gathered kernel against its plain version at the JAX bench's
             stress1024 shapes (200x100, 8 spp, depth 6; gathered also at
@@ -168,7 +174,9 @@ Phases, each reported on lines starting with its tag:
             tile equal
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
-  frame; the accumulation must be finite and the image not flat. It prints
+  frame; the accumulation must be finite and the image not flat. The
+  sorted frames in turns reset the counters too and add what both forms'
+  wrappers launched. It prints
   ms/frame, Mray/s (owed traversal sweeps per second) and occupancy (owed
   sweeps over executed lane-iterations x (1 + the shadow sweeps a bounce
   owes: n_lights, or 1 under one-light NEE); a grouped kernel's
@@ -183,7 +191,12 @@ kernel_extra_grouped at the north star, kernel_base_grouped at stress256,
 kernel_base_chunked_grouped and kernel_base_grid_grouped at stress1024,
 the thread-per-pixel kernel_base_grid and the thread-per-entry
 kernel_extra, kernel_extra_xt, kernel_extra_grid and kernel_base_chunked
-at mesh5120 (in fog, under grid); the EXT rows at the showcase and
+at mesh5120 (in fog, under grid), the first, second and fourth of those
+launched directly: no dispatch takes them (OFF_PATH), so their launches
+are 0 and a main-path launch fails the run; and the GroupSpill forms kernel_extra_grouped_spill,
+kernel_extra_xt_grouped_spill and kernel_base_chunked_grouped_spill at
+mesh5120 (in fog), their errors including the split-point libraries';
+the EXT rows at the showcase and
 stress:1024-checker shapes; the other XT rows at the fog and stress:1024
 fog shapes; the other grid and gathered rows at the stress1024 shapes, their
 operations the slab tests, walk steps and primitive tests that the plain
@@ -256,15 +269,20 @@ def phase_device():
 
 
 def phase_build():
+    """Every library, and the split-point libraries of csrc/group_tune.cu
+    (SPLIT_CAPS), one nvcc each, all at once."""
     from terminal_raytracer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    paths = build.library_paths()
+    paths = build.library_paths(tuple(build.ENTRY_POINTS)
+                                + tuple(_split_sources().values()))
     build.load_kernels()
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in paths.values())} in "
           f"{dt:.1f} s", flush=True)
-    for so in paths.values():
+    for src, so in paths.items():
+        if not isinstance(src, str):
+            continue  # the split-point libraries: the render kernels' code
         for line in so.with_suffix(".log").read_text().splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry")):
                 print(f"[build] {line.strip()}", flush=True)
@@ -470,6 +488,14 @@ def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters,
     longest = int(entry_iters.max())
     took = ("grouped" if kernels.takes_grouped(tr, kind.split("_")[0])
             else "thread-per-entry")
+    staged = (f"{kernels.group_smem_bytes(tr)} B of "
+              f"{kernels.GROUP_SMEM_BYTES}")
+    if kind.endswith("_spill"):
+        cap = kernels.group_cap(kind)
+        rows = kernels.group_stage(*tr.tables.counts[:3], cap)
+        staged = (f"{kernels.stage_bytes(rows)} B of {cap} (triangles, "
+                  f"spheres, planes {rows} of {tr.tables.counts[2]}, "
+                  f"{tr.tables.counts[0]}, {tr.tables.counts[1]})")
     extra = ""
     if base_outs is not None:
         g, t = base_outs
@@ -485,8 +511,7 @@ def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters,
     print(f"[{tag}] {label}: grouped K {k} {ms_g:.4f} ms on {w_g} working "
           f"warps, thread-per-entry {ms_t:.4f} ms on {w_t} (x{ms_t / ms_g:.2f});"
           f" longest entry {longest} iterations: {1e3 * ms_g / longest:.3f} / "
-          f"{1e3 * ms_t / longest:.3f} µs an iteration; staged "
-          f"{kernels.group_smem_bytes(tr)} B of {kernels.GROUP_SMEM_BYTES}; "
+          f"{1e3 * ms_t / longest:.3f} µs an iteration; staged {staged}; "
           f"the wrapper takes {took}{extra}", flush=True)
 
 
@@ -632,47 +657,174 @@ def phase_kernel_base_chunked(peak):
     return err, (ms, plain_ms, bound)
 
 
+# The stage caps of the split-point libraries of csrc/group_tune.cu (K 8,
+# 128 lanes a block): nothing staged, and 168 bytes (Cornell_Box: its planes
+# split; icosphere:1: its triangles; stress:64: its spheres).
+SPLIT_CAPS = (0, 168)
+SPLIT_SCENES = ("Cornell_Box", "icosphere:1", "stress:64")
+
+
+def _split_sources():
+    from terminal_raytracer_tpu_torch.ops import build
+
+    return {cap: (build.TUNE_SOURCE, ("TRT_TUNE_K=8", "TRT_TUNE_THREADS=128",
+                                      f"TRT_TUNE_STAGE_CAP={cap}"))
+            for cap in SPLIT_CAPS}
+
+
+def _spill_both(label, tr, kernel, peak):
+    """Over the budget, the GroupSpill form of the chunked kernel A (kernel
+    'chunked') or of kernel B ('extra', at the tracer's instantiation),
+    which its wrapper takes, and the thread-per-entry entry, launched
+    directly: each against the plain version bit for bit, with its
+    lane-iterations equal to the plain model at its group width; both timed
+    side by side. Returns {form: (max abs error, ms, plain ms, bound)}."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    pose = _pose()
+    kind = kernels._kind(tr)
+    atlas = 0 if tr.atlas is None else tr.atlas.numel()
+    fixed = 4 * (tr.tables.buf.numel() + atlas)
+    if kernel == "chunked":
+        name = "chunked_spill"
+        wrapper = kernels.base_kernel_chunked_grouped_spill
+        n0 = wrapper.launches
+        g = kernels.base_kernel_chunked(tr, pose, SEED, 0)
+
+        def launch(form):
+            return lambda: kernels._launch_chunked(
+                tr, pose, SEED, 0, 0, None,
+                "grouped_spill" if form == "grouped" else "ref")
+
+        plain, ops, p = _time_plain(
+            tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0))
+        it = kernels.chunked_entry_iters(tr, pose, SEED, 0)
+        n_ent = tr.n_base_chunks * tr.width * tr.height
+        bound = _bound(ops, fixed + 36 * n_ent, peak)
+        outs = {"grouped": g, "thread": launch("thread")()}
+        errs = {form: _compare_base("thread", f"{label} chunked kernel A "
+                                    f"{form}", o, p, (), tr, exact=True)
+                for form, o in outs.items()}
+        iters = {form: o.iters for form, o in outs.items()}
+        what = f"{n_ent} entries"
+    else:
+        name = "extra_spill" if kind == "ref" else f"extra_{kind}_spill"
+        wrapper = kernels.SPILL_EXTRA[kind]
+        a = kernels.base_phase(tr, pose, SEED, 0)
+        s = kernels.sorted_stream(tr, a[2], a[7])
+        args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        n0 = wrapper.launches
+        g = kernels.extra_kernel(*args)
+        spill = "grouped_spill" if kind == "ref" else f"{kind}_grouped_spill"
+
+        def launch(form):
+            return lambda: kernels._launch_extra(
+                *args, spill if form == "grouped" else kind)
+
+        plain, ops, pb = _time_plain(
+            tr, lambda: kernels.extra_kernel_plain(*args))
+        it = kernels.extra_entry_iters(*args)
+        bound = _bound(ops, fixed + 40 * s.add.numel(), peak)
+        outs = {"grouped": g, "thread": launch("thread")()}
+        errs = {form: _check_extra("thread", f"{label} {form}", s, o, pb,
+                                   exact=True) for form, o in outs.items()}
+        iters = {form: o[2] for form, o in outs.items()}
+        what = f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries"
+    if wrapper.launches != n0 + 1:
+        fail(f"[thread] {label}: the wrapper took no {wrapper.__name__}")
+    _iters_model("thread", f"{label} {kernel} grouped", iters["grouped"], it,
+                 kernels.group_k(name))
+    _iters_model("thread", f"{label} {kernel} thread", iters["thread"], it, 1)
+    ms = {form: _time_cuda(launch(form), 3) for form in ("grouped", "thread")}
+    _grouped_vs_thread("thread", f"{label} shapes", name, tr, ms["grouped"],
+                       ms["thread"], it)
+    print(f"[thread] {label} shapes ({kernels.group_rows_bytes(tr)} B of "
+          f"rows, over the {kernels.GROUP_SMEM_BYTES} B budget): "
+          f"{wrapper.__name__} {ms['grouped']:.3f} ms, thread per entry "
+          f"{ms['thread']:.3f} ms on {what} (plain {plain:.1f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
+          flush=True)
+    return {form: (errs[form], ms[form], plain, bound) for form in ms}
+
+
+def _split_points():
+    """The GroupSpill forms of the split-point libraries (SPLIT_CAPS) on
+    SPLIT_SCENES at 64x16, 16 spp, depth 8 (chunks of 2; kernel B also at
+    the XT gates in fog under --mis): bit for bit against the plain
+    versions, the lane-iterations the plain model's at K. Returns the max
+    abs error."""
+    from terminal_raytracer_tpu_torch.models.scene import Fog
+    from terminal_raytracer_tpu_torch.ops import build, kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    err = 0.0
+    for cap, src in _split_sources().items():
+        lib = build.load_kernels((src,))
+        for name in SPLIT_SCENES:
+            scene = _scene(name, 64, 16, 16, 8)
+            tr = PathTracer(scene, "cuda", chunk_base=2, chunk_extra=2)
+            staged = kernels.group_stage(*tr.tables.counts[:3], cap)
+            label = f"cap {cap} B, {name} (staged {staged})"
+            k = kernels._launch_chunked(tr, pose, SEED, 0, 0, None,
+                                        "grouped_spill", lib)
+            p = kernels.base_kernel_chunked_plain(tr, pose, SEED, 0)
+            err = max(err, _compare_base("thread", f"{label} chunked A", k, p,
+                                         (), tr, exact=True))
+            _iters_model("thread", label, k.iters, kernels.chunked_entry_iters(
+                tr, pose, SEED, 0), kernels.group_k("chunked_spill", lib))
+            fog = PathTracer(scene.with_overrides(fog=Fog(density=0.15)),
+                             "cuda", transport="mis")
+            for t, kind in ((tr, "grouped_spill"), (fog, "xt_grouped_spill")):
+                a = kernels.base_phase(t, pose, SEED, 0)
+                s = kernels.sorted_stream(t, a[2], a[7])
+                args = (t, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+                b = kernels._launch_extra(*args, kind, lib)
+                err = max(err, _check_extra("thread", f"{label} {kind}", s, b,
+                                            kernels.extra_kernel_plain(*args),
+                                            exact=True))
+                _iters_model("thread", f"{label} {kind}", b[2],
+                             kernels.extra_entry_iters(*args),
+                             kernels.group_k(
+                                 "extra_spill" if kind == "grouped_spill"
+                                 else "extra_xt_spill", lib))
+    return err
+
+
 def phase_thread_per_entry(peak):
-    """The thread-per-entry kernel B and chunked kernel A, and the
-    thread-per-pixel grid kernel A, where the main path takes them, on a
-    table above the grouped kernels' shared-memory budget (mesh5120,
-    icosphere:4 at the bench's 200x100, 8 spp, depth 6): the reference
-    entries, then kernel B's XT entry in fog (XT_OVER_BUDGET) and kernels
-    A and B over the culled sweep under `--accel grid` (ACCEL_OVER_BUDGET),
-    each taken by its wrapper, against its plain version bit for bit (grid:
-    and the traversal counters) and timed there. Returns {row: (max abs
-    error, ms, plain ms, bound)}."""
+    """Tables above the grouped kernels' shared-memory budget (mesh5120,
+    icosphere:4 at the bench's 200x100, 8 spp, depth 6): the GroupSpill
+    forms of kernel B and of the chunked kernel A, which their wrappers
+    take, beside the thread-per-entry entries, launched directly
+    (_spill_both): the reference entries, then kernel B's XT entries in fog
+    (XT_OVER_BUDGET); then kernels A and B over the culled sweep under
+    `--accel grid` (ACCEL_OVER_BUDGET), whose wrappers take the thread per
+    entry there, against the plain versions bit for bit with the traversal
+    counters, timed; then the split-point libraries (_split_points).
+    Returns {row: (max abs error, ms, plain ms, bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
     tr = PathTracer(_scene("icosphere:4", 200, 100, 8, 6), "cuda")
-    if kernels.takes_grouped(tr) or not tr.chunk_base:
-        fail("[thread] mesh5120 takes the grouped kernels or no chunks")
-    scene_bytes = 4 * tr.tables.buf.numel()
-    n0 = kernels.base_kernel_chunked.launches
-    k = kernels.base_kernel_chunked(tr, pose, SEED, 0)
-    if kernels.base_kernel_chunked.launches != n0 + 1:
-        fail("[thread] mesh5120: the wrapper took no thread-per-entry entry")
-    ms_c = _time_cuda(lambda: kernels.base_kernel_chunked(tr, pose, SEED, 0),
-                      3)
-    plain_c, ops_c, p = _time_plain(
-        tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0))
-    err_c = _compare_base("thread", "mesh5120 chunked kernel A", k, p, (), tr,
-                          exact=True)
-    n_ent = tr.n_base_chunks * tr.width * tr.height
-    bound_c = _bound(ops_c, scene_bytes + 36 * n_ent, peak)
-    print(f"[thread] mesh5120 shapes ({kernels.group_rows_bytes(tr)} B of "
-          f"rows, over the {kernels.GROUP_SMEM_BYTES} B budget): "
-          f"base_kernel_chunked {ms_c:.3f} ms (plain {plain_c:.1f} ms, bound "
-          f"{bound_c[0]:.4f} ms by {bound_c[1]})", flush=True)
-    out = {"c": (err_c, ms_c, plain_c, bound_c)}
+    if not kernels.takes_grouped(tr) or not tr.chunk_base:
+        fail("[thread] mesh5120 takes no grouped kernel B or no chunks")
+    out = {}
+    both = _spill_both("mesh5120", tr, "chunked", peak)
+    out["c"], out["cs"] = both["thread"], both["grouped"]
+    both = _spill_both("mesh5120", tr, "extra", peak)
+    out["b"], out["bs"] = both["thread"], both["grouped"]
+    _, name, size, over, transport = XT_OVER_BUDGET
+    both = _spill_both("mesh5120 fog", PathTracer(
+        _xt_scene(name, size, over), "cuda", transport=transport), "extra",
+        peak)
+    out["xt"], out["xts"] = both["thread"], both["grouped"]
 
     # The grid kernel A, thread per pixel.
     grid = PathTracer(_scene(ACCEL_OVER_BUDGET[1], 200, 100, 8, 6), "cuda",
                       accel="grid")
-    if kernels.takes_grouped(grid, "base"):
-        fail("[thread] mesh5120 grid takes the grouped kernel A")
+    if kernels.takes_grouped(grid, "base") or kernels.takes_grouped(grid):
+        fail("[thread] mesh5120 grid takes a grouped kernel")
     n0 = kernels.base_kernel_grid.launches
     k, kc = _counted_launch(grid, lambda: kernels.base_kernel(grid, pose,
                                                               SEED, 0))
@@ -695,50 +847,48 @@ def phase_thread_per_entry(peak):
           flush=True)
     out["ga"] = (err, ms, plain, bound)
 
-    _, name, size, over, transport = XT_OVER_BUDGET
-    for key, label, t, wrapper in (
-            ("b", "mesh5120", tr, kernels.extra_kernel),
-            ("xt", "mesh5120 fog", PathTracer(_xt_scene(name, size, over),
-                                              "cuda", transport=transport),
-             kernels.extra_kernel_xt),
-            ("grid", "mesh5120 grid", grid, kernels.extra_kernel_grid)):
-        if kernels.takes_grouped(t):
-            fail(f"[thread] {label} takes the grouped kernel B")
-        culled = t.traversal == "grid"
-        a = kernels.base_phase(t, pose, SEED, 0)
-        s = kernels.sorted_stream(t, a[2], a[7])
-        args = (t, pose, s.xs, s.ys, s.state, s.add, s.samp0)
-        n0 = wrapper.launches
-        b, kc = _counted_launch(t, lambda: kernels.extra_kernel(*args))
-        if wrapper.launches != n0 + 1:
-            fail(f"[thread] {label}: kernel B took no thread-per-entry entry")
-        ms = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
-        pc = []
-        plain, ops, pb = _time_plain(
-            t, lambda: kernels.extra_kernel_plain(*args),
-            pc if culled else None)
-        err = _check_extra("thread", label, s, b, pb, exact=True)
-        if culled:
-            _check_counts(f"{label} kernel B", kc, pc[0])
-        atlas = 0 if t.atlas is None else t.atlas.numel()
-        bound = _bound(ops, 4 * (t.tables.buf.numel() + atlas)
-                       + 40 * s.add.numel(), peak)
-        print(f"[thread] {label} shapes ({kernels.group_smem_bytes(t)} B "
-              f"staged, over the {kernels.GROUP_SMEM_BYTES} B budget): "
-              f"{wrapper.__name__} {ms:.3f} ms on {int((s.add > 0).sum())} "
-              f"budgeted of {s.add.numel()} entries (plain {plain:.1f} ms, "
-              f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} "
-              "operations)", flush=True)
-        out[key] = (err, ms, plain, bound)
+    # The grid kernel B, thread per entry.
+    a = kernels.base_phase(grid, pose, SEED, 0)
+    s = kernels.sorted_stream(grid, a[2], a[7])
+    args = (grid, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+    n0 = kernels.extra_kernel_grid.launches
+    b, kc = _counted_launch(grid, lambda: kernels.extra_kernel(*args))
+    if kernels.extra_kernel_grid.launches != n0 + 1:
+        fail("[thread] mesh5120 grid: kernel B took no thread-per-entry entry")
+    ms = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
+    pc = []
+    plain, ops, pb = _time_plain(
+        grid, lambda: kernels.extra_kernel_plain(*args), pc)
+    err = _check_extra("thread", "mesh5120 grid", s, b, pb, exact=True)
+    _check_counts("mesh5120 grid kernel B", kc, pc[0])
+    bound = _bound(ops, 4 * (grid.tables.buf.numel() + grid.atlas.numel())
+                   + 40 * s.add.numel(), peak)
+    print(f"[thread] mesh5120 grid shapes ({kernels.group_smem_bytes(grid)} "
+          f"B staged, over the {kernels.GROUP_SMEM_BYTES} B budget): "
+          f"extra_kernel_grid {ms:.3f} ms on {int((s.add > 0).sum())} "
+          f"budgeted of {s.add.numel()} entries (plain {plain:.1f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
+          flush=True)
+    out["grid"] = (err, ms, plain, bound)
+    split_err = _split_points()
+    for key in ("cs", "bs", "xts"):
+        out[key] = (max(out[key][0], split_err), *out[key][1:])
     return out
 
 
+# The thread-per-entry entries that no dispatch takes (the grouped entries
+# serve their instantiations at every table size): held bit for bit and
+# timed beside their GroupSpill forms in [thread], launched directly, so
+# their main-path launches are 0, and a launch there fails the run.
+OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_base_chunked")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_grouped", "base_kernel_grid_grouped",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
                 "extra_kernel_xt_grouped", "extra_kernel_grid_grouped",
+                "base_kernel_chunked_grouped_spill",
+                "extra_kernel_grouped_spill", "extra_kernel_xt_grouped_spill",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
@@ -753,28 +903,38 @@ def _sfx(tr) -> str:
             else "_ext" if tr.ext else "")
 
 
+def _spill(tr) -> str:
+    """The suffix of a grouped wrapper's GroupSpill form, which takes
+    tracer `tr` where its rows exceed the grouped kernels' budget."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    return ("_spill" if kernels.group_smem_bytes(tr) > kernels.GROUP_SMEM_BYTES
+            else "")
+
+
 def _a_name(tr) -> str:
     """The kernel A wrapper that counts the launches of tracer `tr`'s base
-    phase: the grouped entry (chunked or not) where
-    ops/kernels.takes_grouped."""
+    phase: the grouped entry (chunked or not, the chunked one's GroupSpill
+    form over the budget) where ops/kernels.takes_grouped."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     if not tr.chunk_base:
         if kernels.takes_grouped(tr, "base"):
             return kernels.GROUPED_BASE[kernels._kind(tr)].__name__
         return "base_kernel" + _sfx(tr)
-    return ("base_kernel_chunked_grouped"
+    return ("base_kernel_chunked_grouped" + _spill(tr)
             if kernels.takes_grouped(tr, "chunked")
             else "base_kernel_chunked" + _sfx(tr))
 
 
 def _b_name(tr) -> str:
     """The kernel B wrapper that counts tracer `tr`'s launches: the grouped
-    entry of its instantiation where ops/kernels.takes_grouped."""
+    entry of its instantiation (its GroupSpill form over the budget) where
+    ops/kernels.takes_grouped."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     if kernels.takes_grouped(tr):
-        return kernels.GROUPED_EXTRA[kernels._kind(tr)].__name__
+        return kernels.GROUPED_EXTRA[kernels._kind(tr)].__name__ + _spill(tr)
     return "extra_kernel" + _sfx(tr)
 
 
@@ -987,7 +1147,8 @@ def _frames_grouped_vs_thread(tag, label, scene, frames=8, base_only=False,
     (the dispatch by table size turned off), in turns: thread, grouped,
     grouped, thread. `base_only`: kernel A alone in either form (its
     grouped entry wherever it serves the tracer, also below
-    GROUP_BASE_MIN_PRIMS), the other kernels as the dispatch takes them."""
+    GROUP_BASE_MIN_PRIMS), the other kernels as the dispatch takes them.
+    The forced form is no main path: its launches count nowhere."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
@@ -1045,7 +1206,8 @@ def phase_scale():
     # and the frame through them beside the thread-per-entry kernels.
     for label, scene in (("north star", _cornell(400, 200, 16, 32)),
                          ("stress1024", _scene("stress:1024", 200, 100, 8, 6)),
-                         ("mesh1280", _scene("icosphere:3", 200, 100, 8, 6))):
+                         ("mesh1280", _scene("icosphere:3", 200, 100, 8, 6)),
+                         ("mesh5120", _scene("icosphere:4", 200, 100, 8, 6))):
         _device_busy("scale", label, scene, 8)
         _frames_grouped_vs_thread("scale", label, scene)
         if label == "north star":
@@ -1582,6 +1744,9 @@ def phase_xt(peak):
                                    True, 4 if name == "icosphere:4" else 8,
                                    transport=transport))
     _frames_grouped_vs_thread("xt", "fog", _xt_scene(*XT_CONFIGS[0][1:4]))
+    _device_busy("xt", "mesh5120 fog", _xt_scene(*XT_OVER_BUDGET[1:4]), 4)
+    _frames_grouped_vs_thread("xt", "mesh5120 fog",
+                              _xt_scene(*XT_OVER_BUDGET[1:4]), frames=4)
 
     # (d)
     _reset_launches()
@@ -2375,12 +2540,17 @@ def main() -> int:
              max(err_a["grouped"], res_a["grouped"][0],
                  res_a256["grouped"][0]), *res_a256["grouped"][1:]),
             # Kernel B and the chunked kernel A, thread per entry (at the
-            # mesh5120 shapes, above the grouped kernels' budget) and
-            # grouped (csrc/group.cuh; at the north star and stress1024).
+            # mesh5120 shapes, launched directly: OFF_PATH) and grouped
+            # (csrc/group.cuh; at the north star and stress1024; their
+            # GroupSpill forms at mesh5120, [thread], where the main path
+            # takes them, their errors including the split-point
+            # libraries').
             ("kernel_extra", "extra_kernel", "kernel_extra.cu", "1028",
              *thread["b"]),
             ("kernel_extra_grouped", "extra_kernel_grouped", "group.cuh",
              "1028", err_b, ms_b, plain_b, bound_b),
+            ("kernel_extra_grouped_spill", "extra_kernel_grouped_spill",
+             "group.cuh", "1028", *thread["bs"]),
             # Kernel A with base_dynamic: the runtime quota read at :801.
             ("kernel_base_quota", "base_kernel_quota", "kernel_base.cu",
              "801", *quota_row[:4]),
@@ -2388,6 +2558,9 @@ def main() -> int:
              "796", *thread["c"]),
             ("kernel_base_chunked_grouped", "base_kernel_chunked_grouped",
              "group.cuh", "796", err_c, ms_c, plain_c, bound_c),
+            ("kernel_base_chunked_grouped_spill",
+             "base_kernel_chunked_grouped_spill", "group.cuh", "796",
+             *thread["cs"]),
             # The texel-atlas variants: the atlas is bound at :807 (A) and
             # :1031 (B), pallas_kernel._tex_bind_front.
             ("kernel_base_ext", "base_kernel_ext", "kernel_base.cu", "807",
@@ -2400,15 +2573,18 @@ def main() -> int:
             # PathTracer built with them at :739, kernel B's at :1013.
             ("kernel_base_xt", "base_kernel_xt", "kernel_base.cu", "739",
              *xt["a"]),
-            # Thread per entry at mesh5120 in fog ([thread]), where the main
-            # path takes it; its fog-shape time beside the grouped entry's
-            # is printed in [xt].
+            # Thread per entry at mesh5120 in fog ([thread]), launched
+            # directly (OFF_PATH); its fog-shape time beside the grouped
+            # entry's is printed in [xt].
             ("kernel_extra_xt", "extra_kernel_xt", "kernel_extra.cu", "1013",
              max(xt["b"][0], thread["xt"][0]), *thread["xt"][1:]),
             # Grouped (csrc/group.cuh over GroupSweep; entry in
-            # kernel_extra.cu), at the fog shapes.
+            # kernel_extra.cu), at the fog shapes; its GroupSpill form at
+            # mesh5120 in fog, where the main path takes it.
             ("kernel_extra_xt_grouped", "extra_kernel_xt_grouped",
              "group.cuh", "1013", *xt["g"]),
+            ("kernel_extra_xt_grouped_spill", "extra_kernel_xt_grouped_spill",
+             "group.cuh", "1013", *thread["xts"]),
             ("kernel_base_chunked_xt", "base_kernel_chunked_xt",
              "kernel_base.cu", "739", *xt["c"]),
             # The opt-in traversals, bound into kernel A at :808-809 and
@@ -2448,7 +2624,12 @@ def main() -> int:
          "420" if mode == "regen" else "391", *sch[mode + sfx])
         for mode in ("regen", "lockstep")
         for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
-    unlaunched = [name for name, counter, *_ in rows if not launches[counter]]
+    counter_of = {name: counter for name, counter, *_ in rows}
+    taken = [name for name in OFF_PATH if launches[counter_of[name]]]
+    if taken:
+        fail(f"the main path took a thread-per-entry entry: {taken}")
+    unlaunched = [name for name, counter, *_ in rows
+                  if not launches[counter] and name not in OFF_PATH]
     unlaunched += [name for name, *_ in PROBE_ROWS
                    if not probe_launches[name]]
     if unlaunched:

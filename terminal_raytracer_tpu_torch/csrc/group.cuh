@@ -59,6 +59,13 @@
 //    zero-budget tail holds no SM, and the budgeted prefix spreads over
 //    every SM. The chunked kernel A keeps its chunk-major stream.
 //
+//  - A table whose rows exceed the 96 KB budget takes the same kernels over
+//    GroupSpill (below): the first rows of each kind that fit a stage cap
+//    (triangles as their nine intersection words) live in shared memory,
+//    the rest are read from the scene buffer through the read-only path
+//    (__ldg: L1, then the 50 MB L2). Its blocks are wider (one a SM at the
+//    cap), and the rest of the SM's pool goes to L1.
+//
 // Neither tensor cores nor TMA tiles have a place here: each ray test is
 // a handful of dependent f32 operations that must round exactly as the
 // plain version's do (--fmad=false); a TF32 or bf16 product would change
@@ -79,6 +86,13 @@ namespace trt {
 // a table above it takes the thread-per-entry kernels.
 constexpr int GROUP_THREADS = 128;
 constexpr int GROUP_SMEM_BYTES = 96 * 1024;
+// The most dynamic shared memory a block may take on the H100 (the 227 KB
+// opt-in limit), the bound of GroupSpill's stage cap.
+constexpr int GROUP_SMEM_MAX = 232448;
+// The words of a triangle row that a sweep reads: v0, e1, e2. The unit
+// normal (words 9-11) is read by hit_at, for the winner alone, from the
+// global buffer.
+constexpr int TRI_SWEEP_W = 9;
 
 __host__ __device__ __forceinline__ int group_rows_floats(const Frame& f) {
   return TRI_W * f.n_tri + SPH_W * f.n_sph + PLN_W * f.n_pln;
@@ -149,6 +163,21 @@ __device__ __forceinline__ bool triangle_tv(V3 o, V3 d, V3 v0, V3 e1, V3 e2, flo
          (t > t_min) && (t < t_max);
 }
 
+// The lanes' (closest, idx) reduced over a group of K lanes by (t, then
+// index), every lane ending with the group's.
+template <int K>
+__device__ __forceinline__ void reduce_closest(unsigned mask, float& closest, int& idx) {
+#pragma unroll
+  for (int off = K / 2; off > 0; off >>= 1) {
+    const float t_o = __shfl_xor_sync(mask, closest, off);
+    const int i_o = __shfl_xor_sync(mask, idx, off);
+    if (t_o < closest || (t_o == closest && i_o < idx)) {
+      closest = t_o;
+      idx = i_o;
+    }
+  }
+}
+
 // The table sweep split across a path group of K lanes, over the rows
 // staged in shared memory (a traversal of trace.cuh's path functions, like
 // Sweep). Every lane of the group calls each sweep with the same ray.
@@ -195,6 +224,9 @@ template <int K_>
 struct GroupSweep {
   static constexpr int K = K_;
   static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  static constexpr int THREADS = GROUP_THREADS;     // a block's lanes
+  static constexpr int SMEM_CAP = GROUP_SMEM_BYTES;  // the most it stages
+  static constexpr bool PREFER_L1 = false;           // the launcher's carveout
   struct Launch {};  // its launch argument: none
   const float* tri;  // shared memory: [n_tri][TRI_W], then spheres, planes
   const float* sph;
@@ -245,15 +277,7 @@ struct GroupSweep {
       t = hit ? t : -1.0f;
       if (t > 0.0f && t < closest) { closest = t; idx = sc.n_sph + sc.n_pln + i; }
     }
-#pragma unroll
-    for (int off = K / 2; off > 0; off >>= 1) {
-      const float t_o = __shfl_xor_sync(mask, closest, off);
-      const int i_o = __shfl_xor_sync(mask, idx, off);
-      if (t_o < closest || (t_o == closest && i_o < idx)) {
-        closest = t_o;
-        idx = i_o;
-      }
-    }
+    reduce_closest<K>(mask, closest, idx);
     return hit_at<EXT, XT>(sc, o, d, closest, idx);
   }
 
@@ -274,6 +298,182 @@ struct GroupSweep {
       tri_row(tri, i, v0, e1, e2);
       blocked = triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
     }
+    return __any_sync(mask, blocked);
+  }
+
+  __device__ __forceinline__ void flush() {}
+};
+
+// The staged part of a table under a stage cap of `cap` bytes
+// (ops/kernels.py group_stage mirrors it): as many rows of each kind as
+// fit, triangles first (TRI_SWEEP_W words a row), then spheres, then
+// planes; the rest of each kind is spilled.
+struct Stage {
+  int n_tri, n_sph, n_pln;
+};
+
+__host__ __device__ __forceinline__ Stage group_stage(const Frame& f, int cap) {
+  int left = cap / 4;
+  Stage s;
+  s.n_tri = f.n_tri < left / TRI_SWEEP_W ? f.n_tri : left / TRI_SWEEP_W;
+  left -= TRI_SWEEP_W * s.n_tri;
+  s.n_sph = f.n_sph < left / SPH_W ? f.n_sph : left / SPH_W;
+  left -= SPH_W * s.n_sph;
+  s.n_pln = f.n_pln < left / PLN_W ? f.n_pln : left / PLN_W;
+  return s;
+}
+
+__host__ __device__ __forceinline__ int stage_floats(const Stage& s) {
+  return TRI_SWEEP_W * s.n_tri + SPH_W * s.n_sph + PLN_W * s.n_pln;
+}
+
+// A load from shared memory, or (G) through the read-only path.
+template <bool G>
+__device__ __forceinline__ float ld(const float* p) {
+  return G ? __ldg(p) : *p;
+}
+
+// GroupSweep for tables of any size: the same split sweep, its rows from
+// two sources. group_stage(f, CAP) rows of each kind are staged in shared
+// memory: the triangles plane-major (word w of staged triangle i at w *
+// n_staged + i, 32 consecutive rows' words in 32 banks), then the spheres
+// and planes as rows. The other rows are read from the scene buffer's rows
+// through the read-only path. Lane j's rows of a kind, j, j + K, ..., run
+// the staged ones, then the spilled ones: the same rows in the same order
+// as GroupSweep, the same operations on the same values, so the lemma
+// there holds as it stands. THREADS lanes a block, CAP bytes at most
+// staged; the launcher leaves the rest of the SM's pool to L1. Tables
+// within the budget keep GroupSweep: at its shape (the shipped K, 128
+// lanes, a 96 KB cap) this traversal took 2-35% longer on each of the five
+// rows that tools/group_k.py --only budget times (PERF.md).
+template <int K_, int THREADS_, int CAP_>
+struct GroupSpill {
+  static constexpr int K = K_;
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  static constexpr int THREADS = THREADS_;
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "THREADS: whole warps, at most 1024");
+  static constexpr int SMEM_CAP = CAP_;
+  static_assert(CAP_ >= 0 && CAP_ <= GROUP_SMEM_MAX, "CAP: at most the opt-in limit");
+  static constexpr bool PREFER_L1 = true;
+  struct Launch {};  // its launch argument: none
+  const float* tri;  // shared memory: [TRI_SWEEP_W][st.n_tri], then spheres, planes
+  const float* sph;
+  const float* pln;
+  Stage st;
+  int j;          // the lane's place in its group
+  unsigned mask;  // the group's lanes
+
+  static __host__ __device__ __forceinline__ int smem_floats(const Frame& f, const Launch&) {
+    return stage_floats(group_stage(f, CAP_));
+  }
+
+  // Copy the staged rows, one 4-byte cp.async a word; then wait for them
+  // and for the block.
+  static __device__ __forceinline__ void stage(float* smem, const float* buf, const Frame& f,
+                                               const Launch&) {
+    const Stage s = group_stage(f, CAP_);
+    const int n_tri = TRI_SWEEP_W * s.n_tri;
+    const int n_front = n_tri + SPH_W * s.n_sph;
+    const float* rows = buf + SPH_W * f.n_sph + PLN_W * f.n_pln;
+    for (int w = threadIdx.x; w < stage_floats(s); w += blockDim.x) {
+      const float* src;
+      if (w < n_tri) {
+        const int word = w / s.n_tri;
+        const int i = w - word * s.n_tri;
+        src = rows + TRI_W * i + word;
+      } else if (w < n_front) {
+        src = buf + (w - n_tri);
+      } else {
+        src = buf + SPH_W * f.n_sph + (w - n_front);
+      }
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + w);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ GroupSpill(const float* smem, const Frame& f, const Launch& = {})
+      : st(group_stage(f, CAP_)) {
+    const unsigned lane = threadIdx.x & 31u;
+    j = (int)(lane & (unsigned)(K - 1));
+    mask = K == 32 ? 0xffffffffu : (((1u << K) - 1u) << (lane & ~(unsigned)(K - 1)));
+    tri = smem;
+    sph = tri + TRI_SWEEP_W * st.n_tri;
+    pln = sph + SPH_W * st.n_sph;
+  }
+
+  template <bool G>
+  static __device__ __forceinline__ bool sphere_at(const float* s, V3 o, V3 d, float t_min,
+                                                   float t_max, float& t) {
+    return sphere_tv(o, d, V3{ld<G>(s), ld<G>(s + 1), ld<G>(s + 2)}, ld<G>(s + 3), t_min, t_max,
+                     t);
+  }
+
+  template <bool G>
+  static __device__ __forceinline__ bool plane_at(const float* q, V3 o, V3 d, float t_min,
+                                                  float t_max, bool strict, float& t) {
+    return plane_tv(o, d, V3{ld<G>(q), ld<G>(q + 1), ld<G>(q + 2)},
+                    V3{ld<G>(q + 3), ld<G>(q + 4), ld<G>(q + 5)}, t_min, t_max, strict, t);
+  }
+
+  // The triangle whose word w lies at p[w * ws].
+  template <bool G>
+  static __device__ __forceinline__ bool tri_at(const float* p, int ws, V3 o, V3 d, float t_min,
+                                                float t_max, float& t) {
+    const V3 v0{ld<G>(p), ld<G>(p + ws), ld<G>(p + 2 * ws)};
+    const V3 e1{ld<G>(p + 3 * ws), ld<G>(p + 4 * ws), ld<G>(p + 5 * ws)};
+    const V3 e2{ld<G>(p + 6 * ws), ld<G>(p + 7 * ws), ld<G>(p + 8 * ws)};
+    return triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
+  }
+
+  template <bool EXT, bool XT>
+  __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+    float closest = T_FAR;
+    int idx = INT_MAX;
+    float t;
+    const auto take = [&](bool hit, int k) {
+      t = hit ? t : -1.0f;
+      if (t > 0.0f && t < closest) {
+        closest = t;
+        idx = k;
+      }
+    };
+    int i = j;
+    for (; i < st.n_sph; i += K)
+      take(sphere_at<false>(sph + SPH_W * i, o, d, RAY_EPS, closest, t), i);
+    for (; i < sc.n_sph; i += K)
+      take(sphere_at<true>(sc.sph + SPH_W * i, o, d, RAY_EPS, closest, t), i);
+    for (i = j; i < st.n_pln; i += K)
+      take(plane_at<false>(pln + PLN_W * i, o, d, RAY_EPS, closest, false, t), sc.n_sph + i);
+    for (; i < sc.n_pln; i += K)
+      take(plane_at<true>(sc.pln + PLN_W * i, o, d, RAY_EPS, closest, false, t), sc.n_sph + i);
+    const int k0 = sc.n_sph + sc.n_pln;
+    for (i = j; i < st.n_tri; i += K)
+      take(tri_at<false>(tri + i, st.n_tri, o, d, RAY_EPS, closest, t), k0 + i);
+    for (; i < sc.n_tri; i += K)
+      take(tri_at<true>(sc.tri + TRI_W * i, 1, o, d, RAY_EPS, closest, t), k0 + i);
+    reduce_closest<K>(mask, closest, idx);
+    return hit_at<EXT, XT>(sc, o, d, closest, idx);
+  }
+
+  __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min,
+                                           float t_max) {
+    bool blocked = false;
+    float t;
+    int i = j;
+    for (; !blocked && i < st.n_sph; i += K)
+      blocked = sphere_at<false>(sph + SPH_W * i, o, d, t_min, t_max, t);
+    for (; !blocked && i < sc.n_sph; i += K)
+      blocked = sphere_at<true>(sc.sph + SPH_W * i, o, d, t_min, t_max, t);
+    for (i = j; !blocked && i < st.n_pln; i += K)
+      blocked = plane_at<false>(pln + PLN_W * i, o, d, t_min, t_max, true, t);
+    for (; !blocked && i < sc.n_pln; i += K)
+      blocked = plane_at<true>(sc.pln + PLN_W * i, o, d, t_min, t_max, true, t);
+    for (i = j; !blocked && i < st.n_tri; i += K)
+      blocked = tri_at<false>(tri + i, st.n_tri, o, d, t_min, t_max, t);
+    for (; !blocked && i < sc.n_tri; i += K)
+      blocked = tri_at<true>(sc.tri + TRI_W * i, 1, o, d, t_min, t_max, t);
     return __any_sync(mask, blocked);
   }
 
@@ -351,6 +551,9 @@ struct GroupCulled {
   static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
   static constexpr int L = WIDE && K > CULL_BLOCK ? CULL_BLOCK : K;  // lanes a group
   static constexpr int P = K / L;                                    // groups a step
+  static constexpr int THREADS = GROUP_THREADS;
+  static constexpr int SMEM_CAP = GROUP_SMEM_BYTES;
+  static constexpr bool PREFER_L1 = false;
   using Launch = Accel;
   const float* tri;  // shared memory: the rows as GroupSweep, then the group table
   const float* sph;
@@ -584,7 +787,7 @@ namespace {
 // the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupCulled<K>)
 // built from the staged rows and its launch argument.
 template <bool EXT, bool XT, class TR>
-__global__ void __launch_bounds__(trt::GROUP_THREADS)
+__global__ void __launch_bounds__(TR::THREADS)
     kernel_extra_grouped(ExtraArgs a, const float* __restrict__ scene_buf,
                          const int* __restrict__ xs, const int* __restrict__ ys,
                          const long long* __restrict__ state_in, const float* __restrict__ add,
@@ -595,7 +798,7 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
   extern __shared__ float4 group_smem[];
   float* rows = reinterpret_cast<float*>(group_smem);
   const int n = a.n_entries;
-  const int i = (int)(((long long)blockIdx.x * trt::GROUP_THREADS + threadIdx.x) / K);
+  const int i = (int)(((long long)blockIdx.x * TR::THREADS + threadIdx.x) / K);
   const bool lead = (threadIdx.x & (unsigned)(K - 1)) == 0u;
   const float budget = i < n ? add[i] : 0.0f;
   trt::V3 esum = {0.0f, 0.0f, 0.0f};
@@ -623,25 +826,28 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
 }
 
 // The chunked kernel A, grouped: the chunk-major entry of group g = global
-// thread / K (kernel_base_chunked's body, its sweeps split over the group).
-template <int K>
-__global__ void __launch_bounds__(trt::GROUP_THREADS)
+// thread / K (kernel_base_chunked's body, its sweeps split over the group),
+// with the traversal TR (GroupSweep<K>, GroupSpill) built from the staged
+// rows and its launch argument.
+template <class TR>
+__global__ void __launch_bounds__(TR::THREADS)
     kernel_base_chunked_grouped(ChunkArgs a, const float* __restrict__ scene_buf,
                                 float* __restrict__ out, long long* __restrict__ state_out,
-                                unsigned long long* __restrict__ iters) {
+                                unsigned long long* __restrict__ iters, typename TR::Launch tl) {
+  constexpr int K = TR::K;
   extern __shared__ float4 group_smem[];
   float* rows = reinterpret_cast<float*>(group_smem);
   const int n_pix = a.h_out * a.f.width;
   const int n = a.n_chunks * n_pix;
-  const int i = (int)(((long long)blockIdx.x * trt::GROUP_THREADS + threadIdx.x) / K);
+  const int i = (int)(((long long)blockIdx.x * TR::THREADS + threadIdx.x) / K);
   const bool lead = (threadIdx.x & (unsigned)(K - 1)) == 0u;
-  trt::stage_rows(rows, scene_buf, a.f);
+  TR::stage(rows, scene_buf, a.f, tl);
   unsigned my_iters = 0;
   if (i < n) {
     const trt::Scene sc = trt::make_scene(scene_buf, a.f);
     const trt::Tex tx{};
     const trt::Xt xt{};
-    trt::GroupSweep<K> tr(rows, a.f);
+    TR tr(rows, a.f, tl);
     const int c = i / n_pix;
     const int p = i - c * n_pix;
     const int x = p % a.f.width;
@@ -689,7 +895,7 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
 // longest pixel; refill, 32 / K x the warp's busiest group's summed
 // iterations, at least the sum over its pixels.
 template <bool EXT, bool XT, class TR, bool REFILL>
-__global__ void __launch_bounds__(trt::GROUP_THREADS)
+__global__ void __launch_bounds__(TR::THREADS)
     kernel_base_grouped(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
                         long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
                         unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
@@ -713,7 +919,7 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
   };
   unsigned my_iters = 0;
   int i = REFILL ? take()
-                 : (int)(((long long)blockIdx.x * trt::GROUP_THREADS + threadIdx.x) / K);
+                 : (int)(((long long)blockIdx.x * TR::THREADS + threadIdx.x) / K);
   while (i < n) {
     my_iters += base_pixel<EXT, XT>(a, sc, tx, xt, tr, i, n, lead, out, state_out);
     if (!REFILL) break;
@@ -723,13 +929,59 @@ __global__ void __launch_bounds__(trt::GROUP_THREADS)
   tr.flush();
 }
 
-// Launch a grouped kernel over n entries: K lanes an entry, `bytes` of
-// dynamic shared memory (the staged rows); over the budget it is refused.
-inline int grouped_grid(long long n, int k, int bytes, const void* kernel, int& blocks) {
-  if (bytes > trt::GROUP_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  blocks = (int)((n * k + trt::GROUP_THREADS - 1) / trt::GROUP_THREADS);
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   trt::GROUP_SMEM_BYTES);
+// The stage (bytes) whose attributes a kernel holds on a device, for a
+// few (kernel, device) pairs: a launch of a GroupSpill kernel with the
+// stage it holds makes no CUDA call but cudaGetDevice. nullptr when the
+// table is full (the attributes are then set on every launch).
+struct StageHeld {
+  const void* kernel;
+  int dev, bytes;
+};
+
+inline StageHeld* stage_held(const void* kernel, int dev) {
+  constexpr int N = 64;
+  static StageHeld held[N];
+  static int n = 0;
+  for (int i = 0; i < n; ++i)
+    if (held[i].kernel == kernel && held[i].dev == dev) return &held[i];
+  if (n == N) return nullptr;
+  held[n] = {kernel, dev, -1};
+  return &held[n++];
+}
+
+// Launch a grouped kernel of traversal TR over n entries: K lanes an
+// entry, TR::THREADS a block, `bytes` of dynamic shared memory (the staged
+// rows); over TR::SMEM_CAP it is refused. TR::PREFER_L1 (GroupSpill) asks
+// for the smallest shared-memory carveout that holds the resident blocks'
+// stages, leaving the rest of the SM's pool to L1, once for each stage
+// size (stage_held).
+template <class TR>
+int grouped_grid(long long n, int bytes, const void* kernel, int& blocks) {
+  if (bytes > TR::SMEM_CAP) return (int)cudaErrorInvalidValue;
+  blocks = (int)((n * TR::K + TR::THREADS - 1) / TR::THREADS);
+  if (!TR::PREFER_L1)
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     TR::SMEM_CAP);
+  int err, dev, pool, reserved, per_sm;
+  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+  StageHeld* held = stage_held(kernel, dev);
+  if (held != nullptr && held->bytes == bytes) return 0;
+  if ((err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       TR::SMEM_CAP)) != 0 ||
+      (err = (int)cudaDeviceGetAttribute(&pool, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                         dev)) != 0 ||
+      (err = (int)cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                                         dev)) != 0 ||
+      (err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       100)) != 0 ||
+      (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TR::THREADS,
+                                                                bytes)) != 0)
+    return err;
+  const long long pct = (100LL * per_sm * (bytes + reserved) + pool - 1) / pool;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  pct < 100 ? (int)pct : 100);
+  if (err == 0 && held != nullptr) held->bytes = bytes;
+  return err;
 }
 
 template <bool EXT, bool XT, class TR>
@@ -742,10 +994,10 @@ int launch_extra_grouped(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& 
   if (n > 0) {
     const int bytes = 4 * TR::smem_floats(a->f, tl);
     int blocks;
-    const int err = grouped_grid(n, TR::K, bytes, (const void*)kernel_extra_grouped<EXT, XT, TR>,
-                                 blocks);
+    const int err =
+        grouped_grid<TR>(n, bytes, (const void*)kernel_extra_grouped<EXT, XT, TR>, blocks);
     if (err != 0) return err;
-    kernel_extra_grouped<EXT, XT, TR><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
+    kernel_extra_grouped<EXT, XT, TR><<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
         *a, scene_buf, xs, ys, state_in, add, samp0, out, iters, tx, xt, tl);
   }
   return (int)cudaGetLastError();
@@ -765,36 +1017,37 @@ int launch_base_grouped(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt
     const int bytes = 4 * TR::smem_floats(a->f, tl);
     const void* kernel = (const void*)kernel_base_grouped<EXT, XT, TR, REFILL>;
     int blocks;
-    int err = grouped_grid(n, TR::K, bytes, kernel, blocks);
+    int err = grouped_grid<TR>(n, bytes, kernel, blocks);
     if (err != 0) return err;
     if (REFILL) {
       int dev, n_sm, per_sm;
       if ((err = (int)cudaGetDevice(&dev)) != 0 ||
           (err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != 0 ||
           (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, kernel, trt::GROUP_THREADS, bytes)) != 0)
+               &per_sm, kernel, TR::THREADS, bytes)) != 0)
         return err;
       blocks = min(blocks, max(per_sm, 1) * n_sm);
     }
     kernel_base_grouped<EXT, XT, TR, REFILL>
-        <<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
+        <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
             *a, scene_buf, out, state_out, iters, next, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }
 
-template <int K>
+template <class TR>
 int launch_chunked_grouped(const ChunkArgs* a, const float* scene_buf, float* out,
-                           long long* state_out, unsigned long long* iters, void* stream) {
+                           long long* state_out, unsigned long long* iters, void* stream,
+                           const typename TR::Launch& tl = {}) {
   const long long n = (long long)a->n_chunks * a->h_out * a->f.width;
   if (n > 0) {
-    const int bytes = 4 * trt::group_rows_floats(a->f);
+    const int bytes = 4 * TR::smem_floats(a->f, tl);
     int blocks;
     const int err =
-        grouped_grid(n, K, bytes, (const void*)kernel_base_chunked_grouped<K>, blocks);
+        grouped_grid<TR>(n, bytes, (const void*)kernel_base_chunked_grouped<TR>, blocks);
     if (err != 0) return err;
-    kernel_base_chunked_grouped<K><<<blocks, trt::GROUP_THREADS, bytes, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters);
+    kernel_base_chunked_grouped<TR><<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
+        *a, scene_buf, out, state_out, iters, tl);
   }
   return (int)cudaGetLastError();
 }

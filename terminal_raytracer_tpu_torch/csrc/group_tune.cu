@@ -20,6 +20,16 @@
 #ifndef TRT_TUNE_REFILL
 #define TRT_TUNE_REFILL 0
 #endif
+// The forms for any table size (GroupSpill): block width and stage cap
+// (bytes).
+#ifndef TRT_TUNE_THREADS
+#define TRT_TUNE_THREADS 512
+#endif
+#ifndef TRT_TUNE_STAGE_CAP
+#define TRT_TUNE_STAGE_CAP trt::GROUP_SMEM_MAX
+#endif
+
+using TuneSpill = trt::GroupSpill<TRT_TUNE_K, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
 
 extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
                                         const int* ys, const long long* state_in,
@@ -58,7 +68,8 @@ extern "C" int trt_kernel_extra_grid_grouped_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* scene_buf,
                                                float* out, long long* state_out,
                                                unsigned long long* iters, void* stream) {
-  return launch_chunked_grouped<TRT_TUNE_K>(a, scene_buf, out, state_out, iters, stream);
+  return launch_chunked_grouped<trt::GroupSweep<TRT_TUNE_K>>(a, scene_buf, out, state_out, iters,
+                                                             stream);
 }
 
 extern "C" int trt_kernel_base_chunked_grouped_k() { return TRT_TUNE_K; }
@@ -85,3 +96,39 @@ extern "C" int trt_kernel_base_grid_grouped(const BaseArgs* a, const trt::Tex* t
 
 extern "C" int trt_kernel_base_grid_grouped_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_grid_grouped_refill() { return TRT_TUNE_REFILL; }
+
+extern "C" int trt_kernel_extra_grouped_spill(const ExtraArgs* a, const float* scene_buf,
+                                              const int* xs, const int* ys,
+                                              const long long* state_in, const float* add,
+                                              const int* samp0, float* out,
+                                              unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<false, false, TuneSpill>(a, trt::Tex{}, trt::Xt{}, scene_buf, xs,
+                                                       ys, state_in, add, samp0, out, iters,
+                                                       stream);
+}
+
+extern "C" int trt_kernel_extra_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_extra_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_extra_xt_grouped_spill(const ExtraArgs* a, const trt::Tex* tx,
+                                                 const trt::Xt* xt, const float* scene_buf,
+                                                 const int* xs, const int* ys,
+                                                 const long long* state_in,
+                                                 const float* add, const int* samp0,
+                                                 float* out, unsigned long long* iters,
+                                                 void* stream) {
+  return launch_extra_grouped<true, true, TuneSpill>(a, *tx, *xt, scene_buf, xs, ys, state_in,
+                                                     add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_xt_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_extra_xt_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_base_chunked_grouped_spill(const ChunkArgs* a, const float* scene_buf,
+                                                     float* out, long long* state_out,
+                                                     unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<TuneSpill>(a, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_chunked_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }

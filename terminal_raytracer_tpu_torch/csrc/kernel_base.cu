@@ -46,7 +46,10 @@
 // GROUP_K_CHUNKED lanes carries one chunk-major entry, each sweep split
 // across the group over the scene's rows staged in shared memory.
 // ops/kernels.py takes it where the rows fit group.cuh's shared-memory
-// budget, and the thread-per-entry trt_kernel_base_chunked above it.
+// budget, and trt_kernel_base_chunked_grouped_spill, its form for tables of
+// any size (group.cuh GroupSpill: the rows that fit a 227 KB stage staged,
+// the rest read through L1), above it; the thread-per-entry
+// trt_kernel_base_chunked stays, launched directly.
 // trt_kernel_base_grouped is kernel A at the reference gates redesigned
 // the same way (group.cuh kernel_base_grouped over GroupSweep<GROUP_K_BASE>,
 // the schedule GROUP_REFILL_BASE: static, group g takes pixel g, or refill,
@@ -73,6 +76,16 @@
 // The group width of the grouped chunked kernel A: chosen by the sweep over
 // K of tools/group_k.py (PERF.md, the grouped kernels).
 constexpr int GROUP_K_CHUNKED = 32;
+// Its form for any table size (group.cuh GroupSpill<K, block width, stage
+// cap>), which ops/kernels.py takes where the rows exceed the 96 KB
+// budget: chosen by the sweep of tools/group_k.py --only spill at 200x100,
+// 8 spp, depth 6 (PERF.md, the grouped kernels over the budget; ms at
+// mesh5120 / icosphere:5, H100 80GB HBM3 at 700 W): K = 32, 512 lanes,
+// 227 KB 2.701 / 14.410 (512 lanes at 96 KB 2.833 / 14.835; 256 lanes at
+// 96 KB 3.395 / 15.164; 128 lanes at 96 KB, the shape below the budget,
+// 5.546 / 22.096; K = 16 at best 3.156 / 15.563; thread per entry 23.310
+// / 105.313).
+using ChunkedSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
 // The group width of the grouped kernel A and its schedule (true: refill):
 // chosen by the sweep over K and the schedule of tools/group_k.py at
 // stress256, the bench configuration where the main path takes it (PERF.md,
@@ -136,11 +149,24 @@ extern "C" int trt_kernel_base_chunked_xt(const ChunkArgs* a, const trt::Tex* tx
 extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* scene_buf,
                                                float* out, long long* state_out,
                                                unsigned long long* iters, void* stream) {
-  return launch_chunked_grouped<GROUP_K_CHUNKED>(a, scene_buf, out, state_out, iters, stream);
+  return launch_chunked_grouped<trt::GroupSweep<GROUP_K_CHUNKED>>(a, scene_buf, out, state_out,
+                                                                  iters, stream);
 }
 
 // Its group width K (lanes an entry).
 extern "C" int trt_kernel_base_chunked_grouped_k() { return GROUP_K_CHUNKED; }
+
+// The grouped chunked kernel A for tables of any size (group.cuh
+// GroupSpill): the arguments of trt_kernel_base_chunked_grouped.
+extern "C" int trt_kernel_base_chunked_grouped_spill(const ChunkArgs* a, const float* scene_buf,
+                                                     float* out, long long* state_out,
+                                                     unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<ChunkedSpill>(a, scene_buf, out, state_out, iters, stream);
+}
+
+// Its group width K and stage cap (bytes).
+extern "C" int trt_kernel_base_chunked_grouped_spill_k() { return ChunkedSpill::K; }
+extern "C" int trt_kernel_base_chunked_grouped_spill_cap() { return ChunkedSpill::SMEM_CAP; }
 
 // The grouped kernel A (group.cuh): the same arguments and outputs as
 // trt_kernel_base, and `next`, one zeroed u32 (the refill schedule's pixel

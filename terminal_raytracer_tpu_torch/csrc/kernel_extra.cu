@@ -25,12 +25,16 @@
 // for the H100 (group.cuh): a path group of GROUP_K_EXTRA lanes carries
 // one entry, the closest-hit and shadow sweeps split across the group over
 // the scene's rows staged in shared memory. ops/kernels.py takes it where
-// the rows fit group.cuh's shared-memory budget, and the thread-per-entry
-// trt_kernel_extra above it. trt_kernel_extra_xt_grouped is the same
-// design at the XT gates (GROUP_K_EXTRA_XT lanes an entry), which
-// ops/kernels.py takes for an XT tracer whose rows fit, and
-// trt_kernel_extra_xt above the budget; it replaces the same Pallas kernel
-// as trt_kernel_extra_xt (pallas_kernel.py:1013-1015, :1028).
+// the rows fit group.cuh's shared-memory budget. trt_kernel_extra_xt_grouped
+// is the same design at the XT gates (GROUP_K_EXTRA_XT lanes an entry),
+// which ops/kernels.py takes for an XT tracer whose rows fit; it replaces
+// the same Pallas kernel as trt_kernel_extra_xt (pallas_kernel.py:1013-1015,
+// :1028). trt_kernel_extra_grouped_spill and
+// trt_kernel_extra_xt_grouped_spill are the two for tables of any size
+// (group.cuh GroupSpill: the rows that fit a 227 KB stage staged, the rest
+// read through L1), which ops/kernels.py takes where the rows exceed the
+// 96 KB budget. The thread-per-entry trt_kernel_extra and
+// trt_kernel_extra_xt stay, launched directly.
 //
 // What bounds it on an H100. Not its bytes (40 a entry and a table that
 // fits in L1) nor its FP32 operations (hundreds of times below the card's
@@ -51,6 +55,19 @@
 // grouped kernels).
 constexpr int GROUP_K_EXTRA = 16;
 constexpr int GROUP_K_EXTRA_XT = 4;
+// Their forms for any table size (group.cuh GroupSpill<K, block width,
+// stage cap>), which ops/kernels.py takes where the rows exceed the 96 KB
+// budget: chosen by the sweep of tools/group_k.py --only spill at 200x100,
+// 8 spp, depth 6 (PERF.md, the grouped kernels over the budget; ms at
+// mesh5120 / icosphere:5, H100 80GB HBM3 at 700 W). B: K = 32, 256 lanes,
+// 227 KB 0.640 / 3.644 (512 lanes 0.736 / 3.818; 128 lanes at 96 KB 0.828
+// / 3.587; K = 16 at best 1.227 / 6.582; thread per entry 20.940 /
+// 94.541): its few budgeted entries spread over more SMs in narrower
+// blocks. XT B in fog: K = 16, 512 lanes, 227 KB 1.914 / 9.775 (at 96 KB
+// 1.881 / 9.822, within 2%; K = 32 at best 1.961 / 11.103; thread per
+// entry 30.199 / 136.373).
+using ExtraSpill = trt::GroupSpill<32, 256, trt::GROUP_SMEM_MAX>;
+using ExtraXtSpill = trt::GroupSpill<16, 512, trt::GROUP_SMEM_MAX>;
 
 // xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
 // out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64.
@@ -111,3 +128,35 @@ extern "C" int trt_kernel_extra_xt_grouped(const ExtraArgs* a, const trt::Tex* t
 }
 
 extern "C" int trt_kernel_extra_xt_grouped_k() { return GROUP_K_EXTRA_XT; }
+
+// The grouped kernel B for tables of any size (group.cuh GroupSpill): the
+// arguments of trt_kernel_extra_grouped.
+extern "C" int trt_kernel_extra_grouped_spill(const ExtraArgs* a, const float* scene_buf,
+                                              const int* xs, const int* ys,
+                                              const long long* state_in, const float* add,
+                                              const int* samp0, float* out,
+                                              unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<false, false, ExtraSpill>(a, trt::Tex{}, trt::Xt{}, scene_buf, xs,
+                                                        ys, state_in, add, samp0, out, iters,
+                                                        stream);
+}
+
+// Its group width K and stage cap (bytes).
+extern "C" int trt_kernel_extra_grouped_spill_k() { return ExtraSpill::K; }
+extern "C" int trt_kernel_extra_grouped_spill_cap() { return ExtraSpill::SMEM_CAP; }
+
+// The grouped kernel B at the XT gates for tables of any size: the
+// arguments of trt_kernel_extra_xt_grouped.
+extern "C" int trt_kernel_extra_xt_grouped_spill(const ExtraArgs* a, const trt::Tex* tx,
+                                                 const trt::Xt* xt, const float* scene_buf,
+                                                 const int* xs, const int* ys,
+                                                 const long long* state_in,
+                                                 const float* add, const int* samp0,
+                                                 float* out, unsigned long long* iters,
+                                                 void* stream) {
+  return launch_extra_grouped<true, true, ExtraXtSpill>(a, *tx, *xt, scene_buf, xs, ys, state_in,
+                                                        add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_xt_grouped_spill_k() { return ExtraXtSpill::K; }
+extern "C" int trt_kernel_extra_xt_grouped_spill_cap() { return ExtraXtSpill::SMEM_CAP; }

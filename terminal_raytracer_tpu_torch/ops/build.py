@@ -31,6 +31,9 @@ ENTRY_POINTS = {
     "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
                        ("trt_kernel_base_chunked_grouped", 6),
                        ("trt_kernel_base_chunked_grouped_k", 0),
+                       ("trt_kernel_base_chunked_grouped_spill", 6),
+                       ("trt_kernel_base_chunked_grouped_spill_k", 0),
+                       ("trt_kernel_base_chunked_grouped_spill_cap", 0),
                        ("trt_kernel_base_grouped", 7),
                        ("trt_kernel_base_grouped_k", 0),
                        ("trt_kernel_base_grouped_refill", 0),
@@ -44,7 +47,13 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_ext", 11),
                         ("trt_kernel_extra_xt", 12),
                         ("trt_kernel_extra_xt_grouped", 12),
-                        ("trt_kernel_extra_xt_grouped_k", 0)),
+                        ("trt_kernel_extra_xt_grouped_k", 0),
+                        ("trt_kernel_extra_grouped_spill", 10),
+                        ("trt_kernel_extra_grouped_spill_k", 0),
+                        ("trt_kernel_extra_grouped_spill_cap", 0),
+                        ("trt_kernel_extra_xt_grouped_spill", 12),
+                        ("trt_kernel_extra_xt_grouped_spill_k", 0),
+                        ("trt_kernel_extra_xt_grouped_spill_cap", 0)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_gathered", 9),
                         ("trt_kernel_base_chunked_grid", 9),
@@ -79,9 +88,10 @@ ENTRY_POINTS = {
 # What a render loads; the probes' library loads only when a probe asks.
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # The group-width sweep of tools/group_k.py: one library a width K (built
-# with -DTRT_TUNE_K=K, for the grid kernels' design -DTRT_TUNE_WIDE and for
-# kernel A's schedule -DTRT_TUNE_REFILL), with the grouped entries of the
-# render libraries.
+# with -DTRT_TUNE_K=K, for the grid kernels' design -DTRT_TUNE_WIDE, for
+# kernel A's schedule -DTRT_TUNE_REFILL and for the GroupSpill forms' block
+# width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP), with the
+# grouped entries of the render libraries.
 TUNE_SOURCE = "group_tune.cu"
 TUNE_ENTRY_POINTS = tuple(
     (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",

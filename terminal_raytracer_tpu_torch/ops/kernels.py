@@ -31,12 +31,20 @@ table's size alone): extra_kernel passes such a tracer on to
 extra_kernel_grouped, extra_kernel_xt_grouped or
 extra_kernel_grid_grouped, base_kernel to base_kernel_grouped,
 base_kernel_grid to base_kernel_grid_grouped, base_kernel_chunked to
-base_kernel_chunked_grouped, each counting its own launches; above the
-budget they launch the thread-per-entry entries. Their counters of
-executed lane-iterations count path slots: warp_iters(.., k) is their
-plain model (kernel A on the refill schedule, whose groups take pixels
-from a counter: at least the pixels' summed iterations). No build or
-launch failure falls back to another entry.
+base_kernel_chunked_grouped, each counting its own launches. Kernel B at
+the reference and XT gates and the chunked kernel A take their grouped
+entries at every table size: above the budget those pass the tracer on to
+their forms over csrc/group.cuh GroupSpill (extra_kernel_grouped_spill,
+extra_kernel_xt_grouped_spill, base_kernel_chunked_grouped_spill), which
+stage the rows that fit their stage cap (group_stage) and read the rest
+from the scene buffer through L1. Kernel A and the grid
+kernels launch their thread-per-entry entries above the budget. The
+thread-per-entry entries of every kernel stay, launched directly by
+_launch_extra / _launch_chunked / _launch_base with their `kind`. Their
+counters of executed lane-iterations count path slots: warp_iters(.., k)
+is their plain model (kernel A on the refill schedule, whose groups take
+pixels from a counter: at least the pixels' summed iterations). No build
+or launch failure falls back to another entry.
 
 The single-kernel schedulers render the whole frame in one launch, one
 thread a pixel (csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel),
@@ -343,6 +351,35 @@ def group_smem_bytes(tracer) -> int:
     return group_rows_bytes(tracer) + 4 * extra
 
 
+# The most dynamic shared memory a block may take on the H100, the 227 KB
+# opt-in limit (csrc/group.cuh GROUP_SMEM_MAX): the bound of the stage cap
+# of the grouped forms for any table size (GroupSpill).
+GROUP_SMEM_MAX = 232448
+# The words of a triangle row that a sweep reads, v0, e1 and e2 (csrc/
+# group.cuh TRI_SWEEP_W): what GroupSpill stages.
+TRI_SWEEP_W = 9
+
+
+def group_stage(n_sph: int, n_pln: int, n_tri: int, cap: int) -> tuple:
+    """(triangles, spheres, planes) that GroupSpill stages in shared
+    memory under a stage cap of `cap` bytes (csrc/group.cuh group_stage):
+    as many rows of each kind as fit, triangles first (TRI_SWEEP_W words a
+    row), then spheres, then planes. The rest of each kind is read through
+    L1."""
+    left = cap // 4
+    t = min(n_tri, left // TRI_SWEEP_W)
+    left -= TRI_SWEEP_W * t
+    s = min(n_sph, left // geom.SPH_W)
+    left -= geom.SPH_W * s
+    return t, s, min(n_pln, left // geom.PLN_W)
+
+
+def stage_bytes(staged: tuple) -> int:
+    """The shared memory of group_stage's staged rows (bytes)."""
+    t, s, p = staged
+    return 4 * (TRI_SWEEP_W * t + geom.SPH_W * s + geom.PLN_W * p)
+
+
 # The least primitives at which kernel A takes its grouped entry: below it
 # a bounce's sweeps are too short to split over the group and the thread
 # per pixel is faster. tools/group_k.py on the H100 (PERF.md): Cornell_Box
@@ -353,27 +390,41 @@ def group_smem_bytes(tracer) -> int:
 GROUP_BASE_MIN_PRIMS = 16
 
 
+# The instantiations whose grouped entry serves every table size (its
+# GroupSpill form above GROUP_SMEM_BYTES), by kernel.
+ANY_SIZE = {"extra": ("ref", "xt"), "chunked": ("ref",), "base": ()}
+
+
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
     """Whether kernel B ('extra'), kernel A ('base') or the chunked kernel
     A ('chunked') takes its grouped entry for `tracer`: an instantiation
     with one (B: GROUPED_EXTRA; A: GROUPED_BASE; chunked A: the reference
-    gates), with what it stages within GROUP_SMEM_BYTES (and kernel A's
-    scene at least GROUP_BASE_MIN_PRIMS primitives). A dispatch by the
-    table's size alone."""
+    gates), at any table size for the ANY_SIZE ones, else with what it
+    stages within GROUP_SMEM_BYTES (and kernel A's scene at least
+    GROUP_BASE_MIN_PRIMS primitives). A dispatch by the table's size
+    alone."""
     kinds = {"extra": GROUPED_EXTRA, "base": GROUPED_BASE,
              "chunked": ("ref",)}[kernel]
     if (kernel == "base"
             and tracer.scene.primitive_count < GROUP_BASE_MIN_PRIMS):
         return False
-    return (_kind(tracer) in kinds
-            and group_smem_bytes(tracer) <= GROUP_SMEM_BYTES)
+    kind = _kind(tracer)
+    return kind in kinds and (kind in ANY_SIZE[kernel]
+                              or group_smem_bytes(tracer) <= GROUP_SMEM_BYTES)
 
 
-def _require_grouped(tracer, name: str, kind: str = "ref") -> None:
+def _over_budget(tracer) -> bool:
+    return group_smem_bytes(tracer) > GROUP_SMEM_BYTES
+
+
+def _require_grouped(tracer, name: str, kind: str = "ref",
+                     any_size: bool = False) -> None:
+    """Refuse a tracer of another instantiation than `kind`, or (unless
+    `any_size`) one whose staged rows exceed GROUP_SMEM_BYTES."""
     if _kind(tracer) != kind:
         raise ValueError(f"{name}: the tracer takes the {_kind(tracer)!r} "
                          "instantiation")
-    if group_smem_bytes(tracer) > GROUP_SMEM_BYTES:
+    if not any_size and _over_budget(tracer):
         raise ValueError(f"{name}: the scene's rows take "
                          f"{group_smem_bytes(tracer)} bytes, over the "
                          f"{GROUP_SMEM_BYTES} of shared memory the grouped "
@@ -385,16 +436,27 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                     "extra_grid": "trt_kernel_extra_grid_grouped",
                     "chunked": "trt_kernel_base_chunked_grouped",
                     "base": "trt_kernel_base_grouped",
-                    "base_grid": "trt_kernel_base_grid_grouped"}
+                    "base_grid": "trt_kernel_base_grid_grouped",
+                    "extra_spill": "trt_kernel_extra_grouped_spill",
+                    "extra_xt_spill": "trt_kernel_extra_xt_grouped_spill",
+                    "chunked_spill": "trt_kernel_base_chunked_grouped_spill"}
 
 
 def group_k(kernel: str, lib=None) -> int:
     """The group width K (lanes an entry) that the grouped `kernel`
-    ('extra', 'extra_xt', 'extra_grid', 'chunked', 'base' or 'base_grid')
-    of `lib` (default the render libraries) was built with (on the
-    card)."""
+    ('extra', 'extra_xt', 'extra_grid', 'chunked', 'base', 'base_grid',
+    'extra_spill', 'extra_xt_spill' or 'chunked_spill') of `lib` (default
+    the render libraries) was built with (on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
+
+
+def group_cap(kernel: str, lib=None) -> int:
+    """The stage cap (bytes) of the GroupSpill form `kernel`
+    ('extra_spill', 'extra_xt_spill' or 'chunked_spill') of `lib` (default
+    the render libraries; on the card): group_stage's `cap`."""
+    lib = lib or load_kernels()
+    return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_cap")())
 
 
 def group_refill(kernel: str, lib=None) -> bool:
@@ -408,10 +470,12 @@ def group_refill(kernel: str, lib=None) -> bool:
 
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     """Call the C entry point `entry` (+ '_ext', '_xt', '_grid',
-    '_gathered', '_grouped', '_xt_grouped' or '_grid_grouped' by `kind`)
-    with its launch arguments and raise on a launch error."""
+    '_gathered', '_grouped', '_xt_grouped', '_grid_grouped',
+    '_grouped_spill' or '_xt_grouped_spill' by `kind`) with its launch
+    arguments and raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
-    inst = kind.removesuffix("grouped").removesuffix("_") or "ref"
+    inst = (kind.removesuffix("_spill").removesuffix("grouped")
+            .removesuffix("_") or "ref")
     extra = ()
     if inst != "ref":
         extra = (ctypes.byref(_tex(tracer)),)
@@ -747,15 +811,40 @@ def base_kernel_chunked_grouped(tracer, pose, seed: int, frame_number: int,
     """The chunked kernel A's grouped entry (csrc/group.cuh): a path group
     of group_k('chunked') lanes an entry, each sweep split across the
     group over the scene's rows in shared memory. For a tracer of the
-    reference gates and the table sweep whose rows fit GROUP_SMEM_BYTES
-    (takes_grouped); base_kernel_chunked takes it for such a tracer."""
-    _require_grouped(tracer, "base_kernel_chunked_grouped")
+    reference gates and the table sweep (takes_grouped); base_kernel_chunked
+    takes it for such a tracer. Rows over GROUP_SMEM_BYTES go on to
+    base_kernel_chunked_grouped_spill."""
+    _require_grouped(tracer, "base_kernel_chunked_grouped", any_size=True)
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_grouped"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if _over_budget(tracer):
+        return base_kernel_chunked_grouped_spill(tracer, pose, seed,
+                                                 frame_number, y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                           "grouped")
     base_kernel_chunked_grouped.launches += 1
+    return out
+
+
+def base_kernel_chunked_grouped_spill(tracer, pose, seed: int,
+                                      frame_number: int, y0: int = 0,
+                                      h_out: int = None) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped form for any table size
+    (csrc/group.cuh GroupSpill): group_k('chunked_spill') lanes an entry,
+    the rows that fit group_cap('chunked_spill') staged, the rest read
+    through L1. For a tracer of the reference gates and the table sweep;
+    base_kernel_chunked_grouped takes it where the rows exceed
+    GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "base_kernel_chunked_grouped_spill",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_grouped_spill"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "grouped_spill")
+    base_kernel_chunked_grouped_spill.launches += 1
     return out
 
 
@@ -815,6 +904,7 @@ def base_kernel_chunked_gathered(tracer, pose, seed: int, frame_number: int,
 
 base_kernel_chunked.launches = 0
 base_kernel_chunked_grouped.launches = 0
+base_kernel_chunked_grouped_spill.launches = 0
 base_kernel_chunked_ext.launches = 0
 base_kernel_chunked_xt.launches = 0
 base_kernel_chunked_grid.launches = 0
@@ -870,8 +960,9 @@ def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
 def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str,
                   lib=None):
     """Launch kernel B's `kind` instantiation (the grouped entries for
-    'grouped', 'xt_grouped', 'grid_grouped'), from `lib` (default the
-    render libraries)."""
+    'grouped', 'xt_grouped', 'grid_grouped', their GroupSpill forms for
+    'grouped_spill', 'xt_grouped_spill'), from `lib` (default the render
+    libraries)."""
     device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -915,29 +1006,69 @@ def extra_kernel_grouped(tracer, pose, xs, ys, state, add, samp0):
     group_k('extra') lanes an entry, its sweeps split across the group
     over the scene's rows in shared memory; blocks without a budgeted entry
     leave at once. For a tracer of the reference gates and the table sweep
-    whose rows fit GROUP_SMEM_BYTES (takes_grouped); extra_kernel takes it
-    for such a tracer."""
-    _require_grouped(tracer, "extra_kernel_grouped")
+    (takes_grouped); extra_kernel takes it for such a tracer. Rows over
+    GROUP_SMEM_BYTES go on to extra_kernel_grouped_spill."""
+    _require_grouped(tracer, "extra_kernel_grouped", any_size=True)
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
                           "extra_kernel_grouped"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if _over_budget(tracer):
+        return extra_kernel_grouped_spill(tracer, pose, xs, ys, state, add,
+                                          samp0)
     out = _launch_extra(tracer, pose, xs, ys, state, add, samp0, "grouped")
     extra_kernel_grouped.launches += 1
+    return out
+
+
+def extra_kernel_grouped_spill(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped form for any table size (csrc/group.cuh
+    GroupSpill): group_k('extra_spill') lanes an entry, the rows that fit
+    group_cap('extra_spill') staged, the rest read through L1. For a tracer
+    of the reference gates and the table sweep; extra_kernel_grouped takes
+    it where the rows exceed GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "extra_kernel_grouped_spill", any_size=True)
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_grouped_spill"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "grouped_spill")
+    extra_kernel_grouped_spill.launches += 1
     return out
 
 
 def extra_kernel_xt_grouped(tracer, pose, xs, ys, state, add, samp0):
     """Kernel B's grouped entry at the XT gates (csrc/group.cuh over
     GroupSweep): group_k('extra_xt') lanes an entry, as
-    extra_kernel_grouped. For an XT tracer over the table sweep whose rows
-    fit GROUP_SMEM_BYTES; extra_kernel takes it for such a tracer."""
-    _require_grouped(tracer, "extra_kernel_xt_grouped", "xt")
+    extra_kernel_grouped. For an XT tracer over the table sweep;
+    extra_kernel takes it for such a tracer. Rows over GROUP_SMEM_BYTES go
+    on to extra_kernel_xt_grouped_spill."""
+    _require_grouped(tracer, "extra_kernel_xt_grouped", "xt", any_size=True)
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
                           "extra_kernel_xt_grouped"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if _over_budget(tracer):
+        return extra_kernel_xt_grouped_spill(tracer, pose, xs, ys, state, add,
+                                             samp0)
     out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
                         "xt_grouped")
     extra_kernel_xt_grouped.launches += 1
+    return out
+
+
+def extra_kernel_xt_grouped_spill(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped form at the XT gates for any table size
+    (csrc/group.cuh GroupSpill): group_k('extra_xt_spill') lanes an entry,
+    as extra_kernel_grouped_spill. For an XT tracer over the table sweep;
+    extra_kernel_xt_grouped takes it where the rows exceed
+    GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "extra_kernel_xt_grouped_spill", "xt",
+                     any_size=True)
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_xt_grouped_spill"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "xt_grouped_spill")
+    extra_kernel_xt_grouped_spill.launches += 1
     return out
 
 
@@ -1004,16 +1135,21 @@ def extra_kernel_gathered(tracer, pose, xs, ys, state, add, samp0):
 
 extra_kernel.launches = 0
 extra_kernel_grouped.launches = 0
+extra_kernel_grouped_spill.launches = 0
 extra_kernel_xt_grouped.launches = 0
+extra_kernel_xt_grouped_spill.launches = 0
 extra_kernel_grid_grouped.launches = 0
 extra_kernel_ext.launches = 0
 extra_kernel_xt.launches = 0
 extra_kernel_grid.launches = 0
 extra_kernel_gathered.launches = 0
 
-# The grouped kernel B of each instantiation that has one.
+# The grouped kernel B of each instantiation that has one, and the GroupSpill
+# forms that those of ANY_SIZE pass a table over the budget on to.
 GROUPED_EXTRA = {"ref": extra_kernel_grouped, "xt": extra_kernel_xt_grouped,
                  "grid": extra_kernel_grid_grouped}
+SPILL_EXTRA = {"ref": extra_kernel_grouped_spill,
+               "xt": extra_kernel_xt_grouped_spill}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base]
+        [--reps 5] [--only base|spill|budget]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -38,7 +38,27 @@ version's; kernel A's lines its occupancy, owed sweeps over
 lane-iterations x (1 + nee_sweeps). The widths and schedules the render
 libraries ship are constants of kernel_extra.cu, kernel_accel.cu and
 kernel_base.cu, chosen from this sweep. `--only base` sweeps kernel A
-alone. Needs a CUDA GPU (exit 2 without one).
+alone.
+
+`--only spill` sweeps the forms for any table size (csrc/group.cuh
+GroupSpill) of kernel B at the reference and XT gates and of the chunked
+kernel A over tables above the 96 KB budget, at 200x100, 8 spp, depth 6:
+mesh5120 (icosphere:4, 5120 triangles) and icosphere:5 (20480), each
+plain and in fog 0.15 (the XT kernel B). For each K of --ks (default 8,
+16, 32) and each shape of SPILL_SHAPES (block width, stage cap in bytes),
+one library (-DTRT_TUNE_K, -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP),
+timed beside the thread-per-entry entry, bit for bit
+against the plain version (computed in row blocks, which icosphere:5's
+dense plain sweep needs) with the lane-iterations the plain model's;
+the ptxas lines of every GroupSpill kernel.
+
+`--only budget` times, on tables within the budget, the shipped grouped
+entries (GroupSweep: 12-word triangle rows staged whole) in turns with
+GroupSpill at the same shape (the shipped K, 128 lanes, a 96 KB cap:
+nine-word triangles staged plane-major, nothing spilled), bit for bit:
+kernel B at the north star and mesh1280, the XT kernel B at the fog
+shapes, the chunked kernel A at stress1024 and mesh1280. Needs a CUDA GPU
+(exit 2 without one).
 """
 
 from __future__ import annotations
@@ -57,6 +77,16 @@ from ..parallel.mesh import SampleSplit
 
 KS = (1, 2, 4, 8, 16, 32)
 SEED = 42
+# The GroupSpill shapes of --only spill: (block width, stage cap in
+# bytes). 128 lanes and 96 KB is the grouped kernels' shape below the
+# budget (two blocks an SM); 227 KB is one block an SM.
+GROUP_SMEM_BYTES, GROUP_SMEM_MAX = 96 * 1024, 232448
+SPILL_SHAPES = ((128, GROUP_SMEM_BYTES), (256, GROUP_SMEM_BYTES),
+                (256, GROUP_SMEM_MAX), (512, GROUP_SMEM_BYTES),
+                (512, GROUP_SMEM_MAX))
+# Rows of the image (chunked A) and of the stream (B) a plain call takes:
+# icosphere:5's dense sweep holds lanes x 20481 primitives per temporary.
+PLAIN_ROWS = 25
 
 
 def _time(fn, reps: int) -> float:
@@ -107,23 +137,47 @@ def _counted(tr, fn):
     return out, stats
 
 
-def _sweep_extra(label, tr, pose, seed, libs, reps):
+def _in_rows(fn, n, rows, dim=0):
+    """fn(r0, r1) over [0, n) in blocks of `rows`, its tensors (or tuples
+    of them) concatenated along `dim`."""
+    step = rows or n
+    parts = [fn(r, min(r + step, n)) for r in range(0, n, step)]
+
+    def cat(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs, dim)
+        vals = [cat(v) for v in zip(*xs)]
+        return type(xs[0])(*vals) if hasattr(xs[0], "_fields") else tuple(vals)
+
+    return cat(parts)
+
+
+def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0):
     """Kernel B of `tr`'s instantiation: thread per entry, then the grouped
-    entry of every library of `libs` ({label: library})."""
+    entry of every library of `libs` ({label: library}); `spill`: the
+    GroupSpill forms. The plain version over `rows` stream rows a call
+    (0: all at once)."""
     kind = kernels._kind(tr)
     grouped = "grouped" if kind == "ref" else f"{kind}_grouped"
+    grouped += "_spill" if spill else ""
     a = kernels.base_phase(tr, pose, seed, 0)
     s = kernels.sorted_stream(tr, a[2], a[7])
     args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+
+    def sliced(fn):
+        return _in_rows(lambda r0, r1: fn(tr, pose, *(v[r0:r1] for v in
+                                                      args[2:])),
+                        s.xs.shape[0], rows)
+
     if tr.traversal == "grid":
         tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
-    esum, rays, _ = kernels.extra_kernel_plain(*args)
+    esum, rays = sliced(lambda *a_: kernels.extra_kernel_plain(*a_)[:2])
     plain_stats = None
     if tr.traversal == "grid":
         plain_stats = tr.prims.stats.long().cpu()
         tr.prims.ops = None
     want = (*esum, rays)
-    it = kernels.extra_entry_iters(*args)
+    it = sliced(kernels.extra_entry_iters)
     print(f"[group_k] {label} kernel B ({kind}) stream {tuple(s.xs.shape)}, "
           f"{int((s.add > 0).sum())} budgeted entries", flush=True)
 
@@ -146,10 +200,18 @@ def _sweep_extra(label, tr, pose, seed, libs, reps):
               same_counts(stats))
 
 
-def _sweep_chunked(label, tr, pose, seed, libs, reps):
-    p = kernels.base_kernel_chunked_plain(tr, pose, seed, 0)
-    want = (*p.csum, *p.csumsq, p.rays, p.state)
-    it = kernels.chunked_entry_iters(tr, pose, seed, 0)
+def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0):
+    """The chunked kernel A: thread per entry, then the grouped entry (its
+    GroupSpill form, `spill`) of every library of `libs`; the plain version
+    over `rows` image rows a call (0: all at once)."""
+    def plain(fn):
+        return _in_rows(lambda r0, r1: fn(tr, pose, seed, 0, r0, r1 - r0),
+                        tr.height, rows, dim=1)
+
+    p = plain(lambda *a_: kernels.base_kernel_chunked_plain(*a_)[:4])
+    want = (*p[0], *p[1], p[3], p[2])
+    it = plain(kernels.chunked_entry_iters)
+    grouped = "grouped_spill" if spill else "grouped"
 
     def launch(kind, lib=None):
         return kernels._launch_chunked(tr, pose, seed, 0, 0, None, kind, lib)
@@ -162,10 +224,11 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps):
     _line(f"{label} chunked A", "thread", ms, _equal(flat(out), want),
           float(out.iters) == float(kernels.warp_iters(it, 1)), it)
     for k, lib in libs.items():
-        out = launch("grouped", lib)
-        ms = _time(lambda: launch("grouped", lib), reps)
+        width = int(str(k).split()[0])
+        out = launch(grouped, lib)
+        ms = _time(lambda: launch(grouped, lib), reps)
         _line(f"{label} chunked A K", k, ms, _equal(flat(out), want),
-              float(out.iters) == float(kernels.warp_iters(it, k)), it)
+              float(out.iters) == float(kernels.warp_iters(it, width)), it)
 
 
 def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None):
@@ -217,16 +280,118 @@ def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None):
                _time(lambda: launch(grouped, lib), reps), refill)
 
 
+def _spill_ptxas(label, log: str) -> None:
+    """The ptxas lines of the GroupSpill kernels in a build log."""
+    take = False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            take = "GroupSpill" in line
+            if take:
+                name = ("chunked A" if "chunked" in line else "XT B"
+                        if "ILb1ELb1E" in line else "B")
+                print(f"[group_k] {label} {name}:", flush=True)
+        elif take and ("registers" in line or "spill" in line):
+            print(f"[group_k]   {line.strip()}", flush=True)
+
+
+def sweep_spill(ks, reps) -> None:
+    """--only spill (the module docstring)."""
+    tune = {f"{k} t{t} cap{cap}": (
+        build.TUNE_SOURCE, (f"TRT_TUNE_K={k}", f"TRT_TUNE_THREADS={t}",
+                            f"TRT_TUNE_STAGE_CAP={cap}"))
+        for k in ks for t, cap in SPILL_SHAPES}
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(tune.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    for label, src in tune.items():
+        _spill_ptxas(label, paths[src].with_suffix(".log").read_text())
+    libs = {label: build.load_kernels((src,)) for label, src in tune.items()}
+    pose = Camera().pose()
+    for name, label in (("icosphere:4", "mesh5120"),
+                        ("icosphere:5", "icosphere5")):
+        rows = PLAIN_ROWS if name == "icosphere:5" else 0
+        for fog in (None, Fog(density=0.15)):
+            scene = load_scene(name).with_overrides(
+                width=200, height=100, samples_per_pixel=8, max_depth=6,
+                fog=fog)
+            tr = PathTracer(scene, "cuda")
+            n_sph, n_pln, n_tri, _ = tr.tables.counts
+            staged = [kernels.group_stage(n_sph, n_pln, n_tri, cap)
+                      for cap in (GROUP_SMEM_BYTES, GROUP_SMEM_MAX)]
+            print(f"[group_k] {label}{' fog' if fog else ''}: "
+                  f"{kernels.group_rows_bytes(tr)} B of rows; staged at "
+                  f"96 KB {staged[0]}, at 227 KB {staged[1]} (triangles, "
+                  "spheres, planes)", flush=True)
+            if fog is None:
+                _sweep_chunked(label, tr, pose, SEED, libs, reps, True, rows)
+                _sweep_extra(label, tr, pose, SEED, libs, reps, True, rows)
+            else:
+                _sweep_extra(f"{label} fog", tr, pose, SEED, libs, reps,
+                             True, rows)
+
+
+def sweep_budget(reps) -> None:
+    """--only budget (the module docstring): each case in turns, GroupSweep,
+    GroupSpill, GroupSpill, GroupSweep."""
+    render = build.load_kernels()
+    ks = {kernel: kernels.group_k(kernel, render)
+          for kernel in ("extra", "extra_xt", "chunked")}
+    tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}", "TRT_TUNE_THREADS=128",
+                                    f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_BYTES}"))
+            for k in sorted(set(ks.values()))}
+    paths = build.library_paths(tuple(tune.values()))
+    for k, src in tune.items():
+        _spill_ptxas(f"{k} t128 cap{GROUP_SMEM_BYTES}",
+                     paths[src].with_suffix(".log").read_text())
+    libs = {k: build.load_kernels((src,)) for k, src in tune.items()}
+    print(f"[group_k] budget: {torch.cuda.get_device_name(0)}", flush=True)
+    pose = Camera().pose()
+
+    def scene(name, w, h, spp, depth, **over):
+        return load_scene(name).with_overrides(
+            width=w, height=h, samples_per_pixel=spp, max_depth=depth, **over)
+
+    fog = Fog(density=0.15)
+    for label, tr, kernel in (
+            ("north star", PathTracer(scene("Cornell_Box", 400, 200, 16, 32),
+                                      "cuda"), "extra"),
+            ("mesh1280", PathTracer(scene("icosphere:3", 200, 100, 8, 6),
+                                    "cuda"), "extra"),
+            ("fog", PathTracer(scene("Cornell_Box", 400, 200, 16, 32,
+                                     fog=fog), "cuda"), "extra_xt"),
+            ("stress1024", PathTracer(scene("stress:1024", 200, 100, 8, 6),
+                                      "cuda"), "chunked"),
+            ("mesh1280", PathTracer(scene("icosphere:3", 200, 100, 8, 6),
+                                    "cuda"), "chunked")):
+        k = ks[kernel]
+        sweep = {f"{k} GroupSweep (shipped)": render}
+        spill = {f"{k} GroupSpill t128 cap{GROUP_SMEM_BYTES}": libs[k]}
+        run = _sweep_chunked if kernel == "chunked" else _sweep_extra
+        for libs_, is_spill in ((sweep, False), (spill, True), (spill, True),
+                                (sweep, False)):
+            run(label, tr, pose, SEED, libs_, reps, is_spill)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ks", default=",".join(map(str, KS)))
+    ap.add_argument("--ks", default=None)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", choices=("base",), default=None)
+    ap.add_argument("--only", choices=("base", "spill", "budget"),
+                    default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
         sys.exit(2)
-    ks = [int(k) for k in args.ks.split(",")]
+    if args.only == "spill":
+        sweep_spill([int(k) for k in (args.ks or "8,16,32").split(",")],
+                    args.reps)
+        return 0
+    if args.only == "budget":
+        sweep_budget(args.reps)
+        return 0
+    ks = [int(k) for k in (args.ks or ",".join(map(str, KS))).split(",")]
     tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}
     # The grid kernels' other design where the two differ (K > 8).
     narrow = {f"{k} one block a step": (build.TUNE_SOURCE,

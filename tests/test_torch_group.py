@@ -229,13 +229,15 @@ def _scene(name, **over):
 
 @pytest.mark.parametrize("name, accel, grouped, chunked", [
     ("Cornell_Box", "auto", True, True), ("stress:1024", "auto", True, True),
-    ("icosphere:3", "auto", True, True), ("icosphere:4", "auto", False, False),
+    ("icosphere:3", "auto", True, True), ("icosphere:4", "auto", True, True),
     ("showcase", "auto", False, False), ("stress:96", "grid", True, False)])
 def test_grouped_dispatch_by_the_table_size(name, accel, grouped, chunked):
     """The grouped entries serve the reference gates over the table sweep
     (kernel B also the XT gates and the culled sweep, whose group table is
-    staged too) where the geometry rows fit the shared-memory budget: 1024
-    spheres take 20 KB, 1280 triangles 60 KB, 5120 triangles 240 KB."""
+    staged too): 1024 spheres take 20 KB of rows, 1280 triangles 60 KB,
+    within the shared-memory budget; 5120 triangles take 240 KB, over it,
+    where the grouped entries of kernel B and the chunked kernel A pass the
+    tracer on to their GroupSpill forms (tests/test_torch_group_spill.py)."""
     tr = PathTracer(_scene(name), "cpu", accel=accel)
     n_sph, n_pln, n_tri, _ = tr.tables.counts
     assert kernels.group_rows_bytes(tr) == 4 * (5 * n_sph + 9 * n_pln
@@ -245,9 +247,9 @@ def test_grouped_dispatch_by_the_table_size(name, accel, grouped, chunked):
 
 
 def test_grouped_wrappers_refuse_what_they_do_not_serve():
-    big = PathTracer(_scene("icosphere:4"), "cpu")
+    grid_big = PathTracer(_scene("icosphere:4"), "cpu", accel="grid")
     ext = PathTracer(_scene("showcase"), "cpu")
-    for tr, match in ((big, "shared memory"), (ext, "instantiation")):
+    for tr, match in ((grid_big, "instantiation"), (ext, "instantiation")):
         with pytest.raises(ValueError, match=match):
             kernels.base_kernel_chunked_grouped(tr, POSE, SEED, 0)
         with pytest.raises(ValueError, match=match):
@@ -359,22 +361,21 @@ def test_grouped_chunked_kernel_matches_plain_version(cuda_device):
 @pytest.mark.cuda
 def test_a_table_over_the_budget_takes_the_thread_per_entry_kernels(
         cuda_device):
-    """icosphere:4 (5120 triangles, 240 KB of rows) renders through the
-    thread-per-entry kernel B and chunked kernel A."""
+    """icosphere:4 (5120 triangles, 240 KB of rows, over the budget)
+    renders through the GroupSpill forms of the grouped kernel B and
+    chunked kernel A, no longer the thread-per-entry entries."""
     tr = PathTracer(_card_scene("icosphere:4"), cuda_device, chunk_base=2,
                     chunk_extra=2)
-    assert not kernels.takes_grouped(tr)
-    counts = (kernels.base_kernel_chunked.launches,
-              kernels.extra_kernel.launches,
-              kernels.base_kernel_chunked_grouped.launches,
-              kernels.extra_kernel_grouped.launches)
+    assert kernels.takes_grouped(tr)
+    names = ("base_kernel_chunked", "extra_kernel",
+             "base_kernel_chunked_grouped", "extra_kernel_grouped",
+             "base_kernel_chunked_grouped_spill",
+             "extra_kernel_grouped_spill")
+    counts = [getattr(kernels, n).launches for n in names]
     render = kernels.make_sorted_render_frame(tr)
     cur, var, tot, rays, _ = render(POSE, SEED, 0)
-    assert (kernels.base_kernel_chunked.launches,
-            kernels.extra_kernel.launches,
-            kernels.base_kernel_chunked_grouped.launches,
-            kernels.extra_kernel_grouped.launches) == (
-        counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert [getattr(kernels, n).launches for n in names] == [
+        *counts[:4], counts[4] + 1, counts[5] + 1]
     pcur, pvar, ptot, prays, _ = tr.render_frame(POSE, SEED, 0)
     assert float(rays) == float(prays)
     for a_, b_ in zip((*cur, var, tot), (*pcur, pvar, ptot)):

@@ -307,7 +307,7 @@ def _fog(name):
 @pytest.mark.parametrize("scene, accel_, want", [
     (lambda: _fog("Cornell_Box"), "auto", "extra_kernel_xt_grouped"),
     (lambda: _fog("stress:1024"), "auto", "extra_kernel_xt_grouped"),
-    (lambda: _fog("icosphere:4"), "auto", "extra_kernel_xt"),
+    (lambda: _fog("icosphere:4"), "auto", "extra_kernel_xt_grouped"),
     (lambda: _scene("stress:96"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("stress:1024"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("icosphere:3"), "grid", "extra_kernel_grid_grouped"),
@@ -316,9 +316,10 @@ def _fog(name):
     (lambda: _scene("stress:96"), "gathered", "extra_kernel_gathered"),
     (lambda: _scene("Cornell_Box"), "auto", "extra_kernel_grouped")])
 def test_kernel_b_dispatch(scene, accel_, want):
-    """Kernel B's entry by instantiation and table size: XT and grid
-    tracers take their grouped entries where what they stage fits the
-    budget (the grid's group table counted), the thread-per-entry ones
+    """Kernel B's entry by instantiation and table size: XT tracers take
+    their grouped entry at every size (over the budget it passes them on to
+    its GroupSpill form), grid tracers theirs where what they stage fits
+    the budget (the grid's group table counted), the thread-per-entry one
     above it; EXT and gathered keep theirs; the chunked kernel A's grouped
     entry stays at the reference gates."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
@@ -343,12 +344,12 @@ def _stream(tr, budget=2.0):
 
 
 def test_new_grouped_wrappers_refuse_what_they_do_not_serve():
-    xt_big = PathTracer(_fog("icosphere:4"), "cpu")
+    ext = PathTracer(_scene("showcase"), "cpu")
     grid_big = PathTracer(_scene("icosphere:4"), "cpu", accel="grid")
     ref = PathTracer(_scene("Cornell_Box"), "cpu")
     xt = PathTracer(_fog("Cornell_Box"), "cpu")
     for fn, cases in ((kernels.extra_kernel_xt_grouped,
-                       ((xt_big, "shared memory"), (ref, "instantiation"),
+                       ((ext, "instantiation"), (ref, "instantiation"),
                         (grid_big, "instantiation"))),
                       (kernels.extra_kernel_grid_grouped,
                        ((grid_big, "shared memory"), (xt, "instantiation"),
