@@ -38,15 +38,17 @@ Phases, each reported on lines starting with its tag:
   [thread]  tables over the grouped kernels' shared-memory budget:
             at mesh5120 (icosphere:4, 5120 triangles, 240 KB of rows) the
             GroupSpill forms of kernel B and the chunked kernel A, which
-            the wrappers take, and in fog that of the XT kernel B, each
-            beside the thread-per-entry entry, launched directly; the
+            the wrappers take, and in fog those of the XT kernel B and the
+            chunked XT kernel A, each beside the thread-per-entry entry,
+            launched directly; the
             thread-per-pixel grid kernel A and thread-per-entry grid
             kernel B at mesh5120 under grid, which the wrappers take:
             bit for bit against their plain versions (lane-iterations the
             plain model's; grid: traversal counters equal), timed; then
             the GroupSpill forms of the split-point libraries
             (csrc/group_tune.cu at stage caps of 0 and 168 bytes) on
-            Cornell_Box, icosphere:1 and stress:64, bit for bit
+            Cornell_Box, icosphere:1 and stress:64, plain and (B and the
+            chunked A at the XT gates) in fog under --mis, bit for bit
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -88,20 +90,21 @@ Phases, each reported on lines starting with its tag:
             configurations, a depth-of-field Cornell (aperture 0.1, focus
             3), showcase --mis, and the chunked XT kernel A on stress:1024
             in fog under --mis (rays, budgets, states equal; radiance
-            within 5e-3; kernel B on a stream with work, in both forms:
-            the grouped entry, which the wrapper takes, and the thread-per-
-            entry entry, each bit for bit, and at fog, manylights_one and
-            stress:1024 fog --mis their lane-iterations equal to the plain
-            model at their group widths); the XT kernels on Cornell_Box
-            with every gate off against the reference kernels, bit for
-            bit; Engine through each of those, through manylights (every
-            light, the reference kernels) and through mesh5120 in fog
-            (rows over the grouped kernels' budget: the GroupSpill form
-            of the XT kernel B); the fog and mesh5120 fog frames through
-            both forms of kernel B in turns, the latter profiled first;
-            cli.main with --mis --fog; the
-            XT kernels, both forms of B, timed at the fog and stress:1024
-            shapes
+            within 5e-3; the chunked XT kernel A and kernel B, on a stream
+            with work, in both forms: the grouped entry, which the wrapper
+            takes, and the thread-per-entry entry, each bit for bit, and
+            at fog, manylights_one and stress:1024 fog --mis B's
+            lane-iterations, at stress:1024 fog --mis the chunked A's,
+            equal to the plain model at their group widths); the XT
+            kernels on Cornell_Box with every gate off against the
+            reference kernels, bit for bit; Engine through each of those,
+            through manylights (every light, the reference kernels) and
+            through mesh5120 in fog (rows over the grouped kernels'
+            budget: the GroupSpill forms of the XT kernel B and chunked
+            XT kernel A); the fog and mesh5120 fog frames through both
+            forms of every kernel in turns, the latter profiled first;
+            cli.main with --mis --fog; the XT kernels, both forms of B and
+            of the chunked A, timed at the fog and stress:1024 shapes
   [accel]   the opt-in traversals (csrc/kernel_accel.cu): each grid and
             gathered kernel against its plain version at the JAX bench's
             stress1024 shapes (200x100, 8 spp, depth 6; gathered also at
@@ -120,8 +123,10 @@ Phases, each reported on lines starting with its tag:
             gathered, at mesh5120 under grid (rows over the grouped
             kernels' budget: the thread-per-pixel kernel A and the
             thread-per-entry kernel B), and at the north star under grid
-            (too few primitives for the grouped kernel A),
-            with each traversal's counters over the warm-up frame; the
+            (too few primitives for the grouped kernel A, whose
+            thread-per-pixel entry is then held bit for bit and timed
+            there), with each traversal's counters over the warm-up frame;
+            the
             stress1024 grid frame through both forms of every kernel, and
             of kernel A alone, in turns; cli.main with --accel grid and
             --accel gathered; and at the stress1024 shapes
@@ -190,12 +195,14 @@ counts for the same inputs, over the card's FP32 peak, or its bytes over
 kernel_extra_grouped at the north star, kernel_base_grouped at stress256,
 kernel_base_chunked_grouped and kernel_base_grid_grouped at stress1024,
 the thread-per-pixel kernel_base_grid and the thread-per-entry
-kernel_extra, kernel_extra_xt, kernel_extra_grid and kernel_base_chunked
-at mesh5120 (in fog, under grid), the first, second and fourth of those
-launched directly: no dispatch takes them (OFF_PATH), so their launches
-are 0 and a main-path launch fails the run; and the GroupSpill forms kernel_extra_grouped_spill,
-kernel_extra_xt_grouped_spill and kernel_base_chunked_grouped_spill at
-mesh5120 (in fog), their errors including the split-point libraries';
+kernel_extra, kernel_extra_xt, kernel_extra_grid, kernel_base_chunked and
+kernel_base_chunked_xt at mesh5120 (in fog, under grid), all but
+kernel_base_grid launched directly: no dispatch takes them (OFF_PATH), so
+their launches are 0 and a main-path launch fails the run; the GroupSpill
+forms kernel_extra_grouped_spill, kernel_extra_xt_grouped_spill,
+kernel_base_chunked_grouped_spill and kernel_base_chunked_xt_grouped_spill
+at mesh5120 (in fog), their errors including the split-point libraries';
+kernel_base_chunked_xt_grouped at the stress:1024 fog --mis shapes;
 the EXT rows at the showcase and
 stress:1024-checker shapes; the other XT rows at the fog and stress:1024
 fog shapes; the other grid and gathered rows at the stress1024 shapes, their
@@ -269,20 +276,22 @@ def phase_device():
 
 
 def phase_build():
-    """Every library, and the split-point libraries of csrc/group_tune.cu
-    (SPLIT_CAPS), one nvcc each, all at once."""
+    """Every library, the split-point libraries of csrc/group_tune.cu
+    (SPLIT_CAPS) and its library of the unbound XT kernel A
+    (_unbound_xt_source), one nvcc each, all at once."""
     from terminal_raytracer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     paths = build.library_paths(tuple(build.ENTRY_POINTS)
-                                + tuple(_split_sources().values()))
+                                + tuple(_split_sources().values())
+                                + (_unbound_xt_source(),))
     build.load_kernels()
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in paths.values())} in "
           f"{dt:.1f} s", flush=True)
     for src, so in paths.items():
         if not isinstance(src, str):
-            continue  # the split-point libraries: the render kernels' code
+            continue  # csrc/group_tune.cu: the render kernels' code
         for line in so.with_suffix(".log").read_text().splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry")):
                 print(f"[build] {line.strip()}", flush=True)
@@ -672,9 +681,60 @@ def _split_sources():
             for cap in SPLIT_CAPS}
 
 
+def _unbound_xt_source():
+    """csrc/group_tune.cu at its defaults (K = 1, no residency bound): its
+    trt_kernel_base_xt is the XT kernel A as it was before the bound,
+    kernel_base<true, true, Sweep>, timed beside the shipped entry."""
+    from terminal_raytracer_tpu_torch.ops import build
+
+    return (build.TUNE_SOURCE, ("TRT_TUNE_K=1", "TRT_TUNE_MIN_BLOCKS=0"))
+
+
+def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
+    """ms/frame of the sorted pipeline on one XT tracer with kernel A held
+    to its residency bound (the render library's trt_kernel_base_xt) and
+    unbound (_unbound_xt_source's), in turns: unbound, bound, bound,
+    unbound; the other kernels as the dispatch takes them. The forced form
+    is no main path: its launches count nowhere."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import build, kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    tr = PathTracer(scene, "cuda", **kw)
+    render = kernels.make_sorted_render_frame(tr)
+    pose = _pose()
+    load = kernels.load_kernels
+    unbound = SimpleNamespace(**{
+        **vars(load()), "trt_kernel_base_xt": build.load_kernels(
+            (_unbound_xt_source(),)).trt_kernel_base_xt})
+    times = {"unbound": [], "bound": []}
+    try:
+        for form in ("unbound", "bound", "bound", "unbound"):
+            kernels.load_kernels = (load if form == "bound"
+                                    else lambda *a: unbound)
+            render(pose, SEED, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(frames):
+                render(pose, SEED, f + 1)
+            torch.cuda.synchronize()
+            times[form].append(1e3 * (time.perf_counter() - t0) / frames)
+    finally:
+        kernels.load_kernels = load
+    print(f"[{tag}] {label} sorted frame in turns, {frames} frames each, "
+          f"XT kernel A unbound or held to "
+          f"{load().trt_kernel_base_xt_min_blocks()} blocks an SM: unbound "
+          f"{times['unbound'][0]:.3f} / {times['unbound'][1]:.3f} ms/frame, "
+          f"bound {times['bound'][0]:.3f} / {times['bound'][1]:.3f}",
+          flush=True)
+
+
 def _spill_both(label, tr, kernel, peak):
     """Over the budget, the GroupSpill form of the chunked kernel A (kernel
-    'chunked') or of kernel B ('extra', at the tracer's instantiation),
+    'chunked') or of kernel B ('extra'), at the tracer's instantiation,
     which its wrapper takes, and the thread-per-entry entry, launched
     directly: each against the plain version bit for bit, with its
     lane-iterations equal to the plain model at its group width; both timed
@@ -686,15 +746,16 @@ def _spill_both(label, tr, kernel, peak):
     atlas = 0 if tr.atlas is None else tr.atlas.numel()
     fixed = 4 * (tr.tables.buf.numel() + atlas)
     if kernel == "chunked":
-        name = "chunked_spill"
-        wrapper = kernels.base_kernel_chunked_grouped_spill
+        name = "chunked_spill" if kind == "ref" else f"chunked_{kind}_spill"
+        spill = "grouped_spill" if kind == "ref" else f"{kind}_grouped_spill"
+        wrapper = getattr(kernels, f"base_kernel_chunked_{spill}")
         n0 = wrapper.launches
         g = kernels.base_kernel_chunked(tr, pose, SEED, 0)
 
         def launch(form):
             return lambda: kernels._launch_chunked(
                 tr, pose, SEED, 0, 0, None,
-                "grouped_spill" if form == "grouped" else "ref")
+                spill if form == "grouped" else kind)
 
         plain, ops, p = _time_plain(
             tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0))
@@ -749,10 +810,10 @@ def _spill_both(label, tr, kernel, peak):
 
 def _split_points():
     """The GroupSpill forms of the split-point libraries (SPLIT_CAPS) on
-    SPLIT_SCENES at 64x16, 16 spp, depth 8 (chunks of 2; kernel B also at
-    the XT gates in fog under --mis): bit for bit against the plain
-    versions, the lane-iterations the plain model's at K. Returns the max
-    abs error."""
+    SPLIT_SCENES at 64x16, 16 spp, depth 8 (chunks of 2; kernel B and the
+    chunked kernel A also at the XT gates in fog under --mis): bit for bit
+    against the plain versions, the lane-iterations the plain model's at
+    K. Returns the max abs error."""
     from terminal_raytracer_tpu_torch.models.scene import Fog
     from terminal_raytracer_tpu_torch.ops import build, kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
@@ -774,7 +835,16 @@ def _split_points():
             _iters_model("thread", label, k.iters, kernels.chunked_entry_iters(
                 tr, pose, SEED, 0), kernels.group_k("chunked_spill", lib))
             fog = PathTracer(scene.with_overrides(fog=Fog(density=0.15)),
-                             "cuda", transport="mis")
+                             "cuda", transport="mis", chunk_base=2,
+                             chunk_extra=2)
+            k = kernels._launch_chunked(fog, pose, SEED, 0, 0, None,
+                                        "xt_grouped_spill", lib)
+            p = kernels.base_kernel_chunked_plain(fog, pose, SEED, 0)
+            err = max(err, _compare_base("thread", f"{label} chunked XT A", k,
+                                         p, (), fog, exact=True))
+            _iters_model("thread", f"{label} chunked XT A", k.iters,
+                         kernels.chunked_entry_iters(fog, pose, SEED, 0),
+                         kernels.group_k("chunked_xt_spill", lib))
             for t, kind in ((tr, "grouped_spill"), (fog, "xt_grouped_spill")):
                 a = kernels.base_phase(t, pose, SEED, 0)
                 s = kernels.sorted_stream(t, a[2], a[7])
@@ -815,9 +885,13 @@ def phase_thread_per_entry(peak):
     both = _spill_both("mesh5120", tr, "extra", peak)
     out["b"], out["bs"] = both["thread"], both["grouped"]
     _, name, size, over, transport = XT_OVER_BUDGET
-    both = _spill_both("mesh5120 fog", PathTracer(
-        _xt_scene(name, size, over), "cuda", transport=transport), "extra",
-        peak)
+    fog = PathTracer(_xt_scene(name, size, over), "cuda", transport=transport)
+    if not kernels.takes_grouped(fog, "chunked") or not fog.chunk_base:
+        fail("[thread] mesh5120 fog takes no grouped chunked XT A or no "
+             "chunks")
+    both = _spill_both("mesh5120 fog", fog, "chunked", peak)
+    out["cxt"], out["cxts"] = both["thread"], both["grouped"]
+    both = _spill_both("mesh5120 fog", fog, "extra", peak)
     out["xt"], out["xts"] = both["thread"], both["grouped"]
 
     # The grid kernel A, thread per pixel.
@@ -871,7 +945,7 @@ def phase_thread_per_entry(peak):
           flush=True)
     out["grid"] = (err, ms, plain, bound)
     split_err = _split_points()
-    for key in ("cs", "bs", "xts"):
+    for key in ("cs", "bs", "xts", "cxts"):
         out[key] = (max(out[key][0], split_err), *out[key][1:])
     return out
 
@@ -880,7 +954,8 @@ def phase_thread_per_entry(peak):
 # serve their instantiations at every table size): held bit for bit and
 # timed beside their GroupSpill forms in [thread], launched directly, so
 # their main-path launches are 0, and a launch there fails the run.
-OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_base_chunked")
+OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_base_chunked",
+            "kernel_base_chunked_xt")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
@@ -888,6 +963,8 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
                 "extra_kernel_xt_grouped", "extra_kernel_grid_grouped",
                 "base_kernel_chunked_grouped_spill",
+                "base_kernel_chunked_xt_grouped",
+                "base_kernel_chunked_xt_grouped_spill",
                 "extra_kernel_grouped_spill", "extra_kernel_xt_grouped_spill",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
@@ -922,7 +999,7 @@ def _a_name(tr) -> str:
         if kernels.takes_grouped(tr, "base"):
             return kernels.GROUPED_BASE[kernels._kind(tr)].__name__
         return "base_kernel" + _sfx(tr)
-    return ("base_kernel_chunked_grouped" + _spill(tr)
+    return (kernels.GROUPED_CHUNKED[kernels._kind(tr)].__name__ + _spill(tr)
             if kernels.takes_grouped(tr, "chunked")
             else "base_kernel_chunked" + _sfx(tr))
 
@@ -1596,25 +1673,29 @@ def phase_xt(peak):
     """The transport and camera extensions: (a) each XT kernel against its
     plain version at the XT_CONFIGS shapes (the chunked kernel A and its
     chunked kernel B stream on stress:1024), timed at the fog and
-    stress:1024 shapes, kernel B in both forms (the grouped entry, which
-    the wrapper takes, and the thread-per-entry entry) bit for bit, their
-    lane-iterations held to the plain model at XT_ITERS; (b) the XT kernels
-    on Cornell_Box with every gate off (xt tables bound to a reference
-    tracer) against the reference kernels, bit for bit; (c) Engine through
-    every XT config, through manylights (every light: the reference
-    kernels) and through XT_OVER_BUDGET, and the fog frame with the grouped
-    and the thread-per-entry kernel B in turns; (d) cli.main with --mis
+    stress:1024 shapes: kernel B and the chunked A in both forms (the
+    grouped entry, which the wrapper takes, and the thread-per-entry
+    entry), kernel A at fog in both forms (held to its residency bound,
+    which the wrapper takes, and unbound), each bit for bit, their
+    lane-iterations held to the plain model at XT_ITERS (the chunked A at
+    stress:1024, A at fog); (b) the XT kernels on Cornell_Box with every
+    gate off (xt tables bound to a reference tracer) against the reference
+    kernels, bit for bit; (c) Engine through every XT config, through
+    manylights (every light: the reference kernels) and through
+    XT_OVER_BUDGET, the fog frame with the grouped and the thread-per-entry
+    kernels in turns and with kernel A bound and unbound in turns, and the
+    mesh5120 fog frame profiled and in turns; (d) cli.main with --mis
     --fog. Returns (launches, per-kernel results)."""
     import torch
 
     from terminal_raytracer_tpu_torch import cli
+    from terminal_raytracer_tpu_torch.ops import build, kernels
     from terminal_raytracer_tpu_torch.ops import geometry as geom
-    from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
     from terminal_raytracer_tpu_torch.ops.vecmath import V3
 
     pose = _pose()
-    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0, "cg": 0.0, "g": 0.0}
     timed = {}
     # (a)
     for label, name, size, over, transport in XT_CONFIGS:
@@ -1626,32 +1707,82 @@ def phase_xt(peak):
                  f"{tr.max_depth}, 1 + {tr.nee_sweeps} sweeps an iteration")
         fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
         if tr.chunk_base:
+            # Both forms of the chunked XT kernel A: the grouped entry, which
+            # the wrapper takes, and the thread per entry, launched directly.
+            n0 = kernels.base_kernel_chunked_xt_grouped.launches
             k = kernels.base_kernel_chunked_xt(tr, pose, SEED, 0)
+            if kernels.base_kernel_chunked_xt_grouped.launches != n0 + 1:
+                fail(f"[xt] {label}: the wrapper took no grouped chunked XT "
+                     "kernel A")
+            th = kernels._launch_chunked(tr, pose, SEED, 0, 0, None, "xt")
             ms = _time_cuda(lambda: kernels.base_kernel_chunked_xt(
                 tr, pose, SEED, 0), 5)
+            ms_t = _time_cuda(lambda: kernels._launch_chunked(
+                tr, pose, SEED, 0, 0, None, "xt"), 5)
             plain, ops, p = _time_plain(
                 tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED,
                                                               0))
+            err["cg"] = max(err["cg"], _compare_base(
+                "xt", f"{shape}, chunked XT kernel A grouped", k, p, (), tr,
+                exact=True))
             err["c"] = max(err["c"], _compare_base(
-                "xt", f"{shape}, chunked XT kernel A", k, p, (), tr))
+                "xt", f"{shape}, chunked XT kernel A thread-per-entry", th, p,
+                (), tr, exact=True))
+            it = kernels.chunked_entry_iters(tr, pose, SEED, 0)
+            _iters_model("xt", f"{label} chunked XT kernel A grouped",
+                         k.iters, it, kernels.group_k("chunked_xt"))
+            _iters_model("xt", f"{label} chunked XT kernel A thread", th.iters,
+                         it, 1)
             n_ent = tr.n_base_chunks * tr.width * tr.height
-            timed["c"] = (ms, plain, _bound(ops, fixed + 36 * n_ent, peak))
+            bound_c = _bound(ops, fixed + 36 * n_ent, peak)
+            timed["cg"] = (ms, plain, bound_c)
+            _grouped_vs_thread("xt", f"{label} shapes", "chunked_xt", tr, ms,
+                               ms_t, it)
+            print(f"[xt] {label} shapes: base_kernel_chunked_xt_grouped "
+                  f"{ms:.3f} ms, thread per entry {ms_t:.3f} ms on {n_ent} "
+                  f"entries (plain {plain:.1f} ms, bound {bound_c[0]:.4f} ms "
+                  f"by {bound_c[1]}: {ops:.4g} operations)", flush=True)
             var = tr.variance_of(V3(*(tr.chunk_total(v) for v in k.csum)),
                                  V3(*(tr.chunk_total(v) for v in k.csumsq)))
             s = kernels.sorted_stream(tr, k.state[0], tr.extra_quota(var)[1])
         else:
             k = kernels.base_kernel_xt(tr, pose, SEED, 0)
             if label == "fog":
+                # Both forms: held to its residency bound (shipped) and
+                # unbound (group_tune.cu's), bit for bit, timed side by side.
+                unbound = build.load_kernels((_unbound_xt_source(),))
+
+                def launch_u():
+                    return kernels._launch_base(tr, pose, SEED, 0, 0, None,
+                                                None, "xt", unbound)
+
+                ku = launch_u()
                 ms_a = _time_cuda(
                     lambda: kernels.base_kernel_xt(tr, pose, SEED, 0), 5)
+                ms_u = _time_cuda(launch_u, 5)
                 plain_a, ops_a, p = _time_plain(
                     tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0))
-                timed["a"] = (ms_a, plain_a, _bound(
-                    ops_a, fixed + 44 * k.var.numel(), peak))
+                bound_a = _bound(ops_a, fixed + 44 * k.var.numel(), peak)
+                timed["a"] = (ms_a, plain_a, bound_a)
+                err["a"] = max(err["a"], _compare_base(
+                    "xt", f"{shape}, XT kernel A unbound", ku, p,
+                    ("additional", "var"), exact=True))
+                it = kernels.base_entry_iters(tr, pose, SEED, 0)
+                _iters_model("xt", f"{label} XT kernel A", k.iters, it, 1)
+                _iters_model("xt", f"{label} XT kernel A unbound", ku.iters,
+                             it, 1)
+                minb = build.load_kernels().trt_kernel_base_xt_min_blocks()
+                print(f"[xt] {label} shapes: base_kernel_xt held to {minb} "
+                      f"blocks an SM {ms_a:.3f} ms, unbound {ms_u:.3f} ms "
+                      f"(x{ms_u / ms_a:.2f}) on {k.var.numel()} pixels, "
+                      f"{-(-k.var.numel() // 128)} blocks (plain {plain_a:.1f}"
+                      f" ms, bound {bound_a[0]:.4f} ms by {bound_a[1]}: "
+                      f"{ops_a:.4g} operations)", flush=True)
             else:
                 p = kernels.base_kernel_plain(tr, pose, SEED, 0)
             err["a"] = max(err["a"], _compare_base(
-                "xt", f"{shape}, XT kernel A", k, p, ("additional", "var")))
+                "xt", f"{shape}, XT kernel A", k, p, ("additional", "var"),
+                exact=True))
             s = kernels.sorted_stream(tr, k.state, k.additional)
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         b = kernels.extra_kernel_xt(*args)
@@ -1689,7 +1820,7 @@ def phase_xt(peak):
     for key, kernel, where in (("a", "base_kernel_xt", "fog"),
                                ("b", "extra_kernel_xt", "fog"),
                                ("g", "extra_kernel_xt_grouped", "fog"),
-                               ("c", "base_kernel_chunked_xt",
+                               ("cg", "base_kernel_chunked_xt_grouped",
                                 "stress1024 fog mis")):
         ms, plain, bound = timed[key]
         print(f"[xt] {kernel} at the {where} shapes: {ms:.3f} ms (plain "
@@ -1744,6 +1875,7 @@ def phase_xt(peak):
                                    True, 4 if name == "icosphere:4" else 8,
                                    transport=transport))
     _frames_grouped_vs_thread("xt", "fog", _xt_scene(*XT_CONFIGS[0][1:4]))
+    _frames_xt_a_in_turns("xt", "fog", _xt_scene(*XT_CONFIGS[0][1:4]))
     _device_busy("xt", "mesh5120 fog", _xt_scene(*XT_OVER_BUDGET[1:4]), 4)
     _frames_grouped_vs_thread("xt", "mesh5120 fog",
                               _xt_scene(*XT_OVER_BUDGET[1:4]), frames=4)
@@ -1762,7 +1894,8 @@ def phase_xt(peak):
                               base_kernel_xt=2, extra_kernel_xt_grouped=2):
         fail("[xt] cli.main run failed")
     _add(launches, got)
-    return launches, {k: (err[k], *timed[k]) for k in ("a", "b", "c", "g")}
+    res = {k: (err[k], *timed[k]) for k in ("a", "b", "g", "cg")}
+    return launches, {**res, "c": (err["c"],)}
 
 
 # The opt-in traversals' kernels against their plain versions, at the JAX
@@ -1936,6 +2069,26 @@ def phase_accel(peak):
     _add(launches, _run_engine("accel", "north star grid",
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
+    # The thread-per-pixel grid kernel A at the north star under grid (too
+    # few primitives for the grouped entry), which the wrapper takes:
+    # bit for bit with the plain version's counters, timed at that shape.
+    ns = PathTracer(_cornell(400, 200, 16, 32), "cuda", accel="grid")
+    if kernels.takes_grouped(ns, "base"):
+        fail("[accel] north star grid takes the grouped kernel A")
+    k, kc = _counted_launch(ns, lambda: kernels.base_kernel(ns, pose, SEED, 0))
+    pc = []
+    plain, ops, p = _time_plain(
+        ns, lambda: kernels.base_kernel_plain(ns, pose, SEED, 0), pc)
+    err = _compare_base("accel", "north star grid kernel A", k, p,
+                        ("additional", "var"), exact=True)
+    _check_counts("north star grid kernel A", kc, pc[0])
+    ms = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
+    bound = _bound(ops, 4 * (ns.tables.buf.numel() + ns.atlas.numel())
+                   + 44 * k.var.numel(), peak)
+    print(f"[accel] north star grid shapes: base_kernel_grid {ms:.3f} ms "
+          f"(plain {plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}: "
+          f"{ops:.4g} operations)", flush=True)
+    res["grid", "ans"] = (err, ms, plain, bound)
     for accel in ("grid", "gathered"):
         _reset_launches()
         rc = cli.main(["--device", "cuda", "--full-color", "--scene",
@@ -2585,18 +2738,32 @@ def main() -> int:
              "group.cuh", "1013", *xt["g"]),
             ("kernel_extra_xt_grouped_spill", "extra_kernel_xt_grouped_spill",
              "group.cuh", "1013", *thread["xts"]),
+            # The chunked XT kernel A, thread per entry at mesh5120 in fog
+            # ([thread]), launched directly (OFF_PATH; its stress1024 fog mis
+            # time beside the grouped entry's is printed in [xt]); grouped
+            # (csrc/group.cuh over GroupSweep) at stress1024 fog --mis, its
+            # GroupSpill form at mesh5120 in fog, where the main path takes
+            # them.
             ("kernel_base_chunked_xt", "base_kernel_chunked_xt",
-             "kernel_base.cu", "739", *xt["c"]),
+             "kernel_base.cu", "739", max(xt["c"][0], thread["cxt"][0]),
+             *thread["cxt"][1:]),
+            ("kernel_base_chunked_xt_grouped",
+             "base_kernel_chunked_xt_grouped", "group.cuh", "739",
+             *xt["cg"]),
+            ("kernel_base_chunked_xt_grouped_spill",
+             "base_kernel_chunked_xt_grouped_spill", "group.cuh", "739",
+             *thread["cxts"]),
             # The opt-in traversals, bound into kernel A at :808-809 and
             # into kernel B at :1032-1033 (the culled sweep's scratch,
             # _maybe_bind_sweep; the walk's tables, _gather_bind_front).
             # Thread per pixel at mesh5120 under grid ([thread]), where the
-            # main path takes it; grouped (csrc/group.cuh GroupCulled; entry
-            # in kernel_accel.cu) at the stress1024 shapes, where its
+            # main path takes it (its north-star grid time is printed in
+            # [accel]); grouped (csrc/group.cuh GroupCulled; entry in
+            # kernel_accel.cu) at the stress1024 shapes, where its
             # comparisons include the thread-per-pixel entry's.
             ("kernel_base_grid", "base_kernel_grid", "kernel_accel.cu",
-             "809", max(acc["grid", "at"][0], thread["ga"][0]),
-             *thread["ga"][1:]),
+             "809", max(acc["grid", "at"][0], acc["grid", "ans"][0],
+                        thread["ga"][0]), *thread["ga"][1:]),
             ("kernel_base_grid_grouped", "base_kernel_grid_grouped",
              "group.cuh", "809", *acc["grid", "a"]),
             # Thread per entry at mesh5120 under grid ([thread]), where the

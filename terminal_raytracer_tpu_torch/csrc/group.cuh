@@ -827,13 +827,14 @@ __global__ void __launch_bounds__(TR::THREADS)
 
 // The chunked kernel A, grouped: the chunk-major entry of group g = global
 // thread / K (kernel_base_chunked's body, its sweeps split over the group),
-// with the traversal TR (GroupSweep<K>, GroupSpill) built from the staged
-// rows and its launch argument.
-template <class TR>
+// with the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupSpill)
+// built from the staged rows and its launch argument.
+template <bool EXT, bool XT, class TR>
 __global__ void __launch_bounds__(TR::THREADS)
     kernel_base_chunked_grouped(ChunkArgs a, const float* __restrict__ scene_buf,
                                 float* __restrict__ out, long long* __restrict__ state_out,
-                                unsigned long long* __restrict__ iters, typename TR::Launch tl) {
+                                unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
+                                typename TR::Launch tl) {
   constexpr int K = TR::K;
   extern __shared__ float4 group_smem[];
   float* rows = reinterpret_cast<float*>(group_smem);
@@ -845,8 +846,6 @@ __global__ void __launch_bounds__(TR::THREADS)
   unsigned my_iters = 0;
   if (i < n) {
     const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-    const trt::Tex tx{};
-    const trt::Xt xt{};
     TR tr(rows, a.f, tl);
     const int c = i / n_pix;
     const int p = i - c * n_pix;
@@ -859,8 +858,8 @@ __global__ void __launch_bounds__(TR::THREADS)
     const int quota = min(s0 + a.cb, a.base);
     trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
     float rays = 0.0f;
-    my_iters = trt::run_samples<false, false>(a.f, sc, tx, xt, state, s0, (float)quota,
-                                              (float)x, (float)y, csum, &csumsq, rays, tr);
+    my_iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, s0, (float)quota, (float)x,
+                                         (float)y, csum, &csumsq, rays, tr);
     if (lead) {
       out[0 * n + i] = csum.x;
       out[1 * n + i] = csum.y;
@@ -894,12 +893,15 @@ __global__ void __launch_bounds__(TR::THREADS)
 // taken once a group after its last pixel: static, 32 / K x the warp's
 // longest pixel; refill, 32 / K x the warp's busiest group's summed
 // iterations, at least the sum over its pixels.
+// kernel_base_grouped and kernel_base_grouped_resident share this body.
 template <bool EXT, bool XT, class TR, bool REFILL>
-__global__ void __launch_bounds__(TR::THREADS)
-    kernel_base_grouped(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
-                        long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
-                        unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
-                        typename TR::Launch tl) {
+__device__ __forceinline__ void base_grouped(const BaseArgs& a,
+                                             const float* __restrict__ scene_buf,
+                                             float* __restrict__ out,
+                                             long long* __restrict__ state_out,
+                                             unsigned long long* __restrict__ iters,
+                                             unsigned* __restrict__ next, const trt::Tex& tx,
+                                             const trt::Xt& xt, const typename TR::Launch& tl) {
   constexpr int K = TR::K;
   extern __shared__ float4 group_smem[];
   float* rows = reinterpret_cast<float*>(group_smem);
@@ -927,6 +929,27 @@ __global__ void __launch_bounds__(TR::THREADS)
   }
   trt::count_slot_iters<K>(my_iters, iters);
   tr.flush();
+}
+
+template <bool EXT, bool XT, class TR, bool REFILL>
+__global__ void __launch_bounds__(TR::THREADS)
+    kernel_base_grouped(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                        long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                        unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
+                        typename TR::Launch tl) {
+  base_grouped<EXT, XT, TR, REFILL>(a, scene_buf, out, state_out, iters, next, tx, xt, tl);
+}
+
+// kernel_base_grouped held to MIN_BLOCKS resident blocks an SM (ptxas fits
+// its registers to 65,536 / (TR::THREADS x MIN_BLOCKS)).
+template <bool EXT, bool XT, class TR, bool REFILL, int MIN_BLOCKS>
+__global__ void __launch_bounds__(TR::THREADS, MIN_BLOCKS)
+    kernel_base_grouped_resident(BaseArgs a, const float* __restrict__ scene_buf,
+                                 float* __restrict__ out, long long* __restrict__ state_out,
+                                 unsigned long long* __restrict__ iters,
+                                 unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
+                                 typename TR::Launch tl) {
+  base_grouped<EXT, XT, TR, REFILL>(a, scene_buf, out, state_out, iters, next, tx, xt, tl);
 }
 
 // The stage (bytes) whose attributes a kernel holds on a device, for a
@@ -1003,11 +1026,12 @@ int launch_extra_grouped(const ExtraArgs* a, const trt::Tex& tx, const trt::Xt& 
   return (int)cudaGetLastError();
 }
 
-// Kernel A grouped over the h_out * w pixels of `a`. Static: K lanes a
+// Kernel A grouped over the h_out * w pixels of `a` (kernel_base_grouped,
+// or with MIN_BLOCKS > 0 kernel_base_grouped_resident). Static: K lanes a
 // pixel, every pixel its group. Refill: as many blocks as stay resident at
 // once (the occupancy at `bytes` of staged rows, times the SMs), at most
 // one group a pixel; `next` is a zeroed counter.
-template <bool EXT, bool XT, class TR, bool REFILL>
+template <bool EXT, bool XT, class TR, bool REFILL, int MIN_BLOCKS = 0>
 int launch_base_grouped(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt,
                         const float* scene_buf, float* out, long long* state_out,
                         unsigned long long* iters, unsigned* next, void* stream,
@@ -1015,7 +1039,11 @@ int launch_base_grouped(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt
   const int n = a->h_out * a->f.width;
   if (n > 0) {
     const int bytes = 4 * TR::smem_floats(a->f, tl);
-    const void* kernel = (const void*)kernel_base_grouped<EXT, XT, TR, REFILL>;
+    const void* kernel;
+    if constexpr (MIN_BLOCKS > 0)
+      kernel = (const void*)kernel_base_grouped_resident<EXT, XT, TR, REFILL, MIN_BLOCKS>;
+    else
+      kernel = (const void*)kernel_base_grouped<EXT, XT, TR, REFILL>;
     int blocks;
     int err = grouped_grid<TR>(n, bytes, kernel, blocks);
     if (err != 0) return err;
@@ -1028,26 +1056,33 @@ int launch_base_grouped(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt
         return err;
       blocks = min(blocks, max(per_sm, 1) * n_sm);
     }
-    kernel_base_grouped<EXT, XT, TR, REFILL>
-        <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
-            *a, scene_buf, out, state_out, iters, next, tx, xt, tl);
+    if constexpr (MIN_BLOCKS > 0)
+      kernel_base_grouped_resident<EXT, XT, TR, REFILL, MIN_BLOCKS>
+          <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
+              *a, scene_buf, out, state_out, iters, next, tx, xt, tl);
+    else
+      kernel_base_grouped<EXT, XT, TR, REFILL>
+          <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
+              *a, scene_buf, out, state_out, iters, next, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }
 
-template <class TR>
-int launch_chunked_grouped(const ChunkArgs* a, const float* scene_buf, float* out,
-                           long long* state_out, unsigned long long* iters, void* stream,
+template <bool EXT, bool XT, class TR>
+int launch_chunked_grouped(const ChunkArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                           const float* scene_buf, float* out, long long* state_out,
+                           unsigned long long* iters, void* stream,
                            const typename TR::Launch& tl = {}) {
   const long long n = (long long)a->n_chunks * a->h_out * a->f.width;
   if (n > 0) {
     const int bytes = 4 * TR::smem_floats(a->f, tl);
     int blocks;
-    const int err =
-        grouped_grid<TR>(n, bytes, (const void*)kernel_base_chunked_grouped<TR>, blocks);
+    const int err = grouped_grid<TR>(
+        n, bytes, (const void*)kernel_base_chunked_grouped<EXT, XT, TR>, blocks);
     if (err != 0) return err;
-    kernel_base_chunked_grouped<TR><<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters, tl);
+    kernel_base_chunked_grouped<EXT, XT, TR>
+        <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(*a, scene_buf, out, state_out,
+                                                               iters, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,23 @@
 // The sweep over the group width K of the grouped kernels (group.cuh),
 // for terminal_raytracer_tpu_torch/tools/group_k.py: kernel B at the
 // reference and XT gates, kernel B over the culled sweep (in the design
-// TRT_TUNE_WIDE, GroupCulled's WIDE) and the chunked kernel A at K =
-// TRT_TUNE_K, and kernel A and the grid kernel A (the latter in the design
-// TRT_TUNE_WIDE) on the schedule TRT_TUNE_REFILL (1: refill, 0: static),
-// which the tool gives nvcc (-D) for one library a width, design and
-// schedule, under the same entry names as the render libraries' grouped
-// entries. No render loads this library; the widths the render libraries
-// ship are constants of kernel_extra.cu, kernel_accel.cu and kernel_base.cu.
+// TRT_TUNE_WIDE, GroupCulled's WIDE) and the chunked kernel A at the
+// reference and XT gates at K = TRT_TUNE_K, and kernel A and the grid
+// kernel A (the latter in the design TRT_TUNE_WIDE) on the schedule
+// TRT_TUNE_REFILL (1: refill, 0: static), which the tool gives nvcc (-D)
+// for one library a width, design and schedule, under the same entry names
+// as the render libraries' grouped entries. No render loads this library;
+// the widths the render libraries ship are constants of kernel_extra.cu,
+// kernel_accel.cu and kernel_base.cu.
+//
+// Beside them, the forms of kernel A at the XT gates that the sweep weighs
+// against the shipped thread per pixel (ops/build.py TUNE_ONLY_ENTRY_POINTS):
+// trt_kernel_base_xt, one thread a pixel held to TRT_TUNE_MIN_BLOCKS
+// resident blocks an SM (0: kernel_base as shipped), and
+// trt_kernel_base_xt_grouped, kernel_base_grouped at the XT gates over
+// GroupSweep<TRT_TUNE_K> on the schedule TRT_TUNE_REFILL, held to
+// TRT_TUNE_MIN_BLOCKS too; each with its queries, and the resident blocks
+// an SM that the occupancy calculator gives it (no staged rows).
 
 #include "group.cuh"
 
@@ -27,6 +37,10 @@
 #endif
 #ifndef TRT_TUNE_STAGE_CAP
 #define TRT_TUNE_STAGE_CAP trt::GROUP_SMEM_MAX
+#endif
+// XT kernel A's residency bound (blocks an SM; 0: none).
+#ifndef TRT_TUNE_MIN_BLOCKS
+#define TRT_TUNE_MIN_BLOCKS 0
 #endif
 
 using TuneSpill = trt::GroupSpill<TRT_TUNE_K, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
@@ -68,11 +82,21 @@ extern "C" int trt_kernel_extra_grid_grouped_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* scene_buf,
                                                float* out, long long* state_out,
                                                unsigned long long* iters, void* stream) {
-  return launch_chunked_grouped<trt::GroupSweep<TRT_TUNE_K>>(a, scene_buf, out, state_out, iters,
-                                                             stream);
+  return launch_chunked_grouped<false, false, trt::GroupSweep<TRT_TUNE_K>>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters, stream);
 }
 
 extern "C" int trt_kernel_base_chunked_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_base_chunked_xt_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                  const trt::Xt* xt, const float* scene_buf,
+                                                  float* out, long long* state_out,
+                                                  unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<true, true, trt::GroupSweep<TRT_TUNE_K>>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_xt_grouped_k() { return TRT_TUNE_K; }
 
 extern "C" int trt_kernel_base_grouped(const BaseArgs* a, const float* scene_buf, float* out,
                                        long long* state_out, unsigned long long* iters,
@@ -127,8 +151,76 @@ extern "C" int trt_kernel_extra_xt_grouped_spill_cap() { return TuneSpill::SMEM_
 extern "C" int trt_kernel_base_chunked_grouped_spill(const ChunkArgs* a, const float* scene_buf,
                                                      float* out, long long* state_out,
                                                      unsigned long long* iters, void* stream) {
-  return launch_chunked_grouped<TuneSpill>(a, scene_buf, out, state_out, iters, stream);
+  return launch_chunked_grouped<false, false, TuneSpill>(a, trt::Tex{}, trt::Xt{}, scene_buf, out,
+                                                         state_out, iters, stream);
 }
 
 extern "C" int trt_kernel_base_chunked_grouped_spill_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_chunked_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_base_chunked_xt_grouped_spill(const ChunkArgs* a, const trt::Tex* tx,
+                                                        const trt::Xt* xt,
+                                                        const float* scene_buf, float* out,
+                                                        long long* state_out,
+                                                        unsigned long long* iters,
+                                                        void* stream) {
+  return launch_chunked_grouped<true, true, TuneSpill>(a, *tx, *xt, scene_buf, out, state_out,
+                                                       iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_xt_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_chunked_xt_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+// Kernel A at the XT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
+// kernel_base_resident), the arguments of kernel_base.cu's entry.
+extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                  const float* scene_buf, float* out, long long* state_out,
+                                  unsigned long long* iters, void* stream) {
+  return launch_base<true, true, trt::Sweep, TRT_TUNE_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
+                                                                  state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_xt_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
+
+// Kernel A at the XT gates grouped (kernel_base_grouped, or with
+// TRT_TUNE_MIN_BLOCKS > 0 kernel_base_grouped_resident): the arguments of
+// trt_kernel_base_xt and `next`, as trt_kernel_base_grouped.
+extern "C" int trt_kernel_base_xt_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                          const trt::Xt* xt, const float* scene_buf, float* out,
+                                          long long* state_out, unsigned long long* iters,
+                                          unsigned* next, void* stream) {
+  return launch_base_grouped<true, true, trt::GroupSweep<TRT_TUNE_K>, (TRT_TUNE_REFILL != 0),
+                             TRT_TUNE_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out, state_out, iters,
+                                                  next, stream);
+}
+
+extern "C" int trt_kernel_base_xt_grouped_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_xt_grouped_refill() { return TRT_TUNE_REFILL; }
+
+// The resident blocks an SM of the two forms above (no staged rows), or a
+// negative CUDA error.
+template <class F>
+static int per_sm(F* kernel, int threads) {
+  int n = 0;
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
+  return err != 0 ? -err : n;
+}
+
+extern "C" int trt_kernel_base_xt_per_sm() {
+#if TRT_TUNE_MIN_BLOCKS > 0
+  return per_sm(kernel_base_resident<true, true, trt::Sweep, TRT_TUNE_MIN_BLOCKS>, 128);
+#else
+  return per_sm(kernel_base<true, true, trt::Sweep>, 128);
+#endif
+}
+
+extern "C" int trt_kernel_base_xt_grouped_per_sm() {
+  using TR = trt::GroupSweep<TRT_TUNE_K>;
+#if TRT_TUNE_MIN_BLOCKS > 0
+  return per_sm(
+      kernel_base_grouped_resident<true, true, TR, (TRT_TUNE_REFILL != 0), TRT_TUNE_MIN_BLOCKS>,
+      TR::THREADS);
+#else
+  return per_sm(kernel_base_grouped<true, true, TR, (TRT_TUNE_REFILL != 0)>, TR::THREADS);
+#endif
+}

@@ -49,13 +49,18 @@
 // budget, and trt_kernel_base_chunked_grouped_spill, its form for tables of
 // any size (group.cuh GroupSpill: the rows that fit a 227 KB stage staged,
 // the rest read through L1), above it; the thread-per-entry
-// trt_kernel_base_chunked stays, launched directly.
+// trt_kernel_base_chunked stays, launched directly. At the XT gates the
+// same pair is trt_kernel_base_chunked_xt_grouped (GROUP_K_CHUNKED_XT) and
+// trt_kernel_base_chunked_xt_grouped_spill (ChunkedXtSpill), beside the
+// thread-per-entry trt_kernel_base_chunked_xt.
 // trt_kernel_base_grouped is kernel A at the reference gates redesigned
 // the same way (group.cuh kernel_base_grouped over GroupSweep<GROUP_K_BASE>,
 // the schedule GROUP_REFILL_BASE: static, group g takes pixel g, or refill,
 // the resident groups taking pixels from a counter until they run out),
 // with the same epilogue; it replaces the same Pallas kernel as
-// trt_kernel_base.
+// trt_kernel_base. Kernel A at the XT gates stays one thread a pixel, held
+// to XT_MIN_BLOCKS resident blocks an SM so that the frame's blocks fit
+// one wave (pipeline.cuh kernel_base_resident).
 //
 // What bounds them on an H100. Not bytes: they read the scene table (L1 /
 // L2 or shared memory) and write 44 (36 chunked) bytes an entry. Not FP32
@@ -86,6 +91,33 @@ constexpr int GROUP_K_CHUNKED = 32;
 // 5.546 / 22.096; K = 16 at best 3.156 / 15.563; thread per entry 23.310
 // / 105.313).
 using ChunkedSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
+// The same at the XT gates (the chunked XT kernel A), over GroupSweep within
+// the budget and GroupSpill above it: chosen by tools/group_k.py --only xt
+// (PERF.md, PR 13; H100 80GB HBM3 at 700 W, 200x100, 8 spp, depth 6, fog
+// 0.15). Within the budget, at stress1024 fog --mis: K = 8 2.846 ms, 2.830
+// in a second run (K = 2 3.762, 4 3.157, 16 3.117, 32 3.353; thread per
+// entry 4.207, 4.172). Above it, ms at mesh5120 fog /
+// icosphere:5 fog: K = 32, 512 lanes, 227 KB 18.330 / 105.428 (K = 16, 512
+// lanes, 227 KB 19.410 / 90.859, at 96 KB 18.536 / 93.695; K = 16, 256
+// lanes, 96 KB 21.351 / 92.139; 227 KB with 256 lanes 28.1-28.9 at
+// mesh5120; thread per entry 35.076 / 155.112). In fog every path runs to
+// its roulette or depth, so the card is full of long paths and the groups
+// gain less than at the reference gates (chunked A 8.2x at mesh5120).
+constexpr int GROUP_K_CHUNKED_XT = 8;
+using ChunkedXtSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
+// The resident blocks an SM that kernel A at the XT gates is held to
+// (pipeline.cuh kernel_base_resident): chosen by tools/group_k.py --only xt
+// at fog (Cornell_Box 400x200, 16 spp, depth 32, fog 0.15; PERF.md, PR 13).
+// Unbound, ptxas gives it 128 registers: 4 blocks of 128 lanes an SM, 528
+// resident for the 625 blocks of 80,000 pixels, 1.18 waves, 1.859 ms
+// (1.878 in a second run). At 5 (96 registers, 244 bytes of spill stores)
+// 0.95 waves, 1.448 ms (1.371); at 6 (80 registers) 1.486 (1.483); the
+// grouped forms at best 1.599 (K = 1 refill, held to 5). At
+// manylights_one and showcase --mis, whose grids take 0.30 and 1.18 waves
+// unbound, the two forms are within 5% of each other, either way round
+// between the runs (0.304 / 0.297 ms and 0.309 / 0.322; 0.598 / 0.590 and
+// 0.626 / 0.611, bound / unbound).
+constexpr int XT_MIN_BLOCKS = 5;
 // The group width of the grouped kernel A and its schedule (true: refill):
 // chosen by the sweep over K and the schedule of tools/group_k.py at
 // stress256, the bench configuration where the main path takes it (PERF.md,
@@ -130,11 +162,16 @@ extern "C" int trt_kernel_base_chunked_ext(const ChunkArgs* a, const trt::Tex* t
 
 // The XT instantiations (trace.cuh): the same outputs, for a scene buffer
 // with xt tables; tx holds the atlas and texture constants, xt the gates.
+// Kernel A at the XT gates is held to XT_MIN_BLOCKS resident blocks an SM.
 extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                   const float* scene_buf, float* out, long long* state_out,
                                   unsigned long long* iters, void* stream) {
-  return launch_base<true, true>(a, *tx, *xt, scene_buf, out, state_out, iters, stream);
+  return launch_base<true, true, trt::Sweep, XT_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
+                                                            state_out, iters, stream);
 }
+
+// Its residency bound (blocks an SM).
+extern "C" int trt_kernel_base_xt_min_blocks() { return XT_MIN_BLOCKS; }
 
 extern "C" int trt_kernel_base_chunked_xt(const ChunkArgs* a, const trt::Tex* tx,
                                           const trt::Xt* xt, const float* scene_buf, float* out,
@@ -149,8 +186,8 @@ extern "C" int trt_kernel_base_chunked_xt(const ChunkArgs* a, const trt::Tex* tx
 extern "C" int trt_kernel_base_chunked_grouped(const ChunkArgs* a, const float* scene_buf,
                                                float* out, long long* state_out,
                                                unsigned long long* iters, void* stream) {
-  return launch_chunked_grouped<trt::GroupSweep<GROUP_K_CHUNKED>>(a, scene_buf, out, state_out,
-                                                                  iters, stream);
+  return launch_chunked_grouped<false, false, trt::GroupSweep<GROUP_K_CHUNKED>>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters, stream);
 }
 
 // Its group width K (lanes an entry).
@@ -161,12 +198,43 @@ extern "C" int trt_kernel_base_chunked_grouped_k() { return GROUP_K_CHUNKED; }
 extern "C" int trt_kernel_base_chunked_grouped_spill(const ChunkArgs* a, const float* scene_buf,
                                                      float* out, long long* state_out,
                                                      unsigned long long* iters, void* stream) {
-  return launch_chunked_grouped<ChunkedSpill>(a, scene_buf, out, state_out, iters, stream);
+  return launch_chunked_grouped<false, false, ChunkedSpill>(a, trt::Tex{}, trt::Xt{}, scene_buf,
+                                                            out, state_out, iters, stream);
 }
 
 // Its group width K and stage cap (bytes).
 extern "C" int trt_kernel_base_chunked_grouped_spill_k() { return ChunkedSpill::K; }
 extern "C" int trt_kernel_base_chunked_grouped_spill_cap() { return ChunkedSpill::SMEM_CAP; }
+
+// The grouped chunked kernel A at the XT gates: the same arguments and
+// outputs as trt_kernel_base_chunked_xt; refused (cudaErrorInvalidValue)
+// when the scene's rows exceed the shared-memory budget.
+extern "C" int trt_kernel_base_chunked_xt_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                  const trt::Xt* xt, const float* scene_buf,
+                                                  float* out, long long* state_out,
+                                                  unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<true, true, trt::GroupSweep<GROUP_K_CHUNKED_XT>>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_xt_grouped_k() { return GROUP_K_CHUNKED_XT; }
+
+// The grouped chunked kernel A at the XT gates for tables of any size
+// (group.cuh GroupSpill): the arguments of trt_kernel_base_chunked_xt_grouped.
+extern "C" int trt_kernel_base_chunked_xt_grouped_spill(const ChunkArgs* a, const trt::Tex* tx,
+                                                        const trt::Xt* xt,
+                                                        const float* scene_buf, float* out,
+                                                        long long* state_out,
+                                                        unsigned long long* iters,
+                                                        void* stream) {
+  return launch_chunked_grouped<true, true, ChunkedXtSpill>(a, *tx, *xt, scene_buf, out,
+                                                            state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_xt_grouped_spill_k() { return ChunkedXtSpill::K; }
+extern "C" int trt_kernel_base_chunked_xt_grouped_spill_cap() {
+  return ChunkedXtSpill::SMEM_CAP;
+}
 
 // The grouped kernel A (group.cuh): the same arguments and outputs as
 // trt_kernel_base, and `next`, one zeroed u32 (the refill schedule's pixel

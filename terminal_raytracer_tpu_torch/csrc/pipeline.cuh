@@ -100,11 +100,15 @@ __device__ __forceinline__ unsigned base_pixel(const BaseArgs& a, const trt::Sce
   return iters;
 }
 
+// Kernel A, one thread a pixel: the body of kernel_base and
+// kernel_base_resident.
 template <bool EXT, bool XT, class TR>
-__global__ void __launch_bounds__(128)
-    kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
-                long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
-                trt::Tex tx, trt::Xt xt, typename TR::Launch tl) {
+__device__ __forceinline__ void base_thread(const BaseArgs& a, const float* __restrict__ scene_buf,
+                                            float* __restrict__ out,
+                                            long long* __restrict__ state_out,
+                                            unsigned long long* __restrict__ iters,
+                                            const trt::Tex& tx, const trt::Xt& xt,
+                                            const typename TR::Launch& tl) {
   const int n = a.h_out * a.f.width;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned my_iters = 0;
@@ -115,6 +119,25 @@ __global__ void __launch_bounds__(128)
   }
   trt::count_warp_iters(my_iters, iters);
   tr.flush();
+}
+
+template <bool EXT, bool XT, class TR>
+__global__ void __launch_bounds__(128)
+    kernel_base(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                trt::Tex tx, trt::Xt xt, typename TR::Launch tl) {
+  base_thread<EXT, XT, TR>(a, scene_buf, out, state_out, iters, tx, xt, tl);
+}
+
+// kernel_base held to MIN_BLOCKS resident blocks an SM: ptxas fits its
+// registers to 65,536 / (128 x MIN_BLOCKS), spilling what does not fit.
+template <bool EXT, bool XT, class TR, int MIN_BLOCKS>
+__global__ void __launch_bounds__(128, MIN_BLOCKS)
+    kernel_base_resident(BaseArgs a, const float* __restrict__ scene_buf,
+                         float* __restrict__ out, long long* __restrict__ state_out,
+                         unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
+                         typename TR::Launch tl) {
+  base_thread<EXT, XT, TR>(a, scene_buf, out, state_out, iters, tx, xt, tl);
 }
 
 template <bool EXT, bool XT, class TR>
@@ -187,15 +210,22 @@ __global__ void __launch_bounds__(128)
   tr.flush();
 }
 
-template <bool EXT, bool XT, class TR = trt::Sweep>
+// Kernel A over the h_out * w pixels of `a`: kernel_base, or with
+// MIN_BLOCKS > 0 kernel_base_resident<..., MIN_BLOCKS>.
+template <bool EXT, bool XT, class TR = trt::Sweep, int MIN_BLOCKS = 0>
 int launch_base(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt, const float* scene_buf,
                 float* out, long long* state_out, unsigned long long* iters, void* stream,
                 const typename TR::Launch& tl = {}) {
   const int n = a->h_out * a->f.width;
   if (n > 0) {
     const int threads = 128;
-    kernel_base<EXT, XT, TR><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        *a, scene_buf, out, state_out, iters, tx, xt, tl);
+    const int blocks = (n + threads - 1) / threads;
+    if constexpr (MIN_BLOCKS > 0)
+      kernel_base_resident<EXT, XT, TR, MIN_BLOCKS><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          *a, scene_buf, out, state_out, iters, tx, xt, tl);
+    else
+      kernel_base<EXT, XT, TR><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          *a, scene_buf, out, state_out, iters, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,13 @@ ENTRY_POINTS = {
                        ("trt_kernel_base_ext", 7),
                        ("trt_kernel_base_chunked_ext", 7),
                        ("trt_kernel_base_xt", 8),
-                       ("trt_kernel_base_chunked_xt", 8)),
+                       ("trt_kernel_base_xt_min_blocks", 0),
+                       ("trt_kernel_base_chunked_xt", 8),
+                       ("trt_kernel_base_chunked_xt_grouped", 8),
+                       ("trt_kernel_base_chunked_xt_grouped_k", 0),
+                       ("trt_kernel_base_chunked_xt_grouped_spill", 8),
+                       ("trt_kernel_base_chunked_xt_grouped_spill_k", 0),
+                       ("trt_kernel_base_chunked_xt_grouped_spill_cap", 0)),
     "kernel_extra.cu": (("trt_kernel_extra", 10),
                         ("trt_kernel_extra_grouped", 10),
                         ("trt_kernel_extra_grouped_k", 0),
@@ -89,14 +95,23 @@ ENTRY_POINTS = {
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # The group-width sweep of tools/group_k.py: one library a width K (built
 # with -DTRT_TUNE_K=K, for the grid kernels' design -DTRT_TUNE_WIDE, for
-# kernel A's schedule -DTRT_TUNE_REFILL and for the GroupSpill forms' block
-# width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP), with the
-# grouped entries of the render libraries.
+# kernel A's schedule -DTRT_TUNE_REFILL, for the GroupSpill forms' block
+# width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP and for the
+# XT kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS), with the grouped
+# entries of the render libraries and the XT kernel A's forms that the
+# sweep weighs (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
+TUNE_ONLY_ENTRY_POINTS = (
+    ("trt_kernel_base_xt", 8), ("trt_kernel_base_xt_min_blocks", 0),
+    ("trt_kernel_base_xt_per_sm", 0), ("trt_kernel_base_xt_grouped", 9),
+    ("trt_kernel_base_xt_grouped_k", 0),
+    ("trt_kernel_base_xt_grouped_refill", 0),
+    ("trt_kernel_base_xt_grouped_per_sm", 0))
 TUNE_ENTRY_POINTS = tuple(
     (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",
                           "kernel_base.cu")
-    for name, n in ENTRY_POINTS[src] if "_grouped" in name)
+    for name, n in ENTRY_POINTS[src] if "_grouped" in name
+) + TUNE_ONLY_ENTRY_POINTS
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,8 +21,8 @@ make_sorted_render_frame:
 
 Kernel B at the reference gates, at the XT gates and over the culled
 sweep of `--accel grid`, kernel A at the reference gates and over the
-culled sweep, and the chunked kernel A at the reference gates, take their
-grouped entries (csrc/group.cuh: a path group of K lanes carries one
+culled sweep, and the chunked kernel A at the reference and XT gates, take
+their grouped entries (csrc/group.cuh: a path group of K lanes carries one
 entry, the closest-hit and shadow sweeps split across the group, the
 scene's geometry rows, and the grid's group table, staged in shared
 memory) wherever those fit GROUP_SMEM_BYTES (kernel A also from
@@ -31,11 +31,13 @@ table's size alone): extra_kernel passes such a tracer on to
 extra_kernel_grouped, extra_kernel_xt_grouped or
 extra_kernel_grid_grouped, base_kernel to base_kernel_grouped,
 base_kernel_grid to base_kernel_grid_grouped, base_kernel_chunked to
-base_kernel_chunked_grouped, each counting its own launches. Kernel B at
-the reference and XT gates and the chunked kernel A take their grouped
+base_kernel_chunked_grouped, base_kernel_chunked_xt to
+base_kernel_chunked_xt_grouped, each counting its own launches. Kernel B
+and the chunked kernel A at the reference and XT gates take their grouped
 entries at every table size: above the budget those pass the tracer on to
 their forms over csrc/group.cuh GroupSpill (extra_kernel_grouped_spill,
-extra_kernel_xt_grouped_spill, base_kernel_chunked_grouped_spill), which
+extra_kernel_xt_grouped_spill, base_kernel_chunked_grouped_spill,
+base_kernel_chunked_xt_grouped_spill), which
 stage the rows that fit their stage cap (group_stage) and read the rest
 from the scene buffer through L1. Kernel A and the grid
 kernels launch their thread-per-entry entries above the budget. The
@@ -392,19 +394,19 @@ GROUP_BASE_MIN_PRIMS = 16
 
 # The instantiations whose grouped entry serves every table size (its
 # GroupSpill form above GROUP_SMEM_BYTES), by kernel.
-ANY_SIZE = {"extra": ("ref", "xt"), "chunked": ("ref",), "base": ()}
+ANY_SIZE = {"extra": ("ref", "xt"), "chunked": ("ref", "xt"), "base": ()}
 
 
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
     """Whether kernel B ('extra'), kernel A ('base') or the chunked kernel
     A ('chunked') takes its grouped entry for `tracer`: an instantiation
-    with one (B: GROUPED_EXTRA; A: GROUPED_BASE; chunked A: the reference
-    gates), at any table size for the ANY_SIZE ones, else with what it
-    stages within GROUP_SMEM_BYTES (and kernel A's scene at least
+    with one (B: GROUPED_EXTRA; A: GROUPED_BASE; chunked A:
+    GROUPED_CHUNKED), at any table size for the ANY_SIZE ones, else with
+    what it stages within GROUP_SMEM_BYTES (and kernel A's scene at least
     GROUP_BASE_MIN_PRIMS primitives). A dispatch by the table's size
     alone."""
     kinds = {"extra": GROUPED_EXTRA, "base": GROUPED_BASE,
-             "chunked": ("ref",)}[kernel]
+             "chunked": GROUPED_CHUNKED}[kernel]
     if (kernel == "base"
             and tracer.scene.primitive_count < GROUP_BASE_MIN_PRIMS):
         return False
@@ -439,22 +441,27 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                     "base_grid": "trt_kernel_base_grid_grouped",
                     "extra_spill": "trt_kernel_extra_grouped_spill",
                     "extra_xt_spill": "trt_kernel_extra_xt_grouped_spill",
-                    "chunked_spill": "trt_kernel_base_chunked_grouped_spill"}
+                    "chunked_spill": "trt_kernel_base_chunked_grouped_spill",
+                    "chunked_xt": "trt_kernel_base_chunked_xt_grouped",
+                    "chunked_xt_spill":
+                        "trt_kernel_base_chunked_xt_grouped_spill"}
 
 
 def group_k(kernel: str, lib=None) -> int:
     """The group width K (lanes an entry) that the grouped `kernel`
-    ('extra', 'extra_xt', 'extra_grid', 'chunked', 'base', 'base_grid',
-    'extra_spill', 'extra_xt_spill' or 'chunked_spill') of `lib` (default
-    the render libraries) was built with (on the card)."""
+    ('extra', 'extra_xt', 'extra_grid', 'chunked', 'chunked_xt', 'base',
+    'base_grid', 'extra_spill', 'extra_xt_spill', 'chunked_spill' or
+    'chunked_xt_spill') of `lib` (default the render libraries) was built
+    with (on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
 
 
 def group_cap(kernel: str, lib=None) -> int:
     """The stage cap (bytes) of the GroupSpill form `kernel`
-    ('extra_spill', 'extra_xt_spill' or 'chunked_spill') of `lib` (default
-    the render libraries; on the card): group_stage's `cap`."""
+    ('extra_spill', 'extra_xt_spill', 'chunked_spill' or 'chunked_xt_spill')
+    of `lib` (default the render libraries; on the card): group_stage's
+    `cap`."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_cap")())
 
@@ -752,7 +759,8 @@ def chunked_entry_iters(tracer, pose, seed: int, frame_number: int,
 def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                     kind: str, lib=None) -> ChunkedBaseOut:
     """Launch the chunked kernel A's `kind` instantiation (the grouped
-    entry for 'grouped'), from `lib` (default the render libraries)."""
+    entries for 'grouped', 'xt_grouped' and their '_spill' forms), from
+    `lib` (default the render libraries)."""
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
     n_chunks, w = tracer.n_base_chunks, tracer.width
@@ -781,7 +789,9 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     has one chunk of `base` samples). No budget epilogue: the variance
     needs the per-pixel totals. base_kernel_chunked_ext / _xt for a tracer
     with the extensions, base_kernel_chunked_grid / _gathered for one with
-    that traversal."""
+    that traversal; the grouped entries (base_kernel_chunked_grouped,
+    base_kernel_chunked_xt_grouped) where takes_grouped(tracer,
+    'chunked')."""
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -863,13 +873,61 @@ def base_kernel_chunked_ext(tracer, pose, seed: int, frame_number: int,
 
 def base_kernel_chunked_xt(tracer, pose, seed: int, frame_number: int,
                            y0: int = 0, h_out: int = None) -> ChunkedBaseOut:
-    """The chunked kernel A's XT instantiation."""
+    """The chunked kernel A's XT instantiation: its grouped entry
+    base_kernel_chunked_xt_grouped where takes_grouped(tracer, 'chunked')
+    (every table size over the table sweep), else the thread per entry."""
     _require_xt(tracer, "base_kernel_chunked_xt")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_xt"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if takes_grouped(tracer, "chunked"):
+        return base_kernel_chunked_xt_grouped(tracer, pose, seed,
+                                              frame_number, y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "xt")
     base_kernel_chunked_xt.launches += 1
+    return out
+
+
+def base_kernel_chunked_xt_grouped(tracer, pose, seed: int,
+                                   frame_number: int, y0: int = 0,
+                                   h_out: int = None) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped entry at the XT gates (csrc/group.cuh
+    over GroupSweep): group_k('chunked_xt') lanes an entry, as
+    base_kernel_chunked_grouped. For an XT tracer over the table sweep;
+    base_kernel_chunked_xt takes it for such a tracer. Rows over
+    GROUP_SMEM_BYTES go on to base_kernel_chunked_xt_grouped_spill."""
+    _require_grouped(tracer, "base_kernel_chunked_xt_grouped", "xt",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_xt_grouped"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    if _over_budget(tracer):
+        return base_kernel_chunked_xt_grouped_spill(tracer, pose, seed,
+                                                    frame_number, y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "xt_grouped")
+    base_kernel_chunked_xt_grouped.launches += 1
+    return out
+
+
+def base_kernel_chunked_xt_grouped_spill(tracer, pose, seed: int,
+                                         frame_number: int, y0: int = 0,
+                                         h_out: int = None) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped form at the XT gates for any table
+    size (csrc/group.cuh GroupSpill): group_k('chunked_xt_spill') lanes an
+    entry, as base_kernel_chunked_grouped_spill. For an XT tracer over the
+    table sweep; base_kernel_chunked_xt_grouped takes it where the rows
+    exceed GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "base_kernel_chunked_xt_grouped_spill", "xt",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_xt_grouped_spill"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "xt_grouped_spill")
+    base_kernel_chunked_xt_grouped_spill.launches += 1
     return out
 
 
@@ -907,8 +965,15 @@ base_kernel_chunked_grouped.launches = 0
 base_kernel_chunked_grouped_spill.launches = 0
 base_kernel_chunked_ext.launches = 0
 base_kernel_chunked_xt.launches = 0
+base_kernel_chunked_xt_grouped.launches = 0
+base_kernel_chunked_xt_grouped_spill.launches = 0
 base_kernel_chunked_grid.launches = 0
 base_kernel_chunked_gathered.launches = 0
+
+# The grouped chunked kernel A of each instantiation that has one (each
+# passes a table over the budget on to its GroupSpill form).
+GROUPED_CHUNKED = {"ref": base_kernel_chunked_grouped,
+                   "xt": base_kernel_chunked_xt_grouped}
 
 
 # ---------------------------------------------------------------------------

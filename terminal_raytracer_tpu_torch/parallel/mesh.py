@@ -79,11 +79,12 @@ class Mesh(NamedTuple):
         return px_i * self.n_sp + sp_i
 
 
-def make_mesh(n_px: int, n_sp: int = 1, device="cpu") -> Mesh:
+def make_mesh(n_px: int, n_sp: int = 1, device="cuda") -> Mesh:
     """The mesh over the caller's process group, whose world size must be
-    n_px * n_sp. A CUDA `device` needs the 'nccl' backend and a device of
-    its own on its host (NCCL refuses two ranks on one device); the CPU
-    needs 'gloo'. Every rank creates every group, in the same order."""
+    n_px * n_sp, on the card unless `device` says otherwise. A CUDA
+    `device` needs the 'nccl' backend and a device of its own on its host
+    (NCCL refuses two ranks on one device); the CPU needs 'gloo'. Every
+    rank creates every group, in the same order."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):

@@ -7,7 +7,7 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base|spill|budget]
+        [--reps 5] [--only base|spill|budget|xt]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -57,8 +57,22 @@ entries (GroupSweep: 12-word triangle rows staged whole) in turns with
 GroupSpill at the same shape (the shipped K, 128 lanes, a 96 KB cap:
 nine-word triangles staged plane-major, nothing spilled), bit for bit:
 kernel B at the north star and mesh1280, the XT kernel B at the fog
-shapes, the chunked kernel A at stress1024 and mesh1280. Needs a CUDA GPU
-(exit 2 without one).
+shapes, the chunked kernel A at stress1024 and mesh1280.
+
+`--only xt` sweeps kernel A at the XT gates: the chunked XT kernel A's
+grouped entry at stress1024 fog --mis (stress:1024 200x100, 8 spp, depth
+6, fog 0.15) at K of --ks (default XT_CHUNKED_KS), its GroupSpill forms
+at mesh5120 fog
+and icosphere:5 fog over XT_SPILL (K, block width, stage cap), each beside
+the thread per entry; then the XT kernel A's forms (XT_BASE, libraries
+built with -DTRT_TUNE_MIN_BLOCKS too) at fog (Cornell_Box 400x200, 16 spp,
+depth 32, fog 0.15), manylights_one (lights:16, power) and showcase --mis
+beside the shipped thread per pixel: (a) the thread per pixel held to 5
+or 6 resident blocks an SM, (b) the grouped kernel A at K 1, 2, 4, static
+and refill, (c) (b) held to 5. Each line also has the form's ptxas
+registers, stack and spill stores, and for kernel A the resident blocks
+an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves of
+its grid. Needs a CUDA GPU (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -200,10 +214,15 @@ def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0):
               same_counts(stats))
 
 
-def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0):
-    """The chunked kernel A: thread per entry, then the grouped entry (its
-    GroupSpill form, `spill`) of every library of `libs`; the plain version
-    over `rows` image rows a call (0: all at once)."""
+def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
+                   ptxas=None):
+    """The chunked kernel A of `tr`'s instantiation ('ref' or 'xt'): thread
+    per entry, then the grouped entry (its GroupSpill form, `spill`) of
+    every library of `libs`, each line with `ptxas`[label] where given; the
+    plain version over `rows` image rows a call (0: all at once)."""
+    kind = kernels._kind(tr)
+    ptxas = ptxas or {}
+
     def plain(fn):
         return _in_rows(lambda r0, r1: fn(tr, pose, seed, 0, r0, r1 - r0),
                         tr.height, rows, dim=1)
@@ -211,24 +230,28 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0):
     p = plain(lambda *a_: kernels.base_kernel_chunked_plain(*a_)[:4])
     want = (*p[0], *p[1], p[3], p[2])
     it = plain(kernels.chunked_entry_iters)
-    grouped = "grouped_spill" if spill else "grouped"
+    grouped = ("grouped" if kind == "ref" else f"{kind}_grouped") + (
+        "_spill" if spill else "")
 
-    def launch(kind, lib=None):
-        return kernels._launch_chunked(tr, pose, seed, 0, 0, None, kind, lib)
+    def launch(form, lib=None):
+        return kernels._launch_chunked(tr, pose, seed, 0, 0, None, form, lib)
 
     def flat(o):
         return (*o.csum, *o.csumsq, o.rays, o.state)
 
-    out = launch("ref")
-    ms = _time(lambda: launch("ref"), reps)
-    _line(f"{label} chunked A", "thread", ms, _equal(flat(out), want),
-          float(out.iters) == float(kernels.warp_iters(it, 1)), it)
+    out = launch(kind)
+    ms = _time(lambda: launch(kind), reps)
+    _line(f"{label} chunked A ({kind})", "thread", ms,
+          _equal(flat(out), want),
+          float(out.iters) == float(kernels.warp_iters(it, 1)), it,
+          extra=ptxas.get("thread", ""))
     for k, lib in libs.items():
         width = int(str(k).split()[0])
         out = launch(grouped, lib)
         ms = _time(lambda: launch(grouped, lib), reps)
-        _line(f"{label} chunked A K", k, ms, _equal(flat(out), want),
-              float(out.iters) == float(kernels.warp_iters(it, width)), it)
+        _line(f"{label} chunked A ({kind}) K", k, ms, _equal(flat(out), want),
+              float(out.iters) == float(kernels.warp_iters(it, width)), it,
+              extra=ptxas.get(k, ""))
 
 
 def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None):
@@ -374,16 +397,184 @@ def sweep_budget(reps) -> None:
             run(label, tr, pose, SEED, libs_, reps, is_spill)
 
 
+# --only xt: the chunked XT kernel A's group widths within the budget, its
+# GroupSpill forms' (K, block width, stage cap) above it, and the XT kernel
+# A's forms, (group width, refill, resident blocks an SM; K = 1 static is
+# the thread per pixel's form (a), the rest (b) without and (c) with the
+# bound).
+XT_CHUNKED_KS = (8, 16, 32)
+XT_SPILL = tuple((k, t, cap) for k in (16, 32) for t in (256, 512)
+                 for cap in (GROUP_SMEM_BYTES, GROUP_SMEM_MAX))
+XT_BASE = tuple((k, refill, minb) for k in (1, 2, 4) for refill in (0, 1)
+                for minb in (0, 5)) + ((1, 0, 6),)
+
+
+def _ptxas(log: str, pattern: str) -> str:
+    """', registers R, stack S B, spill stores T B' of the kernel whose
+    mangled name holds `pattern` in an nvcc log (the first such kernel)."""
+    take, regs, spill = False, "?", "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if take:
+                break
+            take = pattern in line
+        elif take and "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif take and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            stack = (line.split(",")[-1].strip() if "stack" in line
+                     else "0 bytes cumulative stack size")
+            return f", ptxas {regs} registers, {stack}, {spill}"
+    return f", ptxas {regs} registers, {spill}"
+
+
+def _sweep_base_xt(label, tr, pose, seed, libs, logs, reps):
+    """The XT kernel A's forms (XT_BASE; `libs`, `logs` by form): the
+    shipped entry, then each form (K = 1 static: the thread per pixel too,
+    with and without its residency bound) against the plain version
+    bit for bit, its lane-iterations against the plain model (refill: at
+    least the pixels' sum), its ptxas line, the resident blocks an SM that
+    the occupancy calculator gives it and the waves of its grid."""
+    p = kernels.base_kernel_plain(tr, pose, seed, 0)
+    want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
+    it = kernels.base_entry_iters(tr, pose, seed, 0)
+    n = tr.width * tr.height
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[group_k] {label} kernel A (xt) {tr.width}x{tr.height}, spp "
+          f"{tr.spp}, depth {tr.max_depth}: {int(it.sum())} pixel "
+          "iterations", flush=True)
+
+    def launch(form, lib=None):
+        return kernels._launch_base(tr, pose, seed, 0, 0, None, None, form,
+                                    lib)
+
+    def flat(o):
+        return (*o.csum, *o.csumsq, o.rays, o.var, o.additional, o.state)
+
+    out = launch("xt")
+    _line(f"{label} kernel A (xt) shipped trt_kernel_base_xt", "thread", _time(
+        lambda: launch("xt"), reps), _equal(flat(out), want),
+        float(out.iters) == float(kernels.warp_iters(it, 1)), it)
+    for (k, refill, minb), lib in libs.items():
+        thread = k == 1 and not refill
+        forms = (("thread", "xt"),) if thread else ()
+        forms += (("grouped", "xt_grouped"),)
+        for name, form in forms:
+            out = launch(form, lib)
+            ms = _time(lambda: launch(form, lib), reps)
+            model = (float(out.iters) >= float(it.sum()) if refill else
+                     float(out.iters) == float(kernels.warp_iters(it, k)))
+            if name == "thread":
+                per_sm = lib.trt_kernel_base_xt_per_sm()
+                blocks = -(-n // 128)
+                pattern = ("20kernel_base_residentILb1ELb1E" if minb
+                           else "11kernel_baseILb1ELb1E")
+            else:
+                per_sm = lib.trt_kernel_base_xt_grouped_per_sm()
+                blocks = -(-n * k // 128)
+                pattern = ("kernel_base_grouped_residentILb1ELb1E" if minb
+                           else "19kernel_base_groupedILb1ELb1EN3trt10Group")
+            waves = ("a resident grid" if refill else
+                     f"{blocks / max(per_sm * n_sm, 1):.2f} waves")
+            tag = (f"{k} {'refill' if refill else 'static'}"
+                   + (f" bound {minb}" if minb else ""))
+            _line(f"{label} kernel A (xt) {name}", tag, ms,
+                  _equal(flat(out), want), model, it,
+                  extra=(_ptxas(logs[k, refill, minb], pattern)
+                         + f", {per_sm} blocks an SM, {waves}"))
+
+
+def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
+    """--only xt (the module docstring); `ks`: the chunked XT kernel A's
+    group widths within the budget."""
+    chunked = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}
+    spill = {f"{k} t{t} cap{cap}": (
+        build.TUNE_SOURCE, (f"TRT_TUNE_K={k}", f"TRT_TUNE_THREADS={t}",
+                            f"TRT_TUNE_STAGE_CAP={cap}"))
+        for k, t, cap in XT_SPILL}
+    base = {form: (build.TUNE_SOURCE, (
+        f"TRT_TUNE_K={form[0]}", f"TRT_TUNE_REFILL={form[1]}",
+        f"TRT_TUNE_MIN_BLOCKS={form[2]}")) for form in XT_BASE}
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(chunked.values())
+                                + tuple(spill.values())
+                                + tuple(base.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    def log(src):
+        return paths[src].with_suffix(".log").read_text()
+
+    render_log = log("kernel_base.cu")
+    thread_xt = {"thread": _ptxas(render_log,
+                                  "19kernel_base_chunkedILb1ELb1E")}
+    pose = Camera().pose()
+
+    def scene(name, w, h, spp, depth, **over):
+        return load_scene(name).with_overrides(
+            width=w, height=h, samples_per_pixel=spp, max_depth=depth, **over)
+
+    fog = Fog(density=0.15)
+    # The chunked XT kernel A within the budget.
+    tr = PathTracer(scene("stress:1024", 200, 100, 8, 6, fog=fog), "cuda",
+                    transport="mis")
+    libs = {k: build.load_kernels((src,)) for k, src in chunked.items()}
+    _sweep_chunked("stress1024 fog mis", tr, pose, SEED, libs, reps,
+                   ptxas={**thread_xt, **{k: _ptxas(
+                       log(src), "kernel_base_chunked_groupedILb1ELb1EN3trt10"
+                       "GroupSweep") for k, src in chunked.items()}})
+    # Its GroupSpill forms above it.
+    libs = {k: build.load_kernels((src,)) for k, src in spill.items()}
+    marks = {k: _ptxas(log(src), "kernel_base_chunked_groupedILb1ELb1EN3trt"
+                       "10GroupSpill") for k, src in spill.items()}
+    for name, label in (("icosphere:4", "mesh5120 fog"),
+                        ("icosphere:5", "icosphere5 fog")):
+        tr = PathTracer(scene(name, 200, 100, 8, 6, fog=fog), "cuda")
+        n_sph, n_pln, n_tri, _ = tr.tables.counts
+        print(f"[group_k] {label}: {kernels.group_rows_bytes(tr)} B of rows; "
+              f"staged at 96 KB "
+              f"{kernels.group_stage(n_sph, n_pln, n_tri, GROUP_SMEM_BYTES)}"
+              f", at 227 KB "
+              f"{kernels.group_stage(n_sph, n_pln, n_tri, GROUP_SMEM_MAX)}",
+              flush=True)
+        _sweep_chunked(label, tr, pose, SEED, libs, reps, spill=True,
+                       rows=PLAIN_ROWS if name == "icosphere:5" else 0,
+                       ptxas={**thread_xt, **marks})
+    # The XT kernel A's forms at its main-path scenes.
+    libs = {form: build.load_kernels((src,)) for form, src in base.items()}
+    logs = {form: log(src) for form, src in base.items()}
+    shipped = ("20kernel_base_residentILb1ELb1E"
+               if "kernel_base_resident" in render_log
+               else "11kernel_baseILb1ELb1E")
+    print(f"[group_k] XT kernel A shipped: "
+          f"{_ptxas(render_log, shipped)[2:]}", flush=True)
+    for label, tr in (
+            ("fog", PathTracer(scene("Cornell_Box", 400, 200, 16, 32,
+                                     fog=fog), "cuda")),
+            ("manylights_one", PathTracer(load_scene("lights:16")
+                                          .with_overrides(
+                                              light_sample="power"),
+                                          "cuda")),
+            ("showcase mis", PathTracer(load_scene("showcase"), "cuda",
+                                        transport="mis"))):
+        _sweep_base_xt(label, tr, pose, SEED, libs, logs, reps)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default=None)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", choices=("base", "spill", "budget"),
+    ap.add_argument("--only", choices=("base", "spill", "budget", "xt"),
                     default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
         sys.exit(2)
+    if args.only == "xt":
+        sweep_xt(args.reps, [int(k) for k in args.ks.split(",")] if args.ks
+                 else XT_CHUNKED_KS)
+        return 0
     if args.only == "spill":
         sweep_spill([int(k) for k in (args.ks or "8,16,32").split(",")],
                     args.reps)

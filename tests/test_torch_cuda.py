@@ -288,12 +288,19 @@ def test_xt_kernels_match_plain_versions(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fog-hg-mis", "lights4-power-mis"])
 def test_xt_chunked_kernel_matches_plain_version(cuda_device, name):
+    """The chunked XT kernel A through the wrapper (its grouped entry) and
+    its thread-per-entry entry, launched directly, against the plain
+    version."""
     tr = _xt_tracer(cuda_device, name, 64, 16, chunk_base=2, chunk_extra=2)
-    n0 = kernels.base_kernel_chunked_xt.launches
+    n0, m0 = (kernels.base_kernel_chunked_xt.launches,
+              kernels.base_kernel_chunked_xt_grouped.launches)
     k = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
     p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
-    assert kernels.base_kernel_chunked_xt.launches == n0 + 1
+    assert (kernels.base_kernel_chunked_xt.launches,
+            kernels.base_kernel_chunked_xt_grouped.launches) == (n0, m0 + 1)
     _assert_base_equal(k, p)
+    _assert_base_equal(kernels._launch_chunked(tr, POSE, SEED, 0, 0, None,
+                                               "xt"), p)
 
 
 @pytest.mark.cuda

@@ -100,6 +100,30 @@ def test_kernel_a_dispatch(scene, accel_, want):
     assert got == want
 
 
+@pytest.mark.parametrize("scene, transport", [
+    (lambda: _scene("Cornell_Box", fog=Fog(density=0.15)), "reference"),
+    (lambda: _scene("lights:16", light_sample="power"), "reference"),
+    (lambda: _scene("showcase"), "mis")], ids=["fog", "manylights_one",
+                                                "showcase_mis"])
+def test_kernel_a_dispatch_at_the_xt_scenes(scene, transport):
+    """Kernel A's XT main-path scenes take the thread per pixel at the XT
+    gates (held to its residency bound on the card), no grouped entry:
+    base_kernel sends them to base_kernel_xt, which counts no launch on
+    the CPU and returns the plain version's outputs."""
+    tr = PathTracer(scene(), "cpu", transport=transport)
+    assert kernels._kind(tr) == "xt" and tr.chunk_base is None
+    assert not kernels.takes_grouped(tr, "base")
+    assert "xt" not in kernels.GROUPED_BASE
+    counts = (kernels.base_kernel.launches, kernels.base_kernel_xt.launches)
+    got = kernels.base_kernel(tr, POSE, SEED, 0)
+    want = kernels.base_kernel_plain(tr, POSE, SEED, 0)
+    for a, b in zip((*got.csum, got.rays, got.var, got.state),
+                    (*want.csum, want.rays, want.var, want.state)):
+        assert torch.equal(a, b)
+    assert (kernels.base_kernel.launches,
+            kernels.base_kernel_xt.launches) == counts
+
+
 def test_grouped_kernel_a_wrappers_refuse_what_they_do_not_serve():
     big = PathTracer(_scene("icosphere:4"), "cpu", accel="baked")
     grid_big = PathTracer(_scene("icosphere:4"), "cpu", accel="grid")
@@ -388,3 +412,31 @@ def test_over_the_budget_takes_the_thread_per_pixel_grid_entry(cuda_device):
     assert torch.equal(kc, pc)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.base_kernel_grid_grouped(tr, POSE, SEED, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("region", [(0, None, None), (8, 8, None),
+                                    (0, None, 2)],
+                         ids=["whole", "rows8-16", "quota2"])
+def test_xt_kernel_a_bound_and_unbound_match_plain_version(cuda_device,
+                                                            region):
+    """Kernel A at the XT gates in fog (Cornell_Box 64x16) through
+    base_kernel, held to its residency bound, and unbound (csrc/
+    group_tune.cu at its defaults): each against the plain version bit for
+    bit, its lane-iterations the plain model at K = 1."""
+    tr = PathTracer(load_scene("Cornell_Box").with_overrides(
+        width=64, height=16, samples_per_pixel=16, max_depth=8,
+        fog=Fog(density=0.15)), cuda_device)
+    assert kernels.load_kernels().trt_kernel_base_xt_min_blocks() > 0
+    unbound = build.load_kernels(((build.TUNE_SOURCE, (
+        "TRT_TUNE_K=1", "TRT_TUNE_MIN_BLOCKS=0")),))
+    assert unbound.trt_kernel_base_xt_min_blocks() == 0
+    n0 = kernels.base_kernel_xt.launches
+    k = kernels.base_kernel(tr, POSE, SEED, 0, *region)
+    assert kernels.base_kernel_xt.launches == n0 + 1
+    u = kernels._launch_base(tr, POSE, SEED, 0, *region, "xt", unbound)
+    p = kernels.base_kernel_plain(tr, POSE, SEED, 0, *region)
+    it = kernels.base_entry_iters(tr, POSE, SEED, 0, *region)
+    for got in (k, u):
+        _bits_equal(got, p)
+        assert float(got.iters) == float(kernels.warp_iters(it, 1))

@@ -321,7 +321,7 @@ def test_kernel_b_dispatch(scene, accel_, want):
     its GroupSpill form), grid tracers theirs where what they stage fits
     the budget (the grid's group table counted), the thread-per-entry one
     above it; EXT and gathered keep theirs; the chunked kernel A's grouped
-    entry stays at the reference gates."""
+    entry serves the reference and XT gates over the table sweep."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     table = tr.tables.acc.numel() if kind == "grid" else 0
@@ -333,7 +333,7 @@ def test_kernel_b_dispatch(scene, accel_, want):
         "extra_kernel" + ("" if kind == "ref" else f"_{kind}"))
     assert got == want
     assert kernels.takes_grouped(tr, "chunked") == (
-        kind == "ref" and grouped)
+        kind in ("ref", "xt") and grouped)
 
 
 def _stream(tr, budget=2.0):

@@ -1,4 +1,4 @@
-"""The grouped kernel B (reference and XT gates) and chunked kernel A for
+"""The grouped kernel B and chunked kernel A (reference and XT gates) for
 tables of any size: csrc/group.cuh GroupSpill, which stages the rows that
 fit a stage cap and reads the rest through L1.
 
@@ -7,18 +7,21 @@ staged split (a hypothesis property: every row staged or spilled exactly
 once, the staged bytes within the cap, the counts the greedy formula's),
 the C entry points' arities against the loader's, the dispatch (icosphere:4,
 240 KB of rows, now takes the grouped entries of kernel B and the chunked
-kernel A, which pass it on to their GroupSpill forms; kernel A and the
-grid kernels keep refusing it) and the sorted frame at icosphere:4 through
-those wrappers (their plain versions here) against the JAX oracle: rays
-and samples exact, radiance within rtol 1e-4 / atol 1e-5 but for the
-knife-edge pixels of tests/test_torch_scale.py (the sphere light's NEE
-self-shadow; in fog also an ulp of XLA-CPU's transcendentals moving a
-direction, tests/test_torch_medium.py).
+kernel A, plain and in fog, which pass it on to their GroupSpill forms;
+kernel A and the grid kernels keep refusing it) and the sorted frame at
+icosphere:4, and in fog under --mis at Cornell_Box (the chunked XT kernel
+A within the budget), through those wrappers (their plain versions here)
+against the JAX oracle: rays and samples exact, radiance within rtol 1e-4
+/ atol 1e-5 but for the knife-edge pixels of tests/test_torch_scale.py
+(the sphere light's NEE self-shadow; in fog also an ulp of XLA-CPU's
+transcendentals moving a direction, tests/test_torch_medium.py).
 
 The `cuda` tests hold the GroupSpill entries bit for bit against their
 plain versions and the thread-per-entry entries on the card, with their
 lane-iterations equal to the plain model at their group width: the
-render libraries' entries at icosphere:4, and libraries of
+render libraries' entries at icosphere:4 (and the chunked XT kernel A's
+grouped entry in fog at Cornell_Box and under --mis at stress:64, its
+GroupSpill form at icosphere:4), and libraries of
 csrc/group_tune.cu built with a stage cap of 0 bytes (every row read
 through L1) and of 168 bytes (Cornell_Box: triangles and spheres staged,
 planes split; icosphere:1: triangles split; stress:64: spheres split).
@@ -123,12 +126,13 @@ def test_entry_points_take_the_pointers_the_loader_declares(src):
 @pytest.mark.parametrize("name, fog, accel_, extra, chunked", [
     ("icosphere:4", False, "auto", True, True),
     ("icosphere:5", False, "auto", True, True),
-    ("icosphere:4", True, "auto", True, False),
+    ("icosphere:4", True, "auto", True, True),
     ("icosphere:4", False, "grid", False, False),
-    ("icosphere:3", False, "auto", True, True)])
+    ("icosphere:3", False, "auto", True, True),
+    ("stress:64", True, "auto", True, True)])
 def test_grouped_entries_serve_tables_of_any_size(name, fog, accel_, extra,
                                                   chunked):
-    """Kernel B at the reference and XT gates and the chunked kernel A take
+    """Kernel B and the chunked kernel A at the reference and XT gates take
     their grouped entries whatever the table's size; the grid's stay within
     the budget, and kernel A above it takes the thread per pixel."""
     over = {"fog": Fog(density=0.15)} if fog else {}
@@ -136,7 +140,7 @@ def test_grouped_entries_serve_tables_of_any_size(name, fog, accel_, extra,
     assert kernels.takes_grouped(tr) is extra
     assert kernels.takes_grouped(tr, "chunked") is chunked
     over_budget = kernels.group_smem_bytes(tr) > kernels.GROUP_SMEM_BYTES
-    assert over_budget is (name != "icosphere:3")
+    assert over_budget is (name in ("icosphere:4", "icosphere:5"))
     assert not kernels.takes_grouped(tr, "base") or not over_budget
 
 
@@ -188,6 +192,48 @@ def test_spill_wrappers_take_the_plain_versions_on_the_cpu(fn, fog):
             kernels.extra_kernel_xt_grouped_spill.launches) == counts
 
 
+@pytest.mark.parametrize("fn", [kernels.base_kernel_chunked_xt_grouped,
+                                kernels.base_kernel_chunked_xt_grouped_spill])
+def test_chunked_xt_wrappers_refuse_other_instantiations(fn):
+    """The chunked XT kernel A's grouped wrappers take XT tracers over the
+    table sweep alone: not the reference gates, EXT, or an XT tracer under
+    `--accel grid`, within or over the budget."""
+    fog = Fog(density=0.15)
+    for tr in (PathTracer(_scene("icosphere:4"), "cpu"),
+               PathTracer(_scene("stress:64"), "cpu"),
+               PathTracer(_scene("showcase"), "cpu"),
+               PathTracer(_scene("icosphere:4", fog=fog), "cpu",
+                          accel="grid"),
+               PathTracer(_scene("stress:64", fog=fog), "cpu",
+                          accel="grid")):
+        with pytest.raises(ValueError, match="instantiation"):
+            fn(tr, POSE, SEED, 0)
+
+
+@pytest.mark.parametrize("fn", [kernels.base_kernel_chunked,
+                                kernels.base_kernel_chunked_xt,
+                                kernels.base_kernel_chunked_xt_grouped,
+                                kernels.base_kernel_chunked_xt_grouped_spill])
+def test_chunked_xt_wrappers_take_the_plain_version_on_the_cpu(fn):
+    """On the CPU every wrapper of the chunked XT kernel A, from the
+    dispatch down to the GroupSpill form, returns the plain version's
+    outputs and counts no launch."""
+    tr = PathTracer(_scene("icosphere:2", fog=Fog(density=0.15)), "cpu",
+                    transport="mis", chunk_base=2)
+    assert kernels.takes_grouped(tr, "chunked")
+    wrappers = (kernels.base_kernel_chunked, kernels.base_kernel_chunked_xt,
+                kernels.base_kernel_chunked_xt_grouped,
+                kernels.base_kernel_chunked_xt_grouped_spill)
+    counts = [w.launches for w in wrappers]
+    got = fn(tr, POSE, SEED, 0)
+    want = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
+    for a, b in zip((*got.csum, *got.csumsq, got.rays, got.state),
+                    (*want.csum, *want.csumsq, want.rays, want.state)):
+        assert torch.equal(a, b)
+    assert float(got.rays.sum()) > 0
+    assert [w.launches for w in wrappers] == counts
+
+
 def test_chunked_spill_wrapper_takes_the_plain_version_on_the_cpu():
     tr = PathTracer(_scene("icosphere:2"), "cpu", chunk_base=2)
     n0 = kernels.base_kernel_chunked_grouped_spill.launches
@@ -231,13 +277,44 @@ def test_over_budget_frame_matches_jax_oracle(fog):
     over = {"fog": Fog(density=0.15)} if fog else {}
     tr = PathTracer(_scene("icosphere:4", **over), "cpu")
     assert kernels.takes_grouped(tr)
-    assert kernels.takes_grouped(tr, "chunked") is not fog
+    assert kernels.takes_grouped(tr, "chunked")
     assert (tr.chunk_base, tr.chunk_extra) == (jt.chunk_base, jt.chunk_extra)
     cur, _var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
         POSE, SEED, 0)
     assert float(rays) == float(jrays)
     np.testing.assert_array_equal(tot.numpy(), jtot)
     assert (jtot > tr.base_samples).any()
+    assert _off(np.stack([c.numpy() for c in cur]), np.stack(jcur)) \
+        <= KNIFE_EDGE
+
+
+def test_xt_chunked_frame_within_the_budget_matches_jax_oracle():
+    """The sorted frame at Cornell_Box in fog under --mis with chunks of 2
+    (16x8, 8 spp, depth 3), through base_kernel_chunked_xt_grouped and
+    extra_kernel_xt_grouped as the card dispatches them (their plain
+    versions here), against the JAX package's render_frame with the same
+    chunks: rays and samples exact, radiance within the tolerance but for
+    knife edges."""
+    import jax
+
+    from terminal_raytracer_tpu.models import load_scene as jload
+    from terminal_raytracer_tpu.models.scene import Fog as JFog
+    from terminal_raytracer_tpu.ops import tracer as jtracer
+
+    size = dict(width=16, height=8, samples_per_pixel=8, max_depth=3)
+    jt = jtracer.PathTracer(jload("Cornell_Box").with_overrides(
+        **size, fog=JFog(density=0.15)), transport="mis", chunk_base=2,
+        chunk_extra=2)
+    jcur, _jvar, jtot, jrays = jax.device_get(jax.jit(jt.render_frame)(
+        POSE, np.uint32(SEED), np.int32(0)))
+    tr = PathTracer(_scene("Cornell_Box", fog=Fog(density=0.15)), "cpu",
+                    transport="mis", chunk_base=2, chunk_extra=2)
+    assert kernels.takes_grouped(tr, "chunked") and kernels.takes_grouped(tr)
+    assert not kernels._over_budget(tr)
+    cur, _var, tot, rays, _ = kernels.make_sorted_render_frame(tr)(
+        POSE, SEED, 0)
+    assert float(rays) == float(jrays)
+    np.testing.assert_array_equal(tot.numpy(), jtot)
     assert _off(np.stack([c.numpy() for c in cur]), np.stack(jcur)) \
         <= KNIFE_EDGE
 
@@ -293,25 +370,33 @@ def _held_b(tr, kind, lib=None):
 
 
 def _held_chunked(tr, lib=None):
-    """The chunked kernel A's GroupSpill form (from `lib`, else through
-    base_kernel_chunked) and the thread-per-entry entry against the plain
-    version, bit for bit."""
+    """The chunked kernel A's grouped entry of `tr`'s instantiation ('ref'
+    or 'xt'): its GroupSpill form from `lib`, else the entry that
+    base_kernel_chunked takes (GroupSpill over the budget, GroupSweep
+    within it); and the thread-per-entry entry, each against the plain
+    version bit for bit."""
+    kind = kernels._kind(tr)
+    spill = lib is not None or kernels._over_budget(tr)
+    form = ("grouped" if kind == "ref" else "xt_grouped") + (
+        "_spill" if spill else "")
     if lib is None:
-        n0 = kernels.base_kernel_chunked_grouped_spill.launches
+        wrapper = getattr(kernels, f"base_kernel_chunked_{form}")
+        n0 = wrapper.launches
         g = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
-        assert kernels.base_kernel_chunked_grouped_spill.launches == n0 + 1
+        assert wrapper.launches == n0 + 1
     else:
-        g = kernels._launch_chunked(tr, POSE, SEED, 0, 0, None,
-                                    "grouped_spill", lib)
-    th = kernels._launch_chunked(tr, POSE, SEED, 0, 0, None, "ref")
+        g = kernels._launch_chunked(tr, POSE, SEED, 0, 0, None, form, lib)
+    th = kernels._launch_chunked(tr, POSE, SEED, 0, 0, None, kind)
     p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
     it = kernels.chunked_entry_iters(tr, POSE, SEED, 0)
     for got in (g, th):
         for x, y in zip((*got.csum, *got.csumsq, got.rays, got.state),
                         (*p.csum, *p.csumsq, p.rays, p.state)):
             assert torch.equal(_bits(x), _bits(y))
+    name = ("chunked" if kind == "ref" else "chunked_xt") + (
+        "_spill" if spill else "")
     assert float(g.iters) == float(kernels.warp_iters(
-        it, kernels.group_k("chunked_spill", lib)))
+        it, kernels.group_k(name, lib)))
     assert float(th.iters) == float(kernels.warp_iters(it, 1))
 
 
@@ -327,6 +412,22 @@ def test_spill_entries_match_plain_versions_over_the_budget(cuda_device):
     fog = PathTracer(_card_scene("icosphere:4", fog=Fog(density=0.15)),
                      cuda_device)
     _held_b(fog, "xt_grouped_spill")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, over, transport", [
+    ("Cornell_Box", {}, "reference"), ("stress:64", {}, "mis"),
+    ("icosphere:4", {}, "reference")])
+def test_chunked_xt_entries_match_plain_versions(cuda_device, name, over,
+                                                 transport):
+    """The chunked XT kernel A in fog (chunks of 2) through the wrapper:
+    its grouped entry at Cornell_Box and stress:64 (under --mis), its
+    GroupSpill form at icosphere:4, beside the thread per entry."""
+    tr = PathTracer(_card_scene(name, fog=Fog(density=0.15), **over),
+                    cuda_device, transport=transport, chunk_base=2,
+                    chunk_extra=2)
+    assert kernels._over_budget(tr) is (name == "icosphere:4")
+    _held_chunked(tr)
 
 
 @pytest.fixture(scope="module")
@@ -356,3 +457,6 @@ def test_every_split_point_matches_plain_versions(cuda_device, split_libs,
     fog = PathTracer(_card_scene(name, fog=Fog(density=0.15)), cuda_device,
                      transport="mis")
     _held_b(fog, "xt_grouped_spill", lib)
+    _held_chunked(PathTracer(_card_scene(name, fog=Fog(density=0.15)),
+                             cuda_device, transport="mis", chunk_base=2,
+                             chunk_extra=2), lib)

@@ -497,6 +497,27 @@ def test_shard_without_a_process_group_is_refused(capsys):
     assert cli.main(CLI_ARGS + ["--shard", "px:1"]) == 2
 
 
+def test_make_mesh_asks_for_the_card_by_default(tmp_path):
+    """Without a device, make_mesh builds its mesh on the card: on a
+    one-rank gloo group it refuses with the CUDA path's message (a mesh on
+    CUDA devices reduces over nccl), and with device='cpu' it accepts."""
+    import torch.distributed as dist
+
+    from terminal_raytracer_tpu_torch.parallel import mesh as pm
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        with pytest.raises(ValueError, match="reduces over nccl, not gloo"):
+            pm.make_mesh(1)
+        mesh = pm.make_mesh(1, device="cpu")
+        assert mesh.device == torch.device("cpu")
+        assert (mesh.n_px, mesh.n_sp) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------ kernel A with a runtime quota
 
 
