@@ -76,13 +76,19 @@ Phases, each reported on lines starting with its tag:
             equal; radiance within 5e-3); the EXT kernels on Cornell_Box
             against the reference kernels, bit for bit; Engine at each
             extension scene's full size, at stress:1024 with a checker
-            floor (chunked) and at showcase --animate orbit, and the
-            device busy share of a profiled showcase and textured run;
-            an animated showcase frame against the plain pipeline;
-            cli.main on showcase; then each EXT kernel against its plain
-            version at the main path's shapes (the five scenes at
-            400x200, the checker stress:1024 at 200x100), timed at the
-            showcase, textured and checker stress:1024 shapes
+            floor (chunked), at icosphere:4 with a checker floor (rows
+            over the budget: the GroupSpill form of the EXT kernel B) and
+            at showcase --animate orbit, and the device busy share of a
+            profiled showcase and textured run; an animated showcase
+            frame against the plain pipeline; cli.main on showcase; then
+            each EXT kernel against its plain version at the main path's
+            shapes (the five scenes at 400x200, the checker stress:1024
+            at 200x100), kernel B in both forms (the grouped entry, which
+            the wrapper takes, and the thread per entry), bit for bit with
+            their lane-iterations the plain model's, timed side by side at
+            the showcase, textured and checker stress:1024 shapes and, its
+            GroupSpill form, at the checker icosphere:4 shapes; the
+            showcase sorted frame through both forms in turns
   [xt]      the transport and camera extensions (XT kernels): each XT
             kernel against its plain version at the main path's shapes:
             the JAX bench's fog (Cornell_Box 400x200, 16 spp, depth 32,
@@ -116,7 +122,9 @@ Phases, each reported on lines starting with its tag:
             in both forms (the grouped entry, which the wrapper takes, and
             the thread-per-entry entry) bit for bit, both counters equal
             to the plain version's, both lane-iterations equal to the
-            plain model, timed side by side; the grid kernel A likewise in
+            plain model, timed side by side; the gathered kernel B
+            likewise (the grouped entry over csrc/group.cuh GroupWalk, at
+            stress1024 and mesh1280); the grid kernel A likewise in
             both forms (grouped, which the wrapper takes, and thread per
             pixel), with its schedule and occupancy; Engine at stress256,
             stress1024 and mesh1280 under baked, auto (array), grid and
@@ -128,7 +136,9 @@ Phases, each reported on lines starting with its tag:
             there), with each traversal's counters over the warm-up frame;
             the
             stress1024 grid frame through both forms of every kernel, and
-            of kernel A alone, in turns; cli.main with --accel grid and
+            of kernel A alone, in turns, and the stress1024 and mesh1280
+            gathered frames through both forms of kernel B in turns;
+            cli.main with --accel grid and
             --accel gathered; and at the stress1024 shapes
             a frame through the grid kernels beside one through the XT
             kernels over the blocked scene's dense table sweep (the JAX
@@ -204,8 +214,11 @@ kernel_base_chunked_grouped_spill and kernel_base_chunked_xt_grouped_spill
 at mesh5120 (in fog), their errors including the split-point libraries';
 kernel_base_chunked_xt_grouped at the stress:1024 fog --mis shapes;
 the EXT rows at the showcase and
-stress:1024-checker shapes; the other XT rows at the fog and stress:1024
-fog shapes; the other grid and gathered rows at the stress1024 shapes, their
+stress:1024-checker shapes (the thread-per-entry kernel_extra_ext
+launched directly, OFF_PATH; kernel_extra_ext_grouped_spill at the
+checker icosphere:4 shapes); the other XT rows at the fog and stress:1024
+fog shapes; the other grid and gathered rows at the stress1024 shapes (the
+thread-per-entry kernel_extra_gathered launched directly, OFF_PATH), their
 operations the slab tests, walk steps and primitive tests that the plain
 traversal counts; the regen and lockstep rows at their first [sched]
 config, the plain version's operations over the whole frame, 24 bytes
@@ -499,7 +512,9 @@ def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters,
             else "thread-per-entry")
     staged = (f"{kernels.group_smem_bytes(tr)} B of "
               f"{kernels.GROUP_SMEM_BYTES}")
-    if kind.endswith("_spill"):
+    if kind == "extra_gathered":
+        staged = "nothing (GroupWalk reads rows and CSR through L1)"
+    elif kind.endswith("_spill"):
         cap = kernels.group_cap(kind)
         rows = kernels.group_stage(*tr.tables.counts[:3], cap)
         staged = (f"{kernels.stage_bytes(rows)} B of {cap} (triangles, "
@@ -954,7 +969,8 @@ def phase_thread_per_entry(peak):
 # serve their instantiations at every table size): held bit for bit and
 # timed beside their GroupSpill forms in [thread], launched directly, so
 # their main-path launches are 0, and a launch there fails the run.
-OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_base_chunked",
+OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
+            "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
@@ -966,6 +982,8 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_chunked_xt_grouped",
                 "base_kernel_chunked_xt_grouped_spill",
                 "extra_kernel_grouped_spill", "extra_kernel_xt_grouped_spill",
+                "extra_kernel_ext_grouped", "extra_kernel_ext_grouped_spill",
+                "extra_kernel_gathered_grouped",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
@@ -982,10 +1000,13 @@ def _sfx(tr) -> str:
 
 def _spill(tr) -> str:
     """The suffix of a grouped wrapper's GroupSpill form, which takes
-    tracer `tr` where its rows exceed the grouped kernels' budget."""
+    tracer `tr` where its rows exceed the grouped kernels' budget (the
+    instantiations with one: the walk reads its rows through L1 at every
+    size)."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
-    return ("_spill" if kernels.group_smem_bytes(tr) > kernels.GROUP_SMEM_BYTES
+    return ("_spill" if kernels._kind(tr) in kernels.SPILL_EXTRA
+            and kernels.group_smem_bytes(tr) > kernels.GROUP_SMEM_BYTES
             else "")
 
 
@@ -1333,12 +1354,13 @@ def _bright_sky(scene, intensity=8.0):
         scene, sky=dataclasses.replace(scene.sky, intensity=intensity))
 
 
-def _checker_stress():
-    """stress:1024 with a checker floor: an extension scene at array scale,
-    where auto resolves the chunk split (the chunked EXT kernel)."""
+def _checker_stress(name="stress:1024"):
+    """stress:1024 (or `name`) with a checker floor: an extension scene at
+    array scale, where auto resolves the chunk split (the chunked EXT
+    kernel); icosphere:4's rows exceed the grouped kernels' budget."""
     import dataclasses
 
-    scene = _scene("stress:1024", 200, 100, 8, 6)
+    scene = _scene(name, 200, 100, 8, 6)
     floor = scene.planes[0]
     mat = floor.material._replace(checker_color=(0.2, 0.2, 0.25),
                                   checker_scale=1.0)
@@ -1393,14 +1415,15 @@ def _check_extra(tag, label, s, k, p, allow_empty=False, exact=False):
     return max(maxabs(x, y) for x, y in zip(ek, ep))
 
 
-def _compare_extra(tag, label, tr, k_fn, p_fn, a):
+def _compare_extra(tag, label, tr, k_fn, p_fn, a, exact=False):
     """Kernel B on the sorted stream of kernel A's output `a`, `k_fn`
     against `p_fn` (_check_extra). Returns the max abs error."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     s = kernels.sorted_stream(tr, a.state, a.additional)
     args = (tr, _pose(), s.xs, s.ys, s.state, s.add, s.samp0)
-    return _check_extra(tag, label, s, k_fn(*args), p_fn(*args))
+    return _check_extra(tag, label, s, k_fn(*args), p_fn(*args),
+                        exact=exact)
 
 
 def _device_busy(tag, label, scene, frames):
@@ -1473,7 +1496,7 @@ def phase_ext(peak):
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    err = {"a": 0.0, "b": 0.0, "c": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0, "gs": 0.0}
     # (a)
     for name, filt in [(n, None) for n in EXT_SCENES] + [("textured",
                                                           "bilinear")]:
@@ -1490,6 +1513,9 @@ def phase_ext(peak):
         err["b"] = max(err["b"], _compare_extra(
             "ext", label, tr, kernels.extra_kernel_ext,
             kernels.extra_kernel_plain, k))
+        err["g"] = max(err["g"], _compare_extra(
+            "ext", f"{label} grouped", tr, kernels.extra_kernel_ext_grouped,
+            kernels.extra_kernel_plain, k, exact=True))
     tr = PathTracer(_ext_scene("showcase", 128, 64), "cuda", chunk_base=2,
                     chunk_extra=2)
     k = kernels.base_kernel_chunked_ext(tr, pose, SEED, 0)
@@ -1516,13 +1542,15 @@ def phase_ext(peak):
                                  s.samp0)
     b_ext = kernels.extra_kernel_ext(ext, pose, s.xs, s.ys, s.state, s.add,
                                      s.samp0)
+    g_ext = kernels.extra_kernel_ext_grouped(ext, pose, s.xs, s.ys, s.state,
+                                             s.add, s.samp0)
     c_ref = kernels.base_kernel_chunked(
         PathTracer(scene, "cuda", chunk_base=2), pose, SEED, 0)
     c_ext = kernels.base_kernel_chunked_ext(with_ext(chunk_base=2), pose,
                                             SEED, 0)
     torch.cuda.synchronize()
-    same = (all(bool(torch.equal(x, y)) for x, y in zip(b_ext[0], b_ref[0]))
-            and bool(torch.equal(b_ext[1], b_ref[1])))
+    same = all(all(bool(torch.equal(x, y)) for x, y in zip(b[0], b_ref[0]))
+               and bool(torch.equal(b[1], b_ref[1])) for b in (b_ext, g_ext))
     same_c = (all(bool(torch.equal(getattr(c_ext, f), getattr(c_ref, f)))
                   for f in ("rays", "state"))
               and all(bool(torch.equal(x, y)) for x, y in
@@ -1532,7 +1560,8 @@ def phase_ext(peak):
                  zip((*a_ext.csum, *a_ext.csumsq),
                      (*a_ref.csum, *a_ref.csumsq)))
     print(f"[ext] Cornell_Box: EXT kernels bit-equal to the reference "
-          f"kernels: A {bits_a}, B {same}, chunked A {same_c}", flush=True)
+          f"kernels: A {bits_a}, B (both forms) {same}, chunked A {same_c}",
+          flush=True)
     if not (bits_a and same and same_c):
         fail("[ext] the EXT kernels change a reference scene")
 
@@ -1542,6 +1571,9 @@ def phase_ext(peak):
         _add(launches, _run_engine("ext", name, _ext_scene(name), True, 8))
     _add(launches, _run_engine("ext", "stress1024 checker floor",
                                _checker_stress(), True, 8))
+    # Rows over the budget: the GroupSpill form of the EXT kernel B.
+    _add(launches, _run_engine("ext", "mesh5120 checker floor",
+                               _checker_stress("icosphere:4"), True, 4))
     _add(launches, _run_engine("ext", "showcase", _ext_scene("showcase"),
                                True, 8, "orbit"))
     for name in ("showcase", "textured"):  # outside the counted runs
@@ -1561,12 +1593,46 @@ def phase_ext(peak):
           f"{_nonzero(got)}",
           flush=True)
     if rc != 0 or got != dict(dict.fromkeys(LAUNCH_NAMES, 0),
-                              base_kernel_ext=2, extra_kernel_ext=2):
+                              base_kernel_ext=2, extra_kernel_ext_grouped=2):
         fail("[ext] cli.main run failed")
     _add(launches, got)
 
     # (f) At the main path's shapes. envmap's own sky budgets no pixel
-    # (see _bright_sky), so its kernel B stream is empty there.
+    # (see _bright_sky), so its kernel B stream is empty there. Kernel B in
+    # both forms: the grouped entry, which the wrapper takes, and the
+    # thread per entry, launched directly, each bit for bit with its
+    # lane-iterations the plain model's.
+    def both_b(label, tr, s, pb, timed):
+        """The EXT kernel B's grouped entry (through extra_kernel) and thread
+        per entry on the sorted stream `s` against the plain version's
+        `pb`, bit for bit; timed side by side where `timed`. Returns
+        (errors, ms) by form."""
+        args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        name = "extra_ext" + _spill(tr)
+        wrapper = getattr(kernels, "extra_kernel_ext_grouped" + _spill(tr))
+        n0 = wrapper.launches
+        g = kernels.extra_kernel(*args)
+        if wrapper.launches != n0 + 1:
+            fail(f"[ext] {label}: the wrapper took no grouped EXT kernel B")
+        t = kernels.extra_kernel_ext(*args)
+        allow = label.startswith("envmap")
+        errs = {"grouped": _check_extra("ext", f"{label} grouped", s, g, pb,
+                                        allow_empty=allow, exact=True),
+                "thread": _check_extra("ext", f"{label} thread per entry", s,
+                                       t, pb, allow_empty=allow, exact=True)}
+        it = kernels.extra_entry_iters(*args)
+        _iters_model("ext", f"{label} grouped", g[2], it,
+                     kernels.group_k(name))
+        _iters_model("ext", f"{label} thread per entry", t[2], it, 1)
+        if not timed:
+            return errs, None
+        ms = {"grouped": _time_cuda(lambda: kernels.extra_kernel(*args), 5),
+              "thread": _time_cuda(lambda: kernels.extra_kernel_ext(*args),
+                                   5)}
+        _grouped_vs_thread("ext", f"{label} shapes", name, tr,
+                           ms["grouped"], ms["thread"], it)
+        return errs, ms
+
     results = {}
     for name in EXT_SCENES:
         tr = PathTracer(_ext_scene(name), "cuda")
@@ -1575,34 +1641,34 @@ def phase_ext(peak):
         a = kernels.base_kernel_ext(tr, pose, SEED, 0)
         s = kernels.sorted_stream(tr, a.state, a.additional)
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
-        b = kernels.extra_kernel_ext(*args)
         if timed:
             ms_a = _time_cuda(
                 lambda: kernels.base_kernel_ext(tr, pose, SEED, 0), 5)
             plain_a, ops_a, pa = _time_plain(
                 tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0))
-            ms_b = _time_cuda(lambda: kernels.extra_kernel_ext(*args), 5)
             plain_b, ops_b, pb = _time_plain(
                 tr, lambda: kernels.extra_kernel_plain(*args))
         else:
             pa = kernels.base_kernel_plain(tr, pose, SEED, 0)
             pb = kernels.extra_kernel_plain(*args)
         err["a"] = max(err["a"], _compare_base("ext", label, a, pa))
-        err["b"] = max(err["b"], _check_extra(
-            "ext", label, s, b, pb, allow_empty=name == "envmap"))
+        errs, ms = both_b(label, tr, s, pb, timed)
+        err["b"] = max(err["b"], errs["thread"])
+        err["g"] = max(err["g"], errs["grouped"])
         if not timed:
             continue
         fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
         bound_a = _bound(ops_a, fixed + 44 * a.var.numel(), peak)
         bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
-        results[name] = (ms_a, plain_a, bound_a, ms_b, plain_b, bound_b)
+        results[name] = (ms_a, plain_a, bound_a, ms, plain_b, bound_b)
         print(f"[ext] {name} 400x200 shapes: kernel_base_ext {ms_a:.3f} ms "
               f"(plain {plain_a:.1f} ms, bound {bound_a[0]:.4f} ms by "
               f"{bound_a[1]}: {ops_a:.4g} FP32 test operations), "
-              f"kernel_extra_ext {ms_b:.3f} ms on {int((s.add > 0).sum())} "
-              f"budgeted of {s.add.numel()} entries (plain {plain_b:.1f} ms, "
-              f"bound {bound_b[0]:.4f} ms by {bound_b[1]}: {ops_b:.4g} "
-              "operations)", flush=True)
+              f"kernel_extra_ext_grouped {ms['grouped']:.3f} ms, "
+              f"kernel_extra_ext {ms['thread']:.3f} ms on "
+              f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries "
+              f"(plain {plain_b:.1f} ms, bound {bound_b[0]:.4f} ms by "
+              f"{bound_b[1]}: {ops_b:.4g} operations)", flush=True)
     big = PathTracer(_checker_stress(), "cuda")
     kc = kernels.base_kernel_chunked_ext(big, pose, SEED, 0)
     ms = _time_cuda(lambda: kernels.base_kernel_chunked_ext(big, pose, SEED,
@@ -1619,10 +1685,41 @@ def phase_ext(peak):
           f"kernel_base_chunked_ext {ms:.3f} ms (plain {plain_ms:.1f} ms, "
           f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
           flush=True)
+    # Kernel B in both forms at the checker stress1024 shapes (its grouped
+    # entry over GroupSweep) and at the checker mesh5120 shapes, whose rows
+    # exceed the budget (the GroupSpill form).
+    spill_row = None
+    for label, tr in (("stress1024 checker floor", big),
+                      ("mesh5120 checker floor",
+                       PathTracer(_checker_stress("icosphere:4"), "cuda"))):
+        ph = kernels.base_phase(tr, pose, SEED, 0)
+        s = kernels.sorted_stream(tr, ph[2], ph[7])
+        args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+        plain_b, ops_b, pb = _time_plain(
+            tr, lambda: kernels.extra_kernel_plain(*args))
+        errs, ms_b = both_b(label, tr, s, pb, True)
+        key = "gs" if _spill(tr) else "g"
+        err[key] = max(err[key], errs["grouped"])
+        err["b"] = max(err["b"], errs["thread"])
+        bound_b = _bound(ops_b, 4 * (tr.tables.buf.numel()
+                                     + tr.atlas.numel())
+                         + 40 * s.add.numel(), peak)
+        print(f"[ext] {label} shapes: kernel_extra_ext_grouped"
+              f"{_spill(tr)} {ms_b['grouped']:.3f} ms, kernel_extra_ext "
+              f"{ms_b['thread']:.3f} ms on {int((s.add > 0).sum())} "
+              f"budgeted of {s.add.numel()} entries (plain {plain_b:.1f} ms, "
+              f"bound {bound_b[0]:.4f} ms by {bound_b[1]}: {ops_b:.4g} "
+              "operations)", flush=True)
+        if key == "gs":
+            spill_row = (ms_b["grouped"], plain_b, bound_b)
+    # The showcase sorted frame through both forms of kernel B in turns.
+    _frames_grouped_vs_thread("ext", "showcase", _ext_scene("showcase"))
     # The kernels line keeps showcase's times.
     ms_a, plain_a, bound_a, ms_b, plain_b, bound_b = results["showcase"]
     return launches, {"a": (err["a"], ms_a, plain_a, bound_a),
-                      "b": (err["b"], ms_b, plain_b, bound_b),
+                      "b": (err["b"], ms_b["thread"], plain_b, bound_b),
+                      "g": (err["g"], ms_b["grouped"], plain_b, bound_b),
+                      "gs": (err["gs"], *spill_row),
                       "c": (err["c"], ms, plain_ms, bound)}
 
 
@@ -1971,7 +2068,7 @@ def phase_accel(peak):
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    res = {}
+    res, err_gs = {}, {}
     for label, name, accel in ACCEL_KERNELS:
         tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda", accel=accel)
         wrap_a = getattr(kernels, f"base_kernel_{accel}")
@@ -2014,25 +2111,25 @@ def phase_accel(peak):
         if err_a != 0.0 or err_b != 0.0:
             fail(f"[accel] {tag}: a kernel is not bit-exact against its "
                  "plain version")
-        if accel == "grid":
-            # Kernel B's grouped entry, which the wrapper takes: bit for
-            # bit, its counters the plain version's and the thread-per-
-            # entry entry's, its lane-iterations the plain model's.
-            n0 = kernels.extra_kernel_grid_grouped.launches
-            g, gc = _counted_launch(tr, lambda: kernels.extra_kernel(*args))
-            if kernels.extra_kernel_grid_grouped.launches != n0 + 1:
-                fail(f"[accel] {tag}: the wrapper took no grouped kernel B")
-            err_g = _check_extra("accel", f"{tag} grouped", s, g, pb,
-                                 exact=True)
-            _check_counts(f"{tag} grouped kernel B", gc, pc[0])
-            _check_counts(f"{tag} grouped against thread-per-entry kernel B",
-                          gc, kc)
-            it = kernels.extra_entry_iters(*args)
-            _iters_model("accel", tag, g[2], it, kernels.group_k("extra_grid"))
-            _iters_model("accel", tag, b[2], it, 1)
-            ms_g = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
-            _grouped_vs_thread("accel", f"{tag} shapes", "extra_grid", tr,
-                               ms_g, ms_b, it)
+        # Kernel B's grouped entry, which the wrapper takes (GroupCulled,
+        # GroupWalk): bit for bit, its counters the plain version's and the
+        # thread-per-entry entry's, its lane-iterations the plain model's.
+        wrapper = kernels.GROUPED_EXTRA[accel]
+        n0 = wrapper.launches
+        g, gc = _counted_launch(tr, lambda: kernels.extra_kernel(*args))
+        if wrapper.launches != n0 + 1:
+            fail(f"[accel] {tag}: the wrapper took no grouped kernel B")
+        err_g = _check_extra("accel", f"{tag} grouped", s, g, pb, exact=True)
+        err_gs[accel] = max(err_gs.get(accel, 0.0), err_g)
+        _check_counts(f"{tag} grouped kernel B", gc, pc[0])
+        _check_counts(f"{tag} grouped against thread-per-entry kernel B", gc,
+                      kc)
+        it = kernels.extra_entry_iters(*args)
+        _iters_model("accel", tag, g[2], it, kernels.group_k(f"extra_{accel}"))
+        _iters_model("accel", tag, b[2], it, 1)
+        ms_g = _time_cuda(lambda: kernels.extra_kernel(*args), 5)
+        _grouped_vs_thread("accel", f"{tag} shapes", f"extra_{accel}", tr,
+                           ms_g, ms_b, it)
         fixed = 4 * (tr.tables.buf.numel() + tr.atlas.numel())
         bound_b = _bound(ops_b, fixed + 40 * s.add.numel(), peak)
         print(f"[accel] {tag} shapes: {_a_name(tr)} {ms_a:.3f} ms "
@@ -2047,8 +2144,9 @@ def phase_accel(peak):
             if accel == "grid":
                 res[accel, "at"] = (err_at,)
             res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
-            if accel == "grid":
-                res[accel, "g"] = (err_g, ms_g, plain_b, bound_b)
+            res[accel, "g"] = (ms_g, plain_b, bound_b)
+    for accel in ("grid", "gathered"):
+        res[accel, "g"] = (err_gs[accel], *res[accel, "g"])
 
     _grid_vs_dense(pose)
 
@@ -2066,6 +2164,13 @@ def phase_accel(peak):
         _frames_grouped_vs_thread("accel", "stress1024 grid",
                                   _scene("stress:1024", 200, 100, 8, 6),
                                   base_only=base_only, accel="grid")
+    # The gathered frames through both forms of kernel B in turns (kernel
+    # A over the walk has one form).
+    for label, name in (("stress1024", "stress:1024"),
+                        ("mesh1280", "icosphere:3")):
+        _frames_grouped_vs_thread("accel", f"{label} gathered",
+                                  _scene(name, 200, 100, 8, 6),
+                                  accel="gathered")
     _add(launches, _run_engine("accel", "north star grid",
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
@@ -2096,9 +2201,9 @@ def phase_accel(peak):
         got = _launches()
         print(f"[accel] cli.main --scene stress:256 --accel {accel} rc {rc}, "
               f"launches {_nonzero(got)}", flush=True)
-        a, b = (f"base_kernel_{accel}", f"extra_kernel_{accel}")
+        a, b = (f"base_kernel_{accel}", f"extra_kernel_{accel}_grouped")
         if accel == "grid":
-            a, b = f"{a}_grouped", f"{b}_grouped"
+            a = f"{a}_grouped"
         want = dict(dict.fromkeys(LAUNCH_NAMES, 0), **{a: 1, b: 1})
         if rc != 0 or got != want:
             fail(f"[accel] cli.main --accel {accel} failed")
@@ -2718,8 +2823,18 @@ def main() -> int:
             # :1031 (B), pallas_kernel._tex_bind_front.
             ("kernel_base_ext", "base_kernel_ext", "kernel_base.cu", "807",
              *ext["a"]),
+            # Kernel B at the EXT gates, thread per entry (launched directly:
+            # OFF_PATH) and grouped (csrc/group.cuh over GroupSweep; entry
+            # in kernel_extra.cu) at the showcase shapes; its GroupSpill
+            # form at the checker mesh5120 shapes, where the main path
+            # takes it.
             ("kernel_extra_ext", "extra_kernel_ext", "kernel_extra.cu",
              "1031", *ext["b"]),
+            ("kernel_extra_ext_grouped", "extra_kernel_ext_grouped",
+             "group.cuh", "1031", *ext["g"]),
+            ("kernel_extra_ext_grouped_spill",
+             "extra_kernel_ext_grouped_spill", "group.cuh", "1031",
+             *ext["gs"]),
             ("kernel_base_chunked_ext", "base_kernel_chunked_ext",
              "kernel_base.cu", "807", *ext["c"]),
             # The transport and camera gates: kernel A's body is the
@@ -2777,8 +2892,14 @@ def main() -> int:
              "group.cuh", "1033", *acc["grid", "g"]),
             ("kernel_base_gathered", "base_kernel_gathered",
              "kernel_accel.cu", "808", *acc["gathered", "a"]),
+            # Kernel B over the walk, thread per entry (launched directly:
+            # OFF_PATH) and grouped (csrc/group.cuh GroupWalk; entry in
+            # kernel_accel.cu), at the stress1024 shapes, the grouped
+            # entry's error including mesh1280's.
             ("kernel_extra_gathered", "extra_kernel_gathered",
              "kernel_accel.cu", "1032", *acc["gathered", "b"]),
+            ("kernel_extra_gathered_grouped", "extra_kernel_gathered_grouped",
+             "group.cuh", "1032", *acc["gathered", "g"]),
             # The chunk-major stream (:951-970) over the traversals bound
             # at :808-809.
             ("kernel_base_chunked_grid", "base_kernel_chunked_grid",

@@ -4,10 +4,11 @@
 // kernel_base, and the chunked kernel A (kernel_base_chunked_grouped) at
 // the reference gate set over the table sweep, redesigned for the H100
 // (kernel_extra.cu, kernel_accel.cu and kernel_base.cu instantiate them
-// and say what they replace). Kernel B comes at the reference gates and at
-// the XT gates over the table sweep (GroupSweep) and over the block-culled
-// sweep of `--accel grid` (GroupCulled); kernel A at the reference gates
-// over GroupSweep and over GroupCulled.
+// and say what they replace). Kernel B comes at the reference, EXT and XT
+// gates over the table sweep (GroupSweep), over the block-culled sweep of
+// `--accel grid` (GroupCulled) and over the grid walk of `--accel
+// gathered` (GroupWalk, which splits each cell's bucket over the group);
+// kernel A at the reference gates over GroupSweep and over GroupCulled.
 //
 // What bound the thread-per-entry kernels (pipeline.cuh kernel_extra and
 // kernel_base_chunked, the case K = 1 below): the critical chain of one
@@ -775,6 +776,297 @@ struct GroupCulled {
     const bool lead = j == 0;
     flush_counts(stats, lead ? sweeps : 0u, lead ? swept : 0u, lead ? skipped : 0u,
                  lead ? tests : 0u);
+  }
+};
+
+// The row sources of GroupWalk: rows and CSR read through L1 (__ldg, nothing
+// staged); the rows that fit the stage cap staged, the CSR through L1; the
+// CSR staged where it fits the cap, then the rows that fit the rest.
+constexpr int WALK_L1 = 0, WALK_ROWS = 1, WALK_CSR = 2;
+
+// The rows GroupWalk stages under a cap of `cap` bytes: group_stage's
+// triangles (TRI_SWEEP_W words a row), then spheres, and no planes (every
+// lane tests those from the scene buffer). ops/kernels.py group_stage(n_sph,
+// 0, n_tri, cap) mirrors it.
+__host__ __device__ __forceinline__ Stage walk_stage(const Frame& f, int cap) {
+  int left = cap / 4;
+  Stage s;
+  s.n_tri = f.n_tri < left / TRI_SWEEP_W ? f.n_tri : left / TRI_SWEEP_W;
+  left -= TRI_SWEEP_W * s.n_tri;
+  s.n_sph = f.n_sph < left / SPH_W ? f.n_sph : left / SPH_W;
+  s.n_pln = 0;
+  return s;
+}
+
+// The grid walk of `--accel gathered` (traverse.cuh Walk) split across a
+// path group of K lanes: every lane makes Walk's decisions on the same
+// values, and the group splits each cell's bucket. Its hits and its four
+// counters are Walk's (and the plain version's, ops/gathered.py
+// GatheredPrims); ops/group.py split_walk_closest / split_walk_occluded are
+// its plain model.
+//  - The planes sweep first in every lane, as in Walk, and cap the walk.
+//  - Every lane computes the slab entry, the first cell and the DDA from the
+//    same ray, so each advance decision is the group's.
+//  - A cell's bucket [cur, end) is tested in windows of w = min(end - cur,
+//    K, max_trips - trips) entries: lane j < w tests entry cur + j with the
+//    running t_best at the window's start as t_max; the window is reduced by
+//    (t, then position in the bucket) over the group's lanes, and its
+//    winner, taken only when strictly below t_best, becomes the walk's.
+//    Why that is the serial walk: by the lemma of GroupSweep a test's taken
+//    t does not depend on t_max whenever it can win, so the serial walk,
+//    feeding t_best forward through the window, ends it at the first entry
+//    in bucket order of the least t below the window's starting t_best: the
+//    lexicographic minimum of (t, position). A primitive that spans cells
+//    is tested again in a later cell, as serially; the reduction is by
+//    position within one window, never by primitive index across cells (a
+//    tie across cells keeps the earlier cell's hit, strictly closer wins).
+//  - A shadow walk ballots each window; the first hit's position ends the
+//    walk and fixes its test count.
+//  - The trip cap is replayed: a window takes at most max_trips - trips
+//    tests and an advance one trip, so the group stops where Walk would.
+// The counters (walks, tests, advances, capped walks) are counted from the
+// replayed decisions, once a group, and flushed by the lead lanes.
+//
+// The row sources (SRC): WALK_L1 reads rows and CSR as Walk does; the
+// others stage in shared memory the CSR (WALK_CSR, where the offsets and
+// indices fit CAP) and the rows of walk_stage under the rest of CAP
+// (triangles plane-major as GroupSpill stages them), the rest through L1.
+// Every form serves any table size. THREADS lanes a block.
+template <int K_, int SRC_, int THREADS_ = GROUP_THREADS, int CAP_ = GROUP_SMEM_MAX>
+struct GroupWalk {
+  static constexpr int K = K_;
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  static_assert(SRC_ >= WALK_L1 && SRC_ <= WALK_CSR, "SRC: a row source");
+  static constexpr int THREADS = THREADS_;
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "THREADS: whole warps, at most 1024");
+  static constexpr int SMEM_CAP = SRC_ == WALK_L1 ? 0 : CAP_;
+  static_assert(CAP_ >= 0 && CAP_ <= GROUP_SMEM_MAX, "CAP: at most the opt-in limit");
+  static constexpr bool PREFER_L1 = true;
+  using Launch = Accel;
+  const Accel& p;
+  const int* csr;    // shared memory: the CSR offsets, then indices; or null
+  const float* tri;  // shared memory: [TRI_SWEEP_W][st.n_tri], then spheres
+  const float* sph;
+  Stage st;
+  int j;                // the lane's place in its group
+  unsigned mask, base;  // the group's lanes, its first lane
+  unsigned walks = 0, tests = 0, advances = 0, capped = 0;
+
+  // The CSR's words: n_cells + 1 offsets and the indices (Accel::n_groups
+  // holds their count under the walk).
+  static __host__ __device__ __forceinline__ int csr_words(const Accel& a) {
+    return a.dims[0] * a.dims[1] * a.dims[2] + 1 + a.n_groups;
+  }
+
+  static __host__ __device__ __forceinline__ bool csr_staged(const Accel& a) {
+    return SRC_ == WALK_CSR && 4 * csr_words(a) <= CAP_;
+  }
+
+  static __host__ __device__ __forceinline__ Stage rows_stage(const Frame& f, const Accel& a) {
+    if (SRC_ == WALK_L1) return Stage{0, 0, 0};
+    return walk_stage(f, CAP_ - (csr_staged(a) ? 4 * csr_words(a) : 0));
+  }
+
+  static __host__ __device__ __forceinline__ int smem_floats(const Frame& f, const Accel& a) {
+    return (csr_staged(a) ? csr_words(a) : 0) + stage_floats(rows_stage(f, a));
+  }
+
+  // Copy the staged CSR (its offsets and indices lie together at a.off) and
+  // rows, one 4-byte cp.async a word; then wait for them and for the block.
+  static __device__ __forceinline__ void stage(float* smem, const float* buf, const Frame& f,
+                                               const Accel& a) {
+    if (SRC_ == WALK_L1) return;
+    const int nc = csr_staged(a) ? csr_words(a) : 0;
+    const Stage s = rows_stage(f, a);
+    const int n_tri = TRI_SWEEP_W * s.n_tri;
+    const float* rows = buf + SPH_W * f.n_sph + PLN_W * f.n_pln;
+    for (int w = threadIdx.x; w < nc + stage_floats(s); w += blockDim.x) {
+      const float* src;
+      if (w < nc) {
+        src = buf + a.off + w;
+      } else if (w - nc < n_tri) {
+        const int word = (w - nc) / s.n_tri;
+        src = rows + TRI_W * (w - nc - word * s.n_tri) + word;
+      } else {
+        src = buf + (w - nc - n_tri);
+      }
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + w);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ GroupWalk(const float* smem, const Frame& f, const Accel& a)
+      : p(a), st(rows_stage(f, a)) {
+    const unsigned lane = threadIdx.x & 31u;
+    j = (int)(lane & (unsigned)(K - 1));
+    base = lane & ~(unsigned)(K - 1);
+    mask = K == 32 ? 0xffffffffu : (((1u << K) - 1u) << base);
+    const bool cs = csr_staged(a);
+    csr = cs ? reinterpret_cast<const int*>(smem) : nullptr;
+    tri = smem + (cs ? csr_words(a) : 0);
+    sph = tri + TRI_SWEEP_W * st.n_tri;
+  }
+
+  // The window's bits of a ballot over the group.
+  __device__ __forceinline__ unsigned ballot(bool v) const {
+    const unsigned b = __ballot_sync(mask, v) >> base;
+    return K == 32 ? b : b & ((1u << K) - 1u);
+  }
+
+  // Word w of the CSR (offsets from 0, indices from p.idx - p.off), staged
+  // or from g, the CSR in the scene buffer.
+  __device__ __forceinline__ int csr_at(const int* g, int w) const {
+    return SRC_ == WALK_CSR && csr != nullptr ? csr[w] : __ldg(g + w);
+  }
+
+  // The test of walk id `pid` (spheres, then triangles) in (t_min, t_max),
+  // its t in t: Walk's, on the staged rows where the primitive is staged.
+  __device__ __forceinline__ bool test(const Scene& sc, int pid, V3 o, V3 d, float t_min,
+                                       float t_max, float& t) const {
+    if (pid < sc.n_sph) {
+      if (SRC_ != WALK_L1 && pid < st.n_sph) {
+        const float* s = sph + SPH_W * pid;
+        return sphere_tv(o, d, V3{s[0], s[1], s[2]}, s[3], t_min, t_max, t);
+      }
+      return sphere_t(o, d, sc.sph + SPH_W * pid, t_min, t_max, t);
+    }
+    const int r = pid - sc.n_sph;
+    if (SRC_ != WALK_L1 && r < st.n_tri) {
+      const float* q = tri + r;
+      const int ws = st.n_tri;
+      const V3 v0{q[0], q[ws], q[2 * ws]};
+      const V3 e1{q[3 * ws], q[4 * ws], q[5 * ws]};
+      const V3 e2{q[6 * ws], q[7 * ws], q[8 * ws]};
+      return triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
+    }
+    return triangle_t(o, d, sc.tri + TRI_W * r, t_min, t_max, t);
+  }
+
+  // Walk::walk split across the group (see above): every lane ends with
+  // the walk's t_best and best.
+  template <bool ANY>
+  __device__ __forceinline__ void walk(const Scene& sc, V3 o, V3 d, float t_min, float& t_best,
+                                       int& best) {
+    ++walks;
+    const float oc[3] = {o.x, o.y, o.z}, dc[3] = {d.x, d.y, d.z};
+    float inv[3], t0 = 0.0f, t1 = BIG;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      bool par = fabsf(dc[ax]) < PAR_EPS;
+      inv[ax] = 1.0f / (par ? 1.0f : dc[ax]);
+      float a = (p.lo[ax] - oc[ax]) * inv[ax];
+      float b = (p.hi[ax] - oc[ax]) * inv[ax];
+      float a_min = fminf(a, b), a_max = fmaxf(a, b);
+      if (par) {
+        bool inside = oc[ax] >= p.lo[ax] && oc[ax] <= p.hi[ax];
+        a_min = inside ? 0.0f : BIG;
+        a_max = inside ? BIG : 0.0f;
+      }
+      t0 = fmaxf(t0, a_min);
+      t1 = fminf(t1, a_max);
+    }
+    if (!(t0 <= t1 && t0 < t_best)) return;
+    const float t_entry = fmaxf(t0, 0.0f) + ENTRY_EPS;
+    int ic[3];
+    float tm[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      float pos = oc[ax] + dc[ax] * t_entry;
+      float c = fminf(fmaxf(floorf((pos - p.lo[ax]) * p.inv_cell[ax]), 0.0f),
+                      (float)(p.dims[ax] - 1));
+      float pos_next = p.lo[ax] + (c + (dc[ax] >= 0.0f ? 1.0f : 0.0f)) * p.cell[ax];
+      ic[ax] = (int)c;
+      tm[ax] = fabsf(dc[ax]) < PAR_EPS ? BIG : fabsf((pos_next - oc[ax]) * inv[ax]);
+    }
+    // The scene buffer starts at the sphere rows.
+    const int* g = reinterpret_cast<const int*>(sc.sph + p.off);
+    const int ib = p.idx - p.off;
+    int ci = ic[0] + ic[1] * p.dims[0] + ic[2] * (p.dims[0] * p.dims[1]);
+    int cur = csr_at(g, ci), end = csr_at(g, ci + 1);
+    for (int trips = 0;;) {
+      if (trips == p.max_trips) {
+        ++capped;
+        return;
+      }
+      if (cur < end) {  // a window of the cell's next entries
+        const int w = min(min(end - cur, K), p.max_trips - trips);
+        int pid = -1;
+        bool ok = false;
+        float t = -1.0f;
+        if (j < w) {
+          pid = csr_at(g, ib + cur + j);
+          bool hit = test(sc, pid, o, d, t_min, t_best, t);
+          t = hit ? t : -1.0f;
+          ok = t > 0.0f && t < t_best;
+        }
+        if (ANY) {
+          const unsigned hits = ballot(ok);
+          if (hits != 0u) {
+            const int first = __ffs(hits) - 1;
+            tests += (unsigned)first + 1u;
+            best = __shfl_sync(mask, pid, first, K);
+            return;
+          }
+        } else {
+          float c = ok ? t : t_best;
+          int at = ok ? j : K;
+          reduce_closest<K>(mask, c, at);
+          if (at < K) {
+            best = __shfl_sync(mask, pid, at, K);
+            t_best = c;
+          }
+        }
+        tests += (unsigned)w;
+        cur += w;
+        trips += w;
+      } else {  // advance one cell along the axis of the nearest boundary
+        ++advances;
+        const int ax = tm[0] <= tm[1] && tm[0] <= tm[2] ? 0 : tm[1] <= tm[2] ? 1 : 2;
+        if (tm[ax] > t_best) return;
+        const int c2 = ic[ax] + (dc[ax] >= 0.0f ? 1 : -1);
+        if (c2 < 0 || c2 >= p.dims[ax]) return;
+        ic[ax] = c2;
+        tm[ax] = tm[ax] + fabsf(p.cell[ax] / (fabsf(dc[ax]) < PAR_EPS ? 1.0f : dc[ax]));
+        ci = ic[0] + ic[1] * p.dims[0] + ic[2] * (p.dims[0] * p.dims[1]);
+        cur = csr_at(g, ci);
+        end = csr_at(g, ci + 1);
+        ++trips;
+      }
+    }
+  }
+
+  template <bool EXT, bool XT>
+  __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+    float t_best = T_FAR, t;
+    int plane = -1, best = -1;
+    for (int i = 0; i < sc.n_pln; ++i) {
+      bool hit = plane_t(o, d, sc.pln + PLN_W * i, RAY_EPS, t_best, false, t);
+      t = hit ? t : -1.0f;
+      if (t > 0.0f && t < t_best) { t_best = t; plane = i; }
+    }
+    walk<false>(sc, o, d, RAY_EPS, t_best, best);
+    const int k = best >= 0 ? (best < sc.n_sph ? best : best + sc.n_pln)
+                            : (plane >= 0 ? sc.n_sph + plane : -1);
+    return hit_at<EXT, XT>(sc, o, d, t_best, k);
+  }
+
+  __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min, float t_max) {
+    float t;
+    for (int i = 0; i < sc.n_pln; ++i)
+      if (plane_t(o, d, sc.pln + PLN_W * i, t_min, t_max, true, t)) return true;
+    int best = -1;
+    walk<true>(sc, o, d, t_min, t_max, best);
+    return best >= 0;
+  }
+
+  // Every thread of the warp calls this; the lead lanes hold their group's
+  // counts.
+  __device__ __forceinline__ void flush() {
+    const bool lead = j == 0;
+    flush_counts(p.stats, lead ? walks : 0u, lead ? tests : 0u, lead ? advances : 0u,
+                 lead ? capped : 0u);
   }
 };
 

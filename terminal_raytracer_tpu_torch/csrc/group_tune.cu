@@ -10,6 +10,11 @@
 // the widths the render libraries ship are constants of kernel_extra.cu,
 // kernel_accel.cu and kernel_base.cu.
 //
+// The grouped kernel B at the EXT gates over GroupSweep<TRT_TUNE_K> and
+// over TuneSpill, and the grouped gathered kernel B over
+// GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK (the row source), TRT_TUNE_THREADS,
+// TRT_TUNE_STAGE_CAP> come under the render libraries' names too.
+//
 // Beside them, the forms of kernel A at the XT gates that the sweep weighs
 // against the shipped thread per pixel (ops/build.py TUNE_ONLY_ENTRY_POINTS):
 // trt_kernel_base_xt, one thread a pixel held to TRT_TUNE_MIN_BLOCKS
@@ -43,7 +48,14 @@
 #define TRT_TUNE_MIN_BLOCKS 0
 #endif
 
+// The grouped gathered kernel B's row source (group.cuh WALK_L1, WALK_ROWS,
+// WALK_CSR).
+#ifndef TRT_TUNE_WALK
+#define TRT_TUNE_WALK 0
+#endif
+
 using TuneSpill = trt::GroupSpill<TRT_TUNE_K, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
+using TuneWalk = trt::GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
 
 extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
                                         const int* ys, const long long* state_in,
@@ -170,6 +182,42 @@ extern "C" int trt_kernel_base_chunked_xt_grouped_spill(const ChunkArgs* a, cons
 
 extern "C" int trt_kernel_base_chunked_xt_grouped_spill_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_chunked_xt_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_extra_ext_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                            const float* scene_buf, const int* xs, const int* ys,
+                                            const long long* state_in, const float* add,
+                                            const int* samp0, float* out,
+                                            unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, false, trt::GroupSweep<TRT_TUNE_K>>(
+      a, *tx, trt::Xt{}, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_ext_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_extra_ext_grouped_spill(const ExtraArgs* a, const trt::Tex* tx,
+                                                  const float* scene_buf, const int* xs,
+                                                  const int* ys, const long long* state_in,
+                                                  const float* add, const int* samp0,
+                                                  float* out, unsigned long long* iters,
+                                                  void* stream) {
+  return launch_extra_grouped<true, false, TuneSpill>(a, *tx, trt::Xt{}, scene_buf, xs, ys,
+                                                      state_in, add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_ext_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_extra_ext_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_extra_gathered_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                                 const trt::Xt* xt, const trt::Accel* acc,
+                                                 const float* scene_buf, const int* xs,
+                                                 const int* ys, const long long* state_in,
+                                                 const float* add, const int* samp0, float* out,
+                                                 unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, true, TuneWalk>(a, *tx, *xt, scene_buf, xs, ys, state_in,
+                                                    add, samp0, out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_gathered_grouped_k() { return TRT_TUNE_K; }
 
 // Kernel A at the XT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
 // kernel_base_resident), the arguments of kernel_base.cu's entry.

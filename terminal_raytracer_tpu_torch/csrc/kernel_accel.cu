@@ -40,6 +40,16 @@
 // carries one pixel, the serial cull decisions replayed, the counters
 // Culled's. It replaces the same Pallas kernel as trt_kernel_base_grid
 // (:796 over CulledPrims, bound at :809).
+//
+// trt_kernel_extra_gathered_grouped is kernel B over the grid walk
+// redesigned for the H100 (group.cuh GroupWalk): a path group of
+// GROUP_K_EXTRA_GATHERED lanes carries one entry; every lane makes the
+// walk's DDA decisions, and each cell's bucket is tested a window of K
+// entries at a time, reduced in bucket order, so its hits and traversal
+// counters are Walk's. It serves every table size, and ops/kernels.py
+// takes it for every `--accel gathered` tracer. It replaces the same
+// Pallas kernel as trt_kernel_extra_gathered (:1028 over GatheredPrims,
+// bound at :1032).
 
 #include "group.cuh"
 
@@ -54,6 +64,21 @@ constexpr bool GROUP_WIDE_EXTRA_GRID = true;
 constexpr int GROUP_K_BASE_GRID = 32;
 constexpr bool GROUP_WIDE_BASE_GRID = false;
 constexpr bool GROUP_REFILL_BASE_GRID = true;
+// The group width and row source of the grouped gathered kernel B (group.cuh
+// GroupWalk, 128 lanes a block): chosen by the sweep of tools/group_k.py
+// --only walk at 200x100, 8 spp, depth 6 (PERF.md, the grouped gathered
+// kernel B; ms at stress1024 / mesh1280 / mesh5120, H100 80GB HBM3 at
+// 700 W). Thread per entry 1.166 / 0.826 / 1.288; rows and CSR through
+// L1 at K = 2 0.845 / 0.573 / 0.844, 4 0.519 / 0.384 / 0.551, 8 0.348 /
+// 0.265 / 0.347, 16 0.258 / 0.185 / 0.245; the rows staged 1-23% slower
+// at every K; the CSR and rows staged within 5% of L1 (K = 16 0.248 /
+// 0.190 / 0.263) at 165 registers. A second run (--ks 16,32): K = 16 L1
+// 0.260 / 0.184 / 0.248, K = 32 L1 0.221 / 0.159 / 0.195 (CSR and rows
+// staged 0.213 / 0.155 / 0.228 at 157 registers): the working warps (231
+// → 461 at stress1024) outweigh the lanes a short bucket leaves idle. L1
+// stages nothing and serves every size.
+constexpr int GROUP_K_EXTRA_GATHERED = 32;
+using ExtraWalk = trt::GroupWalk<GROUP_K_EXTRA_GATHERED, trt::WALK_L1>;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
@@ -150,3 +175,17 @@ extern "C" int trt_kernel_base_grid_grouped(const BaseArgs* a, const trt::Tex* t
 
 extern "C" int trt_kernel_base_grid_grouped_k() { return GROUP_K_BASE_GRID; }
 extern "C" int trt_kernel_base_grid_grouped_refill() { return GROUP_REFILL_BASE_GRID; }
+
+// The grouped kernel B over the grid walk: the same arguments and outputs
+// as trt_kernel_extra_gathered, at any table size.
+extern "C" int trt_kernel_extra_gathered_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                                 const trt::Xt* xt, const trt::Accel* acc,
+                                                 const float* scene_buf, const int* xs,
+                                                 const int* ys, const long long* state_in,
+                                                 const float* add, const int* samp0, float* out,
+                                                 unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, true, ExtraWalk>(a, *tx, *xt, scene_buf, xs, ys, state_in,
+                                                     add, samp0, out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_gathered_grouped_k() { return ExtraWalk::K; }

@@ -33,8 +33,13 @@
 // trt_kernel_extra_xt_grouped_spill are the two for tables of any size
 // (group.cuh GroupSpill: the rows that fit a 227 KB stage staged, the rest
 // read through L1), which ops/kernels.py takes where the rows exceed the
-// 96 KB budget. The thread-per-entry trt_kernel_extra and
-// trt_kernel_extra_xt stay, launched directly.
+// 96 KB budget. trt_kernel_extra_ext_grouped and
+// trt_kernel_extra_ext_grouped_spill are the same two at the EXT gates
+// (the atlas fetches run in path groups as at the XT gates), replacing the
+// Pallas kernel built with the texel-atlas operand (pallas_kernel.py
+// _tex_ops/_tex_bind_front, bound at :1031). The thread-per-entry
+// trt_kernel_extra, trt_kernel_extra_ext and trt_kernel_extra_xt stay,
+// launched directly.
 //
 // What bounds it on an H100. Not its bytes (40 a entry and a table that
 // fits in L1) nor its FP32 operations (hundreds of times below the card's
@@ -68,6 +73,19 @@ constexpr int GROUP_K_EXTRA_XT = 4;
 // entry 30.199 / 136.373).
 using ExtraSpill = trt::GroupSpill<32, 256, trt::GROUP_SMEM_MAX>;
 using ExtraXtSpill = trt::GroupSpill<16, 512, trt::GROUP_SMEM_MAX>;
+// The grouped kernel B at the EXT gates and its form for any table size:
+// chosen by the sweep of tools/group_k.py --only ext (PERF.md, the grouped
+// EXT kernel B; ms, H100 80GB HBM3 at 700 W). At cornell_glass, showcase,
+// textured, envmap, bumpy (400x200) and the checker stress:1024 (200x100,
+// 8 spp, depth 6), thread per entry 2.857, 0.799, 0.675, 0.074, 0.540,
+// 3.238 (summed 8.18); K = 2 6.07 summed, K = 4 2.445, 0.696, 0.608,
+// 0.076, 0.564, 0.781 (5.17), K = 8 4.97 but bumpy 0.748 and textured
+// 0.693, over the thread per entry; K = 16 6.75. K = 4 is faster than or
+// within 5% of the thread per entry on every shape. Over the budget at the
+// checker icosphere:4: K = 32, 256 lanes, 227 KB 0.650 (512 lanes 0.739;
+// K = 16 1.253 / 1.377; thread per entry 21.469).
+constexpr int GROUP_K_EXTRA_EXT = 4;
+using ExtraExtSpill = trt::GroupSpill<32, 256, trt::GROUP_SMEM_MAX>;
 
 // xs, ys, samp0: int32 [n]; state_in: int64 [n]; add: f32 [n];
 // out: f32 [4, n] (esum rgb, rays); iters: one zeroed u64.
@@ -160,3 +178,33 @@ extern "C" int trt_kernel_extra_xt_grouped_spill(const ExtraArgs* a, const trt::
 
 extern "C" int trt_kernel_extra_xt_grouped_spill_k() { return ExtraXtSpill::K; }
 extern "C" int trt_kernel_extra_xt_grouped_spill_cap() { return ExtraXtSpill::SMEM_CAP; }
+
+// The grouped kernel B at the EXT gates: the same arguments and outputs as
+// trt_kernel_extra_ext; refused (cudaErrorInvalidValue) when the scene's
+// rows exceed the shared-memory budget.
+extern "C" int trt_kernel_extra_ext_grouped(const ExtraArgs* a, const trt::Tex* tx,
+                                            const float* scene_buf, const int* xs, const int* ys,
+                                            const long long* state_in, const float* add,
+                                            const int* samp0, float* out,
+                                            unsigned long long* iters, void* stream) {
+  return launch_extra_grouped<true, false, trt::GroupSweep<GROUP_K_EXTRA_EXT>>(
+      a, *tx, trt::Xt{}, scene_buf, xs, ys, state_in, add, samp0, out, iters, stream);
+}
+
+extern "C" int trt_kernel_extra_ext_grouped_k() { return GROUP_K_EXTRA_EXT; }
+
+// The grouped kernel B at the EXT gates for tables of any size: the
+// arguments of trt_kernel_extra_ext_grouped.
+extern "C" int trt_kernel_extra_ext_grouped_spill(const ExtraArgs* a, const trt::Tex* tx,
+                                                  const float* scene_buf, const int* xs,
+                                                  const int* ys, const long long* state_in,
+                                                  const float* add, const int* samp0,
+                                                  float* out, unsigned long long* iters,
+                                                  void* stream) {
+  return launch_extra_grouped<true, false, ExtraExtSpill>(a, *tx, trt::Xt{}, scene_buf, xs, ys,
+                                                          state_in, add, samp0, out, iters,
+                                                          stream);
+}
+
+extern "C" int trt_kernel_extra_ext_grouped_spill_k() { return ExtraExtSpill::K; }
+extern "C" int trt_kernel_extra_ext_grouped_spill_cap() { return ExtraExtSpill::SMEM_CAP; }

@@ -47,7 +47,8 @@ namespace trt {
 // _Accel). Culled reads `section` (the group table's offset in the scene
 // buffer, in floats) and n_groups; Walk the CSR offsets' and indices'
 // offsets and the grid's constants: dims, max_trips, and as f32 the box,
-// the cell size and its reciprocal.
+// the cell size and its reciprocal. Under the walk n_groups holds the CSR's
+// index count (group.cuh GroupWalk sizes its stage by it).
 struct Accel {
   int section, n_groups, off, idx;
   int dims[3];

@@ -59,7 +59,12 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_grouped_spill_cap", 0),
                         ("trt_kernel_extra_xt_grouped_spill", 12),
                         ("trt_kernel_extra_xt_grouped_spill_k", 0),
-                        ("trt_kernel_extra_xt_grouped_spill_cap", 0)),
+                        ("trt_kernel_extra_xt_grouped_spill_cap", 0),
+                        ("trt_kernel_extra_ext_grouped", 11),
+                        ("trt_kernel_extra_ext_grouped_k", 0),
+                        ("trt_kernel_extra_ext_grouped_spill", 11),
+                        ("trt_kernel_extra_ext_grouped_spill_k", 0),
+                        ("trt_kernel_extra_ext_grouped_spill_cap", 0)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_gathered", 9),
                         ("trt_kernel_base_chunked_grid", 9),
@@ -70,7 +75,9 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_grid_grouped_k", 0),
                         ("trt_kernel_base_grid_grouped", 10),
                         ("trt_kernel_base_grid_grouped_k", 0),
-                        ("trt_kernel_base_grid_grouped_refill", 0)),
+                        ("trt_kernel_base_grid_grouped_refill", 0),
+                        ("trt_kernel_extra_gathered_grouped", 13),
+                        ("trt_kernel_extra_gathered_grouped_k", 0)),
     "kernel_frame.cu": tuple(
         (f"trt_kernel_{mode}{sfx}", n)
         for mode in ("regen", "lockstep")
@@ -95,8 +102,9 @@ ENTRY_POINTS = {
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # The group-width sweep of tools/group_k.py: one library a width K (built
 # with -DTRT_TUNE_K=K, for the grid kernels' design -DTRT_TUNE_WIDE, for
-# kernel A's schedule -DTRT_TUNE_REFILL, for the GroupSpill forms' block
-# width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP and for the
+# kernel A's schedule -DTRT_TUNE_REFILL, for the GroupSpill and GroupWalk
+# forms' block width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP,
+# for GroupWalk's row source -DTRT_TUNE_WALK and for the
 # XT kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS), with the grouped
 # entries of the render libraries and the XT kernel A's forms that the
 # sweep weighs (TUNE_ONLY_ENTRY_POINTS).

@@ -146,11 +146,11 @@ class GatheredPrims(geom.ScenePrims):
         ci = ix + iy * nx + iz * (nx * ny)
         return self._off[ci], self._off[ci + 1]
 
-    def walk(self, o: V3, d: V3, t_min, t_cap, mask,
-             any_hit: bool) -> WalkResult:
-        """Walk every lane whose `mask` is set (None: all), with `t_cap`
-        both the exit bound and the strictly-closer bound. With `any_hit`
-        a lane stops at its first hit and t_best stays its cap."""
+    def walk_start(self, o: V3, d: V3, t_cap, mask):
+        """The walk's entry for every lane whose `mask` is set (None: all):
+        (active: the segment meets the grid before `t_cap`, the first cell
+        ic [3] (int64), the boundary distances tm [3], the steps stp [3]
+        and the distances a cell dt [3])."""
         zeros = torch.zeros_like(o.x)
         t0, t1 = zeros, zeros + _BIG
         comps = ((o.x, d.x), (o.y, d.y), (o.z, d.z))
@@ -172,7 +172,6 @@ class GatheredPrims(geom.ScenePrims):
         active = (t0 <= t1) & (t0 < t_cap)
         if mask is not None:
             active = active & mask
-        entered = active
         t_entry = torch.clamp(t0, min=0.0) + _ENTRY_EPS
         ic, tm, stp, dt = [], [], [], []
         for ax, (oc, dc) in enumerate(comps):
@@ -189,30 +188,68 @@ class GatheredPrims(geom.ScenePrims):
             stp.append(torch.where(up, 1, -1))
             dt.append(torch.abs(self._cell_t[ax]
                                 / torch.where(pars[ax], 1.0, dc)))
+        return active, ic, tm, stp, dt
+
+    def test_at(self, pid, o: V3, d: V3, t_min, t_max):
+        """The test of walk ids `pid` (spheres, then triangles; any valid id
+        where a lane tests nothing) in (t_min, t_max): (t where it takes a
+        hit, else -1; whether the id is a sphere's)."""
+        n_sph, _, n_tri = self._counts
+        is_s = pid < n_sph
+        t = torch.zeros_like(o.x) - 1.0
+        if n_sph:
+            s = self.tables.sph[torch.clamp(pid, max=n_sph - 1)]
+            ts, hit = geom._sphere_t(o, d, geom._row3(s, 0), s[..., 3],
+                                     t_min, t_max)
+            t = torch.where(hit & is_s, ts, t)
+        if n_tri:
+            q = self.tables.tri[torch.clamp(pid - n_sph, 0, n_tri - 1)]
+            tt, hit = geom._triangle_t(o, d, geom._row3(q, 0),
+                                       geom._row3(q, 3), geom._row3(q, 6),
+                                       t_min, t_max)
+            t = torch.where(hit & ~is_s, tt, t)
+        return t, is_s
+
+    def advance(self, adv, ic, tm, stp, dt, t_best):
+        """One DDA advance of the lanes `adv` along the axis of the nearest
+        boundary, ic and tm updated in place: (done: the lanes whose walk
+        ends, the next cell starting beyond t_best or lying outside the
+        grid; moved: the lanes that stepped)."""
+        use_x = (tm[0] <= tm[1]) & (tm[0] <= tm[2])
+        use_y = ~use_x & (tm[1] <= tm[2])
+        use = (use_x, use_y, ~use_x & ~use_y)
+        t_exit = torch.where(use_x, tm[0], torch.where(use_y, tm[1], tm[2]))
+        done = t_exit > t_best
+        nxt = []
+        for ax in range(3):
+            c2 = ic[ax] + stp[ax]
+            done = done | (use[ax] & ((c2 < 0) | (c2 >= self.dims[ax])))
+            nxt.append(c2)
+        done = adv & done
+        move = adv & ~done
+        for ax in range(3):
+            step = move & use[ax]
+            ic[ax] = torch.where(step, nxt[ax], ic[ax])
+            tm[ax] = torch.where(step, tm[ax] + dt[ax], tm[ax])
+        return done, move
+
+    def walk(self, o: V3, d: V3, t_min, t_cap, mask,
+             any_hit: bool) -> WalkResult:
+        """Walk every lane whose `mask` is set (None: all), with `t_cap`
+        both the exit bound and the strictly-closer bound. With `any_hit`
+        a lane stops at its first hit and t_best stays its cap."""
+        active, ic, tm, stp, dt = self.walk_start(o, d, t_cap, mask)
+        entered = active
         cur, end = self._cell_range(*ic)
         best = torch.full(o.x.shape, -1, dtype=torch.int64, device=o.x.device)
-        t_best = t_cap + zeros
+        t_best = t_cap + torch.zeros_like(o.x)
         n_s, n_t, n_adv = (torch.zeros_like(best) for _ in range(3))
-        n_sph, _, n_tri = self._counts
-        sph, tri = self.tables.sph, self.tables.tri
         trips = 0
         while trips < self.max_trips and bool(active.any()):
             trips += 1
             work = active & (cur < end)
             pid = self._idx[torch.where(work, cur, 0)]
-            is_s = pid < n_sph
-            t = zeros - 1.0
-            if n_sph:
-                s = sph[torch.clamp(pid, max=n_sph - 1)]
-                ts, hit = geom._sphere_t(o, d, geom._row3(s, 0), s[..., 3],
-                                         t_min, t_best)
-                t = torch.where(hit & is_s, ts, t)
-            if n_tri:
-                q = tri[torch.clamp(pid - n_sph, 0, n_tri - 1)]
-                tt, hit = geom._triangle_t(o, d, geom._row3(q, 0),
-                                           geom._row3(q, 3), geom._row3(q, 6),
-                                           t_min, t_best)
-                t = torch.where(hit & ~is_s, tt, t)
+            t, is_s = self.test_at(pid, o, d, t_min, t_best)
             ok = work & (t > 0.0) & (t < t_best)
             best = torch.where(ok, pid, best)
             if not any_hit:
@@ -222,23 +259,7 @@ class GatheredPrims(geom.ScenePrims):
             n_t = n_t + (work & ~is_s).long()
 
             adv = active & ~work
-            use_x = (tm[0] <= tm[1]) & (tm[0] <= tm[2])
-            use_y = ~use_x & (tm[1] <= tm[2])
-            use = (use_x, use_y, ~use_x & ~use_y)
-            t_exit = torch.where(use_x, tm[0],
-                                 torch.where(use_y, tm[1], tm[2]))
-            done = t_exit > t_best
-            nxt = []
-            for ax in range(3):
-                c2 = ic[ax] + stp[ax]
-                done = done | (use[ax] & ((c2 < 0) | (c2 >= self.dims[ax])))
-                nxt.append(c2)
-            done = adv & done
-            move = adv & ~done
-            for ax in range(3):
-                step = move & use[ax]
-                ic[ax] = torch.where(step, nxt[ax], ic[ax])
-                tm[ax] = torch.where(step, tm[ax] + dt[ax], tm[ax])
+            done, move = self.advance(adv, ic, tm, stp, dt, t_best)
             new_cur, new_end = self._cell_range(*ic)
             cur = torch.where(move, new_cur, cur)
             end = torch.where(move, new_end, end)

@@ -20,6 +20,13 @@ step's start, and the serial cull decisions replayed from the groups'
 minima (csrc/group.cuh GroupCulled says why that is exact). Both return
 each ray's four traversal counters (ops/accel.py CulledPrims.STATS) as
 the kernel counts them, once a group.
+
+The grid walk of `--accel gathered` splits each cell (split_walk_closest,
+split_walk_occluded; csrc/group.cuh GroupWalk): every lane makes the
+walk's DDA decisions, and the cell's bucket is tested in windows of up to
+k entries, each lane one entry with the running closest at the window's
+start as t_max, the window reduced by (t, then position in the bucket).
+They return the walk's four counters (ops/gathered.py GatheredPrims.STATS).
 """
 
 from __future__ import annotations
@@ -291,3 +298,108 @@ def split_culled_occluded(prims, o: V3, d: V3, t_min, t_max, k: int,
         cnt["tests"] += torch.where(stop, first + 1, now * count)
         blocked = blocked | stop
     return blocked, _stack(cnt)
+
+
+# ------------------------------------------------------------- the grid walk
+
+
+def split_walk(prims, o: V3, d: V3, t_min, t_cap, mask, any_hit: bool,
+               k: int):
+    """GroupWalk<k>'s walk over the GatheredPrims `prims` for every ray
+    whose `mask` is set (None: all), `t_cap` the exit and strictly-closer
+    bound: (walk id of the winner, -1 for none; t_best; counters [4, rays]
+    in GatheredPrims.STATS order, walks counted where `mask` holds).
+
+    Step by step, per ray: at max_trips steps the walk is capped; in a
+    cell with entries left a window of w = min(end - cur, k, max_trips -
+    trips) entries is tested with t_max = t_best, its winner the least t
+    below t_best at the least position (any_hit: the first hit ends the
+    walk, its tests counted up to it), and w trips taken; else the DDA
+    advances one cell (one trip), or the walk ends."""
+    _check_k(k)
+    active, ic, tm, stp, dt = prims.walk_start(o, d, t_cap, mask)
+    n = o.x.shape[0]
+    cur, end = prims._cell_range(*ic)
+    best = torch.full((n,), -1, dtype=torch.int64, device=o.x.device)
+    t_best = t_cap + torch.zeros_like(o.x)
+    tests, advances, capped, trips = (torch.zeros_like(best)
+                                      for _ in range(4))
+    while bool(active.any()):
+        cap = active & (trips == prims.max_trips)
+        capped = capped + cap.long()
+        active = active & ~cap
+        work = active & (cur < end)
+        w = torch.where(work, torch.clamp(torch.minimum(
+            end - cur, prims.max_trips - trips), max=k), 0)
+        win_t, win_pid = t_best, best
+        first = torch.full_like(best, k)
+        for j in range(k):
+            lane = work & (j < w)
+            pid = prims._idx[torch.where(lane, cur + j, 0)]
+            t, _ = prims.test_at(pid, o, d, t_min, t_best)
+            ok = lane & (t > 0.0) & (t < t_best)
+            if any_hit:
+                take = ok & (first == k)
+                first = torch.where(take, j, first)
+            else:
+                take = ok & (t < win_t)
+                win_t = torch.where(take, t, win_t)
+            win_pid = torch.where(take, pid, win_pid)
+        best = win_pid
+        if any_hit:
+            hit = first < k
+            tests = tests + torch.where(hit, first + 1, w)
+            active = active & ~hit
+        else:
+            t_best = win_t
+            tests = tests + w
+        cur, trips = cur + w, trips + w
+        adv = active & ~work
+        done, move = prims.advance(adv, ic, tm, stp, dt, t_best)
+        new_cur, new_end = prims._cell_range(*ic)
+        cur = torch.where(move, new_cur, cur)
+        end = torch.where(move, new_end, end)
+        advances = advances + adv.long()
+        trips = trips + adv.long()
+        active = active & ~done
+    walks = (torch.ones_like(best) if mask is None else mask.long())
+    return best, t_best, torch.stack([walks, tests, advances, capped])
+
+
+def split_walk_closest(prims, o: V3, d: V3, k: int):
+    """GroupWalk<k>'s closest hit over the GatheredPrims `prims`: the
+    planes' closest hit (every lane sweeps them, as the serial walk does)
+    caps the walk; (t_best, the winner's flatten index, -1 on a miss,
+    counters [4, rays])."""
+    n_sph, n_pln, _ = prims._counts
+    t_cap = torch.full_like(o.x, geom.T_FAR)
+    plane = torch.full(o.x.shape, -1, dtype=torch.int64)
+    for i in range(n_pln):
+        q = prims.tables.pln[i]
+        t, parallel = geom._plane_t(o, d, _row3(q, 0), _row3(q, 3))
+        hit = ~parallel & (t >= geom.RAY_EPS) & (t <= t_cap)
+        t = torch.where(hit, t, geom.MISS)
+        won = (t > 0.0) & (t < t_cap)
+        t_cap = torch.where(won, t, t_cap)
+        plane = torch.where(won, i, plane)
+    best, t_best, counts = split_walk(prims, o, d, geom.RAY_EPS, t_cap,
+                                      None, False, k)
+    idx = torch.where(best >= 0,
+                      torch.where(best < n_sph, best, best + n_pln),
+                      torch.where(plane >= 0, n_sph + plane, -1))
+    return t_best, idx, counts
+
+
+def split_walk_occluded(prims, o: V3, d: V3, t_min, t_max, k: int):
+    """GroupWalk<k>'s shadow walk over the GatheredPrims `prims`: a plane
+    blocker ends it before the walk (no walk counted); (blocked, counters
+    [4, rays])."""
+    n_pln = prims._counts[1]
+    blocked_p = torch.zeros(o.x.shape, dtype=torch.bool)
+    for i in range(n_pln):
+        q = prims.tables.pln[i]
+        blocked_p = blocked_p | geom.blocked_plane(o, d, _row3(q, 0),
+                                                   _row3(q, 3), t_min, t_max)
+    best, _, counts = split_walk(prims, o, d, t_min, t_max, ~blocked_p,
+                                 True, k)
+    return (best >= 0) | blocked_p, counts

@@ -19,8 +19,9 @@ make_sorted_render_frame:
             (index_add_ would add in an order that changes between runs
             on CUDA), then tracer.combine_phases
 
-Kernel B at the reference gates, at the XT gates and over the culled
-sweep of `--accel grid`, kernel A at the reference gates and over the
+Kernel B at the reference, XT and EXT gates, over the culled sweep of
+`--accel grid` and over the grid walk of `--accel gathered`, kernel A at
+the reference gates and over the
 culled sweep, and the chunked kernel A at the reference and XT gates, take
 their grouped entries (csrc/group.cuh: a path group of K lanes carries one
 entry, the closest-hit and shadow sweeps split across the group, the
@@ -28,15 +29,19 @@ scene's geometry rows, and the grid's group table, staged in shared
 memory) wherever those fit GROUP_SMEM_BYTES (kernel A also from
 GROUP_BASE_MIN_PRIMS primitives on; takes_grouped, a decision by the
 table's size alone): extra_kernel passes such a tracer on to
-extra_kernel_grouped, extra_kernel_xt_grouped or
-extra_kernel_grid_grouped, base_kernel to base_kernel_grouped,
+extra_kernel_grouped, extra_kernel_xt_grouped, extra_kernel_ext_grouped,
+extra_kernel_grid_grouped or extra_kernel_gathered_grouped (csrc/group.cuh
+GroupWalk: the walk's cells split over the group, at every table size),
+base_kernel to base_kernel_grouped,
 base_kernel_grid to base_kernel_grid_grouped, base_kernel_chunked to
 base_kernel_chunked_grouped, base_kernel_chunked_xt to
 base_kernel_chunked_xt_grouped, each counting its own launches. Kernel B
-and the chunked kernel A at the reference and XT gates take their grouped
-entries at every table size: above the budget those pass the tracer on to
-their forms over csrc/group.cuh GroupSpill (extra_kernel_grouped_spill,
-extra_kernel_xt_grouped_spill, base_kernel_chunked_grouped_spill,
+at the reference, XT and EXT gates and the chunked kernel A at the
+reference and XT gates take their grouped entries at every table size:
+above the budget those pass the tracer on to their forms over
+csrc/group.cuh GroupSpill (extra_kernel_grouped_spill,
+extra_kernel_xt_grouped_spill, extra_kernel_ext_grouped_spill,
+base_kernel_chunked_grouped_spill,
 base_kernel_chunked_xt_grouped_spill), which
 stage the rows that fit their stage cap (group_stage) and read the rest
 from the scene buffer through L1. Kernel A and the grid
@@ -196,6 +201,8 @@ def accel_args(tracer) -> _Accel:
             h = gathered_mod.grid_header(acc)
             x.off = x.section + gathered_mod.HDR_W
             x.idx = x.off + h["n_cells"] + 1
+            # The CSR's index count, which csrc/group.cuh GroupWalk stages.
+            x.n_groups = h["nnz"]
             x.dims = (ctypes.c_int * 3)(*h["dims"])
             x.max_trips = h["max_trips"]
             for name in ("lo", "hi", "cell", "inv_cell"):
@@ -394,7 +401,8 @@ GROUP_BASE_MIN_PRIMS = 16
 
 # The instantiations whose grouped entry serves every table size (its
 # GroupSpill form above GROUP_SMEM_BYTES), by kernel.
-ANY_SIZE = {"extra": ("ref", "xt"), "chunked": ("ref", "xt"), "base": ()}
+ANY_SIZE = {"extra": ("ref", "xt", "ext", "gathered"),
+            "chunked": ("ref", "xt"), "base": ()}
 
 
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
@@ -436,6 +444,9 @@ def _require_grouped(tracer, name: str, kind: str = "ref",
 _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                     "extra_xt": "trt_kernel_extra_xt_grouped",
                     "extra_grid": "trt_kernel_extra_grid_grouped",
+                    "extra_ext": "trt_kernel_extra_ext_grouped",
+                    "extra_ext_spill": "trt_kernel_extra_ext_grouped_spill",
+                    "extra_gathered": "trt_kernel_extra_gathered_grouped",
                     "chunked": "trt_kernel_base_chunked_grouped",
                     "base": "trt_kernel_base_grouped",
                     "base_grid": "trt_kernel_base_grid_grouped",
@@ -448,18 +459,19 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
 
 
 def group_k(kernel: str, lib=None) -> int:
-    """The group width K (lanes an entry) that the grouped `kernel`
-    ('extra', 'extra_xt', 'extra_grid', 'chunked', 'chunked_xt', 'base',
-    'base_grid', 'extra_spill', 'extra_xt_spill', 'chunked_spill' or
-    'chunked_xt_spill') of `lib` (default the render libraries) was built
-    with (on the card)."""
+    """The group width K (lanes an entry) that the grouped `kernel` (a key
+    of _GROUPED_ENTRIES: 'extra', 'extra_xt', 'extra_ext', 'extra_grid',
+    'extra_gathered', 'chunked', 'chunked_xt', 'base', 'base_grid' or a
+    '*_spill' form) of `lib` (default the render libraries) was built with
+    (on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
 
 
 def group_cap(kernel: str, lib=None) -> int:
     """The stage cap (bytes) of the GroupSpill form `kernel`
-    ('extra_spill', 'extra_xt_spill', 'chunked_spill' or 'chunked_xt_spill')
+    ('extra_spill', 'extra_xt_spill', 'extra_ext_spill', 'chunked_spill' or
+    'chunked_xt_spill')
     of `lib` (default the render libraries; on the card): group_stage's
     `cap`."""
     lib = lib or load_kernels()
@@ -477,8 +489,9 @@ def group_refill(kernel: str, lib=None) -> bool:
 
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     """Call the C entry point `entry` (+ '_ext', '_xt', '_grid',
-    '_gathered', '_grouped', '_xt_grouped', '_grid_grouped',
-    '_grouped_spill' or '_xt_grouped_spill' by `kind`) with its launch
+    '_gathered', '_grouped', '_xt_grouped', '_ext_grouped',
+    '_grid_grouped', '_gathered_grouped', '_grouped_spill',
+    '_xt_grouped_spill' or '_ext_grouped_spill' by `kind`) with its launch
     arguments and raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
     inst = (kind.removesuffix("_spill").removesuffix("grouped")
@@ -1025,9 +1038,10 @@ def _extra_on_cuda(tracer, xs, ys, state, add, samp0, name: str) -> bool:
 def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str,
                   lib=None):
     """Launch kernel B's `kind` instantiation (the grouped entries for
-    'grouped', 'xt_grouped', 'grid_grouped', their GroupSpill forms for
-    'grouped_spill', 'xt_grouped_spill'), from `lib` (default the render
-    libraries)."""
+    'grouped', 'xt_grouped', 'ext_grouped', 'grid_grouped',
+    'gathered_grouped', their GroupSpill forms for 'grouped_spill',
+    'xt_grouped_spill', 'ext_grouped_spill'), from `lib` (default the
+    render libraries)."""
     device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -1047,7 +1061,8 @@ def extra_kernel(tracer, pose, xs, ys, state, add, samp0):
     xs, ys, samp0 int32; state int64; add f32; all of one shape.
     extra_kernel_ext / _xt for a tracer with the extensions, extra_kernel_grid
     / _gathered for one with that traversal; the grouped entries
-    (extra_kernel_grouped, _xt_grouped, _grid_grouped) where takes_grouped."""
+    (extra_kernel_grouped, _xt_grouped, _ext_grouped, _grid_grouped,
+    _gathered_grouped) where takes_grouped."""
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0, "extra_kernel"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
     if takes_grouped(tracer):
@@ -1154,6 +1169,60 @@ def extra_kernel_grid_grouped(tracer, pose, xs, ys, state, add, samp0):
     return out
 
 
+def extra_kernel_ext_grouped(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped entry at the EXT gates (csrc/group.cuh over
+    GroupSweep): group_k('extra_ext') lanes an entry, as
+    extra_kernel_grouped. For an EXT tracer over the table sweep;
+    extra_kernel takes it for such a tracer. Rows over GROUP_SMEM_BYTES go
+    on to extra_kernel_ext_grouped_spill."""
+    _require_grouped(tracer, "extra_kernel_ext_grouped", "ext", any_size=True)
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_ext_grouped"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if _over_budget(tracer):
+        return extra_kernel_ext_grouped_spill(tracer, pose, xs, ys, state,
+                                              add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "ext_grouped")
+    extra_kernel_ext_grouped.launches += 1
+    return out
+
+
+def extra_kernel_ext_grouped_spill(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped form at the EXT gates for any table size
+    (csrc/group.cuh GroupSpill): group_k('extra_ext_spill') lanes an entry,
+    as extra_kernel_grouped_spill. For an EXT tracer over the table sweep;
+    extra_kernel_ext_grouped takes it where the rows exceed
+    GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "extra_kernel_ext_grouped_spill", "ext",
+                     any_size=True)
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_ext_grouped_spill"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "ext_grouped_spill")
+    extra_kernel_ext_grouped_spill.launches += 1
+    return out
+
+
+def extra_kernel_gathered_grouped(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped entry over the grid walk (csrc/group.cuh
+    GroupWalk, XT instantiation): group_k('extra_gathered') lanes an entry,
+    every lane making the walk's DDA decisions and each cell's bucket split
+    over the group in windows, so the traversal counters are the plain
+    version's. For an `--accel gathered` tracer of any table size;
+    extra_kernel takes it for such a tracer."""
+    _require_grouped(tracer, "extra_kernel_gathered_grouped", "gathered",
+                     any_size=True)
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_gathered_grouped"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "gathered_grouped")
+    extra_kernel_gathered_grouped.launches += 1
+    return out
+
+
 def extra_kernel_ext(tracer, pose, xs, ys, state, add, samp0):
     """Kernel B's EXT instantiation."""
     _require_ext(tracer, "extra_kernel_ext")
@@ -1204,6 +1273,9 @@ extra_kernel_grouped_spill.launches = 0
 extra_kernel_xt_grouped.launches = 0
 extra_kernel_xt_grouped_spill.launches = 0
 extra_kernel_grid_grouped.launches = 0
+extra_kernel_ext_grouped.launches = 0
+extra_kernel_ext_grouped_spill.launches = 0
+extra_kernel_gathered_grouped.launches = 0
 extra_kernel_ext.launches = 0
 extra_kernel_xt.launches = 0
 extra_kernel_grid.launches = 0
@@ -1212,9 +1284,12 @@ extra_kernel_gathered.launches = 0
 # The grouped kernel B of each instantiation that has one, and the GroupSpill
 # forms that those of ANY_SIZE pass a table over the budget on to.
 GROUPED_EXTRA = {"ref": extra_kernel_grouped, "xt": extra_kernel_xt_grouped,
-                 "grid": extra_kernel_grid_grouped}
+                 "ext": extra_kernel_ext_grouped,
+                 "grid": extra_kernel_grid_grouped,
+                 "gathered": extra_kernel_gathered_grouped}
 SPILL_EXTRA = {"ref": extra_kernel_grouped_spill,
-               "xt": extra_kernel_xt_grouped_spill}
+               "xt": extra_kernel_xt_grouped_spill,
+               "ext": extra_kernel_ext_grouped_spill}
 
 
 # ---------------------------------------------------------------------------

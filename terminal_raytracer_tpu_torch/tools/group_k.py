@@ -7,7 +7,7 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base|spill|budget|xt]
+        [--reps 5] [--only base|spill|budget|xt|ext|walk]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -72,7 +72,21 @@ or 6 resident blocks an SM, (b) the grouped kernel A at K 1, 2, 4, static
 and refill, (c) (b) held to 5. Each line also has the form's ptxas
 registers, stack and spill stores, and for kernel A the resident blocks
 an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves of
-its grid. Needs a CUDA GPU (exit 2 without one).
+its grid.
+
+`--only ext` sweeps kernel B at the EXT gates: the grouped entry over
+GroupSweep at K of EXT_KS on the five extension scenes at their own size
+(400x200) and on stress:1024 with a checker floor (200x100, 8 spp, depth
+6), and its GroupSpill forms (EXT_SPILL: K, block width; a 227 KB cap) at
+icosphere:4 with a checker floor, each beside the thread per entry.
+`--only walk` sweeps kernel B over the grid walk (csrc/group.cuh
+GroupWalk) at stress1024, mesh1280 and mesh5120 under --accel gathered
+(200x100, 8 spp, depth 6): walk_forms, K (--ks, default WALK_KS) by row
+source (rows and CSR
+through L1; rows staged; CSR and rows staged), 128 lanes a block, a 227 KB
+cap, beside the thread per entry (traverse.cuh Walk), the walk counters
+against the plain version's and the thread per entry's. Both print each
+form's ptxas registers and spills. Needs a CUDA GPU (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -140,8 +154,9 @@ def _line(label, k, ms, same, model, entry_iters, counters=None,
 
 
 def _counted(tr, fn):
-    """fn() and the traversal counters of its launch (grid), else None."""
-    if tr.traversal != "grid":
+    """fn() and the traversal counters of its launch (grid, gathered), else
+    None."""
+    if not tr.traversal:
         return fn(), None
     tr.accel_stats = torch.zeros(4, dtype=torch.int64, device="cuda")
     out = fn()
@@ -166,11 +181,15 @@ def _in_rows(fn, n, rows, dim=0):
     return cat(parts)
 
 
-def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0):
+def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0,
+                 ptxas=None):
     """Kernel B of `tr`'s instantiation: thread per entry, then the grouped
     entry of every library of `libs` ({label: library}); `spill`: the
     GroupSpill forms. The plain version over `rows` stream rows a call
-    (0: all at once)."""
+    (0: all at once). Each line with `ptxas`[label] where given; under an
+    opt-in traversal the counters against the plain version's and the
+    thread per entry's."""
+    ptxas = ptxas or {}
     kind = kernels._kind(tr)
     grouped = "grouped" if kind == "ref" else f"{kind}_grouped"
     grouped += "_spill" if spill else ""
@@ -183,11 +202,11 @@ def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0):
                                                       args[2:])),
                         s.xs.shape[0], rows)
 
-    if tr.traversal == "grid":
+    if tr.traversal:
         tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
     esum, rays = sliced(lambda *a_: kernels.extra_kernel_plain(*a_)[:2])
     plain_stats = None
-    if tr.traversal == "grid":
+    if tr.traversal:
         plain_stats = tr.prims.stats.long().cpu()
         tr.prims.ops = None
     want = (*esum, rays)
@@ -195,15 +214,25 @@ def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0):
     print(f"[group_k] {label} kernel B ({kind}) stream {tuple(s.xs.shape)}, "
           f"{int((s.add > 0).sum())} budgeted entries", flush=True)
 
-    def same_counts(stats):
-        return None if stats is None else bool(torch.equal(stats,
-                                                           plain_stats))
+    thread_stats = None
 
-    out, stats = _counted(tr, lambda: kernels._launch_extra(*args, kind))
+    def same_counts(stats):
+        if stats is None:
+            return None
+        same = bool(torch.equal(stats, plain_stats))
+        if thread_stats is not None:
+            same = same and bool(torch.equal(stats, thread_stats))
+        return same
+
+    out, thread_stats = _counted(tr,
+                                 lambda: kernels._launch_extra(*args, kind))
+    if plain_stats is not None and tr.traversal == "gathered":
+        print(f"[group_k] {label} walk counters (walks, tests, advances, "
+              f"capped): plain {plain_stats.tolist()}", flush=True)
     ms = _time(lambda: kernels._launch_extra(*args, kind), reps)
     _line(f"{label} kernel B", "thread", ms, _equal((*out[0], out[1]), want),
           float(out[2]) == float(kernels.warp_iters(it, 1)), it,
-          same_counts(stats))
+          same_counts(thread_stats), ptxas.get("thread", ""))
     for k, lib in libs.items():
         width = int(str(k).split()[0])
         out, stats = _counted(
@@ -211,7 +240,7 @@ def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0):
         ms = _time(lambda: kernels._launch_extra(*args, grouped, lib), reps)
         _line(f"{label} kernel B K", k, ms, _equal((*out[0], out[1]), want),
               float(out[2]) == float(kernels.warp_iters(it, width)), it,
-              same_counts(stats))
+              same_counts(stats), ptxas.get(k, ""))
 
 
 def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
@@ -561,12 +590,128 @@ def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
         _sweep_base_xt(label, tr, pose, SEED, libs, logs, reps)
 
 
+# --only ext: the grouped EXT kernel B's K over GroupSweep (K = 1 from its
+# own library, the rest from the walk_forms libraries at WALK_L1, whose
+# GroupSweep entries do not depend on the walk's defines), and its
+# GroupSpill forms (K, block width) at a 227 KB cap.
+EXT_KS = (1, 2, 4, 8, 16)
+EXT_SPILL = tuple((k, t) for k in (16, 32) for t in (256, 512))
+# --only walk: the grouped gathered kernel B's (K, row source: 0 rows and
+# CSR through L1, 1 rows staged, 2 CSR and rows staged; walk_forms) at 128
+# lanes a block and a 227 KB stage cap.
+WALK_KS = (2, 4, 8, 16, 32)
+WALK_SOURCES = ("L1", "rows staged", "CSR and rows staged")
+
+
+def walk_forms(ks=WALK_KS):
+    """The (K, row source) forms of --only walk at the group widths `ks`."""
+    return tuple((k, src) for k in ks for src in (0, 1, 2))
+def _checker(scene):
+    """`scene` with a checker floor (its first plane): the EXT instantiation
+    at array scale, as chip_smoke.py's checker stress:1024."""
+    import dataclasses
+
+    floor = scene.planes[0]
+    mat = floor.material._replace(checker_color=(0.2, 0.2, 0.25),
+                                  checker_scale=1.0)
+    return dataclasses.replace(scene, planes=(floor._replace(material=mat),))
+
+
+def _walk_libs(ks=WALK_KS):
+    """The group_tune.cu builds of --only ext and --only walk: {label:
+    (source, defines)} of the walk forms at the group widths `ks`, the K = 1
+    library and the EXT GroupSpill forms."""
+    walk = {f"{k} {WALK_SOURCES[src]}": (build.TUNE_SOURCE, (
+        f"TRT_TUNE_K={k}", "TRT_TUNE_THREADS=128",
+        f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_MAX}", f"TRT_TUNE_WALK={src}"))
+        for k, src in walk_forms(ks)}
+    one = {"1": (build.TUNE_SOURCE, ("TRT_TUNE_K=1",))}
+    spill = {f"{k} t{t} cap{GROUP_SMEM_MAX}": (build.TUNE_SOURCE, (
+        f"TRT_TUNE_K={k}", f"TRT_TUNE_THREADS={t}",
+        f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_MAX}")) for k, t in EXT_SPILL}
+    return walk, one, spill
+
+
+def sweep_ext_walk(only, reps, ks=None) -> None:
+    """--only ext, --only walk (the module docstring); `ks`: the walk's
+    group widths (default WALK_KS; --only ext takes K = 2, 4, 8, 16 from
+    those libraries)."""
+    walk, one, spill = _walk_libs(ks or (WALK_KS if only == "walk"
+                                         else EXT_KS[1:]))
+    srcs = {**walk, **(one if only == "ext" else {}),
+            **(spill if only == "ext" else {})}
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    def log(src):
+        return paths[src].with_suffix(".log").read_text()
+
+    pose = Camera().pose()
+
+    def scene(name, w=None, h=None, spp=None, depth=None):
+        return load_scene(name).with_overrides(
+            width=w, height=h, samples_per_pixel=spp, max_depth=depth)
+
+    if only == "walk":
+        libs = {label: build.load_kernels((src,))
+                for label, src in walk.items()}
+        marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb1EN3trt9"
+                               "GroupWalk") for label, src in walk.items()}
+        marks["thread"] = _ptxas(log("kernel_accel.cu"),
+                                 "12kernel_extraILb1ELb1EN3trt4Walk")
+        for label, name in (("stress1024", "stress:1024"),
+                            ("mesh1280", "icosphere:3"),
+                            ("mesh5120", "icosphere:4")):
+            tr = PathTracer(scene(name, 200, 100, 8, 6), "cuda",
+                            accel="gathered")
+            h = kernels.accel_args(tr)
+            n_sph, n_pln, n_tri, _ = tr.tables.counts
+            csr = 4 * (h.dims[0] * h.dims[1] * h.dims[2] + 1 + h.n_groups)
+            print(f"[group_k] {label} gathered: dims {list(h.dims)}, CSR "
+                  f"{csr} B, rows staged at 227 KB "
+                  f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX)}, "
+                  f"beside the CSR "
+                  f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX - csr)}"
+                  " (triangles, spheres, planes)", flush=True)
+            _sweep_extra(f"{label} gathered", tr, pose, SEED, libs, reps,
+                         ptxas=marks)
+        return
+    libs = {label: build.load_kernels((src,)) for label, src in
+            {**one, **{k: v for k, v in walk.items() if k.endswith(" L1")}}
+            .items()}
+    marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb0EN3trt10"
+                           "GroupSweep") for label, src in
+             {**one, **walk}.items()}
+    marks["thread"] = _ptxas(log("kernel_extra.cu"), "12kernel_extraILb1ELb0E")
+    for name in ("cornell_glass", "showcase", "textured", "envmap", "bumpy"):
+        _sweep_extra(f"{name} 400x200", PathTracer(scene(name), "cuda"), pose,
+                     SEED, libs, reps, ptxas=marks)
+    _sweep_extra("stress1024 checker", PathTracer(
+        _checker(scene("stress:1024", 200, 100, 8, 6)), "cuda"), pose, SEED,
+        libs, reps, ptxas=marks)
+    libs = {label: build.load_kernels((src,)) for label, src in spill.items()}
+    marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb0EN3trt10"
+                           "GroupSpill") for label, src in spill.items()}
+    marks["thread"] = _ptxas(log("kernel_extra.cu"), "12kernel_extraILb1ELb0E")
+    tr = PathTracer(_checker(scene("icosphere:4", 200, 100, 8, 6)), "cuda")
+    n_sph, n_pln, n_tri, _ = tr.tables.counts
+    print(f"[group_k] mesh5120 checker: {kernels.group_rows_bytes(tr)} B of "
+          f"rows; staged at 227 KB "
+          f"{kernels.group_stage(n_sph, n_pln, n_tri, GROUP_SMEM_MAX)}",
+          flush=True)
+    _sweep_extra("mesh5120 checker", tr, pose, SEED, libs, reps, spill=True,
+                 ptxas=marks)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default=None)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", choices=("base", "spill", "budget", "xt"),
-                    default=None)
+    ap.add_argument("--only", choices=("base", "spill", "budget", "xt", "ext",
+                                       "walk"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
@@ -581,6 +726,11 @@ def main(argv=None):
         return 0
     if args.only == "budget":
         sweep_budget(args.reps)
+        return 0
+    if args.only in ("ext", "walk"):
+        sweep_ext_walk(args.only, args.reps,
+                       [int(k) for k in args.ks.split(",")] if args.ks
+                       else None)
         return 0
     ks = [int(k) for k in (args.ks or ",".join(map(str, KS))).split(",")]
     tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}

@@ -158,12 +158,18 @@ def test_ext_kernels_match_plain_versions(cuda_device, name, filt):
     s = kernels.sorted_stream(tr, k.state, k.additional)
     assert int((s.add > 0).sum()) > 0
     args = (tr, POSE, s.xs, s.ys, s.state, s.add, s.samp0)
-    n0 = kernels.extra_kernel_ext.launches
+    wrap = _extra_wrapper(tr)  # the grouped EXT kernel B
+    n0 = wrap.launches
     ek, rk, _ = kernels.extra_kernel(*args)
     ep, rp, _ = kernels.extra_kernel_plain(*args)
-    assert kernels.extra_kernel_ext.launches == n0 + 1
+    assert wrap.launches == n0 + 1
     assert torch.equal(rk, rp)
     for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+    # The thread-per-entry EXT kernel B, launched directly.
+    et, rt, _ = kernels._launch_extra(*args, "ext")
+    assert torch.equal(rt, rp)
+    for a, b in zip(et, ep):
         assert torch.equal(a, b)
 
 

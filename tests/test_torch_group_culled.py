@@ -312,15 +312,17 @@ def _fog(name):
     (lambda: _scene("stress:1024"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("icosphere:3"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("icosphere:4"), "grid", "extra_kernel_grid"),
-    (lambda: _scene("showcase"), "auto", "extra_kernel_ext"),
-    (lambda: _scene("stress:96"), "gathered", "extra_kernel_gathered"),
+    (lambda: _scene("showcase"), "auto", "extra_kernel_ext_grouped"),
+    (lambda: _scene("stress:96"), "gathered",
+     "extra_kernel_gathered_grouped"),
     (lambda: _scene("Cornell_Box"), "auto", "extra_kernel_grouped")])
 def test_kernel_b_dispatch(scene, accel_, want):
     """Kernel B's entry by instantiation and table size: XT tracers take
     their grouped entry at every size (over the budget it passes them on to
     its GroupSpill form), grid tracers theirs where what they stage fits
     the budget (the grid's group table counted), the thread-per-entry one
-    above it; EXT and gathered keep theirs; the chunked kernel A's grouped
+    above it; EXT and gathered tracers take theirs at every size (tests/
+    test_torch_group_walk.py); the chunked kernel A's grouped
     entry serves the reference and XT gates over the table sweep."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)

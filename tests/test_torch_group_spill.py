@@ -28,6 +28,7 @@ planes split; icosphere:1: triangles split; stress:64: spheres split).
 They skip here.
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -129,14 +130,26 @@ def test_entry_points_take_the_pointers_the_loader_declares(src):
     ("icosphere:4", True, "auto", True, True),
     ("icosphere:4", False, "grid", False, False),
     ("icosphere:3", False, "auto", True, True),
-    ("stress:64", True, "auto", True, True)])
+    ("stress:64", True, "auto", True, True),
+    ("icosphere:4", "checker", "auto", True, False),
+    ("icosphere:4", False, "gathered", True, False)])
 def test_grouped_entries_serve_tables_of_any_size(name, fog, accel_, extra,
                                                   chunked):
     """Kernel B and the chunked kernel A at the reference and XT gates take
-    their grouped entries whatever the table's size; the grid's stay within
-    the budget, and kernel A above it takes the thread per pixel."""
-    over = {"fog": Fog(density=0.15)} if fog else {}
-    tr = PathTracer(_scene(name, **over), "cpu", accel=accel_)
+    their grouped entries whatever the table's size, and so does kernel B at
+    the EXT gates (`fog` "checker": a checker floor, the EXT instantiation)
+    and over the grid walk; the grid's stay within the budget, and kernel A
+    above it takes the thread per pixel."""
+    over = {"fog": Fog(density=0.15)} if fog is True else {}
+    scene = _scene(name, **over)
+    if fog == "checker":
+        floor = scene.planes[0]
+        mat = floor.material._replace(checker_color=(0.2, 0.2, 0.25),
+                                      checker_scale=1.0)
+        scene = dataclasses.replace(
+            scene, planes=(floor._replace(material=mat),))
+    tr = PathTracer(scene, "cpu", accel=accel_)
+    assert (kernels._kind(tr) == "ext") is (fog == "checker")
     assert kernels.takes_grouped(tr) is extra
     assert kernels.takes_grouped(tr, "chunked") is chunked
     over_budget = kernels.group_smem_bytes(tr) > kernels.GROUP_SMEM_BYTES
