@@ -83,12 +83,14 @@ Phases, each reported on lines starting with its tag:
             frame against the plain pipeline; cli.main on showcase; then
             each EXT kernel against its plain version at the main path's
             shapes (the five scenes at 400x200, the checker stress:1024
-            at 200x100), kernel B in both forms (the grouped entry, which
-            the wrapper takes, and the thread per entry), bit for bit with
-            their lane-iterations the plain model's, timed side by side at
-            the showcase, textured and checker stress:1024 shapes and, its
-            GroupSpill form, at the checker icosphere:4 shapes; the
-            showcase sorted frame through both forms in turns
+            at 200x100), kernel B and the chunked kernel A in both forms
+            (the grouped entry, which the wrapper takes, and the thread
+            per entry), bit for bit with their lane-iterations the plain
+            model's, timed side by side at the showcase, textured (B) and
+            checker stress:1024 shapes and, their GroupSpill forms, at the
+            checker icosphere:4 shapes; the showcase sorted frame through
+            both forms of B, and the checker icosphere:4 frame through
+            both forms of every kernel, in turns
   [xt]      the transport and camera extensions (XT kernels): each XT
             kernel against its plain version at the main path's shapes:
             the JAX bench's fog (Cornell_Box 400x200, 16 spp, depth 32,
@@ -124,9 +126,11 @@ Phases, each reported on lines starting with its tag:
             to the plain version's, both lane-iterations equal to the
             plain model, timed side by side; the gathered kernel B
             likewise (the grouped entry over csrc/group.cuh GroupWalk, at
-            stress1024 and mesh1280); the grid kernel A likewise in
-            both forms (grouped, which the wrapper takes, and thread per
-            pixel), with its schedule and occupancy; Engine at stress256,
+            stress1024 and mesh1280); the grid and gathered kernel A
+            likewise in both forms (grouped, which the wrapper takes, and
+            thread per pixel; the grouped entry's counters also against
+            the thread per pixel's), with its schedule and occupancy;
+            Engine at stress256,
             stress1024 and mesh1280 under baked, auto (array), grid and
             gathered, at mesh5120 under grid (rows over the grouped
             kernels' budget: the thread-per-pixel kernel A and the
@@ -135,9 +139,9 @@ Phases, each reported on lines starting with its tag:
             thread-per-pixel entry is then held bit for bit and timed
             there), with each traversal's counters over the warm-up frame;
             the
-            stress1024 grid frame through both forms of every kernel, and
-            of kernel A alone, in turns, and the stress1024 and mesh1280
-            gathered frames through both forms of kernel B in turns;
+            stress1024 grid, stress1024 gathered and mesh1280 gathered
+            frames through both forms of every kernel, and of kernel A
+            alone, in turns;
             cli.main with --accel grid and
             --accel gathered; and at the stress1024 shapes
             a frame through the grid kernels beside one through the XT
@@ -214,11 +218,14 @@ kernel_base_chunked_grouped_spill and kernel_base_chunked_xt_grouped_spill
 at mesh5120 (in fog), their errors including the split-point libraries';
 kernel_base_chunked_xt_grouped at the stress:1024 fog --mis shapes;
 the EXT rows at the showcase and
-stress:1024-checker shapes (the thread-per-entry kernel_extra_ext
-launched directly, OFF_PATH; kernel_extra_ext_grouped_spill at the
-checker icosphere:4 shapes); the other XT rows at the fog and stress:1024
-fog shapes; the other grid and gathered rows at the stress1024 shapes (the
-thread-per-entry kernel_extra_gathered launched directly, OFF_PATH), their
+stress:1024-checker shapes (the thread-per-entry kernel_extra_ext and
+kernel_base_chunked_ext launched directly, OFF_PATH; the GroupSpill
+forms kernel_extra_ext_grouped_spill and
+kernel_base_chunked_ext_grouped_spill at the checker icosphere:4 shapes);
+the other XT rows at the fog and stress:1024 fog shapes; the other grid
+and gathered rows at the stress1024 shapes (the thread-per-entry
+kernel_extra_gathered and the thread-per-pixel kernel_base_gathered
+launched directly, OFF_PATH), their
 operations the slab tests, walk steps and primitive tests that the plain
 traversal counts; the regen and lockstep rows at their first [sched]
 config, the plain version's operations over the whole frame, 24 bytes
@@ -344,28 +351,31 @@ def phase_kernel_base(peak):
     return worst, keep
 
 
-def _base_both(tag, label, tr, peak):
-    """Kernel A of tracer `tr` (reference gates or `--accel grid`) in both
-    forms, the grouped entry and the thread-per-pixel entry, the one that
-    ops/kernels.takes_grouped picks through the wrapper: each against the
-    plain version bit for bit (rays, budgets, variance, end states, csum
-    and csumsq bits; grid: the traversal counters), the thread-per-pixel
-    lane-iterations equal to the plain model, the grouped ones as
-    _base_iters_model says; both timed beside each other. Returns ({form:
-    (max abs error, ms, plain ms, bound)}, the wrapper's output)."""
+def _base_both(tag, label, tr, peak, timed_plain=True):
+    """Kernel A of tracer `tr` (reference gates, `--accel grid` or `--accel
+    gathered`) in both forms, the grouped entry and the thread-per-pixel
+    entry, the one that ops/kernels.takes_grouped picks through the
+    wrapper: each against the plain version bit for bit (rays, budgets,
+    variance, end states, csum and csumsq bits; under a traversal its
+    counters, the grouped entry's also against the thread per pixel's),
+    the thread-per-pixel lane-iterations equal to the plain model, the
+    grouped ones as _base_iters_model says; both timed beside each other,
+    and the plain version too where `timed_plain`. Returns ({form: (max
+    abs error, ms, plain ms or None, bound)}, the wrapper's output)."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
     kind = kernels._kind(tr)
-    grid = kind == "grid"
-    name = "base_grid" if grid else "base"
+    traversal = tr.traversal
+    name = "base" if kind == "ref" else f"base_{kind}"
     taken = "grouped" if kernels.takes_grouped(tr, "base") else "thread"
     wrapper = (kernels.GROUPED_BASE[kind] if taken == "grouped"
-               else kernels.base_kernel_grid if grid else kernels.base_kernel)
+               else getattr(kernels, "base_kernel" + (
+                   f"_{kind}" if traversal else "")))
 
     def launch(form):
-        k = (kind + "_grouped" if grid else "grouped") if form == "grouped" \
-            else kind
+        k = ("grouped" if kind == "ref" else f"{kind}_grouped") \
+            if form == "grouped" else kind
         return lambda: kernels._launch_base(tr, pose, SEED, 0, 0, None, None,
                                             k)
 
@@ -377,9 +387,9 @@ def _base_both(tag, label, tr, peak):
     other = "thread" if taken == "grouped" else "grouped"
     outs[other] = _counted_launch(tr, launch(other))
     pc = []
-    plain, ops, p = _time_plain(
+    plain, ops, p = (_time_plain if timed_plain else _plain_counted)(
         tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0),
-        pc if grid else None)
+        pc if traversal else None)
     it = kernels.base_entry_iters(tr, pose, SEED, 0)
     atlas = 0 if tr.atlas is None else tr.atlas.numel()
     bound = _bound(ops, 4 * (tr.tables.buf.numel() + atlas)
@@ -389,13 +399,19 @@ def _base_both(tag, label, tr, peak):
         out, counts = outs[form]
         err = _compare_base(tag, f"{label} kernel A {form}", out, p,
                             ("additional", "var"), exact=True)
-        if grid:
+        if traversal:
             _check_counts(f"{label} kernel A {form}", counts, pc[0])
         if form == "thread":
             _iters_model(tag, f"{label} kernel A thread", out.iters, it, 1)
         else:
             _base_iters_model(tag, f"{label} kernel A", out.iters, it, name)
         res[form] = (err, _time_cuda(launch(form), 5), plain, bound)
+    if traversal:
+        _check_counts(f"{label} grouped against thread-per-pixel kernel A",
+                      outs["grouped"][1], outs["thread"][1])
+        print(f"[{tag}] {label} kernel A: "
+              f"{_traversal_counts(traversal, outs['grouped'][1])}",
+              flush=True)
     _grouped_vs_thread(tag, f"{label} kernel A", name, tr,
                        res["grouped"][1], res["thread"][1], it,
                        (outs["grouped"][0], outs["thread"][0]))
@@ -477,10 +493,10 @@ def _iters_model(tag, label, got, entry_iters, k):
 
 
 def _base_iters_model(tag, label, got, entry_iters, kind):
-    """A grouped kernel A's executed lane-iterations (kind 'base' or
-    'base_grid'): on the static schedule the plain model at its group
-    width, on the refill schedule at least the pixels' summed iterations
-    (every slot busy)."""
+    """A grouped kernel A's executed lane-iterations (kind 'base',
+    'base_grid' or 'base_gathered'): on the static schedule the plain
+    model at its group width, on the refill schedule at least the pixels'
+    summed iterations (every slot busy)."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     if not kernels.group_refill(kind):
@@ -512,7 +528,7 @@ def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters,
             else "thread-per-entry")
     staged = (f"{kernels.group_smem_bytes(tr)} B of "
               f"{kernels.GROUP_SMEM_BYTES}")
-    if kind == "extra_gathered":
+    if kind.endswith("gathered"):
         staged = "nothing (GroupWalk reads rows and CSR through L1)"
     elif kind.endswith("_spill"):
         cap = kernels.group_cap(kind)
@@ -747,22 +763,24 @@ def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
           flush=True)
 
 
-def _spill_both(label, tr, kernel, peak):
-    """Over the budget, the GroupSpill form of the chunked kernel A (kernel
-    'chunked') or of kernel B ('extra'), at the tracer's instantiation,
-    which its wrapper takes, and the thread-per-entry entry, launched
-    directly: each against the plain version bit for bit, with its
-    lane-iterations equal to the plain model at its group width; both timed
-    side by side. Returns {form: (max abs error, ms, plain ms, bound)}."""
+def _spill_both(label, tr, kernel, peak, tag="thread"):
+    """The grouped entry of the chunked kernel A (kernel 'chunked') or of
+    kernel B ('extra') at the tracer's instantiation, which its wrapper
+    takes (over the budget its GroupSpill form), and the thread-per-entry
+    entry, launched directly: each against the plain version bit for bit,
+    with its lane-iterations equal to the plain model at its group width;
+    both timed side by side. Returns {form: (max abs error, ms, plain ms,
+    bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
     kind = kernels._kind(tr)
     atlas = 0 if tr.atlas is None else tr.atlas.numel()
     fixed = 4 * (tr.tables.buf.numel() + atlas)
+    sfx = _spill(tr)
     if kernel == "chunked":
-        name = "chunked_spill" if kind == "ref" else f"chunked_{kind}_spill"
-        spill = "grouped_spill" if kind == "ref" else f"{kind}_grouped_spill"
+        name = ("chunked" if kind == "ref" else f"chunked_{kind}") + sfx
+        spill = ("grouped" if kind == "ref" else f"{kind}_grouped") + sfx
         wrapper = getattr(kernels, f"base_kernel_chunked_{spill}")
         n0 = wrapper.launches
         g = kernels.base_kernel_chunked(tr, pose, SEED, 0)
@@ -778,20 +796,20 @@ def _spill_both(label, tr, kernel, peak):
         n_ent = tr.n_base_chunks * tr.width * tr.height
         bound = _bound(ops, fixed + 36 * n_ent, peak)
         outs = {"grouped": g, "thread": launch("thread")()}
-        errs = {form: _compare_base("thread", f"{label} chunked kernel A "
+        errs = {form: _compare_base(tag, f"{label} chunked kernel A "
                                     f"{form}", o, p, (), tr, exact=True)
                 for form, o in outs.items()}
         iters = {form: o.iters for form, o in outs.items()}
         what = f"{n_ent} entries"
     else:
-        name = "extra_spill" if kind == "ref" else f"extra_{kind}_spill"
-        wrapper = kernels.SPILL_EXTRA[kind]
+        name = ("extra" if kind == "ref" else f"extra_{kind}") + sfx
+        wrapper = (kernels.SPILL_EXTRA if sfx else kernels.GROUPED_EXTRA)[kind]
         a = kernels.base_phase(tr, pose, SEED, 0)
         s = kernels.sorted_stream(tr, a[2], a[7])
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         n0 = wrapper.launches
         g = kernels.extra_kernel(*args)
-        spill = "grouped_spill" if kind == "ref" else f"{kind}_grouped_spill"
+        spill = ("grouped" if kind == "ref" else f"{kind}_grouped") + sfx
 
         def launch(form):
             return lambda: kernels._launch_extra(
@@ -802,20 +820,21 @@ def _spill_both(label, tr, kernel, peak):
         it = kernels.extra_entry_iters(*args)
         bound = _bound(ops, fixed + 40 * s.add.numel(), peak)
         outs = {"grouped": g, "thread": launch("thread")()}
-        errs = {form: _check_extra("thread", f"{label} {form}", s, o, pb,
+        errs = {form: _check_extra(tag, f"{label} {form}", s, o, pb,
                                    exact=True) for form, o in outs.items()}
         iters = {form: o[2] for form, o in outs.items()}
         what = f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries"
     if wrapper.launches != n0 + 1:
-        fail(f"[thread] {label}: the wrapper took no {wrapper.__name__}")
-    _iters_model("thread", f"{label} {kernel} grouped", iters["grouped"], it,
+        fail(f"[{tag}] {label}: the wrapper took no {wrapper.__name__}")
+    _iters_model(tag, f"{label} {kernel} grouped", iters["grouped"], it,
                  kernels.group_k(name))
-    _iters_model("thread", f"{label} {kernel} thread", iters["thread"], it, 1)
+    _iters_model(tag, f"{label} {kernel} thread", iters["thread"], it, 1)
     ms = {form: _time_cuda(launch(form), 3) for form in ("grouped", "thread")}
-    _grouped_vs_thread("thread", f"{label} shapes", name, tr, ms["grouped"],
+    _grouped_vs_thread(tag, f"{label} shapes", name, tr, ms["grouped"],
                        ms["thread"], it)
-    print(f"[thread] {label} shapes ({kernels.group_rows_bytes(tr)} B of "
-          f"rows, over the {kernels.GROUP_SMEM_BYTES} B budget): "
+    print(f"[{tag}] {label} shapes ({kernels.group_rows_bytes(tr)} B of "
+          f"rows, {'over' if sfx else 'within'} the "
+          f"{kernels.GROUP_SMEM_BYTES} B budget): "
           f"{wrapper.__name__} {ms['grouped']:.3f} ms, thread per entry "
           f"{ms['thread']:.3f} ms on {what} (plain {plain:.1f} ms, bound "
           f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
@@ -966,12 +985,15 @@ def phase_thread_per_entry(peak):
 
 
 # The thread-per-entry entries that no dispatch takes (the grouped entries
-# serve their instantiations at every table size): held bit for bit and
-# timed beside their GroupSpill forms in [thread], launched directly, so
-# their main-path launches are 0, and a launch there fails the run.
+# serve their instantiations at every table size; the gathered kernel A's
+# thread per pixel serves only scenes below GROUP_BASE_MIN_PRIMS, which no
+# main-path run renders under gathered): held bit for bit and timed beside
+# their grouped forms, launched directly, so their main-path launches are
+# 0, and a launch there fails the run.
 OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_gathered", "kernel_base_chunked",
-            "kernel_base_chunked_xt")
+            "kernel_base_chunked_xt", "kernel_base_chunked_ext",
+            "kernel_base_gathered")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
@@ -984,6 +1006,9 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "extra_kernel_grouped_spill", "extra_kernel_xt_grouped_spill",
                 "extra_kernel_ext_grouped", "extra_kernel_ext_grouped_spill",
                 "extra_kernel_gathered_grouped",
+                "base_kernel_gathered_grouped",
+                "base_kernel_chunked_ext_grouped",
+                "base_kernel_chunked_ext_grouped_spill",
                 "base_kernel_ext", "base_kernel_chunked_ext",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
@@ -1266,9 +1291,11 @@ def _frames_grouped_vs_thread(tag, label, scene, frames=8, base_only=False,
                     return False
                 if not base_only:
                     return grouped(tracer, kernel)
-                return (kernels._kind(tracer) in kernels.GROUPED_BASE
-                        and kernels.group_smem_bytes(tracer)
-                        <= kernels.GROUP_SMEM_BYTES)
+                kind = kernels._kind(tracer)
+                return kind in kernels.GROUPED_BASE and (
+                    kind in kernels.ANY_SIZE["base"]
+                    or kernels.group_smem_bytes(tracer)
+                    <= kernels.GROUP_SMEM_BYTES)
 
             kernels.takes_grouped = forced
             render(pose, SEED, 0)
@@ -1474,16 +1501,17 @@ def phase_ext(peak):
     """The material and texture extensions: (a) each EXT kernel against its
     plain version on the packaged extension scenes at 128x64 (their spp
     and depth; envmap with a brighter sky, _bright_sky), textured
-    bilinear, and the chunked EXT kernel with chunks of 2; (b) the EXT
-    kernels on Cornell_Box (zero channels, no atlas) against the reference
-    kernels, bit for bit; (c) Engine at each extension scene's full size,
-    and at stress:1024 with a checker floor (the chunked EXT kernel on the
+    bilinear, and the chunked EXT kernel A with chunks of 2 in both forms;
+    (b) the EXT kernels on Cornell_Box (zero channels, no atlas) against
+    the reference kernels, bit for bit; (c) Engine at each extension
+    scene's full size, and at stress:1024 and icosphere:4 with a checker
+    floor (the grouped chunked EXT kernel A and its GroupSpill form on the
     main path), with the device busy share of a profiled showcase and
     textured run; (d) showcase --animate orbit through Engine, and an
     animated frame against the plain pipeline; (e) cli.main on showcase;
     (f) each EXT kernel against its plain version at the main path's
-    shapes (the five scenes at 400x200, the checker stress:1024 at
-    200x100), timed at the showcase, textured and checker stress:1024
+    shapes (the five scenes at 400x200, the checker stress:1024 and
+    icosphere:4 at 200x100), timed at the showcase, textured and checker
     shapes. Returns (launches, per-kernel results); each kernel's error is
     the largest of (a) and (f)."""
     import torch
@@ -1496,7 +1524,7 @@ def phase_ext(peak):
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0, "gs": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0, "gs": 0.0, "cg": 0.0}
     # (a)
     for name, filt in [(n, None) for n in EXT_SCENES] + [("textured",
                                                           "bilinear")]:
@@ -1520,8 +1548,13 @@ def phase_ext(peak):
                     chunk_extra=2)
     k = kernels.base_kernel_chunked_ext(tr, pose, SEED, 0)
     p = kernels.base_kernel_chunked_plain(tr, pose, SEED, 0)
-    err["c"] = _compare_base("ext", f"showcase 128x64 chunked EXT kernel A, "
-                             f"{tr.n_base_chunks} chunks of 2", k, p, (), tr)
+    label = f"showcase 128x64 chunked EXT kernel A, {tr.n_base_chunks} chunks"
+    err["cg"] = _compare_base("ext", f"{label} of 2 grouped", k, p, (), tr,
+                              exact=True)
+    err["c"] = _compare_base("ext", f"{label} of 2 thread per entry",
+                             kernels._launch_chunked(tr, pose, SEED, 0, 0,
+                                                     None, "ext"), p, (), tr,
+                             exact=True)
 
     # (b) The reference scene through the EXT kernels: its tables with a
     # (zero) extension table bound.
@@ -1669,29 +1702,28 @@ def phase_ext(peak):
               f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries "
               f"(plain {plain_b:.1f} ms, bound {bound_b[0]:.4f} ms by "
               f"{bound_b[1]}: {ops_b:.4g} operations)", flush=True)
+    # The chunked EXT kernel A in both forms at the checker stress1024
+    # shapes (its grouped entry over GroupSweep) and at the checker mesh5120
+    # shapes, whose rows exceed the budget (the GroupSpill form): the
+    # grouped entry, which the wrapper takes, and the thread per entry,
+    # launched directly, each bit for bit with its lane-iterations the
+    # plain model's, timed side by side (_spill_both).
     big = PathTracer(_checker_stress(), "cuda")
-    kc = kernels.base_kernel_chunked_ext(big, pose, SEED, 0)
-    ms = _time_cuda(lambda: kernels.base_kernel_chunked_ext(big, pose, SEED,
-                                                            0), 5)
-    plain_ms, ops, pc = _time_plain(
-        big, lambda: kernels.base_kernel_chunked_plain(big, pose, SEED, 0))
-    err["c"] = max(err["c"], _compare_base(
-        "ext", "stress1024 checker floor 200x100 chunked EXT kernel A", kc,
-        pc, (), big))
-    n_ent = big.n_base_chunks * big.width * big.height
-    bound = _bound(ops, 4 * (big.tables.buf.numel() + big.atlas.numel())
-                   + 36 * n_ent, peak)
-    print(f"[ext] stress1024 checker floor shapes ({n_ent} entries): "
-          f"kernel_base_chunked_ext {ms:.3f} ms (plain {plain_ms:.1f} ms, "
-          f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
-          flush=True)
+    mesh = PathTracer(_checker_stress("icosphere:4"), "cuda")
+    chunked = {}
+    for label, tr in (("stress1024 checker floor", big),
+                      ("mesh5120 checker floor", mesh)):
+        if not tr.chunk_base or not kernels.takes_grouped(tr, "chunked"):
+            fail(f"[ext] {label}: no chunks, or no grouped chunked EXT "
+                 "kernel A")
+        chunked[label] = _spill_both(label, tr, "chunked", peak, tag="ext")
+        err["c"] = max(err["c"], chunked[label]["thread"][0])
     # Kernel B in both forms at the checker stress1024 shapes (its grouped
     # entry over GroupSweep) and at the checker mesh5120 shapes, whose rows
     # exceed the budget (the GroupSpill form).
     spill_row = None
     for label, tr in (("stress1024 checker floor", big),
-                      ("mesh5120 checker floor",
-                       PathTracer(_checker_stress("icosphere:4"), "cuda"))):
+                      ("mesh5120 checker floor", mesh)):
         ph = kernels.base_phase(tr, pose, SEED, 0)
         s = kernels.sorted_stream(tr, ph[2], ph[7])
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
@@ -1712,15 +1744,25 @@ def phase_ext(peak):
               "operations)", flush=True)
         if key == "gs":
             spill_row = (ms_b["grouped"], plain_b, bound_b)
-    # The showcase sorted frame through both forms of kernel B in turns.
+    # The showcase sorted frame through both forms of kernel B, and the
+    # checker mesh5120 frame through both forms of every kernel, in turns.
     _frames_grouped_vs_thread("ext", "showcase", _ext_scene("showcase"))
-    # The kernels line keeps showcase's times.
+    _frames_grouped_vs_thread("ext", "mesh5120 checker floor",
+                              _checker_stress("icosphere:4"), frames=4)
+    # The kernels line keeps showcase's times, and the checker stress1024
+    # shapes' for the chunked EXT kernel A (its GroupSpill form's the
+    # checker mesh5120 shapes').
     ms_a, plain_a, bound_a, ms_b, plain_b, bound_b = results["showcase"]
+    c_big = chunked["stress1024 checker floor"]
+    c_mesh = chunked["mesh5120 checker floor"]
     return launches, {"a": (err["a"], ms_a, plain_a, bound_a),
                       "b": (err["b"], ms_b["thread"], plain_b, bound_b),
                       "g": (err["g"], ms_b["grouped"], plain_b, bound_b),
                       "gs": (err["gs"], *spill_row),
-                      "c": (err["c"], ms, plain_ms, bound)}
+                      "c": (err["c"], *c_big["thread"][1:]),
+                      "cg": (max(err["cg"], c_big["grouped"][0]),
+                             *c_big["grouped"][1:]),
+                      "cgs": c_mesh["grouped"]}
 
 
 # The transport and camera extensions' configurations: the JAX package's
@@ -2068,37 +2110,23 @@ def phase_accel(peak):
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    res, err_gs = {}, {}
+    res, err_gs, err_at_all, err_a_all = {}, {}, {}, {}
     for label, name, accel in ACCEL_KERNELS:
         tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda", accel=accel)
-        wrap_a = getattr(kernels, f"base_kernel_{accel}")
         wrap_b = getattr(kernels, f"extra_kernel_{accel}")
         tag = f"{label} {accel}"
         # The plain versions are timed at the stress1024 shapes only (the
         # walk's plain version steps every lane at once: seconds a call).
         timed = label == "stress1024"
         plain_run = _time_plain if timed else _plain_counted
-        if accel == "grid":
-            # Kernel A's grouped entry, which the wrapper takes, and its
-            # thread-per-pixel entry: bit for bit, both counters the plain
-            # version's, the lane-iterations the plain model's.
-            res_a, k = _base_both("accel", tag, tr, peak)
-            err_a, ms_a, plain_a, bound_a = res_a["grouped"]
-            err_at = res_a["thread"][0]
-        else:
-            k, kc = _counted_launch(tr, lambda: wrap_a(tr, pose, SEED, 0))
-            pc = []
-            plain_a, ops_a, p = plain_run(
-                tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0), pc)
-            err_a = _compare_base("accel", f"{tag} kernel A", k, p,
-                                  ("additional", "var"))
-            _check_counts(f"{tag} kernel A", kc, pc[0])
-            print(f"[accel] {tag} kernel A: {_traversal_counts(accel, kc)}",
-                  flush=True)
-            ms_a = _time_cuda(lambda: wrap_a(tr, pose, SEED, 0), 5)
-            bound_a = _bound(ops_a, 4 * (tr.tables.buf.numel()
-                                         + tr.atlas.numel())
-                             + 44 * k.var.numel(), peak)
+        # Kernel A's grouped entry, which the wrapper takes, and its
+        # thread-per-pixel entry: bit for bit, both counters the plain
+        # version's, the lane-iterations the plain model's.
+        res_a, k = _base_both("accel", tag, tr, peak, timed_plain=timed)
+        err_a, ms_a, plain_a, bound_a = res_a["grouped"]
+        err_at_all[accel] = max(err_at_all.get(accel, 0.0),
+                                res_a["thread"][0])
+        err_a_all[accel] = max(err_a_all.get(accel, 0.0), err_a)
         s = kernels.sorted_stream(tr, k.state, k.additional)
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         b, kc = _counted_launch(tr, lambda: wrap_b(*args))
@@ -2141,12 +2169,13 @@ def phase_accel(peak):
               f"{bound_b[1]}: {ops_b:.4g} operations)", flush=True)
         if timed:
             res[accel, "a"] = (err_a, ms_a, plain_a, bound_a)
-            if accel == "grid":
-                res[accel, "at"] = (err_at,)
+            res[accel, "at"] = res_a["thread"][1:]
             res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
             res[accel, "g"] = (ms_g, plain_b, bound_b)
     for accel in ("grid", "gathered"):
         res[accel, "g"] = (err_gs[accel], *res[accel, "g"])
+        res[accel, "at"] = (err_at_all[accel], *res[accel, "at"])
+        res[accel, "a"] = (err_a_all[accel], *res[accel, "a"][1:])
 
     _grid_vs_dense(pose)
 
@@ -2164,13 +2193,14 @@ def phase_accel(peak):
         _frames_grouped_vs_thread("accel", "stress1024 grid",
                                   _scene("stress:1024", 200, 100, 8, 6),
                                   base_only=base_only, accel="grid")
-    # The gathered frames through both forms of kernel B in turns (kernel
-    # A over the walk has one form).
+    # The gathered frames through both forms of kernels A and B, and of
+    # kernel A alone, in turns.
     for label, name in (("stress1024", "stress:1024"),
                         ("mesh1280", "icosphere:3")):
-        _frames_grouped_vs_thread("accel", f"{label} gathered",
-                                  _scene(name, 200, 100, 8, 6),
-                                  accel="gathered")
+        for base_only in (False, True):
+            _frames_grouped_vs_thread("accel", f"{label} gathered",
+                                      _scene(name, 200, 100, 8, 6),
+                                      base_only=base_only, accel="gathered")
     _add(launches, _run_engine("accel", "north star grid",
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
@@ -2201,9 +2231,8 @@ def phase_accel(peak):
         got = _launches()
         print(f"[accel] cli.main --scene stress:256 --accel {accel} rc {rc}, "
               f"launches {_nonzero(got)}", flush=True)
-        a, b = (f"base_kernel_{accel}", f"extra_kernel_{accel}_grouped")
-        if accel == "grid":
-            a = f"{a}_grouped"
+        a, b = (f"base_kernel_{accel}_grouped",
+                f"extra_kernel_{accel}_grouped")
         want = dict(dict.fromkeys(LAUNCH_NAMES, 0), **{a: 1, b: 1})
         if rc != 0 or got != want:
             fail(f"[accel] cli.main --accel {accel} failed")
@@ -2835,8 +2864,19 @@ def main() -> int:
             ("kernel_extra_ext_grouped_spill",
              "extra_kernel_ext_grouped_spill", "group.cuh", "1031",
              *ext["gs"]),
+            # The chunked EXT kernel A, thread per entry (launched
+            # directly: OFF_PATH) and grouped (csrc/group.cuh over
+            # GroupSweep) at the checker stress1024 shapes, its GroupSpill
+            # form at the checker mesh5120 shapes, where the main path
+            # takes them.
             ("kernel_base_chunked_ext", "base_kernel_chunked_ext",
              "kernel_base.cu", "807", *ext["c"]),
+            ("kernel_base_chunked_ext_grouped",
+             "base_kernel_chunked_ext_grouped", "group.cuh", "807",
+             *ext["cg"]),
+            ("kernel_base_chunked_ext_grouped_spill",
+             "base_kernel_chunked_ext_grouped_spill", "group.cuh", "807",
+             *ext["cgs"]),
             # The transport and camera gates: kernel A's body is the
             # PathTracer built with them at :739, kernel B's at :1013.
             ("kernel_base_xt", "base_kernel_xt", "kernel_base.cu", "739",
@@ -2890,8 +2930,14 @@ def main() -> int:
             # kernel_accel.cu), at the stress1024 shapes.
             ("kernel_extra_grid_grouped", "extra_kernel_grid_grouped",
              "group.cuh", "1033", *acc["grid", "g"]),
+            # Kernel A over the walk, thread per pixel (launched directly:
+            # OFF_PATH) and grouped (csrc/group.cuh GroupWalk; entry in
+            # kernel_accel.cu), at the stress1024 shapes, the errors
+            # including mesh1280's.
             ("kernel_base_gathered", "base_kernel_gathered",
-             "kernel_accel.cu", "808", *acc["gathered", "a"]),
+             "kernel_accel.cu", "808", *acc["gathered", "at"]),
+            ("kernel_base_gathered_grouped", "base_kernel_gathered_grouped",
+             "group.cuh", "808", *acc["gathered", "a"]),
             # Kernel B over the walk, thread per entry (launched directly:
             # OFF_PATH) and grouped (csrc/group.cuh GroupWalk; entry in
             # kernel_accel.cu), at the stress1024 shapes, the grouped

@@ -10,8 +10,9 @@
 // the widths the render libraries ship are constants of kernel_extra.cu,
 // kernel_accel.cu and kernel_base.cu.
 //
-// The grouped kernel B at the EXT gates over GroupSweep<TRT_TUNE_K> and
-// over TuneSpill, and the grouped gathered kernel B over
+// The grouped kernel B and the grouped chunked kernel A at the EXT gates
+// over GroupSweep<TRT_TUNE_K> and over TuneSpill, and the grouped gathered
+// kernels B and A (the latter on the schedule TRT_TUNE_REFILL) over
 // GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK (the row source), TRT_TUNE_THREADS,
 // TRT_TUNE_STAGE_CAP> come under the render libraries' names too.
 //
@@ -218,6 +219,41 @@ extern "C" int trt_kernel_extra_gathered_grouped(const ExtraArgs* a, const trt::
 }
 
 extern "C" int trt_kernel_extra_gathered_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_base_chunked_ext_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                   const float* scene_buf, float* out,
+                                                   long long* state_out,
+                                                   unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<true, false, trt::GroupSweep<TRT_TUNE_K>>(
+      a, *tx, trt::Xt{}, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_ext_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_base_chunked_ext_grouped_spill(const ChunkArgs* a, const trt::Tex* tx,
+                                                         const float* scene_buf, float* out,
+                                                         long long* state_out,
+                                                         unsigned long long* iters,
+                                                         void* stream) {
+  return launch_chunked_grouped<true, false, TuneSpill>(a, *tx, trt::Xt{}, scene_buf, out,
+                                                        state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_ext_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_chunked_ext_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_base_gathered_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                                const trt::Xt* xt, const trt::Accel* acc,
+                                                const float* scene_buf, float* out,
+                                                long long* state_out,
+                                                unsigned long long* iters, unsigned* next,
+                                                void* stream) {
+  return launch_base_grouped<true, true, TuneWalk, (TRT_TUNE_REFILL != 0)>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, next, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_gathered_grouped_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_gathered_grouped_refill() { return TRT_TUNE_REFILL; }
 
 // Kernel A at the XT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
 // kernel_base_resident), the arguments of kernel_base.cu's entry.

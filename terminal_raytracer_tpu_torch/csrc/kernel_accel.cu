@@ -50,6 +50,15 @@
 // takes it for every `--accel gathered` tracer. It replaces the same
 // Pallas kernel as trt_kernel_extra_gathered (:1028 over GatheredPrims,
 // bound at :1032).
+//
+// trt_kernel_base_gathered_grouped is kernel A over the grid walk
+// redesigned the same way (group.cuh kernel_base_grouped over
+// GroupWalk<GROUP_K_BASE_GATHERED, GROUP_SRC_BASE_GATHERED>, the schedule
+// GROUP_REFILL_BASE_GATHERED): a path group carries one pixel, the walk's
+// hits and counters Walk's. It serves every table size; ops/kernels.py
+// takes it for an `--accel gathered` scene of at least GROUP_BASE_MIN_PRIMS
+// primitives. It replaces the same Pallas kernel as trt_kernel_base_gathered
+// (:796 over GatheredPrims, the walk loop at :91-126, bound at :808).
 
 #include "group.cuh"
 
@@ -79,6 +88,23 @@ constexpr bool GROUP_REFILL_BASE_GRID = true;
 // stages nothing and serves every size.
 constexpr int GROUP_K_EXTRA_GATHERED = 32;
 using ExtraWalk = trt::GroupWalk<GROUP_K_EXTRA_GATHERED, trt::WALK_L1>;
+// The same for the grouped gathered kernel A, with its schedule (true:
+// refill): chosen by the sweep of tools/group_k.py --only walk at 200x100,
+// 8 spp, depth 6, the least summed time (PERF.md, the grouped gathered
+// kernel A; ms at stress1024 / mesh1280 / mesh5120, H100 80GB HBM3 at
+// 700 W). Thread per pixel 1.186 / 0.984 / 1.629; rows and CSR through
+// L1, static, K = 4 0.596 / 0.414 / 0.602 (a second run), K = 8 0.483 /
+// 0.292 / 0.385, K = 16 0.597 / 0.297 / 0.331, K = 32 0.787 / 0.302 /
+// 0.368; on the refill schedule 5-9% slower at K = 8 (0.525 / 0.307 /
+// 0.413), within 7% either way at K = 16 and 32; the rows staged, or the
+// CSR and rows, slower at every K and schedule (up to 7.6x at mesh5120,
+// whose rows take the stage). At Cornell_Box (11 primitives) the thread
+// per pixel 0.586 against 1.197 at best: ops/kernels.py
+// GROUP_BASE_MIN_PRIMS keeps it there.
+constexpr int GROUP_K_BASE_GATHERED = 8;
+constexpr int GROUP_SRC_BASE_GATHERED = trt::WALK_L1;
+constexpr bool GROUP_REFILL_BASE_GATHERED = false;
+using BaseWalk = trt::GroupWalk<GROUP_K_BASE_GATHERED, GROUP_SRC_BASE_GATHERED>;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
@@ -189,3 +215,19 @@ extern "C" int trt_kernel_extra_gathered_grouped(const ExtraArgs* a, const trt::
 }
 
 extern "C" int trt_kernel_extra_gathered_grouped_k() { return ExtraWalk::K; }
+
+// The grouped kernel A over the grid walk: the same arguments and outputs
+// as trt_kernel_base_gathered, and `next`, one zeroed u32 (the refill
+// schedule's pixel counter), at any table size.
+extern "C" int trt_kernel_base_gathered_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                                const trt::Xt* xt, const trt::Accel* acc,
+                                                const float* scene_buf, float* out,
+                                                long long* state_out,
+                                                unsigned long long* iters, unsigned* next,
+                                                void* stream) {
+  return launch_base_grouped<true, true, BaseWalk, GROUP_REFILL_BASE_GATHERED>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, next, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_gathered_grouped_k() { return BaseWalk::K; }
+extern "C" int trt_kernel_base_gathered_grouped_refill() { return GROUP_REFILL_BASE_GATHERED; }

@@ -52,7 +52,12 @@
 // trt_kernel_base_chunked stays, launched directly. At the XT gates the
 // same pair is trt_kernel_base_chunked_xt_grouped (GROUP_K_CHUNKED_XT) and
 // trt_kernel_base_chunked_xt_grouped_spill (ChunkedXtSpill), beside the
-// thread-per-entry trt_kernel_base_chunked_xt.
+// thread-per-entry trt_kernel_base_chunked_xt. At the EXT gates it is
+// trt_kernel_base_chunked_ext_grouped (GROUP_K_CHUNKED_EXT) and
+// trt_kernel_base_chunked_ext_grouped_spill (ChunkedExtSpill), beside the
+// thread-per-entry trt_kernel_base_chunked_ext; they replace the same Pallas
+// kernel as trt_kernel_base_chunked_ext (the chunk-major stream with the
+// atlas bound at :807).
 // trt_kernel_base_grouped is kernel A at the reference gates redesigned
 // the same way (group.cuh kernel_base_grouped over GroupSweep<GROUP_K_BASE>,
 // the schedule GROUP_REFILL_BASE: static, group g takes pixel g, or refill,
@@ -118,6 +123,17 @@ using ChunkedXtSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
 // between the runs (0.304 / 0.297 ms and 0.309 / 0.322; 0.598 / 0.590 and
 // 0.626 / 0.611, bound / unbound).
 constexpr int XT_MIN_BLOCKS = 5;
+// The same at the EXT gates (the chunked EXT kernel A), over GroupSweep
+// within the budget and GroupSpill above it: chosen by tools/group_k.py
+// --only ext at 200x100, 8 spp, depth 6, a checker floor (PERF.md, the
+// grouped chunked EXT kernel A; H100 80GB HBM3 at 700 W). Within the
+// budget, at the checker stress1024 (cb = 2): K = 32 0.734 ms (K = 4
+// 1.247, 8 0.978, 16 0.811; thread per entry 3.501). Above it, at the
+// checker mesh5120: K = 32, 512 lanes, 227 KB 2.694 ms (K = 32, 256 lanes
+// 4.466; K = 16, 512 lanes 3.264, 256 lanes 4.461; thread per entry
+// 19.390).
+constexpr int GROUP_K_CHUNKED_EXT = 32;
+using ChunkedExtSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
 // The group width of the grouped kernel A and its schedule (true: refill):
 // chosen by the sweep over K and the schedule of tools/group_k.py at
 // stress256, the bench configuration where the main path takes it (PERF.md,
@@ -234,6 +250,35 @@ extern "C" int trt_kernel_base_chunked_xt_grouped_spill(const ChunkArgs* a, cons
 extern "C" int trt_kernel_base_chunked_xt_grouped_spill_k() { return ChunkedXtSpill::K; }
 extern "C" int trt_kernel_base_chunked_xt_grouped_spill_cap() {
   return ChunkedXtSpill::SMEM_CAP;
+}
+
+// The grouped chunked kernel A at the EXT gates: the same arguments and
+// outputs as trt_kernel_base_chunked_ext; refused (cudaErrorInvalidValue)
+// when the scene's rows exceed the shared-memory budget.
+extern "C" int trt_kernel_base_chunked_ext_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                   const float* scene_buf, float* out,
+                                                   long long* state_out,
+                                                   unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<true, false, trt::GroupSweep<GROUP_K_CHUNKED_EXT>>(
+      a, *tx, trt::Xt{}, scene_buf, out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_ext_grouped_k() { return GROUP_K_CHUNKED_EXT; }
+
+// The grouped chunked kernel A at the EXT gates for tables of any size
+// (group.cuh GroupSpill): the arguments of trt_kernel_base_chunked_ext_grouped.
+extern "C" int trt_kernel_base_chunked_ext_grouped_spill(const ChunkArgs* a, const trt::Tex* tx,
+                                                         const float* scene_buf, float* out,
+                                                         long long* state_out,
+                                                         unsigned long long* iters,
+                                                         void* stream) {
+  return launch_chunked_grouped<true, false, ChunkedExtSpill>(a, *tx, trt::Xt{}, scene_buf, out,
+                                                              state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_chunked_ext_grouped_spill_k() { return ChunkedExtSpill::K; }
+extern "C" int trt_kernel_base_chunked_ext_grouped_spill_cap() {
+  return ChunkedExtSpill::SMEM_CAP;
 }
 
 // The grouped kernel A (group.cuh): the same arguments and outputs as

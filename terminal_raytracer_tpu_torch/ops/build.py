@@ -39,6 +39,11 @@ ENTRY_POINTS = {
                        ("trt_kernel_base_grouped_refill", 0),
                        ("trt_kernel_base_ext", 7),
                        ("trt_kernel_base_chunked_ext", 7),
+                       ("trt_kernel_base_chunked_ext_grouped", 7),
+                       ("trt_kernel_base_chunked_ext_grouped_k", 0),
+                       ("trt_kernel_base_chunked_ext_grouped_spill", 7),
+                       ("trt_kernel_base_chunked_ext_grouped_spill_k", 0),
+                       ("trt_kernel_base_chunked_ext_grouped_spill_cap", 0),
                        ("trt_kernel_base_xt", 8),
                        ("trt_kernel_base_xt_min_blocks", 0),
                        ("trt_kernel_base_chunked_xt", 8),
@@ -77,7 +82,10 @@ ENTRY_POINTS = {
                         ("trt_kernel_base_grid_grouped_k", 0),
                         ("trt_kernel_base_grid_grouped_refill", 0),
                         ("trt_kernel_extra_gathered_grouped", 13),
-                        ("trt_kernel_extra_gathered_grouped_k", 0)),
+                        ("trt_kernel_extra_gathered_grouped_k", 0),
+                        ("trt_kernel_base_gathered_grouped", 10),
+                        ("trt_kernel_base_gathered_grouped_k", 0),
+                        ("trt_kernel_base_gathered_grouped_refill", 0)),
     "kernel_frame.cu": tuple(
         (f"trt_kernel_{mode}{sfx}", n)
         for mode in ("regen", "lockstep")

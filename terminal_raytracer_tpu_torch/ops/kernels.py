@@ -21,8 +21,8 @@ make_sorted_render_frame:
 
 Kernel B at the reference, XT and EXT gates, over the culled sweep of
 `--accel grid` and over the grid walk of `--accel gathered`, kernel A at
-the reference gates and over the
-culled sweep, and the chunked kernel A at the reference and XT gates, take
+the reference gates, over the culled sweep and over the grid walk, and the
+chunked kernel A at the reference, XT and EXT gates, take
 their grouped entries (csrc/group.cuh: a path group of K lanes carries one
 entry, the closest-hit and shadow sweeps split across the group, the
 scene's geometry rows, and the grid's group table, staged in shared
@@ -33,19 +33,21 @@ extra_kernel_grouped, extra_kernel_xt_grouped, extra_kernel_ext_grouped,
 extra_kernel_grid_grouped or extra_kernel_gathered_grouped (csrc/group.cuh
 GroupWalk: the walk's cells split over the group, at every table size),
 base_kernel to base_kernel_grouped,
-base_kernel_grid to base_kernel_grid_grouped, base_kernel_chunked to
-base_kernel_chunked_grouped, base_kernel_chunked_xt to
-base_kernel_chunked_xt_grouped, each counting its own launches. Kernel B
+base_kernel_grid to base_kernel_grid_grouped, base_kernel_gathered to
+base_kernel_gathered_grouped (GroupWalk, every table size),
+base_kernel_chunked to base_kernel_chunked_grouped, base_kernel_chunked_xt
+to base_kernel_chunked_xt_grouped, base_kernel_chunked_ext to
+base_kernel_chunked_ext_grouped, each counting its own launches. Kernel B
 at the reference, XT and EXT gates and the chunked kernel A at the
-reference and XT gates take their grouped entries at every table size:
-above the budget those pass the tracer on to their forms over
+reference, XT and EXT gates take their grouped entries at every table
+size: above the budget those pass the tracer on to their forms over
 csrc/group.cuh GroupSpill (extra_kernel_grouped_spill,
 extra_kernel_xt_grouped_spill, extra_kernel_ext_grouped_spill,
-base_kernel_chunked_grouped_spill,
-base_kernel_chunked_xt_grouped_spill), which
+base_kernel_chunked_grouped_spill, base_kernel_chunked_xt_grouped_spill,
+base_kernel_chunked_ext_grouped_spill), which
 stage the rows that fit their stage cap (group_stage) and read the rest
-from the scene buffer through L1. Kernel A and the grid
-kernels launch their thread-per-entry entries above the budget. The
+from the scene buffer through L1. Kernel A at the reference gates and the
+grid kernels launch their thread-per-entry entries above the budget. The
 thread-per-entry entries of every kernel stay, launched directly by
 _launch_extra / _launch_chunked / _launch_base with their `kind`. Their
 counters of executed lane-iterations count path slots: warp_iters(.., k)
@@ -400,9 +402,10 @@ GROUP_BASE_MIN_PRIMS = 16
 
 
 # The instantiations whose grouped entry serves every table size (its
-# GroupSpill form above GROUP_SMEM_BYTES), by kernel.
+# GroupSpill form above GROUP_SMEM_BYTES; the walk stages no rows), by
+# kernel.
 ANY_SIZE = {"extra": ("ref", "xt", "ext", "gathered"),
-            "chunked": ("ref", "xt"), "base": ()}
+            "chunked": ("ref", "xt", "ext"), "base": ("gathered",)}
 
 
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
@@ -450,28 +453,32 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                     "chunked": "trt_kernel_base_chunked_grouped",
                     "base": "trt_kernel_base_grouped",
                     "base_grid": "trt_kernel_base_grid_grouped",
+                    "base_gathered": "trt_kernel_base_gathered_grouped",
                     "extra_spill": "trt_kernel_extra_grouped_spill",
                     "extra_xt_spill": "trt_kernel_extra_xt_grouped_spill",
                     "chunked_spill": "trt_kernel_base_chunked_grouped_spill",
                     "chunked_xt": "trt_kernel_base_chunked_xt_grouped",
                     "chunked_xt_spill":
-                        "trt_kernel_base_chunked_xt_grouped_spill"}
+                        "trt_kernel_base_chunked_xt_grouped_spill",
+                    "chunked_ext": "trt_kernel_base_chunked_ext_grouped",
+                    "chunked_ext_spill":
+                        "trt_kernel_base_chunked_ext_grouped_spill"}
 
 
 def group_k(kernel: str, lib=None) -> int:
     """The group width K (lanes an entry) that the grouped `kernel` (a key
     of _GROUPED_ENTRIES: 'extra', 'extra_xt', 'extra_ext', 'extra_grid',
-    'extra_gathered', 'chunked', 'chunked_xt', 'base', 'base_grid' or a
-    '*_spill' form) of `lib` (default the render libraries) was built with
-    (on the card)."""
+    'extra_gathered', 'chunked', 'chunked_xt', 'chunked_ext', 'base',
+    'base_grid', 'base_gathered' or a '*_spill' form) of `lib` (default
+    the render libraries) was built with (on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
 
 
 def group_cap(kernel: str, lib=None) -> int:
     """The stage cap (bytes) of the GroupSpill form `kernel`
-    ('extra_spill', 'extra_xt_spill', 'extra_ext_spill', 'chunked_spill' or
-    'chunked_xt_spill')
+    ('extra_spill', 'extra_xt_spill', 'extra_ext_spill', 'chunked_spill',
+    'chunked_xt_spill' or 'chunked_ext_spill')
     of `lib` (default the render libraries; on the card): group_stage's
     `cap`."""
     lib = lib or load_kernels()
@@ -479,7 +486,8 @@ def group_cap(kernel: str, lib=None) -> int:
 
 
 def group_refill(kernel: str, lib=None) -> bool:
-    """Whether the grouped kernel A `kernel` ('base' or 'base_grid') of
+    """Whether the grouped kernel A `kernel` ('base', 'base_grid' or
+    'base_gathered') of
     `lib` (default the render libraries) runs the refill schedule (the
     resident groups take pixels from a counter), not the static one (on the
     card)."""
@@ -545,7 +553,8 @@ def _no_chunks(tracer, name: str) -> None:
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                  kind: str, lib=None) -> BaseOut:
     """Launch kernel A's `kind` instantiation (the grouped entries for
-    'grouped', 'grid_grouped', which also take a zeroed pixel counter),
+    'grouped', 'grid_grouped', 'gathered_grouped', which also take a zeroed
+    pixel counter),
     from `lib` (default the render libraries). Its quota (BaseArgs.base),
     and with it the epilogue's 1 / base and budget cap, is the runtime
     share `base_q` where one is given (counted in
@@ -703,14 +712,42 @@ def base_kernel_gathered(tracer, pose, seed: int, frame_number: int,
                          y0: int = 0, h_out: int = None,
                          base_q: int = None) -> BaseOut:
     """Kernel A over the grid walk: base_kernel for a tracer with accel
-    'gathered' (XT instantiation)."""
+    'gathered' (XT instantiation); the grouped entry
+    base_kernel_gathered_grouped where takes_grouped(tracer, 'base')."""
     _require_traversal(tracer, "gathered", "base_kernel_gathered")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_gathered"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
                                  base_q)
+    if takes_grouped(tracer, "base"):
+        return base_kernel_gathered_grouped(tracer, pose, seed, frame_number,
+                                            y0, h_out, base_q)
     out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                        "gathered")
     base_kernel_gathered.launches += 1
+    return out
+
+
+def base_kernel_gathered_grouped(tracer, pose, seed: int, frame_number: int,
+                                 y0: int = 0, h_out: int = None,
+                                 base_q: int = None) -> BaseOut:
+    """Kernel A's grouped entry over the grid walk (csrc/group.cuh
+    kernel_base_grouped over GroupWalk, XT instantiation):
+    group_k('base_gathered') lanes a pixel on the schedule
+    group_refill('base_gathered'), each cell's bucket split across the
+    group, the traversal counters the plain version's. For an `--accel
+    gathered` tracer of any table size; base_kernel_gathered takes it for
+    such a tracer of at least GROUP_BASE_MIN_PRIMS primitives
+    (takes_grouped)."""
+    _require_grouped(tracer, "base_kernel_gathered_grouped", "gathered",
+                     any_size=True)
+    _no_chunks(tracer, "base_kernel_gathered_grouped")
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_gathered_grouped"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "gathered_grouped")
+    base_kernel_gathered_grouped.launches += 1
     return out
 
 
@@ -722,9 +759,11 @@ base_kernel_xt.launches = 0
 base_kernel_grid.launches = 0
 base_kernel_grid_grouped.launches = 0
 base_kernel_gathered.launches = 0
+base_kernel_gathered_grouped.launches = 0
 
 # The grouped kernel A of each instantiation that has one.
-GROUPED_BASE = {"ref": base_kernel_grouped, "grid": base_kernel_grid_grouped}
+GROUPED_BASE = {"ref": base_kernel_grouped, "grid": base_kernel_grid_grouped,
+                "gathered": base_kernel_gathered_grouped}
 
 
 def base_entry_iters(tracer, pose, seed: int, frame_number: int, y0: int = 0,
@@ -772,7 +811,8 @@ def chunked_entry_iters(tracer, pose, seed: int, frame_number: int,
 def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                     kind: str, lib=None) -> ChunkedBaseOut:
     """Launch the chunked kernel A's `kind` instantiation (the grouped
-    entries for 'grouped', 'xt_grouped' and their '_spill' forms), from
+    entries for 'grouped', 'xt_grouped', 'ext_grouped' and their '_spill'
+    forms), from
     `lib` (default the render libraries)."""
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
@@ -803,8 +843,8 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     needs the per-pixel totals. base_kernel_chunked_ext / _xt for a tracer
     with the extensions, base_kernel_chunked_grid / _gathered for one with
     that traversal; the grouped entries (base_kernel_chunked_grouped,
-    base_kernel_chunked_xt_grouped) where takes_grouped(tracer,
-    'chunked')."""
+    base_kernel_chunked_xt_grouped, base_kernel_chunked_ext_grouped) where
+    takes_grouped(tracer, 'chunked')."""
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -874,13 +914,62 @@ def base_kernel_chunked_grouped_spill(tracer, pose, seed: int,
 def base_kernel_chunked_ext(tracer, pose, seed: int, frame_number: int,
                             y0: int = 0, h_out: int = None
                             ) -> ChunkedBaseOut:
-    """The chunked kernel A's EXT instantiation."""
+    """The chunked kernel A's EXT instantiation: its grouped entry
+    base_kernel_chunked_ext_grouped where takes_grouped(tracer, 'chunked')
+    (every table size), else the thread per entry."""
     _require_ext(tracer, "base_kernel_chunked_ext")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_ext"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if takes_grouped(tracer, "chunked"):
+        return base_kernel_chunked_ext_grouped(tracer, pose, seed,
+                                               frame_number, y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "ext")
     base_kernel_chunked_ext.launches += 1
+    return out
+
+
+def base_kernel_chunked_ext_grouped(tracer, pose, seed: int,
+                                    frame_number: int, y0: int = 0,
+                                    h_out: int = None) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped entry at the EXT gates (csrc/group.cuh
+    over GroupSweep): group_k('chunked_ext') lanes an entry, as
+    base_kernel_chunked_grouped. For an EXT tracer over the table sweep;
+    base_kernel_chunked_ext takes it for such a tracer. Rows over
+    GROUP_SMEM_BYTES go on to base_kernel_chunked_ext_grouped_spill."""
+    _require_grouped(tracer, "base_kernel_chunked_ext_grouped", "ext",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_ext_grouped"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    if _over_budget(tracer):
+        return base_kernel_chunked_ext_grouped_spill(tracer, pose, seed,
+                                                     frame_number, y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "ext_grouped")
+    base_kernel_chunked_ext_grouped.launches += 1
+    return out
+
+
+def base_kernel_chunked_ext_grouped_spill(tracer, pose, seed: int,
+                                          frame_number: int, y0: int = 0,
+                                          h_out: int = None
+                                          ) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped form at the EXT gates for any table
+    size (csrc/group.cuh GroupSpill): group_k('chunked_ext_spill') lanes an
+    entry, as base_kernel_chunked_grouped_spill. For an EXT tracer over the
+    table sweep; base_kernel_chunked_ext_grouped takes it where the rows
+    exceed GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "base_kernel_chunked_ext_grouped_spill", "ext",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_ext_grouped_spill"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "ext_grouped_spill")
+    base_kernel_chunked_ext_grouped_spill.launches += 1
     return out
 
 
@@ -977,6 +1066,8 @@ base_kernel_chunked.launches = 0
 base_kernel_chunked_grouped.launches = 0
 base_kernel_chunked_grouped_spill.launches = 0
 base_kernel_chunked_ext.launches = 0
+base_kernel_chunked_ext_grouped.launches = 0
+base_kernel_chunked_ext_grouped_spill.launches = 0
 base_kernel_chunked_xt.launches = 0
 base_kernel_chunked_xt_grouped.launches = 0
 base_kernel_chunked_xt_grouped_spill.launches = 0
@@ -986,7 +1077,8 @@ base_kernel_chunked_gathered.launches = 0
 # The grouped chunked kernel A of each instantiation that has one (each
 # passes a table over the budget on to its GroupSpill form).
 GROUPED_CHUNKED = {"ref": base_kernel_chunked_grouped,
-                   "xt": base_kernel_chunked_xt_grouped}
+                   "xt": base_kernel_chunked_xt_grouped,
+                   "ext": base_kernel_chunked_ext_grouped}
 
 
 # ---------------------------------------------------------------------------

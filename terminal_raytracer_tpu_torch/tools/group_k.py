@@ -74,19 +74,25 @@ registers, stack and spill stores, and for kernel A the resident blocks
 an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves of
 its grid.
 
-`--only ext` sweeps kernel B at the EXT gates: the grouped entry over
-GroupSweep at K of EXT_KS on the five extension scenes at their own size
-(400x200) and on stress:1024 with a checker floor (200x100, 8 spp, depth
-6), and its GroupSpill forms (EXT_SPILL: K, block width; a 227 KB cap) at
-icosphere:4 with a checker floor, each beside the thread per entry.
-`--only walk` sweeps kernel B over the grid walk (csrc/group.cuh
+`--only ext` sweeps kernel B and the chunked kernel A at the EXT gates:
+kernel B's grouped entry over GroupSweep at K of EXT_KS on the five
+extension scenes at their own size (400x200) and on stress:1024 with a
+checker floor (200x100, 8 spp, depth 6; its chunk-major stream of cb = 2
+for the chunked A), the chunked A's at K of CHUNKED_EXT_KS on the checker
+stress:1024, and the GroupSpill forms of both (EXT_SPILL: K, block width;
+a 227 KB cap) at icosphere:4 with a checker floor, each beside the thread
+per entry, bit for bit with the lane-iterations the plain model's.
+`--only walk` sweeps kernels B and A over the grid walk (csrc/group.cuh
 GroupWalk) at stress1024, mesh1280 and mesh5120 under --accel gathered
-(200x100, 8 spp, depth 6): walk_forms, K (--ks, default WALK_KS) by row
-source (rows and CSR
-through L1; rows staged; CSR and rows staged), 128 lanes a block, a 227 KB
-cap, beside the thread per entry (traverse.cuh Walk), the walk counters
-against the plain version's and the thread per entry's. Both print each
-form's ptxas registers and spills. Needs a CUDA GPU (exit 2 without one).
+(200x100, 8 spp, depth 6), and kernel A also at Cornell_Box (the same
+size; 11 primitives, where the thread per pixel is expected to win):
+walk_forms, K (--ks; default WALK_KS for B, WALK_A_KS for A) by row source
+(rows and CSR through L1; rows staged; CSR and rows staged), kernel A on
+both schedules (static, refill), 128 lanes a block, a 227 KB cap, beside
+the thread per entry or pixel (traverse.cuh Walk), the walk counters
+against the plain version's and (B) the thread per entry's. Both print
+each form's ptxas registers and spills. Needs a CUDA GPU (exit 2 without
+one).
 """
 
 from __future__ import annotations
@@ -283,21 +289,26 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
               extra=ptxas.get(k, ""))
 
 
-def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None):
-    """Kernel A of `tr`'s instantiation ('ref' or 'grid'): thread per
-    pixel, then the grouped entry of every library of `libs` ({label:
-    library}, each of its K and schedule), bit for bit against the plain
-    version, with the occupancy."""
+def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None,
+                ptxas=None):
+    """Kernel A of `tr`'s instantiation ('ref', 'grid' or 'gathered'):
+    thread per pixel, then the grouped entry of every library of `libs`
+    ({label: library}, each of its K and schedule), bit for bit against the
+    plain version (under an opt-in traversal its counters too), with the
+    occupancy; each line with `ptxas`[label] where given."""
+    ptxas = ptxas or {}
     kind = kernels._kind(tr)
     grouped = "grouped" if kind == "ref" else f"{kind}_grouped"
     entry = "base" if kind == "ref" else f"base_{kind}"
-    if tr.traversal == "grid":
+    if tr.traversal:
         tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
     p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
     plain_stats = None
-    if tr.traversal == "grid":
+    if tr.traversal:
         plain_stats = tr.prims.stats.long().cpu()
         tr.prims.ops = None
+        print(f"[group_k] {label} kernel A counters: plain "
+              f"{plain_stats.tolist()}", flush=True)
     want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
     it = kernels.base_entry_iters(tr, pose, seed, 0, base_q=base_q)
     owed = float(p.rays.sum(dtype=torch.float64))
@@ -320,7 +331,8 @@ def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None):
                                    o.additional, o.state), want), model, it,
               None if stats is None else bool(torch.equal(stats,
                                                           plain_stats)),
-              f", occupancy {owed / (float(o.iters) * per_iter):.3f}")
+              f", occupancy {owed / (float(o.iters) * per_iter):.3f}"
+              + ptxas.get(k, ""))
 
     out = _counted(tr, lambda: launch(kind))
     report(f"{label} kernel A", "thread", out, _time(lambda: launch(kind),
@@ -590,22 +602,26 @@ def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
         _sweep_base_xt(label, tr, pose, SEED, libs, logs, reps)
 
 
-# --only ext: the grouped EXT kernel B's K over GroupSweep (K = 1 from its
-# own library, the rest from the walk_forms libraries at WALK_L1, whose
-# GroupSweep entries do not depend on the walk's defines), and its
-# GroupSpill forms (K, block width) at a 227 KB cap.
+# --only ext: the grouped EXT kernel B's K over GroupSweep, the grouped
+# chunked EXT kernel A's K over GroupSweep (CHUNKED_EXT_KS), one library a
+# K, and the GroupSpill forms (K, block width) of both at a 227 KB cap.
 EXT_KS = (1, 2, 4, 8, 16)
+CHUNKED_EXT_KS = (4, 8, 16, 32)
 EXT_SPILL = tuple((k, t) for k in (16, 32) for t in (256, 512))
 # --only walk: the grouped gathered kernel B's (K, row source: 0 rows and
 # CSR through L1, 1 rows staged, 2 CSR and rows staged; walk_forms) at 128
-# lanes a block and a 227 KB stage cap.
+# lanes a block and a 227 KB stage cap; the grouped gathered kernel A's the
+# same at the widths WALK_A_KS, on both schedules.
 WALK_KS = (2, 4, 8, 16, 32)
+WALK_A_KS = (8, 16, 32)
 WALK_SOURCES = ("L1", "rows staged", "CSR and rows staged")
 
 
 def walk_forms(ks=WALK_KS):
     """The (K, row source) forms of --only walk at the group widths `ks`."""
     return tuple((k, src) for k in ks for src in (0, 1, 2))
+
+
 def _checker(scene):
     """`scene` with a checker floor (its first plane): the EXT instantiation
     at array scale, as chip_smoke.py's checker stress:1024."""
@@ -617,29 +633,44 @@ def _checker(scene):
     return dataclasses.replace(scene, planes=(floor._replace(material=mat),))
 
 
-def _walk_libs(ks=WALK_KS):
-    """The group_tune.cu builds of --only ext and --only walk: {label:
-    (source, defines)} of the walk forms at the group widths `ks`, the K = 1
-    library and the EXT GroupSpill forms."""
-    walk = {f"{k} {WALK_SOURCES[src]}": (build.TUNE_SOURCE, (
-        f"TRT_TUNE_K={k}", "TRT_TUNE_THREADS=128",
-        f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_MAX}", f"TRT_TUNE_WALK={src}"))
-        for k, src in walk_forms(ks)}
-    one = {"1": (build.TUNE_SOURCE, ("TRT_TUNE_K=1",))}
+def _walk_libs(ks=WALK_KS, a_ks=WALK_A_KS):
+    """The group_tune.cu builds of --only walk: {label: (source, defines)}
+    of the walk forms at the group widths `ks` (the static schedule), and
+    of those at `a_ks` on the refill schedule (kernel A)."""
+    def forms(ks_, refill):
+        return {f"{k} {WALK_SOURCES[src]}{' refill' if refill else ''}": (
+            build.TUNE_SOURCE, (
+                f"TRT_TUNE_K={k}", "TRT_TUNE_THREADS=128",
+                f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_MAX}",
+                f"TRT_TUNE_WALK={src}") + (("TRT_TUNE_REFILL=1",) if refill
+                                           else ()))
+            for k, src in walk_forms(ks_)}
+
+    return forms(sorted(set(ks) | set(a_ks)), False), forms(a_ks, True)
+
+
+def _ext_libs():
+    """The group_tune.cu builds of --only ext: {label: (source, defines)} of
+    the GroupSweep widths (EXT_KS, CHUNKED_EXT_KS) and of the GroupSpill
+    forms (EXT_SPILL) at a 227 KB cap."""
+    sweep = {str(k): (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",))
+             for k in sorted(set(EXT_KS) | set(CHUNKED_EXT_KS))}
     spill = {f"{k} t{t} cap{GROUP_SMEM_MAX}": (build.TUNE_SOURCE, (
         f"TRT_TUNE_K={k}", f"TRT_TUNE_THREADS={t}",
         f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_MAX}")) for k, t in EXT_SPILL}
-    return walk, one, spill
+    return sweep, spill
 
 
 def sweep_ext_walk(only, reps, ks=None) -> None:
     """--only ext, --only walk (the module docstring); `ks`: the walk's
-    group widths (default WALK_KS; --only ext takes K = 2, 4, 8, 16 from
-    those libraries)."""
-    walk, one, spill = _walk_libs(ks or (WALK_KS if only == "walk"
-                                         else EXT_KS[1:]))
-    srcs = {**walk, **(one if only == "ext" else {}),
-            **(spill if only == "ext" else {})}
+    group widths (default WALK_KS for kernel B, WALK_A_KS for kernel A;
+    --only ext ignores it)."""
+    if only == "walk":
+        walk, refill = _walk_libs(ks or WALK_KS, ks or WALK_A_KS)
+        srcs = {**walk, **refill}
+    else:
+        sweep, spill = _ext_libs()
+        srcs = {**sweep, **spill}
     t0 = time.perf_counter()
     paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values()))
     print(f"[group_k] {len(paths)} libraries built in "
@@ -656,15 +687,27 @@ def sweep_ext_walk(only, reps, ks=None) -> None:
             width=w, height=h, samples_per_pixel=spp, max_depth=depth)
 
     if only == "walk":
+        b_ks = set(ks or WALK_KS)
         libs = {label: build.load_kernels((src,))
-                for label, src in walk.items()}
+                for label, src in walk.items()
+                if int(label.split()[0]) in b_ks}
         marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb1EN3trt9"
                                "GroupWalk") for label, src in walk.items()}
         marks["thread"] = _ptxas(log("kernel_accel.cu"),
                                  "12kernel_extraILb1ELb1EN3trt4Walk")
+        a_ks = set(ks or WALK_A_KS)
+        a_libs = {label: build.load_kernels((src,))
+                  for label, src in {**walk, **refill}.items()
+                  if int(label.split()[0]) in a_ks}
+        a_marks = {label: _ptxas(log(src), "19kernel_base_groupedILb1ELb1EN3"
+                                 "trt9GroupWalk")
+                   for label, src in {**walk, **refill}.items()}
+        a_marks["thread"] = _ptxas(log("kernel_accel.cu"),
+                                   "11kernel_baseILb1ELb1EN3trt4Walk")
         for label, name in (("stress1024", "stress:1024"),
                             ("mesh1280", "icosphere:3"),
-                            ("mesh5120", "icosphere:4")):
+                            ("mesh5120", "icosphere:4"),
+                            ("Cornell_Box", "Cornell_Box")):
             tr = PathTracer(scene(name, 200, 100, 8, 6), "cuda",
                             accel="gathered")
             h = kernels.accel_args(tr)
@@ -676,22 +719,32 @@ def sweep_ext_walk(only, reps, ks=None) -> None:
                   f"beside the CSR "
                   f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX - csr)}"
                   " (triangles, spheres, planes)", flush=True)
-            _sweep_extra(f"{label} gathered", tr, pose, SEED, libs, reps,
-                         ptxas=marks)
+            if label != "Cornell_Box":
+                _sweep_extra(f"{label} gathered", tr, pose, SEED, libs, reps,
+                             ptxas=marks)
+            _sweep_base(f"{label} gathered", tr, pose, SEED, a_libs, reps,
+                        ptxas=a_marks)
         return
-    libs = {label: build.load_kernels((src,)) for label, src in
-            {**one, **{k: v for k, v in walk.items() if k.endswith(" L1")}}
-            .items()}
-    marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb0EN3trt10"
-                           "GroupSweep") for label, src in
-             {**one, **walk}.items()}
+    libs = {k: build.load_kernels((src,)) for k, src in sweep.items()}
+    marks = {k: _ptxas(log(src), "kernel_extra_groupedILb1ELb0EN3trt10"
+                       "GroupSweep") for k, src in sweep.items()}
     marks["thread"] = _ptxas(log("kernel_extra.cu"), "12kernel_extraILb1ELb0E")
+    b_libs = {k: lib for k, lib in libs.items() if int(k) in EXT_KS}
     for name in ("cornell_glass", "showcase", "textured", "envmap", "bumpy"):
         _sweep_extra(f"{name} 400x200", PathTracer(scene(name), "cuda"), pose,
-                     SEED, libs, reps, ptxas=marks)
-    _sweep_extra("stress1024 checker", PathTracer(
-        _checker(scene("stress:1024", 200, 100, 8, 6)), "cuda"), pose, SEED,
-        libs, reps, ptxas=marks)
+                     SEED, b_libs, reps, ptxas=marks)
+    big = PathTracer(_checker(scene("stress:1024", 200, 100, 8, 6)), "cuda")
+    _sweep_extra("stress1024 checker", big, pose, SEED, b_libs, reps,
+                 ptxas=marks)
+    # The chunked EXT kernel A within the budget.
+    a_marks = {k: _ptxas(log(src), "kernel_base_chunked_groupedILb1ELb0EN3trt"
+                         "10GroupSweep") for k, src in sweep.items()}
+    a_marks["thread"] = _ptxas(log("kernel_base.cu"),
+                               "19kernel_base_chunkedILb1ELb0E")
+    _sweep_chunked("stress1024 checker", big, pose, SEED,
+                   {k: lib for k, lib in libs.items()
+                    if int(k) in CHUNKED_EXT_KS}, reps, ptxas=a_marks)
+    # Both over the budget, GroupSpill.
     libs = {label: build.load_kernels((src,)) for label, src in spill.items()}
     marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb0EN3trt10"
                            "GroupSpill") for label, src in spill.items()}
@@ -704,6 +757,13 @@ def sweep_ext_walk(only, reps, ks=None) -> None:
           flush=True)
     _sweep_extra("mesh5120 checker", tr, pose, SEED, libs, reps, spill=True,
                  ptxas=marks)
+    a_marks = {label: _ptxas(log(src), "kernel_base_chunked_groupedILb1ELb0EN"
+                             "3trt10GroupSpill")
+               for label, src in spill.items()}
+    a_marks["thread"] = _ptxas(log("kernel_base.cu"),
+                               "19kernel_base_chunkedILb1ELb0E")
+    _sweep_chunked("mesh5120 checker", tr, pose, SEED, libs, reps, spill=True,
+                   ptxas=a_marks)
 
 
 def main(argv=None):

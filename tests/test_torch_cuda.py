@@ -178,12 +178,15 @@ def test_ext_chunked_kernel_matches_plain_version(cuda_device):
     scene = load_scene("showcase").with_overrides(
         width=64, height=16, samples_per_pixel=32, max_depth=8)
     tr = PathTracer(scene, cuda_device, chunk_base=2, chunk_extra=2)
-    n0 = kernels.base_kernel_chunked_ext.launches
+    n0 = kernels.base_kernel_chunked_ext_grouped.launches
     k = kernels.base_kernel_chunked(tr, POSE, SEED, 0)
     p = kernels.base_kernel_chunked_plain(tr, POSE, SEED, 0)
-    assert kernels.base_kernel_chunked_ext.launches == n0 + 1
+    assert kernels.base_kernel_chunked_ext_grouped.launches == n0 + 1
     assert k.rays.shape == (4, 16, 64)
     _assert_base_equal(k, p)
+    # The thread-per-entry entry, which no dispatch takes now.
+    _assert_base_equal(kernels._launch_chunked(tr, POSE, SEED, 0, 0, None,
+                                               "ext"), p)
 
 
 @pytest.mark.cuda

@@ -12,7 +12,7 @@ t within rtol 1e-5 and p within rtol / atol 1e-5 (as
 tests/test_torch_ops.py), and a sphere normal, which amplifies them at
 grazing incidence, within 1e-4. Radiance
 within rtol 1e-4 / atol 1e-5, but for the knife-edge pixels of
-sphere-light scenes (test_torch_scale.py: at most 3%) and, with fog under
+sphere-light scenes (a counted few, KNIFE) and, with fog under
 MIS, at most 2 pixels each at most 1e-4 off (test_torch_medium.py).
 """
 
@@ -40,13 +40,18 @@ from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
 from test_torch_accel import (_j, _off, _t, assert_hits_equal,
                               random_rays)
+from test_torch_knife import KnifeEdges  # noqa: E402
 from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
 warm_vml()
 
 POSE = Camera().pose()
-KNIFE_EDGE = 0.03
+# Knife-edge bounds of the sphere-light frames, by scene: (pixels off,
+# their summed error), the largest the test's seed shows on the CPU (the
+# error rounded up to 3 digits).
+KNIFE = {"stress:48:3": (0, 0.0), "stress:96:3": (2, 0.000977),
+         "icosphere:1": (1, 0.0739)}
 SCENES = ["stress:96:3", "icosphere:1", "showcase", "Cornell_Box",
           "mesh_demo"]
 
@@ -183,7 +188,7 @@ def test_render_frame_matches_jax_oracle(name, over, transport, seed):
             assert off.sum() <= 2
             assert np.abs(got - np.stack(jcur)).max() <= 1e-4
         else:
-            assert off.mean() <= KNIFE_EDGE
+            KnifeEdges().add(got, np.stack(jcur)).check(KNIFE[name])
     for a, b in zip(plain[:3], piped[:3]):
         for x, y in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):

@@ -11,9 +11,9 @@ budgets and end states exact; sums within rtol 1e-4 / atol 1e-5 but for
 at most one knife-edge pixel in 1,024 off by at most 1e-4 (at 64x16 one
 pixel's green sum differs by 1.6e-5 with equal rays: an ulp of XLA-CPU's
 transcendentals moves a direction, as in tests/test_torch_transport.py),
-and under `--accel grid` at stress:120, whose lights are spheres, at most
-3% of the pixels beyond it (the NEE self-shadow knife edge of
-tests/test_torch_accel.py).
+and under `--accel grid` at stress:120, whose lights are spheres, the
+counted knife edges of KNIFE_GRID beyond it (the NEE self-shadow of
+tests/test_torch_slice.py).
 
 The `cuda` tests hold both grouped entries against their plain versions on
 the card bit for bit (whole image, a row block, a runtime quota; the grid's
@@ -32,6 +32,7 @@ from terminal_raytracer_tpu_torch.models import Camera, load_scene  # noqa: E402
 from terminal_raytracer_tpu_torch.models.scene import Fog  # noqa: E402
 from terminal_raytracer_tpu_torch.ops import build, kernels  # noqa: E402
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer  # noqa: E402
+from test_torch_knife import KnifeEdges  # noqa: E402
 from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
@@ -40,7 +41,10 @@ warm_vml()
 POSE = Camera().pose()
 SEED = 42
 RTOL, ATOL = 1e-4, 1e-5
-KNIFE_EDGE = 0.03
+# The grid kernel A at stress:120 against the JAX kernel A: (pixels off,
+# their summed error), as the test's seed shows on the CPU (the error
+# rounded up to 3 digits).
+KNIFE_GRID = (1, 0.000509)
 CORNELL = dict(width=64, height=16, samples_per_pixel=16, max_depth=3)
 STRESS = ("stress:120", dict(width=32, height=8, samples_per_pixel=8,
                              max_depth=3))
@@ -80,20 +84,25 @@ def _knife_edges(got, want, n_max=1):
     (lambda: _scene("showcase"), "auto", "base_kernel_ext"),
     (lambda: _scene("Cornell_Box", fog=Fog(density=0.15)), "auto",
      "base_kernel_xt"),
-    (lambda: _scene("stress:96"), "gathered", "base_kernel_gathered")])
+    (lambda: _scene("stress:96"), "gathered",
+     "base_kernel_gathered_grouped"),
+    (lambda: _scene("Cornell_Box"), "gathered", "base_kernel_gathered")])
 def test_kernel_a_dispatch(scene, accel_, want):
     """Kernel A's entry by instantiation and table size: the reference
     gates and the culled sweep take their grouped entries where what they
     stage fits the budget and the scene has GROUP_BASE_MIN_PRIMS
     primitives (Cornell_Box's 11 are too few, demo's 21 not), the
-    thread-per-pixel ones otherwise; EXT, XT and gathered keep theirs."""
+    thread-per-pixel ones otherwise; the walk (`--accel gathered`) takes
+    its grouped entry at every table size from GROUP_BASE_MIN_PRIMS
+    primitives on; EXT and XT keep theirs."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     grouped = kernels.takes_grouped(tr, "base")
     assert grouped == want.endswith("grouped")
     assert grouped == (
-        kind in ("ref", "grid")
-        and kernels.group_smem_bytes(tr) <= kernels.GROUP_SMEM_BYTES
+        (kind in ("ref", "grid")
+         and kernels.group_smem_bytes(tr) <= kernels.GROUP_SMEM_BYTES
+         or kind in kernels.ANY_SIZE["base"])
         and tr.scene.primitive_count >= kernels.GROUP_BASE_MIN_PRIMS)
     got = kernels.GROUPED_BASE[kind].__name__ if grouped else (
         "base_kernel" + ("" if kind == "ref" else f"_{kind}"))
@@ -217,7 +226,7 @@ def test_grid_kernel_a_matches_pallas_kernel_a_under_grid():
     """base_kernel on a CPU tracer under `--accel grid` (which takes the
     grouped grid entry on the card) against the JAX kernel A with accel
     'grid' at stress:120: rays and budgets exact, sums within the
-    tolerance but for at most KNIFE_EDGE of the pixels."""
+    tolerance but for the knife edges of KNIFE_GRID."""
     name, over = STRESS
     jcsum, jcsq, jstate, jrays, _it, jvar, jadd = _jax_kernel_a(
         "grid", name, over, 0, accel="grid")
@@ -229,7 +238,8 @@ def test_grid_kernel_a_matches_pallas_kernel_a_under_grid():
     np.testing.assert_array_equal(t.additional.numpy(), jadd)
     np.testing.assert_array_equal(t.state.numpy(), jstate.astype(np.int64))
     got = np.stack([v.numpy() for v in (*t.csum, *t.csumsq, t.var)])
-    assert _off(got, np.stack([*jcsum, *jcsq, jvar])) <= KNIFE_EDGE
+    KnifeEdges(RTOL, ATOL).add(got, np.stack([*jcsum, *jcsq, jvar])).check(
+        KNIFE_GRID)
 
 
 @pytest.mark.parametrize("y0, h_out, q", [(0, None, None), (3, 5, None),

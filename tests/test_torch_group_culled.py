@@ -323,7 +323,7 @@ def test_kernel_b_dispatch(scene, accel_, want):
     the budget (the grid's group table counted), the thread-per-entry one
     above it; EXT and gathered tracers take theirs at every size (tests/
     test_torch_group_walk.py); the chunked kernel A's grouped
-    entry serves the reference and XT gates over the table sweep."""
+    entry serves the reference, XT and EXT gates over the table sweep."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     table = tr.tables.acc.numel() if kind == "grid" else 0
@@ -335,7 +335,7 @@ def test_kernel_b_dispatch(scene, accel_, want):
         "extra_kernel" + ("" if kind == "ref" else f"_{kind}"))
     assert got == want
     assert kernels.takes_grouped(tr, "chunked") == (
-        kind in ("ref", "xt") and grouped)
+        kind in ("ref", "xt", "ext") and grouped)
 
 
 def _stream(tr, budget=2.0):

@@ -43,6 +43,7 @@ from terminal_raytracer_tpu_torch.ops import geometry as geom  # noqa: E402
 from terminal_raytracer_tpu_torch.ops import kernels  # noqa: E402
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer  # noqa: E402
 from terminal_raytracer_tpu_torch.ops.vecmath import V3  # noqa: E402
+from test_torch_knife import KnifeEdges  # noqa: E402
 from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
@@ -53,7 +54,9 @@ N_RAYS = 256
 POSE = Camera().pose()
 SEED = 42
 RTOL, ATOL = 1e-4, 1e-5
-KNIFE_EDGE = 0.03  # share of pixels allowed off (sphere-light scenes)
+# Knife-edge bounds of the frames through the dispatch, by scene: (pixels
+# off, their summed error), as the test's seed shows on the CPU: none.
+KNIFE = {"showcase": (0, 0.0), "stress:64": (0, 0.0)}
 SPLIT_CAPS = (0, 168)  # tests/test_torch_group_spill.py
 SCENES = {"stress:64": ((-10, 0.2, -22), (10, 8, 0)),
           "icosphere:1": ((-3, -1, -8), (3, 4, 2))}
@@ -327,13 +330,15 @@ def _checker(scene):
 def test_new_kernel_b_dispatch(scene, accel_, want, spill):
     """EXT tracers take the grouped EXT kernel B at every size (over the
     budget it passes them on to its GroupSpill form), gathered tracers the
-    grouped walk at every size."""
+    grouped walk at every size; the chunked kernel A is grouped at the EXT
+    gates (tests/test_torch_group_a2.py), not over the walk."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     assert kernels.takes_grouped(tr)
     assert kernels.GROUPED_EXTRA[kernels._kind(tr)].__name__ == want
     assert (kernels._kind(tr) in kernels.SPILL_EXTRA
             and kernels._over_budget(tr)) is spill
-    assert not kernels.takes_grouped(tr, "chunked")
+    assert kernels.takes_grouped(tr, "chunked") is (kernels._kind(tr)
+                                                    == "ext")
 
 
 def _stream(tr, budget=2.0):
@@ -377,13 +382,6 @@ def test_new_wrappers_take_the_plain_versions_on_the_cpu(fn, scene, accel_):
             kernels.extra_kernel_ext_grouped_spill.launches) == counts
 
 
-def _off(got, want):
-    """Share of pixels outside rtol/atol in any channel."""
-    got, want = np.asarray(got), np.asarray(want)
-    bad = np.abs(got - want) > ATOL + RTOL * np.abs(want)
-    return bad.reshape(-1, *bad.shape[-2:]).any(0).mean()
-
-
 @pytest.mark.parametrize("name, accel_, wrapper", [
     ("showcase", "auto", "extra_kernel_ext_grouped"),
     ("stress:64", "gathered", "extra_kernel_gathered_grouped")])
@@ -410,8 +408,8 @@ def test_frame_through_the_new_dispatch_matches_jax_oracle(name, accel_,
     assert float(rays) == float(jrays)
     np.testing.assert_array_equal(tot.numpy(), jtot)
     assert (jtot > tr.base_samples).any()
-    assert _off(np.stack([c.numpy() for c in cur]), np.stack(jcur)) \
-        <= KNIFE_EDGE
+    KnifeEdges(RTOL, ATOL).add(np.stack([c.numpy() for c in cur]),
+                               np.stack(jcur)).check(KNIFE[name])
 
 
 # ----------------------------------------------------------- on the card

@@ -44,6 +44,7 @@ from terminal_raytracer_tpu_torch.runtime import (init_state,
                                                   state_from_numpy,
                                                   state_to_numpy)
 from terminal_raytracer_tpu_torch.runtime.blit import Blitter
+from test_torch_knife import KnifeEdges  # noqa: E402
 from test_torch_vml import warm_vml  # noqa: E402
 
 torch.set_num_threads(2)
@@ -53,11 +54,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSE = Camera().pose()
 SEEDS = (1001, 1002, 1003)
 RTOL, ATOL = 1e-4, 1e-5
-# (scene, width, height, spp, depth, full_color, knife-edge pixel allowance)
+# (scene, width, height, spp, depth, full_color, knife-edge bounds: (pixels
+# off, their summed error) of the first frame and of the three-frame step:
+# the count these seeds show on the CPU, the error rounded up to 3 digits)
 CASES = [
-    ("Cornell_Box", 128, 16, 16, 3, True, 0.0),
-    ("demo", 96, 16, 16, 4, False, 0.03),
-    ("scene2", 96, 16, 32, 4, True, 0.03),
+    ("Cornell_Box", 128, 16, 16, 3, True, ((0, 0.0), (0, 0.0))),
+    ("demo", 96, 16, 16, 4, False, ((4, 0.0561), (14, 0.296))),
+    ("scene2", 96, 16, 32, 4, True, ((4, 0.00867), (12, 0.0344))),
 ]
 
 
@@ -100,8 +103,8 @@ def test_render_frame_matches_jax_oracle(case):
     j = jouts[0]
     assert float(rays) == float(j.rays)
     np.testing.assert_array_equal(total.numpy(), j.state.samples)
-    bad = _outliers(np.stack([c.numpy() for c in cur]), j.state.acc)
-    assert bad.mean() <= allow, f"{bad.sum()} pixels off"
+    KnifeEdges(RTOL, ATOL).add(np.stack([c.numpy() for c in cur]),
+                               j.state.acc).check(allow[0])
     assert 0.0 < float(occ) <= 1.0
 
 
@@ -111,7 +114,7 @@ def test_render_step_matches_jax_step(case):
     scene, full_color, allow, jouts = case
     step = make_render_step(scene, full_color=full_color, device="cpu")
     state = init_state(scene, "cpu")
-    bad_px = np.zeros((scene.height, scene.width), bool)
+    knife = KnifeEdges(RTOL, ATOL)
     for f, j in enumerate(jouts):
         out = step(state, POSE, SEEDS[f], f)
         state = out.state
@@ -119,7 +122,7 @@ def test_render_step_matches_jax_step(case):
         np.testing.assert_array_equal(out.state.samples.numpy(),
                                       j.state.samples)
         bad = _outliers(out.state.acc.numpy(), j.state.acc)
-        bad_px |= bad
+        knife.add(out.state.acc.numpy(), j.state.acc)
         # uint8: equal off the knife-edge pixels, up to one step of
         # truncation where a value straddles a quantisation boundary.
         for got, want in ((out.rgb.numpy(), j.rgb),
@@ -128,7 +131,7 @@ def test_render_step_matches_jax_step(case):
             diff = diff.reshape(scene.height, scene.width, -1).max(-1)
             assert diff[~bad].max(initial=0) <= 1
             assert (diff[~bad] > 0).mean() < 0.01
-    assert bad_px.mean() <= allow, f"{bad_px.sum()} pixels off"
+    knife.check(allow[1])
     assert out.rgb.dtype == torch.uint8
     assert out.rgb.shape == (scene.height, scene.width, 3)
     if full_color:
