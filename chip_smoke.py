@@ -40,15 +40,17 @@ Phases, each reported on lines starting with its tag:
             GroupSpill forms of kernel B and the chunked kernel A, which
             the wrappers take, and in fog those of the XT kernel B and the
             chunked XT kernel A, each beside the thread-per-entry entry,
-            launched directly; the
-            thread-per-pixel grid kernel A and thread-per-entry grid
-            kernel B at mesh5120 under grid, which the wrappers take:
+            launched directly; the GroupCulledSpill forms of the grid
+            kernels A and B at mesh5120 under grid, which the wrappers
+            take, beside the thread per pixel / entry, launched directly:
             bit for bit against their plain versions (lane-iterations the
-            plain model's; grid: traversal counters equal), timed; then
-            the GroupSpill forms of the split-point libraries
+            plain model's; grid: traversal counters equal), timed, and the
+            mesh5120 grid frame through either pair in turns; then the
+            GroupSpill forms of the split-point libraries
             (csrc/group_tune.cu at stage caps of 0 and 168 bytes) on
             Cornell_Box, icosphere:1 and stress:64, plain and (B and the
-            chunked A at the XT gates) in fog under --mis, bit for bit
+            chunked A at the XT gates) in fog under --mis, and their
+            GroupCulledSpill forms under grid, bit for bit
   [main]    the main path through Engine at Cornell_Box 400x200: 16 spp
             depth 32 (north star), 128 spp depth 3 (shipped), and 80x40
             1 spp depth 4 in ASCII (the base >= spp path), plus one
@@ -133,11 +135,12 @@ Phases, each reported on lines starting with its tag:
             Engine at stress256,
             stress1024 and mesh1280 under baked, auto (array), grid and
             gathered, at mesh5120 under grid (rows over the grouped
-            kernels' budget: the thread-per-pixel kernel A and the
-            thread-per-entry kernel B), and at the north star under grid
+            kernels' budget: the GroupCulledSpill forms of kernels A and
+            B), and at the north star under grid
             (too few primitives for the grouped kernel A, whose
-            thread-per-pixel entry is then held bit for bit and timed
-            there), with each traversal's counters over the warm-up frame;
+            thread-per-pixel entry, held to 5 resident blocks an SM, is
+            then held bit for bit and timed there beside its unbound
+            form), with each traversal's counters over the warm-up frame;
             the
             stress1024 grid, stress1024 gathered and mesh1280 gathered
             frames through both forms of every kernel, and of kernel A
@@ -212,10 +215,13 @@ the thread-per-pixel kernel_base_grid and the thread-per-entry
 kernel_extra, kernel_extra_xt, kernel_extra_grid, kernel_base_chunked and
 kernel_base_chunked_xt at mesh5120 (in fog, under grid), all but
 kernel_base_grid launched directly: no dispatch takes them (OFF_PATH), so
-their launches are 0 and a main-path launch fails the run; the GroupSpill
-forms kernel_extra_grouped_spill, kernel_extra_xt_grouped_spill,
+their launches are 0 and a main-path launch fails the run (kernel_base_grid
+serves scenes below 16 primitives, the north star under grid); the
+GroupSpill forms kernel_extra_grouped_spill, kernel_extra_xt_grouped_spill,
 kernel_base_chunked_grouped_spill and kernel_base_chunked_xt_grouped_spill
-at mesh5120 (in fog), their errors including the split-point libraries';
+at mesh5120 (in fog) and the GroupCulledSpill forms
+kernel_base_grid_grouped_spill and kernel_extra_grid_grouped_spill at
+mesh5120 under grid, their errors including the split-point libraries';
 kernel_base_chunked_xt_grouped at the stress:1024 fog --mis shapes;
 the EXT rows at the showcase and
 stress:1024-checker shapes (the thread-per-entry kernel_extra_ext and
@@ -297,14 +303,14 @@ def phase_device():
 
 def phase_build():
     """Every library, the split-point libraries of csrc/group_tune.cu
-    (SPLIT_CAPS) and its library of the unbound XT kernel A
-    (_unbound_xt_source), one nvcc each, all at once."""
+    (SPLIT_CAPS) and its library of the unbound XT and grid kernel A
+    (_unbound_a_source), one nvcc each, all at once."""
     from terminal_raytracer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     paths = build.library_paths(tuple(build.ENTRY_POINTS)
                                 + tuple(_split_sources().values())
-                                + (_unbound_xt_source(),))
+                                + (_unbound_a_source(),))
     build.load_kernels()
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in paths.values())} in "
@@ -367,14 +373,17 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
     pose = _pose()
     kind = kernels._kind(tr)
     traversal = tr.traversal
-    name = "base" if kind == "ref" else f"base_{kind}"
     taken = "grouped" if kernels.takes_grouped(tr, "base") else "thread"
-    wrapper = (kernels.GROUPED_BASE[kind] if taken == "grouped"
-               else getattr(kernels, "base_kernel" + (
+    # Over the budget the grid's grouped entry passes the tracer on to its
+    # GroupCulledSpill form, which counts the launch.
+    sfx = _spill(tr) if taken == "grouped" else ""
+    name = ("base" if kind == "ref" else f"base_{kind}") + sfx
+    wrapper = (getattr(kernels, kernels.GROUPED_BASE[kind].__name__ + sfx)
+               if taken == "grouped" else getattr(kernels, "base_kernel" + (
                    f"_{kind}" if traversal else "")))
 
     def launch(form):
-        k = ("grouped" if kind == "ref" else f"{kind}_grouped") \
+        k = ("grouped" if kind == "ref" else f"{kind}_grouped") + sfx \
             if form == "grouped" else kind
         return lambda: kernels._launch_base(tr, pose, SEED, 0, 0, None, None,
                                             k)
@@ -530,6 +539,13 @@ def _grouped_vs_thread(tag, label, kind, tr, ms_g, ms_t, entry_iters,
               f"{kernels.GROUP_SMEM_BYTES}")
     if kind.endswith("gathered"):
         staged = "nothing (GroupWalk reads rows and CSR through L1)"
+    elif kind.endswith("grid_spill"):
+        cap = kernels.group_cap(kind)
+        counts = kernels.grid_counts(tr)
+        rows = kernels.culled_stage(*counts, cap)
+        staged = (f"{kernels.culled_stage_bytes(rows)} B of {cap} (groups, "
+                  f"triangles, spheres, planes {rows} of {counts[0]}, "
+                  f"{counts[3]}, {counts[1]}, {counts[2]})")
     elif kind.endswith("_spill"):
         cap = kernels.group_cap(kind)
         rows = kernels.group_stage(*tr.tables.counts[:3], cap)
@@ -712,10 +728,11 @@ def _split_sources():
             for cap in SPLIT_CAPS}
 
 
-def _unbound_xt_source():
+def _unbound_a_source():
     """csrc/group_tune.cu at its defaults (K = 1, no residency bound): its
-    trt_kernel_base_xt is the XT kernel A as it was before the bound,
-    kernel_base<true, true, Sweep>, timed beside the shipped entry."""
+    trt_kernel_base_xt and trt_kernel_base_grid are the XT and grid kernel A
+    as they were before their bounds, kernel_base<true, true, Sweep |
+    Culled>, timed beside the shipped entries."""
     from terminal_raytracer_tpu_torch.ops import build
 
     return (build.TUNE_SOURCE, ("TRT_TUNE_K=1", "TRT_TUNE_MIN_BLOCKS=0"))
@@ -724,7 +741,7 @@ def _unbound_xt_source():
 def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
     """ms/frame of the sorted pipeline on one XT tracer with kernel A held
     to its residency bound (the render library's trt_kernel_base_xt) and
-    unbound (_unbound_xt_source's), in turns: unbound, bound, bound,
+    unbound (_unbound_a_source's), in turns: unbound, bound, bound,
     unbound; the other kernels as the dispatch takes them. The forced form
     is no main path: its launches count nowhere."""
     from types import SimpleNamespace
@@ -740,7 +757,7 @@ def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
     load = kernels.load_kernels
     unbound = SimpleNamespace(**{
         **vars(load()), "trt_kernel_base_xt": build.load_kernels(
-            (_unbound_xt_source(),)).trt_kernel_base_xt})
+            (_unbound_a_source(),)).trt_kernel_base_xt})
     times = {"unbound": [], "bound": []}
     try:
         for form in ("unbound", "bound", "bound", "unbound"):
@@ -766,8 +783,9 @@ def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
 def _spill_both(label, tr, kernel, peak, tag="thread"):
     """The grouped entry of the chunked kernel A (kernel 'chunked') or of
     kernel B ('extra') at the tracer's instantiation, which its wrapper
-    takes (over the budget its GroupSpill form), and the thread-per-entry
-    entry, launched directly: each against the plain version bit for bit,
+    takes (over the budget its GroupSpill or GroupCulledSpill form), and
+    the thread-per-entry entry, launched directly: each against the plain
+    version bit for bit (under `--accel grid` with the traversal counters),
     with its lane-iterations equal to the plain model at its group width;
     both timed side by side. Returns {form: (max abs error, ms, plain ms,
     bound)}."""
@@ -808,20 +826,29 @@ def _spill_both(label, tr, kernel, peak, tag="thread"):
         s = kernels.sorted_stream(tr, a[2], a[7])
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         n0 = wrapper.launches
-        g = kernels.extra_kernel(*args)
         spill = ("grouped" if kind == "ref" else f"{kind}_grouped") + sfx
 
         def launch(form):
             return lambda: kernels._launch_extra(
                 *args, spill if form == "grouped" else kind)
 
+        def counted(fn):
+            return _counted_launch(tr, fn) if tr.traversal else (fn(), None)
+
+        g, gc = counted(lambda: kernels.extra_kernel(*args))
+        pc = []
         plain, ops, pb = _time_plain(
-            tr, lambda: kernels.extra_kernel_plain(*args))
+            tr, lambda: kernels.extra_kernel_plain(*args),
+            pc if tr.traversal else None)
         it = kernels.extra_entry_iters(*args)
         bound = _bound(ops, fixed + 40 * s.add.numel(), peak)
-        outs = {"grouped": g, "thread": launch("thread")()}
+        t, tc = counted(launch("thread"))
+        outs = {"grouped": g, "thread": t}
         errs = {form: _check_extra(tag, f"{label} {form}", s, o, pb,
                                    exact=True) for form, o in outs.items()}
+        if tr.traversal:
+            for form, c in (("grouped", gc), ("thread", tc)):
+                _check_counts(f"{label} {form} kernel B", c, pc[0])
         iters = {form: o[2] for form, o in outs.items()}
         what = f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries"
     if wrapper.launches != n0 + 1:
@@ -845,9 +872,11 @@ def _spill_both(label, tr, kernel, peak, tag="thread"):
 def _split_points():
     """The GroupSpill forms of the split-point libraries (SPLIT_CAPS) on
     SPLIT_SCENES at 64x16, 16 spp, depth 8 (chunks of 2; kernel B and the
-    chunked kernel A also at the XT gates in fog under --mis): bit for bit
-    against the plain versions, the lane-iterations the plain model's at
-    K. Returns the max abs error."""
+    chunked kernel A also at the XT gates in fog under --mis), and their
+    GroupCulledSpill forms of kernels A and B under --accel grid (_grid_split:
+    the group table cut at icosphere:1 and stress:64 at 168 bytes, the
+    triangles at Cornell_Box): bit for bit against the plain versions, the
+    lane-iterations the plain model's at K. Returns the max abs error."""
     from terminal_raytracer_tpu_torch.models.scene import Fog
     from terminal_raytracer_tpu_torch.ops import build, kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
@@ -892,6 +921,52 @@ def _split_points():
                              kernels.group_k(
                                  "extra_spill" if kind == "grouped_spill"
                                  else "extra_xt_spill", lib))
+            err = max(err, _grid_split(cap, lib, name, scene))
+    return err
+
+
+def _grid_split(cap, lib, name, scene):
+    """The GroupCulledSpill forms of kernels A and B of the split-point
+    library `lib` (stage cap `cap`) on `scene` (named `name`) under --accel
+    grid: each
+    against its plain version bit for bit with the traversal counters, the
+    lane-iterations the plain model's. Returns the max abs error."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    pose = _pose()
+    tr = PathTracer(scene, "cuda", accel="grid")
+    staged = kernels.culled_stage(*kernels.grid_counts(tr), cap)
+    label = f"cap {cap} B, {name} grid (staged {staged})"
+    k, kc = _counted_launch(tr, lambda: kernels._launch_base(
+        tr, pose, SEED, 0, 0, None, None, "grid_grouped_spill", lib))
+    pc = []
+    _, _, p = _plain_counted(
+        tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0), pc)
+    err = _compare_base("thread", f"{label} A", k, p, ("additional", "var"),
+                        exact=True)
+    _check_counts(f"{label} kernel A", kc, pc[0])
+    it = kernels.base_entry_iters(tr, pose, SEED, 0)
+    if kernels.group_refill("base_grid_spill", lib):
+        if float(k.iters) < float(it.sum()):
+            fail(f"[thread] {label} A: refill lane-iterations below the "
+                 "pixels' sum")
+    else:
+        _iters_model("thread", f"{label} A", k.iters, it,
+                     kernels.group_k("base_grid_spill", lib))
+    s = kernels.sorted_stream(tr, k.state, k.additional)
+    args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
+    b, bc = _counted_launch(tr, lambda: kernels._launch_extra(
+        *args, "grid_grouped_spill", lib))
+    pc = []
+    _, _, pb = _plain_counted(tr, lambda: kernels.extra_kernel_plain(*args),
+                              pc)
+    err = max(err, _check_extra("thread", f"{label} B", s, b, pb,
+                                exact=True))
+    _check_counts(f"{label} kernel B", bc, pc[0])
+    _iters_model("thread", f"{label} B", b[2],
+                 kernels.extra_entry_iters(*args),
+                 kernels.group_k("extra_grid_spill", lib))
     return err
 
 
@@ -902,10 +977,12 @@ def phase_thread_per_entry(peak):
     take, beside the thread-per-entry entries, launched directly
     (_spill_both): the reference entries, then kernel B's XT entries in fog
     (XT_OVER_BUDGET); then kernels A and B over the culled sweep under
-    `--accel grid` (ACCEL_OVER_BUDGET), whose wrappers take the thread per
-    entry there, against the plain versions bit for bit with the traversal
-    counters, timed; then the split-point libraries (_split_points).
-    Returns {row: (max abs error, ms, plain ms, bound)}."""
+    `--accel grid` (ACCEL_OVER_BUDGET), whose wrappers take their
+    GroupCulledSpill forms there, beside the thread per pixel / entry
+    (_base_both, _spill_both), against the plain versions bit for bit with
+    the traversal counters, timed, and the frame in turns; then the
+    split-point libraries (_split_points). Returns {row: (max abs error,
+    ms, plain ms, bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
@@ -928,58 +1005,24 @@ def phase_thread_per_entry(peak):
     both = _spill_both("mesh5120 fog", fog, "extra", peak)
     out["xt"], out["xts"] = both["thread"], both["grouped"]
 
-    # The grid kernel A, thread per pixel.
-    grid = PathTracer(_scene(ACCEL_OVER_BUDGET[1], 200, 100, 8, 6), "cuda",
-                      accel="grid")
-    if kernels.takes_grouped(grid, "base") or kernels.takes_grouped(grid):
-        fail("[thread] mesh5120 grid takes a grouped kernel")
-    n0 = kernels.base_kernel_grid.launches
-    k, kc = _counted_launch(grid, lambda: kernels.base_kernel(grid, pose,
-                                                              SEED, 0))
-    if kernels.base_kernel_grid.launches != n0 + 1:
-        fail("[thread] mesh5120 grid: kernel A took no thread-per-pixel "
-             "entry")
-    ms = _time_cuda(lambda: kernels.base_kernel(grid, pose, SEED, 0), 3)
-    pc = []
-    plain, ops, p = _time_plain(
-        grid, lambda: kernels.base_kernel_plain(grid, pose, SEED, 0), pc)
-    err = _compare_base("thread", "mesh5120 grid kernel A", k, p,
-                        ("additional", "var"), exact=True)
-    _check_counts("mesh5120 grid kernel A", kc, pc[0])
-    bound = _bound(ops, 4 * (grid.tables.buf.numel() + grid.atlas.numel())
-                   + 44 * k.var.numel(), peak)
-    print(f"[thread] mesh5120 grid shapes ({kernels.group_smem_bytes(grid)} "
-          f"B staged, over the {kernels.GROUP_SMEM_BYTES} B budget): "
-          f"base_kernel_grid {ms:.3f} ms (plain {plain:.1f} ms, bound "
-          f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
-          flush=True)
-    out["ga"] = (err, ms, plain, bound)
-
-    # The grid kernel B, thread per entry.
-    a = kernels.base_phase(grid, pose, SEED, 0)
-    s = kernels.sorted_stream(grid, a[2], a[7])
-    args = (grid, pose, s.xs, s.ys, s.state, s.add, s.samp0)
-    n0 = kernels.extra_kernel_grid.launches
-    b, kc = _counted_launch(grid, lambda: kernels.extra_kernel(*args))
-    if kernels.extra_kernel_grid.launches != n0 + 1:
-        fail("[thread] mesh5120 grid: kernel B took no thread-per-entry entry")
-    ms = _time_cuda(lambda: kernels.extra_kernel(*args), 3)
-    pc = []
-    plain, ops, pb = _time_plain(
-        grid, lambda: kernels.extra_kernel_plain(*args), pc)
-    err = _check_extra("thread", "mesh5120 grid", s, b, pb, exact=True)
-    _check_counts("mesh5120 grid kernel B", kc, pc[0])
-    bound = _bound(ops, 4 * (grid.tables.buf.numel() + grid.atlas.numel())
-                   + 40 * s.add.numel(), peak)
-    print(f"[thread] mesh5120 grid shapes ({kernels.group_smem_bytes(grid)} "
-          f"B staged, over the {kernels.GROUP_SMEM_BYTES} B budget): "
-          f"extra_kernel_grid {ms:.3f} ms on {int((s.add > 0).sum())} "
-          f"budgeted of {s.add.numel()} entries (plain {plain:.1f} ms, "
-          f"bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
-          flush=True)
-    out["grid"] = (err, ms, plain, bound)
+    # The grid kernels A and B over the culled sweep (ACCEL_OVER_BUDGET):
+    # their GroupCulledSpill forms, which the wrappers take, beside the
+    # thread per pixel / entry, launched directly, each bit for bit with the
+    # traversal counters; then the frame in turns.
+    label, name = ACCEL_OVER_BUDGET
+    grid = PathTracer(_scene(name, 200, 100, 8, 6), "cuda", accel="grid")
+    if not (kernels._over_budget(grid) and kernels.takes_grouped(grid, "base")
+            and kernels.takes_grouped(grid)):
+        fail(f"[thread] {label} grid takes no grouped kernel A or B, or fits "
+             "the budget")
+    res, _ = _base_both("thread", f"{label} grid", grid, peak)
+    out["ga"], out["gas"] = res["thread"], res["grouped"]
+    both = _spill_both(f"{label} grid", grid, "extra", peak)
+    out["grid"], out["gs"] = both["thread"], both["grouped"]
+    _frames_grouped_vs_thread("thread", f"{label} grid",
+                              _scene(name, 200, 100, 8, 6), accel="grid")
     split_err = _split_points()
-    for key in ("cs", "bs", "xts", "cxts"):
+    for key in ("cs", "bs", "xts", "cxts", "gas", "gs"):
         out[key] = (max(out[key][0], split_err), *out[key][1:])
     return out
 
@@ -987,11 +1030,13 @@ def phase_thread_per_entry(peak):
 # The thread-per-entry entries that no dispatch takes (the grouped entries
 # serve their instantiations at every table size; the gathered kernel A's
 # thread per pixel serves only scenes below GROUP_BASE_MIN_PRIMS, which no
-# main-path run renders under gathered): held bit for bit and timed beside
+# main-path run renders under gathered; the grid kernel A's serves those,
+# the north star under grid among them, so it stays on the path): held bit
+# for bit and timed beside
 # their grouped forms, launched directly, so their main-path launches are
 # 0, and a launch there fails the run.
 OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
-            "kernel_extra_gathered", "kernel_base_chunked",
+            "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt", "kernel_base_chunked_ext",
             "kernel_base_gathered")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
@@ -1000,6 +1045,8 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_grouped", "base_kernel_grid_grouped",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
                 "extra_kernel_xt_grouped", "extra_kernel_grid_grouped",
+                "base_kernel_grid_grouped_spill",
+                "extra_kernel_grid_grouped_spill",
                 "base_kernel_chunked_grouped_spill",
                 "base_kernel_chunked_xt_grouped",
                 "base_kernel_chunked_xt_grouped_spill",
@@ -1024,10 +1071,10 @@ def _sfx(tr) -> str:
 
 
 def _spill(tr) -> str:
-    """The suffix of a grouped wrapper's GroupSpill form, which takes
-    tracer `tr` where its rows exceed the grouped kernels' budget (the
-    instantiations with one: the walk reads its rows through L1 at every
-    size)."""
+    """The suffix of a grouped wrapper's GroupSpill (GroupCulledSpill under
+    grid) form, which takes tracer `tr` where its rows exceed the grouped
+    kernels' budget (the instantiations with one: the walk reads its rows
+    through L1 at every size)."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     return ("_spill" if kernels._kind(tr) in kernels.SPILL_EXTRA
@@ -1037,13 +1084,14 @@ def _spill(tr) -> str:
 
 def _a_name(tr) -> str:
     """The kernel A wrapper that counts the launches of tracer `tr`'s base
-    phase: the grouped entry (chunked or not, the chunked one's GroupSpill
-    form over the budget) where ops/kernels.takes_grouped."""
+    phase: the grouped entry (chunked or not; over the budget the chunked
+    one's GroupSpill form, the grid's GroupCulledSpill form) where
+    ops/kernels.takes_grouped."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     if not tr.chunk_base:
         if kernels.takes_grouped(tr, "base"):
-            return kernels.GROUPED_BASE[kernels._kind(tr)].__name__
+            return kernels.GROUPED_BASE[kernels._kind(tr)].__name__ + _spill(tr)
         return "base_kernel" + _sfx(tr)
     return (kernels.GROUPED_CHUNKED[kernels._kind(tr)].__name__ + _spill(tr)
             if kernels.takes_grouped(tr, "chunked")
@@ -1889,7 +1937,7 @@ def phase_xt(peak):
             if label == "fog":
                 # Both forms: held to its residency bound (shipped) and
                 # unbound (group_tune.cu's), bit for bit, timed side by side.
-                unbound = build.load_kernels((_unbound_xt_source(),))
+                unbound = build.load_kernels((_unbound_a_source(),))
 
                 def launch_u():
                     return kernels._launch_base(tr, pose, SEED, 0, 0, None,
@@ -2106,7 +2154,7 @@ def phase_accel(peak):
     by kernel: max abs error, ms, plain ms, bound at the stress1024
     shapes)."""
     from terminal_raytracer_tpu_torch import cli
-    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops import build, kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
@@ -2205,23 +2253,40 @@ def phase_accel(peak):
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
     # The thread-per-pixel grid kernel A at the north star under grid (too
-    # few primitives for the grouped entry), which the wrapper takes:
-    # bit for bit with the plain version's counters, timed at that shape.
+    # few primitives for the grouped entry), which the wrapper takes, held
+    # to its residency bound, and unbound (_unbound_a_source's): each bit
+    # for bit with the plain version's counters, timed side by side at
+    # that shape.
     ns = PathTracer(_cornell(400, 200, 16, 32), "cuda", accel="grid")
     if kernels.takes_grouped(ns, "base"):
         fail("[accel] north star grid takes the grouped kernel A")
+    unbound = build.load_kernels((_unbound_a_source(),))
+
+    def launch_u():
+        return kernels._launch_base(ns, pose, SEED, 0, 0, None, None, "grid",
+                                    unbound)
+
     k, kc = _counted_launch(ns, lambda: kernels.base_kernel(ns, pose, SEED, 0))
+    ku, kuc = _counted_launch(ns, launch_u)
     pc = []
     plain, ops, p = _time_plain(
         ns, lambda: kernels.base_kernel_plain(ns, pose, SEED, 0), pc)
-    err = _compare_base("accel", "north star grid kernel A", k, p,
-                        ("additional", "var"), exact=True)
-    _check_counts("north star grid kernel A", kc, pc[0])
+    err = max(_compare_base("accel", f"north star grid kernel A {form}", o,
+                            p, ("additional", "var"), exact=True)
+              for form, o in (("bound", k), ("unbound", ku)))
+    it = kernels.base_entry_iters(ns, pose, SEED, 0)
+    for form, o, c in (("bound", k, kc), ("unbound", ku, kuc)):
+        _check_counts(f"north star grid kernel A {form}", c, pc[0])
+        _iters_model("accel", f"north star grid kernel A {form}", o.iters, it,
+                     1)
+    ms_u = _time_cuda(launch_u, 5)
     ms = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
     bound = _bound(ops, 4 * (ns.tables.buf.numel() + ns.atlas.numel())
                    + 44 * k.var.numel(), peak)
-    print(f"[accel] north star grid shapes: base_kernel_grid {ms:.3f} ms "
-          f"(plain {plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}: "
+    minb = build.load_kernels().trt_kernel_base_grid_min_blocks()
+    print(f"[accel] north star grid shapes: base_kernel_grid held to {minb} "
+          f"blocks an SM {ms:.3f} ms, unbound {ms_u:.3f} ms (x{ms_u / ms:.2f})"
+          f" (plain {plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}: "
           f"{ops:.4g} operations)", flush=True)
     res["grid", "ans"] = (err, ms, plain, bound)
     for accel in ("grid", "gathered"):
@@ -2911,25 +2976,38 @@ def main() -> int:
             # The opt-in traversals, bound into kernel A at :808-809 and
             # into kernel B at :1032-1033 (the culled sweep's scratch,
             # _maybe_bind_sweep; the walk's tables, _gather_bind_front).
-            # Thread per pixel at mesh5120 under grid ([thread]), where the
-            # main path takes it (its north-star grid time is printed in
-            # [accel]); grouped (csrc/group.cuh GroupCulled; entry in
-            # kernel_accel.cu) at the stress1024 shapes, where its
-            # comparisons include the thread-per-pixel entry's.
+            # Thread per pixel at mesh5120 under grid ([thread], launched
+            # directly beside the GroupCulledSpill form); the main path
+            # takes it below 16 primitives (the north star under grid,
+            # timed in [accel]). Grouped (csrc/group.cuh GroupCulled; entry
+            # in kernel_accel.cu) at the stress1024 shapes, where its
+            # comparisons include the thread-per-pixel entry's; its
+            # GroupCulledSpill form at mesh5120 under grid ([thread]),
+            # where the main path takes it, its error including the
+            # split-point libraries'.
             ("kernel_base_grid", "base_kernel_grid", "kernel_accel.cu",
              "809", max(acc["grid", "at"][0], acc["grid", "ans"][0],
                         thread["ga"][0]), *thread["ga"][1:]),
             ("kernel_base_grid_grouped", "base_kernel_grid_grouped",
              "group.cuh", "809", *acc["grid", "a"]),
-            # Thread per entry at mesh5120 under grid ([thread]), where the
-            # main path takes it; its stress1024 time is printed in [accel].
+            ("kernel_base_grid_grouped_spill",
+             "base_kernel_grid_grouped_spill", "group.cuh", "809",
+             *thread["gas"]),
+            # Thread per entry at mesh5120 under grid ([thread]), launched
+            # directly (OFF_PATH); its stress1024 time is printed in
+            # [accel].
             ("kernel_extra_grid", "extra_kernel_grid", "kernel_accel.cu",
              "1033", max(acc["grid", "b"][0], thread["grid"][0]),
              *thread["grid"][1:]),
             # Grouped (csrc/group.cuh GroupCulled; entry in
-            # kernel_accel.cu), at the stress1024 shapes.
+            # kernel_accel.cu), at the stress1024 shapes; its
+            # GroupCulledSpill form at mesh5120 under grid ([thread]), where
+            # the main path takes it.
             ("kernel_extra_grid_grouped", "extra_kernel_grid_grouped",
              "group.cuh", "1033", *acc["grid", "g"]),
+            ("kernel_extra_grid_grouped_spill",
+             "extra_kernel_grid_grouped_spill", "group.cuh", "1033",
+             *thread["gs"]),
             # Kernel A over the walk, thread per pixel (launched directly:
             # OFF_PATH) and grouped (csrc/group.cuh GroupWalk; entry in
             # kernel_accel.cu), at the stress1024 shapes, the errors

@@ -65,7 +65,8 @@
 //    (triangles as their nine intersection words) live in shared memory,
 //    the rest are read from the scene buffer through the read-only path
 //    (__ldg: L1, then the 50 MB L2). Its blocks are wider (one a SM at the
-//    cap), and the rest of the SM's pool goes to L1.
+//    cap), and the rest of the SM's pool goes to L1. GroupCulledSpill does
+//    the same for the culled sweep, its group table staged first.
 //
 // Neither tensor cores nor TMA tiles have a place here: each ray test is
 // a handful of dependent f32 operations that must round exactly as the
@@ -487,7 +488,9 @@ constexpr int CULL_BLOCK = 8;
 
 // The block-culled sweep (traverse.cuh Culled, `--accel grid`) split across
 // a path group of K lanes, over the blocked scene's rows and its group
-// table staged in shared memory. It makes exactly the serial sweep's cull
+// table staged in shared memory (GroupCulled) or, for tables of any size,
+// the part of them that fits a stage cap (GroupCulledSpill). It makes
+// exactly the serial sweep's cull
 // decisions, which depend on the running closest hit, so its hits and its
 // four counters are Culled's (and the plain version's, ops/accel.py
 // CulledPrims); ops/group.py split_culled_closest / split_culled_occluded
@@ -762,6 +765,306 @@ struct GroupCulled {
             return true;
           }
           tests += (unsigned)groups[GROUP_W * (g0 + p) + 2];
+        }
+        from = last + 1;
+      }
+      skipped += __popc(gbits & ~cand);
+    }
+    return false;
+  }
+
+  // Every thread of the warp calls this; the lead lanes hold their group's
+  // counts.
+  __device__ __forceinline__ void flush() {
+    const bool lead = j == 0;
+    flush_counts(stats, lead ? sweeps : 0u, lead ? swept : 0u, lead ? skipped : 0u,
+                 lead ? tests : 0u);
+  }
+};
+
+// The staged part of a culled sweep under a stage cap of `cap` bytes
+// (ops/kernels.py culled_stage mirrors it): the group table first, as many
+// groups as fit (every sweep reads every window's boxes), then group_stage's
+// rows under the rest of the cap: triangles, spheres, planes.
+struct CulledStage {
+  int n_groups;
+  Stage rows;
+};
+
+__host__ __device__ __forceinline__ CulledStage culled_stage(const Frame& f, int n_groups,
+                                                            int cap) {
+  CulledStage s;
+  s.n_groups = n_groups < cap / 4 / GROUP_W ? n_groups : cap / 4 / GROUP_W;
+  s.rows = group_stage(f, cap - 4 * GROUP_W * s.n_groups);
+  return s;
+}
+
+// GroupCulled for tables of any size: the same split sweep, line for line,
+// each word read from one of two sources. culled_stage(f, n_groups, CAP)
+// stages in shared memory the first groups of the table, then the first
+// triangles plane-major (as GroupSpill stages them), spheres and planes; a
+// group or row past its kind's staged count is read from the scene buffer,
+// where the table lies at Accel::section. One pointer says where (group(),
+// test()), so a window's box tests, the replay's counts and a member's test
+// read the group's and the row's own source, and the sweep makes Culled's
+// decisions on the same values in the same order: the lemma above holds as
+// it stands, the 1e30 pads included. (GroupCulled keeps its own copy of the
+// sweep: a template shared by the two changed the registers and spills
+// ptxas gives GroupCulled's kernel B.) THREADS lanes a block, CAP bytes at most staged; the
+// launcher leaves the rest of the SM's pool to L1. Tables within the budget
+// keep GroupCulled: everything staged, this traversal took 23-28% longer
+// for kernel B and 3-6% for kernel A at stress1024 and mesh1280
+// (tools/group_k.py --only grid, PERF.md).
+template <int K_, bool WIDE, int THREADS_, int CAP_>
+struct GroupCulledSpill {
+  static constexpr int K = K_;
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: a power of two dividing 32");
+  static constexpr int L = WIDE && K > CULL_BLOCK ? CULL_BLOCK : K;  // lanes a group
+  static constexpr int P = K / L;                                    // groups a step
+  static constexpr int THREADS = THREADS_;
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "THREADS: whole warps, at most 1024");
+  static constexpr int SMEM_CAP = CAP_;
+  static_assert(CAP_ >= 0 && CAP_ <= GROUP_SMEM_MAX, "CAP: at most the opt-in limit");
+  static constexpr bool PREFER_L1 = true;
+  using Launch = Accel;
+  const float* groups;  // shared memory: [st.n_groups][GROUP_W], then the rows as GroupSpill
+  const float* tri;
+  const float* sph;
+  const float* pln;
+  CulledStage st;
+  int section;  // the group table's offset in the scene buffer
+  int n_groups, n_sph, n_pln;
+  int j;                // the lane's place in its group
+  unsigned mask, base;  // the group's lanes, its first lane
+  unsigned long long* stats;
+  unsigned sweeps = 0, swept = 0, skipped = 0, tests = 0;
+
+  static __host__ __device__ __forceinline__ int smem_floats(const Frame& f, const Accel& a) {
+    const CulledStage s = culled_stage(f, a.n_groups, CAP_);
+    return GROUP_W * s.n_groups + stage_floats(s.rows);
+  }
+
+  // Copy the staged groups and rows, one 4-byte cp.async a word; then wait
+  // for them and for the block.
+  static __device__ __forceinline__ void stage(float* smem, const float* buf, const Frame& f,
+                                               const Accel& a) {
+    const CulledStage s = culled_stage(f, a.n_groups, CAP_);
+    const int n_tab = GROUP_W * s.n_groups;
+    const int n_tri = n_tab + TRI_SWEEP_W * s.rows.n_tri;
+    const int n_front = n_tri + SPH_W * s.rows.n_sph;
+    const float* rows = buf + SPH_W * f.n_sph + PLN_W * f.n_pln;
+    for (int w = threadIdx.x; w < n_tab + stage_floats(s.rows); w += blockDim.x) {
+      const float* src;
+      if (w < n_tab) {
+        src = buf + a.section + w;
+      } else if (w < n_tri) {
+        const int word = (w - n_tab) / s.rows.n_tri;
+        const int i = w - n_tab - word * s.rows.n_tri;
+        src = rows + TRI_W * i + word;
+      } else if (w < n_front) {
+        src = buf + (w - n_tri);
+      } else {
+        src = buf + SPH_W * f.n_sph + (w - n_front);
+      }
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + w);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ GroupCulledSpill(const float* smem, const Frame& f, const Accel& a)
+      : st(culled_stage(f, a.n_groups, CAP_)), section(a.section), n_groups(a.n_groups),
+        n_sph(f.n_sph), n_pln(f.n_pln), stats(a.stats) {
+    const unsigned lane = threadIdx.x & 31u;
+    j = (int)(lane & (unsigned)(K - 1));
+    base = lane & ~(unsigned)(K - 1);
+    mask = K == 32 ? 0xffffffffu : (((1u << K) - 1u) << base);
+    groups = smem;
+    tri = groups + GROUP_W * st.n_groups;
+    sph = tri + TRI_SWEEP_W * st.rows.n_tri;
+    pln = sph + SPH_W * st.rows.n_sph;
+  }
+
+  // Group g's words, staged or in the scene buffer (which starts at the
+  // sphere rows).
+  __device__ __forceinline__ const float* group(const Scene& sc, int g) const {
+    return g < st.n_groups ? groups + GROUP_W * g : sc.sph + section + GROUP_W * g;
+  }
+
+  // The window's bits of a ballot over the group.
+  __device__ __forceinline__ unsigned ballot(bool v) const {
+    const unsigned b = __ballot_sync(mask, v) >> base;
+    return K == 32 ? b : b & ((1u << K) - 1u);
+  }
+
+  // Group g's kind, first row within its kind, first index in the flatten
+  // order, and count.
+  __device__ __forceinline__ void group_at(const Scene& sc, int g, int& kind, int& r0, int& k0,
+                                           int& cnt) const {
+    const float* G = group(sc, g);
+    kind = (int)G[0];
+    r0 = (int)G[1];
+    k0 = r0 + (kind == SPHERE ? 0 : kind == PLANE ? n_sph : n_sph + n_pln);
+    cnt = (int)G[2];
+  }
+
+  // The test of row r of `kind` in (t_min, t_max) on the row's own source,
+  // its t in t; a plane takes t >= t_min, and t <= t_max unless `strict`,
+  // as plane_t does; a triangle's word w lies at q[w * ws].
+  __device__ __forceinline__ bool test(const Scene& sc, int kind, int r, V3 o, V3 d, float t_min,
+                                       float t_max, bool strict, float& t) const {
+    if (kind == SPHERE) {
+      const float* s = r < st.rows.n_sph ? sph + SPH_W * r : sc.sph + SPH_W * r;
+      return sphere_tv(o, d, V3{s[0], s[1], s[2]}, s[3], t_min, t_max, t);
+    }
+    if (kind == PLANE) {
+      const float* q = r < st.rows.n_pln ? pln + PLN_W * r : sc.pln + PLN_W * r;
+      return plane_tv(o, d, V3{q[0], q[1], q[2]}, V3{q[3], q[4], q[5]}, t_min, t_max, strict, t);
+    }
+    const bool staged = r < st.rows.n_tri;
+    const float* q = staged ? tri + r : sc.tri + TRI_W * r;
+    const int ws = staged ? st.rows.n_tri : 1;
+    const V3 v0{q[0], q[ws], q[2 * ws]};
+    const V3 e1{q[3 * ws], q[4 * ws], q[5 * ws]};
+    const V3 e2{q[6 * ws], q[7 * ws], q[8 * ws]};
+    return triangle_tv(o, d, v0, e1, e2, t_min, t_max, t);
+  }
+
+  // The window position of this lane's group in the step taking the first
+  // P candidates of `cand`, or -1; the step's group count and last
+  // position.
+  __device__ __forceinline__ int slot_of(unsigned cand, int& nb, int& last) const {
+    const int s = j / L;
+    int mine = -1;
+    nb = 0;
+    for (unsigned rest = cand; rest != 0u && nb < P; rest &= rest - 1u, ++nb) {
+      last = __ffs(rest) - 1;
+      if (nb == s) mine = last;
+    }
+    return mine;
+  }
+
+  template <bool EXT, bool XT>
+  __device__ __forceinline__ Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+    ++sweeps;
+    const V3 inv = Culled::inverse(d);
+    const int l = j % L;
+    float closest = T_FAR;
+    int idx = INT_MAX;
+    for (int g0 = 0; g0 < n_groups; g0 += K) {
+      bool guarded = false, pred = false;
+      float tn = -BIG;
+      if (g0 + j < n_groups) {
+        const float* G = group(sc, g0 + j);
+        guarded = G[3] != 0.0f;
+        pred = true;
+        if (guarded) {
+          float tf;
+          slab_interval(o, d, inv, G + 4, G + 7, tn, tf);
+          pred = tn <= tf && tf > RAY_EPS;
+        }
+      }
+      const unsigned gbits = ballot(guarded);
+      unsigned entered = 0u;
+      for (int from = 0; from < K;) {
+        const unsigned cand = ballot(pred && tn < closest) & (~0u << from);
+        if (cand == 0u) break;
+        int nb, last = 0;
+        const int pos = slot_of(cand, nb, last);
+        float c = closest;  // C0
+        int ci = INT_MAX;
+        if (pos >= 0) {
+          int kind, r0, k0, cnt;
+          group_at(sc, g0 + pos, kind, r0, k0, cnt);
+          float t;
+          for (int m = l; m < cnt; m += L) {
+            bool hit = test(sc, kind, r0 + m, o, d, RAY_EPS, c, false, t);
+            t = hit ? t : -1.0f;
+            if (t > 0.0f && t < c) { c = t; ci = k0 + m; }
+          }
+        }
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+          const float t_o = __shfl_xor_sync(mask, c, off);
+          const int i_o = __shfl_xor_sync(mask, ci, off);
+          if (t_o < c || (t_o == c && i_o < ci)) {
+            c = t_o;
+            ci = i_o;
+          }
+        }
+        unsigned rest = cand;
+        for (int b = 0; b < nb; ++b, rest &= rest - 1u) {
+          const int p = __ffs(rest) - 1;
+          const float tn_b = __shfl_sync(mask, tn, p, K);
+          const float t_b = __shfl_sync(mask, c, b * L, K);
+          const int i_b = __shfl_sync(mask, ci, b * L, K);
+          if (((gbits >> p) & 1u) == 0u || tn_b < closest) {
+            entered |= 1u << p;
+            tests += (unsigned)group(sc, g0 + p)[2];
+            if (t_b < closest) {
+              closest = t_b;
+              idx = i_b;
+            }
+          }
+        }
+        from = last + 1;
+      }
+      swept += __popc(gbits & entered);
+      skipped += __popc(gbits & ~entered);
+    }
+    return hit_at<EXT, XT>(sc, o, d, closest, idx);
+  }
+
+  __device__ __forceinline__ bool occluded(const Scene& sc, V3 o, V3 d, float t_min,
+                                           float t_max) {
+    ++sweeps;
+    const V3 inv = Culled::inverse(d);
+    const int l = j % L;
+    for (int g0 = 0; g0 < n_groups; g0 += K) {
+      bool guarded = false, entered = false;
+      if (g0 + j < n_groups) {
+        const float* G = group(sc, g0 + j);
+        guarded = G[3] != 0.0f;
+        entered = true;
+        if (guarded) {
+          float tn, tf;
+          slab_interval(o, d, inv, G + 4, G + 7, tn, tf);
+          entered = tn <= tf && tn < t_max && tf > t_min;
+        }
+      }
+      const unsigned gbits = ballot(guarded);
+      const unsigned cand = ballot(entered);
+      for (int from = 0; from < K;) {
+        const unsigned step = cand & (~0u << from);
+        if (step == 0u) break;
+        int nb, last = 0;
+        const int pos = slot_of(step, nb, last);
+        int first = INT_MAX;
+        if (pos >= 0) {
+          int kind, r0, k0, cnt;
+          group_at(sc, g0 + pos, kind, r0, k0, cnt);
+          float t;
+          for (int m = l; m < cnt; m += L) {
+            if (test(sc, kind, r0 + m, o, d, t_min, t_max, true, t)) {
+              first = m;
+              break;
+            }
+          }
+        }
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) first = min(first, __shfl_xor_sync(mask, first, off));
+        const unsigned blocked = ballot(l == 0 && first != INT_MAX);
+        unsigned rest = step;
+        for (int b = 0; b < nb; ++b, rest &= rest - 1u) {
+          const int p = __ffs(rest) - 1;
+          swept += (gbits >> p) & 1u;
+          if ((blocked >> (b * L)) & 1u) {
+            tests += (unsigned)__shfl_sync(mask, first, b * L, K) + 1u;
+            skipped += __popc(gbits & ~cand & ((1u << p) - 1u));
+            return true;
+          }
+          tests += (unsigned)group(sc, g0 + p)[2];
         }
         from = last + 1;
       }
@@ -1076,7 +1379,7 @@ namespace {
 
 // Kernel B, grouped: the entry of group g = global thread / K, its K lanes
 // rendering the entry's `add` extra samples together (see the top), with
-// the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupCulled<K>)
+// the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupCulled<K>, ...)
 // built from the staged rows and its launch argument.
 template <bool EXT, bool XT, class TR>
 __global__ void __launch_bounds__(TR::THREADS)
@@ -1266,7 +1569,8 @@ inline StageHeld* stage_held(const void* kernel, int dev) {
 
 // Launch a grouped kernel of traversal TR over n entries: K lanes an
 // entry, TR::THREADS a block, `bytes` of dynamic shared memory (the staged
-// rows); over TR::SMEM_CAP it is refused. TR::PREFER_L1 (GroupSpill) asks
+// rows); over TR::SMEM_CAP it is refused. TR::PREFER_L1 (GroupSpill,
+// GroupCulledSpill, GroupWalk) asks
 // for the smallest shared-memory carveout that holds the resident blocks'
 // stages, leaving the rest of the SM's pool to L1, once for each stage
 // size (stage_held).

@@ -10,15 +10,20 @@
 // the widths the render libraries ship are constants of kernel_extra.cu,
 // kernel_accel.cu and kernel_base.cu.
 //
+// The grouped kernels B and A over the culled sweep for tables of any size
+// come over GroupCulledSpill<TRT_TUNE_K, TRT_TUNE_WIDE, TRT_TUNE_THREADS,
+// TRT_TUNE_STAGE_CAP> (A on the schedule TRT_TUNE_REFILL).
+//
 // The grouped kernel B and the grouped chunked kernel A at the EXT gates
 // over GroupSweep<TRT_TUNE_K> and over TuneSpill, and the grouped gathered
 // kernels B and A (the latter on the schedule TRT_TUNE_REFILL) over
 // GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK (the row source), TRT_TUNE_THREADS,
 // TRT_TUNE_STAGE_CAP> come under the render libraries' names too.
 //
-// Beside them, the forms of kernel A at the XT gates that the sweep weighs
-// against the shipped thread per pixel (ops/build.py TUNE_ONLY_ENTRY_POINTS):
-// trt_kernel_base_xt, one thread a pixel held to TRT_TUNE_MIN_BLOCKS
+// Beside them, the forms of kernel A at the XT gates and over the culled
+// sweep that the sweep weighs against the shipped thread per pixel
+// (ops/build.py TUNE_ONLY_ENTRY_POINTS): trt_kernel_base_xt and
+// trt_kernel_base_grid, one thread a pixel held to TRT_TUNE_MIN_BLOCKS
 // resident blocks an SM (0: kernel_base as shipped), and
 // trt_kernel_base_xt_grouped, kernel_base_grouped at the XT gates over
 // GroupSweep<TRT_TUNE_K> on the schedule TRT_TUNE_REFILL, held to
@@ -57,6 +62,8 @@
 
 using TuneSpill = trt::GroupSpill<TRT_TUNE_K, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
 using TuneWalk = trt::GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
+using TuneCulledSpill = trt::GroupCulledSpill<TRT_TUNE_K, (TRT_TUNE_WIDE != 0), TRT_TUNE_THREADS,
+                                              TRT_TUNE_STAGE_CAP>;
 
 extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
                                         const int* ys, const long long* state_in,
@@ -208,6 +215,35 @@ extern "C" int trt_kernel_extra_ext_grouped_spill(const ExtraArgs* a, const trt:
 extern "C" int trt_kernel_extra_ext_grouped_spill_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_extra_ext_grouped_spill_cap() { return TuneSpill::SMEM_CAP; }
 
+extern "C" int trt_kernel_extra_grid_grouped_spill(const ExtraArgs* a, const trt::Tex* tx,
+                                                   const trt::Xt* xt, const trt::Accel* acc,
+                                                   const float* scene_buf, const int* xs,
+                                                   const int* ys, const long long* state_in,
+                                                   const float* add, const int* samp0,
+                                                   float* out, unsigned long long* iters,
+                                                   void* stream) {
+  return launch_extra_grouped<true, true, TuneCulledSpill>(a, *tx, *xt, scene_buf, xs, ys,
+                                                           state_in, add, samp0, out, iters,
+                                                           stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_grid_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_extra_grid_grouped_spill_cap() { return TuneCulledSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_base_grid_grouped_spill(const BaseArgs* a, const trt::Tex* tx,
+                                                  const trt::Xt* xt, const trt::Accel* acc,
+                                                  const float* scene_buf, float* out,
+                                                  long long* state_out,
+                                                  unsigned long long* iters, unsigned* next,
+                                                  void* stream) {
+  return launch_base_grouped<true, true, TuneCulledSpill, (TRT_TUNE_REFILL != 0)>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, next, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_grid_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_grid_grouped_spill_cap() { return TuneCulledSpill::SMEM_CAP; }
+extern "C" int trt_kernel_base_grid_grouped_spill_refill() { return TRT_TUNE_REFILL; }
+
 extern "C" int trt_kernel_extra_gathered_grouped(const ExtraArgs* a, const trt::Tex* tx,
                                                  const trt::Xt* xt, const trt::Accel* acc,
                                                  const float* scene_buf, const int* xs,
@@ -266,6 +302,18 @@ extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const t
 
 extern "C" int trt_kernel_base_xt_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
 
+// Kernel A over the culled sweep, one thread a pixel (TRT_TUNE_MIN_BLOCKS >
+// 0: kernel_base_resident), the arguments of kernel_accel.cu's entry.
+extern "C" int trt_kernel_base_grid(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                    const trt::Accel* acc, const float* scene_buf, float* out,
+                                    long long* state_out, unsigned long long* iters,
+                                    void* stream) {
+  return launch_base<true, true, trt::Culled, TRT_TUNE_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
+                                                                   state_out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_grid_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
+
 // Kernel A at the XT gates grouped (kernel_base_grouped, or with
 // TRT_TUNE_MIN_BLOCKS > 0 kernel_base_grouped_resident): the arguments of
 // trt_kernel_base_xt and `next`, as trt_kernel_base_grouped.
@@ -281,7 +329,7 @@ extern "C" int trt_kernel_base_xt_grouped(const BaseArgs* a, const trt::Tex* tx,
 extern "C" int trt_kernel_base_xt_grouped_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_xt_grouped_refill() { return TRT_TUNE_REFILL; }
 
-// The resident blocks an SM of the two forms above (no staged rows), or a
+// The resident blocks an SM of the forms above (no staged rows), or a
 // negative CUDA error.
 template <class F>
 static int per_sm(F* kernel, int threads) {
@@ -295,6 +343,14 @@ extern "C" int trt_kernel_base_xt_per_sm() {
   return per_sm(kernel_base_resident<true, true, trt::Sweep, TRT_TUNE_MIN_BLOCKS>, 128);
 #else
   return per_sm(kernel_base<true, true, trt::Sweep>, 128);
+#endif
+}
+
+extern "C" int trt_kernel_base_grid_per_sm() {
+#if TRT_TUNE_MIN_BLOCKS > 0
+  return per_sm(kernel_base_resident<true, true, trt::Culled, TRT_TUNE_MIN_BLOCKS>, 128);
+#else
+  return per_sm(kernel_base<true, true, trt::Culled>, 128);
 #endif
 }
 

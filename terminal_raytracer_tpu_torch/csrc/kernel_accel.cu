@@ -30,9 +30,13 @@
 // them, and the group replays the serial cull decisions, so its hits and
 // traversal counters are Culled's. The blocked scene's rows and its group
 // table are staged in shared memory; ops/kernels.py takes it where both
-// fit group.cuh's budget, and trt_kernel_extra_grid above it. It replaces
+// fit group.cuh's budget. It replaces
 // the same Pallas kernel as trt_kernel_extra_grid (:1028 over CulledPrims,
 // bound at :1033).
+//
+// trt_kernel_base_grid, one thread a pixel, is held to GRID_MIN_BLOCKS
+// resident blocks an SM (__launch_bounds__(128, 5)), so that a 400x200
+// frame's 625 blocks run in one wave, as the XT kernel A is.
 //
 // trt_kernel_base_grid_grouped is kernel A over the culled sweep redesigned
 // the same way (group.cuh kernel_base_grouped over GroupCulled<GROUP_K_BASE_GRID,
@@ -40,6 +44,14 @@
 // carries one pixel, the serial cull decisions replayed, the counters
 // Culled's. It replaces the same Pallas kernel as trt_kernel_base_grid
 // (:796 over CulledPrims, bound at :809).
+//
+// trt_kernel_extra_grid_grouped_spill and trt_kernel_base_grid_grouped_spill
+// are the two for tables of any size (group.cuh GroupCulledSpill: the group
+// table, then the rows, as far as they fit a 227 KB stage, the rest read
+// through L1; the same decisions, hits and counters); ops/kernels.py takes
+// them where the rows and the group table exceed the budget (kernel A from
+// GROUP_BASE_MIN_PRIMS primitives on), so trt_kernel_extra_grid serves no
+// dispatch and trt_kernel_base_grid only scenes below that count.
 //
 // trt_kernel_extra_gathered_grouped is kernel B over the grid walk
 // redesigned for the H100 (group.cuh GroupWalk): a path group of
@@ -62,6 +74,15 @@
 
 #include "group.cuh"
 
+// The resident blocks an SM that the grid kernel A's thread per pixel is
+// held to (pipeline.cuh kernel_base_resident; it serves scenes below
+// GROUP_BASE_MIN_PRIMS primitives): chosen by tools/group_k.py --only grid
+// at the north star under --accel grid (Cornell_Box 400x200, 16 spp, depth
+// 32; ms, H100 80GB HBM3 at 700 W, twice in turns): unbound 2.516 / 2.528
+// (128 registers, 4 blocks an SM), 4 2.530 / 2.514, 5 2.199 / 2.199 (96
+// registers, 360 B of spill stores, 0.95 waves), 6 2.308 / 2.311.
+constexpr int GRID_MIN_BLOCKS = 5;
+
 // The group width of the grouped grid kernel B and its design (group.cuh
 // GroupCulled: WIDE sweeps K / 8 candidate blocks a step): chosen by the
 // sweep over K of tools/group_k.py (PERF.md, the grouped kernels).
@@ -73,6 +94,22 @@ constexpr bool GROUP_WIDE_EXTRA_GRID = true;
 constexpr int GROUP_K_BASE_GRID = 32;
 constexpr bool GROUP_WIDE_BASE_GRID = false;
 constexpr bool GROUP_REFILL_BASE_GRID = true;
+// Their forms for tables over the budget (group.cuh GroupCulledSpill<K,
+// WIDE, block width, stage cap>) and kernel A's schedule there: chosen by
+// the sweep of tools/group_k.py --only grid at mesh5120 and icosphere:5
+// under --accel grid, 200x100, 8 spp, depth 6, the least summed time
+// (PERF.md; ms at mesh5120 / icosphere:5, H100 80GB HBM3 at 700 W). B:
+// thread per entry 5.863 / 18.316; K 8 1.275 / 4.270; K 16 wide 0.602 /
+// 1.693; K 32 wide at 256 lanes 0.272 / 0.609, at 512 0.279 / 0.669, K 32
+// one block a step 0.288 / 0.636. A: thread per pixel 6.112 / 20.963; K 32
+// wide at 512 lanes, refill 0.701 / 1.642, static 0.828 / 1.928; K 32 one
+// block a step at 512, refill 0.721 / 1.673; every form at 256 lanes
+// slower, and K 8 and 16 slower still. Within the budget (stress1024,
+// mesh1280) every form is slower than GroupCulled (B by 23-28%, A by
+// 3-6%), which keeps those tables.
+using ExtraGridSpill = trt::GroupCulledSpill<32, true, 256, trt::GROUP_SMEM_MAX>;
+using BaseGridSpill = trt::GroupCulledSpill<32, true, 512, trt::GROUP_SMEM_MAX>;
+constexpr bool GROUP_REFILL_BASE_GRID_SPILL = true;
 // The group width and row source of the grouped gathered kernel B (group.cuh
 // GroupWalk, 128 lanes a block): chosen by the sweep of tools/group_k.py
 // --only walk at 200x100, 8 spp, depth 6 (PERF.md, the grouped gathered
@@ -113,9 +150,11 @@ extern "C" int trt_kernel_base_grid(const BaseArgs* a, const trt::Tex* tx, const
                                     const trt::Accel* acc, const float* scene_buf, float* out,
                                     long long* state_out, unsigned long long* iters,
                                     void* stream) {
-  return launch_base<true, true, trt::Culled>(a, *tx, *xt, scene_buf, out, state_out, iters,
-                                              stream, *acc);
+  return launch_base<true, true, trt::Culled, GRID_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
+                                                               state_out, iters, stream, *acc);
 }
+
+extern "C" int trt_kernel_base_grid_min_blocks() { return GRID_MIN_BLOCKS; }
 
 extern "C" int trt_kernel_base_gathered(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                         const trt::Accel* acc, const float* scene_buf, float* out,
@@ -201,6 +240,40 @@ extern "C" int trt_kernel_base_grid_grouped(const BaseArgs* a, const trt::Tex* t
 
 extern "C" int trt_kernel_base_grid_grouped_k() { return GROUP_K_BASE_GRID; }
 extern "C" int trt_kernel_base_grid_grouped_refill() { return GROUP_REFILL_BASE_GRID; }
+
+// The grouped kernels B and A over the culled sweep for tables of any size
+// (group.cuh GroupCulledSpill): the arguments of trt_kernel_extra_grid_grouped
+// and trt_kernel_base_grid_grouped.
+extern "C" int trt_kernel_extra_grid_grouped_spill(const ExtraArgs* a, const trt::Tex* tx,
+                                                   const trt::Xt* xt, const trt::Accel* acc,
+                                                   const float* scene_buf, const int* xs,
+                                                   const int* ys, const long long* state_in,
+                                                   const float* add, const int* samp0,
+                                                   float* out, unsigned long long* iters,
+                                                   void* stream) {
+  return launch_extra_grouped<true, true, ExtraGridSpill>(a, *tx, *xt, scene_buf, xs, ys,
+                                                          state_in, add, samp0, out, iters,
+                                                          stream, *acc);
+}
+
+extern "C" int trt_kernel_extra_grid_grouped_spill_k() { return ExtraGridSpill::K; }
+extern "C" int trt_kernel_extra_grid_grouped_spill_cap() { return ExtraGridSpill::SMEM_CAP; }
+
+extern "C" int trt_kernel_base_grid_grouped_spill(const BaseArgs* a, const trt::Tex* tx,
+                                                  const trt::Xt* xt, const trt::Accel* acc,
+                                                  const float* scene_buf, float* out,
+                                                  long long* state_out,
+                                                  unsigned long long* iters, unsigned* next,
+                                                  void* stream) {
+  return launch_base_grouped<true, true, BaseGridSpill, GROUP_REFILL_BASE_GRID_SPILL>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, next, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_grid_grouped_spill_k() { return BaseGridSpill::K; }
+extern "C" int trt_kernel_base_grid_grouped_spill_cap() { return BaseGridSpill::SMEM_CAP; }
+extern "C" int trt_kernel_base_grid_grouped_spill_refill() {
+  return GROUP_REFILL_BASE_GRID_SPILL;
+}
 
 // The grouped kernel B over the grid walk: the same arguments and outputs
 // as trt_kernel_extra_gathered, at any table size.

@@ -71,6 +71,7 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_ext_grouped_spill_k", 0),
                         ("trt_kernel_extra_ext_grouped_spill_cap", 0)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
+                        ("trt_kernel_base_grid_min_blocks", 0),
                         ("trt_kernel_base_gathered", 9),
                         ("trt_kernel_base_chunked_grid", 9),
                         ("trt_kernel_base_chunked_gathered", 9),
@@ -81,6 +82,13 @@ ENTRY_POINTS = {
                         ("trt_kernel_base_grid_grouped", 10),
                         ("trt_kernel_base_grid_grouped_k", 0),
                         ("trt_kernel_base_grid_grouped_refill", 0),
+                        ("trt_kernel_extra_grid_grouped_spill", 13),
+                        ("trt_kernel_extra_grid_grouped_spill_k", 0),
+                        ("trt_kernel_extra_grid_grouped_spill_cap", 0),
+                        ("trt_kernel_base_grid_grouped_spill", 10),
+                        ("trt_kernel_base_grid_grouped_spill_k", 0),
+                        ("trt_kernel_base_grid_grouped_spill_cap", 0),
+                        ("trt_kernel_base_grid_grouped_spill_refill", 0),
                         ("trt_kernel_extra_gathered_grouped", 13),
                         ("trt_kernel_extra_gathered_grouped_k", 0),
                         ("trt_kernel_base_gathered_grouped", 10),
@@ -115,14 +123,16 @@ RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # for GroupWalk's row source -DTRT_TUNE_WALK and for the
 # XT kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS), with the grouped
 # entries of the render libraries and the XT kernel A's forms that the
-# sweep weighs (TUNE_ONLY_ENTRY_POINTS).
+# sweep weighs and the grid kernel A's thread per pixel
+# (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
 TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_xt", 8), ("trt_kernel_base_xt_min_blocks", 0),
     ("trt_kernel_base_xt_per_sm", 0), ("trt_kernel_base_xt_grouped", 9),
     ("trt_kernel_base_xt_grouped_k", 0),
     ("trt_kernel_base_xt_grouped_refill", 0),
-    ("trt_kernel_base_xt_grouped_per_sm", 0))
+    ("trt_kernel_base_xt_grouped_per_sm", 0), ("trt_kernel_base_grid", 9),
+    ("trt_kernel_base_grid_min_blocks", 0), ("trt_kernel_base_grid_per_sm", 0))
 TUNE_ENTRY_POINTS = tuple(
     (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",
                           "kernel_base.cu")

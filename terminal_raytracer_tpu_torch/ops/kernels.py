@@ -38,16 +38,19 @@ base_kernel_gathered_grouped (GroupWalk, every table size),
 base_kernel_chunked to base_kernel_chunked_grouped, base_kernel_chunked_xt
 to base_kernel_chunked_xt_grouped, base_kernel_chunked_ext to
 base_kernel_chunked_ext_grouped, each counting its own launches. Kernel B
-at the reference, XT and EXT gates and the chunked kernel A at the
-reference, XT and EXT gates take their grouped entries at every table
-size: above the budget those pass the tracer on to their forms over
-csrc/group.cuh GroupSpill (extra_kernel_grouped_spill,
-extra_kernel_xt_grouped_spill, extra_kernel_ext_grouped_spill,
-base_kernel_chunked_grouped_spill, base_kernel_chunked_xt_grouped_spill,
-base_kernel_chunked_ext_grouped_spill), which
-stage the rows that fit their stage cap (group_stage) and read the rest
-from the scene buffer through L1. Kernel A at the reference gates and the
-grid kernels launch their thread-per-entry entries above the budget. The
+at the reference, XT and EXT gates and over the culled sweep, the chunked
+kernel A at the reference, XT and EXT gates and kernel A over the culled
+sweep take their grouped entries at every table size: above the budget
+those pass the tracer on to their forms over csrc/group.cuh GroupSpill
+(extra_kernel_grouped_spill, extra_kernel_xt_grouped_spill,
+extra_kernel_ext_grouped_spill, base_kernel_chunked_grouped_spill,
+base_kernel_chunked_xt_grouped_spill,
+base_kernel_chunked_ext_grouped_spill), which stage the rows that fit
+their stage cap (group_stage) and read the rest from the scene buffer
+through L1, or over GroupCulledSpill (extra_kernel_grid_grouped_spill,
+base_kernel_grid_grouped_spill), which stage the group table first
+(culled_stage). Kernel A at the reference gates launches its thread per
+pixel above the budget. The
 thread-per-entry entries of every kernel stay, launched directly by
 _launch_extra / _launch_chunked / _launch_base with their `kind`. Their
 counters of executed lane-iterations count path slots: warp_iters(.., k)
@@ -391,6 +394,32 @@ def stage_bytes(staged: tuple) -> int:
     return 4 * (TRI_SWEEP_W * t + geom.SPH_W * s + geom.PLN_W * p)
 
 
+def culled_stage(n_groups: int, n_sph: int, n_pln: int, n_tri: int,
+                 cap: int) -> tuple:
+    """(groups, triangles, spheres, planes) that GroupCulledSpill stages in
+    shared memory under a stage cap of `cap` bytes (csrc/group.cuh
+    culled_stage): the group table first, as many groups as fit, then
+    group_stage's rows under the rest of the cap. The rest of the table and
+    of each kind is read through L1."""
+    g = min(n_groups, cap // 4 // accel_mod.GROUP_W)
+    return (g, *group_stage(n_sph, n_pln, n_tri,
+                            cap - 4 * accel_mod.GROUP_W * g))
+
+
+def culled_stage_bytes(staged: tuple) -> int:
+    """The shared memory of culled_stage's staged groups and rows
+    (bytes)."""
+    return 4 * accel_mod.GROUP_W * staged[0] + stage_bytes(staged[1:])
+
+
+def grid_counts(tracer) -> tuple:
+    """(groups, spheres, planes, triangles) of a `--accel grid` tracer's
+    blocked scene: culled_stage's first four arguments."""
+    n_sph, n_pln, n_tri, _ = tracer.tables.counts
+    return (tracer.tables.acc.numel() // accel_mod.GROUP_W, n_sph, n_pln,
+            n_tri)
+
+
 # The least primitives at which kernel A takes its grouped entry: below it
 # a bounce's sweeps are too short to split over the group and the thread
 # per pixel is faster. tools/group_k.py on the H100 (PERF.md): Cornell_Box
@@ -402,10 +431,10 @@ GROUP_BASE_MIN_PRIMS = 16
 
 
 # The instantiations whose grouped entry serves every table size (its
-# GroupSpill form above GROUP_SMEM_BYTES; the walk stages no rows), by
-# kernel.
-ANY_SIZE = {"extra": ("ref", "xt", "ext", "gathered"),
-            "chunked": ("ref", "xt", "ext"), "base": ("gathered",)}
+# GroupSpill or GroupCulledSpill form above GROUP_SMEM_BYTES; the walk
+# stages no rows), by kernel.
+ANY_SIZE = {"extra": ("ref", "xt", "ext", "grid", "gathered"),
+            "chunked": ("ref", "xt", "ext"), "base": ("grid", "gathered")}
 
 
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
@@ -454,6 +483,8 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                     "base": "trt_kernel_base_grouped",
                     "base_grid": "trt_kernel_base_grid_grouped",
                     "base_gathered": "trt_kernel_base_gathered_grouped",
+                    "extra_grid_spill": "trt_kernel_extra_grid_grouped_spill",
+                    "base_grid_spill": "trt_kernel_base_grid_grouped_spill",
                     "extra_spill": "trt_kernel_extra_grouped_spill",
                     "extra_xt_spill": "trt_kernel_extra_xt_grouped_spill",
                     "chunked_spill": "trt_kernel_base_chunked_grouped_spill",
@@ -478,16 +509,17 @@ def group_k(kernel: str, lib=None) -> int:
 def group_cap(kernel: str, lib=None) -> int:
     """The stage cap (bytes) of the GroupSpill form `kernel`
     ('extra_spill', 'extra_xt_spill', 'extra_ext_spill', 'chunked_spill',
-    'chunked_xt_spill' or 'chunked_ext_spill')
-    of `lib` (default the render libraries; on the card): group_stage's
-    `cap`."""
+    'chunked_xt_spill' or 'chunked_ext_spill'; group_stage's `cap`) or of
+    the GroupCulledSpill form ('extra_grid_spill', 'base_grid_spill';
+    culled_stage's) of `lib` (default the render libraries; on the
+    card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_cap")())
 
 
 def group_refill(kernel: str, lib=None) -> bool:
-    """Whether the grouped kernel A `kernel` ('base', 'base_grid' or
-    'base_gathered') of
+    """Whether the grouped kernel A `kernel` ('base', 'base_grid',
+    'base_grid_spill' or 'base_gathered') of
     `lib` (default the render libraries) runs the refill schedule (the
     resident groups take pixels from a counter), not the static one (on the
     card)."""
@@ -499,8 +531,8 @@ def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     """Call the C entry point `entry` (+ '_ext', '_xt', '_grid',
     '_gathered', '_grouped', '_xt_grouped', '_ext_grouped',
     '_grid_grouped', '_gathered_grouped', '_grouped_spill',
-    '_xt_grouped_spill' or '_ext_grouped_spill' by `kind`) with its launch
-    arguments and raise on a launch error."""
+    '_xt_grouped_spill', '_ext_grouped_spill' or '_grid_grouped_spill' by
+    `kind`) with its launch arguments and raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
     inst = (kind.removesuffix("_spill").removesuffix("grouped")
             .removesuffix("_") or "ref")
@@ -553,8 +585,8 @@ def _no_chunks(tracer, name: str) -> None:
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                  kind: str, lib=None) -> BaseOut:
     """Launch kernel A's `kind` instantiation (the grouped entries for
-    'grouped', 'grid_grouped', 'gathered_grouped', which also take a zeroed
-    pixel counter),
+    'grouped', 'grid_grouped', 'grid_grouped_spill', 'gathered_grouped',
+    which also take a zeroed pixel counter),
     from `lib` (default the render libraries). Its quota (BaseArgs.base),
     and with it the epilogue's 1 / base and budget cap, is the runtime
     share `base_q` where one is given (counted in
@@ -574,7 +606,7 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                      float(np.float32(1.0 / base)) if base else 0.0,
                      float(max(spp - base, 0)))
     counter = ((iters.data_ptr() + iters.element_size(),)
-               if kind.endswith("grouped") else ())
+               if "grouped" in kind else ())
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
             iters.data_ptr(), *counter, _stream(device))
     _launch(lib or load_kernels(), "trt_kernel_base", args, tracer, kind,
@@ -694,17 +726,46 @@ def base_kernel_grid_grouped(tracer, pose, seed: int, frame_number: int,
     group_k('base_grid') lanes a pixel on the schedule
     group_refill('base_grid'), the serial cull decisions replayed across
     the group, the traversal counters the plain version's. For a `--accel
-    grid` tracer whose rows and group table fit GROUP_SMEM_BYTES;
-    base_kernel_grid takes it for such a tracer of at least
-    GROUP_BASE_MIN_PRIMS primitives (takes_grouped)."""
-    _require_grouped(tracer, "base_kernel_grid_grouped", "grid")
+    grid` tracer; base_kernel_grid takes it for such a tracer of at least
+    GROUP_BASE_MIN_PRIMS primitives (takes_grouped). Rows and group table
+    over GROUP_SMEM_BYTES go on to base_kernel_grid_grouped_spill."""
+    _require_grouped(tracer, "base_kernel_grid_grouped", "grid",
+                     any_size=True)
     _no_chunks(tracer, "base_kernel_grid_grouped")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid_grouped"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
                                  base_q)
+    if _over_budget(tracer):
+        return base_kernel_grid_grouped_spill(tracer, pose, seed,
+                                              frame_number, y0, h_out, base_q)
     out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                        "grid_grouped")
     base_kernel_grid_grouped.launches += 1
+    return out
+
+
+def base_kernel_grid_grouped_spill(tracer, pose, seed: int,
+                                   frame_number: int, y0: int = 0,
+                                   h_out: int = None,
+                                   base_q: int = None) -> BaseOut:
+    """Kernel A's grouped form over the culled sweep for any table size
+    (csrc/group.cuh GroupCulledSpill): group_k('base_grid_spill') lanes a
+    pixel on the schedule group_refill('base_grid_spill'), the group table
+    and then the rows that fit group_cap('base_grid_spill') staged
+    (culled_stage), the rest read through L1; the decisions, hits and
+    counters those of base_kernel_grid_grouped. For a `--accel grid`
+    tracer; base_kernel_grid_grouped takes it where the rows and group
+    table exceed GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "base_kernel_grid_grouped_spill", "grid",
+                     any_size=True)
+    _no_chunks(tracer, "base_kernel_grid_grouped_spill")
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_grid_grouped_spill"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "grid_grouped_spill")
+    base_kernel_grid_grouped_spill.launches += 1
     return out
 
 
@@ -758,6 +819,7 @@ base_kernel_ext.launches = 0
 base_kernel_xt.launches = 0
 base_kernel_grid.launches = 0
 base_kernel_grid_grouped.launches = 0
+base_kernel_grid_grouped_spill.launches = 0
 base_kernel_gathered.launches = 0
 base_kernel_gathered_grouped.launches = 0
 
@@ -1132,8 +1194,8 @@ def _launch_extra(tracer, pose, xs, ys, state, add, samp0, kind: str,
     """Launch kernel B's `kind` instantiation (the grouped entries for
     'grouped', 'xt_grouped', 'ext_grouped', 'grid_grouped',
     'gathered_grouped', their GroupSpill forms for 'grouped_spill',
-    'xt_grouped_spill', 'ext_grouped_spill'), from `lib` (default the
-    render libraries)."""
+    'xt_grouped_spill', 'ext_grouped_spill', the GroupCulledSpill form for
+    'grid_grouped_spill'), from `lib` (default the render libraries)."""
     device, n = xs.device, xs.numel()
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     iters = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -1248,16 +1310,40 @@ def extra_kernel_grid_grouped(tracer, pose, xs, ys, state, add, samp0):
     """Kernel B's grouped entry over the culled sweep (csrc/group.cuh
     GroupCulled, XT instantiation): group_k('extra_grid') lanes an entry,
     the serial cull decisions replayed across the group, the traversal
-    counters the plain version's. For a `--accel grid` tracer whose rows
-    and group table fit GROUP_SMEM_BYTES; extra_kernel takes it for such a
-    tracer."""
-    _require_grouped(tracer, "extra_kernel_grid_grouped", "grid")
+    counters the plain version's. For a `--accel grid` tracer; extra_kernel
+    takes it for such a tracer. Rows and group table over GROUP_SMEM_BYTES
+    go on to extra_kernel_grid_grouped_spill."""
+    _require_grouped(tracer, "extra_kernel_grid_grouped", "grid",
+                     any_size=True)
     if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
                           "extra_kernel_grid_grouped"):
         return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    if _over_budget(tracer):
+        return extra_kernel_grid_grouped_spill(tracer, pose, xs, ys, state,
+                                               add, samp0)
     out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
                         "grid_grouped")
     extra_kernel_grid_grouped.launches += 1
+    return out
+
+
+def extra_kernel_grid_grouped_spill(tracer, pose, xs, ys, state, add, samp0):
+    """Kernel B's grouped form over the culled sweep for any table size
+    (csrc/group.cuh GroupCulledSpill): group_k('extra_grid_spill') lanes an
+    entry, the group table and then the rows that fit
+    group_cap('extra_grid_spill') staged (culled_stage), the rest read
+    through L1; the decisions, hits and counters those of
+    extra_kernel_grid_grouped. For a `--accel grid` tracer;
+    extra_kernel_grid_grouped takes it where the rows and group table
+    exceed GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "extra_kernel_grid_grouped_spill", "grid",
+                     any_size=True)
+    if not _extra_on_cuda(tracer, xs, ys, state, add, samp0,
+                          "extra_kernel_grid_grouped_spill"):
+        return extra_kernel_plain(tracer, pose, xs, ys, state, add, samp0)
+    out = _launch_extra(tracer, pose, xs, ys, state, add, samp0,
+                        "grid_grouped_spill")
+    extra_kernel_grid_grouped_spill.launches += 1
     return out
 
 
@@ -1365,6 +1451,7 @@ extra_kernel_grouped_spill.launches = 0
 extra_kernel_xt_grouped.launches = 0
 extra_kernel_xt_grouped_spill.launches = 0
 extra_kernel_grid_grouped.launches = 0
+extra_kernel_grid_grouped_spill.launches = 0
 extra_kernel_ext_grouped.launches = 0
 extra_kernel_ext_grouped_spill.launches = 0
 extra_kernel_gathered_grouped.launches = 0
@@ -1374,14 +1461,16 @@ extra_kernel_grid.launches = 0
 extra_kernel_gathered.launches = 0
 
 # The grouped kernel B of each instantiation that has one, and the GroupSpill
-# forms that those of ANY_SIZE pass a table over the budget on to.
+# and GroupCulledSpill forms that those of ANY_SIZE pass a table over the
+# budget on to.
 GROUPED_EXTRA = {"ref": extra_kernel_grouped, "xt": extra_kernel_xt_grouped,
                  "ext": extra_kernel_ext_grouped,
                  "grid": extra_kernel_grid_grouped,
                  "gathered": extra_kernel_gathered_grouped}
 SPILL_EXTRA = {"ref": extra_kernel_grouped_spill,
                "xt": extra_kernel_xt_grouped_spill,
-               "ext": extra_kernel_ext_grouped_spill}
+               "ext": extra_kernel_ext_grouped_spill,
+               "grid": extra_kernel_grid_grouped_spill}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base|spill|budget|xt|ext|walk]
+        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -91,8 +91,23 @@ walk_forms, K (--ks; default WALK_KS for B, WALK_A_KS for A) by row source
 both schedules (static, refill), 128 lanes a block, a 227 KB cap, beside
 the thread per entry or pixel (traverse.cuh Walk), the walk counters
 against the plain version's and (B) the thread per entry's. Both print
-each form's ptxas registers and spills. Needs a CUDA GPU (exit 2 without
-one).
+each form's ptxas registers and spills. `--only grid` sweeps the grid
+kernels A and B over tables above the 96 KB budget (csrc/group.cuh
+GroupCulledSpill: the group table, then the rows, staged as far as a
+227 KB cap holds them, the rest read through L1) at mesh5120 (icosphere:4)
+and icosphere:5 under --accel grid, 200x100, 8 spp, depth 6: K of --ks
+(default GRID_KS) in both designs where K > 8 (wide: K / 8 blocks a step;
+narrow: one block a step), GRID_THREADS lanes a block, kernel A on both
+schedules, beside the thread per pixel or entry (traverse.cuh Culled),
+bit for bit with the traversal counters against the plain version's
+(computed in row blocks at icosphere:5) and each form's ptxas line; then,
+within the budget (stress1024 and mesh1280 under grid), every form in
+turns with the shipped GroupCulled entries; then the grid kernel A's
+thread per pixel at the north star under grid (Cornell_Box 400x200, 16
+spp, depth 32: too few primitives for a group) as shipped and held to
+GRID_MIN_BLOCKS resident blocks an SM (-DTRT_TUNE_MIN_BLOCKS, csrc/
+group_tune.cu's trt_kernel_base_grid), twice in turns. Needs a CUDA GPU
+(exit 2 without one).
 """
 
 from __future__ import annotations
@@ -290,28 +305,38 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
 
 
 def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None,
-                ptxas=None):
+                ptxas=None, spill=False, rows=0):
     """Kernel A of `tr`'s instantiation ('ref', 'grid' or 'gathered'):
-    thread per pixel, then the grouped entry of every library of `libs`
-    ({label: library}, each of its K and schedule), bit for bit against the
-    plain version (under an opt-in traversal its counters too), with the
-    occupancy; each line with `ptxas`[label] where given."""
+    thread per pixel, then the grouped entry (`spill`: the grid's
+    GroupCulledSpill form) of every library of `libs` ({label: library},
+    each of its K and schedule), bit for bit against the plain version
+    (computed over `rows` image rows a call, 0: all at once; under an
+    opt-in traversal its counters too), with the occupancy; each line with
+    `ptxas`[label] where given."""
     ptxas = ptxas or {}
     kind = kernels._kind(tr)
-    grouped = "grouped" if kind == "ref" else f"{kind}_grouped"
-    entry = "base" if kind == "ref" else f"base_{kind}"
+    grouped = ("grouped" if kind == "ref" else f"{kind}_grouped") + (
+        "_spill" if spill else "")
+    entry = ("base" if kind == "ref" else f"base_{kind}") + (
+        "_spill" if spill else "")
+
+    def plain(r0, r1):
+        p = kernels.base_kernel_plain(tr, pose, seed, 0, r0, r1 - r0,
+                                      base_q=base_q)
+        return (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
+
     if tr.traversal:
         tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
-    p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
+    want = _in_rows(plain, tr.height, rows)
     plain_stats = None
     if tr.traversal:
         plain_stats = tr.prims.stats.long().cpu()
         tr.prims.ops = None
         print(f"[group_k] {label} kernel A counters: plain "
               f"{plain_stats.tolist()}", flush=True)
-    want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
-    it = kernels.base_entry_iters(tr, pose, seed, 0, base_q=base_q)
-    owed = float(p.rays.sum(dtype=torch.float64))
+    it = _in_rows(lambda r0, r1: kernels.base_entry_iters(
+        tr, pose, seed, 0, r0, r1 - r0, base_q=base_q), tr.height, rows)
+    owed = float(want[6].sum(dtype=torch.float64))
     per_iter = 1.0 + tr.nee_sweeps
     print(f"[group_k] {label} kernel A ({kind}) {tr.width}x{tr.height}, "
           f"quota {base_q or tr.base_samples}: {int(it.sum())} pixel "
@@ -766,12 +791,157 @@ def sweep_ext_walk(only, reps, ks=None) -> None:
                    ptxas=a_marks)
 
 
+# --only grid: the grid kernels' GroupCulledSpill forms, (K, design, block
+# width) at a 227 KB stage cap, kernel A on both schedules; the within-budget
+# shapes at which they are also timed beside the shipped GroupCulled.
+GRID_KS = (8, 16, 32)
+GRID_THREADS = (256, 512)
+GRID_OVER = (("mesh5120 grid", "icosphere:4", 0),
+             ("icosphere5 grid", "icosphere:5", PLAIN_ROWS))
+GRID_WITHIN = (("stress1024 grid", "stress:1024"),
+               ("mesh1280 grid", "icosphere:3"))
+# The grid kernel A's thread per pixel at the north star under grid (11
+# primitives: no group), held to these resident blocks an SM (0: unbound).
+GRID_MIN_BLOCKS = (0, 4, 5, 6)
+
+
+def _grid_libs(ks=GRID_KS):
+    """The group_tune.cu builds of --only grid: {label: (source, defines)},
+    label 'K design tT[ refill]' (design 'wide', K / 8 blocks a step, or
+    'narrow', one block a step on all K lanes; the same at K = 8)."""
+    out = {}
+    for k in ks:
+        for wide in ((1, 0) if k > 8 else (0,)):
+            for t in GRID_THREADS:
+                for refill in (0, 1):
+                    label = (f"{k} {'wide' if wide else 'narrow'} t{t}"
+                             + (" refill" if refill else ""))
+                    out[label] = (build.TUNE_SOURCE, (
+                        f"TRT_TUNE_K={k}", f"TRT_TUNE_WIDE={wide}",
+                        f"TRT_TUNE_THREADS={t}",
+                        f"TRT_TUNE_STAGE_CAP={GROUP_SMEM_MAX}",
+                        f"TRT_TUNE_REFILL={refill}"))
+    return out
+
+
+def _grid_resident(tr, pose, seed, libs, logs, reps):
+    """The grid kernel A's thread per pixel on `tr`: the render library's,
+    then held to each GRID_MIN_BLOCKS bound (`libs`, `logs` by bound), each
+    against the plain version bit for bit with its counters, its
+    lane-iterations the plain model's at K = 1, its ptxas line, resident
+    blocks an SM and waves; twice, in turns."""
+    tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
+    p = kernels.base_kernel_plain(tr, pose, seed, 0)
+    plain_stats = tr.prims.stats.long().cpu()
+    tr.prims.ops = None
+    want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
+    it = kernels.base_entry_iters(tr, pose, seed, 0)
+    blocks = -(-tr.width * tr.height // 128)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    label = f"north star grid kernel A (grid) {tr.width}x{tr.height}"
+
+    def launch(lib=None):
+        return kernels._launch_base(tr, pose, seed, 0, 0, None, None, "grid",
+                                    lib)
+
+    def flat(o):
+        return (*o.csum, *o.csumsq, o.rays, o.var, o.additional, o.state)
+
+    for _ in range(2):
+        for n, lib in {"shipped": None, **libs}.items():
+            out, stats = _counted(tr, lambda: launch(lib))
+            extra = ""
+            if lib is not None:
+                per_sm = lib.trt_kernel_base_grid_per_sm()
+                pattern = ("20kernel_base_residentILb1ELb1EN3trt6Culled" if n
+                           else "11kernel_baseILb1ELb1EN3trt6Culled")
+                extra = (_ptxas(logs[n], pattern) + f", {per_sm} blocks an "
+                         f"SM, {blocks / max(per_sm * n_sm, 1):.2f} waves")
+            tag = ("1 shipped" if lib is None else
+                   f"1 bound {n}" if n else "1 unbound")
+            _line(label, tag, _time(lambda: launch(lib), reps),
+                  _equal(flat(out), want),
+                  float(out.iters) == float(kernels.warp_iters(it, 1)), it,
+                  bool(torch.equal(stats, plain_stats)), extra)
+
+
+def sweep_grid(reps, ks=GRID_KS) -> None:
+    """--only grid (the module docstring)."""
+    srcs = _grid_libs(ks)
+    resident = {n: (build.TUNE_SOURCE, ("TRT_TUNE_K=1",
+                                        f"TRT_TUNE_MIN_BLOCKS={n}"))
+                for n in GRID_MIN_BLOCKS}
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values())
+                                + tuple(resident.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    def log(src):
+        return paths[src].with_suffix(".log").read_text()
+
+    libs = {label: build.load_kernels((src,)) for label, src in srcs.items()}
+    b_libs = {label: lib for label, lib in libs.items()
+              if not label.endswith("refill")}
+    spill = "N3trt16GroupCulledSpill"
+    a_marks = {label: _ptxas(log(src), "kernel_base_groupedILb1ELb1E" + spill)
+               for label, src in srcs.items()}
+    b_marks = {label: _ptxas(log(src), "kernel_extra_groupedILb1ELb1E" + spill)
+               for label, src in srcs.items()}
+    accel = log("kernel_accel.cu")
+    a_marks["thread"] = _ptxas(accel, "11kernel_baseILb1ELb1EN3trt6Culled")
+    b_marks["thread"] = _ptxas(accel, "12kernel_extraILb1ELb1EN3trt6Culled")
+    pose = Camera().pose()
+
+    def tracer(name):
+        return PathTracer(load_scene(name).with_overrides(
+            width=200, height=100, samples_per_pixel=8, max_depth=6), "cuda",
+            accel="grid")
+
+    for label, name, rows in GRID_OVER:
+        tr = tracer(name)
+        counts = kernels.grid_counts(tr)
+        staged = kernels.culled_stage(*counts, GROUP_SMEM_MAX)
+        print(f"[group_k] {label}: {kernels.group_smem_bytes(tr)} B of rows "
+              f"and group table, (groups, spheres, planes, triangles) "
+              f"{counts}; staged at 227 KB {staged} (groups, triangles, "
+              f"spheres, planes), {kernels.culled_stage_bytes(staged)} B",
+              flush=True)
+        _sweep_base(label, tr, pose, SEED, libs, reps, ptxas=a_marks,
+                    spill=True, rows=rows)
+        _sweep_extra(label, tr, pose, SEED, b_libs, reps, spill=True,
+                     rows=rows, ptxas=b_marks)
+    # Within the budget: the shipped GroupCulled in turns with each
+    # GroupCulledSpill form (everything staged there).
+    render = build.load_kernels()
+    ka, kb = (kernels.group_k(k, render) for k in ("base_grid", "extra_grid"))
+    for label, name in GRID_WITHIN:
+        tr = tracer(name)
+        for shipped, is_spill in ((True, False), (False, True),
+                                  (False, True), (True, False)):
+            _sweep_base(label, tr, pose, SEED,
+                        {f"{ka} GroupCulled (shipped)": render} if shipped
+                        else libs, reps, spill=is_spill)
+            _sweep_extra(label, tr, pose, SEED,
+                         {f"{kb} GroupCulled (shipped)": render} if shipped
+                         else b_libs, reps, spill=is_spill)
+    # The thread per pixel below GROUP_BASE_MIN_PRIMS, held to a residency.
+    ns = PathTracer(load_scene("Cornell_Box").with_overrides(
+        width=400, height=200, samples_per_pixel=16, max_depth=32), "cuda",
+        accel="grid")
+    _grid_resident(ns, pose, SEED,
+                   {n: build.load_kernels((src,))
+                    for n, src in resident.items()},
+                   {n: log(src) for n, src in resident.items()}, reps)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default=None)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", choices=("base", "spill", "budget", "xt", "ext",
-                                       "walk"), default=None)
+                                       "walk", "grid"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
@@ -786,6 +956,10 @@ def main(argv=None):
         return 0
     if args.only == "budget":
         sweep_budget(args.reps)
+        return 0
+    if args.only == "grid":
+        sweep_grid(args.reps, [int(k) for k in args.ks.split(",")] if args.ks
+                   else GRID_KS)
         return 0
     if args.only in ("ext", "walk"):
         sweep_ext_walk(args.only, args.reps,

@@ -19,8 +19,9 @@ The `cuda` tests hold both grouped entries against their plain versions on
 the card bit for bit (whole image, a row block, a runtime quota; the grid's
 traversal counters too), the executed lane-iterations of the static
 schedule against the plain model at the group width and those of the
-refill schedule against the pixels' summed iterations, and the
-thread-per-pixel entry where a table exceeds the budget; they skip here.
+refill schedule against the pixels' summed iterations, and, where a
+grid table exceeds the budget, the GroupCulledSpill form that the wrapper
+takes beside the thread-per-pixel entry; they skip here.
 """
 
 import numpy as np
@@ -80,7 +81,7 @@ def _knife_edges(got, want, n_max=1):
     (lambda: _scene("icosphere:4"), "baked", "base_kernel"),
     (lambda: _scene("stress:1024"), "grid", "base_kernel_grid_grouped"),
     (lambda: _scene("icosphere:3"), "grid", "base_kernel_grid_grouped"),
-    (lambda: _scene("icosphere:4"), "grid", "base_kernel_grid"),
+    (lambda: _scene("icosphere:4"), "grid", "base_kernel_grid_grouped"),
     (lambda: _scene("showcase"), "auto", "base_kernel_ext"),
     (lambda: _scene("Cornell_Box", fog=Fog(density=0.15)), "auto",
      "base_kernel_xt"),
@@ -89,18 +90,19 @@ def _knife_edges(got, want, n_max=1):
     (lambda: _scene("Cornell_Box"), "gathered", "base_kernel_gathered")])
 def test_kernel_a_dispatch(scene, accel_, want):
     """Kernel A's entry by instantiation and table size: the reference
-    gates and the culled sweep take their grouped entries where what they
-    stage fits the budget and the scene has GROUP_BASE_MIN_PRIMS
-    primitives (Cornell_Box's 11 are too few, demo's 21 not), the
-    thread-per-pixel ones otherwise; the walk (`--accel gathered`) takes
-    its grouped entry at every table size from GROUP_BASE_MIN_PRIMS
+    gates take their grouped entry where what they stage fits the budget
+    and the scene has GROUP_BASE_MIN_PRIMS primitives (Cornell_Box's 11
+    are too few, demo's 21 not), the thread-per-pixel one otherwise; the
+    culled sweep (`--accel grid`, over the budget through its
+    GroupCulledSpill form) and the walk (`--accel gathered`) take their
+    grouped entries at every table size from GROUP_BASE_MIN_PRIMS
     primitives on; EXT and XT keep theirs."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     grouped = kernels.takes_grouped(tr, "base")
     assert grouped == want.endswith("grouped")
     assert grouped == (
-        (kind in ("ref", "grid")
+        (kind == "ref"
          and kernels.group_smem_bytes(tr) <= kernels.GROUP_SMEM_BYTES
          or kind in kernels.ANY_SIZE["base"])
         and tr.scene.primitive_count >= kernels.GROUP_BASE_MIN_PRIMS)
@@ -142,13 +144,20 @@ def test_grouped_kernel_a_wrappers_refuse_what_they_do_not_serve():
     xt = PathTracer(_scene("Cornell_Box", fog=Fog(density=0.15)), "cpu")
     gathered = PathTracer(_scene("stress:96"), "cpu", accel="gathered")
     chunked = PathTracer(_scene("stress:1024"), "cpu")
-    assert chunked.chunk_base
+    grid_chunked = PathTracer(_scene("stress:96"), "cpu", accel="grid",
+                              chunk_base=2)
+    assert chunked.chunk_base and grid_chunked.chunk_base
+    # The grid's over-budget table is served (base_kernel_grid_grouped
+    # passes it on to its GroupCulledSpill form); what it refuses is a
+    # chunk split.
+    assert kernels._over_budget(grid_big)
+    assert kernels.takes_grouped(grid_big, "base")
     for fn, cases in ((kernels.base_kernel_grouped,
                        ((big, "shared memory"), (grid, "instantiation"),
                         (ext, "instantiation"), (xt, "instantiation"),
                         (gathered, "instantiation"), (chunked, "chunks"))),
                       (kernels.base_kernel_grid_grouped,
-                       ((grid_big, "shared memory"), (ref, "instantiation"),
+                       ((grid_chunked, "chunks"), (ref, "instantiation"),
                         (xt, "instantiation"),
                         (gathered, "instantiation")))):
         for tr, match in cases:
@@ -408,20 +417,28 @@ def test_each_schedule_counts_its_slots(cuda_device, kind, refill):
 
 @pytest.mark.cuda
 def test_over_the_budget_takes_the_thread_per_pixel_grid_entry(cuda_device):
+    """Over the budget under grid, base_kernel now takes the GroupCulledSpill
+    form (base_kernel_grid_grouped passes the tracer on to it), not the
+    thread per pixel; both, the latter launched directly, against the plain
+    version bit for bit with its counters."""
     tr = PathTracer(load_scene("icosphere:4").with_overrides(
         width=32, height=8, samples_per_pixel=8, max_depth=4), cuda_device,
         accel="grid")
-    assert not kernels.takes_grouped(tr, "base")
-    n0, m0 = (kernels.base_kernel_grid.launches,
-              kernels.base_kernel_grid_grouped.launches)
+    assert kernels.takes_grouped(tr, "base") and kernels._over_budget(tr)
+    n0, m0, s0 = (kernels.base_kernel_grid.launches,
+                  kernels.base_kernel_grid_grouped.launches,
+                  kernels.base_kernel_grid_grouped_spill.launches)
     k, kc = _counted(tr, lambda: kernels.base_kernel(tr, POSE, SEED, 0))
     p, pc = _plain(tr)
     assert (kernels.base_kernel_grid.launches,
-            kernels.base_kernel_grid_grouped.launches) == (n0 + 1, m0)
+            kernels.base_kernel_grid_grouped.launches,
+            kernels.base_kernel_grid_grouped_spill.launches) == (n0, m0,
+                                                                  s0 + 1)
+    t, tc = _counted(tr, lambda: kernels._launch_base(
+        tr, POSE, SEED, 0, 0, None, None, "grid"))
     _bits_equal(k, p)
-    assert torch.equal(kc, pc)
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels.base_kernel_grid_grouped(tr, POSE, SEED, 0)
+    _bits_equal(t, p)
+    assert torch.equal(kc, pc) and torch.equal(tc, pc)
 
 
 @pytest.mark.cuda

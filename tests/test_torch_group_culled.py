@@ -311,7 +311,7 @@ def _fog(name):
     (lambda: _scene("stress:96"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("stress:1024"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("icosphere:3"), "grid", "extra_kernel_grid_grouped"),
-    (lambda: _scene("icosphere:4"), "grid", "extra_kernel_grid"),
+    (lambda: _scene("icosphere:4"), "grid", "extra_kernel_grid_grouped"),
     (lambda: _scene("showcase"), "auto", "extra_kernel_ext_grouped"),
     (lambda: _scene("stress:96"), "gathered",
      "extra_kernel_gathered_grouped"),
@@ -319,11 +319,12 @@ def _fog(name):
 def test_kernel_b_dispatch(scene, accel_, want):
     """Kernel B's entry by instantiation and table size: XT tracers take
     their grouped entry at every size (over the budget it passes them on to
-    its GroupSpill form), grid tracers theirs where what they stage fits
-    the budget (the grid's group table counted), the thread-per-entry one
-    above it; EXT and gathered tracers take theirs at every size (tests/
-    test_torch_group_walk.py); the chunked kernel A's grouped
-    entry serves the reference, XT and EXT gates over the table sweep."""
+    its GroupSpill form), and so do grid tracers (what they stage counts
+    the grid's group table; over the budget the entry passes them on to
+    its GroupCulledSpill form); EXT and gathered tracers take theirs at
+    every size (tests/test_torch_group_walk.py); the chunked kernel A's
+    grouped entry serves the reference, XT and EXT gates over the table
+    sweep."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     table = tr.tables.acc.numel() if kind == "grid" else 0
@@ -350,11 +351,15 @@ def test_new_grouped_wrappers_refuse_what_they_do_not_serve():
     grid_big = PathTracer(_scene("icosphere:4"), "cpu", accel="grid")
     ref = PathTracer(_scene("Cornell_Box"), "cpu")
     xt = PathTracer(_fog("Cornell_Box"), "cpu")
+    gathered = PathTracer(_scene("stress:96"), "cpu", accel="gathered")
+    # The grid's over-budget table is served: extra_kernel_grid_grouped
+    # passes it on to its GroupCulledSpill form.
+    assert kernels._over_budget(grid_big) and kernels.takes_grouped(grid_big)
     for fn, cases in ((kernels.extra_kernel_xt_grouped,
                        ((ext, "instantiation"), (ref, "instantiation"),
                         (grid_big, "instantiation"))),
                       (kernels.extra_kernel_grid_grouped,
-                       ((grid_big, "shared memory"), (xt, "instantiation"),
+                       ((gathered, "instantiation"), (xt, "instantiation"),
                         (ref, "instantiation")))):
         for tr, match in cases:
             with pytest.raises(ValueError, match=match):

@@ -8,7 +8,9 @@ once, the staged bytes within the cap, the counts the greedy formula's),
 the C entry points' arities against the loader's, the dispatch (icosphere:4,
 240 KB of rows, now takes the grouped entries of kernel B and the chunked
 kernel A, plain and in fog, which pass it on to their GroupSpill forms;
-kernel A and the grid kernels keep refusing it) and the sorted frame at
+kernel A at the reference gates keeps refusing it, and the grid kernels
+pass it on to their GroupCulledSpill forms, tests/
+test_torch_group_culled_spill.py) and the sorted frame at
 icosphere:4, and in fog under --mis at Cornell_Box (the chunked XT kernel
 A within the budget), through those wrappers (their plain versions here)
 against the JAX oracle: rays and samples exact, radiance within rtol 1e-4
@@ -132,7 +134,7 @@ def test_entry_points_take_the_pointers_the_loader_declares(src):
     ("icosphere:4", False, "auto", True, True),
     ("icosphere:5", False, "auto", True, True),
     ("icosphere:4", True, "auto", True, True),
-    ("icosphere:4", False, "grid", False, False),
+    ("icosphere:4", False, "grid", True, False),
     ("icosphere:3", False, "auto", True, True),
     ("stress:64", True, "auto", True, True),
     ("icosphere:4", "checker", "auto", True, True),
@@ -142,8 +144,9 @@ def test_grouped_entries_serve_tables_of_any_size(name, fog, accel_, extra,
     """Kernel B and the chunked kernel A at the reference, XT and EXT gates
     (`fog` "checker": a checker floor, the EXT instantiation) take their
     grouped entries whatever the table's size, and so do kernels B and A
-    over the grid walk; the grid's stay within the budget, and kernel A at
-    the reference gates above it takes the thread per pixel."""
+    over the grid walk and over the culled sweep (over the budget the
+    latter pass the tracer on to their GroupCulledSpill forms); kernel A at
+    the reference gates above the budget takes the thread per pixel."""
     over = {"fog": Fog(density=0.15)} if fog is True else {}
     scene = _scene(name, **over)
     if fog == "checker":
@@ -159,8 +162,8 @@ def test_grouped_entries_serve_tables_of_any_size(name, fog, accel_, extra,
     over_budget = kernels.group_smem_bytes(tr) > kernels.GROUP_SMEM_BYTES
     assert over_budget is (name in ("icosphere:4", "icosphere:5"))
     assert kernels.takes_grouped(tr, "base") is (
-        not over_budget and kernels._kind(tr) in ("ref", "grid")
-        or accel_ == "gathered")
+        not over_budget and kernels._kind(tr) == "ref"
+        or accel_ in ("grid", "gathered"))
 
 
 def _stream(tr, budget=2.0):
@@ -185,11 +188,13 @@ def test_spill_wrappers_refuse_other_instantiations():
     for tr in (xt_big, grid_big, ext):
         with pytest.raises(ValueError, match="instantiation"):
             kernels.base_kernel_chunked_grouped_spill(tr, POSE, SEED, 0)
-    # Still refused over the budget: the grouped kernel A and grid B.
+    # Still refused over the budget: the grouped kernel A at the reference
+    # gates. Grid B serves it (its GroupCulledSpill form), and that form
+    # refuses the table sweep.
     with pytest.raises(ValueError, match="shared memory"):
         kernels.base_kernel_grouped(big, POSE, SEED, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels.extra_kernel_grid_grouped(grid_big, POSE, *_stream(grid_big))
+    with pytest.raises(ValueError, match="instantiation"):
+        kernels.extra_kernel_grid_grouped_spill(big, POSE, *_stream(big))
 
 
 @pytest.mark.parametrize("fn, fog", [
