@@ -92,7 +92,13 @@ Phases, each reported on lines starting with its tag:
             checker stress:1024 shapes and, their GroupSpill forms, at the
             checker icosphere:4 shapes; the showcase sorted frame through
             both forms of B, and the checker icosphere:4 frame through
-            both forms of every kernel, in turns
+            both forms of every kernel, in turns; kernel A at the EXT
+            gates in both forms (the grouped entry, which the wrapper
+            takes from 16 primitives on, and the thread per pixel) at the
+            checker stress:256 and stress:64 (200x100, 8 spp, depth 6),
+            bit for bit with their lane-iterations, timed side by side,
+            Engine through both scenes, and the checker stress:256 frame
+            with kernel A in either form, in turns
   [xt]      the transport and camera extensions (XT kernels): each XT
             kernel against its plain version at the main path's shapes:
             the JAX bench's fog (Cornell_Box 400x200, 16 spp, depth 32,
@@ -146,7 +152,13 @@ Phases, each reported on lines starting with its tag:
             frames through both forms of every kernel, and of kernel A
             alone, in turns;
             cli.main with --accel grid and
-            --accel gathered; and at the stress1024 shapes
+            --accel gathered; the chunked grid kernel A at chunks of 2 at
+            stress1024 and mesh5120 (rows and group table over the
+            budget: its GroupCulledSpill form) in both forms (the grouped
+            entry, which the wrapper takes, and the thread per entry),
+            bit for bit, both counters equal to the plain version's and
+            to each other, timed in turns, and the sorted main path at
+            both shapes; and at the stress1024 shapes
             a frame through the grid kernels beside one through the XT
             kernels over the blocked scene's dense table sweep (the JAX
             oracle's traversal under accel 'grid'), three seeds: the
@@ -159,8 +171,10 @@ Phases, each reported on lines starting with its tag:
             gathered with chunks of 2, bit for bit (planes; executed
             lane-iterations: regen's warp count, lockstep's static
             formula; traversal counters), timed there; the chunked grid
-            and gathered kernel A against its plain version there, with
-            counters; then this slice's main path: make_render_frame with
+            and gathered kernel A's thread per entry, launched directly,
+            against its plain version there, with counters (the grid's
+            grouped forms in [accel]); then this slice's main path:
+            make_render_frame with
             'sorted', 'regen' and 'lockstep' on every one of those
             configs (launch counters reset before, read after; ms/frame
             side by side), where C, D and sorted must render one frame
@@ -223,7 +237,11 @@ at mesh5120 (in fog) and the GroupCulledSpill forms
 kernel_base_grid_grouped_spill and kernel_extra_grid_grouped_spill at
 mesh5120 under grid, their errors including the split-point libraries';
 kernel_base_chunked_xt_grouped at the stress:1024 fog --mis shapes;
-the EXT rows at the showcase and
+kernel_base_ext_grouped at the checker stress:256 shapes; the chunked
+grid kernel A at the stress1024 grid cb 2 shapes (the thread-per-entry
+kernel_base_chunked_grid launched directly, OFF_PATH; its grouped
+entry) and its GroupCulledSpill form at mesh5120 grid cb 2;
+the other EXT rows at the showcase and
 stress:1024-checker shapes (the thread-per-entry kernel_extra_ext and
 kernel_base_chunked_ext launched directly, OFF_PATH; the GroupSpill
 forms kernel_extra_ext_grouped_spill and
@@ -358,9 +376,9 @@ def phase_kernel_base(peak):
 
 
 def _base_both(tag, label, tr, peak, timed_plain=True):
-    """Kernel A of tracer `tr` (reference gates, `--accel grid` or `--accel
-    gathered`) in both forms, the grouped entry and the thread-per-pixel
-    entry, the one that ops/kernels.takes_grouped picks through the
+    """Kernel A of tracer `tr` (reference or EXT gates, `--accel grid` or
+    `--accel gathered`) in both forms, the grouped entry and the
+    thread-per-pixel entry, the one that ops/kernels.takes_grouped picks through the
     wrapper: each against the plain version bit for bit (rays, budgets,
     variance, end states, csum and csumsq bits; under a traversal its
     counters, the grouped entry's also against the thread per pixel's),
@@ -380,7 +398,7 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
     name = ("base" if kind == "ref" else f"base_{kind}") + sfx
     wrapper = (getattr(kernels, kernels.GROUPED_BASE[kind].__name__ + sfx)
                if taken == "grouped" else getattr(kernels, "base_kernel" + (
-                   f"_{kind}" if traversal else "")))
+                   f"_{kind}" if kind != "ref" else "")))
 
     def launch(form):
         k = ("grouped" if kind == "ref" else f"{kind}_grouped") + sfx \
@@ -780,15 +798,16 @@ def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
           flush=True)
 
 
-def _spill_both(label, tr, kernel, peak, tag="thread"):
+def _spill_both(label, tr, kernel, peak, tag="thread", turns=False):
     """The grouped entry of the chunked kernel A (kernel 'chunked') or of
     kernel B ('extra') at the tracer's instantiation, which its wrapper
     takes (over the budget its GroupSpill or GroupCulledSpill form), and
     the thread-per-entry entry, launched directly: each against the plain
-    version bit for bit (under `--accel grid` with the traversal counters),
-    with its lane-iterations equal to the plain model at its group width;
-    both timed side by side. Returns {form: (max abs error, ms, plain ms,
-    bound)}."""
+    version bit for bit (under `--accel grid` with the traversal counters,
+    the grouped entry's also against the thread per entry's), with its
+    lane-iterations equal to the plain model at its group width; both
+    timed side by side (`turns`: thread, grouped, grouped, thread, each
+    form's least). Returns {form: (max abs error, ms, plain ms, bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
@@ -796,27 +815,42 @@ def _spill_both(label, tr, kernel, peak, tag="thread"):
     atlas = 0 if tr.atlas is None else tr.atlas.numel()
     fixed = 4 * (tr.tables.buf.numel() + atlas)
     sfx = _spill(tr)
+
+    def counted(fn):
+        return _counted_launch(tr, fn) if tr.traversal else (fn(), None)
+
     if kernel == "chunked":
         name = ("chunked" if kind == "ref" else f"chunked_{kind}") + sfx
         spill = ("grouped" if kind == "ref" else f"{kind}_grouped") + sfx
         wrapper = getattr(kernels, f"base_kernel_chunked_{spill}")
         n0 = wrapper.launches
-        g = kernels.base_kernel_chunked(tr, pose, SEED, 0)
+        g, gc = counted(lambda: kernels.base_kernel_chunked(tr, pose, SEED,
+                                                            0))
 
         def launch(form):
             return lambda: kernels._launch_chunked(
                 tr, pose, SEED, 0, 0, None,
                 spill if form == "grouped" else kind)
 
+        pc = []
         plain, ops, p = _time_plain(
-            tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0))
+            tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0),
+            pc if tr.traversal else None)
         it = kernels.chunked_entry_iters(tr, pose, SEED, 0)
         n_ent = tr.n_base_chunks * tr.width * tr.height
         bound = _bound(ops, fixed + 36 * n_ent, peak)
-        outs = {"grouped": g, "thread": launch("thread")()}
+        t, tc = counted(launch("thread"))
+        outs = {"grouped": g, "thread": t}
         errs = {form: _compare_base(tag, f"{label} chunked kernel A "
                                     f"{form}", o, p, (), tr, exact=True)
                 for form, o in outs.items()}
+        if tr.traversal:
+            for form, c in (("grouped", gc), ("thread", tc)):
+                _check_counts(f"{label} {form} chunked kernel A", c, pc[0])
+            _check_counts(f"{label} grouped against thread-per-entry chunked "
+                          "kernel A", gc, tc)
+            print(f"[{tag}] {label} chunked kernel A: "
+                  f"{_traversal_counts(tr.traversal, gc)}", flush=True)
         iters = {form: o.iters for form, o in outs.items()}
         what = f"{n_ent} entries"
     else:
@@ -831,9 +865,6 @@ def _spill_both(label, tr, kernel, peak, tag="thread"):
         def launch(form):
             return lambda: kernels._launch_extra(
                 *args, spill if form == "grouped" else kind)
-
-        def counted(fn):
-            return _counted_launch(tr, fn) if tr.traversal else (fn(), None)
 
         g, gc = counted(lambda: kernels.extra_kernel(*args))
         pc = []
@@ -856,7 +887,13 @@ def _spill_both(label, tr, kernel, peak, tag="thread"):
     _iters_model(tag, f"{label} {kernel} grouped", iters["grouped"], it,
                  kernels.group_k(name))
     _iters_model(tag, f"{label} {kernel} thread", iters["thread"], it, 1)
-    ms = {form: _time_cuda(launch(form), 3) for form in ("grouped", "thread")}
+    if turns:
+        ms = {"grouped": float("inf"), "thread": float("inf")}
+        for form in ("thread", "grouped", "grouped", "thread"):
+            ms[form] = min(ms[form], _time_cuda(launch(form), 3))
+    else:
+        ms = {form: _time_cuda(launch(form), 3)
+              for form in ("grouped", "thread")}
     _grouped_vs_thread(tag, f"{label} shapes", name, tr, ms["grouped"],
                        ms["thread"], it)
     print(f"[{tag}] {label} shapes ({kernels.group_rows_bytes(tr)} B of "
@@ -1038,7 +1075,7 @@ def phase_thread_per_entry(peak):
 OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt", "kernel_base_chunked_ext",
-            "kernel_base_gathered")
+            "kernel_base_chunked_grid", "kernel_base_gathered")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
@@ -1060,8 +1097,9 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "extra_kernel_ext", "base_kernel_xt", "base_kernel_chunked_xt",
                 "extra_kernel_xt", "base_kernel_grid", "extra_kernel_grid",
                 "base_kernel_gathered", "extra_kernel_gathered",
-                "base_kernel_chunked_grid", "base_kernel_chunked_gathered"
-                ) + FRAME_NAMES
+                "base_kernel_chunked_grid", "base_kernel_chunked_gathered",
+                "base_kernel_ext_grouped", "base_kernel_chunked_grid_grouped",
+                "base_kernel_chunked_grid_grouped_spill") + FRAME_NAMES
 
 
 def _sfx(tr) -> str:
@@ -1408,6 +1446,12 @@ def phase_scale():
 
 # The packaged extension scenes, rendered at their own size, spp and depth.
 EXT_SCENES = ("cornell_glass", "showcase", "textured", "envmap", "bumpy")
+# The EXT scenes from GROUP_BASE_MIN_PRIMS primitives on where kernel A is
+# not chunked (the grouped EXT kernel A): stress:256 and stress:64 with a
+# checker floor at 200x100, 8 spp, depth 6 (_checker_stress); the row of
+# the kernels line is the first's.
+EXT_A_SCENES = (("stress256 checker floor", "stress:256"),
+                ("stress64 checker floor", "stress:64"))
 
 
 def _ext_scene(name, w=None, h=None, filt=None, spp=None, depth=None):
@@ -1552,16 +1596,18 @@ def phase_ext(peak):
     bilinear, and the chunked EXT kernel A with chunks of 2 in both forms;
     (b) the EXT kernels on Cornell_Box (zero channels, no atlas) against
     the reference kernels, bit for bit; (c) Engine at each extension
-    scene's full size, and at stress:1024 and icosphere:4 with a checker
+    scene's full size, at stress:1024 and icosphere:4 with a checker
     floor (the grouped chunked EXT kernel A and its GroupSpill form on the
-    main path), with the device busy share of a profiled showcase and
-    textured run; (d) showcase --animate orbit through Engine, and an
-    animated frame against the plain pipeline; (e) cli.main on showcase;
-    (f) each EXT kernel against its plain version at the main path's
-    shapes (the five scenes at 400x200, the checker stress:1024 and
-    icosphere:4 at 200x100), timed at the showcase, textured and checker
-    shapes. Returns (launches, per-kernel results); each kernel's error is
-    the largest of (a) and (f)."""
+    main path) and at EXT_A_SCENES (the grouped EXT kernel A), with the
+    device busy share of a profiled showcase and textured run; (d)
+    showcase --animate orbit through Engine, and an animated frame against
+    the plain pipeline; (e) cli.main on showcase; (f) each EXT kernel
+    against its plain version at the main path's shapes (the five scenes
+    at 400x200, the checker stress:1024 and icosphere:4 at 200x100),
+    timed at the showcase, textured and checker shapes, and kernel A in
+    both forms at EXT_A_SCENES (_base_both), its frame in turns with
+    kernel A in either form. Returns (launches, per-kernel results); each
+    kernel's error is the largest of (a) and (f)."""
     import torch
 
     from terminal_raytracer_tpu_torch import cli
@@ -1655,6 +1701,10 @@ def phase_ext(peak):
     # Rows over the budget: the GroupSpill form of the EXT kernel B.
     _add(launches, _run_engine("ext", "mesh5120 checker floor",
                                _checker_stress("icosphere:4"), True, 4))
+    # The grouped EXT kernel A's scenes (EXT_A_SCENES).
+    for label, name in EXT_A_SCENES:
+        _add(launches, _run_engine("ext", label, _checker_stress(name), True,
+                                   8))
     _add(launches, _run_engine("ext", "showcase", _ext_scene("showcase"),
                                True, 8, "orbit"))
     for name in ("showcase", "textured"):  # outside the counted runs
@@ -1797,13 +1847,31 @@ def phase_ext(peak):
     _frames_grouped_vs_thread("ext", "showcase", _ext_scene("showcase"))
     _frames_grouped_vs_thread("ext", "mesh5120 checker floor",
                               _checker_stress("icosphere:4"), frames=4)
+    # Kernel A at the EXT gates in both forms at the checker stress:256 and
+    # stress:64 (EXT_A_SCENES), where the wrapper takes the grouped entry:
+    # each bit for bit with its lane-iterations, timed side by side
+    # (_base_both); then the checker stress:256 frame with kernel A in
+    # either form, in turns.
+    grouped_a = {}
+    for label, name in EXT_A_SCENES:
+        tr = PathTracer(_checker_stress(name), "cuda")
+        if tr.chunk_base or not kernels.takes_grouped(tr, "base"):
+            fail(f"[ext] {label}: chunks, or no grouped EXT kernel A")
+        grouped_a[label], _ = _base_both("ext", f"{label} shapes", tr, peak)
+    _frames_grouped_vs_thread("ext", EXT_A_SCENES[0][0],
+                              _checker_stress(EXT_A_SCENES[0][1]),
+                              base_only=True)
     # The kernels line keeps showcase's times, and the checker stress1024
     # shapes' for the chunked EXT kernel A (its GroupSpill form's the
     # checker mesh5120 shapes').
     ms_a, plain_a, bound_a, ms_b, plain_b, bound_b = results["showcase"]
     c_big = chunked["stress1024 checker floor"]
     c_mesh = chunked["mesh5120 checker floor"]
-    return launches, {"a": (err["a"], ms_a, plain_a, bound_a),
+    ga = [grouped_a[label] for label, _ in EXT_A_SCENES]
+    err["a"] = max(err["a"], *(r["thread"][0] for r in ga))
+    return launches, {"ga": (max(r["grouped"][0] for r in ga),
+                             *ga[0]["grouped"][1:]),
+                      "a": (err["a"], ms_a, plain_a, bound_a),
                       "b": (err["b"], ms_b["thread"], plain_b, bound_b),
                       "g": (err["g"], ms_b["grouped"], plain_b, bound_b),
                       "gs": (err["gs"], *spill_row),
@@ -2095,6 +2163,11 @@ ACCEL_ENGINE = (("stress256", "stress:256"), ("stress1024", "stress:1024"),
 # Rows and group table over the grouped kernels' budget: Engine through the
 # thread-per-entry grid kernel B.
 ACCEL_OVER_BUDGET = ("mesh5120", "icosphere:4")
+# The chunked grid kernel A's shapes (200x100, 8 spp, depth 6, chunks of 2):
+# within the budget (its grouped entry over GroupCulled) and over it (its
+# GroupCulledSpill form); the sorted main path runs at both.
+CHUNKED_GRID = (("stress1024 grid cb 2", "stress:1024"),
+                ("mesh5120 grid cb 2", "icosphere:4"))
 
 
 def _check_counts(label, k, p):
@@ -2149,10 +2222,50 @@ def _grid_vs_dense(pose):
           flush=True)
 
 
+def _sorted_main_path(tag, label, tr, frames):
+    """The sorted pipeline (make_render_frame(tr, 'sorted')) on tracer
+    `tr`: a warm-up and `frames` frames, the launch counters reset just
+    before and read just after; kernel A's wrapper (_a_name) and kernel B's
+    (_b_name) must each have launched once a frame, and the frame be
+    finite. Returns the launches."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    pose = _pose()
+    render = kernels.make_render_frame(tr, "sorted")
+    _reset_launches()
+    render(pose, SEED, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rays = 0.0
+    for f in range(frames):
+        out = render(pose, SEED, f + 1)
+        rays += float(out[3])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / frames
+    got = _launches()
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    want[_a_name(tr)] = frames + 1
+    if tr.base_samples < tr.spp:
+        want[_b_name(tr)] = frames + 1
+    finite = all(bool(torch.isfinite(c).all()) for c in out[0])
+    print(f"[{tag}] {label} sorted main path, {frames} frames: "
+          f"{1e3 * dt:.2f} ms/frame, {rays / frames / dt / 1e6:.1f} Mray/s, "
+          f"occupancy {float(out[4]):.3f}, launches {_nonzero(got)}, finite "
+          f"{finite}", flush=True)
+    if got != want:
+        fail(f"[{tag}] {label}: launch counts {got}, expected {want}")
+    if not finite:
+        fail(f"[{tag}] {label}: the frame is not finite")
+    return got
+
+
 def phase_accel(peak):
     """The opt-in traversals (module docstring). Returns (launches, results
     by kernel: max abs error, ms, plain ms, bound at the stress1024
-    shapes)."""
+    shapes; the chunked grid kernel A's GroupCulledSpill form at
+    mesh5120)."""
     from terminal_raytracer_tpu_torch import cli
     from terminal_raytracer_tpu_torch.ops import build, kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
@@ -2227,7 +2340,25 @@ def phase_accel(peak):
 
     _grid_vs_dense(pose)
 
-    launches = {}
+    # The chunked grid kernel A at chunks of 2 (CHUNKED_GRID): its grouped
+    # entry, which the wrapper takes (over the budget its GroupCulledSpill
+    # form), and the thread per entry, launched directly, bit for bit with
+    # the traversal counters, timed in turns; then the sorted main path.
+    launches, cg = {}, {}
+    for label, name in CHUNKED_GRID:
+        tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda", accel="grid",
+                        chunk_base=2, chunk_extra=2)
+        if not kernels.takes_grouped(tr, "chunked") or tr.n_base_chunks < 2:
+            fail(f"[accel] {label}: no chunks or no grouped chunked grid A")
+        cg[label] = _spill_both(label, tr, "chunked", peak, tag="accel",
+                                turns=True)
+        _add(launches, _sorted_main_path("accel", label, tr, 4))
+    (w_label, _), (o_label, _) = CHUNKED_GRID
+    res["grid", "cg"] = cg[w_label]["grouped"]
+    res["grid", "cgs"] = cg[o_label]["grouped"]
+    res["grid", "ct"] = (max(cg[w_label]["thread"][0],
+                             cg[o_label]["thread"][0]),
+                         *cg[w_label]["thread"][1:])
     for label, name in ACCEL_ENGINE:
         for accel in ("baked", "auto", "grid", "gathered"):
             _add(launches, _run_engine(
@@ -2338,7 +2469,8 @@ def phase_sched(peak):
     at the SCHED_CONFIGS shapes, bit for bit (planes, executed
     lane-iterations: regen's warp count, lockstep's static formula;
     traversal counters), timed there; (b) the chunked grid and gathered
-    kernel A against its plain version at stress1024, with counters; (c)
+    kernel A's thread per entry, launched directly, against its plain
+    version at stress1024, with counters; (c)
     the main path of this slice: make_render_frame with 'sorted', 'regen'
     and 'lockstep' on every config, the launch counters reset just before
     and read just after, ms/frame side by side; C, D and sorted must give
@@ -2416,8 +2548,10 @@ def phase_sched(peak):
             key = f"{mode}{sfx}"
             res[key] = ((max(res[key][0], err),) + res[key][1:]
                         if key in res else (err, ms, plain_ms, bound))
-        if tr.traversal:  # (b)
-            wrap = getattr(kernels, f"base_kernel_chunked{sfx}")
+        if tr.traversal:  # (b): the thread per entry, launched directly
+            def wrap(t, *a):
+                return kernels._launch_chunked(t, *a, 0, None, t.traversal)
+
             k, kc = _counted_launch(tr, lambda: wrap(tr, pose, SEED, 0))
             pc = []
             plain_c, ops_c, pk = _time_plain(
@@ -2431,7 +2565,8 @@ def phase_sched(peak):
             bound = _bound(ops_c, fixed + 36 * n_ent, peak)
             if err != 0.0:
                 fail(f"[sched] {shape}: the chunked kernel A is not bit-exact")
-            print(f"[sched] {shape}: base_kernel_chunked{sfx} {ms:.3f} ms on "
+            print(f"[sched] {shape}: kernel_base_chunked{sfx} (thread per "
+                  f"entry) {ms:.3f} ms on "
                   f"{n_ent} entries (plain {plain_c:.1f} ms, bound "
                   f"{bound[0]:.4f} ms by {bound[1]}: {ops_c:.4g} FP32 "
                   "operations)", flush=True)
@@ -2477,7 +2612,7 @@ def phase_sched(peak):
     print(f"[sched] main path launches {_nonzero(got)}", flush=True)
     if got != want:
         fail(f"[sched] launch counts {got}, expected {want}")
-    missing = [k for k in FRAME_NAMES + ("base_kernel_chunked_grid",
+    missing = [k for k in FRAME_NAMES + ("base_kernel_chunked_grid_grouped",
                                          "base_kernel_chunked_gathered")
                if got[k] == 0]
     if missing:
@@ -2917,6 +3052,11 @@ def main() -> int:
             # :1031 (B), pallas_kernel._tex_bind_front.
             ("kernel_base_ext", "base_kernel_ext", "kernel_base.cu", "807",
              *ext["a"]),
+            # Kernel A at the EXT gates grouped (csrc/group.cuh over
+            # GroupSweep; entry in kernel_base.cu) at the checker stress256
+            # shapes, its error including the checker stress64 shapes'.
+            ("kernel_base_ext_grouped", "base_kernel_ext_grouped",
+             "group.cuh", "807", *ext["ga"]),
             # Kernel B at the EXT gates, thread per entry (launched directly:
             # OFF_PATH) and grouped (csrc/group.cuh over GroupSweep; entry
             # in kernel_extra.cu) at the showcase shapes; its GroupSpill
@@ -3025,9 +3165,21 @@ def main() -> int:
             ("kernel_extra_gathered_grouped", "extra_kernel_gathered_grouped",
              "group.cuh", "1032", *acc["gathered", "g"]),
             # The chunk-major stream (:951-970) over the traversals bound
-            # at :808-809.
+            # at :808-809. Over the culled sweep: thread per entry (launched
+            # directly: OFF_PATH) and grouped (csrc/group.cuh GroupCulled;
+            # entry in kernel_accel.cu) at the stress1024 grid cb 2 shapes,
+            # its GroupCulledSpill form at mesh5120 grid cb 2 ([accel]),
+            # where the main path takes them.
             ("kernel_base_chunked_grid", "base_kernel_chunked_grid",
-             "kernel_accel.cu", "809", *sch["chunked_grid"]),
+             "kernel_accel.cu", "809", max(sch["chunked_grid"][0],
+                                           acc["grid", "ct"][0]),
+             *acc["grid", "ct"][1:]),
+            ("kernel_base_chunked_grid_grouped",
+             "base_kernel_chunked_grid_grouped", "group.cuh", "809",
+             *acc["grid", "cg"]),
+            ("kernel_base_chunked_grid_grouped_spill",
+             "base_kernel_chunked_grid_grouped_spill", "group.cuh", "809",
+             *acc["grid", "cgs"]),
             ("kernel_base_chunked_gathered", "base_kernel_chunked_gathered",
              "kernel_accel.cu", "808", *sch["chunked_gathered"])) + tuple(
         # Kernel C, kernel_regen (:420), and D, kernel_lockstep (:391),

@@ -1422,8 +1422,11 @@ __global__ void __launch_bounds__(TR::THREADS)
 
 // The chunked kernel A, grouped: the chunk-major entry of group g = global
 // thread / K (kernel_base_chunked's body, its sweeps split over the group),
-// with the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupSpill)
-// built from the staged rows and its launch argument.
+// with the gates EXT, XT and the traversal TR (GroupSweep<K>, GroupSpill,
+// GroupCulled, GroupCulledSpill) built from the staged rows and its launch
+// argument. Every lane builds TR and flushes its counters after the slot
+// count, as base_grouped does: GroupCulled's and GroupCulledSpill's flush
+// reduces over the whole warp, whose groups past the last entry count 0.
 template <bool EXT, bool XT, class TR>
 __global__ void __launch_bounds__(TR::THREADS)
     kernel_base_chunked_grouped(ChunkArgs a, const float* __restrict__ scene_buf,
@@ -1438,10 +1441,10 @@ __global__ void __launch_bounds__(TR::THREADS)
   const int i = (int)(((long long)blockIdx.x * TR::THREADS + threadIdx.x) / K);
   const bool lead = (threadIdx.x & (unsigned)(K - 1)) == 0u;
   TR::stage(rows, scene_buf, a.f, tl);
+  TR tr(rows, a.f, tl);
   unsigned my_iters = 0;
   if (i < n) {
     const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-    TR tr(rows, a.f, tl);
     const int c = i / n_pix;
     const int p = i - c * n_pix;
     const int x = p % a.f.width;
@@ -1467,6 +1470,7 @@ __global__ void __launch_bounds__(TR::THREADS)
     }
   }
   trt::count_slot_iters<K>(my_iters, iters);
+  tr.flush();
 }
 
 // Kernel A, grouped: a path group of K = TR::K lanes carries one pixel p =

@@ -20,15 +20,21 @@
 // GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK (the row source), TRT_TUNE_THREADS,
 // TRT_TUNE_STAGE_CAP> come under the render libraries' names too.
 //
-// Beside them, the forms of kernel A at the XT gates and over the culled
-// sweep that the sweep weighs against the shipped thread per pixel
-// (ops/build.py TUNE_ONLY_ENTRY_POINTS): trt_kernel_base_xt and
-// trt_kernel_base_grid, one thread a pixel held to TRT_TUNE_MIN_BLOCKS
-// resident blocks an SM (0: kernel_base as shipped), and
-// trt_kernel_base_xt_grouped, kernel_base_grouped at the XT gates over
+// The grouped kernel A at the EXT gates comes over GroupSweep<TRT_TUNE_K> on
+// the schedule TRT_TUNE_REFILL, held to TRT_TUNE_MIN_BLOCKS resident blocks
+// an SM (0: none), and the grouped chunked kernel A over the culled sweep
+// over GroupCulled<TRT_TUNE_K, TRT_TUNE_WIDE> and TuneCulledSpill.
+//
+// Beside them, the forms of kernel A at the XT and EXT gates and over the
+// culled sweep that the sweep weighs against the shipped thread per pixel
+// (ops/build.py TUNE_ONLY_ENTRY_POINTS): trt_kernel_base_xt,
+// trt_kernel_base_ext and trt_kernel_base_grid, one thread a pixel held to
+// TRT_TUNE_MIN_BLOCKS resident blocks an SM (0: kernel_base as shipped),
+// and trt_kernel_base_xt_grouped, kernel_base_grouped at the XT gates over
 // GroupSweep<TRT_TUNE_K> on the schedule TRT_TUNE_REFILL, held to
 // TRT_TUNE_MIN_BLOCKS too; each with its queries, and the resident blocks
-// an SM that the occupancy calculator gives it (no staged rows).
+// an SM that the occupancy calculator gives it (no staged rows; the
+// grouped EXT kernel A's too, with its rows staged for a given scene).
 
 #include "group.cuh"
 
@@ -291,6 +297,56 @@ extern "C" int trt_kernel_base_gathered_grouped(const BaseArgs* a, const trt::Te
 extern "C" int trt_kernel_base_gathered_grouped_k() { return TRT_TUNE_K; }
 extern "C" int trt_kernel_base_gathered_grouped_refill() { return TRT_TUNE_REFILL; }
 
+extern "C" int trt_kernel_base_ext_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                           const float* scene_buf, float* out,
+                                           long long* state_out, unsigned long long* iters,
+                                           unsigned* next, void* stream) {
+  return launch_base_grouped<true, false, trt::GroupSweep<TRT_TUNE_K>, (TRT_TUNE_REFILL != 0),
+                             TRT_TUNE_MIN_BLOCKS>(a, *tx, trt::Xt{}, scene_buf, out, state_out,
+                                                  iters, next, stream);
+}
+
+extern "C" int trt_kernel_base_ext_grouped_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_ext_grouped_refill() { return TRT_TUNE_REFILL; }
+
+extern "C" int trt_kernel_base_chunked_grid_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                    const trt::Xt* xt, const trt::Accel* acc,
+                                                    const float* scene_buf, float* out,
+                                                    long long* state_out,
+                                                    unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<true, true, trt::GroupCulled<TRT_TUNE_K, (TRT_TUNE_WIDE != 0)>>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_grid_grouped_k() { return TRT_TUNE_K; }
+
+extern "C" int trt_kernel_base_chunked_grid_grouped_spill(const ChunkArgs* a, const trt::Tex* tx,
+                                                          const trt::Xt* xt,
+                                                          const trt::Accel* acc,
+                                                          const float* scene_buf, float* out,
+                                                          long long* state_out,
+                                                          unsigned long long* iters,
+                                                          void* stream) {
+  return launch_chunked_grouped<true, true, TuneCulledSpill>(a, *tx, *xt, scene_buf, out,
+                                                             state_out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_grid_grouped_spill_k() { return TRT_TUNE_K; }
+extern "C" int trt_kernel_base_chunked_grid_grouped_spill_cap() {
+  return TuneCulledSpill::SMEM_CAP;
+}
+
+// Kernel A at the EXT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
+// kernel_base_resident), the arguments of kernel_base.cu's entry.
+extern "C" int trt_kernel_base_ext(const BaseArgs* a, const trt::Tex* tx, const float* scene_buf,
+                                   float* out, long long* state_out, unsigned long long* iters,
+                                   void* stream) {
+  return launch_base<true, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>(a, *tx, trt::Xt{}, scene_buf,
+                                                                   out, state_out, iters, stream);
+}
+
+extern "C" int trt_kernel_base_ext_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
+
 // Kernel A at the XT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
 // kernel_base_resident), the arguments of kernel_base.cu's entry.
 extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
@@ -363,4 +419,31 @@ extern "C" int trt_kernel_base_xt_grouped_per_sm() {
 #else
   return per_sm(kernel_base_grouped<true, true, TR, (TRT_TUNE_REFILL != 0)>, TR::THREADS);
 #endif
+}
+
+extern "C" int trt_kernel_base_ext_per_sm() {
+#if TRT_TUNE_MIN_BLOCKS > 0
+  return per_sm(kernel_base_resident<true, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>, 128);
+#else
+  return per_sm(kernel_base<true, false, trt::Sweep>, 128);
+#endif
+}
+
+// The grouped EXT kernel A's resident blocks an SM with `bytes` of staged
+// rows, or a negative CUDA error.
+extern "C" int trt_kernel_base_ext_grouped_per_sm(const int* bytes) {
+  using TR = trt::GroupSweep<TRT_TUNE_K>;
+  int n = 0;
+#if TRT_TUNE_MIN_BLOCKS > 0
+  const void* kernel = (const void*)kernel_base_grouped_resident<true, false, TR,
+                                                                 (TRT_TUNE_REFILL != 0),
+                                                                 TRT_TUNE_MIN_BLOCKS>;
+#else
+  const void* kernel = (const void*)kernel_base_grouped<true, false, TR, (TRT_TUNE_REFILL != 0)>;
+#endif
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      TR::SMEM_CAP);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, TR::THREADS, *bytes);
+  return err != 0 ? -err : n;
 }

@@ -53,6 +53,19 @@
 // GROUP_BASE_MIN_PRIMS primitives on), so trt_kernel_extra_grid serves no
 // dispatch and trt_kernel_base_grid only scenes below that count.
 //
+// trt_kernel_base_chunked_grid_grouped is the chunked kernel A over the
+// culled sweep redesigned the same way (group.cuh
+// kernel_base_chunked_grouped over GroupCulled<GROUP_K_CHUNKED_GRID,
+// GROUP_WIDE_CHUNKED_GRID>): a path group carries one chunk-major entry,
+// the serial cull decisions replayed, the counters Culled's; and
+// trt_kernel_base_chunked_grid_grouped_spill its form for tables of any
+// size (ChunkedGridSpill, GroupCulledSpill). ops/kernels.py takes them for
+// every `--accel grid` tracer with a chunk split (the spill form where the
+// rows and group table exceed the budget), so trt_kernel_base_chunked_grid
+// serves no dispatch. They replace the same Pallas kernel as
+// trt_kernel_base_chunked_grid (the chunk-major stream, :749-754, 798-800,
+// 951-970, over CulledPrims, bound at :809).
+//
 // trt_kernel_extra_gathered_grouped is kernel B over the grid walk
 // redesigned for the H100 (group.cuh GroupWalk): a path group of
 // GROUP_K_EXTRA_GATHERED lanes carries one entry; every lane makes the
@@ -110,6 +123,21 @@ constexpr bool GROUP_REFILL_BASE_GRID = true;
 using ExtraGridSpill = trt::GroupCulledSpill<32, true, 256, trt::GROUP_SMEM_MAX>;
 using BaseGridSpill = trt::GroupCulledSpill<32, true, 512, trt::GROUP_SMEM_MAX>;
 constexpr bool GROUP_REFILL_BASE_GRID_SPILL = true;
+// The group width and design of the grouped chunked grid kernel A
+// (GroupCulled, 128 lanes a block) within the budget, and its form over the
+// budget (GroupCulledSpill<K, WIDE, block width, stage cap>): chosen by the
+// sweep of tools/group_k.py --only grid --a-only at stress1024 and mesh1280
+// grid (within) and mesh5120 and icosphere:5 grid (over), 200x100, 8 spp,
+// depth 6, chunks of 2, the least summed time (PERF.md, the grouped chunked
+// grid kernel A; ms, H100 80GB HBM3 at 700 W). Within: thread per entry 1.674 / 1.225; K 16 wide
+// 0.715 / 0.394, K 8 0.673 / 0.447, K 16 narrow 0.731 / 0.417, K 32
+// narrow 0.830 / 0.427, wide 0.862 / 0.455. Over: thread per entry 3.252
+// / 11.374; K 32 narrow at 512 lanes 0.951 / 1.945, wide 1.040 / 2.135;
+// K 16 at 512 lanes 1.001-1.030 / 2.771-2.779; K 8 1.377 / 4.504; every
+// form at 256 lanes 1.77-2.10 / 3.66-6.44.
+constexpr int GROUP_K_CHUNKED_GRID = 16;
+constexpr bool GROUP_WIDE_CHUNKED_GRID = true;
+using ChunkedGridSpill = trt::GroupCulledSpill<32, false, 512, trt::GROUP_SMEM_MAX>;
 // The group width and row source of the grouped gathered kernel B (group.cuh
 // GroupWalk, 128 lanes a block): chosen by the sweep of tools/group_k.py
 // --only walk at 200x100, 8 spp, depth 6 (PERF.md, the grouped gathered
@@ -273,6 +301,41 @@ extern "C" int trt_kernel_base_grid_grouped_spill_k() { return BaseGridSpill::K;
 extern "C" int trt_kernel_base_grid_grouped_spill_cap() { return BaseGridSpill::SMEM_CAP; }
 extern "C" int trt_kernel_base_grid_grouped_spill_refill() {
   return GROUP_REFILL_BASE_GRID_SPILL;
+}
+
+// The grouped chunked kernel A over the culled sweep: the same arguments
+// and outputs as trt_kernel_base_chunked_grid; refused
+// (cudaErrorInvalidValue) when the rows and the group table exceed the
+// shared-memory budget.
+extern "C" int trt_kernel_base_chunked_grid_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                    const trt::Xt* xt, const trt::Accel* acc,
+                                                    const float* scene_buf, float* out,
+                                                    long long* state_out,
+                                                    unsigned long long* iters, void* stream) {
+  return launch_chunked_grouped<true, true,
+                                trt::GroupCulled<GROUP_K_CHUNKED_GRID, GROUP_WIDE_CHUNKED_GRID>>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_grid_grouped_k() { return GROUP_K_CHUNKED_GRID; }
+
+// The grouped chunked kernel A over the culled sweep for tables of any size
+// (group.cuh GroupCulledSpill): the arguments of
+// trt_kernel_base_chunked_grid_grouped.
+extern "C" int trt_kernel_base_chunked_grid_grouped_spill(const ChunkArgs* a, const trt::Tex* tx,
+                                                          const trt::Xt* xt,
+                                                          const trt::Accel* acc,
+                                                          const float* scene_buf, float* out,
+                                                          long long* state_out,
+                                                          unsigned long long* iters,
+                                                          void* stream) {
+  return launch_chunked_grouped<true, true, ChunkedGridSpill>(a, *tx, *xt, scene_buf, out,
+                                                              state_out, iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_grid_grouped_spill_k() { return ChunkedGridSpill::K; }
+extern "C" int trt_kernel_base_chunked_grid_grouped_spill_cap() {
+  return ChunkedGridSpill::SMEM_CAP;
 }
 
 // The grouped kernel B over the grid walk: the same arguments and outputs

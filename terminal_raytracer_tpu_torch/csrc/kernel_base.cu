@@ -63,9 +63,14 @@
 // the schedule GROUP_REFILL_BASE: static, group g takes pixel g, or refill,
 // the resident groups taking pixels from a counter until they run out),
 // with the same epilogue; it replaces the same Pallas kernel as
-// trt_kernel_base. Kernel A at the XT gates stays one thread a pixel, held
-// to XT_MIN_BLOCKS resident blocks an SM so that the frame's blocks fit
-// one wave (pipeline.cuh kernel_base_resident).
+// trt_kernel_base. trt_kernel_base_ext_grouped is the same at the EXT gates
+// (GroupSweep<GROUP_K_BASE_EXT>, the schedule GROUP_REFILL_BASE_EXT), which
+// ops/kernels.py takes for an EXT scene of at least
+// GROUP_BASE_MIN_PRIMS primitives whose rows fit the budget; it replaces
+// the same Pallas kernel as trt_kernel_base_ext (the atlas bound at :807
+// and the material-channel branches of its body). Kernel A at the XT gates
+// stays one thread a pixel, held to XT_MIN_BLOCKS resident blocks an SM so
+// that the frame's blocks fit one wave (pipeline.cuh kernel_base_resident).
 //
 // What bounds them on an H100. Not bytes: they read the scene table (L1 /
 // L2 or shared memory) and write 44 (36 chunked) bytes an entry. Not FP32
@@ -141,6 +146,17 @@ using ChunkedExtSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
 // and ops/kernels.py GROUP_BASE_MIN_PRIMS keeps it there).
 constexpr int GROUP_K_BASE = 32;
 constexpr bool GROUP_REFILL_BASE = false;
+// The same at the EXT gates: chosen by tools/group_k.py --only ext --a-only
+// at the checker stress:256 and stress:64 (200x100, 8 spp, depth 6), where
+// the main path takes it, the least summed time (PERF.md, the grouped EXT
+// kernel A; ms, H100 80GB HBM3 at 700 W): K = 32 refill 0.186 / 0.097, static 0.197 / 0.097; K 8
+// refill 0.259 / 0.111; K 4 0.458 / 0.151; thread per pixel 1.485 / 0.384;
+// each bound to 6 blocks an SM slower. At the packaged extension scenes
+// (4-12 primitives) no form beat the thread per pixel's summed time (2.64
+// ms; the best, the thread per pixel held to 6, 2.71), so base_kernel_ext
+// keeps it below GROUP_BASE_MIN_PRIMS.
+constexpr int GROUP_K_BASE_EXT = 32;
+constexpr bool GROUP_REFILL_BASE_EXT = true;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
@@ -295,3 +311,20 @@ extern "C" int trt_kernel_base_grouped(const BaseArgs* a, const float* scene_buf
 // Its group width K (lanes a pixel) and schedule (1: refill, 0: static).
 extern "C" int trt_kernel_base_grouped_k() { return GROUP_K_BASE; }
 extern "C" int trt_kernel_base_grouped_refill() { return GROUP_REFILL_BASE; }
+
+// The grouped kernel A at the EXT gates: the same arguments and outputs as
+// trt_kernel_base_ext, and `next`, as trt_kernel_base_grouped; refused
+// (cudaErrorInvalidValue) when the scene's rows exceed the shared-memory
+// budget.
+extern "C" int trt_kernel_base_ext_grouped(const BaseArgs* a, const trt::Tex* tx,
+                                           const float* scene_buf, float* out,
+                                           long long* state_out, unsigned long long* iters,
+                                           unsigned* next, void* stream) {
+  return launch_base_grouped<true, false, trt::GroupSweep<GROUP_K_BASE_EXT>,
+                             GROUP_REFILL_BASE_EXT>(a, *tx, trt::Xt{}, scene_buf, out,
+                                                    state_out, iters, next, stream);
+}
+
+// Its group width K and schedule (1: refill, 0: static).
+extern "C" int trt_kernel_base_ext_grouped_k() { return GROUP_K_BASE_EXT; }
+extern "C" int trt_kernel_base_ext_grouped_refill() { return GROUP_REFILL_BASE_EXT; }

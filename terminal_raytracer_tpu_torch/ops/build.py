@@ -38,6 +38,9 @@ ENTRY_POINTS = {
                        ("trt_kernel_base_grouped_k", 0),
                        ("trt_kernel_base_grouped_refill", 0),
                        ("trt_kernel_base_ext", 7),
+                       ("trt_kernel_base_ext_grouped", 8),
+                       ("trt_kernel_base_ext_grouped_k", 0),
+                       ("trt_kernel_base_ext_grouped_refill", 0),
                        ("trt_kernel_base_chunked_ext", 7),
                        ("trt_kernel_base_chunked_ext_grouped", 7),
                        ("trt_kernel_base_chunked_ext_grouped_k", 0),
@@ -75,6 +78,11 @@ ENTRY_POINTS = {
                         ("trt_kernel_base_gathered", 9),
                         ("trt_kernel_base_chunked_grid", 9),
                         ("trt_kernel_base_chunked_gathered", 9),
+                        ("trt_kernel_base_chunked_grid_grouped", 9),
+                        ("trt_kernel_base_chunked_grid_grouped_k", 0),
+                        ("trt_kernel_base_chunked_grid_grouped_spill", 9),
+                        ("trt_kernel_base_chunked_grid_grouped_spill_k", 0),
+                        ("trt_kernel_base_chunked_grid_grouped_spill_cap", 0),
                         ("trt_kernel_extra_grid", 13),
                         ("trt_kernel_extra_gathered", 13),
                         ("trt_kernel_extra_grid_grouped", 13),
@@ -121,9 +129,9 @@ RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # kernel A's schedule -DTRT_TUNE_REFILL, for the GroupSpill and GroupWalk
 # forms' block width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP,
 # for GroupWalk's row source -DTRT_TUNE_WALK and for the
-# XT kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS), with the grouped
-# entries of the render libraries and the XT kernel A's forms that the
-# sweep weighs and the grid kernel A's thread per pixel
+# XT, EXT and grid kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS), with
+# the grouped entries of the render libraries and the XT kernel A's forms
+# that the sweep weighs and the EXT and grid kernel A's thread per pixel
 # (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
 TUNE_ONLY_ENTRY_POINTS = (
@@ -132,7 +140,10 @@ TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_xt_grouped_k", 0),
     ("trt_kernel_base_xt_grouped_refill", 0),
     ("trt_kernel_base_xt_grouped_per_sm", 0), ("trt_kernel_base_grid", 9),
-    ("trt_kernel_base_grid_min_blocks", 0), ("trt_kernel_base_grid_per_sm", 0))
+    ("trt_kernel_base_grid_min_blocks", 0), ("trt_kernel_base_grid_per_sm", 0),
+    ("trt_kernel_base_ext", 7), ("trt_kernel_base_ext_min_blocks", 0),
+    ("trt_kernel_base_ext_per_sm", 0),
+    ("trt_kernel_base_ext_grouped_per_sm", 1))
 TUNE_ENTRY_POINTS = tuple(
     (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",
                           "kernel_base.cu")

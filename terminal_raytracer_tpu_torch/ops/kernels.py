@@ -21,8 +21,9 @@ make_sorted_render_frame:
 
 Kernel B at the reference, XT and EXT gates, over the culled sweep of
 `--accel grid` and over the grid walk of `--accel gathered`, kernel A at
-the reference gates, over the culled sweep and over the grid walk, and the
-chunked kernel A at the reference, XT and EXT gates, take
+the reference and EXT gates, over the culled sweep and over the grid walk,
+and the chunked kernel A at the reference, XT and EXT gates and over the
+culled sweep, take
 their grouped entries (csrc/group.cuh: a path group of K lanes carries one
 entry, the closest-hit and shadow sweeps split across the group, the
 scene's geometry rows, and the grid's group table, staged in shared
@@ -33,14 +34,17 @@ extra_kernel_grouped, extra_kernel_xt_grouped, extra_kernel_ext_grouped,
 extra_kernel_grid_grouped or extra_kernel_gathered_grouped (csrc/group.cuh
 GroupWalk: the walk's cells split over the group, at every table size),
 base_kernel to base_kernel_grouped,
+base_kernel_ext to base_kernel_ext_grouped,
 base_kernel_grid to base_kernel_grid_grouped, base_kernel_gathered to
 base_kernel_gathered_grouped (GroupWalk, every table size),
 base_kernel_chunked to base_kernel_chunked_grouped, base_kernel_chunked_xt
 to base_kernel_chunked_xt_grouped, base_kernel_chunked_ext to
-base_kernel_chunked_ext_grouped, each counting its own launches. Kernel B
+base_kernel_chunked_ext_grouped, base_kernel_chunked_grid to
+base_kernel_chunked_grid_grouped, each counting its own launches. Kernel B
 at the reference, XT and EXT gates and over the culled sweep, the chunked
-kernel A at the reference, XT and EXT gates and kernel A over the culled
-sweep take their grouped entries at every table size: above the budget
+kernel A at the reference, XT and EXT gates and over the culled sweep, and
+kernel A over the culled sweep take their grouped entries at every table
+size: above the budget
 those pass the tracer on to their forms over csrc/group.cuh GroupSpill
 (extra_kernel_grouped_spill, extra_kernel_xt_grouped_spill,
 extra_kernel_ext_grouped_spill, base_kernel_chunked_grouped_spill,
@@ -48,9 +52,9 @@ base_kernel_chunked_xt_grouped_spill,
 base_kernel_chunked_ext_grouped_spill), which stage the rows that fit
 their stage cap (group_stage) and read the rest from the scene buffer
 through L1, or over GroupCulledSpill (extra_kernel_grid_grouped_spill,
-base_kernel_grid_grouped_spill), which stage the group table first
-(culled_stage). Kernel A at the reference gates launches its thread per
-pixel above the budget. The
+base_kernel_grid_grouped_spill, base_kernel_chunked_grid_grouped_spill),
+which stage the group table first (culled_stage). Kernel A at the
+reference and EXT gates launches its thread per pixel above the budget. The
 thread-per-entry entries of every kernel stay, launched directly by
 _launch_extra / _launch_chunked / _launch_base with their `kind`. Their
 counters of executed lane-iterations count path slots: warp_iters(.., k)
@@ -425,8 +429,11 @@ def grid_counts(tracer) -> tuple:
 # per pixel is faster. tools/group_k.py on the H100 (PERF.md): Cornell_Box
 # (11 primitives) 0.96 ms thread per pixel against 3.6 at K = 32 at the
 # north star, 0.19 against 0.74 at 200x100 (2.5 against 10.1 under grid);
-# demo (21 primitives) 0.19 against 0.15 at 200x100. The scene's count,
-# not the rows staged: the grid's blocked scene pads each block to 8.
+# demo (21 primitives) 0.19 against 0.15 at 200x100. At the EXT gates the
+# five packaged extension scenes (4-12 primitives) keep the thread per
+# pixel too: no grouped or bound form beat its summed time there (2.64 ms;
+# tools/group_k.py --only ext, PERF.md). The scene's count, not the rows
+# staged: the grid's blocked scene pads each block to 8.
 GROUP_BASE_MIN_PRIMS = 16
 
 
@@ -434,7 +441,8 @@ GROUP_BASE_MIN_PRIMS = 16
 # GroupSpill or GroupCulledSpill form above GROUP_SMEM_BYTES; the walk
 # stages no rows), by kernel.
 ANY_SIZE = {"extra": ("ref", "xt", "ext", "grid", "gathered"),
-            "chunked": ("ref", "xt", "ext"), "base": ("grid", "gathered")}
+            "chunked": ("ref", "xt", "ext", "grid"),
+            "base": ("grid", "gathered")}
 
 
 def takes_grouped(tracer, kernel: str = "extra") -> bool:
@@ -481,6 +489,7 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                     "extra_gathered": "trt_kernel_extra_gathered_grouped",
                     "chunked": "trt_kernel_base_chunked_grouped",
                     "base": "trt_kernel_base_grouped",
+                    "base_ext": "trt_kernel_base_ext_grouped",
                     "base_grid": "trt_kernel_base_grid_grouped",
                     "base_gathered": "trt_kernel_base_gathered_grouped",
                     "extra_grid_spill": "trt_kernel_extra_grid_grouped_spill",
@@ -493,15 +502,19 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                         "trt_kernel_base_chunked_xt_grouped_spill",
                     "chunked_ext": "trt_kernel_base_chunked_ext_grouped",
                     "chunked_ext_spill":
-                        "trt_kernel_base_chunked_ext_grouped_spill"}
+                        "trt_kernel_base_chunked_ext_grouped_spill",
+                    "chunked_grid": "trt_kernel_base_chunked_grid_grouped",
+                    "chunked_grid_spill":
+                        "trt_kernel_base_chunked_grid_grouped_spill"}
 
 
 def group_k(kernel: str, lib=None) -> int:
     """The group width K (lanes an entry) that the grouped `kernel` (a key
     of _GROUPED_ENTRIES: 'extra', 'extra_xt', 'extra_ext', 'extra_grid',
-    'extra_gathered', 'chunked', 'chunked_xt', 'chunked_ext', 'base',
-    'base_grid', 'base_gathered' or a '*_spill' form) of `lib` (default
-    the render libraries) was built with (on the card)."""
+    'extra_gathered', 'chunked', 'chunked_xt', 'chunked_ext',
+    'chunked_grid', 'base', 'base_ext', 'base_grid', 'base_gathered' or a
+    '*_spill' form) of `lib` (default the render libraries) was built with
+    (on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
 
@@ -510,16 +523,16 @@ def group_cap(kernel: str, lib=None) -> int:
     """The stage cap (bytes) of the GroupSpill form `kernel`
     ('extra_spill', 'extra_xt_spill', 'extra_ext_spill', 'chunked_spill',
     'chunked_xt_spill' or 'chunked_ext_spill'; group_stage's `cap`) or of
-    the GroupCulledSpill form ('extra_grid_spill', 'base_grid_spill';
-    culled_stage's) of `lib` (default the render libraries; on the
-    card)."""
+    the GroupCulledSpill form ('extra_grid_spill', 'base_grid_spill',
+    'chunked_grid_spill'; culled_stage's) of `lib` (default the render
+    libraries; on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_cap")())
 
 
 def group_refill(kernel: str, lib=None) -> bool:
-    """Whether the grouped kernel A `kernel` ('base', 'base_grid',
-    'base_grid_spill' or 'base_gathered') of
+    """Whether the grouped kernel A `kernel` ('base', 'base_ext',
+    'base_grid', 'base_grid_spill' or 'base_gathered') of
     `lib` (default the render libraries) runs the refill schedule (the
     resident groups take pixels from a counter), not the static one (on the
     card)."""
@@ -585,8 +598,8 @@ def _no_chunks(tracer, name: str) -> None:
 def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                  kind: str, lib=None) -> BaseOut:
     """Launch kernel A's `kind` instantiation (the grouped entries for
-    'grouped', 'grid_grouped', 'grid_grouped_spill', 'gathered_grouped',
-    which also take a zeroed pixel counter),
+    'grouped', 'ext_grouped', 'grid_grouped', 'grid_grouped_spill',
+    'gathered_grouped', which also take a zeroed pixel counter),
     from `lib` (default the render libraries). Its quota (BaseArgs.base),
     and with it the epilogue's 1 / base and budget cap, is the runtime
     share `base_q` where one is given (counted in
@@ -671,15 +684,40 @@ def base_kernel_ext(tracer, pose, seed: int, frame_number: int,
                     y0: int = 0, h_out: int = None,
                     base_q: int = None) -> BaseOut:
     """Kernel A's EXT instantiation: base_kernel for a tracer with the
-    material and texture extensions."""
+    material and texture extensions; the grouped entry
+    base_kernel_ext_grouped where takes_grouped(tracer, 'base'), else the
+    thread per pixel."""
     _require_ext(tracer, "base_kernel_ext")
     _no_chunks(tracer, "base_kernel_ext")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_ext"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
                                  base_q)
+    if takes_grouped(tracer, "base"):
+        return base_kernel_ext_grouped(tracer, pose, seed, frame_number, y0,
+                                       h_out, base_q)
     out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                        "ext")
     base_kernel_ext.launches += 1
+    return out
+
+
+def base_kernel_ext_grouped(tracer, pose, seed: int, frame_number: int,
+                            y0: int = 0, h_out: int = None,
+                            base_q: int = None) -> BaseOut:
+    """Kernel A's grouped entry at the EXT gates (csrc/group.cuh
+    kernel_base_grouped over GroupSweep): group_k('base_ext') lanes a pixel
+    on the schedule group_refill('base_ext'), as base_kernel_grouped. For
+    an EXT tracer over the table sweep whose rows fit GROUP_SMEM_BYTES;
+    base_kernel_ext takes it for such a tracer of at least
+    GROUP_BASE_MIN_PRIMS primitives (takes_grouped)."""
+    _require_grouped(tracer, "base_kernel_ext_grouped", "ext")
+    _no_chunks(tracer, "base_kernel_ext_grouped")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_ext_grouped"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "ext_grouped")
+    base_kernel_ext_grouped.launches += 1
     return out
 
 
@@ -816,6 +854,7 @@ base_kernel.launches = 0
 base_kernel.quota_launches = 0  # launches of any instantiation with a base_q
 base_kernel_grouped.launches = 0
 base_kernel_ext.launches = 0
+base_kernel_ext_grouped.launches = 0
 base_kernel_xt.launches = 0
 base_kernel_grid.launches = 0
 base_kernel_grid_grouped.launches = 0
@@ -824,7 +863,8 @@ base_kernel_gathered.launches = 0
 base_kernel_gathered_grouped.launches = 0
 
 # The grouped kernel A of each instantiation that has one.
-GROUPED_BASE = {"ref": base_kernel_grouped, "grid": base_kernel_grid_grouped,
+GROUPED_BASE = {"ref": base_kernel_grouped, "ext": base_kernel_ext_grouped,
+                "grid": base_kernel_grid_grouped,
                 "gathered": base_kernel_gathered_grouped}
 
 
@@ -873,8 +913,8 @@ def chunked_entry_iters(tracer, pose, seed: int, frame_number: int,
 def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                     kind: str, lib=None) -> ChunkedBaseOut:
     """Launch the chunked kernel A's `kind` instantiation (the grouped
-    entries for 'grouped', 'xt_grouped', 'ext_grouped' and their '_spill'
-    forms), from
+    entries for 'grouped', 'xt_grouped', 'ext_grouped', 'grid_grouped' and
+    their '_spill' forms), from
     `lib` (default the render libraries)."""
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
@@ -905,8 +945,9 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     needs the per-pixel totals. base_kernel_chunked_ext / _xt for a tracer
     with the extensions, base_kernel_chunked_grid / _gathered for one with
     that traversal; the grouped entries (base_kernel_chunked_grouped,
-    base_kernel_chunked_xt_grouped, base_kernel_chunked_ext_grouped) where
-    takes_grouped(tracer, 'chunked')."""
+    base_kernel_chunked_xt_grouped, base_kernel_chunked_ext_grouped,
+    base_kernel_chunked_grid_grouped) where takes_grouped(tracer,
+    'chunked')."""
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -1099,13 +1140,67 @@ def base_kernel_chunked_grid(tracer, pose, seed: int, frame_number: int,
                              y0: int = 0, h_out: int = None
                              ) -> ChunkedBaseOut:
     """The chunked kernel A over the block-culled sweep (XT
-    instantiation)."""
+    instantiation): its grouped entry base_kernel_chunked_grid_grouped
+    where takes_grouped(tracer, 'chunked') (every table size), else the
+    thread per entry."""
     _require_traversal(tracer, "grid", "base_kernel_chunked_grid")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked_grid"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if takes_grouped(tracer, "chunked"):
+        return base_kernel_chunked_grid_grouped(tracer, pose, seed,
+                                                frame_number, y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out, "grid")
     base_kernel_chunked_grid.launches += 1
+    return out
+
+
+def base_kernel_chunked_grid_grouped(tracer, pose, seed: int,
+                                     frame_number: int, y0: int = 0,
+                                     h_out: int = None) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped entry over the culled sweep
+    (csrc/group.cuh kernel_base_chunked_grouped over GroupCulled, XT
+    instantiation): group_k('chunked_grid') lanes an entry, the serial cull
+    decisions replayed across the group, the traversal counters the plain
+    version's. For an `--accel grid` tracer; base_kernel_chunked_grid takes
+    it for such a tracer. Rows and group table over GROUP_SMEM_BYTES go on
+    to base_kernel_chunked_grid_grouped_spill."""
+    _require_grouped(tracer, "base_kernel_chunked_grid_grouped", "grid",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_grid_grouped"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    if _over_budget(tracer):
+        return base_kernel_chunked_grid_grouped_spill(
+            tracer, pose, seed, frame_number, y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "grid_grouped")
+    base_kernel_chunked_grid_grouped.launches += 1
+    return out
+
+
+def base_kernel_chunked_grid_grouped_spill(tracer, pose, seed: int,
+                                           frame_number: int, y0: int = 0,
+                                           h_out: int = None
+                                           ) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped form over the culled sweep for any
+    table size (csrc/group.cuh GroupCulledSpill):
+    group_k('chunked_grid_spill') lanes an entry, the group table and then
+    the rows that fit group_cap('chunked_grid_spill') staged
+    (culled_stage), the rest read through L1; the decisions, hits and
+    counters those of base_kernel_chunked_grid_grouped. For an `--accel
+    grid` tracer; base_kernel_chunked_grid_grouped takes it where the rows
+    and group table exceed GROUP_SMEM_BYTES."""
+    _require_grouped(tracer, "base_kernel_chunked_grid_grouped_spill", "grid",
+                     any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_grid_grouped_spill"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "grid_grouped_spill")
+    base_kernel_chunked_grid_grouped_spill.launches += 1
     return out
 
 
@@ -1134,13 +1229,17 @@ base_kernel_chunked_xt.launches = 0
 base_kernel_chunked_xt_grouped.launches = 0
 base_kernel_chunked_xt_grouped_spill.launches = 0
 base_kernel_chunked_grid.launches = 0
+base_kernel_chunked_grid_grouped.launches = 0
+base_kernel_chunked_grid_grouped_spill.launches = 0
 base_kernel_chunked_gathered.launches = 0
 
 # The grouped chunked kernel A of each instantiation that has one (each
-# passes a table over the budget on to its GroupSpill form).
+# passes a table over the budget on to its GroupSpill or GroupCulledSpill
+# form).
 GROUPED_CHUNKED = {"ref": base_kernel_chunked_grouped,
                    "xt": base_kernel_chunked_xt_grouped,
-                   "ext": base_kernel_chunked_ext_grouped}
+                   "ext": base_kernel_chunked_ext_grouped,
+                   "grid": base_kernel_chunked_grid_grouped}
 
 
 # ---------------------------------------------------------------------------

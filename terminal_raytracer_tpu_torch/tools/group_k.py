@@ -7,7 +7,7 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid]
+        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid] [--a-only]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -81,7 +81,15 @@ checker floor (200x100, 8 spp, depth 6; its chunk-major stream of cb = 2
 for the chunked A), the chunked A's at K of CHUNKED_EXT_KS on the checker
 stress:1024, and the GroupSpill forms of both (EXT_SPILL: K, block width;
 a 227 KB cap) at icosphere:4 with a checker floor, each beside the thread
-per entry, bit for bit with the lane-iterations the plain model's.
+per entry, bit for bit with the lane-iterations the plain model's; then
+kernel A at the EXT gates (EXT_BASE: the thread per pixel unbound and held
+to 6 and 8 resident blocks an SM, the grouped entry at K 1-32 on both
+schedules, at K 1-4 also held to 6) at the five packaged extension scenes
+at their own size, spp and depth, twice in turns with each form's summed
+time, at showcase and textured at 16 spp, depth 32 and at the checker
+stress:256 and stress:64 (200x100, 8 spp, depth 6), each against the plain
+version bit for bit with its ptxas line and residency (`--a-only`: kernel
+A alone).
 `--only walk` sweeps kernels B and A over the grid walk (csrc/group.cuh
 GroupWalk) at stress1024, mesh1280 and mesh5120 under --accel gathered
 (200x100, 8 spp, depth 6), and kernel A also at Cornell_Box (the same
@@ -106,13 +114,17 @@ turns with the shipped GroupCulled entries; then the grid kernel A's
 thread per pixel at the north star under grid (Cornell_Box 400x200, 16
 spp, depth 32: too few primitives for a group) as shipped and held to
 GRID_MIN_BLOCKS resident blocks an SM (-DTRT_TUNE_MIN_BLOCKS, csrc/
-group_tune.cu's trt_kernel_base_grid), twice in turns. Needs a CUDA GPU
-(exit 2 without one).
+group_tune.cu's trt_kernel_base_grid), twice in turns; then the chunked
+grid kernel A at chunks of 2 (`--a-only`: it alone): within the budget
+over GroupCulled at each K and design, over it over each GroupCulledSpill
+form, beside the thread per entry, bit for bit with the counters. Needs a
+CUDA GPU (exit 2 without one).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
 import time
 
@@ -266,10 +278,12 @@ def _sweep_extra(label, tr, pose, seed, libs, reps, spill=False, rows=0,
 
 def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
                    ptxas=None):
-    """The chunked kernel A of `tr`'s instantiation ('ref' or 'xt'): thread
-    per entry, then the grouped entry (its GroupSpill form, `spill`) of
-    every library of `libs`, each line with `ptxas`[label] where given; the
-    plain version over `rows` image rows a call (0: all at once)."""
+    """The chunked kernel A of `tr`'s instantiation ('ref', 'xt', 'ext' or
+    'grid'): thread per entry, then the grouped entry (its GroupSpill or
+    GroupCulledSpill form, `spill`) of every library of `libs`, each line
+    with `ptxas`[label] where given; the plain version over `rows` image
+    rows a call (0: all at once); under --accel grid the traversal counters
+    against the plain version's and the thread per entry's."""
     kind = kernels._kind(tr)
     ptxas = ptxas or {}
 
@@ -277,9 +291,26 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
         return _in_rows(lambda r0, r1: fn(tr, pose, seed, 0, r0, r1 - r0),
                         tr.height, rows, dim=1)
 
+    if tr.traversal:
+        tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
     p = plain(lambda *a_: kernels.base_kernel_chunked_plain(*a_)[:4])
+    plain_stats = None
+    if tr.traversal:
+        plain_stats = tr.prims.stats.long().cpu()
+        tr.prims.ops = None
+        print(f"[group_k] {label} chunked A counters: plain "
+              f"{plain_stats.tolist()}", flush=True)
     want = (*p[0], *p[1], p[3], p[2])
     it = plain(kernels.chunked_entry_iters)
+    thread_stats = None
+
+    def same_counts(stats):
+        if stats is None:
+            return None
+        same = bool(torch.equal(stats, plain_stats))
+        if thread_stats is not None:
+            same = same and bool(torch.equal(stats, thread_stats))
+        return same
     grouped = ("grouped" if kind == "ref" else f"{kind}_grouped") + (
         "_spill" if spill else "")
 
@@ -289,19 +320,19 @@ def _sweep_chunked(label, tr, pose, seed, libs, reps, spill=False, rows=0,
     def flat(o):
         return (*o.csum, *o.csumsq, o.rays, o.state)
 
-    out = launch(kind)
+    out, thread_stats = _counted(tr, lambda: launch(kind))
     ms = _time(lambda: launch(kind), reps)
     _line(f"{label} chunked A ({kind})", "thread", ms,
           _equal(flat(out), want),
           float(out.iters) == float(kernels.warp_iters(it, 1)), it,
-          extra=ptxas.get("thread", ""))
+          same_counts(thread_stats), ptxas.get("thread", ""))
     for k, lib in libs.items():
         width = int(str(k).split()[0])
-        out = launch(grouped, lib)
+        out, stats = _counted(tr, lambda: launch(grouped, lib))
         ms = _time(lambda: launch(grouped, lib), reps)
         _line(f"{label} chunked A ({kind}) K", k, ms, _equal(flat(out), want),
               float(out.iters) == float(kernels.warp_iters(it, width)), it,
-              extra=ptxas.get(k, ""))
+              same_counts(stats), ptxas.get(k, ""))
 
 
 def _sweep_base(label, tr, pose, seed, libs, reps, base_q=None,
@@ -494,21 +525,29 @@ def _ptxas(log: str, pattern: str) -> str:
     return f", ptxas {regs} registers, {spill}"
 
 
-def _sweep_base_xt(label, tr, pose, seed, libs, logs, reps):
-    """The XT kernel A's forms (XT_BASE; `libs`, `logs` by form): the
-    shipped entry, then each form (K = 1 static: the thread per pixel too,
-    with and without its residency bound) against the plain version
-    bit for bit, its lane-iterations against the plain model (refill: at
-    least the pixels' sum), its ptxas line, the resident blocks an SM that
-    the occupancy calculator gives it and the waves of its grid."""
+def _sweep_base_forms(label, tr, pose, seed, libs, logs, reps, forms=None):
+    """Kernel A's forms at the XT or EXT gates (`tr`'s instantiation;
+    XT_BASE or EXT_BASE; `libs`, `logs` by form, (K, refill, bound)): the
+    shipped entries (the thread per pixel; at the EXT gates also the
+    grouped entry where the rows fit the budget), then each form (K = 1
+    static: the thread per pixel too, with and without its residency
+    bound) against the plain version bit for bit, its lane-iterations
+    against the plain model (refill: at least the pixels' sum), its ptxas
+    line, the resident blocks an SM that the occupancy calculator gives it
+    and the waves of its grid. `forms`: the (name, form) pairs to time, in
+    this order (default: every one). Returns {(name, form): ms}."""
+    kind = kernels._kind(tr)
+    gates = "ILb1ELb1E" if kind == "xt" else "ILb1ELb0E"
     p = kernels.base_kernel_plain(tr, pose, seed, 0)
     want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
     it = kernels.base_entry_iters(tr, pose, seed, 0)
     n = tr.width * tr.height
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[group_k] {label} kernel A (xt) {tr.width}x{tr.height}, spp "
-          f"{tr.spp}, depth {tr.max_depth}: {int(it.sum())} pixel "
-          "iterations", flush=True)
+    rows = kernels.group_rows_bytes(tr)
+    print(f"[group_k] {label} kernel A ({kind}) {tr.width}x{tr.height}, spp "
+          f"{tr.spp}, depth {tr.max_depth}, {tr.scene.primitive_count} "
+          f"primitives: {int(it.sum())} pixel iterations, {rows} B of rows",
+          flush=True)
 
     def launch(form, lib=None):
         return kernels._launch_base(tr, pose, seed, 0, 0, None, None, form,
@@ -517,37 +556,55 @@ def _sweep_base_xt(label, tr, pose, seed, libs, logs, reps):
     def flat(o):
         return (*o.csum, *o.csumsq, o.rays, o.var, o.additional, o.state)
 
-    out = launch("xt")
-    _line(f"{label} kernel A (xt) shipped trt_kernel_base_xt", "thread", _time(
-        lambda: launch("xt"), reps), _equal(flat(out), want),
-        float(out.iters) == float(kernels.warp_iters(it, 1)), it)
-    for (k, refill, minb), lib in libs.items():
-        thread = k == 1 and not refill
-        forms = (("thread", "xt"),) if thread else ()
-        forms += (("grouped", "xt_grouped"),)
-        for name, form in forms:
-            out = launch(form, lib)
-            ms = _time(lambda: launch(form, lib), reps)
-            model = (float(out.iters) >= float(it.sum()) if refill else
-                     float(out.iters) == float(kernels.warp_iters(it, k)))
-            if name == "thread":
-                per_sm = lib.trt_kernel_base_xt_per_sm()
-                blocks = -(-n // 128)
-                pattern = ("20kernel_base_residentILb1ELb1E" if minb
-                           else "11kernel_baseILb1ELb1E")
-            else:
-                per_sm = lib.trt_kernel_base_xt_grouped_per_sm()
-                blocks = -(-n * k // 128)
-                pattern = ("kernel_base_grouped_residentILb1ELb1E" if minb
-                           else "19kernel_base_groupedILb1ELb1EN3trt10Group")
-            waves = ("a resident grid" if refill else
-                     f"{blocks / max(per_sm * n_sm, 1):.2f} waves")
-            tag = (f"{k} {'refill' if refill else 'static'}"
-                   + (f" bound {minb}" if minb else ""))
-            _line(f"{label} kernel A (xt) {name}", tag, ms,
-                  _equal(flat(out), want), model, it,
-                  extra=(_ptxas(logs[k, refill, minb], pattern)
-                         + f", {per_sm} blocks an SM, {waves}"))
+    every = [("shipped", (0, 0, 0))]
+    if kind == "ext" and rows <= kernels.GROUP_SMEM_BYTES:
+        every.append(("shipped grouped", (0, 0, 0)))
+    for form in libs:
+        if form[0] == 1 and not form[1]:
+            every.append(("thread", form))
+        every.append(("grouped", form))
+    times = {}
+    for name, form in forms or every:
+        k, refill, minb = form
+        lib = libs.get(form)
+        if name == "shipped grouped":
+            entry = f"base_{kind}"
+            k = kernels.group_k(entry)
+            refill = kernels.group_refill(entry)
+        grouped = name.endswith("grouped")
+        launched = f"{kind}_grouped" if grouped else kind
+        out = launch(launched, lib)
+        ms = _time(lambda: launch(launched, lib), reps)
+        times[name, form] = ms
+        model = (float(out.iters) >= float(it.sum()) if refill else
+                 float(out.iters) == float(kernels.warp_iters(it, max(k, 1))))
+        if name.startswith("shipped"):
+            _line(f"{label} kernel A ({kind}) {name} trt_kernel_base_{kind}"
+                  + ("_grouped" if grouped else ""),
+                  f"{k} {'refill' if refill else 'static'}" if grouped
+                  else "thread", ms, _equal(flat(out), want), model, it)
+            continue
+        if name == "thread":
+            per_sm = getattr(lib, f"trt_kernel_base_{kind}_per_sm")()
+            blocks = -(-n // 128)
+            pattern = (f"20kernel_base_resident{gates}" if minb
+                       else f"11kernel_base{gates}")
+        else:
+            query = getattr(lib, f"trt_kernel_base_{kind}_grouped_per_sm")
+            per_sm = (query() if kind == "xt" else
+                      query(ctypes.byref(ctypes.c_int(rows))))
+            blocks = -(-n * k // 128)
+            pattern = (f"kernel_base_grouped_resident{gates}" if minb
+                       else f"19kernel_base_grouped{gates}N3trt10Group")
+        waves = ("a resident grid" if refill else
+                 f"{blocks / max(per_sm * n_sm, 1):.2f} waves")
+        tag = (f"{k} {'refill' if refill else 'static'}"
+               + (f" bound {minb}" if minb else ""))
+        _line(f"{label} kernel A ({kind}) {name}", tag, ms,
+              _equal(flat(out), want), model, it,
+              extra=(_ptxas(logs[form], pattern)
+                     + f", {per_sm} blocks an SM, {waves}"))
+    return times
 
 
 def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
@@ -624,7 +681,7 @@ def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
                                           "cuda")),
             ("showcase mis", PathTracer(load_scene("showcase"), "cuda",
                                         transport="mis"))):
-        _sweep_base_xt(label, tr, pose, SEED, libs, logs, reps)
+        _sweep_base_forms(label, tr, pose, SEED, libs, logs, reps)
 
 
 # --only ext: the grouped EXT kernel B's K over GroupSweep, the grouped
@@ -633,6 +690,22 @@ def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
 EXT_KS = (1, 2, 4, 8, 16)
 CHUNKED_EXT_KS = (4, 8, 16, 32)
 EXT_SPILL = tuple((k, t) for k in (16, 32) for t in (256, 512))
+# The EXT kernel A's forms, (group width, refill, resident blocks an SM; 0:
+# unbound): K = 1 static is also the thread per pixel's (unbound, held to
+# 6 and 8), the grouped form at every K on both schedules, and at K 1, 2,
+# 4 held to 6 (ptxas fits it to 80 registers: 24 warps an SM).
+EXT_BASE = (tuple((1, 0, minb) for minb in (0, 6, 8))
+            + tuple((k, refill, 0) for k in (1, 2, 4, 8, 32)
+                    for refill in (0, 1) if (k, refill) != (1, 0))
+            + tuple((k, refill, 6) for k in (1, 2, 4) for refill in (0, 1)
+                    if (k, refill) != (1, 0)))
+# Its scenes: the packaged extension scenes at their own size, spp and
+# depth (timed twice, in turns: the dispatch below GROUP_BASE_MIN_PRIMS
+# primitives), showcase and textured at the JAX bench's 16 spp, depth 32,
+# and the checker stress:256 and stress:64 at 200x100, 8 spp, depth 6.
+EXT_PACKAGED = ("cornell_glass", "showcase", "textured", "envmap", "bumpy")
+EXT_BENCH = ("showcase", "textured")
+EXT_STRESS = ("stress:256", "stress:64")
 # --only walk: the grouped gathered kernel B's (K, row source: 0 rows and
 # CSR through L1, 1 rows staged, 2 CSR and rows staged; walk_forms) at 128
 # lanes a block and a 227 KB stage cap; the grouped gathered kernel A's the
@@ -686,16 +759,75 @@ def _ext_libs():
     return sweep, spill
 
 
-def sweep_ext_walk(only, reps, ks=None) -> None:
+def _ext_base_libs():
+    """The group_tune.cu builds of the EXT kernel A's forms: {(K, refill,
+    bound): (source, defines)}."""
+    return {form: (build.TUNE_SOURCE, (
+        f"TRT_TUNE_K={form[0]}", f"TRT_TUNE_REFILL={form[1]}",
+        f"TRT_TUNE_MIN_BLOCKS={form[2]}")) for form in EXT_BASE}
+
+
+def sweep_ext_base(srcs, paths, reps) -> None:
+    """The EXT kernel A's forms (EXT_BASE; `srcs` their builds, `paths` the
+    built libraries) at its scenes: the packaged five twice, the second run
+    in the reverse order, with each form's summed time of each run beside
+    the shipped thread per pixel's; then EXT_BENCH and EXT_STRESS."""
+    libs = {form: build.load_kernels((src,)) for form, src in srcs.items()}
+    logs = {form: paths[src].with_suffix(".log").read_text()
+            for form, src in srcs.items()}
+    render_log = paths["kernel_base.cu"].with_suffix(".log").read_text()
+    print("[group_k] EXT kernel A shipped: thread per pixel"
+          f"{_ptxas(render_log, '11kernel_baseILb1ELb0E')}; grouped"
+          f"{_ptxas(render_log, '19kernel_base_groupedILb1ELb0E')}",
+          flush=True)
+    pose = Camera().pose()
+    tracers = {name: PathTracer(load_scene(name), "cuda")
+               for name in EXT_PACKAGED}
+    order, sums = None, []
+    for run in (1, 2):
+        total = {}
+        for name, tr in tracers.items():
+            times = _sweep_base_forms(f"{name} 400x200 run {run}", tr, pose,
+                                   SEED, libs, logs, reps, order)
+            for form, ms in times.items():
+                total[form] = total.get(form, 0.0) + ms
+        sums.append(total)
+        order = list(reversed(list(total)))
+    shipped = ("shipped", (0, 0, 0))
+    for form in sums[0]:
+        a, b = sums[0][form], sums[1][form]
+        print(f"[group_k] packaged five, summed: {form[0]} {form[1]}: run 1 "
+              f"{a:.4f} ms, run 2 {b:.4f} ms; against the shipped thread per "
+              f"pixel x{sums[0][shipped] / a:.3f}, "
+              f"x{sums[1][shipped] / b:.3f}", flush=True)
+    for name in EXT_BENCH:
+        tr = PathTracer(load_scene(name).with_overrides(
+            samples_per_pixel=16, max_depth=32), "cuda")
+        _sweep_base_forms(f"{name} bench 400x200 spp 16 depth 32", tr, pose,
+                       SEED, libs, logs, reps)
+    for name in EXT_STRESS:
+        tr = PathTracer(_checker(load_scene(name).with_overrides(
+            width=200, height=100, samples_per_pixel=8, max_depth=6)), "cuda")
+        if tr.chunk_base or kernels._kind(tr) != "ext":
+            raise SystemExit(f"group_k: checker {name} is chunked or not EXT")
+        _sweep_base_forms(f"{name} checker 200x100", tr, pose, SEED, libs, logs,
+                       reps)
+
+
+def sweep_ext_walk(only, reps, ks=None, a_only=False) -> None:
     """--only ext, --only walk (the module docstring); `ks`: the walk's
     group widths (default WALK_KS for kernel B, WALK_A_KS for kernel A;
-    --only ext ignores it)."""
+    --only ext ignores it); `a_only`: --only ext sweeps the EXT kernel A
+    alone."""
+    base = {}
     if only == "walk":
         walk, refill = _walk_libs(ks or WALK_KS, ks or WALK_A_KS)
         srcs = {**walk, **refill}
     else:
         sweep, spill = _ext_libs()
-        srcs = {**sweep, **spill}
+        base = _ext_base_libs()
+        srcs = {} if a_only else {**sweep, **spill}
+        srcs.update({f"A {form}": src for form, src in base.items()})
     t0 = time.perf_counter()
     paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values()))
     print(f"[group_k] {len(paths)} libraries built in "
@@ -750,6 +882,9 @@ def sweep_ext_walk(only, reps, ks=None) -> None:
             _sweep_base(f"{label} gathered", tr, pose, SEED, a_libs, reps,
                         ptxas=a_marks)
         return
+    if a_only:
+        sweep_ext_base(base, paths, reps)
+        return
     libs = {k: build.load_kernels((src,)) for k, src in sweep.items()}
     marks = {k: _ptxas(log(src), "kernel_extra_groupedILb1ELb0EN3trt10"
                        "GroupSweep") for k, src in sweep.items()}
@@ -789,6 +924,7 @@ def sweep_ext_walk(only, reps, ks=None) -> None:
                                "19kernel_base_chunkedILb1ELb0E")
     _sweep_chunked("mesh5120 checker", tr, pose, SEED, libs, reps, spill=True,
                    ptxas=a_marks)
+    sweep_ext_base(base, paths, reps)
 
 
 # --only grid: the grid kernels' GroupCulledSpill forms, (K, design, block
@@ -865,12 +1001,60 @@ def _grid_resident(tr, pose, seed, libs, logs, reps):
                   bool(torch.equal(stats, plain_stats)), extra)
 
 
-def sweep_grid(reps, ks=GRID_KS) -> None:
-    """--only grid (the module docstring)."""
+def sweep_chunked_grid(srcs, paths, reps) -> None:
+    """The chunked grid kernel A at cb = 2 (--only grid): within the budget
+    (GRID_WITHIN) over GroupCulled at each (K, design) of the static builds
+    `srcs` (128 lanes a block whatever their width), over it (GRID_OVER)
+    over each GroupCulledSpill form; each beside the thread per entry, bit
+    for bit with the traversal counters and lane-iterations."""
+    static = {label: src for label, src in srcs.items()
+              if not label.endswith("refill")}
+    libs = {label: build.load_kernels((src,)) for label, src in static.items()}
+    within = {label.rsplit(" ", 1)[0]: lib for label, lib in libs.items()
+              if label.endswith(f"t{GRID_THREADS[0]}")}
+
+    def log(src):
+        return paths[src].with_suffix(".log").read_text()
+
+    culled = "kernel_base_chunked_groupedILb1ELb1EN3trt11GroupCulled"
+    spill = "kernel_base_chunked_groupedILb1ELb1EN3trt16GroupCulledSpill"
+    thread = _ptxas(log("kernel_accel.cu"),
+                    "19kernel_base_chunkedILb1ELb1EN3trt6Culled")
+    w_marks = {label.rsplit(" ", 1)[0]: _ptxas(log(src), culled)
+               for label, src in static.items()}
+    o_marks = {label: _ptxas(log(src), spill) for label, src in static.items()}
+    pose = Camera().pose()
+    for group, forms, marks, is_spill in (
+            (tuple((label, name, 0) for label, name in GRID_WITHIN), within,
+             w_marks, False),
+            (GRID_OVER, libs, o_marks, True)):
+        for label, name, rows in group:
+            tr = PathTracer(load_scene(name).with_overrides(
+                width=200, height=100, samples_per_pixel=8, max_depth=6),
+                "cuda", accel="grid", chunk_base=2, chunk_extra=2)
+            counts = kernels.grid_counts(tr)
+            staged = kernels.culled_stage(*counts, GROUP_SMEM_MAX)
+            print(f"[group_k] {label} cb 2: {tr.n_base_chunks} chunks, "
+                  f"{kernels.group_smem_bytes(tr)} B of rows and group table"
+                  + (f"; staged at 227 KB {staged}, "
+                     f"{kernels.culled_stage_bytes(staged)} B" if is_spill
+                     else ""), flush=True)
+            _sweep_chunked(f"{label} cb 2", tr, pose, SEED, forms, reps,
+                           spill=is_spill, rows=rows,
+                           ptxas={**marks, "thread": thread})
+
+
+def sweep_grid(reps, ks=GRID_KS, a_only=False) -> None:
+    """--only grid (the module docstring); `a_only`: the chunked grid kernel
+    A alone."""
     srcs = _grid_libs(ks)
     resident = {n: (build.TUNE_SOURCE, ("TRT_TUNE_K=1",
                                         f"TRT_TUNE_MIN_BLOCKS={n}"))
                 for n in GRID_MIN_BLOCKS}
+    if a_only:
+        srcs = {label: src for label, src in srcs.items()
+                if not label.endswith("refill")}
+        resident = {}
     t0 = time.perf_counter()
     paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values())
                                 + tuple(resident.values()))
@@ -881,6 +1065,9 @@ def sweep_grid(reps, ks=GRID_KS) -> None:
     def log(src):
         return paths[src].with_suffix(".log").read_text()
 
+    if a_only:
+        sweep_chunked_grid(srcs, paths, reps)
+        return
     libs = {label: build.load_kernels((src,)) for label, src in srcs.items()}
     b_libs = {label: lib for label, lib in libs.items()
               if not label.endswith("refill")}
@@ -934,6 +1121,7 @@ def sweep_grid(reps, ks=GRID_KS) -> None:
                    {n: build.load_kernels((src,))
                     for n, src in resident.items()},
                    {n: log(src) for n, src in resident.items()}, reps)
+    sweep_chunked_grid(srcs, paths, reps)
 
 
 def main(argv=None):
@@ -942,6 +1130,9 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", choices=("base", "spill", "budget", "xt", "ext",
                                        "walk", "grid"), default=None)
+    ap.add_argument("--a-only", action="store_true",
+                    help="--only ext: the EXT kernel A alone; --only grid: "
+                    "the chunked grid kernel A alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
@@ -959,12 +1150,12 @@ def main(argv=None):
         return 0
     if args.only == "grid":
         sweep_grid(args.reps, [int(k) for k in args.ks.split(",")] if args.ks
-                   else GRID_KS)
+                   else GRID_KS, args.a_only)
         return 0
     if args.only in ("ext", "walk"):
         sweep_ext_walk(args.only, args.reps,
                        [int(k) for k in args.ks.split(",")] if args.ks
-                       else None)
+                       else None, args.a_only)
         return 0
     ks = [int(k) for k in (args.ks or ",".join(map(str, KS))).split(",")]
     tune = {k: (build.TUNE_SOURCE, (f"TRT_TUNE_K={k}",)) for k in ks}

@@ -56,6 +56,17 @@ def _scene(name, **over):
     return load_scene(name).with_overrides(**{**size, **over})
 
 
+def _checker(scene):
+    """`scene` with a checker floor (its first plane): the EXT
+    instantiation at array scale."""
+    import dataclasses
+
+    floor = scene.planes[0]
+    mat = floor.material._replace(checker_color=(0.2, 0.2, 0.25),
+                                  checker_scale=1.0)
+    return dataclasses.replace(scene, planes=(floor._replace(material=mat),))
+
+
 def _off(got, want):
     """The share of pixels where any plane is beyond the tolerance."""
     bad = np.abs(got - want) > ATOL + RTOL * np.abs(want)
@@ -83,6 +94,10 @@ def _knife_edges(got, want, n_max=1):
     (lambda: _scene("icosphere:3"), "grid", "base_kernel_grid_grouped"),
     (lambda: _scene("icosphere:4"), "grid", "base_kernel_grid_grouped"),
     (lambda: _scene("showcase"), "auto", "base_kernel_ext"),
+    (lambda: _checker(_scene("stress:64")), "auto",
+     "base_kernel_ext_grouped"),
+    (lambda: _checker(_scene("stress:256")), "auto",
+     "base_kernel_ext_grouped"),
     (lambda: _scene("Cornell_Box", fog=Fog(density=0.15)), "auto",
      "base_kernel_xt"),
     (lambda: _scene("stress:96"), "gathered",
@@ -96,13 +111,15 @@ def test_kernel_a_dispatch(scene, accel_, want):
     culled sweep (`--accel grid`, over the budget through its
     GroupCulledSpill form) and the walk (`--accel gathered`) take their
     grouped entries at every table size from GROUP_BASE_MIN_PRIMS
-    primitives on; EXT and XT keep theirs."""
+    primitives on; the EXT gates take theirs as the reference gates do
+    (the checker stress:64 and stress:256; showcase's 8 primitives keep
+    the thread per pixel); XT keeps its thread per pixel."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     grouped = kernels.takes_grouped(tr, "base")
     assert grouped == want.endswith("grouped")
     assert grouped == (
-        (kind == "ref"
+        (kind in ("ref", "ext")
          and kernels.group_smem_bytes(tr) <= kernels.GROUP_SMEM_BYTES
          or kind in kernels.ANY_SIZE["base"])
         and tr.scene.primitive_count >= kernels.GROUP_BASE_MIN_PRIMS)

@@ -10,8 +10,9 @@ layout within the cap, the greedy fill), the plan at the mesh5120 and
 icosphere:5 grid tables (mesh5120's whole sweep staged at the 227 KB
 opt-in limit), the dispatch (an over-budget grid tracer now takes both
 GroupCulledSpill forms through base_kernel and extra_kernel; Cornell_Box
-under grid keeps kernel A's thread per pixel; the chunked grid kernel A is
-unchanged), followed on the CPU by standing in for the launch, the new
+under grid keeps kernel A's thread per pixel; the chunked grid kernel A
+takes its grouped entry, over the budget its GroupCulledSpill form),
+followed on the CPU by standing in for the launch, the new
 wrappers' refusals, and their plain versions for CPU tensors.
 
 The `cuda` tests hold both entries bit for bit against their plain
@@ -193,7 +194,7 @@ def test_over_budget_grid_takes_both_spill_forms(name, recorded):
     tr = _grid(name)
     assert kernels._over_budget(tr)
     assert kernels.takes_grouped(tr) and kernels.takes_grouped(tr, "base")
-    assert not kernels.takes_grouped(tr, "chunked")
+    assert kernels.takes_grouped(tr, "chunked")
     assert kernels.SPILL_EXTRA["grid"] is kernels.extra_kernel_grid_grouped_spill
     a0, b0 = _launches(*GRID_A), _launches(*GRID_B)
     out = kernels.base_kernel(tr, POSE, SEED, 0, 0, 2)
@@ -223,14 +224,19 @@ def test_grid_within_the_budget_keeps_its_entries(name, base_kind,
 
 @pytest.mark.parametrize("name", ["stress:96:3", "icosphere:4"])
 def test_grid_chunked_kernel_a_is_unchanged(name, recorded):
-    """`--accel grid` with an explicit chunk_base keeps the chunked grid
-    kernel A's thread per entry, within the budget and over it."""
+    """`--accel grid` with an explicit chunk_base takes the chunked grid
+    kernel A's grouped entry within the budget and its GroupCulledSpill
+    form over it; the thread per entry counts no launch."""
     tr = _grid(name, chunk_base=2)
-    assert tr.chunk_base == 2 and not kernels.takes_grouped(tr, "chunked")
-    n0 = kernels.base_kernel_chunked_grid.launches
+    assert tr.chunk_base == 2 and kernels.takes_grouped(tr, "chunked")
+    spill = "_spill" if kernels._over_budget(tr) else ""
+    assert bool(spill) is (name == "icosphere:4")
+    wrapper = getattr(kernels, f"base_kernel_chunked_grid_grouped{spill}")
+    n0 = (kernels.base_kernel_chunked_grid.launches, wrapper.launches)
     kernels.base_kernel_chunked(tr, POSE, SEED, 0, 0, 2)
-    assert recorded == ["grid"]
-    assert kernels.base_kernel_chunked_grid.launches == n0 + 1
+    assert recorded == [f"grid_grouped{spill}"]
+    assert (kernels.base_kernel_chunked_grid.launches,
+            wrapper.launches) == (n0[0], n0[1] + 1)
 
 
 def test_spill_wrappers_refuse_other_instantiations():
