@@ -158,7 +158,12 @@ Phases, each reported on lines starting with its tag:
             entry, which the wrapper takes, and the thread per entry),
             bit for bit, both counters equal to the plain version's and
             to each other, timed in turns, and the sorted main path at
-            both shapes; and at the stress1024 shapes
+            both shapes; the chunked gathered kernel A in both forms at
+            chunks of 2 at stress1024 and mesh1280 (its grouped entry over
+            csrc/group.cuh GroupWalk, which the wrapper takes at every
+            size, and the thread per entry), bit for bit, both counters
+            equal, timed in turns (its main-path launches come from
+            [sched]); and at the stress1024 shapes
             a frame through the grid kernels beside one through the XT
             kernels over the blocked scene's dense table sweep (the JAX
             oracle's traversal under accel 'grid'), three seeds: the
@@ -172,7 +177,7 @@ Phases, each reported on lines starting with its tag:
             lane-iterations: regen's warp count, lockstep's static
             formula; traversal counters), timed there; the chunked grid
             and gathered kernel A's thread per entry, launched directly,
-            against its plain version there, with counters (the grid's
+            against its plain version there, with counters (their
             grouped forms in [accel]); then this slice's main path:
             make_render_frame with
             'sorted', 'regen' and 'lockstep' on every one of those
@@ -240,7 +245,11 @@ kernel_base_chunked_xt_grouped at the stress:1024 fog --mis shapes;
 kernel_base_ext_grouped at the checker stress:256 shapes; the chunked
 grid kernel A at the stress1024 grid cb 2 shapes (the thread-per-entry
 kernel_base_chunked_grid launched directly, OFF_PATH; its grouped
-entry) and its GroupCulledSpill form at mesh5120 grid cb 2;
+entry) and its GroupCulledSpill form at mesh5120 grid cb 2; the chunked
+gathered kernel A at the stress1024 gathered cb 2 shapes (the
+thread-per-entry kernel_base_chunked_gathered launched directly,
+OFF_PATH; its grouped entry), its errors including mesh1280 gathered cb
+2's;
 the other EXT rows at the showcase and
 stress:1024-checker shapes (the thread-per-entry kernel_extra_ext and
 kernel_base_chunked_ext launched directly, OFF_PATH; the GroupSpill
@@ -1075,7 +1084,8 @@ def phase_thread_per_entry(peak):
 OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt", "kernel_base_chunked_ext",
-            "kernel_base_chunked_grid", "kernel_base_gathered")
+            "kernel_base_chunked_grid", "kernel_base_chunked_gathered",
+            "kernel_base_gathered")
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
@@ -1099,7 +1109,8 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_gathered", "extra_kernel_gathered",
                 "base_kernel_chunked_grid", "base_kernel_chunked_gathered",
                 "base_kernel_ext_grouped", "base_kernel_chunked_grid_grouped",
-                "base_kernel_chunked_grid_grouped_spill") + FRAME_NAMES
+                "base_kernel_chunked_grid_grouped_spill",
+                "base_kernel_chunked_gathered_grouped") + FRAME_NAMES
 
 
 def _sfx(tr) -> str:
@@ -2168,6 +2179,11 @@ ACCEL_OVER_BUDGET = ("mesh5120", "icosphere:4")
 # GroupCulledSpill form); the sorted main path runs at both.
 CHUNKED_GRID = (("stress1024 grid cb 2", "stress:1024"),
                 ("mesh5120 grid cb 2", "icosphere:4"))
+# The chunked gathered kernel A's shapes (the same size and chunks): its
+# grouped entry over GroupWalk, which serves every table size. Its
+# main-path launches come from [sched].
+CHUNKED_GATHERED = (("stress1024 gathered cb 2", "stress:1024"),
+                    ("mesh1280 gathered cb 2", "icosphere:3"))
 
 
 def _check_counts(label, k, p):
@@ -2359,6 +2375,23 @@ def phase_accel(peak):
     res["grid", "ct"] = (max(cg[w_label]["thread"][0],
                              cg[o_label]["thread"][0]),
                          *cg[w_label]["thread"][1:])
+    # The chunked gathered kernel A at chunks of 2 (CHUNKED_GATHERED): its
+    # grouped entry, which the wrapper takes, and the thread per entry,
+    # launched directly, in turns. The rows' times at the stress1024
+    # shapes, the errors over both.
+    for label, name in CHUNKED_GATHERED:
+        tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda",
+                        accel="gathered", chunk_base=2, chunk_extra=2)
+        if not kernels.takes_grouped(tr, "chunked") or tr.n_base_chunks < 2:
+            fail(f"[accel] {label}: no chunks or no grouped chunked "
+                 "gathered A")
+        cg[label] = _spill_both(label, tr, "chunked", peak, tag="accel",
+                                turns=True)
+    (w_label, _), (m_label, _) = CHUNKED_GATHERED
+    for form, key in (("grouped", "cg"), ("thread", "ct")):
+        res["gathered", key] = (max(cg[w_label][form][0],
+                                    cg[m_label][form][0]),
+                                *cg[w_label][form][1:])
     for label, name in ACCEL_ENGINE:
         for accel in ("baked", "auto", "grid", "gathered"):
             _add(launches, _run_engine(
@@ -2612,9 +2645,9 @@ def phase_sched(peak):
     print(f"[sched] main path launches {_nonzero(got)}", flush=True)
     if got != want:
         fail(f"[sched] launch counts {got}, expected {want}")
-    missing = [k for k in FRAME_NAMES + ("base_kernel_chunked_grid_grouped",
-                                         "base_kernel_chunked_gathered")
-               if got[k] == 0]
+    missing = [k for k in FRAME_NAMES + (
+        "base_kernel_chunked_grid_grouped",
+        "base_kernel_chunked_gathered_grouped") if got[k] == 0]
     if missing:
         fail(f"[sched] not launched on the main path: {missing}")
     return got, res
@@ -3180,8 +3213,18 @@ def main() -> int:
             ("kernel_base_chunked_grid_grouped_spill",
              "base_kernel_chunked_grid_grouped_spill", "group.cuh", "809",
              *acc["grid", "cgs"]),
+            # Over the walk: thread per entry (launched directly: OFF_PATH)
+            # and grouped (csrc/group.cuh GroupWalk; entry in
+            # kernel_accel.cu) at the stress1024 gathered cb 2 shapes
+            # ([accel], in turns), the errors including mesh1280's and
+            # (thread per entry) [sched]'s.
             ("kernel_base_chunked_gathered", "base_kernel_chunked_gathered",
-             "kernel_accel.cu", "808", *sch["chunked_gathered"])) + tuple(
+             "kernel_accel.cu", "808", max(sch["chunked_gathered"][0],
+                                           acc["gathered", "ct"][0]),
+             *acc["gathered", "ct"][1:]),
+            ("kernel_base_chunked_gathered_grouped",
+             "base_kernel_chunked_gathered_grouped", "group.cuh", "808",
+             *acc["gathered", "cg"])) + tuple(
         # Kernel C, kernel_regen (:420), and D, kernel_lockstep (:391),
         # both launched by the pallas_call at :499.
         (f"kernel_{mode}{sfx}", f"{mode}_kernel{sfx}", "kernel_frame.cu",

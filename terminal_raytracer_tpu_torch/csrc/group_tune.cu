@@ -16,9 +16,10 @@
 //
 // The grouped kernel B and the grouped chunked kernel A at the EXT gates
 // over GroupSweep<TRT_TUNE_K> and over TuneSpill, and the grouped gathered
-// kernels B and A (the latter on the schedule TRT_TUNE_REFILL) over
-// GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK (the row source), TRT_TUNE_THREADS,
-// TRT_TUNE_STAGE_CAP> come under the render libraries' names too.
+// kernels B, A (the latter on the schedule TRT_TUNE_REFILL) and chunked A
+// over GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK (the row source),
+// TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP> come under the render libraries'
+// names too.
 //
 // The grouped kernel A at the EXT gates comes over GroupSweep<TRT_TUNE_K> on
 // the schedule TRT_TUNE_REFILL, held to TRT_TUNE_MIN_BLOCKS resident blocks
@@ -335,6 +336,19 @@ extern "C" int trt_kernel_base_chunked_grid_grouped_spill_k() { return TRT_TUNE_
 extern "C" int trt_kernel_base_chunked_grid_grouped_spill_cap() {
   return TuneCulledSpill::SMEM_CAP;
 }
+
+extern "C" int trt_kernel_base_chunked_gathered_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                        const trt::Xt* xt,
+                                                        const trt::Accel* acc,
+                                                        const float* scene_buf, float* out,
+                                                        long long* state_out,
+                                                        unsigned long long* iters,
+                                                        void* stream) {
+  return launch_chunked_grouped<true, true, TuneWalk>(a, *tx, *xt, scene_buf, out, state_out,
+                                                      iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_gathered_grouped_k() { return TRT_TUNE_K; }
 
 // Kernel A at the EXT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
 // kernel_base_resident), the arguments of kernel_base.cu's entry.

@@ -84,6 +84,17 @@
 // takes it for an `--accel gathered` scene of at least GROUP_BASE_MIN_PRIMS
 // primitives. It replaces the same Pallas kernel as trt_kernel_base_gathered
 // (:796 over GatheredPrims, the walk loop at :91-126, bound at :808).
+//
+// trt_kernel_base_chunked_gathered_grouped is the chunked kernel A over the
+// grid walk redesigned the same way (group.cuh kernel_base_chunked_grouped
+// over GroupWalk<GROUP_K_CHUNKED_GATHERED, GROUP_SRC_CHUNKED_GATHERED>): a
+// path group carries one chunk-major entry, the walk's hits and counters
+// Walk's. It serves every table size; ops/kernels.py takes it for every
+// `--accel gathered` tracer with a chunk split, so
+// trt_kernel_base_chunked_gathered serves no dispatch. It replaces the same
+// Pallas kernel as trt_kernel_base_chunked_gathered (the chunk-major
+// stream, :749-754, 798-800, 951-970, over GatheredPrims, the walk loop at
+// :91-126, bound at :808).
 
 #include "group.cuh"
 
@@ -170,6 +181,21 @@ constexpr int GROUP_K_BASE_GATHERED = 8;
 constexpr int GROUP_SRC_BASE_GATHERED = trt::WALK_L1;
 constexpr bool GROUP_REFILL_BASE_GATHERED = false;
 using BaseWalk = trt::GroupWalk<GROUP_K_BASE_GATHERED, GROUP_SRC_BASE_GATHERED>;
+// The group width and row source of the grouped chunked gathered kernel A
+// (group.cuh GroupWalk, 128 lanes a block): chosen by the sweep of
+// tools/group_k.py --only walk --a-only at stress1024, mesh1280 and
+// mesh5120 gathered, 200x100, 8 spp, depth 6, chunks of 2, the least
+// summed time of two runs in turns (PERF.md, the grouped chunked gathered
+// kernel A; ms at stress1024 / mesh1280 / mesh5120, run 1, H100 80GB HBM3
+// at 700 W). Thread per entry 0.645 / 0.539 / 0.908; rows and CSR through
+// L1 at K = 4 0.446 / 0.240 / 0.377, K = 8 0.454 / 0.214 / 0.277 (summed
+// 0.945, 0.958 in run 2), K = 16 0.569 / 0.242 / 0.289, K = 32 0.790 /
+// 0.297 / 0.371; the rows staged, or the CSR and rows, at K = 4 and 8
+// 1.1-5.2x slower (mesh5120's rows take the stage). A form chosen by the
+// table's size gained 0.8% and 2.3% over K = 8 alone: under the 5% rule.
+constexpr int GROUP_K_CHUNKED_GATHERED = 8;
+constexpr int GROUP_SRC_CHUNKED_GATHERED = trt::WALK_L1;
+using ChunkedWalk = trt::GroupWalk<GROUP_K_CHUNKED_GATHERED, GROUP_SRC_CHUNKED_GATHERED>;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
@@ -337,6 +363,21 @@ extern "C" int trt_kernel_base_chunked_grid_grouped_spill_k() { return ChunkedGr
 extern "C" int trt_kernel_base_chunked_grid_grouped_spill_cap() {
   return ChunkedGridSpill::SMEM_CAP;
 }
+
+// The grouped chunked kernel A over the grid walk: the same arguments and
+// outputs as trt_kernel_base_chunked_gathered, at any table size.
+extern "C" int trt_kernel_base_chunked_gathered_grouped(const ChunkArgs* a, const trt::Tex* tx,
+                                                        const trt::Xt* xt,
+                                                        const trt::Accel* acc,
+                                                        const float* scene_buf, float* out,
+                                                        long long* state_out,
+                                                        unsigned long long* iters,
+                                                        void* stream) {
+  return launch_chunked_grouped<true, true, ChunkedWalk>(a, *tx, *xt, scene_buf, out, state_out,
+                                                         iters, stream, *acc);
+}
+
+extern "C" int trt_kernel_base_chunked_gathered_grouped_k() { return ChunkedWalk::K; }
 
 // The grouped kernel B over the grid walk: the same arguments and outputs
 // as trt_kernel_extra_gathered, at any table size.

@@ -83,6 +83,8 @@ ENTRY_POINTS = {
                         ("trt_kernel_base_chunked_grid_grouped_spill", 9),
                         ("trt_kernel_base_chunked_grid_grouped_spill_k", 0),
                         ("trt_kernel_base_chunked_grid_grouped_spill_cap", 0),
+                        ("trt_kernel_base_chunked_gathered_grouped", 9),
+                        ("trt_kernel_base_chunked_gathered_grouped_k", 0),
                         ("trt_kernel_extra_grid", 13),
                         ("trt_kernel_extra_gathered", 13),
                         ("trt_kernel_extra_grid_grouped", 13),

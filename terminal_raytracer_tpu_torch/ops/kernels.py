@@ -22,8 +22,8 @@ make_sorted_render_frame:
 Kernel B at the reference, XT and EXT gates, over the culled sweep of
 `--accel grid` and over the grid walk of `--accel gathered`, kernel A at
 the reference and EXT gates, over the culled sweep and over the grid walk,
-and the chunked kernel A at the reference, XT and EXT gates and over the
-culled sweep, take
+and the chunked kernel A at the reference, XT and EXT gates, over the
+culled sweep and over the grid walk, take
 their grouped entries (csrc/group.cuh: a path group of K lanes carries one
 entry, the closest-hit and shadow sweeps split across the group, the
 scene's geometry rows, and the grid's group table, staged in shared
@@ -40,7 +40,9 @@ base_kernel_gathered_grouped (GroupWalk, every table size),
 base_kernel_chunked to base_kernel_chunked_grouped, base_kernel_chunked_xt
 to base_kernel_chunked_xt_grouped, base_kernel_chunked_ext to
 base_kernel_chunked_ext_grouped, base_kernel_chunked_grid to
-base_kernel_chunked_grid_grouped, each counting its own launches. Kernel B
+base_kernel_chunked_grid_grouped, base_kernel_chunked_gathered to
+base_kernel_chunked_gathered_grouped (GroupWalk, every table size), each
+counting its own launches. Kernel B
 at the reference, XT and EXT gates and over the culled sweep, the chunked
 kernel A at the reference, XT and EXT gates and over the culled sweep, and
 kernel A over the culled sweep take their grouped entries at every table
@@ -441,7 +443,7 @@ GROUP_BASE_MIN_PRIMS = 16
 # GroupSpill or GroupCulledSpill form above GROUP_SMEM_BYTES; the walk
 # stages no rows), by kernel.
 ANY_SIZE = {"extra": ("ref", "xt", "ext", "grid", "gathered"),
-            "chunked": ("ref", "xt", "ext", "grid"),
+            "chunked": ("ref", "xt", "ext", "grid", "gathered"),
             "base": ("grid", "gathered")}
 
 
@@ -505,16 +507,18 @@ _GROUPED_ENTRIES = {"extra": "trt_kernel_extra_grouped",
                         "trt_kernel_base_chunked_ext_grouped_spill",
                     "chunked_grid": "trt_kernel_base_chunked_grid_grouped",
                     "chunked_grid_spill":
-                        "trt_kernel_base_chunked_grid_grouped_spill"}
+                        "trt_kernel_base_chunked_grid_grouped_spill",
+                    "chunked_gathered":
+                        "trt_kernel_base_chunked_gathered_grouped"}
 
 
 def group_k(kernel: str, lib=None) -> int:
     """The group width K (lanes an entry) that the grouped `kernel` (a key
     of _GROUPED_ENTRIES: 'extra', 'extra_xt', 'extra_ext', 'extra_grid',
     'extra_gathered', 'chunked', 'chunked_xt', 'chunked_ext',
-    'chunked_grid', 'base', 'base_ext', 'base_grid', 'base_gathered' or a
-    '*_spill' form) of `lib` (default the render libraries) was built with
-    (on the card)."""
+    'chunked_grid', 'chunked_gathered', 'base', 'base_ext', 'base_grid',
+    'base_gathered' or a '*_spill' form) of `lib` (default the render
+    libraries) was built with (on the card)."""
     lib = lib or load_kernels()
     return int(getattr(lib, _GROUPED_ENTRIES[kernel] + "_k")())
 
@@ -913,8 +917,8 @@ def chunked_entry_iters(tracer, pose, seed: int, frame_number: int,
 def _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                     kind: str, lib=None) -> ChunkedBaseOut:
     """Launch the chunked kernel A's `kind` instantiation (the grouped
-    entries for 'grouped', 'xt_grouped', 'ext_grouped', 'grid_grouped' and
-    their '_spill' forms), from
+    entries for 'grouped', 'xt_grouped', 'ext_grouped', 'grid_grouped',
+    their '_spill' forms and 'gathered_grouped'), from
     `lib` (default the render libraries)."""
     device = tracer.tables.buf.device
     h_out = tracer.height if h_out is None else h_out
@@ -946,8 +950,8 @@ def base_kernel_chunked(tracer, pose, seed: int, frame_number: int,
     with the extensions, base_kernel_chunked_grid / _gathered for one with
     that traversal; the grouped entries (base_kernel_chunked_grouped,
     base_kernel_chunked_xt_grouped, base_kernel_chunked_ext_grouped,
-    base_kernel_chunked_grid_grouped) where takes_grouped(tracer,
-    'chunked')."""
+    base_kernel_chunked_grid_grouped, base_kernel_chunked_gathered_grouped)
+    where takes_grouped(tracer, 'chunked')."""
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_chunked"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
@@ -1207,15 +1211,43 @@ def base_kernel_chunked_grid_grouped_spill(tracer, pose, seed: int,
 def base_kernel_chunked_gathered(tracer, pose, seed: int, frame_number: int,
                                  y0: int = 0, h_out: int = None
                                  ) -> ChunkedBaseOut:
-    """The chunked kernel A over the grid walk (XT instantiation)."""
+    """The chunked kernel A over the grid walk (XT instantiation): its
+    grouped entry base_kernel_chunked_gathered_grouped where
+    takes_grouped(tracer, 'chunked') (every table size), else the thread
+    per entry."""
     _require_traversal(tracer, "gathered", "base_kernel_chunked_gathered")
     if not _on_cuda(tracer.tables.buf.device,
                     "base_kernel_chunked_gathered"):
         return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
                                          y0, h_out)
+    if takes_grouped(tracer, "chunked"):
+        return base_kernel_chunked_gathered_grouped(tracer, pose, seed,
+                                                    frame_number, y0, h_out)
     out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
                           "gathered")
     base_kernel_chunked_gathered.launches += 1
+    return out
+
+
+def base_kernel_chunked_gathered_grouped(tracer, pose, seed: int,
+                                         frame_number: int, y0: int = 0,
+                                         h_out: int = None
+                                         ) -> ChunkedBaseOut:
+    """The chunked kernel A's grouped entry over the grid walk
+    (csrc/group.cuh kernel_base_chunked_grouped over GroupWalk, XT
+    instantiation): group_k('chunked_gathered') lanes an entry, each cell's
+    bucket split across the group, the traversal counters the plain
+    version's. For an `--accel gathered` tracer of any table size;
+    base_kernel_chunked_gathered takes it for such a tracer."""
+    _require_grouped(tracer, "base_kernel_chunked_gathered_grouped",
+                     "gathered", any_size=True)
+    if not _on_cuda(tracer.tables.buf.device,
+                    "base_kernel_chunked_gathered_grouped"):
+        return base_kernel_chunked_plain(tracer, pose, seed, frame_number,
+                                         y0, h_out)
+    out = _launch_chunked(tracer, pose, seed, frame_number, y0, h_out,
+                          "gathered_grouped")
+    base_kernel_chunked_gathered_grouped.launches += 1
     return out
 
 
@@ -1232,14 +1264,16 @@ base_kernel_chunked_grid.launches = 0
 base_kernel_chunked_grid_grouped.launches = 0
 base_kernel_chunked_grid_grouped_spill.launches = 0
 base_kernel_chunked_gathered.launches = 0
+base_kernel_chunked_gathered_grouped.launches = 0
 
 # The grouped chunked kernel A of each instantiation that has one (each
-# passes a table over the budget on to its GroupSpill or GroupCulledSpill
-# form).
+# but the walk's, which stages no rows, passes a table over the budget on
+# to its GroupSpill or GroupCulledSpill form).
 GROUPED_CHUNKED = {"ref": base_kernel_chunked_grouped,
                    "xt": base_kernel_chunked_xt_grouped,
                    "ext": base_kernel_chunked_ext_grouped,
-                   "grid": base_kernel_chunked_grid_grouped}
+                   "grid": base_kernel_chunked_grid_grouped,
+                   "gathered": base_kernel_chunked_gathered_grouped}
 
 
 # ---------------------------------------------------------------------------

@@ -99,7 +99,12 @@ walk_forms, K (--ks; default WALK_KS for B, WALK_A_KS for A) by row source
 both schedules (static, refill), 128 lanes a block, a 227 KB cap, beside
 the thread per entry or pixel (traverse.cuh Walk), the walk counters
 against the plain version's and (B) the thread per entry's. Both print
-each form's ptxas registers and spills. `--only grid` sweeps the grid
+each form's ptxas registers and spills; `--a-only`: the chunked gathered
+kernel A alone at chunks of 2, K of --ks (default CHUNKED_WALK_KS) by row
+source beside the thread per entry, at stress1024, mesh1280, mesh5120
+and icosphere:5, twice in turns, bit for bit with the walk counters
+against the plain version's, with each form's summed time over the first
+three. `--only grid` sweeps the grid
 kernels A and B over tables above the 96 KB budget (csrc/group.cuh
 GroupCulledSpill: the group table, then the rows, staged as far as a
 227 KB cap holds them, the rest read through L1) at mesh5120 (icosphere:4)
@@ -713,6 +718,15 @@ EXT_STRESS = ("stress:256", "stress:64")
 WALK_KS = (2, 4, 8, 16, 32)
 WALK_A_KS = (8, 16, 32)
 WALK_SOURCES = ("L1", "rows staged", "CSR and rows staged")
+# --only walk --a-only: the grouped chunked gathered kernel A's widths (every
+# row source at each), and its scenes under gathered at chunks of 2
+# (label, scene, plain rows a call, summed): the three whose summed time
+# picks the shipped form, and icosphere:5 (960 KB of rows) as a line only.
+CHUNKED_WALK_KS = (4, 8, 16, 32)
+CHUNKED_WALK_SCENES = (("stress1024", "stress:1024", 0, True),
+                       ("mesh1280", "icosphere:3", 0, True),
+                       ("mesh5120", "icosphere:4", 0, True),
+                       ("icosphere5", "icosphere:5", PLAIN_ROWS, False))
 
 
 def walk_forms(ks=WALK_KS):
@@ -814,12 +828,126 @@ def sweep_ext_base(srcs, paths, reps) -> None:
                        reps)
 
 
+def _walk_table(label, tr) -> None:
+    """Print the grid and what GroupWalk stages for gathered tracer `tr`."""
+    h = kernels.accel_args(tr)
+    n_sph, n_pln, n_tri, _ = tr.tables.counts
+    csr = 4 * (h.dims[0] * h.dims[1] * h.dims[2] + 1 + h.n_groups)
+    beside = ("the CSR over the cap, not staged" if csr > GROUP_SMEM_MAX
+              else "beside the CSR "
+              f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX - csr)}")
+    print(f"[group_k] {label} gathered: dims {list(h.dims)}, CSR "
+          f"{csr} B, rows staged at 227 KB "
+          f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX)}, {beside}"
+          " (triangles, spheres, planes)", flush=True)
+
+
+def sweep_chunked_walk(reps, ks=CHUNKED_WALK_KS) -> None:
+    """--only walk --a-only: the chunked gathered kernel A at chunks of 2
+    over GroupWalk at each K of `ks` by row source (128 lanes a block, a
+    227 KB cap) beside the thread per entry (traverse.cuh Walk), at
+    CHUNKED_WALK_SCENES, twice, the second run in the reverse order: each
+    line bit for bit against the plain version (planes, end states, rays),
+    its lane-iterations the plain model's at K, its walk counters the plain
+    version's and its ptxas line; then each form's summed time over the
+    summed scenes in each run, the two best K through L1 with the staged
+    sources at those K, and the least sum of a form chosen by the scene
+    beside the least sum of one form."""
+    srcs = _walk_libs(ks, ())[0]
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    libs = {label: build.load_kernels((src,)) for label, src in srcs.items()}
+    marks = {label: _ptxas(paths[src].with_suffix(".log").read_text(),
+                           "kernel_base_chunked_groupedILb1ELb1EN3trt9"
+                           "GroupWalk") for label, src in srcs.items()}
+    marks["thread"] = _ptxas(
+        paths["kernel_accel.cu"].with_suffix(".log").read_text(),
+        "19kernel_base_chunkedILb1ELb1EN3trt4Walk")
+    pose = Camera().pose()
+    cases = []
+    for label, name, rows, summed in CHUNKED_WALK_SCENES:
+        tr = PathTracer(load_scene(name).with_overrides(
+            width=200, height=100, samples_per_pixel=8, max_depth=6), "cuda",
+            accel="gathered", chunk_base=2, chunk_extra=2)
+        _walk_table(label, tr)
+
+        def plain(fn, tr=tr, rows=rows):
+            return _in_rows(lambda r0, r1: fn(tr, pose, SEED, 0, r0,
+                                              r1 - r0), tr.height, rows,
+                            dim=1)
+
+        tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
+        p = plain(lambda *a_: kernels.base_kernel_chunked_plain(*a_)[:4])
+        stats = tr.prims.stats.long().cpu()
+        tr.prims.ops = None
+        print(f"[group_k] {label} gathered cb 2: {tr.n_base_chunks} chunks, "
+              f"walk counters (walks, tests, advances, capped): plain "
+              f"{stats.tolist()}", flush=True)
+        cases.append((label, tr, (*p[0], *p[1], p[3], p[2]), stats,
+                      plain(kernels.chunked_entry_iters), summed))
+    forms = ["thread", *libs]
+    sums = []
+    for run in (1, 2):
+        total = dict.fromkeys(forms, 0.0)
+        per_scene = {}
+        for label, tr, want, stats, it, summed in cases:
+            for form in forms:
+                lib = libs.get(form)
+                kind = "gathered" if lib is None else "gathered_grouped"
+
+                def launch(kind=kind, lib=lib, tr=tr):
+                    return kernels._launch_chunked(tr, pose, SEED, 0, 0, None,
+                                                   kind, lib)
+
+                out, got = _counted(tr, launch)
+                ms = _time(launch, reps)
+                width = 1 if lib is None else int(form.split()[0])
+                _line(f"{label} gathered cb 2 run {run} chunked A", form, ms,
+                      _equal((*out.csum, *out.csumsq, out.rays, out.state),
+                             want),
+                      float(out.iters) == float(kernels.warp_iters(it, width)),
+                      it, bool(torch.equal(got, stats)), marks[form])
+                if summed:
+                    total[form] += ms
+                    per_scene[label, form] = ms
+        sums.append((total, per_scene))
+        forms.reverse()
+    for form in sorted(sums[0][0], key=sums[0][0].get):
+        a, b = sums[0][0][form], sums[1][0][form]
+        print(f"[group_k] chunked gathered A summed over "
+              f"{', '.join(c[0] for c in cases if c[5])}: {form}: run 1 "
+              f"{a:.4f} ms, run 2 {b:.4f} ms", flush=True)
+    l1 = sorted((f for f in libs if f.endswith(WALK_SOURCES[0])),
+                key=lambda f: sums[0][0][f] + sums[1][0][f])[:2]
+    for f in l1:
+        staged = [f"{f.split()[0]} {WALK_SOURCES[src]}" for src in (1, 2)]
+        print(f"[group_k] chunked gathered A, one of the two best K through "
+              f"L1: {f} {sums[0][0][f]:.4f} / {sums[1][0][f]:.4f} ms; "
+              + "; ".join(f"{g} {sums[0][0][g]:.4f} / {sums[1][0][g]:.4f} ms"
+                          for g in staged), flush=True)
+    for run, (total, per_scene) in enumerate(sums, 1):
+        single = min(libs, key=total.get)
+        chosen = sum(min(per_scene[label, f] for f in libs)
+                     for label, *_ in (c for c in cases if c[5]))
+        print(f"[group_k] chunked gathered A run {run}: one form {single} "
+              f"{total[single]:.4f} ms, a form by scene {chosen:.4f} ms "
+              f"(x{total[single] / chosen:.3f}); thread per entry "
+              f"{total['thread']:.4f} ms", flush=True)
+
+
 def sweep_ext_walk(only, reps, ks=None, a_only=False) -> None:
     """--only ext, --only walk (the module docstring); `ks`: the walk's
-    group widths (default WALK_KS for kernel B, WALK_A_KS for kernel A;
-    --only ext ignores it); `a_only`: --only ext sweeps the EXT kernel A
-    alone."""
+    group widths (default WALK_KS for kernel B, WALK_A_KS for kernel A,
+    CHUNKED_WALK_KS for the chunked gathered kernel A; --only ext ignores
+    it); `a_only`: --only ext sweeps the EXT kernel A alone, --only walk
+    the chunked gathered kernel A alone (sweep_chunked_walk)."""
     base = {}
+    if only == "walk" and a_only:
+        sweep_chunked_walk(reps, ks or CHUNKED_WALK_KS)
+        return
     if only == "walk":
         walk, refill = _walk_libs(ks or WALK_KS, ks or WALK_A_KS)
         srcs = {**walk, **refill}
@@ -867,15 +995,7 @@ def sweep_ext_walk(only, reps, ks=None, a_only=False) -> None:
                             ("Cornell_Box", "Cornell_Box")):
             tr = PathTracer(scene(name, 200, 100, 8, 6), "cuda",
                             accel="gathered")
-            h = kernels.accel_args(tr)
-            n_sph, n_pln, n_tri, _ = tr.tables.counts
-            csr = 4 * (h.dims[0] * h.dims[1] * h.dims[2] + 1 + h.n_groups)
-            print(f"[group_k] {label} gathered: dims {list(h.dims)}, CSR "
-                  f"{csr} B, rows staged at 227 KB "
-                  f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX)}, "
-                  f"beside the CSR "
-                  f"{kernels.group_stage(n_sph, 0, n_tri, GROUP_SMEM_MAX - csr)}"
-                  " (triangles, spheres, planes)", flush=True)
+            _walk_table(label, tr)
             if label != "Cornell_Box":
                 _sweep_extra(f"{label} gathered", tr, pose, SEED, libs, reps,
                              ptxas=marks)
@@ -1132,7 +1252,8 @@ def main(argv=None):
                                        "walk", "grid"), default=None)
     ap.add_argument("--a-only", action="store_true",
                     help="--only ext: the EXT kernel A alone; --only grid: "
-                    "the chunked grid kernel A alone")
+                    "the chunked grid kernel A alone; --only walk: the "
+                    "chunked gathered kernel A alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)

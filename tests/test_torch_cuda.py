@@ -465,17 +465,14 @@ def test_accel_render_step_matches_plain_frame(cuda_device, accel):
 @pytest.mark.parametrize("accel", ["grid", "gathered"])
 def test_chunked_accel_kernels_match_plain_versions(cuda_device, accel):
     """The chunked kernel A over the grid and gathered traversals, through
-    the entry the dispatch takes (the grid's grouped entry, the walk's
-    thread per entry), against its plain version: every per-entry plane
-    equal, and the traversal counters equal to the plain version's
-    count."""
+    the entry the dispatch takes (the grouped entry of either), against its
+    plain version: every per-entry plane equal, and the traversal counters
+    equal to the plain version's count."""
     scene = load_scene("stress:96:3").with_overrides(
         width=64, height=16, samples_per_pixel=16, max_depth=6)
     tr = PathTracer(scene, cuda_device, accel=accel, chunk_base=2)
-    wrap = (kernels.GROUPED_CHUNKED[accel]
-            if kernels.takes_grouped(tr, "chunked")
-            else getattr(kernels, f"base_kernel_chunked_{accel}"))
-    assert kernels.takes_grouped(tr, "chunked") is (accel == "grid")
+    wrap = kernels.GROUPED_CHUNKED[accel]
+    assert kernels.takes_grouped(tr, "chunked")
     n0 = wrap.launches
     k, ks = _kernel_counts(
         tr, lambda: kernels.base_kernel_chunked(tr, POSE, SEED, 0))

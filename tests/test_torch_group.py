@@ -231,12 +231,13 @@ def _scene(name, **over):
     ("Cornell_Box", "auto", True, True), ("stress:1024", "auto", True, True),
     ("icosphere:3", "auto", True, True), ("icosphere:4", "auto", True, True),
     ("showcase", "auto", True, True), ("stress:96", "grid", True, True),
-    ("stress:96", "gathered", True, False)])
+    ("stress:96", "gathered", True, True)])
 def test_grouped_dispatch_by_the_table_size(name, accel, grouped, chunked):
     """The grouped entries serve the reference gates over the table sweep
     (kernel B also the XT and EXT gates, the culled sweep, whose group
     table is staged too, and the grid walk; the chunked kernel A also the
-    XT and EXT gates and the culled sweep): 1024 spheres take 20 KB of rows, 1280 triangles 60 KB,
+    XT and EXT gates, the culled sweep and the grid walk): 1024 spheres
+    take 20 KB of rows, 1280 triangles 60 KB,
     within the shared-memory budget; 5120 triangles take 240 KB, over it,
     where the grouped entries of kernel B and the chunked kernel A pass the
     tracer on to their GroupSpill forms (tests/test_torch_group_spill.py)."""

@@ -97,7 +97,8 @@ def test_chunked_ext_a_dispatch(name, spill):
 def test_gathered_a_dispatch(name, want):
     """Kernel A over the walk takes its grouped entry at every table size
     from GROUP_BASE_MIN_PRIMS primitives on; Cornell_Box's 11 keep the
-    thread per pixel."""
+    thread per pixel. The chunked kernel A over the walk is grouped at
+    every size and primitive count (tests/test_torch_group_walk_chunked.py)."""
     tr = PathTracer(_scene(name), "cpu", accel="gathered")
     assert tr.traversal == "gathered" and tr.chunk_base is None
     grouped = kernels.takes_grouped(tr, "base")
@@ -106,7 +107,7 @@ def test_gathered_a_dispatch(name, want):
     got = (kernels.GROUPED_BASE["gathered"].__name__ if grouped
            else "base_kernel_gathered")
     assert got == want
-    assert not kernels.takes_grouped(tr, "chunked")
+    assert kernels.takes_grouped(tr, "chunked")
 
 
 def test_new_wrappers_refuse_other_instantiations():

@@ -324,7 +324,7 @@ def test_kernel_b_dispatch(scene, accel_, want):
     its GroupCulledSpill form); EXT and gathered tracers take theirs at
     every size (tests/test_torch_group_walk.py); the chunked kernel A's
     grouped entry serves the reference, XT and EXT gates over the table
-    sweep and the culled sweep."""
+    sweep, the culled sweep and the grid walk."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     kind = kernels._kind(tr)
     table = tr.tables.acc.numel() if kind == "grid" else 0
@@ -336,7 +336,7 @@ def test_kernel_b_dispatch(scene, accel_, want):
         "extra_kernel" + ("" if kind == "ref" else f"_{kind}"))
     assert got == want
     assert kernels.takes_grouped(tr, "chunked") == (
-        kind in ("ref", "xt", "ext", "grid") and grouped)
+        kind in ("ref", "xt", "ext", "grid", "gathered") and grouped)
 
 
 def _stream(tr, budget=2.0):

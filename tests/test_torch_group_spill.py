@@ -138,14 +138,14 @@ def test_entry_points_take_the_pointers_the_loader_declares(src):
     ("icosphere:3", False, "auto", True, True),
     ("stress:64", True, "auto", True, True),
     ("icosphere:4", "checker", "auto", True, True),
-    ("icosphere:4", False, "gathered", True, False)])
+    ("icosphere:4", False, "gathered", True, True)])
 def test_grouped_entries_serve_tables_of_any_size(name, fog, accel_, extra,
                                                   chunked):
     """Kernel B and the chunked kernel A at the reference, XT and EXT gates
     (`fog` "checker": a checker floor, the EXT instantiation) take their
-    grouped entries whatever the table's size, and so do kernels B and A
-    over the grid walk and kernels B, A and the chunked A over the culled
-    sweep (over the budget the latter pass the tracer on to their
+    grouped entries whatever the table's size, and so do kernels B, A and
+    the chunked A over the grid walk (which stages no rows) and over the
+    culled sweep (over the budget the latter pass the tracer on to their
     GroupCulledSpill forms); kernel A at the reference and EXT gates above
     the budget takes the thread per pixel."""
     over = {"fog": Fog(density=0.15)} if fog is True else {}

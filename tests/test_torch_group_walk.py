@@ -331,14 +331,15 @@ def test_new_kernel_b_dispatch(scene, accel_, want, spill):
     """EXT tracers take the grouped EXT kernel B at every size (over the
     budget it passes them on to its GroupSpill form), gathered tracers the
     grouped walk at every size; the chunked kernel A is grouped at the EXT
-    gates (tests/test_torch_group_a2.py), not over the walk."""
+    gates (tests/test_torch_group_a2.py) and over the walk
+    (tests/test_torch_group_walk_chunked.py), at every size too."""
     tr = PathTracer(scene(), "cpu", accel=accel_)
     assert kernels.takes_grouped(tr)
     assert kernels.GROUPED_EXTRA[kernels._kind(tr)].__name__ == want
     assert (kernels._kind(tr) in kernels.SPILL_EXTRA
             and kernels._over_budget(tr)) is spill
     assert kernels.takes_grouped(tr, "chunked") is (kernels._kind(tr)
-                                                    == "ext")
+                                                    in ("ext", "gathered"))
 
 
 def _stream(tr, budget=2.0):
