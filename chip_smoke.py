@@ -188,6 +188,28 @@ Phases, each reported on lines starting with its tag:
             the image, kernels A and B launched once a frame), the filter
             on the card within max relative error 1e-5 of the same filter
             on a CPU copy of its inputs, timed
+  [offline] the display transforms, checkpoints and offline modes
+            (runtime/offline.py, runtime/engine.py, cli.py) at Cornell_Box
+            400x200, 16 spp, depth 32: cli.main --scan --frames 8 (aces,
+            exposure 0.5) against the render step driven once a frame, the
+            accumulation and the image bit for bit; each tonemap mode at
+            exposures -1, 0, +1.5 (and the variance heat map) on the card
+            against the same function on the CPU from that accumulation,
+            every u8 within one level; run_headless (19 frames, one image)
+            against the step with its image once a frame, bit for bit;
+            --until-noise with --scan
+            against the engine's explicit chunks of 8 at a threshold
+            between two chunk boundaries (equal frames done), and without
+            --scan; --turntable 3 --frames 4 with and without --scan;
+            --animate orbit --scan --frames 4 against an animated Engine,
+            bit for bit; a checkpoint after 4 frames, loaded, and 4 more
+            against 8 straight, and a 64x32 checkpoint of the card resumed
+            on the CPU (rays equal, radiance within 5e-3); --profile's
+            trace holding kernels A and B; kernels A and B launched once a
+            frame (the launch counters reset before); then the headless
+            ms/frame at stress1024 with the noise scalar read every frame
+            (--until-noise 0, chunk 1), every 8 frames (chunk 8) and never,
+            in turns, with the nvidia-smi line (information, no claim)
   [mesh]    the multi-GPU path (parallel/mesh.py) on one card: kernel A
             (through the entry the wrapper takes, thread per pixel at the
             north star) with each sample-split shard's runtime quota and
@@ -2888,6 +2910,301 @@ def phase_denoise():
     return got
 
 
+OFFLINE_SIZE = (400, 200, 16, 32)  # Cornell_Box at its full width
+OFFLINE_FRAMES = 8
+CHUNK_TIMING = (("stress1024", "stress:1024", 200, 100, 8, 6),)
+CHUNK_TIMING_FRAMES = 240
+# run_headless's noise reads: (label, keyword arguments); timed in the
+# order A B C C B A.
+CHUNK_TIMING_MODES = (("read every frame", dict(until_noise=0.0, chunk=1)),
+                      ("read every 8", dict(until_noise=0.0, chunk=8)),
+                      ("no read", {}))
+
+
+def _cli_quiet(argv):
+    """cli.main(argv) with its output kept: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from terminal_raytracer_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _offline_frames(seed, n, start=0):
+    """--scan's seeds of frames start .. start + n - 1."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 2**32, size=n, dtype=np.uint64)
+            + np.arange(start, start + n, dtype=np.uint64)).astype(np.uint32)
+
+
+def phase_offline():
+    """The display transforms, checkpoints and offline modes (runtime/
+    offline.py, runtime/engine.py, cli.py) on the card at Cornell_Box's full
+    width, each against per-frame driving of the same step, bit for bit;
+    then the headless ms/frame at stress1024 by how often the noise
+    scalar is read. Returns the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import tonemap as tm
+    from terminal_raytracer_tpu_torch.ops.vecmath import V3
+    from terminal_raytracer_tpu_torch.runtime import (init_state,
+                                                      make_render_step)
+    from terminal_raytracer_tpu_torch.runtime.engine import Engine
+    from terminal_raytracer_tpu_torch.utils import imageio
+    from terminal_raytracer_tpu_torch.utils.statefile import (load_state,
+                                                              save_state)
+
+    t_phase = time.perf_counter()
+    w, h, spp, depth = OFFLINE_SIZE
+    scene = _cornell(w, h, spp, depth)
+    pose = _pose()
+    base = ["--device", "cuda", "--scene", "Cornell_Box", "--width", str(w),
+            "--height", str(h), "--spp", str(spp), "--depth", str(depth),
+            "--full-color", "--deterministic", str(SEED)]
+    frames = 0  # Cornell_Box frames rendered on the card in this phase
+    _reset_launches()
+    d = tempfile.mkdtemp(prefix="offline-")
+
+    def same(a, b):
+        return bool(torch.equal(a, b))
+
+    # (a) cli --scan --frames 8 against the step driven once a frame.
+    n = OFFLINE_FRAMES
+    rc, _, err = _cli_quiet(base + ["--frames", str(n), "--scan",
+                                    "--tonemap", "aces", "--exposure", "0.5",
+                                    "--save-state", f"{d}/scan.npz",
+                                    "--dump-image", f"{d}/scan.ppm"])
+    frames += n
+    if rc:
+        fail(f"[offline] cli --scan exited {rc}: {err}")
+    step = make_render_step(scene, True, device="cuda", tonemap="aces",
+                            exposure=0.5)
+    state = init_state(scene, "cuda")
+    for i, seed in enumerate(_offline_frames(SEED, n)):
+        out = step(state, pose, int(seed), i)
+        state = out.state
+    frames += n
+    got, fc, _ = load_state(f"{d}/scan.npz", device="cuda")
+    img = torch.from_numpy(imageio.read_ppm(f"{d}/scan.ppm").copy()).cuda()
+    ok = {"acc": same(got.acc, state.acc), "image": same(img, out.rgb),
+          "frames": fc == n}
+    print(f"[offline] cli --scan --frames {n} --tonemap aces --exposure 0.5 "
+          f"against the step once a frame: equal {ok}", flush=True)
+    if not all(ok.values()):
+        fail("[offline] --scan differs from per-frame driving")
+
+    # (b) each tonemap mode on the card against the same function on the
+    # CPU, from that accumulation.
+    acc_d, acc_h = V3(*state.acc), V3(*state.acc.cpu())
+    worst = 0
+    for mode in ("reference", "aces", "gamma:2.2"):
+        for stops in (-1.0, 0.0, 1.5):
+            m, s = tm.parse_mode(mode), 2.0 ** stops
+            pairs = [(tm.tonemap_fullcolor(acc_d, m, s),
+                      tm.tonemap_fullcolor(acc_h, m, s))]
+            pairs += list(zip(tm.tonemap_ascii(acc_d, m, s),
+                              tm.tonemap_ascii(acc_h, m, s)))
+            diffs = [(a.cpu().int() - b.int()).abs() for a, b in pairs]
+            big = max(int(x.max()) for x in diffs)
+            off = sum(int((x > 0).sum()) for x in diffs)
+            worst = max(worst, big)
+            print(f"[offline] tonemap {mode} exposure {stops:+.1f}: "
+                  f"{off} of {sum(x.numel() for x in diffs)} u8 values "
+                  f"differ from the CPU's, at most by {big}", flush=True)
+    heat = (tm.variance_heatmap(state.variance).cpu().int()
+            - tm.variance_heatmap(state.variance.cpu()).int()).abs()
+    worst = max(worst, int(heat.max()))
+    if worst > 1:
+        fail("[offline] a tonemap on the card is more than one level off "
+             "the CPU's")
+
+    # (c) run_headless (one image, from the last frame) against the step
+    # with its image once a frame.
+    n_head = 2 * n + 3
+    ea, e1 = (Engine(scene, full_color=True, device="cuda",
+                     deterministic=SEED, tonemap="gamma:2.2", exposure=-1.0)
+              for _ in range(2))
+    fa = ea.run_headless(n_head)
+    for _ in range(n_head):
+        out = e1.render_one(e1.frame_count)
+    frames += 2 * n_head
+    ok = {"acc": same(ea.state.acc, e1.state.acc),
+          "rgb": bool(np.array_equal(fa[0], out.rgb.cpu().numpy())),
+          "rays": fa[2] == float(out.rays)}
+    print(f"[offline] run_headless({n_head}) against the step with its "
+          f"image once a frame: equal {ok}", flush=True)
+    if not all(ok.values()):
+        fail("[offline] the headless runner differs from per-frame driving")
+
+    # (d) --until-noise with and without --scan: the scan's chunks of 8
+    # against the engine's explicit chunks of 8, at a threshold between the
+    # estimates after 2 and 3 chunks, and the per-frame stop.
+    eng = Engine(scene, full_color=True, device="cuda", deterministic=SEED)
+    est = []
+    for _ in range(3):
+        eng.run_headless(n)
+        est.append(eng._noise_estimate(eng.state))
+    frames += 3 * n
+    thr = float(np.sqrt(est[1] * est[2]))
+    done = {}
+    for label, extra in (("--scan", ["--scan"]), ("per frame", [])):
+        rc, _, err = _cli_quiet(base + ["--frames", str(4 * n),
+                                        "--until-noise", repr(thr),
+                                        "--save-state", f"{d}/noise.npz"]
+                                + extra)
+        if rc:
+            fail(f"[offline] cli --until-noise {label} exited {rc}: {err}")
+        done[label] = load_state(f"{d}/noise.npz")[1]
+        frames += done[label]
+    eng = Engine(scene, full_color=True, device="cuda", deterministic=SEED)
+    eng.run_headless(4 * n, until_noise=thr, chunk=n)
+    done["engine, chunks of 8"] = eng.frame_count
+    frames += eng.frame_count
+    print(f"[offline] --until-noise {thr:.6g} (estimates {est[1]:.6g} after "
+          f"2 chunks, {est[2]:.6g} after 3; margin x"
+          f"{min(est[1] / thr, thr / est[2]):.3f}), --frames {4 * n}: frames "
+          f"done {done}", flush=True)
+    if not done["--scan"] == done["engine, chunks of 8"] == 3 * n:
+        fail("[offline] --until-noise --scan stopped elsewhere than the "
+             "chunked engine")
+    if not 0 < done["per frame"] <= 4 * n:
+        fail("[offline] --until-noise without --scan rendered no frame")
+
+    # (e) --turntable 3 --frames 4, with and without --scan.
+    for label, extra in (("", []), (" --scan", ["--scan"])):
+        rc, _, err = _cli_quiet(base + ["--frames", "4", "--turntable", "3",
+                                        "--dump-image", f"{d}/tt.png"]
+                                + extra)
+        frames += 3 * 4
+        imgs = [imageio.read_png(f"{d}/tt_{k:03d}.png") for k in range(3)]
+        # The orbit leaves the open side of the box: the poses behind its
+        # walls see (nearly) black, so only the first must be a picture.
+        distinct = not all(np.array_equal(i, imgs[0]) for i in imgs)
+        flat = imgs[0].max() == imgs[0].min()
+        print(f"[offline] --turntable 3 --frames 4{label}: exit {rc}, "
+              f"images {imgs[0].shape}, mean levels "
+              f"{[round(float(i.mean()), 2) for i in imgs]}, distinct "
+              f"{distinct}, first flat {flat}", flush=True)
+        if rc or not distinct or flat:
+            fail(f"[offline] --turntable{label}: {err}")
+
+    # (f) --animate orbit --scan --frames 4 against an animated Engine.
+    rc, _, err = _cli_quiet(base + ["--frames", "4", "--animate", "orbit",
+                                    "--scan", "--dump-image",
+                                    f"{d}/anim.ppm"])
+    eng = Engine(scene, full_color=True, device="cuda", deterministic=SEED,
+                 animate="orbit")
+    eq = []
+    for k in range(4):
+        out = eng.render_one(0)
+        img = imageio.read_ppm(f"{d}/anim_{k:03d}.ppm")
+        eq.append(bool(np.array_equal(img, out.rgb.cpu().numpy())))
+    frames += 8
+    print(f"[offline] --animate orbit --scan --frames 4: exit {rc}, frames "
+          f"equal to an animated Engine's {eq}", flush=True)
+    if rc or not all(eq):
+        fail(f"[offline] --animate --scan differs: {err}")
+
+    # (g) a checkpoint after 4 frames, loaded, 4 more: 8 straight.
+    eng = Engine(scene, full_color=True, device="cuda", deterministic=SEED)
+    eng.run_headless(4)
+    save_state(f"{d}/ck.npz", eng.state, eng.frame_count, eng.camera)
+    straight = eng.run_headless(4)
+    eng2 = Engine(scene, full_color=True, device="cuda", deterministic=SEED)
+    eng2.restore(*load_state(f"{d}/ck.npz", expect_shape=(h, w)))
+    for _ in range(eng2.frame_count):
+        eng2._rng.randint(0, 2**32, dtype=np.uint64)
+    resumed = eng2.run_headless(4)
+    frames += 12 + 3  # and the 64x32 checkpoint's frames below
+    ok = {"acc": same(eng.state.acc, eng2.state.acc),
+          "rgb": bool((straight[0] == resumed[0]).all()),
+          "frame_count": eng2.frame_count == 8}
+    # A checkpoint written on the card resumes on the CPU (a small one:
+    # the CPU renders the plain versions).
+    small = _cornell(64, 32, 8, 3)
+    ec = Engine(small, full_color=True, device="cuda", deterministic=SEED)
+    ec.run_headless(2)
+    save_state(f"{d}/small.npz", ec.state, ec.frame_count, ec.camera)
+    cpu = Engine(small, full_color=True, device="cpu", deterministic=SEED)
+    cpu.restore(*load_state(f"{d}/small.npz", expect_shape=(32, 64)))
+    seeds = [cpu._seed() for _ in range(3)][2:]  # the card's third draw
+    ec_out = ec.render_one(ec.frame_count)
+    cpu_out = cpu.step(cpu.state, cpu.camera.pose(), seeds[0], 2)
+    rel = maxrel(ec_out.state.acc.cpu(), cpu_out.state.acc)
+    ok["resumes on the CPU"] = (float(ec_out.rays) == float(cpu_out.rays)
+                                and rel < TOL)
+    print(f"[offline] 4 frames, a checkpoint, 4 more against 8 straight; "
+          f"a 64x32 checkpoint of the card resumed on the CPU (maxrel "
+          f"{rel:.3e} to the card's third frame): equal {ok}", flush=True)
+    if not all(ok.values()):
+        fail("[offline] a resumed checkpoint differs")
+
+    # (h) --profile DIR: a torch.profiler trace with the kernels in it.
+    rc, _, err = _cli_quiet(base + ["--frames", "2", "--profile",
+                                    f"{d}/prof"])
+    frames += 2
+    with open(f"{d}/prof/trace_rank0.json") as f:
+        events = json.load(f).get("traceEvents", [])
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    kernels_seen = (any("kernel_base" in k for k in names)
+                    and any("kernel_extra" in k for k in names))
+    print(f"[offline] --profile: exit {rc}, {len(events)} trace events, "
+          f"{len(names)} kernel names, kernels A and B among them "
+          f"{kernels_seen}", flush=True)
+    if rc or not kernels_seen:
+        fail(f"[offline] --profile wrote no trace of the kernels: {err}")
+
+    got = _launches()
+    want = dict(dict.fromkeys(LAUNCH_NAMES, 0), base_kernel=frames,
+                extra_kernel_grouped=frames)
+    print(f"[offline] {frames} Cornell_Box {w}x{h} frames on the card, "
+          f"launches {_nonzero(got)}", flush=True)
+    if got != want:
+        fail(f"[offline] launch counts {got}, expected {want}")
+
+    # (i) the headless ms/frame by how often the noise scalar is read
+    # (information).
+    for label, name, cw, ch, cspp, cdepth in CHUNK_TIMING:
+        cs = _scene(name, cw, ch, cspp, cdepth)
+        engs = {mode: Engine(cs, full_color=True, device="cuda",
+                             deterministic=SEED)
+                for mode, _ in CHUNK_TIMING_MODES}
+        for mode, kw in CHUNK_TIMING_MODES:
+            engs[mode].run_headless(8, **kw)  # warm-up
+        order = CHUNK_TIMING_MODES + CHUNK_TIMING_MODES[::-1]
+        ms = []
+        for mode, kw in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engs[mode].run_headless(CHUNK_TIMING_FRAMES, **kw)
+            torch.cuda.synchronize()
+            ms.append((mode, 1e3 * (time.perf_counter() - t0)
+                       / CHUNK_TIMING_FRAMES))
+        runs = ", ".join(f"{mode} {t:.3f}" for mode, t in ms)
+        means = ", ".join(
+            f"{mode} {np.mean([t for k, t in ms if k == mode]):.3f}"
+            for mode, _ in CHUNK_TIMING_MODES)
+        print(f"[offline] {label} {cw}x{ch} {cspp} spp depth {cdepth}: "
+              f"run_headless({CHUNK_TIMING_FRAMES}) ms/frame, the noise "
+              f"scalar (--until-noise 0) read every frame / every 8 frames "
+              f"/ no read, in turns: {runs}; means {means} | "
+              f"{_smi('name,power.limit')}", flush=True)
+    got = _launches()
+    print(f"[offline] done in {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {_nonzero(got)}", flush=True)
+    return got
+
+
 PROBE_REPS = 3
 # The probes' rows: (name, module, the TPU kernel it replaces, the form
 # and config its `ms` is taken at).
@@ -3044,6 +3361,7 @@ def main() -> int:
     sched_launches, sch = phase_sched(peak)
     _add(launches, sched_launches)
     _add(launches, phase_denoise())
+    _add(launches, phase_offline())
     mesh_launches, quota_row = phase_mesh(peak)
     _add(launches, mesh_launches)
     launches["base_kernel_quota"] = quota_row[-1]

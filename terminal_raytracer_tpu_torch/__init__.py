@@ -11,9 +11,9 @@ reference it is tested against. Layout follows the JAX package:
              (the reference transport in plain PyTorch), kernels (the
              sorted two-kernel pipeline and its CUDA wrappers), build
              (nvcc + ctypes), tonemap
-  runtime/   render step + frame state, engine, ANSI blitter, terminal,
-             timers
-  utils/     image IO
+  runtime/   render step + frame state, offline renderers (scan, chunk,
+             orbit, animation), engine, ANSI blitter, terminal, timers
+  utils/     image IO, checkpoints (statefile)
   csrc/      the CUDA kernels (kernel_base.cu, kernel_extra.cu, trace.cuh)
              and the ANSI blitter (blit.cpp)
 

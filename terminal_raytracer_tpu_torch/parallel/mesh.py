@@ -54,6 +54,7 @@ import torch
 from ..models import scene as scene_mod
 from ..ops import denoise as dn
 from ..ops import kernels
+from ..ops import tonemap as tm
 from ..ops.tracer import PathTracer, base_sample_count
 from ..ops.vecmath import V3
 from ..runtime.state import FrameOutput, FrameState, accumulate, display
@@ -252,7 +253,8 @@ def make_sharded_render_step(scene: scene_mod.Scene, mesh: Mesh,
                              full_color: bool = True,
                              transport: str = "reference",
                              dynamic: bool = False, denoise: float = 0.0,
-                             denoise_passes: int = 3):
+                             denoise_passes: int = 3, tonemap="reference",
+                             exposure: float = 0.0):
     """The multi-GPU render step, with the call shape of
     runtime/state.make_render_step: returns ``(step, init_state)``, where
     ``step(state, pose, seed, frame_number[, arrays]) -> FrameOutput`` on
@@ -261,8 +263,13 @@ def make_sharded_render_step(scene: scene_mod.Scene, mesh: Mesh,
     gives the block's zero FrameState. Every rank calls the step with the
     same arguments (runtime/engine.py broadcasts them from rank 0).
     `denoise` > 0 filters the accumulation before tonemapping, exchanging
-    halo rows with the neighbouring row blocks (denoise_sharded)."""
+    halo rows with the neighbouring row blocks (denoise_sharded);
+    `tonemap` and `exposure` are the display transform, as in
+    make_render_step."""
     import torch.distributed as dist
+
+    mode = tm.parse_mode(tonemap)
+    scale = 2.0 ** float(exposure)
 
     h, w = scene.height, scene.width
     if h % mesh.n_px:
@@ -296,7 +303,7 @@ def make_sharded_render_step(scene: scene_mod.Scene, mesh: Mesh,
         acc_v = denoise_acc_sharded(acc_v, variance, samples,
                                     int(frame_number), denoise,
                                     denoise_passes, mesh)
-        rgb, glyphs = display(acc_v, full_color)
+        rgb, glyphs = display(acc_v, full_color, mode, scale)
         totals = torch.stack([rays, sweeps])
         dist.all_reduce(totals, group=mesh.px_group)
         occ = totals[0] / torch.clamp(totals[1], min=1.0)
@@ -328,6 +335,31 @@ def gather_frame(mesh: Mesh, out: FrameOutput):
     if block is None:
         return None
     return block[..., :3], block[..., 3], samples.mean()
+
+
+def gather_state(mesh: Mesh, state: FrameState):
+    """Rank 0 gathers the row blocks of sample share 0's state (a
+    checkpoint of the whole image): the FrameState on rank 0, None on
+    every other rank. A collective of the ranks with sp_i == 0."""
+    if mesh.sp_i != 0:
+        return None
+    if mesh.n_px == 1:
+        return state
+    acc = _gather_rows(mesh, state.acc.permute(1, 0, 2).contiguous())
+    planes = _gather_rows(mesh, torch.stack([state.variance,
+                                             state.samples], 1))
+    if acc is None:
+        return None
+    return FrameState(acc.permute(1, 0, 2).contiguous(), planes[:, 0],
+                      planes[:, 1])
+
+
+def state_rows(mesh: Mesh, state: FrameState) -> FrameState:
+    """This rank's row block of a whole-image FrameState, on its device."""
+    rows = state.variance.shape[0] // mesh.n_px
+    r = slice(mesh.px_i * rows, (mesh.px_i + 1) * rows)
+    return FrameState(*(t[..., r, :].to(mesh.device).contiguous()
+                        for t in state))
 
 
 def _gather_rows(mesh: Mesh, t: torch.Tensor):

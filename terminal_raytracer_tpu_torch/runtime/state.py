@@ -72,19 +72,35 @@ def accumulate(acc: torch.Tensor, current: V3, frame_number: int) -> V3:
     return V3(acc[0], acc[1], acc[2])
 
 
-def display(acc_v: V3, full_color: bool):
-    """(rgb u8 [H, W, 3], glyphs u8 [H, W]; zeros in full colour)."""
+def display(acc_v: V3, full_color: bool, mode="reference",
+            scale: float = 1.0):
+    """(rgb u8 [H, W, 3], glyphs u8 [H, W]; zeros in full colour) through
+    the display transform `mode` at exposure `scale` (ops/tonemap.py)."""
     if full_color:
-        rgb = tm.tonemap_fullcolor(acc_v)
+        rgb = tm.tonemap_fullcolor(acc_v, mode, scale)
         return rgb, torch.zeros(rgb.shape[:2], dtype=torch.uint8,
                                 device=rgb.device)
-    return tm.tonemap_ascii(acc_v)
+    return tm.tonemap_ascii(acc_v, mode, scale)
+
+
+def finalize(state: FrameState, frame_number: int, full_color: bool,
+             denoise: float = 0.0, denoise_passes: int = 3,
+             mode="reference", scale: float = 1.0):
+    """The image of an accumulation as the render step shows it on frame
+    `frame_number` (the last frame folded into `state`): the optional
+    denoiser over it, guided by the state's variance and samples planes,
+    then the display transform (`mode` as ops/tonemap.parse_mode returns
+    it, `scale` the exposure's 2**stops). Returns (rgb, glyphs)."""
+    acc_v = dn.denoise_acc(V3(*state.acc), state.variance, state.samples,
+                           int(frame_number), denoise, denoise_passes)
+    return display(acc_v, full_color, mode, scale)
 
 
 def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
                      device="cuda", accel: str = "auto",
                      dynamic: bool = False, transport: str = "reference",
-                     denoise: float = 0.0, denoise_passes: int = 3):
+                     denoise: float = 0.0, denoise_passes: int = 3,
+                     tonemap="reference", exposure: float = 0.0):
     """Build ``step(state, pose16, seed, frame_number[, arrays]) ->
     FrameOutput``.
 
@@ -96,24 +112,44 @@ def make_render_step(scene: scene_mod.Scene, full_color: bool = True,
     frame's scene values as a trailing ops/dynamic.pack_scene `arrays` (the
     --animate mode). `denoise` > 0 runs the à-trous filter of
     ops/denoise.py (`denoise_passes` rounds) over the accumulation before
-    tonemapping, for display only. It updates ``state.acc`` IN PLACE and
-    returns that same tensor in the new state; pass the previous output's
-    state back in. The step carries its tracer as ``step.tracer`` (its
-    gates, kernels and counts)."""
+    tonemapping, for display only. `tonemap` (an ops/tonemap.parse_mode
+    spec) and `exposure` (stops: the radiance is scaled by 2**exposure) are
+    the display transform; the defaults are the reference tonemap. It
+    updates ``state.acc`` IN PLACE and returns that same tensor in the new
+    state; pass the previous output's state back in.
+
+    The step carries its tracer as ``step.tracer`` (its gates, kernels and
+    counts), and its two halves: ``step.accumulate(state, pose, seed,
+    frame_number[, arrays]) -> (state, rays, occupancy)`` renders a frame
+    into the accumulation without an image, and ``step.finalize(state,
+    frame_number) -> (rgb, glyphs)`` makes the image (the headless runner
+    and runtime/offline.py fold frames with the first and show the last
+    with the second)."""
     tracer = PathTracer(scene, device, accel=accel, dynamic=dynamic,
                         transport=transport)
     render_frame = kernels.make_sorted_render_frame(tracer)
+    # Parsed once: a bad spec fails here, not at the first frame.
+    mode, scale = tm.parse_mode(tonemap), 2.0 ** float(exposure)
+
+    def accumulate_frame(state: FrameState, pose, seed, frame_number,
+                         arrays=None):
+        current, variance, samples, rays, occ = render_frame(
+            pose, int(seed), int(frame_number), arrays)
+        accumulate(state.acc, current, int(frame_number))
+        return FrameState(state.acc, variance, samples), rays, occ
+
+    def finalize_frame(state: FrameState, frame_number):
+        return finalize(state, frame_number, full_color, denoise,
+                        denoise_passes, mode, scale)
 
     def step(state: FrameState, pose, seed, frame_number,
              arrays=None) -> FrameOutput:
-        current, variance, samples, rays, occ = render_frame(
-            pose, int(seed), int(frame_number), arrays)
-        acc_v = accumulate(state.acc, current, int(frame_number))
-        acc_v = dn.denoise_acc(acc_v, variance, samples, int(frame_number),
-                               denoise, denoise_passes)
-        rgb, glyphs = display(acc_v, full_color)
-        return FrameOutput(FrameState(state.acc, variance, samples), rgb,
-                           glyphs, rays, occ)
+        state, rays, occ = accumulate_frame(state, pose, seed, frame_number,
+                                            arrays)
+        rgb, glyphs = finalize_frame(state, frame_number)
+        return FrameOutput(state, rgb, glyphs, rays, occ)
 
     step.tracer = tracer
+    step.accumulate = accumulate_frame
+    step.finalize = finalize_frame
     return step

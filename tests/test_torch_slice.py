@@ -190,9 +190,11 @@ def test_headless_cli_runs_on_cpu():
 
 def test_port_never_imports_jax():
     """In a fresh interpreter (this test process has jax loaded already):
-    import every port module and render frames through the CLI, static and
-    animated, and under --accel grid and gathered. No jax module, and no
-    module of the JAX package, may load."""
+    import every port module (runtime/offline.py and utils/statefile.py
+    among them) and render frames through the CLI, static and animated,
+    under --accel grid and gathered, and in the offline modes with the
+    display transforms and a checkpoint. No jax module, and no module of
+    the JAX package, may load."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import terminal_raytracer_tpu_torch as port\n"
@@ -208,6 +210,15 @@ def test_port_never_imports_jax():
         "assert cli.main(['--device', 'cpu', '--scene', 'bumpy', '--width',"
         " '16', '--height', '4', '--spp', '4', '--depth', '2', '--frames',"
         " '1', '--filter', 'bilinear']) == 0\n"
+        "import tempfile, os\n"
+        "d = tempfile.mkdtemp()\n"
+        "assert cli.main(['--device', 'cpu', '--width', '16', '--height',"
+        " '4', '--spp', '4', '--depth', '2', '--frames', '2', '--scan',"
+        " '--tonemap', 'aces', '--exposure', '1', '--save-state',"
+        " os.path.join(d, 's.npz')]) == 0\n"
+        "assert cli.main(['--device', 'cpu', '--width', '16', '--height',"
+        " '4', '--spp', '4', '--depth', '2', '--frames', '1', '--turntable',"
+        " '2', '--dump-image', os.path.join(d, 't.png')]) == 0\n"
         "for accel in ('grid', 'gathered'):\n"
         "    assert cli.main(['--device', 'cpu', '--scene', 'stress:48:3',"
         " '--accel', accel, '--width', '16', '--height', '4', '--spp', '4',"
