@@ -210,6 +210,26 @@ Phases, each reported on lines starting with its tag:
             ms/frame at stress1024 with the noise scalar read every frame
             (--until-noise 0, chunk 1), every 8 frames (chunk 8) and never,
             in turns, with the nvidia-smi line (information, no claim)
+  [examples] the five examples of examples_torch/: each main() on the
+            card at its scene's own size (render_png 16 frames of scene2,
+            custom_scene 8 of its 23-primitive stage, animate 8 of demo's
+            orbit, glass 32, multichip 8 of scene2 in a process group of
+            one rank over NCCL), the launch counters reset just before and
+            read just after (every kernel of its path launched once a
+            frame, nothing else); the PNGs of the scene's shape and not
+            flat, animate's frames pairwise distinct, custom_scene's 30
+            rows of 80 glyphs; each scene at its own size (multichip's
+            scene2 is render_png's): the kernel pipeline against the plain
+            pipeline on the card (rays, samples, variance equal, radiance
+            maxrel < 5e-3); each scene cut to 64x32 at depth 4: the
+            example's frame loop on the card against the CPU (rays and
+            per-pixel samples equal; the knife-edge pixels, where an ulp
+            of sin/cos between torch's CUDA and CPU flips a NEE sample,
+            at most 2 a scene, their summed error at most 0.75);
+            multichip.py as a process under torchrun --nproc-per-node 1
+            and alone, its image digest that of the one-device step; each
+            main()'s wall time a frame with the nvidia-smi line
+            (information, no claim)
   [mesh]    the multi-GPU path (parallel/mesh.py) on one card: kernel A
             (through the entry the wrapper takes, thread per pixel at the
             north star) with each sample-split shard's runtime quota and
@@ -3205,6 +3225,200 @@ def phase_offline():
     return got
 
 
+EXAMPLES = ("render_png", "custom_scene", "animate", "glass", "multichip")
+# The frames of the card against the CPU, each scene cut to
+# tools/card_vs_cpu.CUT (multichip's scene2 is render_png's). The kernel
+# pipeline is held against the plain pipeline on the card uncut.
+EXAMPLE_CUT_FRAMES = 2
+# The card against the CPU: both render the same plain arithmetic, but
+# torch's CUDA and CPU sin/cos/rsqrt differ by an ulp, which on a
+# sphere-lit scene flips a NEE light sample at a knife-edge pixel (the
+# self-shadow edge of tests/test_torch_slice.py). Rays and per-pixel
+# samples must be equal; the pixels with a channel over TOL are bounded by
+# count and by their summed absolute error over the cut's frames: twice
+# the most that tools/card_vs_cpu.py shows at the cut in any two frames
+# of any of the four scenes, rounded up (PERF.md §6, the examples).
+KNIFE_CARD_CPU = (2, 0.75)
+
+
+def _run_proc(cmd, timeout=300):
+    """(exit code, stdout, stderr) of `cmd` in a session of its own, every
+    process of which is killed if it outlives `timeout` seconds."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err
+    return proc.returncode, out, err
+
+
+def phase_examples():
+    """The five examples of examples_torch/ on the card: each main() at its
+    scene's own size with the launch counters reset just before and read
+    just after (every kernel of its path launched once a frame, nothing
+    else; multichip in a process group of one rank over NCCL made here,
+    which its main keeps), its outputs checked (PNGs of the scene's shape,
+    not flat; animate's frames pairwise distinct; custom_scene's 30 rows
+    of 80 glyphs; multichip's image digest that of the one-device step);
+    each scene at its own size, the shapes main() gives the kernels: the
+    kernel pipeline against the plain pipeline on the card (rays, samples,
+    variance equal, radiance maxrel < TOL); each scene cut (card_vs_cpu):
+    the example's frame loop on the card against the CPU (rays and
+    per-pixel samples equal, the knife-edge pixels over TOL bounded by
+    KNIFE_CARD_CPU); multichip.py as a process under torchrun
+    --nproc-per-node 1 and alone, each exit 0 with the one-device step's
+    digest; each main()'s wall time a frame, its set-up and PNGs included
+    (information). Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.dynamic import pack_scene
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+    from terminal_raytracer_tpu_torch.runtime import (init_state,
+                                                      make_render_step)
+    from terminal_raytracer_tpu_torch.tools import card_vs_cpu
+    from terminal_raytracer_tpu_torch.utils import imageio
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="examples-")
+    mods = {name: card_vs_cpu.example(name) for name in EXAMPLES}
+    argv = {"render_png": [f"{d}/render.png"], "custom_scene": [],
+            "animate": [f"{d}/anim"], "glass": [f"{d}/glass.png"],
+            "multichip": []}
+    n_frames = {"render_png": 16, "custom_scene": 8, "animate": 8,
+                "glass": 32, "multichip": 8}
+    total, ms, stdout = {}, {}, {}
+    scenes = {name: mod.build_scene("cuda") for name, mod in mods.items()}
+    mc = mods["multichip"]
+    _, own = mc.join_group("cuda")
+    try:
+        for name, mod in mods.items():
+            scene = scenes[name]
+            tr = PathTracer(scene, "cuda", dynamic=name == "animate")
+            n = n_frames[name]
+            want = dict.fromkeys(LAUNCH_NAMES, 0)
+            want[_a_name(tr)] = n
+            if tr.base_samples < tr.spp:
+                want[_b_name(tr)] = n
+            out = io.StringIO()
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = mod.main(argv[name] + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0) / n
+            got = _launches()
+            _add(total, got)
+            stdout[name] = out.getvalue()
+            print(f"[examples] {name}: main() exit {rc}, {scene.width}x"
+                  f"{scene.height} spp {scene.samples_per_pixel} depth "
+                  f"{scene.max_depth}, {scene.primitive_count} primitives, "
+                  f"{n} frames; launches {_nonzero(got)}; "
+                  f"{ms[name]:.3f} ms/frame", flush=True)
+            if rc or got != want:
+                fail(f"[examples] {name}: exit {rc}, launch counts {got}, "
+                     f"expected {want}")
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+    # The outputs.
+    def picture(path, scene):
+        img = imageio.read_png(path)
+        if img.shape != (scene.height, scene.width, 3) or img.max() == img.min():
+            fail(f"[examples] {path}: shape {img.shape}, range "
+                 f"[{img.min()}, {img.max()}]")
+        return img
+
+    shapes = {}
+    for name, path in (("render_png", "render.png"), ("glass", "glass.png")):
+        shapes[name] = picture(f"{d}/{path}", scenes[name]).shape
+    imgs = [picture(f"{d}/anim/frame_{t:03d}.png", scenes["animate"])
+            for t in range(n_frames["animate"])]
+    distinct = all(not np.array_equal(imgs[i], imgs[j])
+                   for i in range(len(imgs)) for j in range(i))
+    rows = stdout["custom_scene"].splitlines()
+    scene2 = scenes["multichip"]
+    step = make_render_step(scene2, full_color=True, device="cuda")
+    state = init_state(scene2, "cuda")
+    for f in range(n_frames["multichip"]):
+        o = step(state, _pose(), 1 + f, f)
+        state = o.state
+    want_digest = mc.digest(o.rgb)
+    ok = {"animate frames pairwise distinct": distinct,
+          "custom_scene 30 rows of 80": (len(rows) == 30 and all(
+              len(r) == 80 for r in rows)),
+          "multichip digest": f"sha256 {want_digest}" in stdout["multichip"]}
+    print(f"[examples] outputs: PNGs {shapes}, animate "
+          f"{len(imgs)} x {imgs[0].shape}; one-device digest {want_digest}; "
+          f"{ok}", flush=True)
+    if not all(ok.values()):
+        fail(f"[examples] outputs: {ok}")
+
+    # Each scene at its own size: the kernel pipeline against the plain
+    # pipeline on the card (the gate); then, cut, the example's frame loop
+    # on the card against the CPU.
+    def label(s):
+        return (f"{s.width}x{s.height} spp {s.samples_per_pixel} depth "
+                f"{s.max_depth}")
+
+    for name in ("render_png", "custom_scene", "animate", "glass"):
+        mod, scene = mods[name], scenes[name]
+        dynamic = name == "animate"
+        tr = PathTracer(scene, "cuda", dynamic=dynamic)
+        _against_plain("examples", f"{name} {label(scene)}", tr,
+                       kernels.make_sorted_render_frame(tr), _pose(),
+                       card_vs_cpu.SEED0[name],
+                       pack_scene(scene) if dynamic else None)
+        cut = scene.with_overrides(**card_vs_cpu.CUT)
+        runs = [card_vs_cpu.loop_frames(mod, cut, EXAMPLE_CUT_FRAMES, dev)
+                for dev in ("cuda", "cpu")]
+        same, _, (off, err) = card_vs_cpu.compare(*runs)
+        rel = max(maxrel(a[2], b[2]) for a, b in zip(*runs))
+        print(f"[examples] {name} {label(cut)}, {EXAMPLE_CUT_FRAMES} frames, "
+              f"card against CPU: rays and samples equal {same}, radiance "
+              f"maxrel {rel:.3e}, {off} pixels over {TOL} (summed error "
+              f"{err:.4g}; at most {KNIFE_CARD_CPU})", flush=True)
+        if not same or off > KNIFE_CARD_CPU[0] or err > KNIFE_CARD_CPU[1]:
+            fail(f"[examples] {name}: the card disagrees with the CPU")
+
+    # multichip.py as a process, under torchrun and alone.
+    script = "examples_torch/multichip.py"
+    for label, cmd in (
+            ("torchrun --nproc-per-node 1",
+             [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", "1", script]),
+            ("alone", [sys.executable, script])):
+        t0 = time.perf_counter()
+        rc, out, err = _run_proc(cmd)
+        dt = time.perf_counter() - t0
+        line = next((ln for ln in out.splitlines() if "sha256" in ln), "")
+        print(f"[examples] multichip.py {label}: exit {rc} in {dt:.1f} s: "
+              f"{line}", flush=True)
+        if rc or f"sha256 {want_digest}" not in line:
+            fail(f"[examples] multichip.py {label}: {err[-2000:]}")
+    print("[examples] main() ms/frame: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" | {_smi('name,power.limit')}", flush=True)
+    print(f"[examples] done in {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {_nonzero(total)}", flush=True)
+    return total
+
+
 PROBE_REPS = 3
 # The probes' rows: (name, module, the TPU kernel it replaces, the form
 # and config its `ms` is taken at).
@@ -3362,6 +3576,7 @@ def main() -> int:
     _add(launches, sched_launches)
     _add(launches, phase_denoise())
     _add(launches, phase_offline())
+    _add(launches, phase_examples())
     mesh_launches, quota_row = phase_mesh(peak)
     _add(launches, mesh_launches)
     launches["base_kernel_quota"] = quota_row[-1]

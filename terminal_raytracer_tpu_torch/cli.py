@@ -200,53 +200,32 @@ def parse_fog(spec: str):
     return Fog(density=density, albedo=albedo, g=g)
 
 
-def _process_group(device: str):
-    """The process group for --shard: the caller's, or one initialised
-    from torchrun's RANK / WORLD_SIZE / LOCAL_RANK (nccl on cuda:LOCAL_RANK,
-    gloo on the CPU). Returns (device, whether this call initialised it);
-    raises ValueError where there is none to be had."""
+def no_gpu(device: str) -> bool:
+    """Whether `device` is cuda and torch sees no GPU, after printing the
+    error that the CLI and the examples exit with then: nothing falls
+    back to the CPU unasked."""
     import torch
-    import torch.distributed as dist
 
-    local = int(os.environ.get("LOCAL_RANK", "0"))
-    if device == "cuda":
-        if local >= torch.cuda.device_count():
-            raise ValueError(
-                f"rank with LOCAL_RANK {local} and "
-                f"{torch.cuda.device_count()} CUDA devices: NCCL needs a "
-                "device of its own for each rank")
-        device = f"cuda:{local}"
-    if dist.is_initialized():
-        return device, False
-    if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
-        raise ValueError("--shard needs a process group of px * sp ranks: "
-                         "run under torchrun --nproc-per-node N")
-    if device != "cpu":
-        torch.cuda.set_device(torch.device(device))
-    dist.init_process_group("gloo" if device == "cpu" else "nccl",
-                            init_method="env://",
-                            rank=int(os.environ["RANK"]),
-                            world_size=int(os.environ["WORLD_SIZE"]))
-    return device, True
+    if device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda needs a CUDA GPU, and torch sees none "
+              "(use --device cpu for the plain PyTorch versions)",
+              file=sys.stderr)
+        return True
+    return False
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("error: --device cuda needs a CUDA GPU, and torch sees none "
-              "(use --device cpu for the plain PyTorch versions)",
-              file=sys.stderr)
+    if no_gpu(args.device):
         return 2
     if not args.shard:
         return _run(args, args.device)
+    from .parallel.mesh import join_process_group
     from .runtime.engine import _parse_shard
 
     try:
         _parse_shard(args.shard)
-        device, own = _process_group(args.device)
+        device, own = join_process_group(args.device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -118,6 +118,35 @@ def make_mesh(n_px: int, n_sp: int = 1, device="cuda") -> Mesh:
     return Mesh(n_px, n_sp, px_i, sp_i, device, rows[px_i], cols[sp_i])
 
 
+def join_process_group(device: str):
+    """This rank's process group: the caller's, or one initialised from
+    torchrun's RANK / WORLD_SIZE / LOCAL_RANK (nccl on cuda:LOCAL_RANK,
+    which becomes the current device; gloo on the CPU). Returns (this
+    rank's device, whether this call initialised the group); raises
+    ValueError where there is none to be had."""
+    import torch.distributed as dist
+
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if device == "cuda":
+        if local >= torch.cuda.device_count():
+            raise ValueError(
+                f"rank with LOCAL_RANK {local} and "
+                f"{torch.cuda.device_count()} CUDA devices: NCCL needs a "
+                "device of its own for each rank")
+        device = f"cuda:{local}"
+        torch.cuda.set_device(torch.device(device))
+    if dist.is_initialized():
+        return device, False
+    if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+        raise ValueError("a mesh needs a process group of px * sp ranks: "
+                         "run under torchrun --nproc-per-node N")
+    dist.init_process_group("gloo" if device == "cpu" else "nccl",
+                            init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return device, True
+
+
 # ---------------------------------------------------------------------------
 # The sample split as phases
 # ---------------------------------------------------------------------------

@@ -14,13 +14,16 @@ micro-benchmarks in the repository's ``tools/``, under the same names.
                  per-lane divergent predicates (tools/probe_when.py)
   probe_cond     the same for a carried value (tools/probe_cond.py)
 
-and two tools of the port's own:
+and three tools of the port's own:
 
   group_k        the sweep over the group width K of the grouped kernel B
                  and chunked kernel A (csrc/group.cuh), each K beside the
                  thread-per-entry kernels on the same inputs (card only)
   ptxas_lines    every render kernel's ptxas registers, stack and spills,
                  beside another checkout's with --against (nvcc only)
+  card_vs_cpu    the examples' scenes on the card against the CPU, frame
+                 by frame: the knife-edge pixels that chip_smoke.py
+                 bounds (card only)
 
 Each runs its kernels (csrc/probes.cu) on the card and prints the JAX
 script's table:  python -m terminal_raytracer_tpu_torch.tools.perf_probe21

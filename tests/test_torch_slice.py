@@ -193,8 +193,10 @@ def test_port_never_imports_jax():
     import every port module (runtime/offline.py and utils/statefile.py
     among them) and render frames through the CLI, static and animated,
     under --accel grid and gathered, and in the offline modes with the
-    display transforms and a checkpoint. No jax module, and no module of
-    the JAX package, may load."""
+    display transforms and a checkpoint; then import the five examples of
+    examples_torch/ and render render_png's and custom_scene's scenes,
+    cut, through their frame loops. No jax module, and no module of the
+    JAX package, may load."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import terminal_raytracer_tpu_torch as port\n"
@@ -223,6 +225,25 @@ def test_port_never_imports_jax():
         "    assert cli.main(['--device', 'cpu', '--scene', 'stress:48:3',"
         " '--accel', accel, '--width', '16', '--height', '4', '--spp', '4',"
         " '--depth', '2', '--frames', '1']) == 0\n"
+        "import importlib.util\n"
+        "ex = {}\n"
+        "for name in ('render_png', 'custom_scene', 'animate', 'glass',"
+        " 'multichip'):\n"
+        "    spec = importlib.util.spec_from_file_location(name,"
+        " os.path.join('examples_torch', name + '.py'))\n"
+        "    ex[name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(ex[name])\n"
+        "cut = dict(width=16, height=4, samples_per_pixel=4, max_depth=2)\n"
+        "m = ex['render_png']\n"
+        "for out in m.frames(m.build_scene('cpu').with_overrides("
+        "**cut), 2, 'cpu'):\n"
+        "    pass\n"
+        "m.imageio.write_png(os.path.join(d, 'r.png'), out.rgb.numpy())\n"
+        "m = ex['custom_scene']\n"
+        "for out in m.frames(m.build_scene('cpu').with_overrides(**cut), 2,"
+        " 'cpu'):\n"
+        "    pass\n"
+        "assert [len(r) for r in m.glyph_rows(out.glyphs)] == [16] * 4\n"
         "bad = [m for m in sys.modules if m.startswith('jax')\n"
         "       or m == 'terminal_raytracer_tpu'\n"
         "       or m.startswith('terminal_raytracer_tpu.')]\n"
