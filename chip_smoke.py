@@ -169,20 +169,26 @@ Phases, each reported on lines starting with its tag:
             oracle's traversal under accel 'grid'), three seeds: the
             pixels and owed rays that differ
   [sched]   the single-kernel schedulers (csrc/kernel_frame.cu) and the
-            chunked kernel A over the traversals: each regen (C) and
-            lockstep (D) instantiation against the plain whole frame at
-            the north star, stress1024 (chunked: the in-thread chunk
-            loops), showcase (EXT), fog (XT) and stress1024 under grid and
-            gathered with chunks of 2, bit for bit (planes; executed
-            lane-iterations: regen's warp count, lockstep's static
-            formula; traversal counters), timed there; the chunked grid
-            and gathered kernel A's thread per entry, launched directly,
-            against its plain version there, with counters (their
-            grouped forms in [accel]); then this slice's main path:
-            make_render_frame with
-            'sorted', 'regen' and 'lockstep' on every one of those
-            configs (launch counters reset before, read after; ms/frame
-            side by side), where C, D and sorted must render one frame
+            chunked kernel A over the traversals: at the SCHED_CONFIGS
+            shapes (the north star, stress1024, showcase (EXT), fog (XT),
+            stress1024 under grid and gathered with chunks of 2, then
+            mesh5120 and one config for each other form of the queue
+            entries), the regen (C) and lockstep (D) queue entry that the
+            tracer takes (csrc/group.cuh kernel_frame_queue) and the
+            thread-per-pixel entry of its instantiation (launched
+            directly), each against the plain whole frame, bit for bit
+            (planes; traversal counters; counts: lockstep's static
+            formula, regen's between the items' sum and 32 / K times it on
+            the queue and the warp count of the per-pixel iterations on
+            the thread per pixel), both timed; the chunked grid and
+            gathered kernel A's thread per entry, launched directly,
+            against its plain version at the chunked configs, with
+            counters (their grouped forms in [accel]); then this slice's
+            main path: make_render_frame with 'sorted', 'regen' and
+            'lockstep' on every config (launch counters reset before, read
+            after; ms/frame side by side with the queue entry's widths,
+            form and resident blocks an SM), where C, D and sorted must
+            render one frame
   [denoise] the à-trous filter (ops/denoise.py): one north-star Engine
             run with --denoise 1.0 (finite, not flat, the filter changing
             the image, kernels A and B launched once a frame), the filter
@@ -299,12 +305,14 @@ forms kernel_extra_ext_grouped_spill and
 kernel_base_chunked_ext_grouped_spill at the checker icosphere:4 shapes);
 the other XT rows at the fog and stress:1024 fog shapes; the other grid
 and gathered rows at the stress1024 shapes (the thread-per-entry
-kernel_extra_gathered and the thread-per-pixel kernel_base_gathered
-launched directly, OFF_PATH), their
+kernel_extra_gathered launched directly, OFF_PATH; the thread-per-pixel
+kernel_base_gathered, which the main path takes below 16 primitives),
+their
 operations the slab tests, walk steps and primitive tests that the plain
-traversal counts; the regen and lockstep rows at their first [sched]
-config, the plain version's operations over the whole frame, 24 bytes
-written a pixel; kernel_base_quota, kernel A with a runtime quota, at the
+traversal counts; the regen and lockstep rows, thread per pixel
+(launched directly, OFF_PATH) and each queue form, at their first
+[sched] config, the plain version's operations over the whole frame, 24
+bytes written a pixel; kernel_base_quota, kernel A with a runtime quota, at the
 largest sp = 3 share of the north star, its launches those that took a
 quota; the five probe rows at their default form, probe21 ldg at n =
 1024, probe21b rowsel_ldg, probe21c packed, probe_when guarded at frac
@@ -1116,20 +1124,31 @@ def phase_thread_per_entry(peak):
 
 
 # The thread-per-entry entries that no dispatch takes (the grouped entries
-# serve their instantiations at every table size; the gathered kernel A's
-# thread per pixel serves only scenes below GROUP_BASE_MIN_PRIMS, which no
-# main-path run renders under gathered; the grid kernel A's serves those,
-# the north star under grid among them, so it stays on the path): held bit
-# for bit and timed beside
-# their grouped forms, launched directly, so their main-path launches are
-# 0, and a launch there fails the run.
+# serve their instantiations at every table size; the thread per pixel of
+# the gathered and grid kernel A serves scenes below GROUP_BASE_MIN_PRIMS,
+# which [sched] renders under both (Cornell grid and gathered), so both
+# stay on the path; the queue entries serve kernels C and D): held bit for
+# bit and timed beside their grouped forms, launched directly, so their
+# main-path launches are 0, and a launch there fails the run.
 OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt", "kernel_base_chunked_ext",
-            "kernel_base_chunked_grid", "kernel_base_chunked_gathered",
-            "kernel_base_gathered")
+            "kernel_base_chunked_grid", "kernel_base_chunked_gathered") + tuple(
+    f"kernel_{mode}{sfx}" for mode in ("regen", "lockstep")
+    for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
+# Kernels C and D: the wrappers of the thread-per-pixel entries (counting
+# nothing since the queue entries: OFF_PATH rows) and of the queue entries
+# (ops/kernels.FRAME_QUEUE), by (mode, kind, form).
 FRAME_NAMES = tuple(f"{mode}_kernel{sfx}" for mode in ("regen", "lockstep")
                     for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
+QUEUE_KEYS = tuple((mode, kind, form) for mode in ("regen", "lockstep")
+                   for kind in ("ref", "ext", "xt", "grid", "gathered")
+                   for form in ("solo", "group", "spill")
+                   if not (kind == "gathered" and form == "spill"))
+QUEUE_NAMES = tuple(
+    f"{mode}_kernel{'' if kind == 'ref' else '_' + kind}_queue"
+    + {"solo": "_solo", "group": "", "spill": "_spill"}[form]
+    for mode, kind, form in QUEUE_KEYS)
 LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_grouped", "base_kernel_grid_grouped",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
@@ -1152,7 +1171,8 @@ LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
                 "base_kernel_chunked_grid", "base_kernel_chunked_gathered",
                 "base_kernel_ext_grouped", "base_kernel_chunked_grid_grouped",
                 "base_kernel_chunked_grid_grouped_spill",
-                "base_kernel_chunked_gathered_grouped") + FRAME_NAMES
+                "base_kernel_chunked_gathered_grouped")
+LAUNCH_NAMES += FRAME_NAMES + QUEUE_NAMES
 
 
 def _sfx(tr) -> str:
@@ -1526,13 +1546,14 @@ def _bright_sky(scene, intensity=8.0):
         scene, sky=dataclasses.replace(scene.sky, intensity=intensity))
 
 
-def _checker_stress(name="stress:1024"):
-    """stress:1024 (or `name`) with a checker floor: an extension scene at
-    array scale, where auto resolves the chunk split (the chunked EXT
-    kernel); icosphere:4's rows exceed the grouped kernels' budget."""
+def _checker_stress(name="stress:1024", w=200, h=100):
+    """stress:1024 (or `name`) with a checker floor, w x h, 8 spp, depth 6:
+    an extension scene at array scale, where auto resolves the chunk split
+    (the chunked EXT kernel); icosphere:4's rows exceed the grouped kernels'
+    budget."""
     import dataclasses
 
-    scene = _scene(name, 200, 100, 8, 6)
+    scene = _scene(name, w, h, 8, 6)
     floor = scene.planes[0]
     mat = floor.material._replace(checker_color=(0.2, 0.2, 0.25),
                                   checker_scale=1.0)
@@ -2512,10 +2533,16 @@ def phase_accel(peak):
 
 
 # Kernels C and D at the main path's shapes, one config per instantiation
-# (and the chunk-split stress1024 for the reference one): (label, scene,
-# (width, height, spp, depth) or None for the scene's own, overrides,
-# PathTracer keywords). The traversal configs split chains explicitly, so
-# the sorted pipeline there runs the chunked kernel A over the traversal.
+# (and the chunk-split stress1024 for the reference one), then mesh5120
+# over the budget and one config for each other form of the queue entries
+# (ops/kernels.frame_form: the thread per item below 16 primitives, the
+# group within the 96 KB budget, the spill form over it), so that the main
+# path launches every queue entry, those at 100x50 to keep the phase's plain
+# frames short: (label, scene ('checker <scene>': with a checker floor, 8
+# spp, depth 6), (width, height, spp, depth) or None for the scene's own,
+# overrides, PathTracer keywords). The traversal configs of the first six
+# split chains explicitly, so the sorted pipeline there runs the chunked
+# kernel A over the traversal.
 SCHED_CONFIGS = (
     ("north star", "Cornell_Box", (400, 200, 16, 32), {}, {}),
     ("stress1024", "stress:1024", (200, 100, 8, 6), {}, {}),
@@ -2525,8 +2552,24 @@ SCHED_CONFIGS = (
      dict(accel="grid", chunk_base=2, chunk_extra=2)),
     ("stress1024 gathered cb 2", "stress:1024", (200, 100, 8, 6), {},
      dict(accel="gathered", chunk_base=2, chunk_extra=2)),
+    ("mesh5120", "icosphere:4", (200, 100, 8, 6), {}, {}),
+    ("stress64 checker", "checker stress:64", (100, 50, 8, 6), {}, {}),
+    ("mesh5120 checker", "checker icosphere:4", (100, 50, 8, 6), {}, {}),
+    ("stress1024 fog mis", "stress:1024", (100, 50, 8, 6), {"fog": 0.15},
+     dict(transport="mis")),
+    ("mesh5120 fog", "icosphere:4", (100, 50, 8, 6), {"fog": 0.15}, {}),
+    ("Cornell grid", "Cornell_Box", (100, 50, 8, 6), {}, dict(accel="grid")),
+    ("mesh5120 grid", "icosphere:4", (100, 50, 8, 6), {}, dict(accel="grid")),
+    ("Cornell gathered", "Cornell_Box", (100, 50, 8, 6), {},
+     dict(accel="gathered")),
 )
 SCHED_FRAMES = 5
+
+
+def _sched_scene(name, size, over):
+    if name.startswith("checker "):
+        return _checker_stress(name.split(" ", 1)[1], *size[:2])
+    return _xt_scene(name, size, over)
 
 
 def _frames_equal(a, b) -> bool:
@@ -2538,18 +2581,31 @@ def _frames_equal(a, b) -> bool:
                    (*b.current, b.var, b.total, b.rays)))
 
 
+def _queue_name(tr, mode) -> str:
+    """The wrapper of the queue entry that tracer `tr` takes in `mode`."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    return kernels.FRAME_QUEUE[mode, kernels._kind(tr),
+                               kernels.frame_form(tr)].__name__
+
+
 def phase_sched(peak):
     """Kernels C and D (csrc/kernel_frame.cu) and the chunked kernel A over
-    the opt-in traversals: (a) each instantiation against its plain version
-    at the SCHED_CONFIGS shapes, bit for bit (planes, executed
-    lane-iterations: regen's warp count, lockstep's static formula;
-    traversal counters), timed there; (b) the chunked grid and gathered
-    kernel A's thread per entry, launched directly, against its plain
-    version at stress1024, with counters; (c)
-    the main path of this slice: make_render_frame with 'sorted', 'regen'
-    and 'lockstep' on every config, the launch counters reset just before
-    and read just after, ms/frame side by side; C, D and sorted must give
-    one frame. Returns (launches, results by row)."""
+    the opt-in traversals: (a) at the SCHED_CONFIGS shapes, each queue entry
+    the tracer takes (group.cuh kernel_frame_queue, through the wrapper)
+    and the thread-per-pixel entry of its instantiation (launched directly:
+    OFF_PATH) against the plain version, bit for bit (planes; traversal
+    counters; counts: lockstep's static formula for both, regen's between
+    the items' sum and 32 / K times it for the queue entry and the warp
+    count of the per-pixel iterations for the thread per pixel), both
+    timed; (b) the chunked grid and gathered kernel A's thread per entry,
+    launched directly, against its plain version at stress1024, with
+    counters; (c) the main path of this slice: make_render_frame with
+    'sorted', 'regen' and 'lockstep' on every config, the launch counters
+    reset just before and read just after, ms/frame side by side with the
+    queue entry's K, form and resident blocks an SM; C, D and sorted must
+    give one frame. Returns (launches, results by row: queue rows by (mode,
+    kind, form), thread-per-pixel rows by mode + suffix)."""
     import torch
 
     from terminal_raytracer_tpu_torch.ops import kernels
@@ -2558,72 +2614,89 @@ def phase_sched(peak):
     pose = _pose()
     res, tracers = {}, []
     for label, name, size, over, kw in SCHED_CONFIGS:
-        tr = PathTracer(_xt_scene(name, size, over), "cuda", **kw)
+        tr = PathTracer(_sched_scene(name, size, over), "cuda", **kw)
         tracers.append((label, tr))
-        sfx = _sfx(tr)
+        sfx, kind, form = _sfx(tr), kernels._kind(tr), kernels.frame_form(tr)
+        kb, ke = kernels.FRAME_QUEUE_K[kind, form]
         fixed = 4 * tr.tables.buf.numel() + (
             4 * tr.atlas.numel() if tr.atlas is not None else 0)
         shape = (f"{label} {tr.width}x{tr.height} spp {tr.spp} depth "
                  f"{tr.max_depth}{', chunks ' if tr.chunk_base else ''}"
                  f"{tr.chunk_base or ''}")
-        # One plain frame serves both kernels: C's count is the warp count
-        # of its per-pixel iterations, D's the static formula.
+        # One plain frame serves every entry: the queue regen's count lies
+        # between the items' sum and 32 / K times it, the thread per
+        # pixel's is the warp count of its per-pixel iterations, D's the
+        # static formula.
         pc = [] if tr.traversal else None
         plain_ms, ops, p = _time_plain(
             tr, lambda: tr.render_pixels(pose, SEED, 0), pc)
         cur, var, total, rays, lane_iters, _ = p
-        want = {"regen": kernels.FrameOut(cur, var, total, rays,
-                                          kernels.warp_iters(lane_iters)),
-                "lockstep": kernels.FrameOut(
-                    cur, var, total, rays,
-                    torch.tensor(kernels.lockstep_iters(tr),
-                                 dtype=torch.float64, device="cuda"))}
+        lo, hi = kernels.regen_iters_bounds(lane_iters, min(kb, ke))
+        static = kernels.lockstep_iters(tr)
         n_budget = int((total > tr.base_samples).sum())
         if n_budget == 0:
             fail(f"[sched] {shape}: no pixel takes extra samples")
+        n_pix = tr.width * tr.height
+        bound = _bound(ops, fixed + 24 * n_pix, peak)
         for mode in ("regen", "lockstep"):
-            wrap = getattr(kernels, f"{mode}_kernel{sfx}")
-            if tr.traversal:
-                k, kc = _counted_launch(tr, lambda: wrap(tr, pose, SEED, 0))
-                if not bool((kc == pc[0]).all()):
-                    fail(f"[sched] {shape} {mode}: traversal counters "
-                         f"{kc.tolist()} differ from the plain version's "
-                         f"{pc[0].tolist()}")
-            else:
-                k = wrap(tr, pose, SEED, 0)
-            torch.cuda.synchronize()
-            occ = float(k.rays.sum(dtype=torch.float64)) / max(
-                float(k.iters) * (1 + tr.nee_sweeps), 1.0)
-            counts = ("; " + _traversal_counts(tr.traversal, kc)
-                      if tr.traversal else "")
-            same = _frames_equal(k, want[mode])
-            same_it = float(k.iters) == float(want[mode].iters)
-            err = max(maxabs(a, b) for a, b in zip(k.current,
-                                                   want[mode].current))
-            ms = _time_cuda(lambda: wrap(tr, pose, SEED, 0), 5)
-            n_pix = tr.width * tr.height
-            bound = _bound(ops, fixed + 24 * n_pix, peak)
-            print(f"[sched] {shape}: {mode}_kernel{sfx} {ms:.3f} ms, rays "
-                  f"{float(k.rays.sum()):.0f}, {n_budget} budgeted pixels, "
-                  f"bit-equal to the plain frame {same}, lane-iterations "
-                  f"{float(k.iters):.0f} (plain count "
-                  f"{float(want[mode].iters):.0f}, equal {same_it}), "
-                  f"occupancy {occ:.3f}{counts} "
+            queue = kernels.FRAME_QUEUE[mode, kind, form]
+
+            def old(m=mode):
+                return kernels._launch_frame(tr, pose, SEED, 0, 0, None,
+                                             f"trt_kernel_{m}", kind)
+
+            times = {}
+            for entry, fn in (("queue", lambda: queue(tr, pose, SEED, 0)),
+                              ("thread", old)):
+                if tr.traversal:
+                    k, kc = _counted_launch(tr, fn)
+                    if not bool((kc == pc[0]).all()):
+                        fail(f"[sched] {shape} {mode} {entry}: traversal "
+                             f"counters {kc.tolist()} differ from the plain "
+                             f"version's {pc[0].tolist()}")
+                else:
+                    k = fn()
+                torch.cuda.synchronize()
+                it = float(k.iters)
+                if mode == "lockstep":
+                    count_ok, model = it == static, f"static {static:.0f}"
+                elif entry == "queue":
+                    count_ok = lo <= it <= hi
+                    model = f"items' sum {lo:.0f}, 32 / K x it {hi:.0f}"
+                else:
+                    w = float(kernels.warp_iters(lane_iters))
+                    count_ok, model = it == w, f"warp count {w:.0f}"
+                same = (_frames_equal(k, kernels.FrameOut(cur, var, total,
+                                                          rays, None)))
+                err = max(maxabs(a, b) for a, b in zip(k.current, cur))
+                times[entry] = ms = _time_cuda(fn, 5)
+                occ = float(k.rays.sum(dtype=torch.float64)) / max(
+                    it * (1 + tr.nee_sweeps), 1.0)
+                what = (f"{queue.__name__} (KB {kb}, KE {ke}, {form}, "
+                        f"{kernels.frame_queue_per_sm(tr, mode, pose)} "
+                        "blocks an SM)" if entry == "queue" else
+                        f"{mode}_kernel{sfx} (thread per pixel)")
+                print(f"[sched] {shape}: {what} {ms:.3f} ms, bit-equal to "
+                      f"the plain frame {same}, lane-iterations {it:.0f} "
+                      f"({model}: within {count_ok}; {it / static:.3f} of "
+                      f"lockstep's), occupancy {occ:.3f}"
+                      + (f"; {_traversal_counts(tr.traversal, kc)}"
+                         if tr.traversal else ""), flush=True)
+                if not same or not count_ok:
+                    fail(f"[sched] {shape}: {what} disagrees with the plain "
+                         "version")
+                # Times from the first config of each entry, the error
+                # over all of them.
+                key = ((mode, kind, form) if entry == "queue"
+                       else f"{mode}{sfx}")
+                res[key] = ((max(res[key][0], err),) + res[key][1:]
+                            if key in res else (err, ms, plain_ms, bound))
+            print(f"[sched] {shape}: {mode} queue / thread per pixel "
+                  f"{times['queue']:.3f} / {times['thread']:.3f} ms "
                   f"(plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by "
-                  f"{bound[1]}: {ops:.4g} FP32 operations)", flush=True)
-            if not same or not same_it:
-                fail(f"[sched] {shape}: {mode}_kernel{sfx} disagrees with "
-                     "the plain version")
-            if (mode == "lockstep"
-                    and float(k.iters) != kernels.lockstep_iters(tr)):
-                fail(f"[sched] {shape}: lockstep's count is not the static "
-                     "formula")
-            # Times from the first config of each instantiation, the error
-            # over all of them.
-            key = f"{mode}{sfx}"
-            res[key] = ((max(res[key][0], err),) + res[key][1:]
-                        if key in res else (err, ms, plain_ms, bound))
-        if tr.traversal:  # (b): the thread per entry, launched directly
+                  f"{bound[1]}: {ops:.4g} FP32 operations; {n_budget} "
+                  "budgeted pixels)", flush=True)
+        if tr.traversal and tr.chunk_base:  # (b): the thread per entry
             def wrap(t, *a):
                 return kernels._launch_chunked(t, *a, 0, None, t.traversal)
 
@@ -2637,22 +2710,24 @@ def phase_sched(peak):
             _check_counts(f"{shape} chunked kernel A{sfx}", kc, pc[0])
             ms = _time_cuda(lambda: wrap(tr, pose, SEED, 0), 5)
             n_ent = tr.n_base_chunks * tr.width * tr.height
-            bound = _bound(ops_c, fixed + 36 * n_ent, peak)
+            bound_c = _bound(ops_c, fixed + 36 * n_ent, peak)
             if err != 0.0:
                 fail(f"[sched] {shape}: the chunked kernel A is not bit-exact")
             print(f"[sched] {shape}: kernel_base_chunked{sfx} (thread per "
                   f"entry) {ms:.3f} ms on "
                   f"{n_ent} entries (plain {plain_c:.1f} ms, bound "
-                  f"{bound[0]:.4f} ms by {bound[1]}: {ops_c:.4g} FP32 "
+                  f"{bound_c[0]:.4f} ms by {bound_c[1]}: {ops_c:.4g} FP32 "
                   "operations)", flush=True)
-            res[f"chunked{sfx}"] = (err, ms, plain_c, bound)
+            key = f"chunked{sfx}"
+            res[key] = ((max(res[key][0], err),) + res[key][1:]
+                        if key in res else (err, ms, plain_c, bound_c))
 
     # (c) This slice's main path: every config through every scheduler.
     _reset_launches()
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     n = SCHED_FRAMES + 1
     for label, tr in tracers:
-        sfx, first, times = _sfx(tr), {}, {}
+        first, times = {}, {}
         for mode in kernels.MODES:
             render = kernels.make_render_frame(tr, mode)
             first[mode] = render(pose, SEED, 0)  # warm-up, compared below
@@ -2667,7 +2742,7 @@ def phase_sched(peak):
                 want[_a_name(tr)] += n
                 want[_b_name(tr)] += n
             else:
-                want[f"{mode}_kernel{sfx}"] += n
+                want[_queue_name(tr, mode)] += n
         ref = first["sorted"]
         same = {mode: float(first[mode][3]) == float(ref[3])
                 and bool(torch.equal(first[mode][2], ref[2]))
@@ -2675,10 +2750,16 @@ def phase_sched(peak):
                         zip((*first[mode][0], first[mode][1]),
                             (*ref[0], ref[1])))
                 for mode in ("regen", "lockstep")}
+        kind, form = kernels._kind(tr), kernels.frame_form(tr)
         print(f"[sched] {label} {tr.width}x{tr.height} spp {tr.spp} depth "
               f"{tr.max_depth}, {SCHED_FRAMES} frames each: " + ", ".join(
                   f"{mode} {1e3 * times[mode]:.2f} ms/frame (occupancy "
                   f"{times[mode, 'occ']:.3f})" for mode in kernels.MODES)
+              + f"; queue entries {kind} {form}, KB / KE "
+              + " / ".join(map(str, kernels.FRAME_QUEUE_K[kind, form]))
+              + ", resident blocks an SM "
+              + " / ".join(str(kernels.frame_queue_per_sm(tr, m, pose))
+                           for m in ("regen", "lockstep"))
               + f"; rays {float(ref[3]):.0f}; regen and lockstep frames equal "
               f"the sorted frame {same}", flush=True)
         if not all(same.values()):
@@ -2687,7 +2768,7 @@ def phase_sched(peak):
     print(f"[sched] main path launches {_nonzero(got)}", flush=True)
     if got != want:
         fail(f"[sched] launch counts {got}, expected {want}")
-    missing = [k for k in FRAME_NAMES + (
+    missing = [k for k in QUEUE_NAMES + (
         "base_kernel_chunked_grid_grouped",
         "base_kernel_chunked_gathered_grouped") if got[k] == 0]
     if missing:
@@ -3714,10 +3795,10 @@ def main() -> int:
             ("kernel_extra_grid_grouped_spill",
              "extra_kernel_grid_grouped_spill", "group.cuh", "1033",
              *thread["gs"]),
-            # Kernel A over the walk, thread per pixel (launched directly:
-            # OFF_PATH) and grouped (csrc/group.cuh GroupWalk; entry in
-            # kernel_accel.cu), at the stress1024 shapes, the errors
-            # including mesh1280's.
+            # Kernel A over the walk, thread per pixel (the main path takes
+            # it below 16 primitives: [sched]'s Cornell gathered) and
+            # grouped (csrc/group.cuh GroupWalk; entry in kernel_accel.cu),
+            # at the stress1024 shapes, the errors including mesh1280's.
             ("kernel_base_gathered", "base_kernel_gathered",
              "kernel_accel.cu", "808", *acc["gathered", "at"]),
             ("kernel_base_gathered_grouped", "base_kernel_gathered_grouped",
@@ -3759,11 +3840,20 @@ def main() -> int:
              "base_kernel_chunked_gathered_grouped", "group.cuh", "808",
              *acc["gathered", "cg"])) + tuple(
         # Kernel C, kernel_regen (:420), and D, kernel_lockstep (:391),
-        # both launched by the pallas_call at :499.
+        # both launched by the pallas_call at :499: one thread a pixel
+        # (launched directly: OFF_PATH), timed at the first [sched] config
+        # of each instantiation.
         (f"kernel_{mode}{sfx}", f"{mode}_kernel{sfx}", "kernel_frame.cu",
          "420" if mode == "regen" else "391", *sch[mode + sfx])
         for mode in ("regen", "lockstep")
-        for sfx in ("", "_ext", "_xt", "_grid", "_gathered"))
+        for sfx in ("", "_ext", "_xt", "_grid", "_gathered")) + tuple(
+        # The same two on the queue schedule (csrc/group.cuh
+        # kernel_frame_queue; entries in kernel_frame.cu), each form timed
+        # at the first [sched] config that takes it.
+        (name.replace("regen_kernel", "kernel_regen").replace(
+            "lockstep_kernel", "kernel_lockstep"), name, "group.cuh",
+         "420" if key[0] == "regen" else "391", *sch[key])
+        for key, name in zip(QUEUE_KEYS, QUEUE_NAMES))
     counter_of = {name: counter for name, counter, *_ in rows}
     taken = [name for name in OFF_PATH if launches[counter_of[name]]]
     if taken:

@@ -8,7 +8,9 @@
 // gates over the table sweep (GroupSweep), over the block-culled sweep of
 // `--accel grid` (GroupCulled) and over the grid walk of `--accel
 // gathered` (GroupWalk, which splits each cell's bucket over the group);
-// kernel A at the reference gates over GroupSweep and over GroupCulled.
+// kernel A at the reference gates over GroupSweep and over GroupCulled; and
+// kernels C and D, the one-launch frame, on a device queue of chunk items
+// (kernel_frame_queue, at the end; kernel_frame.cu instantiates it).
 //
 // What bound the thread-per-entry kernels (pipeline.cuh kernel_extra and
 // kernel_base_chunked, the case K = 1 below): the critical chain of one
@@ -77,6 +79,9 @@
 #pragma once
 
 #include <climits>
+#include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "pipeline.cuh"
 #include "traverse.cuh"
@@ -1683,6 +1688,489 @@ int launch_chunked_grouped(const ChunkArgs* a, const trt::Tex& tx, const trt::Xt
     kernel_base_chunked_grouped<EXT, XT, TR>
         <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(*a, scene_buf, out, state_out,
                                                                iters, tx, xt, tl);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+namespace trt {
+
+// Kernels C and D on the H100: the one-launch frame as resident path groups
+// over a device queue of chunk items (kernel_frame.cu's *_queue entries,
+// which say what they replace). The work of a frame falls into items:
+//  - a base item (pixel p, base chunk c), c < n_base_chunks: the samples
+//    [c * cb, min((c + 1) * cb, base)) on the sub-chain seed + c *
+//    CHUNK_GOLDEN from zero sums (an unsplit tracer has one chunk, the
+//    whole base quota);
+//  - an extra item (p, extra chunk c), c < n_extra_chunks: the samples
+//    from base + c * ce on chunk 0's end state + c * CHUNK_GOLDEN, owed
+//    where its budget clip(additional - c * ce, 0, ce) is above 0 (regen;
+//    LOCKSTEP runs every slot of every chunk, as kernel_frame does).
+// A grid of the blocks that stay resident at once runs path groups: base
+// items on groups of KB = TRB::K lanes over the traversal TRB, extra items
+// on groups of KE = TRE::K lanes over TRE (the same staged rows; KB = 1: one
+// thread an item), as the sorted pipeline runs kernel A and kernel B at
+// their own widths. A group's lead lane takes the next base item from a
+// zeroed counter and broadcasts it over the group (__shfl_sync; KB = 1: one
+// atomic for the lanes that take together), pixel-major, until the base
+// items run out; then the lane's extra group takes a ticket of the extra
+// queue and waits (__nanosleep) until the queue holds an item at its
+// ticket, or every pixel's base phase is folded and the queue ends before
+// it. Nothing in the item loop waits for the block.
+//
+// The fold: a base item writes its partial csum, csumsq and rays to its
+// chunk's planes (chunk 0 also its end state), fences (__threadfence) and
+// adds one to the pixel's counter; the group that adds the last adds the
+// chunk planes in chunk order from zero sums, computes the variance, needs
+// and additional as kernel_frame does, and either writes the pixel (no
+// extra item owed) or keeps csum, the variance and the base rays for it and
+// appends the owed extra items to the queue (one atomicAdd on its tail),
+// then counts the pixel as folded. An extra item likewise writes its esum
+// and rays; the group that completes the pixel's owed items adds them in
+// chunk order and writes combine_phases with kernel_frame's f32 operations
+// in its order. A single chunk skips its planes and counter. Every per-pixel
+// chain is kernel_frame's, so the planes are bit for bit its planes (rays
+// are sums of small integers: exact in any order).
+//
+// Counts: regen counts path slots as the grouped kernels do, for each phase
+// (count_slot_iters<KB>, <KE>: a warp adds 32 / K x its busiest group's
+// summed iterations, at least the items' sum); LOCKSTEP keeps
+// kernel_frame's static count, every item's fixed slots plus the idle lanes
+// of a partial last warp (ops/kernels.py lockstep_iters). The traversals'
+// counters flush once a group, after the loop, where the whole warp
+// arrives.
+
+// The queue schedule's scratch, carved from the wrapper's two buffers
+// (ops/kernels.py frame_queue_words mirrors the layout): ctl (u32, zeroed)
+// holds the counters, the queue and the per-pixel item counters; scratch
+// (f32) the chunk planes, the folded base of a pixel that owes extra items
+// and chunk 0's end state.
+constexpr int FRAME_CTL_HEAD = 8;  // u32 words before the queue
+struct FrameQueue {
+  unsigned long long* iters;  // ctl[0..1]: executed lane-iterations
+  unsigned* next_base;        // ctl[2]: the next base item
+  unsigned* next_extra;       // ctl[3]: the next ticket of the extra queue
+  unsigned* tail;             // ctl[4]: extra items appended
+  unsigned* folded;           // ctl[5]: pixels whose base phase is folded
+  unsigned* queue;            // [n * nec]: extra item + 1, 0 until appended
+  unsigned* base_done;        // [n]: base items done (n_base_chunks > 1)
+  unsigned* extra_done;       // [n]: extra items done (nec > 1)
+  float* part;                // [7][nbc][n]: base chunk csum, csumsq, rays
+  float* epart;               // [4][nec][n]: extra chunk esum, rays
+  float* pix;                 // [5][n]: csum, variance, base rays
+  unsigned* state;            // [n]: chunk 0's end state
+};
+
+__device__ __forceinline__ FrameQueue frame_queue(unsigned* ctl, float* scratch, int n, int nbc,
+                                                  int nec) {
+  FrameQueue q;
+  q.iters = reinterpret_cast<unsigned long long*>(ctl);
+  q.next_base = ctl + 2;
+  q.next_extra = ctl + 3;
+  q.tail = ctl + 4;
+  q.folded = ctl + 5;
+  q.queue = ctl + FRAME_CTL_HEAD;
+  q.base_done = q.queue + (size_t)n * nec;
+  q.extra_done = q.base_done + n;
+  q.part = scratch;
+  q.epart = q.part + (nbc > 1 ? (size_t)7 * nbc * n : 0);
+  q.pix = q.epart + (nec > 1 ? (size_t)4 * nec * n : 0);
+  q.state = reinterpret_cast<unsigned*>(q.pix + (size_t)5 * n);
+  return q;
+}
+
+// Extra chunk c's budget for a pixel of variance `var`, and whether the
+// schedule runs it (kernel_frame's extra loop).
+template <bool LOCKSTEP>
+__device__ __forceinline__ float frame_budget(const FrameArgs& a, float var, int c, bool& runs) {
+  const bool needs = a.base < a.spp && var > 10.0f;
+  const float additional = needs ? fminf(floorf(var * 50.0f), a.max_extra) : 0.0f;
+  const float budget = fminf(fmaxf(additional - (float)(c * a.ce), 0.0f), (float)a.ce);
+  runs = LOCKSTEP || budget > 0.0f;
+  return budget;
+}
+
+template <bool LOCKSTEP>
+__device__ __forceinline__ int frame_owed(const FrameArgs& a, float var, int nec) {
+  int owed = 0;
+  for (int c = 0; c < nec; ++c) {
+    bool runs;
+    frame_budget<LOCKSTEP>(a, var, c, runs);
+    owed += runs ? 1 : 0;
+  }
+  return owed;
+}
+
+// kernel_frame's epilogue for pixel p: combine_phases and the six planes.
+__device__ __forceinline__ void frame_write(const FrameArgs& a, float* out, int p, int n, V3 csum,
+                                            V3 esum, float var, float rays) {
+  const bool needs = a.base < a.spp && var > 10.0f;
+  const float additional = needs ? fminf(floorf(var * 50.0f), a.max_extra) : 0.0f;
+  V3 cur;
+  float total = (float)a.base;
+  if (needs) {
+    total = total + additional;
+    cur = (csum + esum) * (1.0f / total);
+  } else {
+    cur = csum * a.inv_spp;
+  }
+  out[0 * n + p] = cur.x;
+  out[1 * n + p] = cur.y;
+  out[2 * n + p] = cur.z;
+  out[3 * n + p] = var;
+  out[4 * n + p] = total;
+  out[5 * n + p] = rays;
+}
+
+// The fold of pixel p's base phase (its chunks' totals; the lead lane of
+// the completing group): write the pixel, or keep its base and append its
+// owed extra items.
+template <bool LOCKSTEP>
+__device__ __forceinline__ void frame_fold_base(const FrameArgs& a, const FrameQueue& q, int p,
+                                                int n, int nec, V3 csum, V3 csumsq, float rays,
+                                                uint32_t state, float* out) {
+  const V3 mean = csum * a.inv_base;
+  const V3 dv = csumsq * a.inv_base - mean * mean;
+  const float var = dv.x + dv.y + dv.z;
+  const int owed = frame_owed<LOCKSTEP>(a, var, nec);
+  if (owed == 0) {
+    frame_write(a, out, p, n, csum, V3{0.0f, 0.0f, 0.0f}, var, rays);
+  } else {
+    q.pix[0 * n + p] = csum.x;
+    q.pix[1 * n + p] = csum.y;
+    q.pix[2 * n + p] = csum.z;
+    q.pix[3 * n + p] = var;
+    q.pix[4 * n + p] = rays;
+    q.state[p] = state;
+    __threadfence();
+    unsigned slot = atomicAdd(q.tail, (unsigned)owed);
+    for (int c = 0; c < nec; ++c) {
+      bool runs;
+      frame_budget<LOCKSTEP>(a, var, c, runs);
+      if (runs) q.queue[slot++] = (unsigned)(p * nec + c) + 1u;
+    }
+  }
+  if (nec > 0) {
+    __threadfence();
+    atomicAdd(q.folded, 1u);
+  }
+}
+
+// Base item (p, c) on the group's lanes; the lead lane keeps its planes or
+// folds the pixel. Returns the bounce iterations it ran.
+template <bool EXT, bool XT, class TR, bool LOCKSTEP>
+__device__ __forceinline__ unsigned frame_base_item(const FrameArgs& a, const Scene& sc,
+                                                    const Tex& tx, const Xt& xt, TR& tr,
+                                                    const FrameQueue& q, int p, int c, int n,
+                                                    int nec, bool lead, float* out) {
+  const int nbc = a.n_base_chunks;
+  const int x = p % a.f.width;
+  const int y = a.y0 + p / a.f.width;
+  uint32_t st = seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed, a.frame) +
+                (uint32_t)c * CHUNK_GOLDEN;
+  const int s0 = c * a.cb;
+  const int s1 = min(s0 + a.cb, a.base);
+  V3 cs = {0.0f, 0.0f, 0.0f}, cq = {0.0f, 0.0f, 0.0f};
+  float rays = 0.0f;
+  const unsigned it = run_samples<EXT, XT, TR, LOCKSTEP>(a.f, sc, tx, xt, st, s0, (float)s1,
+                                                         (float)x, (float)y, cs, &cq, rays, tr,
+                                                         s1);
+  if (!lead) return it;
+  const V3 zero = {0.0f, 0.0f, 0.0f};
+  if (nbc == 1) {
+    frame_fold_base<LOCKSTEP>(a, q, p, n, nec, zero + cs, zero + cq, rays, st, out);
+    return it;
+  }
+  const size_t m = (size_t)nbc * n, at = (size_t)c * n + p;
+  q.part[0 * m + at] = cs.x;
+  q.part[1 * m + at] = cs.y;
+  q.part[2 * m + at] = cs.z;
+  q.part[3 * m + at] = cq.x;
+  q.part[4 * m + at] = cq.y;
+  q.part[5 * m + at] = cq.z;
+  q.part[6 * m + at] = rays;
+  if (c == 0) q.state[p] = st;
+  __threadfence();
+  if (atomicAdd(q.base_done + p, 1u) != (unsigned)(nbc - 1)) return it;
+  __threadfence();
+  V3 csum = zero, csumsq = zero;
+  float r = 0.0f;
+  for (int k = 0; k < nbc; ++k) {
+    const size_t i = (size_t)k * n + p;
+    csum = csum + V3{__ldcg(q.part + 0 * m + i), __ldcg(q.part + 1 * m + i),
+                     __ldcg(q.part + 2 * m + i)};
+    csumsq = csumsq + V3{__ldcg(q.part + 3 * m + i), __ldcg(q.part + 4 * m + i),
+                         __ldcg(q.part + 5 * m + i)};
+    r = r + __ldcg(q.part + 6 * m + i);
+  }
+  frame_fold_base<LOCKSTEP>(a, q, p, n, nec, csum, csumsq, r, __ldcg(q.state + p), out);
+  return it;
+}
+
+// The fold of pixel p's extra items (esum and rays in chunk order; the lead
+// lane of the completing group): combine_phases with the kept base.
+__device__ __forceinline__ void frame_fold_extra(const FrameArgs& a, const FrameQueue& q, int p,
+                                                 int n, float var, V3 esum, float rays,
+                                                 float* out) {
+  const V3 csum = {__ldcg(q.pix + 0 * n + p), __ldcg(q.pix + 1 * n + p),
+                   __ldcg(q.pix + 2 * n + p)};
+  frame_write(a, out, p, n, csum, esum, var, __ldcg(q.pix + 4 * n + p) + rays);
+}
+
+// Extra item (p, c) on the group's lanes (the lead lane reads the pixel's
+// variance and end state and broadcasts them); the lead lane keeps its
+// planes or completes the pixel.
+template <bool EXT, bool XT, class TR, bool LOCKSTEP>
+__device__ __forceinline__ unsigned frame_extra_item(const FrameArgs& a, const Scene& sc,
+                                                     const Tex& tx, const Xt& xt, TR& tr,
+                                                     const FrameQueue& q, int p, int c, int n,
+                                                     int nec, bool lead, unsigned mask,
+                                                     float* out) {
+  constexpr int K = TR::K;
+  float var = 0.0f;
+  unsigned st0 = 0u;
+  if (lead) {
+    var = __ldcg(q.pix + 3 * n + p);
+    st0 = __ldcg(q.state + p);
+  }
+  var = __shfl_sync(mask, var, 0, K);
+  st0 = __shfl_sync(mask, st0, 0, K);
+  bool runs;
+  const float budget = frame_budget<LOCKSTEP>(a, var, c, runs);
+  const int x = p % a.f.width;
+  const int y = a.y0 + p / a.f.width;
+  uint32_t st = st0 + (uint32_t)c * CHUNK_GOLDEN;
+  const int s0 = a.base + c * a.ce;
+  V3 es = {0.0f, 0.0f, 0.0f};
+  float rays = 0.0f;
+  const unsigned it = run_samples<EXT, XT, TR, LOCKSTEP>(a.f, sc, tx, xt, st, s0,
+                                                         budget + (float)s0, (float)x, (float)y,
+                                                         es, nullptr, rays, tr, s0 + a.ce);
+  if (!lead) return it;
+  const V3 zero = {0.0f, 0.0f, 0.0f};
+  if (nec == 1) {
+    frame_fold_extra(a, q, p, n, var, zero + es, rays, out);
+    return it;
+  }
+  const size_t m = (size_t)nec * n, at = (size_t)c * n + p;
+  q.epart[0 * m + at] = es.x;
+  q.epart[1 * m + at] = es.y;
+  q.epart[2 * m + at] = es.z;
+  q.epart[3 * m + at] = rays;
+  __threadfence();
+  const int owed = frame_owed<LOCKSTEP>(a, var, nec);
+  if (atomicAdd(q.extra_done + p, 1u) != (unsigned)(owed - 1)) return it;
+  __threadfence();
+  V3 esum = zero;
+  float r = 0.0f;
+  for (int k = 0; k < nec; ++k) {
+    bool owes;
+    frame_budget<LOCKSTEP>(a, var, k, owes);
+    if (!owes) continue;
+    const size_t i = (size_t)k * n + p;
+    esum = esum + V3{__ldcg(q.epart + 0 * m + i), __ldcg(q.epart + 1 * m + i),
+                     __ldcg(q.epart + 2 * m + i)};
+    r = r + __ldcg(q.epart + 3 * m + i);
+  }
+  frame_fold_extra(a, q, p, n, var, esum, r, out);
+  return it;
+}
+
+// The group's next value of a counter: the lead lane adds one and
+// broadcasts it over the group; one lane a group (K = 1): the lanes that
+// take together add their count once (a coalesced group) and take
+// consecutive values.
+template <int K>
+__device__ __forceinline__ unsigned frame_take(unsigned* counter, bool lead, unsigned mask) {
+  if constexpr (K == 1) {
+    const cooperative_groups::coalesced_group g = cooperative_groups::coalesced_threads();
+    unsigned v = 0u;
+    if (g.thread_rank() == 0) v = atomicAdd(counter, g.size());
+    return g.shfl(v, 0) + g.thread_rank();
+  } else {
+    unsigned v = 0u;
+    if (lead) v = atomicAdd(counter, 1u);
+    return __shfl_sync(mask, v, 0, K);
+  }
+}
+
+__device__ __forceinline__ unsigned group_mask(int k, unsigned lane) {
+  return k == 32 ? 0xffffffffu : (((1u << k) - 1u) << (lane & ~(unsigned)(k - 1)));
+}
+
+// The extra item at ticket h (pixel * nec + chunk), broadcast over the
+// group: the lead lane waits until the queue holds it, or returns -1 once
+// every pixel is folded and the queue ends before h.
+template <int K>
+__device__ __forceinline__ int frame_ticket_item(const FrameQueue& q, unsigned h, int n, int nec,
+                                                 bool lead, unsigned mask) {
+  int item = -1;
+  if (lead) {
+    const unsigned cap = (unsigned)n * (unsigned)nec;
+    unsigned ns = 64u;
+    for (;;) {
+      if (h < cap) {
+        const unsigned v = __ldcv(q.queue + h);
+        if (v != 0u) {
+          item = (int)(v - 1u);
+          break;
+        }
+      }
+      if (__ldcv(q.folded) == (unsigned)n) {
+        __threadfence();
+        if (h >= __ldcv(q.tail)) break;
+        continue;  // appended before the last fold: visible now
+      }
+      __nanosleep(ns);
+      ns = ns < 2048u ? 2u * ns : ns;
+    }
+    __threadfence();
+  }
+  return __shfl_sync(mask, item, 0, K);
+}
+
+}  // namespace trt
+
+namespace {
+
+// The queue kernel's body (kernel_frame_queue and, held to MIN_BLOCKS
+// resident blocks an SM, kernel_frame_queue_resident share it).
+template <bool EXT, bool XT, class TRB, class TRE, bool LOCKSTEP>
+__device__ __forceinline__ void frame_queue_body(const FrameArgs& a,
+                                                 const float* __restrict__ scene_buf,
+                                                 float* __restrict__ out, unsigned* ctl,
+                                                 float* scratch, const trt::Tex& tx,
+                                                 const trt::Xt& xt,
+                                                 const typename TRB::Launch& tl) {
+  static_assert(TRB::THREADS == TRE::THREADS, "the two traversals share the block");
+  constexpr int KB = TRB::K, KE = TRE::K;
+  extern __shared__ float4 group_smem[];
+  float* rows = reinterpret_cast<float*>(group_smem);
+  const int n = a.h_out * a.f.width;
+  const int nbc = a.n_base_chunks;
+  const int nec = a.base < a.spp ? a.n_extra_chunks : 0;
+  const trt::FrameQueue q = trt::frame_queue(ctl, scratch, n, nbc, nec);
+  const unsigned lane = threadIdx.x & 31u;
+  const bool lead_b = (lane & (unsigned)(KB - 1)) == 0u;
+  const bool lead_e = (lane & (unsigned)(KE - 1)) == 0u;
+  const unsigned mask_b = trt::group_mask(KB, lane), mask_e = trt::group_mask(KE, lane);
+  TRB::stage(rows, scene_buf, a.f, tl);  // TRE reads the same rows
+  // The traversals' launch argument: the same Accel, or none.
+  typename TRE::Launch tle{};
+  if constexpr (std::is_same_v<typename TRE::Launch, typename TRB::Launch>) tle = tl;
+  TRB trb(rows, a.f, tl);
+  TRE tre(rows, a.f, tle);
+  const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+  unsigned it_b = 0, it_e = 0;
+  const unsigned n_base = (unsigned)n * (unsigned)nbc;
+  for (unsigned b = trt::frame_take<KB>(q.next_base, lead_b, mask_b); b < n_base;
+       b = trt::frame_take<KB>(q.next_base, lead_b, mask_b))
+    it_b += trt::frame_base_item<EXT, XT, TRB, LOCKSTEP>(
+        a, sc, tx, xt, trb, q, (int)(b / (unsigned)nbc), (int)(b % (unsigned)nbc), n, nec, lead_b,
+        out);
+  if (nec > 0) {
+    for (;;) {
+      const int item = trt::frame_ticket_item<KE>(
+          q, trt::frame_take<KE>(q.next_extra, lead_e, mask_e), n, nec, lead_e, mask_e);
+      if (item < 0) break;
+      it_e += trt::frame_extra_item<EXT, XT, TRE, LOCKSTEP>(
+          a, sc, tx, xt, tre, q, item / nec, item % nec, n, nec, lead_e, mask_e, out);
+    }
+  }
+  if constexpr (LOCKSTEP) {
+    const unsigned s =
+        __reduce_add_sync(0xffffffffu, (lead_b ? it_b : 0u) + (lead_e ? it_e : 0u));
+    if (lane == 0u) atomicAdd(q.iters, (unsigned long long)s);
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      const int slots = a.base + nec * a.ce;
+      atomicAdd(q.iters, (unsigned long long)((32 - n % 32) % 32) * slots * a.f.max_depth);
+    }
+  } else {
+    trt::count_slot_iters<KB>(it_b, q.iters);
+    trt::count_slot_iters<KE>(it_e, q.iters);
+  }
+  trb.flush();
+  tre.flush();
+}
+
+template <bool EXT, bool XT, class TRB, class TRE, bool LOCKSTEP>
+__global__ void __launch_bounds__(TRB::THREADS)
+    kernel_frame_queue(FrameArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                       unsigned* ctl, float* scratch, trt::Tex tx, trt::Xt xt,
+                       typename TRB::Launch tl) {
+  frame_queue_body<EXT, XT, TRB, TRE, LOCKSTEP>(a, scene_buf, out, ctl, scratch, tx, xt, tl);
+}
+
+// kernel_frame_queue held to MIN_BLOCKS resident blocks an SM (ptxas fits
+// its registers to 65,536 / (TRB::THREADS x MIN_BLOCKS)).
+template <bool EXT, bool XT, class TRB, class TRE, bool LOCKSTEP, int MIN_BLOCKS>
+__global__ void __launch_bounds__(TRB::THREADS, MIN_BLOCKS)
+    kernel_frame_queue_resident(FrameArgs a, const float* __restrict__ scene_buf,
+                                float* __restrict__ out, unsigned* ctl, float* scratch,
+                                trt::Tex tx, trt::Xt xt, typename TRB::Launch tl) {
+  frame_queue_body<EXT, XT, TRB, TRE, LOCKSTEP>(a, scene_buf, out, ctl, scratch, tx, xt, tl);
+}
+
+// The queue kernel of a form: held to MIN_BLOCKS blocks an SM, or unbound
+// (MIN_BLOCKS = 0).
+template <bool EXT, bool XT, class TRB, class TRE, bool LOCKSTEP, int MIN_BLOCKS>
+const void* frame_queue_kernel() {
+  if constexpr (MIN_BLOCKS > 0)
+    return (const void*)kernel_frame_queue_resident<EXT, XT, TRB, TRE, LOCKSTEP, MIN_BLOCKS>;
+  else
+    return (const void*)kernel_frame_queue<EXT, XT, TRB, TRE, LOCKSTEP>;
+}
+
+// The resident blocks an SM of the queue kernel over TRB, TRE at `bytes`
+// of staged rows (0 on an error).
+template <bool EXT, bool XT, class TRB, class TRE, bool LOCKSTEP, int MIN_BLOCKS = 0>
+int frame_queue_per_sm(int bytes) {
+  using TR = TRB;
+  const void* kernel = frame_queue_kernel<EXT, XT, TRB, TRE, LOCKSTEP, MIN_BLOCKS>();
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TR::SMEM_CAP) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TR::THREADS, bytes) !=
+          cudaSuccess)
+    return 0;
+  return per_sm;
+}
+
+// Kernel C or D over the h_out * w pixels of `a` on the queue schedule: as
+// many blocks as stay resident at once (the occupancy at `bytes` of staged
+// rows, times the SMs), at most one group an item of the phase with more
+// groups (base items at KB lanes, the most extra items at KE). ctl and
+// scratch: ops/kernels.py frame_queue_words, ctl zeroed.
+template <bool EXT, bool XT, class TRB, class TRE, bool LOCKSTEP, int MIN_BLOCKS = 0>
+int launch_frame_queue(const FrameArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                       const float* scene_buf, float* out, unsigned* ctl, float* scratch,
+                       void* stream, const typename TRB::Launch& tl = {}) {
+  using TR = TRB;
+  const long long n_pix = (long long)a->h_out * a->f.width;
+  const long long n_base = n_pix * a->n_base_chunks;
+  const long long n_extra = a->base < a->spp ? n_pix * a->n_extra_chunks : 0;
+  if (n_base > 0) {
+    const int bytes = 4 * TR::smem_floats(a->f, tl);
+    const void* kernel = frame_queue_kernel<EXT, XT, TRB, TRE, LOCKSTEP, MIN_BLOCKS>();
+    int blocks, dev, n_sm, per_sm;
+    int err = grouped_grid<TR>(n_base, bytes, kernel, blocks);
+    if (err != 0) return err;
+    blocks = max(blocks, (int)((n_extra * TRE::K + TR::THREADS - 1) / TR::THREADS));
+    if ((err = (int)cudaGetDevice(&dev)) != 0 ||
+        (err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != 0 ||
+        (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TR::THREADS,
+                                                                  bytes)) != 0)
+      return err;
+    blocks = min(blocks, max(per_sm, 1) * n_sm);
+    if constexpr (MIN_BLOCKS > 0)
+      kernel_frame_queue_resident<EXT, XT, TRB, TRE, LOCKSTEP, MIN_BLOCKS>
+          <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(*a, scene_buf, out, ctl,
+                                                                  scratch, tx, xt, tl);
+    else
+      kernel_frame_queue<EXT, XT, TRB, TRE, LOCKSTEP>
+          <<<blocks, TR::THREADS, bytes, (cudaStream_t)stream>>>(*a, scene_buf, out, ctl,
+                                                                  scratch, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }

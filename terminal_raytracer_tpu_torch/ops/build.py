@@ -25,7 +25,19 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-HEADERS = ("trace.cuh", "pipeline.cuh", "traverse.cuh", "group.cuh")
+HEADERS = ("trace.cuh", "pipeline.cuh", "traverse.cuh", "group.cuh",
+           "frame_queue.cuh")
+# The queue entries of kernels C and D by mode (kernel_frame.cu,
+# kernel_frame_lockstep.cu): each form's launch and its _per_sm query.
+QUEUE_ENTRY_POINTS = {
+    mode: tuple(
+        (f"trt_kernel_{mode}{sfx}_queue{form}{query}", n if q is None else q)
+        for sfx, n in (("", 6), ("_ext", 7), ("_xt", 8), ("_grid", 9),
+                       ("_gathered", 9))
+        for form in ("_solo", "", "_spill")
+        if not (sfx == "_gathered" and form == "_spill")
+        for query, q in (("", None), ("_per_sm", 2)))
+    for mode in ("regen", "lockstep")}
 # Source -> (C entry point, number of pointer arguments).
 ENTRY_POINTS = {
     "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
@@ -108,7 +120,9 @@ ENTRY_POINTS = {
         (f"trt_kernel_{mode}{sfx}", n)
         for mode in ("regen", "lockstep")
         for sfx, n in (("", 5), ("_ext", 6), ("_xt", 7), ("_grid", 8),
-                       ("_gathered", 8))),
+                       ("_gathered", 8))
+    ) + QUEUE_ENTRY_POINTS["regen"],
+    "kernel_frame_lockstep.cu": QUEUE_ENTRY_POINTS["lockstep"],
     # The Hopper probes of tools/ (terminal_raytracer_tpu_torch/tools/).
     "probes.cu": tuple(
         (f"trt_probe21_{f}", 5) for f in (
@@ -136,6 +150,9 @@ RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # that the sweep weighs and the EXT and grid kernel A's thread per pixel
 # (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
+# The define of a kernel_frame.cu build with its queue entries alone (the
+# sweep of tools/group_k.py --only frame, one library a width).
+QUEUE_ONLY = "TRT_TUNE_QUEUE_ONLY=1"
 TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_xt", 8), ("trt_kernel_base_xt_min_blocks", 0),
     ("trt_kernel_base_xt_per_sm", 0), ("trt_kernel_base_xt_grouped", 9),
@@ -226,6 +243,8 @@ def load_kernels(sources: tuple = RENDER_SOURCES) -> SimpleNamespace:
             name = _split(src)[0]
             entries = (TUNE_ENTRY_POINTS if name == TUNE_SOURCE
                        else ENTRY_POINTS[name])
+            if QUEUE_ONLY in _split(src)[1]:
+                entries = tuple(e for e in entries if "_queue" in e[0])
             for entry, n_ptr in entries:
                 fn = getattr(lib, entry)
                 fn.restype = ctypes.c_int

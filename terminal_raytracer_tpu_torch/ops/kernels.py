@@ -64,12 +64,16 @@ is their plain model (kernel A on the refill schedule, whose groups take
 pixels from a counter: at least the pixels' summed iterations). No build
 or launch failure falls back to another entry.
 
-The single-kernel schedulers render the whole frame in one launch, one
-thread a pixel (csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel),
-and kernel D, 'lockstep' (lockstep_kernel), the same frame on a fixed-trip
-schedule with a static occupancy denominator. Their plain version is the
-plain whole frame (render_frame_plain). Both come in the five
-instantiations below, each wrapper with its own launch count.
+The single-kernel schedulers render the whole frame in one launch
+(csrc/kernel_frame.cu): kernel C, 'regen' (regen_kernel), and kernel D,
+'lockstep' (lockstep_kernel), the same frame on a fixed-trip schedule with
+a static occupancy denominator. Both come in the five instantiations below;
+on the card each wrapper passes the tracer on to the queue entry of its
+form (FRAME_QUEUE, frame_form: resident path groups over a device queue of
+chunk items, csrc/group.cuh kernel_frame_queue), which counts the launch.
+The thread-per-pixel entries stay, launched only directly (_launch_frame).
+Their plain version is the plain whole frame (render_frame_plain);
+frame_items_plain is the queue's arithmetic item by item.
 
 Each kernel wrapper takes its plain PyTorch version (``*_plain``, built on
 ops/tracer.py) when the tensors it is given lie on the CPU; for CUDA
@@ -114,6 +118,7 @@ from . import gathered as gathered_mod
 from . import geometry as geom
 from . import sampling
 from . import tracer as tracer_mod
+from . import vecmath as vm
 from .build import load_kernels
 from .vecmath import V3
 
@@ -544,6 +549,19 @@ def group_refill(kernel: str, lib=None) -> bool:
     return bool(getattr(lib, _GROUPED_ENTRIES[kernel] + "_refill")())
 
 
+def _inst_args(tracer, inst: str) -> tuple:
+    """The launch arguments after the main one of instantiation `inst`:
+    the texture constants, the gates, the traversal's argument."""
+    extra = ()
+    if inst != "ref":
+        extra = (ctypes.byref(_tex(tracer)),)
+    if inst not in ("ref", "ext"):
+        extra += (ctypes.byref(xt_args(tracer)),)
+    if inst in ("grid", "gathered"):
+        extra += (ctypes.byref(accel_args(tracer)),)
+    return extra
+
+
 def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     """Call the C entry point `entry` (+ '_ext', '_xt', '_grid',
     '_gathered', '_grouped', '_xt_grouped', '_ext_grouped',
@@ -553,15 +571,8 @@ def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     name = entry if kind == "ref" else f"{entry}_{kind}"
     inst = (kind.removesuffix("_spill").removesuffix("grouped")
             .removesuffix("_") or "ref")
-    extra = ()
-    if inst != "ref":
-        extra = (ctypes.byref(_tex(tracer)),)
-    if inst not in ("ref", "ext"):
-        extra += (ctypes.byref(xt_args(tracer)),)
-    if inst in ("grid", "gathered"):
-        extra += (ctypes.byref(accel_args(tracer)),)
-    _check(getattr(lib, name)(ctypes.byref(args), *extra, *ptrs),
-           name.replace("trt_", ""))
+    _check(getattr(lib, name)(ctypes.byref(args), *_inst_args(tracer, inst),
+                              *ptrs), name.replace("trt_", ""))
 
 
 def _base_quota(tracer, base_q, name: str) -> int:
@@ -1798,17 +1809,83 @@ def working_warps(lane_iters: torch.Tensor, k: int = 1) -> int:
 def render_frame_plain(tracer, mode: str, pose, seed: int, frame_number: int,
                        y0: int = 0, h_out: int = None) -> FrameOut:
     """Kernel C ('regen') or D ('lockstep') in plain PyTorch (any device):
-    the plain whole frame (ops/tracer.py render_pixels) with the kernel's
-    count of executed lane-iterations."""
+    the plain whole frame (ops/tracer.py render_pixels) with the count of
+    the queue schedule's model: regen, the items' summed iterations (the
+    least the kernel's count can be, regen_iters_bounds); lockstep, the
+    static formula lockstep_iters."""
     cur, var, total, rays, lane_iters, _ = tracer.render_pixels(
         pose, seed, frame_number, y0, h_out)
     if mode == "regen":
-        iters = warp_iters(lane_iters)
+        iters = lane_iters.sum().to(torch.float64)
     elif mode == "lockstep":
         iters = _iters_tensor(lockstep_iters(tracer, h_out), var.device)
     else:
         raise ValueError(f"unknown kernel mode {mode!r}")
     return FrameOut(cur, var, total, rays, iters)
+
+
+def regen_iters_bounds(lane_iters: torch.Tensor, k: int) -> tuple:
+    """The regen queue kernel's count of executed lane-iterations, bounded
+    from the items' iterations (lane_iters: a pixel's summed items, as
+    render_pixels gives them) at group width k (the lesser of the entry's
+    KB and KE): at least the items' sum (every item's iterations run on one
+    path slot), at most 32 / k times it (a warp adds 32 / K x its busiest
+    group's sum in each phase, at most the sum of all its groups'). Which
+    group takes which item is the device's: within these bounds the count
+    is not fixed. (lo, hi), floats."""
+    if k < 1 or WARP % k:
+        raise ValueError(f"group width {k} does not divide {WARP}")
+    lo = float(lane_iters.sum())
+    return lo, lo * (WARP // k)
+
+
+def frame_items_plain(tracer, mode: str, pose, seed: int, frame_number: int,
+                      y0: int = 0, h_out: int = None) -> FrameOut:
+    """The queue schedule's arithmetic in plain PyTorch (any device): each
+    base item (pixel, base chunk) from zero sums, a pixel's items added in
+    chunk order from zero sums, its variance and budget, each extra chunk
+    it owes (regen: budget above 0; lockstep: every chunk) added in chunk
+    order, then combine_phases (csrc/group.cuh frame_base_item,
+    frame_fold_base, frame_extra_item, frame_fold_extra). Its count is
+    render_frame_plain's. Equal to render_pixels bit for bit, which
+    tests/test_torch_frame_queue.py holds."""
+    if mode not in ("regen", "lockstep"):
+        raise ValueError(f"unknown kernel mode {mode!r}")
+    cam = tracer_mod.cam_from_pose(pose)
+    x, y, c = tracer.base_entries(y0, h_out)
+    b, _ = tracer._base_run(cam, x.to(torch.float32), y.to(torch.float32),
+                            tracer.seed_lanes(x, y, seed, frame_number), c)
+    zero = torch.zeros_like(b.rays[0])
+    csum = csumsq = esum = V3(zero, zero, zero)
+    rays = zero
+    for k in range(tracer.n_base_chunks):
+        csum = csum + V3(*(v[k] for v in b.csum))
+        csumsq = csumsq + V3(*(v[k] for v in b.csumsq))
+        rays = rays + b.rays[k]
+    iters = b.iters.sum()
+    var = tracer.variance_of(csum, csumsq)
+    if tracer.base_samples >= tracer.spp:
+        current = csum * (1.0 / tracer.spp)
+        total = torch.full_like(var, float(tracer.base_samples))
+    else:
+        needs, additional = tracer.extra_quota(var)
+        budget, st_e, samp0 = tracer.extra_entries(b.state[0], additional)
+        e, full, _ = tracer._extra_run(
+            cam, x[0].expand(budget.shape).to(torch.float32),
+            y[0].expand(budget.shape).to(torch.float32), st_e, budget, samp0)
+        runs = budget > 0.0 if mode == "regen" else torch.ones_like(
+            budget, dtype=torch.bool)
+        es, e_rays = V3(*(full(v) for v in e.csum)), full(e.rays)
+        for k in range(budget.shape[0]):
+            esum = vm.where(runs[k], esum + V3(*(v[k] for v in es)), esum)
+            rays = rays + e_rays[k]
+        iters = iters + full(e.iters).sum()
+        current, total = tracer.combine_phases(csum, esum, needs, additional)
+    if mode == "lockstep":
+        count = _iters_tensor(lockstep_iters(tracer, h_out), var.device)
+    else:
+        count = iters.to(torch.float64)
+    return FrameOut(current, var, total, rays, count)
 
 
 def _kind(tracer) -> str:
@@ -1818,15 +1895,9 @@ def _kind(tracer) -> str:
                                 else "ref")
 
 
-def _launch_frame(tracer, pose, seed, frame_number, y0, h_out, entry,
-                  kind) -> FrameOut:
-    device = tracer.tables.buf.device
-    h_out = tracer.height if h_out is None else h_out
+def _frame_args(tracer, pose, seed, frame_number, y0, h_out) -> _FrameArgs:
     w, base, spp = tracer.width, tracer.base_samples, tracer.spp
-    n = h_out * w
-    out = torch.empty((6, n), dtype=torch.float32, device=device)
-    iters = torch.zeros((1,), dtype=torch.int64, device=device)
-    args = _FrameArgs(_frame(tracer, pose), h_out, y0, base, spp,
+    return _FrameArgs(_frame(tracer, pose), h_out, y0, base, spp,
                       tracer.chunk_base or base, tracer.n_base_chunks,
                       tracer.chunk_extra or max(spp - base, 0),
                       tracer.n_extra_chunks, seed & 0xFFFFFFFF,
@@ -1834,17 +1905,179 @@ def _launch_frame(tracer, pose, seed, frame_number, y0, h_out, entry,
                       float(np.float32(1.0 / base)),
                       float(max(spp - base, 0)),
                       float(np.float32(1.0 / spp)))
+
+
+def _frame_out(out, iters, h_out, w) -> FrameOut:
+    p = out.view(6, h_out, w)
+    return FrameOut(V3(p[0], p[1], p[2]), p[3], p[4], p[5],
+                    iters.to(torch.float64))
+
+
+def _launch_frame(tracer, pose, seed, frame_number, y0, h_out, entry,
+                  kind) -> FrameOut:
+    """Launch the thread-per-pixel kernel C or D `entry` ('trt_kernel_regen'
+    or 'trt_kernel_lockstep') of instantiation `kind` (no dispatch takes
+    these since the queue schedule; chip_smoke.py launches them directly
+    and counts nothing)."""
+    device = tracer.tables.buf.device
+    h_out = tracer.height if h_out is None else h_out
+    n = h_out * tracer.width
+    out = torch.empty((6, n), dtype=torch.float32, device=device)
+    iters = torch.zeros((1,), dtype=torch.int64, device=device)
+    args = _frame_args(tracer, pose, seed, frame_number, y0, h_out)
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), iters.data_ptr(),
             _stream(device))
     _launch(load_kernels(), entry, args, tracer, kind, ptrs)
-    p = out.view(6, h_out, w)
-    return FrameOut(V3(p[0], p[1], p[2]), p[3], p[4], p[5],
-                    iters[0].to(torch.float64))
+    return _frame_out(out, iters[0], h_out, tracer.width)
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and D on the queue schedule (csrc/group.cuh kernel_frame_queue)
+# ---------------------------------------------------------------------------
+
+# The u32 words of the queue's control buffer before the queue (csrc/
+# group.cuh FRAME_CTL_HEAD): the iteration count (two words), the next base
+# item, the next extra ticket, the queue's tail, the folded pixels.
+FRAME_CTL_HEAD = 8
+# The forms of each instantiation, and the suffix of their entry points.
+FRAME_FORMS = {"solo": "_solo", "group": "", "spill": "_spill"}
+# The group widths of each (kind, form), base items then extra items
+# (KB, KE), mirrored from csrc/frame_queue.cuh (GROUP_KB_FRAME*,
+# GROUP_KE_FRAME*; tests/test_torch_frame_queue.py reads them there). The
+# thread per item ('solo') takes base items one a lane.
+FRAME_QUEUE_K = {("ref", "solo"): (1, 32), ("ext", "solo"): (1, 16),
+                 ("xt", "solo"): (1, 8), ("grid", "solo"): (1, 32),
+                 ("gathered", "solo"): (1, 8),
+                 ("ref", "group"): (32, 32), ("ext", "group"): (16, 32),
+                 ("xt", "group"): (8, 16), ("grid", "group"): (8, 32),
+                 ("gathered", "group"): (4, 16), ("ref", "spill"): (32, 32),
+                 ("ext", "spill"): (32, 32), ("xt", "spill"): (32, 32),
+                 ("grid", "spill"): (32, 32)}
+
+
+def frame_nec(tracer) -> int:
+    """The extra chunks of a pixel's frame: none when base >= spp."""
+    return (tracer.n_extra_chunks if tracer.base_samples < tracer.spp
+            else 0)
+
+
+def frame_queue_words(n: int, nbc: int, nec: int) -> tuple:
+    """(u32 words of the zeroed control buffer, f32 words of the scratch)
+    of the queue schedule over n pixels, nbc base and nec extra chunks
+    (csrc/group.cuh frame_queue): the head, the queue [n * nec] and the
+    per-pixel base and extra counters; the base chunk planes [7][nbc][n]
+    (nbc > 1), the extra chunk planes [4][nec][n] (nec > 1), the folded
+    base [5][n] and the end states [n]."""
+    ctl = FRAME_CTL_HEAD + n * nec + 2 * n
+    scratch = ((7 * nbc * n if nbc > 1 else 0)
+               + (4 * nec * n if nec > 1 else 0) + 6 * n)
+    return ctl, scratch
+
+
+def frame_form(tracer) -> str:
+    """The form of the queue kernel a tracer takes: 'solo' (one thread an
+    item) below GROUP_BASE_MIN_PRIMS primitives, as kernel A keeps its
+    thread per pixel there; 'spill' (GroupSpill, GroupCulledSpill) where
+    the staged rows exceed GROUP_SMEM_BYTES (the walk stages none: always
+    'group'); else 'group'. A dispatch by the scene alone."""
+    if tracer.scene.primitive_count < GROUP_BASE_MIN_PRIMS:
+        return "solo"
+    if _kind(tracer) != "gathered" and _over_budget(tracer):
+        return "spill"
+    return "group"
+
+
+def frame_queue_entry(mode: str, kind: str, form: str) -> str:
+    """The C entry point of kernel C ('regen') or D ('lockstep') on the
+    queue schedule, instantiation `kind`, form `form`."""
+    sfx = "" if kind == "ref" else f"_{kind}"
+    return f"trt_kernel_{mode}{sfx}_queue{FRAME_FORMS[form]}"
+
+
+def frame_queue_per_sm(tracer, mode: str, pose=None, lib=None) -> int:
+    """The resident blocks an SM of the queue entry `tracer` takes in
+    `mode`, at its staged rows (on the card; `lib` default the render
+    libraries)."""
+    lib = lib or load_kernels()
+    kind = _kind(tracer)
+    entry = frame_queue_entry(mode, kind, frame_form(tracer))
+    pose = np.zeros(12, np.float32) if pose is None else pose
+    args = _frame_args(tracer, pose, 0, 0, 0, tracer.height)
+    acc = (ctypes.byref(accel_args(tracer)) if kind in ("grid", "gathered")
+           else None)
+    return int(getattr(lib, entry + "_per_sm")(ctypes.byref(args), acc))
+
+
+def _launch_frame_queue(tracer, mode, pose, seed, frame_number, y0, h_out,
+                        form, lib=None) -> FrameOut:
+    device = tracer.tables.buf.device
+    h_out = tracer.height if h_out is None else h_out
+    n = h_out * tracer.width
+    n_ctl, n_scratch = frame_queue_words(n, tracer.n_base_chunks,
+                                         frame_nec(tracer))
+    out = torch.empty((6, n), dtype=torch.float32, device=device)
+    ctl = torch.zeros((n_ctl,), dtype=torch.int32, device=device)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
+    args = _frame_args(tracer, pose, seed, frame_number, y0, h_out)
+    kind = _kind(tracer)
+    name = frame_queue_entry(mode, kind, form)
+    lib = lib or load_kernels()
+    _check(getattr(lib, name)(
+        ctypes.byref(args), *_inst_args(tracer, kind),
+        tracer.tables.buf.data_ptr(), out.data_ptr(), ctl.data_ptr(),
+        scratch.data_ptr(), _stream(device)), name.replace("trt_", ""))
+    return _frame_out(out, ctl[:2].view(torch.int64)[0], h_out,
+                      tracer.width)
+
+
+def _frame_queue_kernel(mode: str, kind: str, form: str):
+    """The wrapper of kernel C or D's queue entry of instantiation `kind`,
+    form `form`."""
+    sfx = "" if kind == "ref" else f"_{kind}"
+    name = f"{mode}_kernel{sfx}_queue{FRAME_FORMS[form]}"
+
+    def wrapper(tracer, pose, seed: int, frame_number: int, y0: int = 0,
+                h_out: int = None, lib=None) -> FrameOut:
+        if _kind(tracer) != kind:
+            raise ValueError(f"{name}: the tracer takes the "
+                             f"{_kind(tracer)!r} instantiation")
+        if frame_form(tracer) != form:
+            raise ValueError(f"{name}: the tracer takes the "
+                             f"{frame_form(tracer)!r} form")
+        if not _on_cuda(tracer.tables.buf.device, name):
+            return render_frame_plain(tracer, mode, pose, seed, frame_number,
+                                      y0, h_out)
+        out = _launch_frame_queue(tracer, mode, pose, seed, frame_number, y0,
+                                  h_out, form, lib)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (
+        f"Kernel {'C' if mode == 'regen' else 'D'} ({mode}) on the queue "
+        f"schedule, the {kind} instantiation, form {form!r} (csrc/group.cuh "
+        "kernel_frame_queue): rows [y0, y0 + h_out) of the frame. Returns "
+        "FrameOut.")
+    wrapper.launches = 0
+    return wrapper
+
+
+KINDS = ("ref", "ext", "xt", "grid", "gathered")
+FRAME_QUEUE = {(mode, kind, form): _frame_queue_kernel(mode, kind, form)
+               for mode in ("regen", "lockstep") for kind in KINDS
+               for form in FRAME_FORMS
+               if not (kind == "gathered" and form == "spill")}
+for _w in FRAME_QUEUE.values():
+    globals()[_w.__name__] = _w
+del _w
 
 
 def _frame_kernel(mode: str, kind: str):
-    """The wrapper of kernel C or D's `kind` instantiation; the 'ref'
-    wrapper passes a tracer of another kind on to its twin."""
+    """The wrapper of kernel C or D's `kind` instantiation: it passes a
+    tracer on the card to its queue entry (FRAME_QUEUE, by frame_form); the
+    'ref' wrapper passes a tracer of another kind on to its twin. Its own
+    count stays 0: the thread-per-pixel entries are launched only directly
+    (_launch_frame)."""
     name = f"{mode}_kernel" + ("" if kind == "ref" else f"_{kind}")
 
     def wrapper(tracer, pose, seed: int, frame_number: int, y0: int = 0,
@@ -1858,24 +2091,23 @@ def _frame_kernel(mode: str, kind: str):
         if not _on_cuda(tracer.tables.buf.device, name):
             return render_frame_plain(tracer, mode, pose, seed, frame_number,
                                       y0, h_out)
-        out = _launch_frame(tracer, pose, seed, frame_number, y0, h_out,
-                            f"trt_kernel_{mode}", kind)
-        wrapper.launches += 1
-        return out
+        return FRAME_QUEUE[mode, kind, frame_form(tracer)](
+            tracer, pose, seed, frame_number, y0, h_out)
 
     wrapper.__name__ = wrapper.__qualname__ = name
     which = "any tracer" if kind == "ref" else f"the {kind} instantiation"
     wrapper.__doc__ = (
         f"Kernel {'C' if mode == 'regen' else 'D'} ({mode}), {which}: rows "
-        "[y0, y0 + h_out) of the frame, one thread a pixel "
-        "(csrc/kernel_frame.cu). Returns FrameOut.")
+        "[y0, y0 + h_out) of the frame, on the queue schedule "
+        "(the *_queue entries of csrc/kernel_frame.cu and "
+        "kernel_frame_lockstep.cu). Returns FrameOut.")
     wrapper.launches = 0
     return wrapper
 
 
 FRAME_KERNELS = {(mode, kind): _frame_kernel(mode, kind)
                  for mode in ("regen", "lockstep")
-                 for kind in ("ref", "ext", "xt", "grid", "gathered")}
+                 for kind in KINDS}
 regen_kernel = FRAME_KERNELS["regen", "ref"]
 regen_kernel_ext = FRAME_KERNELS["regen", "ext"]
 regen_kernel_xt = FRAME_KERNELS["regen", "xt"]

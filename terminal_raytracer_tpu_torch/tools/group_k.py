@@ -7,7 +7,8 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid] [--a-only]
+        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid|frame]
+        [--a-only]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -124,6 +125,21 @@ grid kernel A at chunks of 2 (`--a-only`: it alone): within the budget
 over GroupCulled at each K and design, over it over each GroupCulledSpill
 form, beside the thread per entry, bit for bit with the counters. Needs a
 CUDA GPU (exit 2 without one).
+
+--only frame: kernels C and D on the queue schedule (the *_queue entries
+of csrc/kernel_frame.cu and kernel_frame_lockstep.cu, group.cuh
+kernel_frame_queue). Each K of --ks (default FRAME_KS) is one pair of
+libraries of those queue entries (-DTRT_TUNE_QUEUE_ONLY=1) as the base width of every form (-DTRT_TUNE_KB;
+the thread per item keeps one lane a base item) and one as the extra width
+(-DTRT_TUNE_KE), the other width as shipped, and one a residency bound
+of FRAME_MIN_BLOCKS at the shipped widths (-DTRT_TUNE_FRAME_MIN_BLOCKS:
+__launch_bounds__(threads, m)). At the FRAME_SHAPES (the
+[sched] configs of chip_smoke.py, one for each form of each
+instantiation) each
+library's entry for the tracer's form runs beside the shipped one and the
+thread per pixel, regen and lockstep: ms (the least of --reps runs of 3),
+the frame bit for bit the shipped entry's, regen's count and the resident
+blocks an SM; each library's queue kernels' ptxas lines.
 """
 
 from __future__ import annotations
@@ -140,6 +156,7 @@ from ..models.scene import Fog
 from ..ops import build, kernels
 from ..ops.tracer import PathTracer
 from ..parallel.mesh import SampleSplit
+from . import ptxas_lines
 
 KS = (1, 2, 4, 8, 16, 32)
 SEED = 42
@@ -1244,12 +1261,113 @@ def sweep_grid(reps, ks=GRID_KS, a_only=False) -> None:
     sweep_chunked_grid(srcs, paths, reps)
 
 
+FRAME_KS = (1, 4, 8, 16, 32)
+FRAME_SOURCES = ("kernel_frame.cu", "kernel_frame_lockstep.cu")
+FRAME_MIN_BLOCKS = (4, 5, 6)
+# (label, scene, (width, height, spp, depth) or None, fog density,
+# PathTracer keywords)
+FRAME_SHAPES = (
+    ("north star", "Cornell_Box", (400, 200, 16, 32), None, {}),
+    ("stress1024", "stress:1024", (200, 100, 8, 6), None, {}),
+    ("showcase", "showcase", None, None, {}),
+    ("fog", "Cornell_Box", (400, 200, 16, 32), 0.15, {}),
+    ("stress1024 grid cb 2", "stress:1024", (200, 100, 8, 6), None,
+     dict(accel="grid", chunk_base=2, chunk_extra=2)),
+    ("stress1024 gathered cb 2", "stress:1024", (200, 100, 8, 6), None,
+     dict(accel="gathered", chunk_base=2, chunk_extra=2)),
+    ("mesh5120", "icosphere:4", (200, 100, 8, 6), None, {}),
+    ("stress64 checker", "checker stress:64", (200, 100, 8, 6), None, {}),
+    ("stress1024 fog mis", "stress:1024", (200, 100, 8, 6), 0.15,
+     dict(transport="mis")),
+    ("mesh5120 fog", "icosphere:4", (200, 100, 8, 6), 0.15, {}),
+    ("Cornell grid", "Cornell_Box", (200, 100, 8, 6), None,
+     dict(accel="grid")),
+    ("mesh5120 grid", "icosphere:4", (200, 100, 8, 6), None,
+     dict(accel="grid")),
+    ("Cornell gathered", "Cornell_Box", (200, 100, 8, 6), None,
+     dict(accel="gathered")),
+)
+
+
+def sweep_frame(reps, ks=FRAME_KS) -> None:
+    """--only frame (the module's docstring)."""
+    defines = {f"{which} {k}": f"TRT_TUNE_{which}={k}"
+               for k in ks for which in ("KB", "KE")}
+    # The shipped widths, held to m blocks an SM.
+    defines.update({f"MB {m}": f"TRT_TUNE_FRAME_MIN_BLOCKS={m}"
+                    for m in FRAME_MIN_BLOCKS})
+    libs = {name: tuple((src, (build.QUEUE_ONLY, d)) for src in FRAME_SOURCES)
+            for name, d in defines.items()}
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES
+                                + sum(libs.values(), ()))
+    print(f"[group_k] frame: {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    for name, srcs in libs.items():
+        for src in srcs:
+            lines = ptxas_lines.kernels_of(
+                paths[src].with_suffix(".log").read_text())
+            plain = ptxas_lines.demangle(lines)
+            for m, line in lines.items():
+                print(f"[group_k] frame {name}: {plain[m]}: {line}",
+                      flush=True)
+    loaded = {name: build.load_kernels(srcs) for name, srcs in libs.items()}
+    pose = Camera().pose()
+    for label, name, size, fog, kw in FRAME_SHAPES:
+        over = {} if fog is None else {"fog": Fog(density=fog)}
+        if size is not None:
+            over.update(zip(("width", "height", "samples_per_pixel",
+                             "max_depth"), size))
+        scene = load_scene(name.removeprefix("checker ")).with_overrides(
+            **over)
+        if name.startswith("checker "):
+            scene = _checker(scene)
+        tr = PathTracer(scene, "cuda", **kw)
+        kind, form = kernels._kind(tr), kernels.frame_form(tr)
+        for mode in ("regen", "lockstep"):
+            def shipped():
+                return kernels.FRAME_KERNELS[mode, kind](tr, pose, SEED, 0)
+
+            def thread():
+                return kernels._launch_frame(tr, pose, SEED, 0, 0, None,
+                                             f"trt_kernel_{mode}", kind)
+
+            want = shipped()
+            ref = (*want.current, want.var, want.total, want.rays)
+            kb, ke = kernels.FRAME_QUEUE_K[kind, form]
+            print(f"[group_k] frame {label} {mode} {kind} {form}: shipped "
+                  f"(KB {kb}, KE {ke}) {_time(shipped, reps):.4f} ms, "
+                  f"{kernels.frame_queue_per_sm(tr, mode, pose)} blocks an "
+                  f"SM, lane-iterations {float(want.iters):.0f}; thread per "
+                  f"pixel {_time(thread, reps):.4f} ms", flush=True)
+            for lname, lib in loaded.items():
+                if form == "solo" and lname.startswith("KB"):
+                    continue  # one lane a base item whatever KB
+
+                def fn(lib=lib):
+                    return kernels._launch_frame_queue(
+                        tr, mode, pose, SEED, 0, 0, None, form, lib)
+
+                got = fn()
+                which, k = lname.split()
+                kbl = int(k) if which == "KB" else kb
+                kel = int(k) if which == "KE" else ke
+                same = _equal((*got.current, got.var, got.total, got.rays),
+                              ref)
+                print(f"[group_k] frame {label} {mode} {lname} (KB {kbl}, "
+                      f"KE {kel}): {_time(fn, reps):.4f} ms, equal {same}, "
+                      f"lane-iterations {float(got.iters):.0f}, "
+                      f"{kernels.frame_queue_per_sm(tr, mode, pose, lib)} "
+                      "blocks an SM", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default=None)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", choices=("base", "spill", "budget", "xt", "ext",
-                                       "walk", "grid"), default=None)
+                                       "walk", "grid", "frame"), default=None)
     ap.add_argument("--a-only", action="store_true",
                     help="--only ext: the EXT kernel A alone; --only grid: "
                     "the chunked grid kernel A alone; --only walk: the "
@@ -1258,6 +1376,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
         sys.exit(2)
+    if args.only == "frame":
+        sweep_frame(args.reps, [int(k) for k in args.ks.split(",")]
+                    if args.ks else FRAME_KS)
+        return 0
     if args.only == "xt":
         sweep_xt(args.reps, [int(k) for k in args.ks.split(",")] if args.ks
                  else XT_CHUNKED_KS)

@@ -392,3 +392,43 @@ def test_card_vs_cpu_counts_the_knife_edge_pixels():
         run = cvc.loop_frames(mod, scene, 2, "cpu")
         assert cvc.compare(run, run) == (True, [(0, 0.0)] * 2, (0, 0.0))
         assert run[0][2].shape == (3, 4, 8)
+
+
+@pytest.mark.parametrize("name", ["custom_scene", "animate"])
+def test_knife_trace_finds_a_flipped_shadow_test(name):
+    """tools/knife_trace's per-pixel records: two CPU runs of one frame
+    agree event for event (no difference, no flip); a shadow sweep's
+    blocked flag flipped in one record is reported at its sample and
+    bounce as a flip of that primitive, and a value moved by one ulp as the
+    first difference."""
+    import numpy as np
+
+    from terminal_raytracer_tpu_torch.tools import knife_trace as kt
+
+    scene = kt.example(name).build_scene("cpu").with_overrides(
+        width=16, height=8, samples_per_pixel=4, max_depth=3)
+    seed, fn, arrays = kt.frame_inputs(
+        name, scene, "loop" if name == "animate" else "frame", 1)
+    pixels = [(x, y) for x in range(0, 16, 3) for y in range(0, 8, 2)]
+    trs, recs = [], []
+    for _ in range(2):
+        tr = kt.tracer_on(scene, "cpu", arrays)
+        recs.append(kt.Recorder(tr, pixels))
+        tr.render_frame(Camera().pose(), seed, fn)
+        trs.append(tr)
+    lit = [p for p in pixels if sum(e[0] == "shadow" and bool(e[3]["gate"])
+                                    for e in recs[1].events[p]) > 1]
+    assert lit
+    for p in pixels:
+        assert kt.trace_pixel(trs, recs[0], recs[1], p) == (None, [])
+    p = lit[0]
+    shadow = [e for e in recs[1].events[p]
+              if e[0] == "shadow" and bool(e[3]["gate"])][1]
+    shadow[3]["res"][0] = ~shadow[3]["res"][0]
+    nee = next(e for e in recs[1].events[p]
+               if e[0] == "nee" and bool(e[3]["gate"]))
+    nee[3]["lp"][0] = np.nextafter(nee[3]["lp"][0], np.float32(np.inf))
+    first, flips = kt.trace_pixel(trs, recs[0], recs[1], p)
+    assert first.endswith("nee 'lp' 1 ulps")
+    assert len(flips) == 1 and " shadow blocked " in flips[0]
+    assert kt._prim(trs[0], 0) in flips[0]
