@@ -260,7 +260,14 @@ Phases, each reported on lines starting with its tag:
             launched); then every form's output of that run against its
             plain version on the card: bit for bit, atan2f within rtol 1e-6
             of torch.atan2 (ulps printed), every copy of a branch probe's
-            tile equal
+            tile equal; then the design each branch probe's kernel
+            replaced (floorf, the residue by division each iteration: the
+            _frnd entries, launched here alone) at its row's form and frac
+            against the plain version bit for bit, timed in turns with the
+            shipped kernel (shipped, FRND, FRND, shipped), and the SASS
+            opcodes of both designs' kernels a heavy step
+            (tools/sass_ops.py; where the toolkit has no cuobjdump, the
+            phase says so)
   Each Engine run resets the launch counters, renders a warm-up frame
   and N frames, and must show every kernel of its path launched once per
   frame; the accumulation must be finite and the image not flat. The
@@ -3511,6 +3518,11 @@ PROBE_ROWS = (
      ("packed", None)),
     ("probe_when", "probe_when", "tools/probe_when.py:54", ("guarded", 0.5)),
     ("probe_cond", "probe_cond", "tools/probe_cond.py:58", ("cond", 0.25)))
+# The design each branch probe's kernel replaced (floorf, the residue by
+# division each iteration) at its row's form: the baseline the shipped kernel
+# is timed against; only this script launches it.
+PROBE_FRND = {"probe_when": "trt_probe_when_guarded_frnd",
+              "probe_cond": "trt_probe_cond_cond_frnd"}
 # FP32 operations a lane-iteration of the probes' loops: the gathers' add;
 # 21c packed: x = x0 + 0.001 i (2), the texel index (4 floors, 2
 # subtracts, 3 multiplies), the unpack's 3 multiplies and the 3 adds; the
@@ -3524,6 +3536,56 @@ def _probe_taken(mod, frac, iters):
     """Iterations whose scalar predicate holds (the guarded form's work)."""
     return sum((i * 40503 + mod.SEED) % 1000 < int(frac * 1000)
                for i in range(iters))
+
+
+def _probe_frnd(name, mod, x, want):
+    """The _frnd baseline of branch probe `name` at its row's form and frac:
+    bit for bit against the plain version `want` (one tile), every copy
+    equal; then timed in turns with the shipped body's entry (shipped,
+    FRND, FRND, shipped; least of PROBE_REPS each, launched directly so
+    that the launch counters stay as main() left them). Returns the FRND
+    ms, the least of its two turns."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.tools import _probe
+
+    form, frac = next(r[3] for r in PROBE_ROWS if r[0] == name)
+    args = _probe.BranchArgs(mod.ITERS, mod.SEED, int(frac * 1000),
+                             mod.STEPS)
+    outs = {}
+
+    def call(entry):
+        out = outs.setdefault(entry, torch.empty(
+            (mod.STEPS, *_probe.SHAPE), dtype=torch.float32, device="cuda"))
+        ins = (x, out) if x is not None else (out,)
+        return lambda: _probe.launch(entry, args, *ins)
+
+    base, shipped = PROBE_FRND[name], f"trt_{name}_{form}"
+    call(base)()
+    torch.cuda.synchronize()
+    got = outs[base]
+    err = maxabs(got, want.expand_as(got))
+    if err != 0.0 or not torch.equal(got, got[:1].expand_as(got)):
+        fail(f"[probes] {base}: off its plain version by {err:.3e} or its "
+             "copies differ")
+    turns = [_probe.time_ms(call(e), PROBE_REPS)
+             for e in (shipped, base, base, shipped)]
+    print(f"[probes] {name} {form} {frac} in turns shipped / FRND / FRND / "
+          f"shipped: {' / '.join(f'{t:.4f}' for t in turns)} ms; {base} "
+          "bit for bit against the plain version", flush=True)
+    return min(turns[1], turns[2])
+
+
+def _probe_sass():
+    """The SASS opcodes of the branch probes' kernels, both bodies
+    (tools/sass_ops.py), or a line saying the toolkit has none."""
+    from terminal_raytracer_tpu_torch.tools import sass_ops
+
+    if sass_ops.disassembler() is None:
+        print("[probes] SASS: the toolkit has no cuobjdump beside nvcc",
+              flush=True)
+        return
+    sass_ops.report(sass_ops.kernels(), "[probes] SASS")
 
 
 def phase_probes(peak):
@@ -3619,10 +3681,19 @@ def phase_probes(peak):
             n_bytes = 4 * TILE * cond.STEPS
         bound = _bound(ops, n_bytes, peak)
         out[name] = (worst, ms, plain_ms, bound)
+        frnd = ""
+        if name in PROBE_FRND:
+            r0 = next(r for r in results[name]
+                      if r["form"] == form0 and r["frac"] == cfg0)
+            frnd_ms = _probe_frnd(name, mods[name],
+                                     x_w if name == "probe_when" else None,
+                                     plains[name](r0))
+            frnd = f" (FRND {frnd_ms:.4f} ms)"
         print(f"[probes] {name}: every form against its plain version on "
               f"the card, max abs {worst:.3e}; {form0} {cfg0 or ''}: "
-              f"{ms:.4f} ms (plain {plain_ms:.1f} ms), bound "
+              f"{ms:.4f} ms{frnd} (plain {plain_ms:.1f} ms), bound "
               f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    _probe_sass()
     launches = {name: sum(c.values()) for name, c in counts.items()}
     return launches, out
 

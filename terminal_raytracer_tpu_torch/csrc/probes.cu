@@ -49,9 +49,20 @@
 // seed) mod 1000) < thresh: guarded (pred is the same for every thread, so
 // a warp skips the body as a whole), unguarded (the body every time), and
 // divergent (each thread's own pred at seed + e, so a warp runs the body
-// whenever any of its lanes takes it). They are bound by the dependent
-// chain of FP32 operations of the body, over 131,072 (when) and 524,288
-// (cond) threads.
+// whenever any of its lanes takes it), over 131,072 (when) and 524,288
+// (cond) threads. A heavy step is y = y * m + a; y = y - floor(y * s), s =
+// 0.25 (when) or 0.5 (cond). floorf compiles to FRND.FLOOR, which runs at
+// 16 lanes a clock an SM, an eighth of the FP32 pipe, and paced both probes;
+// the bodies take the floor on the FP32 pipe instead (floor_scaled), so a
+// step is five FP32-pipe instructions (FMUL, FADD, FFMA.RM, FADD, FADD), one
+// warp dispatch slot each, and the dispatch rate bounds the body. The plain
+// versions' floor arguments lie in [0.25, 1.2500009] (cond) and [0.0751,
+// 1.0750001] (when) at the probes' loop counts, where floor_scaled is exact
+// (tests/test_torch_probes.py holds them there). A guarded form pays its
+// iterations' dispatch slots beyond its taken bodies, so the loop carries the
+// predicate's residue (next_residue), four iterations a trip. The _frnd
+// entries keep the design this replaced (floorf, the residue by division
+// each iteration) as the baseline.
 //
 // The file builds with --fmad=false like the kernels: each multiply and add
 // rounds alone, as in the plain versions.
@@ -335,49 +346,93 @@ __device__ __forceinline__ int mod1000(int v) {
   return m < 0 ? m + 1000 : m;
 }
 
-template <int F>
+// The predicate's residue mod1000(i * 40503 + seed) of iteration i + 1 from
+// iteration i's: 40503 = 503 (mod 1000), so it is r + 503, less 1000 where
+// that reaches 1000. Each iteration still computes and tests its own residue
+// (nothing hoisted, no table), in three integer instructions where the
+// division by 1000 took seven. The division ran on the uniform datapath in
+// the guarded forms, but a uniform instruction takes a dispatch slot like
+// any other: an untaken iteration cost 14-15 slots, against 6-7 now (nvcc
+// keeps the carried residue in a vector register).
+__device__ __forceinline__ int next_residue(int r) {
+  r += 503;
+  return r >= 1000 ? r - 1000 : r;
+}
+
+// floor(y * s) for s a power of two. FRND: floorf. Else on the FP32 pipe:
+// y * s + C with C = 1.5 * 2^23, rounded down once. For y * s exact and in
+// [-2^22, 2^22) the exact sum lies in [2^23, 2^24), where floats are 1
+// apart, so it rounds to C + floor(y * s) and the subtraction of C is
+// exact. It gives +0.0 where floorf gives -0.0 (y * s = -0.0 only).
+// --fmad=false leaves the explicit __fmaf_rd alone.
+template <bool FRND>
+__device__ __forceinline__ float floor_scaled(float y, float s) {
+  if constexpr (FRND) {
+    return floorf(y * s);
+  } else {
+    constexpr float C = 0x1.8p23f;
+    return __fmaf_rd(y, s, C) - C;
+  }
+}
+
+// Run body(pred) for i < iters, pred = mod1000(i * 40503 + seed) < thresh.
+// The shipped loop carries the residue (next_residue), four iterations an
+// unrolled trip; FRND, the design the shipped one replaced, divides every
+// iteration.
+template <bool FRND, typename Body>
+__device__ __forceinline__ void branch_loop(const ProbeBranch& a, int seed, Body body) {
+  if constexpr (FRND) {
+    for (int i = 0; i < a.iters; ++i) body(mod1000(i * 40503 + seed) < a.thresh);
+  } else {
+    int r = mod1000(seed);
+#pragma unroll 4
+    for (int i = 0; i < a.iters; ++i, r = next_residue(r)) body(r < a.thresh);
+  }
+}
+
+template <int F, bool FRND>
 __global__ void __launch_bounds__(BR_BLOCK)
     probe_when(ProbeBranch a, const float* x, float* out) {
   const int e = blockIdx.x * BR_BLOCK + threadIdx.x;
   const int seed = F == BR_DIVERGENT ? a.seed + e : a.seed;
   float acc = x[e];
-  for (int i = 0; i < a.iters; ++i) {
-    if (F == BR_UNGUARDED || mod1000(i * 40503 + seed) < a.thresh) {
+  branch_loop<FRND>(a, seed, [&](bool pred) {
+    if (F == BR_UNGUARDED || pred) {
       float y = acc;
       for (int h = 0; h < 48; ++h) {
         y = y * 1.0000001f + 0.3f;
-        y = y - floorf(y * 0.25f);
+        y = y - floor_scaled<FRND>(y, 0.25f);
       }
       acc = y;
     }
-  }
+  });
   out[blockIdx.y * TILE + e] = acc;
 }
 
+template <bool FRND>
 __device__ __forceinline__ float heavy_cond(float y) {
   for (int h = 0; h < 40; ++h) {
     y = y * 1.000001f + 0.5f;
-    y = y - floorf(y * 0.5f);
+    y = y - floor_scaled<FRND>(y, 0.5f);
   }
   return y;
 }
 
-template <int F>
+template <int F, bool FRND>
 __global__ void __launch_bounds__(BR_BLOCK) probe_cond(ProbeBranch a, float* out) {
   const int e = blockIdx.x * BR_BLOCK + threadIdx.x;
   const int seed = F == BR_DIVERGENT ? a.seed + e : a.seed;
   float x = (float)(e % TILE_W) * 0.01f;
-  for (int i = 0; i < a.iters; ++i) {
-    const bool pred = mod1000(i * 40503 + seed) < a.thresh;
+  branch_loop<FRND>(a, seed, [&](bool pred) {
     if constexpr (F == BR_UNGUARDED) {
       const float w = pred ? 1.0f : 0.0f;
-      x = w * 0.0f + heavy_cond(x);
+      x = w * 0.0f + heavy_cond<FRND>(x);
     } else if (pred) {
-      x = heavy_cond(x);
+      x = heavy_cond<FRND>(x);
     } else {
       x = x + 0.0f;
     }
-  }
+  });
   out[blockIdx.y * TILE + e] = x;
 }
 
@@ -426,23 +481,25 @@ PROBE21C(atan2f, C_ATAN2F)
 PROBE21C(atan2_poly, C_ATAN2_POLY)
 PROBE21C(packed, C_PACKED)
 
-#define PROBE_WHEN(form, F)                                                                 \
+#define PROBE_WHEN(form, F, FRND)                                                           \
   extern "C" int trt_probe_when_##form(const ProbeBranch* a, const float* x, float* out,     \
                                        void* stream) {                                     \
-    probe_when<F><<<dim3(TILE / BR_BLOCK, a->copies), BR_BLOCK, 0, (cudaStream_t)stream>>>( \
-        *a, x, out);                                                                       \
+    probe_when<F, FRND><<<dim3(TILE / BR_BLOCK, a->copies), BR_BLOCK, 0,                   \
+                          (cudaStream_t)stream>>>(*a, x, out);                             \
     return (int)cudaGetLastError();                                                        \
   }
-PROBE_WHEN(guarded, BR_GUARDED)
-PROBE_WHEN(unguarded, BR_UNGUARDED)
-PROBE_WHEN(divergent, BR_DIVERGENT)
+PROBE_WHEN(guarded, BR_GUARDED, false)
+PROBE_WHEN(unguarded, BR_UNGUARDED, false)
+PROBE_WHEN(divergent, BR_DIVERGENT, false)
+PROBE_WHEN(guarded_frnd, BR_GUARDED, true)
 
-#define PROBE_COND(form, F)                                                                 \
+#define PROBE_COND(form, F, FRND)                                                           \
   extern "C" int trt_probe_cond_##form(const ProbeBranch* a, float* out, void* stream) {     \
-    probe_cond<F><<<dim3(TILE / BR_BLOCK, a->copies), BR_BLOCK, 0, (cudaStream_t)stream>>>( \
-        *a, out);                                                                          \
+    probe_cond<F, FRND><<<dim3(TILE / BR_BLOCK, a->copies), BR_BLOCK, 0,                   \
+                          (cudaStream_t)stream>>>(*a, out);                                \
     return (int)cudaGetLastError();                                                        \
   }
-PROBE_COND(cond, BR_GUARDED)
-PROBE_COND(unguarded, BR_UNGUARDED)
-PROBE_COND(divergent, BR_DIVERGENT)
+PROBE_COND(cond, BR_GUARDED, false)
+PROBE_COND(unguarded, BR_UNGUARDED, false)
+PROBE_COND(divergent, BR_DIVERGENT, false)
+PROBE_COND(cond_frnd, BR_GUARDED, true)

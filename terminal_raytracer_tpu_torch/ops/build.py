@@ -134,9 +134,9 @@ ENTRY_POINTS = {
     ) + tuple((f"trt_probe21c_{f}", 5) for f in (
         "none", "f2i", "atan2f", "atan2_poly", "packed")
     ) + tuple((f"trt_probe_when_{f}", 4) for f in (
-        "guarded", "unguarded", "divergent")
+        "guarded", "unguarded", "divergent", "guarded_frnd")
     ) + tuple((f"trt_probe_cond_{f}", 3) for f in (
-        "cond", "unguarded", "divergent")),
+        "cond", "unguarded", "divergent", "cond_frnd")),
 }
 # What a render loads; the probes' library loads only when a probe asks.
 RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")

@@ -153,17 +153,22 @@ def loop_table(fn, forms, iters: int, reps: int, tag, head, unit: str
     return rows
 
 
+def branch_cases(forms, fracs) -> list:
+    """The (form, frac) a branch probe's table runs, in order: unguarded
+    (always heavy), then forms[0] and 'divergent' at each frac."""
+    return [("unguarded", 1.0)] + [
+        (f, fr) for f in (forms[0], "divergent") for fr in fracs]
+
+
 def branch_table(tag: str, fn, forms, fracs, reps: int,
                  ratio: str = "ratio") -> list:
-    """The branch probes' table: fn(form, frac) runs a form; first
-    unguarded (always heavy), then forms[0] and 'divergent' at each frac,
-    each with its time over unguarded's and whether its copies of the tile
-    are equal. Returns a list of {form, frac, out, ms} (ms None off the
-    card)."""
+    """The branch probes' table: fn(form, frac) runs each of
+    branch_cases(forms, fracs), with its time over unguarded's and whether
+    its copies of the tile are equal. Returns a list of {form, frac, out,
+    ms} (ms None off the card)."""
     rows = []
     full = None
-    for form, frac in [("unguarded", 1.0)] + [
-            (f, fr) for f in (forms[0], "divergent") for fr in fracs]:
+    for form, frac in branch_cases(forms, fracs):
         out = fn(form, frac)
         same = "copies equal" if torch.equal(
             out, out[:1].expand_as(out)) else "COPIES DIFFER"

@@ -13,6 +13,14 @@ y * 1.000001 + 0.5; y = y - floor(y * 0.5). Forms (csrc/probes.cu):
   divergent  each lane's own pred at seed + lane (the flat lane index of
              the tile): a warp runs heavy when any of its lanes does
 
+The kernels take floor(y * 0.5) on the FP32 pipe, as __fmaf_rd(y, 0.5,
+1.5 * 2^23) - 1.5 * 2^23: equal to floorf bit for bit wherever y * 0.5 lies
+in [-2^22, 2^22) and is not -0.0 (this module's floor arguments lie in
+[0.25, 1.2500009] at K = 400); the plain version keeps torch.floor. The
+design it replaced (floorf, the predicate's residue by division each
+iteration) stays as the entry trt_probe_cond_cond_frnd, which only
+chip_smoke.py launches.
+
     python -m terminal_raytracer_tpu_torch.tools.probe_cond \\
         [--iters 400] [--reps 5] [--device cpu]
 

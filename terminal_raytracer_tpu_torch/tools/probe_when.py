@@ -12,6 +12,14 @@ y * 1.0000001 + 0.3; y = y - floor(y * 0.25)) on acc when pred = ((i *
   divergent  each lane's own pred at seed + lane (the flat lane index of
              the tile): a warp runs the body when any of its lanes does
 
+The kernels take floor(y * 0.25) on the FP32 pipe, as __fmaf_rd(y, 0.25,
+1.5 * 2^23) - 1.5 * 2^23: equal to floorf bit for bit wherever y * 0.25 lies
+in [-2^22, 2^22) and is not -0.0 (this module's floor arguments lie in
+[0.0751, 1.0750001] at K = 256); the plain version keeps torch.floor. The
+design it replaced (floorf, the predicate's residue by division each
+iteration) stays as the entry trt_probe_when_guarded_frnd, which only
+chip_smoke.py launches.
+
     python -m terminal_raytracer_tpu_torch.tools.probe_when \\
         [--iters 256] [--reps 5] [--device cpu]
 

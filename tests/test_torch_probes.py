@@ -25,6 +25,15 @@ Tolerances:
   into one multiply-add; 5.7e-7 measured).
 - probe_when, probe_cond: the numpy transcription bit for bit.
 
+The branch kernels take floor(y * s) on the FP32 pipe (csrc/probes.cu
+floor_scaled), exact for y * s in [-2^22, 2^22) but -0.0. Every floor
+argument of the plain versions at main()'s loop counts is held to that
+range, each form's through the unguarded form's (bit for bit at K), and a
+numpy model of the rounded-down sum to np.floor, bit for bit, on every
+float32 of the binades those arguments touch and at edge values. The file
+also holds ops/build.py's probe entries to the source's macros and
+tools/sass_ops.py's reading of a SASS listing.
+
 The `cuda` cases hold every C entry of csrc/probes.cu against its plain
 version on the card, bit for bit (atan2f within rtol 1e-6 of torch.atan2),
 and skip here. The file imports no jax itself (the JAX probes import it
@@ -32,8 +41,10 @@ inside build), so on a GPU machine without jax the `cuda` cases run with
     python -m pytest --noconftest tests/test_torch_probes.py -m cuda
 """
 
+import functools
 import importlib.util
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -221,6 +232,177 @@ def test_branch_forms_differ_where_the_predicate_does():
     assert all(torch.equal(full[0], t) for t in full[1:])
 
 
+# ------------------------------ the branch kernels' floor on the FP32 pipe
+#
+# csrc/probes.cu floor_scaled takes floor(a), a = y * s, as
+# __fmaf_rd(y, s, C) - C with C = 1.5 * 2^23: equal to floorf(a) bit for bit
+# for a in [-2^22, 2^22), a not -0.0. The tests below hold every floor
+# argument of the plain versions at main()'s loop counts to that range, and
+# a numpy model of the rounded-down sum to np.floor.
+
+FLOOR_C = 1.5 * 2.0 ** 23
+FLOOR_LIMIT = 2.0 ** 22
+BRANCH = {"cond": probe_cond, "when": probe_when}
+BRANCH_CASES = [(name, form, frac) for name, mod in BRANCH.items()
+                for form, frac in _probe.branch_cases(mod.FORMS, mod.FRACS)]
+
+
+def _floor_model(a):
+    """The kernel's floor of float32 `a`: the sum with C in float64 (exact
+    here, asserted), rounded down to an integer (float32's spacing in [2^23,
+    2^24)), less C, in float32."""
+    s = a.astype(np.float64) + FLOOR_C
+    assert np.array_equal(s - FLOOR_C, a.astype(np.float64))
+    assert ((s >= 2.0 ** 23) & (s < 2.0 ** 24)).all()
+    return (np.floor(s) - FLOOR_C).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_exact_on_binade(bits0):
+    """_floor_model equals np.floor bit for bit on every float32 whose bits
+    share bits0's sign and exponent (2^23 values, in chunks)."""
+    step = 1 << 21
+    for lo in range(bits0, bits0 + (1 << 23), step):
+        a = np.arange(lo, lo + step, dtype=np.uint32).view(np.float32)
+        if not np.array_equal(_floor_model(a).view(np.uint32),
+                              np.floor(a).view(np.uint32)):
+            return False
+    return True
+
+
+def _binades(lo, hi):
+    """The first bits of every float32 binade that [lo, hi] touches; lo > 0."""
+    first = np.float32(lo).view(np.uint32) & 0xff800000
+    last = np.float32(hi).view(np.uint32) & 0xff800000
+    return range(int(first), int(last) + 1, 1 << 23)
+
+
+def _run_recording(mod, run):
+    """run() with torch.floor recording its arguments: returns run()'s
+    floor arguments as a list of heavy bodies, each a float32 array
+    [HEAVY, 16, 128] in call order."""
+    calls, floor = [], torch.floor
+
+    def rec(a):
+        calls.append(a.numpy().copy())
+        return floor(a)
+
+    with mock.patch.object(torch, "floor", rec):
+        run()
+    assert len(calls) % mod.HEAVY == 0
+    return [np.stack(calls[i:i + mod.HEAVY])
+            for i in range(0, len(calls), mod.HEAVY)]
+
+
+def _plain_run(name, form, frac, iters):
+    mod = BRANCH[name]
+    if name == "cond":
+        return lambda: mod.plain(form, mod.SEED, frac, iters, "cpu")
+    return lambda: mod.plain(form, mod.inputs("cpu"), mod.SEED, frac, iters)
+
+
+def _body_states(name, form, frac, iters):
+    """[bodies, 16, 128]: for each heavy body that the form's plain version
+    runs, in order, lane by lane, how many bodies the unguarded form had
+    run on that lane before it reached the same input state. An untaken
+    iteration leaves the state as it is (x + 0.0 on x >= 0; nothing), so a
+    guarded body's input is the unguarded input of its taken count, and a
+    divergent body (run every iteration, kept where the lane takes it) that
+    of the lane's taken count so far."""
+    mod = BRANCH[name]
+    thresh, i = int(frac * 1000), np.arange(iters)
+    lane = np.arange(_probe.TILE).reshape(_probe.SHAPE)
+    if form == "divergent":
+        take = (i[:, None, None] * 40503 + mod.SEED + lane) % 1000 < thresh
+        return np.cumsum(take, 0) - take
+    n = iters if form == "unguarded" else int(
+        ((i * 40503 + mod.SEED) % 1000 < thresh).sum())
+    return np.broadcast_to(np.arange(n)[:, None, None], (n, *_probe.SHAPE))
+
+
+@functools.lru_cache(maxsize=None)
+def _unguarded_bodies(name):
+    """[K, HEAVY, 16, 128]: the unguarded form's floor arguments at K."""
+    return np.stack(_run_recording(BRANCH[name],
+                                   _plain_run(name, "unguarded", 1.0, K)))
+
+
+@functools.lru_cache(maxsize=None)
+def _unguarded_floor_ranges(name):
+    """Per unguarded heavy body at main()'s loop count, lane by lane: the
+    least and greatest floor argument and whether one was -0.0 (run once a
+    process; the bodies are reduced as they come)."""
+    mod = BRANCH[name]
+    lo, hi, nz, calls, floor = [], [], [], [], torch.floor
+
+    def rec(a):
+        calls.append(a)
+        if len(calls) == mod.HEAVY:
+            t = torch.stack(calls)
+            calls.clear()
+            lo.append(t.amin(0))
+            hi.append(t.amax(0))
+            nz.append((t.view(torch.int32) == -2 ** 31).any(0))
+        return floor(a)
+
+    with mock.patch.object(torch, "floor", rec):
+        _plain_run(name, "unguarded", 1.0, mod.ITERS)()
+    return tuple(torch.stack(v).numpy() for v in (lo, hi, nz))
+
+
+@pytest.mark.parametrize("name, form, frac", BRANCH_CASES)
+def test_plain_floor_arguments_are_unguarded_states(name, form, frac):
+    """At K iterations, each heavy body of the form's plain version takes
+    floor of exactly the arguments the unguarded form's plain version took
+    at _body_states' index, lane by lane, bit for bit."""
+    got = _run_recording(BRANCH[name], _plain_run(name, form, frac, K))
+    base = _unguarded_bodies(name)
+    states = _body_states(name, form, frac, K)
+    assert len(got) == len(states)
+    for body, k in zip(got, states):
+        want = np.take_along_axis(base, k[None, None], 0)[0]
+        assert np.array_equal(body.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("name, form, frac", BRANCH_CASES)
+def test_plain_floor_arguments_stay_where_the_fp32_floor_is_exact(
+        name, form, frac):
+    """Every floor argument the form's plain version reaches at main()'s
+    loop count (the unguarded form's at _body_states, as the test above
+    holds) lies in [-2^22, 2^22) and is never -0.0, and the model equals
+    np.floor on every float32 of each binade that their range touches."""
+    mod = BRANCH[name]
+    lo, hi, nz = _unguarded_floor_ranges(name)
+    k = _body_states(name, form, frac, mod.ITERS)
+    at = np.arange(_probe.TILE).reshape(_probe.SHAPE)
+    a_lo = float(lo.reshape(mod.ITERS, -1)[k.reshape(len(k), -1),
+                                            at.reshape(-1)].min())
+    a_hi = float(hi.reshape(mod.ITERS, -1)[k.reshape(len(k), -1),
+                                            at.reshape(-1)].max())
+    assert -FLOOR_LIMIT <= a_lo and a_hi < FLOOR_LIMIT
+    assert not nz.reshape(mod.ITERS, -1)[k.reshape(len(k), -1),
+                                         at.reshape(-1)].any()
+    assert 0.0 < a_lo, "a range through 0 needs its subnormals checked"
+    assert all(_model_exact_on_binade(b) for b in _binades(a_lo, a_hi))
+
+
+def test_floor_model_on_edge_values():
+    """The model against np.floor at integers, the floats just below them,
+    halves, negatives and the ends of [-2^22, 2^22); at -0.0 it gives +0.0,
+    the one difference (hence no -0.0 argument above)."""
+    n = np.array([-FLOOR_LIMIT, -FLOOR_LIMIT + 1, -3, -2, -1, 1, 2, 3,
+                  FLOOR_LIMIT - 1], np.float32)
+    a = np.concatenate([n, np.nextafter(n, np.float32(-np.inf)), n + 0.5,
+                        np.array([0.0, 0.25, -0.25, 0.075, 1.25,
+                                  FLOOR_LIMIT - 0.25], np.float32)])
+    a = a[a >= -FLOOR_LIMIT]
+    assert np.array_equal(_floor_model(a).view(np.uint32),
+                          np.floor(a).view(np.uint32))
+    z = np.array([-0.0], np.float32)
+    assert _floor_model(z).view(np.uint32)[0] == 0
+    assert np.floor(z).view(np.uint32)[0] == 0x80000000
+
+
 # ------------------------------------------------------------- helpers
 
 
@@ -290,6 +472,64 @@ def test_render_sources_leave_out_the_probe_library():
                    for name, _ in build.ENTRY_POINTS[src])
 
 
+def test_probe_entries_match_the_source():
+    """ops/build.py declares exactly the entries that csrc/probes.cu's
+    macros define, with the pointer count of their macro's signature: the
+    FRND baselines of the branch probes included."""
+    import re
+
+    from terminal_raytracer_tpu_torch.ops import build
+
+    text = (build.CSRC / "probes.cu").read_text()
+    n_ptr = {"PROBE21": 5, "PROBE21B": 5, "PROBE21C": 5, "PROBE_WHEN": 4,
+             "PROBE_COND": 3}
+    prefix = {"PROBE21": "probe21", "PROBE21B": "probe21b",
+              "PROBE21C": "probe21c", "PROBE_WHEN": "probe_when",
+              "PROBE_COND": "probe_cond"}
+    defined = {f"trt_{prefix[m]}_{form}": n_ptr[m] for m, form in
+               re.findall(r"^(PROBE\w+)\((\w+),", text, re.M)}
+    assert defined == dict(build.ENTRY_POINTS["probes.cu"])
+    assert {"trt_probe_when_guarded_frnd",
+            "trt_probe_cond_cond_frnd"} <= set(defined)
+
+
+SASS = """\
+\t\tFunction : _ZN41_GLOBAL__N__a9_probes_cu_29b410probe_condILi0ELb1EEEv11ProbeBranchPf
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;              /* 0x00000a00ff017b82 */
+                                                                       /* 0x000e220000000800 */
+        /*01b0*/                   @!UP0 UIADD3 UR5, UR5, 0x3e8, URZ ; /* 0x000003e805058890 */
+        /*01c0*/                   FMUL R3, R2, 1.0000009536743164062 ;
+        /*01d0*/                   FADD R3, R3, 0.5 ;
+        /*01e0*/                   FMUL R4, R3, 0.5 ;
+        /*01f0*/                   FRND.FLOOR R4, R4 ;
+        /*0200*/               @P1 FADD R2, R3, -R4 ;
+        /*0210*/                   ISETP.GE.AND P0, PT, R3, UR6, PT ;
+\t\tFunction : _ZN41_GLOBAL__N__a9_probes_cu_29b410probe_condILi0ELb0EEEv11ProbeBranchPf
+        /*0000*/                   FMUL R3, R2, 1.0000009536743164062 ;
+        /*0010*/                   FADD R3, R3, 0.5 ;
+        /*0020*/                   FFMA.RM R4, R3, 0.5, 12582912 ;
+        /*0030*/                   FADD R4, R4, -12582912 ;
+        /*0040*/                   FADD R2, R3, -R4 ;
+"""
+
+
+def test_sass_ops_counts_a_heavy_step():
+    """tools/sass_ops.py reads a cuobjdump -sass listing: opcodes with
+    their modifiers, guards dropped, encoding lines skipped; a step is one
+    floor, FRND or FFMA.RM."""
+    from terminal_raytracer_tpu_torch.tools import sass_ops
+
+    found = sass_ops.functions(SASS)
+    frnd, fp32 = (found[k] for k in sorted(found, key=lambda k: "Lb0E" in k))
+    assert dict(frnd) == {"LDC": 1, "UIADD3": 1, "FMUL": 2, "FADD": 2,
+                          "FRND.FLOOR": 1, "ISETP.GE.AND": 1}
+    assert sass_ops.steps(frnd) == sass_ops.steps(fp32) == 1
+    assert sass_ops.per_step(fp32) == "FADD 3.00, FFMA.RM 1.00, FMUL 1.00"
+    assert sass_ops.per_step(frnd) == "FADD 2.00, FMUL 2.00, FRND.FLOOR 1.00"
+    assert sass_ops.uniform_share(frnd) == "uniform 1, vector integer 1"
+
+
 # ----------------------------------------------------------- on the card
 
 
@@ -356,3 +596,22 @@ def test_probe_cond_kernel_matches_plain(cuda_device, form):
     assert probe_cond.branch.launches[form] == n0 + 1
     want = probe_cond.plain(form, 7, 0.25, K, cuda_device)
     assert torch.equal(got, want.expand_as(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters, seed", [(1, 7), (7, -12345), (13, 999)])
+@pytest.mark.parametrize("name", ["when", "cond"])
+def test_branch_kernels_match_plain_at_any_loop_count(cuda_device, name,
+                                                      iters, seed):
+    """The unrolled loop's remainder trips and the carried residue from a
+    negative seed: every form at frac 0.5 against its plain version."""
+    mod = BRANCH[name]
+    for form in mod.FORMS:
+        if name == "when":
+            x = mod.inputs(cuda_device)
+            got = mod.branch(form, x, seed, 0.5, iters)
+            want = mod.plain(form, x, seed, 0.5, iters)
+        else:
+            got = mod.branch(form, seed, 0.5, iters, cuda_device)
+            want = mod.plain(form, seed, 0.5, iters, cuda_device)
+        assert torch.equal(got, want.expand_as(got)), form
