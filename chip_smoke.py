@@ -3523,6 +3523,14 @@ PROBE_ROWS = (
 # is timed against; only this script launches it.
 PROBE_FRND = {"probe_when": "trt_probe_when_guarded_frnd",
               "probe_cond": "trt_probe_cond_cond_frnd"}
+# The loop each gather probe's kernels replaced (one iteration after
+# another, 16 blocks of 128) at its row forms: the baseline the shipped
+# loop is timed against; only this script launches it.
+PROBE_SERIAL = {"probe21": ("none", "ldg"), "probe21b": ("none", "rowsel_ldg")}
+PROBE_BURST = 50  # back-to-back launches a mean of _probe_serial takes
+# An FP32 add's latency in clocks: the gathers' chain of ITERS dependent
+# adds takes ITERS times it at 1980 MHz (printed beside the bound).
+PROBE_FADD_CLOCKS = 4
 # FP32 operations a lane-iteration of the probes' loops: the gathers' add;
 # 21c packed: x = x0 + 0.001 i (2), the texel index (4 floors, 2
 # subtracts, 3 multiplies), the unpack's 3 multiplies and the 3 adds; the
@@ -3574,6 +3582,60 @@ def _probe_frnd(name, mod, x, want):
           f"shipped: {' / '.join(f'{t:.4f}' for t in turns)} ms; {base} "
           "bit for bit against the plain version", flush=True)
     return min(turns[1], turns[2])
+
+
+def _probe_serial(name, mod, tab, idx0, want):
+    """The _serial baselines of gather probe `name` (the loop the shipped
+    one replaced) at its row forms: each bit for bit against the plain
+    version `want[form]`, then timed with the shipped entry in turns
+    (shipped, serial, serial, shipped), each also at 0 iterations (the
+    launch alone, L) and as the mean of PROBE_BURST back-to-back launches;
+    launched directly, so that the launch counters stay as main() left
+    them. Prints each row form's loop time, t - L, and the shipped loop's
+    share of the serial one's. Returns {form: (shipped ms, serial ms,
+    shipped L, serial L)}, each the least of its turns."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.tools import _probe
+
+    out = torch.empty(_probe.SHAPE, dtype=torch.float32, device="cuda")
+    n = tab.numel()
+
+    def call(entry, iters):
+        args = _probe.GatherArgs(n, iters)
+        return lambda: _probe.launch(entry, args, tab, idx0, out)
+
+    res = {}
+    for form in PROBE_SERIAL[name]:
+        shipped, serial = f"trt_{name}_{form}", f"trt_{name}_{form}_serial"
+        call(serial, mod.ITERS)()
+        torch.cuda.synchronize()
+        err = maxabs(out, want[form])
+        if err != 0.0:
+            fail(f"[probes] {serial}: off its plain version by {err:.3e}")
+        t = {}
+        for iters in (mod.ITERS, 0):
+            turns = [_probe.time_ms(call(e, iters), PROBE_REPS)
+                     for e in (shipped, serial, serial, shipped)]
+            t[iters] = turns
+            burst = [_time_cuda(call(e, iters), PROBE_BURST)
+                     for e in (shipped, serial)]
+            print(f"[probes] {name} {form} {iters} iterations in turns "
+                  f"shipped / serial / serial / shipped: "
+                  f"{' / '.join(f'{x:.4f}' for x in turns)} ms; "
+                  f"mean of {PROBE_BURST} back to back: shipped "
+                  f"{burst[0]:.4f}, serial {burst[1]:.4f} ms", flush=True)
+        ms = (min(t[mod.ITERS][0], t[mod.ITERS][3]),
+              min(t[mod.ITERS][1], t[mod.ITERS][2]),
+              min(t[0][0], t[0][3]), min(t[0][1], t[0][2]))
+        loop, loop_serial = ms[0] - ms[2], ms[1] - ms[3]
+        print(f"[probes] {name} {form}: loop (t - L) shipped {loop:.4f} ms, "
+              f"serial {loop_serial:.4f} ms, share {loop / loop_serial:.3f} "
+              f"(<= 0.40: {loop <= 0.40 * loop_serial}); L {ms[2]:.4f} / "
+              f"{ms[3]:.4f} ms; {serial} bit for bit against the plain "
+              "version", flush=True)
+        res[form] = ms
+    return res
 
 
 def _probe_sass():
@@ -3682,6 +3744,15 @@ def phase_probes(peak):
         bound = _bound(ops, n_bytes, peak)
         out[name] = (worst, ms, plain_ms, bound)
         frnd = ""
+        if name in PROBE_SERIAL:
+            tab, idx0 = ins21[cfg0] if name == "probe21" else (tab_b, idx_b)
+            want = {f: next(plains[name](r) for r in results[name]
+                            if r["form"] == f and r.get("n", cfg0) == cfg0)
+                    for f in PROBE_SERIAL[name]}
+            ser = _probe_serial(name, mods[name], tab, idx0, want)
+            frnd = (f" (serial {ser[form0][1]:.4f} ms; L {ser[form0][2]:.4f}"
+                    f", serial {ser[form0][3]:.4f}; chain floor "
+                    f"{mods[name].ITERS * PROBE_FADD_CLOCKS / 1980e3:.5f})")
         if name in PROBE_FRND:
             r0 = next(r for r in results[name]
                       if r["form"] == form0 and r["frac"] == cfg0)

@@ -7,8 +7,10 @@
 // terminal_raytracer_tpu_torch/tools/.
 //
 // The probes' (16, 128) tile becomes 2048 threads, one per tile element e
-// = row * 128 + col, in blocks of 128 (one tile row a block) for the gather
-// probes and of 256 for the branch probes. A TPU probe's sequential grid
+// = blockIdx.x * block + threadIdx.x = row * 128 + col: blocks of 32 for
+// the gather probes (one warp on each of 64 SMs), of 128 for probe21c and
+// the gather probes' *_serial entries (one tile row a block) and of 256 for
+// the branch probes. A TPU probe's sequential grid
 // steps become blockIdx.y: each step's blocks write their own copy of the
 // output tile, and the launcher checks that every copy is equal.
 //
@@ -18,7 +20,8 @@
 //   global      a plain global load (ld.global)
 //   ldg         __ldg, the read-only path of the port's texel fetch
 //               (trace.cuh fetch_texel)
-//   shared      the table staged in shared memory by each block
+//   shared      the table staged in shared memory by each block, as one
+//               bulk asynchronous copy (cp.async.bulk on an mbarrier)
 //   shfl        the table held in the warp's registers and fetched with
 //               __shfl_sync plus a select on the register index: 4 shuffles
 //               for a 128-wide row, 64 for the full 2048-texel table; a
@@ -33,16 +36,20 @@
 //               exact in TF32, so its small part is 0), big A x small B,
 //               then big A x big B, so g = big + small
 //   selectacc   the O(n) compare-select loop g += idx == k ? tab[k] : 0
-// What bounds them: latency, not bytes or FP32 rate. 2048 threads fill 16
-// of the 132 SMs, under 1% of the card's resident threads; each iteration
-// is one fetch and one add per thread, so µs per fetch over the loop
-// baseline is the fetch's latency less what the warp schedulers overlap.
+// What bounds them: not bytes or FP32 rate. A thread's adds are one
+// dependent chain (512 FP32 adds of 4 clocks: 1.03 µs at 1980 MHz), and
+// every fetch is a warp instruction of its own. The loop runs in trips of U
+// iterations (gather_loop; U per form, beside its entry): the next trip's
+// fetches are issued before this trip's adds, so they wait under the adds,
+// one warp to an SM. What is left is the launch and, for a per-lane load,
+// the SM's rate for one warp's scattered loads (PERF.md §6).
 //
 // Texture building blocks (tools/perf_probe21c.py:65): x = x0 + 0.001 i,
 // then the texel index from uv (floor, cast, iv * 32 + iu), atan2 (CUDA's
 // atan2f, the counterpart of jnp.arctan2, and the port's polynomial
 // trace.cuh atan2_poly), or the packed rgb texel through __ldg and
-// trace.cuh unpack_texel's arithmetic. Bound by the same latency.
+// trace.cuh unpack_texel's arithmetic: one iteration after another, each
+// waiting on the last.
 //
 // Branch probes (tools/probe_when.py:54 with 64 grid steps, probe_cond.py:58
 // with 256): K iterations whose heavy body runs when pred = ((i * 40503 +
@@ -73,9 +80,19 @@ namespace {
 
 constexpr int TILE = 2048;     // the probes' (16, 128) tile
 constexpr int TILE_W = 128;
-constexpr int BLOCK = 128;     // gather probes: one tile row a block
+constexpr int BLOCK = 128;     // probe21c, the *_serial entries: one tile row a block
 constexpr int BR_BLOCK = 256;  // branch probes
 constexpr unsigned FULL = 0xffffffffu;
+#ifndef TRT_GATHER_BLOCK
+#define TRT_GATHER_BLOCK 32
+#endif
+constexpr int GBLOCK = TRT_GATHER_BLOCK;  // gather probes: threads a block
+
+// A gather form's block: GBLOCK threads, but a whole warp where its fetch
+// is a warp collective (shuffles, mma).
+constexpr int gather_block(bool collective) {
+  return collective && GBLOCK < 32 ? 32 : GBLOCK;
+}
 
 }  // namespace
 
@@ -117,46 +134,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// tab[idx] of every lane as a one-hot product on the tensor cores (a warp
-// collective: all 32 lanes call it). big: the TF32 table in shared memory;
-// SPLIT adds small, tab - big in TF32, as the 3xTF32 split. Lane l's row
-// is row l & 15 of tile l >> 4. Fragments (PTX ISA, mma.m16n8k8 .tf32),
-// with g = lane >> 2, t = lane & 3: A a0/a1 rows g/g+8 at column t, a2/a3
-// the same rows at t+4; B b0/b1 rows t/t+4 (every column alike); D c0 row
-// g, c2 row g+8.
-template <bool SPLIT>
-__device__ __forceinline__ float onehot_gather(const float* big, const float* small, int n,
-                                               int idx) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r00 = __shfl_sync(FULL, idx, g), r01 = __shfl_sync(FULL, idx, g + 8);
-  const int r10 = __shfl_sync(FULL, idx, g + 16), r11 = __shfl_sync(FULL, idx, g + 24);
-  const uint32_t ONE = 0x3f800000u;  // 1.0f, exact in TF32
-  float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < n; k0 += 8) {
-    const int ka = k0 + t, kb = k0 + t + 4;
-    const uint32_t b0 = __float_as_uint(big[ka]), b1 = __float_as_uint(big[kb]);
-    const uint32_t a00 = r00 == ka ? ONE : 0u, a01 = r01 == ka ? ONE : 0u;
-    const uint32_t a02 = r00 == kb ? ONE : 0u, a03 = r01 == kb ? ONE : 0u;
-    const uint32_t a10 = r10 == ka ? ONE : 0u, a11 = r11 == ka ? ONE : 0u;
-    const uint32_t a12 = r10 == kb ? ONE : 0u, a13 = r11 == kb ? ONE : 0u;
-    if constexpr (SPLIT) {
-      const uint32_t s0 = __float_as_uint(small[ka]), s1 = __float_as_uint(small[kb]);
-      mma_tf32(d0, 0u, 0u, 0u, 0u, b0, b1);  // small A x big B
-      mma_tf32(d1, 0u, 0u, 0u, 0u, b0, b1);
-      mma_tf32(d0, a00, a01, a02, a03, s0, s1);  // big A x small B
-      mma_tf32(d1, a10, a11, a12, a13, s0, s1);
-    }
-    mma_tf32(d0, a00, a01, a02, a03, b0, b1);  // big A x big B
-    mma_tf32(d1, a10, a11, a12, a13, b0, b1);
-  }
-  // Row r of a tile: lane 4 (r & 7) holds it, in c0 for r < 8, else c2.
-  const int src = (lane & 7) << 2;
-  const float v00 = __shfl_sync(FULL, d0[0], src), v01 = __shfl_sync(FULL, d0[2], src);
-  const float v10 = __shfl_sync(FULL, d1[0], src), v11 = __shfl_sync(FULL, d1[2], src);
-  const int q = lane >> 3;
-  return q == 0 ? v00 : q == 1 ? v01 : q == 2 ? v10 : v11;
-}
-
 // reg[sel], by a select over the registers (no local-memory indexing).
 template <int R>
 __device__ __forceinline__ float reg_select(const float (&reg)[R], int sel) {
@@ -178,51 +155,249 @@ __device__ __forceinline__ float shfl_select(const float (&reg)[R], int src, int
   return g;
 }
 
+// ------------------------------------------------- the gather probes' loop
+
+// acc = the sum over i < iters of g_i, added in loop order. The parent's
+// design (serial_loop, kept as the *_serial entries): one iteration after
+// another, as written, in blocks of BLOCK. The shipped loop: trips of U
+// iterations, trip t + 1's fetches issued before trip t's adds, so that a
+// fetch waits under the adds of the trip before it and the adds alone are
+// the dependent chain; iters mod U iterations end it as one shorter trip.
+// trip(i, n, g) sets g[u] = g_(i + u) for u < n <= U; n is the same on
+// every lane of a warp, so a fetch may be a warp collective.
+template <int U>
+__device__ __forceinline__ void add_trip(float& acc, const float (&g)[U], int n = U) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u < n) acc = acc + g[u];
+}
+
+// PAIRS: two trips a pass, g and h in turn, so that no register is copied
+// (a form whose fetch is one instruction); else one trip a pass and the
+// fetched values copied (a form whose fetch is a loop of its own, beside
+// which the copies cost nothing and a second trip's code ran slower).
+template <int U, bool PAIRS, typename Trip>
+__device__ __forceinline__ float gather_loop(int iters, const Trip& trip) {
+  float acc = 0.0f, g[U], h[U];
+  const int full = iters - iters % U;
+  if (full > 0) trip(0, U, g);
+  if constexpr (PAIRS) {
+    int i = U;
+#pragma unroll 1
+    for (; i + U < full; i += 2 * U) {
+      trip(i, U, h);
+      add_trip(acc, g);
+      trip(i + U, U, g);
+      add_trip(acc, h);
+    }
+    if (i < full) {
+      trip(i, U, h);
+      add_trip(acc, g);
+      add_trip(acc, h);
+    } else if (full > 0) {
+      add_trip(acc, g);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = U; i < full; i += U) {
+      trip(i, U, h);
+      add_trip(acc, g);
+#pragma unroll
+      for (int u = 0; u < U; ++u) g[u] = h[u];
+    }
+    if (full > 0) add_trip(acc, g);
+  }
+  const int rest = iters - full;
+  if (rest > 0) {
+    trip(full, rest, g);
+    add_trip(acc, g, rest);
+  }
+  return acc;
+}
+
+template <typename Fetch>
+__device__ __forceinline__ float serial_loop(int iters, const Fetch& fetch) {
+  float acc = 0.0f;
+  for (int i = 0; i < iters; ++i) acc = acc + fetch(i);
+  return acc;
+}
+
+// The trip of a form whose fetch(i) is one iteration's alone.
+template <int U, typename Fetch>
+struct Each {
+  Fetch fetch;
+  __device__ __forceinline__ void operator()(int i, int n, float (&g)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < n) g[u] = fetch(i + u);
+  }
+};
+
+template <int U, typename Fetch>
+__device__ __forceinline__ Each<U, Fetch> each(const Fetch& fetch) {
+  return {fetch};
+}
+
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from global
+// src to shared dst as one bulk asynchronous copy on an mbarrier; every
+// thread of the block returns once it has landed.
+__device__ __forceinline__ void stage_bulk(float* dst, const float* src, uint32_t bytes) {
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+        "l"(src), "r"(bytes), "r"(b)
+        : "memory");
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(b) : "memory");
+}
+
+// g[u] = tab[idx[u]] of every lane for u < cnt as a one-hot product on the
+// tensor cores (a warp collective: all 32 lanes call it). big: the TF32
+// table in shared memory; SPLIT adds small, tab - big in TF32, as the
+// 3xTF32 split. Lane l's row is row l & 15 of tile l >> 4. Fragments (PTX
+// ISA, mma.m16n8k8 .tf32), with gr = lane >> 2, t = lane & 3: A a0/a1 rows
+// gr/gr+8 at column t, a2/a3 the same rows at t+4; B b0/b1 rows t/t+4
+// (every column alike); D c0 row gr, c2 row gr+8. The trip's products run
+// side by side, k-step by k-step, each with its own accumulators and k
+// order, so that their mma's overlap on the tensor cores.
+template <bool SPLIT, int U>
+__device__ __forceinline__ void onehot_trip(const float* big, const float* small, int n,
+                                            const int (&idx)[U], int cnt, float (&g)[U]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const uint32_t ONE = 0x3f800000u;  // 1.0f, exact in TF32
+  int r00[U], r01[U], r10[U], r11[U];
+  float d0[U][4], d1[U][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u < cnt) {
+      r00[u] = __shfl_sync(FULL, idx[u], gr);
+      r01[u] = __shfl_sync(FULL, idx[u], gr + 8);
+      r10[u] = __shfl_sync(FULL, idx[u], gr + 16);
+      r11[u] = __shfl_sync(FULL, idx[u], gr + 24);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d0[u][c] = d1[u][c] = 0.0f;
+  }
+  for (int k0 = 0; k0 < n; k0 += 8) {
+    const int ka = k0 + t, kb = k0 + t + 4;
+    const uint32_t b0 = __float_as_uint(big[ka]), b1 = __float_as_uint(big[kb]);
+    uint32_t s0 = 0u, s1 = 0u;
+    if constexpr (SPLIT) s0 = __float_as_uint(small[ka]), s1 = __float_as_uint(small[kb]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u >= cnt) continue;
+      const uint32_t a00 = r00[u] == ka ? ONE : 0u, a01 = r01[u] == ka ? ONE : 0u;
+      const uint32_t a02 = r00[u] == kb ? ONE : 0u, a03 = r01[u] == kb ? ONE : 0u;
+      const uint32_t a10 = r10[u] == ka ? ONE : 0u, a11 = r11[u] == ka ? ONE : 0u;
+      const uint32_t a12 = r10[u] == kb ? ONE : 0u, a13 = r11[u] == kb ? ONE : 0u;
+      if constexpr (SPLIT) {
+        mma_tf32(d0[u], 0u, 0u, 0u, 0u, b0, b1);  // small A x big B
+        mma_tf32(d1[u], 0u, 0u, 0u, 0u, b0, b1);
+        mma_tf32(d0[u], a00, a01, a02, a03, s0, s1);  // big A x small B
+        mma_tf32(d1[u], a10, a11, a12, a13, s0, s1);
+      }
+      mma_tf32(d0[u], a00, a01, a02, a03, b0, b1);  // big A x big B
+      mma_tf32(d1[u], a10, a11, a12, a13, b0, b1);
+    }
+  }
+  // Row r of a tile: lane 4 (r & 7) holds it, in c0 for r < 8, else c2.
+  const int src = (lane & 7) << 2, q = lane >> 3;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= cnt) continue;
+    const float v00 = __shfl_sync(FULL, d0[u][0], src), v01 = __shfl_sync(FULL, d0[u][2], src);
+    const float v10 = __shfl_sync(FULL, d1[u][0], src), v11 = __shfl_sync(FULL, d1[u][2], src);
+    g[u] = q == 0 ? v00 : q == 1 ? v01 : q == 2 ? v10 : v11;
+  }
+}
+
+// g[u] = the sum over k < n, in order, of idx[u] == k ? tab[k] : 0, for
+// u < cnt: a trip's compare-select loops side by side.
+template <int U>
+__device__ __forceinline__ void select_trip(const float* tab, int n, const int (&idx)[U],
+                                            int cnt, float (&g)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) g[u] = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const float v = tab[k];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < cnt) g[u] = g[u] + (idx[u] == k ? v : 0.0f);
+  }
+}
+
 // ----------------------------------------------------- perf_probe21.py:73
 
 enum { P21_NONE, P21_GLOBAL, P21_LDG, P21_SHARED, P21_ONEHOT, P21_SELECT };
 
-template <int F>
-constexpr bool STAGED21 = F == P21_SHARED || F == P21_ONEHOT || F == P21_SELECT;
+// U: iterations a trip; 0, the serial loop in blocks of BLOCK.
+template <int F, int U>
+constexpr int BLOCK21 = U == 0 ? BLOCK : gather_block(F == P21_ONEHOT);
 
-template <int F>
-__global__ void __launch_bounds__(BLOCK)
+template <int F, int U>
+__global__ void __launch_bounds__(BLOCK21<F, U>)
     probe21(ProbeGather a, const float* tab, const int* idx0, float* out) {
-  extern __shared__ float s_tab[];
-  if constexpr (STAGED21<F>) {
-    for (int k = threadIdx.x; k < a.n; k += BLOCK)
-      s_tab[k] = F == P21_ONEHOT ? tf32(tab[k]) : tab[k];
+  constexpr int B = BLOCK21<F, U>;
+  extern __shared__ __align__(16) float s_tab[];
+  if constexpr (F == P21_ONEHOT) {
+    for (int k = threadIdx.x; k < a.n; k += B) s_tab[k] = tf32(tab[k]);
     __syncthreads();
+  } else if constexpr (F == P21_SHARED || F == P21_SELECT) {
+    stage_bulk(s_tab, tab, a.n * sizeof(float));
   }
-  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  const int e = blockIdx.x * B + threadIdx.x;
   const int mask = a.n - 1, i0 = idx0[e];
-  float acc = 0.0f;
-  for (int i = 0; i < a.iters; ++i) {
+  auto fetch = [&](int i) -> float {
     const int idx = (i0 + i) & mask;
-    float g;
     if constexpr (F == P21_NONE) {
-      g = (float)idx;
+      return (float)idx;
     } else if constexpr (F == P21_GLOBAL) {
-      g = ld_global(tab + idx);
+      return ld_global(tab + idx);
     } else if constexpr (F == P21_LDG) {
-      g = __ldg(tab + idx);
-    } else if constexpr (F == P21_SHARED) {
-      g = s_tab[idx];
-    } else if constexpr (F == P21_ONEHOT) {
-      g = onehot_gather<false>(s_tab, nullptr, a.n, idx);
+      return __ldg(tab + idx);
     } else {
-      g = 0.0f;
-      for (int k = 0; k < a.n; ++k) g = g + (idx == k ? s_tab[k] : 0.0f);
+      return s_tab[idx];
     }
-    acc = acc + g;
+  };
+  float acc;
+  if constexpr (U == 0) {
+    acc = serial_loop(a.iters, fetch);
+  } else if constexpr (F == P21_ONEHOT || F == P21_SELECT) {
+    acc = gather_loop<U, false>(a.iters, [&](int i, int n, float(&g)[U]) {
+      int idx[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) idx[u] = (i0 + i + u) & mask;
+      if constexpr (F == P21_ONEHOT) {
+        onehot_trip<false>(s_tab, nullptr, a.n, idx, n, g);
+      } else {
+        select_trip(s_tab, a.n, idx, n, g);
+      }
+    });
+  } else {
+    acc = gather_loop<U, true>(a.iters, each<U>(fetch));
   }
   out[e] = acc;
 }
 
-template <int F>
+template <int F, int U>
 int launch21(const ProbeGather* a, const float* tab, const int* idx0, float* out, void* stream) {
-  const size_t smem = STAGED21<F> ? a->n * sizeof(float) : 0;
-  probe21<F><<<TILE / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(*a, tab, idx0, out);
+  constexpr int B = BLOCK21<F, U>;
+  const bool staged = F == P21_SHARED || F == P21_ONEHOT || F == P21_SELECT;
+  const size_t smem = staged ? a->n * sizeof(float) : 0;
+  probe21<F, U><<<TILE / B, B, smem, (cudaStream_t)stream>>>(*a, tab, idx0, out);
   return (int)cudaGetLastError();
 }
 
@@ -231,25 +406,32 @@ int launch21(const ProbeGather* a, const float* tab, const int* idx0, float* out
 enum { B_NONE, B_TALA1, B_TALA0, B_ROWSEL, B_ONEHOT_HI };
 enum { H_LDG, H_SHARED, H_SHFL };
 
-template <int OP, int HOME>
-__global__ void __launch_bounds__(BLOCK)
+// tala0's register home takes a select on the thread's own registers, no
+// shuffle.
+template <int OP, int HOME, int U>
+constexpr int BLOCK21B =
+    U == 0 ? BLOCK
+           : gather_block((HOME == H_SHFL && OP != B_TALA0) || OP == B_ONEHOT_HI);
+
+template <int OP, int HOME, int U>
+__global__ void __launch_bounds__(BLOCK21B<OP, HOME, U>)
     probe21b(ProbeGather a, const float* tab, const int* idx0, float* out) {
+  constexpr int B = BLOCK21B<OP, HOME, U>;
   // The table (shared), or its TF32 big and small parts (onehot_hi).
-  __shared__ float s_tab[2 * TILE];
-  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  __shared__ __align__(16) float s_tab[2 * TILE];
+  const int e = blockIdx.x * B + threadIdx.x;
   const int row = e / TILE_W, col = e % TILE_W, lane = threadIdx.x & 31;
   if constexpr (OP == B_ONEHOT_HI) {
-    for (int k = threadIdx.x; k < TILE; k += BLOCK) {
+    for (int k = threadIdx.x; k < TILE; k += B) {
       const float v = tab[k], big = tf32(v);
       s_tab[k] = big;
       s_tab[TILE + k] = tf32(v - big);
     }
     __syncthreads();
   } else if constexpr (HOME == H_SHARED) {
-    for (int k = threadIdx.x; k < TILE; k += BLOCK) s_tab[k] = tab[k];
-    __syncthreads();
+    stage_bulk(s_tab, tab, TILE * sizeof(float));
   }
-  // shfl: tala1 holds the block's row (element c in lane c & 31, register
+  // shfl: tala1 holds the warp's row (element c in lane c & 31, register
   // c >> 5), tala0 the thread's own column, rowsel the whole table (flat f
   // in lane f & 31, register f >> 5).
   constexpr int R = HOME != H_SHFL ? 1 : OP == B_TALA1 ? 4 : OP == B_TALA0 ? 16 : 64;
@@ -262,34 +444,43 @@ __global__ void __launch_bounds__(BLOCK)
                                             : lane + 32 * r));
   }
   const int i0 = idx0[e];
-  float acc = 0.0f;
-  for (int i = 0; i < a.iters; ++i) {
+  auto fetch = [&](int i) -> float {
     const int idx = (i0 + i) & (TILE - 1);
-    float g;
     if constexpr (OP == B_NONE) {
-      g = (float)idx;
-    } else if constexpr (OP == B_ONEHOT_HI) {
-      g = onehot_gather<true>(s_tab, s_tab + TILE, TILE, idx);
+      return (float)idx;
     } else if constexpr (HOME == H_SHFL && OP == B_TALA0) {
-      g = reg_select(reg, idx & 15);
+      return reg_select(reg, idx & 15);
     } else if constexpr (HOME == H_SHFL) {
       const int f = OP == B_TALA1 ? idx & 127 : idx;
-      g = shfl_select(reg, f & 31, f >> 5);
+      return shfl_select(reg, f & 31, f >> 5);
     } else {
       const int f = OP == B_TALA1   ? row * TILE_W + (idx & 127)
                     : OP == B_TALA0 ? (idx & 15) * TILE_W + col
                                     : (idx >> 7) * TILE_W + (idx & 127);
-      g = HOME == H_LDG ? __ldg(tab + f) : s_tab[f];
+      return HOME == H_LDG ? __ldg(tab + f) : s_tab[f];
     }
-    acc = acc + g;
+  };
+  float acc;
+  if constexpr (U == 0) {
+    acc = serial_loop(a.iters, fetch);
+  } else if constexpr (OP == B_ONEHOT_HI) {
+    acc = gather_loop<U, false>(a.iters, [&](int i, int n, float(&g)[U]) {
+      int idx[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) idx[u] = (i0 + i + u) & (TILE - 1);
+      onehot_trip<true>(s_tab, s_tab + TILE, TILE, idx, n, g);
+    });
+  } else {
+    acc = gather_loop<U, HOME != H_SHFL>(a.iters, each<U>(fetch));
   }
   out[e] = acc;
 }
 
-template <int OP, int HOME>
+template <int OP, int HOME, int U>
 int launch21b(const ProbeGather* a, const float* tab, const int* idx0, float* out,
               void* stream) {
-  probe21b<OP, HOME><<<TILE / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(*a, tab, idx0, out);
+  constexpr int B = BLOCK21B<OP, HOME, U>;
+  probe21b<OP, HOME, U><<<TILE / B, B, 0, (cudaStream_t)stream>>>(*a, tab, idx0, out);
   return (int)cudaGetLastError();
 }
 
@@ -441,34 +632,47 @@ __global__ void __launch_bounds__(BR_BLOCK) probe_cond(ProbeBranch a, float* out
 // Every entry: out f32 [16, 128] (branch probes [copies, 16, 128]) on the
 // given stream; returns cudaGetLastError().
 
-#define PROBE21(form, F)                                                                  \
+// The gather forms' iterations a trip, each form's fastest of 4, 8, 16 and
+// 32 (tools/gather_tune.py); -DTRT_GATHER_U=u gives every form u for that
+// sweep. 0: the serial loop the shipped one replaced.
+#ifdef TRT_GATHER_U
+#define TRIP(u) TRT_GATHER_U
+#else
+#define TRIP(u) u
+#endif
+
+#define PROBE21(form, F, U)                                                               \
   extern "C" int trt_probe21_##form(const ProbeGather* a, const float* tab, const int* idx0, \
                                     float* out, void* stream) {                          \
-    return launch21<F>(a, tab, idx0, out, stream);                                       \
+    return launch21<F, U>(a, tab, idx0, out, stream);                                    \
   }
-PROBE21(none, P21_NONE)
-PROBE21(global, P21_GLOBAL)
-PROBE21(ldg, P21_LDG)
-PROBE21(shared, P21_SHARED)
-PROBE21(onehotmm, P21_ONEHOT)
-PROBE21(selectacc, P21_SELECT)
+PROBE21(none, P21_NONE, TRIP(32))
+PROBE21(global, P21_GLOBAL, TRIP(32))
+PROBE21(ldg, P21_LDG, TRIP(32))
+PROBE21(shared, P21_SHARED, TRIP(32))
+PROBE21(onehotmm, P21_ONEHOT, TRIP(8))
+PROBE21(selectacc, P21_SELECT, TRIP(16))
+PROBE21(none_serial, P21_NONE, 0)
+PROBE21(ldg_serial, P21_LDG, 0)
 
-#define PROBE21B(form, OP, HOME)                                                           \
+#define PROBE21B(form, OP, HOME, U)                                                        \
   extern "C" int trt_probe21b_##form(const ProbeGather* a, const float* tab, const int* idx0, \
                                      float* out, void* stream) {                          \
-    return launch21b<OP, HOME>(a, tab, idx0, out, stream);                                \
+    return launch21b<OP, HOME, U>(a, tab, idx0, out, stream);                             \
   }
-PROBE21B(none, B_NONE, H_LDG)
-PROBE21B(tala1_ldg, B_TALA1, H_LDG)
-PROBE21B(tala1_shared, B_TALA1, H_SHARED)
-PROBE21B(tala1_shfl, B_TALA1, H_SHFL)
-PROBE21B(tala0_ldg, B_TALA0, H_LDG)
-PROBE21B(tala0_shared, B_TALA0, H_SHARED)
-PROBE21B(tala0_shfl, B_TALA0, H_SHFL)
-PROBE21B(rowsel_ldg, B_ROWSEL, H_LDG)
-PROBE21B(rowsel_shared, B_ROWSEL, H_SHARED)
-PROBE21B(rowsel_shfl, B_ROWSEL, H_SHFL)
-PROBE21B(onehot_hi, B_ONEHOT_HI, H_SHARED)
+PROBE21B(none, B_NONE, H_LDG, TRIP(32))
+PROBE21B(tala1_ldg, B_TALA1, H_LDG, TRIP(32))
+PROBE21B(tala1_shared, B_TALA1, H_SHARED, TRIP(32))
+PROBE21B(tala1_shfl, B_TALA1, H_SHFL, TRIP(16))
+PROBE21B(tala0_ldg, B_TALA0, H_LDG, TRIP(32))
+PROBE21B(tala0_shared, B_TALA0, H_SHARED, TRIP(32))
+PROBE21B(tala0_shfl, B_TALA0, H_SHFL, TRIP(16))
+PROBE21B(rowsel_ldg, B_ROWSEL, H_LDG, TRIP(32))
+PROBE21B(rowsel_shared, B_ROWSEL, H_SHARED, TRIP(16))
+PROBE21B(rowsel_shfl, B_ROWSEL, H_SHFL, TRIP(4))
+PROBE21B(onehot_hi, B_ONEHOT_HI, H_SHARED, TRIP(8))
+PROBE21B(none_serial, B_NONE, H_LDG, 0)
+PROBE21B(rowsel_ldg_serial, B_ROWSEL, H_LDG, 0)
 
 #define PROBE21C(form, F)                                                                  \
   extern "C" int trt_probe21c_##form(const ProbeGather* a, const int32_t* tab, const float* x0, \

@@ -123,14 +123,17 @@ ENTRY_POINTS = {
                        ("_gathered", 8))
     ) + QUEUE_ENTRY_POINTS["regen"],
     "kernel_frame_lockstep.cu": QUEUE_ENTRY_POINTS["lockstep"],
-    # The Hopper probes of tools/ (terminal_raytracer_tpu_torch/tools/).
+    # The Hopper probes of tools/ (terminal_raytracer_tpu_torch/tools/);
+    # the *_serial gather entries keep the loop the shipped one replaced
+    # and are launched by chip_smoke.py alone.
     "probes.cu": tuple(
         (f"trt_probe21_{f}", 5) for f in (
-            "none", "ldg", "global", "shared", "onehotmm", "selectacc")
+            "none", "ldg", "global", "shared", "onehotmm", "selectacc",
+            "none_serial", "ldg_serial")
     ) + tuple((f"trt_probe21b_{f}", 5) for f in (
         "none", "tala1_ldg", "tala1_shared", "tala1_shfl", "tala0_ldg",
         "tala0_shared", "tala0_shfl", "rowsel_ldg", "rowsel_shared",
-        "rowsel_shfl", "onehot_hi")
+        "rowsel_shfl", "onehot_hi", "none_serial", "rowsel_ldg_serial")
     ) + tuple((f"trt_probe21c_{f}", 5) for f in (
         "none", "f2i", "atan2f", "atan2_poly", "packed")
     ) + tuple((f"trt_probe_when_{f}", 4) for f in (

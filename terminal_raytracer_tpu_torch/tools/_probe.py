@@ -13,6 +13,7 @@ from ..ops.build import load_kernels
 
 SHAPE = (16, 128)  # the TPU probes' tile
 TILE = SHAPE[0] * SHAPE[1]
+PROBES = ("probes.cu",)  # the probes' library, as load_kernels takes it
 # A spin queued ahead of each timed call (~0.25 ms at 1.98 GHz): the card is
 # busy while the host enqueues the call, so the events time the kernel and
 # not the host's launch path.
@@ -63,14 +64,22 @@ def check_branch(seed: int, frac: float, iters: int, name: str) -> None:
                          f"seed={seed} outside (-2^30, 2^30)")
 
 
-def launch(entry: str, args, *tensors: torch.Tensor) -> None:
-    """Launch the probe kernel `entry` on the current stream of the
-    tensors' device; raise on a launch error."""
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """A table the kernels stage with one bulk copy: 16-byte aligned."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must start 16-byte aligned")
+
+
+def launch(entry: str, args, *tensors: torch.Tensor,
+           sources: tuple = PROBES) -> None:
+    """Launch the probe kernel `entry` of the library of `sources` (a
+    load_kernels argument: probes.cu, or it with nvcc defines) on the
+    current stream of the tensors' device; raise on a launch error."""
     device = tensors[0].device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{entry}: the tensors lie on different devices")
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(load_kernels(("probes.cu",)), entry)(
+    err = getattr(load_kernels(sources), entry)(
         ctypes.byref(args), *(t.data_ptr() for t in tensors), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")

@@ -14,6 +14,12 @@ for a per-lane (16, 128) int32 index and a table of n f32 texels. Forms
              rounding (printed beside its bound)
   selectacc  the O(n) compare-select loop (n <= 512, as the JAX probe)
 
+The kernels (csrc/probes.cu gather_loop) run the loop in trips of U
+iterations, U per form: a trip's fetches are issued before the previous
+trip's adds, and every add stays in loop order, so a warp waits on its
+adds and its fetches' rate, not on each iteration's whole chain; one warp
+on each of 64 SMs (blocks of 32).
+
     python -m terminal_raytracer_tpu_torch.tools.perf_probe21 \\
         [--sizes 128,256,1024,4096] [--iters 512] [--reps 5] [--device cpu]
 
@@ -86,6 +92,7 @@ def gather(form, tab, idx0, iters):
     _check(form, tab, idx0, iters)
     if not _probe.on_cuda(tab.device, "perf_probe21.gather"):
         return plain(form, tab, idx0, iters)
+    _probe.check_aligned(tab, "perf_probe21.gather")
     out = torch.empty(SHAPE, dtype=torch.float32, device=tab.device)
     _probe.launch(f"trt_probe21_{form}",
                   _probe.GatherArgs(tab.numel(), iters), tab, idx0, out)

@@ -17,6 +17,12 @@ the loop baseline (acc += float(idx)); and onehot_hi, the full gather as a
 3xTF32 one-hot product on the tensor cores (mma.sync), off rowsel by at
 most the split's rounding (printed beside its bound).
 
+The kernels (csrc/probes.cu gather_loop) run the loop in trips of U
+iterations, U per form: a trip's fetches are issued before the previous
+trip's adds, and every add stays in loop order, so a warp waits on its
+adds and its fetches' rate, not on each iteration's whole chain; one warp
+on each of 64 SMs (blocks of 32).
+
     python -m terminal_raytracer_tpu_torch.tools.perf_probe21b \\
         [--iters 512] [--reps 5] [--device cpu]
 
@@ -91,6 +97,7 @@ def gather(form, tab, idx0, iters):
     _check(form, tab, idx0, iters)
     if not _probe.on_cuda(tab.device, "perf_probe21b.gather"):
         return plain(form, tab, idx0, iters)
+    _probe.check_aligned(tab, "perf_probe21b.gather")
     out = torch.empty(SHAPE, dtype=torch.float32, device=tab.device)
     _probe.launch(f"trt_probe21b_{form}", _probe.GatherArgs(TILE, iters),
                   tab, idx0, out)

@@ -43,6 +43,7 @@ inside build), so on a GPU machine without jax the `cuda` cases run with
 
 import functools
 import importlib.util
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -128,6 +129,55 @@ def test_probe21b_plain_matches_jax(form):
         _gap_ok(got, want, tab.numpy(), 21)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+GATHER_FORMS = [("probe21", f) for f in p21.FORMS] + [
+    ("probe21b", f) for f in p21b.FORMS]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_at_zero(probe, variant):
+    if probe == "probe21":
+        tab, idx = _inputs21(128)
+        return np.asarray(J21.build(variant, 128, 0, interpret=True)(
+            tab.numpy(), idx.numpy()))
+    tab, idx = p21b.inputs("cpu")
+    return np.asarray(J21B.build(variant, 0, interpret=True)(
+        tab.numpy(), idx.numpy()))
+
+
+@pytest.mark.parametrize("probe, form", GATHER_FORMS)
+def test_gather_at_zero_iterations_is_zero(probe, form):
+    """No iteration: the plain version and the JAX probe give the zero
+    tile (the kernels' loop then runs no trip)."""
+    if probe == "probe21":
+        got = p21.gather(form, *_inputs21(128), 0)
+        variant = P21_JAX[form][0]
+    else:
+        got = p21b.gather(form, *p21b.inputs("cpu"), 0)
+        variant = (form if form in ("none", "onehot_hi")
+                   else form.split("_")[0])
+    zero = np.zeros(_probe.SHAPE, np.float32)
+    np.testing.assert_array_equal(got.numpy(), zero)
+    np.testing.assert_array_equal(_jax_at_zero(probe, variant), zero)
+
+
+def test_gather_tune_times_every_form():
+    """tools/gather_tune.py runs every form of both gather probes, the row
+    forms first, on main()'s inputs; one build a (trip, block) pair."""
+    from terminal_raytracer_tpu_torch.tools import gather_tune
+
+    got = gather_tune.cases("cpu")
+    assert [(c[0], c[1]) for c in got[:4]] == [
+        (probe, f) for probe, forms in gather_tune.ROW.items()
+        for f in forms]
+    assert sorted((c[0], c[1]) for c in got) == sorted(GATHER_FORMS)
+    tab, idx = _inputs21(1024)
+    assert all(torch.equal(c[3], tab) and torch.equal(c[4], idx)
+               for c in got if c[0] == "probe21" and c[1] != "selectacc")
+    assert list(gather_tune.variants([4, 16], [32])) == ["U4/B32", "U16/B32"]
+    assert gather_tune.clocks(0.003 + 512 / 1980e3, 0.003, 512, 1980.0) \
+        == pytest.approx(1.0)
 
 
 # ----------------------------------------------------- perf_probe21c.py
@@ -475,7 +525,8 @@ def test_render_sources_leave_out_the_probe_library():
 def test_probe_entries_match_the_source():
     """ops/build.py declares exactly the entries that csrc/probes.cu's
     macros define, with the pointer count of their macro's signature: the
-    FRND baselines of the branch probes included."""
+    FRND baselines of the branch probes and the serial baselines of the
+    gather probes included."""
     import re
 
     from terminal_raytracer_tpu_torch.ops import build
@@ -489,8 +540,38 @@ def test_probe_entries_match_the_source():
     defined = {f"trt_{prefix[m]}_{form}": n_ptr[m] for m, form in
                re.findall(r"^(PROBE\w+)\((\w+),", text, re.M)}
     assert defined == dict(build.ENTRY_POINTS["probes.cu"])
-    assert {"trt_probe_when_guarded_frnd",
-            "trt_probe_cond_cond_frnd"} <= set(defined)
+    assert {"trt_probe_when_guarded_frnd", "trt_probe_cond_cond_frnd",
+            "trt_probe21_none_serial", "trt_probe21_ldg_serial",
+            "trt_probe21b_none_serial",
+            "trt_probe21b_rowsel_ldg_serial"} <= set(defined)
+
+
+def _trip_widths():
+    """{(probe, form): iterations a trip} of csrc/probes.cu's gather entries
+    (TRIP(u) in their macro; 0 for the serial loop)."""
+    import re
+
+    from terminal_raytracer_tpu_torch.ops import build
+
+    text = (build.CSRC / "probes.cu").read_text()
+    return {("probe" + m.lower(), form): int(u or 0)
+            for m, form, u in re.findall(
+                r"^PROBE(21B?)\((\w+), [\w, ]*?(?:TRIP\((\d+)\)|0)\)$",
+                text, re.M)}
+
+
+TRIPS = _trip_widths()
+
+
+def test_gather_trip_widths_cover_every_form():
+    """Every gather form has a trip width of 4, 8, 16 or 32 in the source; the
+    serial baselines run the serial loop."""
+    forms = set(GATHER_FORMS)
+    assert {k for k, u in TRIPS.items() if u} == forms
+    assert all(TRIPS[k] in (4, 8, 16, 32) for k in forms)
+    assert {k for k, u in TRIPS.items() if not u} == {
+        ("probe21", "none_serial"), ("probe21", "ldg_serial"),
+        ("probe21b", "none_serial"), ("probe21b", "rowsel_ldg_serial")}
 
 
 SASS = """\
@@ -530,6 +611,50 @@ def test_sass_ops_counts_a_heavy_step():
     assert sass_ops.uniform_share(frnd) == "uniform 1, vector integer 1"
 
 
+GATHER_SASS = """\
+\t\tFunction : _ZN41_GLOBAL__N__a9_probes_cu_29b47probe21ILi2ELb1EEEv11ProbeGatherPKfPKiPf
+        /*0140*/                   LDG.E R7, desc[UR6][R4.64] ;
+        /*01b0*/                   LOP3.LUT R11, R10, UR5, RZ, 0xc0, !PT ;
+        /*01c0*/                   LDG.E.CONSTANT R11, desc[UR6][R10.64] ;
+        /*01d0*/                   LDG.E.CONSTANT R13, desc[UR6][R12.64] ;
+        /*01e0*/                   FADD R6, R11, R6 ;
+        /*01f0*/                   FADD R6, R6, R13 ;
+        /*0200*/               @P1 BRA 0x1b0 ;
+        /*0210*/                   STG.E desc[UR6][R2.64], R6 ;
+        /*0220*/                   BRA 0x220;
+\t\tFunction : _ZN41_GLOBAL__N__a9_probes_cu_29b47probe21ILi2ELb0EEEv11ProbeGatherPKfPKiPf
+        /*0300*/                   FADD R6, R20, R6 ;
+        /*0310*/                   LDG.E.CONSTANT R11, desc[UR6][R10.64] ;
+        /*0320*/                   LDG.E.CONSTANT R13, desc[UR6][R12.64] ;
+        /*0330*/                   FADD R6, R6, R21 ;
+        /*0340*/                   IMAD.MOV.U32 R20, RZ, RZ, R11 ;
+        /*0350*/                   MOV R21, R13 ;
+        /*0360*/               @P0 BRA 0x300 ;
+"""
+
+
+def test_sass_ops_reads_a_gather_loop():
+    """tools/sass_ops.py finds each loop of a gather kernel by its backward
+    branch and counts its loads that an FADD reads only on a later pass:
+    none in the parent's trip (its loads added at once), both in a trip
+    that adds the loads of the pass before (through MOV copies)."""
+    from terminal_raytracer_tpu_torch.tools import sass_ops
+
+    insns = sass_ops.instructions(GATHER_SASS)
+    serial, shipped = (insns[k] for k in sorted(insns,
+                                               key=lambda k: "Lb0E" in k))
+    (lp,) = sass_ops.loops(serial)
+    assert (lp["start"], lp["end"], lp["order"]) == (0x1b0, 0x200, "L2 A2")
+    assert (lp["loads"], lp["later"]) == (2, 0)
+    (lp,) = sass_ops.loops(shipped)
+    assert (lp["order"], lp["loads"], lp["later"]) == ("A1 L2 A1", 2, 2)
+    assert sass_ops.loop_line(lp) == (
+        "loop 0x0300-0x0360: LDG.E.CONSTANT 2; FADD 2; order A1 L2 A1; 2 of "
+        "2 loads added on a later pass")
+    assert sass_ops.functions(GATHER_SASS) == {
+        k: Counter(op for _, op, _ in v) for k, v in insns.items()}
+
+
 # ----------------------------------------------------------- on the card
 
 
@@ -565,6 +690,25 @@ def test_probe21b_kernel_matches_plain(cuda_device, form):
     got = p21b.gather(form, tab, idx, 64)
     assert p21b.gather.launches[form] == n0 + 1
     _same(got, p21b.plain(form, tab, idx, 64), form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe, form, iters", [
+    (probe, form, iters) for probe, form in GATHER_FORMS
+    for iters in (0, 1, TRIPS[probe, form] - 1, TRIPS[probe, form] + 1, 13)])
+def test_gather_kernels_match_plain_at_any_loop_count(cuda_device, probe,
+                                                      form, iters):
+    """The trip loop's edges at the form's trip width U: no trip, the
+    remainder trip alone (short by one or more), a whole trip before it;
+    probe21 at n = 128."""
+    if probe == "probe21":
+        tab, idx = (t.to(cuda_device) for t in _inputs21(128))
+        mod = p21
+    else:
+        tab, idx = p21b.inputs(cuda_device)
+        mod = p21b
+    got = mod.gather(form, tab, idx, iters)
+    assert torch.equal(got, mod.plain(form, tab, idx, iters)), (form, iters)
 
 
 @pytest.mark.cuda
