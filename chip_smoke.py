@@ -29,7 +29,18 @@ Phases, each reported on lines starting with its tag:
             and the entry the wrapper takes; kernel A also with its
             schedule (static or refill), both forms' lane-iterations (the
             static one's equal to the plain model at K, the refill one's at
-            least the pixels' summed iterations) and both forms' occupancy
+            least the pixels' summed iterations) and both forms' occupancy.
+  Wherever kernel A's thread per pixel over the table sweep is held
+  (_base_both at the reference and EXT gates, the [ext] 400x200 shapes,
+  the [mesh] quota share) it runs in both loops (_nested_both): the
+  shipped entry on the regeneration schedule (trace.cuh
+  run_samples_regen: one bounce a trip, a lane's next sample started as
+  soon as its path ends) and its nested twin (base_kernel_nested /
+  base_kernel_ext_nested: the sample loop around the bounce loop, which it
+  replaced; OFF_PATH), each bit for bit against the plain version and the
+  other, both counters warp_iters of the per-pixel model; both
+  executed-count models printed with their occupancy (ops/kernels.py
+  warp_iters, nested_iters), and the two loops timed in turns
   [kernel_base_chunked]  the same for the chunked kernel A on
             stress:120:7 at 64x16, 8 spp, depth 6, chunks of 2 (rays, end
             states, per-pixel totals and radiance bits equal) and at the
@@ -282,8 +293,10 @@ Then one JSON line with each kernel's result (its max abs error: the
 largest over its comparisons, which include the main path's shapes; its
 bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
-3.35 TB/s, whichever is larger; the thread-per-pixel kernel_base and
-kernel_extra_grouped at the north star, kernel_base_grouped at stress256,
+3.35 TB/s, whichever is larger; the thread-per-pixel kernel_base, its
+nested twin kernel_base_nested (OFF_PATH) and kernel_extra_grouped at the
+north star, kernel_base_ext and its twin kernel_base_ext_nested (OFF_PATH)
+at the showcase shapes, kernel_base_grouped at stress256,
 kernel_base_chunked_grouped and kernel_base_grid_grouped at stress1024,
 the thread-per-pixel kernel_base_grid and the thread-per-entry
 kernel_extra, kernel_extra_xt, kernel_extra_grid, kernel_base_chunked and
@@ -450,8 +463,10 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
     counters, the grouped entry's also against the thread per pixel's),
     the thread-per-pixel lane-iterations equal to the plain model, the
     grouped ones as _base_iters_model says; both timed beside each other,
-    and the plain version too where `timed_plain`. Returns ({form: (max
-    abs error, ms, plain ms or None, bound)}, the wrapper's output)."""
+    and the plain version too where `timed_plain`. Over the table sweep
+    (reference and EXT gates) the thread per pixel's nested twin too
+    (_nested_both, form 'nested'). Returns ({form: (max abs error, ms,
+    plain ms or None, bound)}, the wrapper's output)."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
@@ -499,6 +514,10 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
         else:
             _base_iters_model(tag, f"{label} kernel A", out.iters, it, name)
         res[form] = (err, _time_cuda(launch(form), 5), plain, bound)
+    if kind in ("ref", "ext"):  # the thread per pixel's two loops
+        err_n, _, ms_n = _nested_both(tag, label, tr, p)
+        res["thread"] = (max(res["thread"][0], err_n), *res["thread"][1:])
+        res["nested"] = (err_n, ms_n, *res["thread"][2:])
     if traversal:
         _check_counts(f"{label} grouped against thread-per-pixel kernel A",
                       outs["grouped"][1], outs["thread"][1])
@@ -512,6 +531,69 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
           f"plain {_fmt_ms(plain)}, bound {bound[0]:.4f} ms by {bound[1]}: "
           f"{ops:.4g} FP32 operations", flush=True)
     return res, outs[taken][0]
+
+
+def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None):
+    """Kernel A's thread per pixel of tracer `tr` (reference or EXT gates,
+    the table sweep) in both loops: the shipped entry (trt_kernel_base /
+    _ext: the regeneration schedule, csrc/trace.cuh run_samples_regen) and
+    its nested twin (base_kernel_nested / base_kernel_ext_nested), each
+    against the plain version `p` (computed here when None) bit for bit and
+    against each other, both counters equal to warp_iters of the per-pixel
+    model (for the nested twin a lower bound of what it executes); prints
+    both executed-count models with the occupancy each gives, and times the
+    two in turns (shipped, nested, nested, shipped). Returns (max abs
+    error, shipped ms, nested ms)."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    pose = _pose()
+    ext = kernels._kind(tr) == "ext"
+    twin = kernels.base_kernel_ext_nested if ext else kernels.base_kernel_nested
+    kind = "ext" if ext else "ref"
+
+    def shipped():
+        return kernels._launch_base(tr, pose, seed, 0, 0, None, base_q, kind)
+
+    def nested():
+        return twin(tr, pose, seed, 0, base_q=base_q)
+
+    if p is None:
+        p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
+    new, old = shipped(), nested()
+    err = max(_compare_base(tag, f"{label} kernel A {name}", out, p,
+                            ("additional", "var"), exact=True)
+              for name, out in (("regeneration", new), ("nested", old)))
+    same = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+               for a, b in zip((*new.csum, *new.csumsq, new.rays, new.var,
+                                new.additional),
+                               (*old.csum, *old.csumsq, old.rays, old.var,
+                                old.additional)))
+    if not (same and torch.equal(new.state, old.state)):
+        fail(f"[{tag}] {label}: kernel A's two loops disagree")
+    it = kernels.base_entry_iters(tr, pose, seed, 0, base_q=base_q)
+    si = kernels.base_sample_iters(tr, pose, seed, 0, base_q=base_q)
+    for name, out in (("regeneration", new), ("nested", old)):
+        _iters_model(tag, f"{label} kernel A {name}", out.iters, it, 1)
+    regen, nest = float(kernels.warp_iters(it)), float(kernels.nested_iters(si))
+    owed = float(p.rays.sum(dtype=torch.float64))
+    per = 1.0 + tr.nee_sweeps
+    ms = {"shipped": [], "nested": []}
+    for name in ("shipped", "nested", "nested", "shipped"):
+        ms[name].append(_time_cuda(shipped if name == "shipped" else nested,
+                                   5))
+    print(f"[{tag}] {label}: kernel A's loops bit for bit equal; executed "
+          f"lane-iterations, regeneration {regen:.0f} (occupancy "
+          f"{owed / (regen * per):.3f}), nested {nest:.0f} (occupancy "
+          f"{owed / (nest * per):.3f}; its counter {float(old.iters):.0f}, "
+          f"the lower bound); pixels' sum {int(it.sum())}, longest pixel "
+          f"{int(it.max())}", flush=True)
+    print(f"[{tag}] {label}: kernel A in turns, shipped (regeneration) "
+          f"{ms['shipped'][0]:.4f} / {ms['shipped'][1]:.4f} ms, nested twin "
+          f"{ms['nested'][0]:.4f} / {ms['nested'][1]:.4f} ms (x"
+          f"{sum(ms['nested']) / sum(ms['shipped']):.3f})", flush=True)
+    return err, min(ms["shipped"]), min(ms["nested"])
 
 
 def _time_cuda(fn, reps, warm=True, queued=True):
@@ -1137,7 +1219,8 @@ def phase_thread_per_entry(peak):
 # stay on the path; the queue entries serve kernels C and D): held bit for
 # bit and timed beside their grouped forms, launched directly, so their
 # main-path launches are 0, and a launch there fails the run.
-OFF_PATH = ("kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
+OFF_PATH = ("kernel_base_nested", "kernel_base_ext_nested",
+            "kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt", "kernel_base_chunked_ext",
             "kernel_base_chunked_grid", "kernel_base_chunked_gathered") + tuple(
@@ -1156,7 +1239,8 @@ QUEUE_NAMES = tuple(
     f"{mode}_kernel{'' if kind == 'ref' else '_' + kind}_queue"
     + {"solo": "_solo", "group": "", "spill": "_spill"}[form]
     for mode, kind, form in QUEUE_KEYS)
-LAUNCH_NAMES = ("base_kernel", "base_kernel_chunked", "extra_kernel",
+LAUNCH_NAMES = ("base_kernel", "base_kernel_nested", "base_kernel_ext_nested",
+                "base_kernel_chunked", "extra_kernel",
                 "base_kernel_grouped", "base_kernel_grid_grouped",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
                 "extra_kernel_xt_grouped", "extra_kernel_grid_grouped",
@@ -1482,6 +1566,47 @@ def _frames_grouped_vs_thread(tag, label, scene, frames=8, base_only=False,
           flush=True)
 
 
+def _frames_nested_vs_regen(tag, label, scene, frames=8):
+    """ms/frame of the sorted pipeline with kernel A's thread per pixel as
+    shipped (the regeneration schedule) and with its nested twin in its
+    place, in turns: shipped, nested, nested, shipped. The twin is launched
+    through _launch_base, so its launches here count nowhere."""
+    import torch
+
+    from terminal_raytracer_tpu_torch.ops import kernels
+    from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
+
+    tr = PathTracer(scene, "cuda")
+    render = kernels.make_sorted_render_frame(tr)
+    pose = _pose()
+    kind = "ext_nested" if kernels._kind(tr) == "ext" else "nested"
+    shipped = kernels.base_kernel
+
+    def nested(tracer, pose, seed, frame_number, y0=0, h_out=None,
+               base_q=None):
+        return kernels._launch_base(tracer, pose, seed, frame_number, y0,
+                                    h_out, base_q, kind)
+
+    times = {"shipped": [], "nested": []}
+    try:
+        for form in ("shipped", "nested", "nested", "shipped"):
+            kernels.base_kernel = shipped if form == "shipped" else nested
+            render(pose, SEED, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(frames):
+                render(pose, SEED, f + 1)
+            torch.cuda.synchronize()
+            times[form].append(1e3 * (time.perf_counter() - t0) / frames)
+    finally:
+        kernels.base_kernel = shipped
+    print(f"[{tag}] {label} sorted frame in turns, {frames} frames each, "
+          f"kernel A's thread per pixel: shipped (regeneration) "
+          f"{times['shipped'][0]:.3f} / {times['shipped'][1]:.3f} ms/frame, "
+          f"nested twin {times['nested'][0]:.3f} / {times['nested'][1]:.3f}",
+          flush=True)
+
+
 def phase_scale():
     from terminal_raytracer_tpu_torch.models.animate import ANIMATORS
     from terminal_raytracer_tpu_torch.ops import dynamic as dyn
@@ -1503,6 +1628,7 @@ def phase_scale():
         _frames_grouped_vs_thread("scale", label, scene)
         if label == "north star":
             _frames_grouped_vs_thread("scale", label, scene, base_only=True)
+            _frames_nested_vs_regen("scale", label, scene)
     # Kernel A in either form where the dispatch takes the grouped one.
     _frames_grouped_vs_thread("scale", "stress256",
                               _scene("stress:256", 200, 100, 8, 6),
@@ -1699,7 +1825,9 @@ def phase_ext(peak):
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0, "gs": 0.0, "cg": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0, "g": 0.0, "gs": 0.0, "cg": 0.0,
+           "an": 0.0}
+    nested_ms = {}
     # (a)
     for name, filt in [(n, None) for n in EXT_SCENES] + [("textured",
                                                           "bilinear")]:
@@ -1864,6 +1992,9 @@ def phase_ext(peak):
             pa = kernels.base_kernel_plain(tr, pose, SEED, 0)
             pb = kernels.extra_kernel_plain(*args)
         err["a"] = max(err["a"], _compare_base("ext", label, a, pa))
+        # The thread per pixel against its nested twin, in turns.
+        err_n, _, nested_ms[name] = _nested_both("ext", label, tr, pa)
+        err["a"], err["an"] = max(err["a"], err_n), max(err["an"], err_n)
         errs, ms = both_b(label, tr, s, pb, timed)
         err["b"] = max(err["b"], errs["thread"])
         err["g"] = max(err["g"], errs["grouped"])
@@ -1953,6 +2084,8 @@ def phase_ext(peak):
     return launches, {"ga": (max(r["grouped"][0] for r in ga),
                              *ga[0]["grouped"][1:]),
                       "a": (err["a"], ms_a, plain_a, bound_a),
+                      "an": (err["an"], nested_ms["showcase"], plain_a,
+                             bound_a),
                       "b": (err["b"], ms_b["thread"], plain_b, bound_b),
                       "g": (err["g"], ms_b["grouped"], plain_b, bound_b),
                       "gs": (err["gs"], *spill_row),
@@ -2876,6 +3009,9 @@ def phase_mesh(peak):
                   "operations)", flush=True)
             if row is None:  # the largest share at full width
                 row = [ms, plain_ms, bound]
+                # The thread per pixel against its nested twin at it.
+                err = max(err, _nested_both("mesh", f"kernel A {where} "
+                                            f"quota {q}", tr, p, seed, q)[0])
 
     # (b) the sample-split composition against its plain phases.
     _reset_launches()
@@ -3812,6 +3948,12 @@ def main() -> int:
             ("kernel_base", "base_kernel", "kernel_base.cu", "796",
              max(err_a["thread"], res_a["thread"][0], res_a256["thread"][0]),
              *res_a["thread"][1:]),
+            # Its nested twin (the sample loop around the bounce loop, which
+            # the regeneration schedule replaced; launched directly:
+            # OFF_PATH), at the north star.
+            ("kernel_base_nested", "base_kernel_nested", "kernel_base.cu",
+             "796", max(res_a["nested"][0], res_a256["nested"][0]),
+             *res_a["nested"][1:]),
             ("kernel_base_grouped", "base_kernel_grouped", "group.cuh", "796",
              max(err_a["grouped"], res_a["grouped"][0],
                  res_a256["grouped"][0]), *res_a256["grouped"][1:]),
@@ -3841,6 +3983,9 @@ def main() -> int:
             # :1031 (B), pallas_kernel._tex_bind_front.
             ("kernel_base_ext", "base_kernel_ext", "kernel_base.cu", "807",
              *ext["a"]),
+            # Its nested twin (launched directly: OFF_PATH), at showcase.
+            ("kernel_base_ext_nested", "base_kernel_ext_nested",
+             "kernel_base.cu", "807", *ext["an"]),
             # Kernel A at the EXT gates grouped (csrc/group.cuh over
             # GroupSweep; entry in kernel_base.cu) at the checker stress256
             # shapes, its error including the checker stress64 shapes'.

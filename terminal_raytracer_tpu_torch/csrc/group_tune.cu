@@ -30,12 +30,15 @@
 // culled sweep that the sweep weighs against the shipped thread per pixel
 // (ops/build.py TUNE_ONLY_ENTRY_POINTS): trt_kernel_base_xt,
 // trt_kernel_base_ext and trt_kernel_base_grid, one thread a pixel held to
-// TRT_TUNE_MIN_BLOCKS resident blocks an SM (0: kernel_base as shipped),
-// and trt_kernel_base_xt_grouped, kernel_base_grouped at the XT gates over
+// TRT_TUNE_MIN_BLOCKS resident blocks an SM (0: as shipped; the EXT one on
+// the regeneration schedule, kernel_base_regen), and
+// trt_kernel_base_xt_grouped, kernel_base_grouped at the XT gates over
 // GroupSweep<TRT_TUNE_K> on the schedule TRT_TUNE_REFILL, held to
 // TRT_TUNE_MIN_BLOCKS too; each with its queries, and the resident blocks
 // an SM that the occupancy calculator gives it (no staged rows; the
 // grouped EXT kernel A's too, with its rows staged for a given scene).
+// Last, kernel A's thread-per-pixel loops at the reference and EXT gates
+// (TRT_TUNE_LOOP, below).
 
 #include "group.cuh"
 
@@ -71,6 +74,13 @@ using TuneSpill = trt::GroupSpill<TRT_TUNE_K, TRT_TUNE_THREADS, TRT_TUNE_STAGE_C
 using TuneWalk = trt::GroupWalk<TRT_TUNE_K, TRT_TUNE_WALK, TRT_TUNE_THREADS, TRT_TUNE_STAGE_CAP>;
 using TuneCulledSpill = trt::GroupCulledSpill<TRT_TUNE_K, (TRT_TUNE_WIDE != 0), TRT_TUNE_THREADS,
                                               TRT_TUNE_STAGE_CAP>;
+
+// TRT_TUNE_LOOP_ONLY=1 builds the thread-per-pixel loops alone (the last
+// section; tools/group_k.py --only regen, one library a loop and bound).
+#ifndef TRT_TUNE_LOOP_ONLY
+#define TRT_TUNE_LOOP_ONLY 0
+#endif
+#if !TRT_TUNE_LOOP_ONLY
 
 extern "C" int trt_kernel_extra_grouped(const ExtraArgs* a, const float* scene_buf, const int* xs,
                                         const int* ys, const long long* state_in,
@@ -350,13 +360,14 @@ extern "C" int trt_kernel_base_chunked_gathered_grouped(const ChunkArgs* a, cons
 
 extern "C" int trt_kernel_base_chunked_gathered_grouped_k() { return TRT_TUNE_K; }
 
-// Kernel A at the EXT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
-// kernel_base_resident), the arguments of kernel_base.cu's entry.
+// Kernel A at the EXT gates, one thread a pixel on the regeneration
+// schedule as shipped (TRT_TUNE_MIN_BLOCKS > 0: kernel_base_regen_resident),
+// the arguments of kernel_base.cu's entry.
 extern "C" int trt_kernel_base_ext(const BaseArgs* a, const trt::Tex* tx, const float* scene_buf,
                                    float* out, long long* state_out, unsigned long long* iters,
                                    void* stream) {
-  return launch_base<true, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>(a, *tx, trt::Xt{}, scene_buf,
-                                                                   out, state_out, iters, stream);
+  return launch_base_regen<true, false, trt::Sweep, false, TRT_TUNE_MIN_BLOCKS>(
+      a, *tx, trt::Xt{}, scene_buf, out, state_out, iters, nullptr, stream);
 }
 
 extern "C" int trt_kernel_base_ext_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
@@ -436,11 +447,7 @@ extern "C" int trt_kernel_base_xt_grouped_per_sm() {
 }
 
 extern "C" int trt_kernel_base_ext_per_sm() {
-#if TRT_TUNE_MIN_BLOCKS > 0
-  return per_sm(kernel_base_resident<true, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>, 128);
-#else
-  return per_sm(kernel_base<true, false, trt::Sweep>, 128);
-#endif
+  return per_sm(base_regen_kernel<true, false, trt::Sweep, false, TRT_TUNE_MIN_BLOCKS>(), 128);
 }
 
 // The grouped EXT kernel A's resident blocks an SM with `bytes` of staged
@@ -459,5 +466,69 @@ extern "C" int trt_kernel_base_ext_grouped_per_sm(const int* bytes) {
                                       TR::SMEM_CAP);
   if (err == 0)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, TR::THREADS, *bytes);
+  return err != 0 ? -err : n;
+}
+#endif  // !TRT_TUNE_LOOP_ONLY
+
+// Kernel A's thread-per-pixel loops at the reference and EXT gates, for
+// tools/group_k.py --only regen: TRT_TUNE_LOOP 0, the nested sample and
+// bounce loops (kernel_base, as kernel_base.cu's *_nested entries); 1, the
+// regeneration schedule one thread a pixel (kernel_base_regen, as shipped);
+// 2, its refill form (kernel_base_refill: a grid of the resident blocks
+// whose lanes take pixels from the zeroed counter `next`, unused by the
+// others); each held to TRT_TUNE_MIN_BLOCKS resident blocks an SM (0:
+// none). The arguments of kernel_base.cu's entries, and `next`.
+#ifndef TRT_TUNE_LOOP
+#define TRT_TUNE_LOOP 1
+#endif
+
+template <bool EXT>
+static const void* loop_kernel() {
+#if TRT_TUNE_LOOP == 0
+#if TRT_TUNE_MIN_BLOCKS > 0
+  return (const void*)kernel_base_resident<EXT, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>;
+#else
+  return (const void*)kernel_base<EXT, false, trt::Sweep>;
+#endif
+#else
+  return base_regen_kernel<EXT, false, trt::Sweep, (TRT_TUNE_LOOP == 2), TRT_TUNE_MIN_BLOCKS>();
+#endif
+}
+
+template <bool EXT>
+static int launch_loop(const BaseArgs* a, const trt::Tex& tx, const float* scene_buf, float* out,
+                       long long* state_out, unsigned long long* iters, unsigned* next,
+                       void* stream) {
+#if TRT_TUNE_LOOP == 0
+  (void)next;
+  return launch_base<EXT, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>(a, tx, trt::Xt{}, scene_buf,
+                                                                  out, state_out, iters, stream);
+#else
+  return launch_base_regen<EXT, false, trt::Sweep, (TRT_TUNE_LOOP == 2), TRT_TUNE_MIN_BLOCKS>(
+      a, tx, trt::Xt{}, scene_buf, out, state_out, iters, next, stream);
+#endif
+}
+
+extern "C" int trt_kernel_base_loop(const BaseArgs* a, const float* scene_buf, float* out,
+                                    long long* state_out, unsigned long long* iters,
+                                    unsigned* next, void* stream) {
+  return launch_loop<false>(a, trt::Tex{}, scene_buf, out, state_out, iters, next, stream);
+}
+
+extern "C" int trt_kernel_base_ext_loop(const BaseArgs* a, const trt::Tex* tx,
+                                        const float* scene_buf, float* out, long long* state_out,
+                                        unsigned long long* iters, unsigned* next, void* stream) {
+  return launch_loop<true>(a, *tx, scene_buf, out, state_out, iters, next, stream);
+}
+
+// The loop (TRT_TUNE_LOOP), its residency bound, and the resident blocks an
+// SM that the occupancy calculator gives it at the EXT gates (`ext` != 0)
+// or the reference gates, or a negative CUDA error.
+extern "C" int trt_kernel_base_loop_kind() { return TRT_TUNE_LOOP; }
+extern "C" int trt_kernel_base_loop_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
+extern "C" int trt_kernel_base_loop_per_sm(const int* ext) {
+  int n = 0;
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, *ext ? loop_kernel<true>() : loop_kernel<false>(), 128, 0);
   return err != 0 ? -err : n;
 }

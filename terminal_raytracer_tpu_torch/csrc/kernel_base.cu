@@ -6,12 +6,20 @@
 // drives a scalar-carry while loop over tracer.stream_step to keep (16, 128)
 // vector tiles full under Mosaic's limits; none of that carries over. Here
 // one thread owns one pixel p = y*w + x (global y = y0 + local row): it
-// seeds the pixel's PCG chain, renders `base` samples, each a plain bounce
-// loop until a miss, a roulette kill or max_depth, and writes the pixel's
-// csum[3], csumsq[3], owed rays, variance and adaptive extra budget, and its
-// end RNG state. Per-pixel chains do not depend on scheduling, so the
-// results match every JAX scheduler and the plain PyTorch version
-// (ops/kernels.py base_kernel_plain).
+// seeds the pixel's PCG chain, renders `base` samples, and writes the
+// pixel's csum[3], csumsq[3], owed rays, variance and adaptive extra
+// budget, and its end RNG state. What does carry over is stream_step's
+// schedule, a lane's next sample started in the step where its path ends:
+// the thread runs one bounce a loop trip and starts its next sample as soon
+// as its path ends in a miss, a roulette kill or max_depth (pipeline.cuh
+// kernel_base_regen over trace.cuh run_samples_regen), so it never waits
+// for the warp's other paths of the same sample. Per-pixel chains do not
+// depend on scheduling, so the results match every JAX scheduler and the
+// plain PyTorch version (ops/kernels.py base_kernel_plain). The nested
+// loops it replaced (kernel_base over run_samples: the sample loop around
+// the bounce loop) stay as trt_kernel_base_nested and
+// trt_kernel_base_ext_nested, launched by chip_smoke.py and
+// tools/group_k.py --only regen alone.
 //
 // kernel_base_chunked replaces the same Pallas kernel built with a chunk
 // size `cb` (pallas_kernel.py:749-754, 798-800, 901-908): the heavy-pixel
@@ -79,8 +87,13 @@
 // thread runs each bounce's sweeps one test after another (1025 tests a
 // closest hit at stress1024), with too few warps on the card to hide the
 // latency of each dependent instruction, and a warp runs until its
-// longest lane's path ends, its lanes diverging on path ends and scatter
-// branches. The grouped form splits each sweep over K lanes, multiplies
+// longest lane's work ends, its lanes diverging on path ends and scatter
+// branches. For the thread per pixel on the regeneration schedule that is
+// the lane with the most bounces over all its base samples (32 x which,
+// warp by warp, is what count_warp_iters adds); the nested twins wait,
+// sample by sample, for the warp's longest path of that sample (at the
+// north star 1.57x the trips, ops/kernels.py nested_iters). The grouped
+// form splits each sweep over K lanes, multiplies
 // the working warps by K, and keeps a group's lanes in step; it serves
 // the array-scale default, where the chunk split already spreads a heavy
 // pixel over n_chunks entries. --fmad=false keeps their rounding equal to
@@ -157,11 +170,39 @@ constexpr bool GROUP_REFILL_BASE = false;
 // keeps it below GROUP_BASE_MIN_PRIMS.
 constexpr int GROUP_K_BASE_EXT = 32;
 constexpr bool GROUP_REFILL_BASE_EXT = true;
+// The thread per pixel's loop and residency bound (pipeline.cuh
+// launch_base_regen): chosen by tools/group_k.py --only regen, the least
+// summed time per gate set over the configurations where it serves, twice
+// in turns (PERF.md, the regeneration schedule; ms of device time, H100
+// 80GB HBM3 at 700 W).
+// Reference gates (north star, its sp = 3 share 2, shipped, ascii 80x40,
+// demo, scene2): the regeneration schedule held to 4 blocks an SM 2.480 /
+// 2.470 (unbound 2.509 / 2.499; at 5 and 6 2.512, 2.546; the refill form
+// at best 2.535, held to 4; the nested loops at best 2.817, held to 4, and
+// 2.855 / 2.843 unbound, as trt_kernel_base_nested). EXT gates (the five packaged
+// scenes): the regeneration schedule unbound 2.397 / 2.407 (held to 4, 5, 6
+// 2.404, 2.411, 2.455; the refill form at best 2.505; the nested loops
+// 2.505 / 2.511).
+constexpr int BASE_MIN_BLOCKS = 4;
 
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64. Returns cudaGetLastError().
+// Kernel A one thread a pixel on the regeneration schedule, held to
+// BASE_MIN_BLOCKS resident blocks an SM (pipeline.cuh
+// kernel_base_regen_resident).
 extern "C" int trt_kernel_base(const BaseArgs* a, const float* scene_buf, float* out,
                                long long* state_out, unsigned long long* iters, void* stream) {
+  return launch_base_regen<false, false, trt::Sweep, false, BASE_MIN_BLOCKS>(
+      a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters, nullptr, stream);
+}
+
+// The same with the nested sample and bounce loops that it replaced
+// (pipeline.cuh kernel_base over trace.cuh run_samples): the same
+// arguments and outputs, bit for bit; launched by chip_smoke.py and the
+// sweep alone.
+extern "C" int trt_kernel_base_nested(const BaseArgs* a, const float* scene_buf, float* out,
+                                      long long* state_out, unsigned long long* iters,
+                                      void* stream) {
   return launch_base<false, false>(a, trt::Tex{}, trt::Xt{}, scene_buf, out, state_out, iters,
                                    stream);
 }
@@ -178,9 +219,20 @@ extern "C" int trt_kernel_base_chunked(const ChunkArgs* a, const float* scene_bu
 
 // The EXT instantiations (trace.cuh): the same outputs, for a scene buffer
 // that carries the extension table; tx holds the atlas and texture constants.
+// Kernel A's thread per pixel on the regeneration schedule, unbound
+// (pipeline.cuh kernel_base_regen).
 extern "C" int trt_kernel_base_ext(const BaseArgs* a, const trt::Tex* tx, const float* scene_buf,
                                    float* out, long long* state_out, unsigned long long* iters,
                                    void* stream) {
+  return launch_base_regen<true, false>(a, *tx, trt::Xt{}, scene_buf, out, state_out, iters,
+                                        nullptr, stream);
+}
+
+// Its nested twin, as trt_kernel_base_nested.
+extern "C" int trt_kernel_base_ext_nested(const BaseArgs* a, const trt::Tex* tx,
+                                          const float* scene_buf, float* out,
+                                          long long* state_out, unsigned long long* iters,
+                                          void* stream) {
   return launch_base<true, false>(a, *tx, trt::Xt{}, scene_buf, out, state_out, iters, stream);
 }
 

@@ -11,13 +11,16 @@
 // pixel p = y*w + x (global y = y0 + local row): it seeds the pixel's PCG
 // chain, renders `base` samples, and writes the pixel's csum[3],
 // csumsq[3], owed rays, variance and adaptive extra budget, and its end
-// RNG state (kernel_base.cu says what it replaces). kernel_base_chunked:
-// one thread owns one entry of the chunk-major stream, chunk c = i / n_pix
-// of pixel i % n_pix, and renders the chunk's share of the base samples
-// on the chunk's sub-chain (kernel_base.cu). kernel_extra: one thread owns
-// one entry of the budget-sorted stream and renders its `add` extra
-// samples, then writes esum[3] and the owed rays; a thread with add == 0
-// writes zeros and exits (kernel_extra.cu).
+// RNG state (kernel_base.cu says what it replaces); kernel_base_regen does
+// the same on the regeneration schedule (trace.cuh run_samples_regen), and
+// kernel_base_refill, its form for a grid of resident lanes that take
+// pixels from a counter, serves the sweep of tools/group_k.py.
+// kernel_base_chunked: one thread owns one entry of the chunk-major stream,
+// chunk c = i / n_pix of pixel i % n_pix, and renders the chunk's share of
+// the base samples on the chunk's sub-chain (kernel_base.cu). kernel_extra:
+// one thread owns one entry of the budget-sorted stream and renders its
+// `add` extra samples, then writes esum[3] and the owed rays; a thread with
+// add == 0 writes zeros and exits (kernel_extra.cu).
 //
 // The single-kernel schedulers, kernels C and D (kernel_frame.cu):
 // kernel_frame renders one pixel's whole frame in one thread, kernel A's
@@ -61,13 +64,39 @@ struct FrameArgs {
 
 namespace {
 
+// Kernel A's epilogue for pixel i of the launch (of n), the fold_budget
+// epilogue (tracer.variance_of + tracer.extra_quota): the variance of the
+// base samples and the adaptive budget, stored with the pixel's sums and
+// owed rays in the nine planes, and its end state.
+__device__ __forceinline__ void base_write(const BaseArgs& a, int i, int n, const trt::V3& csum,
+                                           const trt::V3& csumsq, float rays, uint32_t state,
+                                           float* out, long long* state_out) {
+  trt::V3 mean = csum * a.inv_base;
+  trt::V3 dv = csumsq * a.inv_base - mean * mean;
+  float var = dv.x + dv.y + dv.z;
+  float additional = 0.0f;
+  if (a.base < a.spp && var > 10.0f) additional = fminf(floorf(var * 50.0f), a.max_extra);
+  out[0 * n + i] = csum.x;
+  out[1 * n + i] = csum.y;
+  out[2 * n + i] = csum.z;
+  out[3 * n + i] = csumsq.x;
+  out[4 * n + i] = csumsq.y;
+  out[5 * n + i] = csumsq.z;
+  out[6 * n + i] = rays;
+  out[7 * n + i] = var;
+  out[8 * n + i] = additional;
+  state_out[i] = (long long)state;
+}
+
 // Kernel A's body for pixel i of the launch (of n): seed the pixel's chain,
 // render its `base` samples with the traversal tr, and, where `write`, store
-// its nine planes and end state, the variance of the base samples and the
-// adaptive budget being the fold_budget epilogue (tracer.variance_of +
-// tracer.extra_quota). Returns the bounce iterations it ran. kernel_base
-// and group.cuh's kernel_base_grouped (whose lead lane writes) share it.
-template <bool EXT, bool XT, class TR>
+// base_write's planes and end state. Returns the bounce iterations it ran.
+// REGEN: the samples on the regeneration schedule (trace.cuh
+// run_samples_regen: one bounce a trip, a lane's next sample started as
+// soon as its path ends), else nested, a sample at a time (run_samples).
+// kernel_base (nested), kernel_base_regen and group.cuh's
+// kernel_base_grouped (nested; its lead lane writes) share it.
+template <bool EXT, bool XT, class TR, bool REGEN = false>
 __device__ __forceinline__ unsigned base_pixel(const BaseArgs& a, const trt::Scene& sc,
                                                const trt::Tex& tx, const trt::Xt& xt, TR& tr,
                                                int i, int n, bool write, float* out,
@@ -78,31 +107,21 @@ __device__ __forceinline__ unsigned base_pixel(const BaseArgs& a, const trt::Sce
       trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed, a.frame);
   trt::V3 csum = {0.0f, 0.0f, 0.0f}, csumsq = {0.0f, 0.0f, 0.0f};
   float rays = 0.0f;
-  const unsigned iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, 0, (float)a.base,
-                                                   (float)x, (float)y, csum, &csumsq, rays, tr);
-  if (write) {
-    trt::V3 mean = csum * a.inv_base;
-    trt::V3 dv = csumsq * a.inv_base - mean * mean;
-    float var = dv.x + dv.y + dv.z;
-    float additional = 0.0f;
-    if (a.base < a.spp && var > 10.0f) additional = fminf(floorf(var * 50.0f), a.max_extra);
-    out[0 * n + i] = csum.x;
-    out[1 * n + i] = csum.y;
-    out[2 * n + i] = csum.z;
-    out[3 * n + i] = csumsq.x;
-    out[4 * n + i] = csumsq.y;
-    out[5 * n + i] = csumsq.z;
-    out[6 * n + i] = rays;
-    out[7 * n + i] = var;
-    out[8 * n + i] = additional;
-    state_out[i] = (long long)state;
-  }
+  unsigned iters;
+  if constexpr (REGEN)
+    iters = trt::run_samples_regen<EXT, XT>(a.f, sc, tx, xt, state, (float)a.base, (float)x,
+                                            (float)y, csum, csumsq, rays, tr);
+  else
+    iters = trt::run_samples<EXT, XT>(a.f, sc, tx, xt, state, 0, (float)a.base, (float)x,
+                                      (float)y, csum, &csumsq, rays, tr);
+  if (write) base_write(a, i, n, csum, csumsq, rays, state, out, state_out);
   return iters;
 }
 
 // Kernel A, one thread a pixel: the body of kernel_base and
-// kernel_base_resident.
-template <bool EXT, bool XT, class TR>
+// kernel_base_resident (nested), and of kernel_base_regen and
+// kernel_base_regen_resident (REGEN).
+template <bool EXT, bool XT, class TR, bool REGEN = false>
 __device__ __forceinline__ void base_thread(const BaseArgs& a, const float* __restrict__ scene_buf,
                                             float* __restrict__ out,
                                             long long* __restrict__ state_out,
@@ -115,7 +134,7 @@ __device__ __forceinline__ void base_thread(const BaseArgs& a, const float* __re
   TR tr(tl, scene_buf);
   if (i < n) {
     const trt::Scene sc = trt::make_scene(scene_buf, a.f);
-    my_iters = base_pixel<EXT, XT>(a, sc, tx, xt, tr, i, n, true, out, state_out);
+    my_iters = base_pixel<EXT, XT, TR, REGEN>(a, sc, tx, xt, tr, i, n, true, out, state_out);
   }
   trt::count_warp_iters(my_iters, iters);
   tr.flush();
@@ -138,6 +157,118 @@ __global__ void __launch_bounds__(128, MIN_BLOCKS)
                          unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
                          typename TR::Launch tl) {
   base_thread<EXT, XT, TR>(a, scene_buf, out, state_out, iters, tx, xt, tl);
+}
+
+// Kernel A on the regeneration schedule, one thread a pixel
+// (base_thread<..., REGEN>), and held to MIN_BLOCKS resident blocks an SM.
+template <bool EXT, bool XT, class TR>
+__global__ void __launch_bounds__(128)
+    kernel_base_regen(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                      long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                      trt::Tex tx, trt::Xt xt, typename TR::Launch tl) {
+  base_thread<EXT, XT, TR, true>(a, scene_buf, out, state_out, iters, tx, xt, tl);
+}
+
+template <bool EXT, bool XT, class TR, int MIN_BLOCKS>
+__global__ void __launch_bounds__(128, MIN_BLOCKS)
+    kernel_base_regen_resident(BaseArgs a, const float* __restrict__ scene_buf,
+                               float* __restrict__ out, long long* __restrict__ state_out,
+                               unsigned long long* __restrict__ iters, trt::Tex tx, trt::Xt xt,
+                               typename TR::Launch tl) {
+  base_thread<EXT, XT, TR, true>(a, scene_buf, out, state_out, iters, tx, xt, tl);
+}
+
+// Kernel A's refill form: each lane of a grid of the resident blocks
+// renders pixels taken from the zeroed counter `next`, each on the
+// regeneration schedule (trace.cuh regen_trip, one bounce a trip). Where a
+// lane's pixel has its `base` samples, the lane writes it (base_write) and
+// takes its next pixel on its next trip. The lanes of a warp that need a
+// pixel take theirs at once: __ballot_sync of those lanes, one atomicAdd of
+// their count by the least of them, __shfl_sync of the first index. So a
+// lane waits neither for its warp's other paths nor for their pixels, only,
+// once the pixels are gone, for the warp's last path. A pixel's chain does
+// not depend on which lane renders it: the outputs are the thread per
+// pixel's bit for bit. The count (count_warp_iters) is 32 x the warp's
+// busiest lane's summed bounces, at least the pixels' sum. Every lane of
+// the grid runs the loop, so the warp-wide votes see all 32 lanes.
+template <bool EXT, bool XT, class TR>
+__device__ __forceinline__ void base_refill(const BaseArgs& a, const float* __restrict__ scene_buf,
+                                            float* __restrict__ out,
+                                            long long* __restrict__ state_out,
+                                            unsigned long long* __restrict__ iters,
+                                            unsigned* __restrict__ next, const trt::Tex& tx,
+                                            const trt::Xt& xt, const typename TR::Launch& tl) {
+  const int n = a.h_out * a.f.width;
+  const unsigned lane = threadIdx.x & 31u;
+  const float quota = (float)a.base;
+  TR tr(tl, scene_buf);
+  const trt::Scene sc = trt::make_scene(scene_buf, a.f);
+  unsigned my_iters = 0;
+  int i = -1;            // the lane's pixel; -1: none
+  bool drained = false;  // the counter has passed the last pixel
+  uint32_t state = 0u;
+  trt::V3 o, d, att, acc, csum, csumsq;
+  float emit = 0.0f, rays = 0.0f, xf = 0.0f, yf = 0.0f;
+  int s = 0, b = 0;
+  while (true) {
+    const bool need = i < 0 && !drained;
+    const unsigned m = __ballot_sync(0xffffffffu, need);
+    if (m != 0u) {
+      const int leader = __ffs(m) - 1;
+      unsigned first = 0u;
+      if ((int)lane == leader) first = atomicAdd(next, (unsigned)__popc(m));
+      first = __shfl_sync(0xffffffffu, first, leader);
+      if (need) {
+        const unsigned k = first + (unsigned)__popc(m & ((1u << lane) - 1u));
+        if (k < (unsigned)n) {
+          i = (int)k;
+          const int x = i % a.f.width;
+          const int y = a.y0 + i / a.f.width;
+          xf = (float)x;
+          yf = (float)y;
+          state = trt::seed_pixel((uint32_t)y * (uint32_t)a.f.width + (uint32_t)x, a.seed,
+                                  a.frame);
+          csum = csumsq = {0.0f, 0.0f, 0.0f};
+          rays = 0.0f;
+          s = b = 0;
+        } else {
+          drained = true;
+        }
+      }
+    }
+    if (__all_sync(0xffffffffu, i < 0)) break;
+    if (i < 0) continue;
+    if ((float)s < quota) {
+      ++my_iters;
+      trt::regen_trip<EXT, XT>(a.f, sc, tx, xt, state, s, b, xf, yf, o, d, att, acc, emit, csum,
+                               csumsq, rays, tr);
+    }
+    if (!((float)s < quota)) {
+      base_write(a, i, n, csum, csumsq, rays, state, out, state_out);
+      i = -1;
+    }
+  }
+  trt::count_warp_iters(my_iters, iters);
+  tr.flush();
+}
+
+template <bool EXT, bool XT, class TR>
+__global__ void __launch_bounds__(128)
+    kernel_base_refill(BaseArgs a, const float* __restrict__ scene_buf, float* __restrict__ out,
+                       long long* __restrict__ state_out, unsigned long long* __restrict__ iters,
+                       unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
+                       typename TR::Launch tl) {
+  base_refill<EXT, XT, TR>(a, scene_buf, out, state_out, iters, next, tx, xt, tl);
+}
+
+template <bool EXT, bool XT, class TR, int MIN_BLOCKS>
+__global__ void __launch_bounds__(128, MIN_BLOCKS)
+    kernel_base_refill_resident(BaseArgs a, const float* __restrict__ scene_buf,
+                                float* __restrict__ out, long long* __restrict__ state_out,
+                                unsigned long long* __restrict__ iters,
+                                unsigned* __restrict__ next, trt::Tex tx, trt::Xt xt,
+                                typename TR::Launch tl) {
+  base_refill<EXT, XT, TR>(a, scene_buf, out, state_out, iters, next, tx, xt, tl);
 }
 
 template <bool EXT, bool XT, class TR>
@@ -226,6 +357,62 @@ int launch_base(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt, const 
     else
       kernel_base<EXT, XT, TR><<<blocks, threads, 0, (cudaStream_t)stream>>>(
           *a, scene_buf, out, state_out, iters, tx, xt, tl);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The kernel of kernel A on the regeneration schedule that
+// launch_base_regen launches.
+template <bool EXT, bool XT, class TR, bool REFILL, int MIN_BLOCKS>
+const void* base_regen_kernel() {
+  if constexpr (REFILL && MIN_BLOCKS > 0)
+    return (const void*)kernel_base_refill_resident<EXT, XT, TR, MIN_BLOCKS>;
+  else if constexpr (REFILL)
+    return (const void*)kernel_base_refill<EXT, XT, TR>;
+  else if constexpr (MIN_BLOCKS > 0)
+    return (const void*)kernel_base_regen_resident<EXT, XT, TR, MIN_BLOCKS>;
+  else
+    return (const void*)kernel_base_regen<EXT, XT, TR>;
+}
+
+// Kernel A on the regeneration schedule over the h_out * w pixels of `a`,
+// 128 lanes a block, with MIN_BLOCKS > 0 held to MIN_BLOCKS resident blocks
+// an SM. REFILL = false: one thread a pixel (kernel_base_regen[_resident]).
+// REFILL = true: as many blocks as stay resident at once (the occupancy
+// calculator's blocks an SM times the SMs), at most one lane a pixel, the
+// lanes taking pixels from the zeroed counter `next`
+// (kernel_base_refill[_resident]); `next` is unused otherwise.
+template <bool EXT, bool XT, class TR = trt::Sweep, bool REFILL = false, int MIN_BLOCKS = 0>
+int launch_base_regen(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                      const float* scene_buf, float* out, long long* state_out,
+                      unsigned long long* iters, unsigned* next, void* stream,
+                      const typename TR::Launch& tl = {}) {
+  const int n = a->h_out * a->f.width;
+  if (n > 0) {
+    const int threads = 128;
+    int blocks = (n + threads - 1) / threads;
+    if constexpr (REFILL) {
+      int err, dev, n_sm, per_sm;
+      if ((err = (int)cudaGetDevice(&dev)) != 0 ||
+          (err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != 0 ||
+          (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, base_regen_kernel<EXT, XT, TR, REFILL, MIN_BLOCKS>(), threads, 0)) != 0)
+        return err;
+      blocks = min(blocks, max(per_sm, 1) * n_sm);
+    }
+    const cudaStream_t st = (cudaStream_t)stream;
+    if constexpr (REFILL && MIN_BLOCKS > 0)
+      kernel_base_refill_resident<EXT, XT, TR, MIN_BLOCKS>
+          <<<blocks, threads, 0, st>>>(*a, scene_buf, out, state_out, iters, next, tx, xt, tl);
+    else if constexpr (REFILL)
+      kernel_base_refill<EXT, XT, TR>
+          <<<blocks, threads, 0, st>>>(*a, scene_buf, out, state_out, iters, next, tx, xt, tl);
+    else if constexpr (MIN_BLOCKS > 0)
+      kernel_base_regen_resident<EXT, XT, TR, MIN_BLOCKS>
+          <<<blocks, threads, 0, st>>>(*a, scene_buf, out, state_out, iters, tx, xt, tl);
+    else
+      kernel_base_regen<EXT, XT, TR>
+          <<<blocks, threads, 0, st>>>(*a, scene_buf, out, state_out, iters, tx, xt, tl);
   }
   return (int)cudaGetLastError();
 }

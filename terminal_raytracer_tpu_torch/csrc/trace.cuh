@@ -945,10 +945,74 @@ __device__ __forceinline__ unsigned run_samples(const Frame& f, const Scene& sc,
   return iters;
 }
 
+// One trip of the regeneration schedule (ops/tracer.py regen_step; the JAX
+// package's tracer.stream_step, which the TPU kernel A drives) for a lane
+// at sample s whose current path has bounced b times (b = 0: the sample
+// starts here): start the sample where b = 0, bounce its path once, and
+// where the path ends (bounce_step returns false, or b reaches max_depth)
+// add acc to csum and acc * acc to csumsq and advance s, so that the
+// lane's next trip starts its next sample. As in the plain scheduler, a
+// path is bounced once before its depth is checked: at max_depth 0 it
+// bounces once, where run_samples bounces none.
+template <bool EXT, bool XT, class TR>
+__device__ __forceinline__ void regen_trip(const Frame& f, const Scene& sc, const Tex& tx,
+                                           const Xt& xt, uint32_t& state, int& s, int& b,
+                                           float xf, float yf, V3& o, V3& d, V3& att, V3& acc,
+                                           float& emit, V3& csum, V3& csumsq, float& rays,
+                                           TR& tr) {
+  if (b == 0) {
+    state = pcg_hash(state + (uint32_t)s * 5096u);
+    gen_ray<XT>(f, xt, state, s, xf, yf, o, d);
+    att = {1.0f, 1.0f, 1.0f};
+    acc = {0.0f, 0.0f, 0.0f};
+    emit = XT ? xt.emit_fresh : 0.0f;
+  }
+  if (bounce_step<EXT, XT>(sc, tx, xt, state, o, d, att, acc, emit, b, rays, tr) &&
+      ++b < f.max_depth)
+    return;
+  csum = csum + acc;
+  csumsq = csumsq + acc * acc;
+  ++s;
+  b = 0;
+}
+
+// Samples [0, quota) of one pixel continuing `state`, as run_samples, on
+// the regeneration schedule: one trip of the loop is one bounce of the
+// lane's current path (regen_trip), and a lane whose path ends starts its
+// next sample on its next trip, without waiting for the other lanes' paths
+// of the same sample. A warp thus runs as many trips as its lane with the
+// most bounces over all its samples, where run_samples' nested loops run,
+// sample by sample, as many as the warp's longest path of that sample. The
+// draws, their order and the f32 order of the additions to csum, csumsq and
+// rays are run_samples', so every output is equal bit for bit (at
+// max_depth >= 1; regen_trip). Returns the executed bounce iterations.
+template <bool EXT, bool XT, class TR>
+__device__ __forceinline__ unsigned run_samples_regen(const Frame& f, const Scene& sc,
+                                                      const Tex& tx, const Xt& xt,
+                                                      uint32_t& state, float quota, float xf,
+                                                      float yf, V3& csum, V3& csumsq, float& rays,
+                                                      TR& tr) {
+  unsigned iters = 0;
+  V3 o, d, att, acc;
+  float emit = 0.0f;
+  int s = 0, b = 0;
+  while ((float)s < quota) {
+    ++iters;
+    regen_trip<EXT, XT>(f, sc, tx, xt, state, s, b, xf, yf, o, d, att, acc, emit, csum, csumsq,
+                        rays, tr);
+  }
+  return iters;
+}
+
 // Executed lane-iterations: 32 x the warp's largest iteration count, summed
-// over warps — the SIMT counterpart of the TPU kernels' per-tile iteration
-// plane (every lane of a warp waits for its slowest lane). Every thread of
-// the warp must call this.
+// over warps (every lane of a warp waits for its slowest lane): the SIMT
+// counterpart of the TPU kernels' per-tile iteration plane. With a lane's
+// count its summed bounces over all its samples, this is the executed count
+// of a loop that starts each lane's next sample at once (run_samples_regen).
+// Under run_samples' nested loops, where each sample waits for the warp's
+// longest path of that sample, it is a lower bound: their executed count
+// is 32 x the sum over samples of the warp's longest path
+// (ops/kernels.py nested_iters). Every thread of the warp must call this.
 __device__ __forceinline__ void count_warp_iters(unsigned iters, unsigned long long* total) {
   unsigned m = __reduce_max_sync(0xffffffffu, iters);
   if ((threadIdx.x & 31u) == 0u) atomicAdd(total, 32ull * m);

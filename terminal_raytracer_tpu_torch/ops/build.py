@@ -40,7 +40,8 @@ QUEUE_ENTRY_POINTS = {
     for mode in ("regen", "lockstep")}
 # Source -> (C entry point, number of pointer arguments).
 ENTRY_POINTS = {
-    "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_chunked", 6),
+    "kernel_base.cu": (("trt_kernel_base", 6), ("trt_kernel_base_nested", 6),
+                       ("trt_kernel_base_chunked", 6),
                        ("trt_kernel_base_chunked_grouped", 6),
                        ("trt_kernel_base_chunked_grouped_k", 0),
                        ("trt_kernel_base_chunked_grouped_spill", 6),
@@ -50,6 +51,7 @@ ENTRY_POINTS = {
                        ("trt_kernel_base_grouped_k", 0),
                        ("trt_kernel_base_grouped_refill", 0),
                        ("trt_kernel_base_ext", 7),
+                       ("trt_kernel_base_ext_nested", 7),
                        ("trt_kernel_base_ext_grouped", 8),
                        ("trt_kernel_base_ext_grouped_k", 0),
                        ("trt_kernel_base_ext_grouped_refill", 0),
@@ -147,15 +149,19 @@ RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # with -DTRT_TUNE_K=K, for the grid kernels' design -DTRT_TUNE_WIDE, for
 # kernel A's schedule -DTRT_TUNE_REFILL, for the GroupSpill and GroupWalk
 # forms' block width and stage cap -DTRT_TUNE_THREADS, -DTRT_TUNE_STAGE_CAP,
-# for GroupWalk's row source -DTRT_TUNE_WALK and for the
-# XT, EXT and grid kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS), with
+# for GroupWalk's row source -DTRT_TUNE_WALK, for the
+# XT, EXT and grid kernel A's residency bound -DTRT_TUNE_MIN_BLOCKS and for
+# kernel A's thread-per-pixel loop -DTRT_TUNE_LOOP), with
 # the grouped entries of the render libraries and the XT kernel A's forms
-# that the sweep weighs and the EXT and grid kernel A's thread per pixel
-# (TUNE_ONLY_ENTRY_POINTS).
+# that the sweep weighs, the EXT and grid kernel A's thread per pixel and
+# the reference and EXT kernel A's loops (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
 # The define of a kernel_frame.cu build with its queue entries alone (the
 # sweep of tools/group_k.py --only frame, one library a width).
 QUEUE_ONLY = "TRT_TUNE_QUEUE_ONLY=1"
+# The define of a group_tune.cu build with kernel A's thread-per-pixel
+# loops alone (the sweep of tools/group_k.py --only regen).
+LOOP_ONLY = "TRT_TUNE_LOOP_ONLY=1"
 TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_xt", 8), ("trt_kernel_base_xt_min_blocks", 0),
     ("trt_kernel_base_xt_per_sm", 0), ("trt_kernel_base_xt_grouped", 9),
@@ -165,7 +171,10 @@ TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_grid_min_blocks", 0), ("trt_kernel_base_grid_per_sm", 0),
     ("trt_kernel_base_ext", 7), ("trt_kernel_base_ext_min_blocks", 0),
     ("trt_kernel_base_ext_per_sm", 0),
-    ("trt_kernel_base_ext_grouped_per_sm", 1))
+    ("trt_kernel_base_ext_grouped_per_sm", 1), ("trt_kernel_base_loop", 7),
+    ("trt_kernel_base_ext_loop", 8), ("trt_kernel_base_loop_kind", 0),
+    ("trt_kernel_base_loop_min_blocks", 0),
+    ("trt_kernel_base_loop_per_sm", 1))
 TUNE_ENTRY_POINTS = tuple(
     (name, n) for src in ("kernel_extra.cu", "kernel_accel.cu",
                           "kernel_base.cu")
@@ -248,6 +257,8 @@ def load_kernels(sources: tuple = RENDER_SOURCES) -> SimpleNamespace:
                        else ENTRY_POINTS[name])
             if QUEUE_ONLY in _split(src)[1]:
                 entries = tuple(e for e in entries if "_queue" in e[0])
+            if LOOP_ONLY in _split(src)[1]:
+                entries = tuple(e for e in entries if "_loop" in e[0])
             for entry, n_ptr in entries:
                 fn = getattr(lib, entry)
                 fn.restype = ctypes.c_int

@@ -567,9 +567,12 @@ def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     '_gathered', '_grouped', '_xt_grouped', '_ext_grouped',
     '_grid_grouped', '_gathered_grouped', '_grouped_spill',
     '_xt_grouped_spill', '_ext_grouped_spill' or '_grid_grouped_spill' by
-    `kind`) with its launch arguments and raise on a launch error."""
+    `kind`; kernel A also '_nested', '_ext_nested', and from
+    csrc/group_tune.cu '_loop', '_ext_loop') with its launch arguments and
+    raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
     inst = (kind.removesuffix("_spill").removesuffix("grouped")
+            .removesuffix("nested").removesuffix("loop")
             .removesuffix("_") or "ref")
     _check(getattr(lib, name)(ctypes.byref(args), *_inst_args(tracer, inst),
                               *ptrs), name.replace("trt_", ""))
@@ -614,7 +617,9 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                  kind: str, lib=None) -> BaseOut:
     """Launch kernel A's `kind` instantiation (the grouped entries for
     'grouped', 'ext_grouped', 'grid_grouped', 'grid_grouped_spill',
-    'gathered_grouped', which also take a zeroed pixel counter),
+    'gathered_grouped', and csrc/group_tune.cu's thread-per-pixel loops
+    'loop', 'ext_loop', which also take a zeroed pixel counter; the nested
+    twins of the thread per pixel 'nested', 'ext_nested'),
     from `lib` (default the render libraries). Its quota (BaseArgs.base),
     and with it the epilogue's 1 / base and budget cap, is the runtime
     share `base_q` where one is given (counted in
@@ -634,7 +639,7 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
                      float(np.float32(1.0 / base)) if base else 0.0,
                      float(max(spp - base, 0)))
     counter = ((iters.data_ptr() + iters.element_size(),)
-               if "grouped" in kind else ())
+               if "grouped" in kind or kind.endswith("loop") else ())
     ptrs = (tracer.tables.buf.data_ptr(), out.data_ptr(), state.data_ptr(),
             iters.data_ptr(), *counter, _stream(device))
     _launch(lib or load_kernels(), "trt_kernel_base", args, tracer, kind,
@@ -865,8 +870,47 @@ def base_kernel_gathered_grouped(tracer, pose, seed: int, frame_number: int,
     return out
 
 
+def base_kernel_nested(tracer, pose, seed: int, frame_number: int,
+                       y0: int = 0, h_out: int = None,
+                       base_q: int = None) -> BaseOut:
+    """Kernel A's thread per pixel with the nested sample and bounce loops
+    (trt_kernel_base_nested, csrc/trace.cuh run_samples), which the
+    regeneration schedule of trt_kernel_base replaced: the same outputs bit
+    for bit. No dispatch takes it; chip_smoke.py launches it to hold and
+    time the shipped entry against it."""
+    if _kind(tracer) != "ref":
+        raise ValueError("base_kernel_nested: the tracer takes the "
+                         f"{_kind(tracer)!r} instantiation")
+    _no_chunks(tracer, "base_kernel_nested")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_nested"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "nested")
+    base_kernel_nested.launches += 1
+    return out
+
+
+def base_kernel_ext_nested(tracer, pose, seed: int, frame_number: int,
+                           y0: int = 0, h_out: int = None,
+                           base_q: int = None) -> BaseOut:
+    """base_kernel_nested at the EXT gates (trt_kernel_base_ext_nested),
+    the nested twin of base_kernel_ext's thread per pixel."""
+    _require_ext(tracer, "base_kernel_ext_nested")
+    _no_chunks(tracer, "base_kernel_ext_nested")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_ext_nested"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "ext_nested")
+    base_kernel_ext_nested.launches += 1
+    return out
+
+
 base_kernel.launches = 0
 base_kernel.quota_launches = 0  # launches of any instantiation with a base_q
+base_kernel_nested.launches = 0
+base_kernel_ext_nested.launches = 0
 base_kernel_grouped.launches = 0
 base_kernel_ext.launches = 0
 base_kernel_ext_grouped.launches = 0
@@ -887,9 +931,10 @@ def base_entry_iters(tracer, pose, seed: int, frame_number: int, y0: int = 0,
                      h_out: int = None, base_q: int = None) -> torch.Tensor:
     """Kernel A's bounce iterations per pixel (int64 [h_out, w]), from its
     plain version's scheduler: the iterations each pixel's thread or path
-    group runs. warp_iters of them is the thread-per-pixel and the static
-    grouped kernels' counter; the refill schedule's is at least their
-    sum."""
+    group runs. warp_iters of them is the thread-per-pixel (both loops) and
+    the static grouped kernels' counter, and the count that the thread per
+    pixel executes on the regeneration schedule; the refill schedule's
+    counter is at least their sum."""
     q = _base_quota(tracer, base_q, "base_entry_iters")
     cam = tracer_mod.cam_from_pose(pose)
     x, y = tracer.pixel_grid(y0, h_out)
@@ -898,6 +943,35 @@ def base_entry_iters(tracer, pose, seed: int, frame_number: int, y0: int = 0,
                                 tracer.seed_lanes(x, y, seed, frame_number),
                                 quota=q)
     return carry.iters
+
+
+def base_sample_iters(tracer, pose, seed: int, frame_number: int,
+                      y0: int = 0, h_out: int = None,
+                      base_q: int = None) -> torch.Tensor:
+    """Kernel A's bounce iterations per sample and pixel (int64 [quota,
+    h_out, w]; quota base_q, else base_samples), from its plain version's
+    scheduler: row s holds each pixel's bounces of its sample s. Summed
+    over samples, base_entry_iters; nested_iters of it is the count that
+    the nested sample and bounce loops execute."""
+    q = _base_quota(tracer, base_q, "base_sample_iters")
+    cam = tracer_mod.cam_from_pose(pose)
+    x, y = tracer.pixel_grid(y0, h_out)
+    xf, yf = x.to(torch.float32), y.to(torch.float32)
+    c = tracer.regen_carry0(tracer.seed_lanes(x, y, seed, frame_number),
+                            torch.zeros_like(x),
+                            torch.full_like(xf, float(q)))
+    out = torch.zeros((q, *x.shape), dtype=torch.int64, device=x.device)
+    for _ in range((tracer.spp + 1) * tracer.max_depth + 4):  # run_regen's
+        if not bool((c.alive | (c.samp < q)).any()):
+            break
+        nxt = tracer.regen_step(cam, xf, yf, c)
+        # A lane runs sample c.samp in this step (it advances on the path's
+        # end, after the bounce).
+        ran = nxt.iters - c.iters
+        out.scatter_add_(0, c.samp.clamp(max=max(q - 1, 0)).unsqueeze(0),
+                         ran.unsqueeze(0))
+        c = nxt
+    return out
 
 
 def base_kernel_chunked_plain(tracer, pose, seed: int, frame_number: int,
@@ -1796,9 +1870,26 @@ def warp_iters(lane_iters: torch.Tensor, k: int = 1) -> torch.Tensor:
     an entry (path groups of k lanes; k = 1, one thread an entry): a warp
     carries 32 / k consecutive entries and spends 32 / k path slots for as
     many iterations as its longest entry runs (trace.cuh count_warp_iters,
-    count_slot_iters). 0-dim f64."""
+    count_slot_iters). 0-dim f64. With an entry's count its summed bounces
+    over its samples, this is the executed count of a loop that starts each
+    lane's next sample as soon as its path ends (trace.cuh
+    run_samples_regen); for the nested sample and bounce loops (run_samples,
+    kernel A's *_nested twins), which the kernels count the same way, it is
+    a lower bound, and nested_iters gives their executed count."""
     w = _warps(lane_iters, k)
     return (w.amax(1).sum() * w.shape[1]).to(torch.float64)
+
+
+def nested_iters(sample_iters: torch.Tensor) -> torch.Tensor:
+    """Executed lane-iterations of the nested sample and bounce loops, one
+    thread a pixel (trace.cuh run_samples), from each sample's bounces per
+    pixel (base_sample_iters: [samples, ...]): sample by sample, every lane
+    of a warp waits for the warp's longest path of that sample, so a warp
+    spends 32 x the sum over samples of that longest path. At least
+    warp_iters of the samples' sum, warp by warp. 0-dim f64."""
+    return sum((warp_iters(row) for row in sample_iters),
+               torch.zeros((), dtype=torch.float64,
+                           device=sample_iters.device))
 
 
 def working_warps(lane_iters: torch.Tensor, k: int = 1) -> int:

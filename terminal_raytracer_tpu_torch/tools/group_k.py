@@ -7,7 +7,7 @@ with K lanes an entry, for each K, beside the thread-per-entry kernels on
 the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
-        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid|frame]
+        [--reps 5] [--only base|spill|budget|xt|ext|walk|grid|frame|regen]
         [--a-only]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
@@ -140,6 +140,22 @@ library's entry for the tracer's form runs beside the shipped one and the
 thread per pixel, regen and lockstep: ms (the least of --reps runs of 3),
 the frame bit for bit the shipped entry's, regen's count and the resident
 blocks an SM; each library's queue kernels' ptxas lines.
+
+--only regen: kernel A's thread per pixel at the reference and EXT gates
+(the shipped trt_kernel_base / trt_kernel_base_ext and their nested
+twins, trt_kernel_base_nested / _ext_nested) beside csrc/group_tune.cu's
+loops, one library (built with them alone, -DTRT_TUNE_LOOP_ONLY=1) a loop
+(-DTRT_TUNE_LOOP: 0 the nested sample and bounce loops, 1 the
+regeneration schedule, 2 its refill form over a pixel counter) and
+residency bound (-DTRT_TUNE_MIN_BLOCKS: 0, 4, 5, 6), at REGEN_REF (the
+north star, its sp = 3 share 2, shipped, ascii 80x40, demo, scene2) and
+the five packaged extension scenes at their own size: each form bit for
+bit against the plain version (where spp is below the base quota, against
+the nested twin), its counter against its model, its ptxas line and
+resident blocks an SM, its device time behind a queued spin, twice in
+turns, with each form's summed time per gate set; each configuration's
+executed lane-iterations on both schedules (ops/kernels.py warp_iters,
+nested_iters) with the occupancy each gives.
 """
 
 from __future__ import annotations
@@ -186,6 +202,27 @@ def _time(fn, reps: int) -> float:
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / 3)
+    return best
+
+
+def _time_queued(fn, reps: int, calls: int = 10) -> float:
+    """Least ms a call over `reps` runs of `calls` calls, after a warm-up,
+    each run queued behind a spin of the device (torch.cuda._sleep, about
+    1 ms a call at 1980 MHz) during which the host enqueues the calls: the
+    device's time, also for a kernel shorter than its launch's host time."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000 * calls)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
     return best
 
 
@@ -609,8 +646,11 @@ def _sweep_base_forms(label, tr, pose, seed, libs, logs, reps, forms=None):
         if name == "thread":
             per_sm = getattr(lib, f"trt_kernel_base_{kind}_per_sm")()
             blocks = -(-n // 128)
-            pattern = (f"20kernel_base_resident{gates}" if minb
-                       else f"11kernel_base{gates}")
+            # The EXT thread per pixel runs the regeneration schedule.
+            stem = (("26kernel_base_regen_resident", "17kernel_base_regen")
+                    if kind == "ext" else
+                    ("20kernel_base_resident", "11kernel_base"))
+            pattern = stem[0 if minb else 1] + gates
         else:
             query = getattr(lib, f"trt_kernel_base_{kind}_grouped_per_sm")
             per_sm = (query() if kind == "xt" else
@@ -808,7 +848,7 @@ def sweep_ext_base(srcs, paths, reps) -> None:
             for form, src in srcs.items()}
     render_log = paths["kernel_base.cu"].with_suffix(".log").read_text()
     print("[group_k] EXT kernel A shipped: thread per pixel"
-          f"{_ptxas(render_log, '11kernel_baseILb1ELb0E')}; grouped"
+          f"{_ptxas(render_log, '17kernel_base_regenILb1ELb0E')}; grouped"
           f"{_ptxas(render_log, '19kernel_base_groupedILb1ELb0E')}",
           flush=True)
     pose = Camera().pose()
@@ -1362,12 +1402,190 @@ def sweep_frame(reps, ks=FRAME_KS) -> None:
                       "blocks an SM", flush=True)
 
 
+# --only regen: kernel A's thread-per-pixel loop at the reference and EXT
+# gates, one csrc/group_tune.cu library (built with its loops alone) a
+# loop (-DTRT_TUNE_LOOP: REGEN_LOOPS) and residency bound
+# (-DTRT_TUNE_MIN_BLOCKS: REGEN_BOUNDS; 0, unbound), at the configurations
+# where the thread per pixel serves: REGEN_REF (Cornell_Box below
+# GROUP_BASE_MIN_PRIMS, demo and scene2 with sphere lights, demo's 21
+# primitives taking the grouped entry in a render) and the five packaged
+# extension scenes.
+REGEN_LOOPS = {0: "nested", 1: "regen", 2: "refill"}
+REGEN_BOUNDS = (0, 4, 5, 6)
+REGEN_REF = (("north star", "Cornell_Box", (400, 200, 16, 32)),
+             ("north star sp 3 share 2", "Cornell_Box", (400, 200, 16, 32)),
+             ("shipped", "Cornell_Box", (400, 200, 128, 3)),
+             ("ascii 80x40", "Cornell_Box", (80, 40, 1, 4)),
+             ("demo", "demo", None), ("scene2", "scene2", None))
+
+
+def _regen_libs():
+    """{(loop, bound): (source, defines)} of --only regen."""
+    return {(loop, minb): (build.TUNE_SOURCE, (
+        build.LOOP_ONLY, f"TRT_TUNE_LOOP={loop}", f"TRT_TUNE_MIN_BLOCKS={minb}"))
+        for loop in REGEN_LOOPS for minb in REGEN_BOUNDS}
+
+
+def _regen_case(label, tr, pose, seed, base_q, libs, logs):
+    """The inputs and checks of one --only regen configuration: returns
+    {form: launch} and check(form, out) -> its line's text."""
+    ext = kernels._kind(tr) == "ext"
+    gates = "ILb1ELb0E" if ext else "ILb0ELb0E"
+    p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
+    want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
+    # Below `quota` samples per pixel the plain scheduler's step bound,
+    # (spp + 1) x max_depth + 4, may end the base phase before its last
+    # samples (ops/tracer.py run_regen, as the JAX package's); the kernels,
+    # like the TPU kernel A, render every base sample. There every form is
+    # held to the nested twin alone.
+    cut = tr.spp < (base_q or tr.base_samples)
+    if cut:
+        o = kernels._launch_base(tr, pose, seed, 0, 0, None, base_q,
+                                 "ext_nested" if ext else "nested")
+        want = (*o.csum, *o.csumsq, o.rays, o.var, o.additional, o.state)
+        plain = _equal(want, (*p.csum, *p.csumsq, p.rays, p.var,
+                              p.additional, p.state))
+        print(f"[group_k] {label}: spp {tr.spp} below the quota; held to "
+              f"the nested twin (the plain version equal {plain})",
+              flush=True)
+    it = kernels.base_entry_iters(tr, pose, seed, 0, base_q=base_q)
+    si = kernels.base_sample_iters(tr, pose, seed, 0, base_q=base_q)
+    regen, nested = kernels.warp_iters(it), kernels.nested_iters(si)
+    owed = float(p.rays.sum(dtype=torch.float64))
+    per = 1.0 + tr.nee_sweeps
+    n = tr.width * tr.height
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[group_k] {label} kernel A ({'ext' if ext else 'ref'}) "
+          f"{tr.width}x{tr.height}, quota {base_q or tr.base_samples}, depth "
+          f"{tr.max_depth}: {int(it.sum())} pixel iterations; executed, "
+          f"regeneration {float(regen):.0f} (occupancy "
+          f"{owed / (float(regen) * per):.3f}), nested {float(nested):.0f} "
+          f"(occupancy {owed / (float(nested) * per):.3f}); longest pixel "
+          f"{int(it.max())}", flush=True)
+
+    def launcher(kind, lib=None):
+        return lambda: kernels._launch_base(tr, pose, seed, 0, 0, None,
+                                            base_q, kind, lib)
+
+    shipped = "ext" if ext else "ref"
+    forms = {"shipped": launcher(shipped),
+             "shipped nested": launcher("ext_nested" if ext else "nested")}
+    for form, lib in libs.items():
+        forms[form] = launcher("ext_loop" if ext else "loop", lib)
+
+    def check(form, out):
+        same = _equal((*out.csum, *out.csumsq, out.rays, out.var,
+                       out.additional, out.state), want)
+        got = float(out.iters)
+        loop = form[0] if form in libs else int(form == "shipped")
+        if cut:
+            model, executed = True, got
+            text = f"equal {same}, counter {got:.0f} (not modelled)"
+        elif loop == 2:  # refill: at least the pixels' sum
+            model, executed = got >= float(it.sum()), got
+            text = f"equal {same}, counter at least the pixels' sum {model}"
+        else:
+            model = got == float(regen)
+            executed = float(regen if loop else nested)
+            text = f"equal {same}, counter warp_iters {model}"
+        text += f", occupancy {owed / (executed * per):.3f}"
+        if form in libs:
+            minb = form[1]
+            lib = libs[form]
+            per_sm = lib.trt_kernel_base_loop_per_sm(
+                ctypes.byref(ctypes.c_int(int(ext))))
+            name = {0: ("11kernel_base", "20kernel_base_resident"),
+                    1: ("17kernel_base_regen", "26kernel_base_regen_resident"),
+                    2: ("18kernel_base_refill",
+                        "27kernel_base_refill_resident")}[loop][minb > 0]
+            blocks = -(-n // 128)
+            waves = ("a resident grid" if loop == 2 else
+                     f"{blocks / max(per_sm * n_sm, 1):.2f} waves")
+            text += (_ptxas(logs[form], name + gates)
+                     + f", {per_sm} blocks an SM, {waves}")
+        if not (same and model):
+            raise SystemExit(f"group_k: {label} {form}: {text}")
+        return text
+
+    return forms, check
+
+
+def sweep_regen(reps) -> None:
+    """--only regen: every (loop, bound) of _regen_libs beside the shipped
+    entries and their nested twins, bit for bit against the plain version,
+    each counter against its model, at REGEN_REF and the five packaged
+    extension scenes, timed on the device (_time_queued); twice, the second
+    run in the reverse order, with each form's summed time per gate set."""
+    srcs = _regen_libs()
+    t0 = time.perf_counter()
+    paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values()))
+    print(f"[group_k] {len(paths)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    libs = {form: build.load_kernels((src,)) for form, src in srcs.items()}
+    logs = {form: paths[src].with_suffix(".log").read_text()
+            for form, src in srcs.items()}
+    render_log = paths["kernel_base.cu"].with_suffix(".log").read_text()
+    for gates in ("ILb0ELb0E", "ILb1ELb0E"):
+        bound = "26kernel_base_regen_resident" + gates
+        shipped = bound if bound in render_log else "17kernel_base_regen" + gates
+        print(f"[group_k] shipped {gates}: regeneration "
+              f"({shipped[2:shipped.index('I')]}){_ptxas(render_log, shipped)};"
+              f" nested{_ptxas(render_log, '11kernel_base' + gates)}",
+              flush=True)
+    pose = Camera().pose()
+    cases = []
+    for label, name, size in REGEN_REF:
+        scene = load_scene(name)
+        if size:
+            w, h, spp, depth = size
+            scene = scene.with_overrides(width=w, height=h,
+                                         samples_per_pixel=spp,
+                                         max_depth=depth)
+        if "share" in label:
+            split = SampleSplit(scene, "cuda", 3)
+            tr, seed, q = split.tracer, split.seed(SEED, 0), split.share(0)
+        else:
+            tr, seed, q = PathTracer(scene, "cuda"), SEED, None
+        cases.append(("ref", label, _regen_case(label, tr, pose, seed, q, libs,
+                                                logs)))
+    for name in EXT_PACKAGED:
+        tr = PathTracer(load_scene(name), "cuda")
+        cases.append(("ext", name, _regen_case(f"{name} 400x200", tr, pose,
+                                               SEED, None, libs, logs)))
+    order = None
+    sums = []
+    for run in (1, 2):
+        total = {}
+        for gate, label, (forms, check) in cases:
+            names = order or list(forms)
+            for form in names:
+                ms = _time_queued(forms[form], reps)
+                total[gate, form] = total.get((gate, form), 0.0) + ms
+                tag = (form if isinstance(form, str) else
+                       f"{REGEN_LOOPS[form[0]]} bound {form[1]}")
+                print(f"[group_k] run {run} {label} {tag}: {ms:.4f} ms, "
+                      f"{check(form, forms[form]())}", flush=True)
+        sums.append(total)
+        order = list(reversed(names))
+    for gate, form in sums[0]:
+        a, b = sums[0][gate, form], sums[1][gate, form]
+        ref_a, ref_b = (sums[0][gate, "shipped nested"],
+                        sums[1][gate, "shipped nested"])
+        tag = (form if isinstance(form, str) else
+               f"{REGEN_LOOPS[form[0]]} bound {form[1]}")
+        print(f"[group_k] {gate} gates, summed: {tag}: run 1 {a:.4f} ms, run 2 "
+              f"{b:.4f} ms; against the nested thread per pixel x"
+              f"{ref_a / a:.3f}, x{ref_b / b:.3f}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default=None)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", choices=("base", "spill", "budget", "xt", "ext",
-                                       "walk", "grid", "frame"), default=None)
+                                       "walk", "grid", "frame", "regen"),
+                    default=None)
     ap.add_argument("--a-only", action="store_true",
                     help="--only ext: the EXT kernel A alone; --only grid: "
                     "the chunked grid kernel A alone; --only walk: the "
@@ -1376,6 +1594,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("group_k: needs a CUDA GPU", file=sys.stderr)
         sys.exit(2)
+    if args.only == "regen":
+        sweep_regen(args.reps)
+        return 0
     if args.only == "frame":
         sweep_frame(args.reps, [int(k) for k in args.ks.split(",")]
                     if args.ks else FRAME_KS)

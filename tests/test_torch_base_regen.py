@@ -1,0 +1,209 @@
+"""Kernel A's thread per pixel on the regeneration schedule (csrc/trace.cuh
+run_samples_regen: one bounce a loop trip, a lane starting its next sample
+as soon as its path ends) beside its nested twins (trt_kernel_base_nested,
+trt_kernel_base_ext_nested: the sample loop around the bounce loop).
+
+On the CPU: the per-sample iteration model (ops/kernels.py
+base_sample_iters, from the plain scheduler) against the per-pixel one
+(base_entry_iters) at Cornell_Box and showcase 64x16, the nested loops'
+executed count (nested_iters) against the regeneration schedule's
+(warp_iters) warp by warp and on a hand-built two-warp example, and the
+entries that _launch_base calls for each kind, with the launch stood in
+for. The `cuda` tests hold the shipped entries, their nested twins and
+csrc/group_tune.cu's loops against the plain version bit for bit (planes,
+end states) at 128x16, whole and at a runtime quota, with their counters
+equal to warp_iters of the per-pixel model; they skip here.
+"""
+
+import ctypes
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from terminal_raytracer_tpu_torch.models import Camera, load_scene  # noqa: E402
+from terminal_raytracer_tpu_torch.ops import build, kernels  # noqa: E402
+from terminal_raytracer_tpu_torch.ops.tracer import PathTracer  # noqa: E402
+from test_torch_vml import warm_vml  # noqa: E402
+
+torch.set_num_threads(2)
+warm_vml()
+
+POSE = Camera().pose()
+SEED = 42
+# (scene, overrides): Cornell_Box at depth 8 (16 spp: 4 base samples) and
+# showcase at its own spp and depth (32 spp, 8 base samples, depth 8).
+SCENES = {"cornell": ("Cornell_Box", dict(samples_per_pixel=16,
+                                          max_depth=8)),
+          "showcase": ("showcase", {})}
+
+
+def _tracer(key, device="cpu", width=64, height=16):
+    name, over = SCENES[key]
+    scene = load_scene(name).with_overrides(width=width, height=height,
+                                            **over)
+    return PathTracer(scene, device)
+
+
+def _bits(out):
+    return [t.view(torch.int32) if t.is_floating_point() else t
+            for t in (*out.csum, *out.csumsq, out.rays, out.var,
+                      out.additional, out.state)]
+
+
+def _per_warp(lane_iters):
+    """Each warp's longest count: [warps]."""
+    return kernels._warps(lane_iters, 1).amax(1)
+
+
+@pytest.mark.parametrize("q", [None, 2, 0], ids=["base", "quota2", "quota0"])
+@pytest.mark.parametrize("key", list(SCENES))
+def test_sample_iters_sum_to_the_pixel_model(key, q):
+    """Summed over samples, base_sample_iters is base_entry_iters, with one
+    row a sample of the quota; the nested loops execute at least the
+    regeneration schedule's count on every warp, and nested_iters is 32 x
+    the warps' summed longest paths."""
+    tr = _tracer(key)
+    si = kernels.base_sample_iters(tr, POSE, SEED, 0, base_q=q)
+    it = kernels.base_entry_iters(tr, POSE, SEED, 0, base_q=q)
+    quota = tr.base_samples if q is None else q
+    assert si.shape == (quota, tr.height, tr.width)
+    assert si.dtype == torch.int64
+    assert torch.equal(si.sum(0), it)
+    assert bool((si <= tr.max_depth).all())
+    nested = sum((_per_warp(row) for row in si),
+                 torch.zeros_like(_per_warp(it)))
+    assert bool((nested >= _per_warp(it)).all())
+    assert float(kernels.nested_iters(si)) == 32.0 * float(nested.sum())
+    assert float(kernels.nested_iters(si)) >= float(kernels.warp_iters(it))
+    if quota:
+        assert bool((si[0] >= 1).all())  # every sample bounces at least once
+        assert float(kernels.nested_iters(si)) > float(kernels.warp_iters(it))
+
+
+def test_nested_and_regeneration_counts_by_hand():
+    """Two warps of 32 lanes, two samples. Warp 0: lane 0's paths take 5
+    and 1 bounces, lane 1's 1 and 5, the others none; the nested loops
+    wait 5 + 5 trips, the regeneration schedule max(6, 6). Warp 1: every
+    lane 2 and 2, 4 trips either way."""
+    si = torch.zeros((2, 64), dtype=torch.int64)
+    si[:, 0] = torch.tensor([5, 1])
+    si[:, 1] = torch.tensor([1, 5])
+    si[:, 32:] = 2
+    assert float(kernels.nested_iters(si)) == 32 * (10 + 4)
+    assert float(kernels.warp_iters(si.sum(0))) == 32 * (6 + 4)
+    assert float(kernels.nested_iters(si[:, :32])) == 320
+    assert float(kernels.nested_iters(si[:0])) == 0
+
+
+@pytest.mark.parametrize("kind, entry, n_args", [
+    ("ref", "trt_kernel_base", 6),
+    ("nested", "trt_kernel_base_nested", 6),
+    ("ext", "trt_kernel_base_ext", 7),
+    ("ext_nested", "trt_kernel_base_ext_nested", 7),
+    ("loop", "trt_kernel_base_loop", 7),
+    ("ext_loop", "trt_kernel_base_ext_loop", 8)])
+def test_launch_base_calls_the_entry_of_each_kind(monkeypatch, kind, entry,
+                                                  n_args):
+    """_launch_base calls the entry of each thread-per-pixel kind with the
+    arguments its C signature takes (ops/build.py): the texture constants
+    at the EXT gates, the zeroed pixel counter for group_tune.cu's loops;
+    the launch is stood in for."""
+    tr = _tracer("showcase" if "ext" in kind else "cornell", width=8,
+                 height=4)
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(kernels, "_stream", lambda device: ctypes.c_void_p(0))
+    kernels._launch_base(tr, POSE, SEED, 0, 0, None, None, kind, Lib())
+    assert [name for name, _ in calls] == [entry]
+    assert len(calls[0][1]) == n_args
+    declared = dict(build.ENTRY_POINTS["kernel_base.cu"]
+                    + build.TUNE_ONLY_ENTRY_POINTS)
+    assert declared[entry] == n_args
+
+
+@pytest.mark.parametrize("key", list(SCENES))
+def test_nested_wrappers_take_the_plain_version_on_the_cpu(key):
+    """The nested twins' wrappers give the plain version for CPU tensors and
+    refuse a tracer of the other gates."""
+    tr = _tracer(key, width=16, height=4)
+    ext = key == "showcase"
+    fn, other = ((kernels.base_kernel_ext_nested, kernels.base_kernel_nested)
+                 if ext else (kernels.base_kernel_nested,
+                              kernels.base_kernel_ext_nested))
+    n0 = fn.launches
+    got = fn(tr, POSE, SEED, 0, base_q=2)
+    want = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=2)
+    for a, b in zip(_bits(got), _bits(want)):
+        assert torch.equal(a, b)
+    assert fn.launches == n0
+    with pytest.raises(ValueError):
+        other(tr, POSE, SEED, 0)
+
+
+# ----------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [None, 2], ids=["base", "quota2"])
+@pytest.mark.parametrize("key", list(SCENES))
+def test_shipped_and_nested_entries_match_plain_version(cuda_device, key, q):
+    """The shipped thread-per-pixel entry (through the wrapper, which takes
+    it below GROUP_BASE_MIN_PRIMS primitives) and its nested twin against
+    the plain version bit for bit at 128x16, whole and at a quota of 2;
+    both counters are warp_iters of the per-pixel model."""
+    tr = _tracer(key, cuda_device, width=128)
+    ext = key == "showcase"
+    wrapper = kernels.base_kernel_ext if ext else kernels.base_kernel
+    n0 = wrapper.launches
+    got = kernels.base_kernel(tr, POSE, SEED, 0, base_q=q)
+    assert wrapper.launches == n0 + 1
+    twin = kernels.base_kernel_ext_nested if ext else kernels.base_kernel_nested
+    n1 = twin.launches
+    nested = twin(tr, POSE, SEED, 0, base_q=q)
+    assert twin.launches == n1 + 1
+    want = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=q)
+    for a, b, c in zip(_bits(got), _bits(nested), _bits(want)):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    it = kernels.base_entry_iters(tr, POSE, SEED, 0, base_q=q)
+    assert float(got.iters) == float(kernels.warp_iters(it))
+    assert float(nested.iters) == float(kernels.warp_iters(it))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", [0, 1, 2], ids=["nested", "regen", "refill"])
+def test_tune_loops_match_plain_version(cuda_device, loop):
+    """csrc/group_tune.cu's loops (built with them alone), unbound and held
+    to 5 blocks an SM, at both gates against the plain version bit for bit
+    at 128x16 and a quota of 2; the counters warp_iters of the per-pixel
+    model, the refill form's at least the pixels' sum."""
+    for minb in (0, 5):
+        lib = build.load_kernels(((build.TUNE_SOURCE, (
+            build.LOOP_ONLY, f"TRT_TUNE_LOOP={loop}",
+            f"TRT_TUNE_MIN_BLOCKS={minb}")),))
+        assert lib.trt_kernel_base_loop_kind() == loop
+        for key in SCENES:
+            tr = _tracer(key, cuda_device, width=128)
+            kind = "ext_loop" if key == "showcase" else "loop"
+            for q in (None, 2):
+                got = kernels._launch_base(tr, POSE, SEED, 0, 0, None, q, kind,
+                                           lib)
+                want = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=q)
+                for a, c in zip(_bits(got), _bits(want)):
+                    assert torch.equal(a, c)
+                it = kernels.base_entry_iters(tr, POSE, SEED, 0, base_q=q)
+                if loop == 2:
+                    assert float(got.iters) >= float(it.sum())
+                else:
+                    assert float(got.iters) == float(kernels.warp_iters(it))
