@@ -158,6 +158,11 @@ Phases, each reported on lines starting with its tag:
             thread-per-pixel entry, held to 5 resident blocks an SM, is
             then held bit for bit and timed there beside its unbound
             form), with each traversal's counters over the warm-up frame;
+            the gathered kernel A's thread per pixel (on the regeneration
+            schedule) at the north star under gathered, where the wrapper
+            takes it, beside its nested twin (base_kernel_gathered_nested,
+            OFF_PATH), both bit for bit with the plain version's counters,
+            in turns (_nested_both);
             the
             stress1024 grid, stress1024 gathered and mesh1280 gathered
             frames through both forms of every kernel, and of kernel A
@@ -194,7 +199,10 @@ Phases, each reported on lines starting with its tag:
             the thread per pixel), both timed; the chunked grid and
             gathered kernel A's thread per entry, launched directly,
             against its plain version at the chunked configs, with
-            counters (their grouped forms in [accel]); then this slice's
+            counters (their grouped forms in [accel]); at Cornell gathered
+            the gathered kernel A's thread per pixel, which the sorted
+            path takes there, beside its nested twin in turns
+            (_nested_both); then this slice's
             main path: make_render_frame with 'sorted', 'regen' and
             'lockstep' on every config (launch counters reset before, read
             after; ms/frame side by side with the queue entry's widths,
@@ -275,8 +283,14 @@ Phases, each reported on lines starting with its tag:
             replaced (floorf, the residue by division each iteration: the
             _frnd entries, launched here alone) at its row's form and frac
             against the plain version bit for bit, timed in turns with the
-            shipped kernel (shipped, FRND, FRND, shipped), and the SASS
-            opcodes of both designs' kernels a heavy step
+            shipped kernel (shipped, FRND, FRND, shipped); the gather
+            probes' and probe21c's *_serial entries (the loop their trip
+            loop replaced) at their row forms (PROBE_SERIAL) bit for bit
+            against the plain version (probe21c atan2f: the shipped
+            entry), timed in turns with the shipped entries, also at 0
+            iterations; and the SASS opcodes of both designs' kernels a
+            heavy step and the trip loops' fetches, adds and instructions
+            a pass
             (tools/sass_ops.py; where the toolkit has no cuobjdump, the
             phase says so)
   Each Engine run resets the launch counters, renders a warm-up frame
@@ -295,7 +309,9 @@ bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
 3.35 TB/s, whichever is larger; the thread-per-pixel kernel_base, its
 nested twin kernel_base_nested (OFF_PATH) and kernel_extra_grouped at the
-north star, kernel_base_ext and its twin kernel_base_ext_nested (OFF_PATH)
+north star, kernel_base_gathered and its nested twin
+kernel_base_gathered_nested (OFF_PATH) at the north star under gathered,
+kernel_base_ext and its twin kernel_base_ext_nested (OFF_PATH)
 at the showcase shapes, kernel_base_grouped at stress256,
 kernel_base_chunked_grouped and kernel_base_grid_grouped at stress1024,
 the thread-per-pixel kernel_base_grid and the thread-per-entry
@@ -325,8 +341,7 @@ forms kernel_extra_ext_grouped_spill and
 kernel_base_chunked_ext_grouped_spill at the checker icosphere:4 shapes);
 the other XT rows at the fog and stress:1024 fog shapes; the other grid
 and gathered rows at the stress1024 shapes (the thread-per-entry
-kernel_extra_gathered launched directly, OFF_PATH; the thread-per-pixel
-kernel_base_gathered, which the main path takes below 16 primitives),
+kernel_extra_gathered launched directly, OFF_PATH),
 their
 operations the slab tests, walk steps and primitive tests that the plain
 traversal counts; the regen and lockstep rows, thread per pixel
@@ -533,13 +548,20 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
     return res, outs[taken][0]
 
 
-def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None):
-    """Kernel A's thread per pixel of tracer `tr` (reference or EXT gates,
-    the table sweep) in both loops: the shipped entry (trt_kernel_base /
-    _ext: the regeneration schedule, csrc/trace.cuh run_samples_regen) and
-    its nested twin (base_kernel_nested / base_kernel_ext_nested), each
-    against the plain version `p` (computed here when None) bit for bit and
-    against each other, both counters equal to warp_iters of the per-pixel
+# Each instantiation's nested twin of kernel A's thread per pixel.
+NESTED_TWIN = {"ref": "base_kernel_nested", "ext": "base_kernel_ext_nested",
+               "gathered": "base_kernel_gathered_nested"}
+
+
+def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None, pc=None):
+    """Kernel A's thread per pixel of tracer `tr` (reference or EXT gates
+    over the table sweep, or `--accel gathered`) in both loops: the shipped
+    entry (trt_kernel_base / _ext / _gathered: the regeneration schedule,
+    csrc/trace.cuh run_samples_regen) and its nested twin (NESTED_TWIN),
+    each against the plain version `p` (computed here when None) bit for
+    bit and against each other, over the walk with the traversal counters
+    equal to the plain version's `pc` (computed here with `p`) and no walk
+    at the trip cap, both counters equal to warp_iters of the per-pixel
     model (for the nested twin a lower bound of what it executes); prints
     both executed-count models with the occupancy each gives, and times the
     two in turns (shipped, nested, nested, shipped). Returns (max abs
@@ -549,9 +571,8 @@ def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None):
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
-    ext = kernels._kind(tr) == "ext"
-    twin = kernels.base_kernel_ext_nested if ext else kernels.base_kernel_nested
-    kind = "ext" if ext else "ref"
+    kind = kernels._kind(tr)
+    twin = getattr(kernels, NESTED_TWIN[kind])
 
     def shipped():
         return kernels._launch_base(tr, pose, seed, 0, 0, None, base_q, kind)
@@ -560,8 +581,17 @@ def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None):
         return twin(tr, pose, seed, 0, base_q=base_q)
 
     if p is None:
-        p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
-    new, old = shipped(), nested()
+        stats = [] if tr.traversal else None
+        _, _, p = _plain_counted(tr, lambda: kernels.base_kernel_plain(
+            tr, pose, seed, 0, base_q=base_q), stats)
+        pc = stats[0] if stats else None
+    if tr.traversal:
+        (new, kc), (old, nc) = (_counted_launch(tr, shipped),
+                                _counted_launch(tr, nested))
+        _check_counts(f"{label} kernel A regeneration", kc, pc)
+        _check_counts(f"{label} kernel A nested", nc, pc)
+    else:
+        new, old = shipped(), nested()
     err = max(_compare_base(tag, f"{label} kernel A {name}", out, p,
                             ("additional", "var"), exact=True)
               for name, out in (("regeneration", new), ("nested", old)))
@@ -572,8 +602,10 @@ def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None):
                                 old.additional)))
     if not (same and torch.equal(new.state, old.state)):
         fail(f"[{tag}] {label}: kernel A's two loops disagree")
-    it = kernels.base_entry_iters(tr, pose, seed, 0, base_q=base_q)
+    # Each sample's bounces per pixel; summed over samples, the per-pixel
+    # model base_entry_iters (one run of the plain scheduler for both).
     si = kernels.base_sample_iters(tr, pose, seed, 0, base_q=base_q)
+    it = si.sum(0)
     for name, out in (("regeneration", new), ("nested", old)):
         _iters_model(tag, f"{label} kernel A {name}", out.iters, it, 1)
     regen, nest = float(kernels.warp_iters(it)), float(kernels.nested_iters(si))
@@ -1220,6 +1252,7 @@ def phase_thread_per_entry(peak):
 # bit and timed beside their grouped forms, launched directly, so their
 # main-path launches are 0, and a launch there fails the run.
 OFF_PATH = ("kernel_base_nested", "kernel_base_ext_nested",
+            "kernel_base_gathered_nested",
             "kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
             "kernel_base_chunked_xt", "kernel_base_chunked_ext",
@@ -1240,6 +1273,7 @@ QUEUE_NAMES = tuple(
     + {"solo": "_solo", "group": "", "spill": "_spill"}[form]
     for mode, kind, form in QUEUE_KEYS)
 LAUNCH_NAMES = ("base_kernel", "base_kernel_nested", "base_kernel_ext_nested",
+                "base_kernel_gathered_nested",
                 "base_kernel_chunked", "extra_kernel",
                 "base_kernel_grouped", "base_kernel_grid_grouped",
                 "base_kernel_chunked_grouped", "extra_kernel_grouped",
@@ -2656,6 +2690,37 @@ def phase_accel(peak):
           f" (plain {plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}: "
           f"{ops:.4g} operations)", flush=True)
     res["grid", "ans"] = (err, ms, plain, bound)
+    # The thread-per-pixel gathered kernel A at the north star under
+    # gathered (too few primitives for the grouped entry), which the
+    # wrapper takes (on the regeneration schedule), and its nested twin
+    # (OFF_PATH) in turns: both bit for bit with the plain version's
+    # counters (_nested_both), the plain version timed.
+    ng = PathTracer(_cornell(400, 200, 16, 32), "cuda", accel="gathered")
+    if kernels.takes_grouped(ng, "base"):
+        fail("[accel] north star gathered takes the grouped kernel A")
+    n0 = kernels.base_kernel_gathered.launches
+    k, kc = _counted_launch(ng, lambda: kernels.base_kernel(ng, pose, SEED, 0))
+    if kernels.base_kernel_gathered.launches != n0 + 1:
+        fail("[accel] north star gathered: the wrapper took no "
+             "base_kernel_gathered")
+    pc = []
+    plain, ops, p = _time_plain(
+        ng, lambda: kernels.base_kernel_plain(ng, pose, SEED, 0), pc)
+    err = _compare_base("accel", "north star gathered kernel A", k, p,
+                        ("additional", "var"), exact=True)
+    _check_counts("north star gathered kernel A", kc, pc[0])
+    err_n, ms, ms_n = _nested_both("accel", "north star gathered", ng, p,
+                                   pc=pc[0])
+    bound = _bound(ops, 4 * (ng.tables.buf.numel() + ng.atlas.numel())
+                   + 44 * k.var.numel(), peak)
+    minb = build.load_kernels().trt_kernel_base_gathered_min_blocks()
+    print(f"[accel] north star gathered shapes: base_kernel_gathered "
+          f"(regeneration, held to {minb or 'no'} blocks an SM) {ms:.3f} ms, "
+          f"nested twin {ms_n:.3f} ms (x{ms_n / ms:.3f}) (plain {plain:.1f} "
+          f"ms, bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
+          flush=True)
+    res["gathered", "ans"] = (max(err, err_n), ms, plain, bound)
+    res["gathered", "ansn"] = (err_n, ms_n, plain, bound)
     for accel in ("grid", "gathered"):
         _reset_launches()
         rc = cli.main(["--device", "cuda", "--full-color", "--scene",
@@ -2836,6 +2901,11 @@ def phase_sched(peak):
                   f"(plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by "
                   f"{bound[1]}: {ops:.4g} FP32 operations; {n_budget} "
                   "budgeted pixels)", flush=True)
+        if (tr.traversal == "gathered" and not tr.chunk_base
+                and not kernels.takes_grouped(tr, "base")):
+            # Kernel A's thread per pixel, which the sorted main path takes
+            # here, and its nested twin, in turns (_nested_both).
+            res["base_gathered"] = _nested_both("sched", shape, tr)
         if tr.traversal and tr.chunk_base:  # (b): the thread per entry
             def wrap(t, *a):
                 return kernels._launch_chunked(t, *a, 0, None, t.traversal)
@@ -3659,10 +3729,14 @@ PROBE_ROWS = (
 # is timed against; only this script launches it.
 PROBE_FRND = {"probe_when": "trt_probe_when_guarded_frnd",
               "probe_cond": "trt_probe_cond_cond_frnd"}
-# The loop each gather probe's kernels replaced (one iteration after
-# another, 16 blocks of 128) at its row forms: the baseline the shipped
-# loop is timed against; only this script launches it.
-PROBE_SERIAL = {"probe21": ("none", "ldg"), "probe21b": ("none", "rowsel_ldg")}
+# The loop each gather probe's and probe21c's kernels replaced (one
+# iteration after another, 16 blocks of 128) at its row forms: the baseline
+# the shipped loop is timed against; only this script launches it.
+PROBE_SERIAL = {"probe21": ("none", "ldg"), "probe21b": ("none", "rowsel_ldg"),
+                "probe21c": ("packed", "atan2f")}
+# The dependent adds an iteration of a row form's loop (probe21c packed adds
+# r, g and b).
+PROBE_CHAIN = {"probe21": 1, "probe21b": 1, "probe21c": 3}
 PROBE_BURST = 50  # back-to-back launches a mean of _probe_serial takes
 # An FP32 add's latency in clocks: the gathers' chain of ITERS dependent
 # adds takes ITERS times it at 1980 MHz (printed beside the bound).
@@ -3721,9 +3795,11 @@ def _probe_frnd(name, mod, x, want):
 
 
 def _probe_serial(name, mod, tab, idx0, want):
-    """The _serial baselines of gather probe `name` (the loop the shipped
-    one replaced) at its row forms: each bit for bit against the plain
-    version `want[form]`, then timed with the shipped entry in turns
+    """The _serial baselines of gather probe or probe21c `name` (the loop
+    the shipped one replaced) at its row forms: each bit for bit against
+    `want[form]` (the plain version; for probe21c atan2f the shipped
+    entry's output, itself within rtol 1e-6 of torch.atan2), then timed
+    with the shipped entry in turns
     (shipped, serial, serial, shipped), each also at 0 iterations (the
     launch alone, L) and as the mean of PROBE_BURST back-to-back launches;
     launched directly, so that the launch counters stay as main() left
@@ -3881,14 +3957,18 @@ def phase_probes(peak):
         out[name] = (worst, ms, plain_ms, bound)
         frnd = ""
         if name in PROBE_SERIAL:
-            tab, idx0 = ins21[cfg0] if name == "probe21" else (tab_b, idx_b)
-            want = {f: next(plains[name](r) for r in results[name]
+            tab, idx0 = (ins21[cfg0] if name == "probe21" else
+                         (tab_b, idx_b) if name == "probe21b" else
+                         (tab_c, x0_c))
+            want = {f: next(r["out"] if f == "atan2f" else plains[name](r)
+                            for r in results[name]
                             if r["form"] == f and r.get("n", cfg0) == cfg0)
                     for f in PROBE_SERIAL[name]}
             ser = _probe_serial(name, mods[name], tab, idx0, want)
+            chain = (mods[name].ITERS * PROBE_CHAIN[name] * PROBE_FADD_CLOCKS
+                     / 1980e3)
             frnd = (f" (serial {ser[form0][1]:.4f} ms; L {ser[form0][2]:.4f}"
-                    f", serial {ser[form0][3]:.4f}; chain floor "
-                    f"{mods[name].ITERS * PROBE_FADD_CLOCKS / 1980e3:.5f})")
+                    f", serial {ser[form0][3]:.4f}; chain floor {chain:.5f})")
         if name in PROBE_FRND:
             r0 = next(r for r in results[name]
                       if r["form"] == form0 and r["frac"] == cfg0)
@@ -3905,6 +3985,15 @@ def phase_probes(peak):
     return launches, out
 
 
+def _phase(fn, *args):
+    """fn(*args), its wall time printed: the run has 1200 s in all."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -3917,29 +4006,29 @@ def main() -> int:
         fail(f"run from the repository root ({e})")
     import torch
 
-    phase_build()
-    err_a, (tr, a) = phase_kernel_base(peak)
-    res_a, res_a256, err_b, (ms_b, plain_b, bound_b) = phase_kernel_extra(
-        tr, a, peak)
-    err_c, (ms_c, plain_c, bound_c) = phase_kernel_base_chunked(peak)
-    thread = phase_thread_per_entry(peak)
-    launches = phase_main()
-    _add(launches, phase_scale())
-    ext_launches, ext = phase_ext(peak)
+    _phase(phase_build)
+    err_a, (tr, a) = _phase(phase_kernel_base, peak)
+    res_a, res_a256, err_b, (ms_b, plain_b, bound_b) = _phase(
+        phase_kernel_extra, tr, a, peak)
+    err_c, (ms_c, plain_c, bound_c) = _phase(phase_kernel_base_chunked, peak)
+    thread = _phase(phase_thread_per_entry, peak)
+    launches = _phase(phase_main)
+    _add(launches, _phase(phase_scale))
+    ext_launches, ext = _phase(phase_ext, peak)
     _add(launches, ext_launches)
-    xt_launches, xt = phase_xt(peak)
+    xt_launches, xt = _phase(phase_xt, peak)
     _add(launches, xt_launches)
-    accel_launches, acc = phase_accel(peak)
+    accel_launches, acc = _phase(phase_accel, peak)
     _add(launches, accel_launches)
-    sched_launches, sch = phase_sched(peak)
+    sched_launches, sch = _phase(phase_sched, peak)
     _add(launches, sched_launches)
-    _add(launches, phase_denoise())
-    _add(launches, phase_offline())
-    _add(launches, phase_examples())
-    mesh_launches, quota_row = phase_mesh(peak)
+    _add(launches, _phase(phase_denoise))
+    _add(launches, _phase(phase_offline))
+    _add(launches, _phase(phase_examples))
+    mesh_launches, quota_row = _phase(phase_mesh, peak)
     _add(launches, mesh_launches)
     launches["base_kernel_quota"] = quota_row[-1]
-    probe_launches, probes = phase_probes(peak)
+    probe_launches, probes = _phase(phase_probes, peak)
     src = "terminal_raytracer_tpu_torch/csrc/"
     ref = "terminal_raytracer_tpu/ops/pallas_kernel.py:"
     rows = (# Kernel A, thread per pixel at the north star (too few
@@ -4082,12 +4171,25 @@ def main() -> int:
             ("kernel_extra_grid_grouped_spill",
              "extra_kernel_grid_grouped_spill", "group.cuh", "1033",
              *thread["gs"]),
-            # Kernel A over the walk, thread per pixel (the main path takes
-            # it below 16 primitives: [sched]'s Cornell gathered) and
-            # grouped (csrc/group.cuh GroupWalk; entry in kernel_accel.cu),
-            # at the stress1024 shapes, the errors including mesh1280's.
+            # Kernel A over the walk, thread per pixel on the regeneration
+            # schedule (the main path takes it below 16 primitives: the
+            # north star under gathered, [sched]'s Cornell gathered), at
+            # the north star under gathered beside its nested twin
+            # (launched directly: OFF_PATH), the errors including
+            # [sched]'s and the stress1024 and mesh1280 shapes' (where
+            # the grouped entry serves; the thread per pixel's stress1024
+            # time is printed in [accel]); grouped (csrc/group.cuh
+            # GroupWalk; entry in kernel_accel.cu), at the stress1024
+            # shapes, the errors including mesh1280's.
             ("kernel_base_gathered", "base_kernel_gathered",
-             "kernel_accel.cu", "808", *acc["gathered", "at"]),
+             "kernel_accel.cu", "808", max(acc["gathered", "at"][0],
+                                           acc["gathered", "ans"][0],
+                                           sch["base_gathered"][0]),
+             *acc["gathered", "ans"][1:]),
+            ("kernel_base_gathered_nested", "base_kernel_gathered_nested",
+             "kernel_accel.cu", "808", max(acc["gathered", "ansn"][0],
+                                           sch["base_gathered"][0]),
+             *acc["gathered", "ansn"][1:]),
             ("kernel_base_gathered_grouped", "base_kernel_gathered_grouped",
              "group.cuh", "808", *acc["gathered", "a"]),
             # Kernel B over the walk, thread per entry (launched directly:

@@ -38,7 +38,7 @@
 // an SM that the occupancy calculator gives it (no staged rows; the
 // grouped EXT kernel A's too, with its rows staged for a given scene).
 // Last, kernel A's thread-per-pixel loops at the reference and EXT gates
-// (TRT_TUNE_LOOP, below).
+// and over the grid walk (TRT_TUNE_LOOP, below).
 
 #include "group.cuh"
 
@@ -470,65 +470,81 @@ extern "C" int trt_kernel_base_ext_grouped_per_sm(const int* bytes) {
 }
 #endif  // !TRT_TUNE_LOOP_ONLY
 
-// Kernel A's thread-per-pixel loops at the reference and EXT gates, for
-// tools/group_k.py --only regen: TRT_TUNE_LOOP 0, the nested sample and
-// bounce loops (kernel_base, as kernel_base.cu's *_nested entries); 1, the
-// regeneration schedule one thread a pixel (kernel_base_regen, as shipped);
-// 2, its refill form (kernel_base_refill: a grid of the resident blocks
-// whose lanes take pixels from the zeroed counter `next`, unused by the
-// others); each held to TRT_TUNE_MIN_BLOCKS resident blocks an SM (0:
-// none). The arguments of kernel_base.cu's entries, and `next`.
+// Kernel A's thread-per-pixel loops at the reference and EXT gates and over
+// the grid walk (the XT gate set, as kernel_accel.cu's
+// trt_kernel_base_gathered), for tools/group_k.py --only regen:
+// TRT_TUNE_LOOP 0, the nested sample and bounce loops (kernel_base, as the
+// *_nested entries); 1, the regeneration schedule one thread a pixel
+// (kernel_base_regen, as shipped); 2, its refill form (kernel_base_refill: a
+// grid of the resident blocks whose lanes take pixels from the zeroed
+// counter `next`, unused by the others); each held to TRT_TUNE_MIN_BLOCKS
+// resident blocks an SM (0: none). The arguments of the shipped entries,
+// and `next`.
 #ifndef TRT_TUNE_LOOP
 #define TRT_TUNE_LOOP 1
 #endif
 
-template <bool EXT>
+template <bool EXT, bool XT, class TR>
 static const void* loop_kernel() {
 #if TRT_TUNE_LOOP == 0
 #if TRT_TUNE_MIN_BLOCKS > 0
-  return (const void*)kernel_base_resident<EXT, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>;
+  return (const void*)kernel_base_resident<EXT, XT, TR, TRT_TUNE_MIN_BLOCKS>;
 #else
-  return (const void*)kernel_base<EXT, false, trt::Sweep>;
+  return (const void*)kernel_base<EXT, XT, TR>;
 #endif
 #else
-  return base_regen_kernel<EXT, false, trt::Sweep, (TRT_TUNE_LOOP == 2), TRT_TUNE_MIN_BLOCKS>();
+  return base_regen_kernel<EXT, XT, TR, (TRT_TUNE_LOOP == 2), TRT_TUNE_MIN_BLOCKS>();
 #endif
 }
 
-template <bool EXT>
-static int launch_loop(const BaseArgs* a, const trt::Tex& tx, const float* scene_buf, float* out,
-                       long long* state_out, unsigned long long* iters, unsigned* next,
-                       void* stream) {
+template <bool EXT, bool XT, class TR>
+static int launch_loop(const BaseArgs* a, const trt::Tex& tx, const trt::Xt& xt,
+                       const float* scene_buf, float* out, long long* state_out,
+                       unsigned long long* iters, unsigned* next, void* stream,
+                       const typename TR::Launch& tl = {}) {
 #if TRT_TUNE_LOOP == 0
   (void)next;
-  return launch_base<EXT, false, trt::Sweep, TRT_TUNE_MIN_BLOCKS>(a, tx, trt::Xt{}, scene_buf,
-                                                                  out, state_out, iters, stream);
+  return launch_base<EXT, XT, TR, TRT_TUNE_MIN_BLOCKS>(a, tx, xt, scene_buf, out, state_out,
+                                                       iters, stream, tl);
 #else
-  return launch_base_regen<EXT, false, trt::Sweep, (TRT_TUNE_LOOP == 2), TRT_TUNE_MIN_BLOCKS>(
-      a, tx, trt::Xt{}, scene_buf, out, state_out, iters, next, stream);
+  return launch_base_regen<EXT, XT, TR, (TRT_TUNE_LOOP == 2), TRT_TUNE_MIN_BLOCKS>(
+      a, tx, xt, scene_buf, out, state_out, iters, next, stream, tl);
 #endif
 }
 
 extern "C" int trt_kernel_base_loop(const BaseArgs* a, const float* scene_buf, float* out,
                                     long long* state_out, unsigned long long* iters,
                                     unsigned* next, void* stream) {
-  return launch_loop<false>(a, trt::Tex{}, scene_buf, out, state_out, iters, next, stream);
+  return launch_loop<false, false, trt::Sweep>(a, trt::Tex{}, trt::Xt{}, scene_buf, out,
+                                               state_out, iters, next, stream);
 }
 
 extern "C" int trt_kernel_base_ext_loop(const BaseArgs* a, const trt::Tex* tx,
                                         const float* scene_buf, float* out, long long* state_out,
                                         unsigned long long* iters, unsigned* next, void* stream) {
-  return launch_loop<true>(a, *tx, scene_buf, out, state_out, iters, next, stream);
+  return launch_loop<true, false, trt::Sweep>(a, *tx, trt::Xt{}, scene_buf, out, state_out,
+                                              iters, next, stream);
+}
+
+extern "C" int trt_kernel_base_gathered_loop(const BaseArgs* a, const trt::Tex* tx,
+                                             const trt::Xt* xt, const trt::Accel* acc,
+                                             const float* scene_buf, float* out,
+                                             long long* state_out, unsigned long long* iters,
+                                             unsigned* next, void* stream) {
+  return launch_loop<true, true, trt::Walk>(a, *tx, *xt, scene_buf, out, state_out, iters, next,
+                                            stream, *acc);
 }
 
 // The loop (TRT_TUNE_LOOP), its residency bound, and the resident blocks an
-// SM that the occupancy calculator gives it at the EXT gates (`ext` != 0)
-// or the reference gates, or a negative CUDA error.
+// SM that the occupancy calculator gives it at the gates `*gates` (0: the
+// reference gates, 1: EXT, 2: over the grid walk), or a negative CUDA error.
 extern "C" int trt_kernel_base_loop_kind() { return TRT_TUNE_LOOP; }
 extern "C" int trt_kernel_base_loop_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
-extern "C" int trt_kernel_base_loop_per_sm(const int* ext) {
+extern "C" int trt_kernel_base_loop_per_sm(const int* gates) {
+  const void* kernel = *gates == 2   ? loop_kernel<true, true, trt::Walk>()
+                       : *gates == 1 ? loop_kernel<true, false, trt::Sweep>()
+                                     : loop_kernel<false, false, trt::Sweep>();
   int n = 0;
-  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, *ext ? loop_kernel<true>() : loop_kernel<false>(), 128, 0);
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 128, 0);
   return err != 0 ? -err : n;
 }

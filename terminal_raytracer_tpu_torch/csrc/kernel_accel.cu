@@ -38,6 +38,19 @@
 // resident blocks an SM (__launch_bounds__(128, 5)), so that a 400x200
 // frame's 625 blocks run in one wave, as the XT kernel A is.
 //
+// trt_kernel_base_gathered, one thread a pixel (it serves scenes below
+// GROUP_BASE_MIN_PRIMS primitives under --accel gathered: Cornell_Box and
+// the packaged extension scenes), runs the regeneration schedule
+// (pipeline.cuh kernel_base_regen over trace.cuh run_samples_regen: one
+// bounce a loop trip, a lane starting its next sample on the trip after its
+// path ends, as the TPU kernel's stream_step), held to GATHERED_MIN_BLOCKS
+// resident blocks an SM. The nested sample and bounce loops that it
+// replaced stay as trt_kernel_base_gathered_nested, launched by
+// chip_smoke.py and the sweep alone: the same arguments and outputs, and
+// the same walks, so the same traversal counters, bit for bit (at
+// max_depth >= 1: at max_depth 0 the regeneration schedule bounces each
+// path once, as the plain version does, and the nested loops none).
+//
 // trt_kernel_base_grid_grouped is kernel A over the culled sweep redesigned
 // the same way (group.cuh kernel_base_grouped over GroupCulled<GROUP_K_BASE_GRID,
 // GROUP_WIDE_BASE_GRID>, the schedule GROUP_REFILL_BASE_GRID): a path group
@@ -106,6 +119,23 @@
 // (128 registers, 4 blocks an SM), 4 2.530 / 2.514, 5 2.199 / 2.199 (96
 // registers, 360 B of spill stores, 0.95 waves), 6 2.308 / 2.311.
 constexpr int GRID_MIN_BLOCKS = 5;
+
+// The resident blocks an SM that the gathered kernel A's thread per pixel
+// is held to (pipeline.cuh launch_base_regen): chosen by tools/group_k.py
+// --only regen --gates gathered, the least summed time over the
+// configurations where it serves, each under --accel gathered (the north
+// star, its sp = 3 share 2, shipped, ascii 80x40, scene2, fog, the five
+// packaged extension scenes, Cornell_Box 100x50; ms of device time, twice
+// in turns, H100 80GB HBM3 at 700 W). Summed: the regeneration schedule
+// held to 6 blocks 17.287 / 17.336 (80 registers, 460 B of spill stores,
+// 0.79 waves at 400x200), to 5 17.475 / 17.569, unbound 21.700 / 21.705
+// (128 registers, 4 blocks an SM, 1.18 waves); the refill form at best
+// 17.561 / 17.566 (held to 6); the nested loops at best 19.727 / 19.478
+// (held to 6) and 24.200 / 24.224 unbound, as the parent shipped them.
+// At the north star 1.991 / 1.979 against the parent's 2.929 / 2.933; at
+// Cornell_Box 100x50 0.573 / 0.573 against 0.526 / 0.526 (the spills cost
+// more than the trips save where 40 blocks leave the wave count at one).
+constexpr int GATHERED_MIN_BLOCKS = 6;
 
 // The group width of the grouped grid kernel B and its design (group.cuh
 // GroupCulled: WIDE sweeps K / 8 candidate blocks a step): chosen by the
@@ -210,10 +240,26 @@ extern "C" int trt_kernel_base_grid(const BaseArgs* a, const trt::Tex* tx, const
 
 extern "C" int trt_kernel_base_grid_min_blocks() { return GRID_MIN_BLOCKS; }
 
+// Kernel A over the walk, one thread a pixel on the regeneration schedule
+// (pipeline.cuh kernel_base_regen[_resident]), held to GATHERED_MIN_BLOCKS.
 extern "C" int trt_kernel_base_gathered(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                         const trt::Accel* acc, const float* scene_buf, float* out,
                                         long long* state_out, unsigned long long* iters,
                                         void* stream) {
+  return launch_base_regen<true, true, trt::Walk, false, GATHERED_MIN_BLOCKS>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, nullptr, stream, *acc);
+}
+
+// Its residency bound (blocks an SM; 0: none).
+extern "C" int trt_kernel_base_gathered_min_blocks() { return GATHERED_MIN_BLOCKS; }
+
+// Its nested twin (pipeline.cuh kernel_base over trace.cuh run_samples),
+// the loops it replaced: the same arguments and outputs.
+extern "C" int trt_kernel_base_gathered_nested(const BaseArgs* a, const trt::Tex* tx,
+                                               const trt::Xt* xt, const trt::Accel* acc,
+                                               const float* scene_buf, float* out,
+                                               long long* state_out,
+                                               unsigned long long* iters, void* stream) {
   return launch_base<true, true, trt::Walk>(a, *tx, *xt, scene_buf, out, state_out, iters, stream,
                                             *acc);
 }

@@ -8,9 +8,9 @@
 //
 // The probes' (16, 128) tile becomes 2048 threads, one per tile element e
 // = blockIdx.x * block + threadIdx.x = row * 128 + col: blocks of 32 for
-// the gather probes (one warp on each of 64 SMs), of 128 for probe21c and
-// the gather probes' *_serial entries (one tile row a block) and of 256 for
-// the branch probes. A TPU probe's sequential grid
+// the gather probes and probe21c (one warp on each of 64 SMs), of 128 for
+// their *_serial entries (one tile row a block) and of 256 for the branch
+// probes. A TPU probe's sequential grid
 // steps become blockIdx.y: each step's blocks write their own copy of the
 // output tile, and the launcher checks that every copy is equal.
 //
@@ -48,8 +48,19 @@
 // then the texel index from uv (floor, cast, iv * 32 + iu), atan2 (CUDA's
 // atan2f, the counterpart of jnp.arctan2, and the port's polynomial
 // trace.cuh atan2_poly), or the packed rgb texel through __ldg and
-// trace.cuh unpack_texel's arithmetic: one iteration after another, each
-// waiting on the last.
+// trace.cuh unpack_texel's arithmetic (three values an iteration: r, g,
+// b). Only the adds depend on the iteration before: x, the index, the
+// fetch and the atan2 of iteration i depend on i alone. So the loop runs as
+// the gather probes' does (gather_loop, V values an iteration): the next
+// trip's index math, fetches and atan2 are issued before this trip's adds,
+// which stay in loop order, one warp on each of 64 SMs. What holds a form
+// then (tools/gather_tune.py, tools/sass_ops.py; PERF.md §6): packed at 65
+// clocks an iteration, against 12 for its 3 dependent adds, on one warp's
+// issue of the index math and unpack and its scattered __ldg; atan2f at
+// 265 clocks an iteration at every trip width, as serial: CUDA's atan2f
+// compiles to about 12 branch instructions (BRA, BSSY, CALL) an iteration,
+// and the trips' atan2f chains do not overlap across them. The *_serial entries keep the
+// parent's loop (one iteration after another, 16 blocks of 128).
 //
 // Branch probes (tools/probe_when.py:54 with 64 grid steps, probe_cond.py:58
 // with 256): K iterations whose heavy body runs when pred = ((i * 40503 +
@@ -164,7 +175,8 @@ __device__ __forceinline__ float shfl_select(const float (&reg)[R], int src, int
 // fetch waits under the adds of the trip before it and the adds alone are
 // the dependent chain; iters mod U iterations end it as one shorter trip.
 // trip(i, n, g) sets g[u] = g_(i + u) for u < n <= U; n is the same on
-// every lane of a warp, so a fetch may be a warp collective.
+// every lane of a warp, so a fetch may be a warp collective. With V > 1 an
+// iteration adds V values in order: trip sets g[u * V + v] for v < V.
 template <int U>
 __device__ __forceinline__ void add_trip(float& acc, const float (&g)[U], int n = U) {
 #pragma unroll
@@ -176,9 +188,9 @@ __device__ __forceinline__ void add_trip(float& acc, const float (&g)[U], int n 
 // (a form whose fetch is one instruction); else one trip a pass and the
 // fetched values copied (a form whose fetch is a loop of its own, beside
 // which the copies cost nothing and a second trip's code ran slower).
-template <int U, bool PAIRS, typename Trip>
+template <int U, bool PAIRS, int V = 1, typename Trip>
 __device__ __forceinline__ float gather_loop(int iters, const Trip& trip) {
-  float acc = 0.0f, g[U], h[U];
+  float acc = 0.0f, g[U * V], h[U * V];
   const int full = iters - iters % U;
   if (full > 0) trip(0, U, g);
   if constexpr (PAIRS) {
@@ -203,14 +215,14 @@ __device__ __forceinline__ float gather_loop(int iters, const Trip& trip) {
       trip(i, U, h);
       add_trip(acc, g);
 #pragma unroll
-      for (int u = 0; u < U; ++u) g[u] = h[u];
+      for (int u = 0; u < U * V; ++u) g[u] = h[u];
     }
     if (full > 0) add_trip(acc, g);
   }
   const int rest = iters - full;
   if (rest > 0) {
     trip(full, rest, g);
-    add_trip(acc, g, rest);
+    add_trip(acc, g, rest * V);
   }
   return acc;
 }
@@ -488,42 +500,69 @@ int launch21b(const ProbeGather* a, const float* tab, const int* idx0, float* ou
 
 enum { C_NONE, C_F2I, C_ATAN2F, C_ATAN2_POLY, C_PACKED };
 
+// The values an iteration adds: packed's r, g, b; one for the others.
 template <int F>
-__global__ void __launch_bounds__(BLOCK)
+constexpr int VALS21C = F == C_PACKED ? 3 : 1;
+
+// U: iterations a trip; 0, the serial loop in blocks of BLOCK.
+template <int U>
+constexpr int BLOCK21C = U == 0 ? BLOCK : GBLOCK;
+
+// v[0, VALS21C<F>) of iteration i at x = xe + 0.001 i, in their order.
+template <int F>
+__device__ __forceinline__ void values21c(const int32_t* tab, float xe, int i, float* v) {
+  const float x = xe + 0.001f * (float)i;
+  if constexpr (F == C_NONE) {
+    v[0] = x;
+  } else if constexpr (F == C_ATAN2F) {
+    v[0] = atan2f(x, 1.0f - x);
+  } else if constexpr (F == C_ATAN2_POLY) {
+    v[0] = trt::atan2_poly(x, 1.0f - x);
+  } else {
+    // The texel index of uv on a 32x32 texture; x >= 0, so u, v < 1.
+    const float x17 = x * 1.7f;
+    const float u = x - floorf(x), w = x17 - floorf(x17);
+    const int idx = (int)floorf(w * 32.0f) * 32 + (int)floorf(u * 32.0f);
+    if constexpr (F == C_F2I) {
+      v[0] = (float)idx;
+    } else {
+      const trt::V3 c = trt::unpack_texel(__ldg(tab + idx));
+      v[0] = c.x;
+      v[1] = c.y;
+      v[2] = c.z;
+    }
+  }
+}
+
+template <int F, int U>
+__global__ void __launch_bounds__(BLOCK21C<U>)
     probe21c(ProbeGather a, const int32_t* tab, const float* x0, float* out) {
-  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  constexpr int B = BLOCK21C<U>, V = VALS21C<F>;
+  const int e = blockIdx.x * B + threadIdx.x;
   const float xe = x0[e];
   float acc = 0.0f;
-  for (int i = 0; i < a.iters; ++i) {
-    const float x = xe + 0.001f * (float)i;
-    if constexpr (F == C_NONE) {
-      acc = acc + x;
-    } else if constexpr (F == C_ATAN2F) {
-      acc = acc + atan2f(x, 1.0f - x);
-    } else if constexpr (F == C_ATAN2_POLY) {
-      acc = acc + trt::atan2_poly(x, 1.0f - x);
-    } else {
-      // The texel index of uv on a 32x32 texture; x >= 0, so u, v < 1.
-      const float x17 = x * 1.7f;
-      const float u = x - floorf(x), v = x17 - floorf(x17);
-      const int idx = (int)floorf(v * 32.0f) * 32 + (int)floorf(u * 32.0f);
-      if constexpr (F == C_F2I) {
-        acc = acc + (float)idx;
-      } else {
-        const trt::V3 c = trt::unpack_texel(__ldg(tab + idx));
-        acc = acc + c.x;
-        acc = acc + c.y;
-        acc = acc + c.z;
-      }
+  if constexpr (U == 0) {
+    for (int i = 0; i < a.iters; ++i) {
+      float v[V];
+      values21c<F>(tab, xe, i, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc = acc + v[k];
     }
+  } else {
+    acc = gather_loop<U, true, V>(a.iters, [&](int i, int n, float(&g)[U * V]) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (u < n) values21c<F>(tab, xe, i + u, g + u * V);
+    });
   }
   out[e] = acc;
 }
 
-template <int F>
+template <int F, int U>
 int launch21c(const ProbeGather* a, const int32_t* tab, const float* x0, float* out,
               void* stream) {
-  probe21c<F><<<TILE / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(*a, tab, x0, out);
+  constexpr int B = BLOCK21C<U>;
+  probe21c<F, U><<<TILE / B, B, 0, (cudaStream_t)stream>>>(*a, tab, x0, out);
   return (int)cudaGetLastError();
 }
 
@@ -632,9 +671,9 @@ __global__ void __launch_bounds__(BR_BLOCK) probe_cond(ProbeBranch a, float* out
 // Every entry: out f32 [16, 128] (branch probes [copies, 16, 128]) on the
 // given stream; returns cudaGetLastError().
 
-// The gather forms' iterations a trip, each form's fastest of 4, 8, 16 and
-// 32 (tools/gather_tune.py); -DTRT_GATHER_U=u gives every form u for that
-// sweep. 0: the serial loop the shipped one replaced.
+// The gather forms' and probe21c's iterations a trip, each form's fastest
+// of 4, 8, 16 and 32 (tools/gather_tune.py); -DTRT_GATHER_U=u gives every
+// form u for that sweep. 0: the serial loop the shipped one replaced.
 #ifdef TRT_GATHER_U
 #define TRIP(u) TRT_GATHER_U
 #else
@@ -674,16 +713,18 @@ PROBE21B(onehot_hi, B_ONEHOT_HI, H_SHARED, TRIP(8))
 PROBE21B(none_serial, B_NONE, H_LDG, 0)
 PROBE21B(rowsel_ldg_serial, B_ROWSEL, H_LDG, 0)
 
-#define PROBE21C(form, F)                                                                  \
+#define PROBE21C(form, F, U)                                                               \
   extern "C" int trt_probe21c_##form(const ProbeGather* a, const int32_t* tab, const float* x0, \
                                      float* out, void* stream) {                          \
-    return launch21c<F>(a, tab, x0, out, stream);                                         \
+    return launch21c<F, U>(a, tab, x0, out, stream);                                      \
   }
-PROBE21C(none, C_NONE)
-PROBE21C(f2i, C_F2I)
-PROBE21C(atan2f, C_ATAN2F)
-PROBE21C(atan2_poly, C_ATAN2_POLY)
-PROBE21C(packed, C_PACKED)
+PROBE21C(none, C_NONE, TRIP(32))
+PROBE21C(f2i, C_F2I, TRIP(16))
+PROBE21C(atan2f, C_ATAN2F, TRIP(8))
+PROBE21C(atan2_poly, C_ATAN2_POLY, TRIP(16))
+PROBE21C(packed, C_PACKED, TRIP(32))
+PROBE21C(atan2f_serial, C_ATAN2F, 0)
+PROBE21C(packed_serial, C_PACKED, 0)
 
 #define PROBE_WHEN(form, F, FRND)                                                           \
   extern "C" int trt_probe_when_##form(const ProbeBranch* a, const float* x, float* out,     \

@@ -90,6 +90,8 @@ ENTRY_POINTS = {
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_grid_min_blocks", 0),
                         ("trt_kernel_base_gathered", 9),
+                        ("trt_kernel_base_gathered_min_blocks", 0),
+                        ("trt_kernel_base_gathered_nested", 9),
                         ("trt_kernel_base_chunked_grid", 9),
                         ("trt_kernel_base_chunked_gathered", 9),
                         ("trt_kernel_base_chunked_grid_grouped", 9),
@@ -126,8 +128,9 @@ ENTRY_POINTS = {
     ) + QUEUE_ENTRY_POINTS["regen"],
     "kernel_frame_lockstep.cu": QUEUE_ENTRY_POINTS["lockstep"],
     # The Hopper probes of tools/ (terminal_raytracer_tpu_torch/tools/);
-    # the *_serial gather entries keep the loop the shipped one replaced
-    # and are launched by chip_smoke.py alone.
+    # the *_serial gather and probe21c entries keep the loop the shipped one
+    # replaced and are launched by chip_smoke.py and tools/gather_tune.py
+    # alone.
     "probes.cu": tuple(
         (f"trt_probe21_{f}", 5) for f in (
             "none", "ldg", "global", "shared", "onehotmm", "selectacc",
@@ -137,7 +140,8 @@ ENTRY_POINTS = {
         "tala0_shared", "tala0_shfl", "rowsel_ldg", "rowsel_shared",
         "rowsel_shfl", "onehot_hi", "none_serial", "rowsel_ldg_serial")
     ) + tuple((f"trt_probe21c_{f}", 5) for f in (
-        "none", "f2i", "atan2f", "atan2_poly", "packed")
+        "none", "f2i", "atan2f", "atan2_poly", "packed", "atan2f_serial",
+        "packed_serial")
     ) + tuple((f"trt_probe_when_{f}", 4) for f in (
         "guarded", "unguarded", "divergent", "guarded_frnd")
     ) + tuple((f"trt_probe_cond_{f}", 3) for f in (
@@ -154,7 +158,7 @@ RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # kernel A's thread-per-pixel loop -DTRT_TUNE_LOOP), with
 # the grouped entries of the render libraries and the XT kernel A's forms
 # that the sweep weighs, the EXT and grid kernel A's thread per pixel and
-# the reference and EXT kernel A's loops (TUNE_ONLY_ENTRY_POINTS).
+# the reference, EXT and gathered kernel A's loops (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
 # The define of a kernel_frame.cu build with its queue entries alone (the
 # sweep of tools/group_k.py --only frame, one library a width).
@@ -172,7 +176,8 @@ TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_ext", 7), ("trt_kernel_base_ext_min_blocks", 0),
     ("trt_kernel_base_ext_per_sm", 0),
     ("trt_kernel_base_ext_grouped_per_sm", 1), ("trt_kernel_base_loop", 7),
-    ("trt_kernel_base_ext_loop", 8), ("trt_kernel_base_loop_kind", 0),
+    ("trt_kernel_base_ext_loop", 8), ("trt_kernel_base_gathered_loop", 10),
+    ("trt_kernel_base_loop_kind", 0),
     ("trt_kernel_base_loop_min_blocks", 0),
     ("trt_kernel_base_loop_per_sm", 1))
 TUNE_ENTRY_POINTS = tuple(

@@ -1,17 +1,21 @@
-"""The gather probes' trip and block widths on the H100: builds
-csrc/probes.cu once for each (TRT_GATHER_U, TRT_GATHER_BLOCK) pair (every
-form at that trip width), all at once, and times the forms of perf_probe21
-and perf_probe21b through every build in turns (the builds in order, then
-in reverse), beside the shipped build's entries (each form at its own trip
-width) and its *_serial entries (the loop the shipped one replaced). Every
-output is held against its plain version on the card, bit for bit.
+"""The gather probes' and probe21c's trip and block widths on the H100:
+builds csrc/probes.cu once for each (TRT_GATHER_U, TRT_GATHER_BLOCK) pair
+(every form at that trip width), all at once, and times the forms of
+perf_probe21, perf_probe21b and perf_probe21c through every build in turns
+(the builds in order, then in reverse), beside the shipped build's entries
+(each form at its own trip width) and its *_serial entries (the loop the
+shipped one replaced). Every output is held against its plain version on
+the card, bit for bit (probe21c atan2f: the shipped entry within rtol 1e-6
+of torch.atan2, every other entry bit for bit against the shipped one).
 
     python -m terminal_raytracer_tpu_torch.tools.gather_tune \\
         [--unroll 4,8,16] [--block 16,32,128] [--iters 0,512,8192] [--reps 5]
 
 The row forms (perf_probe21 none and ldg at n = 1024, perf_probe21b none
-and rowsel_ldg) run at each loop count of --iters, every other form at
-512 (perf_probe21 at n = 1024, selectacc at 256). Each line: the form, its
+and rowsel_ldg, perf_probe21c packed and atan2f: the forms with a *_serial
+entry) run at each loop count of --iters, every other form at 512
+(perf_probe21 at n = 1024, selectacc at 256; perf_probe21c on its (8, 128)
+packed table). Each line: the form, its
 loop count and n, then the ms of each build (least of --reps in each of
 the two turns); a row form's last lines give the loop's clocks an
 iteration, (t - t at 0 iterations) / iterations at --mhz. Needs a CUDA
@@ -29,8 +33,11 @@ from ..ops import build
 from . import _probe
 from . import perf_probe21 as p21
 from . import perf_probe21b as p21b
+from . import perf_probe21c as p21c
 
-ROW = {"probe21": ("none", "ldg"), "probe21b": ("none", "rowsel_ldg")}
+ROW = {"probe21": ("none", "ldg"), "probe21b": ("none", "rowsel_ldg"),
+       "probe21c": ("packed", "atan2f")}
+MODS = {"probe21": p21, "probe21b": p21b, "probe21c": p21c}
 N21 = 1024
 N_SELECT = 256  # selectacc's largest size of perf_probe21.SIZES
 
@@ -44,26 +51,34 @@ def variants(unrolls, blocks) -> dict:
 
 def cases(device) -> list:
     """(probe, form, n, tab, idx0) of every form timed, the row forms
-    first; perf_probe21's inputs drawn as its main() draws them."""
+    first; perf_probe21's inputs drawn as its main() draws them, probe21c's
+    idx0 its x0 and n its table's size."""
     ins = {n: (tab, idx) for n, tab, idx in p21.inputs(
         p21.SIZES[:p21.SIZES.index(N21) + 1], device)}
     tab_b, idx_b = p21b.inputs(device)
-    rows = [("probe21", f, N21, *ins[N21]) for f in ROW["probe21"]] + [
-        ("probe21b", f, _probe.TILE, tab_b, idx_b) for f in ROW["probe21b"]]
-    rest = [("probe21", f, N21 if f != "selectacc" else N_SELECT,
-             *ins[N21 if f != "selectacc" else N_SELECT])
-            for f in p21.FORMS if f not in ROW["probe21"]]
-    rest += [("probe21b", f, _probe.TILE, tab_b, idx_b) for f in p21b.FORMS
-             if f not in ROW["probe21b"]]
+    tab_c, x0_c = p21c.inputs(device)
+    args = {"probe21b": (_probe.TILE, tab_b, idx_b),
+            "probe21c": (tab_c.numel(), tab_c, x0_c)}
+
+    def case(probe, f):
+        if probe != "probe21":
+            return (probe, f, *args[probe])
+        n = N21 if f != "selectacc" else N_SELECT
+        return (probe, f, n, *ins[n])
+
+    rows = [case(probe, f) for probe, forms in ROW.items() for f in forms]
+    rest = [case(probe, f) for probe, mod in MODS.items()
+            for f in mod.FORMS if f not in ROW[probe]]
     return rows + rest
 
 
 def run_case(probe, form, n, tab, idx0, iters, libs, reps) -> dict:
     """{label: [ms in the first turn, ms in the second]} of one form: the
     shipped entry, the serial entry (a row form's) and every build's, each
-    output bit for bit against the plain version on the card."""
-    mod = p21 if probe == "probe21" else p21b
-    want = mod.plain(form, tab, idx0, iters)
+    output bit for bit against the plain version on the card (probe21c
+    atan2f: the shipped entry within rtol 1e-6 of it, the others bit for
+    bit against the shipped entry)."""
+    want = MODS[probe].plain(form, tab, idx0, iters)
     calls = {"shipped": (f"trt_{probe}_{form}", _probe.PROBES)}
     if form in ROW[probe]:
         calls["serial"] = (f"trt_{probe}_{form}_serial", _probe.PROBES)
@@ -80,6 +95,9 @@ def run_case(probe, form, n, tab, idx0, iters, libs, reps) -> dict:
         out.fill_(float("nan"))
         call(entry, srcs)()
         torch.cuda.synchronize()
+        if form == "atan2f" and label == "shipped":
+            torch.testing.assert_close(out, want, rtol=1e-6, atol=0)
+            want = out.clone()
         if not torch.equal(out, want):
             err = float((out.double() - want.double()).abs().max())
             raise RuntimeError(f"{entry} ({label}) at {iters} iterations, "

@@ -8,7 +8,7 @@ the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
         [--reps 5] [--only base|spill|budget|xt|ext|walk|grid|frame|regen]
-        [--a-only]
+        [--a-only] [--gates ref,ext,gathered]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -141,17 +141,21 @@ thread per pixel, regen and lockstep: ms (the least of --reps runs of 3),
 the frame bit for bit the shipped entry's, regen's count and the resident
 blocks an SM; each library's queue kernels' ptxas lines.
 
---only regen: kernel A's thread per pixel at the reference and EXT gates
-(the shipped trt_kernel_base / trt_kernel_base_ext and their nested
-twins, trt_kernel_base_nested / _ext_nested) beside csrc/group_tune.cu's
-loops, one library (built with them alone, -DTRT_TUNE_LOOP_ONLY=1) a loop
-(-DTRT_TUNE_LOOP: 0 the nested sample and bounce loops, 1 the
-regeneration schedule, 2 its refill form over a pixel counter) and
-residency bound (-DTRT_TUNE_MIN_BLOCKS: 0, 4, 5, 6), at REGEN_REF (the
-north star, its sp = 3 share 2, shipped, ascii 80x40, demo, scene2) and
-the five packaged extension scenes at their own size: each form bit for
-bit against the plain version (where spp is below the base quota, against
-the nested twin), its counter against its model, its ptxas line and
+--only regen [--gates ref,ext,gathered]: kernel A's thread per pixel at
+the reference and EXT gates and over the grid walk (the shipped
+trt_kernel_base / trt_kernel_base_ext / trt_kernel_base_gathered and their
+nested twins, trt_kernel_base_nested / _ext_nested / _gathered_nested)
+beside csrc/group_tune.cu's loops, one library (built with them alone,
+-DTRT_TUNE_LOOP_ONLY=1) a loop (-DTRT_TUNE_LOOP: 0 the nested sample and
+bounce loops, 1 the regeneration schedule, 2 its refill form over a pixel
+counter) and residency bound (-DTRT_TUNE_MIN_BLOCKS: 0, 4, 5, 6), at
+REGEN_REF (the north star, its sp = 3 share 2, shipped, ascii 80x40, demo,
+scene2) and the five packaged extension scenes at their own size, and
+under --accel gathered at REGEN_GATHERED (REGEN_REF but demo, with fog),
+the five extension scenes and chip_smoke.py's [sched] Cornell gathered
+100x50: each form bit for bit against the plain version (where spp is
+below the base quota, against the nested twin; over the walk with the
+traversal counters), its counter against its model, its ptxas line and
 resident blocks an SM, its device time behind a queued spin, twice in
 turns, with each form's summed time per gate set; each configuration's
 executed lane-iterations on both schedules (ops/kernels.py warp_iters,
@@ -1403,20 +1407,36 @@ def sweep_frame(reps, ks=FRAME_KS) -> None:
 
 
 # --only regen: kernel A's thread-per-pixel loop at the reference and EXT
-# gates, one csrc/group_tune.cu library (built with its loops alone) a
-# loop (-DTRT_TUNE_LOOP: REGEN_LOOPS) and residency bound
-# (-DTRT_TUNE_MIN_BLOCKS: REGEN_BOUNDS; 0, unbound), at the configurations
-# where the thread per pixel serves: REGEN_REF (Cornell_Box below
-# GROUP_BASE_MIN_PRIMS, demo and scene2 with sphere lights, demo's 21
+# gates and over the grid walk, one csrc/group_tune.cu library (built with
+# its loops alone) a loop (-DTRT_TUNE_LOOP: REGEN_LOOPS) and residency
+# bound (-DTRT_TUNE_MIN_BLOCKS: REGEN_BOUNDS; 0, unbound), at the
+# configurations where the thread per pixel serves: REGEN_REF (Cornell_Box
+# below GROUP_BASE_MIN_PRIMS, demo and scene2 with sphere lights, demo's 21
 # primitives taking the grouped entry in a render) and the five packaged
-# extension scenes.
+# extension scenes; under --accel gathered REGEN_GATHERED, the five packaged
+# extension scenes too and [sched]'s Cornell gathered of chip_smoke.py.
 REGEN_LOOPS = {0: "nested", 1: "regen", 2: "refill"}
 REGEN_BOUNDS = (0, 4, 5, 6)
+REGEN_GATES = ("ref", "ext", "gathered")
 REGEN_REF = (("north star", "Cornell_Box", (400, 200, 16, 32)),
              ("north star sp 3 share 2", "Cornell_Box", (400, 200, 16, 32)),
              ("shipped", "Cornell_Box", (400, 200, 128, 3)),
              ("ascii 80x40", "Cornell_Box", (80, 40, 1, 4)),
              ("demo", "demo", None), ("scene2", "scene2", None))
+REGEN_GATHERED = tuple(c for c in REGEN_REF if c[0] != "demo") + (
+    ("fog", "Cornell_Box", (400, 200, 16, 32)),)
+REGEN_GATHERED_LAST = ("Cornell gathered 100x50", "Cornell_Box",
+                       (100, 50, 8, 6))
+# Each gate set's shipped kind (ops/kernels._launch_base), nested twin's
+# kind, csrc/group_tune.cu loop's kind, the `gates` argument of its
+# trt_kernel_base_loop_per_sm, the render source and the template
+# arguments in the kernels' mangled names.
+REGEN_KINDS = {
+    "ref": ("ref", "nested", "loop", 0, "kernel_base.cu", "ILb0ELb0E"),
+    "ext": ("ext", "ext_nested", "ext_loop", 1, "kernel_base.cu",
+            "ILb1ELb0E"),
+    "gathered": ("gathered", "gathered_nested", "gathered_loop", 2,
+                 "kernel_accel.cu", "ILb1ELb1EN3trt4WalkE")}
 
 
 def _regen_libs():
@@ -1426,22 +1446,42 @@ def _regen_libs():
         for loop in REGEN_LOOPS for minb in REGEN_BOUNDS}
 
 
+def _regen_counted(tr, fn):
+    """fn() and, over the grid walk, the traversal counters it added."""
+    if tr.traversal is None:
+        return fn(), None
+    tr.accel_stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tr.accel_stats.cpu()
+    finally:
+        tr.accel_stats = None
+
+
 def _regen_case(label, tr, pose, seed, base_q, libs, logs):
     """The inputs and checks of one --only regen configuration: returns
-    {form: launch} and check(form, out) -> its line's text."""
-    ext = kernels._kind(tr) == "ext"
-    gates = "ILb1ELb0E" if ext else "ILb0ELb0E"
+    {form: launch} and check(form, launch) -> its line's text (over the
+    grid walk the launch is made with the traversal counters on, which must
+    equal the plain version's)."""
+    gate = kernels._kind(tr)
+    shipped, nested_kind, loop_kind, gate_arg, _, gates = REGEN_KINDS[gate]
+    walk = tr.traversal is not None
+    if walk:
+        tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
     p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
+    plain_counts = tr.prims.stats.to(torch.int64).cpu() if walk else None
+    tr.prims.ops = None
     want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
     # Below `quota` samples per pixel the plain scheduler's step bound,
     # (spp + 1) x max_depth + 4, may end the base phase before its last
     # samples (ops/tracer.py run_regen, as the JAX package's); the kernels,
     # like the TPU kernel A, render every base sample. There every form is
-    # held to the nested twin alone.
+    # held to the nested twin alone, over the grid walk with its counters.
     cut = tr.spp < (base_q or tr.base_samples)
     if cut:
-        o = kernels._launch_base(tr, pose, seed, 0, 0, None, base_q,
-                                 "ext_nested" if ext else "nested")
+        o, plain_counts = _regen_counted(tr, lambda: kernels._launch_base(
+            tr, pose, seed, 0, 0, None, base_q, nested_kind))
         want = (*o.csum, *o.csumsq, o.rays, o.var, o.additional, o.state)
         plain = _equal(want, (*p.csum, *p.csumsq, p.rays, p.var,
                               p.additional, p.state))
@@ -1455,7 +1495,7 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
     per = 1.0 + tr.nee_sweeps
     n = tr.width * tr.height
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[group_k] {label} kernel A ({'ext' if ext else 'ref'}) "
+    print(f"[group_k] {label} kernel A ({gate}) "
           f"{tr.width}x{tr.height}, quota {base_q or tr.base_samples}, depth "
           f"{tr.max_depth}: {int(it.sum())} pixel iterations; executed, "
           f"regeneration {float(regen):.0f} (occupancy "
@@ -1467,15 +1507,17 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
         return lambda: kernels._launch_base(tr, pose, seed, 0, 0, None,
                                             base_q, kind, lib)
 
-    shipped = "ext" if ext else "ref"
     forms = {"shipped": launcher(shipped),
-             "shipped nested": launcher("ext_nested" if ext else "nested")}
+             "shipped nested": launcher(nested_kind)}
     for form, lib in libs.items():
-        forms[form] = launcher("ext_loop" if ext else "loop", lib)
+        forms[form] = launcher(loop_kind, lib)
 
-    def check(form, out):
+    def check(form, launch):
+        out, counts = _regen_counted(tr, launch)
         same = _equal((*out.csum, *out.csumsq, out.rays, out.var,
                        out.additional, out.state), want)
+        if walk:
+            same = same and bool(torch.equal(counts, plain_counts))
         got = float(out.iters)
         loop = form[0] if form in libs else int(form == "shipped")
         if cut:
@@ -1488,12 +1530,14 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
             model = got == float(regen)
             executed = float(regen if loop else nested)
             text = f"equal {same}, counter warp_iters {model}"
+        if walk:
+            text += f", walk counters {counts.tolist()}"
         text += f", occupancy {owed / (executed * per):.3f}"
         if form in libs:
             minb = form[1]
             lib = libs[form]
             per_sm = lib.trt_kernel_base_loop_per_sm(
-                ctypes.byref(ctypes.c_int(int(ext))))
+                ctypes.byref(ctypes.c_int(gate_arg)))
             name = {0: ("11kernel_base", "20kernel_base_resident"),
                     1: ("17kernel_base_regen", "26kernel_base_regen_resident"),
                     2: ("18kernel_base_refill",
@@ -1510,11 +1554,46 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
     return forms, check
 
 
-def sweep_regen(reps) -> None:
+def _regen_tracers(gate):
+    """(label, tracer, seed, base_q) of gate set `gate`'s configurations."""
+    out = []
+    accel = "gathered" if gate == "gathered" else "auto"
+    if gate == "ext":
+        configs = [(f"{n} 400x200", n, None) for n in EXT_PACKAGED]
+    elif gate == "ref":
+        configs = list(REGEN_REF)
+    else:
+        configs = ([(f"{label} gathered", n, size)
+                    for label, n, size in REGEN_GATHERED]
+                   + [(f"{n} 400x200 gathered", n, None)
+                      for n in EXT_PACKAGED] + [REGEN_GATHERED_LAST])
+    for label, name, size in configs:
+        scene = load_scene(name)
+        if size:
+            w, h, spp, depth = size
+            scene = scene.with_overrides(width=w, height=h,
+                                         samples_per_pixel=spp,
+                                         max_depth=depth)
+        if label.startswith("fog"):
+            scene = scene.with_overrides(fog=Fog(density=0.15))
+        seed, q, quota = SEED, None, None
+        if "share" in label:
+            split = SampleSplit(scene, "cuda", 3)
+            seed, q = split.seed(SEED, 0), split.share(0)
+            quota = split.tracer.base_quota
+        tr = PathTracer(scene, "cuda", accel=accel, base_quota=quota)
+        if kernels._kind(tr) != gate:
+            raise SystemExit(f"group_k: {label} takes {kernels._kind(tr)!r}")
+        out.append((label, tr, seed, q))
+    return out
+
+
+def sweep_regen(reps, gates=REGEN_GATES) -> None:
     """--only regen: every (loop, bound) of _regen_libs beside the shipped
-    entries and their nested twins, bit for bit against the plain version,
-    each counter against its model, at REGEN_REF and the five packaged
-    extension scenes, timed on the device (_time_queued); twice, the second
+    entries and their nested twins, bit for bit against the plain version
+    (over the grid walk with the traversal counters), each counter against
+    its model, at the configurations of each gate set of `gates`
+    (_regen_tracers), timed on the device (_time_queued); twice, the second
     run in the reverse order, with each form's summed time per gate set."""
     srcs = _regen_libs()
     t0 = time.perf_counter()
@@ -1525,34 +1604,19 @@ def sweep_regen(reps) -> None:
     libs = {form: build.load_kernels((src,)) for form, src in srcs.items()}
     logs = {form: paths[src].with_suffix(".log").read_text()
             for form, src in srcs.items()}
-    render_log = paths["kernel_base.cu"].with_suffix(".log").read_text()
-    for gates in ("ILb0ELb0E", "ILb1ELb0E"):
-        bound = "26kernel_base_regen_resident" + gates
-        shipped = bound if bound in render_log else "17kernel_base_regen" + gates
-        print(f"[group_k] shipped {gates}: regeneration "
+    for gate in gates:
+        *_, source, tmpl = REGEN_KINDS[gate]
+        render_log = paths[source].with_suffix(".log").read_text()
+        bound = "26kernel_base_regen_resident" + tmpl
+        shipped = bound if bound in render_log else "17kernel_base_regen" + tmpl
+        print(f"[group_k] shipped {gate}: regeneration "
               f"({shipped[2:shipped.index('I')]}){_ptxas(render_log, shipped)};"
-              f" nested{_ptxas(render_log, '11kernel_base' + gates)}",
+              f" nested{_ptxas(render_log, '11kernel_base' + tmpl)}",
               flush=True)
     pose = Camera().pose()
-    cases = []
-    for label, name, size in REGEN_REF:
-        scene = load_scene(name)
-        if size:
-            w, h, spp, depth = size
-            scene = scene.with_overrides(width=w, height=h,
-                                         samples_per_pixel=spp,
-                                         max_depth=depth)
-        if "share" in label:
-            split = SampleSplit(scene, "cuda", 3)
-            tr, seed, q = split.tracer, split.seed(SEED, 0), split.share(0)
-        else:
-            tr, seed, q = PathTracer(scene, "cuda"), SEED, None
-        cases.append(("ref", label, _regen_case(label, tr, pose, seed, q, libs,
-                                                logs)))
-    for name in EXT_PACKAGED:
-        tr = PathTracer(load_scene(name), "cuda")
-        cases.append(("ext", name, _regen_case(f"{name} 400x200", tr, pose,
-                                               SEED, None, libs, logs)))
+    cases = [(gate, label, _regen_case(label, tr, pose, seed, q, libs, logs))
+             for gate in gates
+             for label, tr, seed, q in _regen_tracers(gate)]
     order = None
     sums = []
     for run in (1, 2):
@@ -1565,7 +1629,7 @@ def sweep_regen(reps) -> None:
                 tag = (form if isinstance(form, str) else
                        f"{REGEN_LOOPS[form[0]]} bound {form[1]}")
                 print(f"[group_k] run {run} {label} {tag}: {ms:.4f} ms, "
-                      f"{check(form, forms[form]())}", flush=True)
+                      f"{check(form, forms[form])}", flush=True)
         sums.append(total)
         order = list(reversed(names))
     for gate, form in sums[0]:
@@ -1586,6 +1650,9 @@ def main(argv=None):
     ap.add_argument("--only", choices=("base", "spill", "budget", "xt", "ext",
                                        "walk", "grid", "frame", "regen"),
                     default=None)
+    ap.add_argument("--gates", default=",".join(REGEN_GATES),
+                    help="--only regen: the gate sets swept (of "
+                    f"{','.join(REGEN_GATES)})")
     ap.add_argument("--a-only", action="store_true",
                     help="--only ext: the EXT kernel A alone; --only grid: "
                     "the chunked grid kernel A alone; --only walk: the "
@@ -1595,7 +1662,10 @@ def main(argv=None):
         print("group_k: needs a CUDA GPU", file=sys.stderr)
         sys.exit(2)
     if args.only == "regen":
-        sweep_regen(args.reps)
+        gates = tuple(args.gates.split(","))
+        if not set(gates) <= set(REGEN_GATES):
+            ap.error(f"--gates: {args.gates} (of {','.join(REGEN_GATES)})")
+        sweep_regen(args.reps, gates)
         return 0
     if args.only == "frame":
         sweep_frame(args.reps, [int(k) for k in args.ks.split(",")]

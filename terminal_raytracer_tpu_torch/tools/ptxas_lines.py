@@ -1,13 +1,14 @@
-"""The ptxas lines of every kernel of the render libraries (registers,
-stack, spill stores), and, with --against, the same kernels of another
-checkout of the repository side by side: the check that a change kept the
-machine code of the kernels it did not mean to touch.
+"""The ptxas lines of every kernel of the render and probe libraries
+(registers, stack, spill stores), and, with --against, the same kernels of
+another checkout of the repository side by side: the check that a change
+kept the machine code of the kernels it did not mean to touch.
 
     python -m terminal_raytracer_tpu_torch.tools.ptxas_lines [--against DIR]
 
-Builds the render sources (ops/build.py RENDER_SOURCES) of this checkout
-and, with --against, those of the checkout at DIR with that checkout's
-own ops/build.py into its own _build/, all at once, one nvcc a source.
+Builds the sources (ops/build.py ENTRY_POINTS: the render sources and
+probes.cu) of this checkout and, with --against, those of the checkout at
+DIR with that checkout's own ops/build.py into its own _build/, all at
+once, one nvcc a source.
 Kernels are keyed by source and demangled name without the argument list
 (cu++filt, beside nvcc); each line prints one kernel's registers, stack
 and spill stores, '=' where both checkouts agree, '!=' where they differ,
@@ -70,9 +71,9 @@ def _strip_args(name: str) -> str:
 
 
 def lines_of(build_mod) -> dict:
-    """{(source, kernel): ptxas line} of a build module's render
+    """{(source, kernel): ptxas line} of a build module's render and probe
     libraries (built where missing)."""
-    paths = build_mod.library_paths(build_mod.RENDER_SOURCES)
+    paths = build_mod.library_paths(tuple(build_mod.ENTRY_POINTS))
     raw = {src: kernels_of(so.with_suffix(".log").read_text())
            for src, so in paths.items()}
     names = demangle({m for ks in raw.values() for m in ks})

@@ -4,7 +4,9 @@ which datapath the predicate's integer arithmetic takes (U-prefixed
 opcodes run on the uniform datapath, once a warp); and what each loop of
 the gather probes' kernels issues: its fetches (LDG, LDS, SHFL, HMMA) and
 FADDs, their order, and how many loads are added only on a later pass of
-the loop (the fetch issued ahead of its add).
+the loop (the fetch issued ahead of its add); probe21c's loops likewise,
+with their instructions a pass (a form's issue-rate floor, one warp an
+SM).
 
     python -m terminal_raytracer_tpu_torch.tools.sass_ops [--root DIR]
 
@@ -14,7 +16,7 @@ the library with cuobjdump -sass (beside nvcc), and prints, for every
 kernel of probe_cond and probe_when, its opcode counts and its heavy
 steps: one FRND a step for the floorf body, one FFMA.RM a step for the
 FP32-pipe body; each FP32-pipe opcode is also printed a step; and for
-every kernel of probe21 and probe21b, a line a loop. Needs nvcc and
+every kernel of probe21, probe21b and probe21c, a line a loop. Needs nvcc and
 cuobjdump (the card's machine); no GPU.
 """
 
@@ -31,8 +33,8 @@ from ..ops import build
 from .ptxas_lines import _load_build, demangle
 
 SOURCE = "probes.cu"
-MATCH = ("probe_cond", "probe_when", "probe21<", "probe21b<")
-GATHER = ("probe21<", "probe21b<")
+MATCH = ("probe_cond", "probe_when", "probe21<", "probe21b<", "probe21c<")
+GATHER = ("probe21<", "probe21b<", "probe21c<")
 # One line of cuobjdump -sass: /*0a30*/ [@[!]Pn|@[!]UPn] OPCODE[.MOD...]
 # operands ;
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
@@ -83,7 +85,8 @@ def _base(op: str) -> str:
 
 def loops(insns: list) -> list:
     """The loops of a kernel's instructions, one a backward branch, in
-    address order: {start, end, ops (Counter), order, loads, later}. order
+    address order: {start, end, ops (Counter), insns (the body's
+    instructions), order, loads, later}. order
     is the body's fetches (L) and FADDs (A) run-length coded; later counts
     the loads (LOADS) whose value no FADD reads further on in the same
     pass but one on the next (through MOV copies too): added on a later
@@ -110,7 +113,7 @@ def loops(insns: list) -> list:
                                   set(_REG.findall(r.split(",")[0])))
                 loads += pass_ is not None
                 later += pass_ == "later"
-        found.append(dict(start=start, end=addr, ops=ops,
+        found.append(dict(start=start, end=addr, ops=ops, insns=len(body),
                           order=" ".join(f"{r[0]}{len(r)}" for r in runs),
                           loads=loads, later=later))
     return found
@@ -195,7 +198,11 @@ def report(found: dict, tag: str = "[sass]") -> None:
         ops = Counter(op for _, op, _ in insns)
         if any(k in name for k in GATHER):
             for lp in loops(insns):
-                print(f"{tag} {name}: {loop_line(lp)}", flush=True)
+                ctrl = sum(n for op, n in lp["ops"].items()
+                           if _base(op) in ("BRA", "BSSY", "CALL"))
+                print(f"{tag} {name}: {loop_line(lp)}; {lp['insns']} "
+                      f"instructions a pass, {ctrl} of them BRA, BSSY or "
+                      "CALL", flush=True)
             continue
         print(f"{tag} {name}: {steps(ops)} heavy steps; a step: "
               f"{per_step(ops)}; {uniform_share(ops)}", flush=True)

@@ -1,18 +1,23 @@
 """Kernel A's thread per pixel on the regeneration schedule (csrc/trace.cuh
 run_samples_regen: one bounce a loop trip, a lane starting its next sample
 as soon as its path ends) beside its nested twins (trt_kernel_base_nested,
-trt_kernel_base_ext_nested: the sample loop around the bounce loop).
+trt_kernel_base_ext_nested, trt_kernel_base_gathered_nested: the sample
+loop around the bounce loop), at the reference and EXT gates and over the
+grid walk (`--accel gathered`, the XT gate set).
 
 On the CPU: the per-sample iteration model (ops/kernels.py
 base_sample_iters, from the plain scheduler) against the per-pixel one
-(base_entry_iters) at Cornell_Box and showcase 64x16, the nested loops'
-executed count (nested_iters) against the regeneration schedule's
-(warp_iters) warp by warp and on a hand-built two-warp example, and the
-entries that _launch_base calls for each kind, with the launch stood in
-for. The `cuda` tests hold the shipped entries, their nested twins and
-csrc/group_tune.cu's loops against the plain version bit for bit (planes,
-end states) at 128x16, whole and at a runtime quota, with their counters
-equal to warp_iters of the per-pixel model; they skip here.
+(base_entry_iters) at Cornell_Box, showcase and Cornell_Box under
+gathered (also in fog with DOF, the stratified sampler and --mis) 64x16,
+the nested loops' executed count (nested_iters) against
+the regeneration schedule's (warp_iters) warp by warp and on a hand-built
+two-warp example, and the entries that _launch_base calls for each kind,
+with the launch stood in for. The `cuda` tests hold the shipped entries,
+their nested twins and csrc/group_tune.cu's loops against the plain
+version bit for bit (planes, end states; under gathered the walk's
+counters) at 128x16, whole and at a runtime quota, with their counters
+equal to warp_iters of the per-pixel model, and the gathered entry at
+max_depth 0; they skip here.
 """
 
 import ctypes
@@ -22,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from terminal_raytracer_tpu_torch.models import Camera, load_scene  # noqa: E402
+from terminal_raytracer_tpu_torch.models.scene import Fog  # noqa: E402
 from terminal_raytracer_tpu_torch.ops import build, kernels  # noqa: E402
 from terminal_raytracer_tpu_torch.ops.tracer import PathTracer  # noqa: E402
 from test_torch_vml import warm_vml  # noqa: E402
@@ -31,18 +37,34 @@ warm_vml()
 
 POSE = Camera().pose()
 SEED = 42
-# (scene, overrides): Cornell_Box at depth 8 (16 spp: 4 base samples) and
-# showcase at its own spp and depth (32 spp, 8 base samples, depth 8).
-SCENES = {"cornell": ("Cornell_Box", dict(samples_per_pixel=16,
-                                          max_depth=8)),
-          "showcase": ("showcase", {})}
+# (scene, overrides, PathTracer keywords): Cornell_Box at depth 8 (16 spp:
+# 4 base samples), showcase at its own spp and depth (32 spp, 8 base
+# samples, depth 8), and Cornell_Box at depth 8 over the grid walk, also
+# with the XT gates that change a sample's draws (--mis: a fresh emit
+# value of -1; the stratified cell; the two DOF draws; fog).
+CORNELL = dict(samples_per_pixel=16, max_depth=8)
+XT = dict(CORNELL, fog=Fog(density=0.15), aperture=0.1, focus_distance=3.0,
+          sampler="stratified")
+SCENES = {"cornell": ("Cornell_Box", CORNELL, {}),
+          "showcase": ("showcase", {}, {}),
+          "gathered": ("Cornell_Box", CORNELL, dict(accel="gathered")),
+          "gathered_xt": ("Cornell_Box", XT, dict(accel="gathered",
+                                                  transport="mis"))}
+# Each key's wrapper (through base_kernel, below GROUP_BASE_MIN_PRIMS
+# primitives), nested twin and kind of csrc/group_tune.cu's loop.
+SHIPPED = {"cornell": ("base_kernel", "base_kernel_nested", "loop"),
+           "showcase": ("base_kernel_ext", "base_kernel_ext_nested",
+                        "ext_loop"),
+           "gathered": ("base_kernel_gathered", "base_kernel_gathered_nested",
+                        "gathered_loop")}
+SHIPPED["gathered_xt"] = SHIPPED["gathered"]
 
 
 def _tracer(key, device="cpu", width=64, height=16):
-    name, over = SCENES[key]
+    name, over, kw = SCENES[key]
     scene = load_scene(name).with_overrides(width=width, height=height,
                                             **over)
-    return PathTracer(scene, device)
+    return PathTracer(scene, device, **kw)
 
 
 def _bits(out):
@@ -102,14 +124,19 @@ def test_nested_and_regeneration_counts_by_hand():
     ("ext", "trt_kernel_base_ext", 7),
     ("ext_nested", "trt_kernel_base_ext_nested", 7),
     ("loop", "trt_kernel_base_loop", 7),
-    ("ext_loop", "trt_kernel_base_ext_loop", 8)])
+    ("ext_loop", "trt_kernel_base_ext_loop", 8),
+    ("gathered", "trt_kernel_base_gathered", 9),
+    ("gathered_nested", "trt_kernel_base_gathered_nested", 9),
+    ("gathered_loop", "trt_kernel_base_gathered_loop", 10)])
 def test_launch_base_calls_the_entry_of_each_kind(monkeypatch, kind, entry,
                                                   n_args):
     """_launch_base calls the entry of each thread-per-pixel kind with the
     arguments its C signature takes (ops/build.py): the texture constants
-    at the EXT gates, the zeroed pixel counter for group_tune.cu's loops;
-    the launch is stood in for."""
-    tr = _tracer("showcase" if "ext" in kind else "cornell", width=8,
+    at the EXT gates, also the gates and the walk's argument over the grid
+    walk, the zeroed pixel counter for group_tune.cu's loops; the launch is
+    stood in for."""
+    tr = _tracer("showcase" if "ext" in kind else
+                 "gathered" if "gathered" in kind else "cornell", width=8,
                  height=4)
     calls = []
 
@@ -122,6 +149,7 @@ def test_launch_base_calls_the_entry_of_each_kind(monkeypatch, kind, entry,
     assert [name for name, _ in calls] == [entry]
     assert len(calls[0][1]) == n_args
     declared = dict(build.ENTRY_POINTS["kernel_base.cu"]
+                    + build.ENTRY_POINTS["kernel_accel.cu"]
                     + build.TUNE_ONLY_ENTRY_POINTS)
     assert declared[entry] == n_args
 
@@ -129,20 +157,18 @@ def test_launch_base_calls_the_entry_of_each_kind(monkeypatch, kind, entry,
 @pytest.mark.parametrize("key", list(SCENES))
 def test_nested_wrappers_take_the_plain_version_on_the_cpu(key):
     """The nested twins' wrappers give the plain version for CPU tensors and
-    refuse a tracer of the other gates."""
+    refuse a tracer of the other gates or traversal."""
     tr = _tracer(key, width=16, height=4)
-    ext = key == "showcase"
-    fn, other = ((kernels.base_kernel_ext_nested, kernels.base_kernel_nested)
-                 if ext else (kernels.base_kernel_nested,
-                              kernels.base_kernel_ext_nested))
+    fn = getattr(kernels, SHIPPED[key][1])
     n0 = fn.launches
     got = fn(tr, POSE, SEED, 0, base_q=2)
     want = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=2)
     for a, b in zip(_bits(got), _bits(want)):
         assert torch.equal(a, b)
     assert fn.launches == n0
-    with pytest.raises(ValueError):
-        other(tr, POSE, SEED, 0)
+    for other in {twin for _, twin, _ in SHIPPED.values()} - {fn.__name__}:
+        with pytest.raises(ValueError):
+            getattr(kernels, other)(tr, POSE, SEED, 0)
 
 
 # ----------------------------------------------------------- on the card
@@ -155,39 +181,95 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _launched(tr, fn):
+    """fn() and, over the grid walk, the traversal counters it added
+    (tracer.accel_stats on for the call)."""
+    if tr.traversal is None:
+        return fn(), None
+    tr.accel_stats = torch.zeros(4, dtype=torch.int64, device=tr.device)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tr.accel_stats.cpu()
+    finally:
+        tr.accel_stats = None
+
+
+def _plain(tr, q):
+    """The plain version and, over the grid walk, its traversal counters
+    (GatheredPrims.STATS, counted while prims.ops is on)."""
+    if tr.traversal is None:
+        return kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=q), None
+    tr.prims.ops = torch.zeros((), dtype=torch.float64, device=tr.device)
+    try:
+        out = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=q)
+        return out, tr.prims.stats.to(torch.int64).cpu()
+    finally:
+        tr.prims.ops = None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q", [None, 2], ids=["base", "quota2"])
 @pytest.mark.parametrize("key", list(SCENES))
 def test_shipped_and_nested_entries_match_plain_version(cuda_device, key, q):
     """The shipped thread-per-pixel entry (through the wrapper, which takes
     it below GROUP_BASE_MIN_PRIMS primitives) and its nested twin against
-    the plain version bit for bit at 128x16, whole and at a quota of 2;
-    both counters are warp_iters of the per-pixel model."""
+    the plain version bit for bit at 128x16, whole and at a quota of 2 (over
+    the grid walk also the traversal counters); both counters are
+    warp_iters of the per-pixel model."""
     tr = _tracer(key, cuda_device, width=128)
-    ext = key == "showcase"
-    wrapper = kernels.base_kernel_ext if ext else kernels.base_kernel
+    wrapper, twin = (getattr(kernels, name) for name in SHIPPED[key][:2])
     n0 = wrapper.launches
-    got = kernels.base_kernel(tr, POSE, SEED, 0, base_q=q)
+    got, got_c = _launched(
+        tr, lambda: kernels.base_kernel(tr, POSE, SEED, 0, base_q=q))
     assert wrapper.launches == n0 + 1
-    twin = kernels.base_kernel_ext_nested if ext else kernels.base_kernel_nested
     n1 = twin.launches
-    nested = twin(tr, POSE, SEED, 0, base_q=q)
+    nested, nested_c = _launched(
+        tr, lambda: twin(tr, POSE, SEED, 0, base_q=q))
     assert twin.launches == n1 + 1
-    want = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=q)
+    want, want_c = _plain(tr, q)
     for a, b, c in zip(_bits(got), _bits(nested), _bits(want)):
         assert torch.equal(a, c) and torch.equal(b, c)
+    if want_c is not None:
+        assert torch.equal(got_c, want_c) and torch.equal(nested_c, want_c)
+        assert int(want_c[3]) == 0  # no walk at the trip cap
     it = kernels.base_entry_iters(tr, POSE, SEED, 0, base_q=q)
     assert float(got.iters) == float(kernels.warp_iters(it))
     assert float(nested.iters) == float(kernels.warp_iters(it))
 
 
 @pytest.mark.cuda
+def test_gathered_entry_bounces_once_at_depth_0(cuda_device):
+    """At max_depth 0 (a tracer's value set below the scene's floor of 1)
+    the gathered entry bounces each path once, as the plain scheduler and
+    the reference-gate entry do, and equals the plain version bit for bit
+    with its walk counters and count; the nested twin's loops bounce none
+    (no ray, zero radiance, count 0)."""
+    tr = _tracer("gathered", cuda_device, width=128)
+    tr.max_depth = 0
+    got, got_c = _launched(
+        tr, lambda: kernels.base_kernel(tr, POSE, SEED, 0))
+    want, want_c = _plain(tr, None)
+    for a, c in zip(_bits(got), _bits(want)):
+        assert torch.equal(a, c)
+    assert torch.equal(got_c, want_c)
+    it = kernels.base_entry_iters(tr, POSE, SEED, 0)
+    assert bool((it == tr.base_samples).all())
+    assert float(got.iters) == float(kernels.warp_iters(it))
+    nested = kernels.base_kernel_gathered_nested(tr, POSE, SEED, 0)
+    assert float(nested.iters) == 0.0
+    assert not bool(nested.rays.any())
+    assert not any(bool(c.any()) for c in nested.csum)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("loop", [0, 1, 2], ids=["nested", "regen", "refill"])
 def test_tune_loops_match_plain_version(cuda_device, loop):
     """csrc/group_tune.cu's loops (built with them alone), unbound and held
-    to 5 blocks an SM, at both gates against the plain version bit for bit
-    at 128x16 and a quota of 2; the counters warp_iters of the per-pixel
-    model, the refill form's at least the pixels' sum."""
+    to 5 blocks an SM, at every gate set against the plain version bit for
+    bit at 128x16 and a quota of 2 (over the grid walk with its counters);
+    the counters warp_iters of the per-pixel model, the refill form's at
+    least the pixels' sum."""
     for minb in (0, 5):
         lib = build.load_kernels(((build.TUNE_SOURCE, (
             build.LOOP_ONLY, f"TRT_TUNE_LOOP={loop}",
@@ -195,13 +277,15 @@ def test_tune_loops_match_plain_version(cuda_device, loop):
         assert lib.trt_kernel_base_loop_kind() == loop
         for key in SCENES:
             tr = _tracer(key, cuda_device, width=128)
-            kind = "ext_loop" if key == "showcase" else "loop"
+            kind = SHIPPED[key][2]
             for q in (None, 2):
-                got = kernels._launch_base(tr, POSE, SEED, 0, 0, None, q, kind,
-                                           lib)
-                want = kernels.base_kernel_plain(tr, POSE, SEED, 0, base_q=q)
+                got, got_c = _launched(tr, lambda: kernels._launch_base(
+                    tr, POSE, SEED, 0, 0, None, q, kind, lib))
+                want, want_c = _plain(tr, q)
                 for a, c in zip(_bits(got), _bits(want)):
                     assert torch.equal(a, c)
+                if want_c is not None:
+                    assert torch.equal(got_c, want_c)
                 it = kernels.base_entry_iters(tr, POSE, SEED, 0, base_q=q)
                 if loop == 2:
                     assert float(got.iters) >= float(it.sum())

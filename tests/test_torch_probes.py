@@ -35,8 +35,9 @@ also holds ops/build.py's probe entries to the source's macros and
 tools/sass_ops.py's reading of a SASS listing.
 
 The `cuda` cases hold every C entry of csrc/probes.cu against its plain
-version on the card, bit for bit (atan2f within rtol 1e-6 of torch.atan2),
-and skip here. The file imports no jax itself (the JAX probes import it
+version on the card, bit for bit (atan2f within rtol 1e-6 of torch.atan2;
+the *_serial baselines bit for bit against the shipped entries), and skip
+here. The file imports no jax itself (the JAX probes import it
 inside build), so on a GPU machine without jax the `cuda` cases run with
     python -m pytest --noconftest tests/test_torch_probes.py -m cuda
 """
@@ -133,6 +134,9 @@ def test_probe21b_plain_matches_jax(form):
 
 GATHER_FORMS = [("probe21", f) for f in p21.FORMS] + [
     ("probe21b", f) for f in p21b.FORMS]
+# The forms that run on the trip loop (csrc/probes.cu gather_loop): the
+# gather probes' and probe21c's.
+TRIP_FORMS = GATHER_FORMS + [("probe21c", f) for f in p21c.FORMS]
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,18 +167,24 @@ def test_gather_at_zero_iterations_is_zero(probe, form):
 
 
 def test_gather_tune_times_every_form():
-    """tools/gather_tune.py runs every form of both gather probes, the row
-    forms first, on main()'s inputs; one build a (trip, block) pair."""
+    """tools/gather_tune.py runs every form of both gather probes and of
+    probe21c, the row forms (those with a *_serial entry) first, on
+    main()'s inputs; one build a (trip, block) pair."""
     from terminal_raytracer_tpu_torch.tools import gather_tune
 
     got = gather_tune.cases("cpu")
-    assert [(c[0], c[1]) for c in got[:4]] == [
-        (probe, f) for probe, forms in gather_tune.ROW.items()
-        for f in forms]
-    assert sorted((c[0], c[1]) for c in got) == sorted(GATHER_FORMS)
+    rows = [(probe, f) for probe, forms in gather_tune.ROW.items()
+            for f in forms]
+    assert [(c[0], c[1]) for c in got[:len(rows)]] == rows
+    assert set(rows) == {(probe, f.removesuffix("_serial"))
+                         for probe, f in TRIPS if not TRIPS[probe, f]}
+    assert sorted((c[0], c[1]) for c in got) == sorted(TRIP_FORMS)
     tab, idx = _inputs21(1024)
     assert all(torch.equal(c[3], tab) and torch.equal(c[4], idx)
                for c in got if c[0] == "probe21" and c[1] != "selectacc")
+    tab_c, x0_c = p21c.inputs("cpu")
+    assert all(c[2] == tab_c.numel() and torch.equal(c[3], tab_c)
+               and torch.equal(c[4], x0_c) for c in got if c[0] == "probe21c")
     assert list(gather_tune.variants([4, 16], [32])) == ["U4/B32", "U16/B32"]
     assert gather_tune.clocks(0.003 + 512 / 1980e3, 0.003, 512, 1980.0) \
         == pytest.approx(1.0)
@@ -526,7 +536,7 @@ def test_probe_entries_match_the_source():
     """ops/build.py declares exactly the entries that csrc/probes.cu's
     macros define, with the pointer count of their macro's signature: the
     FRND baselines of the branch probes and the serial baselines of the
-    gather probes included."""
+    gather probes and of probe21c included."""
     import re
 
     from terminal_raytracer_tpu_torch.ops import build
@@ -543,12 +553,13 @@ def test_probe_entries_match_the_source():
     assert {"trt_probe_when_guarded_frnd", "trt_probe_cond_cond_frnd",
             "trt_probe21_none_serial", "trt_probe21_ldg_serial",
             "trt_probe21b_none_serial",
-            "trt_probe21b_rowsel_ldg_serial"} <= set(defined)
+            "trt_probe21b_rowsel_ldg_serial", "trt_probe21c_atan2f_serial",
+            "trt_probe21c_packed_serial"} <= set(defined)
 
 
 def _trip_widths():
-    """{(probe, form): iterations a trip} of csrc/probes.cu's gather entries
-    (TRIP(u) in their macro; 0 for the serial loop)."""
+    """{(probe, form): iterations a trip} of csrc/probes.cu's gather and
+    probe21c entries (TRIP(u) in their macro; 0 for the serial loop)."""
     import re
 
     from terminal_raytracer_tpu_torch.ops import build
@@ -556,7 +567,7 @@ def _trip_widths():
     text = (build.CSRC / "probes.cu").read_text()
     return {("probe" + m.lower(), form): int(u or 0)
             for m, form, u in re.findall(
-                r"^PROBE(21B?)\((\w+), [\w, ]*?(?:TRIP\((\d+)\)|0)\)$",
+                r"^PROBE(21[BC]?)\((\w+), [\w, ]*?(?:TRIP\((\d+)\)|0)\)$",
                 text, re.M)}
 
 
@@ -564,14 +575,15 @@ TRIPS = _trip_widths()
 
 
 def test_gather_trip_widths_cover_every_form():
-    """Every gather form has a trip width of 4, 8, 16 or 32 in the source; the
-    serial baselines run the serial loop."""
-    forms = set(GATHER_FORMS)
+    """Every gather and probe21c form has a trip width of 4, 8, 16 or 32 in
+    the source; the serial baselines run the serial loop."""
+    forms = set(TRIP_FORMS)
     assert {k for k, u in TRIPS.items() if u} == forms
     assert all(TRIPS[k] in (4, 8, 16, 32) for k in forms)
     assert {k for k, u in TRIPS.items() if not u} == {
         ("probe21", "none_serial"), ("probe21", "ldg_serial"),
-        ("probe21b", "none_serial"), ("probe21b", "rowsel_ldg_serial")}
+        ("probe21b", "none_serial"), ("probe21b", "rowsel_ldg_serial"),
+        ("probe21c", "atan2f_serial"), ("probe21c", "packed_serial")}
 
 
 SASS = """\
@@ -694,31 +706,45 @@ def test_probe21b_kernel_matches_plain(cuda_device, form):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("probe, form, iters", [
-    (probe, form, iters) for probe, form in GATHER_FORMS
+    (probe, form, iters) for probe, form in TRIP_FORMS
     for iters in (0, 1, TRIPS[probe, form] - 1, TRIPS[probe, form] + 1, 13)])
 def test_gather_kernels_match_plain_at_any_loop_count(cuda_device, probe,
                                                       form, iters):
     """The trip loop's edges at the form's trip width U: no trip, the
     remainder trip alone (short by one or more), a whole trip before it;
-    probe21 at n = 128."""
+    probe21 at n = 128; probe21c atan2f within rtol 1e-6 of torch.atan2."""
     if probe == "probe21":
         tab, idx = (t.to(cuda_device) for t in _inputs21(128))
-        mod = p21
-    else:
+        mod, fn = p21, p21.gather
+    elif probe == "probe21b":
         tab, idx = p21b.inputs(cuda_device)
-        mod = p21b
-    got = mod.gather(form, tab, idx, iters)
-    assert torch.equal(got, mod.plain(form, tab, idx, iters)), (form, iters)
+        mod, fn = p21b, p21b.gather
+    else:
+        tab, idx = p21c.inputs(cuda_device)
+        mod, fn = p21c, p21c.block
+    got = fn(form, tab, idx, iters)
+    _same(got, mod.plain(form, tab, idx, iters), form)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", p21c.FORMS)
 def test_probe21c_kernel_matches_plain(cuda_device, form):
+    """Each form against its plain version at main()'s 512 iterations and
+    at 64; where the parent's loop is kept (*_serial), the shipped entry
+    against it bit for bit, launched directly."""
     tab, x0 = p21c.inputs(cuda_device)
-    n0 = p21c.block.launches[form]
-    got = p21c.block(form, tab, x0, 64)
-    assert p21c.block.launches[form] == n0 + 1
-    _same(got, p21c.plain(form, tab, x0, 64), form)
+    for iters in (p21c.ITERS, 64):
+        n0 = p21c.block.launches[form]
+        got = p21c.block(form, tab, x0, iters)
+        assert p21c.block.launches[form] == n0 + 1
+        _same(got, p21c.plain(form, tab, x0, iters), form)
+        if ("probe21c", f"{form}_serial") in TRIPS:
+            serial = torch.empty_like(got)
+            _probe.launch(f"trt_probe21c_{form}_serial",
+                          _probe.GatherArgs(tab.numel(), iters), tab, x0,
+                          serial)
+            torch.cuda.synchronize()
+            assert torch.equal(serial, got), (form, iters)
 
 
 @pytest.mark.cuda
