@@ -32,12 +32,13 @@ Phases, each reported on lines starting with its tag:
             least the pixels' summed iterations) and both forms' occupancy.
   Wherever kernel A's thread per pixel over the table sweep is held
   (_base_both at the reference and EXT gates, the [ext] 400x200 shapes,
-  the [mesh] quota share) it runs in both loops (_nested_both): the
-  shipped entry on the regeneration schedule (trace.cuh
+  the [mesh] quota share, the [xt] fog shapes) it runs in both loops
+  (_nested_both): the shipped entry on the regeneration schedule (trace.cuh
   run_samples_regen: one bounce a trip, a lane's next sample started as
   soon as its path ends) and its nested twin (base_kernel_nested /
-  base_kernel_ext_nested: the sample loop around the bounce loop, which it
-  replaced; OFF_PATH), each bit for bit against the plain version and the
+  base_kernel_ext_nested / base_kernel_xt_nested: the sample loop around
+  the bounce loop, which it replaced; OFF_PATH), each bit for bit against
+  the plain version and the
   other, both counters warp_iters of the per-pixel model; both
   executed-count models printed with their occupancy (ops/kernels.py
   warp_iters, nested_iters), and the two loops timed in turns
@@ -131,11 +132,14 @@ Phases, each reported on lines starting with its tag:
             XT kernel A); the fog and mesh5120 fog frames through both
             forms of every kernel in turns, the latter profiled first;
             cli.main with --mis --fog; the XT kernels, both forms of B and
-            of the chunked A, timed at the fog and stress:1024 shapes
+            of the chunked A, timed at the fog and stress:1024 shapes; the
+            XT kernel A at the fog shapes beside its nested twin
+            (base_kernel_xt_nested, OFF_PATH) in turns (_nested_both), and
+            the fog frame with either in turns
   [accel]   the opt-in traversals (csrc/kernel_accel.cu): each grid and
             gathered kernel against its plain version at the JAX bench's
-            stress1024 shapes (200x100, 8 spp, depth 6; gathered also at
-            mesh1280, icosphere:3), bit for bit (rays, budgets, states,
+            stress1024 shapes (200x100, 8 spp, depth 6), bit for bit
+            (rays, budgets, states,
             radiance; kernel B on a stream with budgeted entries), with the
             kernels' traversal counters (blocks swept and culled; walks,
             tests, advances, walks at the trip cap, which must be 0) equal
@@ -144,8 +148,8 @@ Phases, each reported on lines starting with its tag:
             the thread-per-entry entry) bit for bit, both counters equal
             to the plain version's, both lane-iterations equal to the
             plain model, timed side by side; the gathered kernel B
-            likewise (the grouped entry over csrc/group.cuh GroupWalk, at
-            stress1024 and mesh1280); the grid and gathered kernel A
+            likewise (the grouped entry over csrc/group.cuh GroupWalk);
+            the grid and gathered kernel A
             likewise in both forms (grouped, which the wrapper takes, and
             thread per pixel; the grouped entry's counters also against
             the thread per pixel's), with its schedule and occupancy;
@@ -154,19 +158,17 @@ Phases, each reported on lines starting with its tag:
             gathered, at mesh5120 under grid (rows over the grouped
             kernels' budget: the GroupCulledSpill forms of kernels A and
             B), and at the north star under grid
-            (too few primitives for the grouped kernel A, whose
-            thread-per-pixel entry, held to 5 resident blocks an SM, is
-            then held bit for bit and timed there beside its unbound
-            form), with each traversal's counters over the warm-up frame;
-            the gathered kernel A's thread per pixel (on the regeneration
-            schedule) at the north star under gathered, where the wrapper
-            takes it, beside its nested twin (base_kernel_gathered_nested,
+            (too few primitives for the grouped kernel A), with each
+            traversal's counters over the warm-up frame; the grid and
+            gathered kernel A's thread per pixel (on the regeneration
+            schedule) at the north star under grid and under gathered,
+            where the wrapper takes it, beside its nested twin
+            (base_kernel_grid_nested, base_kernel_gathered_nested,
             OFF_PATH), both bit for bit with the plain version's counters,
             in turns (_nested_both);
             the
             stress1024 grid, stress1024 gathered and mesh1280 gathered
-            frames through both forms of every kernel, and of kernel A
-            alone, in turns;
+            frames through both forms of every kernel in turns;
             cli.main with --accel grid and
             --accel gathered; the chunked grid kernel A at chunks of 2 at
             stress1024 and mesh5120 (rows and group table over the
@@ -309,17 +311,17 @@ bound: the FP32 operations of the intersection tests its plain version
 counts for the same inputs, over the card's FP32 peak, or its bytes over
 3.35 TB/s, whichever is larger; the thread-per-pixel kernel_base, its
 nested twin kernel_base_nested (OFF_PATH) and kernel_extra_grouped at the
-north star, kernel_base_gathered and its nested twin
-kernel_base_gathered_nested (OFF_PATH) at the north star under gathered,
+north star, kernel_base_grid and kernel_base_gathered and their nested
+twins kernel_base_grid_nested and kernel_base_gathered_nested (OFF_PATH)
+at the north star under grid and under gathered, kernel_base_xt and its
+nested twin kernel_base_xt_nested (OFF_PATH) at the fog shapes,
 kernel_base_ext and its twin kernel_base_ext_nested (OFF_PATH)
 at the showcase shapes, kernel_base_grouped at stress256,
 kernel_base_chunked_grouped and kernel_base_grid_grouped at stress1024,
-the thread-per-pixel kernel_base_grid and the thread-per-entry
-kernel_extra, kernel_extra_xt, kernel_extra_grid, kernel_base_chunked and
-kernel_base_chunked_xt at mesh5120 (in fog, under grid), all but
-kernel_base_grid launched directly: no dispatch takes them (OFF_PATH), so
-their launches are 0 and a main-path launch fails the run (kernel_base_grid
-serves scenes below 16 primitives, the north star under grid); the
+the thread-per-entry kernel_extra, kernel_extra_xt, kernel_extra_grid,
+kernel_base_chunked and kernel_base_chunked_xt at mesh5120 (in fog, under
+grid), launched directly: no dispatch takes them (OFF_PATH), so their
+launches are 0 and a main-path launch fails the run; the
 GroupSpill forms kernel_extra_grouped_spill, kernel_extra_xt_grouped_spill,
 kernel_base_chunked_grouped_spill and kernel_base_chunked_xt_grouped_spill
 at mesh5120 (in fog) and the GroupCulledSpill forms
@@ -414,15 +416,13 @@ def phase_device():
 
 
 def phase_build():
-    """Every library, the split-point libraries of csrc/group_tune.cu
-    (SPLIT_CAPS) and its library of the unbound XT and grid kernel A
-    (_unbound_a_source), one nvcc each, all at once."""
+    """Every library and the split-point libraries of csrc/group_tune.cu
+    (SPLIT_CAPS), one nvcc each, all at once."""
     from terminal_raytracer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     paths = build.library_paths(tuple(build.ENTRY_POINTS)
-                                + tuple(_split_sources().values())
-                                + (_unbound_a_source(),))
+                                + tuple(_split_sources().values()))
     build.load_kernels()
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in paths.values())} in "
@@ -469,7 +469,7 @@ def phase_kernel_base(peak):
     return worst, keep
 
 
-def _base_both(tag, label, tr, peak, timed_plain=True):
+def _base_both(tag, label, tr, peak):
     """Kernel A of tracer `tr` (reference or EXT gates, `--accel grid` or
     `--accel gathered`) in both forms, the grouped entry and the
     thread-per-pixel entry, the one that ops/kernels.takes_grouped picks through the
@@ -478,10 +478,10 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
     counters, the grouped entry's also against the thread per pixel's),
     the thread-per-pixel lane-iterations equal to the plain model, the
     grouped ones as _base_iters_model says; both timed beside each other,
-    and the plain version too where `timed_plain`. Over the table sweep
-    (reference and EXT gates) the thread per pixel's nested twin too
-    (_nested_both, form 'nested'). Returns ({form: (max abs error, ms,
-    plain ms or None, bound)}, the wrapper's output)."""
+    and the plain version too. Over the table sweep (reference and EXT
+    gates) the thread per pixel's nested twin too (_nested_both, form
+    'nested'). Returns ({form: (max abs error, ms, plain ms, bound)}, the
+    wrapper's output)."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
@@ -510,10 +510,8 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
     other = "thread" if taken == "grouped" else "grouped"
     outs[other] = _counted_launch(tr, launch(other))
     pc = []
-    plain, ops, p = (_time_plain if timed_plain else _plain_counted)(
-        tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0),
-        pc if traversal else None)
-    it = kernels.base_entry_iters(tr, pose, SEED, 0)
+    plain, ops, p, si = _time_plain_base(tr, pc if traversal else None)
+    it = si.sum(0)
     atlas = 0 if tr.atlas is None else tr.atlas.numel()
     bound = _bound(ops, 4 * (tr.tables.buf.numel() + atlas)
                    + 44 * p.var.numel(), peak)
@@ -530,7 +528,7 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
             _base_iters_model(tag, f"{label} kernel A", out.iters, it, name)
         res[form] = (err, _time_cuda(launch(form), 5), plain, bound)
     if kind in ("ref", "ext"):  # the thread per pixel's two loops
-        err_n, _, ms_n = _nested_both(tag, label, tr, p)
+        err_n, _, ms_n = _nested_both(tag, label, tr, p, si=si)
         res["thread"] = (max(res["thread"][0], err_n), *res["thread"][1:])
         res["nested"] = (err_n, ms_n, *res["thread"][2:])
     if traversal:
@@ -550,18 +548,23 @@ def _base_both(tag, label, tr, peak, timed_plain=True):
 
 # Each instantiation's nested twin of kernel A's thread per pixel.
 NESTED_TWIN = {"ref": "base_kernel_nested", "ext": "base_kernel_ext_nested",
+               "xt": "base_kernel_xt_nested",
+               "grid": "base_kernel_grid_nested",
                "gathered": "base_kernel_gathered_nested"}
 
 
-def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None, pc=None):
-    """Kernel A's thread per pixel of tracer `tr` (reference or EXT gates
-    over the table sweep, or `--accel gathered`) in both loops: the shipped
-    entry (trt_kernel_base / _ext / _gathered: the regeneration schedule,
-    csrc/trace.cuh run_samples_regen) and its nested twin (NESTED_TWIN),
-    each against the plain version `p` (computed here when None) bit for
-    bit and against each other, over the walk with the traversal counters
-    equal to the plain version's `pc` (computed here with `p`) and no walk
-    at the trip cap, both counters equal to warp_iters of the per-pixel
+def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None, pc=None,
+                 si=None):
+    """Kernel A's thread per pixel of tracer `tr` (reference, EXT or XT
+    gates over the table sweep, or `--accel grid` or `--accel gathered`) in
+    both loops: the shipped entry (trt_kernel_base / _ext / _xt / _grid /
+    _gathered: the regeneration schedule, csrc/trace.cuh
+    run_samples_regen) and its nested twin (NESTED_TWIN), each against the
+    plain version `p` (computed here when None) bit for bit and against
+    each other, over a traversal with the traversal counters equal to the
+    plain version's `pc` (computed here with `p`; under gathered no walk
+    at the trip cap; `si`, each sample's bounces per pixel, computed here
+    when None), both counters equal to warp_iters of the per-pixel
     model (for the nested twin a lower bound of what it executes); prints
     both executed-count models with the occupancy each gives, and times the
     two in turns (shipped, nested, nested, shipped). Returns (max abs
@@ -604,7 +607,8 @@ def _nested_both(tag, label, tr, p=None, seed=SEED, base_q=None, pc=None):
         fail(f"[{tag}] {label}: kernel A's two loops disagree")
     # Each sample's bounces per pixel; summed over samples, the per-pixel
     # model base_entry_iters (one run of the plain scheduler for both).
-    si = kernels.base_sample_iters(tr, pose, seed, 0, base_q=base_q)
+    if si is None:
+        si = kernels.base_sample_iters(tr, pose, seed, 0, base_q=base_q)
     it = si.sum(0)
     for name, out in (("regeneration", new), ("nested", old)):
         _iters_model(tag, f"{label} kernel A {name}", out.iters, it, 1)
@@ -674,6 +678,25 @@ def _time_plain(tr, fn, stats=None):
     out = []
     return (_time_cuda(lambda: out.append(fn()), 1, warm=False, queued=False),
             ops, out[0])
+
+
+def _time_plain_base(tr, stats=None):
+    """Kernel A's plain version at SEED timed as _time_plain times it, its
+    counted warm-up being the run of kernels.base_sample_iters (the same
+    scheduler, so the same FP32 operations and traversal counters), which
+    _nested_both and the per-pixel model (its sum over samples) take.
+    Returns (ms, operations, the timed run's output, each sample's bounces
+    per pixel)."""
+    from terminal_raytracer_tpu_torch.ops import kernels
+
+    pose = _pose()
+    si, out = [], []
+    _, ops, _ = _plain_counted(tr, lambda: si.append(
+        kernels.base_sample_iters(tr, pose, SEED, 0)), stats)
+    ms = _time_cuda(lambda: out.append(
+        kernels.base_kernel_plain(tr, pose, SEED, 0)), 1, warm=False,
+        queued=False)
+    return ms, ops, out[0], si[0]
 
 
 def _fmt_ms(ms) -> str:
@@ -926,41 +949,32 @@ def _split_sources():
             for cap in SPLIT_CAPS}
 
 
-def _unbound_a_source():
-    """csrc/group_tune.cu at its defaults (K = 1, no residency bound): its
-    trt_kernel_base_xt and trt_kernel_base_grid are the XT and grid kernel A
-    as they were before their bounds, kernel_base<true, true, Sweep |
-    Culled>, timed beside the shipped entries."""
-    from terminal_raytracer_tpu_torch.ops import build
-
-    return (build.TUNE_SOURCE, ("TRT_TUNE_K=1", "TRT_TUNE_MIN_BLOCKS=0"))
-
-
 def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
-    """ms/frame of the sorted pipeline on one XT tracer with kernel A held
-    to its residency bound (the render library's trt_kernel_base_xt) and
-    unbound (_unbound_a_source's), in turns: unbound, bound, bound,
-    unbound; the other kernels as the dispatch takes them. The forced form
-    is no main path: its launches count nowhere."""
+    """ms/frame of the sorted pipeline on one XT tracer with kernel A on the
+    regeneration schedule (the render library's trt_kernel_base_xt) and on
+    its nested twin's loops (trt_kernel_base_xt_nested in its place), in
+    turns: nested, shipped, shipped, nested; the other kernels as the
+    dispatch takes them. The forced form is no main path: its launches
+    count nowhere."""
     from types import SimpleNamespace
 
     import torch
 
-    from terminal_raytracer_tpu_torch.ops import build, kernels
+    from terminal_raytracer_tpu_torch.ops import kernels
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     tr = PathTracer(scene, "cuda", **kw)
     render = kernels.make_sorted_render_frame(tr)
     pose = _pose()
     load = kernels.load_kernels
-    unbound = SimpleNamespace(**{
-        **vars(load()), "trt_kernel_base_xt": build.load_kernels(
-            (_unbound_a_source(),)).trt_kernel_base_xt})
-    times = {"unbound": [], "bound": []}
+    lib = load()
+    nested = SimpleNamespace(**{
+        **vars(lib), "trt_kernel_base_xt": lib.trt_kernel_base_xt_nested})
+    times = {"nested": [], "shipped": []}
     try:
-        for form in ("unbound", "bound", "bound", "unbound"):
-            kernels.load_kernels = (load if form == "bound"
-                                    else lambda *a: unbound)
+        for form in ("nested", "shipped", "shipped", "nested"):
+            kernels.load_kernels = (load if form == "shipped"
+                                    else lambda *a: nested)
             render(pose, SEED, 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -971,14 +985,16 @@ def _frames_xt_a_in_turns(tag, label, scene, frames=8, **kw):
     finally:
         kernels.load_kernels = load
     print(f"[{tag}] {label} sorted frame in turns, {frames} frames each, "
-          f"XT kernel A unbound or held to "
-          f"{load().trt_kernel_base_xt_min_blocks()} blocks an SM: unbound "
-          f"{times['unbound'][0]:.3f} / {times['unbound'][1]:.3f} ms/frame, "
-          f"bound {times['bound'][0]:.3f} / {times['bound'][1]:.3f}",
+          f"XT kernel A on the regeneration schedule (held to "
+          f"{lib.trt_kernel_base_xt_min_blocks() or 'no'} blocks an SM) or "
+          f"its nested twin: nested {times['nested'][0]:.3f} / "
+          f"{times['nested'][1]:.3f} ms/frame, shipped "
+          f"{times['shipped'][0]:.3f} / {times['shipped'][1]:.3f}",
           flush=True)
 
 
-def _spill_both(label, tr, kernel, peak, tag="thread", turns=False):
+def _spill_both(label, tr, kernel, peak, tag="thread", turns=False,
+                timed_plain=True):
     """The grouped entry of the chunked kernel A (kernel 'chunked') or of
     kernel B ('extra') at the tracer's instantiation, which its wrapper
     takes (over the budget its GroupSpill or GroupCulledSpill form), and
@@ -987,7 +1003,8 @@ def _spill_both(label, tr, kernel, peak, tag="thread", turns=False):
     the grouped entry's also against the thread per entry's), with its
     lane-iterations equal to the plain model at its group width; both
     timed side by side (`turns`: thread, grouped, grouped, thread, each
-    form's least). Returns {form: (max abs error, ms, plain ms, bound)}."""
+    form's least); the plain version timed where `timed_plain`. Returns
+    {form: (max abs error, ms, plain ms or None, bound)}."""
     from terminal_raytracer_tpu_torch.ops import kernels
 
     pose = _pose()
@@ -1013,7 +1030,7 @@ def _spill_both(label, tr, kernel, peak, tag="thread", turns=False):
                 spill if form == "grouped" else kind)
 
         pc = []
-        plain, ops, p = _time_plain(
+        plain, ops, p = (_time_plain if timed_plain else _plain_counted)(
             tr, lambda: kernels.base_kernel_chunked_plain(tr, pose, SEED, 0),
             pc if tr.traversal else None)
         it = kernels.chunked_entry_iters(tr, pose, SEED, 0)
@@ -1048,7 +1065,7 @@ def _spill_both(label, tr, kernel, peak, tag="thread", turns=False):
 
         g, gc = counted(lambda: kernels.extra_kernel(*args))
         pc = []
-        plain, ops, pb = _time_plain(
+        plain, ops, pb = (_time_plain if timed_plain else _plain_counted)(
             tr, lambda: kernels.extra_kernel_plain(*args),
             pc if tr.traversal else None)
         it = kernels.extra_entry_iters(*args)
@@ -1080,7 +1097,7 @@ def _spill_both(label, tr, kernel, peak, tag="thread", turns=False):
           f"rows, {'over' if sfx else 'within'} the "
           f"{kernels.GROUP_SMEM_BYTES} B budget): "
           f"{wrapper.__name__} {ms['grouped']:.3f} ms, thread per entry "
-          f"{ms['thread']:.3f} ms on {what} (plain {plain:.1f} ms, bound "
+          f"{ms['thread']:.3f} ms on {what} (plain {_fmt_ms(plain)}, bound "
           f"{bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
           flush=True)
     return {form: (errs[form], ms[form], plain, bound) for form in ms}
@@ -1252,6 +1269,7 @@ def phase_thread_per_entry(peak):
 # bit and timed beside their grouped forms, launched directly, so their
 # main-path launches are 0, and a launch there fails the run.
 OFF_PATH = ("kernel_base_nested", "kernel_base_ext_nested",
+            "kernel_base_xt_nested", "kernel_base_grid_nested",
             "kernel_base_gathered_nested",
             "kernel_extra", "kernel_extra_xt", "kernel_extra_ext",
             "kernel_extra_grid", "kernel_extra_gathered", "kernel_base_chunked",
@@ -1273,6 +1291,7 @@ QUEUE_NAMES = tuple(
     + {"solo": "_solo", "group": "", "spill": "_spill"}[form]
     for mode, kind, form in QUEUE_KEYS)
 LAUNCH_NAMES = ("base_kernel", "base_kernel_nested", "base_kernel_ext_nested",
+                "base_kernel_xt_nested", "base_kernel_grid_nested",
                 "base_kernel_gathered_nested",
                 "base_kernel_chunked", "extra_kernel",
                 "base_kernel_grouped", "base_kernel_grid_grouped",
@@ -2178,15 +2197,16 @@ def phase_xt(peak):
     chunked kernel B stream on stress:1024), timed at the fog and
     stress:1024 shapes: kernel B and the chunked A in both forms (the
     grouped entry, which the wrapper takes, and the thread-per-entry
-    entry), kernel A at fog in both forms (held to its residency bound,
-    which the wrapper takes, and unbound), each bit for bit, their
+    entry), kernel A at fog in both loops (the regeneration schedule,
+    which the wrapper takes, and its nested twin, _nested_both), each bit
+    for bit, their
     lane-iterations held to the plain model at XT_ITERS (the chunked A at
     stress:1024, A at fog); (b) the XT kernels on Cornell_Box with every
     gate off (xt tables bound to a reference tracer) against the reference
     kernels, bit for bit; (c) Engine through every XT config, through
     manylights (every light: the reference kernels) and through
     XT_OVER_BUDGET, the fog frame with the grouped and the thread-per-entry
-    kernels in turns and with kernel A bound and unbound in turns, and the
+    kernels in turns and with kernel A on either loop in turns, and the
     mesh5120 fog frame profiled and in turns; (d) cli.main with --mis
     --fog. Returns (launches, per-kernel results)."""
     import torch
@@ -2251,36 +2271,25 @@ def phase_xt(peak):
         else:
             k = kernels.base_kernel_xt(tr, pose, SEED, 0)
             if label == "fog":
-                # Both forms: held to its residency bound (shipped) and
-                # unbound (group_tune.cu's), bit for bit, timed side by side.
-                unbound = build.load_kernels((_unbound_a_source(),))
-
-                def launch_u():
-                    return kernels._launch_base(tr, pose, SEED, 0, 0, None,
-                                                None, "xt", unbound)
-
-                ku = launch_u()
-                ms_a = _time_cuda(
-                    lambda: kernels.base_kernel_xt(tr, pose, SEED, 0), 5)
-                ms_u = _time_cuda(launch_u, 5)
-                plain_a, ops_a, p = _time_plain(
-                    tr, lambda: kernels.base_kernel_plain(tr, pose, SEED, 0))
+                # Both loops: the shipped regeneration schedule and its
+                # nested twin (OFF_PATH), bit for bit, in turns.
+                plain_a, ops_a, p, si = _time_plain_base(tr)
+                err_n, ms_a, ms_n = _nested_both("xt", label, tr, p, si=si)
                 bound_a = _bound(ops_a, fixed + 44 * k.var.numel(), peak)
                 timed["a"] = (ms_a, plain_a, bound_a)
-                err["a"] = max(err["a"], _compare_base(
-                    "xt", f"{shape}, XT kernel A unbound", ku, p,
-                    ("additional", "var"), exact=True))
-                it = kernels.base_entry_iters(tr, pose, SEED, 0)
-                _iters_model("xt", f"{label} XT kernel A", k.iters, it, 1)
-                _iters_model("xt", f"{label} XT kernel A unbound", ku.iters,
-                             it, 1)
+                timed["an"] = (ms_n, plain_a, bound_a)
+                err["a"] = max(err["a"], err_n)
+                err["an"] = err_n
+                _iters_model("xt", f"{label} XT kernel A", k.iters,
+                             si.sum(0), 1)
                 minb = build.load_kernels().trt_kernel_base_xt_min_blocks()
-                print(f"[xt] {label} shapes: base_kernel_xt held to {minb} "
-                      f"blocks an SM {ms_a:.3f} ms, unbound {ms_u:.3f} ms "
-                      f"(x{ms_u / ms_a:.2f}) on {k.var.numel()} pixels, "
-                      f"{-(-k.var.numel() // 128)} blocks (plain {plain_a:.1f}"
-                      f" ms, bound {bound_a[0]:.4f} ms by {bound_a[1]}: "
-                      f"{ops_a:.4g} operations)", flush=True)
+                print(f"[xt] {label} shapes: base_kernel_xt (regeneration, "
+                      f"held to {minb or 'no'} blocks an SM) {ms_a:.3f} ms, "
+                      f"nested twin {ms_n:.3f} ms (x{ms_n / ms_a:.3f}) on "
+                      f"{k.var.numel()} pixels, {-(-k.var.numel() // 128)} "
+                      f"blocks (plain {plain_a:.1f} ms, bound "
+                      f"{bound_a[0]:.4f} ms by {bound_a[1]}: {ops_a:.4g} "
+                      "operations)", flush=True)
             else:
                 p = kernels.base_kernel_plain(tr, pose, SEED, 0)
             err["a"] = max(err["a"], _compare_base(
@@ -2397,15 +2406,14 @@ def phase_xt(peak):
                               base_kernel_xt=2, extra_kernel_xt_grouped=2):
         fail("[xt] cli.main run failed")
     _add(launches, got)
-    res = {k: (err[k], *timed[k]) for k in ("a", "b", "g", "cg")}
+    res = {k: (err[k], *timed[k]) for k in ("a", "an", "b", "g", "cg")}
     return launches, {**res, "c": (err["c"],)}
 
 
 # The opt-in traversals' kernels against their plain versions, at the JAX
-# bench's stress1024 and mesh1280 shapes: (label, scene, accel).
+# bench's stress1024 shapes: (label, scene, accel).
 ACCEL_KERNELS = (("stress1024", "stress:1024", "grid"),
-                 ("stress1024", "stress:1024", "gathered"),
-                 ("mesh1280", "icosphere:3", "gathered"))
+                 ("stress1024", "stress:1024", "gathered"))
 ACCEL_ENGINE = (("stress256", "stress:256"), ("stress1024", "stress:1024"),
                 ("mesh1280", "icosphere:3"))
 # Rows and group table over the grouped kernels' budget: Engine through the
@@ -2524,28 +2532,21 @@ def phase_accel(peak):
     from terminal_raytracer_tpu_torch.ops.tracer import PathTracer
 
     pose = _pose()
-    res, err_gs, err_at_all, err_a_all = {}, {}, {}, {}
+    res = {}
     for label, name, accel in ACCEL_KERNELS:
         tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda", accel=accel)
         wrap_b = getattr(kernels, f"extra_kernel_{accel}")
         tag = f"{label} {accel}"
-        # The plain versions are timed at the stress1024 shapes only (the
-        # walk's plain version steps every lane at once: seconds a call).
-        timed = label == "stress1024"
-        plain_run = _time_plain if timed else _plain_counted
         # Kernel A's grouped entry, which the wrapper takes, and its
         # thread-per-pixel entry: bit for bit, both counters the plain
         # version's, the lane-iterations the plain model's.
-        res_a, k = _base_both("accel", tag, tr, peak, timed_plain=timed)
+        res_a, k = _base_both("accel", tag, tr, peak)
         err_a, ms_a, plain_a, bound_a = res_a["grouped"]
-        err_at_all[accel] = max(err_at_all.get(accel, 0.0),
-                                res_a["thread"][0])
-        err_a_all[accel] = max(err_a_all.get(accel, 0.0), err_a)
         s = kernels.sorted_stream(tr, k.state, k.additional)
         args = (tr, pose, s.xs, s.ys, s.state, s.add, s.samp0)
         b, kc = _counted_launch(tr, lambda: wrap_b(*args))
         pc = []
-        plain_b, ops_b, pb = plain_run(
+        plain_b, ops_b, pb = _time_plain(
             tr, lambda: kernels.extra_kernel_plain(*args), pc)
         err_b = _check_extra("accel", tag, s, b, pb)
         _check_counts(f"{tag} kernel B", kc, pc[0])
@@ -2562,7 +2563,6 @@ def phase_accel(peak):
         if wrapper.launches != n0 + 1:
             fail(f"[accel] {tag}: the wrapper took no grouped kernel B")
         err_g = _check_extra("accel", f"{tag} grouped", s, g, pb, exact=True)
-        err_gs[accel] = max(err_gs.get(accel, 0.0), err_g)
         _check_counts(f"{tag} grouped kernel B", gc, pc[0])
         _check_counts(f"{tag} grouped against thread-per-entry kernel B", gc,
                       kc)
@@ -2581,15 +2581,10 @@ def phase_accel(peak):
               f"{int((s.add > 0).sum())} budgeted of {s.add.numel()} entries "
               f"(plain {_fmt_ms(plain_b)}, bound {bound_b[0]:.4f} ms by "
               f"{bound_b[1]}: {ops_b:.4g} operations)", flush=True)
-        if timed:
-            res[accel, "a"] = (err_a, ms_a, plain_a, bound_a)
-            res[accel, "at"] = res_a["thread"][1:]
-            res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
-            res[accel, "g"] = (ms_g, plain_b, bound_b)
-    for accel in ("grid", "gathered"):
-        res[accel, "g"] = (err_gs[accel], *res[accel, "g"])
-        res[accel, "at"] = (err_at_all[accel], *res[accel, "at"])
-        res[accel, "a"] = (err_a_all[accel], *res[accel, "a"][1:])
+        res[accel, "a"] = res_a["grouped"]
+        res[accel, "at"] = res_a["thread"]
+        res[accel, "b"] = (err_b, ms_b, plain_b, bound_b)
+        res[accel, "g"] = (err_g, ms_g, plain_b, bound_b)
 
     _grid_vs_dense(pose)
 
@@ -2615,7 +2610,10 @@ def phase_accel(peak):
     # The chunked gathered kernel A at chunks of 2 (CHUNKED_GATHERED): its
     # grouped entry, which the wrapper takes, and the thread per entry,
     # launched directly, in turns. The rows' times at the stress1024
-    # shapes, the errors over both.
+    # shapes, the errors over both; the plain version (the walk steps
+    # every lane at once: seconds a call) timed at the stress1024 shapes
+    # alone.
+    (w_label, _), (m_label, _) = CHUNKED_GATHERED
     for label, name in CHUNKED_GATHERED:
         tr = PathTracer(_scene(name, 200, 100, 8, 6), "cuda",
                         accel="gathered", chunk_base=2, chunk_extra=2)
@@ -2623,8 +2621,7 @@ def phase_accel(peak):
             fail(f"[accel] {label}: no chunks or no grouped chunked "
                  "gathered A")
         cg[label] = _spill_both(label, tr, "chunked", peak, tag="accel",
-                                turns=True)
-    (w_label, _), (m_label, _) = CHUNKED_GATHERED
+                                turns=True, timed_plain=label == w_label)
     for form, key in (("grouped", "cg"), ("thread", "ct")):
         res["gathered", key] = (max(cg[w_label][form][0],
                                     cg[m_label][form][0]),
@@ -2638,89 +2635,56 @@ def phase_accel(peak):
     _add(launches, _run_engine("accel", f"{label} grid",
                                _scene(name, 200, 100, 8, 6), True, 4,
                                accel="grid"))
-    for base_only in (False, True):
-        _frames_grouped_vs_thread("accel", "stress1024 grid",
-                                  _scene("stress:1024", 200, 100, 8, 6),
-                                  base_only=base_only, accel="grid")
-    # The gathered frames through both forms of kernels A and B, and of
-    # kernel A alone, in turns.
+    # The grid and gathered frames through both forms of kernels A and B,
+    # in turns.
+    _frames_grouped_vs_thread("accel", "stress1024 grid",
+                              _scene("stress:1024", 200, 100, 8, 6),
+                              accel="grid")
     for label, name in (("stress1024", "stress:1024"),
                         ("mesh1280", "icosphere:3")):
-        for base_only in (False, True):
-            _frames_grouped_vs_thread("accel", f"{label} gathered",
-                                      _scene(name, 200, 100, 8, 6),
-                                      base_only=base_only, accel="gathered")
+        _frames_grouped_vs_thread("accel", f"{label} gathered",
+                                  _scene(name, 200, 100, 8, 6),
+                                  accel="gathered")
     _add(launches, _run_engine("accel", "north star grid",
                                _cornell(400, 200, 16, 32), True, 8,
                                accel="grid"))
-    # The thread-per-pixel grid kernel A at the north star under grid (too
-    # few primitives for the grouped entry), which the wrapper takes, held
-    # to its residency bound, and unbound (_unbound_a_source's): each bit
-    # for bit with the plain version's counters, timed side by side at
-    # that shape.
-    ns = PathTracer(_cornell(400, 200, 16, 32), "cuda", accel="grid")
-    if kernels.takes_grouped(ns, "base"):
-        fail("[accel] north star grid takes the grouped kernel A")
-    unbound = build.load_kernels((_unbound_a_source(),))
-
-    def launch_u():
-        return kernels._launch_base(ns, pose, SEED, 0, 0, None, None, "grid",
-                                    unbound)
-
-    k, kc = _counted_launch(ns, lambda: kernels.base_kernel(ns, pose, SEED, 0))
-    ku, kuc = _counted_launch(ns, launch_u)
-    pc = []
-    plain, ops, p = _time_plain(
-        ns, lambda: kernels.base_kernel_plain(ns, pose, SEED, 0), pc)
-    err = max(_compare_base("accel", f"north star grid kernel A {form}", o,
-                            p, ("additional", "var"), exact=True)
-              for form, o in (("bound", k), ("unbound", ku)))
-    it = kernels.base_entry_iters(ns, pose, SEED, 0)
-    for form, o, c in (("bound", k, kc), ("unbound", ku, kuc)):
-        _check_counts(f"north star grid kernel A {form}", c, pc[0])
-        _iters_model("accel", f"north star grid kernel A {form}", o.iters, it,
-                     1)
-    ms_u = _time_cuda(launch_u, 5)
-    ms = _time_cuda(lambda: kernels.base_kernel(ns, pose, SEED, 0), 5)
-    bound = _bound(ops, 4 * (ns.tables.buf.numel() + ns.atlas.numel())
-                   + 44 * k.var.numel(), peak)
-    minb = build.load_kernels().trt_kernel_base_grid_min_blocks()
-    print(f"[accel] north star grid shapes: base_kernel_grid held to {minb} "
-          f"blocks an SM {ms:.3f} ms, unbound {ms_u:.3f} ms (x{ms_u / ms:.2f})"
-          f" (plain {plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}: "
-          f"{ops:.4g} operations)", flush=True)
-    res["grid", "ans"] = (err, ms, plain, bound)
-    # The thread-per-pixel gathered kernel A at the north star under
-    # gathered (too few primitives for the grouped entry), which the
-    # wrapper takes (on the regeneration schedule), and its nested twin
-    # (OFF_PATH) in turns: both bit for bit with the plain version's
-    # counters (_nested_both), the plain version timed.
-    ng = PathTracer(_cornell(400, 200, 16, 32), "cuda", accel="gathered")
-    if kernels.takes_grouped(ng, "base"):
-        fail("[accel] north star gathered takes the grouped kernel A")
-    n0 = kernels.base_kernel_gathered.launches
-    k, kc = _counted_launch(ng, lambda: kernels.base_kernel(ng, pose, SEED, 0))
-    if kernels.base_kernel_gathered.launches != n0 + 1:
-        fail("[accel] north star gathered: the wrapper took no "
-             "base_kernel_gathered")
-    pc = []
-    plain, ops, p = _time_plain(
-        ng, lambda: kernels.base_kernel_plain(ng, pose, SEED, 0), pc)
-    err = _compare_base("accel", "north star gathered kernel A", k, p,
-                        ("additional", "var"), exact=True)
-    _check_counts("north star gathered kernel A", kc, pc[0])
-    err_n, ms, ms_n = _nested_both("accel", "north star gathered", ng, p,
-                                   pc=pc[0])
-    bound = _bound(ops, 4 * (ng.tables.buf.numel() + ng.atlas.numel())
-                   + 44 * k.var.numel(), peak)
-    minb = build.load_kernels().trt_kernel_base_gathered_min_blocks()
-    print(f"[accel] north star gathered shapes: base_kernel_gathered "
-          f"(regeneration, held to {minb or 'no'} blocks an SM) {ms:.3f} ms, "
-          f"nested twin {ms_n:.3f} ms (x{ms_n / ms:.3f}) (plain {plain:.1f} "
-          f"ms, bound {bound[0]:.4f} ms by {bound[1]}: {ops:.4g} operations)",
-          flush=True)
-    res["gathered", "ans"] = (max(err, err_n), ms, plain, bound)
-    res["gathered", "ansn"] = (err_n, ms_n, plain, bound)
+    # The thread-per-pixel grid and gathered kernel A at the north star
+    # under grid and under gathered (too few primitives for the grouped
+    # entry), which the wrapper takes (on the regeneration schedule), and
+    # its nested twin (OFF_PATH) in turns: both bit for bit with the plain
+    # version's counters (_nested_both), the plain version timed.
+    for accel in ("grid", "gathered"):
+        ns = PathTracer(_cornell(400, 200, 16, 32), "cuda", accel=accel)
+        if kernels.takes_grouped(ns, "base"):
+            fail(f"[accel] north star {accel} takes the grouped kernel A")
+        wrapper = getattr(kernels, f"base_kernel_{accel}")
+        n0 = wrapper.launches
+        k, kc = _counted_launch(ns, lambda: kernels.base_kernel(ns, pose,
+                                                                SEED, 0))
+        if wrapper.launches != n0 + 1:
+            fail(f"[accel] north star {accel}: the wrapper took no "
+                 f"{wrapper.__name__}")
+        pc = []
+        plain, ops, p, si = _time_plain_base(ns, pc)
+        err = _compare_base("accel", f"north star {accel} kernel A", k, p,
+                            ("additional", "var"), exact=True)
+        _check_counts(f"north star {accel} kernel A", kc, pc[0])
+        if accel == "grid" and not bool((pc[0] > 0).all()):
+            fail(f"[accel] north star grid: culled counters {pc[0].tolist()}"
+                 " not all nonzero")
+        err_n, ms, ms_n = _nested_both("accel", f"north star {accel}", ns, p,
+                                       pc=pc[0], si=si)
+        bound = _bound(ops, 4 * (ns.tables.buf.numel() + ns.atlas.numel())
+                       + 44 * k.var.numel(), peak)
+        minb = getattr(build.load_kernels(),
+                       f"trt_kernel_base_{accel}_min_blocks")()
+        print(f"[accel] north star {accel} shapes: {wrapper.__name__} "
+              f"(regeneration, held to {minb or 'no'} blocks an SM) {ms:.3f} "
+              f"ms, nested twin {ms_n:.3f} ms (x{ms_n / ms:.3f}) (plain "
+              f"{plain:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}: "
+              f"{ops:.4g} operations; counters {pc[0].tolist()})", flush=True)
+        res[accel, "ans"] = (max(err, err_n), ms, plain, bound)
+        res[accel, "ansn"] = (err_n, ms_n, plain, bound)
     for accel in ("grid", "gathered"):
         _reset_launches()
         rc = cli.main(["--device", "cuda", "--full-color", "--scene",
@@ -4107,8 +4071,12 @@ def main() -> int:
              *ext["cgs"]),
             # The transport and camera gates: kernel A's body is the
             # PathTracer built with them at :739, kernel B's at :1013.
+            # Kernel A on the regeneration schedule at the fog shapes, and
+            # its nested twin (launched directly: OFF_PATH) in turns there.
             ("kernel_base_xt", "base_kernel_xt", "kernel_base.cu", "739",
              *xt["a"]),
+            ("kernel_base_xt_nested", "base_kernel_xt_nested",
+             "kernel_base.cu", "739", *xt["an"]),
             # Thread per entry at mesh5120 in fog ([thread]), launched
             # directly (OFF_PATH); its fog-shape time beside the grouped
             # entry's is printed in [xt].
@@ -4139,18 +4107,22 @@ def main() -> int:
             # The opt-in traversals, bound into kernel A at :808-809 and
             # into kernel B at :1032-1033 (the culled sweep's scratch,
             # _maybe_bind_sweep; the walk's tables, _gather_bind_front).
-            # Thread per pixel at mesh5120 under grid ([thread], launched
-            # directly beside the GroupCulledSpill form); the main path
-            # takes it below 16 primitives (the north star under grid,
-            # timed in [accel]). Grouped (csrc/group.cuh GroupCulled; entry
-            # in kernel_accel.cu) at the stress1024 shapes, where its
+            # Thread per pixel on the regeneration schedule (the main path
+            # takes it below 16 primitives) at the north star under grid
+            # beside its nested twin (launched directly: OFF_PATH), the
+            # errors including mesh5120 grid's ([thread], launched directly
+            # beside the GroupCulledSpill form) and the stress1024 shapes'.
+            # Grouped (csrc/group.cuh GroupCulled; entry in
+            # kernel_accel.cu) at the stress1024 shapes, where its
             # comparisons include the thread-per-pixel entry's; its
             # GroupCulledSpill form at mesh5120 under grid ([thread]),
             # where the main path takes it, its error including the
             # split-point libraries'.
             ("kernel_base_grid", "base_kernel_grid", "kernel_accel.cu",
              "809", max(acc["grid", "at"][0], acc["grid", "ans"][0],
-                        thread["ga"][0]), *thread["ga"][1:]),
+                        thread["ga"][0]), *acc["grid", "ans"][1:]),
+            ("kernel_base_grid_nested", "base_kernel_grid_nested",
+             "kernel_accel.cu", "809", *acc["grid", "ansn"]),
             ("kernel_base_grid_grouped", "base_kernel_grid_grouped",
              "group.cuh", "809", *acc["grid", "a"]),
             ("kernel_base_grid_grouped_spill",
@@ -4176,11 +4148,10 @@ def main() -> int:
             # north star under gathered, [sched]'s Cornell gathered), at
             # the north star under gathered beside its nested twin
             # (launched directly: OFF_PATH), the errors including
-            # [sched]'s and the stress1024 and mesh1280 shapes' (where
-            # the grouped entry serves; the thread per pixel's stress1024
-            # time is printed in [accel]); grouped (csrc/group.cuh
-            # GroupWalk; entry in kernel_accel.cu), at the stress1024
-            # shapes, the errors including mesh1280's.
+            # [sched]'s and the stress1024 shapes' (where the grouped
+            # entry serves; the thread per pixel's stress1024 time is
+            # printed in [accel]); grouped (csrc/group.cuh GroupWalk; entry
+            # in kernel_accel.cu), at the stress1024 shapes.
             ("kernel_base_gathered", "base_kernel_gathered",
              "kernel_accel.cu", "808", max(acc["gathered", "at"][0],
                                            acc["gathered", "ans"][0],
@@ -4194,8 +4165,7 @@ def main() -> int:
              "group.cuh", "808", *acc["gathered", "a"]),
             # Kernel B over the walk, thread per entry (launched directly:
             # OFF_PATH) and grouped (csrc/group.cuh GroupWalk; entry in
-            # kernel_accel.cu), at the stress1024 shapes, the grouped
-            # entry's error including mesh1280's.
+            # kernel_accel.cu), at the stress1024 shapes.
             ("kernel_extra_gathered", "extra_kernel_gathered",
              "kernel_accel.cu", "1032", *acc["gathered", "b"]),
             ("kernel_extra_gathered_grouped", "extra_kernel_gathered_grouped",

@@ -37,8 +37,8 @@
 // TRT_TUNE_MIN_BLOCKS too; each with its queries, and the resident blocks
 // an SM that the occupancy calculator gives it (no staged rows; the
 // grouped EXT kernel A's too, with its rows staged for a given scene).
-// Last, kernel A's thread-per-pixel loops at the reference and EXT gates
-// and over the grid walk (TRT_TUNE_LOOP, below).
+// Last, kernel A's thread-per-pixel loops at the reference, EXT and XT
+// gates and over the culled sweep and the grid walk (TRT_TUNE_LOOP, below).
 
 #include "group.cuh"
 
@@ -372,8 +372,9 @@ extern "C" int trt_kernel_base_ext(const BaseArgs* a, const trt::Tex* tx, const 
 
 extern "C" int trt_kernel_base_ext_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
 
-// Kernel A at the XT gates, one thread a pixel (TRT_TUNE_MIN_BLOCKS > 0:
-// kernel_base_resident), the arguments of kernel_base.cu's entry.
+// Kernel A at the XT gates, one thread a pixel on the nested loops
+// (TRT_TUNE_MIN_BLOCKS > 0: kernel_base_resident), the arguments of
+// kernel_base.cu's entry (the --only xt sweep's reference).
 extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                   const float* scene_buf, float* out, long long* state_out,
                                   unsigned long long* iters, void* stream) {
@@ -383,8 +384,9 @@ extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const t
 
 extern "C" int trt_kernel_base_xt_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
 
-// Kernel A over the culled sweep, one thread a pixel (TRT_TUNE_MIN_BLOCKS >
-// 0: kernel_base_resident), the arguments of kernel_accel.cu's entry.
+// Kernel A over the culled sweep, one thread a pixel on the nested loops
+// (TRT_TUNE_MIN_BLOCKS > 0: kernel_base_resident), the arguments of
+// kernel_accel.cu's entry (the --only grid sweep's reference).
 extern "C" int trt_kernel_base_grid(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                     const trt::Accel* acc, const float* scene_buf, float* out,
                                     long long* state_out, unsigned long long* iters,
@@ -470,9 +472,10 @@ extern "C" int trt_kernel_base_ext_grouped_per_sm(const int* bytes) {
 }
 #endif  // !TRT_TUNE_LOOP_ONLY
 
-// Kernel A's thread-per-pixel loops at the reference and EXT gates and over
-// the grid walk (the XT gate set, as kernel_accel.cu's
-// trt_kernel_base_gathered), for tools/group_k.py --only regen:
+// Kernel A's thread-per-pixel loops at the reference, EXT and XT gates and
+// over the culled sweep and the grid walk (the XT gate set, as
+// kernel_accel.cu's trt_kernel_base_grid and trt_kernel_base_gathered), for
+// tools/group_k.py --only regen:
 // TRT_TUNE_LOOP 0, the nested sample and bounce loops (kernel_base, as the
 // *_nested entries); 1, the regeneration schedule one thread a pixel
 // (kernel_base_regen, as shipped); 2, its refill form (kernel_base_refill: a
@@ -535,13 +538,32 @@ extern "C" int trt_kernel_base_gathered_loop(const BaseArgs* a, const trt::Tex* 
                                             stream, *acc);
 }
 
+extern "C" int trt_kernel_base_xt_loop(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
+                                       const float* scene_buf, float* out, long long* state_out,
+                                       unsigned long long* iters, unsigned* next, void* stream) {
+  return launch_loop<true, true, trt::Sweep>(a, *tx, *xt, scene_buf, out, state_out, iters, next,
+                                             stream);
+}
+
+extern "C" int trt_kernel_base_grid_loop(const BaseArgs* a, const trt::Tex* tx,
+                                         const trt::Xt* xt, const trt::Accel* acc,
+                                         const float* scene_buf, float* out,
+                                         long long* state_out, unsigned long long* iters,
+                                         unsigned* next, void* stream) {
+  return launch_loop<true, true, trt::Culled>(a, *tx, *xt, scene_buf, out, state_out, iters, next,
+                                              stream, *acc);
+}
+
 // The loop (TRT_TUNE_LOOP), its residency bound, and the resident blocks an
 // SM that the occupancy calculator gives it at the gates `*gates` (0: the
-// reference gates, 1: EXT, 2: over the grid walk), or a negative CUDA error.
+// reference gates, 1: EXT, 2: over the grid walk, 3: XT, 4: over the culled
+// sweep), or a negative CUDA error.
 extern "C" int trt_kernel_base_loop_kind() { return TRT_TUNE_LOOP; }
 extern "C" int trt_kernel_base_loop_min_blocks() { return TRT_TUNE_MIN_BLOCKS; }
 extern "C" int trt_kernel_base_loop_per_sm(const int* gates) {
-  const void* kernel = *gates == 2   ? loop_kernel<true, true, trt::Walk>()
+  const void* kernel = *gates == 4   ? loop_kernel<true, true, trt::Culled>()
+                       : *gates == 3 ? loop_kernel<true, true, trt::Sweep>()
+                       : *gates == 2 ? loop_kernel<true, true, trt::Walk>()
                        : *gates == 1 ? loop_kernel<true, false, trt::Sweep>()
                                      : loop_kernel<false, false, trt::Sweep>();
   int n = 0;

@@ -34,22 +34,21 @@
 // the same Pallas kernel as trt_kernel_extra_grid (:1028 over CulledPrims,
 // bound at :1033).
 //
-// trt_kernel_base_grid, one thread a pixel, is held to GRID_MIN_BLOCKS
-// resident blocks an SM (__launch_bounds__(128, 5)), so that a 400x200
-// frame's 625 blocks run in one wave, as the XT kernel A is.
-//
-// trt_kernel_base_gathered, one thread a pixel (it serves scenes below
-// GROUP_BASE_MIN_PRIMS primitives under --accel gathered: Cornell_Box and
-// the packaged extension scenes), runs the regeneration schedule
-// (pipeline.cuh kernel_base_regen over trace.cuh run_samples_regen: one
-// bounce a loop trip, a lane starting its next sample on the trip after its
-// path ends, as the TPU kernel's stream_step), held to GATHERED_MIN_BLOCKS
-// resident blocks an SM. The nested sample and bounce loops that it
-// replaced stay as trt_kernel_base_gathered_nested, launched by
+// trt_kernel_base_grid and trt_kernel_base_gathered, one thread a pixel
+// (they serve scenes below GROUP_BASE_MIN_PRIMS primitives under --accel
+// grid and --accel gathered: Cornell_Box and the packaged extension
+// scenes), run the regeneration schedule (pipeline.cuh launch_base_regen
+// over trace.cuh run_samples_regen: one bounce a loop trip, a lane starting
+// its next sample on the trip after its path ends, as the TPU kernel's
+// stream_step), held to GRID_MIN_BLOCKS and GATHERED_MIN_BLOCKS resident
+// blocks an SM. The nested sample and bounce loops that they replaced stay
+// as trt_kernel_base_grid_nested (held to GRID_NESTED_MIN_BLOCKS, as the
+// parent shipped it) and trt_kernel_base_gathered_nested, launched by
 // chip_smoke.py and the sweep alone: the same arguments and outputs, and
-// the same walks, so the same traversal counters, bit for bit (at
-// max_depth >= 1: at max_depth 0 the regeneration schedule bounces each
-// path once, as the plain version does, and the nested loops none).
+// the same sweeps and walks, so the same traversal counters (flushed once a
+// thread, after the loop), bit for bit (at max_depth >= 1: at max_depth 0
+// the regeneration schedule bounces each path once, as the plain version
+// does, and the nested loops none).
 //
 // trt_kernel_base_grid_grouped is kernel A over the culled sweep redesigned
 // the same way (group.cuh kernel_base_grouped over GroupCulled<GROUP_K_BASE_GRID,
@@ -111,13 +110,31 @@
 
 #include "group.cuh"
 
-// The resident blocks an SM that the grid kernel A's thread per pixel is
-// held to (pipeline.cuh kernel_base_resident; it serves scenes below
-// GROUP_BASE_MIN_PRIMS primitives): chosen by tools/group_k.py --only grid
+// The resident blocks an SM that the nested twin of the grid kernel A's
+// thread per pixel (trt_kernel_base_grid_nested) is held to, as the parent
+// shipped it (pipeline.cuh kernel_base_resident): chosen by tools/group_k.py --only grid
 // at the north star under --accel grid (Cornell_Box 400x200, 16 spp, depth
 // 32; ms, H100 80GB HBM3 at 700 W, twice in turns): unbound 2.516 / 2.528
 // (128 registers, 4 blocks an SM), 4 2.530 / 2.514, 5 2.199 / 2.199 (96
 // registers, 360 B of spill stores, 0.95 waves), 6 2.308 / 2.311.
+constexpr int GRID_NESTED_MIN_BLOCKS = 5;
+// The loop and residency bound of the grid kernel A's thread per pixel
+// (pipeline.cuh launch_base_regen): chosen by tools/group_k.py --only regen
+// --gates grid, the least summed time over the configurations where it
+// serves, each under --accel grid (the north star, shipped, ascii 80x40,
+// fog, the five packaged extension scenes; PERF.md, the XT and grid sweep;
+// ms of device time, twice in turns, H100 80GB HBM3 at 700 W). Summed: the
+// regeneration
+// schedule held to 5 blocks an SM 11.925 / 11.947 (96 registers, 336 B of
+// spill stores, 0.95 waves at 400x200), to 6 13.065 / 12.939, unbound
+// 14.834 / 14.832 (128 registers, 1.18 waves); the refill form at best
+// 12.305 / 12.298 (held to 5); the nested loops held to 5, as the parent
+// shipped them (trt_kernel_base_grid_nested), 13.907 / 13.885, unbound
+// 17.300 / 17.313. At the north star 1.730 / 1.683 against the parent's
+// 2.260 / 2.173. Unbound, the regeneration schedule is 10-12% faster at
+// showcase and envmap (0.705 / 0.711 against 0.782 / 0.776; 0.242 / 0.242
+// against 0.272 / 0.269), slower by more everywhere the paths run long.
+constexpr bool GRID_REFILL = false;
 constexpr int GRID_MIN_BLOCKS = 5;
 
 // The resident blocks an SM that the gathered kernel A's thread per pixel
@@ -230,15 +247,31 @@ using ChunkedWalk = trt::GroupWalk<GROUP_K_CHUNKED_GATHERED, GROUP_SRC_CHUNKED_G
 // out: f32 [9, h_out*w] (csum rgb, csumsq rgb, rays, var, additional);
 // state_out: int64 [h_out*w]; iters: one zeroed u64; acc: the traversal's
 // launch argument. Returns cudaGetLastError().
+// Kernel A over the culled sweep, one thread a pixel on the regeneration
+// schedule (pipeline.cuh kernel_base_regen[_resident]), held to
+// GRID_MIN_BLOCKS.
 extern "C" int trt_kernel_base_grid(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                     const trt::Accel* acc, const float* scene_buf, float* out,
                                     long long* state_out, unsigned long long* iters,
                                     void* stream) {
-  return launch_base<true, true, trt::Culled, GRID_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
-                                                               state_out, iters, stream, *acc);
+  return launch_base_regen<true, true, trt::Culled, GRID_REFILL, GRID_MIN_BLOCKS>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, nullptr, stream, *acc);
 }
 
+// Its residency bound (blocks an SM; 0: none).
 extern "C" int trt_kernel_base_grid_min_blocks() { return GRID_MIN_BLOCKS; }
+
+// Its nested twin (pipeline.cuh kernel_base_resident over trace.cuh
+// run_samples), the loops it replaced, held to GRID_NESTED_MIN_BLOCKS: the
+// same arguments and outputs.
+extern "C" int trt_kernel_base_grid_nested(const BaseArgs* a, const trt::Tex* tx,
+                                           const trt::Xt* xt, const trt::Accel* acc,
+                                           const float* scene_buf, float* out,
+                                           long long* state_out, unsigned long long* iters,
+                                           void* stream) {
+  return launch_base<true, true, trt::Culled, GRID_NESTED_MIN_BLOCKS>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, stream, *acc);
+}
 
 // Kernel A over the walk, one thread a pixel on the regeneration schedule
 // (pipeline.cuh kernel_base_regen[_resident]), held to GATHERED_MIN_BLOCKS.

@@ -77,8 +77,16 @@
 // GROUP_BASE_MIN_PRIMS primitives whose rows fit the budget; it replaces
 // the same Pallas kernel as trt_kernel_base_ext (the atlas bound at :807
 // and the material-channel branches of its body). Kernel A at the XT gates
-// stays one thread a pixel, held to XT_MIN_BLOCKS resident blocks an SM so
-// that the frame's blocks fit one wave (pipeline.cuh kernel_base_resident).
+// stays one thread a pixel on the regeneration schedule, held to
+// XT_MIN_BLOCKS resident blocks an SM (pipeline.cuh launch_base_regen); its
+// nested twin trt_kernel_base_xt_nested keeps the sample and bounce loops
+// that it replaced, held to XT_NESTED_MIN_BLOCKS, and is launched by
+// chip_smoke.py and tools/group_k.py --only regen alone. The XT draws of a
+// new sample (the transport's fresh emit value, the stratified cell, the
+// two DOF draws, fog's gated distance) come in the nested loops' order, so
+// the outputs are equal bit for bit (at max_depth >= 1; at max_depth 0 the
+// regeneration schedule bounces each path once, as the plain version does,
+// and the nested loops none).
 //
 // What bounds them on an H100. Not bytes: they read the scene table (L1 /
 // L2 or shared memory) and write 44 (36 chunked) bytes an entry. Not FP32
@@ -128,7 +136,8 @@ using ChunkedSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
 // gain less than at the reference gates (chunked A 8.2x at mesh5120).
 constexpr int GROUP_K_CHUNKED_XT = 8;
 using ChunkedXtSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
-// The resident blocks an SM that kernel A at the XT gates is held to
+// The resident blocks an SM that the nested twin of kernel A at the XT gates
+// (trt_kernel_base_xt_nested) is held to, as the parent shipped it
 // (pipeline.cuh kernel_base_resident): chosen by tools/group_k.py --only xt
 // at fog (Cornell_Box 400x200, 16 spp, depth 32, fog 0.15; PERF.md, PR 13).
 // Unbound, ptxas gives it 128 registers: 4 blocks of 128 lanes an SM, 528
@@ -140,6 +149,26 @@ using ChunkedXtSpill = trt::GroupSpill<32, 512, trt::GROUP_SMEM_MAX>;
 // unbound, the two forms are within 5% of each other, either way round
 // between the runs (0.304 / 0.297 ms and 0.309 / 0.322; 0.598 / 0.590 and
 // 0.626 / 0.611, bound / unbound).
+constexpr int XT_NESTED_MIN_BLOCKS = 5;
+// The loop and residency bound of kernel A at the XT gates (pipeline.cuh
+// launch_base_regen): chosen by tools/group_k.py --only regen --gates xt
+// over the configurations where it serves (fog, stratified, dof at
+// Cornell_Box 400x200, 16 spp, depth 32; manylights_one; showcase --mis;
+// fog's sp = 3 share 2; PERF.md, the XT and grid sweep; ms of device
+// time, twice in turns, H100 80GB HBM3 at 700 W). Summed: the
+// regeneration schedule held to 5
+// blocks an SM 4.080 / 4.072 (96 registers, 224 B of spill stores, 0.95
+// waves at 400x200), to 6 4.325 / 4.319, unbound 4.595 / 4.594 (128
+// registers, 1.18 waves); the nested loops held to 5, as the parent shipped
+// them (trt_kernel_base_xt_nested), 5.119 / 5.113, unbound 6.222 / 6.224.
+// At fog 0.966 / 0.949 against the parent's 1.343 / 1.346. The refill form
+// held to 4 summed 0.9-1.0% less (4.040 / 4.034): under the 5% a second
+// form must gain, and its count is no longer warp_iters, so the plain
+// per-warp model would not hold it. At manylights_one (157 blocks, under
+// one wave at any bound) the bound of 5 costs 5.6% against 4 (0.263 /
+// 0.262 against 0.249 / 0.248); a bound chosen by grid size would save
+// 0.3% of the sum.
+constexpr bool XT_REFILL = false;
 constexpr int XT_MIN_BLOCKS = 5;
 // The same at the EXT gates (the chunked EXT kernel A), over GroupSweep
 // within the budget and GroupSpill above it: chosen by tools/group_k.py
@@ -246,16 +275,28 @@ extern "C" int trt_kernel_base_chunked_ext(const ChunkArgs* a, const trt::Tex* t
 
 // The XT instantiations (trace.cuh): the same outputs, for a scene buffer
 // with xt tables; tx holds the atlas and texture constants, xt the gates.
-// Kernel A at the XT gates is held to XT_MIN_BLOCKS resident blocks an SM.
+// Kernel A at the XT gates, one thread a pixel on the regeneration schedule
+// (pipeline.cuh kernel_base_regen[_resident]), held to XT_MIN_BLOCKS.
 extern "C" int trt_kernel_base_xt(const BaseArgs* a, const trt::Tex* tx, const trt::Xt* xt,
                                   const float* scene_buf, float* out, long long* state_out,
                                   unsigned long long* iters, void* stream) {
-  return launch_base<true, true, trt::Sweep, XT_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
-                                                            state_out, iters, stream);
+  return launch_base_regen<true, true, trt::Sweep, XT_REFILL, XT_MIN_BLOCKS>(
+      a, *tx, *xt, scene_buf, out, state_out, iters, nullptr, stream);
 }
 
-// Its residency bound (blocks an SM).
+// Its residency bound (blocks an SM; 0: none).
 extern "C" int trt_kernel_base_xt_min_blocks() { return XT_MIN_BLOCKS; }
+
+// Its nested twin (pipeline.cuh kernel_base_resident over trace.cuh
+// run_samples), the loops it replaced, held to XT_NESTED_MIN_BLOCKS: the
+// same arguments and outputs.
+extern "C" int trt_kernel_base_xt_nested(const BaseArgs* a, const trt::Tex* tx,
+                                         const trt::Xt* xt, const float* scene_buf, float* out,
+                                         long long* state_out, unsigned long long* iters,
+                                         void* stream) {
+  return launch_base<true, true, trt::Sweep, XT_NESTED_MIN_BLOCKS>(a, *tx, *xt, scene_buf, out,
+                                                                   state_out, iters, stream);
+}
 
 extern "C" int trt_kernel_base_chunked_xt(const ChunkArgs* a, const trt::Tex* tx,
                                           const trt::Xt* xt, const float* scene_buf, float* out,

@@ -63,6 +63,7 @@ ENTRY_POINTS = {
                        ("trt_kernel_base_chunked_ext_grouped_spill_cap", 0),
                        ("trt_kernel_base_xt", 8),
                        ("trt_kernel_base_xt_min_blocks", 0),
+                       ("trt_kernel_base_xt_nested", 8),
                        ("trt_kernel_base_chunked_xt", 8),
                        ("trt_kernel_base_chunked_xt_grouped", 8),
                        ("trt_kernel_base_chunked_xt_grouped_k", 0),
@@ -89,6 +90,7 @@ ENTRY_POINTS = {
                         ("trt_kernel_extra_ext_grouped_spill_cap", 0)),
     "kernel_accel.cu": (("trt_kernel_base_grid", 9),
                         ("trt_kernel_base_grid_min_blocks", 0),
+                        ("trt_kernel_base_grid_nested", 9),
                         ("trt_kernel_base_gathered", 9),
                         ("trt_kernel_base_gathered_min_blocks", 0),
                         ("trt_kernel_base_gathered_nested", 9),
@@ -158,7 +160,8 @@ RENDER_SOURCES = tuple(src for src in ENTRY_POINTS if src != "probes.cu")
 # kernel A's thread-per-pixel loop -DTRT_TUNE_LOOP), with
 # the grouped entries of the render libraries and the XT kernel A's forms
 # that the sweep weighs, the EXT and grid kernel A's thread per pixel and
-# the reference, EXT and gathered kernel A's loops (TUNE_ONLY_ENTRY_POINTS).
+# the reference, EXT, XT, grid and gathered kernel A's loops
+# (TUNE_ONLY_ENTRY_POINTS).
 TUNE_SOURCE = "group_tune.cu"
 # The define of a kernel_frame.cu build with its queue entries alone (the
 # sweep of tools/group_k.py --only frame, one library a width).
@@ -176,7 +179,8 @@ TUNE_ONLY_ENTRY_POINTS = (
     ("trt_kernel_base_ext", 7), ("trt_kernel_base_ext_min_blocks", 0),
     ("trt_kernel_base_ext_per_sm", 0),
     ("trt_kernel_base_ext_grouped_per_sm", 1), ("trt_kernel_base_loop", 7),
-    ("trt_kernel_base_ext_loop", 8), ("trt_kernel_base_gathered_loop", 10),
+    ("trt_kernel_base_ext_loop", 8), ("trt_kernel_base_xt_loop", 9),
+    ("trt_kernel_base_grid_loop", 10), ("trt_kernel_base_gathered_loop", 10),
     ("trt_kernel_base_loop_kind", 0),
     ("trt_kernel_base_loop_min_blocks", 0),
     ("trt_kernel_base_loop_per_sm", 1))

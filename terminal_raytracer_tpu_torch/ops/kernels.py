@@ -567,8 +567,9 @@ def _launch(lib, entry: str, args, tracer, kind: str, ptrs) -> None:
     '_gathered', '_grouped', '_xt_grouped', '_ext_grouped',
     '_grid_grouped', '_gathered_grouped', '_grouped_spill',
     '_xt_grouped_spill', '_ext_grouped_spill' or '_grid_grouped_spill' by
-    `kind`; kernel A also '_nested', '_ext_nested', '_gathered_nested', and
-    from csrc/group_tune.cu '_loop', '_ext_loop', '_gathered_loop') with its
+    `kind`; kernel A also '_nested', '_ext_nested', '_xt_nested',
+    '_grid_nested', '_gathered_nested', and from csrc/group_tune.cu '_loop',
+    '_ext_loop', '_xt_loop', '_grid_loop', '_gathered_loop') with its
     launch arguments and raise on a launch error."""
     name = entry if kind == "ref" else f"{entry}_{kind}"
     inst = (kind.removesuffix("_spill").removesuffix("grouped")
@@ -618,9 +619,9 @@ def _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
     """Launch kernel A's `kind` instantiation (the grouped entries for
     'grouped', 'ext_grouped', 'grid_grouped', 'grid_grouped_spill',
     'gathered_grouped', and csrc/group_tune.cu's thread-per-pixel loops
-    'loop', 'ext_loop', 'gathered_loop', which also take a zeroed pixel
-    counter; the nested twins of the thread per pixel 'nested',
-    'ext_nested', 'gathered_nested'),
+    'loop', 'ext_loop', 'xt_loop', 'grid_loop', 'gathered_loop', which also
+    take a zeroed pixel counter; the nested twins of the thread per pixel
+    'nested', 'ext_nested', 'xt_nested', 'grid_nested', 'gathered_nested'),
     from `lib` (default the render libraries). Its quota (BaseArgs.base),
     and with it the epilogue's 1 / base and budget cap, is the runtime
     share `base_q` where one is given (counted in
@@ -746,7 +747,8 @@ def base_kernel_xt(tracer, pose, seed: int, frame_number: int,
                    y0: int = 0, h_out: int = None,
                    base_q: int = None) -> BaseOut:
     """Kernel A's XT instantiation: base_kernel for a tracer with xt
-    tables (the transport and camera extensions, and EXT's)."""
+    tables (the transport and camera extensions, and EXT's); the thread per
+    pixel on the regeneration schedule (trt_kernel_base_xt)."""
     _require_xt(tracer, "base_kernel_xt")
     _no_chunks(tracer, "base_kernel_xt")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_xt"):
@@ -763,7 +765,8 @@ def base_kernel_grid(tracer, pose, seed: int, frame_number: int,
                      base_q: int = None) -> BaseOut:
     """Kernel A over the block-culled sweep: base_kernel for a tracer with
     accel 'grid' (XT instantiation); the grouped entry
-    base_kernel_grid_grouped where takes_grouped(tracer, 'base')."""
+    base_kernel_grid_grouped where takes_grouped(tracer, 'base'), else the
+    thread per pixel on the regeneration schedule (trt_kernel_base_grid)."""
     _require_traversal(tracer, "grid", "base_kernel_grid")
     if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid"):
         return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
@@ -910,6 +913,43 @@ def base_kernel_ext_nested(tracer, pose, seed: int, frame_number: int,
     return out
 
 
+def base_kernel_xt_nested(tracer, pose, seed: int, frame_number: int,
+                          y0: int = 0, h_out: int = None,
+                          base_q: int = None) -> BaseOut:
+    """base_kernel_nested at the XT gates (trt_kernel_base_xt_nested),
+    the nested twin of base_kernel_xt's thread per pixel: the same outputs
+    bit for bit at max_depth >= 1 (at max_depth 0 its paths bounce none,
+    where the plain version and the shipped entry bounce each once)."""
+    _require_xt(tracer, "base_kernel_xt_nested")
+    _no_chunks(tracer, "base_kernel_xt_nested")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_xt_nested"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "xt_nested")
+    base_kernel_xt_nested.launches += 1
+    return out
+
+
+def base_kernel_grid_nested(tracer, pose, seed: int, frame_number: int,
+                            y0: int = 0, h_out: int = None,
+                            base_q: int = None) -> BaseOut:
+    """base_kernel_nested over the culled sweep
+    (trt_kernel_base_grid_nested), the nested twin of base_kernel_grid's
+    thread per pixel: the same outputs and traversal counters bit for bit
+    at max_depth >= 1 (at max_depth 0 its paths bounce none, where the
+    plain version and the shipped entry bounce each once)."""
+    _require_traversal(tracer, "grid", "base_kernel_grid_nested")
+    _no_chunks(tracer, "base_kernel_grid_nested")
+    if not _on_cuda(tracer.tables.buf.device, "base_kernel_grid_nested"):
+        return base_kernel_plain(tracer, pose, seed, frame_number, y0, h_out,
+                                 base_q)
+    out = _launch_base(tracer, pose, seed, frame_number, y0, h_out, base_q,
+                       "grid_nested")
+    base_kernel_grid_nested.launches += 1
+    return out
+
+
 def base_kernel_gathered_nested(tracer, pose, seed: int, frame_number: int,
                                 y0: int = 0, h_out: int = None,
                                 base_q: int = None) -> BaseOut:
@@ -934,6 +974,8 @@ base_kernel.launches = 0
 base_kernel.quota_launches = 0  # launches of any instantiation with a base_q
 base_kernel_nested.launches = 0
 base_kernel_ext_nested.launches = 0
+base_kernel_xt_nested.launches = 0
+base_kernel_grid_nested.launches = 0
 base_kernel_gathered_nested.launches = 0
 base_kernel_grouped.launches = 0
 base_kernel_ext.launches = 0

@@ -8,7 +8,7 @@ the same inputs.
 
     python -m terminal_raytracer_tpu_torch.tools.group_k [--ks 1,2,4,8,16,32]
         [--reps 5] [--only base|spill|budget|xt|ext|walk|grid|frame|regen]
-        [--a-only] [--gates ref,ext,gathered]
+        [--a-only] [--gates ref,ext,gathered,xt,grid]
 
 Each K is its own library, csrc/group_tune.cu built with -DTRT_TUNE_K=K,
 and for K > 8 a second one with -DTRT_TUNE_WIDE=0 (the grid kernels'
@@ -118,9 +118,11 @@ bit for bit with the traversal counters against the plain version's
 within the budget (stress1024 and mesh1280 under grid), every form in
 turns with the shipped GroupCulled entries; then the grid kernel A's
 thread per pixel at the north star under grid (Cornell_Box 400x200, 16
-spp, depth 32: too few primitives for a group) as shipped and held to
-GRID_MIN_BLOCKS resident blocks an SM (-DTRT_TUNE_MIN_BLOCKS, csrc/
-group_tune.cu's trt_kernel_base_grid), twice in turns; then the chunked
+spp, depth 32: too few primitives for a group) as shipped (on the
+regeneration schedule; --only regen --gates grid sweeps its loop and
+bound) and on the nested loops, unbound and held to each bound
+(-DTRT_TUNE_MIN_BLOCKS, csrc/group_tune.cu's trt_kernel_base_grid),
+twice in turns; then the chunked
 grid kernel A at chunks of 2 (`--a-only`: it alone): within the budget
 over GroupCulled at each K and design, over it over each GroupCulledSpill
 form, beside the thread per entry, bit for bit with the counters. Needs a
@@ -141,20 +143,24 @@ thread per pixel, regen and lockstep: ms (the least of --reps runs of 3),
 the frame bit for bit the shipped entry's, regen's count and the resident
 blocks an SM; each library's queue kernels' ptxas lines.
 
---only regen [--gates ref,ext,gathered]: kernel A's thread per pixel at
-the reference and EXT gates and over the grid walk (the shipped
-trt_kernel_base / trt_kernel_base_ext / trt_kernel_base_gathered and their
-nested twins, trt_kernel_base_nested / _ext_nested / _gathered_nested)
-beside csrc/group_tune.cu's loops, one library (built with them alone,
--DTRT_TUNE_LOOP_ONLY=1) a loop (-DTRT_TUNE_LOOP: 0 the nested sample and
-bounce loops, 1 the regeneration schedule, 2 its refill form over a pixel
-counter) and residency bound (-DTRT_TUNE_MIN_BLOCKS: 0, 4, 5, 6), at
-REGEN_REF (the north star, its sp = 3 share 2, shipped, ascii 80x40, demo,
-scene2) and the five packaged extension scenes at their own size, and
-under --accel gathered at REGEN_GATHERED (REGEN_REF but demo, with fog),
-the five extension scenes and chip_smoke.py's [sched] Cornell gathered
-100x50: each form bit for bit against the plain version (where spp is
-below the base quota, against the nested twin; over the walk with the
+--only regen [--gates ref,ext,gathered,xt,grid]: kernel A's thread per
+pixel at the reference, EXT and XT gates and over the culled sweep and the
+grid walk (the shipped trt_kernel_base / _ext / _xt / _grid / _gathered
+and their nested twins, trt_kernel_base_nested / _ext_nested / _xt_nested
+/ _grid_nested / _gathered_nested) beside csrc/group_tune.cu's loops, one
+library (built with them alone, -DTRT_TUNE_LOOP_ONLY=1) a loop
+(-DTRT_TUNE_LOOP: 0 the nested sample and bounce loops, 1 the
+regeneration schedule, 2 its refill form over a pixel counter) and
+residency bound (-DTRT_TUNE_MIN_BLOCKS: 0, 4, 5, 6), at REGEN_REF (the
+north star, its sp = 3 share 2, shipped, ascii 80x40, demo, scene2) and
+the five packaged extension scenes at their own size; under --accel
+gathered at REGEN_GATHERED (REGEN_REF but demo, with fog), the five
+extension scenes and chip_smoke.py's [sched] Cornell gathered 100x50; at
+the XT gates at REGEN_XT (fog, stratified, DOF, manylights_one, showcase
+--mis, fog's sp = 3 share 2); under --accel grid at REGEN_GRID (the north
+star, shipped, ascii 80x40, fog) and the five extension scenes: each form
+bit for bit against the plain version (where spp is below the base quota,
+against the nested twin; over the culled sweep and the walk with the
 traversal counters), its counter against its model, its ptxas line and
 resident blocks an SM, its device time behind a queued spin, twice in
 turns, with each form's summed time per gate set; each configuration's
@@ -733,10 +739,12 @@ def sweep_xt(reps, ks=XT_CHUNKED_KS) -> None:
     # The XT kernel A's forms at its main-path scenes.
     libs = {form: build.load_kernels((src,)) for form, src in base.items()}
     logs = {form: log(src) for form, src in base.items()}
-    shipped = ("20kernel_base_residentILb1ELb1E"
-               if "kernel_base_resident" in render_log
-               else "11kernel_baseILb1ELb1E")
-    print(f"[group_k] XT kernel A shipped: "
+    # The shipped entry runs the regeneration schedule (its nested twin is
+    # kernel_base_resident); the forms below are the nested loops.
+    regen = "kernel_base_regen_residentILb1ELb1EN3trt5SweepE"
+    shipped = (regen if regen in render_log
+               else "17kernel_base_regenILb1ELb1EN3trt5SweepE")
+    print(f"[group_k] XT kernel A shipped (regeneration): "
           f"{_ptxas(render_log, shipped)[2:]}", flush=True)
     for label, tr in (
             ("fog", PathTracer(scene("Cornell_Box", 400, 200, 16, 32,
@@ -1406,27 +1414,49 @@ def sweep_frame(reps, ks=FRAME_KS) -> None:
                       "blocks an SM", flush=True)
 
 
-# --only regen: kernel A's thread-per-pixel loop at the reference and EXT
-# gates and over the grid walk, one csrc/group_tune.cu library (built with
-# its loops alone) a loop (-DTRT_TUNE_LOOP: REGEN_LOOPS) and residency
-# bound (-DTRT_TUNE_MIN_BLOCKS: REGEN_BOUNDS; 0, unbound), at the
-# configurations where the thread per pixel serves: REGEN_REF (Cornell_Box
-# below GROUP_BASE_MIN_PRIMS, demo and scene2 with sphere lights, demo's 21
-# primitives taking the grouped entry in a render) and the five packaged
-# extension scenes; under --accel gathered REGEN_GATHERED, the five packaged
-# extension scenes too and [sched]'s Cornell gathered of chip_smoke.py.
+# --only regen: kernel A's thread-per-pixel loop at the reference, EXT and
+# XT gates and over the culled sweep and the grid walk, one
+# csrc/group_tune.cu library (built with its loops alone) a loop
+# (-DTRT_TUNE_LOOP: REGEN_LOOPS) and residency bound (-DTRT_TUNE_MIN_BLOCKS:
+# REGEN_BOUNDS; 0, unbound), at the configurations where the thread per
+# pixel serves: REGEN_REF (Cornell_Box below GROUP_BASE_MIN_PRIMS, demo and
+# scene2 with sphere lights, demo's 21 primitives taking the grouped entry
+# in a render) and the five packaged extension scenes; under --accel
+# gathered REGEN_GATHERED, the five packaged extension scenes too and
+# [sched]'s Cornell gathered of chip_smoke.py; at the XT gates REGEN_XT
+# (chip_smoke.py's XT_CONFIGS that kernel A serves unchunked, and fog's sp
+# = 3 share 2; the XT kernel A has no grouped form, so it serves
+# manylights_one's 57 primitives too); under --accel grid REGEN_GRID and
+# the five packaged extension scenes. A configuration: (label, scene,
+# (width, height, spp, depth) or None for the scene's own, overrides,
+# transport).
 REGEN_LOOPS = {0: "nested", 1: "regen", 2: "refill"}
 REGEN_BOUNDS = (0, 4, 5, 6)
-REGEN_GATES = ("ref", "ext", "gathered")
-REGEN_REF = (("north star", "Cornell_Box", (400, 200, 16, 32)),
-             ("north star sp 3 share 2", "Cornell_Box", (400, 200, 16, 32)),
-             ("shipped", "Cornell_Box", (400, 200, 128, 3)),
-             ("ascii 80x40", "Cornell_Box", (80, 40, 1, 4)),
-             ("demo", "demo", None), ("scene2", "scene2", None))
+REGEN_GATES = ("ref", "ext", "gathered", "xt", "grid")
+NORTH_STAR = (400, 200, 16, 32)
+FOG = {"fog": Fog(density=0.15)}
+REGEN_REF = (("north star", "Cornell_Box", NORTH_STAR, {}, "reference"),
+             ("north star sp 3 share 2", "Cornell_Box", NORTH_STAR, {},
+              "reference"),
+             ("shipped", "Cornell_Box", (400, 200, 128, 3), {}, "reference"),
+             ("ascii 80x40", "Cornell_Box", (80, 40, 1, 4), {}, "reference"),
+             ("demo", "demo", None, {}, "reference"),
+             ("scene2", "scene2", None, {}, "reference"))
 REGEN_GATHERED = tuple(c for c in REGEN_REF if c[0] != "demo") + (
-    ("fog", "Cornell_Box", (400, 200, 16, 32)),)
+    ("fog", "Cornell_Box", NORTH_STAR, FOG, "reference"),)
 REGEN_GATHERED_LAST = ("Cornell gathered 100x50", "Cornell_Box",
-                       (100, 50, 8, 6))
+                       (100, 50, 8, 6), {}, "reference")
+REGEN_XT = (("fog", "Cornell_Box", NORTH_STAR, FOG, "reference"),
+            ("stratified", "Cornell_Box", NORTH_STAR,
+             {"sampler": "stratified"}, "reference"),
+            ("dof", "Cornell_Box", NORTH_STAR,
+             {"aperture": 0.1, "focus_distance": 3.0}, "reference"),
+            ("manylights_one", "lights:16", None, {"light_sample": "power"},
+             "reference"),
+            ("showcase mis", "showcase", None, {}, "mis"),
+            ("fog sp 3 share 2", "Cornell_Box", NORTH_STAR, FOG,
+             "reference"))
+REGEN_GRID = (REGEN_REF[0], REGEN_REF[2], REGEN_REF[3], REGEN_XT[0])
 # Each gate set's shipped kind (ops/kernels._launch_base), nested twin's
 # kind, csrc/group_tune.cu loop's kind, the `gates` argument of its
 # trt_kernel_base_loop_per_sm, the render source and the template
@@ -1436,7 +1466,11 @@ REGEN_KINDS = {
     "ext": ("ext", "ext_nested", "ext_loop", 1, "kernel_base.cu",
             "ILb1ELb0E"),
     "gathered": ("gathered", "gathered_nested", "gathered_loop", 2,
-                 "kernel_accel.cu", "ILb1ELb1EN3trt4WalkE")}
+                 "kernel_accel.cu", "ILb1ELb1EN3trt4WalkE"),
+    "xt": ("xt", "xt_nested", "xt_loop", 3, "kernel_base.cu",
+           "ILb1ELb1EN3trt5SweepE"),
+    "grid": ("grid", "grid_nested", "grid_loop", 4, "kernel_accel.cu",
+             "ILb1ELb1EN3trt6CulledE")}
 
 
 def _regen_libs():
@@ -1447,7 +1481,8 @@ def _regen_libs():
 
 
 def _regen_counted(tr, fn):
-    """fn() and, over the grid walk, the traversal counters it added."""
+    """fn() and, over the culled sweep or the grid walk, the traversal
+    counters it added."""
     if tr.traversal is None:
         return fn(), None
     tr.accel_stats = torch.zeros(4, dtype=torch.int64, device="cuda")
@@ -1462,22 +1497,22 @@ def _regen_counted(tr, fn):
 def _regen_case(label, tr, pose, seed, base_q, libs, logs):
     """The inputs and checks of one --only regen configuration: returns
     {form: launch} and check(form, launch) -> its line's text (over the
-    grid walk the launch is made with the traversal counters on, which must
-    equal the plain version's)."""
+    culled sweep and the grid walk the launch is made with the traversal
+    counters on, which must equal the plain version's)."""
     gate = kernels._kind(tr)
     shipped, nested_kind, loop_kind, gate_arg, _, gates = REGEN_KINDS[gate]
-    walk = tr.traversal is not None
-    if walk:
+    counted = tr.traversal is not None
+    if counted:
         tr.prims.ops = torch.zeros((), dtype=torch.float64, device="cuda")
     p = kernels.base_kernel_plain(tr, pose, seed, 0, base_q=base_q)
-    plain_counts = tr.prims.stats.to(torch.int64).cpu() if walk else None
+    plain_counts = tr.prims.stats.to(torch.int64).cpu() if counted else None
     tr.prims.ops = None
     want = (*p.csum, *p.csumsq, p.rays, p.var, p.additional, p.state)
     # Below `quota` samples per pixel the plain scheduler's step bound,
     # (spp + 1) x max_depth + 4, may end the base phase before its last
     # samples (ops/tracer.py run_regen, as the JAX package's); the kernels,
     # like the TPU kernel A, render every base sample. There every form is
-    # held to the nested twin alone, over the grid walk with its counters.
+    # held to the nested twin alone, over a traversal with its counters.
     cut = tr.spp < (base_q or tr.base_samples)
     if cut:
         o, plain_counts = _regen_counted(tr, lambda: kernels._launch_base(
@@ -1516,7 +1551,7 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
         out, counts = _regen_counted(tr, launch)
         same = _equal((*out.csum, *out.csumsq, out.rays, out.var,
                        out.additional, out.state), want)
-        if walk:
+        if counted:
             same = same and bool(torch.equal(counts, plain_counts))
         got = float(out.iters)
         loop = form[0] if form in libs else int(form == "shipped")
@@ -1530,8 +1565,8 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
             model = got == float(regen)
             executed = float(regen if loop else nested)
             text = f"equal {same}, counter warp_iters {model}"
-        if walk:
-            text += f", walk counters {counts.tolist()}"
+        if counted:
+            text += f", {tr.traversal} counters {counts.tolist()}"
         text += f", occupancy {owed / (executed * per):.3f}"
         if form in libs:
             minb = form[1]
@@ -1557,33 +1592,32 @@ def _regen_case(label, tr, pose, seed, base_q, libs, logs):
 def _regen_tracers(gate):
     """(label, tracer, seed, base_q) of gate set `gate`'s configurations."""
     out = []
-    accel = "gathered" if gate == "gathered" else "auto"
-    if gate == "ext":
-        configs = [(f"{n} 400x200", n, None) for n in EXT_PACKAGED]
-    elif gate == "ref":
-        configs = list(REGEN_REF)
-    else:
-        configs = ([(f"{label} gathered", n, size)
-                    for label, n, size in REGEN_GATHERED]
-                   + [(f"{n} 400x200 gathered", n, None)
-                      for n in EXT_PACKAGED] + [REGEN_GATHERED_LAST])
-    for label, name, size in configs:
-        scene = load_scene(name)
+    accel = gate if gate in ("gathered", "grid") else "auto"
+    ext = [(f"{n} 400x200", n, None, {}, "reference") for n in EXT_PACKAGED]
+    configs = {"ref": REGEN_REF, "ext": ext, "xt": REGEN_XT,
+               "gathered": REGEN_GATHERED + tuple(ext),
+               "grid": REGEN_GRID + tuple(ext)}[gate]
+    if accel != "auto":
+        configs = [(f"{c[0]} {accel}", *c[1:]) for c in configs]
+    if gate == "gathered":
+        configs.append(REGEN_GATHERED_LAST)
+    for label, name, size, over, transport in configs:
+        scene = load_scene(name).with_overrides(**over)
         if size:
             w, h, spp, depth = size
             scene = scene.with_overrides(width=w, height=h,
                                          samples_per_pixel=spp,
                                          max_depth=depth)
-        if label.startswith("fog"):
-            scene = scene.with_overrides(fog=Fog(density=0.15))
         seed, q, quota = SEED, None, None
         if "share" in label:
-            split = SampleSplit(scene, "cuda", 3)
+            split = SampleSplit(scene, "cuda", 3, transport=transport)
             seed, q = split.seed(SEED, 0), split.share(0)
             quota = split.tracer.base_quota
-        tr = PathTracer(scene, "cuda", accel=accel, base_quota=quota)
-        if kernels._kind(tr) != gate:
-            raise SystemExit(f"group_k: {label} takes {kernels._kind(tr)!r}")
+        tr = PathTracer(scene, "cuda", accel=accel, base_quota=quota,
+                        transport=transport)
+        if kernels._kind(tr) != gate or tr.chunk_base:
+            raise SystemExit(f"group_k: {label} takes {kernels._kind(tr)!r}"
+                             f", chunks of {tr.chunk_base}")
         out.append((label, tr, seed, q))
     return out
 
@@ -1594,7 +1628,9 @@ def sweep_regen(reps, gates=REGEN_GATES) -> None:
     (over the grid walk with the traversal counters), each counter against
     its model, at the configurations of each gate set of `gates`
     (_regen_tracers), timed on the device (_time_queued); twice, the second
-    run in the reverse order, with each form's summed time per gate set."""
+    run in the reverse order, with each form's summed time per gate set.
+    Where a nested twin is held to a bound (the XT and grid ones), its
+    ptxas line is that of kernel_base_resident."""
     srcs = _regen_libs()
     t0 = time.perf_counter()
     paths = build.library_paths(build.RENDER_SOURCES + tuple(srcs.values()))
@@ -1609,10 +1645,12 @@ def sweep_regen(reps, gates=REGEN_GATES) -> None:
         render_log = paths[source].with_suffix(".log").read_text()
         bound = "26kernel_base_regen_resident" + tmpl
         shipped = bound if bound in render_log else "17kernel_base_regen" + tmpl
+        twin = "20kernel_base_resident" + tmpl
+        twin = twin if twin in render_log else "11kernel_base" + tmpl
         print(f"[group_k] shipped {gate}: regeneration "
               f"({shipped[2:shipped.index('I')]}){_ptxas(render_log, shipped)};"
-              f" nested{_ptxas(render_log, '11kernel_base' + tmpl)}",
-              flush=True)
+              f" nested ({twin[2:twin.index('I')]})"
+              f"{_ptxas(render_log, twin)}", flush=True)
     pose = Camera().pose()
     cases = [(gate, label, _regen_case(label, tr, pose, seed, q, libs, logs))
              for gate in gates
